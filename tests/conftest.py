@@ -32,3 +32,10 @@ import jax  # noqa: E402
 # Differential tests compare against exact numpy references; the platform's
 # default matmul precision is reduced (bf16-like), so force exact f32.
 jax.config.update("jax_default_matmul_precision", "highest")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the PyTorch port's kernels); skips without one",
+    )
