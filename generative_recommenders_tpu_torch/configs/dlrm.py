@@ -1,7 +1,8 @@
 """Per-dataset DlrmHSTU presets (port of
 `generative_recommenders_tpu/configs/dlrm.py`, kept as data): debug /
 movielens-1m / movielens-20m / kuairand-1k feature wiring, multitask tasks
-and embedding tables. Only the random `debug` dataset is served by this
+and embedding tables, with the training values (dropout rates, multitask
+loss weight). Only the random `debug` dataset is served and trained by this
 port; the real-dataset loaders are still to port.
 """
 
@@ -44,6 +45,9 @@ def get_hstu_configs(
         hstu_embedding_table_dim=256,
         hstu_transducer_embedding_dim=512,
         hstu_group_norm=True,
+        hstu_input_dropout_ratio=0.2,
+        hstu_linear_dropout_rate=0.1,
+        causal_multitask_weights=0.2,
     )
     if "movielens" in dataset:
         small = dataset == "movielens-1m"

@@ -65,7 +65,9 @@ class HSTUModelFamily:
             self.cfg, self.model.feature_to_table, self._lookup,
             uih_features, uih_lengths, candidates_features,
         )
-        return self.model.main_forward(seq_embeddings, payloads, uih_lengths, num_candidates)
+        return self.model.main_forward(
+            seq_embeddings, payloads, uih_lengths, num_candidates, compute_losses=False
+        )[3]
 
     @torch.inference_mode()
     def predict_mfalcon(

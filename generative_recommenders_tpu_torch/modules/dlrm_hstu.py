@@ -1,11 +1,12 @@
-"""DlrmHSTU, the production multitask ranker, at serving (port of
+"""DlrmHSTU, the production multitask ranker (port of
 `generative_recommenders_tpu/modules/dlrm_hstu.py`).
 
 Embedding lookup of uih + candidate features -> merge into one
 [uih | candidates] sequence -> item tower MLP and user tower
-(HSTUTransducer) -> multitask predictions; plus the M-FALCON prefill and
-chunk scoring. The tables are parameters named ``embedding_tables_<name>``
-as in the JAX package.
+(HSTUTransducer) -> multitask predictions and, for training, the
+supervision decoded from the candidates' action bitmasks and watch time and
+the per-task losses; plus the M-FALCON prefill and chunk scoring. The tables
+are parameters named ``embedding_tables_<name>`` as in the JAX package.
 
 Batch layout, padded-dense:
   uih_features:        Dict[name, [B, max_uih_len]]        + uih_lengths int[B]
@@ -25,6 +26,7 @@ from generative_recommenders_tpu_torch.modules.mlp import SwishMLP, new_param, t
 from generative_recommenders_tpu_torch.modules.multitask_module import (
     DefaultMultitaskModule,
     TaskConfig,
+    get_supervision_labels_and_weights,
 )
 from generative_recommenders_tpu_torch.modules.positional_encoder import (
     HSTUPositionalEncoder,
@@ -36,7 +38,7 @@ from generative_recommenders_tpu_torch.modules.postprocessors import (
 )
 from generative_recommenders_tpu_torch.modules.preprocessors import ContextualPreprocessor
 from generative_recommenders_tpu_torch.modules.stu import KVCache, STULayerConfig, STUStack
-from generative_recommenders_tpu_torch.ops.padded import concat_tail
+from generative_recommenders_tpu_torch.ops.padded import concat_tail, valid_mask
 
 Lookup = Callable[[str, torch.Tensor], torch.Tensor]
 
@@ -51,9 +53,8 @@ class EmbeddingTableConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DlrmHSTUConfig:
-    """The serving fields of the JAX package's `DlrmHSTUConfig` (dropout
-    rates, the attention-kernel choice and the dynamic STU wrappers are
-    training or TPU options and are not carried over)."""
+    """The JAX package's `DlrmHSTUConfig` without the attention-kernel
+    choice (a TPU option) and the dynamic STU wrappers (not ported yet)."""
 
     max_uih_len: int = 256
     max_num_candidates: int = 10
@@ -65,11 +66,14 @@ class DlrmHSTUConfig:
     hstu_embedding_table_dim: int = 192
     hstu_transducer_embedding_dim: int = 0
     hstu_group_norm: bool = False
+    hstu_input_dropout_ratio: float = 0.2
+    hstu_linear_dropout_rate: float = 0.2
     contextual_feature_to_max_length: Tuple[Tuple[str, int], ...] = ()
     contextual_feature_to_min_uih_length: Tuple[Tuple[str, int], ...] = ()
     candidates_weight_feature_name: str = ""
     candidates_watchtime_feature_name: str = ""
     candidates_querytime_feature_name: str = ""
+    causal_multitask_weights: float = 0.2
     multitask_configs: Tuple[TaskConfig, ...] = ()
     user_embedding_feature_names: Tuple[str, ...] = ()
     item_embedding_feature_names: Tuple[str, ...] = ()
@@ -110,6 +114,7 @@ class DlrmHSTU(nn.Module):
             num_heads=cfg.hstu_num_heads,
             hidden_dim=cfg.hstu_attn_linear_dim,
             attention_dim=cfg.hstu_attn_qk_dim,
+            output_dropout_ratio=cfg.hstu_linear_dropout_rate,
             use_group_norm=cfg.hstu_group_norm,
             contextual_seq_len=ctx_len,
             # the training-time padded length, so that the M-FALCON prefill
@@ -137,11 +142,14 @@ class DlrmHSTU(nn.Module):
             positional_encoder=HSTUPositionalEncoder(
                 cfg.num_position_buckets, cfg.num_time_buckets, D, ctx_len, gen
             ),
+            input_dropout_ratio=cfg.hstu_input_dropout_ratio,
         )
         self.item_embedding_mlp = SwishMLP(
             cfg.hstu_embedding_table_dim * len(cfg.item_embedding_feature_names), 512, D, gen
         )
-        self.multitask_module = DefaultMultitaskModule(cfg.multitask_configs, D, gen=gen)
+        self.multitask_module = DefaultMultitaskModule(
+            cfg.multitask_configs, D, cfg.causal_multitask_weights, gen=gen
+        )
 
     def table(self, name: str) -> torch.Tensor:
         return getattr(self, f"embedding_tables_{name}")
@@ -161,9 +169,17 @@ class DlrmHSTU(nn.Module):
         payload_features: Dict[str, torch.Tensor],
         uih_lengths: torch.Tensor,
         num_candidates: torch.Tensor,
-    ) -> torch.Tensor:
-        """Multitask predictions [T, B, max_num_candidates]."""
+        deterministic: bool = True,
+        compute_losses: bool = True,
+        gen: Optional[torch.Generator] = None,
+    ):
+        """Returns (user_embeddings, item_embeddings, aux_losses {task: loss},
+        preds [T, B, M], labels, weights), as the JAX package does; without
+        ``compute_losses`` aux_losses is empty and labels and weights are
+        None. ``deterministic=False`` turns dropout on, drawn from ``gen``."""
         cfg = self.cfg
+        M = cfg.max_num_candidates
+        item_embeddings = self._item_forward(seq_embeddings)
         user_embeddings = self.hstu_transducer(
             seq_embeddings[cfg.uih_post_id_feature_name],
             uih_lengths + num_candidates,
@@ -172,9 +188,23 @@ class DlrmHSTU(nn.Module):
             uih_lengths,
             num_candidates,
             {**payload_features, **seq_embeddings},
-            max_targets=cfg.max_num_candidates,
+            max_targets=M,
+            deterministic=deterministic,
+            gen=gen,
         )
-        return self.multitask_module(user_embeddings, self._item_forward(seq_embeddings))
+        labels, weights = get_supervision_labels_and_weights(
+            payload_features[cfg.candidates_weight_feature_name],
+            payload_features[cfg.candidates_watchtime_feature_name],
+            cfg.multitask_configs,
+        )
+        preds, mt_labels, mt_weights, mt_losses = self.multitask_module(
+            user_embeddings, item_embeddings, labels, weights,
+            valid_mask(num_candidates, M), compute_losses=compute_losses,
+        )
+        aux_losses = {}
+        if compute_losses:
+            aux_losses = {t.task_name: mt_losses[i] for i, t in enumerate(cfg.multitask_configs)}
+        return user_embeddings, item_embeddings, aux_losses, preds, mt_labels, mt_weights
 
     def forward(
         self,
@@ -182,12 +212,19 @@ class DlrmHSTU(nn.Module):
         uih_lengths: torch.Tensor,
         candidates_features: Dict[str, torch.Tensor],
         num_candidates: torch.Tensor,
-    ) -> torch.Tensor:
+        deterministic: bool = True,
+        compute_losses: bool = True,
+        gen: Optional[torch.Generator] = None,
+    ):
+        """Lookup and merge, then `main_forward` (same return)."""
         seq_embeddings, payload_features = lookup_and_merge_features(
             self.cfg, self.feature_to_table, self._lookup,
             uih_features, uih_lengths, candidates_features,
         )
-        return self.main_forward(seq_embeddings, payload_features, uih_lengths, num_candidates)
+        return self.main_forward(
+            seq_embeddings, payload_features, uih_lengths, num_candidates,
+            deterministic=deterministic, compute_losses=compute_losses, gen=gen,
+        )
 
     def _split(self, features: Dict[str, torch.Tensor]):
         emb, payloads = {}, {}
@@ -228,7 +265,11 @@ class DlrmHSTU(nn.Module):
         cand_input = emb[dict(cfg.merge_uih_candidate_feature_mapping)[cfg.uih_post_id_feature_name]]
         cand_ts = payloads[cfg.candidates_querytime_feature_name]
         user_embeddings = self.hstu_transducer.cached_score(cand_input, cand_ts, caches, query_time)
-        return self.multitask_module(user_embeddings, self._item_forward(emb))
+        return self.multitask_module(
+            user_embeddings, self._item_forward(emb), {}, {},
+            torch.ones(cand_ts.shape, dtype=torch.bool, device=cand_ts.device),
+            compute_losses=False,
+        )[0]
 
 
 def lookup_and_merge_features(

@@ -1,15 +1,17 @@
 """HSTU transducer (port of
 `generative_recommenders_tpu/modules/hstu_transducer.py`), padded-dense.
 
-Input preprocessor -> positional encoder -> STU stack -> candidate
-embeddings -> output postprocessor, at serving (no dropout). The M-FALCON
-path: `prefill` encodes the uih prefix once and returns per-layer KV caches;
-`cached_score` scores a candidate chunk against them.
+Input preprocessor -> positional encoder -> input dropout -> STU stack ->
+candidate embeddings -> output postprocessor. Dropout runs only when the
+caller passes ``deterministic=False`` and a generator; ``listwise`` turns
+the target-aware masking off in training. The M-FALCON path: `prefill`
+encodes the uih prefix once and returns per-layer KV caches; `cached_score`
+scores a candidate chunk against them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -19,6 +21,7 @@ from generative_recommenders_tpu_torch.modules.positional_encoder import (
 )
 from generative_recommenders_tpu_torch.modules.preprocessors import ContextualPreprocessor
 from generative_recommenders_tpu_torch.modules.stu import KVCache, STUStack
+from generative_recommenders_tpu_torch.ops.hstu_compute import dropout
 from generative_recommenders_tpu_torch.ops.padded import gather_tail
 
 
@@ -29,12 +32,16 @@ class HSTUTransducer(nn.Module):
         input_preprocessor: ContextualPreprocessor,
         output_postprocessor: nn.Module,
         positional_encoder: HSTUPositionalEncoder,
+        input_dropout_ratio: float = 0.0,
+        listwise: bool = False,
     ) -> None:
         super().__init__()
         self.stu_module = stu_module
         self.input_preprocessor = input_preprocessor
         self.output_postprocessor = output_postprocessor
         self.positional_encoder = positional_encoder
+        self.input_dropout_ratio = input_dropout_ratio
+        self.listwise = listwise
 
     def forward(
         self,
@@ -45,16 +52,19 @@ class HSTUTransducer(nn.Module):
         num_targets: torch.Tensor,  # int[B]
         seq_payloads: Dict[str, torch.Tensor],
         max_targets: int,
+        deterministic: bool = True,
+        gen: Optional[torch.Generator] = None,  # the dropout's, when not deterministic
     ) -> torch.Tensor:
         """Postprocessed candidate embeddings [B, max_targets, D]."""
         pre = self.input_preprocessor(
             seq_embeddings, seq_lengths, seq_timestamps, uih_lengths,
             num_targets, seq_payloads,
         )
-        x = self.positional_encoder(
-            pre.seq_embeddings, pre.seq_lengths, pre.seq_timestamps, pre.num_targets
-        )
-        encoded = self.stu_module(x, pre.seq_lengths, pre.num_targets)
+        nt = None if (self.listwise and not deterministic) else pre.num_targets
+        x = self.positional_encoder(pre.seq_embeddings, pre.seq_lengths, pre.seq_timestamps, nt)
+        if not deterministic:
+            x = dropout(x, self.input_dropout_ratio, gen)
+        encoded = self.stu_module(x, pre.seq_lengths, nt, deterministic, gen)
         cand = gather_tail(encoded, pre.uih_lengths, max_targets)
         cand_ts = gather_tail(pre.seq_timestamps, pre.uih_lengths, max_targets)
         return self.output_postprocessor(cand, cand_ts)

@@ -3,8 +3,10 @@ path (port of `generative_recommenders_tpu/modules/stu.py`).
 
 Layout is padded-dense [B, N, D] plus lengths; the attention kernels handle
 the jaggedness. The KV cache is an explicit `KVCache` value passed through
-calls. The dynamic SD/L2 wrappers and the recompute policy are training
-features and are not part of this port yet.
+calls. ``deterministic=False`` turns on the output dropout, drawn from the
+``torch.Generator`` passed with it. The dynamic SD/L2 wrappers
+(`modules/dynamic_stu.py`), the `nn.remat` recompute policy (it changes
+memory, not numbers) and `sort_by_length` are not part of this port yet.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class STULayerConfig:
     num_heads: int
     hidden_dim: int
     attention_dim: int
+    output_dropout_ratio: float = 0.3
     causal: bool = True
     target_aware: bool = True
     max_attn_len: int = 0
@@ -87,15 +90,20 @@ class STULayer(nn.Module):
             hidden_dim=cfg.hidden_dim,
         )
 
-    def _output(self, attn: torch.Tensor, u: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def _output(
+        self, attn: torch.Tensor, u: torch.Tensor, x: torch.Tensor,
+        deterministic: bool = True, gen: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         cfg = self.config
         return hstu_compute_output(
             attn, u, x, self.output_norm_weight, self.output_norm_bias,
             self.output_weight, num_heads=cfg.num_heads,
             linear_dim=cfg.hidden_dim, group_norm=cfg.use_group_norm,
+            dropout_ratio=cfg.output_dropout_ratio, dropout_gen=gen,
+            training=not deterministic,
         )
 
-    def _forward(self, x, lengths, num_targets):
+    def _forward(self, x, lengths, num_targets, deterministic=True, gen=None):
         cfg = self.config
         B, N, _ = x.shape
         u, q, k, v = self._uqvk(x)
@@ -106,15 +114,17 @@ class STULayer(nn.Module):
             max_attn_len=cfg.max_attn_len,
             contextual_seq_len=cfg.contextual_seq_len,
         ).reshape(B, N, cfg.num_heads * cfg.hidden_dim)
-        return self._output(attn, u, x), k, v
+        return self._output(attn, u, x, deterministic, gen), k, v
 
     def forward(
         self,
         x: torch.Tensor,  # [B, N, D]
         lengths: torch.Tensor,  # int[B]
         num_targets: Optional[torch.Tensor] = None,  # int[B]
+        deterministic: bool = True,
+        gen: Optional[torch.Generator] = None,  # the dropout's, when not deterministic
     ) -> torch.Tensor:
-        return self._forward(x, lengths, num_targets)[0]
+        return self._forward(x, lengths, num_targets, deterministic, gen)[0]
 
     def prefill(
         self,
@@ -179,9 +189,11 @@ class STUStack(nn.Module):
         x: torch.Tensor,
         lengths: torch.Tensor,
         num_targets: Optional[torch.Tensor] = None,
+        deterministic: bool = True,
+        gen: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, lengths, num_targets)
+            x = layer(x, lengths, num_targets, deterministic, gen)
         return x
 
     def prefill(

@@ -20,12 +20,15 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_port")
 
-# kernel name -> its source file; every source includes the shared header
+# kernel name -> its source file; every source includes the shared headers
 KERNEL_SOURCES = {
     "hstu_mha_fwd": "hstu_mha_fwd.cu",
     "delta_hstu_mha_fwd": "delta_hstu_mha_fwd.cu",
+    "hstu_mha_bwd_fused": "hstu_mha_bwd_fused.cu",
+    "hstu_mha_bwd_dq": "hstu_mha_bwd_dq.cu",
+    "hstu_mha_bwd_dkv": "hstu_mha_bwd_dkv.cu",
 }
-_HEADERS = ("hstu_attention.cuh",)
+_HEADERS = ("hstu_attention.cuh", "hstu_attention_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

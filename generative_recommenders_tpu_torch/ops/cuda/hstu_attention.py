@@ -1,20 +1,31 @@
 """HSTU attention kernels for Hopper, with their plain PyTorch versions.
 
-Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py` (the
-forward kernels on the serving path):
+Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
 
 * ``hstu_mha_dense_cuda``: kernel K1 (`csrc/hstu_mha_fwd.cu`), replacing
-  `_fwd_kernel_rkv` / `_fwd_kernel` behind `hstu_mha_dense_pallas`;
+  `_fwd_kernel_rkv` / `_fwd_kernel` behind `hstu_mha_dense_pallas`, and on
+  CUDA tensors differentiable through the backward kernels below (the
+  custom VJP `_hstu_mha_pallas_core` becomes `_HstuMhaDense`);
+* ``hstu_mha_bwd_cuda``: kernel K2 (`csrc/hstu_mha_bwd_fused.cu`),
+  replacing `_bwd_fused_kernel_rkv`, the default backward; or, with
+  ``split``, kernels K3 then K4 (`csrc/hstu_mha_bwd_dq.cu`,
+  `csrc/hstu_mha_bwd_dkv.cu`), replacing `_bwd_dq_kernel` and
+  `_bwd_dkv_kernel`: the split backward, which the autograd function takes
+  when ``torch.are_deterministic_algorithms_enabled()`` (K2 sums dq with
+  atomics in a different order on every run; K3 + K4 give the same bits);
 * ``delta_hstu_mha_cuda``: kernel K5 (`csrc/delta_hstu_mha_fwd.cu`),
   replacing `_delta_fwd_kernel_rkv` behind `delta_hstu_mha_pallas`.
 
-Both keep the JAX signatures and the [B, N, H, D] layout. A wrapper given
+All keep the JAX signatures and the [B, N, H, D] layout. A wrapper given
 CPU tensors computes its plain version; given CUDA tensors it launches its
-kernel on the current stream or raises, and counts the launch in its
-``launches`` counter. The TPU wrappers' transposes, their padding of N to
-tile multiples and their block-size tables are VMEM artefacts and are not
-ported: the kernels read strided [B, N, H, D] views and mask the ragged
-edge themselves. Both kernels compute in float32, the serving path's type.
+kernels on the current stream or raises, and counts each launch, where it
+happens, in its ``launches`` counter (the backward has one per kernel).
+The TPU wrappers' transposes, their padding of N to tile multiples, their
+block-size tables and the backward's `_pack_rows`
+residual packing are VMEM and lane-padding artefacts and are not ported:
+the kernels read strided [B, N, H, D] views and mask the ragged edge
+themselves. All kernels compute in float32, the serving and training
+paths' type.
 
 HSTU attention replaces softmax with a pointwise gate:
 
@@ -25,7 +36,7 @@ HSTU attention replaces softmax with a pointwise gate:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,11 +49,16 @@ from generative_recommenders_tpu_torch.ops.attention_mask import (
 from generative_recommenders_tpu_torch.ops.cuda.build import LaunchCounter, load
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of the two entry points (csrc/*.cu)
+_BWD_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_P]
+# C signatures of the entry points (csrc/*.cu)
 _ARGTYPES = {
     "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P],
     "delta_hstu_mha_fwd": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 3 + [_P],
+    "hstu_mha_bwd_fused": _BWD_ARGTYPES,
+    "hstu_mha_bwd_dq": _BWD_ARGTYPES,
+    "hstu_mha_bwd_dkv": _BWD_ARGTYPES,
 }
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _SUPPORTED_V = (16, 32, 64, 128)
 _MAX_D = 256
 
@@ -93,6 +109,24 @@ def hstu_mha_dense_plain(
         lengths,
     )
     return hstu_mha_dense(q, k, v, alpha=alpha, max_seq_len=max_seq_len or N, mask=mask)
+
+
+def hstu_mha_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    do: torch.Tensor,  # [B, N, H, V]: the gradient of the output
+    **kw,
+) -> Grads:
+    """The backward kernels' function in plain PyTorch: (dq, dk, dv) of
+    `hstu_mha_dense_plain` (same keywords) at the output gradient ``do``,
+    by autograd. Rows and columns >= length get exact zeros."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = hstu_mha_dense_plain(*leaves, lengths, **kw)
+        dq, dk, dv = torch.autograd.grad(out, leaves, do)
+    return dq, dk, dv
 
 
 def delta_hstu_mha_plain(
@@ -177,6 +211,68 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _mask_args(kw: dict, N: int) -> tuple:
+    """alpha, 1 / norm, causal, max_attn_len, contextual_seq_len,
+    min_full_attn_seq_len: the kernels' trailing scalar arguments."""
+    return (
+        kw["alpha"], 1.0 / (kw["max_seq_len"] or N), int(kw["causal"]),
+        kw["max_attn_len"], kw["contextual_seq_len"], kw["min_full_attn_seq_len"],
+    )
+
+
+def _dense_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
+    """Launches K1 on checked CUDA tensors (lens, nt: int32 or nt None)."""
+    B, N, H, D = q.shape
+    V = v.shape[3]
+    out = torch.empty((B, N, H, V), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    _launch(
+        "hstu_mha_fwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lens.data_ptr(), None if nt is None else nt.data_ptr(),
+        B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *_mask_args(kw, N), _stream(q.device),
+    )
+    hstu_mha_dense_cuda.launches.add()
+    return out
+
+
+class _HstuMhaDense(torch.autograd.Function):
+    """K1 forward; backward by K2, or by K3 then K4 under
+    ``torch.use_deterministic_algorithms(True)``. Saves q, k and v as they
+    are (views of the uvqk projection on the STU path)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lens, nt, kw):
+        ctx.save_for_backward(q, k, v, lens, nt)
+        ctx.kw = kw
+        return _dense_fwd(q, k, v, lens, nt, kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lens, nt = ctx.saved_tensors
+        dq, dk, dv = hstu_mha_bwd_cuda(
+            q, k, v, lens, do, split=torch.are_deterministic_algorithms_enabled(),
+            num_targets=nt, **ctx.kw,
+        )
+        return dq, dk, dv, None, None, None
+
+
+def _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
+              contextual_seq_len, min_full_attn_seq_len) -> dict:
+    return dict(
+        alpha=alpha, max_seq_len=max_seq_len, causal=causal,
+        num_targets=num_targets, max_attn_len=max_attn_len,
+        contextual_seq_len=contextual_seq_len,
+        min_full_attn_seq_len=min_full_attn_seq_len,
+    )
+
+
 def hstu_mha_dense_cuda(
     q: torch.Tensor,  # [B, N, H, D]
     k: torch.Tensor,  # [B, N, H, D]
@@ -193,39 +289,97 @@ def hstu_mha_dense_cuda(
     min_full_attn_seq_len: int = 0,
 ) -> torch.Tensor:
     """Dense HSTU attention with jagged ``lengths`` (rows/cols >= length are
-    dead, their outputs 0). Returns [B, N, H, V]. The optional [B, N, N]
-    ``bias`` of the TPU kernel is not ported yet and raises."""
+    dead, their outputs 0). Returns [B, N, H, V], differentiable in q, k and
+    v. The optional [B, N, N] ``bias`` of the TPU kernel is not ported yet
+    and raises."""
     if bias is not None:
         raise NotImplementedError("the additive [B, N, N] bias is not ported yet")
-    kw = dict(
-        alpha=alpha, max_seq_len=max_seq_len, causal=causal,
-        num_targets=num_targets, max_attn_len=max_attn_len,
-        contextual_seq_len=contextual_seq_len,
-        min_full_attn_seq_len=min_full_attn_seq_len,
-    )
+    kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
+                   contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":
         return hstu_mha_dense_plain(q, k, v, lengths, **kw)
     device = _check_qkv(q, k, v)
-    B, N, H, D = q.shape
-    V = v.shape[3]
+    B, N = q.shape[:2]
     if k.shape[1] != N:
         raise ValueError(f"k has {k.shape[1]} rows, q has {N}")
     lens = _int_vector("lengths", lengths, B, device)
     nt = None if num_targets is None else _int_vector("num_targets", num_targets, B, device)
-    out = torch.empty((B, N, H, V), dtype=torch.float32, device=device)
-    if out.numel() == 0:
-        return out
-    _launch(
-        "hstu_mha_fwd",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lens.data_ptr(), None if nt is None else nt.data_ptr(),
-        B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        alpha, 1.0 / (max_seq_len or N), int(causal),
-        max_attn_len, contextual_seq_len, min_full_attn_seq_len,
-        torch.cuda.current_stream(device).cuda_stream,
+    kw.pop("num_targets")
+    return _HstuMhaDense.apply(q, k, v, lens, nt, kw)
+
+
+def _last_dim_contiguous(do: torch.Tensor) -> torch.Tensor:
+    # the gradient of a reshape may come strided; the kernels read any
+    # stride but the last
+    return do if do.stride(-1) == 1 else do.contiguous()
+
+
+def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
+    """Launches one backward kernel on checked CUDA tensors (lens, nt:
+    int32 or nt None; do contiguous in its last dim) and counts it. Returns
+    (dq, dk, dv), None for the outputs the kernel does not write."""
+    B, N, H, D = q.shape
+    V = v.shape[3]
+    new = lambda shape, zero=False: (torch.zeros if zero else torch.empty)(  # noqa: E731
+        shape, dtype=torch.float32, device=q.device
     )
-    hstu_mha_dense_cuda.launches.add()
-    return out
+    # K2 adds its dq shares into a zeroed buffer with atomics
+    dq = None if name == "hstu_mha_bwd_dkv" else new((B, N, H, D), zero=name == "hstu_mha_bwd_fused")
+    dk, dv = (None, None) if name == "hstu_mha_bwd_dq" else (new((B, N, H, D)), new((B, N, H, V)))
+    if B * N * H == 0:
+        return dq, dk, dv
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _launch(
+        name,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
+        B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        *_mask_args(kw, N), _stream(q.device),
+    )
+    hstu_mha_bwd_cuda.launches[name].add()
+    return dq, dk, dv
+
+
+def hstu_mha_bwd_cuda(
+    q: torch.Tensor,  # [B, N, H, D]
+    k: torch.Tensor,  # [B, N, H, D]
+    v: torch.Tensor,  # [B, N, H, V]
+    lengths: torch.Tensor,  # int[B]
+    do: torch.Tensor,  # [B, N, H, V]: the gradient of the output
+    *,
+    split: bool = False,
+    alpha: float = 1.0,
+    max_seq_len: Optional[int] = None,
+    causal: bool = True,
+    num_targets: Optional[torch.Tensor] = None,
+    max_attn_len: int = 0,
+    contextual_seq_len: int = 0,
+    min_full_attn_seq_len: int = 0,
+) -> Grads:
+    """(dq, dk, dv) of `hstu_mha_dense_cuda` at ``do``: by kernel K2, whose
+    dq is summed with atomics, so its last bits vary from run to run; or,
+    with ``split``, by K3 (dq) then K4 (dk, dv), which give the same bits
+    every run. ``launches`` holds one counter per kernel, keyed by its C
+    entry point."""
+    kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
+                   contextual_seq_len, min_full_attn_seq_len)
+    if q.device.type == "cpu":
+        return hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    device = _check_qkv(q, k, v)
+    B, N, H, _ = q.shape
+    if k.shape[1] != N or do.shape != (B, N, H, v.shape[3]):
+        raise ValueError(
+            f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, do {tuple(do.shape)}"
+        )
+    do = _last_dim_contiguous(do)
+    _check("do", do, 4, device)
+    lens = _int_vector("lengths", lengths, B, device)
+    nt = None if num_targets is None else _int_vector("num_targets", num_targets, B, device)
+    if not split:
+        return _bwd_kernel("hstu_mha_bwd_fused", q, k, v, lens, nt, do, kw)
+    dq = _bwd_kernel("hstu_mha_bwd_dq", q, k, v, lens, nt, do, kw)[0]
+    _, dk, dv = _bwd_kernel("hstu_mha_bwd_dkv", q, k, v, lens, nt, do, kw)
+    return dq, dk, dv
 
 
 def delta_hstu_mha_cuda(
@@ -267,11 +421,14 @@ def delta_hstu_mha_cuda(
         B, M, N, H, D, V, *delta_q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         alpha, 1.0 / (norm_len or N),
         max_attn_len, contextual_seq_len, min_full_attn_seq_len,
-        torch.cuda.current_stream(device).cuda_stream,
+        _stream(device),
     )
     delta_hstu_mha_cuda.launches.add()
     return out
 
 
 hstu_mha_dense_cuda.launches = LaunchCounter()
+hstu_mha_bwd_cuda.launches = {
+    name: LaunchCounter() for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
+}
 delta_hstu_mha_cuda.launches = LaunchCounter()

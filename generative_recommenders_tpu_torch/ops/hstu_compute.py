@@ -11,7 +11,7 @@ ported.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,10 +19,24 @@ import torch.nn.functional as F
 from generative_recommenders_tpu_torch.ops.normalization import layer_norm
 
 __all__ = [
+    "dropout",
     "hstu_compute_output",
     "hstu_compute_uqvk",
     "norm_mul_dropout",
 ]
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keeps each element with probability 1 - ``rate``
+    and scales it by 1 / (1 - rate). The mask comes from ``gen``, which must
+    be on ``x``'s device (`F.dropout` takes no generator). The TPU's random
+    bits are not reproduced: the same seed gives other masks."""
+    if rate <= 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
 def hstu_compute_uqvk(
@@ -63,9 +77,12 @@ def norm_mul_dropout(
     group_norm: bool = False,
     num_heads: int = 1,
     linear_dim: int = -1,
+    dropout_ratio: float = 0.0,
+    dropout_gen: Optional[torch.Generator] = None,
+    training: bool = False,
 ) -> torch.Tensor:
-    """cat([u, attn, u * norm(attn)]) (the STU's concat_ux form). Dropout is
-    a training feature and comes with the training port."""
+    """cat([u, attn, u * norm(attn)]) (the STU's concat_ux form), with
+    inverted dropout on the concatenation when ``training``."""
     dtype = attn.dtype
     x32, u32 = attn.float(), u.float()
     if group_norm:
@@ -79,7 +96,10 @@ def norm_mul_dropout(
         y = u32 * g.reshape(B, N, num_heads * linear_dim)
     else:
         y = u32 * layer_norm(x32, weight=weight.float(), bias=bias.float(), eps=eps)
-    return torch.cat([u32, x32, y], dim=-1).to(dtype)
+    y = torch.cat([u32, x32, y], dim=-1)
+    if training:
+        y = dropout(y, dropout_ratio, dropout_gen)
+    return y.to(dtype)
 
 
 def hstu_compute_output(
@@ -94,10 +114,14 @@ def hstu_compute_output(
     linear_dim: int,
     norm_eps: float = 1e-6,
     group_norm: bool = False,
+    dropout_ratio: float = 0.0,
+    dropout_gen: Optional[torch.Generator] = None,
+    training: bool = False,
 ) -> torch.Tensor:
     """x + norm_mul_dropout(attn, u) @ W_o."""
     y = norm_mul_dropout(
         attn, u, norm_weight, norm_bias, eps=norm_eps, group_norm=group_norm,
-        num_heads=num_heads, linear_dim=linear_dim,
+        num_heads=num_heads, linear_dim=linear_dim, dropout_ratio=dropout_ratio,
+        dropout_gen=dropout_gen, training=training,
     )
     return x + (y @ output_weight.to(y.dtype)).to(x.dtype)

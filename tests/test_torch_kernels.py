@@ -7,6 +7,9 @@ JAX, so on a machine without JAX it runs with the repo's conftest left out:
 
 Float32 with TF32 off; kernel and plain version differ only in summation
 order and the exp of silu, so atol = rtol = 1e-5 of outputs of order 1e-2.
+The backward kernels are held to the plain backward the same way; K2's dq
+sums arrive in a different order on every run (atomics), K3 + K4 give the
+same bits every run.
 """
 
 import numpy as np
@@ -16,6 +19,8 @@ import torch
 from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
     delta_hstu_mha_cuda,
     delta_hstu_mha_plain,
+    hstu_mha_bwd_cuda,
+    hstu_mha_bwd_plain,
     hstu_mha_dense_cuda,
     hstu_mha_dense_plain,
 )
@@ -110,3 +115,93 @@ def test_kernels_match_plain_on_uvqk_views(cuda):
     torch.testing.assert_close(
         delta_hstu_mha_cuda(dq, k, v, lengths, **kw), delta_hstu_mha_plain(dq, k, v, lengths, **kw), **TOL
     )
+
+
+def _bwd_counts():
+    """The launch counts of K2, K3 and K4."""
+    c = hstu_mha_bwd_cuda.launches
+    return [c[n].count for n in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")]
+
+
+def _bwd_kernels(q, k, v, lengths, do, kw):
+    """(K2's (dq, dk, dv), K3 + K4's), each launch counted once."""
+    before = _bwd_counts()
+    fused = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+    split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    assert [n - b for n, b in zip(_bwd_counts(), before)] == [1, 1, 1]
+    return fused, split
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CASES)
+def test_backward_kernels_match_plain(cuda, case):
+    case = dict(case)
+    nt_on = case.pop("num_targets", False)
+    q, k, v, lengths, nt = _inputs(3, 3, 70, 70, 2, 32, 32, case.get("contextual_seq_len", 0), nt_on, cuda)
+    do = torch.randn(3, 70, 2, 64, device=cuda)[..., ::2]  # strided, as from a reshape
+    kw = dict(alpha=0.7, max_seq_len=90, num_targets=nt, **case)
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    for grads in _bwd_kernels(q, k, v, lengths, do, kw):
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, **TOL)
+
+
+@pytest.mark.gpu
+def test_backward_kernels_match_plain_on_uvqk_views(cuda):
+    """q, k and v split from one uvqk projection, as the STU passes them;
+    D = 40 takes the kernels' zero-padded head width."""
+    B, N, H, D, V, Dm, ctx = 3, 70, 2, 40, 16, 48, 2
+    rng = np.random.default_rng(4)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=cuda)  # noqa: E731
+    width = (2 * V + 2 * D) * H
+    _, q, k, v = hstu_compute_uqvk(
+        t(B, N, Dm), torch.ones(Dm, device=cuda), torch.zeros(Dm, device=cuda),
+        t(Dm, width) / Dm**0.5, t(width), num_heads=H, attn_dim=D, hidden_dim=V,
+    )
+    lengths = torch.tensor([N, 40, 9], dtype=torch.int32, device=cuda)
+    kw = dict(alpha=0.7, max_seq_len=90, contextual_seq_len=ctx,
+              num_targets=torch.tensor([5, 3, 1], dtype=torch.int32, device=cuda))
+    do = t(B, N, H, V)
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    fused, split = _bwd_kernels(q, k, v, lengths, do, kw)
+    for grads in (fused, split):
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, **TOL)
+    # the split pair is deterministic
+    again = _bwd_kernels(q, k, v, lengths, do, kw)[1]
+    assert all(torch.equal(a, b) for a, b in zip(split, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_attention_is_differentiable_on_the_card(cuda, deterministic):
+    """Autograd through `hstu_mha_dense_cuda` reaches q, k and v by K2, or
+    by K3 then K4 under `torch.use_deterministic_algorithms`."""
+    q, k, v, lengths, nt = _inputs(5, 2, 50, 50, 2, 32, 32, 2, True, cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    kw = dict(alpha=0.5, max_seq_len=60, num_targets=nt, contextual_seq_len=2)
+    before = _bwd_counts()
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        hstu_mha_dense_cuda(*leaves, lengths, **kw).square().sum().backward()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    assert [n - b for n, b in zip(_bwd_counts(), before)] == ([0, 1, 1] if deterministic else [1, 0, 0])
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    hstu_mha_dense_plain(*ref, lengths, **kw).square().sum().backward()
+    for leaf, r in zip(leaves, ref):
+        assert leaf.grad is not None
+        torch.testing.assert_close(leaf.grad, r.grad, **TOL)
+
+
+@pytest.mark.gpu
+def test_empty_batch_counts_no_launch(cuda):
+    """A batch of no rows launches no kernel, and no counter moves."""
+    q, k, v = (torch.zeros(0, 8, 2, 16, device=cuda) for _ in range(3))
+    lengths = torch.zeros(0, dtype=torch.int32, device=cuda)
+    fwd, bwd = hstu_mha_dense_cuda.launches.count, _bwd_counts()
+    assert hstu_mha_dense_cuda(q, k, v, lengths).shape == (0, 8, 2, 16)
+    for split in (False, True):
+        assert all(g.shape == (0, 8, 2, 16) for g in hstu_mha_bwd_cuda(q, k, v, lengths, v, split=split))
+    assert hstu_mha_dense_cuda.launches.count == fwd and _bwd_counts() == bwd

@@ -1,8 +1,9 @@
 """The PyTorch port's modules against the JAX package, with the JAX weights
 carried over by `convert.params_from_flax`: STULayer (forward, prefill,
-cached_forward), HSTUTransducer (forward, prefill, cached_score), the
-positional encoder, the contextual preprocessor and the supervision labels.
-Inputs are made with numpy from a seed; float32, atol = rtol = 1e-5."""
+cached_forward), HSTUTransducer (forward, the training forward with and
+without ``listwise``, prefill, cached_score), the positional encoder, the
+contextual preprocessor and the supervision labels. Inputs are made with
+numpy from a seed; float32, atol = rtol = 1e-5."""
 
 import functools
 
@@ -46,12 +47,11 @@ def _t(x):
 
 
 def _stu_configs(ctx, group_norm, norm_len):
-    kw = dict(embedding_dim=D, num_heads=H, hidden_dim=A, attention_dim=A,
+    kw = dict(embedding_dim=D, num_heads=H, hidden_dim=A, attention_dim=A, output_dropout_ratio=0.0,
               use_group_norm=group_norm, contextual_seq_len=ctx, norm_seq_len=norm_len)
     # no recompute flags: the JAX stack then runs its layers without remat
     j_cfg = j_stu.STULayerConfig(
-        output_dropout_ratio=0.0, recompute_normed_x=False, recompute_uvqk=False,
-        recompute_y=False, **kw,
+        recompute_normed_x=False, recompute_uvqk=False, recompute_y=False, **kw,
     )
     return j_cfg, t_stu.STULayerConfig(**kw)
 
@@ -153,7 +153,7 @@ def test_positional_encoder_and_delta(targets, query_time):
     )
 
 
-def _transducers():
+def _transducers(listwise=False):
     jcfg, tcfg = _stu_configs(C, True, 30)
     pe_kw = dict(num_position_buckets=40, num_time_buckets=64, embedding_dim=D, contextual_seq_len=C)
     post = ((3600, 24), (86400, 7))
@@ -162,12 +162,14 @@ def _transducers():
         input_preprocessor=j_pre.ContextualPreprocessor(**_preproc_kwargs()),
         output_postprocessor=j_post.TimestampLayerNormPostprocessor(D, post),
         positional_encoder=j_pe.HSTUPositionalEncoder(**pe_kw),
+        listwise=listwise,
     )
     tt = t_tr.HSTUTransducer(
         stu_module=t_stu.STUStack((tcfg, tcfg)),
         input_preprocessor=t_pre.ContextualPreprocessor(**_preproc_kwargs()),
         output_postprocessor=t_post.TimestampLayerNormPostprocessor(D, post),
         positional_encoder=t_pe.HSTUPositionalEncoder(**pe_kw),
+        listwise=listwise,
     )
     return jt, tt
 
@@ -204,6 +206,28 @@ def test_hstu_transducer_forward_prefill_and_cached_score():
             params, cand, cand_ts, j_caches, qt
         ),
     )
+
+
+@pytest.mark.parametrize("listwise", [False, True])
+def test_hstu_transducer_training_forward_matches_jax(listwise):
+    """The training forward (deterministic False, dropout rates 0, since the
+    two packages' random streams differ); ``listwise`` drops the targets
+    from the positional encoder and the attention mask, which changes the
+    candidates' embeddings."""
+    Nu, M = 20, 4
+    emb, lengths, ts, uih_lengths, nt, payloads = _seq_inputs(5, Nu + M, M)
+    jt, tt = _transducers(listwise)
+    args = (emb, lengths, ts, uih_lengths, nt, payloads)
+    params = jax.jit(lambda *a: jt.init(jax.random.PRNGKey(5), *a, M))(*args)
+    _load(tt, params)
+    t_args = [_t(a) for a in args[:5]] + [{k: _t(v) for k, v in payloads.items()}, M]
+    want, _ = jax.jit(lambda p, *a: jt.apply(p, *a, M, False, rngs={"dropout": jax.random.PRNGKey(6)}))(
+        params, *args
+    )
+    got = tt(*t_args, deterministic=False, gen=torch.Generator().manual_seed(6))
+    _close(got, want)
+    eval_out = tt(*t_args)
+    assert torch.allclose(got, eval_out) != listwise
 
 
 def test_supervision_labels_match_jax():

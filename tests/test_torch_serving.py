@@ -85,7 +85,7 @@ def test_family_predictions_match_jax(models, quantize, mfalcon):
         got = tf.predict(*args)
         if not quantize:  # the float family is the model's own forward
             with torch.no_grad():
-                torch.testing.assert_close(tm(*args), got)
+                torch.testing.assert_close(tm(*args, compute_losses=False)[3], got)
     assert got.shape == (1, 4, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
