@@ -12,7 +12,9 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    of the uvqk projection that the paths pass) and at edge cases, and holds
    the result against the plain PyTorch version on the same inputs
    (float32, TF32 off); the backward kernels K2 and K3 + K4 against the
-   plain backward (autograd of the plain forward);
+   plain backward (autograd of the plain forward); the relative-bias pair
+   K6 and K7 at the research preset's shapes, on a batch of the synthetic
+   corpus, against their plain versions (and a float64 run of them);
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -25,7 +27,15 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    at uih 1024 that must take K3 + K4 and give the same bits twice; then one
    training step's gradients on a small model, GPU kernels against the CPU
    plain versions;
-5. prints one JSON line with every kernel's launches, error and times, and
+5. research phase: trains the HSTU retrieval model of the full-width
+   preset `ml-3b/hstu-sampled-softmax-n96-seqlen500-large` (16 blocks, 8
+   heads, d 256, N 511, batch 96, 128 negatives, 855,776 items) through the
+   port's research `train_loop` on a synthetic corpus (2 warm-up steps, 10
+   timed ones), evaluates it against the corpus' items, checks that every
+   attention went through K6 and K7 (and none through K1 / K2); then one
+   training step's loss and gradients on a small research model, GPU kernels
+   against the CPU plain versions;
+6. prints one JSON line with every kernel's launches, error and times, and
    as the last line the device JSON.
 
 Any failed check exits nonzero.
@@ -51,10 +61,21 @@ NUM_QUERIES, NUM_WARMUPS, QSL_BATCHES = 24, 2, 4
 # the full-width debug preset, as trained (the train CLI's defaults)
 TRAIN_UIH, TRAIN_CANDS, TRAIN_WARMUPS, TRAIN_STEPS = 256, 10, 2, 20
 DET_UIH, DET_STEPS = 1024, 3  # the deterministic phase, one layer
+# the research phase: the preset at full width over a synthetic corpus
+RESEARCH_PRESET = "ml-3b/hstu-sampled-softmax-n96-seqlen500-large"
+RESEARCH_USERS, RESEARCH_WARMUPS, RESEARCH_STEPS = 2000, 2, 10
 # kernel vs plain: both float32; they differ only in summation order (for
 # K2's dq, an order that changes from run to run: atomics) and in the exp of
 # silu, so the error is held to a small fraction of the output's max
 REL_TOL = 2e-5
+# K7's table gradients: each entry of dpos_w / dts_w sums up to B H N^2 / 2
+# float32 terms (1e8 at the research shape), with atomics in an order that
+# changes from run to run. Against a float64 run of the plain backward at
+# that shape the kernel stood at 1.4e-6 of each gradient's max and the
+# float32 plain version at 4.5e-6 (H100, both printed below on every run),
+# so the same share of the max as the other outputs holds them, with a
+# margin of four
+TABLE_TOL = 2e-5
 # dense vs M-FALCON predictions, and GPU vs CPU predictions (sigmoid outputs)
 PRED_TOL = 1e-4
 # one training step's gradients, GPU kernels vs CPU plain versions, as a
@@ -146,7 +167,15 @@ def main() -> None:
             get_embedding_table_config,
             get_hstu_configs,
         )
+        from generative_recommenders_tpu_torch.configs.research import RESEARCH_PRESETS
+        from generative_recommenders_tpu_torch.data.dataset import (
+            SequenceDataset,
+            batch_iterator,
+            synthetic_user_sequences,
+            synthetic_user_sequences_vectorized,
+        )
         from generative_recommenders_tpu_torch.data.dlrm_dataset import DLRMv3RandomDataset
+        from generative_recommenders_tpu_torch.data.features import seq_features_from_row
         from generative_recommenders_tpu_torch.inference import main as serve
         from generative_recommenders_tpu_torch.inference.model_family import HSTUModelFamily
         from generative_recommenders_tpu_torch.modules.dlrm_hstu import DlrmHSTU
@@ -166,6 +195,12 @@ def main() -> None:
             hstu_mha_dense_cuda,
             hstu_mha_dense_plain,
         )
+        from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
+            hstu_mha_dense_relbias_cuda,
+            hstu_mha_dense_relbias_plain,
+            hstu_mha_relbias_bwd_cuda,
+            hstu_mha_relbias_bwd_plain,
+        )
         from generative_recommenders_tpu_torch.ops.hstu_compute import hstu_compute_uqvk
         from generative_recommenders_tpu_torch.train.dlrm_train import (
             DlrmTrainConfig,
@@ -173,6 +208,8 @@ def main() -> None:
             to_device,
             train_loop,
         )
+        from generative_recommenders_tpu_torch.models.sequential import ModelConfig
+        from generative_recommenders_tpu_torch.train import train_loop as research
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
 
@@ -229,11 +266,11 @@ def main() -> None:
               "the uvqk views are not strided as on the serving path")
         return q, k, v
 
-    def compare(name, got, want, dead_rows=None):
+    def compare(name, got, want, dead_rows=None, rel_tol=REL_TOL):
         check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
         err = (got - want).abs().max().item()
         scale = want.abs().max().item()
-        tol = REL_TOL * scale + 1e-7
+        tol = rel_tol * scale + 1e-7
         status = "ok" if err <= tol else "FAIL"
         print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.3e}, max|plain| {scale:.3e}) {status}")
         check(err <= tol, f"{name}: kernel disagrees with its plain version")
@@ -426,12 +463,156 @@ def main() -> None:
     bwd_det = bwd_timing(N_det, det_len, det_nt)
     torch.cuda.synchronize()
 
+
+    # ------------------------------------- relative-bias kernel phase (K6, K7)
+    rcfg = RESEARCH_PRESETS[RESEARCH_PRESET]
+    rm = rcfg.model
+    RB, RN, RH, RD, RV = rcfg.local_batch_size, rm.total_seq_len, rm.num_heads, rm.dqk, rm.dv
+    print(
+        f"research corpus: synthetic_user_sequences_vectorized, {RESEARCH_USERS} users, "
+        f"{rm.num_items:,} items, lengths up to {rm.max_sequence_len + 1}, seed 0"
+    )
+    t0 = time.perf_counter()
+    seqs = synthetic_user_sequences_vectorized(
+        num_users=RESEARCH_USERS, num_items=rm.num_items, max_len=rm.max_sequence_len + 1, seed=0
+    )
+    research_train = SequenceDataset(seqs, rm.max_sequence_len, ignore_last_n=1)
+    research_eval = SequenceDataset(seqs, rm.max_sequence_len, ignore_last_n=0)
+    print(f"  made in {time.perf_counter() - t0:.1f} s")
+
+    def relbias_views(Bc, N, Hc, Dc, Vc):
+        """q, k, v as the research STU gives them: views of the split of one
+        [Bc, N, (2V + 2D) * H] projection (u, v, q, k), never copied."""
+        proj = rand(Bc, N, Hc * (2 * Vc + 2 * Dc))
+        _, v, q, k = torch.split(proj, [Hc * Vc, Hc * Vc, Hc * Dc, Hc * Dc], dim=-1)
+        return q.reshape(Bc, N, Hc, Dc), k.reshape(Bc, N, Hc, Dc), v.reshape(Bc, N, Hc, Vc)
+
+    def dataset_batch(Bc, max_len, gr, seed):
+        """(lengths, timestamps [Bc, max_len + gr + 1]) of one training batch
+        as the trainer's features hold them: the target's timestamp sits at
+        index ``length``, past the history, and zeros follow it."""
+        ds_ = research_train if max_len == rm.max_sequence_len else SequenceDataset(
+            seqs, max_len, ignore_last_n=1)
+        row = next(batch_iterator(ds_, Bc, shuffle=True, seed=seed))
+        f, _, _ = seq_features_from_row(
+            {k_: torch.as_tensor(v_, device="cuda") for k_, v_ in row.items()}, gr + 1)
+        return f.past_lengths.int(), f.past_payloads["timestamps"]
+
+    def random_ts(Bc, N, lengths, step_hi=86400):
+        """Sorted unix-like timestamps; the one at index ``length`` is kept
+        (the target's), those after it are 0 as the padding is."""
+        steps = torch.randint(1, step_hi, (Bc, N), device="cuda", generator=gen)
+        ts = 1_500_000_000 + torch.cumsum(steps, dim=1)
+        return ts * (torch.arange(N, device="cuda")[None, :] <= lengths[:, None])
+
+    def tables(Nm, nb):
+        return rand(2 * Nm - 1) * 0.1, rand(nb + 1) * 0.1
+
+    rel_errs = {"K6": [], "K7": []}
+
+    def relbias_case(name, Bc, N, lengths, ts, Nm=None, nb=128, nt=None, Hc=2, Dc=RD, Vc=RV,
+                     f64=False, **kw):
+        """K6 against the plain forward, K7 against the plain backward, on
+        uvqk views and a non-contiguous dO; dead rows exactly 0."""
+        q, k, v = relbias_views(Bc, N, Hc, Dc, Vc)
+        pos_w, ts_w = tables(Nm or N, nb)
+        do = rand(N, Bc, Hc, Vc).transpose(0, 1)
+        # the research STU's scales: alpha 1, the runtime N as the normaliser
+        args = dict(alpha=1.0, max_seq_len=N, num_buckets=nb, num_targets=nt, **kw)
+        dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
+        poison_allocator(Bc * N * Hc * Vc * 4)
+        got = hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **args)
+        want = hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, **args)
+        torch.cuda.synchronize()
+        rel_errs["K6"].append(compare(f"K6 {name}", got, want, dead))
+        del got, want
+        poison_allocator(3 * Bc * N * Hc * max(Dc, Vc) * 4)
+        grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
+        torch.cuda.synchronize()
+        wants = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
+        for g, a, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants):
+            table = g in ("dpos_w", "dts_w")
+            rel_errs["K7"].append(compare(f"K7 {name} {g}", a, w, None if table else dead,
+                                          rel_tol=TABLE_TOL if table else REL_TOL))
+        if f64:
+            # what the tolerance of the table gradients rests on: both float32
+            # results against a float64 run of the plain backward
+            d = lambda t: t.double()  # noqa: E731
+            w64 = hstu_mha_relbias_bwd_plain(d(q), d(k), d(v), lengths, ts, d(pos_w), d(ts_w), d(do), **args)
+            for g, a, w, w8 in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants, w64):
+                m = w8.abs().max().item()
+                print(f"    {g} vs float64 plain, of its max {m:.3e}: kernel "
+                      f"{(a - w8).abs().max().item() / m:.3e}, float32 plain {(w - w8).abs().max().item() / m:.3e}")
+        return q, k, v, pos_w, ts_w, do, args
+
+    print("relative-bias kernel phase (K6 vs the plain forward, K7 vs the plain backward, float32):")
+    r_len, r_ts = dataset_batch(RB, rm.max_sequence_len, rm.gr_output_length, 0)
+    check(tuple(r_ts.shape) == (RB, RN), f"research timestamps have shape {tuple(r_ts.shape)}")
+    past = r_ts[torch.arange(RB, device="cuda"), r_len.long()]
+    check(bool((past > 1_000_000_000).all()), "the target's timestamp is not past the length")
+    slice_case = relbias_case(
+        f"research shape (B={RB}, N={RN}, H={RH}, D=V={RD}), lengths and timestamps of a corpus batch",
+        RB, RN, r_len, r_ts, Hc=RH, f64=True)
+    m20 = RESEARCH_PRESETS["ml-20m/hstu-sampled-softmax-n128-large"]
+    m_len, m_ts = dataset_batch(m20.local_batch_size, m20.model.max_sequence_len, m20.model.gr_output_length, 1)
+    relbias_case(f"ml-20m shape (B={m20.local_batch_size}, N={m20.model.total_seq_len})",
+                 m20.local_batch_size, m20.model.total_seq_len, m_len, m_ts, Hc=m20.model.num_heads)
+    full = lambda n, x: torch.full((n,), x, dtype=torch.int32, device="cuda")  # noqa: E731
+    l4 = ints(3, 97, 4)
+    relbias_case("length 1", 4, 70, full(4, 1), random_ts(4, 70, full(4, 1)))
+    relbias_case("full length", 3, 130, full(3, 130), random_ts(3, 130, full(3, 130)))
+    relbias_case("num_targets", 4, 96, l4, random_ts(4, 96, l4), nt=torch.minimum(ints(0, 6, 4), l4 - 1))
+    l150 = ints(20, 151, 4)
+    relbias_case("max_attn_len window", 4, 150, l150, random_ts(4, 150, l150), nt=ints(0, 10, 4),
+                 max_attn_len=37, min_full_attn_seq_len=16)
+    l66 = ints(1, 67, 3)
+    relbias_case("non-causal", 3, 66, l66, random_ts(3, 66, l66), causal=False)
+    l97 = ints(1, 98, 5)
+    relbias_case("unaligned N, 40 buckets, Nm > N", 5, 97, l97, random_ts(5, 97, l97), Nm=200, nb=40)
+    l45 = ints(2, 46, 3)
+    relbias_case("equal timestamps (every |dt| < 1)", 3, 45, l45,
+                 torch.full((3, 45), 1_500_000_000, dtype=torch.int64, device="cuda"))
+    relbias_case("steps of seconds (low buckets)", 3, 45, l45, random_ts(3, 45, l45, step_hi=4))
+    relbias_case("D=V=25 (the ml-1m preset's heads), float timestamps", 2, 211, ints(1, 212, 2),
+                 random_ts(2, 211, full(2, 211)).float(), Dc=25, Vc=25)
+
+    # times and bounds at the research shape, on the views and the strided dO
+    q, k, v, pos_w, ts_w, do, r_args = slice_case
+    k6_ms = device_time_ms(lambda: hstu_mha_dense_relbias_cuda(q, k, v, r_len, r_ts, pos_w, ts_w, **r_args), 20)
+    k7_ms = device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(q, k, v, r_len, r_ts, pos_w, ts_w, do, **r_args), 10)
+    k6_plain_ms = device_time_ms(
+        lambda: hstu_mha_dense_relbias_plain(q, k, v, r_len, r_ts, pos_w, ts_w, **r_args), 3)
+    k7_plain_ms = device_time_ms(
+        lambda: hstu_mha_relbias_bwd_plain(q, k, v, r_len, r_ts, pos_w, ts_w, do, **r_args), 2)
+    # what the bias costs: the kernels without it (K1, K2) on the same inputs
+    nobias = dict(alpha=1.0, max_seq_len=RN)
+    k1_same_ms = device_time_ms(lambda: hstu_mha_dense_cuda(q, k, v, r_len, **nobias), 20)
+    k2_same_ms = device_time_ms(lambda: hstu_mha_bwd_cuda(q, k, v, r_len, do, **nobias), 10)
+    live_r = apply_padding_guard(make_valid_attn_mask(RN, r_len), r_len).sum().item()
+    rows_r = r_len.sum().item() * RH
+    small_in = 4 * (RB * RN + pos_w.numel() + ts_w.numel() + RB)  # timestamps, tables, lengths
+    k6_work = (live_r * RH * 2 * (RD + RV), 4 * (rows_r * (2 * RD + RV) + RB * RN * RH * RV) + small_in)
+    k7_work = (live_r * RH * 2 * (3 * RD + 2 * RV),
+               4 * (rows_r * (2 * RD + 2 * RV) + RB * RN * RH * (2 * RD + RV) + pos_w.numel() + ts_w.numel())
+               + small_in)
+    print(
+        f"  research shape: K6 {k6_ms:.4f} ms (plain {k6_plain_ms:.4f}), K7 {k7_ms:.4f} ms (plain "
+        f"{k7_plain_ms:.4f}); {live_r} live mask elements per head, mean length {r_len.float().mean().item():.1f}. "
+        f"Outside the bound's count, the bias adds per live element and head one logf, two table reads "
+        f"from shared memory and about ten float32 operations (K7 also two shared-memory atomics); "
+        f"it is rebuilt per head, {RH} times per (row, column). Without the bias, on the same inputs: "
+        f"K1 {k1_same_ms:.4f} ms, K2 {k2_same_ms:.4f} ms"
+    )
+    del slice_case, q, k, v, do
+    torch.cuda.empty_cache()
+
     # -------------------------------------------------------- serving phase
     bwd_counters = hstu_mha_bwd_cuda.launches
     counters = {
         "K1": hstu_mha_dense_cuda.launches, "K5": delta_hstu_mha_cuda.launches,
         "K2": bwd_counters["hstu_mha_bwd_fused"], "K3": bwd_counters["hstu_mha_bwd_dq"],
         "K4": bwd_counters["hstu_mha_bwd_dkv"],
+        "K6": hstu_mha_dense_relbias_cuda.launches, "K7": hstu_mha_relbias_bwd_cuda.launches,
     }
     main_path_launches = dict.fromkeys(counters, 0)
 
@@ -467,7 +648,8 @@ def main() -> None:
         result = serve.main(argv + extra)
         n = counts()
         k1_n, k5_n = n["K1"], n["K5"]
-        check(n["K2"] == n["K3"] == n["K4"] == 0, f"{mode}: serving launched a backward kernel: {n}")
+        check(n["K2"] == n["K3"] == n["K4"] == n["K6"] == n["K7"] == 0,
+              f"{mode}: serving launched a kernel that is not its own: {n}")
         predicts = NUM_WARMUPS + int(result["query_count"])
         print(
             f"  {mode}: qps {result['qps']:.3f}, scored (real, unpadded) candidates/s "
@@ -562,7 +744,7 @@ def main() -> None:
         f"{ {k: round(v, 5) for k, v in out['metrics'].items()} }; launches {n}"
     )
     check(all(math.isfinite(x) for x in losses), f"non-finite training loss: {losses}")
-    want_n = {"K1": L_tr * TRAIN_STEPS, "K2": L_tr * TRAIN_STEPS, "K3": 0, "K4": 0, "K5": 0}
+    want_n = {"K1": L_tr * TRAIN_STEPS, "K2": L_tr * TRAIN_STEPS, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
     check(n == want_n, f"training launched {n}, expected {want_n}")
     batch = to_device(next(batches(tcfg, 1, 2)), trainer.device)
     profile("training step", lambda: trainer.train_step(batch))
@@ -582,7 +764,7 @@ def main() -> None:
             count_reset()
             det_out = train_loop(trainer, batches(det_cfg, DET_STEPS, 4))
             n = counts()
-            want_n = {"K1": DET_STEPS, "K2": 0, "K3": DET_STEPS, "K4": DET_STEPS, "K5": 0}
+            want_n = {"K1": DET_STEPS, "K2": 0, "K3": DET_STEPS, "K4": DET_STEPS, "K5": 0, "K6": 0, "K7": 0}
             check(n == want_n, f"deterministic run launched {n}, expected {want_n}")
             check(all(math.isfinite(x) for x in det_out["losses"]), "non-finite deterministic loss")
             det_runs.append((det_out["losses"], [p.detach().clone() for p in trainer.model.parameters()]))
@@ -621,6 +803,119 @@ def main() -> None:
           f"{grad_err:.3e} of the gradient's max over {len(grads['cpu'])} parameters (tol {GRAD_TOL})")
     check(grad_err <= GRAD_TOL, "GPU and CPU gradients disagree")
 
+    # ------------------------------------------------------- research phase
+    del trainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps_total = RESEARCH_WARMUPS + RESEARCH_STEPS
+    eval_batches = len(research_eval) // rcfg.eval_batch_size
+    print(
+        f"research phase: preset {RESEARCH_PRESET}: {rm.num_blocks} blocks, H={RH}, dqk=dv={RD}, "
+        f"d={rm.item_embedding_dim}, N={RN}, batch {RB}, {rcfg.num_negatives} negatives, "
+        f"{rm.num_items:,} items, float32, dropout {rm.dropout_rate} / {rm.linear_dropout_rate}; "
+        f"{steps_total} steps, then an eval of {eval_batches} batches"
+    )
+    count_reset()
+    t0 = time.perf_counter()
+    rout = research.train_loop(
+        dataclasses.replace(rcfg, num_epochs=1), research_train, research_eval,
+        log_every=1, max_steps=steps_total, device="cuda",
+    )
+    loop_s = time.perf_counter() - t0
+    n = counts()
+    rtrainer = rout["trainer"]
+    rlosses, rsteps = rout["losses"], rout["step_s"]
+    check(len(rlosses) == steps_total and all(math.isfinite(x) for x in rlosses),
+          f"research losses: {rlosses}")
+    timed = sorted(1e3 * t for t in rsteps[RESEARCH_WARMUPS:])
+    r_median = (timed[(RESEARCH_STEPS - 1) // 2] + timed[RESEARCH_STEPS // 2]) / 2
+    r_eps = RB * RESEARCH_STEPS / sum(rsteps[RESEARCH_WARMUPS:])
+    metrics = rout["history"][-1]
+    corpus = int(rtrainer.all_item_ids.shape[0])
+    print(
+        f"  {RESEARCH_STEPS} steps after {RESEARCH_WARMUPS} warm-ups: {r_eps:.1f} examples/s, median step "
+        f"{r_median:.2f} ms (min {timed[0]:.2f}, max {timed[-1]:.2f}); losses "
+        f"{[round(x, 4) for x in rlosses]}; the whole loop with its eval {loop_s:.1f} s"
+    )
+    print(
+        f"  eval over {eval_batches * rcfg.eval_batch_size} users against the corpus' {corpus:,} items: "
+        f"HR@10 {metrics['hr@10']:.4f}, HR@50 {metrics['hr@50']:.4f}, HR@1000 {metrics['hr@1000']:.4f}, "
+        f"NDCG@10 {metrics['ndcg@10']:.4f}, MRR {metrics['mrr']:.6f}; launches {n}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    first, last = sum(rlosses[:3]) / 3, sum(rlosses[-3:]) / 3
+    check(last <= first * 1.02, f"the research loss rises: {first:.4f} -> {last:.4f}")
+    check(all(math.isfinite(v_) and 0.0 <= v_ <= 1.0 for k_, v_ in metrics.items() if k_ != "epoch"),
+          f"eval metrics out of range: {metrics}")
+    want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+              "K6": rm.num_blocks * (steps_total + eval_batches), "K7": rm.num_blocks * steps_total}
+    check(n == want_n, f"the research loop launched {n}, expected {want_n}")
+    rbatch = next(batch_iterator(research_train, RB, shuffle=True, seed=7))
+    profile("research training step", lambda: rtrainer.train_step(rbatch))
+    # the optimizer alone (dense AdamW over every parameter, the whole item
+    # table and its two moments included), on the gradients the step left
+    n_params = sum(p_.numel() for p_ in rtrainer.model.parameters())
+    opt_ms = device_time_ms(rtrainer.optimizer.step, 3)
+    print(f"  AdamW step over {n_params:,} parameters: {opt_ms:.2f} ms of device time")
+    item_embs = rtrainer.item_embeddings()
+    profile("research eval batch", lambda: rtrainer.encode_step(rbatch, item_embs))
+    del rtrainer, rout, item_embs
+    torch.cuda.empty_cache()
+
+    # one training step's loss and gradients on a small research model: GPU
+    # kernels vs CPU plain versions, dropout off and the negatives a function
+    # of the positives (the devices' random streams differ)
+    class FixedNegatives:
+        def __init__(self, sampler):
+            self.sampler = sampler
+
+        def __call__(self, gen_, positive_ids, num_to_sample, item_embedding_fn):
+            ids_ = self.sampler.all_item_ids
+            r = torch.arange(num_to_sample, device=ids_.device)
+            sampled = ids_[(positive_ids[..., None] * 7 + r * 13 + 1) % ids_.shape[0]]
+            return sampled, self.sampler.normalize_embeddings(item_embedding_fn(sampled))
+
+    sseqs = synthetic_user_sequences(num_users=16, num_items=300, max_len=60, min_len=2, seed=3)
+    sds = SequenceDataset(sseqs, 56, ignore_last_n=1)
+    small_cfg = research.TrainConfig(
+        model=ModelConfig(num_items=300, max_sequence_len=56, gr_output_length=3, item_embedding_dim=32,
+                          num_blocks=3, num_heads=2, dqk=16, dv=16, linear_dropout_rate=0.0, dropout_rate=0.0),
+        local_batch_size=8, num_negatives=16,
+    )
+    sbatch = next(batch_iterator(sds, 8, shuffle=False))
+    rgrads, rloss = {}, {}
+    for dev in ("cpu", "cuda"):
+        st = research.ResearchTrainer(small_cfg, sds.all_item_ids(), device="cpu")
+        if dev == "cuda":
+            st.model.to(dev)
+            st.device = torch.device(dev)
+            st.all_item_ids = st.all_item_ids.to(dev)
+            st.sampler = st.sampler._replace(all_item_ids=st.all_item_ids)
+        st.sampler = FixedNegatives(st.sampler)
+        before = (counters["K6"].count, counters["K7"].count)
+        loss, _ = st.loss(research.to_device(sbatch, st.device))
+        loss.backward()
+        if dev == "cuda":
+            got_n = (counters["K6"].count - before[0], counters["K7"].count - before[1])
+            check(got_n == (3, 3), f"the small research step launched K6, K7 {got_n} times")
+        rloss[dev] = loss.item()
+        rgrads[dev] = {name: p.grad.cpu() for name, p in st.model.named_parameters() if p.grad is not None}
+    check(rgrads["cpu"].keys() == rgrads["cuda"].keys() and len(rgrads["cpu"]) == 2 + 5 * 3,
+          "the two devices give gradients to other parameters")
+    rgrad_err = {
+        k_: (rgrads["cuda"][k_] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+        for k_, g in rgrads["cpu"].items()
+    }
+    worst = max(rgrad_err, key=rgrad_err.get)
+    table_err = max(e for k_, e in rgrad_err.items() if k_.endswith(("pos_w", "ts_w")))
+    print(
+        f"  small research model, one step, GPU kernels vs CPU plain versions: loss {rloss['cuda']:.6f} vs "
+        f"{rloss['cpu']:.6f}; largest gradient error {rgrad_err[worst]:.3e} of the gradient's max "
+        f"({worst}; the bias tables' largest {table_err:.3e}) over {len(rgrad_err)} parameters (tol {GRAD_TOL})"
+    )
+    check(abs(rloss["cuda"] - rloss["cpu"]) <= 1e-5 * abs(rloss["cpu"]), "GPU and CPU research losses disagree")
+    check(rgrad_err[worst] <= GRAD_TOL, "GPU and CPU research gradients disagree")
+
     # --------------------------------------------------------------- report
     def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes):
         t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
@@ -629,12 +924,14 @@ def main() -> None:
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            # no single PyTorch call computes masked silu attention
+            # no single PyTorch call computes masked silu attention, with or
+            # without the relative bias, or its backward
             "library_ms": None,
         }
 
     src = "generative_recommenders_tpu_torch/csrc/"
     tpu = "generative_recommenders_tpu/ops/pallas/hstu_attention.py:"
+    tpu_rel = "generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py:"
     ms_tr, work_tr = bwd_tr
     ms_det, work_det = bwd_det
     launches = main_path_launches
@@ -653,9 +950,15 @@ def main() -> None:
         entry("hstu_mha_bwd_dkv", src + "hstu_mha_bwd_dkv.cu", tpu + "951", launches["K4"],
               max(bwd_errs["K3+K4"][1::3] + bwd_errs["K3+K4"][2::3]), ms_det["K4"], ms_det["plain"],
               *work_det["K4"]),
+        # K6 and K7 at the research preset's shape, on a batch of the corpus
+        entry("hstu_mha_relbias_fwd", src + "hstu_mha_relbias_fwd.cu", tpu_rel + "172", launches["K6"],
+              max(rel_errs["K6"]), k6_ms, k6_plain_ms, *k6_work),
+        entry("hstu_mha_relbias_bwd", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7"],
+              max(rel_errs["K7"]), k7_ms, k7_plain_ms, *k7_work),
     ]
     shapes = [f"serving N={N_full}", f"M-FALCON M={CHUNK}", f"training N={N_tr}",
-              f"uih {DET_UIH} N={N_det}", f"uih {DET_UIH} N={N_det}"]
+              f"uih {DET_UIH} N={N_det}", f"uih {DET_UIH} N={N_det}",
+              f"research B={RB} N={RN}", f"research B={RB} N={RN}"]
     for kr, shape in zip(kernels, shapes):
         print(
             f"  {kr['name']}: {kr['ms']:.4f} ms at {shape}, bound {kr['bound_ms']:.4f} ms "

@@ -10,6 +10,12 @@ maps onto a ``state_dict`` by flattening its path with dots:
 * the tables stay ``embedding_tables_<name>``;
 * ``batched_contextual_linear_weights`` stays [C, Din, Dout].
 
+The research model (`models/sequential.py:SequentialRecommender`) needs no
+renaming: ``embedding_module/item_emb``, ``input_preproc/pos_emb`` and
+``encoder/layer_i/{uvqk, o/kernel, o/bias, rel_attn_bias/{pos_w, ts_w}}``
+are the port's own names, with ``uvqk`` [D, (2 dv + 2 dqk) * H] split u, v,
+q, k and ``o/kernel`` [in, out].
+
 The one renaming: in `DlrmHSTU`, the flax tree holds the transducer's parts
 at the top (``stu``, ``preprocessor``, ``positional_encoder``,
 ``postprocessor``); the port nests them under ``hstu_transducer`` with the

@@ -1,13 +1,31 @@
 // HSTU attention forward for Hopper (sm_90a), float32: the shared body of
-// the dense kernel K1 (hstu_mha_fwd.cu) and the M-FALCON delta kernel K5
-// (delta_hstu_mha_fwd.cu).
+// the dense kernel K1 (hstu_mha_fwd.cu), the M-FALCON delta kernel K5
+// (delta_hstu_mha_fwd.cu) and the relative-bias kernel K6
+// (hstu_mha_relbias_fwd.cu).
 //
-//   S = alpha * Q K^T      P = silu(S) * valid_mask      O = (P V) / norm
+//   S = alpha * Q K^T (+ bias)   P = silu(S) * valid_mask   O = (P V) / norm
 //
 // Replaces the Pallas TPU kernels `_fwd_kernel_rkv` / `_fwd_kernel` and
 // `_delta_fwd_kernel_rkv` of generative_recommenders_tpu/ops/pallas/
-// hstu_attention.py; `valid_elem` ports their tile mask helpers
-// `_block_mask` (full, target-aware branch) and `_delta_block_mask`.
+// hstu_attention.py, and `_fwd_kernel_relbias` of hstu_attention_relbias.py;
+// `valid_elem` ports their tile mask helpers `_block_mask` (full,
+// target-aware branch) and `_delta_block_mask`.
+//
+// K6's bias is rebuilt per element from two small tables and the row's
+// timestamps, never as a [B, N, N] tensor:
+//
+//   bias[b, i, j] = pos_w[clip(j - i + Nm - 1, 0, 2 Nm - 2)]
+//                 + ts_w[clip(floor(ln(max(|ts[b, min(i + 1, N - 1)]
+//                                         - ts[b, j]|, 1)) / 0.301), 0, NB)]
+//
+// Both tables sit in shared memory for the whole block (the TPU's
+// lane-gather rows and 128-wide table packing answer a machine without a
+// scattered load and are not ported). One block serves one head, so the
+// bias and its logf are recomputed per head, H times per (row, column),
+// where the TPU kernel loops the heads inside one tile and computes them
+// once; a block that did the same would keep H accumulators. What the bias
+// costs is the distance between K6 and K1 on the same inputs, which
+// chip_smoke.py prints.
 //
 // Design. One block per (q tile, head, batch row). The block keeps its Q tile
 // in shared memory and walks K/V tiles of kBlockK columns only up to the
@@ -47,7 +65,27 @@ struct Params {
   long long v_sb, v_sn, v_sh;
   float alpha, inv_norm;
   int causal, max_attn_len, contextual_seq_len, min_full_attn_seq_len;
+  // the relative-bias kernel K6 only
+  const float* ts = nullptr;     // float32 [B, N] timestamps, contiguous
+  const float* pos_w = nullptr;  // float32 [2 Nm - 1]
+  const float* ts_w = nullptr;   // float32 [NB + 1]
+  int Nm = 0, NB = 0;
 };
+
+// bucket(x) = floor(ln(x) / 0.301), computed as ln(x) * (1 / 0.301) with the
+// full-precision logf: the form of the TPU kernel and of the plain version.
+constexpr float kInvLogBase = (float)(1.0 / 0.301);
+
+// Index into ts_w for a query-side and a key-side timestamp.
+__device__ __forceinline__ int ts_bucket(float tq, float tk, int nb) {
+  const float y = floorf(logf(fmaxf(fabsf(tq - tk), 1.f)) * kInvLogBase);
+  return (int)fminf(fmaxf(y, 0.f), (float)nb);
+}
+
+// Index into pos_w for (row, col); out of range only where N > Nm.
+__device__ __forceinline__ int pos_index(int row, int col, int nm) {
+  return min(max(col - row + nm - 1, 0), 2 * nm - 2);
+}
 
 // `_get_valid_attn_mask` semantics for one (row, col) element, AND'ed with
 // row/col < length when `guard` is set (the dense kernel's padded layout).
@@ -81,20 +119,23 @@ __host__ __device__ constexpr int smem_floats(int bq, int d, int v) {
   return bq * (d + 1) + kBlockK * (d + 1) + kBlockK * v + bq * (kBlockK + 1);
 }
 
-// RT rows per thread (block of 16*RT query rows), VT = V / 16 output columns
-// per thread. DELTA: the q rows are the M newest positions of each row.
-template <int RT, int VT, bool DELTA>
+// RT rows per thread (block of 16*RT query rows), VT output columns per
+// thread: V is padded with zero columns to 16 * VT. DELTA: the q rows are the
+// M newest positions of each row. RELBIAS: K6, the bias added to S.
+template <int RT, int VT, bool DELTA, bool RELBIAS = false>
 __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
   constexpr int BQ = 16 * RT;
   constexpr int BK = kBlockK;
   extern __shared__ float smem[];
   const int D = p.D;
-  const int V = 16 * VT;
+  constexpr int V = 16 * VT;
   const int Dp = D + 1;  // odd row pitch: column reads hit distinct banks
   float* Qs = smem;            // [BQ][Dp]
   float* Ks = Qs + BQ * Dp;    // [BK][Dp]
   float* Vs = Ks + BK * Dp;    // [BK][V]
   float* Ps = Vs + BK * V;     // [BQ][BK + 1]
+  float* pos_s = Ps + BQ * (BK + 1);  // RELBIAS: [2 Nm - 1]
+  float* ts_s = pos_s + 2 * p.Nm - 1;  // RELBIAS: [NB + 1]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -105,14 +146,19 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
   const int nt = p.num_targets ? p.num_targets[b] : 0;
   const bool causal = DELTA ? true : (p.causal != 0);
 
-  // mask row of each of this thread's q rows
+  // mask row of each of this thread's q rows; RELBIAS: the timestamp that
+  // row reads, the next position's (the last position's at the last row),
+  // whether or not it lies past the row's length
   int mrow[RT];
   bool live[RT];
+  float tq[RT];
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
     const int r = q0 + ty + 16 * i;
     live[i] = r < n_rows;
     mrow[i] = DELTA ? min(max(length - p.M + r, 0), p.N - 1) : r;
+    tq[i] = (RELBIAS && live[i])
+                ? p.ts[(long long)b * p.N + min(r + 1, p.N - 1)] : 0.f;
   }
 
   int kv_limit = length;
@@ -136,6 +182,10 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
       const int qr = q0 + r;
       Qs[r * Dp + d] = qr < n_rows ? qb[qr * p.q_sn + d] : 0.f;
     }
+    if (RELBIAS) {  // visible after the walk's first barrier
+      for (int idx = tid; idx < 2 * p.Nm - 1; idx += kThreads) pos_s[idx] = p.pos_w[idx];
+      for (int idx = tid; idx <= p.NB; idx += kThreads) ts_s[idx] = p.ts_w[idx];
+    }
     for (int c0 = 0; c0 < kv_limit; c0 += BK) {
       __syncthreads();  // the previous tile's P V is done with Ks/Vs/Ps
       for (int idx = tid; idx < BK * D; idx += kThreads) {
@@ -146,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
       for (int idx = tid; idx < BK * V; idx += kThreads) {
         const int c = idx / V, e = idx - c * V;
         const int n = c0 + c;
-        Vs[c * V + e] = n < p.N ? vb[n * p.v_sn + e] : 0.f;
+        Vs[c * V + e] = (n < p.N && e < p.V) ? vb[n * p.v_sn + e] : 0.f;
       }
       __syncthreads();
 
@@ -164,12 +214,23 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
           s[i][1] = fmaf(qq, k1, s[i][1]);
         }
       }
+      float tk[2] = {0.f, 0.f};
+      if (RELBIAS) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int col = c0 + tx + 16 * j;
+          if (col < p.N) tk[j] = p.ts[(long long)b * p.N + col];
+        }
+      }
 #pragma unroll
       for (int i = 0; i < RT; ++i) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int col = c0 + tx + 16 * j;
-          const float x = s[i][j] * p.alpha;
+          float x = s[i][j] * p.alpha;
+          if (RELBIAS)
+            x += pos_s[pos_index(mrow[i], col, p.Nm)] +
+                 ts_s[ts_bucket(tq[i], tk[j], p.NB)];
           const bool ok =
               live[i] && col < p.N &&
               valid_elem(mrow[i], col, length, nt, causal, p.max_attn_len,
@@ -200,16 +261,19 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
   for (int i = 0; i < RT; ++i) {
     if (!live[i]) continue;
     const long long r = q0 + ty + 16 * i;
-    float* o = p.out + ((long long)b * n_rows + r) * p.H * V + (long long)h * V;
+    float* o = p.out + (((long long)b * n_rows + r) * p.H + h) * p.V;
 #pragma unroll
-    for (int j = 0; j < VT; ++j) o[tx + 16 * j] = acc[i][j] * p.inv_norm;
+    for (int j = 0; j < VT; ++j)
+      if (tx + 16 * j < p.V) o[tx + 16 * j] = acc[i][j] * p.inv_norm;
   }
 }
 
-template <int RT, bool DELTA, int VT>
+template <int RT, bool DELTA, bool RELBIAS, int VT>
 cudaError_t launch_vt(const Params& p, int n_rows, cudaStream_t stream) {
-  const int smem = smem_floats(16 * RT, p.D, 16 * VT) * (int)sizeof(float);
-  auto kernel = hstu_attn_kernel<RT, VT, DELTA>;
+  const int tables = RELBIAS ? 2 * p.Nm - 1 + p.NB + 1 : 0;
+  const int smem =
+      (smem_floats(16 * RT, p.D, 16 * VT) + tables) * (int)sizeof(float);
+  auto kernel = hstu_attn_kernel<RT, VT, DELTA, RELBIAS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -218,20 +282,21 @@ cudaError_t launch_vt(const Params& p, int n_rows, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Launches on `stream`; returns the launch's cudaGetLastError(). V must be
-// 16, 32, 64 or 128 and D at most 256 (the Python wrapper checks both).
-template <int RT, bool DELTA>
+// Launches on `stream`; returns the launch's cudaGetLastError(). V is at
+// most 128 and D at most 256 (the Python wrapper checks both); V is padded
+// with zero columns to the next of 16, 32, 64, 128. RELBIAS also needs both
+// tables to fit the block's shared memory.
+template <int RT, bool DELTA, bool RELBIAS = false>
 int launch(const Params& p, int n_rows, void* stream) {
   if (p.B == 0 || n_rows == 0 || p.H == 0) return 0;
-  if (p.D < 1 || p.D > 256) return (int)cudaErrorInvalidValue;
+  if (p.D < 1 || p.D > 256 || p.V < 1) return (int)cudaErrorInvalidValue;
+  if (RELBIAS && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.V) {
-    case 16: return (int)launch_vt<RT, DELTA, 1>(p, n_rows, s);
-    case 32: return (int)launch_vt<RT, DELTA, 2>(p, n_rows, s);
-    case 64: return (int)launch_vt<RT, DELTA, 4>(p, n_rows, s);
-    case 128: return (int)launch_vt<RT, DELTA, 8>(p, n_rows, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (p.V <= 16) return (int)launch_vt<RT, DELTA, RELBIAS, 1>(p, n_rows, s);
+  if (p.V <= 32) return (int)launch_vt<RT, DELTA, RELBIAS, 2>(p, n_rows, s);
+  if (p.V <= 64) return (int)launch_vt<RT, DELTA, RELBIAS, 4>(p, n_rows, s);
+  if (p.V <= 128) return (int)launch_vt<RT, DELTA, RELBIAS, 8>(p, n_rows, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hstu

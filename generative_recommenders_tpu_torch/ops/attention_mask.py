@@ -68,6 +68,12 @@ def apply_padding_guard(
     return valid & (pos[None, None, :] < lens) & (pos[None, :, None] < lens)
 
 
+def make_causal_mask(N: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Lower-triangular (diagonal included) [N, N] mask of the research
+    models' plain attention."""
+    return torch.tril(torch.ones((N, N), dtype=dtype))
+
+
 def make_delta_attn_mask(
     N: int,
     seq_lengths: torch.Tensor,  # int[B]: full (cache + delta) lengths

@@ -27,6 +27,8 @@ KERNEL_SOURCES = {
     "hstu_mha_bwd_fused": "hstu_mha_bwd_fused.cu",
     "hstu_mha_bwd_dq": "hstu_mha_bwd_dq.cu",
     "hstu_mha_bwd_dkv": "hstu_mha_bwd_dkv.cu",
+    "hstu_mha_relbias_fwd": "hstu_mha_relbias_fwd.cu",
+    "hstu_mha_relbias_bwd": "hstu_mha_relbias_bwd.cu",
 }
 _HEADERS = ("hstu_attention.cuh", "hstu_attention_bwd.cuh")
 NVCC_FLAGS = (

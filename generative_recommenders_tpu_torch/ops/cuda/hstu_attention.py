@@ -59,7 +59,7 @@ _ARGTYPES = {
     "hstu_mha_bwd_dkv": _BWD_ARGTYPES,
 }
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-_SUPPORTED_V = (16, 32, 64, 128)
+_MAX_V = 128
 _MAX_D = 256
 
 
@@ -192,10 +192,9 @@ def _check_qkv(q, k, v) -> torch.device:
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
-    if D > _MAX_D or v.shape[3] not in _SUPPORTED_V:
+    if not (0 < D <= _MAX_D and 0 < v.shape[3] <= _MAX_V):
         raise ValueError(
-            f"the kernels take D <= {_MAX_D} and V in {_SUPPORTED_V}; "
-            f"got D={D}, V={v.shape[3]}"
+            f"the kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={v.shape[3]}"
         )
     return device
 

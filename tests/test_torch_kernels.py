@@ -9,7 +9,10 @@ Float32 with TF32 off; kernel and plain version differ only in summation
 order and the exp of silu, so atol = rtol = 1e-5 of outputs of order 1e-2.
 The backward kernels are held to the plain backward the same way; K2's dq
 sums arrive in a different order on every run (atomics), K3 + K4 give the
-same bits every run.
+same bits every run. The relative-bias pair K6 / K7 likewise; K7's two table
+gradients sum up to B * H * N^2 / 2 float32 terms per entry, in an order that
+changes from run to run, and are held to 2e-5 of each table gradient's
+largest entry.
 """
 
 import numpy as np
@@ -24,6 +27,12 @@ from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
     hstu_mha_dense_cuda,
     hstu_mha_dense_plain,
 )
+from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
+    hstu_mha_dense_relbias_cuda,
+    hstu_mha_dense_relbias_plain,
+    hstu_mha_relbias_bwd_cuda,
+    hstu_mha_relbias_bwd_plain,
+)
 from generative_recommenders_tpu_torch.ops.hstu_compute import hstu_compute_uqvk
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -35,6 +44,14 @@ CASES = [
     dict(max_attn_len=6, min_full_attn_seq_len=4),
     dict(causal=False),
 ]
+RELBIAS_CASES = [
+    dict(),
+    dict(num_targets=True),
+    dict(max_attn_len=37),
+    dict(num_targets=True, max_attn_len=37, min_full_attn_seq_len=16),
+    dict(causal=False),
+]
+TABLE_TOL = 2e-5  # of a table gradient's largest entry
 DELTA_CASES = [
     dict(),
     dict(num_targets=True, contextual_seq_len=2),
@@ -205,3 +222,99 @@ def test_empty_batch_counts_no_launch(cuda):
     for split in (False, True):
         assert all(g.shape == (0, 8, 2, 16) for g in hstu_mha_bwd_cuda(q, k, v, lengths, v, split=split))
     assert hstu_mha_dense_cuda.launches.count == fwd and _bwd_counts() == bwd
+
+
+def _relbias_inputs(seed, B, N, H, D, V, Nm, nb, num_targets, device):
+    """q, k, v as views of one projection (as the research STU passes them),
+    lengths, timestamps near 1.6e9 with each row's next one past its length
+    (where training puts the target's) and zeros after it, and both tables."""
+    rng = np.random.default_rng(seed)
+    t = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    proj = t(rng.standard_normal((B, N, H * (2 * D + V))).astype(np.float32) * 0.5)
+    v, q, k = torch.split(proj, [H * V, H * D, H * D], dim=-1)
+    q, k, v = q.reshape(B, N, H, D), k.reshape(B, N, H, D), v.reshape(B, N, H, V)
+    lengths = rng.integers(1, N, size=(B,)).astype(np.int32)
+    lengths[0] = N
+    ts = 1_600_000_000 + np.cumsum(rng.integers(1, 90000, size=(B, N)), axis=1)
+    ts *= np.arange(N)[None, :] <= lengths[:, None]
+    nt = None
+    if num_targets:
+        nt = t(np.minimum(rng.integers(0, 6, size=(B,)), lengths - 1).clip(0).astype(np.int32))
+    pos_w = t((rng.standard_normal(2 * Nm - 1) * 0.05).astype(np.float32))
+    ts_w = t((rng.standard_normal(nb + 1) * 0.05).astype(np.float32))
+    return q, k, v, t(lengths), t(ts), pos_w, ts_w, nt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RELBIAS_CASES)
+@pytest.mark.parametrize("shape", [(3, 211, 2, 32, 32, 211, 128), (2, 100, 2, 25, 25, 120, 40)])
+def test_relbias_kernels_match_plain(cuda, case, shape):
+    """K6 against the plain forward and K7 against the plain backward, each
+    launch counted once; rows >= length exactly 0 in out, dq, dk and dv."""
+    case = dict(case)
+    B, N, H, D, V, Nm, nb = shape
+    nt_on = case.pop("num_targets", False)
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(7, B, N, H, D, V, Nm, nb, nt_on, cuda)
+    kw = dict(alpha=0.8, max_seq_len=N, num_buckets=nb, num_targets=nt, **case)
+    fwd, bwd = hstu_mha_dense_relbias_cuda.launches.count, hstu_mha_relbias_bwd_cuda.launches.count
+    got = hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **kw)
+    assert hstu_mha_dense_relbias_cuda.launches.count == fwd + 1
+    torch.testing.assert_close(got, hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, **kw), **TOL)
+    dead = torch.arange(N, device=cuda)[None, :] >= lengths[:, None]
+    assert (got[dead] == 0).all()
+
+    do = torch.randn(N, B, H, V, device=cuda).transpose(0, 1)  # strided
+    grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, **kw)
+    assert hstu_mha_relbias_bwd_cuda.launches.count == bwd + 1
+    want = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, **kw)
+    for g, w in zip(grads[:3], want[:3]):
+        torch.testing.assert_close(g, w, **TOL)
+        assert (g[dead] == 0).all()
+    for name, g, w in zip(("dpos_w", "dts_w"), grads[3:], want[3:]):
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        assert err <= TABLE_TOL, f"{name}: {err:.2e} of the gradient's max"
+
+
+@pytest.mark.gpu
+def test_relbias_attention_is_differentiable_on_the_card(cuda):
+    """Autograd through `hstu_mha_dense_relbias_cuda` reaches q, k, v and
+    both tables by K7; under `torch.use_deterministic_algorithms(True)` the
+    backward raises a RuntimeError that names the kernel's wrapper."""
+    B, N, H, D, V, Nm, nb = 2, 70, 2, 32, 32, 80, 128
+    q, k, v, lengths, ts, pos_w, ts_w, _ = _relbias_inputs(9, B, N, H, D, V, Nm, nb, False, cuda)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v, pos_w, ts_w)]
+    fwd, bwd = hstu_mha_dense_relbias_cuda.launches.count, hstu_mha_relbias_bwd_cuda.launches.count
+    out = hstu_mha_dense_relbias_cuda(*leaves[:3], lengths, ts, *leaves[3:], max_seq_len=N)
+    out.square().sum().backward()
+    assert hstu_mha_dense_relbias_cuda.launches.count == fwd + 1
+    assert hstu_mha_relbias_bwd_cuda.launches.count == bwd + 1
+    ref = [x.clone().requires_grad_(True) for x in (q, k, v, pos_w, ts_w)]
+    hstu_mha_dense_relbias_plain(*ref[:3], lengths, ts, *ref[3:], max_seq_len=N).square().sum().backward()
+    for leaf, r in zip(leaves, ref):
+        assert leaf.grad is not None
+        scale = r.grad.abs().max().item()
+        assert (leaf.grad - r.grad).abs().max().item() <= TABLE_TOL * scale + 1e-7
+
+    out = hstu_mha_dense_relbias_cuda(*leaves[:3], lengths, ts, *leaves[3:], max_seq_len=N)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(RuntimeError, match="hstu_mha_relbias_bwd_cuda does not have a deterministic"):
+            out.sum().backward()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert hstu_mha_relbias_bwd_cuda.launches.count == bwd + 1  # nothing was launched
+
+
+@pytest.mark.gpu
+def test_relbias_empty_batch_counts_no_launch(cuda):
+    q, k, v = (torch.zeros(0, 8, 2, 16, device=cuda) for _ in range(3))
+    lengths = torch.zeros(0, dtype=torch.int32, device=cuda)
+    ts = torch.zeros(0, 8, dtype=torch.int64, device=cuda)
+    pos_w, ts_w = torch.zeros(15, device=cuda), torch.zeros(129, device=cuda)
+    fwd, bwd = hstu_mha_dense_relbias_cuda.launches.count, hstu_mha_relbias_bwd_cuda.launches.count
+    assert hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w).shape == (0, 8, 2, 16)
+    grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, v)
+    assert [tuple(g.shape) for g in grads] == [(0, 8, 2, 16)] * 3 + [(15,), (129,)]
+    assert all((g == 0).all() for g in grads[3:])
+    assert hstu_mha_dense_relbias_cuda.launches.count == fwd
+    assert hstu_mha_relbias_bwd_cuda.launches.count == bwd

@@ -136,6 +136,8 @@ def test_serving_cli_refuses_to_fall_back_to_cpu():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port (the serving, ranker-training and research
+    stacks: whatever lies under the package) and `chip_smoke.py`."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py"
@@ -144,9 +146,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'generative_recommenders_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'generative_recommenders_tpu')]\n"
         "assert not bad, bad\n"
     )
+    for stack in ("models.sequential", "models.hstu", "train.train_loop", "train.eval_metrics",
+                  "data.features", "configs.research", "cli.train_research",
+                  "ops.cuda.hstu_attention_relbias"):
+        assert f"generative_recommenders_tpu_torch.{stack}" in modules
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
 
@@ -160,5 +166,5 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 continue
             for name in names:
                 assert name.split(".")[0] not in (
-                    "jax", "jaxlib", "flax", "generative_recommenders_tpu"
+                    "jax", "jaxlib", "flax", "optax", "generative_recommenders_tpu"
                 ), f"{path}: imports {name}"
