@@ -14,7 +14,10 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    (float32, TF32 off); the backward kernels K2 and K3 + K4 against the
    plain backward (autograd of the plain forward); the relative-bias pair
    K6 and K7 at the research preset's shapes, on a batch of the synthetic
-   corpus, against their plain versions (and a float64 run of them);
+   corpus, against their plain versions (and a float64 run of them); K5 and
+   K7 also at the seams of their tilings (chunk and tile edges, row and head
+   counts that do not fill a tile or a group), K5's output and K7's dk and
+   dv the same bits on a second run;
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -50,8 +53,11 @@ import subprocess
 import sys
 import time
 
-# H100 SXM published peaks: float32 FMA outside the tensor cores, HBM3 rate
+# H100 SXM published peaks: float32 FMA outside the tensor cores; dense TF32
+# in the tensor cores, of which a 3xTF32 product (three TF32 products per
+# float32-accurate one) can reach a third; HBM3 rate
 PEAK_F32_FLOPS = 67e12
+PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # the full-width debug preset, as served
@@ -71,10 +77,12 @@ REL_TOL = 2e-5
 # K7's table gradients: each entry of dpos_w / dts_w sums up to B H N^2 / 2
 # float32 terms (1e8 at the research shape), with atomics in an order that
 # changes from run to run. Against a float64 run of the plain backward at
-# that shape the kernel stood at 1.4e-6 of each gradient's max and the
-# float32 plain version at 4.5e-6 (H100, both printed below on every run),
-# so the same share of the max as the other outputs holds them, with a
-# margin of four
+# that shape the kernel stood at 6.9e-7 to 8.9e-7 (dpos_w) and 5.4e-7 to
+# 1.2e-6 (dts_w) of each gradient's max over four runs, the float32 plain
+# version at 1.8e-7 and 3.7e-6, and kernel against plain version at 4.6e-6
+# at most over all cases (H100; all printed below on every run), so the
+# same share of the max as the other outputs holds them, with a margin of
+# more than four
 TABLE_TOL = 2e-5
 # dense vs M-FALCON predictions, and GPU vs CPU predictions (sigmoid outputs)
 PRED_TOL = 1e-4
@@ -297,6 +305,9 @@ def main() -> None:
         got = delta_hstu_mha_cuda(q, k, v, lengths, **args)
         want = delta_hstu_mha_plain(q, k, v, lengths, **args)
         torch.cuda.synchronize()
+        # the chunks' partial sums are added in chunk order
+        check(torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **args)),
+              f"K5 {name}: two runs differ in their bits")
         return compare(f"K5 {name}", got, want)
 
     print("kernel phase (kernel vs plain, float32):")
@@ -344,6 +355,18 @@ def main() -> None:
                    torch.full((4,), 5, dtype=torch.int32, device="cuda"),
                    max_attn_len=16, min_full_attn_seq_len=8),
         delta_case("D=64, V=64", 3, 5, 50, ints(1, 51, 3), Dc=64, Vc=64, contextual_seq_len=C),
+        # the seams of the chunked walk: 64 key columns and 8 query rows per block
+        delta_case("lengths at the chunk edges (63, 64, 65, 127, 128, 129)", 6, 5, 195,
+                   torch.tensor([58, 59, 60, 122, 123, 124], dtype=torch.int32, device="cuda"),
+                   torch.full((6,), 5, dtype=torch.int32, device="cuda")),
+        delta_case("an empty cache beside a full one", 2, 5, 195,
+                   torch.tensor([0, 195], dtype=torch.int32, device="cuda"),
+                   torch.full((2,), 5, dtype=torch.int32, device="cuda"), contextual_seq_len=C),
+        delta_case("M=1", 4, 1, 130, torch.tensor([0, 63, 64, 130], dtype=torch.int32, device="cuda")),
+        delta_case("M=17 (three row tiles)", 4, 17, 150, ints(0, 151, 4),
+                   torch.full((4,), 17, dtype=torch.int32, device="cuda")),
+        delta_case("D=40, V=40 (16-byte loads, padded tail)", 3, 5, 140, ints(0, 141, 3), Dc=40, Vc=40),
+        delta_case("D=25, V=25 (scalar loads)", 3, 5, 140, ints(0, 141, 3), Dc=25, Vc=25),
     ]
 
     # times and bounds at the serving shapes, on strided views as served
@@ -529,6 +552,11 @@ def main() -> None:
         poison_allocator(3 * Bc * N * Hc * max(Dc, Vc) * 4)
         grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
         torch.cuda.synchronize()
+        # dk and dv are summed without atomics (dq and the tables with them)
+        again = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
+        check(torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2]),
+              f"K7 {name}: dk or dv differ between two runs")
+        del again
         wants = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
         for g, a, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants):
             table = g in ("dpos_w", "dts_w")
@@ -575,6 +603,17 @@ def main() -> None:
     relbias_case("steps of seconds (low buckets)", 3, 45, l45, random_ts(3, 45, l45, step_hi=4))
     relbias_case("D=V=25 (the ml-1m preset's heads), float timestamps", 2, 211, ints(1, 212, 2),
                  random_ts(2, 211, full(2, 211)).float(), Dc=25, Vc=25)
+    # the seams of K7's tiling: 64 x 64 tile pairs, groups of 4 (or 2) heads
+    edges = torch.tensor([63, 64, 65, 127, 128, 129], dtype=torch.int32, device="cuda")
+    relbias_case("lengths at the tile edges (63 .. 129)", 6, 140, edges, random_ts(6, 140, edges))
+    l140 = ints(1, 141, 3)
+    for heads in (1, 3, 8):
+        relbias_case(f"H={heads}", 3, 140, l140, random_ts(3, 140, l140), Hc=heads)
+    relbias_case("D=V=50, H=1 (the ml-1m preset's one head: width 64)", 2, 211, ints(1, 212, 2),
+                 random_ts(2, 211, full(2, 211)), Hc=1, Dc=50, Vc=50)
+    relbias_case("N > Nm (clipped diagonals)", 3, 140, l140, random_ts(3, 140, l140), Nm=100)
+    relbias_case("num_targets with contextual rows", 4, 96, l4, random_ts(4, 96, l4),
+                 nt=torch.minimum(ints(0, 6, 4), l4 - 1), contextual_seq_len=3)
 
     # times and bounds at the research shape, on the views and the strided dO
     q, k, v, pos_w, ts_w, do, r_args = slice_case
@@ -598,10 +637,10 @@ def main() -> None:
     print(
         f"  research shape: K6 {k6_ms:.4f} ms (plain {k6_plain_ms:.4f}), K7 {k7_ms:.4f} ms (plain "
         f"{k7_plain_ms:.4f}); {live_r} live mask elements per head, mean length {r_len.float().mean().item():.1f}. "
-        f"Outside the bound's count, the bias adds per live element and head one logf, two table reads "
-        f"from shared memory and about ten float32 operations (K7 also two shared-memory atomics); "
-        f"it is rebuilt per head, {RH} times per (row, column). Without the bias, on the same inputs: "
-        f"K1 {k1_same_ms:.4f} ms, K2 {k2_same_ms:.4f} ms"
+        f"Outside the bound's count, the bias adds per live element one logf, two table reads from shared "
+        f"memory and about ten float32 operations: K6 rebuilds it per head, {RH} times per (row, column); "
+        f"K7 once per group of 4 heads, and sums dS over the group before the table sums. Without the "
+        f"bias, on the same inputs: K1 {k1_same_ms:.4f} ms, K2 {k2_same_ms:.4f} ms"
     )
     del slice_case, q, k, v, do
     torch.cuda.empty_cache()
@@ -917,13 +956,18 @@ def main() -> None:
     check(rgrad_err[worst] <= GRAD_TOL, "GPU and CPU research gradients disagree")
 
     # --------------------------------------------------------------- report
-    def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes, peak=PEAK_F32_FLOPS):
+        """``peak``: the rate the kernel's operations are held to, float32
+        FMA for a kernel outside the tensor cores, a third of dense TF32 for
+        a 3xTF32 one."""
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "operations_ms": t_ops, "bytes_ms": t_bytes,
+            "operations_peak": "3xTF32, 495e12 / 3" if peak == PEAK_3XTF32_FLOPS else "float32 FMA, 67e12",
             # no single PyTorch call computes masked silu attention, with or
             # without the relative bias, or its backward
             "library_ms": None,
@@ -954,7 +998,7 @@ def main() -> None:
         entry("hstu_mha_relbias_fwd", src + "hstu_mha_relbias_fwd.cu", tpu_rel + "172", launches["K6"],
               max(rel_errs["K6"]), k6_ms, k6_plain_ms, *k6_work),
         entry("hstu_mha_relbias_bwd", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7"],
-              max(rel_errs["K7"]), k7_ms, k7_plain_ms, *k7_work),
+              max(rel_errs["K7"]), k7_ms, k7_plain_ms, *k7_work, peak=PEAK_3XTF32_FLOPS),
     ]
     shapes = [f"serving N={N_full}", f"M-FALCON M={CHUNK}", f"training N={N_tr}",
               f"uih {DET_UIH} N={N_det}", f"uih {DET_UIH} N={N_det}",
@@ -962,7 +1006,8 @@ def main() -> None:
     for kr, shape in zip(kernels, shapes):
         print(
             f"  {kr['name']}: {kr['ms']:.4f} ms at {shape}, bound {kr['bound_ms']:.4f} ms "
-            f"({kr['bound_by']}), plain {kr['plain_ms']:.4f} ms, {kr['launches']} launches on the main paths"
+            f"({kr['bound_by']}; operations {kr['operations_ms']:.4f} ms at {kr['operations_peak']}, bytes "
+            f"{kr['bytes_ms']:.4f} ms), plain {kr['plain_ms']:.4f} ms, {kr['launches']} launches on the main paths"
         )
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

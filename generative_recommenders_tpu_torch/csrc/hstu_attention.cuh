@@ -1,15 +1,17 @@
 // HSTU attention forward for Hopper (sm_90a), float32: the shared body of
-// the dense kernel K1 (hstu_mha_fwd.cu), the M-FALCON delta kernel K5
-// (delta_hstu_mha_fwd.cu) and the relative-bias kernel K6
-// (hstu_mha_relbias_fwd.cu).
+// the dense kernel K1 (hstu_mha_fwd.cu) and the relative-bias kernel K6
+// (hstu_mha_relbias_fwd.cu), and the mask and bias helpers of every kernel
+// (the M-FALCON delta kernel K5, delta_hstu_mha_fwd.cu, and the
+// relative-bias backward K7, hstu_mha_relbias_bwd.cu, have bodies of their
+// own).
 //
 //   S = alpha * Q K^T (+ bias)   P = silu(S) * valid_mask   O = (P V) / norm
 //
-// Replaces the Pallas TPU kernels `_fwd_kernel_rkv` / `_fwd_kernel` and
-// `_delta_fwd_kernel_rkv` of generative_recommenders_tpu/ops/pallas/
-// hstu_attention.py, and `_fwd_kernel_relbias` of hstu_attention_relbias.py;
-// `valid_elem` ports their tile mask helpers `_block_mask` (full,
-// target-aware branch) and `_delta_block_mask`.
+// Replaces the Pallas TPU kernels `_fwd_kernel_rkv` / `_fwd_kernel` of
+// generative_recommenders_tpu/ops/pallas/hstu_attention.py and
+// `_fwd_kernel_relbias` of hstu_attention_relbias.py; `valid_elem` ports
+// their tile mask helpers `_block_mask` (full, target-aware branch) and
+// `_delta_block_mask`.
 //
 // K6's bias is rebuilt per element from two small tables and the row's
 // timestamps, never as a [B, N, N] tensor:
@@ -39,9 +41,8 @@
 // float32 rounding only. Rows and columns past the length or past N
 // are masked in the kernel, so every output element is written, zero where
 // the row is dead. On the H100 the dense kernel's least time is set by its
-// float32 operations; the delta kernel's at the serving chunk (M = 5) by
-// the bytes of K/V it reads. Both run far from either bound (PERF.md): the
-// tiles are float32 FMAs from shared memory, without tensor cores.
+// float32 operations, and it runs far from that bound (PERF.md): the tiles
+// are float32 FMAs from shared memory, without tensor cores.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -59,7 +60,6 @@ struct Params {
   const int* lengths;      // int32 [B]
   const int* num_targets;  // int32 [B] or null (no targets)
   int B, N, H, D, V;
-  int M;  // delta rows per batch row (delta kernel only)
   long long q_sb, q_sn, q_sh;
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
@@ -120,9 +120,9 @@ __host__ __device__ constexpr int smem_floats(int bq, int d, int v) {
 }
 
 // RT rows per thread (block of 16*RT query rows), VT output columns per
-// thread: V is padded with zero columns to 16 * VT. DELTA: the q rows are the
-// M newest positions of each row. RELBIAS: K6, the bias added to S.
-template <int RT, int VT, bool DELTA, bool RELBIAS = false>
+// thread: V is padded with zero columns to 16 * VT. RELBIAS: K6, the bias
+// added to S.
+template <int RT, int VT, bool RELBIAS = false>
 __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
   constexpr int BQ = 16 * RT;
   constexpr int BK = kBlockK;
@@ -141,10 +141,10 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
   const int tx = tid & 15, ty = tid >> 4;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
-  const int n_rows = DELTA ? p.M : p.N;
+  const int n_rows = p.N;
   const int length = min(p.lengths[b], p.N);
   const int nt = p.num_targets ? p.num_targets[b] : 0;
-  const bool causal = DELTA ? true : (p.causal != 0);
+  const bool causal = p.causal != 0;
 
   // mask row of each of this thread's q rows; RELBIAS: the timestamp that
   // row reads, the next position's (the last position's at the last row),
@@ -156,16 +156,14 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
   for (int i = 0; i < RT; ++i) {
     const int r = q0 + ty + 16 * i;
     live[i] = r < n_rows;
-    mrow[i] = DELTA ? min(max(length - p.M + r, 0), p.N - 1) : r;
+    mrow[i] = r;
     tq[i] = (RELBIAS && live[i])
                 ? p.ts[(long long)b * p.N + min(r + 1, p.N - 1)] : 0.f;
   }
 
   int kv_limit = length;
-  if (!DELTA) {
-    if (causal && p.contextual_seq_len == 0) kv_limit = min(kv_limit, q0 + BQ);
-    if (q0 >= length) kv_limit = 0;  // every row of the tile is dead
-  }
+  if (causal && p.contextual_seq_len == 0) kv_limit = min(kv_limit, q0 + BQ);
+  if (q0 >= length) kv_limit = 0;  // every row of the tile is dead
 
   float acc[RT][VT];
 #pragma unroll
@@ -235,7 +233,7 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
               live[i] && col < p.N &&
               valid_elem(mrow[i], col, length, nt, causal, p.max_attn_len,
                          p.contextual_seq_len, p.min_full_attn_seq_len,
-                         /*guard=*/!DELTA);
+                         /*guard=*/true);
           Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] =
               ok ? x / (1.f + expf(-x)) : 0.f;
         }
@@ -268,12 +266,12 @@ __global__ void __launch_bounds__(kThreads) hstu_attn_kernel(Params p) {
   }
 }
 
-template <int RT, bool DELTA, bool RELBIAS, int VT>
+template <int RT, bool RELBIAS, int VT>
 cudaError_t launch_vt(const Params& p, int n_rows, cudaStream_t stream) {
   const int tables = RELBIAS ? 2 * p.Nm - 1 + p.NB + 1 : 0;
   const int smem =
       (smem_floats(16 * RT, p.D, 16 * VT) + tables) * (int)sizeof(float);
-  auto kernel = hstu_attn_kernel<RT, VT, DELTA, RELBIAS>;
+  auto kernel = hstu_attn_kernel<RT, VT, RELBIAS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -286,16 +284,16 @@ cudaError_t launch_vt(const Params& p, int n_rows, cudaStream_t stream) {
 // most 128 and D at most 256 (the Python wrapper checks both); V is padded
 // with zero columns to the next of 16, 32, 64, 128. RELBIAS also needs both
 // tables to fit the block's shared memory.
-template <int RT, bool DELTA, bool RELBIAS = false>
+template <int RT, bool RELBIAS = false>
 int launch(const Params& p, int n_rows, void* stream) {
   if (p.B == 0 || n_rows == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.D > 256 || p.V < 1) return (int)cudaErrorInvalidValue;
   if (RELBIAS && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.V <= 16) return (int)launch_vt<RT, DELTA, RELBIAS, 1>(p, n_rows, s);
-  if (p.V <= 32) return (int)launch_vt<RT, DELTA, RELBIAS, 2>(p, n_rows, s);
-  if (p.V <= 64) return (int)launch_vt<RT, DELTA, RELBIAS, 4>(p, n_rows, s);
-  if (p.V <= 128) return (int)launch_vt<RT, DELTA, RELBIAS, 8>(p, n_rows, s);
+  if (p.V <= 16) return (int)launch_vt<RT, RELBIAS, 1>(p, n_rows, s);
+  if (p.V <= 32) return (int)launch_vt<RT, RELBIAS, 2>(p, n_rows, s);
+  if (p.V <= 64) return (int)launch_vt<RT, RELBIAS, 4>(p, n_rows, s);
+  if (p.V <= 128) return (int)launch_vt<RT, RELBIAS, 8>(p, n_rows, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,17 +1,17 @@
 // HSTU attention backward for Hopper (sm_90a), float32: the shared body of
-// the fused kernel K2 (hstu_mha_bwd_fused.cu), the split pair K3
-// (hstu_mha_bwd_dq.cu) and K4 (hstu_mha_bwd_dkv.cu), and the relative-bias
-// backward K7 (hstu_mha_relbias_bwd.cu).
+// the fused kernel K2 (hstu_mha_bwd_fused.cu) and the split pair K3
+// (hstu_mha_bwd_dq.cu) and K4 (hstu_mha_bwd_dkv.cu). The relative-bias
+// backward K7 has a body of its own (hstu_mha_relbias_bwd.cu).
 //
 // Per head, with S recomputed from Q and K (the forward saves only q, k, v):
 //
-//   S = alpha Q K^T (+ bias)   sig = sigmoid(S)   P = S sig mask   dOn = dO / norm
+//   S = alpha Q K^T   sig = sigmoid(S)   P = S sig mask   dOn = dO / norm
 //   dV = P^T dOn        dS = (dOn V^T) * sig (1 + S (1 - sig)) * mask
 //   dK = alpha dS^T Q   dQ = alpha dS K
 //
 // Replaces the Pallas TPU kernels `_bwd_fused_kernel_rkv`, `_bwd_dq_kernel`
 // and `_bwd_dkv_kernel` of generative_recommenders_tpu/ops/pallas/
-// hstu_attention.py, and `_bwd_kernel_relbias` of hstu_attention_relbias.py.
+// hstu_attention.py.
 // The mask is `valid_elem` of hstu_attention.cuh with the length guard on, so
 // rows and columns at or past a row's length get exact zero gradients.
 //
@@ -35,20 +35,6 @@
 //   dQ accumulator and walks the live key tiles (the causal bound of K1's
 //   kv_limit). K3 + K4 use no atomics and give the same bits on every run, at
 //   seven products per tile pair.
-// * K7 is K2 with the bias of K6 (hstu_attention.cuh) added to S, and the
-//   bias tables' gradients: dS is the bias's cotangent, so
-//   dts_w[t] = sum of dS over the live elements of bucket t and
-//   dpos_w[p] = sum of dS over the diagonal col - row + Nm - 1 = p. The TPU
-//   kernel sums both in scratches that persist across its sequential grid,
-//   shearing tiles into diagonals and rebuilding dpos_w on the host; here a
-//   block keeps both tables and one float32 accumulator per table entry in
-//   shared memory, adds each dS to them with shared-memory atomics (a warp
-//   whose 32 elements fall into one time bucket, the usual case away from
-//   the diagonal, first sums them by shuffles), and at its end adds the
-//   entries it touched to the zeroed global dpos_w and dts_w with atomicAdd.
-//   One block serves one head, so dS is not summed over heads first: H times
-//   the global atomics of a block that looped the heads inside (chip_smoke.py
-//   prints K2's time on the same inputs beside K7's).
 // Every output element is written: dead tiles and rows get zeros.
 //
 // Bound on the H100: float32 operations outside the tensor cores. Per live
@@ -68,7 +54,7 @@ constexpr int kThreads = 256;  // a 16 x 16 thread grid
 constexpr int kT = 32;         // query rows and key columns per tile
 constexpr int kTp = kT + 1;    // pitch of the P and dS tiles
 
-enum Kind { kFused = 0, kDq = 1, kDkv = 2, kRelbias = 3 };
+enum Kind { kFused = 0, kDq = 1, kDkv = 2 };
 
 struct Params {
   const float* q;
@@ -87,21 +73,6 @@ struct Params {
   long long do_sb, do_sn, do_sh;
   float alpha, inv_norm;
   int causal, max_attn_len, contextual_seq_len, min_full_attn_seq_len;
-  // the relative-bias backward K7 only
-  const float* ts = nullptr;     // float32 [B, N] timestamps, contiguous
-  const float* pos_w = nullptr;  // float32 [2 Nm - 1]
-  const float* ts_w = nullptr;   // float32 [NB + 1]
-  float* dpos = nullptr;         // float32 [2 Nm - 1], zeroed
-  float* dts = nullptr;          // float32 [NB + 1], zeroed
-  int Nm = 0, NB = 0;
-};
-
-// K7's shared-memory tables: pos_w and ts_w, then their gradients' sums.
-struct BiasTables {
-  const float* pos;
-  const float* ts;
-  float* dpos;
-  float* dts;
 };
 
 // Q and K tiles [32][dw + 1], dO and V tiles [32][vw + 1], P and dS [32][33];
@@ -125,16 +96,13 @@ __device__ __forceinline__ void load_tile(float* dst, int w_pad, const float* sr
 }
 
 // S and dP = dOn V^T for the tile pair at (row0, col0); writes dS, and P when
-// WANT_P, to shared memory. Masked elements get exact zeros. RELBIAS: adds
-// the bias to S and each live dS to the tables' gradient sums in `tb`; every
-// thread of the block must call it (warp collectives).
-template <bool WANT_P, bool RELBIAS = false>
+// WANT_P, to shared memory. Masked elements get exact zeros.
+template <bool WANT_P>
 __device__ __forceinline__ void tile_scores(const Params& p, const float* Qs,
                                             const float* Ks, const float* dOs,
                                             const float* Vs, float* Ps, float* dSs,
                                             int dw, int vw, int row0, int col0,
-                                            int length, int nt,
-                                            BiasTables tb = BiasTables()) {
+                                            int length, int nt) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int dpitch = dw + 1, vpitch = vw + 1;
   float s[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
@@ -157,18 +125,6 @@ __device__ __forceinline__ void tile_scores(const Params& p, const float* Qs,
     g[1][0] = fmaf(o1, v0, g[1][0]);
     g[1][1] = fmaf(o1, v1, g[1][1]);
   }
-  // RELBIAS: row r reads the next position's timestamp (the last position's
-  // at the last row), whether or not it lies past the row's length
-  float tq[2] = {0.f, 0.f}, tk[2] = {0.f, 0.f};
-  if (RELBIAS) {
-    const float* ts = p.ts + (long long)blockIdx.z * p.N;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = row0 + ty + 16 * i, c = col0 + tx + 16 * i;
-      if (r < p.N) tq[i] = ts[min(r + 1, p.N - 1)];
-      if (c < p.N) tk[i] = ts[c];
-    }
-  }
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -179,37 +135,12 @@ __device__ __forceinline__ void tile_scores(const Params& p, const float* Qs,
           hstu::valid_elem(r, c, length, nt, p.causal != 0, p.max_attn_len,
                            p.contextual_seq_len, p.min_full_attn_seq_len,
                            /*guard=*/true);
-      float x = s[i][j] * p.alpha;
-      int bucket = 0, pos = 0;
-      if (RELBIAS) {
-        bucket = hstu::ts_bucket(tq[i], tk[j], p.NB);
-        pos = hstu::pos_index(r, c, p.Nm);
-        x += tb.pos[pos] + tb.ts[bucket];
-      }
+      const float x = s[i][j] * p.alpha;
       const float sig = 1.f / (1.f + expf(-x));
       const int at = (ty + 16 * i) * kTp + tx + 16 * j;
       if (WANT_P) Ps[at] = ok ? x * sig : 0.f;
       const float ds = ok ? g[i][j] * sig * (1.f + x * (1.f - sig)) : 0.f;
       dSs[at] = ds;
-      if (RELBIAS) {
-        // a warp's 32 elements lie on at most two rows, on distinct
-        // diagonals within each row
-        if (ok) atomicAdd(tb.dpos + pos, ds);
-        const int key = ok ? bucket : -1;
-        int same;
-        __match_all_sync(0xffffffffu, key, &same);
-        if (same) {
-          if (key >= 0) {  // the whole warp: one bucket
-            float sum = ds;
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              sum += __shfl_xor_sync(0xffffffffu, sum, off);
-            if ((threadIdx.x & 31) == 0) atomicAdd(tb.dts + key, sum);
-          }
-        } else if (ok) {
-          atomicAdd(tb.dts + key, ds);
-        }
-      }
     }
   }
 }
@@ -261,9 +192,8 @@ __device__ __forceinline__ void accumulate_dq(const float* Ks, const float* dSs,
   }
 }
 
-// K2 (FUSED), K4 and K7 (FUSED and RELBIAS): one block per (key tile, head,
-// batch row).
-template <int DT, int VT, bool FUSED, bool RELBIAS = false>
+// K2 (FUSED) and K4: one block per (key tile, head, batch row).
+template <int DT, int VT, bool FUSED>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
   constexpr int DW = 16 * DT, VW = 16 * VT;
   extern __shared__ float smem[];
@@ -273,11 +203,6 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
   float* Vs = dOs + kT * (VW + 1);   // [32][VW + 1]
   float* Ps = Vs + kT * (VW + 1);    // [32][33]
   float* dSs = Ps + kT * kTp;        // [32][33]
-  // RELBIAS: pos_w [2 Nm - 1], ts_w [NB + 1], then their gradients' sums
-  const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1;
-  float* pos_s = dSs + kT * kTp;
-  const BiasTables tb{pos_s, pos_s + n_pos, pos_s + n_pos + n_ts,
-                      pos_s + 2 * n_pos + n_ts};
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -301,17 +226,6 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
     const float* ob = p.dout + b * p.do_sb + h * p.do_sh;
     load_tile(Ks, DW, kb, p.k_sn, col0, p.N, p.D, 1.f);
     load_tile(Vs, VW, vb, p.v_sn, col0, p.N, p.V, 1.f);
-    if (RELBIAS) {  // visible after the walk's first barrier
-      for (int idx = threadIdx.x; idx < n_pos; idx += kThreads) {
-        pos_s[idx] = p.pos_w[idx];
-        tb.dpos[idx] = 0.f;
-      }
-      for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) {
-        pos_s[n_pos + idx] = p.ts_w[idx];
-        tb.dts[idx] = 0.f;
-      }
-    }
-    const int cols = min(kT, length - col0);
     const int row_first =
         (p.causal != 0 && p.contextual_seq_len == 0) ? col0 : 0;
     for (int row0 = row_first; row0 < length; row0 += kT) {
@@ -319,8 +233,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
       load_tile(Qs, DW, qb, p.q_sn, row0, p.N, p.D, 1.f);
       load_tile(dOs, VW, ob, p.do_sn, row0, p.N, p.V, p.inv_norm);
       __syncthreads();
-      tile_scores<true, RELBIAS>(p, Qs, Ks, dOs, Vs, Ps, dSs, DW, VW, row0, col0,
-                                 length, nt, tb);
+      tile_scores<true>(p, Qs, Ks, dOs, Vs, Ps, dSs, DW, VW, row0, col0, length, nt);
       __syncthreads();
       accumulate_dkv<DT, VT>(Qs, dOs, Ps, dSs, dk, dv, min(kT, length - row0));
       if (FUSED) {
@@ -329,7 +242,7 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
         for (int i = 0; i < 2; ++i)
 #pragma unroll
           for (int j = 0; j < DT; ++j) dq[i][j] = 0.f;
-        accumulate_dq<DT>(Ks, dSs, dq, cols);
+        accumulate_dq<DT>(Ks, dSs, dq, min(kT, length - col0));
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int r = row0 + ty + 16 * i;
@@ -341,21 +254,6 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Params p) {
             if (d < p.D) atomicAdd(dqr + d, p.alpha * dq[i][j]);
           }
         }
-      }
-    }
-    if (RELBIAS) {
-      // the block's live elements lie at rows < length and columns
-      // [col0, col0 + cols): their diagonals span the window [lo, hi]
-      __syncthreads();
-      const int lo = hstu::pos_index(length - 1, col0, p.Nm);
-      const int hi = hstu::pos_index(0, col0 + cols - 1, p.Nm);
-      for (int idx = lo + threadIdx.x; idx <= hi; idx += kThreads) {
-        const float sum = tb.dpos[idx];
-        if (sum != 0.f) atomicAdd(p.dpos + idx, sum);
-      }
-      for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) {
-        const float sum = tb.dts[idx];
-        if (sum != 0.f) atomicAdd(p.dts + idx, sum);
       }
     }
   }
@@ -437,13 +335,12 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Params p) {
 
 template <Kind KIND, int DT, int VT>
 cudaError_t launch_dv(const Params& p, cudaStream_t stream) {
-  const int tables = KIND == kRelbias ? 2 * (2 * p.Nm - 1 + p.NB + 1) : 0;
-  const int smem = (smem_floats(16 * DT, 16 * VT) + tables) * (int)sizeof(float);
+  const int smem = smem_floats(16 * DT, 16 * VT) * (int)sizeof(float);
   void (*kernel)(Params);
   if constexpr (KIND == kDq) {
     kernel = dq_kernel<DT, VT>;
   } else {
-    kernel = dkv_kernel<DT, VT, KIND == kFused || KIND == kRelbias, KIND == kRelbias>;
+    kernel = dkv_kernel<DT, VT, KIND == kFused>;
   }
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -465,15 +362,12 @@ cudaError_t launch_d(const Params& p, cudaStream_t stream) {
 
 // Launches on `stream`; returns the launch's cudaGetLastError(). V is at
 // most 128 and D at most 256 (the Python wrapper checks both); both are
-// padded with zero columns to the next of 16, 32, 64, 128 (256 for D). K7
-// also needs both tables and their gradients' sums to fit the block's shared
-// memory.
+// padded with zero columns to the next of 16, 32, 64, 128 (256 for D).
 template <Kind KIND>
 int launch(const Params& p, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (p.D < 1) return (int)cudaErrorInvalidValue;
-  if (KIND == kRelbias && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
   if (p.D <= 16) return (int)launch_d<KIND, 1>(p, s);
   if (p.D <= 32) return (int)launch_d<KIND, 2>(p, s);
   if (p.D <= 64) return (int)launch_d<KIND, 4>(p, s);

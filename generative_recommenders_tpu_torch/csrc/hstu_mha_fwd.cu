@@ -13,10 +13,10 @@ extern "C" int hstu_mha_fwd(
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, void* stream) {
-  hstu::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V, /*M=*/0,
+  hstu::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                  q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                  alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                  min_full_attn_seq_len};
   // 64 query rows per block (4 per thread)
-  return hstu::launch</*RT=*/4, /*DELTA=*/false>(p, N, stream);
+  return hstu::launch</*RT=*/4>(p, N, stream);
 }

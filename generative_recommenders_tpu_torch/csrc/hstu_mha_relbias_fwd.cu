@@ -16,11 +16,11 @@ extern "C" int hstu_mha_relbias_fwd(
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
     void* stream) {
-  hstu::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V, /*M=*/0,
+  hstu::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                  q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                  alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                  min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
   // 32 query rows per block (2 per thread): at N = 511 and 8 heads of width
   // 32 the grid still holds thousands of blocks
-  return hstu::launch</*RT=*/2, /*DELTA=*/false, /*RELBIAS=*/true>(p, N, stream);
+  return hstu::launch</*RT=*/2, /*RELBIAS=*/true>(p, N, stream);
 }

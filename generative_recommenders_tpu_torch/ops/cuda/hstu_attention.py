@@ -14,7 +14,10 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
   when ``torch.are_deterministic_algorithms_enabled()`` (K2 sums dq with
   atomics in a different order on every run; K3 + K4 give the same bits);
 * ``delta_hstu_mha_cuda``: kernel K5 (`csrc/delta_hstu_mha_fwd.cu`),
-  replacing `_delta_fwd_kernel_rkv` behind `delta_hstu_mha_pallas`.
+  replacing `_delta_fwd_kernel_rkv` behind `delta_hstu_mha_pallas`: the key
+  range cut across blocks in 64-column chunks (`_delta_plan`), whose partial
+  sums the last block to arrive adds in chunk order (the same bits on every
+  run).
 
 All keep the JAX signatures and the [B, N, H, D] layout. A wrapper given
 CPU tensors computes its plain version; given CUDA tensors it launches its
@@ -36,7 +39,8 @@ HSTU attention replaces softmax with a pointwise gate:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +57,7 @@ _BWD_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_P]
 # C signatures of the entry points (csrc/*.cu)
 _ARGTYPES = {
     "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P],
-    "delta_hstu_mha_fwd": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 3 + [_P],
+    "delta_hstu_mha_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P],
     "hstu_mha_bwd_fused": _BWD_ARGTYPES,
     "hstu_mha_bwd_dq": _BWD_ARGTYPES,
     "hstu_mha_bwd_dkv": _BWD_ARGTYPES,
@@ -61,6 +65,14 @@ _ARGTYPES = {
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _MAX_V = 128
 _MAX_D = 256
+# K5's tiling (csrc/delta_hstu_mha_fwd.cu): key columns and query rows per block
+_DELTA_CHUNK = 64
+_DELTA_ROWS = 8
+_MAX_GRID_YZ = 65535
+# K5's arrival counters, one zeroed int32 buffer per (device, stream): the
+# kernel leaves every counter at 0 again
+_delta_counters: Dict[Tuple[int, int], torch.Tensor] = {}
+_delta_counters_lock = threading.Lock()  # the serving harness predicts on several threads
 
 
 # ------------------------------------------------------------ plain versions
@@ -381,6 +393,54 @@ def hstu_mha_bwd_cuda(
     return dq, dk, dv
 
 
+def _vec16(t: torch.Tensor) -> bool:
+    """Whether a kernel may read ``t``'s rows with 16-byte loads: the
+    pointer, every stride but the last and the width are multiples of 4
+    float32 (the last stride is 1, `_check`)."""
+    return (
+        t.data_ptr() % 16 == 0
+        and t.shape[-1] % 4 == 0
+        and all(s % 4 == 0 for s in t.stride()[:-1])
+    )
+
+
+def _delta_plan(B: int, M: int, N: int, H: int, V: int) -> dict:
+    """K5's launch: the key range in chunks of 64 columns and the M query
+    rows in tiles of 8, one block per (chunk, head x row tile, batch row);
+    the [chunks, B, M, H, V] scratch of the chunks' partial sums (none with
+    one chunk: the block writes the output) and one arrival counter per
+    (batch row, head, row tile). Raises where the grid exceeds CUDA's."""
+    chunks = -(-N // _DELTA_CHUNK)
+    row_tiles = -(-M // _DELTA_ROWS)
+    grid = (chunks, H * row_tiles, B)
+    if grid[1] > _MAX_GRID_YZ or grid[2] > _MAX_GRID_YZ:
+        raise ValueError(
+            f"K5's grid {grid} exceeds {_MAX_GRID_YZ} blocks in y or z "
+            f"(B={B}, M={M}, H={H}): split the batch"
+        )
+    return dict(
+        chunks=chunks, row_tiles=row_tiles, grid=grid,
+        scratch_shape=(chunks, B, M, H, V) if chunks > 1 else None,
+        counters=B * H * row_tiles,
+    )
+
+
+def _delta_counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters for launches on the device's current
+    stream. Launches on one stream run in turn and each leaves the counters
+    at 0, so they share the buffer; a buffer outgrown is replaced by a
+    larger zeroed one (the old one lives until its last launch has run: the
+    allocator reuses memory in stream order)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    key = (index, _stream(device))
+    with _delta_counters_lock:
+        buf = _delta_counters.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            _delta_counters[key] = buf
+    return buf
+
+
 def delta_hstu_mha_cuda(
     delta_q: torch.Tensor,  # [B, M, H, D]: queries of the M newest tokens
     k: torch.Tensor,  # [B, N, H, D]: full (cache + delta) keys
@@ -413,14 +473,21 @@ def delta_hstu_mha_cuda(
     out = torch.empty((B, M, H, V), dtype=torch.float32, device=device)
     if out.numel() == 0 or N == 0:
         return out.zero_()
+    plan = _delta_plan(B, M, N, H, V)
+    scratch = counters = None
+    if plan["scratch_shape"] is not None:
+        scratch = torch.empty(plan["scratch_shape"], dtype=torch.float32, device=device)
+        counters = _delta_counter_buffer(device, plan["counters"])
     _launch(
         "delta_hstu_mha_fwd",
         delta_q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        None if counters is None else counters.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         B, M, N, H, D, V, *delta_q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         alpha, 1.0 / (norm_len or N),
         max_attn_len, contextual_seq_len, min_full_attn_seq_len,
-        _stream(device),
+        int(_vec16(k)), int(_vec16(v)), _stream(device),
     )
     delta_hstu_mha_cuda.launches.add()
     return out

@@ -8,7 +8,8 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py`:
   CUDA tensors differentiable in q, k, v, ``pos_w`` and ``ts_w`` through
 * ``hstu_mha_relbias_bwd_cuda``: kernel K7 (`csrc/hstu_mha_relbias_bwd.cu`),
   replacing `_bwd_kernel_relbias` (the custom VJP `_relbias_call` becomes
-  `_HstuMhaRelbias`).
+  `_HstuMhaRelbias`): 3xTF32 products on the tensor cores, a group of heads
+  inside one block (`_relbias_bwd_plan`), head widths up to 64.
 
     bias[b, i, j] = pos_w[clip(j - i + Nm - 1, 0, 2 Nm - 2)]
                   + ts_w[clip(floor(ln(max(|ts[b, min(i + 1, N - 1)]
@@ -53,8 +54,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of the entry points (csrc/hstu_mha_relbias_*.cu)
 ha._ARGTYPES.update({
     "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_P],
-    "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 6 + [_P],
+    "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P],
 })
+# K7's tiling (csrc/hstu_mha_relbias_bwd.cu): 64 x 64 tile pairs, every tile
+# at a pitch of its width + 8; a Hopper block's shared memory
+_BWD_TILE, _BWD_PITCH, _BWD_WARPS = 64, 72, 16
+_MAX_BWD_WIDTH = 64
+_MAX_BWD_BUCKETS = 65535
+_MAX_SHARED_BYTES = 232448
 _INV_LOG_BASE = 1.0 / 0.301  # bucket(x) = floor(ln(x) / 0.301)
 RelbiasGrads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -176,12 +183,47 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     return out
 
 
+def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int) -> dict:
+    """K7's launch: the head width both D and V are padded to (32 or 64), the
+    heads a block loops inside (4 or 2: their K, V, dK and dV tiles fill its
+    shared memory and registers), the head groups (H need not be a multiple)
+    and the block's shared memory: K and V of the group, two (Q, dO)
+    buffers, P, dS and dS summed over the heads, both tables, ``dpos_w``'s
+    sums and one copy of ``dts_w``'s sums per warp. Raises on
+    heads wider than 64, on more than 65535 buckets and on tables that do
+    not fit beside the tiles."""
+    if D > _MAX_BWD_WIDTH or V > _MAX_BWD_WIDTH:
+        raise ValueError(
+            f"the relative-bias backward kernel takes D, V <= {_MAX_BWD_WIDTH}; got D={D}, V={V}"
+        )
+    if NB > _MAX_BWD_BUCKETS:
+        raise ValueError(f"the relative-bias backward kernel takes at most {_MAX_BWD_BUCKETS} buckets, got {NB}")
+    width = 32 if max(D, V) <= 32 else 64
+    head_group = 128 // width
+    tiles = (
+        (2 * head_group + 4) * _BWD_TILE * (width + 8)  # K, V of the group; two (Q, dO) buffers
+        + 3 * _BWD_TILE * _BWD_PITCH  # P, dS, dS summed over the heads
+    )
+    tables = 2 * (2 * Nm - 1) + (1 + _BWD_WARPS) * (NB + 1)
+    shared_bytes = 4 * (tiles + tables)
+    if shared_bytes > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the relative-bias backward kernel needs {shared_bytes} bytes of shared memory "
+            f"({4 * tiles} of tiles, {4 * tables} of tables for Nm={Nm}, NB={NB}); "
+            f"a block has {_MAX_SHARED_BYTES}"
+        )
+    return dict(width=width, head_group=head_group, head_groups=-(-H // head_group),
+                shared_bytes=shared_bytes)
+
+
 def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict) -> RelbiasGrads:
     """Launches K7 on checked CUDA tensors (as `_relbias_fwd`; do contiguous
     in its last dim) and counts it. dq and both table gradients are summed
     into zeroed buffers."""
     B, N, H, D = q.shape
     V = v.shape[3]
+    Nm, NB = (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1
+    _relbias_bwd_plan(D, V, H, Nm, NB)  # raises on what the kernel does not take
     new = lambda fn, *shape: fn(shape, dtype=torch.float32, device=q.device)  # noqa: E731
     dq = new(torch.zeros, B, N, H, D)
     dk, dv = new(torch.empty, B, N, H, D), new(torch.empty, B, N, H, V)
@@ -195,8 +237,8 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict) -> RelbiasGra
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        *ha._mask_args(kw, N), (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1,
-        ha._stream(q.device),
+        *ha._mask_args(kw, N), Nm, NB,
+        *(int(ha._vec16(t)) for t in (q, k, v, do)), ha._stream(q.device),
     )
     hstu_mha_relbias_bwd_cuda.launches.add()
     return dq, dk, dv, dpos, dts
@@ -288,8 +330,10 @@ def hstu_mha_relbias_bwd_cuda(
 ) -> RelbiasGrads:
     """(dq, dk, dv, dpos_w, dts_w) of `hstu_mha_dense_relbias_cuda` at
     ``do``, by kernel K7; dq and the table gradients are summed with atomics,
-    so their last bits vary from run to run. CPU tensors go through the
-    plain backward."""
+    so their last bits vary from run to run (dk and dv are the same bits
+    every run). Heads wider than 64, or tables that do not fit a block's
+    shared memory beside the tiles, raise. CPU tensors go through the plain
+    backward."""
     kw = ha._dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                       contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":

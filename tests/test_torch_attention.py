@@ -1,7 +1,10 @@
 """The PyTorch port's attention against the JAX package: the three mask
 functions, the plain version of kernel K1 (dense) against the Pallas
 kernel in interpret mode and the XLA spec, and the plain version of kernel
-K5 (M-FALCON delta) against the Pallas delta kernel and the XLA delta path.
+K5 (M-FALCON delta) against the Pallas delta kernel and the XLA delta path,
+also at the lengths where the CUDA kernel's 64-column chunks and 8-row tiles
+end; and what K5's wrapper computes in Python (its launch plan, the 16-byte
+alignment test, the stride check).
 Inputs are made with numpy from a seed and fed to both packages; float32
 throughout, atol = rtol = 1e-5 (the two differ only in summation order)."""
 
@@ -19,6 +22,7 @@ from generative_recommenders_tpu.ops.pallas.hstu_attention import (
 )
 from generative_recommenders_tpu.ops.xla.hstu_attention import hstu_mha_dense as jax_mha_dense
 from generative_recommenders_tpu_torch.ops import attention_mask as tmask
+from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
     delta_hstu_mha_cuda,
     hstu_mha_dense_cuda,
@@ -158,3 +162,84 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         hstu_mha_dense_cuda(meta, meta, meta, lengths)
     with pytest.raises(ValueError):
         delta_hstu_mha_cuda(meta, meta, meta, lengths)
+
+
+# (M, N, lengths): the seams of the CUDA kernel's tiling, 64 key columns and 8
+# query rows per block, through the plain version; a row whose cache is empty
+# (length = M) beside a full one
+DELTA_EDGES = [
+    (5, 70, [63, 64, 65, 70]),
+    (5, 70, [5, 70, 6, 64]),
+    (1, 70, [1, 64, 65, 70]),
+    (17, 80, [17, 64, 65, 80]),
+    (8, 66, [8, 9, 65, 66]),
+]
+
+
+@pytest.mark.parametrize("M,N,lengths", DELTA_EDGES)
+def test_delta_plain_matches_pallas_at_chunk_edges(M, N, lengths):
+    B, H, D, V = len(lengths), 2, 8, 8
+    q, k, v, _ = _inputs(7, B, M, N, H, D, V)
+    lengths = np.asarray(lengths, np.int32)
+    nt = np.minimum(M, lengths - 1).astype(np.int32)
+    kw = dict(alpha=0.6, norm_len=N + 3)
+    got = delta_hstu_mha_cuda(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), torch.as_tensor(lengths),
+        num_targets=torch.as_tensor(nt), **kw,
+    ).numpy()
+    want = delta_hstu_mha_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        num_targets=jnp.asarray(nt), block_k=8, interpret=True, **kw,
+    )
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize(
+    "shape,chunks,row_tiles,scratch",
+    [
+        ((32, 5, 523, 4, 128), 9, 1, (9, 32, 5, 4, 128)),  # the serving chunk
+        ((32, 160, 678, 4, 128), 11, 20, (11, 32, 160, 4, 128)),
+        ((4, 5, 64, 2, 32), 1, 1, None),  # one chunk: no scratch, no counter
+        ((4, 5, 65, 2, 32), 2, 1, (2, 4, 5, 2, 32)),
+        ((3, 1, 63, 2, 40), 1, 1, None),
+        ((3, 17, 200, 2, 25), 4, 3, (4, 3, 17, 2, 25)),
+    ],
+)
+def test_delta_launch_plan(shape, chunks, row_tiles, scratch):
+    """K5's grid covers (chunk, head x row tile, batch row); the scratch holds
+    one partial output per chunk."""
+    B, M, N, H, V = shape
+    plan = ha._delta_plan(B, M, N, H, V)
+    assert plan["chunks"] == chunks and plan["row_tiles"] == row_tiles
+    assert plan["grid"] == (chunks, H * row_tiles, B)
+    assert plan["scratch_shape"] == scratch
+    assert plan["counters"] == B * H * row_tiles
+
+
+@pytest.mark.parametrize("shape", [(70000, 5, 100, 1, 8), (2, 8 * 20000, 100, 4, 8)])
+def test_delta_launch_plan_rejects_a_grid_beyond_cuda(shape):
+    with pytest.raises(ValueError, match="grid"):
+        ha._delta_plan(*shape)
+
+
+@pytest.mark.parametrize(
+    "make,want",
+    [
+        (lambda: torch.zeros(2, 9, 2, 128), True),
+        (lambda: torch.zeros(2, 9, 2, 40), True),
+        (lambda: torch.zeros(2, 9, 2, 25), False),  # width
+        (lambda: torch.zeros(2 * 9 * 2 * 128 + 1)[1:].reshape(2, 9, 2, 128), False),  # pointer
+        (lambda: torch.zeros(2, 9, 4 * 128)[..., 128:384].reshape(2, 9, 2, 128), True),  # a uvqk view
+        (lambda: torch.zeros(2, 9, 2 * 8 + 2)[..., 2:].reshape(2, 9, 2, 8), False),  # row stride 18
+    ],
+)
+def test_vector_loads_need_16_byte_alignment(make, want):
+    t = make()
+    assert t.stride(-1) == 1
+    assert ha._vec16(t) is want
+
+
+def test_kernels_refuse_a_strided_last_dim():
+    t = torch.zeros(1, 4, 1, 16)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous in its last dim"):
+        ha._check("delta_q", t, 4, t.device)

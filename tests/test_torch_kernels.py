@@ -12,7 +12,11 @@ sums arrive in a different order on every run (atomics), K3 + K4 give the
 same bits every run. The relative-bias pair K6 / K7 likewise; K7's two table
 gradients sum up to B * H * N^2 / 2 float32 terms per entry, in an order that
 changes from run to run, and are held to 2e-5 of each table gradient's
-largest entry.
+largest entry. K5 cuts the key range into 64-column chunks across blocks and
+adds the chunks' partial sums in chunk order (the same bits every run); K7
+works on 64 x 64 tile pairs with groups of 4 (or 2) heads inside a block and
+sums dk and dv without atomics: both are also run at the lengths, row counts,
+head counts and widths where those tilings end.
 """
 
 import numpy as np
@@ -106,6 +110,67 @@ def test_delta_kernel_matches_plain(cuda, case):
     got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
     assert delta_hstu_mha_cuda.launches.count == launches + 1
     torch.testing.assert_close(got, delta_hstu_mha_plain(q, k, v, lengths, **kw), **TOL)
+
+
+def _delta_seam(name, device):
+    """(q, k, v, lengths, num_targets) of one case at a seam of K5's tiling."""
+    rng = np.random.default_rng(11)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 0.5, device=device)  # noqa: E731
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    H = 2
+    if name == "chunk edges":  # 64-column chunks: one, one full, two, three and a column
+        M, D, V, lengths = 5, 32, 32, [63, 64, 65, 127, 128, 129, 200]
+    elif name == "empty cache beside a full row":  # length = M: every key is a delta key
+        M, D, V, lengths = 5, 32, 32, [5, 200, 6, 64]
+    elif name == "M=1":
+        M, D, V, lengths = 1, 64, 64, [1, 64, 65, 200]
+    elif name == "M=17":  # three row tiles of 8, the last with one row
+        M, D, V, lengths = 17, 32, 32, [17, 18, 100, 200]
+    elif name == "D=V=40":  # 16-byte loads with a zero-padded tail
+        M, D, V, lengths = 5, 40, 40, [5, 64, 129, 200]
+    elif name == "D=V=25":  # the scalar path
+        M, D, V, lengths = 5, 25, 25, [6, 65, 128, 200]
+    else:
+        raise ValueError(name)
+    B, N = len(lengths), 200
+    return t(B, M, H, D), t(B, N, H, D), t(B, N, H, V), ints(lengths), ints([min(M, n - 1) for n in lengths])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name",
+    ["chunk edges", "empty cache beside a full row", "M=1", "M=17", "D=V=40", "D=V=25"],
+)
+def test_delta_kernel_at_its_seams(cuda, name):
+    q, k, v, lengths, nt = _delta_seam(name, cuda)
+    kw = dict(alpha=0.6, norm_len=230, num_targets=nt, contextual_seq_len=0)
+    poison = torch.full((q.shape[0] * q.shape[1] * 2 * v.shape[3] + 4096,), float("nan"), device=cuda)
+    del poison  # an element the kernel fails to write shows as NaN
+    got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
+    torch.testing.assert_close(got, delta_hstu_mha_plain(q, k, v, lengths, **kw), **TOL)
+    # the chunks' partial sums are added in chunk order: the same bits
+    assert torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **kw))
+
+
+@pytest.mark.gpu
+def test_delta_kernel_on_a_strided_q_view(cuda):
+    """q as the serving path passes it (a view of the chunk's uvqk projection)
+    over contiguous K/V, as M-FALCON's padded cache; and K/V at an offset of
+    one float, which takes the scalar loads."""
+    B, M, N, H, D, V = 4, 5, 300, 4, 128, 128
+    rng = np.random.default_rng(12)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 0.5, device=cuda)  # noqa: E731
+    q = t(B, M, H * (2 * V + 2 * D))[..., 2 * H * V:2 * H * V + H * D].reshape(B, M, H, D)
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    k, v = t(B, N, H, D), t(B, N, H, V)
+    lengths = torch.tensor([300, 129, 64, 5], dtype=torch.int32, device=cuda)
+    kw = dict(alpha=0.1, norm_len=400, num_targets=torch.full((B,), M, dtype=torch.int32, device=cuda),
+              contextual_seq_len=3)
+    want = delta_hstu_mha_plain(q, k, v, lengths, **kw)
+    torch.testing.assert_close(delta_hstu_mha_cuda(q, k, v, lengths, **kw), want, **TOL)
+    shifted = [torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].reshape(x.shape) for x in (k, v)]
+    assert all(x.data_ptr() % 16 == 4 for x in shifted)
+    torch.testing.assert_close(delta_hstu_mha_cuda(q, *shifted, lengths, **kw), want, **TOL)
 
 
 @pytest.mark.gpu
@@ -318,3 +383,66 @@ def test_relbias_empty_batch_counts_no_launch(cuda):
     assert all((g == 0).all() for g in grads[3:])
     assert hstu_mha_dense_relbias_cuda.launches.count == fwd
     assert hstu_mha_relbias_bwd_cuda.launches.count == bwd
+
+
+def _relbias_seam(name, device):
+    """One case at a seam of K7's tiling: (inputs of `_relbias_inputs`, kw)."""
+    B, N, H, D, V, Nm, nb, lengths, kw, nt_on = 4, 140, 2, 32, 32, 140, 64, None, {}, False
+    if name == "tile edges":  # 64 x 64 tile pairs: lengths around one and two tiles
+        B, lengths = 6, [63, 64, 65, 127, 128, 129]
+    elif name in ("H=1", "H=3", "H=8"):  # groups of 4 heads: H=3 leaves one unfilled, H=8 makes two
+        H = int(name[2:])
+    elif name == "D=V=25":
+        D = V = 25
+    elif name == "D=V=50, H=1":  # width 64: groups of 2 heads
+        D = V = 50
+        H = 1
+    elif name == "N > Nm":  # clipped diagonals share one table entry
+        Nm = 100
+    elif name == "targets and contextual rows":  # the causal skip of tiles is off
+        nt_on, kw = True, dict(contextual_seq_len=3)
+    else:
+        raise ValueError(name)
+    q, k, v, lens, ts, pos_w, ts_w, nt = _relbias_inputs(13, B, N, H, D, V, Nm, nb, nt_on, device)
+    if lengths is not None:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+        ts = ts * (torch.arange(N, device=device)[None, :] <= lens[:, None])
+    return (q, k, v, lens, ts, pos_w, ts_w), dict(alpha=0.8, max_seq_len=N, num_buckets=nb, num_targets=nt, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name",
+    ["tile edges", "H=1", "H=3", "H=8", "D=V=25", "D=V=50, H=1", "N > Nm", "targets and contextual rows"],
+)
+def test_relbias_backward_at_its_seams(cuda, name):
+    args, kw = _relbias_seam(name, cuda)
+    q, k, v, lengths = args[:4]
+    B, N, H, V = *q.shape[:3], v.shape[3]
+    do = torch.randn(N, B, H, V, device=cuda).transpose(0, 1)
+    poison = torch.full((3 * q.numel() + 4096,), float("nan"), device=cuda)
+    del poison
+    grads = hstu_mha_relbias_bwd_cuda(*args, do, **kw)
+    want = hstu_mha_relbias_bwd_plain(*args, do, **kw)
+    dead = torch.arange(N, device=cuda)[None, :] >= lengths[:, None]
+    for g, w in zip(grads[:3], want[:3]):
+        torch.testing.assert_close(g, w, **TOL)
+        assert (g[dead] == 0).all()
+    for gname, g, w in zip(("dpos_w", "dts_w"), grads[3:], want[3:]):
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        assert err <= TABLE_TOL, f"{gname}: {err:.2e} of the gradient's max"
+    # dk and dv are summed in registers in a fixed order; only dq and the
+    # tables go through atomics
+    again = hstu_mha_relbias_bwd_cuda(*args, do, **kw)
+    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+
+
+@pytest.mark.gpu
+def test_relbias_backward_refuses_wide_heads(cuda):
+    """Heads wider than 64 raise on the card; nothing falls back."""
+    (q, k, v, lengths, ts, pos_w, ts_w), kw = _relbias_seam("H=1", cuda)
+    wide = torch.zeros(*q.shape[:3], 72, device=cuda)
+    before = hstu_mha_relbias_bwd_cuda.launches.count
+    with pytest.raises(ValueError, match="D, V <= 64"):
+        hstu_mha_relbias_bwd_cuda(wide, wide, v, lengths, ts, pos_w, ts_w, torch.zeros_like(v), **kw)
+    assert hstu_mha_relbias_bwd_cuda.launches.count == before

@@ -3,7 +3,9 @@ plain version (`hstu_mha_dense_relbias_plain`, and the wrappers on CPU
 tensors) against `hstu_mha_dense_pallas_relbias` in interpret mode, forward
 and, by `jax.grad` against autograd, backward (dq, dk, dv and both bias
 tables' gradients); the wiring of the autograd function that joins K6 and K7
-on the card; and the raise under deterministic mode. Inputs are made with
+on the card; the raise under deterministic mode; the lengths at which the
+CUDA backward's 64 x 64 tile pairs end; and what K7's wrapper computes in
+Python (head width, head group and shared-memory size). Inputs are made with
 numpy from a seed, as `tests/test_relbias_attention.py` makes them.
 
 Tolerances as that file's: forward rtol = atol = 2e-5, gradients 2e-4 (both
@@ -280,3 +282,74 @@ def test_input_checks(monkeypatch):
         hr._checked(long, long, long, lengths, z(B, 130), z(2 * 2 - 1), z(129), 128, None)
     with pytest.raises(ValueError, match="k has"):
         hr._checked(q, q[:, :-1], q, lengths, ts, z(2 * N - 1), z(129), 128, None)
+
+
+TILE_EDGES = [63, 64, 65, 127, 128, 129]  # K7's 64-row and 64-column tile ends
+
+
+@pytest.mark.parametrize("backward", [False, True])
+def test_plain_matches_pallas_at_tile_edges(backward):
+    B, N, H, D, V, Nm = len(TILE_EDGES), 130, 1, 8, 8, 130
+    q, k, v, _, ts, pos_w, ts_w = _setup(21, B, N, H, D, V, Nm, nb=32)
+    lengths = np.asarray(TILE_EDGES, np.int32)
+    t = torch.as_tensor
+    case = dict(num_buckets=32)
+    if not backward:
+        want = np.asarray(_pallas(*map(jnp.asarray, (q, k, v)), lengths, ts,
+                                  jnp.asarray(pos_w), jnp.asarray(ts_w), None, case))
+        got = hr.hstu_mha_dense_relbias_cuda(t(q), t(k), t(v), t(lengths), t(ts), t(pos_w), t(ts_w), **case)
+        np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+        return
+    w = np.random.default_rng(22).standard_normal((B, N, H, V)).astype(np.float32)
+    for b in range(B):
+        w[b, lengths[b]:] = 0.0
+
+    def loss(q_, k_, v_, pw_, tw_):
+        return jnp.sum(_pallas(q_, k_, v_, lengths, ts, pw_, tw_, None, case) * jnp.asarray(w))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, (q, k, v, pos_w, ts_w)))
+    got = hr.hstu_mha_relbias_bwd_cuda(t(q), t(k), t(v), t(lengths), t(ts), t(pos_w), t(ts_w), t(w), **case)
+    for name, g, r in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), err_msg=name, **BWD_TOL)
+    for b in range(B):
+        for g in got[:3]:
+            assert (g[b, lengths[b]:] == 0).all()
+
+
+@pytest.mark.parametrize(
+    "D,V,H,Nm,NB,width,head_group,head_groups,shared_bytes",
+    [
+        (32, 32, 8, 511, 128, 32, 4, 2, 195116),  # the ml-3b preset
+        (32, 32, 3, 211, 128, 32, 4, 1, 190316),  # a group that H does not fill
+        (25, 25, 2, 200, 128, 32, 4, 1, 190140),  # padded to 32
+        (16, 8, 9, 60, 16, 32, 4, 3, 180284),
+        (50, 50, 1, 200, 128, 64, 2, 1, 214716),  # the ml-1m preset's one head
+        (32, 64, 5, 200, 128, 64, 2, 3, 214716),  # the wider of D and V decides
+    ],
+)
+def test_backward_launch_plan(D, V, H, Nm, NB, width, head_group, head_groups, shared_bytes):
+    """K7 pads both head widths to 32 or 64, loops 4 or 2 heads inside a
+    block, and sizes its shared memory: (2 HG + 4) tiles of 64 x (W + 8), P,
+    dS and their head sum at 64 x 72, both tables, dpos_w's sums and 16
+    copies of dts_w's."""
+    plan = hr._relbias_bwd_plan(D, V, H, Nm, NB)
+    assert plan == dict(width=width, head_group=head_group, head_groups=head_groups,
+                        shared_bytes=shared_bytes)
+    tiles = (2 * head_group + 4) * 64 * (width + 8) + 3 * 64 * 72
+    assert shared_bytes == 4 * (tiles + 2 * (2 * Nm - 1) + 17 * (NB + 1)) <= 232448
+
+
+@pytest.mark.parametrize(
+    "args,match",
+    [
+        ((65, 32, 2, 100, 128), "D, V <= 64"),
+        ((32, 128, 2, 100, 128), "D, V <= 64"),
+        ((32, 32, 2, 100, 70000), "65535 buckets"),
+        ((32, 32, 2, 8000, 128), "bytes of shared memory"),
+    ],
+)
+def test_backward_launch_plan_raises(args, match):
+    """What the kernel does not take raises with the sizes; nothing falls
+    back to the plain version."""
+    with pytest.raises(ValueError, match=match):
+        hr._relbias_bwd_plan(*args)
