@@ -14,10 +14,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    (float32, TF32 off); the backward kernels K2 and K3 + K4 against the
    plain backward (autograd of the plain forward); the relative-bias pair
    K6 and K7 at the research preset's shapes, on a batch of the synthetic
-   corpus, against their plain versions (and a float64 run of them); K5 and
-   K7 also at the seams of their tilings (chunk and tile edges, row and head
-   counts that do not fill a tile or a group), K5's output and K7's dk and
-   dv the same bits on a second run;
+   corpus, against their plain versions (and a float64 run of them); K1, K5,
+   K6 and K7 also at the seams of their tilings (chunk and tile edges, row
+   and head counts that do not fill a tile or a group), the outputs of K1 and
+   K5 and K7's dk and dv the same bits on a second run; K1 also timed at the
+   training and deterministic shapes;
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -293,6 +294,10 @@ def main() -> None:
         got = hstu_mha_dense_cuda(q, k, v, lengths, **args)
         want = hstu_mha_dense_plain(q, k, v, lengths, **args)
         torch.cuda.synchronize()
+        # no atomics, key tiles summed in a fixed order: the deterministic
+        # training phase needs the same bits on every run
+        check(torch.equal(got, hstu_mha_dense_cuda(q, k, v, lengths, **args)),
+              f"K1 {name}: two runs differ in their bits")
         dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
         return compare(f"K1 {name}", got, want, dead)
 
@@ -312,6 +317,7 @@ def main() -> None:
 
     print("kernel phase (kernel vs plain, float32):")
     N_full = C + MAX_UIH + MAX_CANDS
+    fwd_edges = torch.tensor([31, 32, 33, 63, 64, 65, 127, 128, 129], dtype=torch.int32, device="cuda")
     serve_len = (ul + nc + C).int()
     errs = {"K1": [], "K5": []}
     errs["K1"] += [
@@ -335,6 +341,18 @@ def main() -> None:
                    contextual_seq_len=C),
         dense_case("D=40, V=16", 2, 45, ints(1, 46, 2), Dc=40, Vc=16),
         dense_case("D=32, V=32", 2, 45, ints(1, 46, 2), Dc=32, Vc=32),
+        # the seams of the forward's tiling: key tiles of 32 columns, query
+        # tiles of 64 rows (width 128) or 128 rows (widths 32 and 64, heads
+        # in groups of 2)
+        dense_case("lengths at the tile edges (31 .. 129), q/k/v split from the uvqk projection", 9, 140,
+                   fwd_edges, ints(0, 20, 9).clamp(max=fwd_edges - C - 1), qkv=uvqk_views(9, 140),
+                   contextual_seq_len=C),
+        dense_case("D=V=32, H=3 (a head group H does not fill), lengths at the tile edges", 9, 140,
+                   fwd_edges, Dc=32, Vc=32, qkv=(rand(9, 140, 3, 32), rand(9, 140, 3, 32), rand(9, 140, 3, 32))),
+        dense_case("D=V=64, H=3, lengths at the tile edges", 9, 140, fwd_edges, ints(0, 9, 9), Dc=64, Vc=64,
+                   qkv=(rand(9, 140, 3, 64), rand(9, 140, 3, 64), rand(9, 140, 3, 64))),
+        dense_case("D=25, V=25 (scalar loads)", 3, 97, ints(1, 98, 3), Dc=25, Vc=25),
+        dense_case("D=256, V=128 (the widest head)", 2, 80, ints(1, 81, 2), Dc=256, Vc=128),
     ]
     cache_len = (ul + C).int()
     m5 = torch.full((B,), CHUNK, dtype=torch.int32, device="cuda")
@@ -484,6 +502,19 @@ def main() -> None:
 
     bwd_tr = bwd_timing(N_tr, tr_len, tr_nt)
     bwd_det = bwd_timing(N_det, det_len, det_nt)
+    # K1 where the ranker's training launches it, beside the serving shape
+    for N_, lens_, nt_ in ((N_tr, tr_len, tr_nt), (N_det, det_len, det_nt)):
+        q_, k_, v_ = uvqk_views(B, N_)
+        a_ = dict(alpha=alpha, max_seq_len=N_, num_targets=nt_, contextual_seq_len=C)
+        ms_ = device_time_ms(lambda: hstu_mha_dense_cuda(q_, k_, v_, lens_, **a_), 50)
+        plain_ = device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, lens_, **a_), 5)
+        live_ = apply_padding_guard(
+            make_valid_attn_mask(N_, lens_, num_targets=nt_, contextual_seq_len=C), lens_).sum().item()
+        t_ops = live_ * H * 2 * (D + V) / PEAK_3XTF32_FLOPS * 1e3
+        t_bytes = 4 * (lens_.sum().item() * H * (2 * D + V) + B * N_ * H * V + B * 2) / PEAK_BYTES_PER_S * 1e3
+        print(f"  K1 at N={N_}: {ms_:.4f} ms (plain {plain_:.4f}), bound {max(t_ops, t_bytes):.4f} ms "
+              f"(operations {t_ops:.4f} at 3xTF32, bytes {t_bytes:.4f})")
+    del q_, k_, v_  # views of a 271 MB projection at N = 1036: not alive into the research phase
     torch.cuda.synchronize()
 
 
@@ -606,6 +637,9 @@ def main() -> None:
     # the seams of K7's tiling: 64 x 64 tile pairs, groups of 4 (or 2) heads
     edges = torch.tensor([63, 64, 65, 127, 128, 129], dtype=torch.int32, device="cuda")
     relbias_case("lengths at the tile edges (63 .. 129)", 6, 140, edges, random_ts(6, 140, edges))
+    # the forward's seams: key tiles of 32 columns, groups of 2 heads
+    relbias_case("D=V=64, H=3, lengths at the forward's key tiles (31 .. 129)", 9, 140, fwd_edges,
+                 random_ts(9, 140, fwd_edges), Hc=3, Dc=64, Vc=64)
     l140 = ints(1, 141, 3)
     for heads in (1, 3, 8):
         relbias_case(f"H={heads}", 3, 140, l140, random_ts(3, 140, l140), Hc=heads)
@@ -638,9 +672,9 @@ def main() -> None:
         f"  research shape: K6 {k6_ms:.4f} ms (plain {k6_plain_ms:.4f}), K7 {k7_ms:.4f} ms (plain "
         f"{k7_plain_ms:.4f}); {live_r} live mask elements per head, mean length {r_len.float().mean().item():.1f}. "
         f"Outside the bound's count, the bias adds per live element one logf, two table reads from shared "
-        f"memory and about ten float32 operations: K6 rebuilds it per head, {RH} times per (row, column); "
-        f"K7 once per group of 4 heads, and sums dS over the group before the table sums. Without the "
-        f"bias, on the same inputs: K1 {k1_same_ms:.4f} ms, K2 {k2_same_ms:.4f} ms"
+        f"memory and about ten float32 operations: K6 once per group of 2 heads, K7 once per group of 4, "
+        f"which sums dS over the group before the table sums. Without the bias, on the same inputs: K1 "
+        f"{k1_same_ms:.4f} ms, K2 {k2_same_ms:.4f} ms"
     )
     del slice_case, q, k, v, do
     torch.cuda.empty_cache()
@@ -981,7 +1015,7 @@ def main() -> None:
     launches = main_path_launches
     kernels = [
         entry("hstu_mha_fwd", src + "hstu_mha_fwd.cu", tpu + "163", launches["K1"],
-              max(errs["K1"]), k1_ms, k1_plain_ms, k1_flops, k1_bytes),
+              max(errs["K1"]), k1_ms, k1_plain_ms, k1_flops, k1_bytes, peak=PEAK_3XTF32_FLOPS),
         entry("delta_hstu_mha_fwd", src + "delta_hstu_mha_fwd.cu", tpu + "1412", launches["K5"],
               max(errs["K5"]), k5_ms, k5_plain_ms, k5_flops, k5_bytes),
         # K2 at the training shape; K3 and K4 at the deterministic phase's
@@ -996,7 +1030,7 @@ def main() -> None:
               *work_det["K4"]),
         # K6 and K7 at the research preset's shape, on a batch of the corpus
         entry("hstu_mha_relbias_fwd", src + "hstu_mha_relbias_fwd.cu", tpu_rel + "172", launches["K6"],
-              max(rel_errs["K6"]), k6_ms, k6_plain_ms, *k6_work),
+              max(rel_errs["K6"]), k6_ms, k6_plain_ms, *k6_work, peak=PEAK_3XTF32_FLOPS),
         entry("hstu_mha_relbias_bwd", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7"],
               max(rel_errs["K7"]), k7_ms, k7_plain_ms, *k7_work, peak=PEAK_3XTF32_FLOPS),
     ]

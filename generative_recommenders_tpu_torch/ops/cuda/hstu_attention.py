@@ -3,7 +3,8 @@
 Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
 
 * ``hstu_mha_dense_cuda``: kernel K1 (`csrc/hstu_mha_fwd.cu`), replacing
-  `_fwd_kernel_rkv` / `_fwd_kernel` behind `hstu_mha_dense_pallas`, and on
+  `_fwd_kernel_rkv` / `_fwd_kernel` behind `hstu_mha_dense_pallas`
+  (3xTF32 products on the tensor cores, launched by `_fwd_plan`), and on
   CUDA tensors differentiable through the backward kernels below (the
   custom VJP `_hstu_mha_pallas_core` becomes `_HstuMhaDense`);
 * ``hstu_mha_bwd_cuda``: kernel K2 (`csrc/hstu_mha_bwd_fused.cu`),
@@ -235,6 +236,46 @@ def _mask_args(kw: dict, N: int) -> tuple:
     )
 
 
+# The tiling of K1's and K6's shared forward body (csrc/hstu_attention_fwd.cuh):
+# padded width -> (warps per block, each with 16 query rows; heads per block;
+# key columns per tile)
+_FWD_TILING = {32: (8, 2, 32), 64: (8, 2, 32), 128: (4, 1, 32), 256: (4, 1, 16)}
+_MAX_SHARED_BYTES = 232448
+_MAX_GRID_X = 2**31 - 1
+
+
+def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 1, N: int = 1) -> dict:
+    """K1's and K6's launch: the width both D and V are padded to (the next
+    of 32, 64, 128, or 256 for D > 128; V at most 128), the heads a block
+    loops inside (a group of 2 or 1), the head groups (H need not be a
+    multiple), the key columns per tile, the block's shared memory (Q of the
+    group at a pitch of W + 8; two stages of a K tile at W + 8 and a V tile
+    at V's width + 4; K6's two tables and the row's timestamps) and the
+    one-dimensional grid of (query tile, head group, batch row) blocks, one
+    warp per 16 query rows. Raises on what the kernel does not take."""
+    if not (0 < D <= _MAX_D and 0 < V <= _MAX_V):
+        raise ValueError(f"the forward kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={V}")
+    width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
+    warps, head_group, key_tile = _FWD_TILING[width]
+    rows = 16 * warps
+    vw = min(width, _MAX_V)
+    tiles = head_group * rows * (width + 8) + 2 * key_tile * (width + 8 + vw + 4)
+    tables = (2 * Nm - 1 + NB + 1 + -(-N // key_tile) * key_tile) if relbias else 0
+    shared_bytes = 4 * (tiles + tables)
+    if shared_bytes > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"the relative-bias forward kernel needs {shared_bytes} bytes of shared memory "
+            f"({4 * tiles} of tiles at width {width}, {4 * tables} of tables and timestamps for "
+            f"Nm={Nm}, NB={NB}, N={N}); a block has {_MAX_SHARED_BYTES}"
+        )
+    head_groups = -(-H // head_group)
+    blocks = -(-N // rows) * head_groups * B
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"the forward kernel's grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
+    return dict(width=width, query_rows=rows, head_group=head_group, head_groups=head_groups,
+                key_tile=key_tile, shared_bytes=shared_bytes, grid=(blocks,))
+
+
 def _dense_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
     """Launches K1 on checked CUDA tensors (lens, nt: int32 or nt None)."""
     B, N, H, D = q.shape
@@ -242,6 +283,7 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
     out = torch.empty((B, N, H, V), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    _fwd_plan(D, V, H, 0, 0, False, B, N)  # raises on what the kernel does not take
     _launch(
         "hstu_mha_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

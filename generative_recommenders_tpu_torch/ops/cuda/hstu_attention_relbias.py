@@ -4,7 +4,9 @@ the kernel, forward and backward, with its plain PyTorch version.
 Port of `generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py`:
 
 * ``hstu_mha_dense_relbias_cuda``: kernel K6 (`csrc/hstu_mha_relbias_fwd.cu`),
-  replacing `_fwd_kernel_relbias` behind `hstu_mha_dense_pallas_relbias`; on
+  replacing `_fwd_kernel_relbias` behind `hstu_mha_dense_pallas_relbias`
+  (3xTF32 products on the tensor cores, a group of heads inside one block,
+  launched by `hstu_attention._fwd_plan`); on
   CUDA tensors differentiable in q, k, v, ``pos_w`` and ``ts_w`` through
 * ``hstu_mha_relbias_bwd_cuda``: kernel K7 (`csrc/hstu_mha_relbias_bwd.cu`),
   replacing `_bwd_kernel_relbias` (the custom VJP `_relbias_call` becomes
@@ -61,7 +63,7 @@ ha._ARGTYPES.update({
 _BWD_TILE, _BWD_PITCH, _BWD_WARPS = 64, 72, 16
 _MAX_BWD_WIDTH = 64
 _MAX_BWD_BUCKETS = 65535
-_MAX_SHARED_BYTES = 232448
+_MAX_SHARED_BYTES = ha._MAX_SHARED_BYTES
 _INV_LOG_BASE = 1.0 / 0.301  # bucket(x) = floor(ln(x) / 0.301)
 RelbiasGrads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -170,6 +172,8 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     out = torch.empty((B, N, H, V), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    # raises on what the kernel does not take
+    ha._fwd_plan(D, V, H, (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, True, B, N)
     ha._launch(
         "hstu_mha_relbias_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -1,19 +1,24 @@
-"""Times knock-out variants of the redesigned kernels K5 and K7 on the card.
+"""Times knock-out variants of the redesigned kernels K1, K5, K6 and K7 on the card.
 
-    python -m generative_recommenders_tpu_torch.ops.cuda.variants
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants [KERNEL ...]
 
-A variant is the kernel's source with one phase taken out by text
-substitution (its table sums, its atomics, its tensor-core instructions
-replaced by plain adds, its loads of K and V, ...), built beside the real
-library and launched through the same wrapper on the same inputs. Most
+A variant is the kernel's source, or a header it includes, with one phase
+taken out by text substitution (its table sums, its atomics, its
+tensor-core instructions replaced by plain adds, its loads of K and V, ...),
+built beside the real library and launched through the same wrapper on the
+same inputs. Each variant's directory holds the kernel's source and every
+shared header, edited or not, and is searched first. Most
 variants compute wrong numbers: only their times are read. What the time
 does not lose when a phase goes, that phase did not cost; `PERF.md` quotes
-the table this prints. Needs a CUDA card and nvcc.
+the table this prints. Needs a CUDA card and nvcc. Names of C entry points
+(``hstu_mha_fwd``, ...) as arguments time only those kernels' variants.
 
 Inputs, from seed 0: K5 at the serving chunk (B 32, M 5, H 4, D = V = 128,
-N 523, lengths 100..329, q a strided view); K7 at the research shape (B 96,
-N 511, H 8, D = V = 32, lengths 1..511, q/k/v views of one projection, a
-strided dO).
+N 523, lengths 100..329, q a strided view); K6 and K7 at the research shape
+(B 96, N 511, H 8, D = V = 32, lengths 1..511, q/k/v views of one
+projection, a strided dO); K1 at the serving shape (B 32, N 674, H 4, D = V
+= 128, lengths 300..674, up to 159 targets, 2 contextual rows, q/k/v views
+of one uvqk projection).
 """
 
 from __future__ import annotations
@@ -21,18 +26,29 @@ from __future__ import annotations
 import os
 import subprocess
 import threading
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from generative_recommenders_tpu_torch.ops.cuda import build
 
-Edit = Callable[[str], str]
+Edit = Callable[[Dict[str, str], str], None]
 
 
-def _sub(old: str, new: str) -> Edit:
-    def edit(text: str) -> str:
-        if text.count(old) != 1:
-            raise ValueError(f"the kernel source no longer holds exactly one {old[:60]!r}")
-        return text.replace(old, new)
+def _sub(old: str, new: str, where: str = "") -> Edit:
+    """An edit of the kernel's own source, or of the shared header ``where``."""
+
+    def edit(texts: Dict[str, str], source: str) -> None:
+        name = where or source
+        if texts[name].count(old) != 1:
+            raise ValueError(f"{name} no longer holds exactly one {old[:60]!r}")
+        texts[name] = texts[name].replace(old, new)
+
+    return edit
+
+
+def _both(*edits: Edit) -> Edit:
+    def edit(texts: Dict[str, str], source: str) -> None:
+        for e in edits:
+            e(texts, source)
 
     return edit
 
@@ -42,9 +58,19 @@ _MMA = '''  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 '''
+_TF32 = "tf32_mma.cuh"
+# the tensor cores do nothing, the fragments are still loaded and split
+_NO_MMA = _sub(
+    _MMA,
+    "  c[0] += __uint_as_float(a[0] ^ b[0]); c[1] += __uint_as_float(a[1] ^ b[1]);\n"
+    "  c[2] += __uint_as_float(a[2] ^ b[0]); c[3] += __uint_as_float(a[3] ^ b[1]);\n", _TF32)
+_NO_SPLIT = _sub(
+    "  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
+    "  small = __float_as_uint(x - __uint_as_float(big));\n",
+    "  big = __float_as_uint(x);\n  small = 0;\n", _TF32)
 _K7: Dict[str, Edit] = {
-    "table sums": lambda t: _sub("unsigned rest = __ballot_sync(kFull, ok);", "unsigned rest = 0;")(
-        _sub("for (int r = part; r < kT; r += 4) {", "for (int r = part; r < 0; r += 4) {")(t)),
+    "table sums": _both(_sub("unsigned rest = __ballot_sync(kFull, ok);", "unsigned rest = 0;"),
+                        _sub("for (int r = part; r < kT; r += 4) {", "for (int r = part; r < 0; r += 4) {")),
     "dq atomics": _sub("if (row < length && d < p.D) {\n                const float4 x",
                        "if (false) {\n                const float4 x"),
     "sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;"),
@@ -53,15 +79,29 @@ _K7: Dict[str, Edit] = {
     "dV and dK": _sub("for (int ks = row_step_first; ks < row_steps; ++ks) {",
                       "for (int ks = row_step_first; ks < 0; ++ks) {"),
     "dQ": _sub("for (int ks = 0; ks < my_col_steps; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {"),
-    # the fragments are still loaded and split, the tensor cores do nothing
-    "mma.sync (plain adds instead)": _sub(
-        _MMA,
-        "  c[0] += __uint_as_float(a[0] ^ b[0]); c[1] += __uint_as_float(a[1] ^ b[1]);\n"
-        "  c[2] += __uint_as_float(a[2] ^ b[0]); c[3] += __uint_as_float(a[3] ^ b[1]);\n"),
-    "the split (big = x, small = 0)": _sub(
-        "  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;\n"
-        "  small = __float_as_uint(x - __uint_as_float(big));\n",
-        "  big = __float_as_uint(x);\n  small = 0;\n"),
+    "mma.sync (plain adds instead)": _NO_MMA,
+    "the split (big = x, small = 0)": _NO_SPLIT,
+}
+# K1 and K6: edits of their shared body
+_FWD = "hstu_attention_fwd.cuh"
+_BIAS = "the bias (its logf, its table reads)"
+_K16: Dict[str, Edit] = {
+    "silu": _sub("s[j][c] = __fdividef(x, 1.f + __expf(-x));", "s[j][c] = x;", _FWD),
+    _BIAS: _sub(
+        "bias[RELBIAS ? 4 * j + c : 0] = pos_s[hstu::pos_index(row, col, p.Nm)] +\n"
+        "                                            ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)];",
+        "bias[RELBIAS ? 4 * j + c : 0] = 0.f;", _FWD),
+    "mma.sync (plain adds instead)": _NO_MMA,
+    "the split (big = x, small = 0)": _NO_SPLIT,
+    "K and V loads": _both(
+        _sub("p.k_sn, kt * BK, length, p.D,", "p.k_sn, kt * BK, 0, p.D,", _FWD),
+        _sub("p.v_sn, kt * BK, length,\n", "p.v_sn, kt * BK, 0,\n", _FWD)),
+    "the products": _sub("          if (!dead) {", "          if (false) {", _FWD),
+    # every element live: no mask to compute, no warp skipped
+    "the mask": _both(_sub("      if (!interior) {\n        ok_bits = 0;", "      if (false) {\n        ok_bits = 0;", _FWD),
+                      _sub("            if (!interior) {\n#pragma unroll", "            if (false) {\n#pragma unroll", _FWD)),
+    "Q's loads": _sub("for (int hh = 0; hh < nh; ++hh)\n      load_tile<W, PQ, kRows, kThreads>",
+                      "for (int hh = 0; hh < 0; ++hh)\n      load_tile<W, PQ, kRows, kThreads>", _FWD),
 }
 _K5: Dict[str, Edit] = {
     "the last block's sum": _sub("  if (!s_last) return;\n", "  return;\n"),
@@ -82,40 +122,63 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
     ]
     + [("delta_hstu_mha_fwd", f"without {name}", (name,)) for name in _K5]
     + [("delta_hstu_mha_fwd", "without K and V loads", ("K loads", "V loads"))]
+    + [
+        (kernel, label, phases)
+        for kernel in ("hstu_mha_fwd", "hstu_mha_relbias_fwd")
+        for label, phases in (
+            [("as shipped", ())]
+            + [(f"without {name}", (name,)) for name in _K16
+               if kernel == "hstu_mha_relbias_fwd" or name != _BIAS]
+            + [("loads, barriers and stores alone", ("the products", "the mask")
+                + ((_BIAS,) if kernel == "hstu_mha_relbias_fwd" else ()))]
+        )
+    ]
 )
+_EDITS = {"hstu_mha_relbias_bwd": _K7, "delta_hstu_mha_fwd": _K5, "hstu_mha_fwd": _K16,
+          "hstu_mha_relbias_fwd": _K16}
 
 
-def variant_source(kernel: str, phases: Tuple[str, ...]) -> str:
-    """The kernel's source with the named phases taken out; raises if a
-    substitution no longer finds its text."""
-    with open(os.path.join(build.CSRC_DIR, build.KERNEL_SOURCES[kernel])) as f:
-        text = f.read()
-    edits = _K7 if kernel == "hstu_mha_relbias_bwd" else _K5
+def shipped_sources(kernel: str) -> Dict[str, str]:
+    """The kernel's source and every shared header, by file name."""
+    texts = {}
+    for name in (build.KERNEL_SOURCES[kernel],) + build._HEADERS:
+        with open(os.path.join(build.CSRC_DIR, name)) as f:
+            texts[name] = f.read()
+    return texts
+
+
+def variant_source(kernel: str, phases: Tuple[str, ...]) -> Dict[str, str]:
+    """The kernel's source and the shared headers, by file name, with the
+    named phases taken out; raises if a substitution no longer finds its
+    text."""
+    texts = shipped_sources(kernel)
     for name in phases:
-        text = edits[name](text)
-    return text
+        _EDITS[kernel][name](texts, build.KERNEL_SOURCES[kernel])
+    return texts
 
 
-def _build_all(root: str) -> None:
+def _build_all(root: str, chosen: List[int]) -> None:
     """One nvcc per variant, all started together, each into its own
-    directory under ``root``."""
+    directory under ``root``, which holds the variant's source and headers
+    and is searched first."""
     nvcc = build._nvcc()
     failures = []
 
     def make(i: int, kernel: str, phases: Tuple[str, ...]) -> None:
         d = os.path.join(root, f"v{i}")
         os.makedirs(d, exist_ok=True)
-        cu = os.path.join(d, f"{kernel}.cu")
-        with open(cu, "w") as f:
-            f.write(variant_source(kernel, phases))
+        for name, text in variant_source(kernel, phases).items():
+            with open(os.path.join(d, name), "w") as f:
+                f.write(text)
         r = subprocess.run(
-            [nvcc, *build.NVCC_FLAGS, "-I", build.CSRC_DIR, "-o", os.path.join(d, f"lib{kernel}.so"), cu],
+            [nvcc, *build.NVCC_FLAGS, "-I", d, "-I", build.CSRC_DIR, "-o", os.path.join(d, f"lib{kernel}.so"),
+             os.path.join(d, build.KERNEL_SOURCES[kernel])],
             capture_output=True, text=True,
         )
         if r.returncode != 0:
             failures.append(r.stdout + r.stderr)
 
-    threads = [threading.Thread(target=make, args=(i, k, p)) for i, (k, _, p) in enumerate(VARIANTS)]
+    threads = [threading.Thread(target=make, args=(i, *VARIANTS[i][::2])) for i in chosen]
     for t in threads:
         t.start()
     for t in threads:
@@ -124,11 +187,16 @@ def _build_all(root: str) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 
 
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
+    import sys
+
     import torch
 
-    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import delta_hstu_mha_cuda
-    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import hstu_mha_relbias_bwd_cuda
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import delta_hstu_mha_cuda, hstu_mha_dense_cuda
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
+        hstu_mha_dense_relbias_cuda,
+        hstu_mha_relbias_bwd_cuda,
+    )
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -149,6 +217,17 @@ def main() -> None:
     def k7():
         hstu_mha_relbias_bwd_cuda(q, k, v, lens, ts, pos_w, ts_w, do, alpha=1.0, max_seq_len=N)
 
+    def k6():
+        hstu_mha_dense_relbias_cuda(q, k, v, lens, ts, pos_w, ts_w, alpha=1.0, max_seq_len=N)
+
+    _, sv, sq, sk = torch.split(rand(32, 674, 4 * 512), [512] * 4, dim=-1)
+    sq, sk, sv = (x.reshape(32, 674, 4, 128) for x in (sq, sk, sv))
+    s_len, s_nt = ints(300, 675, 32), ints(1, 160, 32)
+
+    def k1():
+        hstu_mha_dense_cuda(sq, sk, sv, s_len, alpha=128**-0.5, max_seq_len=674, num_targets=s_nt,
+                            contextual_seq_len=2)
+
     dq = rand(32, 5, 4 * 512)[..., 1024:1536].reshape(32, 5, 4, 128)
     dk, dv, dlen = rand(32, 523, 4, 128), rand(32, 523, 4, 128), ints(100, 330, 32)
     m5 = torch.full((32,), 5, dtype=torch.int32, device="cuda")
@@ -168,14 +247,18 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
+    only = set(sys.argv[1:] if argv is None else argv)
+    chosen = [i for i, (kernel, _, _) in enumerate(VARIANTS) if not only or kernel in only]
     root = os.path.join(build.BUILD_DIR, "variants")
-    _build_all(root)
+    _build_all(root, chosen)
     shipped_dir = build.BUILD_DIR
     try:
-        for i, (kernel, label, _) in enumerate(VARIANTS):
+        for i in chosen:
+            kernel, label, _ = VARIANTS[i]
             build.BUILD_DIR = os.path.join(root, f"v{i}")
             build._libs.clear()
-            fn, reps = (k7, 10) if kernel == "hstu_mha_relbias_bwd" else (k5, 300)
+            fn, reps = {"hstu_mha_relbias_bwd": (k7, 10), "delta_hstu_mha_fwd": (k5, 300),
+                        "hstu_mha_relbias_fwd": (k6, 20), "hstu_mha_fwd": (k1, 50)}[kernel]
             print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms")
     finally:
         build.BUILD_DIR = shipped_dir

@@ -3,8 +3,10 @@ functions, the plain version of kernel K1 (dense) against the Pallas
 kernel in interpret mode and the XLA spec, and the plain version of kernel
 K5 (M-FALCON delta) against the Pallas delta kernel and the XLA delta path,
 also at the lengths where the CUDA kernel's 64-column chunks and 8-row tiles
-end; and what K5's wrapper computes in Python (its launch plan, the 16-byte
-alignment test, the stride check).
+end; K1's plain version at the seams of the CUDA forward's tiling (query tiles
+of 64 or 128 rows, key tiles of 32 columns, groups of heads that H does not
+fill); and what the wrappers compute in Python (K1's and K6's launch plan,
+K5's launch plan, the 16-byte alignment test, the stride check).
 Inputs are made with numpy from a seed and fed to both packages; float32
 throughout, atol = rtol = 1e-5 (the two differ only in summation order)."""
 
@@ -243,3 +245,87 @@ def test_kernels_refuse_a_strided_last_dim():
     t = torch.zeros(1, 4, 1, 16)[..., ::2]
     with pytest.raises(ValueError, match="contiguous in its last dim"):
         ha._check("delta_q", t, 4, t.device)
+
+
+# the CUDA forward's seams: key tiles of 32 columns, query tiles of 64 or 128
+# rows, heads in groups of 2 at widths up to 64
+FWD_EDGES = [31, 32, 33, 63, 64, 65, 127, 128, 129]
+
+
+@pytest.mark.parametrize("H,case", [(1, dict()), (3, dict(num_targets=True, contextual_seq_len=2))])
+def test_dense_plain_matches_pallas_at_tile_edges(H, case):
+    case = dict(case)
+    B, N, D, V = len(FWD_EDGES), 130, 8, 8
+    ctx = case.get("contextual_seq_len", 0)
+    q, k, v, _ = _inputs(8, B, N, N, H, D, V)
+    lengths = np.asarray(FWD_EDGES, np.int32)
+    nt = _targets(case, lengths, ctx)
+    kw = dict(alpha=0.6, max_seq_len=N + 5, **case)
+    got = hstu_mha_dense_cuda(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), torch.as_tensor(lengths),
+        num_targets=_opt(nt, torch.as_tensor), **kw,
+    ).numpy()
+    want = hstu_mha_dense_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        num_targets=_opt(nt, jnp.asarray), block_q=64, block_k=64, interpret=True, **kw,
+    )
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    for b in range(B):
+        assert (got[b, lengths[b]:] == 0).all()
+
+
+# padded width -> (query rows, heads per block, key columns per tile), as
+# csrc/hstu_attention_fwd.cuh's `Tiling`
+FWD_TILING = {32: (128, 2, 32), 64: (128, 2, 32), 128: (64, 1, 32), 256: (64, 1, 16)}
+
+
+@pytest.mark.parametrize("H", [1, 3, 4, 8])
+@pytest.mark.parametrize("D", [25, 32, 40, 50, 64, 128, 256])
+def test_forward_launch_plan(D, H):
+    """K1's launch at every width and head count the kernel phase uses: D
+    and V padded to the next of 32, 64, 128 (256 for D, V at most 128);
+    Q of the head group at a pitch of W + 8 and two stages of a K and a V
+    tile; one block per (query tile, head group, batch row)."""
+    V = min(D, 128)
+    B, N = 3, 674
+    plan = ha._fwd_plan(D, V, H, 0, 0, False, B, N)
+    width = next(w for w in (32, 64, 128, 256) if D <= w)
+    rows, group, key_tile = FWD_TILING[width]
+    vw = min(width, 128)
+    assert plan["width"] == width and plan["query_rows"] == rows
+    assert plan["head_group"] == group and plan["head_groups"] == -(-H // group)
+    assert plan["key_tile"] == key_tile
+    assert plan["shared_bytes"] == 4 * (group * rows * (width + 8) + 2 * key_tile * (width + 8 + vw + 4))
+    assert plan["shared_bytes"] <= 232448
+    assert plan["grid"] == (-(-N // rows) * -(-H // group) * B,)
+
+
+def test_forward_launch_plan_takes_the_wider_of_d_and_v():
+    assert ha._fwd_plan(16, 100, 2, 0, 0, False)["width"] == 128
+    assert ha._fwd_plan(200, 16, 2, 0, 0, False)["width"] == 256
+
+
+@pytest.mark.parametrize("args,match", [((257, 32), "D <= 256"), ((32, 129), "V <= 128")])
+def test_forward_launch_plan_raises(args, match):
+    with pytest.raises(ValueError, match=match):
+        ha._fwd_plan(*args, 2, 0, 0, False)
+
+
+def test_dense_launch_goes_by_the_plan(monkeypatch):
+    """`_dense_fwd` checks the plan before it launches: a grid beyond CUDA's
+    raises and launches nothing."""
+    calls = []
+    monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(ha, "_stream", lambda device: 0)
+    q = torch.zeros(2, 70, 3, 32)
+    lens = torch.tensor([70, 9], dtype=torch.int32)
+    kw = dict(alpha=1.0, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
+              min_full_attn_seq_len=0)
+    before = hstu_mha_dense_cuda.launches.count
+    assert ha._dense_fwd(q, q, q, lens, None, kw).shape == (2, 70, 3, 32)
+    assert len(calls) == 1 and calls[0][0] == "hstu_mha_fwd"
+    assert hstu_mha_dense_cuda.launches.count == before + 1
+    monkeypatch.setattr(ha, "_MAX_GRID_X", 2)
+    with pytest.raises(ValueError, match="grid"):
+        ha._dense_fwd(q, q, q, lens, None, kw)
+    assert len(calls) == 1 and hstu_mha_dense_cuda.launches.count == before + 1

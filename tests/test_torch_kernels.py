@@ -15,8 +15,10 @@ changes from run to run, and are held to 2e-5 of each table gradient's
 largest entry. K5 cuts the key range into 64-column chunks across blocks and
 adds the chunks' partial sums in chunk order (the same bits every run); K7
 works on 64 x 64 tile pairs with groups of 4 (or 2) heads inside a block and
-sums dk and dv without atomics: both are also run at the lengths, row counts,
-head counts and widths where those tilings end.
+sums dk and dv without atomics; K1 and K6 walk 32-column key tiles for query
+tiles of 64 or 128 rows and groups of 1 or 2 heads, and sum in a fixed order
+(K1: the same bits every run): all four are also run at the lengths, row
+counts, head counts and widths where those tilings end.
 """
 
 import numpy as np
@@ -197,6 +199,48 @@ def test_kernels_match_plain_on_uvqk_views(cuda):
     torch.testing.assert_close(
         delta_hstu_mha_cuda(dq, k, v, lengths, **kw), delta_hstu_mha_plain(dq, k, v, lengths, **kw), **TOL
     )
+
+
+def _dense_seam(name, device):
+    """(q, k, v, lengths, kw) of one case at a seam of K1's tiling."""
+    rng = np.random.default_rng(14)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 0.5, device=device)  # noqa: E731
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    edges = [31, 32, 33, 63, 64, 65, 127, 128, 129]  # 32-column key tiles, 64- and 128-row query tiles
+    H, D, V, lengths, kw = 4, 128, 128, edges, {}
+    if name == "D=V=32, H=3":  # groups of 2 heads: H=3 leaves one unfilled
+        H, D, V = 3, 32, 32
+    elif name == "D=V=64, H=3":
+        H, D, V = 3, 64, 64
+    elif name == "D=V=25":  # scalar loads, a padded tail
+        D = V = 25
+    elif name == "D=256, V=128":
+        D = 256
+    elif name == "targets and contextual rows":  # contextual rows walk every key tile
+        kw = dict(contextual_seq_len=3, num_targets=ints([min(5, n - 4) for n in edges]))
+    elif name == "window":
+        kw = dict(max_attn_len=40, min_full_attn_seq_len=8, num_targets=ints([3] * len(edges)))
+    elif name != "tile edges":
+        raise ValueError(name)
+    B, N = len(lengths), 140
+    kw = dict(alpha=D**-0.5, max_seq_len=N + 9, **kw)
+    return t(B, N, H, D), t(B, N, H, D), t(B, N, H, V), ints(lengths), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name", ["tile edges", "D=V=32, H=3", "D=V=64, H=3", "D=V=25", "D=256, V=128", "targets and contextual rows", "window"]
+)
+def test_dense_kernel_at_its_seams(cuda, name):
+    q, k, v, lengths, kw = _dense_seam(name, cuda)
+    poison = torch.full((q.shape[0] * q.shape[1] * q.shape[2] * v.shape[3] + 4096,), float("nan"), device=cuda)
+    del poison  # an element the kernel fails to write shows as NaN
+    got = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+    torch.testing.assert_close(got, hstu_mha_dense_plain(q, k, v, lengths, **kw), **TOL)
+    dead = torch.arange(q.shape[1], device=cuda)[None, :] >= lengths[:, None]
+    assert (got[dead] == 0).all()
+    # no atomics, the key tiles summed in a fixed order: the same bits
+    assert torch.equal(got, hstu_mha_dense_cuda(q, k, v, lengths, **kw))
 
 
 def _bwd_counts():
@@ -401,6 +445,8 @@ def _relbias_seam(name, device):
         Nm = 100
     elif name == "targets and contextual rows":  # the causal skip of tiles is off
         nt_on, kw = True, dict(contextual_seq_len=3)
+    elif name == "D=V=64, H=3, forward key tiles":  # K6: groups of 2 heads, 32-column key tiles
+        B, H, D, V, lengths = 9, 3, 64, 64, [31, 32, 33, 63, 64, 65, 127, 128, 129]
     else:
         raise ValueError(name)
     q, k, v, lens, ts, pos_w, ts_w, nt = _relbias_inputs(13, B, N, H, D, V, Nm, nb, nt_on, device)
@@ -446,3 +492,22 @@ def test_relbias_backward_refuses_wide_heads(cuda):
     with pytest.raises(ValueError, match="D, V <= 64"):
         hstu_mha_relbias_bwd_cuda(wide, wide, v, lengths, ts, pos_w, ts_w, torch.zeros_like(v), **kw)
     assert hstu_mha_relbias_bwd_cuda.launches.count == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name",
+    ["tile edges", "H=1", "H=3", "H=8", "D=V=25", "D=V=50, H=1", "N > Nm", "targets and contextual rows",
+     "D=V=64, H=3, forward key tiles"],
+)
+def test_relbias_forward_at_its_seams(cuda, name):
+    args, kw = _relbias_seam(name, cuda)
+    q, v, lengths = args[0], args[2], args[3]
+    poison = torch.full((q.shape[0] * q.shape[1] * q.shape[2] * v.shape[3] + 4096,), float("nan"), device=cuda)
+    del poison
+    before = hstu_mha_dense_relbias_cuda.launches.count
+    got = hstu_mha_dense_relbias_cuda(*args, **kw)
+    assert hstu_mha_dense_relbias_cuda.launches.count == before + 1
+    torch.testing.assert_close(got, hstu_mha_dense_relbias_plain(*args, **kw), **TOL)
+    dead = torch.arange(q.shape[1], device=cuda)[None, :] >= lengths[:, None]
+    assert (got[dead] == 0).all()

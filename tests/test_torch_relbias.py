@@ -4,8 +4,10 @@ tensors) against `hstu_mha_dense_pallas_relbias` in interpret mode, forward
 and, by `jax.grad` against autograd, backward (dq, dk, dv and both bias
 tables' gradients); the wiring of the autograd function that joins K6 and K7
 on the card; the raise under deterministic mode; the lengths at which the
-CUDA backward's 64 x 64 tile pairs end; and what K7's wrapper computes in
-Python (head width, head group and shared-memory size). Inputs are made with
+CUDA backward's 64 x 64 tile pairs and the forward's 32-column key tiles
+end, and head counts that the forward's and backward's head groups do not
+fill; and what K6's and K7's wrappers compute in Python (head width, head
+group and shared-memory size). Inputs are made with
 numpy from a seed, as `tests/test_relbias_attention.py` makes them.
 
 Tolerances as that file's: forward rtol = atol = 2e-5, gradients 2e-4 (both
@@ -353,3 +355,58 @@ def test_backward_launch_plan_raises(args, match):
     back to the plain version."""
     with pytest.raises(ValueError, match=match):
         hr._relbias_bwd_plan(*args)
+
+
+@pytest.mark.parametrize("H", [3, 5])
+def test_plain_forward_matches_pallas_where_head_groups_end(H):
+    """H that the forward's groups of 2 heads (and the backward's of 4) do
+    not fill, at lengths around the 32-column key tiles and 128-row query
+    tiles."""
+    B, N, D, V, Nm = 4, 140, 8, 8, 140
+    q, k, v, _, ts, pos_w, ts_w = _setup(23, B, N, H, D, V, Nm, nb=32)
+    lengths = np.asarray([31, 33, 97, 129], np.int32)
+    case = dict(num_buckets=32)
+    want = np.asarray(_pallas(*map(jnp.asarray, (q, k, v)), lengths, ts,
+                              jnp.asarray(pos_w), jnp.asarray(ts_w), None, case))
+    t = torch.as_tensor
+    got = hr.hstu_mha_dense_relbias_cuda(t(q), t(k), t(v), t(lengths), t(ts), t(pos_w), t(ts_w), **case)
+    np.testing.assert_allclose(got.numpy(), want, **FWD_TOL)
+
+
+@pytest.mark.parametrize("H", [1, 3, 4, 8])
+@pytest.mark.parametrize("D", [25, 32, 40, 50, 64, 128, 256])
+def test_forward_launch_plan(D, H):
+    """K6's launch takes K1's tiling and adds both tables and the row's
+    timestamps (up to the last key tile) to the block's shared memory."""
+    V = min(D, 128)
+    B, N, Nm, NB = 96, 511, 511, 128
+    plan = hr.ha._fwd_plan(D, V, H, Nm, NB, True, B, N)
+    dense = hr.ha._fwd_plan(D, V, H, 0, 0, False, B, N)
+    key_tile = dense["key_tile"]
+    tables = 2 * Nm - 1 + NB + 1 + -(-N // key_tile) * key_tile
+    assert plan == dict(dense, shared_bytes=dense["shared_bytes"] + 4 * tables)
+    assert plan["shared_bytes"] <= 232448
+
+
+def test_forward_launch_plan_raises_on_tables_that_do_not_fit():
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        hr.ha._fwd_plan(128, 128, 2, 20000, 128, True, 2, 20100)
+
+
+def test_forward_launch_goes_by_the_plan(monkeypatch):
+    """`_relbias_fwd` checks the plan before it launches: tables that do not
+    fit raise and nothing is launched or counted."""
+    calls = []
+    monkeypatch.setattr(hr.ha, "_launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(hr.ha, "_stream", lambda device: 0)
+    B, N, H, D = 2, 40, 3, 32
+    q = torch.zeros(B, N, H, D)
+    lens, ts = torch.tensor([40, 9], dtype=torch.int32), torch.zeros(B, N)
+    kw = dict(alpha=1.0, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
+              min_full_attn_seq_len=0)
+    before = hr.hstu_mha_dense_relbias_cuda.launches.count
+    hr._relbias_fwd(q, q, q, lens, None, ts, torch.zeros(2 * N - 1), torch.zeros(129), kw)
+    assert len(calls) == 1 and calls[0][0] == "hstu_mha_relbias_fwd"
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        hr._relbias_fwd(q, q, q, lens, None, ts, torch.zeros(2 * 60000 - 1), torch.zeros(129), kw)
+    assert len(calls) == 1 and hr.hstu_mha_dense_relbias_cuda.launches.count == before + 1
