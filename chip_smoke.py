@@ -16,9 +16,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    K6 and K7 at the research preset's shapes, on a batch of the synthetic
    corpus, against their plain versions (and a float64 run of them); K1, K5,
    K6 and K7 also at the seams of their tilings (chunk and tile edges, row
-   and head counts that do not fill a tile or a group), the outputs of K1 and
-   K5 and K7's dk and dv the same bits on a second run; K1 also timed at the
-   training and deterministic shapes;
+   and head counts that do not fill a tile or a group), K2 and K4 at the
+   widths, lengths and contextual rows where their tiling ends and beside a
+   row of length 0, the outputs of K1 and K5 and the dk and dv of K2, K4 and
+   K7 the same bits on a second run; K1 and K2 also timed at the training and
+   deterministic shapes;
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -414,7 +416,9 @@ def main() -> None:
     # ------------------------------------------------ backward kernel phase
     def bwd_case(name, Bc, N, lengths, nt=None, Dc=D, Vc=V, qkv=None, **kw):
         """K2, and K3 + K4, against the plain backward; dO is not contiguous
-        (a transposed buffer), as the gradient of a reshape may be."""
+        (a transposed buffer), as the gradient of a reshape may be. dk and dv
+        are summed without atomics (K2's dq with them): the same bits on a
+        second run."""
         q, k, v = qkv or (rand(Bc, N, H, Dc), rand(Bc, N, H, Dc), rand(Bc, N, H, Vc))
         do = rand(N, Bc, H, Vc).transpose(0, 1)
         args = dict(alpha=1.0 / Dc**0.5, max_seq_len=kw.pop("max_seq_len", N), num_targets=nt, **kw)
@@ -428,6 +432,10 @@ def main() -> None:
             poison_allocator(3 * Bc * N * H * max(Dc, Vc) * 4)
             got = run()
             torch.cuda.synchronize()
+            again = run()
+            check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+                  f"{kname} {name}: dk or dv differ between two runs")
+            del again
             errs_k[kname] = [compare(f"{kname} {name} {g}", a, w, dead)
                              for g, a, w in zip(("dq", "dk", "dv"), got, want)]
         return errs_k
@@ -466,6 +474,17 @@ def main() -> None:
                  contextual_seq_len=C),
         bwd_case("D=40, V=16", 2, 45, ints(1, 46, 2), Dc=40, Vc=16),
         bwd_case("D=32, V=32", 2, 45, ints(1, 46, 2), Dc=32, Vc=32),
+        # the seams of K2's and K4's tiling: 64-column key tiles, query tiles
+        # of 32 rows (widths 128 and 256) or 64 (widths 32 and 64)
+        bwd_case("lengths at the tile edges (31 .. 129), q/k/v split from the uvqk projection", 9, 140,
+                 fwd_edges, ints(0, 20, 9).clamp(max=fwd_edges - C - 1), qkv=uvqk_views(9, 140),
+                 contextual_seq_len=C),
+        bwd_case("D=200, V=96 (width 256)", 3, 150, ints(1, 151, 3), ints(0, 5, 3), Dc=200, Vc=96,
+                 contextual_seq_len=C),
+        bwd_case("a row of length 0 beside live rows", 4, 100,
+                 torch.tensor([0, 100, 0, 37], dtype=torch.int32, device="cuda")),
+        bwd_case("contextual rows past a query tile (40)", 3, 200, ints(41, 201, 3), ints(0, 5, 3),
+                 contextual_seq_len=40),
     ):
         for kname, e in case.items():
             bwd_errs[kname] += e
@@ -502,6 +521,12 @@ def main() -> None:
 
     bwd_tr = bwd_timing(N_tr, tr_len, tr_nt)
     bwd_det = bwd_timing(N_det, det_len, det_nt)
+    # K2 where the deterministic phase would run it, beside K4 (the report
+    # line holds K2 at the training shape)
+    t_ops, t_bytes = (x / r * 1e3 for x, r in zip(bwd_det[1]["K2"], (PEAK_3XTF32_FLOPS, PEAK_BYTES_PER_S)))
+    print(f"  K2 at N={N_det}: {bwd_det[0]['K2']:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms (operations "
+          f"{t_ops:.4f} at 3xTF32, bytes {t_bytes:.4f}), {max(t_ops, t_bytes) / bwd_det[0]['K2']:.1%} of the "
+          f"bound's rate")
     # K1 where the ranker's training launches it, beside the serving shape
     for N_, lens_, nt_ in ((N_tr, tr_len, tr_nt), (N_det, det_len, det_nt)):
         q_, k_, v_ = uvqk_views(B, N_)
@@ -1022,12 +1047,12 @@ def main() -> None:
         # (uih 1024), where their path runs. The plain version of each is the
         # plain backward, which computes dq, dk and dv together.
         entry("hstu_mha_bwd_fused", src + "hstu_mha_bwd_fused.cu", tpu + "403", launches["K2"],
-              max(bwd_errs["K2"]), ms_tr["K2"], ms_tr["plain"], *work_tr["K2"]),
+              max(bwd_errs["K2"]), ms_tr["K2"], ms_tr["plain"], *work_tr["K2"], peak=PEAK_3XTF32_FLOPS),
         entry("hstu_mha_bwd_dq", src + "hstu_mha_bwd_dq.cu", tpu + "895", launches["K3"],
               max(bwd_errs["K3+K4"][0::3]), ms_det["K3"], ms_det["plain"], *work_det["K3"]),
         entry("hstu_mha_bwd_dkv", src + "hstu_mha_bwd_dkv.cu", tpu + "951", launches["K4"],
               max(bwd_errs["K3+K4"][1::3] + bwd_errs["K3+K4"][2::3]), ms_det["K4"], ms_det["plain"],
-              *work_det["K4"]),
+              *work_det["K4"], peak=PEAK_3XTF32_FLOPS),
         # K6 and K7 at the research preset's shape, on a batch of the corpus
         entry("hstu_mha_relbias_fwd", src + "hstu_mha_relbias_fwd.cu", tpu_rel + "172", launches["K6"],
               max(rel_errs["K6"]), k6_ms, k6_plain_ms, *k6_work, peak=PEAK_3XTF32_FLOPS),

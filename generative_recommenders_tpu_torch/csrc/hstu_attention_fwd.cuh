@@ -110,28 +110,6 @@ __host__ __device__ constexpr int smem_floats(int tables, int ts_row) {
   return T::HG * 16 * T::NW * (W + 8) + 2 * T::BK * (W + 8 + WV + 4) + tables + ts_row;
 }
 
-// Rows [r0, r0 + ROWS) of one head of a strided [.., N, H, w] tensor into a
-// [ROWS][P] shared tile, asynchronously; zeros at rows >= lim and in the pad
-// columns [w, W).
-template <int W, int P, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn, int r0,
-                                          int lim, int w, bool vec) {
-  if (vec) {
-    constexpr int C4 = W / 4;
-    for (int idx = threadIdx.x; idx < ROWS * C4; idx += THREADS) {
-      const int r = idx / C4, c = (idx % C4) * 4;
-      const bool ok = r0 + r < lim && c < w;
-      cp_async16(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * W; idx += THREADS) {
-      const int r = idx / W, c = idx % W;
-      const bool ok = r0 + r < lim && c < w;
-      cp_async4(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
-    }
-  }
-}
-
 // P's k-step j as an A fragment, split: the C fragment of S with k in pairs
 __device__ __forceinline__ FragA frag_a_p(const float (&s)[4]) {
   FragA f;

@@ -1,8 +1,9 @@
 // Float32-accurate products on Hopper's tensor cores: `mma.sync.m16n8k8`
 // TF32 with the 3xTF32 split, the fragment loads from shared-memory tiles and
-// `cp.async`. Shared by the relative-bias backward K7
-// (hstu_mha_relbias_bwd.cu) and the forward body of K1 and K6
-// (hstu_attention_fwd.cuh).
+// `cp.async` with the tile load built on it. Shared by the relative-bias
+// backward K7 (hstu_mha_relbias_bwd.cu), the forward body of K1 and K6
+// (hstu_attention_fwd.cuh) and the backward body of K2 and K4
+// (hstu_attention_bwd_dkv.cuh).
 #pragma once
 
 #include <cstdint>
@@ -30,6 +31,28 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + ROWS) of one head of a strided [.., N, H, w] tensor into a
+// [ROWS][P] shared tile, asynchronously; zeros at rows >= lim and in the pad
+// columns [w, W).
+template <int W, int P, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn, int r0,
+                                          int lim, int w, bool vec) {
+  if (vec) {
+    constexpr int C4 = W / 4;
+    for (int idx = threadIdx.x; idx < ROWS * C4; idx += THREADS) {
+      const int r = idx / C4, c = (idx % C4) * 4;
+      const bool ok = r0 + r < lim && c < w;
+      cp_async16(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * W; idx += THREADS) {
+      const int r = idx / W, c = idx % W;
+      const bool ok = r0 + r < lim && c < w;
+      cp_async4(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
+    }
+  }
 }
 
 // x = big + small + (an error under 2^-21 |x|): big holds x's first 11

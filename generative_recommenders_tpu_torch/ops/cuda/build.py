@@ -30,7 +30,10 @@ KERNEL_SOURCES = {
     "hstu_mha_relbias_fwd": "hstu_mha_relbias_fwd.cu",
     "hstu_mha_relbias_bwd": "hstu_mha_relbias_bwd.cu",
 }
-_HEADERS = ("hstu_attention.cuh", "hstu_attention_bwd.cuh", "hstu_attention_fwd.cuh", "tf32_mma.cuh")
+_HEADERS = (
+    "hstu_attention.cuh", "hstu_attention_bwd.cuh", "hstu_attention_bwd_dkv.cuh", "hstu_attention_fwd.cuh",
+    "tf32_mma.cuh",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

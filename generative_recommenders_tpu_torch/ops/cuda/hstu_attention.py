@@ -13,7 +13,9 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
   `csrc/hstu_mha_bwd_dkv.cu`), replacing `_bwd_dq_kernel` and
   `_bwd_dkv_kernel`: the split backward, which the autograd function takes
   when ``torch.are_deterministic_algorithms_enabled()`` (K2 sums dq with
-  atomics in a different order on every run; K3 + K4 give the same bits);
+  atomics in a different order on every run; K3 + K4 give the same bits).
+  K2 and K4 share one body on the tensor cores (3xTF32 products, launched
+  by `_bwd_plan`); K3 is a float32 FMA kernel;
 * ``delta_hstu_mha_cuda``: kernel K5 (`csrc/delta_hstu_mha_fwd.cu`),
   replacing `_delta_fwd_kernel_rkv` behind `delta_hstu_mha_pallas`: the key
   range cut across blocks in 64-column chunks (`_delta_plan`), whose partial
@@ -54,14 +56,15 @@ from generative_recommenders_tpu_torch.ops.attention_mask import (
 from generative_recommenders_tpu_torch.ops.cuda.build import LaunchCounter, load
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_BWD_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_P]
-# C signatures of the entry points (csrc/*.cu)
+_BWD_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4
+# C signatures of the entry points (csrc/*.cu); K2 and K4 also take the
+# `vec_*` flags of q, k, v and dO
 _ARGTYPES = {
     "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P],
     "delta_hstu_mha_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P],
-    "hstu_mha_bwd_fused": _BWD_ARGTYPES,
-    "hstu_mha_bwd_dq": _BWD_ARGTYPES,
-    "hstu_mha_bwd_dkv": _BWD_ARGTYPES,
+    "hstu_mha_bwd_fused": _BWD_ARGTYPES + [_I] * 4 + [_P],
+    "hstu_mha_bwd_dq": _BWD_ARGTYPES + [_P],
+    "hstu_mha_bwd_dkv": _BWD_ARGTYPES + [_I] * 4 + [_P],
 }
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _MAX_V = 128
@@ -276,6 +279,34 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
                 key_tile=key_tile, shared_bytes=shared_bytes, grid=(blocks,))
 
 
+# The tiling of K2's and K4's shared backward body
+# (csrc/hstu_attention_bwd_dkv.cuh): padded width -> (query rows per step,
+# key columns per block); one head a block, 16 warps
+_BWD_TILING = {32: (64, 64), 64: (64, 64), 128: (32, 64), 256: (32, 64)}
+
+
+def _bwd_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
+    """K2's and K4's launch: the width both D and V are padded to (the next
+    of 32, 64, 128, or 256 for D > 128; V at most 128), the query rows of a
+    step of the walk, the key columns of a block, one head a block, the
+    block's shared memory (K and V of the key tile and two stages of Q and dO,
+    at pitches of W + 8 and V's width + 8; P and dS at the key columns + 8;
+    the step's live flags of 16-row and 8-column groups) and the
+    one-dimensional grid of (key tile, head, batch row) blocks. Raises on
+    what the kernels do not take."""
+    if not (0 < D <= _MAX_D and 0 < V <= _MAX_V):
+        raise ValueError(f"the backward kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={V}")
+    width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
+    rows, cols = _BWD_TILING[width]
+    vw = min(width, _MAX_V)
+    shared_bytes = 4 * ((cols + 2 * rows) * (width + 8 + vw + 8) + 2 * rows * (cols + 8) + rows // 16 + cols // 8)
+    blocks = -(-N // cols) * H * B
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"the backward kernels' grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
+    return dict(width=width, query_rows=rows, key_cols=cols, head_group=1, shared_bytes=shared_bytes,
+                grid=(blocks,))
+
+
 def _dense_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
     """Launches K1 on checked CUDA tensors (lens, nt: int32 or nt None)."""
     B, N, H, D = q.shape
@@ -381,13 +412,19 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     dk, dv = (None, None) if name == "hstu_mha_bwd_dq" else (new((B, N, H, D)), new((B, N, H, V)))
     if B * N * H == 0:
         return dq, dk, dv
+    # K2 and K4 read q, k, v and dO in 16-byte pieces where each allows it
+    # (on the STU path q, k and v are strided views of one projection)
+    vec = ()
+    if name != "hstu_mha_bwd_dq":
+        _bwd_plan(D, V, H, B, N)  # raises on what the kernels do not take
+        vec = tuple(int(_vec16(t)) for t in (q, k, v, do))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        *_mask_args(kw, N), _stream(q.device),
+        *_mask_args(kw, N), *vec, _stream(q.device),
     )
     hstu_mha_bwd_cuda.launches[name].add()
     return dq, dk, dv

@@ -1,4 +1,4 @@
-"""Times knock-out variants of the redesigned kernels K1, K5, K6 and K7 on the card.
+"""Times knock-out variants of the redesigned kernels K1, K2, K4, K5, K6 and K7 on the card.
 
     python -m generative_recommenders_tpu_torch.ops.cuda.variants [KERNEL ...]
 
@@ -18,7 +18,10 @@ N 523, lengths 100..329, q a strided view); K6 and K7 at the research shape
 (B 96, N 511, H 8, D = V = 32, lengths 1..511, q/k/v views of one
 projection, a strided dO); K1 at the serving shape (B 32, N 674, H 4, D = V
 = 128, lengths 300..674, up to 159 targets, 2 contextual rows, q/k/v views
-of one uvqk projection).
+of one uvqk projection); K2 at the ranker's training shape (B 32, N 268, H 4,
+D = V = 128, lengths 100..268, 1..10 targets, 2 contextual rows, q/k/v views
+of one uvqk projection, a strided dO) and K4 at its deterministic shape (the
+same with N 1036, lengths 300..1036).
 """
 
 from __future__ import annotations
@@ -103,6 +106,22 @@ _K16: Dict[str, Edit] = {
     "Q's loads": _sub("for (int hh = 0; hh < nh; ++hh)\n      load_tile<W, PQ, kRows, kThreads>",
                       "for (int hh = 0; hh < 0; ++hh)\n      load_tile<W, PQ, kRows, kThreads>", _FWD),
 }
+# K2 and K4: edits of their shared body
+_BWD = "hstu_attention_bwd_dkv.cuh"
+_K24: Dict[str, Edit] = {
+    "mma.sync (plain adds instead)": _NO_MMA,
+    "the split (big = x, small = 0)": _NO_SPLIT,
+    "Q and dO loads": _both(
+        _sub("(Q, qb, p.q_sn, r0, length, p.D,", "(Q, qb, p.q_sn, r0, 0, p.D,", _BWD),
+        _sub("(Q + BQ * PK, ob, p.do_sn, r0, length, p.V,", "(Q + BQ * PK, ob, p.do_sn, r0, 0, p.V,", _BWD)),
+    "sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;", _BWD),
+    "S and dP": _both(_sub("for (int ks = 0; ks < W / 8; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD),
+                      _sub("for (int ks = 0; ks < WV / 8; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD)),
+    "dV and dK": _sub("for (int ks = next_step(0); ks < row_steps;", "for (int ks = next_step(0); ks < 0;", _BWD),
+    "dQ": _sub("for (int ks = 0; ks < my_col_steps; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD),
+    "dq atomics": _sub("if (row < length && d < p.D) {\n              const float4 x",
+                       "if (false) {\n              const float4 x", _BWD),
+}
 _K5: Dict[str, Edit] = {
     "the last block's sum": _sub("  if (!s_last) return;\n", "  return;\n"),
     "K loads": _sub("      kr[i] = (col < length && at < p.D) ? load4", "      kr[i] = (col < length && at < 0) ? load4"),
@@ -124,6 +143,19 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
     + [("delta_hstu_mha_fwd", "without K and V loads", ("K loads", "V loads"))]
     + [
         (kernel, label, phases)
+        for kernel in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dkv")
+        for label, phases in (
+            [("as shipped", ())]
+            + [(f"without {name}", (name,)) for name in _K24
+               if kernel == "hstu_mha_bwd_fused" or name not in ("dQ", "dq atomics")]
+            + [("without the products", ("S and dP", "dV and dK")
+                + (("dQ",) if kernel == "hstu_mha_bwd_fused" else ())),
+               ("loads, barriers and stores alone", ("S and dP", "dV and dK", "sigmoid")
+                + (("dQ", "dq atomics") if kernel == "hstu_mha_bwd_fused" else ()))]
+        )
+    ]
+    + [
+        (kernel, label, phases)
         for kernel in ("hstu_mha_fwd", "hstu_mha_relbias_fwd")
         for label, phases in (
             [("as shipped", ())]
@@ -135,7 +167,7 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
     ]
 )
 _EDITS = {"hstu_mha_relbias_bwd": _K7, "delta_hstu_mha_fwd": _K5, "hstu_mha_fwd": _K16,
-          "hstu_mha_relbias_fwd": _K16}
+          "hstu_mha_relbias_fwd": _K16, "hstu_mha_bwd_fused": _K24, "hstu_mha_bwd_dkv": _K24}
 
 
 def shipped_sources(kernel: str) -> Dict[str, str]:
@@ -192,7 +224,11 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     import torch
 
-    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import delta_hstu_mha_cuda, hstu_mha_dense_cuda
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
+        _bwd_kernel,
+        delta_hstu_mha_cuda,
+        hstu_mha_dense_cuda,
+    )
     from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
         hstu_mha_dense_relbias_cuda,
         hstu_mha_relbias_bwd_cuda,
@@ -235,6 +271,23 @@ def main(argv: Optional[List[str]] = None) -> None:
     def k5():
         delta_hstu_mha_cuda(dq, dk, dv, dlen, alpha=128**-0.5, num_targets=m5, norm_len=678, contextual_seq_len=6)
 
+    # K2 at the training shape, K4 at the deterministic one, each called as
+    # the wrapper calls it (the mask's keywords, int32 lengths and targets)
+    def bwd_inputs(N, lo):
+        _, bv, bq, bk = torch.split(rand(32, N, 4 * 512), [512] * 4, dim=-1)
+        bq, bk, bv = (x.reshape(32, N, 4, 128) for x in (bq, bk, bv))
+        kw = dict(alpha=128**-0.5, max_seq_len=N, causal=True, max_attn_len=0, contextual_seq_len=2,
+                  min_full_attn_seq_len=0)
+        return bq, bk, bv, ints(lo, N + 1, 32), ints(1, 11, 32), rand(N, 32, 4, 128).transpose(0, 1), kw
+
+    k2_in, k4_in = bwd_inputs(268, 100), bwd_inputs(1036, 300)
+
+    def k2():
+        _bwd_kernel("hstu_mha_bwd_fused", *k2_in[:4], k2_in[4], k2_in[5], k2_in[6])
+
+    def k4():
+        _bwd_kernel("hstu_mha_bwd_dkv", *k4_in[:4], k4_in[4], k4_in[5], k4_in[6])
+
     def device_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -258,7 +311,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             build.BUILD_DIR = os.path.join(root, f"v{i}")
             build._libs.clear()
             fn, reps = {"hstu_mha_relbias_bwd": (k7, 10), "delta_hstu_mha_fwd": (k5, 300),
-                        "hstu_mha_relbias_fwd": (k6, 20), "hstu_mha_fwd": (k1, 50)}[kernel]
+                        "hstu_mha_relbias_fwd": (k6, 20), "hstu_mha_fwd": (k1, 50),
+                        "hstu_mha_bwd_fused": (k2, 50), "hstu_mha_bwd_dkv": (k4, 20)}[kernel]
             print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms")
     finally:
         build.BUILD_DIR = shipped_dir

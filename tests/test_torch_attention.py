@@ -6,7 +6,8 @@ also at the lengths where the CUDA kernel's 64-column chunks and 8-row tiles
 end; K1's plain version at the seams of the CUDA forward's tiling (query tiles
 of 64 or 128 rows, key tiles of 32 columns, groups of heads that H does not
 fill); and what the wrappers compute in Python (K1's and K6's launch plan,
-K5's launch plan, the 16-byte alignment test, the stride check).
+K2's and K4's launch plan and their 16-byte loads, K5's launch plan, the
+16-byte alignment test, the stride check).
 Inputs are made with numpy from a seed and fed to both packages; float32
 throughout, atol = rtol = 1e-5 (the two differ only in summation order)."""
 
@@ -27,6 +28,7 @@ from generative_recommenders_tpu_torch.ops import attention_mask as tmask
 from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
     delta_hstu_mha_cuda,
+    hstu_mha_bwd_cuda,
     hstu_mha_dense_cuda,
 )
 
@@ -329,3 +331,104 @@ def test_dense_launch_goes_by_the_plan(monkeypatch):
     with pytest.raises(ValueError, match="grid"):
         ha._dense_fwd(q, q, q, lens, None, kw)
     assert len(calls) == 1 and hstu_mha_dense_cuda.launches.count == before + 1
+
+
+# padded width -> (query rows, key columns, shared bytes), as
+# csrc/hstu_attention_bwd_dkv.cuh's `Tiling` and `smem_bytes`
+BWD_TILING = {32: (64, 64, 98352), 64: (64, 64, 147504), 128: (32, 64, 157736), 256: (32, 64, 223272)}
+
+
+@pytest.mark.parametrize("H", [1, 3, 4])
+@pytest.mark.parametrize("D,V", [(25, 25), (32, 32), (40, 16), (64, 64), (16, 100), (128, 128), (200, 96), (256, 128)])
+def test_backward_launch_plan(D, V, H):
+    """K2's and K4's launch at the widths the kernel phase uses: D and V
+    padded to the next of 32, 64, 128 (256 for D, V at most 128); K and V of
+    a 64-column key tile, two stages of Q and dO and the tile pair's P and dS
+    in the block's shared memory; one block per (key tile, head, batch row)."""
+    B, N = 32, 1036
+    plan = ha._bwd_plan(D, V, H, B, N)
+    width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
+    rows, cols, shared = BWD_TILING[width]
+    assert plan["width"] == width and plan["query_rows"] == rows and plan["key_cols"] == cols
+    assert plan["head_group"] == 1
+    assert plan["shared_bytes"] == shared <= 232448
+    assert plan["grid"] == (-(-N // cols) * H * B,)
+
+
+@pytest.mark.parametrize("args,match", [((257, 32), "D <= 256"), ((32, 129), "V <= 128"), ((0, 32), "D <= 256")])
+def test_backward_launch_plan_raises(args, match):
+    with pytest.raises(ValueError, match=match):
+        ha._bwd_plan(*args, 4, 32, 268)
+
+
+def _uvqk_views(B, N, H, D, V, seed=0):
+    """q, k, v as the STU passes them: views of one [B, N, (2V + 2D) H]
+    projection (port `ops/hstu_compute.py`)."""
+    from generative_recommenders_tpu_torch.ops.hstu_compute import hstu_compute_uqvk
+
+    rng = np.random.default_rng(seed)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32))  # noqa: E731
+    Dm, width = 16, (2 * V + 2 * D) * H
+    _, q, k, v = hstu_compute_uqvk(t(B, N, Dm), torch.ones(Dm), torch.zeros(Dm), t(Dm, width), t(width),
+                                   num_heads=H, attn_dim=D, hidden_dim=V)
+    assert not q.is_contiguous() and q.stride(1) == width
+    return q, k, v
+
+
+def _shifted(x):
+    """``x``'s values at a pointer one float past a 16-byte boundary."""
+    return torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].reshape(x.shape)
+
+
+@pytest.mark.parametrize("layout,want", [
+    ("uvqk views, D = V = 128", (1, 1, 1, 1)),
+    ("uvqk views, D = V = 25", (0, 0, 0, 0)),
+    ("contiguous, D = V = 32", (1, 1, 1, 1)),
+    ("contiguous at an odd float, D = V = 32", (0, 0, 0, 1)),
+])
+def test_backward_launch_decides_vector_loads(monkeypatch, layout, want):
+    """K2 and K4 take the `vec_*` flags of q, k, v and dO (16-byte loads where
+    the pointer, the strides and the width allow them); K3 takes none. Each
+    call passes as many arguments as its C signature has."""
+    calls = []
+    monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(ha, "_stream", lambda device: 0)
+    B, N, H = 2, 40, 2
+    if layout.startswith("uvqk"):
+        D = 128 if "128" in layout else 25
+        q, k, v = _uvqk_views(B, N, H, D, D)
+    else:
+        D = 32
+        q, k, v = (torch.zeros(B, N, H, D) for _ in range(3))
+        if "odd" in layout:
+            q, k, v = (_shifted(x) for x in (q, k, v))
+            assert all(x.data_ptr() % 16 == 4 for x in (q, k, v))
+    do = torch.zeros(N, B, H, D).transpose(0, 1)
+    lens = torch.tensor([N, 9], dtype=torch.int32)
+    kw = dict(alpha=1.0, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
+              min_full_attn_seq_len=0)
+    for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dkv", "hstu_mha_bwd_dq"):
+        before = hstu_mha_bwd_cuda.launches[name].count
+        ha._bwd_kernel(name, q, k, v, lens, None, do, kw)
+        assert hstu_mha_bwd_cuda.launches[name].count == before + 1
+        args = calls[-1]
+        assert args[0] == name and len(args) == 1 + len(ha._ARGTYPES[name])
+        if name != "hstu_mha_bwd_dq":
+            assert args[-5:-1] == want
+
+
+def test_backward_launch_goes_by_the_plan(monkeypatch):
+    """K2 and K4 check the plan before they launch: a grid beyond CUDA's
+    raises and launches nothing."""
+    calls = []
+    monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(ha, "_stream", lambda device: 0)
+    monkeypatch.setattr(ha, "_MAX_GRID_X", 2)
+    q = torch.zeros(2, 70, 3, 32)
+    lens = torch.tensor([70, 9], dtype=torch.int32)
+    kw = dict(alpha=1.0, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
+              min_full_attn_seq_len=0)
+    for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dkv"):
+        with pytest.raises(ValueError, match="grid"):
+            ha._bwd_kernel(name, q, q, q, lens, None, q, kw)
+    assert calls == []

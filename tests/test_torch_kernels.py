@@ -9,7 +9,10 @@ Float32 with TF32 off; kernel and plain version differ only in summation
 order and the exp of silu, so atol = rtol = 1e-5 of outputs of order 1e-2.
 The backward kernels are held to the plain backward the same way; K2's dq
 sums arrive in a different order on every run (atomics), K3 + K4 give the
-same bits every run. The relative-bias pair K6 / K7 likewise; K7's two table
+same bits every run, and so do K2's dk and dv. K2 and K4 share a body that
+walks 32- or 64-row query tiles over a 64-column key tile, at head widths
+padded to 32, 64, 128 or 256: they are also run at the lengths, widths and
+contextual rows where that tiling ends, and beside a row of length 0. The relative-bias pair K6 / K7 likewise; K7's two table
 gradients sum up to B * H * N^2 / 2 float32 terms per entry, in an order that
 changes from run to run, and are held to 2e-5 of each table gradient's
 largest entry. K5 cuts the key range into 64-column chunks across blocks and
@@ -296,6 +299,59 @@ def test_backward_kernels_match_plain_on_uvqk_views(cuda):
     # the split pair is deterministic
     again = _bwd_kernels(q, k, v, lengths, do, kw)[1]
     assert all(torch.equal(a, b) for a, b in zip(split, again))
+
+
+def _bwd_seam(name, device):
+    """(q, k, v, lengths, kw) of one case at a seam of K2's and K4's tiling:
+    64-column key tiles, query tiles of 32 rows (widths 128 and 256) or 64
+    rows (widths 32 and 64)."""
+    rng = np.random.default_rng(15)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 0.5, device=device)  # noqa: E731
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    edges = [31, 32, 33, 63, 64, 65, 127, 128, 129]
+    H, D, V, lengths, kw = 2, 128, 128, edges, {}
+    if name == "D=200, V=96":  # width 256, V padded to 128
+        D, V = 200, 96
+    elif name == "D=256, V=128":
+        D = 256
+    elif name == "D=V=64":
+        D = V = 64
+    elif name == "D=V=25":  # scalar loads, a padded tail; scalar dq atomics
+        D = V = 25
+    elif name == "a row of length 0 beside live rows":
+        lengths = [0, 140, 0, 65, 1]
+    elif name == "contextual rows past a query tile":  # the walk visits the contextual tiles, then the diagonal
+        kw = dict(contextual_seq_len=40, num_targets=ints([min(5, n - 41) if n > 41 else 0 for n in edges]))
+    elif name == "window and targets":
+        kw = dict(max_attn_len=40, min_full_attn_seq_len=8, num_targets=ints([3] * len(edges)))
+    elif name != "tile edges":
+        raise ValueError(name)
+    B, N = len(lengths), 140
+    kw = dict(alpha=D**-0.5, max_seq_len=N + 9, **kw)
+    return t(B, N, H, D), t(B, N, H, D), t(B, N, H, V), ints(lengths), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "tile edges", "D=200, V=96", "D=256, V=128", "D=V=64", "D=V=25", "a row of length 0 beside live rows",
+    "contextual rows past a query tile", "window and targets",
+])
+def test_backward_kernels_at_their_seams(cuda, name):
+    q, k, v, lengths, kw = _bwd_seam(name, cuda)
+    do = torch.randn(q.shape[1], q.shape[0], q.shape[2], v.shape[3], device=cuda).transpose(0, 1)
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    dead = torch.arange(q.shape[1], device=cuda)[None, :] >= lengths[:, None]
+    poison = torch.full((3 * q.numel() + 4096,), float("nan"), device=cuda)
+    del poison  # an element a kernel fails to write shows as NaN
+    fused, split = _bwd_kernels(q, k, v, lengths, do, kw)
+    for grads in (fused, split):
+        for g, w in zip(grads, want):
+            torch.testing.assert_close(g, w, **TOL)
+            assert (g[dead] == 0).all()
+    # dk and dv without atomics, the walk in a fixed order: the same bits
+    again = _bwd_kernels(q, k, v, lengths, do, kw)
+    for grads, second in zip((fused, split), again):
+        assert torch.equal(grads[1], second[1]) and torch.equal(grads[2], second[2])
 
 
 @pytest.mark.gpu
