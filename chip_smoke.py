@@ -18,9 +18,10 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    K6 and K7 also at the seams of their tilings (chunk and tile edges, row
    and head counts that do not fill a tile or a group), K2 and K4 at the
    widths, lengths and contextual rows where their tiling ends and beside a
-   row of length 0, the outputs of K1 and K5 and the dk and dv of K2, K4 and
-   K7 the same bits on a second run; K1 and K2 also timed at the training and
-   deterministic shapes;
+   row of length 0, K3 also at its own tiling's seams (lengths at its query-
+   and key-tile edges, a window with full-attention rows), the outputs of K1,
+   K3, K4 and K5 and the dk and dv of K2 and K7 the same bits on a second
+   run; K1 and K2 also timed at the training and deterministic shapes;
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -30,7 +31,8 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    `train_loop` (2 warm-up steps, then 20 counted and timed ones), checks
    the losses and that every attention forward and backward went through
    K1 and K2; then a deterministic phase (`torch.use_deterministic_algorithms`)
-   at uih 1024 that must take K3 + K4 and give the same bits twice; then one
+   at uih 1024 that must take K3 + K4 and give the same bits twice (and a
+   profile of one of its steps); then one
    training step's gradients on a small model, GPU kernels against the CPU
    plain versions;
 5. research phase: trains the HSTU retrieval model of the full-width
@@ -52,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -238,12 +241,21 @@ def main() -> None:
     logs = build.build(force=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s for {len(logs)} kernels")
     for name, log in logs.items():
-        regs = [int(w) for line in log.splitlines() if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:]) if nxt == "registers,"]
-        spills = [line.strip() for line in log.splitlines()
-                  if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
-        print(f"  {name}: {len(regs)} instantiations, at most {max(regs, default=0)} registers; "
-              f"{'spills: ' + '; '.join(spills) if spills else 'no spills'}")
+        # ptxas -v: per entry point (named by its template arguments: the
+        # padded width first) its registers and its spill stores / loads
+        entries, entry = {}, None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                entry = ",".join(a or b for a, b in re.findall(r"Li(\d+)E|Lb([01])E", mangled)) or mangled
+                entries[entry] = ["?", ""]
+            elif entry and "bytes spill stores" in line and not line.strip().endswith(
+                    "0 bytes spill stores, 0 bytes spill loads"):
+                stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+                entries[entry][1] = f", spill {stores} / {loads} bytes"
+            elif entry and line.lstrip().startswith("ptxas info") and "registers" in line:
+                entries[entry][0] = re.search(r"Used (\d+) registers", line).group(1)
+        print(f"  {name}: " + "; ".join(f"<{k}> {r} registers{sp}" for k, (r, sp) in entries.items()))
 
     # -------------------------------------------------------- kernel phase
     cfg = get_hstu_configs("debug", max_uih_len=MAX_UIH, max_num_candidates=MAX_CANDS)
@@ -417,8 +429,8 @@ def main() -> None:
     def bwd_case(name, Bc, N, lengths, nt=None, Dc=D, Vc=V, qkv=None, **kw):
         """K2, and K3 + K4, against the plain backward; dO is not contiguous
         (a transposed buffer), as the gradient of a reshape may be. dk and dv
-        are summed without atomics (K2's dq with them): the same bits on a
-        second run."""
+        are summed without atomics (K2's dq with them), and so is K3's dq:
+        the same bits on a second run."""
         q, k, v = qkv or (rand(Bc, N, H, Dc), rand(Bc, N, H, Dc), rand(Bc, N, H, Vc))
         do = rand(N, Bc, H, Vc).transpose(0, 1)
         args = dict(alpha=1.0 / Dc**0.5, max_seq_len=kw.pop("max_seq_len", N), num_targets=nt, **kw)
@@ -435,6 +447,7 @@ def main() -> None:
             again = run()
             check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
                   f"{kname} {name}: dk or dv differ between two runs")
+            check(kname == "K2" or torch.equal(got[0], again[0]), f"K3 {name}: dq differs between two runs")
             del again
             errs_k[kname] = [compare(f"{kname} {name} {g}", a, w, dead)
                              for g, a, w in zip(("dq", "dk", "dv"), got, want)]
@@ -457,6 +470,7 @@ def main() -> None:
     N_det, det_len, det_nt = train_shape(det_cfg, 0)
     bwd_errs = {"K2": [], "K3+K4": []}
     ones = lambda n: torch.ones(n, dtype=torch.int32, device="cuda")  # noqa: E731
+    dq_edges = torch.tensor([63, 64, 65, 95, 96, 97, 127, 128, 129, 191, 192, 193], dtype=torch.int32, device="cuda")
     for case in (
         bwd_case(f"training shape (N={N_tr}), q/k/v split from the uvqk projection", B, N_tr,
                  tr_len, tr_nt, qkv=uvqk_views(B, N_tr), contextual_seq_len=C),
@@ -485,6 +499,18 @@ def main() -> None:
                  torch.tensor([0, 100, 0, 37], dtype=torch.int32, device="cuda")),
         bwd_case("contextual rows past a query tile (40)", 3, 200, ints(41, 201, 3), ints(0, 5, 3),
                  contextual_seq_len=40),
+        # the seams of K3's tiling: query tiles of 64 rows, key tiles of 64
+        # columns (32 at width 256)
+        bwd_case("lengths at K3's tile edges (63 .. 193), q/k/v split from the uvqk projection", 12, 200,
+                 dq_edges, ints(0, 20, 12).clamp(max=dq_edges - C - 1), qkv=uvqk_views(12, 200),
+                 contextual_seq_len=C),
+        bwd_case("window with full-attention rows, lengths at K3's tile edges", 12, 200, dq_edges,
+                 ints(0, 20, 12).clamp(max=dq_edges - C - 1), max_attn_len=40, min_full_attn_seq_len=24,
+                 contextual_seq_len=C),
+        bwd_case("D=25, V=25 (scalar loads), contextual rows past K3's query tile (70)", 3, 200,
+                 torch.tensor([200, 71, 129], dtype=torch.int32, device="cuda"),
+                 torch.tensor([3, 0, 2], dtype=torch.int32, device="cuda"), Dc=25, Vc=25,
+                 contextual_seq_len=70),
     ):
         for kname, e in case.items():
             bwd_errs[kname] += e
@@ -522,11 +548,12 @@ def main() -> None:
     bwd_tr = bwd_timing(N_tr, tr_len, tr_nt)
     bwd_det = bwd_timing(N_det, det_len, det_nt)
     # K2 where the deterministic phase would run it, beside K4 (the report
-    # line holds K2 at the training shape)
-    t_ops, t_bytes = (x / r * 1e3 for x, r in zip(bwd_det[1]["K2"], (PEAK_3XTF32_FLOPS, PEAK_BYTES_PER_S)))
-    print(f"  K2 at N={N_det}: {bwd_det[0]['K2']:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms (operations "
-          f"{t_ops:.4f} at 3xTF32, bytes {t_bytes:.4f}), {max(t_ops, t_bytes) / bwd_det[0]['K2']:.1%} of the "
-          f"bound's rate")
+    # line holds K2 at the training shape), and K3 where it runs
+    for kname in ("K2", "K3"):
+        t_ops, t_bytes = (x / r * 1e3 for x, r in zip(bwd_det[1][kname], (PEAK_3XTF32_FLOPS, PEAK_BYTES_PER_S)))
+        print(f"  {kname} at N={N_det}: {bwd_det[0][kname]:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+              f"(operations {t_ops:.4f} at 3xTF32, bytes {t_bytes:.4f}), "
+              f"{max(t_ops, t_bytes) / bwd_det[0][kname]:.1%} of the bound's rate")
     # K1 where the ranker's training launches it, beside the serving shape
     for N_, lens_, nt_ in ((N_tr, tr_len, tr_nt), (N_det, det_len, det_nt)):
         q_, k_, v_ = uvqk_views(B, N_)
@@ -857,7 +884,7 @@ def main() -> None:
     det_runs = []
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        for _ in range(2):
+        for run in range(2):
             trainer = DlrmTrainer(det_cfg, det_tables, DlrmTrainConfig(), device="cuda", seed=3)
             count_reset()
             det_out = train_loop(trainer, batches(det_cfg, DET_STEPS, 4))
@@ -866,6 +893,10 @@ def main() -> None:
             check(n == want_n, f"deterministic run launched {n}, expected {want_n}")
             check(all(math.isfinite(x) for x in det_out["losses"]), "non-finite deterministic loss")
             det_runs.append((det_out["losses"], [p.detach().clone() for p in trainer.model.parameters()]))
+            if run == 1:  # where a deterministic step's time goes, after the runs' parameters are kept
+                batch = to_device(next(batches(det_cfg, 1, 5)), trainer.device)
+                profile("deterministic training step", lambda: trainer.train_step(batch))
+                del batch
             del trainer
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1049,7 +1080,8 @@ def main() -> None:
         entry("hstu_mha_bwd_fused", src + "hstu_mha_bwd_fused.cu", tpu + "403", launches["K2"],
               max(bwd_errs["K2"]), ms_tr["K2"], ms_tr["plain"], *work_tr["K2"], peak=PEAK_3XTF32_FLOPS),
         entry("hstu_mha_bwd_dq", src + "hstu_mha_bwd_dq.cu", tpu + "895", launches["K3"],
-              max(bwd_errs["K3+K4"][0::3]), ms_det["K3"], ms_det["plain"], *work_det["K3"]),
+              max(bwd_errs["K3+K4"][0::3]), ms_det["K3"], ms_det["plain"], *work_det["K3"],
+              peak=PEAK_3XTF32_FLOPS),
         entry("hstu_mha_bwd_dkv", src + "hstu_mha_bwd_dkv.cu", tpu + "951", launches["K4"],
               max(bwd_errs["K3+K4"][1::3] + bwd_errs["K3+K4"][2::3]), ms_det["K4"], ms_det["plain"],
               *work_det["K4"], peak=PEAK_3XTF32_FLOPS),

@@ -1,7 +1,7 @@
 // The mask and bias helpers of every HSTU attention kernel for Hopper
 // (sm_90a): the forward body of K1 and K6 (hstu_attention_fwd.cuh), the
 // backward bodies of K2 and K4 (hstu_attention_bwd_dkv.cuh) and of K3
-// (hstu_attention_bwd.cuh), the M-FALCON delta kernel K5
+// (hstu_attention_bwd_dq.cuh), the M-FALCON delta kernel K5
 // (delta_hstu_mha_fwd.cu) and the relative-bias backward K7
 // (hstu_mha_relbias_bwd.cu). `valid_elem` ports the tile mask helpers
 // `_block_mask` (full, target-aware branch) and `_delta_block_mask` of

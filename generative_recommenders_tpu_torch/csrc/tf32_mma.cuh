@@ -2,8 +2,8 @@
 // TF32 with the 3xTF32 split, the fragment loads from shared-memory tiles and
 // `cp.async` with the tile load built on it. Shared by the relative-bias
 // backward K7 (hstu_mha_relbias_bwd.cu), the forward body of K1 and K6
-// (hstu_attention_fwd.cuh) and the backward body of K2 and K4
-// (hstu_attention_bwd_dkv.cuh).
+// (hstu_attention_fwd.cuh) and the backward bodies of K2 and K4
+// (hstu_attention_bwd_dkv.cuh) and of K3 (hstu_attention_bwd_dq.cuh).
 #pragma once
 
 #include <cstdint>

@@ -31,7 +31,7 @@ KERNEL_SOURCES = {
     "hstu_mha_relbias_bwd": "hstu_mha_relbias_bwd.cu",
 }
 _HEADERS = (
-    "hstu_attention.cuh", "hstu_attention_bwd.cuh", "hstu_attention_bwd_dkv.cuh", "hstu_attention_fwd.cuh",
+    "hstu_attention.cuh", "hstu_attention_bwd_dkv.cuh", "hstu_attention_bwd_dq.cuh", "hstu_attention_fwd.cuh",
     "tf32_mma.cuh",
 )
 NVCC_FLAGS = (

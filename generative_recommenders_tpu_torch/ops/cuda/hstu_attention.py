@@ -14,8 +14,9 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
   `_bwd_dkv_kernel`: the split backward, which the autograd function takes
   when ``torch.are_deterministic_algorithms_enabled()`` (K2 sums dq with
   atomics in a different order on every run; K3 + K4 give the same bits).
-  K2 and K4 share one body on the tensor cores (3xTF32 products, launched
-  by `_bwd_plan`); K3 is a float32 FMA kernel;
+  All three run their products on the tensor cores (3xTF32): K2 and K4
+  share one body, launched by `_bwd_plan`; K3 has its own, launched by
+  `_dq_plan`;
 * ``delta_hstu_mha_cuda``: kernel K5 (`csrc/delta_hstu_mha_fwd.cu`),
   replacing `_delta_fwd_kernel_rkv` behind `delta_hstu_mha_pallas`: the key
   range cut across blocks in 64-column chunks (`_delta_plan`), whose partial
@@ -56,15 +57,15 @@ from generative_recommenders_tpu_torch.ops.attention_mask import (
 from generative_recommenders_tpu_torch.ops.cuda.build import LaunchCounter, load
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_BWD_ARGTYPES = [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4
-# C signatures of the entry points (csrc/*.cu); K2 and K4 also take the
-# `vec_*` flags of q, k, v and dO
+# C signatures of the entry points (csrc/*.cu); the backward kernels share
+# one, which ends with the `vec_*` flags of q, k, v and dO
 _ARGTYPES = {
     "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P],
     "delta_hstu_mha_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P],
-    "hstu_mha_bwd_fused": _BWD_ARGTYPES + [_I] * 4 + [_P],
-    "hstu_mha_bwd_dq": _BWD_ARGTYPES + [_P],
-    "hstu_mha_bwd_dkv": _BWD_ARGTYPES + [_I] * 4 + [_P],
+    **{
+        name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_P]  # mask ints, flags
+        for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
+    },
 }
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _MAX_V = 128
@@ -307,6 +308,32 @@ def _bwd_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
                 grid=(blocks,))
 
 
+# The tiling of K3's body (csrc/hstu_attention_bwd_dq.cuh): padded width ->
+# (query rows per block, key columns per step); one head a block, 16 warps
+_DQ_TILING = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (64, 32)}
+
+
+def _dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
+    """K3's launch: the width both D and V are padded to (the next of 32, 64,
+    128, or 256 for D > 128; V at most 128), the query rows of a block, the
+    key columns of a step of the walk, one head a block, the block's shared
+    memory (Q and dO of the query tile and two stages of K and V, at pitches
+    of W + 8 and V's width + 8; dS at the key columns + 8; the step's live
+    flags of 16-row groups) and the one-dimensional grid of (query tile,
+    head, batch row) blocks. Raises on what the kernel does not take."""
+    if not (0 < D <= _MAX_D and 0 < V <= _MAX_V):
+        raise ValueError(f"the backward kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={V}")
+    width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
+    rows, cols = _DQ_TILING[width]
+    vw = min(width, _MAX_V)
+    shared_bytes = 4 * ((rows + 2 * cols) * (width + 8 + vw + 8) + rows * (cols + 8) + rows // 16)
+    blocks = -(-N // rows) * H * B
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"the dq backward kernel's grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
+    return dict(width=width, query_rows=rows, key_cols=cols, head_group=1, shared_bytes=shared_bytes,
+                grid=(blocks,))
+
+
 def _dense_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
     """Launches K1 on checked CUDA tensors (lens, nt: int32 or nt None)."""
     B, N, H, D = q.shape
@@ -412,12 +439,11 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     dk, dv = (None, None) if name == "hstu_mha_bwd_dq" else (new((B, N, H, D)), new((B, N, H, V)))
     if B * N * H == 0:
         return dq, dk, dv
-    # K2 and K4 read q, k, v and dO in 16-byte pieces where each allows it
+    # raises on what the kernel does not take
+    (_dq_plan if name == "hstu_mha_bwd_dq" else _bwd_plan)(D, V, H, B, N)
+    # the kernels read q, k, v and dO in 16-byte pieces where each allows it
     # (on the STU path q, k and v are strided views of one projection)
-    vec = ()
-    if name != "hstu_mha_bwd_dq":
-        _bwd_plan(D, V, H, B, N)  # raises on what the kernels do not take
-        vec = tuple(int(_vec16(t)) for t in (q, k, v, do))
+    vec = tuple(int(_vec16(t)) for t in (q, k, v, do))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _launch(
         name,

@@ -1,4 +1,4 @@
-"""Times knock-out variants of the redesigned kernels K1, K2, K4, K5, K6 and K7 on the card.
+"""Times knock-out variants of the redesigned kernels K1 to K7 on the card.
 
     python -m generative_recommenders_tpu_torch.ops.cuda.variants [KERNEL ...]
 
@@ -20,8 +20,9 @@ projection, a strided dO); K1 at the serving shape (B 32, N 674, H 4, D = V
 = 128, lengths 300..674, up to 159 targets, 2 contextual rows, q/k/v views
 of one uvqk projection); K2 at the ranker's training shape (B 32, N 268, H 4,
 D = V = 128, lengths 100..268, 1..10 targets, 2 contextual rows, q/k/v views
-of one uvqk projection, a strided dO) and K4 at its deterministic shape (the
-same with N 1036, lengths 300..1036).
+of one uvqk projection, a strided dO) and K3 and K4 at their deterministic
+shape (the same with N 1036, lengths 300..1036). K3 is also timed with other
+tilings at that width (its `Tiling` line substituted).
 """
 
 from __future__ import annotations
@@ -122,6 +123,25 @@ _K24: Dict[str, Edit] = {
     "dq atomics": _sub("if (row < length && d < p.D) {\n              const float4 x",
                        "if (false) {\n              const float4 x", _BWD),
 }
+# K3: edits of its body
+_DQ = "hstu_attention_bwd_dq.cuh"
+_DQ_TILING_128 = "template <> struct Tiling<128> { static constexpr int BQ = 64, BK = 64, NG = 4; };"
+_K3: Dict[str, Edit] = {
+    "mma.sync (plain adds instead)": _NO_MMA,
+    "the split (big = x, small = 0)": _NO_SPLIT,
+    "K and V loads": _both(
+        _sub("(K, kb, p.k_sn, c0, length, p.D,", "(K, kb, p.k_sn, c0, 0, p.D,", _DQ),
+        _sub("(K + BK * PK, vb, p.v_sn, c0, length, p.V,", "(K + BK * PK, vb, p.v_sn, c0, 0, p.V,", _DQ)),
+    "sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;", _DQ),
+    "S and dP": _both(_sub("for (int ks = 0; ks < W / 8; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _DQ),
+                      _sub("for (int ks = 0; ks < WV / 8; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _DQ)),
+    "the dQ product": _sub("for (int ks = 0; ks < my_col_steps; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _DQ),
+    # other tilings at the ranker's width, for choosing one
+    "BQ 64, BK 32": _sub(_DQ_TILING_128, _DQ_TILING_128.replace("BK = 64", "BK = 32"), _DQ),
+    "BQ 32, BK 64": _sub(_DQ_TILING_128, _DQ_TILING_128.replace("BQ = 64, BK = 64, NG = 4", "BQ = 32, BK = 64, NG = 2"), _DQ),
+    "BQ 128, BK 32": _sub(_DQ_TILING_128, _DQ_TILING_128.replace("BQ = 64, BK = 64", "BQ = 128, BK = 32"), _DQ),
+}
+_K3_TILINGS = ("BQ 64, BK 32", "BQ 32, BK 64", "BQ 128, BK 32")
 _K5: Dict[str, Edit] = {
     "the last block's sum": _sub("  if (!s_last) return;\n", "  return;\n"),
     "K loads": _sub("      kr[i] = (col < length && at < p.D) ? load4", "      kr[i] = (col < length && at < 0) ? load4"),
@@ -154,6 +174,10 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
                 + (("dQ", "dq atomics") if kernel == "hstu_mha_bwd_fused" else ()))]
         )
     ]
+    + [("hstu_mha_bwd_dq", "as shipped", ())]
+    + [("hstu_mha_bwd_dq", f"without {name}", (name,)) for name in _K3 if name not in _K3_TILINGS]
+    + [("hstu_mha_bwd_dq", "loads, barriers and stores alone", ("S and dP", "the dQ product", "sigmoid"))]
+    + [("hstu_mha_bwd_dq", f"tiling at width 128: {name}", (name,)) for name in _K3_TILINGS]
     + [
         (kernel, label, phases)
         for kernel in ("hstu_mha_fwd", "hstu_mha_relbias_fwd")
@@ -167,7 +191,8 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
     ]
 )
 _EDITS = {"hstu_mha_relbias_bwd": _K7, "delta_hstu_mha_fwd": _K5, "hstu_mha_fwd": _K16,
-          "hstu_mha_relbias_fwd": _K16, "hstu_mha_bwd_fused": _K24, "hstu_mha_bwd_dkv": _K24}
+          "hstu_mha_relbias_fwd": _K16, "hstu_mha_bwd_fused": _K24, "hstu_mha_bwd_dkv": _K24,
+          "hstu_mha_bwd_dq": _K3}
 
 
 def shipped_sources(kernel: str) -> Dict[str, str]:
@@ -288,6 +313,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     def k4():
         _bwd_kernel("hstu_mha_bwd_dkv", *k4_in[:4], k4_in[4], k4_in[5], k4_in[6])
 
+    def k3():
+        _bwd_kernel("hstu_mha_bwd_dq", *k4_in[:4], k4_in[4], k4_in[5], k4_in[6])
+
     def device_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -312,7 +340,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             build._libs.clear()
             fn, reps = {"hstu_mha_relbias_bwd": (k7, 10), "delta_hstu_mha_fwd": (k5, 300),
                         "hstu_mha_relbias_fwd": (k6, 20), "hstu_mha_fwd": (k1, 50),
-                        "hstu_mha_bwd_fused": (k2, 50), "hstu_mha_bwd_dkv": (k4, 20)}[kernel]
+                        "hstu_mha_bwd_fused": (k2, 50), "hstu_mha_bwd_dkv": (k4, 20),
+                        "hstu_mha_bwd_dq": (k3, 20)}[kernel]
             print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms")
     finally:
         build.BUILD_DIR = shipped_dir

@@ -361,6 +361,58 @@ def test_backward_launch_plan_raises(args, match):
         ha._bwd_plan(*args, 4, 32, 268)
 
 
+# padded width -> (query rows, key columns, shared bytes), as
+# csrc/hstu_attention_bwd_dq.cuh's `Tiling` and `smem_bytes`
+DQ_TILING = {32: (64, 64, 79888), 64: (64, 64, 129040), 128: (64, 64, 227344), 256: (64, 32, 215056)}
+
+
+@pytest.mark.parametrize("H", [1, 3, 4])
+@pytest.mark.parametrize("D,V", [(25, 25), (32, 32), (40, 16), (64, 64), (16, 100), (128, 128), (200, 96), (256, 128)])
+def test_dq_launch_plan(D, V, H):
+    """K3's launch at the widths the kernel phase uses: D and V padded to the
+    next of 32, 64, 128 (256 for D, V at most 128); Q and dO of a 64-row
+    query tile, two stages of K and V and the tile pair's dS in the block's
+    shared memory; one block per (query tile, head, batch row)."""
+    B, N = 32, 1036
+    plan = ha._dq_plan(D, V, H, B, N)
+    width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
+    rows, cols, shared = DQ_TILING[width]
+    assert plan["width"] == width and plan["query_rows"] == rows and plan["key_cols"] == cols
+    assert plan["head_group"] == 1
+    assert plan["shared_bytes"] == shared <= 232448
+    assert plan["grid"] == (-(-N // rows) * H * B,)
+
+
+@pytest.mark.parametrize("args,match", [((257, 32), "D <= 256"), ((32, 129), "V <= 128"), ((0, 32), "D <= 256")])
+def test_dq_launch_plan_raises(args, match):
+    with pytest.raises(ValueError, match=match):
+        ha._dq_plan(*args, 4, 32, 1036)
+
+
+_C_TYPES = {"const float*": ha._P, "float*": ha._P, "const int*": ha._P, "int*": ha._P, "void*": ha._P, "int": ha._I,
+            "long long": ha._L, "float": ha._F}
+
+
+@pytest.mark.parametrize("name", sorted(ha._ARGTYPES))
+def test_argtypes_follow_the_c_signatures(name):
+    """Each kernel's ctypes argument list has the types of its `extern "C"`
+    entry point, parameter by parameter (the backward kernels' ends with
+    the four `vec_*` flags): a pointer or an int out of place would be cut
+    or misread without an error."""
+    import os
+    import re
+
+    from generative_recommenders_tpu_torch.ops.cuda import build
+
+    with open(os.path.join(build.CSRC_DIR, build.KERNEL_SOURCES[name])) as f:
+        src = f.read()
+    params = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S).group(1)
+    types = [re.sub(r"\s+", " ", p.strip()).rsplit(" ", 1)[0] for p in params.split(",")]
+    assert [_C_TYPES[t] for t in types] == ha._ARGTYPES[name]
+    if name.startswith("hstu_mha_bwd"):
+        assert [p.split()[-1] for p in params.split(",")][-5:-1] == ["vec_q", "vec_k", "vec_v", "vec_do"]
+
+
 def _uvqk_views(B, N, H, D, V, seed=0):
     """q, k, v as the STU passes them: views of one [B, N, (2V + 2D) H]
     projection (port `ops/hstu_compute.py`)."""
@@ -387,9 +439,9 @@ def _shifted(x):
     ("contiguous at an odd float, D = V = 32", (0, 0, 0, 1)),
 ])
 def test_backward_launch_decides_vector_loads(monkeypatch, layout, want):
-    """K2 and K4 take the `vec_*` flags of q, k, v and dO (16-byte loads where
-    the pointer, the strides and the width allow them); K3 takes none. Each
-    call passes as many arguments as its C signature has."""
+    """K2, K3 and K4 take the `vec_*` flags of q, k, v and dO (16-byte loads
+    where the pointer, the strides and the width allow them). Each call
+    passes as many arguments as its C signature has."""
     calls = []
     monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
     monkeypatch.setattr(ha, "_stream", lambda device: 0)
@@ -413,13 +465,12 @@ def test_backward_launch_decides_vector_loads(monkeypatch, layout, want):
         assert hstu_mha_bwd_cuda.launches[name].count == before + 1
         args = calls[-1]
         assert args[0] == name and len(args) == 1 + len(ha._ARGTYPES[name])
-        if name != "hstu_mha_bwd_dq":
-            assert args[-5:-1] == want
+        assert args[-5:-1] == want
 
 
 def test_backward_launch_goes_by_the_plan(monkeypatch):
-    """K2 and K4 check the plan before they launch: a grid beyond CUDA's
-    raises and launches nothing."""
+    """K2, K3 and K4 check their plans before they launch: a grid beyond
+    CUDA's raises and launches nothing."""
     calls = []
     monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
     monkeypatch.setattr(ha, "_stream", lambda device: 0)
@@ -428,7 +479,7 @@ def test_backward_launch_goes_by_the_plan(monkeypatch):
     lens = torch.tensor([70, 9], dtype=torch.int32)
     kw = dict(alpha=1.0, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
               min_full_attn_seq_len=0)
-    for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dkv"):
+    for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dkv", "hstu_mha_bwd_dq"):
         with pytest.raises(ValueError, match="grid"):
             ha._bwd_kernel(name, q, q, q, lens, None, q, kw)
     assert calls == []

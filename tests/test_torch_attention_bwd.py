@@ -97,6 +97,51 @@ def test_plain_backward_matches_pallas(case, split, monkeypatch):
             torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+# the seams of K3's tiling (csrc/hstu_attention_bwd_dq.cuh): query tiles of
+# 64 rows, key tiles of 64 columns (32 at width 256); the ragged N of 131 is
+# traced by no other test
+DQ_SEAMS = {
+    "lengths at the tile edges": (dict(num_targets=True, contextual_seq_len=2), [131, 63, 64, 65, 96, 129]),
+    "contextual rows past a query tile": (dict(num_targets=True, contextual_seq_len=70), [131, 71, 97]),
+    "window with full-attention rows": (
+        dict(num_targets=True, max_attn_len=40, min_full_attn_seq_len=24), [131, 128, 97, 65]),
+    "a row of length 0 beside live rows": (dict(), [0, 131, 33]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DQ_SEAMS))
+def test_plain_backward_matches_pallas_split_at_dq_seams(name, monkeypatch):
+    """The plain backward, which the card holds K3 to, against the JAX
+    package's split dq / dkv pair (forced) at the lengths, contextual rows
+    and windows where K3's tiling ends."""
+    case, lengths = DQ_SEAMS[name]
+    case = dict(case)
+    B, N, H, D, V = len(lengths), 131, 2, 8, 8
+    ctx = case.get("contextual_seq_len", 0)
+    q, k, v, _, do = _setup(7, B, N, H, D, V, ctx)
+    lengths = np.array(lengths, np.int32)
+    nt = _targets(case, lengths, ctx)
+    kw = dict(alpha=0.7, max_seq_len=N + 5, **case)
+    monkeypatch.setattr(pallas_attn, "_use_resident_bwd", lambda *a: False)
+
+    def loss(q_, k_, v_):
+        out = pallas_attn.hstu_mha_dense_pallas(
+            q_, k_, v_, jnp.asarray(lengths), num_targets=None if nt is None else jnp.asarray(nt),
+            block_q=32, block_k=32, interpret=True, **kw,
+        )
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    t = torch.as_tensor
+    got = ha.hstu_mha_bwd_plain(t(q), t(k), t(v), t(lengths), t(do), num_targets=None if nt is None else t(nt), **kw)
+    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.array(w)
+        for b in range(B):
+            assert (g[b, lengths[b]:] == 0).all(), f"{gname}: rows >= length are not 0"
+            w[b, lengths[b]:] = 0.0
+        np.testing.assert_allclose(g.numpy(), w, err_msg=gname, **TOL)
+
+
 @pytest.mark.parametrize("deterministic", [False, True])
 def test_autograd_function_runs_the_backward_kernels(deterministic, monkeypatch):
     """`_HstuMhaDense`, the autograd function that `hstu_mha_dense_cuda` uses

@@ -12,7 +12,9 @@ sums arrive in a different order on every run (atomics), K3 + K4 give the
 same bits every run, and so do K2's dk and dv. K2 and K4 share a body that
 walks 32- or 64-row query tiles over a 64-column key tile, at head widths
 padded to 32, 64, 128 or 256: they are also run at the lengths, widths and
-contextual rows where that tiling ends, and beside a row of length 0. The relative-bias pair K6 / K7 likewise; K7's two table
+contextual rows where that tiling ends, and beside a row of length 0. K3
+walks 64-column key tiles (32 at width 256) for a 64-row query tile and is run at the
+seams of that tiling too. The relative-bias pair K6 / K7 likewise; K7's two table
 gradients sum up to B * H * N^2 / 2 float32 terms per entry, in an order that
 changes from run to run, and are held to 2e-5 of each table gradient's
 largest entry. K5 cuts the key range into 64-column chunks across blocks and
@@ -348,10 +350,76 @@ def test_backward_kernels_at_their_seams(cuda, name):
         for g, w in zip(grads, want):
             torch.testing.assert_close(g, w, **TOL)
             assert (g[dead] == 0).all()
-    # dk and dv without atomics, the walk in a fixed order: the same bits
+    # dk and dv without atomics, the walk in a fixed order: the same bits;
+    # K3's dq too
     again = _bwd_kernels(q, k, v, lengths, do, kw)
     for grads, second in zip((fused, split), again):
         assert torch.equal(grads[1], second[1]) and torch.equal(grads[2], second[2])
+    assert torch.equal(split[0], again[1][0])
+
+
+def _dq_seam(name, device):
+    """(q, k, v, lengths, kw) of one case at a seam of K3's tiling: query
+    tiles of 64 rows, key tiles of 64 columns (32 at width 256)."""
+    rng = np.random.default_rng(16)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32) * 0.5, device=device)  # noqa: E731
+    ints = lambda x: torch.tensor(x, dtype=torch.int32, device=device)  # noqa: E731
+    edges = [63, 64, 65, 95, 96, 97, 127, 128, 129, 191, 192, 193]
+    targets = ints([3, 0, 5, 1, 2, 9, 4, 0, 7, 3, 6, 1])
+    H, D, V, lengths, kw, views = 2, 128, 128, edges, dict(num_targets=targets, contextual_seq_len=2), False
+    if name == "tile edges on uvqk views":
+        views = True
+    elif name == "window with full-attention rows":
+        kw = dict(kw, max_attn_len=40, min_full_attn_seq_len=24)
+    elif name == "contextual rows past a query tile":  # the tile of rows 64 .. 127 holds contextual rows
+        lengths, kw = [200, 71, 129], dict(contextual_seq_len=70, num_targets=ints([3, 0, 2]))
+    elif name == "D=200, V=96":  # width 256, V padded to 128
+        D, V = 200, 96
+    elif name == "D=V=32":  # width 32
+        D = V = 32
+    elif name == "D=V=25":  # scalar loads, a padded tail
+        D = V = 25
+    elif name == "a row of length 0 beside live rows":
+        lengths, kw = [0, 200, 0, 65, 1], {}
+    elif name == "non-causal":
+        kw = dict(causal=False)
+    else:
+        raise ValueError(name)
+    B, N = len(lengths), 200
+    if views:
+        Dm, width = 48, (2 * V + 2 * D) * H
+        _, q, k, v = hstu_compute_uqvk(
+            t(B, N, Dm), torch.ones(Dm, device=device), torch.zeros(Dm, device=device),
+            t(Dm, width) / Dm**0.5, t(width), num_heads=H, attn_dim=D, hidden_dim=V,
+        )
+    else:
+        q, k, v = t(B, N, H, D), t(B, N, H, D), t(B, N, H, V)
+    return q, k, v, ints(lengths), dict(alpha=D**-0.5, max_seq_len=N + 9, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "tile edges on uvqk views", "window with full-attention rows", "contextual rows past a query tile",
+    "D=200, V=96", "D=V=32", "D=V=25", "a row of length 0 beside live rows", "non-causal",
+])
+def test_dq_kernel_at_its_seams(cuda, name):
+    """The split pair K3 + K4 against the plain backward where K3's tiling
+    ends; every element of dq written (zeros past the length), and the same
+    bits on a second run."""
+    q, k, v, lengths, kw = _dq_seam(name, cuda)
+    do = torch.randn(q.shape[1], q.shape[0], q.shape[2], v.shape[3], device=cuda).transpose(0, 1)
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    dead = torch.arange(q.shape[1], device=cuda)[None, :] >= lengths[:, None]
+    poison = torch.full((3 * q.numel() + 4096,), float("nan"), device=cuda)
+    del poison  # an element a kernel fails to write shows as NaN
+    before = _bwd_counts()
+    got = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    again = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    assert [n - b for n, b in zip(_bwd_counts(), before)] == [0, 2, 2]
+    for g, w, g2 in zip(got, want, again):
+        torch.testing.assert_close(g, w, **TOL)
+        assert (g[dead] == 0).all()
+        assert torch.equal(g, g2)
 
 
 @pytest.mark.gpu
