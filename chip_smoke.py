@@ -14,7 +14,10 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    (float32, TF32 off); the backward kernels K2 and K3 + K4 against the
    plain backward (autograd of the plain forward); the relative-bias pair
    K6 and K7 at the research preset's shapes, on a batch of the synthetic
-   corpus, against their plain versions (and a float64 run of them); K1, K5,
+   corpus, against their plain versions (and a float64 run of them), and at
+   the ml-20m large preset's heads under length buckets (N = 75 and 139
+   against a position table of Nm = 211), K6 and K7 timed at N = 139 and
+   211; K1, K5,
    K6 and K7 also at the seams of their tilings (chunk and tile edges, row
    and head counts that do not fill a tile or a group), K2 and K4 at the
    widths, lengths and contextual rows where their tiling ends and beside a
@@ -43,7 +46,25 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    attention went through K6 and K7 (and none through K1 / K2); then one
    training step's loss and gradients on a small research model, GPU kernels
    against the CPU plain versions;
-6. prints one JSON line with every kernel's launches, error and times, and
+6. SASRec phase: trains the baseline preset `ml-20m/sasrec-sampled-softmax-n128`
+   uncut (4 blocks, 4 heads, d 256, N 211, batch 128, 128 negatives, 131,262
+   items) through `train_loop` on a 4,000-user synthetic corpus (2 warm-up
+   steps, 10 timed ones, an eval of 10 batches), checks that no HSTU kernel
+   launched; then one step of a small SASRec model, GPU against CPU;
+7. bucketed phase: trains `ml-20m/hstu-sampled-softmax-n128-large` uncut
+   (16 blocks, 8 heads, dqk = dv = 32, Nm 211, batch 128) with in-batch
+   negatives, stochastic length (alpha 1.6) and length buckets (64, 128,
+   200) on a corpus whose batches take the 128 bucket (N = 139), 2 + 10
+   steps through `ResearchTrainer.train_step`, each step's width (as the
+   trainer's encoder received it) printed and checked, and its 16 K6 and 16
+   K7 launches; then one `train_step` of a small in-batch model, which
+   cuts the batch to a bucket, GPU against CPU, with injected offsets;
+8. KV-cached retrieval phase: on that model at its full width, for 128
+   users and M = 1 and 4, `encode_with_cache(reserved_slots=M)` (16 K6
+   launches), `encode_delta` of M tokens (none) held to a full re-encode,
+   the host wall of each (first call and median of 5 more), then `CandidateIndex.get_top_k_outputs` (top 100 of 131,262 items, each
+   row's history filtered) against the same call on the CPU;
+9. prints one JSON line with every kernel's launches, error and times, and
    as the last line the device JSON.
 
 Any failed check exits nonzero.
@@ -76,6 +97,17 @@ DET_UIH, DET_STEPS = 1024, 3  # the deterministic phase, one layer
 # the research phase: the preset at full width over a synthetic corpus
 RESEARCH_PRESET = "ml-3b/hstu-sampled-softmax-n96-seqlen500-large"
 RESEARCH_USERS, RESEARCH_WARMUPS, RESEARCH_STEPS = 2000, 2, 10
+# the SASRec baseline at full width, the same steps
+SASREC_PRESET = "ml-20m/sasrec-sampled-softmax-n128"
+SASREC_USERS, SASREC_EVAL_BATCHES = 4000, 10
+# in-batch negatives, stochastic length and length buckets on the ml-20m
+# large HSTU preset, the same steps; its corpus keeps every batch in the 128
+# bucket (N = 139 against Nm = 211)
+BUCKET_PRESET = "ml-20m/hstu-sampled-softmax-n128-large"
+BUCKET_USERS, BUCKET_MAX_LEN = 2000, 120
+SL_ALPHA, LENGTH_BUCKETS = 1.6, (64, 128, 200)
+# the KV-cached encode and the candidate index on that preset's model
+CACHE_USERS, CACHE_DELTAS, TOP_K = 128, (1, 4), 100
 # kernel vs plain: both float32; they differ only in summation order (for
 # K2's dq, an order that changes from run to run: atomics) and in the exp of
 # silu, so the error is held to a small fraction of the output's max
@@ -190,6 +222,9 @@ def main() -> None:
         )
         from generative_recommenders_tpu_torch.data.dlrm_dataset import DLRMv3RandomDataset
         from generative_recommenders_tpu_torch.data.features import seq_features_from_row
+        from generative_recommenders_tpu_torch.indexing.candidate_index import CandidateIndex
+        from generative_recommenders_tpu_torch.models.samplers import LocalNegativesSampler, maybe_l2_norm
+        from generative_recommenders_tpu_torch.utils.bucketing import bucket_batch
         from generative_recommenders_tpu_torch.inference import main as serve
         from generative_recommenders_tpu_torch.inference.model_family import HSTUModelFamily
         from generative_recommenders_tpu_torch.modules.dlrm_hstu import DlrmHSTU
@@ -664,10 +699,38 @@ def main() -> None:
     slice_case = relbias_case(
         f"research shape (B={RB}, N={RN}, H={RH}, D=V={RD}), lengths and timestamps of a corpus batch",
         RB, RN, r_len, r_ts, Hc=RH, f64=True)
-    m20 = RESEARCH_PRESETS["ml-20m/hstu-sampled-softmax-n128-large"]
+    m20 = RESEARCH_PRESETS[BUCKET_PRESET]
     m_len, m_ts = dataset_batch(m20.local_batch_size, m20.model.max_sequence_len, m20.model.gr_output_length, 1)
-    relbias_case(f"ml-20m shape (B={m20.local_batch_size}, N={m20.model.total_seq_len})",
-                 m20.local_batch_size, m20.model.total_seq_len, m_len, m_ts, Hc=m20.model.num_heads)
+    m20_case = relbias_case(f"ml-20m shape (B={m20.local_batch_size}, N={m20.model.total_seq_len})",
+                            m20.local_batch_size, m20.model.total_seq_len, m_len, m_ts, Hc=m20.model.num_heads)
+    # the same preset under length buckets and stochastic length (the bucketed
+    # phase below): the runtime width N below the position table's Nm = 211.
+    # Its corpus has histories of 4..119 events, so that a batch of 128 takes
+    # the 128 bucket (N = 128 + 11 = 139); with histories up to 200 a batch
+    # almost always spans the full width and the buckets would never cut
+    mB, mm = m20.local_batch_size, m20.model
+    Nm20 = mm.total_seq_len
+    print(
+        f"bucketed corpus: synthetic_user_sequences_vectorized, {BUCKET_USERS} users, {mm.num_items:,} items, "
+        f"lengths 5..{BUCKET_MAX_LEN}, seed 1"
+    )
+    bseqs = synthetic_user_sequences_vectorized(
+        num_users=BUCKET_USERS, num_items=mm.num_items, max_len=BUCKET_MAX_LEN, seed=1
+    )
+    bucket_train = SequenceDataset(bseqs, mm.max_sequence_len, ignore_last_n=1)
+    brow = bucket_batch(next(batch_iterator(bucket_train, mB, shuffle=True, seed=2)), LENGTH_BUCKETS)
+    bf, _, _ = seq_features_from_row(
+        {k_: torch.as_tensor(v_, device="cuda") for k_, v_ in brow.items()}, mm.gr_output_length + 1)
+    b_len, b_ts = bf.past_lengths.int(), bf.past_payloads["timestamps"]
+    N139 = b_ts.shape[1]
+    bucket_w = min(w for w in LENGTH_BUCKETS if w >= BUCKET_MAX_LEN - 1)
+    check(N139 == bucket_w + mm.gr_output_length + 1, f"a corpus batch took width {N139}, not the {bucket_w} bucket's")
+    b139_case = relbias_case(f"ml-20m under buckets (B={mB}, N={N139}, Nm={Nm20}, H={mm.num_heads}), a corpus batch",
+                             mB, N139, b_len, b_ts, Nm=Nm20, Hc=mm.num_heads)
+    N75 = LENGTH_BUCKETS[0] + mm.gr_output_length + 1
+    l75 = ints(1, LENGTH_BUCKETS[0] + 1, mB)
+    relbias_case(f"ml-20m under buckets (B={mB}, N={N75}, Nm={Nm20}, H={mm.num_heads})", mB, N75, l75,
+                 random_ts(mB, N75, l75), Nm=Nm20, Hc=mm.num_heads)
     full = lambda n, x: torch.full((n,), x, dtype=torch.int32, device="cuda")  # noqa: E731
     l4 = ints(3, 97, 4)
     relbias_case("length 1", 4, 70, full(4, 1), random_ts(4, 70, full(4, 1)))
@@ -728,7 +791,18 @@ def main() -> None:
         f"which sums dS over the group before the table sums. Without the bias, on the same inputs: K1 "
         f"{k1_same_ms:.4f} ms, K2 {k2_same_ms:.4f} ms"
     )
-    del slice_case, q, k, v, do
+    # K6 and K7 at N = 139 (the 128 bucket) against N = 211 (the full width),
+    # ml-20m large preset, on a corpus batch of each width
+    bucket_ms = {}
+    for N_, (case, lens_, ts_) in ((Nm20, (m20_case, m_len, m_ts)), (N139, (b139_case, b_len, b_ts))):
+        q_, k_, v_, pw_, tw_, do_, a_ = case
+        bucket_ms[N_] = (
+            device_time_ms(lambda: hstu_mha_dense_relbias_cuda(q_, k_, v_, lens_, ts_, pw_, tw_, **a_), 20),
+            device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(q_, k_, v_, lens_, ts_, pw_, tw_, do_, **a_), 10),
+        )
+        print(f"  ml-20m large preset at N={N_} (Nm={Nm20}, B={mB}, H={mm.num_heads}, mean length "
+              f"{lens_.float().mean().item():.1f}): K6 {bucket_ms[N_][0]:.4f} ms, K7 {bucket_ms[N_][1]:.4f} ms")
+    del slice_case, m20_case, b139_case, q, k, v, do, q_, k_, v_, do_
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- serving phase
@@ -1004,46 +1078,307 @@ def main() -> None:
             sampled = ids_[(positive_ids[..., None] * 7 + r * 13 + 1) % ids_.shape[0]]
             return sampled, self.sampler.normalize_embeddings(item_embedding_fn(sampled))
 
+    class FixedInBatchOffsets:
+        """The in-batch sampler's own state, offsets a function of the
+        positives and the state's count."""
+
+        def __init__(self, sampler):
+            self.sampler = sampler
+
+        def process_batch(self, **kw):
+            return self.sampler.process_batch(**kw)
+
+        def __call__(self, gen_, state, positive_ids, num_to_sample):
+            r = torch.arange(num_to_sample, device=positive_ids.device)
+            offsets = (positive_ids[..., None] * 7 + r * 13 + 1) % state.count.clamp_min(1)
+            return state.ids[offsets], state.embeddings[offsets]
+
+    def gpu_vs_cpu_step(name, cfg_, ds_, batch_, wrap, want_kernels):
+        """One `train_step`'s loss and every gradient of a small research
+        model, weights drawn on the CPU: the card (kernels) against the CPU
+        (plain versions). ``want_kernels``: the launches expected on the
+        card. Returns the width the card's encoder ran at."""
+        grads_, loss_, width_ = {}, {}, []
+        for dev in ("cpu", "cuda"):
+            st = research.ResearchTrainer(cfg_, ds_.all_item_ids(), device="cpu")
+            if dev == "cuda":
+                st.model.to(dev)
+                st.device = torch.device(dev)
+                st.all_item_ids = st.all_item_ids.to(dev)
+                if isinstance(st.sampler, LocalNegativesSampler):
+                    st.sampler = st.sampler._replace(all_item_ids=st.all_item_ids)
+            st.sampler = wrap(st.sampler)
+            before = {k_: c.count for k_, c in counters.items()}
+            hook = st.model.encoder.register_forward_pre_hook(lambda m_, a_: width_.append(a_[0].shape[1]))
+            loss = st.train_step(batch_)  # the gradients stay in .grad after the optimizer's step
+            hook.remove()
+            if dev == "cuda":
+                got_n = {k_: c.count - before[k_] for k_, c in counters.items() if c.count != before[k_]}
+                check(got_n == want_kernels, f"the small {name} step launched {got_n}, expected {want_kernels}")
+            loss_[dev] = loss.item()
+            grads_[dev] = {n_: p.grad.cpu() for n_, p in st.model.named_parameters() if p.grad is not None}
+            n_params = len(list(st.model.parameters()))
+        check(grads_["cpu"].keys() == grads_["cuda"].keys() and len(grads_["cpu"]) == n_params,
+              f"{name}: the two devices give gradients to other parameters")
+        g_err = {
+            k_: (grads_["cuda"][k_] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+            for k_, g in grads_["cpu"].items()
+        }
+        worst_ = max(g_err, key=g_err.get)
+        tables_ = [e for k_, e in g_err.items() if k_.endswith(("pos_w", "ts_w"))]
+        print(
+            f"  small {name}, one step, GPU kernels vs CPU plain versions: loss {loss_['cuda']:.6f} vs "
+            f"{loss_['cpu']:.6f}; largest gradient error {g_err[worst_]:.3e} of the gradient's max "
+            f"({worst_}" + (f"; the bias tables' largest {max(tables_):.3e}" if tables_ else "")
+            + f") over {len(g_err)} parameters (tol {GRAD_TOL})"
+        )
+        check(abs(loss_["cuda"] - loss_["cpu"]) <= 1e-5 * abs(loss_["cpu"]), f"GPU and CPU {name} losses disagree")
+        check(g_err[worst_] <= GRAD_TOL, f"GPU and CPU {name} gradients disagree")
+        check(len(width_) == 2 and width_[0] == width_[1], f"{name}: the encoder's widths {width_}")
+        return width_[1]
+
     sseqs = synthetic_user_sequences(num_users=16, num_items=300, max_len=60, min_len=2, seed=3)
     sds = SequenceDataset(sseqs, 56, ignore_last_n=1)
-    small_cfg = research.TrainConfig(
-        model=ModelConfig(num_items=300, max_sequence_len=56, gr_output_length=3, item_embedding_dim=32,
-                          num_blocks=3, num_heads=2, dqk=16, dv=16, linear_dropout_rate=0.0, dropout_rate=0.0),
+    small_model = dict(num_items=300, max_sequence_len=56, gr_output_length=3, item_embedding_dim=32,
+                       num_blocks=3, num_heads=2, linear_dropout_rate=0.0, dropout_rate=0.0)
+    small_cfg = research.TrainConfig(model=ModelConfig(dqk=16, dv=16, **small_model),
+                                     local_batch_size=8, num_negatives=16)
+    sbatch = next(batch_iterator(sds, 8, shuffle=False))
+    gpu_vs_cpu_step("research model", small_cfg, sds, sbatch, FixedNegatives, {"K6": 3, "K7": 3})
+
+    # -------------------------------------------------------- SASRec phase
+    acfg = dataclasses.replace(RESEARCH_PRESETS[SASREC_PRESET], num_epochs=1)
+    am = acfg.model
+    AB, AN = acfg.local_batch_size, am.total_seq_len
+    n_eval = SASREC_EVAL_BATCHES * acfg.eval_batch_size
+    print(
+        f"SASRec phase: preset {SASREC_PRESET}: {am.num_blocks} blocks, {am.num_heads} heads, d={am.item_embedding_dim}, "
+        f"ffn {am.ffn_hidden_dim}, N={AN}, batch {AB}, {acfg.num_negatives} negatives, {am.num_items:,} items, "
+        f"float32, dropout {am.dropout_rate} / {am.linear_dropout_rate}; corpus synthetic_user_sequences_vectorized, "
+        f"{SASREC_USERS} users, lengths 5..{am.max_sequence_len}, seed 2; {steps_total} steps, then an eval of "
+        f"{SASREC_EVAL_BATCHES} batches ({n_eval} users) against the corpus; the negatives "
+        f"[{AB}, {AN - 1}, {acfg.num_negatives}, {am.item_embedding_dim}] float32, "
+        f"{AB * (AN - 1) * acfg.num_negatives * am.item_embedding_dim * 4 / 1e9:.1f} GB a pass"
+    )
+    t0 = time.perf_counter()
+    aseqs = synthetic_user_sequences_vectorized(
+        num_users=SASREC_USERS, num_items=am.num_items, max_len=am.max_sequence_len, seed=2
+    )
+    a_train = SequenceDataset(aseqs, am.max_sequence_len, ignore_last_n=1)
+    a_eval = SequenceDataset(
+        dataclasses.replace(aseqs, user_ids=aseqs.user_ids[:n_eval], item_ids=aseqs.item_ids[:n_eval],
+                            ratings=aseqs.ratings[:n_eval], timestamps=aseqs.timestamps[:n_eval]),
+        am.max_sequence_len, ignore_last_n=0,
+    )
+    print(f"  corpus made in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    t0 = time.perf_counter()
+    aout = research.train_loop(acfg, a_train, a_eval, log_every=1, max_steps=steps_total, device="cuda")
+    loop_s = time.perf_counter() - t0
+    n = counts()
+    atrainer, alosses, asteps = aout["trainer"], aout["losses"], aout["step_s"]
+    check(len(alosses) == steps_total and all(math.isfinite(x) for x in alosses), f"SASRec losses: {alosses}")
+    timed = sorted(1e3 * t for t in asteps[RESEARCH_WARMUPS:])
+    a_median = (timed[(RESEARCH_STEPS - 1) // 2] + timed[RESEARCH_STEPS // 2]) / 2
+    am_metrics = aout["history"][-1]
+    print(
+        f"  {RESEARCH_STEPS} steps after {RESEARCH_WARMUPS} warm-ups: "
+        f"{AB * RESEARCH_STEPS / sum(asteps[RESEARCH_WARMUPS:]):.1f} examples/s, median step {a_median:.2f} ms "
+        f"(min {timed[0]:.2f}, max {timed[-1]:.2f}); losses {[round(x, 4) for x in alosses]}; the whole loop "
+        f"with its eval {loop_s:.1f} s"
+    )
+    print(
+        f"  eval over {n_eval} users against the corpus' {int(atrainer.all_item_ids.shape[0]):,} items: "
+        f"HR@10 {am_metrics['hr@10']:.4f}, HR@50 {am_metrics['hr@50']:.4f}, NDCG@10 {am_metrics['ndcg@10']:.4f}, "
+        f"MRR {am_metrics['mrr']:.6f}; launches {n}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    check(all(c == 0 for c in n.values()), f"SASRec launched an HSTU kernel: {n}")
+    check(sum(alosses[-3:]) <= sum(alosses[:3]) * 1.02, "the SASRec loss rises")
+    check(all(math.isfinite(v_) and 0.0 <= v_ <= 1.0 for k_, v_ in am_metrics.items() if k_ != "epoch"),
+          f"SASRec eval metrics out of range: {am_metrics}")
+    abatch = next(batch_iterator(a_train, AB, shuffle=True, seed=7))
+    profile("SASRec training step", lambda: atrainer.train_step(abatch))
+    a_items = atrainer.item_embeddings()
+    profile("SASRec eval batch", lambda: atrainer.encode_step(abatch, a_items))
+    del atrainer, aout, a_items
+    torch.cuda.empty_cache()
+    sas_cfg = research.TrainConfig(
+        model=ModelConfig(main_module="SASRec", ffn_hidden_dim=48, **small_model),
         local_batch_size=8, num_negatives=16,
     )
-    sbatch = next(batch_iterator(sds, 8, shuffle=False))
-    rgrads, rloss = {}, {}
-    for dev in ("cpu", "cuda"):
-        st = research.ResearchTrainer(small_cfg, sds.all_item_ids(), device="cpu")
-        if dev == "cuda":
-            st.model.to(dev)
-            st.device = torch.device(dev)
-            st.all_item_ids = st.all_item_ids.to(dev)
-            st.sampler = st.sampler._replace(all_item_ids=st.all_item_ids)
-        st.sampler = FixedNegatives(st.sampler)
-        before = (counters["K6"].count, counters["K7"].count)
-        loss, _ = st.loss(research.to_device(sbatch, st.device))
-        loss.backward()
-        if dev == "cuda":
-            got_n = (counters["K6"].count - before[0], counters["K7"].count - before[1])
-            check(got_n == (3, 3), f"the small research step launched K6, K7 {got_n} times")
-        rloss[dev] = loss.item()
-        rgrads[dev] = {name: p.grad.cpu() for name, p in st.model.named_parameters() if p.grad is not None}
-    check(rgrads["cpu"].keys() == rgrads["cuda"].keys() and len(rgrads["cpu"]) == 2 + 5 * 3,
-          "the two devices give gradients to other parameters")
-    rgrad_err = {
-        k_: (rgrads["cuda"][k_] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-        for k_, g in rgrads["cpu"].items()
-    }
-    worst = max(rgrad_err, key=rgrad_err.get)
-    table_err = max(e for k_, e in rgrad_err.items() if k_.endswith(("pos_w", "ts_w")))
-    print(
-        f"  small research model, one step, GPU kernels vs CPU plain versions: loss {rloss['cuda']:.6f} vs "
-        f"{rloss['cpu']:.6f}; largest gradient error {rgrad_err[worst]:.3e} of the gradient's max "
-        f"({worst}; the bias tables' largest {table_err:.3e}) over {len(rgrad_err)} parameters (tol {GRAD_TOL})"
+    gpu_vs_cpu_step("SASRec model", sas_cfg, sds, sbatch, FixedNegatives, {})
+
+    # ------------------------- in-batch negatives, stochastic length, buckets
+    bcfg = dataclasses.replace(
+        RESEARCH_PRESETS[BUCKET_PRESET], sampling_strategy="in-batch",
+        stochastic_length_alpha=SL_ALPHA, seq_len_buckets=LENGTH_BUCKETS,
     )
-    check(abs(rloss["cuda"] - rloss["cpu"]) <= 1e-5 * abs(rloss["cpu"]), "GPU and CPU research losses disagree")
-    check(rgrad_err[worst] <= GRAD_TOL, "GPU and CPU research gradients disagree")
+    bm = bcfg.model
+    print(
+        f"bucketed phase: preset {BUCKET_PRESET}: {bm.num_blocks} blocks, H={bm.num_heads}, "
+        f"dqk=dv={bm.dqk}, d={bm.item_embedding_dim}, Nm={bm.total_seq_len}, batch {bcfg.local_batch_size}, "
+        f"in-batch negatives ({bcfg.num_negatives} a position, deduplicated), stochastic length alpha {SL_ALPHA} "
+        f"(threshold {int(bm.max_sequence_len ** (SL_ALPHA / 2))}), buckets {LENGTH_BUCKETS}; the bucketed "
+        f"corpus (histories of 4..{BUCKET_MAX_LEN - 1} events); {steps_total} steps"
+    )
+    torch.cuda.reset_peak_memory_stats()
+    btrainer = research.ResearchTrainer(bcfg, bucket_train.all_item_ids(), device="cuda")
+    widths, blosses, bsteps = [], [], []
+    # the width each step's encoder (and so K6 and K7) ran at, as train_step
+    # cut the batch
+    hook = btrainer.model.encoder.register_forward_pre_hook(lambda m_, a_: widths.append(a_[0].shape[1]))
+    count_reset()
+    for batch in batch_iterator(bucket_train, bcfg.local_batch_size, shuffle=True, seed=3):
+        if len(blosses) == steps_total:
+            break
+        before = (counters["K6"].count, counters["K7"].count)
+        t0 = time.perf_counter()
+        blosses.append(float(btrainer.train_step(batch)))
+        bsteps.append(time.perf_counter() - t0)
+        step_n = (counters["K6"].count - before[0], counters["K7"].count - before[1])
+        check(step_n == (bm.num_blocks, bm.num_blocks),
+              f"a bucketed step launched K6, K7 {step_n} times, expected {bm.num_blocks} each")
+    n = counts()
+    hook.remove()
+    timed = sorted(1e3 * t for t in bsteps[RESEARCH_WARMUPS:])
+    b_median = (timed[(RESEARCH_STEPS - 1) // 2] + timed[RESEARCH_STEPS // 2]) / 2
+    print(
+        f"  widths N {widths}; {RESEARCH_STEPS} steps after {RESEARCH_WARMUPS} warm-ups: "
+        f"{bcfg.local_batch_size * RESEARCH_STEPS / sum(bsteps[RESEARCH_WARMUPS:]):.1f} examples/s, median step "
+        f"{b_median:.2f} ms (min {timed[0]:.2f}, max {timed[-1]:.2f}); losses {[round(x, 4) for x in blosses]}; "
+        f"launches {n}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    check(len(blosses) == steps_total and all(math.isfinite(x) for x in blosses), f"bucketed losses: {blosses}")
+    check(len(widths) == steps_total and all(w == N139 for w in widths),
+          f"the bucketed steps did not all run at the {bucket_w} bucket's width {N139}: {widths}")
+    check(n == {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": bm.num_blocks * steps_total,
+                "K7": bm.num_blocks * steps_total}, f"the bucketed steps launched {n}")
+    bbatch = next(batch_iterator(bucket_train, bcfg.local_batch_size, shuffle=True, seed=8))
+    profile("bucketed in-batch training step", lambda: btrainer.train_step(bbatch))
+    ib_cfg = dataclasses.replace(small_cfg, sampling_strategy="in-batch", seq_len_buckets=(16, 40))
+    ib_rows = [r for r in map(sds.get_row, range(len(sds))) if r["history_lengths"] <= 40][:8]
+    ib_batch = {k_: torch.stack([torch.as_tensor(r[k_]) for r in ib_rows]).numpy() for k_ in ib_rows[0]}
+    ib_w = gpu_vs_cpu_step("in-batch model under buckets (N=44, Nm=60)", ib_cfg, sds, ib_batch,
+                           FixedInBatchOffsets, {"K6": 3, "K7": 3})
+    check(ib_w == 40 + small_model["gr_output_length"] + 1,
+          f"train_step ran the small in-batch batch (width {ib_batch['historical_ids'].shape[1]}) at {ib_w}, "
+          f"not at its bucket's")
+
+    # --------------------------------------------------- KV-cached retrieval
+    cmodel = btrainer.model
+    Mmax = max(CACHE_DELTAS)
+    CB = CACHE_USERS
+    print(
+        f"KV-cached retrieval phase: the bucketed phase's model ({BUCKET_PRESET}, trained {steps_total} steps) at "
+        f"its full width N={bm.total_seq_len}; {CB} users of synthetic_user_sequences_vectorized (seed 4) with "
+        f"histories of at most {bm.max_sequence_len - Mmax} events; encode_with_cache(reserved_slots=M), "
+        f"encode_delta of M tokens and a full re-encode, M in {CACHE_DELTAS}; then top-{TOP_K} over "
+        f"{bm.num_items:,} items with each row's history ({bm.max_sequence_len} ids) filtered"
+    )
+    cseqs = synthetic_user_sequences_vectorized(
+        num_users=CB, num_items=bm.num_items, max_len=bm.max_sequence_len + 1 - Mmax, seed=4
+    )
+    crow = next(batch_iterator(SequenceDataset(cseqs, bm.max_sequence_len, ignore_last_n=0), CB, shuffle=False))
+    cf, c_tgt, _ = seq_features_from_row(
+        {k_: torch.as_tensor(v_, device="cuda") for k_, v_ in crow.items()}, bm.gr_output_length + 1)
+    c_len, c_ids, c_ts = cf.past_lengths, cf.past_ids, cf.past_payloads["timestamps"]
+    check(int(c_len.max()) <= bm.max_sequence_len - Mmax and c_ids.shape[1] == bm.total_seq_len,
+          "the cached batch's lengths or width")
+    rows_c = torch.arange(CB, device="cuda")[:, None]
+    emb_fn = cmodel.get_item_embeddings
+    torch.cuda.reset_peak_memory_stats()
+
+    def median_wall_ms(fn, reps=5):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0_))
+        return sorted(walls)[reps // 2]
+
+    with torch.no_grad():
+        for M in CACHE_DELTAS:
+            # the M appended tokens: the held-out target (its timestamp already
+            # sits at position `length`, as the prefill needs), then M - 1
+            # random items a minute apart
+            d_ids = torch.cat([c_tgt, torch.randint(1, bm.num_items + 1, (CB, M - 1), device="cuda", generator=gen)], 1)
+            cols_c = c_len[:, None] + torch.arange(M, device="cuda")[None, :]
+            d_ts = c_ts[torch.arange(CB, device="cuda"), c_len][:, None] + 60 * torch.arange(M, device="cuda")[None, :]
+            full_ids, full_ts = c_ids.clone(), c_ts.clone()
+            full_ids[rows_c, cols_c], full_ts[rows_c, cols_c] = d_ids, d_ts
+            count_reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, caches = cmodel.encode_with_cache(c_len, c_ids, emb_fn(c_ids), cf.past_payloads, reserved_slots=M)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            n_pre = counts()
+            count_reset()
+            got_q, _ = cmodel.encode_delta(c_len, d_ids, emb_fn(d_ids), {"timestamps": full_ts}, caches)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_delta = counts()
+            want_q = cmodel.encode(c_len + M, full_ids, emb_fn(full_ids), {"timestamps": full_ts})
+            err_c = (got_q - want_q).abs()
+            worst_c = (err_c / (2e-5 + 2e-4 * want_q.abs())).max().item()
+            print(
+                f"  M={M}: prefill {1e3 * (t1 - t0):.2f} ms, delta {1e3 * (t2 - t1):.2f} ms of host wall; delta vs "
+                f"re-encode max_abs_err {err_c.max().item():.3e} ({worst_c:.3f} of rtol 2e-4 / atol 2e-5); "
+                f"launches: prefill {n_pre}, delta {n_delta}"
+            )
+            check(bool(torch.isfinite(got_q).all()) and tuple(got_q.shape) == (CB, bm.item_embedding_dim),
+                  "the delta encode's output")
+            check(worst_c <= 1.0, f"M={M}: the delta encode disagrees with the full re-encode")
+            zero = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K7"), 0)
+            check(n_pre == {**zero, "K6": bm.num_blocks}, f"the prefill launched {n_pre}")
+            check(n_delta == {**zero, "K6": 0}, f"the delta step launched {n_delta}")
+            walls_c = [median_wall_ms(f_) for f_ in (
+                lambda: cmodel.encode_with_cache(c_len, c_ids, emb_fn(c_ids), cf.past_payloads, reserved_slots=M),
+                lambda: cmodel.encode_delta(c_len, d_ids, emb_fn(d_ids), {"timestamps": full_ts}, caches),
+                lambda: cmodel.encode(c_len + M, full_ids, emb_fn(full_ids), {"timestamps": full_ts}),
+            )]
+            print(
+                f"  M={M}, median host wall of 5 further calls: prefill {walls_c[0]:.2f} ms, delta {walls_c[1]:.2f} ms, "
+                f"full re-encode {walls_c[2]:.2f} ms; the delta step below the prefill: {walls_c[1] < walls_c[0]}"
+            )
+        pay = cf.past_payloads
+        profile("KV-cached prefill", lambda: cmodel.encode_with_cache(c_len, c_ids, emb_fn(c_ids), pay, Mmax))
+        profile("KV-cached delta step", lambda: cmodel.encode_delta(
+            c_len, d_ids, emb_fn(d_ids), {"timestamps": full_ts}, caches))
+
+        # top-k over the whole item corpus, each row's history filtered
+        all_ids = torch.arange(1, bm.num_items + 1, device="cuda")
+        index = CandidateIndex(ids=all_ids, embeddings=maybe_l2_norm(emb_fn(all_ids), bcfg.item_l2_norm,
+                                                                    bcfg.l2_norm_eps))
+        invalid = c_ids[:, : bm.max_sequence_len]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        top_ids, top_s = index.get_top_k_outputs(got_q, TOP_K, invalid)
+        torch.cuda.synchronize()
+        topk_s = time.perf_counter() - t0
+        profile("top-k with filtering", lambda: index.get_top_k_outputs(got_q, TOP_K, invalid))
+        cpu_index = CandidateIndex(ids=all_ids.cpu(), embeddings=index.embeddings.cpu())
+        c_top_ids, c_top_s = cpu_index.get_top_k_outputs(got_q.cpu(), TOP_K, invalid.cpu())
+        s_err = (top_s.cpu() - c_top_s).abs().max().item()
+        differ = (top_ids.cpu() != c_top_ids).nonzero().tolist()
+        # a differing id must be a near tie: its CPU score within 1e-5 of the CPU's at that place
+        tie_err = max((abs((cpu_index.embeddings[int(top_ids[b, j]) - 1] @ got_q[b].cpu()).item()
+                           - c_top_s[b, j].item()) for b, j in differ), default=0.0)
+        seen = bool((top_ids[:, :, None] == invalid[:, None, :]).any())
+        print(
+            f"  top-{TOP_K} (k'={TOP_K + invalid.shape[1]}) of {CB} queries over {bm.num_items:,} items: host wall "
+            f"{1e3 * topk_s:.2f} ms; GPU vs CPU: {len(differ)} ids differ (largest near-tie gap {tie_err:.3e}), "
+            f"scores max_abs_err {s_err:.3e} (tol 1e-5); a history id returned: {seen}; "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        )
+        check(s_err <= 1e-5 and tie_err <= 1e-5, "GPU and CPU top-k disagree")
+        check(not seen, "the top-k returned an id of the row's history")
+    del btrainer, cmodel, caches, index
+    torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- report
     def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes, peak=PEAK_F32_FLOPS):

@@ -9,12 +9,16 @@ runs the training loop with its periodic full-corpus eval.
 
     python -m generative_recommenders_tpu_torch.cli.train_research --smoke [--num_epochs N]
 
-Trains on the GPU; ``--device cpu`` trains on the CPU with the kernels'
-plain versions. Not ported, so their flags are refused: checkpoints
-(``--ckpt_dir``), the sharded multi-file corpus (``--multifile_prefix``), the
-attention-kernel choice, stochastic length, sequence-length buckets and the
-distributed flags. A preset needs ``--data_csv``: the dataset registry that
-finds preprocessed files by name is not ported.
+Any preset trains, the SASRec baselines included; with a preset,
+``--stochastic_length_alpha`` and ``--seq_len_buckets 64,128,200`` override
+its stochastic length and length buckets (the smoke run keeps its own
+config, as in the JAX CLI). Trains on the GPU; ``--device cpu`` trains on
+the CPU with the kernels' plain versions. Not ported, so their flags are
+refused:
+checkpoints (``--ckpt_dir``), the sharded multi-file corpus
+(``--multifile_prefix``), the attention-kernel choice and the distributed
+flags. A preset needs ``--data_csv``: the dataset registry that finds
+preprocessed files by name is not ported.
 """
 
 from __future__ import annotations
@@ -67,6 +71,10 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     p.add_argument("--preset", default=None)
     p.add_argument("--data_csv", default=None)
     p.add_argument("--num_epochs", type=int, default=None)
+    p.add_argument("--stochastic_length_alpha", type=float, default=None,
+                   help="stochastic length's alpha; 0 = off")
+    p.add_argument("--seq_len_buckets", default=None,
+                   help="comma-separated length buckets, e.g. 64,128,200")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--list_presets", action="store_true")
     p.add_argument("--debug_nans", action="store_true",
@@ -87,9 +95,14 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
         p.error(f"unknown preset {args.preset}; use --list_presets")
     if not args.data_csv:
         p.error("a preset needs --data_csv (a preprocessed sasrec_format.csv)")
-    cfg = RESEARCH_PRESETS[args.preset]
+    overrides: Dict[str, Any] = {}
     if args.num_epochs is not None:
-        cfg = dataclasses.replace(cfg, num_epochs=args.num_epochs)
+        overrides["num_epochs"] = args.num_epochs
+    if args.stochastic_length_alpha is not None:
+        overrides["stochastic_length_alpha"] = args.stochastic_length_alpha
+    if args.seq_len_buckets is not None:
+        overrides["seq_len_buckets"] = tuple(int(x) for x in args.seq_len_buckets.split(","))
+    cfg = dataclasses.replace(RESEARCH_PRESETS[args.preset], **overrides)
     N = cfg.model.max_sequence_len
     seqs = load_sasrec_format_csv(args.data_csv)
     # train ignores each user's last item, eval targets it

@@ -1,8 +1,7 @@
 """Frozen research experiment presets (port of
 `generative_recommenders_tpu/configs/research.py`): the hyperparameters
-behind the public metric tables. Each preset is a complete `TrainConfig`.
-The SASRec presets build their config; constructing their model raises,
-since SASRec is not ported yet.
+behind the public metric tables. Each preset is a complete `TrainConfig`,
+the three SASRec baselines included.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ The research model (`models/sequential.py:SequentialRecommender`) needs no
 renaming: ``embedding_module/item_emb``, ``input_preproc/pos_emb`` and
 ``encoder/layer_i/{uvqk, o/kernel, o/bias, rel_attn_bias/{pos_w, ts_w}}``
 are the port's own names, with ``uvqk`` [D, (2 dv + 2 dqk) * H] split u, v,
-q, k and ``o/kernel`` [in, out].
+q, k and ``o/kernel`` [in, out]. Its SASRec encoder neither:
+``encoder/attn_i/{in_proj_weight, in_proj_bias, out_proj_weight,
+out_proj_bias}`` keep torch's [3D, D] and [D, D] (used as ``x @ w.T``) and
+``encoder/ffn_i/{conv1, conv2}/{kernel, bias}`` are dense layers [in, out].
 
 The one renaming: in `DlrmHSTU`, the flax tree holds the transducer's parts
 at the top (``stu``, ``preprocessor``, ``positional_encoder``,

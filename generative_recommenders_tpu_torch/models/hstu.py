@@ -18,15 +18,24 @@ or its plain version by the tensors' device alone (the JAX package's
 
 Both mask by length and give zeros at rows >= length, as the JAX package's
 Pallas path does (its XLA path masks causally only and leaves other values
-in those rows; nothing downstream reads them). Not ported yet: a relative
+in those rows; nothing downstream reads them).
+
+The KV-cached encode (``return_caches`` / ``caches``) keeps each layer's k
+and v; its delta step (`SequentialTransductionUnit._delta_attend`) attends M
+appended queries over the extended cache in plain PyTorch, with the bias
+rows gathered for those queries only, as the JAX package's XLA einsums do
+(no Pallas kernel serves it there). What depends only on the cache lengths
+and the timestamps (the write positions, the delta mask, the bias indices)
+is built once per step, with every layer's bias rows in one gather
+(`HSTUEncoder._delta_plans`), not in each layer. Not ported yet: a relative
 bias without timestamps (it needs the dense kernel's [B, N, N] bias
-argument), attention dropout (the JAX package has it on its XLA path only),
-the KV-cached delta path and activation recomputation; each raises.
+argument), attention dropout (the JAX package has it on its XLA path only)
+and activation recomputation; each raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -39,9 +48,12 @@ from generative_recommenders_tpu_torch.modules.mlp import (
     uniform,
     xavier_uniform,
 )
+from generative_recommenders_tpu_torch.ops.attention_mask import make_delta_attn_mask
 from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import hstu_mha_dense_cuda
 from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
     hstu_mha_dense_relbias_cuda,
+    relative_bias_indices,
+    relative_bias_plain,
 )
 from generative_recommenders_tpu_torch.ops.hstu_compute import dropout
 from generative_recommenders_tpu_torch.ops.normalization import layer_norm
@@ -49,8 +61,11 @@ from generative_recommenders_tpu_torch.ops.normalization import layer_norm
 
 class RelativeBucketedTimeAndPositionBasedBias(nn.Module):
     """The two tables of the relative position + bucketed time-span bias:
-    ``pos_w`` [2 * max_seq_len - 1] and ``ts_w`` [num_buckets + 1]. The bias
-    itself is rebuilt inside the attention (kernel or plain version)."""
+    ``pos_w`` [2 * max_seq_len - 1] and ``ts_w`` [num_buckets + 1]. The full
+    attention rebuilds the bias inside the kernel (or its plain version) from
+    the tables; `forward` gives the bias rows of chosen queries (the JAX
+    module's row branch), and the KV-cached delta step gathers every layer's
+    rows at once from the same indices (`HSTUEncoder._delta_plans`)."""
 
     def __init__(
         self, max_seq_len: int, num_buckets: int = 128, gen: Optional[torch.Generator] = None
@@ -59,6 +74,32 @@ class RelativeBucketedTimeAndPositionBasedBias(nn.Module):
         self.num_buckets = num_buckets
         self.ts_w = new_param((num_buckets + 1,), normal(0.02), gen)
         self.pos_w = new_param((2 * max_seq_len - 1,), normal(0.02), gen)
+
+    def forward(
+        self,
+        all_timestamps: torch.Tensor,  # [B, N], full length
+        row_idx: torch.Tensor,  # int[B, M]: the query rows' absolute positions
+    ) -> torch.Tensor:
+        """The bias rows [B, M, N] of the queries at ``row_idx``:
+        pos_w[j - i + Nm - 1] + ts_w[bucket(ts[min(i + 1, N - 1)] - ts[j])],
+        with the kernels' bucket form, so the delta path and a full encode
+        read the same buckets."""
+        return relative_bias_plain(all_timestamps, self.pos_w, self.ts_w, self.num_buckets, row_idx)
+
+    @property
+    def table_len(self) -> int:  # Nm
+        return (self.pos_w.shape[0] + 1) // 2
+
+
+class DeltaPlan(NamedTuple):
+    """One layer's share of a KV-cached delta step, built for all layers at
+    once by `HSTUEncoder._delta_plans` from the cache lengths, the
+    timestamps and the bias tables."""
+
+    width: int  # Nfull = Nc + M, the extended caches' width
+    write_idx: torch.Tensor  # int[B * M]: the delta rows' places in the caches viewed [B * Nfull, H, d]
+    scaled_mask: torch.Tensor  # float32[B, 1, M, Nfull]: the delta rows of the causal mask, / Nfull
+    bias: Optional[torch.Tensor]  # float32[B, 1, M, Nfull]: this layer's bias rows; None without timestamps
 
 
 class SequentialTransductionUnit(nn.Module):
@@ -108,12 +149,19 @@ class SequentialTransductionUnit(nn.Module):
 
     def forward(
         self,
-        x: torch.Tensor,  # [B, N, D]
+        x: torch.Tensor,  # [B, N, D]; with delta_cache [B, M, D], the M newest tokens
         lengths: torch.Tensor,  # int[B]
         all_timestamps: Optional[torch.Tensor],  # int[B, N], full length
         deterministic: bool = False,
         gen: Optional[torch.Generator] = None,  # the dropout masks' generator
-    ) -> torch.Tensor:
+        delta_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # k, v [B, Nc, H, d]
+        delta_plan: Optional[DeltaPlan] = None,  # with delta_cache
+        return_cache: bool = False,
+    ):
+        """The block's output; with ``return_cache`` also this layer's (k, v)
+        [B, N, H, d]. With ``delta_cache`` only the M newest tokens are
+        computed, against the cache extended by them (`_delta_attend`), and
+        the extended cache comes back with the output."""
         B, N, _ = x.shape
         H, dqk, dv = self.num_heads, self.attention_dim, self.linear_dim
         mixed = layer_norm(x, eps=self.epsilon) @ self.uvqk
@@ -122,6 +170,8 @@ class SequentialTransductionUnit(nn.Module):
         u, v, q, k = torch.split(mixed, [dv * H, dv * H, dqk * H, dqk * H], dim=-1)
         # q, k and v stay views of the projection; the kernels read them strided
         q, k, v = q.reshape(B, N, H, dqk), k.reshape(B, N, H, dqk), v.reshape(B, N, H, dv)
+        if delta_cache is not None:
+            return self._delta_attend(x, u, q, k, v, delta_cache, delta_plan, deterministic, gen)
         if self.rel_attn_bias is None:
             attn = hstu_mha_dense_cuda(q, k, v, lengths, alpha=1.0, max_seq_len=N, causal=True)
         elif all_timestamps is None:
@@ -135,12 +185,56 @@ class SequentialTransductionUnit(nn.Module):
                 self.rel_attn_bias.ts_w, alpha=1.0, max_seq_len=N,
                 num_buckets=self.rel_attn_bias.num_buckets, causal=True,
             )
-        attn = attn.reshape(B, N, H * dv)
+        out = self._finish(attn.reshape(B, N, H * dv), u, x, deterministic, gen)
+        return (out, (k, v)) if return_cache else out
+
+    def _finish(
+        self,
+        attn: torch.Tensor,  # [B, N, H * dv]
+        u: torch.Tensor,
+        x: torch.Tensor,  # the residual
+        deterministic: bool,
+        gen: Optional[torch.Generator],
+    ) -> torch.Tensor:
         a = layer_norm(attn, eps=self.epsilon)
         o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
         if not deterministic:
             o_input = dropout(o_input, self.dropout_ratio, gen)
         return self.o(o_input) + x
+
+    def _delta_attend(
+        self,
+        delta_x: torch.Tensor,  # [B, M, D]
+        u: torch.Tensor,  # [B, M, H * dv]
+        q: torch.Tensor,  # [B, M, H, dqk]
+        delta_k: torch.Tensor,  # [B, M, H, dqk]
+        delta_v: torch.Tensor,  # [B, M, H, dv]
+        cache: Tuple[torch.Tensor, torch.Tensor],  # k, v [B, Nc, H, d]
+        plan: DeltaPlan,
+        deterministic: bool,
+        gen: Optional[torch.Generator],
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """Extends the cache by M zero columns, writes the delta rows' k and
+        v at positions cache_lengths .. cache_lengths + M - 1, attends the
+        delta queries over the whole width Nfull = Nc + M (silu / Nfull, the
+        bias rows of the delta queries, the delta rows of the causal mask)
+        and finishes the block. Plain PyTorch: M rows need no attention
+        kernel. The write positions, mask and bias rows come from ``plan``."""
+        B, M, _ = delta_x.shape
+        H, dv = self.num_heads, self.linear_dim
+        full_k, full_v = (c.new_zeros((B, plan.width) + tuple(c.shape[2:])) for c in cache)
+        full_k[:, : cache[0].shape[1]] = cache[0]
+        full_v[:, : cache[1].shape[1]] = cache[1]
+        full_k.view(B * plan.width, H, -1).index_copy_(0, plan.write_idx, delta_k.reshape(B * M, H, -1))
+        full_v.view(B * plan.width, H, -1).index_copy_(0, plan.write_idx, delta_v.reshape(B * M, H, -1))
+        s = torch.einsum("bmhd,bnhd->bhmn", q, full_k)
+        if self.rel_attn_bias is not None:
+            if plan.bias is None:
+                raise ValueError("the delta step with the relative bias needs the full timestamps")
+            s = s + plan.bias
+        p = F.silu(s) * plan.scaled_mask
+        attn = torch.einsum("bhmn,bnhv->bmhv", p, full_v).reshape(B, M, H * dv)
+        return self._finish(attn, u, delta_x, deterministic, gen), (full_k, full_v)
 
 
 class HSTUEncoder(nn.Module):
@@ -189,8 +283,60 @@ class HSTUEncoder(nn.Module):
         all_timestamps: Optional[torch.Tensor],
         deterministic: bool = False,
         gen: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+        caches: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None,
+        cache_lengths: Optional[torch.Tensor] = None,
+        return_caches: bool = False,
+    ):
+        """The encoded [B, N, D]; with ``return_caches`` also each layer's
+        (k, v); with ``caches`` the KV-cached delta step over the M newest
+        tokens, which returns the extended caches."""
         x = user_embeddings
+        new_caches: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        plans: List[DeltaPlan] = []
+        if caches is not None:
+            plans = self._delta_plans(cache_lengths, x.shape[1], caches[0][0].shape[1], all_timestamps)
         for i in range(self.num_blocks):
-            x = getattr(self, f"layer_{i}")(x, lengths, all_timestamps, deterministic, gen)
+            block = getattr(self, f"layer_{i}")
+            if caches is not None:
+                x, cache = block(
+                    x, lengths, all_timestamps, deterministic, gen,
+                    delta_cache=caches[i], delta_plan=plans[i],
+                )
+                new_caches.append(cache)
+            elif return_caches:
+                x, cache = block(x, lengths, all_timestamps, deterministic, gen, return_cache=True)
+                new_caches.append(cache)
+            else:
+                x = block(x, lengths, all_timestamps, deterministic, gen)
+        if caches is not None or return_caches:
+            return x, new_caches
         return x
+
+    def _delta_plans(
+        self,
+        cache_lengths: torch.Tensor,  # int[B]
+        M: int,
+        Nc: int,  # the caches' width
+        all_timestamps: Optional[torch.Tensor],  # [B, Nc + M]
+    ) -> List[DeltaPlan]:
+        """Each layer's `DeltaPlan`. The write positions, the mask and the
+        bias indices depend only on the cache lengths and the timestamps, so
+        they are built once; the bias rows of every layer come from one
+        gather over the stacked tables."""
+        B, Nfull = cache_lengths.shape[0], Nc + M
+        cols = cache_lengths.long()[:, None] + torch.arange(M, device=cache_lengths.device)[None, :]
+        rows = torch.arange(B, device=cache_lengths.device)[:, None] * Nfull
+        write_idx = (rows + cols).reshape(-1)
+        mask = make_delta_attn_mask(Nfull, cache_lengths + M, cols, causal=True)
+        scaled_mask = (mask.to(torch.float32) / Nfull)[:, None]
+        tables = [getattr(self, f"layer_{i}").rel_attn_bias for i in range(self.num_blocks)]
+        if tables[0] is None or all_timestamps is None:
+            return [DeltaPlan(Nfull, write_idx, scaled_mask, None)] * self.num_blocks
+        rel, bucket = relative_bias_indices(
+            all_timestamps, tables[0].table_len, tables[0].num_buckets, cols
+        )
+        bias = (
+            torch.stack([t.pos_w for t in tables])[:, rel]
+            + torch.stack([t.ts_w for t in tables])[:, bucket]
+        )  # [L, B, M, Nfull]
+        return [DeltaPlan(Nfull, write_idx, scaled_mask, b[:, None]) for b in bias]

@@ -1,6 +1,7 @@
 """Input-features preprocessor of the research stack (port of
-`generative_recommenders_tpu/models/preprocessors.py`). The KV-cached
-``delta_positions`` path and the two rated preprocessors are not ported yet.
+`generative_recommenders_tpu/models/preprocessors.py`), with the KV-cached
+encode's ``delta_positions``. The two rated preprocessors are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -44,9 +45,17 @@ class LearnablePositionalEmbeddingInputFeaturesPreprocessor(nn.Module):
         past_payloads: Dict[str, torch.Tensor],
         deterministic: bool = False,
         gen: Optional[torch.Generator] = None,  # the dropout masks' generator
+        delta_positions: Optional[torch.Tensor] = None,  # int[B, M]: absolute positions
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(lengths, embeddings [B, N, D], valid mask [B, N, 1]). With
+        ``delta_positions`` the N = M tokens are the KV-cached encode's
+        appended ones, each at its row's own absolute position."""
         N = past_ids.shape[1]
-        user_embeddings = past_embeddings * self.embedding_dim**0.5 + self.pos_emb[None, :N, :]
+        if delta_positions is not None:
+            pos = self.pos_emb[delta_positions.clamp(0, self.pos_emb.shape[0] - 1)]
+        else:
+            pos = self.pos_emb[None, :N, :]
+        user_embeddings = past_embeddings * self.embedding_dim**0.5 + pos
         if not deterministic:
             user_embeddings = dropout(user_embeddings, self.dropout_rate, gen)
         valid_mask = (past_ids != 0)[..., None].to(user_embeddings.dtype)

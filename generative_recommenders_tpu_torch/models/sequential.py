@@ -2,16 +2,16 @@
 preprocessor, encoder, output postprocessor and similarity (port of
 `generative_recommenders_tpu/models/sequential.py`).
 
-Ported: ``main_module="HSTU"`` with the ``DotProduct`` similarity, in
-float32. SASRec, MoL, ``compute_dtype="bfloat16"``, ``remat`` and the
-KV-cached `encode_with_cache` / `encode_delta` are not ported yet; asking
-for them raises.
+Ported: ``main_module="HSTU"`` and ``"SASRec"`` with the ``DotProduct``
+similarity, in float32, and HSTU's KV-cached `encode_with_cache` /
+`encode_delta`. MoL, ``compute_dtype="bfloat16"`` and ``remat`` are not
+ported yet; asking for them raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,6 +22,7 @@ from generative_recommenders_tpu_torch.models.postprocessors import make_output_
 from generative_recommenders_tpu_torch.models.preprocessors import (
     LearnablePositionalEmbeddingInputFeaturesPreprocessor,
 )
+from generative_recommenders_tpu_torch.models.sasrec import SASRecEncoder
 from generative_recommenders_tpu_torch.models.seq_utils import get_current_embeddings
 from generative_recommenders_tpu_torch.models.similarity import dot_product_similarity
 
@@ -31,7 +32,7 @@ class ModelConfig:
     """The encoder's parameters, field for field the JAX package's
     `ModelConfig`, so that its presets carry over."""
 
-    main_module: str = "HSTU"  # "HSTU" | "SASRec" (not ported)
+    main_module: str = "HSTU"  # "HSTU" | "SASRec"
     num_items: int = 1000
     max_sequence_len: int = 200
     gr_output_length: int = 10  # extra output slots; total N = max_seq + gr + 1
@@ -71,9 +72,7 @@ class SequentialRecommender(nn.Module):
     def __init__(self, config: ModelConfig, gen: Optional[torch.Generator] = None) -> None:
         super().__init__()
         cfg = self.config = config
-        if cfg.main_module != "HSTU":
-            if cfg.main_module == "SASRec":
-                raise NotImplementedError("main_module='SASRec' is not ported yet")
+        if cfg.main_module not in ("HSTU", "SASRec"):
             raise ValueError(f"Unknown main_module {cfg.main_module}")
         if cfg.interaction_module_type != "DotProduct":
             if cfg.interaction_module_type == "MoL":
@@ -88,23 +87,34 @@ class SequentialRecommender(nn.Module):
             max_sequence_len=cfg.total_seq_len,
             embedding_dim=cfg.item_embedding_dim,
             dropout_rate=cfg.dropout_rate,
-            pos_emb_init="xavier_normal",
+            pos_emb_init="xavier_normal" if cfg.main_module == "HSTU" else "truncated_normal",
             gen=gen,
         )
-        self.encoder = HSTUEncoder(
-            embedding_dim=cfg.item_embedding_dim,
-            num_blocks=cfg.num_blocks,
-            num_heads=cfg.num_heads,
-            attention_dim=cfg.dqk,
-            linear_dim=cfg.dv,
-            linear_dropout_rate=cfg.linear_dropout_rate,
-            attn_dropout_rate=cfg.attn_dropout_rate,
-            linear_activation=cfg.linear_activation,
-            enable_relative_attention_bias=cfg.enable_relative_attention_bias,
-            concat_ua=cfg.concat_ua,
-            max_total_seq_len=cfg.total_seq_len,
-            gen=gen,
-        )
+        if cfg.main_module == "HSTU":
+            self.encoder = HSTUEncoder(
+                embedding_dim=cfg.item_embedding_dim,
+                num_blocks=cfg.num_blocks,
+                num_heads=cfg.num_heads,
+                attention_dim=cfg.dqk,
+                linear_dim=cfg.dv,
+                linear_dropout_rate=cfg.linear_dropout_rate,
+                attn_dropout_rate=cfg.attn_dropout_rate,
+                linear_activation=cfg.linear_activation,
+                enable_relative_attention_bias=cfg.enable_relative_attention_bias,
+                concat_ua=cfg.concat_ua,
+                max_total_seq_len=cfg.total_seq_len,
+                gen=gen,
+            )
+        else:
+            self.encoder = SASRecEncoder(
+                embedding_dim=cfg.item_embedding_dim,
+                num_blocks=cfg.num_blocks,
+                num_heads=cfg.num_heads,
+                ffn_hidden_dim=cfg.ffn_hidden_dim,
+                ffn_activation_fn=cfg.ffn_activation_fn,
+                ffn_dropout_rate=cfg.linear_dropout_rate,
+                gen=gen,
+            )
         self.output_postproc = make_output_postprocessor(
             cfg.user_embedding_norm, cfg.item_embedding_dim
         )
@@ -123,17 +133,22 @@ class SequentialRecommender(nn.Module):
     ) -> torch.Tensor:
         """The user embeddings [B, N, D] at every position."""
         cfg = self.config
-        lengths, user_embeddings, _ = self.input_preproc(
+        lengths, user_embeddings, valid_mask = self.input_preproc(
             past_lengths, past_ids, past_embeddings, past_payloads,
             deterministic=deterministic, gen=gen,
         )
-        timestamps = (
-            past_payloads.get("timestamps") if cfg.enable_relative_attention_bias else None
-        )
-        encoded = self.encoder(
-            user_embeddings, lengths, timestamps, deterministic=deterministic, gen=gen
-        )
+        if cfg.main_module == "SASRec":
+            encoded = self.encoder(
+                user_embeddings, lengths, None, deterministic, gen, valid_mask=valid_mask
+            )
+        else:
+            encoded = self.encoder(
+                user_embeddings, lengths, self._timestamps(past_payloads), deterministic, gen
+            )
         return self.output_postproc(encoded.float())
+
+    def _timestamps(self, payloads: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+        return payloads.get("timestamps") if self.config.enable_relative_attention_bias else None
 
     def encode(
         self,
@@ -148,11 +163,74 @@ class SequentialRecommender(nn.Module):
         encoded = self(past_lengths, past_ids, past_embeddings, past_payloads, deterministic, gen)
         return get_current_embeddings(past_lengths, encoded)
 
-    def encode_with_cache(self, *args, **kwargs):
-        raise NotImplementedError("the KV-cached encode is not ported yet")
+    # ------------------------------------------------------ KV-cached encode
+    # Encode a prefix once, then each appended token at O(M N) instead of
+    # O(N^2): the research twin of M-FALCON. HSTU only.
 
-    def encode_delta(self, *args, **kwargs):
-        raise NotImplementedError("the KV-cached encode is not ported yet")
+    def _check_hstu(self) -> None:
+        if self.config.main_module != "HSTU":
+            raise ValueError("the KV-cached encode is HSTU-only")
+
+    def encode_with_cache(
+        self,
+        past_lengths: torch.Tensor,  # int[B]
+        past_ids: torch.Tensor,  # int[B, N]
+        past_embeddings: torch.Tensor,  # [B, N, D]
+        past_payloads: Dict[str, torch.Tensor],
+        reserved_slots: int = 0,
+    ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+        """A full encode (dropout off) that also returns each layer's (k, v)
+        [B, N - reserved_slots, H, d], and the embedding [B, D] at each row's
+        last position.
+
+        ``reserved_slots`` must be the number M of tokens a later
+        `encode_delta` appends: the caches lose their last M columns, so that
+        the delta step runs at this call's width N (the silu normaliser is
+        1 / width and the bias table is read by width). Those columns are
+        padding as long as every row has lengths <= N - M, which the
+        ``gr_output_length`` tail slots give the research batch layout.
+
+        With the relative bias, row i's time bucket reads ts[i + 1], so
+        ``past_payloads["timestamps"]`` must hold the first appended token's
+        timestamp at position ``past_lengths`` (the layout
+        `seq_features_from_row` gives by scattering the target's timestamp
+        there); otherwise the cached prefix differs from a full encode."""
+        self._check_hstu()
+        lengths, user_embeddings, _ = self.input_preproc(
+            past_lengths, past_ids, past_embeddings, past_payloads, deterministic=True
+        )
+        encoded, caches = self.encoder(
+            user_embeddings, lengths, self._timestamps(past_payloads),
+            deterministic=True, return_caches=True,
+        )
+        if reserved_slots > 0:
+            caches = [(k[:, :-reserved_slots], v[:, :-reserved_slots]) for k, v in caches]
+        out = self.output_postproc(encoded.float())
+        return get_current_embeddings(past_lengths, out), caches
+
+    def encode_delta(
+        self,
+        cache_lengths: torch.Tensor,  # int[B]: each row's cached prefix
+        delta_ids: torch.Tensor,  # int[B, M]: the appended tokens
+        delta_embeddings: torch.Tensor,  # [B, M, D]
+        full_payloads: Dict[str, torch.Tensor],  # timestamps over prefix and delta
+        caches: List[Tuple[torch.Tensor, torch.Tensor]],
+    ) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+        """Encodes only the M appended tokens against the cached prefix.
+        Returns the embedding [B, D] after the append and the extended
+        caches [B, Nc + M, H, d]."""
+        self._check_hstu()
+        M = delta_ids.shape[1]
+        positions = cache_lengths.long()[:, None] + torch.arange(M, device=delta_ids.device)[None, :]
+        _, delta_emb, _ = self.input_preproc(
+            cache_lengths, delta_ids, delta_embeddings, full_payloads,
+            deterministic=True, delta_positions=positions,
+        )
+        encoded, new_caches = self.encoder(
+            delta_emb, cache_lengths + M, self._timestamps(full_payloads),
+            deterministic=True, caches=caches, cache_lengths=cache_lengths,
+        )
+        return self.output_postproc(encoded.float())[:, -1, :], new_caches
 
     def similarity_fn(
         self,

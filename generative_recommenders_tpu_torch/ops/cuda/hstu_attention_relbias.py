@@ -69,25 +69,40 @@ RelbiasGrads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, tor
 
 
 # -------------------------------------------------------------- plain version
+def relative_bias_indices(
+    timestamps: torch.Tensor,  # [B, N], integer or float
+    table_len: int,  # Nm: pos_w holds 2 * Nm - 1 entries
+    num_buckets: int,
+    row_idx: Optional[torch.Tensor] = None,  # int[B, M]: the rows wanted; None = all N
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rel, bucket): the bias rows' indices into ``pos_w`` and ``ts_w``,
+    [1 or B, M, N] and [B, M, N] (M = N without ``row_idx``). The one home of
+    the bias rule the kernels rebuild: rel = clip(j - i + Nm - 1), bucket =
+    clip(floor(ln(max(|ts[min(i + 1, N - 1)] - ts[j]|, 1)) / 0.301))."""
+    N = timestamps.shape[1]
+    cols = torch.arange(N, device=timestamps.device)
+    rows = cols[None, :] if row_idx is None else row_idx.long()
+    rel = (cols[None, None, :] - rows[:, :, None] + table_len - 1).clamp(0, 2 * table_len - 2)
+    ts = timestamps.to(torch.float32)
+    # row i reads ts[i + 1]
+    ts_next = torch.gather(ts, 1, (rows + 1).clamp_max(N - 1).expand(ts.shape[0], -1))
+    dt = ts_next[:, :, None] - ts[:, None, :]
+    bucket = torch.floor(torch.log(dt.abs().clamp_min(1.0)) * _INV_LOG_BASE)
+    return rel, bucket.clamp(0, num_buckets).long()
+
+
 def relative_bias_plain(
     timestamps: torch.Tensor,  # [B, N], integer or float
     pos_w: torch.Tensor,  # float32 [2 * Nm - 1]
     ts_w: torch.Tensor,  # float32 [num_buckets + 1]
     num_buckets: int,
+    row_idx: Optional[torch.Tensor] = None,  # int[B, M]: the rows wanted; None = all N
 ) -> torch.Tensor:
-    """The [B, N, N] bias, materialised (port of
-    `models/hstu.py:RelativeBucketedTimeAndPositionBasedBias` with the
+    """The bias, materialised: [B, N, N], or [B, M, N] at ``row_idx`` (port
+    of `models/hstu.py:RelativeBucketedTimeAndPositionBasedBias` with the
     kernel's bucket form)."""
-    N = timestamps.shape[1]
-    Nm = (pos_w.shape[0] + 1) // 2
-    i = torch.arange(N, device=timestamps.device)
-    rel = (i[None, :] - i[:, None] + Nm - 1).clamp(0, 2 * Nm - 2)
-    ts = timestamps.to(torch.float32)
-    ts_next = ts[:, (i + 1).clamp_max(N - 1)]  # [B, N]: row i reads ts[i + 1]
-    dt = ts_next[:, :, None] - ts[:, None, :]
-    bucket = torch.floor(torch.log(dt.abs().clamp_min(1.0)) * _INV_LOG_BASE)
-    bucket = bucket.clamp(0, num_buckets).long()
-    return pos_w[rel][None] + ts_w[bucket]
+    rel, bucket = relative_bias_indices(timestamps, (pos_w.shape[0] + 1) // 2, num_buckets, row_idx)
+    return pos_w[rel] + ts_w[bucket]
 
 
 def hstu_mha_dense_relbias_plain(

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 
 def layer_norm(
@@ -13,13 +14,14 @@ def layer_norm(
     bias: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
 ) -> torch.Tensor:
-    """LayerNorm over the last dim with float32 statistics."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    if weight is not None:
-        y = y * weight.float()
-    if bias is not None:
-        y = y + bias.float()
+    """LayerNorm over the last dim with float32 statistics: PyTorch's fused
+    `F.layer_norm`, one kernel where the JAX package's formula (mean,
+    centred square, rsqrt, affine) would take eight."""
+    y = F.layer_norm(
+        x.float(),
+        x.shape[-1:],
+        None if weight is None else weight.float(),
+        None if bias is None else bias.float(),
+        eps,
+    )
     return y.to(x.dtype)

@@ -1,20 +1,22 @@
 """Research training loop on one device: train and eval steps and the epoch
 loop (port of `generative_recommenders_tpu/train/train_loop.py`).
 
-A train step is: batch -> features, the target scattered into the ids, item
-embeddings, the encoder (dropout on; on the card through the attention
-kernels), sampled negatives, the loss, backward, AdamW. Eval ranks each
-row's target against the whole item corpus.
+A train step is: the host batch sliced to its length bucket, features,
+stochastic length, the target scattered into the ids, item embeddings, the
+encoder (dropout on; on the card through the attention kernels), sampled
+negatives, the loss, backward, AdamW. Eval ranks each row's target against
+the whole item corpus.
 
-Ported: ``sampling_strategy="local"`` with `SampledSoftmaxLoss` or
-`BCELoss`, AdamW beta = (0.9, 0.98) with the linear warm-up, the mid-epoch
-partial eval, ``max_steps`` and TensorBoard scalars. Not ported yet, and
-refused by `ResearchTrainer` / `train_loop`: stochastic length, sequence
-length buckets, ``loss_activation_checkpoint``, `BCELossWithRatings`,
-in-batch negatives, MoL and checkpoints. The JAX trainer folds the step
-number into one key for dropout and negatives; here two `torch.Generator`s,
+Ported: HSTU and SASRec, ``sampling_strategy="local"`` or ``"in-batch"``
+with `SampledSoftmaxLoss` or `BCELoss`, stochastic length, length buckets
+(static or runtime), AdamW beta = (0.9, 0.98) with the linear warm-up, the
+mid-epoch partial eval, ``max_steps`` and TensorBoard scalars. Not ported
+yet, and refused by `ResearchTrainer` / `train_loop`:
+``loss_activation_checkpoint``, `BCELossWithRatings`, MoL and checkpoints.
+The JAX trainer folds the step number into one key and splits it for
+dropout, stochastic length and negatives; here three `torch.Generator`s,
 seeded once, advance from step to step, so a run is reproducible from its
-seed but does not draw the JAX package's masks and negatives.
+seed but does not draw the JAX package's masks, lengths and negatives.
 """
 
 from __future__ import annotations
@@ -37,7 +39,11 @@ from generative_recommenders_tpu_torch.data.features import (
     seq_features_from_row,
 )
 from generative_recommenders_tpu_torch.models.losses import bce_loss, sampled_softmax_loss
-from generative_recommenders_tpu_torch.models.samplers import LocalNegativesSampler, maybe_l2_norm
+from generative_recommenders_tpu_torch.models.samplers import (
+    InBatchNegativesSampler,
+    LocalNegativesSampler,
+    maybe_l2_norm,
+)
 from generative_recommenders_tpu_torch.models.sequential import ModelConfig, SequentialRecommender
 from generative_recommenders_tpu_torch.train.eval_metrics import (
     MAX_K,
@@ -45,6 +51,11 @@ from generative_recommenders_tpu_torch.train.eval_metrics import (
     build_id_to_col,
     metrics_from_ranks,
     target_ranks,
+)
+from generative_recommenders_tpu_torch.utils.bucketing import (
+    apply_stochastic_length,
+    bucket_batch,
+    truncate_to_stochastic_length,
 )
 from generative_recommenders_tpu_torch.utils.tb import SummaryLogger
 
@@ -63,7 +74,7 @@ class TrainConfig:
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
     num_warmup_steps: int = 0
-    sampling_strategy: str = "local"  # "in-batch" is not ported
+    sampling_strategy: str = "local"  # | "in-batch"
     loss_module: str = "SampledSoftmaxLoss"  # | "BCELoss"
     num_negatives: int = 128
     temperature: float = 0.05
@@ -76,9 +87,13 @@ class TrainConfig:
     # weights of auxiliary losses, by name; no ported module returns one yet
     loss_weights: Tuple[Tuple[str, float], ...] = ()
     eval_item_chunk_size: int = 8192  # MoL eval only (not ported)
-    stochastic_length_alpha: float = 0.0  # not ported; must stay 0
-    seq_len_buckets: Tuple[int, ...] = ()  # not ported; must stay empty
-    runtime_bucketing: bool = False  # not ported
+    # stochastic length: rows longer than N^(alpha / 2) are cut to that
+    # threshold with probability 1 - N^alpha / n^2; 0 = off
+    stochastic_length_alpha: float = 0.0
+    # length buckets: each batch is sliced to the smallest bucket that holds
+    # its longest history; runtime_bucketing takes the next power of 2
+    seq_len_buckets: Tuple[int, ...] = ()
+    runtime_bucketing: bool = False
     # host data pipeline: batch-building threads and their window; 0 = synchronous
     num_workers: int = 4
     prefetch_factor: int = 16
@@ -86,22 +101,18 @@ class TrainConfig:
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    if cfg.sampling_strategy != "local":
-        if cfg.sampling_strategy == "in-batch":
-            raise NotImplementedError("sampling_strategy='in-batch' is not ported yet")
+    if cfg.sampling_strategy not in ("local", "in-batch"):
         raise ValueError(f"Unknown sampling_strategy {cfg.sampling_strategy}")
+    if cfg.stochastic_length_alpha > 0.0 and cfg.loss_module == "BCELossWithRatings":
+        raise ValueError(
+            "stochastic length cuts the features' ratings; BCELossWithRatings reads the raw batch's"
+        )
     if cfg.loss_module not in ("SampledSoftmaxLoss", "BCELoss"):
         if cfg.loss_module == "BCELossWithRatings":
             raise NotImplementedError("loss_module='BCELossWithRatings' is not ported yet")
         raise ValueError(f"Unknown loss_module {cfg.loss_module}")
-    for name, off in (
-        ("stochastic_length_alpha", cfg.stochastic_length_alpha == 0.0),
-        ("seq_len_buckets", not cfg.seq_len_buckets),
-        ("runtime_bucketing", not cfg.runtime_bucketing),
-        ("loss_activation_checkpoint", not cfg.loss_activation_checkpoint),
-    ):
-        if not off:
-            raise NotImplementedError(f"{name} is not ported yet")
+    if cfg.loss_activation_checkpoint:
+        raise NotImplementedError("loss_activation_checkpoint is not ported yet")
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -112,7 +123,8 @@ class ResearchTrainer:
     """Owns the model, the optimizer, the sampler and the eval state, on
     ``device`` ("cuda" unless the caller asks for the CPU; without a card it
     raises). The weights are drawn from ``cfg.random_seed``, the dropout
-    masks from the seed + 1, the negatives from the seed + 2."""
+    masks from the seed + 1, the negatives from the seed + 2, the stochastic
+    lengths from a seed drawn from the dropout masks' seed."""
 
     def __init__(self, cfg: TrainConfig, all_item_ids: np.ndarray, device: str = "cuda") -> None:
         _refuse_unported(cfg)
@@ -142,11 +154,22 @@ class ResearchTrainer:
             self.schedule = torch.optim.lr_scheduler.LambdaLR(
                 self.optimizer, lambda s: 1.0 / W + (1.0 - 1.0 / W) * s / W if s < W else 1.0
             )
-        self.sampler = LocalNegativesSampler(
-            all_item_ids=self.all_item_ids, l2_norm=cfg.item_l2_norm, l2_norm_eps=cfg.l2_norm_eps
-        )
+        if cfg.sampling_strategy == "local":
+            self.sampler = LocalNegativesSampler(
+                all_item_ids=self.all_item_ids, l2_norm=cfg.item_l2_norm,
+                l2_norm_eps=cfg.l2_norm_eps,
+            )
+        else:
+            self.sampler = InBatchNegativesSampler(
+                l2_norm=cfg.item_l2_norm, l2_norm_eps=cfg.l2_norm_eps, dedup_embeddings=True
+            )
         self.dropout_gen = torch.Generator(self.device).manual_seed(seed + 1)
         self.negatives_gen = torch.Generator(self.device).manual_seed(seed + 2)
+        # split off the dropout seed, as the JAX trainer splits its dropout key
+        length_seed = torch.randint(
+            2**62, (1,), generator=torch.Generator().manual_seed(seed + 1)
+        ).item()
+        self.length_gen = torch.Generator(self.device).manual_seed(length_seed)
 
     # ------------------------------------------------------------- train step
     def loss(self, batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -155,6 +178,24 @@ class ResearchTrainer:
         features, target_ids, _ = seq_features_from_row(
             batch, max_output_length=cfg.model.gr_output_length + 1
         )
+        if cfg.stochastic_length_alpha > 0.0:
+            old_len = features.past_lengths
+            new_len = apply_stochastic_length(
+                old_len, cfg.stochastic_length_alpha, cfg.model.max_sequence_len, self.length_gen
+            )
+            payloads = features.past_payloads
+            features = features._replace(
+                past_lengths=new_len,
+                past_ids=truncate_to_stochastic_length(features.past_ids, old_len, new_len),
+                past_payloads={
+                    # the target's timestamp sits at position `old_len`; the
+                    # shift moves it to `new_len`: keep that slot
+                    "timestamps": truncate_to_stochastic_length(
+                        payloads["timestamps"], old_len, new_len, extra_positions=1
+                    ),
+                    "ratings": truncate_to_stochastic_length(payloads["ratings"], old_len, new_len),
+                },
+            )
         past_ids = scatter_target_into_ids(features.past_ids, features.past_lengths, target_ids)
         input_embeddings = model.get_item_embeddings(past_ids)
         seq_embeddings = model(
@@ -166,11 +207,18 @@ class ResearchTrainer:
         sup_ids = past_ids[:, 1:]
         sup_emb = input_embeddings[:, 1:, :]
         ar_mask = (sup_ids != 0).float()
-        neg_ids, neg_emb = self.sampler(
-            self.negatives_gen, sup_ids,
-            1 if cfg.loss_module == "BCELoss" else cfg.num_negatives,
-            model.get_item_embeddings,
-        )
+        num_to_sample = 1 if cfg.loss_module == "BCELoss" else cfg.num_negatives
+        if cfg.sampling_strategy == "in-batch":
+            flat_ids = past_ids.reshape(-1)
+            state = self.sampler.process_batch(
+                ids=flat_ids, presences=flat_ids != 0,
+                embeddings=input_embeddings.reshape(-1, input_embeddings.shape[-1]),
+            )
+            neg_ids, neg_emb = self.sampler(self.negatives_gen, state, sup_ids, num_to_sample)
+        else:
+            neg_ids, neg_emb = self.sampler(
+                self.negatives_gen, sup_ids, num_to_sample, model.get_item_embeddings
+            )
         pos_emb = maybe_l2_norm(sup_emb, cfg.item_l2_norm, cfg.l2_norm_eps)
         if cfg.loss_module == "SampledSoftmaxLoss":
             loss, aux = sampled_softmax_loss(
@@ -187,7 +235,11 @@ class ResearchTrainer:
         return loss, aux
 
     def train_step(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
-        """One optimizer step on a numpy batch; returns the loss, detached."""
+        """One optimizer step on a numpy batch, sliced to its length bucket
+        when buckets are on; returns the loss, detached."""
+        cfg = self.cfg
+        if cfg.seq_len_buckets or cfg.runtime_bucketing:
+            batch = bucket_batch(batch, cfg.seq_len_buckets, cfg.runtime_bucketing)
         self.optimizer.zero_grad(set_to_none=True)
         loss, _ = self.loss(to_device(batch, self.device))
         loss.backward()

@@ -518,19 +518,8 @@ def test_presets_match_the_jax_packages():
     assert (big.model.total_seq_len, big.model.num_items, big.local_batch_size) == (511, 855_776, 96)
 
 
-@pytest.mark.parametrize("name", [n for n in j_presets.RESEARCH_PRESETS if "sasrec" in n])
-def test_sasrec_presets_raise_at_model_construction(name):
-    cfg = t_presets.RESEARCH_PRESETS[name]
-    with pytest.raises(NotImplementedError, match="SASRec"):
-        t_seq.SequentialRecommender(dataclasses.replace(cfg.model, num_items=10))
-
-
 @pytest.mark.parametrize("field, value, match", [
-    ("sampling_strategy", "in-batch", "in-batch"),
     ("loss_module", "BCELossWithRatings", "BCELossWithRatings"),
-    ("stochastic_length_alpha", 1.6, "stochastic_length_alpha"),
-    ("seq_len_buckets", (16, 32), "seq_len_buckets"),
-    ("runtime_bucketing", True, "runtime_bucketing"),
     ("loss_activation_checkpoint", True, "loss_activation_checkpoint"),
 ])
 def test_trainer_refuses_what_is_not_ported(field, value, match):
@@ -552,9 +541,6 @@ def test_model_refuses_what_is_not_ported(over, match):
 
 def test_other_refusals():
     tm = t_seq.SequentialRecommender(t_seq.ModelConfig(**SMALL), torch.Generator().manual_seed(0))
-    for method in (tm.encode_with_cache, tm.encode_delta):
-        with pytest.raises(NotImplementedError, match="KV-cached"):
-            method()
     # a relative bias without timestamps needs the dense kernel's bias argument
     with pytest.raises(NotImplementedError, match="without timestamps"):
         tm.encoder(torch.zeros(1, 40, 32), torch.ones(1, dtype=torch.long), None, deterministic=True)
@@ -619,8 +605,6 @@ def test_research_cli_refusals():
         ["--smoke", "--device", "cpu", "--ckpt_dir", "x"],
         ["--smoke", "--device", "cpu", "--multifile_prefix", "x"],
         ["--smoke", "--device", "cpu", "--attn_kernel", "pallas"],
-        ["--smoke", "--device", "cpu", "--stochastic_length_alpha", "1.6"],
-        ["--smoke", "--device", "cpu", "--seq_len_buckets", "64,128"],
         ["--smoke", "--device", "cpu", "--distributed"],
         ["--smoke", "--device", "cpu", "--num_processes", "2"],
         ["--preset", "ml-1m/hstu-sampled-softmax-n128", "--device", "cpu"],  # no --data_csv
