@@ -42,10 +42,13 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    preset `ml-3b/hstu-sampled-softmax-n96-seqlen500-large` (16 blocks, 8
    heads, d 256, N 511, batch 96, 128 negatives, 855,776 items) through the
    port's research `train_loop` on a synthetic corpus (2 warm-up steps, 10
-   timed ones), evaluates it against the corpus' items, checks that every
-   attention went through K6 and K7 (and none through K1 / K2); then one
-   training step's loss and gradients on a small research model, GPU kernels
-   against the CPU plain versions;
+   timed ones), written as the 16 shards of a fractal-expansion corpus under
+   `tmp/ml-3b/` and read through the registry (`get_reco_dataset("ml-3b")`)
+   on the native reader (a sample of rows held against the Python path and
+   the in-memory rows, both readers' rows/s printed), evaluates it against
+   the preset's items, checks that every attention went through K6 and K7
+   (and none through K1 / K2); then one training step's loss and gradients
+   on a small research model, GPU kernels against the CPU plain versions;
 6. SASRec phase: trains the baseline preset `ml-20m/sasrec-sampled-softmax-n128`
    uncut (4 blocks, 4 heads, d 256, N 211, batch 128, 128 negatives, 131,262
    items) through `train_loop` on a 4,000-user synthetic corpus (2 warm-up
@@ -64,10 +67,25 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    launches), `encode_delta` of M tokens (none) held to a full re-encode,
    the host wall of each (first call and median of 5 more), then `CandidateIndex.get_top_k_outputs` (top 100 of 131,262 items, each
    row's history filtered) against the same call on the CPU;
-9. prints one JSON line with every kernel's launches, error and times, and
-   as the last line the device JSON.
+9. ml-1m phase: writes `tmp/movielens1m.zip` in GroupLens' format at the
+   published scale (6,040 users, 1,000,209 ratings, 3,706 movies), runs
+   `preprocess_public_data --dataset_name ml-1m`, trains
+   `ml-1m/hstu-sampled-softmax-n128-large` for one epoch through
+   `train_research` on the registry's files with `--ckpt_dir` (K6 8 x
+   (steps + eval batches), K7 8 x steps), restores the checkpoint bit-equal;
+10. movielens-1m ranker phase: `train_ranker --dataset movielens-1m` on
+   that `sasrec_format.csv` at full width with `--ckpt_dir` (K1, K2 3 a
+   step), `--mode eval` from the checkpoint, then `inference.main
+   --accuracy` from it (int8 tables, float tables, `--mfalcon`: K1, K5) and
+   from fresh weights, dense against M-FALCON within `PRED_TOL`;
+11. KuaiRand-1K phase: writes the two logs and the user features of 1,000
+   users in the published columns, runs `preprocess_dlrm_data --skip_download`
+   and a few `train_ranker --dataset kuairand-1k` steps (8 tasks, 7 tables);
+12. prints one JSON line with every kernel's launches, error and times, the
+   script's time, and as the last line the device JSON.
 
-Any failed check exits nonzero.
+Every file the script reads it writes itself, under `tmp/`. Any failed check
+exits nonzero.
 """
 
 from __future__ import annotations
@@ -75,7 +93,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -108,6 +128,18 @@ BUCKET_USERS, BUCKET_MAX_LEN = 2000, 120
 SL_ALPHA, LENGTH_BUCKETS = 1.6, (64, 128, 200)
 # the KV-cached encode and the candidate index on that preset's model
 CACHE_USERS, CACHE_DELTAS, TOP_K = 128, (1, 4), 100
+# the research phase's corpus as 16 shards of a fractal-expansion corpus, read
+# through the dataset registry (`get_reco_dataset("ml-3b")`) and the native
+# reader; rows held against the Python path and the in-memory rows
+ML3B_SHARDS, SHARD_CHECK_ROWS = 16, 200
+# real-data phases: files written in the published formats under tmp/
+DATA_ROOT = "tmp"
+ML1M_USERS, ML1M_RATINGS, ML1M_MOVIES, ML1M_MAX_ID = 6040, 1_000_209, 3706, 3952
+ML1M_PRESET = "ml-1m/hstu-sampled-softmax-n128-large"
+# the ranker CLI's defaults on the real datasets (full width)
+RANKER_STEPS, RANKER_EVAL_BATCHES, ACC_QSL_BATCHES = 12, 8, 8
+# KuaiRand-1K: 1,000 users; the events cut from ~11.7 million to 300 a user
+KUAI_USERS, KUAI_EVENTS_PER_FILE = 1000, 150
 # kernel vs plain: both float32; they differ only in summation order (for
 # K2's dq, an order that changes from run to run: atomics) and in the exp of
 # silu, so the error is held to a small fraction of the output's max
@@ -192,6 +224,153 @@ def profile(name: str, fn) -> None:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def median(xs) -> float:
+    s = sorted(xs)
+    return (s[(len(s) - 1) // 2] + s[len(s) // 2]) / 2
+
+
+def write_movielens_1m_zip(path: str, seed: int = 0) -> None:
+    """`movielens1m.zip` in GroupLens' published format and at its published
+    scale: `ml-1m/ratings.dat` (UserID::MovieID::Rating::Timestamp, 1,000,209
+    ratings on 1-5 by 6,040 users, each with at least 20, of exactly 3,706
+    distinct movies within 1..3,952; a user's timestamps tie in places),
+    `users.dat` (sex, age group, occupation, zip) and `movies.dat` (3,883
+    movies, "Title (YYYY)", `|`-joined genres, iso-8859-1). Popularity and
+    activity are heavy-tailed; the ratings themselves are random."""
+    import zipfile
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_users, n_ratings, n_movies = ML1M_USERS, ML1M_RATINGS, ML1M_MOVIES
+    w = rng.lognormal(0.0, 1.2, n_users)
+    counts = 20 + rng.multinomial(n_ratings - 20 * n_users, w / w.sum())
+    rated = np.sort(rng.choice(np.arange(1, ML1M_MAX_ID + 1), n_movies, replace=False))
+    pop = rng.lognormal(0.0, 1.5, n_movies)
+    items = rated[rng.choice(n_movies, n_ratings, p=pop / pop.sum())]
+    items[rng.choice(n_ratings, n_movies, replace=False)] = rated  # every movie rated at least once
+    users = np.repeat(np.arange(1, n_users + 1), counts)
+    stars = rng.choice(np.arange(1, 6), n_ratings, p=[0.06, 0.11, 0.26, 0.35, 0.22])
+    # seconds since 2000-04-25, a minute's resolution within a user: ties
+    ts = 956_703_932 + np.repeat(rng.integers(0, 3 * 10**7, n_users), counts) + rng.integers(0, 2000, n_ratings) * 60
+    ratings = "".join(f"{u}::{m}::{r}::{t}\n" for u, m, r, t in zip(
+        users.tolist(), items.tolist(), stars.tolist(), ts.tolist()))
+    zips = rng.integers(1000, 99999, n_users)
+    ages = [1, 18, 25, 35, 45, 50, 56]
+    users_dat = "".join(
+        f"{u}::{'FM'[int(g)]}::{ages[int(a)]}::{int(o)}::{z:05d}{'-1234' if u % 97 == 0 else ''}\n"
+        for u, g, a, o, z in zip(range(1, n_users + 1), rng.integers(0, 2, n_users),
+                                 rng.integers(0, 7, n_users), rng.integers(0, 21, n_users), zips.tolist())
+    )
+    unrated = rng.choice(np.setdiff1d(np.arange(1, ML1M_MAX_ID + 1), rated), 3883 - n_movies, replace=False)
+    genres = ["Action", "Adventure", "Animation", "Children's", "Comedy", "Crime", "Documentary", "Drama",
+              "Fantasy", "Film-Noir", "Horror", "Musical", "Mystery", "Romance", "Sci-Fi", "Thriller", "War",
+              "Western"]
+    titles = ["Toy Story", "City of Lost Children, The", "Misérables, Les", "Heat", "Seven (Se7en)"]
+    movies = "".join(
+        f"{m}::{titles[m % 5]} {m} ({1919 + m % 81})::"
+        f"{'|'.join(genres[(m * 7 + j) % 18] for j in range(1 + m % 3))}\n"
+        for m in np.sort(np.concatenate([rated, unrated])).tolist()
+    )
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, compresslevel=1) as z:
+        z.writestr("ml-1m/ratings.dat", ratings)
+        z.writestr("ml-1m/users.dat", users_dat)
+        z.writestr("ml-1m/movies.dat", movies.encode("iso-8859-1"))
+
+
+def write_kuairand_1k(data_path: str, events_per_file: int, seed: int = 0) -> None:
+    """`KuaiRand-1K/data/` in the published format: the two
+    `log_standard_*_1k.csv` logs (their 19 columns, in time order) of 1,000
+    users, ``events_per_file`` events a user in each (the published logs
+    hold about 11.7 million in all), and `user_features_1k.csv` (31
+    columns; the five range features as text)."""
+    import csv
+    import os
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    root = os.path.join(data_path, "KuaiRand-1K", "data")
+    os.makedirs(root, exist_ok=True)
+    n_users = KUAI_USERS
+    cols = ["user_id", "video_id", "date", "hourmin", "time_ms", "is_click", "is_like", "is_follow",
+            "is_comment", "is_forward", "is_hate", "long_view", "play_time_ms", "duration_ms",
+            "profile_stay_time", "comment_stay_time", "is_profile_enter", "is_rand", "tab"]
+    t0 = 1_649_347_200_000  # 2022-04-08, in milliseconds
+    for f, name in enumerate(("log_standard_4_08_to_4_21_1k.csv", "log_standard_4_22_to_5_08_1k.csv")):
+        n = n_users * events_per_file
+        time_ms = np.sort(t0 + f * 14 * 86_400_000 + rng.integers(0, 14 * 86_400_000, n))
+        user = rng.permutation(np.repeat(np.arange(n_users), events_per_file))
+        flags = (rng.random((n, 8)) < [0.35, 0.02, 0.003, 0.002, 0.002, 0.001, 0.25, 0.01]).astype(np.int64)
+        day = (time_ms - t0) // 86_400_000
+        table = [user, rng.zipf(1.3, n) % 4_000_000, 20220408 + day, (time_ms // 60_000) % 1440, time_ms,
+                 *flags[:, :7].T, rng.integers(0, 60_000, n), rng.integers(1_000, 300_000, n),
+                 np.zeros(n, np.int64), np.zeros(n, np.int64), flags[:, 7], rng.integers(0, 2, n),
+                 rng.integers(0, 15, n)]
+        with open(os.path.join(root, name), "w", newline="") as fh:
+            w = csv.writer(fh)
+            w.writerow(cols)
+            w.writerows(zip(*(c.tolist() for c in table)))
+    ranges = {
+        "user_active_degree": ["high_active", "full_active", "middle_active", "UNKNOWN"],
+        "follow_user_num_range": ["0", "(0,10]", "(10,50]", "(50,100]", "(100,150]", "(150,250]", "500+"],
+        "fans_user_num_range": ["0", "[1,10)", "[10,100)", "[100,1k)", "[1k,5k)"],
+        "friend_user_num_range": ["0", "[1,5)", "[5,30)", "[30,60)", "[60,120)"],
+        "register_days_range": ["15-30", "31-60", "61-90", "91-180", "181-365", "366-730", "730+"],
+    }
+    pick = {c: [v[i] for i in rng.integers(0, len(v), n_users)] for c, v in ranges.items()}
+    with open(os.path.join(root, "user_features_1k.csv"), "w", newline="") as fh:
+        w = csv.writer(fh)
+        w.writerow(["user_id", "user_active_degree", "is_lowactive_period", "is_live_streamer",
+                    "is_video_author", "follow_user_num", "follow_user_num_range", "fans_user_num",
+                    "fans_user_num_range", "friend_user_num", "friend_user_num_range", "register_days",
+                    "register_days_range"] + [f"onehot_feat{i}" for i in range(18)])
+        for u in range(n_users):
+            w.writerow([u, pick["user_active_degree"][u], 0, 0, u % 2, u * 3, pick["follow_user_num_range"][u],
+                        u * 7, pick["fans_user_num_range"][u], u % 40, pick["friend_user_num_range"][u], 100 + u,
+                        pick["register_days_range"][u]] + rng.integers(0, 9, 18).tolist())
+
+
+def write_ml3b_shards(prefix: str, seqs, num_shards: int) -> None:
+    """A fractal-expansion corpus from in-memory sequences: shards
+    ``<prefix>_{i}.csv`` of ``user_id,"items","ratings"`` rows with 0-based
+    item ids and float ratings, as `run_fractal_expansion` writes them, and
+    the ``<prefix>_users.csv`` index of each shard's row count."""
+    import csv
+
+    U = len(seqs)
+    bounds = [U * i // num_shards for i in range(num_shards + 1)]
+    for i in range(num_shards):
+        with open(f"{prefix}_{i}.csv", "w", newline="") as f:
+            csv.writer(f).writerows(
+                (int(seqs.user_ids[u]), ",".join(map(str, (seqs.item_ids[u] - 1).tolist())),
+                 ",".join(f"{r}.0" for r in seqs.ratings[u].tolist()))
+                for u in range(bounds[i], bounds[i + 1])
+            )
+    with open(f"{prefix}_users.csv", "w", newline="") as f:
+        csv.writer(f).writerows((i, bounds[i + 1] - bounds[i]) for i in range(num_shards))
+
+
+def tree_difference(a, b, path: str = "") -> str:
+    """The first path at which two nested checkpoints differ ("" if none):
+    a tensor's dtype or bits (wherever it lies: `torch.load` puts an
+    optimizer's step counters on the card, AdamW keeps them on the host),
+    a key, a length or another value."""
+    import torch
+
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return f"{path}: keys"
+        return next((d for k in a if (d := tree_difference(a[k], b[k], f"{path}/{k}"))), "")
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return f"{path}: length"
+        return next((d for i, (x, y) in enumerate(zip(a, b)) if (d := tree_difference(x, y, f"{path}/{i}"))), "")
+    if isinstance(a, torch.Tensor):
+        return "" if a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu()) else path
+    return "" if a == b else path
+
+
 def poison_allocator(nbytes: int) -> None:
     """Leaves a NaN-filled block in the caching allocator, so an output that
     a kernel fails to write shows as NaN."""
@@ -202,7 +381,9 @@ def poison_allocator(nbytes: int) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     try:
+        import numpy as np
         import torch
     except ImportError:
         fail("torch is not installed")
@@ -214,7 +395,14 @@ def main() -> None:
             get_hstu_configs,
         )
         from generative_recommenders_tpu_torch.configs.research import RESEARCH_PRESETS
+        from generative_recommenders_tpu_torch.cli import (
+            preprocess_dlrm_data,
+            preprocess_public_data,
+            train_ranker,
+            train_research,
+        )
         from generative_recommenders_tpu_torch.data.dataset import (
+            MultiFileSequenceDataset,
             SequenceDataset,
             batch_iterator,
             synthetic_user_sequences,
@@ -222,6 +410,8 @@ def main() -> None:
         )
         from generative_recommenders_tpu_torch.data.dlrm_dataset import DLRMv3RandomDataset
         from generative_recommenders_tpu_torch.data.features import seq_features_from_row
+        from generative_recommenders_tpu_torch.data.reco_dataset import get_reco_dataset
+        from generative_recommenders_tpu_torch.utils.checkpoint import restore_checkpoint
         from generative_recommenders_tpu_torch.indexing.candidate_index import CandidateIndex
         from generative_recommenders_tpu_torch.models.samplers import LocalNegativesSampler, maybe_l2_norm
         from generative_recommenders_tpu_torch.utils.bucketing import bucket_batch
@@ -618,8 +808,46 @@ def main() -> None:
         num_users=RESEARCH_USERS, num_items=rm.num_items, max_len=rm.max_sequence_len + 1, seed=0
     )
     research_train = SequenceDataset(seqs, rm.max_sequence_len, ignore_last_n=1)
-    research_eval = SequenceDataset(seqs, rm.max_sequence_len, ignore_last_n=0)
     print(f"  made in {time.perf_counter() - t0:.1f} s")
+    # the same corpus as the sharded files of a fractal expansion, read as the
+    # registry reads ML-3B: 0-based ids shifted by one, timestamps = item ids
+    shard_dir = os.path.join(DATA_ROOT, "ml-3b")
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    os.makedirs(shard_dir)
+    t0 = time.perf_counter()
+    write_ml3b_shards(os.path.join(shard_dir, "16x32"), seqs, ML3B_SHARDS)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reco = get_reco_dataset("ml-3b", rm.max_sequence_len, data_root=DATA_ROOT)
+    t_open = time.perf_counter() - t0
+    shard_train, shard_eval = reco.train_dataset, reco.eval_dataset
+    check(shard_train._native is not None and len(shard_train) == RESEARCH_USERS,
+          "the registry's ml-3b is not read through the native reader")
+    py_train = MultiFileSequenceDataset(os.path.join(shard_dir, "16x32"), rm.max_sequence_len, ignore_last_n=1,
+                                        shift_id_by=1, num_items_hint=rm.num_items, native=False)
+    sample = range(0, RESEARCH_USERS, RESEARCH_USERS // SHARD_CHECK_ROWS)
+    read_s = {}
+    for name_, ds_ in (("native", shard_train), ("python", py_train)):
+        t0 = time.perf_counter()
+        rows_ = [ds_.get_row(i) for i in range(RESEARCH_USERS)]
+        read_s[name_] = time.perf_counter() - t0
+        if name_ == "native":
+            native_rows = rows_
+    for i in sample:
+        a, b, m = native_rows[i], py_train.get_row(i), research_train.get_row(i)
+        check(all(np.array_equal(a[k], b[k]) for k in a), f"shard row {i}: native and Python paths differ")
+        check(all(np.array_equal(a[k], m[k]) for k in ("user_id", "historical_ids", "historical_ratings",
+                                                         "history_lengths", "target_ids", "target_ratings")),
+              f"shard row {i} differs from the in-memory row")
+        check(np.array_equal(a["historical_timestamps"], a["historical_ids"]), f"shard row {i}: timestamps")
+    print(
+        f"  as {ML3B_SHARDS} shards of a fractal-expansion corpus ({DATA_ROOT}/ml-3b/16x32_*.csv, 0-based ids): "
+        f"written in {t_write:.2f} s, opened through get_reco_dataset('ml-3b') in {t_open:.3f} s; "
+        f"{len(sample)} rows equal on the native reader, the Python path and in memory; all "
+        f"{RESEARCH_USERS} rows read natively at {RESEARCH_USERS / read_s['native']:.0f} rows/s, "
+        f"by Python at {RESEARCH_USERS / read_s['python']:.0f} rows/s (one thread, this host)"
+    )
+    del native_rows, rows_, py_train
 
     def relbias_views(Bc, N, Hc, Dc, Vc):
         """q, k, v as the research STU gives them: views of the split of one
@@ -646,7 +874,7 @@ def main() -> None:
         ts = 1_500_000_000 + torch.cumsum(steps, dim=1)
         return ts * (torch.arange(N, device="cuda")[None, :] <= lengths[:, None])
 
-    def tables(Nm, nb):
+    def bias_tables(Nm, nb):
         return rand(2 * Nm - 1) * 0.1, rand(nb + 1) * 0.1
 
     rel_errs = {"K6": [], "K7": []}
@@ -656,7 +884,7 @@ def main() -> None:
         """K6 against the plain forward, K7 against the plain backward, on
         uvqk views and a non-contiguous dO; dead rows exactly 0."""
         q, k, v = relbias_views(Bc, N, Hc, Dc, Vc)
-        pos_w, ts_w = tables(Nm or N, nb)
+        pos_w, ts_w = bias_tables(Nm or N, nb)
         do = rand(N, Bc, Hc, Vc).transpose(0, 1)
         # the research STU's scales: alpha 1, the runtime N as the normaliser
         args = dict(alpha=1.0, max_seq_len=N, num_buckets=nb, num_targets=nt, **kw)
@@ -1011,17 +1239,18 @@ def main() -> None:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     steps_total = RESEARCH_WARMUPS + RESEARCH_STEPS
-    eval_batches = len(research_eval) // rcfg.eval_batch_size
+    eval_batches = len(shard_eval) // rcfg.eval_batch_size
     print(
         f"research phase: preset {RESEARCH_PRESET}: {rm.num_blocks} blocks, H={RH}, dqk=dv={RD}, "
         f"d={rm.item_embedding_dim}, N={RN}, batch {RB}, {rcfg.num_negatives} negatives, "
         f"{rm.num_items:,} items, float32, dropout {rm.dropout_rate} / {rm.linear_dropout_rate}; "
-        f"{steps_total} steps, then an eval of {eval_batches} batches"
+        f"{steps_total} steps, then an eval of {eval_batches} batches; the corpus read from its shards "
+        f"through the registry (get_reco_dataset('ml-3b'), native reader)"
     )
     count_reset()
     t0 = time.perf_counter()
     rout = research.train_loop(
-        dataclasses.replace(rcfg, num_epochs=1), research_train, research_eval,
+        dataclasses.replace(rcfg, num_epochs=1), shard_train, shard_eval,
         log_every=1, max_steps=steps_total, device="cuda",
     )
     loop_s = time.perf_counter() - t0
@@ -1053,7 +1282,7 @@ def main() -> None:
     want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
               "K6": rm.num_blocks * (steps_total + eval_batches), "K7": rm.num_blocks * steps_total}
     check(n == want_n, f"the research loop launched {n}, expected {want_n}")
-    rbatch = next(batch_iterator(research_train, RB, shuffle=True, seed=7))
+    rbatch = next(batch_iterator(shard_train, RB, shuffle=True, seed=7))
     profile("research training step", lambda: rtrainer.train_step(rbatch))
     # the optimizer alone (dense AdamW over every parameter, the whole item
     # table and its two moments included), on the gradients the step left
@@ -1380,6 +1609,209 @@ def main() -> None:
     del btrainer, cmodel, caches, index
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------- ml-1m, end to end
+    # the published archive, preprocessed by the CLI into tmp/, then the
+    # large HSTU preset trained through the research CLI on the registry's
+    # files, with a checkpoint
+    for d_ in ("ml-1m", "processed/ml-1m", "ckpt"):
+        shutil.rmtree(os.path.join(DATA_ROOT, d_), ignore_errors=True)
+    os.makedirs(DATA_ROOT, exist_ok=True)
+    t0 = time.perf_counter()
+    write_movielens_1m_zip(os.path.join(DATA_ROOT, "movielens1m.zip"))
+    t_zip = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_items = preprocess_public_data.main(["--dataset_name", "ml-1m", "--data_root", DATA_ROOT])
+    t_pre = time.perf_counter() - t0
+    check(n_items == ML1M_MOVIES, f"ml-1m preprocessing found {n_items} movies")
+    sasrec_csv = os.path.join(DATA_ROOT, "ml-1m", "sasrec_format.csv")
+    mcfg = RESEARCH_PRESETS[ML1M_PRESET]
+    t0 = time.perf_counter()
+    ml1m_reco = get_reco_dataset("ml-1m", mcfg.model.max_sequence_len, data_root=DATA_ROOT)
+    t_load = time.perf_counter() - t0
+    check(len(ml1m_reco.train_dataset) == ML1M_USERS and ml1m_reco.item_features is not None,
+          "the registry's ml-1m")
+    mm1 = mcfg.model
+    m_steps = ML1M_USERS // mcfg.local_batch_size
+    m_eval = ML1M_USERS // mcfg.eval_batch_size
+    print(
+        f"ml-1m phase: movielens1m.zip in the published format ({ML1M_USERS:,} users, {ML1M_RATINGS:,} ratings, "
+        f"{ML1M_MOVIES:,} movies) written in {t_zip:.1f} s; preprocess_public_data --dataset_name ml-1m "
+        f"{t_pre:.1f} s; get_reco_dataset('ml-1m') {t_load:.1f} s of host time; preset {ML1M_PRESET} "
+        f"({mm1.num_blocks} blocks, H={mm1.num_heads}, dqk=dv={mm1.dqk}, d={mm1.item_embedding_dim}, "
+        f"N={mm1.total_seq_len}, batch {mcfg.local_batch_size}) through train_research, one epoch: "
+        f"{m_steps} steps and a full eval of {m_eval} batches, --ckpt_dir"
+    )
+    # K6 and K7 at this preset's shape (D = V = 25, H = 2, N = 211) on a
+    # batch of the preprocessed data: held to their plain versions and timed
+    row = next(batch_iterator(ml1m_reco.train_dataset, mcfg.local_batch_size, shuffle=True, seed=0))
+    f1, _, _ = seq_features_from_row({k_: torch.as_tensor(v_, device="cuda") for k_, v_ in row.items()},
+                                     mm1.gr_output_length + 1)
+    l1, ts1 = f1.past_lengths.int(), f1.past_payloads["timestamps"]
+    N1 = ts1.shape[1]
+    q_, k_, v_, pw_, tw_, do_, a_ = relbias_case(
+        f"ml-1m large preset (B={mcfg.local_batch_size}, N={N1}, H={mm1.num_heads}, D=V={mm1.dqk}), a batch of "
+        f"the preprocessed ml-1m", mcfg.local_batch_size, N1, l1, ts1, Hc=mm1.num_heads, Dc=mm1.dqk, Vc=mm1.dv)
+    ml1m_ms = (
+        device_time_ms(lambda: hstu_mha_dense_relbias_cuda(q_, k_, v_, l1, ts1, pw_, tw_, **a_), 20),
+        device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(q_, k_, v_, l1, ts1, pw_, tw_, do_, **a_), 10),
+        device_time_ms(lambda: hstu_mha_dense_relbias_plain(q_, k_, v_, l1, ts1, pw_, tw_, **a_), 3),
+        device_time_ms(lambda: hstu_mha_relbias_bwd_plain(q_, k_, v_, l1, ts1, pw_, tw_, do_, **a_), 2),
+    )
+    live1 = apply_padding_guard(make_valid_attn_mask(N1, l1), l1).sum().item()
+    rows1, H1, D1 = l1.sum().item() * mm1.num_heads, mm1.num_heads, mm1.dqk
+    small1 = 4 * (mcfg.local_batch_size * N1 + pw_.numel() + tw_.numel() + mcfg.local_batch_size)
+    b6 = max(live1 * H1 * 4 * D1 / PEAK_3XTF32_FLOPS,
+             (4 * (rows1 * 3 * D1 + mcfg.local_batch_size * N1 * H1 * D1) + small1) / PEAK_BYTES_PER_S) * 1e3
+    b7 = max(live1 * H1 * 10 * D1 / PEAK_3XTF32_FLOPS,
+             (4 * (rows1 * 4 * D1 + mcfg.local_batch_size * N1 * H1 * 3 * D1 + pw_.numel() + tw_.numel())
+              + small1) / PEAK_BYTES_PER_S) * 1e3
+    print(f"  ml-1m large preset at N={N1} (mean length {l1.float().mean().item():.1f}): K6 {ml1m_ms[0]:.4f} ms "
+          f"(plain {ml1m_ms[2]:.4f}, bound {b6:.4f}), K7 {ml1m_ms[1]:.4f} ms (plain {ml1m_ms[3]:.4f}, bound {b7:.4f})")
+    del ml1m_reco, q_, k_, v_, do_
+    ck_research = os.path.join(DATA_ROOT, "ckpt", "ml-1m-research")
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    t0 = time.perf_counter()
+    mout = train_research.main(["--preset", ML1M_PRESET, "--num_epochs", "1", "--ckpt_dir", ck_research,
+                                "--device", "cuda"])
+    m_wall = time.perf_counter() - t0
+    n = counts()
+    mlosses, msteps, mmetrics = mout["losses"], mout["step_s"], mout["history"][-1]
+    m_med = 1e3 * median(msteps[RESEARCH_WARMUPS:])
+    print(
+        f"  {len(msteps)} steps: {mcfg.local_batch_size * (len(msteps) - RESEARCH_WARMUPS) / sum(msteps[RESEARCH_WARMUPS:]):.1f} "
+        f"examples/s after {RESEARCH_WARMUPS} warm-ups, median step {m_med:.2f} ms; loss {mlosses[0]:.4f} -> "
+        f"{mlosses[-1]:.4f}; eval HR@10 {mmetrics['hr@10']:.4f}, NDCG@10 {mmetrics['ndcg@10']:.4f}, MRR "
+        f"{mmetrics['mrr']:.5f}; the CLI's wall time {m_wall:.1f} s; launches {n}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    check(len(mlosses) == m_steps and all(math.isfinite(x) for x in mlosses), f"ml-1m losses: {mlosses}")
+    check(sum(mlosses[-5:]) < sum(mlosses[:5]), "the ml-1m loss does not fall")
+    want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+              "K6": mm1.num_blocks * (m_steps + m_eval), "K7": mm1.num_blocks * m_steps}
+    check(n == want_n, f"the ml-1m run launched {n}, expected {want_n}")
+    saved = restore_checkpoint(ck_research, "cuda")
+    diff = tree_difference(saved, mout["trainer"].checkpoint_state())
+    print(f"  checkpoint {ck_research}/1.pt restored: every tensor bit-equal to the trainer's: {not diff}")
+    check(not diff, f"the restored research checkpoint differs from the trainer's state at {diff}")
+    m_trainer = mout["trainer"]
+    profile("ml-1m research training step", lambda: m_trainer.train_step(row))
+    del mout, saved, m_trainer
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------- ranker on movielens-1m
+    ck_ranker = os.path.join(DATA_ROOT, "ckpt", "ml-1m-ranker")
+    rk_common = ["--dataset", "movielens-1m", "--data_file", sasrec_csv, "--device", "cuda"]
+    mr_cfg = get_hstu_configs("movielens-1m")
+    L_mr = mr_cfg.hstu_attn_num_layers
+    print(
+        f"movielens-1m ranker phase: train_ranker's defaults (hash 100,000, uih {mr_cfg.max_uih_len} + "
+        f"{mr_cfg.max_num_candidates} candidates, batch 32), {L_mr} layers, H={mr_cfg.hstu_num_heads}, "
+        f"qk=v={mr_cfg.hstu_attn_qk_dim}, d_model {mr_cfg.hstu_transducer_embedding_dim}, table dim "
+        f"{mr_cfg.hstu_embedding_table_dim}; {RANKER_STEPS} steps with --ckpt_dir, then --mode eval over "
+        f"{RANKER_EVAL_BATCHES} batches, then inference.main --accuracy from the checkpoint; the checkpoint "
+        f"restored bit-equal to the trainer's parameters"
+    )
+    count_reset()
+    rk_out = train_ranker.main(rk_common + ["--num_batches", str(RANKER_STEPS), "--ckpt_dir", ck_ranker])
+    n = counts()
+    check(len(rk_out["losses"]) == RANKER_STEPS and all(math.isfinite(x) for x in rk_out["losses"]),
+          f"movielens-1m ranker losses {rk_out['losses']}")
+    check(n == {"K1": L_mr * RANKER_STEPS, "K2": L_mr * RANKER_STEPS, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
+          f"the movielens-1m ranker's steps launched {n}")
+    rk_trainer = rk_out.pop("trainer")
+    diff = tree_difference(restore_checkpoint(ck_ranker, "cuda"), rk_trainer.model.state_dict())
+    check(not diff, f"the restored ranker checkpoint differs from the trainer's parameters at {diff}")
+    rk_batch = to_device(next(make_dlrm_batches("movielens-1m", rk_trainer.hstu_cfg, data_file=sasrec_csv,
+                                                hash_size=100_000, batch_size=32, num_batches=1)),
+                         rk_trainer.device)
+    profile("movielens-1m ranker training step", lambda: rk_trainer.train_step(rk_batch))
+    del rk_trainer, rk_batch
+    print(
+        f"  train: {rk_out['examples_per_s']:.1f} examples/s, median step {1e3 * median(rk_out['step_s'][2:]):.2f} ms, "
+        f"loss {rk_out['losses'][0]:.4f} -> {rk_out['losses'][-1]:.4f}, metrics "
+        f"{ {k: round(v, 5) for k, v in rk_out['metrics'].items()} }; launches {n}"
+    )
+    count_reset()
+    rk_eval = train_ranker.main(rk_common + ["--mode", "eval", "--num_batches", str(RANKER_EVAL_BATCHES),
+                                             "--ckpt_dir", ck_ranker])["metrics"]
+    n = counts()
+    check(n == {"K1": L_mr * RANKER_EVAL_BATCHES, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
+          f"train_ranker --mode eval launched {n}")
+    print(f"  --mode eval from the checkpoint: { {k: round(v, 5) for k, v in rk_eval.items()} }; launches {n}")
+    serve_args = rk_common + [
+        "--accuracy", "--hash_size", "100000", "--max_uih_len", str(mr_cfg.max_uih_len),
+        "--max_num_candidates", str(mr_cfg.max_num_candidates), "--batch_size", "32",
+        "--num_qsl_batches", str(ACC_QSL_BATCHES), "--num_warmups", "2",
+    ]
+    acc, logs = {}, {}
+    mr_chunks = -(-mr_cfg.max_num_candidates // mr_cfg.max_num_candidates_inference)
+    predicts = 2 + ACC_QSL_BATCHES
+    for name_, extra in (("checkpoint, int8 tables (as served)", ["--ckpt_dir", ck_ranker]),
+                         ("checkpoint, float tables", ["--ckpt_dir", ck_ranker, "--no_quantize"]),
+                         ("checkpoint, M-FALCON", ["--ckpt_dir", ck_ranker, "--mfalcon"]),
+                         ("fresh weights, int8 tables", [])):
+        log_path = os.path.join(DATA_ROOT, "ckpt", f"accuracy_{len(acc)}.json")
+        count_reset()
+        acc[name_] = serve.main(serve_args + extra + ["--accuracy_log", log_path])
+        n = counts()
+        mf = "--mfalcon" in extra
+        want_n = {"K1": L_mr * predicts, "K2": 0, "K3": 0, "K4": 0,
+                  "K5": L_mr * mr_chunks * predicts if mf else 0, "K6": 0, "K7": 0}
+        check(n == want_n, f"accuracy serving ({name_}) launched {n}, expected {want_n}")
+        with open(log_path) as f_:
+            logs[name_] = np.asarray([x for r in json.load(f_) for x in r["data"]], dtype=np.float64)
+        print(f"  inference.main --accuracy, {name_}: { {k: round(v, 5) for k, v in acc[name_].items()} }; "
+              f"launches K1 {n['K1']}, K5 {n['K5']} over {predicts} predicts")
+        check(logs[name_].size == ACC_QSL_BATCHES * 32 * mr_cfg.max_num_candidates
+              and np.isfinite(logs[name_]).all(), f"accuracy log of {name_}")
+    mf_err = np.abs(logs["checkpoint, float tables"] - logs["checkpoint, M-FALCON"]).max()
+    print(f"  dense vs M-FALCON predictions (float tables, {logs['checkpoint, M-FALCON'].size} scores): "
+          f"max_abs_diff {mf_err:.3e} (tol {PRED_TOL})")
+    check(mf_err <= PRED_TOL, "dense and M-FALCON accuracy predictions disagree")
+    # the same 8 batches in file order, the model's float tables: accuracy
+    # mode and --mode eval compute the same predictions
+    acc_f = acc["checkpoint, float tables"]
+    eval_gap = max(abs(acc_f[k] - rk_eval[k]) / max(abs(rk_eval[k]), 1e-12) for k in rk_eval)
+    print(f"  accuracy mode (float tables) against --mode eval on the same batches: largest relative "
+          f"difference of a metric {eval_gap:.3e} (tol 1e-4)")
+    check(acc_f.keys() == rk_eval.keys() and eval_gap <= 1e-4, "accuracy mode and --mode eval disagree")
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- KuaiRand-1K
+    kuai_root = os.path.join(DATA_ROOT, "KuaiRand-1K")
+    shutil.rmtree(kuai_root, ignore_errors=True)
+    t0 = time.perf_counter()
+    write_kuairand_1k(DATA_ROOT, KUAI_EVENTS_PER_FILE)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kuai_csv = preprocess_dlrm_data.main(["--dataset", "kuairand-1k", "--data_path", DATA_ROOT, "--skip_download"])
+    t_pre = time.perf_counter() - t0
+    kr_cfg = get_hstu_configs("kuairand-1k")
+    print(
+        f"KuaiRand-1K phase: the published logs' format, {KUAI_USERS} users x {2 * KUAI_EVENTS_PER_FILE} events "
+        f"(cut from ~11.7 million events in all) written in {t_write:.1f} s; preprocess_dlrm_data --skip_download "
+        f"{t_pre:.1f} s of host time; train_ranker --dataset kuairand-1k, {RANKER_STEPS} steps, "
+        f"{len(kr_cfg.multitask_configs)} tasks, {len(get_embedding_table_config('kuairand-1k'))} tables"
+    )
+    count_reset()
+    kr_out = train_ranker.main(["--dataset", "kuairand-1k", "--data_file", kuai_csv, "--device", "cuda",
+                                "--num_batches", str(RANKER_STEPS)])
+    n = counts()
+    L_kr = kr_cfg.hstu_attn_num_layers
+    check(len(kr_out["losses"]) == RANKER_STEPS and all(math.isfinite(x) for x in kr_out["losses"]),
+          f"KuaiRand losses {kr_out['losses']}")
+    check(n == {"K1": L_kr * RANKER_STEPS, "K2": L_kr * RANKER_STEPS, "K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0},
+          f"the KuaiRand steps launched {n}")
+    check(len([k for k in kr_out["metrics"] if k.endswith("/ne")]) == 8, f"KuaiRand metrics {kr_out['metrics']}")
+    print(
+        f"  {kr_out['examples_per_s']:.1f} examples/s, median step {1e3 * median(kr_out['step_s'][2:]):.2f} ms, "
+        f"loss {kr_out['losses'][0]:.4f} -> {kr_out['losses'][-1]:.4f}; NE per task "
+        f"{ {k.split('/')[0]: round(v, 4) for k, v in kr_out['metrics'].items() if k.endswith('/ne')} }; "
+        f"launches {n}"
+    )
+    torch.cuda.empty_cache()
+
     # --------------------------------------------------------------- report
     def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes, peak=PEAK_F32_FLOPS):
         """``peak``: the rate the kernel's operations are held to, float32
@@ -1435,6 +1867,7 @@ def main() -> None:
             f"({kr['bound_by']}; operations {kr['operations_ms']:.4f} ms at {kr['operations_peak']}, bytes "
             f"{kr['bytes_ms']:.4f} ms), plain {kr['plain_ms']:.4f} ms, {kr['launches']} launches on the main paths"
         )
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -3,13 +3,20 @@
 
     python -m generative_recommenders_tpu_torch.cli.train_ranker \\
         --dataset debug --mode train --num_batches 50 [--device cpu] \\
-        [--tb_log_dir DIR]
+        [--tb_log_dir DIR] [--ckpt_dir DIR]
 
-Trains on the GPU; ``--device cpu`` trains on the CPU with the kernels'
-plain versions. Only the random ``debug`` dataset and ``--mode train`` are
-ported. The mesh, checkpoints and eval from them, the trace, the dynamic STU
-wrappers, the attention-kernel choice and the distributed flags are not, so
-their flags are refused.
+    python -m generative_recommenders_tpu_torch.cli.train_ranker \\
+        --dataset movielens-1m --data_file tmp/ml-1m/sasrec_format.csv \\
+        --mode eval --ckpt_dir DIR
+
+``--dataset`` is the random ``debug`` set or a preprocessed public one
+(`data/dlrm_factory.py`; ``--data_file`` defaults to the preprocess CLIs'
+output). With ``--ckpt_dir``, training starts from the latest checkpoint
+there and saves one at its end; ``--mode eval`` restores it and evaluates
+(NE, AUC or MSE per task) on the dataset in file order. Trains on the GPU;
+``--device cpu`` trains on the CPU with the kernels' plain versions. The
+mesh, the trace, the dynamic STU wrappers, the attention-kernel choice and
+the distributed flags are not ported, so their flags are refused.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from generative_recommenders_tpu_torch.data.dlrm_factory import make_dlrm_batche
 from generative_recommenders_tpu_torch.train.dlrm_train import (
     DlrmTrainConfig,
     DlrmTrainer,
+    eval_loop,
     train_loop,
 )
 
@@ -37,8 +45,12 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         level=logging.INFO, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )
     p = argparse.ArgumentParser()
-    p.add_argument("--dataset", default="debug", choices=["debug"])
-    p.add_argument("--mode", default="train", choices=["train"])
+    p.add_argument("--dataset", default="debug",
+                   choices=["debug", "movielens-1m", "movielens-20m", "kuairand-1k"])
+    p.add_argument("--mode", default="train", choices=["train", "eval"])
+    p.add_argument("--data_file", default=None,
+                   help="the dataset's csv (sasrec_format.csv for movielens, processed_seqs.csv "
+                   "for kuairand); defaults to the preprocess CLIs' output")
     p.add_argument("--num_batches", type=int, default=100)
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--max_uih_len", type=int, default=256)
@@ -46,7 +58,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--hash_size", type=int, default=100_000)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--tb_log_dir", default=None, help="write TensorBoard scalars here")
+    p.add_argument("--ckpt_dir", default=None)
     args = p.parse_args(argv)
+    if args.mode == "eval" and not args.ckpt_dir:
+        p.error("--mode eval needs --ckpt_dir")
 
     hstu_cfg = get_hstu_configs(
         args.dataset, max_uih_len=args.max_uih_len, max_num_candidates=args.max_num_candidates
@@ -56,21 +71,24 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     )
     trainer = DlrmTrainer(
         hstu_cfg, tables,
-        DlrmTrainConfig(tb_log_dir=args.tb_log_dir),
+        DlrmTrainConfig(tb_log_dir=args.tb_log_dir, ckpt_dir=args.ckpt_dir),
         device=args.device,
     )
-    out = train_loop(
-        trainer,
-        make_dlrm_batches(
-            args.dataset, hstu_cfg, hash_size=args.hash_size,
-            batch_size=args.batch_size, num_batches=args.num_batches,
-        ),
+    batches = make_dlrm_batches(
+        args.dataset, hstu_cfg, data_file=args.data_file, hash_size=args.hash_size,
+        batch_size=args.batch_size, num_batches=args.num_batches, shuffle=args.mode == "train",
     )
+    if args.mode == "eval":
+        trainer.restore(args.ckpt_dir)
+        metrics = eval_loop(trainer, batches)
+        logger.info("eval metrics: %s", {k: round(v, 5) for k, v in metrics.items()})
+        return {"metrics": metrics}
+    out = train_loop(trainer, batches)
     logger.info(
         "done: %.1f examples/s; metrics %s",
         out["examples_per_s"], {k: round(v, 5) for k, v in out["metrics"].items()},
     )
-    return out
+    return {**out, "trainer": trainer}
 
 
 if __name__ == "__main__":

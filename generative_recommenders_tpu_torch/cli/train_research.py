@@ -1,24 +1,27 @@
 """Research training CLI (port of
 `generative_recommenders_tpu/cli/train_research.py`): loads a frozen preset
-(or the smoke config), builds the dataset from a `sasrec_format.csv`, and
-runs the training loop with its periodic full-corpus eval.
+(or the smoke config), builds its dataset, and runs the training loop with
+its periodic full-corpus eval and checkpoints.
 
     python -m generative_recommenders_tpu_torch.cli.train_research \\
-        --preset ml-1m/hstu-sampled-softmax-n128 \\
-        --data_csv tmp/ml-1m/sasrec_format.csv [--num_epochs N] [--device cpu]
+        --preset ml-1m/hstu-sampled-softmax-n128 [--num_epochs N] [--device cpu] \\
+        [--data_csv tmp/ml-1m/sasrec_format.csv | --multifile_prefix tmp/ml-3b/16x32] \\
+        [--ckpt_dir ckpts/ml-1m [--save_ckpt_every_n 10]]
 
     python -m generative_recommenders_tpu_torch.cli.train_research --smoke [--num_epochs N]
 
+The dataset: a `sasrec_format.csv` (``--data_csv``), a sharded
+fractal-expansion corpus (``--multifile_prefix``; its ids are 0-based, as
+the registry's ml-3b reads them), or else the registry's files for the
+preset's dataset under ``tmp/`` (`data/reco_dataset.py:get_reco_dataset`).
+With ``--ckpt_dir`` the loop saves ``{params, opt_state}`` every
+``--save_ckpt_every_n`` epochs and once more at the end (step = epochs).
 Any preset trains, the SASRec baselines included; with a preset,
 ``--stochastic_length_alpha`` and ``--seq_len_buckets 64,128,200`` override
 its stochastic length and length buckets (the smoke run keeps its own
 config, as in the JAX CLI). Trains on the GPU; ``--device cpu`` trains on
 the CPU with the kernels' plain versions. Not ported, so their flags are
-refused:
-checkpoints (``--ckpt_dir``), the sharded multi-file corpus
-(``--multifile_prefix``), the attention-kernel choice and the distributed
-flags. A preset needs ``--data_csv``: the dataset registry that finds
-preprocessed files by name is not ported.
+refused: the attention-kernel choice and the distributed flags.
 """
 
 from __future__ import annotations
@@ -33,12 +36,15 @@ import torch
 
 from generative_recommenders_tpu_torch.configs.research import RESEARCH_PRESETS
 from generative_recommenders_tpu_torch.data.dataset import (
+    MultiFileSequenceDataset,
     SequenceDataset,
     load_sasrec_format_csv,
     synthetic_user_sequences,
 )
+from generative_recommenders_tpu_torch.data.reco_dataset import get_reco_dataset
 from generative_recommenders_tpu_torch.models.sequential import ModelConfig
 from generative_recommenders_tpu_torch.train.train_loop import TrainConfig, train_loop
+from generative_recommenders_tpu_torch.utils.checkpoint import save_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -70,6 +76,10 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     p = argparse.ArgumentParser()
     p.add_argument("--preset", default=None)
     p.add_argument("--data_csv", default=None)
+    p.add_argument("--multifile_prefix", default=None,
+                   help="sharded fractal-expansion corpus prefix, e.g. tmp/ml-3b/16x32")
+    p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--save_ckpt_every_n", type=int, default=10)
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--stochastic_length_alpha", type=float, default=None,
                    help="stochastic length's alpha; 0 = off")
@@ -93,8 +103,6 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
 
     if args.preset not in RESEARCH_PRESETS:
         p.error(f"unknown preset {args.preset}; use --list_presets")
-    if not args.data_csv:
-        p.error("a preset needs --data_csv (a preprocessed sasrec_format.csv)")
     overrides: Dict[str, Any] = {}
     if args.num_epochs is not None:
         overrides["num_epochs"] = args.num_epochs
@@ -104,14 +112,31 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
         overrides["seq_len_buckets"] = tuple(int(x) for x in args.seq_len_buckets.split(","))
     cfg = dataclasses.replace(RESEARCH_PRESETS[args.preset], **overrides)
     N = cfg.model.max_sequence_len
-    seqs = load_sasrec_format_csv(args.data_csv)
     # train ignores each user's last item, eval targets it
-    train_ds = SequenceDataset(seqs, max_sequence_length=N, ignore_last_n=1)
-    eval_ds = SequenceDataset(seqs, max_sequence_length=N, ignore_last_n=0)
+    if args.multifile_prefix:
+        train_ds, eval_ds = (
+            MultiFileSequenceDataset(
+                args.multifile_prefix, max_sequence_length=N, ignore_last_n=n, shift_id_by=1,
+                num_items_hint=cfg.model.num_items,
+            )
+            for n in (1, 0)
+        )
+    elif args.data_csv:
+        seqs = load_sasrec_format_csv(args.data_csv)
+        train_ds, eval_ds = (SequenceDataset(seqs, max_sequence_length=N, ignore_last_n=n) for n in (1, 0))
+    else:
+        reco = get_reco_dataset(args.preset.split("/")[0], N)
+        train_ds, eval_ds = reco.train_dataset, reco.eval_dataset
     logger.info("dataset: %d users, %d items; device %s", len(train_ds), cfg.model.num_items, args.device)
     t0 = time.time()
-    out = train_loop(cfg, train_ds, eval_ds, device=args.device)
+    out = train_loop(
+        cfg, train_ds, eval_ds, device=args.device, ckpt_dir=args.ckpt_dir,
+        save_ckpt_every_n=args.save_ckpt_every_n if args.ckpt_dir else 0,
+    )
     logger.info("training done in %.1fs", time.time() - t0)
+    if args.ckpt_dir:
+        path = save_checkpoint(args.ckpt_dir, out["trainer"].checkpoint_state(), step=cfg.num_epochs)
+        logger.info("checkpoint -> %s", path)
     for m in out["history"][-1:]:
         logger.info("final eval: %s", {k: round(float(v), 4) for k, v in m.items()})
     return out

@@ -18,6 +18,9 @@ q, k and ``o/kernel`` [in, out]. Its SASRec encoder neither:
 ``encoder/attn_i/{in_proj_weight, in_proj_bias, out_proj_weight,
 out_proj_bias}`` keep torch's [3D, D] and [D, D] (used as ``x @ w.T``) and
 ``encoder/ffn_i/{conv1, conv2}/{kernel, bias}`` are dense layers [in, out].
+The rated preprocessors (``pos_emb``, ``rating_emb``) and
+`CategoricalEmbeddingModule` (``item_emb``; its id-to-category map is not a
+parameter on either side) need none either.
 
 The one renaming: in `DlrmHSTU`, the flax tree holds the transducer's parts
 at the top (``stu``, ``preprocessor``, ``positional_encoder``,

@@ -2,7 +2,9 @@
 copy of what it needs from `generative_recommenders_tpu/data/dataset.py`
 (which imports no JAX, but the port imports nothing of the JAX package). The
 same seed gives the same rows as the JAX package's copy.
-`MultiFileSequenceDataset` is not ported yet.
+`MultiFileSequenceDataset` reads the sharded corpora of the fractal expansion
+through the native reader (`data/native_reader.py`); its Python path runs
+only when the caller asks for it (``native=False``).
 
 Rows come from a `sasrec_format.csv`-compatible source (columns: user_id,
 sequence_item_ids, sequence_ratings, sequence_timestamps: python-literal
@@ -27,6 +29,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List
 
 import numpy as np
+
+from generative_recommenders_tpu_torch.data.native_reader import NativeCorpus
 
 
 @dataclasses.dataclass
@@ -277,6 +281,100 @@ def prefetched_batch_iterator(
             )
         while window:
             yield window.popleft().result()
+
+
+class MultiFileSequenceDataset(SequenceDataset):
+    """Sharded-CSV dataset of the fractal-expansion corpora (ML-3B): shards
+    ``<prefix>_{i}.csv`` with rows ``user_id,"items","ratings"`` and the
+    ``<prefix>_users.csv`` index of each shard's row count, as
+    `cli/run_fractal_expansion.py` writes them. The timestamps are the item
+    ids (the reference's placeholder). Rows are read lazily.
+
+    ``native=True`` (the default) reads through the native reader; a failed
+    build or load raises. ``native=False`` reads with Python's `csv`, through
+    a per-shard line-offset index and per-thread file handles.
+    """
+
+    def __init__(
+        self,
+        file_prefix: str,
+        max_sequence_length: int,
+        ignore_last_n: int,
+        shift_id_by: int = 0,
+        chronological: bool = True,
+        sample_ratio: float = 1.0,
+        seed: int = 0,
+        num_items_hint: int = 0,
+        native: bool = True,
+    ) -> None:
+        self._file_prefix = file_prefix
+        with open(f"{file_prefix}_users.csv", newline="") as f:
+            counts = [int(row[1]) for row in csv.reader(f)]
+        self._cumsum = np.cumsum(counts)
+        self._offsets_cache: Dict[int, np.ndarray] = {}
+        self._offsets_lock = threading.Lock()
+        self._handles = threading.local()
+        self._native = NativeCorpus(file_prefix, counts) if native else None
+        self._shift_id_by = shift_id_by
+        self._num_items_hint = num_items_hint
+        self._max_seq_len = max_sequence_length
+        self._ignore_last_n = ignore_last_n
+        self._chronological = chronological
+        self._sample_ratio = sample_ratio
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return int(self._cumsum[-1])
+
+    def _line_offsets(self, shard: int) -> np.ndarray:
+        if shard not in self._offsets_cache:
+            offs = [0]
+            with open(f"{self._file_prefix}_{shard}.csv", "rb") as f:
+                for line in f:
+                    offs.append(offs[-1] + len(line))
+            arr = np.asarray(offs[:-1], dtype=np.int64)
+            with self._offsets_lock:
+                self._offsets_cache.setdefault(shard, arr)
+        return self._offsets_cache[shard]
+
+    def _shard_handle(self, shard: int):
+        cache = getattr(self._handles, "cache", None)
+        if cache is None:
+            cache = self._handles.cache = {}
+        f = cache.get(shard)
+        if f is None:
+            f = cache[shard] = open(f"{self._file_prefix}_{shard}.csv", newline="")
+        return f
+
+    def _read_line(self, idx: int) -> List[str]:
+        shard = int(np.searchsorted(self._cumsum, idx, side="right"))
+        local = idx - (0 if shard == 0 else int(self._cumsum[shard - 1]))
+        f = self._shard_handle(shard)
+        f.seek(int(self._line_offsets(shard)[local]))
+        return next(csv.reader([f.readline()]))
+
+    def get_row(self, idx: int) -> Dict[str, np.ndarray]:
+        if self._native is not None:
+            user_id, items, ratings = self._native.read_row(int(idx))
+            items = items + self._shift_id_by
+        else:
+            parts = self._read_line(int(idx))
+            user_id = int(parts[0])
+            items = np.asarray([int(x) + self._shift_id_by for x in parts[1].split(",")], dtype=np.int64)
+            ratings = np.asarray([int(float(x)) for x in parts[2].split(",")], dtype=np.int64)
+        seq = UserSequences(
+            user_ids=np.asarray([user_id]), item_ids=[items], ratings=[ratings],
+            timestamps=[items.copy()],  # placeholder timestamps: the item ids
+        )
+        row = SequenceDataset(
+            seq, self._max_seq_len, self._ignore_last_n, self._chronological, self._sample_ratio
+        ).get_row(0)
+        row["user_id"] = np.int64(user_id)
+        return row
+
+    def all_item_ids(self) -> np.ndarray:
+        assert self._num_items_hint > 0, "pass num_items_hint for multi-file corpora (no full scan)"
+        return np.arange(1, self._num_items_hint + 1, dtype=np.int64)
 
 
 def synthetic_user_sequences_vectorized(

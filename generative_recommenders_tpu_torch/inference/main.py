@@ -1,21 +1,32 @@
 """Serving benchmark harness, MLPerf style (port of
 `generative_recommenders_tpu/inference/main.py`): builds the DlrmHSTU model
-family (int8 sparse + dense) from a seed, warms up, runs the C++ load
-generator in the chosen scenario, and reports qps and latency percentiles.
+family (int8 sparse + dense) from a seed or a trained checkpoint, warms up,
+runs the C++ load generator in the chosen scenario, and reports qps and
+latency percentiles; or, with ``--accuracy``, scores every query sample once
+and reports NE / AUC (MSE for a regression task) against the dataset's
+supervision.
 
     python -m generative_recommenders_tpu_torch.inference.main \\
         --scenario Offline --num_queries 64 --batch_size 8 [--mfalcon]
 
-Runs on the GPU; ``--device cpu`` runs it on the CPU with the kernels'
-plain versions. Accuracy mode, the real datasets and checkpoint restore are
-not ported yet.
+    python -m generative_recommenders_tpu_torch.inference.main --accuracy \\
+        --dataset movielens-1m --data_file tmp/ml-1m/sasrec_format.csv \\
+        --ckpt_dir DIR --hash_size 100000 --max_uih_len 256 --batch_size 32
+
+``--dataset`` is the random ``debug`` set or a preprocessed public one
+(`data/dlrm_factory.py`); a real dataset's partial last batch is dropped.
+``--ckpt_dir`` loads the ranker trainer's latest checkpoint (the tables are
+quantized from it), so the model's sizes must be the trainer's. Runs on the
+GPU; ``--device cpu`` runs it on the CPU with the kernels' plain versions.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
+import os
 from typing import Dict, List, Optional
 
 import torch
@@ -37,6 +48,12 @@ from generative_recommenders_tpu_torch.inference.loadgen import (
 )
 from generative_recommenders_tpu_torch.inference.model_family import HSTUModelFamily
 from generative_recommenders_tpu_torch.modules.dlrm_hstu import DlrmHSTU
+from generative_recommenders_tpu_torch.modules.multitask_module import (
+    get_supervision_labels_and_weights,
+)
+from generative_recommenders_tpu_torch.ops.padded import valid_mask
+from generative_recommenders_tpu_torch.train.dlrm_metrics import MetricsLogger
+from generative_recommenders_tpu_torch.utils.checkpoint import restore_checkpoint
 
 logger = logging.getLogger(__name__)
 
@@ -60,6 +77,11 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
         help="per-query latency bound (0 = unconstrained); enables early "
         "stopping for the stream scenarios",
     )
+    p.add_argument(
+        "--accuracy", action="store_true",
+        help="accuracy mode: every query sample once, predictions logged, NE/AUC reported",
+    )
+    p.add_argument("--accuracy_log", default="build/accuracy_log.json")
     p.add_argument("--target_qps", type=float, default=20.0)
     p.add_argument("--num_queries", type=int, default=64)
     p.add_argument("--min_duration_ms", type=int, default=0)
@@ -75,6 +97,12 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
         help="M-FALCON chunk size (max_num_candidates_inference); 0 = config default",
     )
     p.add_argument("--no_quantize", action="store_true")
+    p.add_argument("--dataset", default="debug",
+                   choices=["debug", "movielens-1m", "movielens-20m", "kuairand-1k"],
+                   help="serve a preprocessed public dataset instead of the random one")
+    p.add_argument("--data_file", default=None)
+    p.add_argument("--ckpt_dir", default=None,
+                   help="serve the ranker trainer's latest checkpoint in this directory")
     p.add_argument("--num_qsl_batches", type=int, default=8)
     # model-size overrides (0 = the preset's value)
     p.add_argument("--num_layers", type=int, default=0)
@@ -97,7 +125,7 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
             "no CUDA device is available; pass --device cpu to run on the CPU"
         )
     cfg = get_hstu_configs(
-        "debug", max_uih_len=args.max_uih_len, max_num_candidates=args.max_num_candidates
+        args.dataset, max_uih_len=args.max_uih_len, max_num_candidates=args.max_num_candidates
     )
     if args.candidates_per_chunk:
         cfg = dataclasses.replace(cfg, max_num_candidates_inference=args.candidates_per_chunk)
@@ -113,10 +141,13 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     tables = get_embedding_table_config(
-        "debug", hash_size=args.hash_size, dim=cfg.hstu_embedding_table_dim
+        args.dataset, hash_size=args.hash_size, dim=cfg.hstu_embedding_table_dim
     )
     with torch.device(device):
         model = DlrmHSTU(cfg, tables, torch.Generator(device).manual_seed(0))
+    if args.ckpt_dir:
+        model.load_state_dict(restore_checkpoint(args.ckpt_dir, device))
+        logger.info("restored trained parameters from %s", args.ckpt_dir)
     family = HSTUModelFamily(model, quantize=not args.no_quantize)
 
     # fixed query set (the QSL); queries cycle through pre-made batches
@@ -125,12 +156,16 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
 
     samples, live = [], []  # live: the real (not padded) candidates of each batch
     for u, ul, c, nc in make_dlrm_batches(
-        "debug", cfg, hash_size=args.hash_size, batch_size=args.batch_size,
-        num_batches=args.num_qsl_batches,
+        args.dataset, cfg, data_file=args.data_file, hash_size=args.hash_size,
+        batch_size=args.batch_size, num_batches=args.num_qsl_batches,
     ):
+        if ul.shape[0] != args.batch_size:  # a real dataset's partial last batch
+            continue
         samples.append((to_device(u), torch.as_tensor(ul, device=device), to_device(c),
                         torch.as_tensor(nc, device=device)))
         live.append(int(nc.sum()))
+    if not samples:
+        raise ValueError(f"{args.dataset}: no full batch of {args.batch_size} samples")
 
     def predict(sample):
         s_uih, s_ul, s_cands, s_nc = sample
@@ -148,6 +183,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     for i in range(args.num_warmups):
         predict(samples[i % len(samples)])
 
+    if args.accuracy:
+        return _run_accuracy(args, cfg, samples, predict)
     if args.data_producer_threads > 1:
         producer = MultiThreadDataProducer(predict, args.data_producer_threads)
     else:
@@ -204,6 +241,39 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     )
     print(result)
     return result
+
+
+def _run_accuracy(args, cfg, samples, predict) -> Dict[str, float]:
+    """Every QSL sample once, on this thread (the reference runs accuracy
+    with one producer thread); predictions logged to ``--accuracy_log`` as
+    JSON, NE / AUC (MSE) against the candidates' supervision."""
+    metrics = MetricsLogger(cfg.multitask_configs)
+    log = []
+    for qid, sample in enumerate(samples):
+        _, _, s_cands, s_nc = sample
+        preds = predict(sample)  # [T, B, M]
+        labels_d, weights_d = get_supervision_labels_and_weights(
+            s_cands[cfg.candidates_weight_feature_name],
+            s_cands[cfg.candidates_watchtime_feature_name],
+            cfg.multitask_configs,
+        )
+        valid = valid_mask(s_nc, cfg.max_num_candidates).float()
+        labels = torch.stack([labels_d[t.task_name] for t in cfg.multitask_configs])
+        weights = torch.stack(
+            [weights_d.get(t.task_name, valid) * valid for t in cfg.multitask_configs]
+        )
+        metrics.update(preds, labels, weights)
+        log.append({"qsl_idx": qid, "data": preds.float().reshape(-1).tolist()})
+    os.makedirs(os.path.dirname(args.accuracy_log) or ".", exist_ok=True)
+    with open(args.accuracy_log, "w") as f:
+        json.dump(log, f)
+    m = metrics.compute()
+    logger.info(
+        "accuracy mode: %d samples -> %s; log at %s",
+        len(samples), {k: round(v, 5) for k, v in m.items()}, args.accuracy_log,
+    )
+    print({"accuracy": {k: round(v, 5) for k, v in m.items()}})
+    return m
 
 
 if __name__ == "__main__":

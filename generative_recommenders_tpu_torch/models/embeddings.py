@@ -1,7 +1,7 @@
-"""Item embedding module of the research stack (port of
+"""Item embedding modules of the research stack (port of
 `generative_recommenders_tpu/models/embeddings.py`). Id 0 is padding: it
-embeds to 0 and gets no gradient. The sharded-lookup hook (``lookup_fn``) and
-`CategoricalEmbeddingModule` are not ported yet.
+embeds to 0 and gets no gradient. The sharded-lookup hook (``lookup_fn``) is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,4 +27,32 @@ class LocalEmbeddingModule(nn.Module):
 
     def forward(self, item_ids: torch.Tensor) -> torch.Tensor:
         emb = F.embedding(item_ids.clamp(0, self.num_items), self.item_emb)
+        return emb * (item_ids != 0)[..., None].to(emb.dtype)
+
+
+class CategoricalEmbeddingModule(nn.Module):
+    """Item id -> category id, then a lookup in a [num_items + 1, D] table
+    of truncated normal(0.02); ``item_id_to_category_id[i - 1]`` is item i's
+    0-based category. The map is a buffer that the state dict leaves out,
+    as the JAX package keeps it out of the parameters."""
+
+    def __init__(
+        self,
+        num_items: int,
+        embedding_dim: int,
+        item_id_to_category_id,  # int[num_raw_items]
+        gen: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.num_items = num_items
+        self.register_buffer(
+            "item_id_to_category_id", torch.as_tensor(item_id_to_category_id, dtype=torch.long),
+            persistent=False,
+        )
+        self.item_emb = new_param((num_items + 1, embedding_dim), truncated_normal(0.02), gen)
+
+    def forward(self, item_ids: torch.Tensor) -> torch.Tensor:
+        remap = self.item_id_to_category_id
+        cat = remap[(item_ids - 1).clamp(0, remap.shape[0] - 1)] + 1
+        emb = F.embedding(cat.clamp(0, self.num_items), self.item_emb)
         return emb * (item_ids != 0)[..., None].to(emb.dtype)

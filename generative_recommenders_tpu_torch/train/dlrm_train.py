@@ -5,9 +5,14 @@ A step is: zero the gradients, forward with dropout on, sum the per-task
 losses, backward (through the HSTU attention kernels on the card), then
 step the row-wise Adagrad of the tables and the Adam of the rest.
 
-Not ported yet: the device mesh and the sharded table lookup
-(`sharded_lookup`), multi-host batches (`_to_global`), checkpoints and the
-profiler. The JAX trainer folds the step number into its dropout key
+With ``ckpt_dir`` the loop restores the model's parameters (tables
+included) from the latest checkpoint there before its first step, saves them
+every ``save_every`` steps and once at the end (`utils/checkpoint.py`); the
+optimizers' state is not saved, as in the JAX package. Unlike the JAX loop,
+a resumed run numbers its checkpoints on from the restored one's step, so
+that the latest checkpoint stays the newest. Not ported yet: the
+device mesh and the sharded table lookup (`sharded_lookup`), multi-host
+batches (`_to_global`) and the profiler. The JAX trainer folds the step number into its dropout key
 (`jax.random.fold_in`); here one `torch.Generator`, seeded once, advances
 from step to step instead, so a run is reproducible from its seed but does
 not draw the JAX package's masks.
@@ -30,6 +35,11 @@ from generative_recommenders_tpu_torch.modules.dlrm_hstu import (
 )
 from generative_recommenders_tpu_torch.parallel.optimizers import make_dlrm_optimizer
 from generative_recommenders_tpu_torch.train.dlrm_metrics import MetricsLogger
+from generative_recommenders_tpu_torch.utils.checkpoint import (
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from generative_recommenders_tpu_torch.utils.tb import SummaryLogger
 
 logger = logging.getLogger(__name__)
@@ -37,13 +47,16 @@ logger = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class DlrmTrainConfig:
-    """The learning rates, how often `train_loop` logs, and where it writes
-    TensorBoard scalars (None: nowhere). The batch size and the number of
-    steps are those of the batches the loop is given."""
+    """The learning rates, how often `train_loop` logs, where it writes
+    TensorBoard scalars (None: nowhere) and checkpoints (None: nowhere;
+    ``save_every`` steps, 0 = only at the end). The batch size and the
+    number of steps are those of the batches the loop is given."""
 
     dense_lr: float = 1e-3
     sparse_lr: float = 0.01
     log_every: int = 10
+    ckpt_dir: Optional[str] = None
+    save_every: int = 0
     tb_log_dir: Optional[str] = None
 
 
@@ -102,6 +115,11 @@ class DlrmTrainer:
         self.dense_opt.step()
         return loss.detach(), preds.detach(), labels, weights
 
+    def restore(self, ckpt_dir: str, step: Optional[int] = None) -> None:
+        """Loads the model's parameters from a checkpoint (default: the
+        latest under ``ckpt_dir``)."""
+        self.model.load_state_dict(restore_checkpoint(ckpt_dir, self.device, step))
+
     @torch.no_grad()
     def eval_step(self, batch: Tuple):
         """(preds, labels, weights) without dropout."""
@@ -110,15 +128,22 @@ class DlrmTrainer:
 
 def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]:
     """Trains on every batch of ``batches`` (numpy, made on a background
-    thread). Returns the metrics, ``examples_per_s`` over the whole loop, and
+    thread), from the latest checkpoint under ``cfg.ckpt_dir`` if there is
+    one. Returns the metrics, ``examples_per_s`` over the whole loop, and
     each step's loss and wall time (``losses``, ``step_s``; a step ends when
     its predictions reach the host for the metrics)."""
     cfg = trainer.cfg
+    # a resumed run numbers its checkpoints on from the one it restored
+    start = (latest_step(cfg.ckpt_dir) if cfg.ckpt_dir else None) or 0
+    if cfg.ckpt_dir and latest_step(cfg.ckpt_dir) is not None:
+        trainer.restore(cfg.ckpt_dir)
+        logger.info("restored checkpoint %d from %s", start, cfg.ckpt_dir)
     metrics = MetricsLogger(trainer.hstu_cfg.multitask_configs)
     tb = SummaryLogger(cfg.tb_log_dir)
     losses, step_s = [], []
     n_examples = 0
     t0 = time.time()
+    step = -1
     for step, raw in enumerate(background_prefetch(batches, size=8)):
         t_step = time.perf_counter()
         loss, preds, labels, weights = trainer.train_step(to_device(raw, trainer.device))
@@ -133,6 +158,10 @@ def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]
             )
             tb.scalar("losses/total", losses[-1], step)
             tb.scalars(metrics.compute_and_log(step), step, prefix="train/")
+        if cfg.ckpt_dir and cfg.save_every and step and step % cfg.save_every == 0:
+            save_checkpoint(cfg.ckpt_dir, trainer.model.state_dict(), start + step)
+    if cfg.ckpt_dir:
+        save_checkpoint(cfg.ckpt_dir, trainer.model.state_dict(), start + step + 1)
     tb.close()
     return {
         "metrics": metrics.compute(),

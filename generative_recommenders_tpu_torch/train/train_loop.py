@@ -8,11 +8,12 @@ negatives, the loss, backward, AdamW. Eval ranks each row's target against
 the whole item corpus.
 
 Ported: HSTU and SASRec, ``sampling_strategy="local"`` or ``"in-batch"``
-with `SampledSoftmaxLoss` or `BCELoss`, stochastic length, length buckets
-(static or runtime), AdamW beta = (0.9, 0.98) with the linear warm-up, the
-mid-epoch partial eval, ``max_steps`` and TensorBoard scalars. Not ported
-yet, and refused by `ResearchTrainer` / `train_loop`:
-``loss_activation_checkpoint``, `BCELossWithRatings`, MoL and checkpoints.
+with `SampledSoftmaxLoss`, `BCELoss` or `BCELossWithRatings`, stochastic
+length, length buckets (static or runtime), AdamW beta = (0.9, 0.98) with the
+linear warm-up, the mid-epoch partial eval, ``max_steps``, TensorBoard
+scalars and checkpoints of ``{params, opt_state}`` every
+``save_ckpt_every_n`` epochs (`utils/checkpoint.py`). Not ported yet, and
+refused by `ResearchTrainer`: ``loss_activation_checkpoint`` and MoL.
 The JAX trainer folds the step number into one key and splits it for
 dropout, stochastic length and negatives; here three `torch.Generator`s,
 seeded once, advance from step to step, so a run is reproducible from its
@@ -38,7 +39,11 @@ from generative_recommenders_tpu_torch.data.features import (
     scatter_target_into_ids,
     seq_features_from_row,
 )
-from generative_recommenders_tpu_torch.models.losses import bce_loss, sampled_softmax_loss
+from generative_recommenders_tpu_torch.models.losses import (
+    bce_loss,
+    bce_loss_with_ratings,
+    sampled_softmax_loss,
+)
 from generative_recommenders_tpu_torch.models.samplers import (
     InBatchNegativesSampler,
     LocalNegativesSampler,
@@ -57,6 +62,7 @@ from generative_recommenders_tpu_torch.utils.bucketing import (
     bucket_batch,
     truncate_to_stochastic_length,
 )
+from generative_recommenders_tpu_torch.utils.checkpoint import save_checkpoint
 from generative_recommenders_tpu_torch.utils.tb import SummaryLogger
 
 logger = logging.getLogger(__name__)
@@ -75,7 +81,7 @@ class TrainConfig:
     weight_decay: float = 0.0
     num_warmup_steps: int = 0
     sampling_strategy: str = "local"  # | "in-batch"
-    loss_module: str = "SampledSoftmaxLoss"  # | "BCELoss"
+    loss_module: str = "SampledSoftmaxLoss"  # | "BCELoss" | "BCELossWithRatings"
     num_negatives: int = 128
     temperature: float = 0.05
     item_l2_norm: bool = True
@@ -107,9 +113,7 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         raise ValueError(
             "stochastic length cuts the features' ratings; BCELossWithRatings reads the raw batch's"
         )
-    if cfg.loss_module not in ("SampledSoftmaxLoss", "BCELoss"):
-        if cfg.loss_module == "BCELossWithRatings":
-            raise NotImplementedError("loss_module='BCELossWithRatings' is not ported yet")
+    if cfg.loss_module not in ("SampledSoftmaxLoss", "BCELoss", "BCELossWithRatings"):
         raise ValueError(f"Unknown loss_module {cfg.loss_module}")
     if cfg.loss_activation_checkpoint:
         raise NotImplementedError("loss_activation_checkpoint is not ported yet")
@@ -207,6 +211,18 @@ class ResearchTrainer:
         sup_ids = past_ids[:, 1:]
         sup_emb = input_embeddings[:, 1:, :]
         ar_mask = (sup_ids != 0).float()
+        pos_emb = maybe_l2_norm(sup_emb, cfg.item_l2_norm, cfg.l2_norm_eps)
+        if cfg.loss_module == "BCELossWithRatings":
+            # supervised by the raw batch's ratings, > 3 as the label; no
+            # negatives (the JAX trainer draws them and leaves them unused)
+            ratings = batch["historical_ratings"].long()
+            sup_ratings = torch.cat(
+                [ratings, ratings.new_zeros(ratings.shape[0], cfg.model.gr_output_length + 1)], dim=1
+            )[:, 1 : output.shape[1] + 1]
+            loss, aux = bce_loss_with_ratings(
+                output, pos_emb, (sup_ratings > 3).float(), ar_mask, temperature=cfg.temperature
+            )
+            return self._weighted(loss, aux)
         num_to_sample = 1 if cfg.loss_module == "BCELoss" else cfg.num_negatives
         if cfg.sampling_strategy == "in-batch":
             flat_ids = past_ids.reshape(-1)
@@ -219,7 +235,6 @@ class ResearchTrainer:
             neg_ids, neg_emb = self.sampler(
                 self.negatives_gen, sup_ids, num_to_sample, model.get_item_embeddings
             )
-        pos_emb = maybe_l2_norm(sup_emb, cfg.item_l2_norm, cfg.l2_norm_eps)
         if cfg.loss_module == "SampledSoftmaxLoss":
             loss, aux = sampled_softmax_loss(
                 output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb,
@@ -229,7 +244,10 @@ class ResearchTrainer:
             loss, aux = bce_loss(
                 output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb, temperature=cfg.temperature
             )
-        for key, weight in cfg.loss_weights:
+        return self._weighted(loss, aux)
+
+    def _weighted(self, loss: torch.Tensor, aux: Dict[str, torch.Tensor]):
+        for key, weight in self.cfg.loss_weights:
             if key in aux:
                 loss = loss + weight * aux[key]
         return loss, aux
@@ -247,6 +265,24 @@ class ResearchTrainer:
         if self.schedule is not None:
             self.schedule.step()
         return loss.detach()
+
+    # ------------------------------------------------------------ checkpoint
+    def checkpoint_state(self) -> Dict[str, Any]:
+        """``{"params", "opt_state"}``, as the JAX trainer saves them; the
+        optimizer's state holds AdamW's and the warm-up schedule's."""
+        return {
+            "params": self.model.state_dict(),
+            "opt_state": {
+                "adamw": self.optimizer.state_dict(),
+                "schedule": None if self.schedule is None else self.schedule.state_dict(),
+            },
+        }
+
+    def load_checkpoint_state(self, state: Dict[str, Any]) -> None:
+        self.model.load_state_dict(state["params"])
+        self.optimizer.load_state_dict(state["opt_state"]["adamw"])
+        if self.schedule is not None:
+            self.schedule.load_state_dict(state["opt_state"]["schedule"])
 
     # -------------------------------------------------------------- eval step
     @torch.no_grad()
@@ -297,16 +333,17 @@ def train_loop(
     max_steps: Optional[int] = None,
     tb_log_dir: Optional[str] = None,
     ckpt_dir: Optional[str] = None,
+    save_ckpt_every_n: int = 0,  # epochs; 0 = never
     device: str = "cuda",
 ) -> Dict[str, Any]:
     """Epoch loop: trains ``cfg.num_epochs`` epochs (or ``max_steps``
     steps), with a partial eval every ``cfg.eval_interval`` batches and an
-    eval after each epoch. Returns the trainer, the per-epoch eval
-    ``history``, each step's loss and host wall time (``losses``,
-    ``step_s``; a step ends when its loss reaches the host), and
-    ``examples_per_s`` over the train steps."""
-    if ckpt_dir:
-        raise NotImplementedError("checkpoints are not ported yet")
+    eval after each epoch, and saves the trainer's ``{params, opt_state}``
+    under ``ckpt_dir`` after every ``save_ckpt_every_n``-th epoch (its step
+    is the epoch). Returns the trainer, the per-epoch eval ``history``, each
+    step's loss and host wall time (``losses``, ``step_s``; a step ends when
+    its loss reaches the host), and ``examples_per_s`` over the train
+    steps."""
     tb = SummaryLogger(tb_log_dir)
     trainer = ResearchTrainer(cfg, train_dataset.all_item_ids(), device=device)
 
@@ -358,6 +395,9 @@ def train_loop(
         metrics["epoch"] = epoch
         history.append(metrics)
         tb.scalars(metrics, batch_id, prefix="eval/")
+        if ckpt_dir and save_ckpt_every_n and (epoch + 1) % save_ckpt_every_n == 0:
+            save_checkpoint(ckpt_dir, trainer.checkpoint_state(), epoch)
+            logger.info("checkpoint @ epoch %d -> %s", epoch, ckpt_dir)
         logger.info(
             "eval epoch %d: NDCG@10 %.4f HR@10 %.4f HR@50 %.4f MRR %.4f",
             epoch,

@@ -308,11 +308,12 @@ def _trainer_pair(attn_kernel, loss_module="SampledSoftmaxLoss", **train_kw):
     return jt, params, tt
 
 
-@pytest.mark.parametrize("loss_module", ["SampledSoftmaxLoss", "BCELoss"])
+@pytest.mark.parametrize("loss_module", ["SampledSoftmaxLoss", "BCELoss", "BCELossWithRatings"])
 def test_loss_and_gradients_match_jax(loss_module):
     """One batch's loss and every parameter's gradient, the tables of every
     layer's relative bias included, against `jax.grad` through the JAX
-    trainer's loss on its relative-bias Pallas path."""
+    trainer's loss on its relative-bias Pallas path. `BCELossWithRatings`
+    reads the raw batch's ratings (> 3 is the label) and no negatives."""
     jt, params, tt = _trainer_pair("pallas", loss_module)
     batch = _batch(8, B=4, max_len=36)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -519,7 +520,6 @@ def test_presets_match_the_jax_packages():
 
 
 @pytest.mark.parametrize("field, value, match", [
-    ("loss_module", "BCELossWithRatings", "BCELossWithRatings"),
     ("loss_activation_checkpoint", True, "loss_activation_checkpoint"),
 ])
 def test_trainer_refuses_what_is_not_ported(field, value, match):
@@ -550,10 +550,6 @@ def test_other_refusals():
         t_train.ResearchTrainer(
             t_train.TrainConfig(model=tm.config, sampling_strategy="global"), np.arange(1, 10), device="cpu"
         )
-    seqs = t_data.synthetic_user_sequences(num_users=8, num_items=20, max_len=8, seed=0)
-    ds = t_data.SequenceDataset(seqs, 8, ignore_last_n=1)
-    with pytest.raises(NotImplementedError, match="checkpoints"):
-        t_train.train_loop(t_train.TrainConfig(model=tm.config), ds, ds, ckpt_dir="ckpt", device="cpu")
 
 
 def test_research_cli_smoke_learns_on_the_cpu():
@@ -602,12 +598,9 @@ def test_research_cli_refusals():
         with pytest.raises(RuntimeError, match="no CUDA device"):  # the default device is the card
             t_cli.main(["--smoke"])
     for argv in (
-        ["--smoke", "--device", "cpu", "--ckpt_dir", "x"],
-        ["--smoke", "--device", "cpu", "--multifile_prefix", "x"],
         ["--smoke", "--device", "cpu", "--attn_kernel", "pallas"],
         ["--smoke", "--device", "cpu", "--distributed"],
         ["--smoke", "--device", "cpu", "--num_processes", "2"],
-        ["--preset", "ml-1m/hstu-sampled-softmax-n128", "--device", "cpu"],  # no --data_csv
         ["--preset", "no-such-preset", "--data_csv", "x", "--device", "cpu"],
     ):
         with pytest.raises(SystemExit):
