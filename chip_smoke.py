@@ -24,7 +24,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    row of length 0, K3 also at its own tiling's seams (lengths at its query-
    and key-tile edges, a window with full-attention rows), the outputs of K1,
    K3, K4 and K5 and the dk and dv of K2 and K7 the same bits on a second
-   run; K1 and K2 also timed at the training and deterministic shapes;
+   run; K1 and K2 also timed at the training and deterministic shapes; K6
+   and K7 on bfloat16 q, k, v and dO (the first HSTU block's types under
+   compute_dtype="bfloat16") against their bfloat16 plain versions, at the
+   ml-3b layer-0 shape on a corpus batch and (in the ml-1m phase) at the
+   ml-1m large preset's, timed, with their bounds;
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -49,6 +53,13 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    the preset's items, checks that every attention went through K6 and K7
    (and none through K1 / K2); then one training step's loss and gradients
    on a small research model, GPU kernels against the CPU plain versions;
+   then the same preset with compute_dtype="bfloat16" (2 + 10 steps and the
+   eval; block 0 through K6-bf16 / K7-bf16, the other 15 through K6 / K7),
+   one small bfloat16 step GPU against CPU; then the preset in float32 with
+   remat=True and with loss_activation_checkpoint=True (2 + 5 steps each,
+   K6 32 a step under remat), their peaks and medians against the research
+   phase's, and one small step with dropout on with and without each,
+   gradients held to each other on the card;
 6. SASRec phase: trains the baseline preset `ml-20m/sasrec-sampled-softmax-n128`
    uncut (4 blocks, 4 heads, d 256, N 211, batch 128, 128 negatives, 131,262
    items) through `train_loop` on a 4,000-user synthetic corpus (2 warm-up
@@ -73,6 +84,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    `ml-1m/hstu-sampled-softmax-n128-large` for one epoch through
    `train_research` on the registry's files with `--ckpt_dir` (K6 8 x
    (steps + eval batches), K7 8 x steps), restores the checkpoint bit-equal;
+   then the same preset with the MoL similarity (the default MoLConfig,
+   mi_loss weighted 0.001) one epoch through `train_loop` on the registry's
+   files and a full MoL eval, `MoLBruteForceTopK` top-100 for 128 users
+   through `CandidateIndex(top_k_module=...)` against the same on the CPU,
+   and one small MoL step GPU against CPU;
 10. movielens-1m ranker phase: `train_ranker --dataset movielens-1m` on
    that `sasrec_format.csv` at full width with `--ckpt_dir` (K1, K2 3 a
    step), `--mode eval` from the checkpoint, then `inference.main
@@ -90,6 +106,7 @@ exits nonzero.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -106,6 +123,9 @@ import time
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
+# the bfloat16 K6 / K7 multiply bfloat16 values with one exact TF32 product
+# each (dense TF32; bfloat16 itself would be 989e12)
+PEAK_TF32_FLOPS = 495e12
 
 # the full-width debug preset, as served
 B, MAX_UIH, MAX_CANDS, CHUNK = 32, 512, 160, 5
@@ -159,6 +179,24 @@ PRED_TOL = 1e-4
 # one training step's gradients, GPU kernels vs CPU plain versions, as a
 # fraction of each gradient's max (float32; sums in other orders)
 GRAD_TOL = 1e-4
+# the bfloat16 K6 / K7 against their bfloat16 plain versions: both round P,
+# dS and the outputs to bfloat16 at the same points from float32 sums taken in
+# other orders, so an output lands on the other side of a rounding boundary
+# now and then: one rounding (2^-8 relative) at its own size, at most 2^-7 of
+# the output's max; 2^-6 leaves a factor of two. The table gradients are
+# float32 sums of float32 dS: TABLE_TOL
+BF16_TOL = 2.0**-6
+# a bfloat16 step, GPU kernels vs CPU plain versions: the float32 uvqk
+# product rounds to bfloat16 on each device from sums in other orders, and a
+# flipped rounding reaches every gradient: the JAX package's own bfloat16
+# tolerance (tests/test_relbias_attention.py, 3e-2), the loss 1e-3 relative
+BF16_GRAD_TOL, BF16_LOSS_RTOL = 3e-2, 1e-3
+# one step's gradients with and without per-block recomputation, dropout on,
+# on the card: the same kernels on the same inputs, but K7 sums dq and the
+# tables with atomics in an order that changes from run to run
+REMAT_TOL = 1e-5
+# the remat phase's steps at the ml-3b preset: 2 warm-ups, then timed ones
+REMAT_WARMUPS, REMAT_STEPS = 2, 5
 
 
 def fail(msg: str) -> None:
@@ -413,6 +451,7 @@ def main() -> None:
         from generative_recommenders_tpu_torch.data.reco_dataset import get_reco_dataset
         from generative_recommenders_tpu_torch.utils.checkpoint import restore_checkpoint
         from generative_recommenders_tpu_torch.indexing.candidate_index import CandidateIndex
+        from generative_recommenders_tpu_torch.indexing.mol_top_k import MoLBruteForceTopK
         from generative_recommenders_tpu_torch.models.samplers import LocalNegativesSampler, maybe_l2_norm
         from generative_recommenders_tpu_torch.utils.bucketing import bucket_batch
         from generative_recommenders_tpu_torch.inference import main as serve
@@ -472,7 +511,8 @@ def main() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 mangled = line.split("'")[1]
-                entry = ",".join(a or b for a, b in re.findall(r"Li(\d+)E|Lb([01])E", mangled)) or mangled
+                entry = ",".join(a or b or "bf16" for a, b, c in re.findall(
+                    r"Li(\d+)E|Lb([01])E|(?<=E)(13__nv_bfloat16)(?=E)", mangled)) or mangled
                 entries[entry] = ["?", ""]
             elif entry and "bytes spill stores" in line and not line.strip().endswith(
                     "0 bytes spill stores, 0 bytes spill loads"):
@@ -1033,6 +1073,81 @@ def main() -> None:
     del slice_case, m20_case, b139_case, q, k, v, do, q_, k_, v_, do_
     torch.cuda.empty_cache()
 
+    # K6 and K7 on bfloat16 q, k, v and dO: the first HSTU block's types
+    # under compute_dtype="bfloat16"
+    bf16_errs = {"K6-bf16": [], "K7-bf16": []}
+
+    def relbias_bf16_case(name, Bc, N, lengths, ts, Hc, Dc, Vc):
+        """K6 and K7 on bfloat16 views of one bfloat16 uvqk projection and a
+        strided bfloat16 dO, against their bfloat16 plain versions (the same
+        rounding points); dead rows exactly 0, dk and dv the same bits on a
+        second run."""
+        bf = torch.bfloat16
+        proj = rand(Bc, N, Hc * (2 * Vc + 2 * Dc)).to(bf)
+        _, v, q, k = torch.split(proj, [Hc * Vc, Hc * Vc, Hc * Dc, Hc * Dc], dim=-1)
+        q, k, v = q.reshape(Bc, N, Hc, Dc), k.reshape(Bc, N, Hc, Dc), v.reshape(Bc, N, Hc, Vc)
+        pos_w, ts_w = bias_tables(N, 128)
+        do = rand(N, Bc, Hc, Vc).to(bf).transpose(0, 1)
+        args = dict(alpha=1.0, max_seq_len=N, num_buckets=128)
+        dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
+        poison_allocator(Bc * N * Hc * Vc * 2)
+        got = hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **args)
+        want = hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, **args)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == bf, f"K6-bf16 {name}: output types {got.dtype}, {want.dtype}")
+        bf16_errs["K6-bf16"].append(compare(f"K6-bf16 {name}", got.float(), want.float(), dead, rel_tol=BF16_TOL))
+        del got, want
+        grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
+        again = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
+        torch.cuda.synchronize()
+        check(torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2]),
+              f"K7-bf16 {name}: dk or dv differ between two runs")
+        del again
+        wants = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
+        for g, a, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants):
+            table = g in ("dpos_w", "dts_w")
+            check(a.dtype == w.dtype == (torch.float32 if table else bf), f"K7-bf16 {name} {g}: type {a.dtype}")
+            bf16_errs["K7-bf16"].append(compare(f"K7-bf16 {name} {g}", a.float(), w.float(),
+                                                None if table else dead, rel_tol=TABLE_TOL if table else BF16_TOL))
+        return q, k, v, pos_w, ts_w, do, args
+
+    def bf16_times(case, lengths, ts, Bc, N, Hc, Dc, Vc):
+        """(K6 ms, K7 ms, plain K6 ms, plain K7 ms, K6's work, K7's work) of a
+        bfloat16 case; the work is (operations, bytes) with 2 bytes for every
+        element of q, k, v, dO and their gradients and outputs."""
+        q_, k_, v_, pw_, tw_, do_, a_ = case
+        times = (
+            device_time_ms(lambda: hstu_mha_dense_relbias_cuda(q_, k_, v_, lengths, ts, pw_, tw_, **a_), 20),
+            device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(q_, k_, v_, lengths, ts, pw_, tw_, do_, **a_), 10),
+            device_time_ms(lambda: hstu_mha_dense_relbias_plain(q_, k_, v_, lengths, ts, pw_, tw_, **a_), 3),
+            device_time_ms(lambda: hstu_mha_relbias_bwd_plain(q_, k_, v_, lengths, ts, pw_, tw_, do_, **a_), 2),
+        )
+        live = apply_padding_guard(make_valid_attn_mask(N, lengths), lengths).sum().item()
+        rows = lengths.sum().item() * Hc
+        small = 4 * (Bc * N + pw_.numel() + tw_.numel() + Bc)  # timestamps, tables, lengths
+        w6 = (live * Hc * 2 * (Dc + Vc), 2 * (rows * (2 * Dc + Vc) + Bc * N * Hc * Vc) + small)
+        w7 = (live * Hc * 2 * (3 * Dc + 2 * Vc),
+              2 * (rows * (2 * Dc + 2 * Vc) + Bc * N * Hc * (2 * Dc + Vc)) + 4 * (pw_.numel() + tw_.numel()) + small)
+        return times + (w6, w7)
+
+    def bound_ms(work, peak):
+        return max(work[0] / peak, work[1] / PEAK_BYTES_PER_S) * 1e3
+
+    print("relative-bias kernel phase in bfloat16 (K6 and K7 on bfloat16 q, k, v, dO, against their bfloat16 "
+          f"plain versions; outputs to {BF16_TOL:.4g} of their max, the float32 tables to {TABLE_TOL}):")
+    rb_case = relbias_bf16_case(
+        f"ml-3b layer 0 (B={RB}, N={RN}, H={RH}, D=V={RD}), lengths and timestamps of a corpus batch",
+        RB, RN, r_len, r_ts, RH, RD, RV)
+    *k6b_times, k6b_work, k7b_work = bf16_times(rb_case, r_len, r_ts, RB, RN, RH, RD, RV)
+    k6b_ms, k7b_ms, k6b_plain_ms, k7b_plain_ms = k6b_times
+    print(
+        f"  ml-3b layer 0: K6-bf16 {k6b_ms:.4f} ms (plain {k6b_plain_ms:.4f}, bound "
+        f"{bound_ms(k6b_work, PEAK_TF32_FLOPS):.4f}; float32 K6 {k6_ms:.4f}), K7-bf16 {k7b_ms:.4f} ms (plain "
+        f"{k7b_plain_ms:.4f}, bound {bound_ms(k7b_work, PEAK_TF32_FLOPS):.4f}; float32 K7 {k7_ms:.4f})"
+    )
+    del rb_case
+    torch.cuda.empty_cache()
+
     # -------------------------------------------------------- serving phase
     bwd_counters = hstu_mha_bwd_cuda.launches
     counters = {
@@ -1041,16 +1156,22 @@ def main() -> None:
         "K4": bwd_counters["hstu_mha_bwd_dkv"],
         "K6": hstu_mha_dense_relbias_cuda.launches, "K7": hstu_mha_relbias_bwd_cuda.launches,
     }
-    main_path_launches = dict.fromkeys(counters, 0)
+    # the bfloat16 K6 and K7, counted apart
+    counters_bf16 = {"K6-bf16": hstu_mha_dense_relbias_cuda.launches_bf16,
+                     "K7-bf16": hstu_mha_relbias_bwd_cuda.launches_bf16}
+    all_counters = {**counters, **counters_bf16}
+    main_path_launches = dict.fromkeys(all_counters, 0)
 
     def count_reset():
-        for c in counters.values():
+        for c in all_counters.values():
             c.reset()
 
     def counts():
         """The launch counts since `count_reset`, also added to the main
-        path's totals."""
+        path's totals: every float32 kernel's, and the bfloat16 kernels'
+        where they launched."""
         now = {name: c.count for name, c in counters.items()}
+        now.update({name: c.count for name, c in counters_bf16.items() if c.count})
         for name, n in now.items():
             main_path_launches[name] += n
         return now
@@ -1269,11 +1390,12 @@ def main() -> None:
         f"{r_median:.2f} ms (min {timed[0]:.2f}, max {timed[-1]:.2f}); losses "
         f"{[round(x, 4) for x in rlosses]}; the whole loop with its eval {loop_s:.1f} s"
     )
+    r_peak = torch.cuda.max_memory_allocated() / 2**30
     print(
         f"  eval over {eval_batches * rcfg.eval_batch_size} users against the corpus' {corpus:,} items: "
         f"HR@10 {metrics['hr@10']:.4f}, HR@50 {metrics['hr@50']:.4f}, HR@1000 {metrics['hr@1000']:.4f}, "
         f"NDCG@10 {metrics['ndcg@10']:.4f}, MRR {metrics['mrr']:.6f}; launches {n}; "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+        f"peak device memory {r_peak:.2f} GiB"
     )
     first, last = sum(rlosses[:3]) / 3, sum(rlosses[-3:]) / 3
     check(last <= first * 1.02, f"the research loss rises: {first:.4f} -> {last:.4f}")
@@ -1322,7 +1444,7 @@ def main() -> None:
             offsets = (positive_ids[..., None] * 7 + r * 13 + 1) % state.count.clamp_min(1)
             return state.ids[offsets], state.embeddings[offsets]
 
-    def gpu_vs_cpu_step(name, cfg_, ds_, batch_, wrap, want_kernels):
+    def gpu_vs_cpu_step(name, cfg_, ds_, batch_, wrap, want_kernels, loss_rtol=1e-5, grad_tol=GRAD_TOL):
         """One `train_step`'s loss and every gradient of a small research
         model, weights drawn on the CPU: the card (kernels) against the CPU
         (plain versions). ``want_kernels``: the launches expected on the
@@ -1337,12 +1459,12 @@ def main() -> None:
                 if isinstance(st.sampler, LocalNegativesSampler):
                     st.sampler = st.sampler._replace(all_item_ids=st.all_item_ids)
             st.sampler = wrap(st.sampler)
-            before = {k_: c.count for k_, c in counters.items()}
+            before = {k_: c.count for k_, c in all_counters.items()}
             hook = st.model.encoder.register_forward_pre_hook(lambda m_, a_: width_.append(a_[0].shape[1]))
             loss = st.train_step(batch_)  # the gradients stay in .grad after the optimizer's step
             hook.remove()
             if dev == "cuda":
-                got_n = {k_: c.count - before[k_] for k_, c in counters.items() if c.count != before[k_]}
+                got_n = {k_: c.count - before[k_] for k_, c in all_counters.items() if c.count != before[k_]}
                 check(got_n == want_kernels, f"the small {name} step launched {got_n}, expected {want_kernels}")
             loss_[dev] = loss.item()
             grads_[dev] = {n_: p.grad.cpu() for n_, p in st.model.named_parameters() if p.grad is not None}
@@ -1359,10 +1481,10 @@ def main() -> None:
             f"  small {name}, one step, GPU kernels vs CPU plain versions: loss {loss_['cuda']:.6f} vs "
             f"{loss_['cpu']:.6f}; largest gradient error {g_err[worst_]:.3e} of the gradient's max "
             f"({worst_}" + (f"; the bias tables' largest {max(tables_):.3e}" if tables_ else "")
-            + f") over {len(g_err)} parameters (tol {GRAD_TOL})"
+            + f") over {len(g_err)} parameters (tol {grad_tol}; the loss {loss_rtol} relative)"
         )
-        check(abs(loss_["cuda"] - loss_["cpu"]) <= 1e-5 * abs(loss_["cpu"]), f"GPU and CPU {name} losses disagree")
-        check(g_err[worst_] <= GRAD_TOL, f"GPU and CPU {name} gradients disagree")
+        check(abs(loss_["cuda"] - loss_["cpu"]) <= loss_rtol * abs(loss_["cpu"]), f"GPU and CPU {name} losses disagree")
+        check(g_err[worst_] <= grad_tol, f"GPU and CPU {name} gradients disagree")
         check(len(width_) == 2 and width_[0] == width_[1], f"{name}: the encoder's widths {width_}")
         return width_[1]
 
@@ -1374,6 +1496,109 @@ def main() -> None:
                                      local_batch_size=8, num_negatives=16)
     sbatch = next(batch_iterator(sds, 8, shuffle=False))
     gpu_vs_cpu_step("research model", small_cfg, sds, sbatch, FixedNegatives, {"K6": 3, "K7": 3})
+
+    # ------------------------------------------- bfloat16 research phase
+    # the same preset with compute_dtype="bfloat16": the first block runs in
+    # bfloat16 (K6-bf16, K7-bf16), the other 15 in float32 (its float32
+    # output projection promotes the residual stream, as flax does), and the
+    # negatives come from a bfloat16 copy of the item table
+    L = rm.num_blocks
+    hcfg = dataclasses.replace(rcfg, num_epochs=1, model=dataclasses.replace(rm, compute_dtype="bfloat16"))
+    print(
+        f"bfloat16 research phase: preset {RESEARCH_PRESET} with compute_dtype='bfloat16' (block 0 in bfloat16, "
+        f"blocks 1..{L - 1} in float32; the negatives [{RB}, {RN - 1}, {rcfg.num_negatives}, {rm.item_embedding_dim}] "
+        f"gathered from a bfloat16 copy of the table); {steps_total} steps, then an eval of {eval_batches} batches, "
+        f"over the research phase's shards"
+    )
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    t0 = time.perf_counter()
+    hout = research.train_loop(hcfg, shard_train, shard_eval, log_every=1, max_steps=steps_total, device="cuda")
+    loop_s = time.perf_counter() - t0
+    n = counts()
+    hlosses, hsteps, hmetrics = hout["losses"], hout["step_s"], hout["history"][-1]
+    check(len(hlosses) == steps_total and all(math.isfinite(x) for x in hlosses), f"bfloat16 losses: {hlosses}")
+    h_median = 1e3 * median(hsteps[RESEARCH_WARMUPS:])
+    print(
+        f"  {RESEARCH_STEPS} steps after {RESEARCH_WARMUPS} warm-ups: "
+        f"{RB * RESEARCH_STEPS / sum(hsteps[RESEARCH_WARMUPS:]):.1f} examples/s, median step {h_median:.2f} ms "
+        f"(float32: {r_median:.2f}); losses {[round(x, 4) for x in hlosses]}; the whole loop with its eval "
+        f"{loop_s:.1f} s; eval HR@10 {hmetrics['hr@10']:.4f}, NDCG@10 {hmetrics['ndcg@10']:.4f}; launches {n}; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (float32: {r_peak:.2f})"
+    )
+    want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+              "K6": (L - 1) * (steps_total + eval_batches), "K7": (L - 1) * steps_total,
+              "K6-bf16": steps_total + eval_batches, "K7-bf16": steps_total}
+    check(n == want_n, f"the bfloat16 research loop launched {n}, expected {want_n}")
+    check(sum(hlosses[-3:]) <= sum(hlosses[:3]) * 1.02, "the bfloat16 research loss rises")
+    htrainer = hout["trainer"]
+    profile("bfloat16 research training step", lambda: htrainer.train_step(rbatch))
+    del htrainer, hout
+    torch.cuda.empty_cache()
+    small16 = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, compute_dtype="bfloat16"))
+    gpu_vs_cpu_step("bfloat16 research model", small16, sds, sbatch, FixedNegatives,
+                    {"K6": 2, "K7": 2, "K6-bf16": 1, "K7-bf16": 1},
+                    loss_rtol=BF16_LOSS_RTOL, grad_tol=BF16_GRAD_TOL)
+
+    # ------------------------------------------------------ remat phase
+    # the same preset in float32, each block recomputed in the backward
+    # (remat), then the sampled softmax recomputed (loss_activation_checkpoint)
+    remat_ms = {}
+    for label, m_over, t_over, want_k6 in (
+            ("remat=True", dict(remat=True), {}, 2 * L),
+            ("loss_activation_checkpoint=True", {}, dict(loss_activation_checkpoint=True), L)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        qcfg = dataclasses.replace(rcfg, model=dataclasses.replace(rm, **m_over), **t_over)
+        qtrainer = research.ResearchTrainer(qcfg, shard_train.all_item_ids(), device="cuda")
+        qbatches = batch_iterator(shard_train, RB, shuffle=True, seed=11)
+        count_reset()
+        qsteps = []
+        for _ in range(REMAT_WARMUPS + REMAT_STEPS):
+            qb = next(qbatches)
+            t0 = time.perf_counter()
+            qloss = float(qtrainer.train_step(qb))
+            qsteps.append(time.perf_counter() - t0)
+            check(math.isfinite(qloss), f"{label}: loss {qloss}")
+        n = counts()
+        nq = REMAT_WARMUPS + REMAT_STEPS
+        want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": want_k6 * nq, "K7": L * nq}
+        check(n == want_n, f"{label}: the steps launched {n}, expected {want_n}")
+        remat_ms[label] = 1e3 * median(qsteps[REMAT_WARMUPS:])
+        print(
+            f"{label} phase: preset {RESEARCH_PRESET} in float32, {REMAT_WARMUPS} + {REMAT_STEPS} steps of "
+            f"ResearchTrainer.train_step: median step {remat_ms[label]:.2f} ms (the research phase: "
+            f"{r_median:.2f}), peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the research "
+            f"phase: {r_peak:.2f}); launches {n}"
+        )
+        if m_over:
+            profile("remat research training step", lambda: qtrainer.train_step(rbatch))
+        del qtrainer
+    torch.cuda.empty_cache()
+    # one step's gradients with and without recomputation, dropout on (0.2 in
+    # the preprocessor and every block), from one seed on the card
+    drop_model = dict(small_model, linear_dropout_rate=0.2, dropout_rate=0.2)
+
+    def card_step_grads(m_over, t_over):
+        qcfg = research.TrainConfig(model=ModelConfig(dqk=16, dv=16, **drop_model, **m_over),
+                                    local_batch_size=8, num_negatives=16, **t_over)
+        st = research.ResearchTrainer(qcfg, sds.all_item_ids(), device="cuda")
+        loss, _ = st.loss(research.to_device(sbatch, st.device))
+        loss.backward()
+        return loss.item(), {n_: p.grad.clone() for n_, p in st.model.named_parameters()}
+
+    base_loss, base_g = card_step_grads({}, {})
+    for label, m_over, t_over in (("remat", dict(remat=True), {}),
+                                  ("loss checkpoint", {}, dict(loss_activation_checkpoint=True))):
+        loss_q, g_q = card_step_grads(m_over, t_over)
+        err = max((g_q[k_] - g).abs().max().item() / max(g.abs().max().item(), 1e-30) for k_, g in base_g.items())
+        print(f"  small research model, dropout 0.2, one step on the card with {label} against without: loss "
+              f"{loss_q:.7f} vs {base_loss:.7f}, largest gradient difference {err:.3e} of the gradient's max "
+              f"(tol {REMAT_TOL}; K7's atomics reorder dq and the tables' sums from run to run)")
+        check(g_q.keys() == base_g.keys() and abs(loss_q - base_loss) <= 1e-6 * abs(base_loss) and err <= REMAT_TOL,
+              f"{label}: the recomputed step's gradients differ")
+    del base_g, g_q
 
     # -------------------------------------------------------- SASRec phase
     acfg = dataclasses.replace(RESEARCH_PRESETS[SASREC_PRESET], num_epochs=1)
@@ -1668,6 +1893,15 @@ def main() -> None:
     print(f"  ml-1m large preset at N={N1} (mean length {l1.float().mean().item():.1f}): K6 {ml1m_ms[0]:.4f} ms "
           f"(plain {ml1m_ms[2]:.4f}, bound {b6:.4f}), K7 {ml1m_ms[1]:.4f} ms (plain {ml1m_ms[3]:.4f}, bound {b7:.4f})")
     del ml1m_reco, q_, k_, v_, do_
+    m16_case = relbias_bf16_case(
+        f"ml-1m large preset (B={mcfg.local_batch_size}, N={N1}, H={mm1.num_heads}, D=V={mm1.dqk}), a batch of "
+        f"the preprocessed ml-1m", mcfg.local_batch_size, N1, l1, ts1, mm1.num_heads, mm1.dqk, mm1.dv)
+    *m16_times, m16_w6, m16_w7 = bf16_times(m16_case, l1, ts1, mcfg.local_batch_size, N1, mm1.num_heads,
+                                            mm1.dqk, mm1.dv)
+    print(f"  ml-1m large preset at N={N1} in bfloat16: K6-bf16 {m16_times[0]:.4f} ms (plain {m16_times[2]:.4f}, "
+          f"bound {bound_ms(m16_w6, PEAK_TF32_FLOPS):.4f}), K7-bf16 {m16_times[1]:.4f} ms (plain "
+          f"{m16_times[3]:.4f}, bound {bound_ms(m16_w7, PEAK_TF32_FLOPS):.4f})")
+    del m16_case
     ck_research = os.path.join(DATA_ROOT, "ckpt", "ml-1m-research")
     torch.cuda.reset_peak_memory_stats()
     count_reset()
@@ -1698,6 +1932,93 @@ def main() -> None:
     profile("ml-1m research training step", lambda: m_trainer.train_step(row))
     del mout, saved, m_trainer
     torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ MoL phase
+    # the same preset with the learned MoL similarity (default MoLConfig:
+    # 4 x 4 components of width 32, the three gating MLPs) and its
+    # load-balancing loss, one epoch on the registry's ml-1m and a full MoL
+    # eval; then MoL top-k through the candidate index
+    lcfg = dataclasses.replace(mcfg, num_epochs=1, loss_weights=(("mi_loss", 0.001),),
+                               model=dataclasses.replace(mm1, interaction_module_type="MoL"))
+    mol_reco = get_reco_dataset("ml-1m", mm1.max_sequence_len, data_root=DATA_ROOT)
+    LB, LN, LR = lcfg.local_batch_size, mm1.total_seq_len, lcfg.num_negatives
+    print(
+        f"MoL phase: preset {ML1M_PRESET} with interaction_module_type='MoL' (the default MoLConfig), "
+        f"loss_weights mi_loss 0.001, one epoch through train_loop on the registry's ml-1m ({m_steps} steps) and "
+        f"a full MoL eval ({m_eval} batches, chunks of {lcfg.eval_item_chunk_size} items); the item side over "
+        f"B (N - 1) (1 + R) = {LB * (LN - 1) * (1 + LR):,} rows a step"
+    )
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    t0 = time.perf_counter()
+    lout = research.train_loop(lcfg, mol_reco.train_dataset, mol_reco.eval_dataset, log_every=10, device="cuda")
+    l_wall = time.perf_counter() - t0
+    n = counts()
+    llosses, lsteps, lmetrics = lout["losses"], lout["step_s"], lout["history"][-1]
+    l_med = 1e3 * median(lsteps[RESEARCH_WARMUPS:])
+    print(
+        f"  {len(lsteps)} steps: {LB * (len(lsteps) - RESEARCH_WARMUPS) / sum(lsteps[RESEARCH_WARMUPS:]):.1f} "
+        f"examples/s after {RESEARCH_WARMUPS} warm-ups, median step {l_med:.2f} ms (without MoL, the ml-1m "
+        f"phase: {m_med:.2f}); loss {llosses[0]:.4f} -> {llosses[-1]:.4f}; eval HR@10 {lmetrics['hr@10']:.4f}, "
+        f"NDCG@10 {lmetrics['ndcg@10']:.4f}, MRR {lmetrics['mrr']:.5f}; the loop's wall time {l_wall:.1f} s; "
+        f"launches {n}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    check(len(llosses) == m_steps and all(math.isfinite(x) for x in llosses), f"MoL losses: {llosses}")
+    check(sum(llosses[-5:]) < sum(llosses[:5]), "the MoL loss does not fall")
+    check(all(math.isfinite(v_) and 0.0 <= v_ <= 1.0 for k_, v_ in lmetrics.items() if k_ != "epoch"),
+          f"MoL eval metrics out of range: {lmetrics}")
+    want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0,
+              "K6": mm1.num_blocks * (m_steps + m_eval), "K7": mm1.num_blocks * m_steps}
+    check(n == want_n, f"the MoL run launched {n}, expected {want_n}")
+    l_trainer = lout["trainer"]
+    profile("MoL training step", lambda: l_trainer.train_step(row))
+    l_items = l_trainer.item_embeddings()
+    profile("MoL eval batch", lambda: l_trainer.encode_step(row, l_items))
+    # MoL top-k of 128 users' queries over the corpus, each row's history
+    # filtered, through the candidate index; against the same on the CPU
+    urow = next(batch_iterator(mol_reco.eval_dataset, CACHE_USERS, shuffle=False))
+    uf, _, _ = seq_features_from_row({k_: torch.as_tensor(v_, device="cuda") for k_, v_ in urow.items()},
+                                     mm1.gr_output_length + 1)
+    with torch.no_grad():
+        lq = l_trainer.model.encode(uf.past_lengths, uf.past_ids, l_trainer.model.get_item_embeddings(uf.past_ids),
+                                    uf.past_payloads)
+    lids = l_trainer.all_item_ids
+    l_topk = MoLBruteForceTopK(l_trainer.model, lids, l_items, item_chunk_size=lcfg.eval_item_chunk_size)
+    l_index = CandidateIndex(ids=lids, embeddings=l_items)
+    linvalid = uf.past_ids
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top_ids, top_s = l_index.get_top_k_outputs(lq, TOP_K, linvalid, top_k_module=l_topk)
+    torch.cuda.synchronize()
+    ltopk_s = time.perf_counter() - t0
+    profile("MoL top-k with filtering", lambda: l_index.get_top_k_outputs(lq, TOP_K, linvalid, top_k_module=l_topk))
+    cpu_model = copy.deepcopy(l_trainer.model).cpu()
+    c_topk = MoLBruteForceTopK(cpu_model, lids.cpu(), l_items.cpu(), item_chunk_size=lcfg.eval_item_chunk_size)
+    c_index = CandidateIndex(ids=lids.cpu(), embeddings=l_items.cpu())
+    c_top_ids, c_top_s = c_index.get_top_k_outputs(lq.cpu(), TOP_K, linvalid.cpu(), top_k_module=c_topk)
+    c_scores = c_topk.scores(lq.cpu())
+    col = l_trainer._id_to_col.cpu()
+    s_scale = c_top_s.abs().max().item()
+    s_err = (top_s.cpu() - c_top_s).abs().max().item()
+    differ = (top_ids.cpu() != c_top_ids).nonzero().tolist()
+    # a differing id must be a near tie: its CPU score within the tolerance of the CPU's at that place
+    tie_err = max((abs(c_scores[b, col[int(top_ids[b, j])]].item() - c_top_s[b, j].item()) for b, j in differ),
+                  default=0.0)
+    seen = bool((top_ids[:, :, None] == linvalid[:, None, :]).any())
+    print(
+        f"  MoL top-{TOP_K} (k'={TOP_K + linvalid.shape[1]}) of {CACHE_USERS} queries over {int(lids.shape[0]):,} "
+        f"items: host wall {1e3 * ltopk_s:.2f} ms; GPU vs CPU: {len(differ)} ids differ (largest near-tie gap "
+        f"{tie_err:.3e}), scores max_abs_err {s_err:.3e} (tol 1e-5 of the largest score, {s_scale:.3e}); a "
+        f"history id returned: {seen}"
+    )
+    check(s_err <= 1e-5 * s_scale and tie_err <= 1e-5 * s_scale, "GPU and CPU MoL top-k disagree")
+    check(not seen, "the MoL top-k returned an id of the row's history")
+    del lout, l_trainer, l_items, l_topk, l_index, cpu_model, c_topk, mol_reco
+    torch.cuda.empty_cache()
+    # one MoL step on a small model, GPU kernels vs CPU plain versions
+    small_mol = dataclasses.replace(small_cfg, loss_weights=(("mi_loss", 0.001),),
+                                    model=dataclasses.replace(small_cfg.model, interaction_module_type="MoL"))
+    gpu_vs_cpu_step("MoL research model", small_mol, sds, sbatch, FixedNegatives, {"K6": 3, "K7": 3})
 
     # ------------------------------------------- ranker on movielens-1m
     ck_ranker = os.path.join(DATA_ROOT, "ckpt", "ml-1m-ranker")
@@ -1813,10 +2134,14 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # --------------------------------------------------------------- report
+    peaks = {PEAK_F32_FLOPS: "float32 FMA, 67e12", PEAK_3XTF32_FLOPS: "3xTF32, 495e12 / 3",
+             PEAK_TF32_FLOPS: "TF32, 495e12 (bfloat16 operands, one exact TF32 product)"}
+
     def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes, peak=PEAK_F32_FLOPS):
         """``peak``: the rate the kernel's operations are held to, float32
         FMA for a kernel outside the tensor cores, a third of dense TF32 for
-        a 3xTF32 one."""
+        a 3xTF32 one, dense TF32 for the bfloat16 kernels' single TF32
+        products."""
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1824,7 +2149,7 @@ def main() -> None:
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "operations_ms": t_ops, "bytes_ms": t_bytes,
-            "operations_peak": "3xTF32, 495e12 / 3" if peak == PEAK_3XTF32_FLOPS else "float32 FMA, 67e12",
+            "operations_peak": peaks[peak],
             # no single PyTorch call computes masked silu attention, with or
             # without the relative bias, or its backward
             "library_ms": None,
@@ -1857,10 +2182,17 @@ def main() -> None:
               max(rel_errs["K6"]), k6_ms, k6_plain_ms, *k6_work, peak=PEAK_3XTF32_FLOPS),
         entry("hstu_mha_relbias_bwd", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7"],
               max(rel_errs["K7"]), k7_ms, k7_plain_ms, *k7_work, peak=PEAK_3XTF32_FLOPS),
+        # K6 and K7 on bfloat16 at the ml-3b preset's layer 0; max_abs_err
+        # is the largest of their cases' (outputs and tables alike)
+        entry("hstu_mha_relbias_fwd_bf16", src + "hstu_mha_relbias_fwd.cu", tpu_rel + "172", launches["K6-bf16"],
+              max(bf16_errs["K6-bf16"]), k6b_ms, k6b_plain_ms, *k6b_work, peak=PEAK_TF32_FLOPS),
+        entry("hstu_mha_relbias_bwd_bf16", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7-bf16"],
+              max(bf16_errs["K7-bf16"]), k7b_ms, k7b_plain_ms, *k7b_work, peak=PEAK_TF32_FLOPS),
     ]
     shapes = [f"serving N={N_full}", f"M-FALCON M={CHUNK}", f"training N={N_tr}",
               f"uih {DET_UIH} N={N_det}", f"uih {DET_UIH} N={N_det}",
-              f"research B={RB} N={RN}", f"research B={RB} N={RN}"]
+              f"research B={RB} N={RN}", f"research B={RB} N={RN}",
+              f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16"]
     for kr, shape in zip(kernels, shapes):
         print(
             f"  {kr['name']}: {kr['ms']:.4f} ms at {shape}, bound {kr['bound_ms']:.4f} ms "

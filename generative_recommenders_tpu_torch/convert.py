@@ -18,6 +18,11 @@ q, k and ``o/kernel`` [in, out]. Its SASRec encoder neither:
 ``encoder/attn_i/{in_proj_weight, in_proj_bias, out_proj_weight,
 out_proj_bias}`` keep torch's [3D, D] and [D, D] (used as ``x @ w.T``) and
 ``encoder/ffn_i/{conv1, conv2}/{kernel, bias}`` are dense layers [in, out].
+Its MoL similarity neither: ``mol/{query_proj, item_proj}/glu/{w, b}``
+([in, 2 out], split lhs / rhs) and ``.../out/{kernel, bias}``,
+``mol/{gating_query, gating_item, gating_qi}/{fc1, fc2}/{kernel, bias}``
+(no ``fc2/bias`` in the query and item gates) and
+``mol/uid_embeddings_<i>`` [hash + 1, d] are the port's names and layouts.
 The rated preprocessors (``pos_emb``, ``rating_emb``) and
 `CategoricalEmbeddingModule` (``item_emb``; its id-to-category map is not a
 parameter on either side) need none either.

@@ -1,6 +1,11 @@
 // HSTU attention forward for Hopper (sm_90a) on the tensor cores, float32 in
 // and out: the shared body of the dense kernel K1 (hstu_mha_fwd.cu) and the
-// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu).
+// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu); K6 also bfloat16 in and
+// out (T = __nv_bfloat16), with the TPU kernel's rounding: S and the sum
+// P V in float32, P rounded to bfloat16 before P V, O written as bfloat16.
+// The bfloat16 tiles are converted to float32 on their way into shared
+// memory (synchronously, `load_tile`'s bfloat16 overload), and every product
+// is one exact TF32 `mma` (`mma<true>`, tf32_mma.cuh) instead of three.
 //
 //   S = alpha Q K^T (+ bias)   P = silu(S) * valid_mask   O = (P V) / norm
 //
@@ -57,6 +62,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -71,10 +77,11 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxShared = 232448;
 
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;  // contiguous [B, N, H, V]
+  // float32, or bfloat16 for K6's bfloat16 kernel
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;  // contiguous [B, N, H, V]
   const int* lengths;      // int32 [B]
   const int* num_targets;  // int32 [B] or null (no targets)
   int B, N, H, D, V;
@@ -120,10 +127,12 @@ __device__ __forceinline__ FragA frag_a_p(const float (&s)[4]) {
   return f;
 }
 
-// W: the padded head width; RELBIAS: K6, the relative bias added to S.
-template <int W, bool RELBIAS>
+// W: the padded head width; RELBIAS: K6, the relative bias added to S; E:
+// the type of q, k, v and out (float, or __nv_bfloat16 for K6).
+template <int W, bool RELBIAS, typename E>
 __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kernel(Params p) {
   using T = Tiling<W>;
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
   constexpr int HG = T::HG, BK = T::BK;
   constexpr int kRows = 16 * T::NW, kThreads = 32 * T::NW;
   constexpr int WV = W < 128 ? W : 128;
@@ -192,9 +201,9 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
       for (int c = 0; c < 4; ++c) acc[hh][j][c] = 0.f;
 
   if (n_kt > 0) {
-    const float* qb = p.q + b * p.q_sb + h0 * p.q_sh;
-    const float* kb = p.k + b * p.k_sb + h0 * p.k_sh;
-    const float* vb = p.v + b * p.v_sb + h0 * p.v_sh;
+    const E* qb = static_cast<const E*>(p.q) + b * p.q_sb + h0 * p.q_sh;
+    const E* kb = static_cast<const E*>(p.k) + b * p.k_sb + h0 * p.k_sh;
+    const E* vb = static_cast<const E*>(p.v) + b * p.v_sb + h0 * p.v_sh;
     const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
     // the step's K and V tiles: step (kt, hh) into stage `st`
     auto load_step = [&](int kt, int hh, int st) {
@@ -318,7 +327,7 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
             for (int ks = 0; ks < KS; ++ks) {  // S's k-steps
               const FragA a = load_a(Qh, PQ, warp * 16, ks * 8);
 #pragma unroll
-              for (int j = 0; j < NT; ++j) mma3(s[j], a, load_b_nk(Ks, PQ, j * 8, ks * 8));
+              for (int j = 0; j < NT; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, PQ, j * 8, ks * 8));
             }
             // P = silu(alpha s + bias), 0 where masked; an interior part has
             // nothing to mask
@@ -337,6 +346,12 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
 #pragma unroll
                 for (int c = 0; c < 4; ++c)
                   if (!((ok_bits >> (4 * j + c)) & 1u)) s[j][c] = 0.f;
+            }
+            if constexpr (kBf16) {  // P V takes P in bfloat16, as the TPU kernel
+#pragma unroll
+              for (int j = 0; j < NT; ++j)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) s[j][c] = round_bf16(s[j][c]);
             }
             // O += P V, the tile's share in fresh accumulators (NG output
             // tiles side by side) added to the walk's sum in float32
@@ -357,7 +372,7 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
                 const FragA a = NO > NG ? pa[NO > NG ? j : 0] : frag_a_p(s[j]);
 #pragma unroll
                 for (int n = 0; n < NG; ++n)
-                  mma3(part[n], a, load_b_kn<true>(Vs, PV, j * 8, (n0 + n) * 8));
+                  mma<kBf16>(part[n], a, load_b_kn<true>(Vs, PV, j * 8, (n0 + n) * 8));
               }
 #pragma unroll
               for (int n = 0; n < NG; ++n)
@@ -380,30 +395,33 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
     for (int i = 0; i < 2; ++i) {
       const int row = row_lo + 8 * i;
       if (row >= p.N) continue;
-      float* o = p.out + (((long long)b * p.N + row) * p.H + h0 + hh) * p.V;
+      E* o = static_cast<E*>(p.out) + (((long long)b * p.N + row) * p.H + h0 + hh) * p.V;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         const int col = 8 * n + 2 * t;
         const float x0 = acc[hh][n][2 * i] * p.inv_norm, x1 = acc[hh][n][2 * i + 1] * p.inv_norm;
         if (col + 1 < p.V && p.V % 2 == 0) {
-          *reinterpret_cast<float2*>(o + col) = make_float2(x0, x1);
+          if constexpr (kBf16)
+            *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(x0, x1);
+          else
+            *reinterpret_cast<float2*>(o + col) = make_float2(x0, x1);
         } else {
-          if (col < p.V) o[col] = x0;
-          if (col + 1 < p.V) o[col + 1] = x1;
+          if (col < p.V) o[col] = E(x0);
+          if (col + 1 < p.V) o[col + 1] = E(x1);
         }
       }
     }
   }
 }
 
-template <int W, bool RELBIAS>
+template <int W, bool RELBIAS, typename E>
 cudaError_t launch_w(const Params& p, cudaStream_t stream) {
   using T = Tiling<W>;
   const int tables = RELBIAS ? 2 * p.Nm - 1 + p.NB + 1 : 0;
   const int ts_row = RELBIAS ? (p.N + T::BK - 1) / T::BK * T::BK : 0;
   const long long smem = (long long)smem_floats<W>(tables, ts_row) * (long long)sizeof(float);
   if (smem > kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = fwd_kernel<W, RELBIAS>;
+  auto kernel = fwd_kernel<W, RELBIAS, E>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -414,7 +432,8 @@ cudaError_t launch_w(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-__host__ inline bool vec16(const float* ptr, long long sb, long long sn, long long sh, int w) {
+// rows readable in pieces of 4 elements (16 bytes of float32, 8 of bfloat16)
+__host__ inline bool vec16(const void* ptr, long long sb, long long sn, long long sh, int w) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 4 == 0 && sn % 4 == 0 &&
          sh % 4 == 0 && w % 4 == 0;
 }
@@ -422,8 +441,8 @@ __host__ inline bool vec16(const float* ptr, long long sb, long long sn, long lo
 // Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
 // 256 and V at most 128 (the Python wrapper checks both); both are padded to
 // the next of 32, 64, 128 (256 for D). RELBIAS also needs both tables to fit
-// the block's shared memory beside the tiles.
-template <bool RELBIAS>
+// the block's shared memory beside the tiles. E: float, or __nv_bfloat16 (K6).
+template <bool RELBIAS, typename E = float>
 int launch(Params p, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.D > 256 || p.V < 1 || p.V > 128) return (int)cudaErrorInvalidValue;
@@ -433,10 +452,10 @@ int launch(Params p, void* stream) {
   p.vec_v = vec16(p.v, p.v_sb, p.v_sn, p.v_sh, p.V);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = p.D > p.V ? p.D : p.V;
-  if (w <= 32) return (int)launch_w<32, RELBIAS>(p, s);
-  if (w <= 64) return (int)launch_w<64, RELBIAS>(p, s);
-  if (w <= 128) return (int)launch_w<128, RELBIAS>(p, s);
-  return (int)launch_w<256, RELBIAS>(p, s);
+  if (w <= 32) return (int)launch_w<32, RELBIAS, E>(p, s);
+  if (w <= 64) return (int)launch_w<64, RELBIAS, E>(p, s);
+  if (w <= 128) return (int)launch_w<128, RELBIAS, E>(p, s);
+  return (int)launch_w<256, RELBIAS, E>(p, s);
 }
 
 }  // namespace hstu_fwd

@@ -72,7 +72,19 @@
 //   arrive in an order that changes from run to run.
 // Head widths are padded with zero columns to W = 32 or 64; larger heads are
 // refused (the Python wrapper raises; no research preset has them).
+//
+// `hstu_mha_relbias_bwd_bf16` is the same kernel on bfloat16 q, k, v and dO,
+// with the TPU kernel's rounding points: dO enters as bfloat16(dO / norm),
+// S, dP and dS are float32, P and dS are rounded to bfloat16 before the
+// products dV = P^T dO, dK = dS^T Q and dQ = dS K, and the table gradients
+// come from the float32 dS summed over the heads. Its tiles are converted to
+// float32 on their way into shared memory (synchronously), and its products
+// are one exact TF32 `mma` each (tf32_mma.cuh). dk and dv are written as
+// bfloat16; dq is summed in a zeroed float32 buffer, as in float32, and a
+// second kernel writes it as bfloat16. alpha must be 1 (the research model's;
+// the TPU kernel rounds alpha q to bfloat16, which this kernel does not).
 #include <cstdint>
+#include <type_traits>
 
 #include "hstu_attention.cuh"
 #include "tf32_mma.cuh"
@@ -88,14 +100,18 @@ constexpr int kPad = 8;        // every tile's pitch is 8 more than its width
 constexpr int kSP = kT + kPad; // pitch of the P and dS tiles
 constexpr unsigned kFull = 0xffffffffu;
 
+// E: float, or __nv_bfloat16 for the bfloat16 kernel. The pointers keep
+// their element type: with untyped (void) pointers cast in the kernel, ptxas
+// spilled 400 bytes instead of 280 in the float32 width-32 instance.
+template <typename E>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;
-  float* dq;  // contiguous [B, N, H, D], a zeroed accumulation buffer
-  float* dk;  // contiguous [B, N, H, D]
-  float* dv;  // contiguous [B, N, H, V]
+  const E* q;
+  const E* k;
+  const E* v;
+  const E* dout;
+  float* dq;  // contiguous [B, N, H, D], a zeroed float32 accumulation buffer
+  E* dk;      // contiguous [B, N, H, D]
+  E* dv;      // contiguous [B, N, H, V]
   const int* lengths;      // int32 [B]
   const int* num_targets;  // int32 [B] or null (no targets)
   const float* ts;     // float32 [B, N] timestamps, contiguous
@@ -123,10 +139,11 @@ __host__ __device__ constexpr int smem_floats(int w, int hg, int n_pos, int n_ts
 
 // Rows [r0, r0 + 64) of one head of a strided [.., N, H, w] tensor into a
 // [64][W + 8] shared tile, asynchronously; zero at rows >= lim and in the pad
-// columns [w, W).
+// columns [w, W). A float32 tile is copied as it is: `scale` is the bfloat16
+// overload's and must be 1 here.
 template <int W>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn,
-                                          int r0, int lim, int w, bool vec) {
+                                          int r0, int lim, int w, bool vec, float scale = 1.f) {
   constexpr int P = W + kPad;
   if (vec) {
     constexpr int C4 = W / 4;
@@ -144,9 +161,39 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
   }
 }
 
-// W: the padded head width (32 or 64); HG: heads per block.
-template <int W, int HG>
-__global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
+// The same of a bfloat16 tensor, converted to float32 (synchronously), and
+// where scale != 1 multiplied by it and rounded to bfloat16 again: the TPU
+// kernel's bfloat16 product dO / norm.
+template <int W>
+__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, long long sn,
+                                          int r0, int lim, int w, bool vec, float scale = 1.f) {
+  constexpr int P = W + kPad;
+  hstu_tf32::load_tile<W, P, kT, kThreads>(dst, src, sn, r0, lim, w, vec);
+  if (scale != 1.f) {
+    __syncthreads();  // the block's stores are whole before any thread rescales
+    for (int idx = threadIdx.x; idx < kT * W; idx += kThreads) {
+      float& x = dst[idx / W * P + idx % W];
+      x = round_bf16(x * scale);
+    }
+  }
+}
+
+// dq's float32 sums written as bfloat16
+__global__ void to_bf16_kernel(const float* x, __nv_bfloat16* y, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    y[i] = __float2bfloat16_rn(x[i]);
+}
+
+// W: the padded head width (32 or 64); HG: heads per block; E: the type of
+// q, k, v, dO, dk and dv (float, or __nv_bfloat16).
+template <int W, int HG, typename E>
+__global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  // 1 / norm: applied to dP and dV on use in float32; in bfloat16 folded into
+  // dO's tiles, rounded, as the TPU kernel rounds dO / norm
+  const float dp_scale = kBf16 ? 1.f : p.inv_norm;
+  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
   constexpr int P = W + kPad;  // pitch of the Q, K, V and dO tiles
   constexpr int NA = W / 16;  // 8-wide output tiles per warp in dK or dV
   constexpr int NQ = W / 32;  // and in dQ
@@ -193,10 +240,10 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
       for (int c = 0; c < 4; ++c) acc[hh][j][c] = 0.f;
 
   if (col0 < length) {
-    const float* qb = p.q + b * p.q_sb + h0 * p.q_sh;
-    const float* kb = p.k + b * p.k_sb + h0 * p.k_sh;
-    const float* vb = p.v + b * p.v_sb + h0 * p.v_sh;
-    const float* ob = p.dout + b * p.do_sb + h0 * p.do_sh;
+    const E* qb = p.q + b * p.q_sb + h0 * p.q_sh;
+    const E* kb = p.k + b * p.k_sb + h0 * p.k_sh;
+    const E* vb = p.v + b * p.v_sb + h0 * p.v_sh;
+    const E* ob = p.dout + b * p.do_sb + h0 * p.do_sh;
     const float* tsb = p.ts + (long long)b * p.N;
     for (int hh = 0; hh < nh; ++hh) {
       load_tile<W>(Ks + hh * kT * P, kb + hh * p.k_sh, p.k_sn, col0, length, p.D, p.vec_k != 0);
@@ -221,7 +268,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
     // col <= row below the length
     const bool plain_causal = lower_only && nt == 0 && p.max_attn_len == 0;
     load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0);
-    load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0);
+    load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0, do_scale);
     cp_async_commit();
     __syncthreads();  // the tables are in place
 
@@ -302,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
               float* nQ = stages + ((step + 1) & 1) * 2 * kT * P;
               load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0);
               load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
-                           p.vec_do != 0);
+                           p.vec_do != 0, do_scale);
             }
             cp_async_commit();
           }
@@ -319,14 +366,14 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
               const FragA a = load_a(Qs, P, wr * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < 2; ++j)
-                mma3(s[j], a, load_b_nk(Kh, P, wc * 16 + j * 8, ks * 8));
+                mma<kBf16>(s[j], a, load_b_nk(Kh, P, wc * 16 + j * 8, ks * 8));
             }
 #pragma unroll
             for (int ks = 0; ks < KS; ++ks) {
               const FragA a = load_a(dOs, P, wr * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < 2; ++j)
-                mma3(dp[j], a, load_b_nk(Vh, P, wc * 16 + j * 8, ks * 8));
+                mma<kBf16>(dp[j], a, load_b_nk(Vh, P, wc * 16 + j * 8, ks * 8));
             }
           }
 #pragma unroll
@@ -340,8 +387,15 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
                 const float x = fmaf(s[j][c], p.alpha, bias[e]);
                 const float sig = __fdividef(1.f, 1.f + __expf(-x));
                 pv[c] = x * sig;
-                ds[c] = dp[j][c] * p.inv_norm * sig * (1.f + x * (1.f - sig));
+                ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
                 dssum[e] += ds[c];
+              }
+            }
+            if constexpr (kBf16) {  // the products take P and dS in bfloat16
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                pv[c] = round_bf16(pv[c]);
+                ds[c] = round_bf16(ds[c]);
               }
             }
             const int at = (wr * 16 + g) * kSP + wc * 16 + j * 8 + 2 * t;
@@ -368,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
               const FragA a = load_a_t(A, kSP, am * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < NA; ++j)
-                mma3(part[j], a, load_b_kn(Bm, P, ks * 8, an + j * 8));
+                mma<kBf16>(part[j], a, load_b_kn(Bm, P, ks * 8, an + j * 8));
             }
 #pragma unroll
             for (int j = 0; j < NA; ++j)
@@ -386,7 +440,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
             const FragA a = load_a(dSs, kSP, wr * 16, ks * 8);
 #pragma unroll
             for (int j = 0; j < NQ; ++j)
-              mma3(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
+              mma<kBf16>(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
           }
           // dead rows keep the buffer's zeros. Where D is a multiple of 4 a
           // lane pair trades halves, so that each lane adds four floats of
@@ -484,9 +538,9 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
   }
 
   // every element of dk and dv is written: zeros where the tile is dead
-  float* out = dv_warp ? p.dv : p.dk;
+  E* out = dv_warp ? p.dv : p.dk;
   const int width = dv_warp ? p.V : p.D;
-  const float scale = dv_warp ? p.inv_norm : p.alpha;
+  const float scale = dv_warp ? dp_scale : p.alpha;
 #pragma unroll
   for (int hh = 0; hh < HG; ++hh) {
     if (hh >= nh) continue;
@@ -494,29 +548,39 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params p) {
     for (int i = 0; i < 2; ++i) {
       const int col = col0 + am * 16 + g + 8 * i;
       if (col >= p.N) continue;
-      float* dst = out + (((long long)b * p.N + col) * p.H + h0 + hh) * width;
+      E* dst = out + (((long long)b * p.N + col) * p.H + h0 + hh) * width;
 #pragma unroll
       for (int j = 0; j < NA; ++j) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int d = an + j * 8 + 2 * t + c;
-          if (d < width) dst[d] = scale * acc[hh][j][2 * i + c];
+          if (d < width) dst[d] = E(scale * acc[hh][j][2 * i + c]);
         }
       }
     }
   }
 }
 
-template <int W, int HG>
-cudaError_t launch_w(const Params& p, cudaStream_t stream) {
+template <int W, int HG, typename E>
+cudaError_t launch_w(const Params<E>& p, cudaStream_t stream) {
   const int smem = smem_floats(W, HG, 2 * p.Nm - 1, p.NB + 1) * (int)sizeof(float);
-  auto kernel = relbias_bwd_kernel<W, HG>;
+  auto kernel = relbias_bwd_kernel<W, HG, E>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.N + kT - 1) / kT, (p.H + HG - 1) / HG, p.B);
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename E>
+int launch(const Params<E>& p, void* stream) {
+  if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
+  if (p.D < 1 || p.V < 1 || p.D > 64 || p.V > 64 || p.Nm < 1 || p.NB < 0 || p.NB > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (p.D <= 32 && p.V <= 32) return (int)launch_w<32, 4, E>(p, s);
+  return (int)launch_w<64, 2, E>(p, s);
 }
 
 }  // namespace hstu_relbias_bwd
@@ -537,15 +601,41 @@ extern "C" int hstu_mha_relbias_bwd(
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
     int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
-  using namespace hstu_relbias_bwd;
-  if (B == 0 || N == 0 || H == 0) return 0;
-  if (D < 1 || V < 1 || D > 64 || V > 64 || Nm < 1 || NB < 0 || NB > 65535)
-    return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, dout, dq, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
-           B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
-           do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
-           contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32 && V <= 32) return (int)launch_w<32, 4>(p, s);
-  return (int)launch_w<64, 2>(p, s);
+  hstu_relbias_bwd::Params<float> p{
+      q, k, v, dout, dq, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
+      B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
+      do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
+      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
+  return hstu_relbias_bwd::launch<float>(p, stream);
+}
+
+// The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; dq32 a zeroed
+// float32 [B, N, H, D] buffer for dq's sums, which a second launch writes
+// into dq as bfloat16; the tables, the timestamps and their gradients
+// float32. The `vec_*` flags: rows readable in 8-byte pieces.
+extern "C" int hstu_mha_relbias_bwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* dout, float* dq32, __nv_bfloat16* dq, __nv_bfloat16* dk,
+    __nv_bfloat16* dv, const int* lengths, const int* num_targets, const float* ts,
+    const float* pos_w, const float* ts_w, float* dpos, float* dts,
+    int B, int N, int H, int D, int V,
+    long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+    long long v_sh, long long do_sb, long long do_sn, long long do_sh,
+    float alpha, float inv_norm, int causal, int max_attn_len,
+    int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+  if (alpha != 1.f) return (int)cudaErrorInvalidValue;
+  hstu_relbias_bwd::Params<__nv_bfloat16> p{
+      q, k, v, dout, dq32, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
+      B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
+      do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
+      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
+  const int err = hstu_relbias_bwd::launch<__nv_bfloat16>(p, stream);
+  const long long n = (long long)B * N * H * D;
+  if (err != 0 || n == 0) return err;
+  const long long blocks = n / 256 + 1 < 4096 ? n / 256 + 1 : 4096;
+  hstu_relbias_bwd::to_bf16_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      dq32, dq, n);
+  return (int)cudaGetLastError();
 }

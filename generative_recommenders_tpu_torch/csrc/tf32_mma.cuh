@@ -4,10 +4,18 @@
 // backward K7 (hstu_mha_relbias_bwd.cu), the forward body of K1 and K6
 // (hstu_attention_fwd.cuh) and the backward bodies of K2 and K4
 // (hstu_attention_bwd_dkv.cuh) and of K3 (hstu_attention_bwd_dq.cuh).
+//
+// The bfloat16 kernels (K6 and K7 on bfloat16 q, k, v) read their tiles
+// through `load_tile`'s bfloat16 overload, which converts to float32 on the
+// way into shared memory, and multiply with `mma<true>`: one TF32 product,
+// exact, because every operand they multiply is a bfloat16 value (the
+// inputs, and P and dS rounded to bfloat16 as the TPU kernels round them),
+// and a bfloat16 value is exact in TF32 (its split leaves small = 0).
 #pragma once
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace hstu_tf32 {
@@ -53,6 +61,40 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
       cp_async4(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
     }
   }
+}
+
+// Rows [r0, r0 + ROWS) of one head of a strided bfloat16 [.., N, H, w]
+// tensor into a [ROWS][P] float32 shared tile, converted on the way, with
+// the same zeros as the float32 load. Synchronous: the tile is in place after
+// the barrier that follows, as an asynchronous one is after its wait and that
+// barrier. vec: rows readable in 8-byte pieces of 4 elements.
+template <int W, int P, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, long long sn,
+                                          int r0, int lim, int w, bool vec) {
+  if (vec) {
+    constexpr int C4 = W / 4;
+    for (int idx = threadIdx.x; idx < ROWS * C4; idx += THREADS) {
+      const int r = idx / C4, c = (idx % C4) * 4;
+      uint2 raw = make_uint2(0u, 0u);
+      if (r0 + r < lim && c < w)
+        raw = *reinterpret_cast<const uint2*>(src + (long long)(r0 + r) * sn + c);
+      // a bfloat16 is the top half of the float32 of the same value
+      *reinterpret_cast<float4*>(dst + r * P + c) =
+          make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                      __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * W; idx += THREADS) {
+      const int r = idx / W, c = idx % W;
+      const bool ok = r0 + r < lim && c < w;
+      dst[r * P + c] = ok ? __bfloat162float(src[(long long)(r0 + r) * sn + c]) : 0.f;
+    }
+  }
+}
+
+// x rounded to the nearest bfloat16 (ties to even), as a float32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // x = big + small + (an error under 2^-21 |x|): big holds x's first 11
@@ -141,6 +183,17 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB&
   mma_tf32(c, a.small, b.big);
   mma_tf32(c, a.big, b.small);
   mma_tf32(c, a.big, b.big);
+}
+
+// c += a b: EXACT (both operands bfloat16 values, exact in TF32) one TF32
+// product, else 3xTF32
+template <bool EXACT>
+__device__ __forceinline__ void mma(float (&c)[4], const FragA& a, const FragB& b) {
+  if constexpr (EXACT) {
+    mma_tf32(c, a.big, b.big);
+  } else {
+    mma3(c, a, b);
+  }
 }
 
 }  // namespace hstu_tf32

@@ -10,7 +10,7 @@ stands for ``lax.top_k``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -45,13 +45,16 @@ class CandidateIndex:
         query_embeddings: torch.Tensor,  # [B, D]
         k: int,
         invalid_ids: Optional[torch.Tensor] = None,  # int[B, N0]: ids to drop per row
+        top_k_module: Optional[Callable] = None,  # (queries, k) -> (scores, ids), best first
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Top-k with row-wise filtering: (ids [B, k], scores [B, k])."""
+        """Top-k with row-wise filtering: (ids [B, k], scores [B, k]), by
+        inner product or by ``top_k_module`` (e.g. `MoLBruteForceTopK`)."""
         max_num_invalid = 0 if invalid_ids is None else invalid_ids.shape[1]
         k_prime = min(k + max_num_invalid, self.num_objects)
-        top_scores, top_ids = mips_brute_force_top_k(
-            query_embeddings, self.embeddings, self.ids, k_prime
+        top_k_fn = top_k_module or (
+            lambda q, kk: mips_brute_force_top_k(q, self.embeddings, self.ids, kk)
         )
+        top_scores, top_ids = top_k_fn(query_embeddings, k_prime)
         if invalid_ids is None:
             return top_ids[:, :k], top_scores[:, :k]
         is_valid = ~(top_ids[:, :, None] == invalid_ids[:, None, :]).any(dim=2)  # [B, k']

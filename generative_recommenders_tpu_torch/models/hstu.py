@@ -29,8 +29,23 @@ and the timestamps (the write positions, the delta mask, the bias indices)
 is built once per step, with every layer's bias rows in one gather
 (`HSTUEncoder._delta_plans`), not in each layer. Not ported yet: a relative
 bias without timestamps (it needs the dense kernel's [B, N, N] bias
-argument), attention dropout (the JAX package has it on its XLA path only)
-and activation recomputation; each raises.
+argument) and attention dropout (the JAX package has it on its XLA path
+only); each raises.
+
+Types, as flax promotes them: a block computes LN(x) @ W_uvqk in float32 and
+casts the product to x's type, so a bfloat16 input gives bfloat16 u, q, k
+and v and the relative-bias kernels run in bfloat16; its output projection
+``o`` holds float32 weights, so the block's output, and with it every later
+block, is float32. Under ``compute_dtype="bfloat16"`` only the first block
+runs in bfloat16, as in the JAX package.
+
+``remat`` recomputes each block in the backward
+(`torch.utils.checkpoint`, non-reentrant) instead of keeping its
+activations, as the JAX package's ``nn.remat`` per block does, and only
+where that does (no KV caches in or out). The dropout masks come from an
+explicit generator, which a checkpoint does not restore: the block's
+recomputation replays the generator's state from the forward, and leaves the
+generator where it found it.
 """
 
 from __future__ import annotations
@@ -40,6 +55,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from generative_recommenders_tpu_torch.modules.mlp import (
     Dense,
@@ -164,7 +180,8 @@ class SequentialTransductionUnit(nn.Module):
         the extended cache comes back with the output."""
         B, N, _ = x.shape
         H, dqk, dv = self.num_heads, self.attention_dim, self.linear_dim
-        mixed = layer_norm(x, eps=self.epsilon) @ self.uvqk
+        # float32 product, cast to x's type: bfloat16 u, q, k, v for a bfloat16 x
+        mixed = (layer_norm(x, eps=self.epsilon).float() @ self.uvqk).to(x.dtype)
         if self.linear_activation == "silu":
             mixed = F.silu(mixed)
         u, v, q, k = torch.split(mixed, [dv * H, dv * H, dqk * H, dqk * H], dim=-1)
@@ -200,6 +217,7 @@ class SequentialTransductionUnit(nn.Module):
         o_input = torch.cat([u, a, u * a], dim=-1) if self.concat_ua else u * a
         if not deterministic:
             o_input = dropout(o_input, self.dropout_ratio, gen)
+        # the float32 projection promotes a bfloat16 block's output to float32
         return self.o(o_input) + x
 
     def _delta_attend(
@@ -227,13 +245,14 @@ class SequentialTransductionUnit(nn.Module):
         full_v[:, : cache[1].shape[1]] = cache[1]
         full_k.view(B * plan.width, H, -1).index_copy_(0, plan.write_idx, delta_k.reshape(B * M, H, -1))
         full_v.view(B * plan.width, H, -1).index_copy_(0, plan.write_idx, delta_v.reshape(B * M, H, -1))
-        s = torch.einsum("bmhd,bnhd->bhmn", q, full_k)
+        s = torch.einsum("bmhd,bnhd->bhmn", q.float(), full_k.float())
         if self.rel_attn_bias is not None:
             if plan.bias is None:
                 raise ValueError("the delta step with the relative bias needs the full timestamps")
             s = s + plan.bias
         p = F.silu(s) * plan.scaled_mask
-        attn = torch.einsum("bhmn,bnhv->bmhv", p, full_v).reshape(B, M, H * dv)
+        attn = torch.einsum("bhmn,bnhv->bmhv", p.to(full_v.dtype).float(), full_v.float())
+        attn = attn.reshape(B, M, H * dv).to(delta_x.dtype)
         return self._finish(attn, u, delta_x, deterministic, gen), (full_k, full_v)
 
 
@@ -256,10 +275,12 @@ class HSTUEncoder(nn.Module):
         concat_ua: bool = False,
         normalization: str = "rel_bias",
         max_total_seq_len: int = 0,
+        remat: bool = False,
         gen: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
         self.num_blocks = num_blocks
+        self.remat = remat
         for i in range(num_blocks):
             self.add_module(f"layer_{i}", SequentialTransductionUnit(
                 embedding_dim=embedding_dim,
@@ -306,6 +327,8 @@ class HSTUEncoder(nn.Module):
             elif return_caches:
                 x, cache = block(x, lengths, all_timestamps, deterministic, gen, return_cache=True)
                 new_caches.append(cache)
+            elif self.remat and torch.is_grad_enabled():
+                x = _recomputed(block, x, lengths, all_timestamps, deterministic, gen)
             else:
                 x = block(x, lengths, all_timestamps, deterministic, gen)
         if caches is not None or return_caches:
@@ -340,3 +363,33 @@ class HSTUEncoder(nn.Module):
             + torch.stack([t.ts_w for t in tables])[:, bucket]
         )  # [L, B, M, Nfull]
         return [DeltaPlan(Nfull, write_idx, scaled_mask, b[:, None]) for b in bias]
+
+
+def _recomputed(
+    block: SequentialTransductionUnit,
+    x: torch.Tensor,
+    lengths: torch.Tensor,
+    all_timestamps: Optional[torch.Tensor],
+    deterministic: bool,
+    gen: Optional[torch.Generator],
+) -> torch.Tensor:
+    """``block(x, ...)`` under a non-reentrant checkpoint. The recomputation
+    draws the forward's dropout masks again: it sets ``gen`` to its state at
+    the forward's start and restores the state it found afterwards (the
+    checkpoint restores only the global generators, and the blocks draw
+    from none of them)."""
+    state = None if gen is None else gen.get_state()
+    calls = [0]
+
+    def run(inp: torch.Tensor) -> torch.Tensor:
+        calls[0] += 1
+        if state is None or calls[0] == 1:
+            return block(inp, lengths, all_timestamps, deterministic, gen)
+        found = gen.get_state()
+        gen.set_state(state)
+        try:
+            return block(inp, lengths, all_timestamps, deterministic, gen)
+        finally:
+            gen.set_state(found)
+
+    return torch.utils.checkpoint.checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)

@@ -43,9 +43,14 @@ def sampled_softmax_loss(
     sampled_negative_embeddings: torch.Tensor,  # [B, N, R, D] (normalised)
     softmax_temperature: float,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Dot-product sampled softmax."""
+    """Dot-product sampled softmax. bfloat16 negatives (the bfloat16
+    trainer's) meet the float32 outputs in float32, as the JAX package's
+    einsum promotes them."""
     pos_logits = (output_embeddings * supervision_embeddings).sum(-1)
-    neg_logits = torch.einsum("bnd,bnrd->bnr", output_embeddings, sampled_negative_embeddings)
+    dt = torch.promote_types(output_embeddings.dtype, sampled_negative_embeddings.dtype)
+    neg_logits = torch.einsum(
+        "bnd,bnrd->bnr", output_embeddings.to(dt), sampled_negative_embeddings.to(dt)
+    )
     loss = sampled_softmax_loss_from_logits(
         pos_logits, neg_logits, supervision_ids, supervision_weights,
         sampled_ids, softmax_temperature,

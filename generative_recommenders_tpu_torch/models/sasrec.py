@@ -6,11 +6,14 @@ whose feed-forward is two kernel-1 convolutions, i.e. two dense layers.
               x = FFN(LN(q + MHA(q, x, x))) * valid_mask
 
 Plain `matmul` and `softmax`, as the JAX package's einsums are; no HSTU
-kernel is involved. The attention dropout draws its mask from the caller's
-generator, which `scaled_dot_product_attention` would not. Parameter names
-and layouts are the flax tree's (``attn_i/in_proj_weight`` [3D, D],
-``ffn_i/conv1/kernel`` [in, out]), so `convert.params_from_flax` carries
-them over.
+kernel is involved. A bfloat16 input (``compute_dtype="bfloat16"``) stays
+bfloat16 through the first block's query layer norm only: the float32 input
+projection promotes the attention to float32, and the residual sum with it
+the rest of the stack, as flax promotes them. The attention dropout draws
+its mask from the caller's generator, which `scaled_dot_product_attention`
+would not. Parameter names and layouts are the flax tree's
+(``attn_i/in_proj_weight`` [3D, D], ``ffn_i/conv1/kernel`` [in, out]), so
+`convert.params_from_flax` carries them over.
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ class SoftmaxMultiheadAttention(nn.Module):
         H = self.num_heads
         dh = D // H
         w, b = self.in_proj_weight, self.in_proj_bias
+        # a bfloat16 input meets the float32 projection in float32, as in flax
+        query, key, value = (t.to(torch.promote_types(t.dtype, w.dtype)) for t in (query, key, value))
         q = (query @ w[:D].T + b[:D]).reshape(B, N, H, dh).transpose(1, 2)
         k = (key @ w[D : 2 * D].T + b[D : 2 * D]).reshape(B, N, H, dh).transpose(1, 2)
         v = (value @ w[2 * D :].T + b[2 * D :]).reshape(B, N, H, dh).transpose(1, 2)

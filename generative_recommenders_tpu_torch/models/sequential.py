@@ -3,15 +3,23 @@ preprocessor, encoder, output postprocessor and similarity (port of
 `generative_recommenders_tpu/models/sequential.py`).
 
 Ported: ``main_module="HSTU"`` and ``"SASRec"`` with the ``DotProduct``
-similarity, in float32, and HSTU's KV-cached `encode_with_cache` /
-`encode_delta`. MoL, ``compute_dtype="bfloat16"`` and ``remat`` are not
-ported yet; asking for them raises.
+or the ``MoL`` similarity (`models/rails/mol.py`), HSTU's KV-cached
+`encode_with_cache` / `encode_delta`, ``remat`` (per-block recomputation,
+`models/hstu.py`) and ``compute_dtype="bfloat16"``.
+
+Under ``compute_dtype="bfloat16"`` the preprocessed input is cast to
+bfloat16 before the encoder and the encoder's output back to float32 before
+the output postprocessor, as in the JAX package. What runs in bfloat16
+follows flax's type promotion layer by layer: in HSTU only the first block
+(its float32 output projection promotes the residual stream to float32), in
+SASRec only the first block's query layer norm (its float32 input
+projection promotes the rest).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,6 +30,7 @@ from generative_recommenders_tpu_torch.models.postprocessors import make_output_
 from generative_recommenders_tpu_torch.models.preprocessors import (
     LearnablePositionalEmbeddingInputFeaturesPreprocessor,
 )
+from generative_recommenders_tpu_torch.models.rails.mol import MoLConfig, MoLSimilarity
 from generative_recommenders_tpu_torch.models.sasrec import SASRecEncoder
 from generative_recommenders_tpu_torch.models.seq_utils import get_current_embeddings
 from generative_recommenders_tpu_torch.models.similarity import dot_product_similarity
@@ -54,10 +63,10 @@ class ModelConfig:
     # the JAX package's kernel choice; the port picks by the tensors' device
     # and does not read it
     attn_kernel: str = "xla"
-    compute_dtype: str = "float32"  # "bfloat16" is not ported
-    remat: bool = False  # not ported
-    interaction_module_type: str = "DotProduct"  # "MoL" is not ported
-    mol_config: Optional[Any] = None
+    compute_dtype: str = "float32"  # | "bfloat16"
+    remat: bool = False  # per-block activation recomputation (HSTU)
+    interaction_module_type: str = "DotProduct"  # | "MoL"
+    mol_config: Optional[MoLConfig] = None  # None: MoLConfig(D, D)
 
     @property
     def total_seq_len(self) -> int:
@@ -74,14 +83,10 @@ class SequentialRecommender(nn.Module):
         cfg = self.config = config
         if cfg.main_module not in ("HSTU", "SASRec"):
             raise ValueError(f"Unknown main_module {cfg.main_module}")
-        if cfg.interaction_module_type != "DotProduct":
-            if cfg.interaction_module_type == "MoL":
-                raise NotImplementedError("interaction_module_type='MoL' is not ported yet")
+        if cfg.interaction_module_type not in ("DotProduct", "MoL"):
             raise ValueError(f"Unknown interaction_module_type {cfg.interaction_module_type}")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype={cfg.compute_dtype!r} is not ported yet")
-        if cfg.remat:
-            raise NotImplementedError("remat (activation recomputation) is not ported yet")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"Unknown compute_dtype {cfg.compute_dtype}")
         self.embedding_module = LocalEmbeddingModule(cfg.num_items, cfg.item_embedding_dim, gen)
         self.input_preproc = LearnablePositionalEmbeddingInputFeaturesPreprocessor(
             max_sequence_len=cfg.total_seq_len,
@@ -103,6 +108,7 @@ class SequentialRecommender(nn.Module):
                 enable_relative_attention_bias=cfg.enable_relative_attention_bias,
                 concat_ua=cfg.concat_ua,
                 max_total_seq_len=cfg.total_seq_len,
+                remat=cfg.remat,
                 gen=gen,
             )
         else:
@@ -118,6 +124,15 @@ class SequentialRecommender(nn.Module):
         self.output_postproc = make_output_postprocessor(
             cfg.user_embedding_norm, cfg.item_embedding_dim
         )
+        if cfg.interaction_module_type == "MoL":
+            self.mol = MoLSimilarity(
+                cfg.mol_config
+                or MoLConfig(
+                    query_embedding_dim=cfg.item_embedding_dim,
+                    item_embedding_dim=cfg.item_embedding_dim,
+                ),
+                gen,
+            )
 
     def get_item_embeddings(self, item_ids: torch.Tensor) -> torch.Tensor:
         return self.embedding_module(item_ids)
@@ -137,6 +152,7 @@ class SequentialRecommender(nn.Module):
             past_lengths, past_ids, past_embeddings, past_payloads,
             deterministic=deterministic, gen=gen,
         )
+        user_embeddings = self._to_compute_dtype(user_embeddings)
         if cfg.main_module == "SASRec":
             encoded = self.encoder(
                 user_embeddings, lengths, None, deterministic, gen, valid_mask=valid_mask
@@ -146,6 +162,9 @@ class SequentialRecommender(nn.Module):
                 user_embeddings, lengths, self._timestamps(past_payloads), deterministic, gen
             )
         return self.output_postproc(encoded.float())
+
+    def _to_compute_dtype(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(torch.bfloat16) if self.config.compute_dtype == "bfloat16" else x
 
     def _timestamps(self, payloads: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
         return payloads.get("timestamps") if self.config.enable_relative_attention_bias else None
@@ -200,7 +219,7 @@ class SequentialRecommender(nn.Module):
             past_lengths, past_ids, past_embeddings, past_payloads, deterministic=True
         )
         encoded, caches = self.encoder(
-            user_embeddings, lengths, self._timestamps(past_payloads),
+            self._to_compute_dtype(user_embeddings), lengths, self._timestamps(past_payloads),
             deterministic=True, return_caches=True,
         )
         if reserved_slots > 0:
@@ -227,7 +246,7 @@ class SequentialRecommender(nn.Module):
             deterministic=True, delta_positions=positions,
         )
         encoded, new_caches = self.encoder(
-            delta_emb, cache_lengths + M, self._timestamps(full_payloads),
+            self._to_compute_dtype(delta_emb), cache_lengths + M, self._timestamps(full_payloads),
             deterministic=True, caches=caches, cache_lengths=cache_lengths,
         )
         return self.output_postproc(encoded.float())[:, -1, :], new_caches
@@ -236,5 +255,35 @@ class SequentialRecommender(nn.Module):
         self,
         query_embeddings: torch.Tensor,  # [B, D]
         item_embeddings: torch.Tensor,  # [1 or B, X, D]
+        user_ids: Optional[torch.Tensor] = None,  # int[B]: MoL's uid tables
+        deterministic: bool = True,
+        gen: Optional[torch.Generator] = None,  # MoL's dropout masks
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """([B, X] logits, aux losses) by DotProduct or MoL."""
+        if self.config.interaction_module_type == "MoL":
+            return self.mol(query_embeddings, item_embeddings, user_ids, deterministic, gen)
         return dot_product_similarity(query_embeddings, item_embeddings)
+
+    def mol_item_components(
+        self, item_embeddings: torch.Tensor  # [X, D]
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """MoL's item side of a corpus, computed once for every query:
+        (components [X, P_X, d], item gate [X, E] or None)."""
+        i_comp = self.mol.item_components(item_embeddings[None])[0]
+        gi = self.mol.gating_item_partial(item_embeddings[None])
+        return i_comp, (None if gi is None else gi[0])
+
+    def mol_score_components(
+        self,
+        query_embeddings: torch.Tensor,  # [B, D]
+        i_comp: torch.Tensor,  # [X, P_X, d]
+        gi: Optional[torch.Tensor],  # [X, E]
+        user_ids: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """MoL's scores [B, X] of queries against precomputed item
+        components, dropout off."""
+        q_comp, _ = self.mol.query_components(query_embeddings, user_ids, True)
+        logits, _ = self.mol.score_components(
+            query_embeddings, q_comp, i_comp[None], None if gi is None else gi[None], True
+        )
+        return logits

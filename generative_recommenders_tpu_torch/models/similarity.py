@@ -1,5 +1,6 @@
 """Dot-product similarity of the research stack (port of
-`generative_recommenders_tpu/models/similarity.py`). MoL is not ported yet."""
+`generative_recommenders_tpu/models/similarity.py`). The learned MoL
+similarity is `models/rails/mol.py`."""
 
 from __future__ import annotations
 

@@ -58,15 +58,21 @@ def new_param(shape: Sequence[int], init: Init, gen: Optional[torch.Generator]) 
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias`` with kernel [in, out]."""
+    """flax ``nn.Dense``: ``x @ kernel + bias`` with kernel [in, out]. As
+    flax's, it promotes the input and the kernel to their common type: a
+    bfloat16 input meets the float32 kernel in float32."""
 
-    def __init__(self, in_dim: int, out_dim: int, gen: Optional[torch.Generator] = None) -> None:
+    def __init__(
+        self, in_dim: int, out_dim: int, gen: Optional[torch.Generator] = None,
+        use_bias: bool = True,
+    ) -> None:
         super().__init__()
         self.kernel = new_param((in_dim, out_dim), xavier_normal, gen)
-        self.bias = new_param((out_dim,), zeros, gen)
+        self.bias = new_param((out_dim,), zeros, gen) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        y = x.to(torch.promote_types(x.dtype, self.kernel.dtype)) @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 class LayerNormModule(nn.Module):

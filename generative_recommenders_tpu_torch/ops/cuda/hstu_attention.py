@@ -31,8 +31,10 @@ The TPU wrappers' transposes, their padding of N to tile multiples, their
 block-size tables and the backward's `_pack_rows`
 residual packing are VMEM and lane-padding artefacts and are not ported:
 the kernels read strided [B, N, H, D] views and mask the ragged edge
-themselves. All kernels compute in float32, the serving and training
-paths' type.
+themselves. These kernels take float32 only (the serving and training
+paths' type); the relative-bias pair K6 / K7 also takes bfloat16
+(`ops/cuda/hstu_attention_relbias.py`), the one path of the JAX package that
+reaches its kernels in bfloat16.
 
 HSTU attention replaces softmax with a pointwise gate:
 
@@ -67,6 +69,8 @@ _ARGTYPES = {
         for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
     },
 }
+# entry points that live in another kernel's library: entry -> library
+_LIBRARY: Dict[str, str] = {}
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _MAX_V = 128
 _MAX_D = 256
@@ -179,11 +183,15 @@ def delta_hstu_mha_plain(
 
 
 # ------------------------------------------------------------------ kernels
-def _check(name: str, t: torch.Tensor, ndim: int, device: torch.device) -> None:
+def _check(
+    name: str, t: torch.Tensor, ndim: int, device: torch.device,
+    dtypes: Tuple[torch.dtype, ...] = (torch.float32,),
+) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (the serving path's type), got {t.dtype}")
+    if t.dtype not in dtypes:
+        allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name} must be {allowed} (the kernels' types), got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if t.stride(-1) != 1:
@@ -198,12 +206,14 @@ def _int_vector(name: str, t: torch.Tensor, B: int, device: torch.device) -> tor
     return t.to(device=device, dtype=torch.int32).contiguous()
 
 
-def _check_qkv(q, k, v) -> torch.device:
+def _check_qkv(q, k, v, dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> torch.device:
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CPU or CUDA tensors, got {device}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, 4, device)
+        _check(name, t, 4, device, dtypes)
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k and v must have one type, got {q.dtype}, {k.dtype}, {v.dtype}")
     B, _, H, D = q.shape
     if k.shape[0] != B or k.shape[2:] != (H, D) or v.shape[:3] != k.shape[:3]:
         raise ValueError(
@@ -217,9 +227,10 @@ def _check_qkv(q, k, v) -> torch.device:
 
 
 def _launch(name: str, *args) -> None:
-    """Calls the kernel's C entry point; raises on a nonzero
+    """Calls the C entry point ``name``, in the library of the kernel of
+    that name or of the one `_LIBRARY` gives; raises on a nonzero
     cudaGetLastError() from the launch."""
-    fn = getattr(load(name), name)
+    fn = getattr(load(_LIBRARY.get(name, name)), name)
     if fn.argtypes is None:
         fn.argtypes, fn.restype = _ARGTYPES[name], ctypes.c_int
     err = fn(*args)
@@ -499,9 +510,10 @@ def hstu_mha_bwd_cuda(
 
 
 def _vec16(t: torch.Tensor) -> bool:
-    """Whether a kernel may read ``t``'s rows with 16-byte loads: the
-    pointer, every stride but the last and the width are multiples of 4
-    float32 (the last stride is 1, `_check`)."""
+    """Whether a kernel may read ``t``'s rows in pieces of 4 elements (16
+    bytes of float32, 8 of bfloat16): a 16-byte aligned pointer, every
+    stride but the last and the width multiples of 4 (the last stride is 1,
+    `_check`)."""
     return (
         t.data_ptr() % 16 == 0
         and t.shape[-1] % 4 == 0

@@ -29,6 +29,20 @@ version and in the CUDA kernels alike. The TPU wrapper's padding of N to a
 multiple of 128, its 128-wide table rows, its `_pack_rows` residuals and the
 host scatter-add that rebuilds ``dpos_w`` are not ported.
 
+bfloat16: both kernels also take bfloat16 q, k, v (and dO), the type the
+JAX package's ``compute_dtype="bfloat16"`` gives the first HSTU block, with
+the Pallas kernels' rounding points: S, dP and dS in float32 from exact
+products, P rounded to bfloat16 before P V (forward) and P^T dO (backward),
+dO entering the backward as bfloat16(dO * bfloat16(1 / norm)), dS rounded
+to bfloat16 before dS^T Q and dS K, the table gradients from the float32 dS
+summed over the heads; out, dq, dk and dv in bfloat16, the table gradients
+in float32. Their plain versions follow the same rounding points
+(`_relbias_fwd_plain_bf16`, `_relbias_bwd_plain_bf16`); autograd through a
+bfloat16 forward would round dP instead. The bfloat16 kernels count their
+launches in ``launches_bf16``, beside the float32 kernels' ``launches``,
+and take ``alpha = 1`` only (the TPU kernel rounds alpha q to bfloat16 in
+the kernel; the research model's alpha is 1).
+
 K7 sums dq, ``dpos_w`` and ``dts_w`` with atomics, in an order that changes
 from run to run, and the JAX package has no other backward for this
 function: under ``torch.use_deterministic_algorithms(True)`` the backward
@@ -56,7 +70,15 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of the entry points (csrc/hstu_mha_relbias_*.cu)
 ha._ARGTYPES.update({
     "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_P],
+    "hstu_mha_relbias_fwd_bf16": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_P],
     "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P],
+    # one more pointer: dq's float32 sums beside the bfloat16 dq
+    "hstu_mha_relbias_bwd_bf16": [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P],
+})
+# the bfloat16 kernels are second entry points of K6's and K7's libraries
+ha._LIBRARY.update({
+    "hstu_mha_relbias_fwd_bf16": "hstu_mha_relbias_fwd",
+    "hstu_mha_relbias_bwd_bf16": "hstu_mha_relbias_bwd",
 })
 # K7's tiling (csrc/hstu_mha_relbias_bwd.cu): 64 x 64 tile pairs, every tile
 # at a pitch of its width + 8; a Hopper block's shared memory
@@ -105,6 +127,91 @@ def relative_bias_plain(
     return pos_w[rel] + ts_w[bucket]
 
 
+def _plain_mask(N: int, lengths: torch.Tensor, kw: dict) -> torch.Tensor:
+    """The spec mask AND row/col < length, bool [B, N, N]."""
+    return apply_padding_guard(
+        make_valid_attn_mask(
+            N, lengths, causal=kw["causal"], num_targets=kw["num_targets"],
+            max_attn_len=kw["max_attn_len"], contextual_seq_len=kw["contextual_seq_len"],
+            min_full_attn_seq_len=kw["min_full_attn_seq_len"],
+        ),
+        lengths,
+    )
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16, as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _check_bf16_alpha(alpha: float) -> None:
+    if alpha != 1.0:
+        raise ValueError(
+            f"the bfloat16 relative-bias attention takes alpha = 1 (got {alpha}): the TPU kernel "
+            "rounds alpha * q to bfloat16, which the port does not"
+        )
+
+
+def _relbias_fwd_plain_bf16(q, k, v, lengths, timestamps, pos_w, ts_w, num_buckets, kw) -> torch.Tensor:
+    """K6's bfloat16 function: S = q k^T + bias in float32 from bfloat16
+    inputs, P = silu(S) * mask rounded to bfloat16, O = (P V) / norm in
+    float32, returned as bfloat16."""
+    _check_bf16_alpha(kw["alpha"])
+    N = q.shape[1]
+    mask = _plain_mask(N, lengths, kw)
+    bias = relative_bias_plain(timestamps, pos_w, ts_w, num_buckets)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) + bias[:, None]
+    p = _bf16(torch.where(mask[:, None], F.silu(s), 0.0))
+    out = torch.einsum("bhnm,bmhv->bnhv", p, v.float()) * (1.0 / (kw["max_seq_len"] or N))
+    return out.to(torch.bfloat16)
+
+
+def _relbias_bwd_plain_bf16(q, k, v, lengths, timestamps, pos_w, ts_w, do, num_buckets, kw) -> RelbiasGrads:
+    """K7's bfloat16 function, written out: dO / norm rounded to bfloat16
+    (with 1 / norm itself in bfloat16, the Pallas kernel's weakly typed
+    scalar), dV = bf16(P)^T dO, dP = dO V^T and dS = dP * dsilu in float32,
+    dK = bf16(dS)^T Q, dQ = bf16(dS) K, the table gradients from the float32
+    dS summed over the heads."""
+    _check_bf16_alpha(kw["alpha"])
+    N = q.shape[1]
+    mask = _plain_mask(N, lengths, kw)[:, None]
+    inv_norm = _bf16(torch.tensor(1.0 / (kw["max_seq_len"] or N))).item()
+    dob = _bf16(do.float() * inv_norm)
+    with torch.enable_grad():
+        tables = [t.detach().float().requires_grad_(True) for t in (pos_w, ts_w)]
+        bias = relative_bias_plain(timestamps, *tables, num_buckets)
+    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) + bias.detach()[:, None]
+    sig = torch.sigmoid(s)
+    p = torch.where(mask, s * sig, 0.0)
+    dv = torch.einsum("bhnm,bnhv->bmhv", _bf16(p), dob)
+    dp = torch.einsum("bnhv,bmhv->bhnm", dob, v.float())
+    ds = torch.where(mask, dp * sig * (1.0 + s * (1.0 - sig)), 0.0)
+    ds16 = _bf16(ds)
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds16, q.float())
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds16, k.float())
+    dpos, dts = torch.autograd.grad(bias, tables, ds.sum(1))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dpos, dts
+
+
+class _RelbiasPlainBf16(torch.autograd.Function):
+    """The bfloat16 plain version, forward and backward at the kernels'
+    rounding points; gradients for q, k, v, ``pos_w`` and ``ts_w``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_w, ts_w, lengths, timestamps, num_buckets, kw):
+        ctx.save_for_backward(q, k, v, pos_w, ts_w, lengths, timestamps)
+        ctx.num_buckets, ctx.kw = num_buckets, kw
+        return _relbias_fwd_plain_bf16(q, k, v, lengths, timestamps, pos_w, ts_w, num_buckets, kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, pos_w, ts_w, lengths, timestamps = ctx.saved_tensors
+        grads = _relbias_bwd_plain_bf16(
+            q, k, v, lengths, timestamps, pos_w, ts_w, do, ctx.num_buckets, ctx.kw
+        )
+        return (*grads, None, None, None, None)
+
+
 def hstu_mha_dense_relbias_plain(
     q: torch.Tensor,  # [B, N, H, D]
     k: torch.Tensor,  # [B, N, H, D]
@@ -125,17 +232,16 @@ def hstu_mha_dense_relbias_plain(
 ) -> torch.Tensor:
     """K6's function in plain PyTorch: the materialised bias, the spec mask
     AND row/col < length, silu, einsum. Rows >= length come out 0.
-    Differentiable by autograd in q, k, v, ``pos_w`` and ``ts_w``: its
-    gradient is the plain backward."""
+    Differentiable in q, k, v, ``pos_w`` and ``ts_w``: in float32 by
+    autograd, whose gradient is the plain backward; in bfloat16 through
+    `_RelbiasPlainBf16`, at the kernels' rounding points."""
     N = q.shape[1]
-    mask = apply_padding_guard(
-        make_valid_attn_mask(
-            N, lengths, causal=causal, num_targets=num_targets,
-            max_attn_len=max_attn_len, contextual_seq_len=contextual_seq_len,
-            min_full_attn_seq_len=min_full_attn_seq_len,
-        ),
-        lengths,
-    )
+    kw = dict(alpha=alpha, max_seq_len=max_seq_len, causal=causal, num_targets=num_targets,
+              max_attn_len=max_attn_len, contextual_seq_len=contextual_seq_len,
+              min_full_attn_seq_len=min_full_attn_seq_len)
+    if q.dtype == torch.bfloat16:
+        return _RelbiasPlainBf16.apply(q, k, v, pos_w, ts_w, lengths, timestamps, num_buckets, kw)
+    mask = _plain_mask(N, lengths, kw)
     bias = relative_bias_plain(timestamps, pos_w, ts_w, num_buckets)
     scores = torch.einsum("bnhd,bmhd->bhnm", q, k) * alpha + bias[:, None]
     p = F.silu(scores) / (max_seq_len or N)
@@ -146,7 +252,8 @@ def hstu_mha_dense_relbias_plain(
 def hstu_mha_relbias_bwd_plain(q, k, v, lengths, timestamps, pos_w, ts_w, do, **kw) -> RelbiasGrads:
     """K7's function in plain PyTorch: (dq, dk, dv, dpos_w, dts_w) of
     `hstu_mha_dense_relbias_plain` (same keywords) at the output gradient
-    ``do``, by autograd."""
+    ``do``, by autograd (in bfloat16 through `_RelbiasPlainBf16`'s written-out
+    backward)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v, pos_w, ts_w)]
         out = hstu_mha_dense_relbias_plain(*leaves[:3], lengths, timestamps, *leaves[3:], **kw)
@@ -156,8 +263,12 @@ def hstu_mha_relbias_bwd_plain(q, k, v, lengths, timestamps, pos_w, ts_w, do, **
 # -------------------------------------------------------------------- kernels
 def _checked(q, k, v, lengths, timestamps, pos_w, ts_w, num_buckets: int, num_targets):
     """Checks the CUDA inputs of both kernels; returns the timestamps as
-    contiguous float32 and lengths and num_targets as int32 (or None)."""
-    device = ha._check_qkv(q, k, v)
+    contiguous float32 and lengths and num_targets as int32 (or None). q, k
+    and v are float32 or bfloat16, the tables float32."""
+    if q.dtype == torch.bfloat16:  # K6 and K7 alone also take bfloat16
+        device = ha._check_qkv(q, k, v, (torch.bfloat16,))
+    else:
+        device = ha._check_qkv(q, k, v)
     B, N = q.shape[:2]
     if k.shape[1] != N:
         raise ValueError(f"k has {k.shape[1]} rows, q has {N}")
@@ -184,13 +295,16 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     float32 [B, N]; both tables contiguous float32)."""
     B, N, H, D = q.shape
     V = v.shape[3]
-    out = torch.empty((B, N, H, V), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_bf16_alpha(kw["alpha"])
+    out = torch.empty((B, N, H, V), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     # raises on what the kernel does not take
     ha._fwd_plan(D, V, H, (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, True, B, N)
     ha._launch(
-        "hstu_mha_relbias_fwd",
+        "hstu_mha_relbias_fwd_bf16" if bf16 else "hstu_mha_relbias_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(),
@@ -198,7 +312,8 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
         *ha._mask_args(kw, N), (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1,
         ha._stream(q.device),
     )
-    hstu_mha_dense_relbias_cuda.launches.add()
+    counters = hstu_mha_dense_relbias_cuda
+    (counters.launches_bf16 if bf16 else counters.launches).add()
     return out
 
 
@@ -237,29 +352,36 @@ def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int) -> dict:
 
 def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict) -> RelbiasGrads:
     """Launches K7 on checked CUDA tensors (as `_relbias_fwd`; do contiguous
-    in its last dim) and counts it. dq and both table gradients are summed
-    into zeroed buffers."""
+    in its last dim, of q's type) and counts it. dq (in float32) and both
+    table gradients are summed into zeroed buffers; the bfloat16 kernel
+    writes dq's sums as bfloat16 at its end."""
     B, N, H, D = q.shape
     V = v.shape[3]
     Nm, NB = (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check_bf16_alpha(kw["alpha"])
     _relbias_bwd_plan(D, V, H, Nm, NB)  # raises on what the kernel does not take
-    new = lambda fn, *shape: fn(shape, dtype=torch.float32, device=q.device)  # noqa: E731
-    dq = new(torch.zeros, B, N, H, D)
-    dk, dv = new(torch.empty, B, N, H, D), new(torch.empty, B, N, H, V)
+    new = lambda fn, *shape, dtype=torch.float32: fn(shape, dtype=dtype, device=q.device)  # noqa: E731
+    dq32 = new(torch.zeros, B, N, H, D)
+    dq = new(torch.empty, B, N, H, D, dtype=q.dtype) if bf16 else dq32
+    dk, dv = new(torch.empty, B, N, H, D, dtype=q.dtype), new(torch.empty, B, N, H, V, dtype=q.dtype)
     dpos, dts = new(torch.zeros, pos_w.shape[0]), new(torch.zeros, ts_w.shape[0])
     if B * N * H == 0:
         return dq, dk, dv, dpos, dts
+    dq_ptrs = (dq32.data_ptr(), dq.data_ptr()) if bf16 else (dq.data_ptr(),)
     ha._launch(
-        "hstu_mha_relbias_bwd",
+        "hstu_mha_relbias_bwd_bf16" if bf16 else "hstu_mha_relbias_bwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *dq_ptrs, dk.data_ptr(), dv.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *ha._mask_args(kw, N), Nm, NB,
         *(int(ha._vec16(t)) for t in (q, k, v, do)), ha._stream(q.device),
     )
-    hstu_mha_relbias_bwd_cuda.launches.add()
+    counters = hstu_mha_relbias_bwd_cuda
+    (counters.launches_bf16 if bf16 else counters.launches).add()
     return dq, dk, dv, dpos, dts
 
 
@@ -363,10 +485,12 @@ def hstu_mha_relbias_bwd_cuda(
     if do.shape != v.shape:
         raise ValueError(f"shape mismatch: v {tuple(v.shape)}, do {tuple(do.shape)}")
     do = ha._last_dim_contiguous(do)
-    ha._check("do", do, 4, q.device)
+    ha._check("do", do, 4, q.device, (q.dtype,))
     kw.pop("num_targets")
     return _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw)
 
 
 hstu_mha_dense_relbias_cuda.launches = LaunchCounter()
+hstu_mha_dense_relbias_cuda.launches_bf16 = LaunchCounter()
 hstu_mha_relbias_bwd_cuda.launches = LaunchCounter()
+hstu_mha_relbias_bwd_cuda.launches_bf16 = LaunchCounter()

@@ -13,6 +13,14 @@ does not lose when a phase goes, that phase did not cost; `PERF.md` quotes
 the table this prints. Needs a CUDA card and nvcc. Names of C entry points
 (``hstu_mha_fwd``, ...) as arguments time only those kernels' variants.
 
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants KERNEL ... --against DIR
+
+times instead each named kernel as shipped against the same kernel built from
+the sources of another checkout at DIR (``git archive <commit> | tar -x -C
+DIR``), in the order other, shipped, shipped, other, twice, on the same
+inputs through the same wrapper; the kernel's C signature must be the same
+in both trees.
+
 Inputs, from seed 0: K5 at the serving chunk (B 32, M 5, H 4, D = V = 128,
 N 523, lengths 100..329, q a strided view); K6 and K7 at the research shape
 (B 96, N 511, H 8, D = V = 32, lengths 1..511, q/k/v views of one
@@ -244,6 +252,24 @@ def _build_all(root: str, chosen: List[int]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
 
 
+def _build_other(root: str, csrc: str, kernels: List[str]) -> None:
+    """Each kernel's library built from another checkout's sources ``csrc``
+    into ``root/<kernel>/``, one nvcc per kernel, all started together."""
+    nvcc = build._nvcc()
+    procs = []
+    for kernel in kernels:
+        d = os.path.join(root, kernel)
+        os.makedirs(d, exist_ok=True)
+        procs.append(subprocess.Popen(
+            [nvcc, *build.NVCC_FLAGS, "-I", csrc, "-o", os.path.join(d, f"lib{kernel}.so"),
+             os.path.join(csrc, build.KERNEL_SOURCES[kernel])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs = [p.communicate()[0] for p in procs]
+    if any(p.returncode != 0 for p in procs):
+        raise RuntimeError("nvcc failed:\n" + "\n".join(logs))
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     import sys
 
@@ -328,20 +354,40 @@ def main(argv: Optional[List[str]] = None) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    only = set(sys.argv[1:] if argv is None else argv)
+    timed = {"hstu_mha_relbias_bwd": (k7, 10), "delta_hstu_mha_fwd": (k5, 300),
+             "hstu_mha_relbias_fwd": (k6, 20), "hstu_mha_fwd": (k1, 50),
+             "hstu_mha_bwd_fused": (k2, 50), "hstu_mha_bwd_dkv": (k4, 20),
+             "hstu_mha_bwd_dq": (k3, 20)}
+    args = list(sys.argv[1:] if argv is None else argv)
+    other = None
+    if "--against" in args:
+        at = args.index("--against")
+        other = args[at + 1]
+        del args[at : at + 2]
+    only = set(args)
     chosen = [i for i, (kernel, _, _) in enumerate(VARIANTS) if not only or kernel in only]
-    root = os.path.join(build.BUILD_DIR, "variants")
-    _build_all(root, chosen)
     shipped_dir = build.BUILD_DIR
     try:
+        if other is not None:
+            kernels = sorted({VARIANTS[i][0] for i in chosen})
+            root = os.path.join(shipped_dir, "against")
+            _build_other(root, os.path.join(os.path.abspath(other), "generative_recommenders_tpu_torch", "csrc"),
+                         kernels)
+            for kernel in kernels:
+                for which in ("other", "shipped", "shipped", "other") * 2:
+                    build.BUILD_DIR = os.path.join(root, kernel) if which == "other" else shipped_dir
+                    build._libs.clear()
+                    fn, reps = timed[kernel]
+                    label = f"as in {other}" if which == "other" else "as shipped"
+                    print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms")
+            return
+        root = os.path.join(build.BUILD_DIR, "variants")
+        _build_all(root, chosen)
         for i in chosen:
             kernel, label, _ = VARIANTS[i]
             build.BUILD_DIR = os.path.join(root, f"v{i}")
             build._libs.clear()
-            fn, reps = {"hstu_mha_relbias_bwd": (k7, 10), "delta_hstu_mha_fwd": (k5, 300),
-                        "hstu_mha_relbias_fwd": (k6, 20), "hstu_mha_fwd": (k1, 50),
-                        "hstu_mha_bwd_fused": (k2, 50), "hstu_mha_bwd_dkv": (k4, 20),
-                        "hstu_mha_bwd_dq": (k3, 20)}[kernel]
+            fn, reps = timed[kernel]
             print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms")
     finally:
         build.BUILD_DIR = shipped_dir

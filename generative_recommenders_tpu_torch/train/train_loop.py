@@ -12,8 +12,19 @@ with `SampledSoftmaxLoss`, `BCELoss` or `BCELossWithRatings`, stochastic
 length, length buckets (static or runtime), AdamW beta = (0.9, 0.98) with the
 linear warm-up, the mid-epoch partial eval, ``max_steps``, TensorBoard
 scalars and checkpoints of ``{params, opt_state}`` every
-``save_ckpt_every_n`` epochs (`utils/checkpoint.py`). Not ported yet, and
-refused by `ResearchTrainer`: ``loss_activation_checkpoint`` and MoL.
+``save_ckpt_every_n`` epochs (`utils/checkpoint.py`); the MoL similarity
+(`SampledSoftmaxLoss` over MoL logits, the ``mi_loss`` weighted in by
+``loss_weights``, and a full-corpus MoL eval scored in chunks of
+``eval_item_chunk_size`` items); ``compute_dtype="bfloat16"`` (the local
+negatives then come from a bfloat16 copy of the item table, whose gradient
+flows back to the float32 table through the cast); and
+``loss_activation_checkpoint`` (the dot-product sampled softmax recomputed
+in the backward, as the JAX trainer does; not the MoL branch).
+
+The MoL branch reads the batch's ``"user_ids"``, as the JAX trainer does,
+and the dataset yields ``"user_id"``: a MoL configuration with uid tables
+therefore fails on its first step, in both packages (ROADMAP.md, findings
+about the reference).
 The JAX trainer folds the step number into one key and splits it for
 dropout, stochastic length and negatives; here three `torch.Generator`s,
 seeded once, advance from step to step, so a run is reproducible from its
@@ -29,6 +40,7 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from generative_recommenders_tpu_torch.data.dataset import (
     SequenceDataset,
@@ -43,6 +55,7 @@ from generative_recommenders_tpu_torch.models.losses import (
     bce_loss,
     bce_loss_with_ratings,
     sampled_softmax_loss,
+    sampled_softmax_loss_from_logits,
 )
 from generative_recommenders_tpu_torch.models.samplers import (
     InBatchNegativesSampler,
@@ -55,6 +68,7 @@ from generative_recommenders_tpu_torch.train.eval_metrics import (
     MetricsAccumulator,
     build_id_to_col,
     metrics_from_ranks,
+    ranks_from_scores,
     target_ranks,
 )
 from generative_recommenders_tpu_torch.utils.bucketing import (
@@ -90,9 +104,10 @@ class TrainConfig:
     full_eval_every_n: int = 1
     partial_eval_num_iters: int = 32
     random_seed: int = 42
-    # weights of auxiliary losses, by name; no ported module returns one yet
+    # weights of auxiliary losses, by name, e.g. (("mi_loss", 0.001),) for
+    # MoL's load balancing
     loss_weights: Tuple[Tuple[str, float], ...] = ()
-    eval_item_chunk_size: int = 8192  # MoL eval only (not ported)
+    eval_item_chunk_size: int = 8192  # MoL eval: corpus items scored at once
     # stochastic length: rows longer than N^(alpha / 2) are cut to that
     # threshold with probability 1 - N^alpha / n^2; 0 = off
     stochastic_length_alpha: float = 0.0
@@ -103,7 +118,8 @@ class TrainConfig:
     # host data pipeline: batch-building threads and their window; 0 = synchronous
     num_workers: int = 4
     prefetch_factor: int = 16
-    loss_activation_checkpoint: bool = False  # not ported
+    # recompute the dot-product sampled softmax in the backward
+    loss_activation_checkpoint: bool = False
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
@@ -115,8 +131,9 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         )
     if cfg.loss_module not in ("SampledSoftmaxLoss", "BCELoss", "BCELossWithRatings"):
         raise ValueError(f"Unknown loss_module {cfg.loss_module}")
-    if cfg.loss_activation_checkpoint:
-        raise NotImplementedError("loss_activation_checkpoint is not ported yet")
+    if cfg.model.interaction_module_type == "MoL" and cfg.loss_module != "SampledSoftmaxLoss":
+        # the JAX trainer asserts the same in its loss
+        raise ValueError(f"{cfg.loss_module} + MoL is not wired up")
 
 
 def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -233,18 +250,59 @@ class ResearchTrainer:
             neg_ids, neg_emb = self.sampler(self.negatives_gen, state, sup_ids, num_to_sample)
         else:
             neg_ids, neg_emb = self.sampler(
-                self.negatives_gen, sup_ids, num_to_sample, model.get_item_embeddings
+                self.negatives_gen, sup_ids, num_to_sample, self._negatives_embedding_fn()
             )
-        if cfg.loss_module == "SampledSoftmaxLoss":
-            loss, aux = sampled_softmax_loss(
-                output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb,
-                softmax_temperature=cfg.temperature,
-            )
+        if cfg.loss_module == "SampledSoftmaxLoss" and cfg.model.interaction_module_type == "MoL":
+            loss, aux = self._mol_loss(batch, output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb)
+        elif cfg.loss_module == "SampledSoftmaxLoss":
+            args = (output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb, cfg.temperature)
+            if cfg.loss_activation_checkpoint:
+                loss, aux = torch.utils.checkpoint.checkpoint(
+                    sampled_softmax_loss, *args, use_reentrant=False, preserve_rng_state=False
+                )
+            else:
+                loss, aux = sampled_softmax_loss(*args)
         else:
             loss, aux = bce_loss(
                 output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb, temperature=cfg.temperature
             )
         return self._weighted(loss, aux)
+
+    def _negatives_embedding_fn(self):
+        """The local negatives' lookup: the model's table, or under
+        ``compute_dtype="bfloat16"`` a bfloat16 copy of it, gathered and
+        zeroed at id 0; the gradient reaches the float32 table through the
+        cast."""
+        model = self.model
+        if self.cfg.model.compute_dtype != "bfloat16":
+            return model.get_item_embeddings
+        table16 = model.embedding_module.item_emb.to(torch.bfloat16)
+        num_items = self.cfg.model.num_items
+
+        def lookup(ids: torch.Tensor) -> torch.Tensor:
+            e = table16[ids.clamp(0, num_items)]
+            return e * (ids != 0)[..., None].to(e.dtype)
+
+        return lookup
+
+    def _mol_loss(self, batch, output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb):
+        """Sampled softmax over MoL logits: queries [B (N - 1), D] against
+        their positive and R negatives [B (N - 1), 1 + R, D], user ids
+        repeated N - 1 times."""
+        B, Nm1, D = output.shape
+        R = neg_emb.shape[2]
+        items = torch.cat([pos_emb[:, :, None, :], neg_emb.to(pos_emb.dtype)], dim=2)
+        uid = batch.get("user_ids")
+        uid_flat = None if uid is None else uid.reshape(-1).repeat_interleave(Nm1)
+        logits, aux = self.model.similarity_fn(
+            output.reshape(B * Nm1, D), items.reshape(B * Nm1, 1 + R, D), uid_flat,
+            deterministic=False, gen=self.dropout_gen,
+        )
+        loss = sampled_softmax_loss_from_logits(
+            logits[:, 0].reshape(B, Nm1), logits[:, 1:].reshape(B, Nm1, R),
+            sup_ids, ar_mask, neg_ids, softmax_temperature=self.cfg.temperature,
+        )
+        return loss, aux
 
     def _weighted(self, loss: torch.Tensor, aux: Dict[str, torch.Tensor]):
         for key, weight in self.cfg.loss_weights:
@@ -305,10 +363,35 @@ class ResearchTrainer:
             features.past_lengths, features.past_ids, input_embeddings, features.past_payloads
         )
         k = min(MAX_K, int(self.all_item_ids.shape[0]))
-        ranks = target_ranks(
-            query, item_embs, self._id_to_col, target_ids[:, 0], features.past_ids, k=k
-        )
+        if self.cfg.model.interaction_module_type == "MoL":
+            scores = self._mol_corpus_scores(query, item_embs, batch.get("user_ids"))
+            ranks = ranks_from_scores(
+                scores, self._id_to_col, target_ids[:, 0], features.past_ids, k=k
+            )
+        else:
+            ranks = target_ranks(
+                query, item_embs, self._id_to_col, target_ids[:, 0], features.past_ids, k=k
+            )
         return ranks, target_ratings[:, 0]
+
+    def _mol_corpus_scores(
+        self, query: torch.Tensor, item_embs: torch.Tensor, user_ids
+    ) -> torch.Tensor:
+        """MoL scores [B, X] over the whole corpus: the item side computed
+        once over the corpus padded to a multiple of the chunk, then scored
+        chunk by chunk."""
+        X = item_embs.shape[0]
+        chunk = min(self.cfg.eval_item_chunk_size, X)
+        padded = torch.cat([item_embs, item_embs.new_zeros(((-X) % chunk, item_embs.shape[1]))])
+        i_comp, gi = self.model.mol_item_components(padded)
+        uid = None if user_ids is None else torch.as_tensor(user_ids, device=self.device).reshape(-1)
+        scores = [
+            self.model.mol_score_components(
+                query, i_comp[c : c + chunk], None if gi is None else gi[c : c + chunk], uid
+            )
+            for c in range(0, padded.shape[0], chunk)
+        ]
+        return torch.cat(scores, dim=1)[:, :X]
 
     def eval_epoch(
         self,

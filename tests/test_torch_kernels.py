@@ -23,7 +23,10 @@ works on 64 x 64 tile pairs with groups of 4 (or 2) heads inside a block and
 sums dk and dv without atomics; K1 and K6 walk 32-column key tiles for query
 tiles of 64 or 128 rows and groups of 1 or 2 heads, and sum in a fixed order
 (K1: the same bits every run): all four are also run at the lengths, row
-counts, head counts and widths where those tilings end.
+counts, head counts and widths where those tilings end. K6 and K7 on
+bfloat16 are held to their bfloat16 plain versions within 2^-6 of each
+bfloat16 output's largest entry (the same rounding points; a sum taken in
+another order now and then rounds to the neighbouring bfloat16).
 """
 
 import numpy as np
@@ -635,3 +638,62 @@ def test_relbias_forward_at_its_seams(cuda, name):
     torch.testing.assert_close(got, hstu_mha_dense_relbias_plain(*args, **kw), **TOL)
     dead = torch.arange(q.shape[1], device=cuda)[None, :] >= lengths[:, None]
     assert (got[dead] == 0).all()
+
+
+BF16_TOL = 2.0**-6  # of an output's largest entry: K6 and K7 on bfloat16 against their bfloat16 plain versions
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RELBIAS_CASES)
+@pytest.mark.parametrize("shape", [(3, 211, 2, 32, 32, 211, 128), (2, 100, 2, 25, 25, 120, 40)])
+def test_relbias_bf16_kernels_match_plain(cuda, case, shape):
+    """K6 and K7 on bfloat16 q, k, v and dO against their bfloat16 plain
+    versions, which round P, dO / norm and dS to bfloat16 where the kernels
+    do: out, dq, dk and dv bfloat16 within 2^-6 of their largest entry (a
+    sum taken in another order now and then rounds to the neighbouring
+    bfloat16), the float32 tables within `TABLE_TOL`; each launch counted
+    once as a bfloat16 launch; rows >= length exactly 0."""
+    case = dict(case)
+    B, N, H, D, V, Nm, nb = shape
+    nt_on = case.pop("num_targets", False)
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(8, B, N, H, D, V, Nm, nb, nt_on, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(alpha=1.0, max_seq_len=N, num_buckets=nb, num_targets=nt, **case)
+    c6, c7 = hstu_mha_dense_relbias_cuda, hstu_mha_relbias_bwd_cuda
+    before = (c6.launches.count, c6.launches_bf16.count, c7.launches.count, c7.launches_bf16.count)
+    got = c6(q, k, v, lengths, ts, pos_w, ts_w, **kw)
+    do = torch.randn(N, B, H, V, device=cuda).to(torch.bfloat16).transpose(0, 1)  # strided
+    grads = c7(q, k, v, lengths, ts, pos_w, ts_w, do, **kw)
+    after = (c6.launches.count, c6.launches_bf16.count, c7.launches.count, c7.launches_bf16.count)
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 0, 1]
+    dead = torch.arange(N, device=cuda)[None, :] >= lengths[:, None]
+    want = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, **kw)
+    outs = [(got, hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, **kw))]
+    for name, (g, w) in zip(("out", "dq", "dk", "dv"), outs + list(zip(grads[:3], want[:3]))):
+        assert g.dtype == w.dtype == torch.bfloat16, name
+        err = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+        assert err <= BF16_TOL, f"{name}: {err:.2e} of its max"
+        assert (g[dead] == 0).all(), name
+    for name, g, w in zip(("dpos_w", "dts_w"), grads[3:], want[3:]):
+        assert g.dtype == torch.float32
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        assert err <= TABLE_TOL, f"{name}: {err:.2e} of the gradient's max"
+
+
+@pytest.mark.gpu
+def test_relbias_bf16_refuses_what_it_does_not_take(cuda):
+    """alpha other than 1 (the TPU kernel rounds alpha q to bfloat16), a dO
+    of another type than q, and q, k, v of mixed types raise; nothing is
+    launched."""
+    B, N, H, D, V, Nm, nb = 2, 40, 2, 32, 32, 40, 128
+    q, k, v, lengths, ts, pos_w, ts_w, _ = _relbias_inputs(10, B, N, H, D, V, Nm, nb, False, cuda)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    c6, c7 = hstu_mha_dense_relbias_cuda, hstu_mha_relbias_bwd_cuda
+    before = (c6.launches_bf16.count, c7.launches_bf16.count)
+    with pytest.raises(ValueError, match="alpha = 1"):
+        c6(qb, kb, vb, lengths, ts, pos_w, ts_w, alpha=0.5)
+    with pytest.raises(TypeError, match="k must be bfloat16"):
+        c6(qb, k, vb, lengths, ts, pos_w, ts_w)
+    with pytest.raises(TypeError, match="do must be bfloat16"):
+        c7(qb, kb, vb, lengths, ts, pos_w, ts_w, torch.zeros(B, N, H, V, device=cuda))
+    assert (c6.launches_bf16.count, c7.launches_bf16.count) == before

@@ -519,19 +519,7 @@ def test_presets_match_the_jax_packages():
     assert (big.model.total_seq_len, big.model.num_items, big.local_batch_size) == (511, 855_776, 96)
 
 
-@pytest.mark.parametrize("field, value, match", [
-    ("loss_activation_checkpoint", True, "loss_activation_checkpoint"),
-])
-def test_trainer_refuses_what_is_not_ported(field, value, match):
-    cfg = t_train.TrainConfig(model=t_seq.ModelConfig(**SMALL), **{field: value})
-    with pytest.raises(NotImplementedError, match=match):
-        t_train.ResearchTrainer(cfg, np.arange(1, 10), device="cpu")
-
-
 @pytest.mark.parametrize("over, match", [
-    (dict(interaction_module_type="MoL"), "MoL"),
-    (dict(compute_dtype="bfloat16"), "bfloat16"),
-    (dict(remat=True), "remat"),
     (dict(attn_dropout_rate=0.1), "attn_dropout_rate"),
 ])
 def test_model_refuses_what_is_not_ported(over, match):
