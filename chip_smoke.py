@@ -6,7 +6,8 @@
 Needs one CUDA card; exits nonzero, printing no result, without one.
 
 1. prints the card's name and power limit, then builds every CUDA kernel
-   from its source and prints the build time;
+   from its source through the warm-up CLI (`cli/warm_cache.py`, one nvcc
+   per source, all at once) and prints each build's time;
 2. kernel phase: calls each kernel's wrapper at the shapes the serving and
    training paths give it (on contiguous tensors and on the strided views
    of the uvqk projection that the paths pass) and at edge cases, and holds
@@ -41,7 +42,18 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    at uih 1024 that must take K3 + K4 and give the same bits twice (and a
    profile of one of its steps); then one
    training step's gradients on a small model, GPU kernels against the CPU
-   plain versions;
+   plain versions; every ranker step here runs under the default STU
+   recompute flags. Then the dynamic-STU ranker (`train_ranker
+   --stochastic_depth 0.1 --l2_max_len 128`, 2 + 20 steps; K1 and K2 held to
+   the layers the recorded coins ran, each attention's width to the L2
+   windows); the recompute phase (the default flags against all off, one
+   seed, dropout on: gradients, launches, the bytes kept for the backward,
+   peak memory and median step of each); the jagged attention phase
+   (`ops/hstu_attention.py`: `hstu_mha` through K1 and `delta_hstu_mha`
+   through K5 at the serving shape against their plain versions); the
+   interleave preprocessor at the training widths, forward and backward,
+   GPU against CPU; and `train_ranker --output_trace` over 36 steps of a
+   small ranker, whose Chrome trace must hold K1's and K2's events;
 5. research phase: trains the HSTU retrieval model of the full-width
    preset `ml-3b/hstu-sampled-softmax-n96-seqlen500-large` (16 blocks, 8
    heads, d 256, N 511, batch 96, 128 negatives, 855,776 items) through the
@@ -88,7 +100,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    mi_loss weighted 0.001) one epoch through `train_loop` on the registry's
    files and a full MoL eval, `MoLBruteForceTopK` top-100 for 128 users
    through `CandidateIndex(top_k_module=...)` against the same on the CPU,
-   and one small MoL step GPU against CPU;
+   and one small MoL step GPU against CPU. Between the two: the preset with
+   attention dropout 0.2 (2 + 10 steps through the plain composite, 0 K6 /
+   K7 a step, K6 in the eval) and the position-only bias (no timestamps:
+   K6 / K7 on zero timestamps and a one-entry time table against their plain
+   versions at the preset's shape, timed; a small encoder GPU against CPU);
 10. movielens-1m ranker phase: `train_ranker --dataset movielens-1m` on
    that `sasrec_format.csv` at full width with `--ckpt_dir` (K1, K2 3 a
    step), `--mode eval` from the checkpoint, then `inference.main
@@ -108,6 +124,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -197,6 +214,11 @@ BF16_GRAD_TOL, BF16_LOSS_RTOL = 3e-2, 1e-3
 REMAT_TOL = 1e-5
 # the remat phase's steps at the ml-3b preset: 2 warm-ups, then timed ones
 REMAT_WARMUPS, REMAT_STEPS = 2, 5
+# the dynamic-STU ranker (the train CLI's flags), the recompute phase's timed
+# steps, the traced run (the profiler records steps 30 to 34)
+SD_RATIO, L2_LEN, REC_STEPS, TRACE_STEPS = 0.1, 128, 10, 36
+# the ml-1m large preset with attention dropout: 2 warm-ups, then timed steps
+ATTN_DROPOUT, DROPOUT_STEPS = 0.2, 10
 
 
 def fail(msg: str) -> None:
@@ -438,6 +460,7 @@ def main() -> None:
             preprocess_public_data,
             train_ranker,
             train_research,
+            warm_cache,
         )
         from generative_recommenders_tpu_torch.data.dataset import (
             MultiFileSequenceDataset,
@@ -456,7 +479,16 @@ def main() -> None:
         from generative_recommenders_tpu_torch.utils.bucketing import bucket_batch
         from generative_recommenders_tpu_torch.inference import main as serve
         from generative_recommenders_tpu_torch.inference.model_family import HSTUModelFamily
+        from generative_recommenders_tpu_torch.models.hstu import HSTUEncoder
+        from generative_recommenders_tpu_torch.modules import dynamic_stu
+        from generative_recommenders_tpu_torch.modules import stu as stu_module
+        from generative_recommenders_tpu_torch.modules.action_encoder import ActionEncoder, ContentEncoder
+        from generative_recommenders_tpu_torch.modules.contextual_interleave_preprocessor import (
+            ContextualInterleavePreprocessor,
+        )
         from generative_recommenders_tpu_torch.modules.dlrm_hstu import DlrmHSTU
+        from generative_recommenders_tpu_torch.ops import hstu_attention as jagged_attention
+        from generative_recommenders_tpu_torch.ops import jagged
         from generative_recommenders_tpu_torch.ops.attention_mask import (
             apply_padding_guard,
             make_delta_attn_mask,
@@ -501,9 +533,14 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     # ---------------------------------------------------------------- build
+    # through the warm-up CLI: one nvcc per source, all started together
     t0 = time.perf_counter()
-    logs = build.build(force=True)
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s for {len(logs)} kernels")
+    warmed = warm_cache.warm(force=True)
+    logs = {name: r["log"] for name, r in warmed.items()}
+    print(f"kernel build (cli/warm_cache.py): {time.perf_counter() - t0:.1f} s for {len(logs)} kernels; each "
+          f"kernel's nvcc: " + ", ".join(f"{name} {r['seconds']:.1f} s" for name, r in warmed.items()))
+    check(all(r["built"] for r in warmed.values()) and not any(build._stale(name) for name in warmed),
+          "the warm-up CLI left a kernel unbuilt or stale")
     for name, log in logs.items():
         # ptxas -v: per entry point (named by its template arguments: the
         # padded width first) its registers and its spill stores / loads
@@ -779,6 +816,16 @@ def main() -> None:
     ):
         for kname, e in case.items():
             bwd_errs[kname] += e
+    # the dynamic-STU ranker's L2 window (layers 1 and 2 of the training
+    # batch): w = min(L2_LEN, N) rows, lengths clip(len - C, 0, w), the
+    # batch's targets, no contextual rows, and the full sequence's silu
+    # normaliser (max_seq_len N > w)
+    w_l2 = min(L2_LEN, N_tr)
+    l2_len = (tr_len - C).clamp(0, w_l2)
+    l2_name = f"L2 window (w={w_l2} of N={N_tr}, normaliser {N_tr}), q/k/v split from the uvqk projection"
+    errs["K1"].append(dense_case(l2_name, B, w_l2, l2_len, tr_nt, qkv=uvqk_views(B, w_l2), max_seq_len=N_tr))
+    for kname, e in bwd_case(l2_name, B, w_l2, l2_len, tr_nt, qkv=uvqk_views(B, w_l2), max_seq_len=N_tr).items():
+        bwd_errs[kname] += e
 
     def bwd_timing(N, lens, nt):
         """Device ms of K2, K3, K4 and the plain backward at one training
@@ -1329,34 +1376,292 @@ def main() -> None:
     check(same, "two deterministic runs from one seed differ")
     del det_runs, p1, p2
 
+    def small_step_grads(cfg_, coins=()):
+        """One training forward and backward of a small ranker from one seed
+        on each device, dropout off (the devices' random streams differ) and
+        the given stochastic-depth coins on both: the largest gradient error
+        of the card against the CPU, relative to each gradient's max, the
+        parameters given gradients, and the card's K1 and K2 launches."""
+        raw = next(DLRMv3RandomDataset(cfg_, hash_size=100, batch_size=4, seed=5).batches(1))
+        grads, launched = {}, {}
+        for dev in ("cpu", "cuda"):
+            queue = list(coins)
+            dynamic_stu.SDSTU.skip = lambda self_, gen_: queue.pop(0)
+            try:
+                trainer = DlrmTrainer(cfg_, get_embedding_table_config("debug", hash_size=100, dim=16),
+                                      DlrmTrainConfig(), device="cpu", seed=6)
+                trainer.model.to(dev)
+                trainer.device = torch.device(dev)
+                before = {k: counters[k].count for k in ("K1", "K2")}
+                loss, *_ = trainer.loss(to_device(raw, trainer.device))
+                loss.backward()
+            finally:
+                dynamic_stu.SDSTU.skip = real_skip
+            check(not queue, f"{len(queue)} stochastic-depth coins were not drawn")
+            if dev == "cuda":
+                launched = {k: counters[k].count - n_ for k, n_ in before.items()}
+            grads[dev] = {name: p.grad.cpu() for name, p in trainer.model.named_parameters() if p.grad is not None}
+        check(grads["cpu"].keys() == grads["cuda"].keys(), "the two devices give gradients to other parameters")
+        err = max(
+            (grads["cuda"][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+            for k, g in grads["cpu"].items()
+        )
+        return err, sorted(grads["cpu"]), launched
+
     # one training step's gradients on a small model: GPU kernels vs CPU
-    # plain versions, dropout off (the devices' random streams differ)
+    # plain versions
+    real_skip = dynamic_stu.SDSTU.skip
     gcfg = dataclasses.replace(scfg, hstu_input_dropout_ratio=0.0, hstu_linear_dropout_rate=0.0)
-    graw = next(DLRMv3RandomDataset(gcfg, hash_size=100, batch_size=4, seed=5).batches(1))
-    grads = {}
-    for dev in ("cpu", "cuda"):
-        trainer = DlrmTrainer(gcfg, get_embedding_table_config("debug", hash_size=100, dim=16),
-                              DlrmTrainConfig(), device="cpu", seed=6)
-        trainer.model.to(dev)
-        trainer.device = torch.device(dev)
-        k2_before = counters["K2"].count
-        loss, *_ = trainer.loss(to_device(graw, trainer.device))
-        loss.backward()
-        if dev == "cuda":
-            k2_n = counters["K2"].count - k2_before
-            check(k2_n == gcfg.hstu_attn_num_layers, f"small-model step launched K2 {k2_n} times")
-        grads[dev] = {name: p.grad.cpu() for name, p in trainer.model.named_parameters() if p.grad is not None}
-    check(grads["cpu"].keys() == grads["cuda"].keys(), "the two devices give gradients to other parameters")
-    grad_err = max(
-        (grads["cuda"][k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
-        for k, g in grads["cpu"].items()
-    )
+    grad_err, g_names, g_n = small_step_grads(gcfg)
     print(f"  small model, one step's gradients, GPU kernels vs CPU plain versions: largest error "
-          f"{grad_err:.3e} of the gradient's max over {len(grads['cpu'])} parameters (tol {GRAD_TOL})")
+          f"{grad_err:.3e} of the gradient's max over {len(g_names)} parameters (tol {GRAD_TOL})")
+    check(g_n["K2"] == gcfg.hstu_attn_num_layers, f"small-model step launched K2 {g_n['K2']} times")
     check(grad_err <= GRAD_TOL, "GPU and CPU gradients disagree")
+    # and wrapped as the dynamic-STU ranker wraps its layers: stochastic
+    # depth on each of 3 layers (coins run, skip, run) and an L2 window of 16
+    # rows on layers 1 and 2, so layer 2 runs K1 and K2 in the window
+    wcfg = dataclasses.replace(gcfg, hstu_attn_num_layers=3, hstu_stochastic_depth_ratio=0.5, hstu_l2_max_len=16)
+    w_err, w_names, w_n = small_step_grads(wcfg, (False, True, False))
+    print(f"  small wrapped model (stochastic depth, coins run / skip / run; L2 window 16 of N="
+          f"{C + wcfg.max_uih_len + wcfg.max_num_candidates}), one step's gradients, GPU kernels vs CPU "
+          f"plain versions: largest error {w_err:.3e} of the gradient's max over {len(w_names)} parameters "
+          f"(tol {GRAD_TOL}); K1 {w_n['K1']}, K2 {w_n['K2']}")
+    check(w_n == {"K1": 2, "K2": 2}, f"the wrapped small-model step launched {w_n}, expected K1 = K2 = 2")
+    check(not any(".layer_1." in name for name in w_names), "the skipped layer got gradients")
+    check(w_err <= GRAD_TOL, "GPU and CPU gradients of the wrapped model disagree")
+
+    # ---------------------------------------------- dynamic-STU ranker phase
+    # train_ranker with stochastic depth 0.1 on every layer and the L2 window
+    # (w = 128) on layers 1 and 2: each coin and each attention's width
+    # recorded, the launches held to what the coins predict
+    coins, widths = [], []
+    real_attention = stu_module.STULayer._attention
+
+    def recording_skip(self_, sd_gen_):
+        coins.append(real_skip(self_, sd_gen_))
+        return coins[-1]
+
+    def recording_attention(self_, q_, *a_):
+        widths.append(q_.shape[1])
+        return real_attention(self_, q_, *a_)
+
+    dyn_steps = TRAIN_WARMUPS + TRAIN_STEPS
+    dynamic_stu.SDSTU.skip, stu_module.STULayer._attention = recording_skip, recording_attention
+    try:
+        count_reset()
+        dyn = train_ranker.main([
+            "--device", "cuda", "--num_batches", str(dyn_steps), "--batch_size", str(B), "--max_uih_len",
+            str(TRAIN_UIH), "--max_num_candidates", str(TRAIN_CANDS), "--hash_size", str(HASH_SIZE),
+            "--stochastic_depth", str(SD_RATIO), "--l2_max_len", str(L2_LEN),
+        ])
+        n = counts()
+    finally:
+        dynamic_stu.SDSTU.skip, stu_module.STULayer._attention = real_skip, real_attention
+    ran = [[not c for c in coins[i * L_tr:(i + 1) * L_tr]] for i in range(dyn_steps)]
+    want_widths = [N_tr if layer == 0 else min(L2_LEN, N_tr) for step in ran for layer, r in enumerate(step) if r]
+    runs = sum(map(sum, ran))
+    dyn_ms = sorted(1e3 * t for t in dyn["step_s"][TRAIN_WARMUPS:])
+    print(
+        f"dynamic-STU ranker phase: train_ranker --stochastic_depth {SD_RATIO} --l2_max_len {L2_LEN}, the "
+        f"training phase's preset and batches ({L_tr} layers, layers {L_tr // 2}..{L_tr - 1} in L2 windows of "
+        f"{min(L2_LEN, N_tr)} of N={N_tr}), {dyn_steps} steps: {B * TRAIN_STEPS / sum(dyn['step_s'][TRAIN_WARMUPS:]):.1f}"
+        f" examples/s over the last {TRAIN_STEPS}, median step {median(dyn_ms):.2f} ms (the training phase: "
+        f"{median_ms:.2f}); {coins.count(True)} of {len(coins)} layer runs skipped; launches {n}"
+    )
+    check(len(coins) == L_tr * dyn_steps and all(math.isfinite(x) for x in dyn["losses"]),
+          f"dynamic-STU run: {len(coins)} coins, losses {dyn['losses']}")
+    check(n == {**dict.fromkeys(n, 0), "K1": runs, "K2": runs},
+          f"the dynamic-STU run launched {n}, expected K1 = K2 = {runs} (the layers the coins ran)")
+    check(widths == want_widths, "the dynamic-STU run's attention widths differ from the L2 windows")
+    dyn_trainer = dyn["trainer"]
+    dyn_batch = to_device(next(batches(tcfg, 1, 2)), dyn_trainer.device)
+    profile("dynamic-STU training step", lambda: dyn_trainer.train_step(dyn_batch))
+    del dyn, dyn_trainer, dyn_batch
+    gc.collect()
+
+    # ------------------------------------------------------ recompute phase
+    # the default STU recompute flags (all on: each layer keeps its input and
+    # attention output, and recomputes the rest in its backward without
+    # running K1) against all off, from one seed with dropout on
+    rec = {}
+    for label, on in (("recompute", True), ("no recompute", False)):
+        torch.cuda.empty_cache()
+        rtr = DlrmTrainer(tcfg, train_tables, DlrmTrainConfig(), device="cuda", seed=0)
+        if not on:
+            for layer in rtr.model.hstu_transducer.stu_module.layers:
+                layer.config = dataclasses.replace(layer.config, recompute_normed_x=False, recompute_uvqk=False,
+                                                   recompute_y=False)
+        gb = to_device(next(batches(tcfg, 1, 7)), rtr.device)
+        count_reset()
+        # what the forward leaves allocated until the backward, its saved
+        # activations; counted by the allocator, not by saved_tensors_hooks,
+        # which left the trainer's parameters allocated after the phase
+        torch.cuda.synchronize()
+        before_fwd = torch.cuda.memory_allocated()
+        rloss = rtr.loss(gb)[0]  # the predictions' graph would keep the model alive
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - before_fwd
+        rloss.backward()
+        n_grad = counts()
+        # on the host, so that the next trainer starts from the same memory
+        rgrads = {k_: p.grad.cpu() for k_, p in rtr.model.named_parameters() if p.grad is not None}
+        rtr.sparse_opt.zero_grad(set_to_none=True)
+        rtr.dense_opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        count_reset()
+        rout = train_loop(rtr, batches(tcfg, TRAIN_WARMUPS + REC_STEPS, 8))
+        n_steps = counts()
+        peak = torch.cuda.max_memory_allocated()
+        profile(f"{label} training step", lambda: rtr.train_step(gb))
+        rec[label] = dict(loss=rloss.item(), grads=rgrads, kept=kept, launches=n_grad, step_launches=n_steps,
+                          peak=peak / 2**30, above=(peak - held) / 2**30,
+                          median=1e3 * median(rout["step_s"][TRAIN_WARMUPS:]))
+        check(n_grad == {**dict.fromkeys(n_grad, 0), "K1": L_tr, "K2": L_tr},
+              f"{label}: one step launched {n_grad}, expected K1 = K2 = {L_tr}")
+        want_n = L_tr * (TRAIN_WARMUPS + REC_STEPS)
+        check(n_steps == {**dict.fromkeys(n_steps, 0), "K1": want_n, "K2": want_n},
+              f"{label}: the steps launched {n_steps}, expected K1 = K2 = {want_n}")
+        del rtr, rgrads, gb, rout, rloss
+        gc.collect()  # the trainer's modules hold reference cycles
+    a_, b_ = rec["recompute"], rec["no recompute"]
+    rec_err = max((a_["grads"][k_] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                  for k_, g in b_["grads"].items())
+    print(
+        f"recompute phase: the training phase's preset, dropout {tcfg.hstu_input_dropout_ratio} / "
+        f"{tcfg.hstu_linear_dropout_rate}, one seed: the default flags (recompute_normed_x, recompute_uvqk, "
+        f"recompute_y all on) against all off: loss {a_['loss']:.6f} vs {b_['loss']:.6f}; gradients "
+        f"{rec_err:.3e} of their max apart (tol {REMAT_TOL}) over {len(b_['grads'])} parameters; allocated by the "
+        f"forward until the backward {a_['kept'] / 2**20:.1f} MiB vs {b_['kept'] / 2**20:.1f} MiB; peak "
+        f"device memory over {TRAIN_WARMUPS} + {REC_STEPS} steps {a_['peak']:.2f} vs {b_['peak']:.2f} GiB ("
+        f"{a_['above']:.2f} vs {b_['above']:.2f} GiB above what the trainer held before them); median "
+        f"step {a_['median']:.2f} vs {b_['median']:.2f} ms; launches per step K1 {L_tr}, K2 {L_tr} in both (the "
+        f"deterministic phase above ran under the default flags too: K1, K3, K4 once a step)"
+    )
+    check(a_["grads"].keys() == b_["grads"].keys() and abs(a_["loss"] - b_["loss"]) <= 1e-6 * abs(b_["loss"])
+          and rec_err <= REMAT_TOL, "the step with recomputation differs from the one without")
+    check(a_["kept"] < b_["kept"], "recomputation kept no fewer bytes for the backward")
+    del rec, a_, b_
+    torch.cuda.empty_cache()
+
+    # -------------------------------------------------- jagged attention phase
+    # ops/hstu_attention.py's jagged entry points at the serving shape: K1
+    # through hstu_mha, K5 through delta_hstu_mha (the M = 160 newest rows of
+    # each sequence), against their plain versions on the same rows
+    JN, JM = N_full, MAX_CANDS
+    jrng = np.random.default_rng(11)
+    jl = torch.as_tensor(jrng.integers(JM + 1, JN + 1, size=B), dtype=torch.int32, device="cuda")
+    joff = jagged.lengths_to_offsets(jl)
+    cap = B * JN
+    jq, jk = (torch.as_tensor(jrng.standard_normal((cap, H, D)), dtype=torch.float32, device="cuda") * 0.5
+              for _ in range(2))
+    jv = torch.as_tensor(jrng.standard_normal((cap, H, V)), dtype=torch.float32, device="cuda") * 0.5
+    count_reset()
+    j_got = jagged_attention.hstu_mha(JN, alpha, jq, jk, jv, joff, causal=True, contextual_seq_len=C)
+    n_j = counts()
+    pad_ = lambda t_, d_: jagged.jagged_to_padded_dense(t_.reshape(cap, H * d_), joff, JN).reshape(B, JN, H, d_)  # noqa: E731
+    pq, pk, pv = pad_(jq, D), pad_(jk, D), pad_(jv, V)
+    j_want = jagged.dense_to_jagged(
+        hstu_mha_dense_plain(pq, pk, pv, jl, alpha=alpha, max_seq_len=JN, causal=True,
+                             contextual_seq_len=C).reshape(B, JN, H * V), joff, total=cap).reshape(cap, H, V)
+    j_err = compare("K1 jagged hstu_mha", j_got, j_want, None)
+    rows = (joff[1:, None].long() - JM + torch.arange(JM, device="cuda")[None, :]).reshape(-1)
+    count_reset()
+    d_got = jagged_attention.delta_hstu_mha(JN, alpha, jq[rows], jk, jv, joff, contextual_seq_len=C)
+    n_d = counts()
+    d_want = delta_hstu_mha_plain(jq[rows].reshape(B, JM, H, D), pk, pv, jl, alpha=alpha,
+                                  contextual_seq_len=C, norm_len=JN).reshape(B * JM, H, V)
+    d_err = compare("K5 jagged delta_hstu_mha", d_got, d_want, None)
+    dd_err = (d_got - j_got[rows]).abs().max().item() / max(j_got[rows].abs().max().item(), 1e-30)
+    errs["K1"].append(j_err)
+    errs["K5"].append(d_err)
+    print(f"jagged attention phase: B={B}, N={JN} (lengths {int(jl.min())}..{int(jl.max())}, {int(joff[-1]):,} of "
+          f"{cap:,} slots live), H={H}, D=V={D}, M={JM}: hstu_mha launched {n_j}, delta_hstu_mha {n_d}; the delta "
+          f"rows against the full attention's rows {dd_err:.3e} of their max")
+    check(n_j == {**dict.fromkeys(n_j, 0), "K1": 1} and n_d == {**dict.fromkeys(n_d, 0), "K5": 1},
+          f"the jagged entry points launched {n_j} and {n_d}")
+    check(dd_err <= REL_TOL, "the jagged delta rows differ from the full attention's")
+    del jq, jk, jv, pq, pk, pv, j_got, j_want, d_got, d_want
+
+    # --------------------------------------------- interleave preprocessor
+    # ContextualInterleavePreprocessor at the training phase's widths (table
+    # dim 256 in, d_model 512 out, the preset's contextual features and
+    # actions, parameterized MLPs), training layout, forward and backward:
+    # the card against the CPU on the same weights and inputs
+    ipre = ContextualInterleavePreprocessor(
+        input_embedding_dim=tcfg.hstu_embedding_table_dim, output_embedding_dim=tcfg.hstu_transducer_embedding_dim,
+        contextual_feature_to_max_length=tcfg.contextual_feature_to_max_length,
+        contextual_feature_to_min_uih_length=tcfg.contextual_feature_to_min_uih_length,
+        content_encoder=ContentEncoder(tcfg.hstu_embedding_table_dim),
+        action_encoder=ActionEncoder(8, tcfg.uih_weight_feature_name, tuple(tcfg.action_weights)),
+        use_parameterized_mlps=True, gen=torch.Generator().manual_seed(12),
+    )
+    irng = np.random.default_rng(12)
+    INU = TRAIN_UIH + TRAIN_CANDS
+    i_uih = irng.integers(TRAIN_UIH // 2, TRAIN_UIH + 1, size=B)
+    i_nt = np.full(B, TRAIN_CANDS)
+    i_in = dict(
+        emb=irng.standard_normal((B, INU, tcfg.hstu_embedding_table_dim)).astype(np.float32),
+        ts=np.sort(irng.integers(1, 10**9, size=(B, INU)), axis=1),
+        payloads={tcfg.uih_weight_feature_name: irng.integers(0, 1 << len(tcfg.action_weights), size=(B, INU)),
+                  **{name_: irng.standard_normal((B, n_ * tcfg.hstu_embedding_table_dim)).astype(np.float32)
+                     for name_, n_ in tcfg.contextual_feature_to_max_length}},
+    )
+    i_w = irng.standard_normal((B, C + 2 * INU, tcfg.hstu_transducer_embedding_dim)).astype(np.float32)
+    i_out, i_grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        mod = ipre.to(dev)
+        mod.zero_grad(set_to_none=True)
+        to = lambda a_: torch.as_tensor(a_, device=dev)  # noqa: E731
+        o_ = mod(to(i_in["emb"]), to(i_uih + i_nt), to(i_in["ts"]), to(i_uih), to(i_nt),
+                 {k_: to(v_) for k_, v_ in i_in["payloads"].items()}, deterministic=False,
+                 gen=torch.Generator(dev).manual_seed(0))
+        (o_.seq_embeddings * to(i_w)).sum().backward()
+        # copies: moving the module moves its gradients' storage too
+        i_out[dev] = tuple(t_.detach().to("cpu", copy=True) for t_ in (o_.seq_embeddings, o_.seq_lengths,
+                                                                       o_.seq_timestamps))
+        i_grads[dev] = {k_: p.grad.to("cpu", copy=True) for k_, p in mod.named_parameters()}
+    i_err = (i_out["cuda"][0] - i_out["cpu"][0]).abs().max().item() / i_out["cpu"][0].abs().max().item()
+    ig_err = max((i_grads["cuda"][k_] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                 for k_, g in i_grads["cpu"].items())
+    print(f"interleave preprocessor phase: B={B}, uih up to {TRAIN_UIH} + {TRAIN_CANDS} candidates interleaved to "
+          f"{C} + {2 * INU} tokens, {tcfg.hstu_embedding_table_dim} -> {tcfg.hstu_transducer_embedding_dim}, "
+          f"parameterized MLPs: GPU vs CPU output {i_err:.3e} of its max (tol {PRED_TOL}), gradients {ig_err:.3e} "
+          f"of their max over {len(i_grads['cpu'])} parameters (tol {GRAD_TOL})")
+    check(all(torch.equal(a__, b__) for a__, b__ in zip(i_out["cuda"][1:], i_out["cpu"][1:])),
+          "the interleaved lengths or timestamps differ between the devices")
+    check(i_err <= PRED_TOL and ig_err <= GRAD_TOL, "GPU and CPU interleave preprocessors disagree")
+    del ipre, i_out, i_grads
+
+    # --------------------------------------------------------- trace phase
+    # train_ranker --output_trace on a small ranker: the profiler's schedule
+    # (skip 10, warm up 20, record 5) writes one Chrome trace of steps 30..34
+    # under tmp/trace
+    trace_dir = os.path.join("tmp", "trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    count_reset()
+    tr = train_ranker.main(["--device", "cuda", "--num_batches", str(TRACE_STEPS), "--batch_size", "8",
+                            "--max_uih_len", "64", "--max_num_candidates", "6", "--hash_size", "1000",
+                            "--output_trace"])
+    n = counts()
+    check(tr["trace_paths"] == [os.path.join(trace_dir, "trace_0.json")] and os.path.exists(tr["trace_paths"][0]),
+          f"train_ranker --output_trace wrote {tr['trace_paths']}")
+    with open(tr["trace_paths"][0]) as f_:
+        events = json.load(f_)["traceEvents"]
+    dev_events = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = [e for e in dev_events if "fwd_kernel" in e.get("name", "")]
+    k2_events = [e for e in dev_events if "dkv_kernel" in e.get("name", "")]
+    print(f"trace phase: train_ranker --output_trace, {TRACE_STEPS} steps of the debug preset at uih 64, batch 8: "
+          f"{tr['trace_paths'][0]} holds {len(events)} events, {len(dev_events)} kernels, K1 {len(k1_events)} "
+          f"({sum(e.get('dur', 0) for e in k1_events):.1f} us), K2 {len(k2_events)}; launches {n}")
+    check(n == {**dict.fromkeys(n, 0), "K1": L_tr * TRACE_STEPS, "K2": L_tr * TRACE_STEPS},
+          f"the traced run launched {n}")
+    check(len(k1_events) == L_tr * 5 and len(k2_events) == L_tr * 5,
+          f"the trace holds {len(k1_events)} K1 and {len(k2_events)} K2 events, expected {L_tr * 5} each")
+    del tr, events, dev_events
 
     # ------------------------------------------------------- research phase
-    del trainer
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     steps_total = RESEARCH_WARMUPS + RESEARCH_STEPS
@@ -1932,6 +2237,83 @@ def main() -> None:
     profile("ml-1m research training step", lambda: m_trainer.train_step(row))
     del mout, saved, m_trainer
     torch.cuda.empty_cache()
+
+    # ---------------------------------------------- attention dropout phase
+    # the ml-1m large preset with attn_dropout_rate 0.2 on the registry's
+    # files: a training step takes the plain composite (no kernel has
+    # dropout: 0 K6 / K7), its eval K6 (8 a batch)
+    acfg = dataclasses.replace(mcfg, model=dataclasses.replace(mm1, attn_dropout_rate=ATTN_DROPOUT))
+    a_reco = get_reco_dataset("ml-1m", mm1.max_sequence_len, data_root=DATA_ROOT)
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    aout = research.train_loop(acfg, a_reco.train_dataset, a_reco.eval_dataset, log_every=10,
+                               max_steps=RESEARCH_WARMUPS + DROPOUT_STEPS, device="cuda")
+    n = counts()
+    alosses, asteps = aout["losses"], aout["step_s"]
+    a_med = 1e3 * median(asteps[RESEARCH_WARMUPS:])
+    print(
+        f"attention dropout phase: preset {ML1M_PRESET} with attn_dropout_rate {ATTN_DROPOUT}, "
+        f"{RESEARCH_WARMUPS} + {DROPOUT_STEPS} steps through train_loop and a full eval ({m_eval} batches): "
+        f"{mcfg.local_batch_size * DROPOUT_STEPS / sum(asteps[RESEARCH_WARMUPS:]):.1f} examples/s, median step "
+        f"{a_med:.2f} ms (without attention dropout, the ml-1m phase: {m_med:.2f}); loss {alosses[0]:.4f} -> "
+        f"{alosses[-1]:.4f}; eval HR@10 {aout['history'][-1]['hr@10']:.4f}; launches {n}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    check(len(alosses) == RESEARCH_WARMUPS + DROPOUT_STEPS and all(math.isfinite(x) for x in alosses),
+          f"attention dropout losses: {alosses}")
+    check(n == {**dict.fromkeys(n, 0), "K6": mm1.num_blocks * m_eval},
+          f"the attention dropout run launched {n}, expected K6 = {mm1.num_blocks * m_eval} (its eval) and nothing else")
+    a_trainer = aout["trainer"]
+    a_batch = next(batch_iterator(a_reco.train_dataset, mcfg.local_batch_size, shuffle=True, seed=1))
+    profile("attention dropout training step", lambda: a_trainer.train_step(a_batch))
+    del aout, a_trainer, a_reco
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- position-only bias
+    # the encoder without timestamps: K6 / K7 on zero timestamps and a
+    # one-entry time table (num_buckets 0) at the ml-1m shape against their
+    # plain versions, then a small encoder's forward and every gradient, the
+    # card against the CPU
+    zero_ts = torch.zeros_like(ts1)
+    pq_, pk_, pv_, ppw_, ptw_, pdo_, pa_ = relbias_case(
+        f"position-only bias, ml-1m large preset (B={mcfg.local_batch_size}, N={N1}, H={mm1.num_heads}, "
+        f"D=V={mm1.dqk}), zero timestamps, num_buckets 0", mcfg.local_batch_size, N1, l1, zero_ts,
+        nb=0, Hc=mm1.num_heads, Dc=mm1.dqk, Vc=mm1.dv)
+    pos_ms = (device_time_ms(lambda: hstu_mha_dense_relbias_cuda(pq_, pk_, pv_, l1, zero_ts, ppw_, ptw_, **pa_), 20),
+              device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(pq_, pk_, pv_, l1, zero_ts, ppw_, ptw_, pdo_, **pa_), 10))
+    print(f"  position-only K6 {pos_ms[0]:.4f} ms, K7 {pos_ms[1]:.4f} ms (with timestamps at this shape: "
+          f"{ml1m_ms[0]:.4f}, {ml1m_ms[1]:.4f})")
+    del pq_, pk_, pv_, pdo_
+    enc_kw = dict(embedding_dim=32, num_blocks=3, num_heads=2, attention_dim=16, linear_dim=16,
+                  linear_dropout_rate=0.0, max_total_seq_len=64)
+    penc = HSTUEncoder(**enc_kw, gen=torch.Generator().manual_seed(13))
+    prng = np.random.default_rng(13)
+    px = prng.standard_normal((8, 60, 32)).astype(np.float32) * 0.3
+    plen = prng.integers(1, 61, size=8)
+    pw = prng.standard_normal((8, 60, 32)).astype(np.float32)
+    p_out, p_grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        penc.to(dev).zero_grad(set_to_none=True)
+        to = lambda a__: torch.as_tensor(a__, device=dev)  # noqa: E731
+        before = {k_: c.count for k_, c in all_counters.items()}
+        o_ = penc(to(px), to(plen), None, deterministic=True)
+        (o_ * to(pw) * (torch.arange(60, device=dev)[None, :] < to(plen)[:, None])[:, :, None]).sum().backward()
+        if dev == "cuda":
+            got_n = {k_: c.count - before[k_] for k_, c in all_counters.items() if c.count != before[k_]}
+            check(got_n == {"K6": 3, "K7": 3}, f"the position-only encoder launched {got_n}")
+        valid_ = torch.arange(60)[None, :] < torch.as_tensor(plen)[:, None]
+        p_out[dev] = o_.detach().to("cpu", copy=True)[valid_]
+        p_grads[dev] = {k_: p.grad.to("cpu", copy=True) for k_, p in penc.named_parameters() if p.grad is not None}
+    p_err = (p_out["cuda"] - p_out["cpu"]).abs().max().item() / p_out["cpu"].abs().max().item()
+    pg_err = max((p_grads["cuda"][k_] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                 for k_, g in p_grads["cpu"].items())
+    print(f"  small position-only encoder (3 blocks, N=60), GPU kernels vs CPU plain versions: output {p_err:.3e} "
+          f"of its max (tol {PRED_TOL}), gradients {pg_err:.3e} of their max over {len(p_grads['cpu'])} parameters "
+          f"(tol {GRAD_TOL}; the time tables get none)")
+    check(p_grads["cpu"].keys() == p_grads["cuda"].keys() and not any(k_.endswith("ts_w") for k_ in p_grads["cpu"]),
+          "the position-only encoder's gradients go to other parameters on the two devices")
+    check(p_err <= PRED_TOL and pg_err <= GRAD_TOL, "GPU and CPU position-only encoders disagree")
+    del penc, p_out, p_grads
 
     # ------------------------------------------------------------ MoL phase
     # the same preset with the learned MoL similarity (default MoLConfig:

@@ -3,7 +3,8 @@
 
     python -m generative_recommenders_tpu_torch.cli.train_ranker \\
         --dataset debug --mode train --num_batches 50 [--device cpu] \\
-        [--tb_log_dir DIR] [--ckpt_dir DIR]
+        [--tb_log_dir DIR] [--ckpt_dir DIR] [--output_trace] [--debug_nans] \\
+        [--stochastic_depth 0.1] [--l2_max_len 128]
 
     python -m generative_recommenders_tpu_torch.cli.train_ranker \\
         --dataset movielens-1m --data_file tmp/ml-1m/sasrec_format.csv \\
@@ -14,16 +15,24 @@
 output). With ``--ckpt_dir``, training starts from the latest checkpoint
 there and saves one at its end; ``--mode eval`` restores it and evaluates
 (NE, AUC or MSE per task) on the dataset in file order. Trains on the GPU;
-``--device cpu`` trains on the CPU with the kernels' plain versions. The
-mesh, the trace, the dynamic STU wrappers, the attention-kernel choice and
-the distributed flags are not ported, so their flags are refused.
+``--device cpu`` trains on the CPU with the kernels' plain versions.
+``--stochastic_depth`` and ``--l2_max_len`` wrap the STU layers
+(`modules/dynamic_stu.py`); ``--output_trace`` writes a Chrome trace of
+steps 30 to 34 under ``tmp/trace``; ``--debug_nans`` runs the steps under
+`torch.autograd.detect_anomaly(check_nan=True)`, which stops at the first
+operation whose backward gives a NaN. The mesh, the attention-kernel choice
+and the distributed flags are not ported, so their flags are refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import logging
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from generative_recommenders_tpu_torch.configs.dlrm import (
     get_embedding_table_config,
@@ -59,19 +68,25 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--tb_log_dir", default=None, help="write TensorBoard scalars here")
     p.add_argument("--ckpt_dir", default=None)
+    p.add_argument("--output_trace", action="store_true")
+    p.add_argument("--stochastic_depth", type=float, default=0.0)
+    p.add_argument("--l2_max_len", type=int, default=0)
+    p.add_argument("--debug_nans", action="store_true")
     args = p.parse_args(argv)
     if args.mode == "eval" and not args.ckpt_dir:
         p.error("--mode eval needs --ckpt_dir")
 
-    hstu_cfg = get_hstu_configs(
-        args.dataset, max_uih_len=args.max_uih_len, max_num_candidates=args.max_num_candidates
+    hstu_cfg = dataclasses.replace(
+        get_hstu_configs(args.dataset, max_uih_len=args.max_uih_len, max_num_candidates=args.max_num_candidates),
+        hstu_stochastic_depth_ratio=args.stochastic_depth, hstu_l2_max_len=args.l2_max_len,
     )
     tables = get_embedding_table_config(
         args.dataset, hash_size=args.hash_size, dim=hstu_cfg.hstu_embedding_table_dim
     )
     trainer = DlrmTrainer(
         hstu_cfg, tables,
-        DlrmTrainConfig(tb_log_dir=args.tb_log_dir, ckpt_dir=args.ckpt_dir),
+        DlrmTrainConfig(tb_log_dir=args.tb_log_dir, ckpt_dir=args.ckpt_dir,
+                        output_trace=args.output_trace),
         device=args.device,
     )
     batches = make_dlrm_batches(
@@ -83,7 +98,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         metrics = eval_loop(trainer, batches)
         logger.info("eval metrics: %s", {k: round(v, 5) for k, v in metrics.items()})
         return {"metrics": metrics}
-    out = train_loop(trainer, batches)
+    with torch.autograd.detect_anomaly(check_nan=True) if args.debug_nans else contextlib.nullcontext():
+        out = train_loop(trainer, batches)
     logger.info(
         "done: %.1f examples/s; metrics %s",
         out["examples_per_s"], {k: round(v, 5) for k, v in out["metrics"].items()},

@@ -27,10 +27,19 @@ The rated preprocessors (``pos_emb``, ``rating_emb``) and
 `CategoricalEmbeddingModule` (``item_emb``; its id-to-category map is not a
 parameter on either side) need none either.
 
-The one renaming: in `DlrmHSTU`, the flax tree holds the transducer's parts
+The renamings: in `DlrmHSTU`, the flax tree holds the transducer's parts
 at the top (``stu``, ``preprocessor``, ``positional_encoder``,
 ``postprocessor``); the port nests them under ``hstu_transducer`` with the
-transducer's own attribute names.
+transducer's own attribute names. The research model trained without
+timestamps holds its position-only bias as ``rel_attn_bias/w``, the port's
+``rel_attn_bias.pos_w`` (the port's time table ``ts_w`` has no counterpart
+in such a tree).
+
+The dynamic STU wrappers need none: `STUStack` creates its layers in
+``setup`` under their names, so flax binds them to the stack and a wrapped
+stack's paths are ``stu/layer_i/...`` as without wrappers; a wrapper built
+around a layer of its own (``L2STU(STULayer(...))``) adopts it as ``stu``,
+the port's attribute name.
 """
 
 from __future__ import annotations
@@ -64,11 +73,14 @@ def params_from_flax(flax_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     the top-level ``"params"`` collection) -> the port's ``state_dict``."""
     if "params" in flax_params:
         flax_params = flax_params["params"]
-    is_dlrm = "stu" in flax_params  # a DlrmHSTU tree, not one of its parts
+    # a DlrmHSTU tree, not one of its parts (a wrapper's layer is "stu" too)
+    is_dlrm = "stu" in flax_params and any(str(k).startswith("embedding_tables_") for k in flax_params)
     state: Dict[str, torch.Tensor] = {}
     for name, value in _flatten(flax_params).items():
         head, _, rest = name.partition(".")
         if is_dlrm and head in _DLRM_PREFIXES:
             name = f"{_DLRM_PREFIXES[head]}.{rest}"
+        if name.endswith("rel_attn_bias.w"):
+            name = name[: -len("w")] + "pos_w"
         state[name] = torch.from_numpy(np.array(value, copy=True))
     return state

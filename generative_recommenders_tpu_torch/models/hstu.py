@@ -13,8 +13,23 @@ or its plain version by the tensors' device alone (the JAX package's
   (`ops/cuda/hstu_attention_relbias.py`), which rebuilds the bias from the
   two tables of `RelativeBucketedTimeAndPositionBasedBias` and never builds
   a [B, N, N] tensor on the card;
+* relative bias enabled and no timestamps: the position-only bias of the
+  JAX package's `RelativePositionalBias` (``w[j - i + Nm - 1]``, the same
+  Toeplitz index as ``pos_w``), on the same pair K6 / K7 given zero
+  timestamps and a one-entry zero time table (``num_buckets = 0``, so every
+  bucket is 0); the time table's gradient is dropped. The JAX tree names
+  that table ``rel_attn_bias/w`` (`convert.py` maps it to ``pos_w``);
 * relative bias disabled: the dense pair K1 / K2 (`ops/cuda/hstu_attention.py`),
   causal, with ``lengths``.
+
+Attention dropout (``attn_dropout_ratio > 0``) in a training forward takes
+the plain composite on either device: the bias materialised as [B, N, N]
+(`relative_bias_plain`), silu, the mask, then each weight kept with
+probability 1 - p from the trainer's generator and scaled by 1 / (1 - p)
+(`ops/cuda/hstu_attention.py:hstu_mha_dense`). That is the JAX package's own
+choice: its Pallas kernels have no dropout, so its model serves attention
+dropout on the XLA path only. No kernel runs in such a step; its eval
+(no dropout) runs K6 or K1 as above.
 
 Both mask by length and give zeros at rows >= length, as the JAX package's
 Pallas path does (its XLA path masks causally only and leaves other values
@@ -27,10 +42,7 @@ rows gathered for those queries only, as the JAX package's XLA einsums do
 (no Pallas kernel serves it there). What depends only on the cache lengths
 and the timestamps (the write positions, the delta mask, the bias indices)
 is built once per step, with every layer's bias rows in one gather
-(`HSTUEncoder._delta_plans`), not in each layer. Not ported yet: a relative
-bias without timestamps (it needs the dense kernel's [B, N, N] bias
-argument) and attention dropout (the JAX package has it on its XLA path
-only); each raises.
+(`HSTUEncoder._delta_plans`), not in each layer.
 
 Types, as flax promotes them: a block computes LN(x) @ W_uvqk in float32 and
 casts the product to x's type, so a bfloat16 input gives bfloat16 u, q, k
@@ -64,8 +76,12 @@ from generative_recommenders_tpu_torch.modules.mlp import (
     uniform,
     xavier_uniform,
 )
-from generative_recommenders_tpu_torch.ops.attention_mask import make_delta_attn_mask
-from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import hstu_mha_dense_cuda
+from generative_recommenders_tpu_torch.ops.attention_mask import (
+    apply_padding_guard,
+    make_delta_attn_mask,
+    make_valid_attn_mask,
+)
+from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import hstu_mha_dense, hstu_mha_dense_cuda
 from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
     hstu_mha_dense_relbias_cuda,
     relative_bias_indices,
@@ -139,12 +155,11 @@ class SequentialTransductionUnit(nn.Module):
         gen: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
-        if attn_dropout_ratio > 0.0:
-            raise NotImplementedError("attn_dropout_rate > 0 is not ported (no kernel serves it)")
         if linear_activation not in ("silu", "none"):
             raise ValueError(f"Unknown linear_activation {linear_activation}")
         self.linear_dim, self.attention_dim, self.num_heads = linear_dim, attention_dim, num_heads
         self.dropout_ratio = dropout_ratio
+        self.attn_dropout_ratio = attn_dropout_ratio
         self.linear_activation = linear_activation
         self.concat_ua = concat_ua
         self.epsilon = epsilon
@@ -189,21 +204,38 @@ class SequentialTransductionUnit(nn.Module):
         q, k, v = q.reshape(B, N, H, dqk), k.reshape(B, N, H, dqk), v.reshape(B, N, H, dv)
         if delta_cache is not None:
             return self._delta_attend(x, u, q, k, v, delta_cache, delta_plan, deterministic, gen)
+        attn_dropout = not deterministic and self.attn_dropout_ratio > 0.0
         if self.rel_attn_bias is None:
-            attn = hstu_mha_dense_cuda(q, k, v, lengths, alpha=1.0, max_seq_len=N, causal=True)
-        elif all_timestamps is None:
-            raise NotImplementedError(
-                "a relative bias without timestamps needs the dense kernel's "
-                "[B, N, N] bias argument, which is not ported"
-            )
+            if attn_dropout:
+                attn = self._plain_attention(q, k, v, lengths, None, gen)
+            else:
+                attn = hstu_mha_dense_cuda(q, k, v, lengths, alpha=1.0, max_seq_len=N, causal=True)
         else:
-            attn = hstu_mha_dense_relbias_cuda(
-                q, k, v, lengths, all_timestamps, self.rel_attn_bias.pos_w,
-                self.rel_attn_bias.ts_w, alpha=1.0, max_seq_len=N,
-                num_buckets=self.rel_attn_bias.num_buckets, causal=True,
-            )
+            rel = self.rel_attn_bias
+            pos_w, ts_w, num_buckets = rel.pos_w, rel.ts_w, rel.num_buckets
+            if all_timestamps is None:  # the position-only bias
+                all_timestamps = torch.zeros((B, N), dtype=torch.int32, device=x.device)
+                ts_w, num_buckets = pos_w.new_zeros(1), 0
+            if attn_dropout:
+                bias = relative_bias_plain(all_timestamps, pos_w, ts_w, num_buckets)
+                attn = self._plain_attention(q, k, v, lengths, bias, gen)
+            else:
+                attn = hstu_mha_dense_relbias_cuda(
+                    q, k, v, lengths, all_timestamps, pos_w, ts_w, alpha=1.0, max_seq_len=N,
+                    num_buckets=num_buckets, causal=True,
+                )
         out = self._finish(attn.reshape(B, N, H * dv), u, x, deterministic, gen)
         return (out, (k, v)) if return_cache else out
+
+    def _plain_attention(self, q, k, v, lengths, bias, gen) -> torch.Tensor:
+        """Causal attention with ``bias`` and attention dropout, in plain
+        PyTorch (rows >= length come out 0)."""
+        N = q.shape[1]
+        mask = apply_padding_guard(make_valid_attn_mask(N, lengths, causal=True), lengths)
+        return hstu_mha_dense(
+            q, k, v, alpha=1.0, max_seq_len=N, mask=mask, bias=bias,
+            dropout_pr=self.attn_dropout_ratio, dropout_gen=gen,
+        )
 
     def _finish(
         self,

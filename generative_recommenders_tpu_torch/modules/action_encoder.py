@@ -1,8 +1,12 @@
-"""Action encoder (port of `generative_recommenders_tpu/modules/action_encoder.py`).
+"""Action and content encoders (port of
+`generative_recommenders_tpu/modules/action_encoder.py`).
 
-Decodes per-event action bitmasks into concatenated per-action-type
-embeddings; candidate positions get a learned target-action embedding, also
-exposed alone for the M-FALCON delta path.
+`ActionEncoder` decodes per-event action bitmasks into concatenated
+per-action-type embeddings; candidate positions get a learned target-action
+embedding, also exposed alone for the M-FALCON delta path. `ContentEncoder`
+concatenates side features onto the item embeddings. The JAX encoder's
+watch-time thresholds (synthetic actions) are not ported: no preset sets
+them.
 """
 
 from __future__ import annotations
@@ -62,3 +66,48 @@ class ActionEncoder(nn.Module):
             is_uih, self.encode_actions(actions),
             self.target_action_embedding_table.reshape(1, 1, -1),
         )
+
+
+class ContentEncoder(nn.Module):
+    """Item embeddings [B, N, D] with the ``additional_content_features``
+    (payloads [B, N, d_f]) concatenated, then the ``target_enrich_features``,
+    which exist only for candidates: uih positions get a learned dummy
+    ``target_enrich_dummy_<name>`` [1, d_f] instead."""
+
+    def __init__(
+        self,
+        input_embedding_dim: int,
+        additional_content_features: Tuple[Tuple[str, int], ...] = (),
+        target_enrich_features: Tuple[Tuple[str, int], ...] = (),
+        gen: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        self.input_embedding_dim = input_embedding_dim
+        self.additional_content_features = additional_content_features
+        self.target_enrich_features = target_enrich_features
+        for name, dim in target_enrich_features:
+            self.register_parameter(f"target_enrich_dummy_{name}", new_param((1, dim), normal(0.1), gen))
+
+    @property
+    def output_embedding_dim(self) -> int:
+        return (
+            self.input_embedding_dim
+            + sum(d for _, d in self.additional_content_features)
+            + sum(d for _, d in self.target_enrich_features)
+        )
+
+    def forward(
+        self,
+        seq_embeddings: torch.Tensor,  # [B, N, D]
+        uih_lengths: torch.Tensor,  # int[B]
+        seq_payloads: Dict[str, torch.Tensor],  # merged [B, N, d_f] features
+    ) -> torch.Tensor:
+        parts = [seq_embeddings]
+        for name, _ in self.additional_content_features:
+            parts.append(seq_payloads[name].to(seq_embeddings.dtype))
+        is_uih = valid_mask(uih_lengths, seq_embeddings.shape[1])[:, :, None]
+        for name, dim in self.target_enrich_features:
+            dummy = getattr(self, f"target_enrich_dummy_{name}").reshape(1, 1, dim)
+            parts.append(torch.where(is_uih, dummy.to(seq_embeddings.dtype),
+                                     seq_payloads[name].to(seq_embeddings.dtype)))
+        return seq_embeddings if len(parts) == 1 else torch.cat(parts, dim=-1)

@@ -54,7 +54,8 @@ class EmbeddingTableConfig:
 @dataclasses.dataclass(frozen=True)
 class DlrmHSTUConfig:
     """The JAX package's `DlrmHSTUConfig` without the attention-kernel
-    choice (a TPU option) and the dynamic STU wrappers (not ported yet)."""
+    choice (a TPU option). The two dynamic STU knobs (`modules/dynamic_stu.py`)
+    do not work with the M-FALCON cached path."""
 
     max_uih_len: int = 256
     max_num_candidates: int = 10
@@ -86,6 +87,8 @@ class DlrmHSTUConfig:
     use_layer_norm_postprocessor: bool = False
     num_position_buckets: int = 8192
     num_time_buckets: int = 2048
+    hstu_stochastic_depth_ratio: float = 0.0
+    hstu_l2_max_len: int = 0
 
 
 class DlrmHSTU(nn.Module):
@@ -128,7 +131,11 @@ class DlrmHSTU(nn.Module):
         else:  # hour of day, day of week
             postproc = TimestampLayerNormPostprocessor(D, ((3600, 24), (86400, 7)), gen=gen)
         self.hstu_transducer = HSTUTransducer(
-            stu_module=STUStack(tuple(stu_cfg for _ in range(cfg.hstu_attn_num_layers)), gen),
+            stu_module=STUStack(
+                tuple(stu_cfg for _ in range(cfg.hstu_attn_num_layers)), gen,
+                stochastic_depth_ratio=cfg.hstu_stochastic_depth_ratio,
+                l2_max_len=cfg.hstu_l2_max_len,
+            ),
             input_preprocessor=ContextualPreprocessor(
                 input_embedding_dim=cfg.hstu_embedding_table_dim,
                 output_embedding_dim=D,
@@ -172,11 +179,13 @@ class DlrmHSTU(nn.Module):
         deterministic: bool = True,
         compute_losses: bool = True,
         gen: Optional[torch.Generator] = None,
+        sd_gen: Optional[torch.Generator] = None,
     ):
         """Returns (user_embeddings, item_embeddings, aux_losses {task: loss},
         preds [T, B, M], labels, weights), as the JAX package does; without
         ``compute_losses`` aux_losses is empty and labels and weights are
-        None. ``deterministic=False`` turns dropout on, drawn from ``gen``."""
+        None. ``deterministic=False`` turns dropout on, drawn from ``gen``,
+        and stochastic depth, its coins drawn from ``sd_gen``."""
         cfg = self.cfg
         M = cfg.max_num_candidates
         item_embeddings = self._item_forward(seq_embeddings)
@@ -191,6 +200,7 @@ class DlrmHSTU(nn.Module):
             max_targets=M,
             deterministic=deterministic,
             gen=gen,
+            sd_gen=sd_gen,
         )
         labels, weights = get_supervision_labels_and_weights(
             payload_features[cfg.candidates_weight_feature_name],
@@ -215,6 +225,7 @@ class DlrmHSTU(nn.Module):
         deterministic: bool = True,
         compute_losses: bool = True,
         gen: Optional[torch.Generator] = None,
+        sd_gen: Optional[torch.Generator] = None,
     ):
         """Lookup and merge, then `main_forward` (same return)."""
         seq_embeddings, payload_features = lookup_and_merge_features(
@@ -223,7 +234,7 @@ class DlrmHSTU(nn.Module):
         )
         return self.main_forward(
             seq_embeddings, payload_features, uih_lengths, num_candidates,
-            deterministic=deterministic, compute_losses=compute_losses, gen=gen,
+            deterministic=deterministic, compute_losses=compute_losses, gen=gen, sd_gen=sd_gen,
         )
 
     def _split(self, features: Dict[str, torch.Tensor]):

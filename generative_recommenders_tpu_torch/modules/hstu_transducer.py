@@ -54,6 +54,7 @@ class HSTUTransducer(nn.Module):
         max_targets: int,
         deterministic: bool = True,
         gen: Optional[torch.Generator] = None,  # the dropout's, when not deterministic
+        sd_gen: Optional[torch.Generator] = None,  # stochastic depth's coins
     ) -> torch.Tensor:
         """Postprocessed candidate embeddings [B, max_targets, D]."""
         pre = self.input_preprocessor(
@@ -64,7 +65,7 @@ class HSTUTransducer(nn.Module):
         x = self.positional_encoder(pre.seq_embeddings, pre.seq_lengths, pre.seq_timestamps, nt)
         if not deterministic:
             x = dropout(x, self.input_dropout_ratio, gen)
-        encoded = self.stu_module(x, pre.seq_lengths, nt, deterministic, gen)
+        encoded = self.stu_module(x, pre.seq_lengths, nt, deterministic, gen, sd_gen)
         cand = gather_tail(encoded, pre.uih_lengths, max_targets)
         cand_ts = gather_tail(pre.seq_timestamps, pre.uih_lengths, max_targets)
         return self.output_postprocessor(cand, cand_ts)

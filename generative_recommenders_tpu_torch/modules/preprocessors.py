@@ -28,6 +28,7 @@ class PreprocessorOutput:
     seq_timestamps: torch.Tensor  # [B, C + N]
     uih_lengths: torch.Tensor  # int[B] (incl. the contextual prefix)
     num_targets: torch.Tensor  # int[B]
+    contextual_seq_len: int = 0
 
 
 class ContextualPreprocessor(nn.Module):
@@ -115,6 +116,7 @@ class ContextualPreprocessor(nn.Module):
             seq_timestamps=seq_timestamps,
             uih_lengths=uih_lengths,
             num_targets=num_targets,
+            contextual_seq_len=C,
         )
 
     def delta_candidates(self, cand_embeddings: torch.Tensor) -> torch.Tensor:

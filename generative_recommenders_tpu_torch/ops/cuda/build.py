@@ -3,17 +3,21 @@
 Each kernel source under `generative_recommenders_tpu_torch/csrc/` becomes
 one shared library with a plain C interface, compiled for Hopper
 (``sm_90a``) into ``build/torch_port/`` at the repo root on first use, and
-rebuilt when a source is newer than its library. `build` starts one nvcc
-process per source, all at once.
+rebuilt when the hash of its source, the shared headers and the compiler
+flags differs from the one stamped beside the library (``lib<name>.so.sha256``)
+or the stamp is missing. `build` starts one nvcc process per source, all at
+once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
 import threading
+import time
 from typing import Dict, Iterable, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -41,6 +45,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+build_seconds: Dict[str, float] = {}  # the last build of each kernel: seconds until its nvcc ended
 
 
 class LaunchCounter:
@@ -79,20 +84,34 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def source_hash(name: str) -> str:
+    """sha256 of the kernel's source, every shared header and the nvcc
+    flags: the library's cache key."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in (KERNEL_SOURCES[name],) + _HEADERS:
+        h.update(s.encode())
+        with open(os.path.join(CSRC_DIR, s), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def _stamp_path(name: str) -> str:
+    return library_path(name) + ".sha256"
+
+
 def _stale(name: str) -> bool:
-    lib = library_path(name)
-    if not os.path.exists(lib):
+    if not (os.path.exists(library_path(name)) and os.path.exists(_stamp_path(name))):
         return True
-    sources = (KERNEL_SOURCES[name],) + _HEADERS
-    newest = max(os.path.getmtime(os.path.join(CSRC_DIR, s)) for s in sources)
-    return os.path.getmtime(lib) < newest
+    with open(_stamp_path(name)) as f:
+        return f.read().strip() != source_hash(name)
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, str]:
     """Compiles the named kernels (all by default) that are missing or stale,
     one nvcc process per source started together. Returns each compiled
-    kernel's compiler output (ptxas register and spill counts); raises with
-    nvcc's output if any build fails."""
+    kernel's compiler output (ptxas register and spill counts), and records
+    each one's seconds from the start in `build_seconds`; raises with nvcc's
+    output if any build fails."""
     names = list(KERNEL_SOURCES if names is None else names)
     todo = [n for n in names if force or _stale(n)]
     if not todo:
@@ -100,6 +119,7 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    hashes = {n: source_hash(n) for n in todo}  # of what this build compiles
     for n in todo:
         tmp = library_path(n) + f".{os.getpid()}.tmp"
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, KERNEL_SOURCES[n])]
@@ -107,16 +127,28 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
             tmp,
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
         )
-    logs, failed = {}, []
+    t0 = time.perf_counter()
+
+    def wait(n: str) -> None:  # each nvcc's output and its own wall time
+        logs[n] = procs[n][1].communicate()[0]
+        build_seconds[n] = time.perf_counter() - t0
+
+    logs: Dict[str, str] = {}
+    waiters = [threading.Thread(target=wait, args=(n,)) for n in procs]
+    for t in waiters:
+        t.start()
+    for t in waiters:
+        t.join()
+    failed = []
     for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[n] = out
         if proc.returncode != 0:
             failed.append(n)
             if os.path.exists(tmp):
                 os.remove(tmp)
         else:
             os.replace(tmp, library_path(n))
+            with open(_stamp_path(n), "w") as f:
+                f.write(hashes[n] + "\n")
     if failed:
         raise RuntimeError(
             "nvcc failed for " + ", ".join(failed) + ":\n"

@@ -92,14 +92,30 @@ def hstu_mha_dense(
     *,
     alpha: float,
     max_seq_len: int,  # the silu normaliser
-    mask: torch.Tensor,  # bool [B or 1, N, N]
+    mask: Optional[torch.Tensor] = None,  # bool [B or 1, N, N]; None: causal
+    bias: Optional[torch.Tensor] = None,  # [B or 1, N, N], added before silu
+    dropout_pr: float = 0.0,
+    dropout_gen: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Dense HSTU multi-head attention over an explicit mask, in float32
     (port of `generative_recommenders_tpu/ops/xla/hstu_attention.py:
-    hstu_mha_dense`); returns [B, N, H, V]."""
+    hstu_mha_dense`); returns [B, N, H, V]. With ``dropout_pr`` > 0 each
+    masked weight is kept with probability 1 - ``dropout_pr`` (drawn from
+    ``dropout_gen``) and scaled by 1 / (1 - dropout_pr), after the mask, as the JAX
+    function does; no kernel computes that."""
+    N = q.shape[1]
     scores = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * alpha
+    if bias is not None:
+        scores = scores + bias[:, None, :, :].float()
     p = F.silu(scores) / max_seq_len
+    if mask is None:
+        mask = torch.ones((N, N), dtype=torch.bool, device=q.device).tril()[None]
     p = p * mask[:, None, :, :].to(p.dtype)
+    if dropout_pr > 0.0:
+        if dropout_gen is None:
+            raise ValueError("attention dropout needs a torch.Generator")
+        keep = torch.rand(p.shape, generator=dropout_gen, device=p.device) < 1.0 - dropout_pr
+        p = torch.where(keep, p / (1.0 - dropout_pr), 0.0)
     out = torch.einsum("bhnm,bmhv->bnhv", p, v.float())
     return out.to(v.dtype)
 

@@ -23,6 +23,9 @@ __all__ = [
     "hstu_compute_output",
     "hstu_compute_uqvk",
     "norm_mul_dropout",
+    "output_projection",
+    "split_uvqk",
+    "uvqk_projection",
 ]
 
 
@@ -54,9 +57,26 @@ def hstu_compute_uqvk(
     """LN(x) @ W + b split [u, v, q, k]; returns (silu(u) [B, N, H*hidden],
     q, k [B, N, H, attn], v [B, N, H, hidden]). q, k and v are views of the
     projection."""
-    B, N, _ = x.shape
     normed_x = layer_norm(x, weight=norm_weight, bias=norm_bias, eps=norm_eps)
-    uvqk = (normed_x.float() @ uvqk_weight.float() + uvqk_bias).to(x.dtype)
+    return split_uvqk(
+        uvqk_projection(normed_x, uvqk_weight, uvqk_bias, x.dtype),
+        num_heads=num_heads, attn_dim=attn_dim, hidden_dim=hidden_dim,
+    )
+
+
+def uvqk_projection(
+    normed_x: torch.Tensor, uvqk_weight: torch.Tensor, uvqk_bias: torch.Tensor, dtype: torch.dtype
+) -> torch.Tensor:
+    """normed_x @ W + b in float32, cast to ``dtype``."""
+    return (normed_x.float() @ uvqk_weight.float() + uvqk_bias).to(dtype)
+
+
+def split_uvqk(
+    uvqk: torch.Tensor, *, num_heads: int, attn_dim: int, hidden_dim: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Splits the projection [B, N, (2*hidden + 2*attn) * H] into silu(u), q,
+    k and v (views)."""
+    B, N, _ = uvqk.shape
     h, a = hidden_dim * num_heads, attn_dim * num_heads
     u, v, q, k = torch.split(uvqk, [h, h, a, a], dim=-1)
     return (
@@ -124,4 +144,9 @@ def hstu_compute_output(
         num_heads=num_heads, linear_dim=linear_dim, dropout_ratio=dropout_ratio,
         dropout_gen=dropout_gen, training=training,
     )
+    return output_projection(y, x, output_weight)
+
+
+def output_projection(y: torch.Tensor, x: torch.Tensor, output_weight: torch.Tensor) -> torch.Tensor:
+    """x + y @ W_o, the residual in x's type."""
     return x + (y @ output_weight.to(y.dtype)).to(x.dtype)

@@ -1,4 +1,7 @@
-"""Layer norm (port of `generative_recommenders_tpu/ops/normalization.py`)."""
+"""Layer norm, RMS norm and swish layer norm (port of
+`generative_recommenders_tpu/ops/normalization.py`), float32 statistics.
+The per-head group norm is computed inline where the STU uses it
+(`ops/hstu_compute.py:norm_mul_dropout`)."""
 
 from __future__ import annotations
 
@@ -25,3 +28,22 @@ def layer_norm(
         eps,
     )
     return y.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor] = None, eps: float = 1e-6) -> torch.Tensor:
+    """x / sqrt(mean(x^2) + eps) over the last dim, times ``weight``."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
+def swish_layer_norm(
+    x: torch.Tensor,
+    weight: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """x * sigmoid(LN(x))."""
+    return x * torch.sigmoid(layer_norm(x, weight, bias, eps))

@@ -34,10 +34,12 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
 class RowWiseAdagrad(torch.optim.Optimizer):
     """torchrec's row-wise Adagrad: for a 2-D parameter one accumulator per
     row, ``acc += mean(g^2, dim=1)`` and ``p -= lr / (sqrt(acc) + eps) * g``;
-    for any other parameter the elementwise form ``acc += g^2``."""
+    for any other parameter the elementwise form ``acc += g^2``. A row's
+    accumulator starts at ``initial_acc``, an elementwise one at 0, as in
+    the JAX package's `rowwise_adagrad`."""
 
-    def __init__(self, params, lr: float = 0.01, eps: float = 1e-8) -> None:
-        super().__init__(params, dict(lr=lr, eps=eps))
+    def __init__(self, params, lr: float = 0.01, eps: float = 1e-8, initial_acc: float = 0.0) -> None:
+        super().__init__(params, dict(lr=lr, eps=eps, initial_acc=initial_acc))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -53,8 +55,11 @@ class RowWiseAdagrad(torch.optim.Optimizer):
                 g = p.grad
                 state = self.state[p]
                 if not state:
-                    shape = p.shape[:1] if p.dim() == 2 else p.shape
-                    state["acc"] = torch.zeros(shape, dtype=torch.float32, device=p.device)
+                    state["acc"] = (
+                        torch.full(p.shape[:1], group["initial_acc"], dtype=torch.float32, device=p.device)
+                        if p.dim() == 2
+                        else torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                    )
                 acc = state["acc"]
                 if p.dim() == 2:
                     acc.add_(g.square().mean(dim=1))

@@ -519,19 +519,121 @@ def test_presets_match_the_jax_packages():
     assert (big.model.total_seq_len, big.model.num_items, big.local_batch_size) == (511, 855_776, 96)
 
 
+def _encoder_pair(monkeypatch=None, **over):
+    """A 2-block JAX `HSTUEncoder` on its XLA path, its params, the port's
+    encoder with those weights, and numpy inputs (N = 24, Nm = 30)."""
+    B, N, D = 3, 24, 16
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((B, N, D)).astype(np.float32) * 0.3
+    lengths = np.array([N, 11, 5], np.int32)
+    ts = 1_600_000_000 + np.cumsum(rng.integers(1, 90000, size=(B, N)), axis=1)
+    kw = dict(embedding_dim=D, num_blocks=2, num_heads=2, attention_dim=8, linear_dim=8,
+              linear_dropout_rate=0.0, max_total_seq_len=30, **over)
+    je = j_hstu.HSTUEncoder(attn_kernel="xla", **kw)
+    return je, kw, x, lengths, ts, rng.standard_normal((B, N, D)).astype(np.float32)
+
+
+def _j_loss_and_grads(je, params, x, lengths, ts, weights, rngs=None):
+    """The loss (weighted rows below each length), the output and every
+    gradient of the JAX encoder, traced whole."""
+    valid = (np.arange(x.shape[1])[None, :] < lengths[:, None])[:, :, None]
+
+    def loss(p):
+        out = je.apply(p, jnp.asarray(x), jnp.asarray(lengths), None if ts is None else jnp.asarray(ts),
+                       rngs is None, rngs=rngs)
+        return jnp.sum(out * weights * valid), out
+
+    (value, out), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    return float(value), np.asarray(out), _flax_to_torch(grads)
+
+
+def _assert_port_matches(te, x, lengths, ts, weights, want, deterministic, gen=None):
+    valid = torch.as_tensor((np.arange(x.shape[1])[None, :] < lengths[:, None])[:, :, None])
+    out = te(torch.as_tensor(x), torch.as_tensor(lengths), None if ts is None else torch.as_tensor(ts),
+             deterministic=deterministic, gen=gen)
+    value = (out * torch.as_tensor(weights) * valid).sum()
+    value.backward()
+    w_value, w_out, w_grads = want
+    np.testing.assert_allclose(value.item(), w_value, rtol=1e-5)
+    _assert_rows_close(out, w_out, lengths, all_rows=False)
+    named = dict(te.named_parameters())
+    for name, g in w_grads.items():
+        scale = max(float(g.abs().max()), 1e-30)
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(), rtol=0, atol=GRAD_TOL * scale,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("over, match", [
     (dict(attn_dropout_rate=0.1), "attn_dropout_rate"),
 ])
-def test_model_refuses_what_is_not_ported(over, match):
-    with pytest.raises(NotImplementedError, match=match):
-        t_seq.SequentialRecommender(t_seq.ModelConfig(**{**SMALL, **over}))
+def test_model_refuses_what_is_not_ported(over, match, monkeypatch):
+    """What the port refused before it was ported, now served: a model with
+    attention dropout builds, and a training forward of its encoder (rate
+    0.3, the relative bias with timestamps) through the plain composite,
+    with the JAX package's Bernoulli masks handed to the port, equals the
+    JAX XLA path's: the loss, rows below each length and every gradient. An
+    eval forward of the port draws nothing and takes the kernel path (K6's
+    plain version here)."""
+    assert getattr(t_seq.SequentialRecommender(t_seq.ModelConfig(**{**SMALL, **over})).config, match) == 0.1
+    je, kw, x, lengths, ts, weights = _encoder_pair(attn_dropout_rate=0.3)
+    params = je.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(lengths), jnp.asarray(ts), True)
+    masks, real = [], jax.random.bernoulli
+
+    def recording(key, p=0.5, shape=None):  # the attention's masks, one per block
+        keep = real(key, p, shape)
+        masks.append(keep)
+        return keep
+
+    rngs = {"dropout": jax.random.PRNGKey(4)}
+    monkeypatch.setattr(jax.random, "bernoulli", recording)
+    # drawn by an eager forward, then handed back by name while jit traces
+    je.apply(params, jnp.asarray(x), jnp.asarray(lengths), jnp.asarray(ts), False, rngs=rngs)
+    masks = [np.array(m) for m in masks]
+    replay = list(masks)
+    monkeypatch.setattr(jax.random, "bernoulli", lambda key, p=0.5, shape=None: jnp.asarray(replay.pop(0)))
+    want = _j_loss_and_grads(je, params, x, lengths, ts, weights, rngs=rngs)
+    monkeypatch.setattr(jax.random, "bernoulli", real)
+    assert not replay and len(masks) == 2 and masks[0].shape == (3, 2, 24, 24)
+    masks = [torch.as_tensor(m) for m in masks]
+    assert 0.6 < float(masks[0].float().mean()) < 0.8
+    given = list(masks)
+    plain = t_hstu.hstu_mha_dense
+
+    def given_mask(*a, **k):  # the composite's uniform draw: 0 where JAX keeps, 1 where it drops
+        keep = given.pop(0)
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(torch, "rand", lambda shape, **_: torch.where(keep, 0.0, 1.0))
+            return plain(*a, **k)
+
+    monkeypatch.setattr(t_hstu, "hstu_mha_dense", given_mask)
+    te = t_hstu.HSTUEncoder(**kw, gen=torch.Generator().manual_seed(0))
+    te.load_state_dict(_flax_to_torch(params))
+    _assert_port_matches(te, x, lengths, ts, weights, want, deterministic=False, gen=torch.Generator())
+    assert not given
+    # eval: no dropout, so no mask is drawn and the composite is not taken
+    monkeypatch.setattr(t_hstu, "hstu_mha_dense", None)
+    evaled = te(torch.as_tensor(x), torch.as_tensor(lengths), torch.as_tensor(ts), deterministic=True)
+    want_eval = je.apply(params, jnp.asarray(x), jnp.asarray(lengths), jnp.asarray(ts), True)
+    _assert_rows_close(evaled, want_eval, lengths, all_rows=False)
 
 
 def test_other_refusals():
+    """A relative bias without timestamps, once refused, is the JAX
+    package's position-only `RelativePositionalBias` (its table ``w`` is the
+    port's ``pos_w``): the encoder's loss, rows below each length and every
+    gradient against the JAX XLA path, through K6 / K7's plain versions with
+    zero timestamps and a one-entry zero time table. What the port still
+    refuses, it refuses."""
+    je, kw, x, lengths, _, weights = _encoder_pair()
+    params = je.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(lengths), None, True)
+    assert set(params["params"]["layer_0"]["rel_attn_bias"]) == {"w"}
+    want = _j_loss_and_grads(je, params, x, lengths, None, weights)
+    te = t_hstu.HSTUEncoder(**kw, gen=torch.Generator().manual_seed(0))
+    missing, unexpected = te.load_state_dict(_flax_to_torch(params), strict=False)
+    assert sorted(missing) == ["layer_0.rel_attn_bias.ts_w", "layer_1.rel_attn_bias.ts_w"] and not unexpected
+    _assert_port_matches(te, x, lengths, None, weights, want, deterministic=True)
+    assert all(te.get_submodule(f"layer_{i}.rel_attn_bias").ts_w.grad is None for i in range(2))
     tm = t_seq.SequentialRecommender(t_seq.ModelConfig(**SMALL), torch.Generator().manual_seed(0))
-    # a relative bias without timestamps needs the dense kernel's bias argument
-    with pytest.raises(NotImplementedError, match="without timestamps"):
-        tm.encoder(torch.zeros(1, 40, 32), torch.ones(1, dtype=torch.long), None, deterministic=True)
     with pytest.raises(ValueError, match="Unknown main_module"):
         t_seq.SequentialRecommender(t_seq.ModelConfig(**{**SMALL, "main_module": "GRU"}))
     with pytest.raises(ValueError, match="Unknown sampling_strategy"):
