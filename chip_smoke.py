@@ -113,18 +113,36 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
 11. KuaiRand-1K phase: writes the two logs and the user features of 1,000
    users in the published columns, runs `preprocess_dlrm_data --skip_download`
    and a few `train_ranker --dataset kuairand-1k` steps (8 tasks, 7 tables);
-12. prints one JSON line with every kernel's launches, error and times, the
+12. distribution phase (`parallel/`): the ranks as processes on free ports
+   of 127.0.0.1, the ranker CLI as ranks, at the training phase's shape, 2 +
+   10 steps: (a) `train_ranker --distributed --mesh 1x1`, one rank over
+   NCCL; (b) `--mesh 1x2 --dist_backend gloo`, two ranks on the one card,
+   each with half the rows of every table, each rank's K1 / K2 launches,
+   table rows, peak memory and steps printed (times labelled "2 ranks on
+   one H100 over gloo": they are not multi-GPU numbers); (c) a small ranker
+   (dropout off) and (d) a small research model (its item table sharded,
+   negatives injected), each on a 1 x 2 mesh over gloo for 2 steps, against
+   one rank on the same global batches: losses rtol 1e-5, parameters rtol
+   5e-5 / atol 1e-6; and `train_research --distributed` on two ranks over
+   gloo, the ml-1m large preset over the ml-1m phase's files, 2 + 10 steps
+   and a full eval, K6 and K7 on both ranks. A rank that fails fails the
+   run;
+13. prints one JSON line with every kernel's launches, error and times, the
    script's time, and as the last line the device JSON.
 
 Every file the script reads it writes itself, under `tmp/`. Any failed check
-exits nonzero.
+exits nonzero. ``python3 chip_smoke.py rank ...`` is one rank of the
+distribution phase (the script starts them itself).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import io
+import itertools
 import json
 import math
 import os
@@ -219,6 +237,14 @@ REMAT_WARMUPS, REMAT_STEPS = 2, 5
 SD_RATIO, L2_LEN, REC_STEPS, TRACE_STEPS = 0.1, 128, 10, 36
 # the ml-1m large preset with attention dropout: 2 warm-ups, then timed steps
 ATTN_DROPOUT, DROPOUT_STEPS = 0.2, 10
+# the distribution phase: 2 + 10 steps of each run, a rank's time limit; a
+# mesh against one rank on the same global batches: `tests/test_parallel.py`'s
+# tolerances (losses, parameters)
+DIST_WARMUPS, DIST_STEPS, DIST_TIMEOUT = 2, 10, 600
+MESH_LOSS_RTOL, MESH_PARAM_TOL = 1e-5, dict(rtol=5e-5, atol=1e-6)
+# the parity checks' small models: a ranker with 128-row tables, a research
+# model with 127 items (128 rows), global batches of 8
+PARITY_HASH, PARITY_ITEMS, PARITY_BATCH = 128, 127, 8
 
 
 def fail(msg: str) -> None:
@@ -252,7 +278,8 @@ def device_time_ms(fn, reps: int) -> float:
 def profile(name: str, fn) -> None:
     """Prints one call's host wall time, the card's busy time in it (the sum
     of its kernels' device times; one stream, so they do not overlap), the
-    idle share, and the kernels that take the most device time."""
+    idle share, the kernels that take the most device time, and the
+    collectives' host times where there are any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -282,6 +309,12 @@ def profile(name: str, fn) -> None:
     )
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    # a rank's collectives, as their backends record them on the host (from
+    # start to end, a wait for the other ranks included)
+    comm = [e for e in prof.key_averages() if e.key.startswith(("gloo:", "nccl:"))]
+    if comm:
+        print("    collectives: " + ", ".join(f"{e.key} {e.cpu_time_total / 1e3:.2f} ms x{e.count}"
+                                         for e in sorted(comm, key=lambda e: -e.cpu_time_total)))
 
 
 def median(xs) -> float:
@@ -440,6 +473,187 @@ def poison_allocator(nbytes: int) -> None:
     del x
 
 
+class FixedNegatives:
+    """Local negatives a function of the positives (the devices' and the
+    ranks' random streams differ)."""
+
+    def __init__(self, sampler):
+        self.sampler = sampler
+
+    def __call__(self, gen_, positive_ids, num_to_sample, item_embedding_fn):
+        import torch
+
+        ids_ = self.sampler.all_item_ids
+        r = torch.arange(num_to_sample, device=ids_.device)
+        sampled = ids_[(positive_ids[..., None] * 7 + r * 13 + 1) % ids_.shape[0]]
+        return sampled, self.sampler.normalize_embeddings(item_embedding_fn(sampled))
+
+
+# ------------------------------------------------------ distribution ranks
+def kernel_counters() -> dict:
+    """Every kernel's launch counter, by name (the bfloat16 K6 / K7 apart)."""
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
+        delta_hstu_mha_cuda,
+        hstu_mha_bwd_cuda,
+        hstu_mha_dense_cuda,
+    )
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
+        hstu_mha_dense_relbias_cuda,
+        hstu_mha_relbias_bwd_cuda,
+    )
+
+    bwd = hstu_mha_bwd_cuda.launches
+    return {
+        "K1": hstu_mha_dense_cuda.launches, "K5": delta_hstu_mha_cuda.launches,
+        "K2": bwd["hstu_mha_bwd_fused"], "K3": bwd["hstu_mha_bwd_dq"], "K4": bwd["hstu_mha_bwd_dkv"],
+        "K6": hstu_mha_dense_relbias_cuda.launches, "K7": hstu_mha_relbias_bwd_cuda.launches,
+        "K6-bf16": hstu_mha_dense_relbias_cuda.launches_bf16, "K7-bf16": hstu_mha_relbias_bwd_cuda.launches_bf16,
+    }
+
+
+def parity_configs():
+    """The parity checks' small ranker (dropout off) with its tables, and
+    small research model (dropout off)."""
+    from generative_recommenders_tpu_torch.configs.dlrm import get_embedding_table_config, get_hstu_configs
+    from generative_recommenders_tpu_torch.models.sequential import ModelConfig
+    from generative_recommenders_tpu_torch.train.train_loop import TrainConfig
+
+    ranker = dataclasses.replace(
+        get_hstu_configs("debug", max_uih_len=48, max_num_candidates=6), hstu_attn_num_layers=2,
+        hstu_embedding_table_dim=16, hstu_transducer_embedding_dim=64, hstu_attn_linear_dim=32,
+        hstu_attn_qk_dim=32, hstu_num_heads=2, hstu_input_dropout_ratio=0.0, hstu_linear_dropout_rate=0.0,
+    )
+    research = TrainConfig(
+        model=ModelConfig(num_items=PARITY_ITEMS, max_sequence_len=40, gr_output_length=1,
+                          item_embedding_dim=32, num_blocks=2, num_heads=2, dqk=16, dv=16,
+                          linear_dropout_rate=0.0, dropout_rate=0.0),
+        local_batch_size=PARITY_BATCH, eval_batch_size=PARITY_BATCH, num_negatives=16, num_workers=0,
+    )
+    return ranker, get_embedding_table_config("debug", hash_size=PARITY_HASH, dim=16), research
+
+
+def rank_main(argv) -> None:
+    """One rank: ``cli <train_ranker | train_research> <its arguments>``
+    runs the CLI (the ranker's then profiles one more step, outside its
+    launch counts); ``parity <port> <rank> <dir>`` trains the parity checks'
+    small models on a 1 x 2 mesh over gloo. Prints its result as one line
+    ``RANK_RESULT <json>``."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job, rest = argv[0], argv[1:]
+
+    def launches():
+        return {k: c.count for k, c in kernel_counters().items()}
+
+    if job == "cli":
+        out = importlib.import_module(f"generative_recommenders_tpu_torch.cli.{rest[0]}").main(rest[1:])
+        trainer = out["trainer"]
+        result = dict(
+            counts=launches(), losses=out["losses"], step_s=out["step_s"], history=out.get("history"),
+            tables={n: list(p.shape) for n, p in trainer.model.named_parameters()
+                    if n.startswith("embedding_tables_") or n == "embedding_module.item_emb"},
+        )
+        if rest[0] == "train_ranker":
+            # one more step of this rank's rows of a global batch (the phase's
+            # shape), profiled: where a rank's step time goes
+            from generative_recommenders_tpu_torch.data.dlrm_factory import make_dlrm_batches
+            from generative_recommenders_tpu_torch.parallel.sharding import rank_rows
+            from generative_recommenders_tpu_torch.train.dlrm_train import to_device
+
+            world, rank = dist.get_world_size(), dist.get_rank()
+            raw = next(make_dlrm_batches("debug", trainer.hstu_cfg, hash_size=HASH_SIZE, batch_size=B * world,
+                                         num_batches=1, seed=9))
+            batch = to_device(rank_rows(raw, world, rank), trainer.device)
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                profile(f"rank {rank} of {world} ({dist.get_backend()}), a training step",
+                        lambda: trainer.train_step(batch))
+            result["profile"] = printed.getvalue()
+    elif job == "parity":
+        from generative_recommenders_tpu_torch.parallel.distributed import initialize_distributed
+        from generative_recommenders_tpu_torch.parallel.mesh import make_mesh
+        from generative_recommenders_tpu_torch.parallel.sharding import rank_rows, shard_rows
+        from generative_recommenders_tpu_torch.parallel.train import DistributedTrainer
+        from generative_recommenders_tpu_torch.train.dlrm_train import DlrmTrainConfig, DlrmTrainer, to_device
+
+        port, rank, work = rest[0], int(rest[1]), rest[2]
+        initialize_distributed(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda")
+        mesh = make_mesh((1, 2))
+        rcfg, tables, scfg = parity_configs()
+        ranker = DlrmTrainer(rcfg, tables, DlrmTrainConfig(), device="cuda", mesh=mesh)
+        ranker.restore(os.path.join(work, "ranker_init"), 0)
+        batches = torch.load(os.path.join(work, "ranker_batches.pt"), weights_only=False)
+        r_losses = [ranker.train_step(to_device(rank_rows(b, 2, rank), ranker.device))[0].item() for b in batches]
+        r_state = {k: v.cpu() for k, v in ranker.state_dict().items()}
+        init = torch.load(os.path.join(work, "research_init.pt"), weights_only=False)
+        rbatches = torch.load(os.path.join(work, "research_batches.pt"), weights_only=False)
+        research = DistributedTrainer(scfg, init["ids"], mesh, device="cuda")
+        research.model.load_state_dict({k: shard_rows(v, mesh) if k in research.sharded else v
+                                        for k, v in init["state"].items()})
+        research.sampler = FixedNegatives(research.sampler)
+        s_losses = [research.train_step(research.to_global_batch(b)).item() for b in rbatches]
+        s_state = {k: v.cpu() for k, v in research.checkpoint_state()["params"].items()}
+        if rank == 0:
+            torch.save(dict(ranker=(r_losses, r_state), research=(s_losses, s_state)),
+                       os.path.join(work, "parity.pt"))
+        result = dict(ranker_losses=r_losses, research_losses=s_losses, sharded=list(research.sharded),
+                      tables={n: list(p.shape) for n, p in ranker.model.named_parameters()
+                              if n.startswith("embedding_tables_")})
+    else:
+        raise SystemExit(f"unknown rank job {job}")
+    result.setdefault("counts", launches())
+    result.update(rank=dist.get_rank(), world=dist.get_world_size(), backend=str(dist.get_backend()),
+                  peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print("RANK_RESULT " + json.dumps(result), flush=True)
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(label: str, argv_of_rank, world: int) -> list:
+    """Starts ``world`` ranks (``argv_of_rank(rank, port)``: arguments of
+    ``chip_smoke.py rank``), each logging to ``tmp/dist/<label>_<rank>.log``,
+    and waits for all: a rank that fails, or outlives ``DIST_TIMEOUT``, fails
+    the run (the others are stopped first). Returns each rank's result."""
+    port = free_port()
+    logs = [os.path.join(DATA_ROOT, "dist", f"{label}_{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as f_:
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "rank",
+                                           *argv_of_rank(r, port)], stdout=f_, stderr=subprocess.STDOUT))
+    t0 = time.time()
+    while any(p.poll() is None for p in procs):
+        failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if failed or time.time() - t0 > DIST_TIMEOUT:
+            for p in procs:
+                p.kill()
+                p.wait()
+            r = failed[0] if failed else 0
+            with open(logs[r]) as f_:
+                tail = f_.read()[-3000:]
+            fail(f"{label}: rank {r} " + ("failed" if failed else f"ran past {DIST_TIMEOUT} s") + f":\n{tail}")
+        time.sleep(0.5)
+    results = []
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f_:
+            text = f_.read()
+        check(p.returncode == 0 and "RANK_RESULT " in text, f"{label}: rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        results.append(json.loads(text.split("RANK_RESULT ", 1)[1].splitlines()[0]))
+    return results
+
+
 def main() -> None:
     t_start = time.perf_counter()
     try:
@@ -472,7 +686,7 @@ def main() -> None:
         from generative_recommenders_tpu_torch.data.dlrm_dataset import DLRMv3RandomDataset
         from generative_recommenders_tpu_torch.data.features import seq_features_from_row
         from generative_recommenders_tpu_torch.data.reco_dataset import get_reco_dataset
-        from generative_recommenders_tpu_torch.utils.checkpoint import restore_checkpoint
+        from generative_recommenders_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
         from generative_recommenders_tpu_torch.indexing.candidate_index import CandidateIndex
         from generative_recommenders_tpu_torch.indexing.mol_top_k import MoLBruteForceTopK
         from generative_recommenders_tpu_torch.models.samplers import LocalNegativesSampler, maybe_l2_norm
@@ -1196,17 +1410,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- serving phase
-    bwd_counters = hstu_mha_bwd_cuda.launches
-    counters = {
-        "K1": hstu_mha_dense_cuda.launches, "K5": delta_hstu_mha_cuda.launches,
-        "K2": bwd_counters["hstu_mha_bwd_fused"], "K3": bwd_counters["hstu_mha_bwd_dq"],
-        "K4": bwd_counters["hstu_mha_bwd_dkv"],
-        "K6": hstu_mha_dense_relbias_cuda.launches, "K7": hstu_mha_relbias_bwd_cuda.launches,
-    }
+    all_counters = kernel_counters()
     # the bfloat16 K6 and K7, counted apart
-    counters_bf16 = {"K6-bf16": hstu_mha_dense_relbias_cuda.launches_bf16,
-                     "K7-bf16": hstu_mha_relbias_bwd_cuda.launches_bf16}
-    all_counters = {**counters, **counters_bf16}
+    counters_bf16 = {k_: all_counters[k_] for k_ in ("K6-bf16", "K7-bf16")}
+    counters = {k_: c for k_, c in all_counters.items() if k_ not in counters_bf16}
     main_path_launches = dict.fromkeys(all_counters, 0)
 
     def count_reset():
@@ -1724,16 +1931,6 @@ def main() -> None:
     # one training step's loss and gradients on a small research model: GPU
     # kernels vs CPU plain versions, dropout off and the negatives a function
     # of the positives (the devices' random streams differ)
-    class FixedNegatives:
-        def __init__(self, sampler):
-            self.sampler = sampler
-
-        def __call__(self, gen_, positive_ids, num_to_sample, item_embedding_fn):
-            ids_ = self.sampler.all_item_ids
-            r = torch.arange(num_to_sample, device=ids_.device)
-            sampled = ids_[(positive_ids[..., None] * 7 + r * 13 + 1) % ids_.shape[0]]
-            return sampled, self.sampler.normalize_embeddings(item_embedding_fn(sampled))
-
     class FixedInBatchOffsets:
         """The in-batch sampler's own state, offsets a function of the
         positives and the state's count."""
@@ -2515,6 +2712,109 @@ def main() -> None:
     )
     torch.cuda.empty_cache()
 
+    # -------------------------------------------------- distribution phase
+    shutil.rmtree(os.path.join(DATA_ROOT, "dist"), ignore_errors=True)
+    os.makedirs(os.path.join(DATA_ROOT, "dist"))
+    torch.cuda.empty_cache()
+    n_dist = DIST_WARMUPS + DIST_STEPS
+    print(
+        f"distribution phase: ranks as processes on free ports of 127.0.0.1, {n_dist} steps each "
+        f"({DIST_WARMUPS} + {DIST_STEPS}); (a) one rank over NCCL; (b)-(d) two ranks on this one card over "
+        f"gloo, which runs all_reduce, all_gather and all_to_all_single on CUDA tensors itself (staging them "
+        f"through the host; the port stages none itself). Times of two ranks are '2 ranks on one H100 over "
+        f"gloo': the ranks share one card, so they are not multi-GPU numbers"
+    )
+    dist_args = ["--device", "cuda", "--max_uih_len", str(TRAIN_UIH), "--max_num_candidates", str(TRAIN_CANDS),
+                 "--batch_size", str(B), "--hash_size", str(HASH_SIZE), "--num_batches", str(n_dist)]
+
+    def dist_counts(results):
+        """Every rank's launches, added to the main paths' totals."""
+        for res in results:
+            for k_, n_ in res["counts"].items():
+                if n_:
+                    main_path_launches[k_] += n_
+        return [{k_: n_ for k_, n_ in res["counts"].items() if n_} for res in results]
+
+    def dist_report(name, results):
+        for res in results:
+            ms = sorted(1e3 * t_ for t_ in res["step_s"][DIST_WARMUPS:])
+            print(f"  {name}, rank {res['rank']} of {res['world']} ({res['backend']}): median step "
+                  f"{median(ms):.2f} ms (min {ms[0]:.2f}, max {ms[-1]:.2f}), peak {res['peak_gib']:.2f} GiB, "
+                  f"tables {res['tables']}, loss {res['losses'][0]:.5f} -> {res['losses'][-1]:.5f}, launches "
+                  f"{ {k_: n_ for k_, n_ in res['counts'].items() if n_} }")
+            print(res.get("profile", ""), end="")
+
+    want_tr = {"K1": L_tr * n_dist, "K2": L_tr * n_dist}
+    one = run_ranks("nccl_1x1", lambda r, port: ["cli", "train_ranker", *dist_args, "--distributed", "--coordinator",
+                                                  f"127.0.0.1:{port}", "--num_processes", "1", "--process_id",
+                                                  str(r), "--mesh", "1x1"], 1)
+    dist_report("(a) train_ranker --mesh 1x1, one rank over NCCL", one)
+    check(one[0]["backend"] == "nccl" and dist_counts(one) == [want_tr], f"(a) launched {one[0]['counts']}")
+    check(all(math.isfinite(x) for x in one[0]["losses"]), f"(a) losses {one[0]['losses']}")
+    two = run_ranks("gloo_1x2", lambda r, port: ["cli", "train_ranker", *dist_args, "--distributed", "--coordinator",
+                                                  f"127.0.0.1:{port}", "--num_processes", "2", "--process_id",
+                                                  str(r), "--mesh", "1x2", "--dist_backend", "gloo"], 2)
+    dist_report("(b) train_ranker --mesh 1x2, 2 ranks on one H100 over gloo", two)
+    check(all(res["backend"] == "gloo" for res in two) and dist_counts(two) == [want_tr, want_tr],
+          f"(b) launched {[res['counts'] for res in two]}")
+    check(all(shape == [HASH_SIZE // 2, tcfg.hstu_embedding_table_dim] for res in two
+              for shape in res["tables"].values()), f"(b) table shards {[res['tables'] for res in two]}")
+    check(two[0]["losses"] == two[1]["losses"] and all(math.isfinite(x) for x in two[0]["losses"]),
+          "(b) the ranks report different or non-finite global losses")
+
+    # (c), (d): a 1 x 2 mesh against one rank on the same global batches
+    work = os.path.join(DATA_ROOT, "dist")
+    rcfg, ptables, pcfg = parity_configs()
+    ref = DlrmTrainer(rcfg, ptables, DlrmTrainConfig(), device="cuda", seed=3)
+    save_checkpoint(os.path.join(work, "ranker_init"), ref.model.state_dict(), 0)
+    pbatches = list(make_dlrm_batches("debug", rcfg, hash_size=PARITY_HASH, batch_size=PARITY_BATCH, num_batches=2,
+                                      seed=4))
+    torch.save(pbatches, os.path.join(work, "ranker_batches.pt"))
+    ref_r = ([ref.train_step(to_device(b, ref.device))[0].item() for b in pbatches],
+             {k_: v_.cpu() for k_, v_ in ref.model.state_dict().items()})
+    pseqs = synthetic_user_sequences(num_users=64, num_items=PARITY_ITEMS, max_len=40, min_len=2, seed=5)
+    pds = SequenceDataset(pseqs, 40, ignore_last_n=1)
+    sref = research.ResearchTrainer(pcfg, pds.all_item_ids(), device="cuda")
+    torch.save(dict(state={k_: v_.cpu() for k_, v_ in sref.model.state_dict().items()}, ids=pds.all_item_ids()),
+               os.path.join(work, "research_init.pt"))
+    rbatches = list(itertools.islice(batch_iterator(pds, PARITY_BATCH, shuffle=True, seed=6), 2))
+    torch.save(rbatches, os.path.join(work, "research_batches.pt"))
+    sref.sampler = FixedNegatives(sref.sampler)
+    ref_s = ([sref.train_step(b).item() for b in rbatches],
+             {k_: v_.cpu() for k_, v_ in sref.model.state_dict().items()})
+    del ref, sref
+    par = run_ranks("parity_1x2", lambda r, port: ["parity", str(port), str(r), work], 2)
+    dist_counts(par)
+    got = torch.load(os.path.join(work, "parity.pt"))
+    for name, (want_l, want_p), what in (("ranker", ref_r, "(c) a small ranker, dropout off"),
+                                         ("research", ref_s, "(d) a small research model, negatives injected")):
+        got_l, got_p = got[name]
+        l_err = max(abs(a - b) / abs(b) for a, b in zip(got_l, want_l))
+        p_err = max(((got_p[k_] - w_).abs() - MESH_PARAM_TOL["rtol"] * w_.abs()).max().item()
+                    for k_, w_ in want_p.items())
+        print(f"  {what}: 1 x 2 mesh over gloo vs one rank, 2 steps: losses {got_l} vs {want_l}, largest relative "
+              f"error {l_err:.3e} (tol {MESH_LOSS_RTOL}); parameters' largest |error| - rtol |want| {p_err:.3e} "
+              f"(atol {MESH_PARAM_TOL['atol']})")
+        check(got_p.keys() == want_p.keys() and l_err <= MESH_LOSS_RTOL and p_err <= MESH_PARAM_TOL["atol"],
+              f"{what}: the mesh and one rank disagree")
+    check(par[0]["sharded"] == ["embedding_module.item_emb"]
+          and all(shape == [PARITY_HASH // 2, 16] for shape in par[0]["tables"].values()),
+          f"(c), (d): the shards {par[0]['tables']}, {par[0]['sharded']}")
+
+    # (d) train_research --distributed on the ml-1m phase's files
+    m_blocks = RESEARCH_PRESETS[ML1M_PRESET].model.num_blocks
+    m_eval_batches = ML1M_USERS // RESEARCH_PRESETS[ML1M_PRESET].eval_batch_size
+    rs = run_ranks("research_gloo_2", lambda r, port: [
+        "cli", "train_research", "--preset", ML1M_PRESET, "--num_epochs", "1", "--max_steps", str(n_dist),
+        "--device", "cuda", "--distributed", "--coordinator", f"127.0.0.1:{port}", "--num_processes", "2",
+        "--process_id", str(r), "--dist_backend", "gloo"], 2)
+    dist_report(f"(d) train_research --distributed, {ML1M_PRESET}, 2 ranks on one H100 over gloo", rs)
+    want_rs = {"K6": m_blocks * (n_dist + m_eval_batches), "K7": m_blocks * n_dist}
+    check(dist_counts(rs) == [want_rs, want_rs], f"(d) launched {[res['counts'] for res in rs]}, expected {want_rs}")
+    check(rs[0]["history"] == rs[1]["history"] and 0.0 <= rs[0]["history"][-1]["hr@10"] <= 1.0,
+          f"(d) the ranks' evals {[res['history'] for res in rs]}")
+    print(f"  (d) full eval of {m_eval_batches} global batches: { {k_: round(v_, 4) for k_, v_ in rs[0]['history'][-1].items()} }")
+
     # --------------------------------------------------------------- report
     peaks = {PEAK_F32_FLOPS: "float32 FMA, 67e12", PEAK_3XTF32_FLOPS: "3xTF32, 495e12 / 3",
              PEAK_TF32_FLOPS: "TF32, 495e12 (bfloat16 operands, one exact TF32 product)"}
@@ -2594,4 +2894,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main()

@@ -4,7 +4,9 @@
     python -m generative_recommenders_tpu_torch.cli.train_ranker \\
         --dataset debug --mode train --num_batches 50 [--device cpu] \\
         [--tb_log_dir DIR] [--ckpt_dir DIR] [--output_trace] [--debug_nans] \\
-        [--stochastic_depth 0.1] [--l2_max_len 128]
+        [--stochastic_depth 0.1] [--l2_max_len 128] \\
+        [--mesh DxM] [--distributed --coordinator HOST:PORT --num_processes P --process_id K \\
+         [--dist_backend gloo]]
 
     python -m generative_recommenders_tpu_torch.cli.train_ranker \\
         --dataset movielens-1m --data_file tmp/ml-1m/sasrec_format.csv \\
@@ -20,8 +22,19 @@ there and saves one at its end; ``--mode eval`` restores it and evaluates
 (`modules/dynamic_stu.py`); ``--output_trace`` writes a Chrome trace of
 steps 30 to 34 under ``tmp/trace``; ``--debug_nans`` runs the steps under
 `torch.autograd.detect_anomaly(check_nan=True)`, which stops at the first
-operation whose backward gives a NaN. The mesh, the attention-kernel choice
-and the distributed flags are not ported, so their flags are refused.
+operation whose backward gives a NaN.
+
+``--distributed`` joins a process group of ``--num_processes`` ranks at
+``--coordinator`` (without one, ``env://`` reads what ``torchrun`` sets;
+`parallel/distributed.py`): NCCL on the card, gloo on the CPU, or
+``--dist_backend`` (gloo runs several ranks on one card). ``--mesh DxM``
+lays the ranks out as d data rows of m model ranks (default: every rank on
+the data axis); the product must be the number of ranks, and a failed
+initialisation raises rather than training alone. Each rank reads its own
+``--batch_size`` rows of every global batch of ``--batch_size`` x ranks
+(ranks share one stream and keep disjoint slices of it), so a run of P
+ranks trains on the batches of a one-rank run with P times the batch size.
+The attention-kernel choice is not a flag: on the card the kernels run.
 """
 
 from __future__ import annotations
@@ -39,6 +52,9 @@ from generative_recommenders_tpu_torch.configs.dlrm import (
     get_hstu_configs,
 )
 from generative_recommenders_tpu_torch.data.dlrm_factory import make_dlrm_batches
+from generative_recommenders_tpu_torch.parallel.distributed import host_batch_shard, initialize_distributed
+from generative_recommenders_tpu_torch.parallel.mesh import make_mesh, parse_mesh
+from generative_recommenders_tpu_torch.parallel.sharding import shard_batches
 from generative_recommenders_tpu_torch.train.dlrm_train import (
     DlrmTrainConfig,
     DlrmTrainer,
@@ -72,9 +88,18 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     p.add_argument("--stochastic_depth", type=float, default=0.0)
     p.add_argument("--l2_max_len", type=int, default=0)
     p.add_argument("--debug_nans", action="store_true")
+    p.add_argument("--mesh", default=None, help="e.g. 4x2 (data x model)")
+    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--coordinator", default=None, help="HOST:PORT of rank 0")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+    p.add_argument("--dist_backend", default=None, choices=["nccl", "gloo"],
+                   help="default: nccl on the card, gloo on the CPU")
     args = p.parse_args(argv)
     if args.mode == "eval" and not args.ckpt_dir:
         p.error("--mode eval needs --ckpt_dir")
+    mesh = _mesh(p, args)
+    world, rank = host_batch_shard()
 
     hstu_cfg = dataclasses.replace(
         get_hstu_configs(args.dataset, max_uih_len=args.max_uih_len, max_num_candidates=args.max_num_candidates),
@@ -85,14 +110,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     )
     trainer = DlrmTrainer(
         hstu_cfg, tables,
-        DlrmTrainConfig(tb_log_dir=args.tb_log_dir, ckpt_dir=args.ckpt_dir,
+        DlrmTrainConfig(tb_log_dir=args.tb_log_dir if rank == 0 else None, ckpt_dir=args.ckpt_dir,
                         output_trace=args.output_trace),
-        device=args.device,
+        device=args.device, mesh=mesh,
     )
-    batches = make_dlrm_batches(
+    batches = shard_batches(make_dlrm_batches(
         args.dataset, hstu_cfg, data_file=args.data_file, hash_size=args.hash_size,
-        batch_size=args.batch_size, num_batches=args.num_batches, shuffle=args.mode == "train",
-    )
+        batch_size=args.batch_size * world, num_batches=args.num_batches, shuffle=args.mode == "train",
+    ), world, rank)
     if args.mode == "eval":
         trainer.restore(args.ckpt_dir)
         metrics = eval_loop(trainer, batches)
@@ -105,6 +130,22 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         out["examples_per_s"], {k: round(v, 5) for k, v in out["metrics"].items()},
     )
     return {**out, "trainer": trainer}
+
+
+def _mesh(p: argparse.ArgumentParser, args):
+    """Joins the process group under ``--distributed`` and lays its ranks
+    out as ``--mesh``; None without either flag. A mesh that does not fit the
+    number of ranks is an argument error."""
+    if not args.distributed and (args.coordinator or args.num_processes or args.process_id is not None):
+        p.error("--coordinator, --num_processes and --process_id need --distributed")
+    if args.distributed:
+        initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                               backend=args.dist_backend, device=args.device)
+    world = host_batch_shard()[0]
+    shape = parse_mesh(args.mesh) if args.mesh else (world, 1)
+    if shape[0] * shape[1] != world:
+        p.error(f"--mesh {args.mesh} needs {shape[0] * shape[1]} ranks; there are {world}")
+    return make_mesh(shape) if args.distributed or args.mesh else None
 
 
 if __name__ == "__main__":

@@ -1,6 +1,5 @@
 """Serving model family: quantized sparse stage + dense stage (port of
-`generative_recommenders_tpu/inference/model_family.py`, without the
-serving mesh).
+`generative_recommenders_tpu/inference/model_family.py`).
 
 * sparse: per-row absmax int8 tables with float32 scales, dequantized at
   lookup, then the uih/candidate merge;
@@ -8,11 +7,17 @@ serving mesh).
 * `predict_mfalcon`: prefill once, then score candidate chunks of
   ``max_num_candidates_inference`` against the KV caches. As in the JAX
   package, this path looks up the model's own float tables.
+
+With a serving ``mesh`` (`parallel/mesh.py`) every rank holds the whole
+model and its int8 tables, takes its rows of each request batch
+(`shard_inputs`: rank k's rows ``[k b, (k + 1) b)``, the JAX package's
+batch sharding over every mesh axis), and `predict` / `predict_mfalcon`
+return the whole batch's predictions, every rank's gathered in rank order.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -20,6 +25,9 @@ from generative_recommenders_tpu_torch.modules.dlrm_hstu import (
     DlrmHSTU,
     lookup_and_merge_features,
 )
+from generative_recommenders_tpu_torch.parallel.distributed import all_gather_tensor
+from generative_recommenders_tpu_torch.parallel.mesh import Mesh
+from generative_recommenders_tpu_torch.parallel.sharding import rank_rows
 
 Table = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -34,8 +42,9 @@ def quantize_table(table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 class HSTUModelFamily:
     """A DlrmHSTU bound for serving, on the device its parameters are on."""
 
-    def __init__(self, model: DlrmHSTU, quantize: bool = True) -> None:
+    def __init__(self, model: DlrmHSTU, quantize: bool = True, mesh: Optional[Mesh] = None) -> None:
         self.model = model.eval()
+        self.mesh = mesh
         self.cfg = model.cfg
         self._quantized = quantize
         self._tables: Dict[str, Table] = {}
@@ -43,6 +52,17 @@ class HSTUModelFamily:
             for t in model.embedding_tables:
                 w = model.table(t.name)
                 self._tables[t.name] = quantize_table(w) if quantize else w.detach()
+
+    def shard_inputs(self, tree: Any) -> Any:
+        """This rank's rows of every tensor of a request batch (a nested
+        dict / tuple); the batch as it is without a mesh."""
+        if self.mesh is None:
+            return tree
+        return rank_rows(tree, self.mesh.size, self.mesh.rank)
+
+    def _gathered(self, preds: torch.Tensor) -> torch.Tensor:
+        """[T, b, M] predictions of this rank's rows as the batch's [T, B, M]."""
+        return preds if self.mesh is None else all_gather_tensor(preds.contiguous(), dim=1)
 
     def _lookup(self, feature: str, ids: torch.Tensor) -> torch.Tensor:
         t = self._tables[self.model.feature_to_table[feature]]
@@ -60,14 +80,15 @@ class HSTUModelFamily:
         candidates_features: Dict[str, torch.Tensor],
         num_candidates: torch.Tensor,
     ) -> torch.Tensor:
-        """sparse -> dense; predictions [T, B, M]."""
+        """sparse -> dense; predictions [T, B, M] (under a mesh, of the
+        request batch whose rows `shard_inputs` gave this rank)."""
         seq_embeddings, payloads = lookup_and_merge_features(
             self.cfg, self.model.feature_to_table, self._lookup,
             uih_features, uih_lengths, candidates_features,
         )
-        return self.model.main_forward(
+        return self._gathered(self.model.main_forward(
             seq_embeddings, payloads, uih_lengths, num_candidates, compute_losses=False
-        )[3]
+        )[3])
 
     @torch.inference_mode()
     def predict_mfalcon(
@@ -90,4 +111,4 @@ class HSTUModelFamily:
             )
             for c0 in range(0, M, m)
         ]
-        return torch.cat(preds, dim=-1)
+        return self._gathered(torch.cat(preds, dim=-1))

@@ -1,6 +1,8 @@
 """Autoregressive losses of the research stack, dense-masked form (port of
 `generative_recommenders_tpu/models/losses.py`): the loss stays dense [B, N]
 with a weight mask that is zero exactly where a jagged form drops positions.
+Each loss divides by the weights' sum over the global batch (`batch_sum`):
+on a mesh, a rank's loss is its share of the global loss.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from typing import Dict, Tuple
 import torch
 
 from generative_recommenders_tpu_torch.modules.multitask_module import _bce_with_logits
+from generative_recommenders_tpu_torch.parallel.distributed import batch_sum
 
 
 def sampled_softmax_loss_from_logits(
@@ -31,7 +34,7 @@ def sampled_softmax_loss_from_logits(
     logits = torch.cat([pos_logits[..., None], neg_logits], dim=-1)
     per_pos = -torch.log_softmax(logits, dim=-1)[..., 0]  # [B, N]
     w = supervision_weights.to(per_pos.dtype)
-    return (per_pos * w).sum() / w.sum().clamp_min(1e-6)
+    return (per_pos * w).sum() / batch_sum(w.sum()).clamp_min(1e-6)
 
 
 def sampled_softmax_loss(
@@ -76,7 +79,7 @@ def bce_loss(
         _bce_with_logits(pos_logits, torch.ones_like(pos_logits))
         + _bce_with_logits(neg_logits, torch.zeros_like(neg_logits))
     ) * weights * 0.5
-    return losses.sum() / weights.sum().clamp_min(1e-6), {}
+    return losses.sum() / batch_sum(weights.sum()).clamp_min(1e-6), {}
 
 
 def bce_loss_with_ratings(
@@ -90,4 +93,4 @@ def bce_loss_with_ratings(
     logits = (output_embeddings * supervision_embeddings).sum(-1) / temperature
     w = supervision_weights.float()
     losses = _bce_with_logits(logits, supervision_ratings.float()) * w
-    return losses.sum() / w.sum().clamp_min(1e-6), {}
+    return losses.sum() / batch_sum(w.sum()).clamp_min(1e-6), {}

@@ -29,6 +29,7 @@ from generative_recommenders_tpu_torch.models.rails.layers import SwiGLU
 from generative_recommenders_tpu_torch.modules.mlp import Dense, new_param, normal, xavier_uniform
 from generative_recommenders_tpu_torch.ops.hstu_compute import dropout
 from generative_recommenders_tpu_torch.ops.normalization import layer_norm
+from generative_recommenders_tpu_torch.parallel.distributed import batch_ranks, batch_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,13 +66,15 @@ class MoLConfig:
 
 def load_balancing_mi_loss(gating_prs: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """The mutual-information load-balancing loss of the gate: minus the
-    entropy of the mean utilisation plus the mean per-example entropy."""
+    entropy of the mean utilisation plus the mean per-example entropy, both
+    over the global batch. On a mesh this is the rank's share: its rows'
+    entropies and 1 / ranks of the (global) utilisation's."""
     flat = gating_prs.reshape(-1, gating_prs.shape[-1])
-    n = flat.shape[0]
-    util = flat.sum(0) / n
+    n = batch_sum(flat.new_tensor(float(flat.shape[0])))
+    util = batch_sum(flat.sum(0)) / n
     util_entropy = -(util * torch.log(util + eps)).sum()
     per_example_entropy = -(flat * torch.log(flat + eps)).sum() / n
-    return -util_entropy + per_example_entropy
+    return -util_entropy / batch_ranks() + per_example_entropy
 
 
 def softmax_dropout_combiner(

@@ -24,7 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from generative_recommenders_tpu_torch.models.embeddings import LocalEmbeddingModule
+from generative_recommenders_tpu_torch.models.embeddings import LocalEmbeddingModule, LookupFn
 from generative_recommenders_tpu_torch.models.hstu import HSTUEncoder
 from generative_recommenders_tpu_torch.models.postprocessors import make_output_postprocessor
 from generative_recommenders_tpu_torch.models.preprocessors import (
@@ -78,7 +78,9 @@ class SequentialRecommender(nn.Module):
     `forward(...)` -> [B, N, D], `encode(...)` -> [B, D],
     `similarity_fn(query, items)`. The weights are drawn from ``gen``."""
 
-    def __init__(self, config: ModelConfig, gen: Optional[torch.Generator] = None) -> None:
+    def __init__(
+        self, config: ModelConfig, gen: Optional[torch.Generator] = None, lookup_fn: Optional[LookupFn] = None
+    ) -> None:
         super().__init__()
         cfg = self.config = config
         if cfg.main_module not in ("HSTU", "SASRec"):
@@ -87,7 +89,9 @@ class SequentialRecommender(nn.Module):
             raise ValueError(f"Unknown interaction_module_type {cfg.interaction_module_type}")
         if cfg.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"Unknown compute_dtype {cfg.compute_dtype}")
-        self.embedding_module = LocalEmbeddingModule(cfg.num_items, cfg.item_embedding_dim, gen)
+        self.embedding_module = LocalEmbeddingModule(
+            cfg.num_items, cfg.item_embedding_dim, gen, lookup_fn=lookup_fn
+        )
         self.input_preproc = LearnablePositionalEmbeddingInputFeaturesPreprocessor(
             max_sequence_len=cfg.total_seq_len,
             embedding_dim=cfg.item_embedding_dim,

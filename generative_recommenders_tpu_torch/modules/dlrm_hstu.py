@@ -97,9 +97,13 @@ class DlrmHSTU(nn.Module):
         cfg: DlrmHSTUConfig,
         embedding_tables: Tuple[EmbeddingTableConfig, ...],
         gen: Optional[torch.Generator] = None,
+        lookup_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
     ) -> None:
         super().__init__()
         self.cfg = cfg
+        # the tables' lookup when bound (the trainers' sharded exchange,
+        # `parallel/embedding.py`), else a local gather
+        self.lookup_fn = lookup_fn
         self.embedding_tables = embedding_tables
         self.feature_to_table: Dict[str, str] = {}
         for t in embedding_tables:
@@ -162,7 +166,10 @@ class DlrmHSTU(nn.Module):
         return getattr(self, f"embedding_tables_{name}")
 
     def _lookup(self, feature: str, ids: torch.Tensor) -> torch.Tensor:
-        return self.table(self.feature_to_table[feature])[ids.long()]
+        table = self.table(self.feature_to_table[feature])
+        if self.lookup_fn is not None:
+            return self.lookup_fn(table, ids.long())
+        return table[ids.long()]
 
     def _item_forward(self, embeddings: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Item tower on the candidate-side embeddings [B, M, D]."""

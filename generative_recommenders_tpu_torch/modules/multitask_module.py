@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from generative_recommenders_tpu_torch.modules.mlp import Dense, SwishLayerNorm
+from generative_recommenders_tpu_torch.parallel.distributed import batch_sum
 
 
 class MultitaskTaskType(enum.IntEnum):
@@ -111,5 +112,6 @@ class DefaultMultitaskModule(nn.Module):
             [_bce_with_logits(logits[:n], labels[:n]), (logits[n:] - labels[n:]).square()]
         ) * weights
         T = len(self.task_configs)
-        per_task = per_elem.reshape(T, -1).sum(-1) / weights.reshape(T, -1).sum(-1).clamp_min(1.0)
+        # over the global batch's weights: on a mesh each rank's share
+        per_task = per_elem.reshape(T, -1).sum(-1) / batch_sum(weights.reshape(T, -1).sum(-1)).clamp_min(1.0)
         return preds, labels, weights, per_task * self.causal_multitask_weights

@@ -1,6 +1,7 @@
 """The DLRM trainer's sparse/dense optimizer split (port of
 `generative_recommenders_tpu/parallel/optimizers.py`, with the table rule of
-`parallel/sharding.py:is_table_path` in `param_labels`), on one device.
+`parallel/sharding.py:is_table_path` in `param_labels`). On a mesh each rank
+steps its own table shards: the row-wise rule reads each row alone.
 
 Embedding-table parameters get row-wise Adagrad (torchrec's RowWiseAdagrad
 rule, written out here); everything else gets Adam. The JAX package labels
@@ -15,8 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-# name fragments that mark a table (`parallel/sharding.py:_TABLE_PATH_KEYS`)
-_TABLE_PATH_KEYS = ("embedding_module", "embedding_tables", "item_embedding")
+from generative_recommenders_tpu_torch.parallel.sharding import is_table_path
 
 
 def param_labels(model: nn.Module) -> Dict[str, str]:
@@ -26,7 +26,7 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
     DlrmHSTU's ``item_embedding_mlp``, which therefore train under row-wise
     Adagrad at the sparse learning rate, as in the JAX package."""
     return {
-        name: "sparse" if (any(k in name for k in _TABLE_PATH_KEYS) and p.dim() == 2) else "dense"
+        name: "sparse" if (is_table_path(name) and p.dim() == 2) else "dense"
         for name, p in model.named_parameters()
     }
 

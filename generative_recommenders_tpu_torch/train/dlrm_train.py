@@ -1,4 +1,4 @@
-"""DLRM-v3 ranker training and eval loops on one device (port of
+"""DLRM-v3 ranker training and eval loops, on one device or on a mesh (port of
 `generative_recommenders_tpu/train/dlrm_train.py`).
 
 A step is: zero the gradients, forward with dropout (and stochastic depth)
@@ -26,12 +26,33 @@ numbering.) Unlike the JAX loop, a resumed run numbers its steps and
 checkpoints on from the restored one's number, so that the latest
 checkpoint stays the newest. With ``output_trace`` the loop runs
 `utils/profiling.Profiler` (steps 30 to 34 of the run, as a Chrome trace
-under ``tmp/trace``). Not ported yet: the device mesh and the sharded
-table lookup (`sharded_lookup`) and multi-host batches (`_to_global`).
+under ``tmp/trace``).
+
+With a ``mesh`` (`parallel/mesh.py`) each rank trains on its own rows of
+the global batch. Its tables are row-sharded over the model axis and read
+through the all-to-all exchange (`parallel/embedding.py:sharded_lookup`);
+row-wise Adagrad steps each shard alone, which is exact because the rule
+reads each row alone. A table that does not divide the model axis stays
+whole. Each rank's loss is its share of the global batch's (the losses
+divide by the global weight sums), so the gradients are summed, not
+averaged: after the backward every dense gradient and every whole table's
+is all-reduced over the world, the dense ones flattened into one buffer in
+a fixed order (with the loss, so every rank reports the global loss), then
+each whole table in order. This is explicit rather than DDP's reducer: a
+layer that stochastic depth skipped gets its zero gradient after the
+backward, and the STU recompute policy computes gradients outside the graph
+that DDP hooks. Stochastic depth's coins are drawn alike on every rank
+(every rank skips the same layer); the dropout masks are seeded by (seed,
+stream, step, rank), where the JAX trainer draws the global batch's masks,
+so the two agree only with dropout off. Predictions, labels and weights
+come back gathered in rank order. A checkpoint holds the whole tables in a
+one-rank run's format: rank 0 gathers the shards and writes, and a restore
+takes each rank's rows of the file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -46,7 +67,15 @@ from generative_recommenders_tpu_torch.modules.dlrm_hstu import (
     DlrmHSTUConfig,
     EmbeddingTableConfig,
 )
+from generative_recommenders_tpu_torch.parallel.distributed import (
+    all_gather_tensor,
+    sharded_batch,
+    sum_gradients,
+)
+from generative_recommenders_tpu_torch.parallel.embedding import sharded_lookup
+from generative_recommenders_tpu_torch.parallel.mesh import Mesh
 from generative_recommenders_tpu_torch.parallel.optimizers import make_dlrm_optimizer
+from generative_recommenders_tpu_torch.parallel.sharding import shard_rows, shard_tables
 from generative_recommenders_tpu_torch.train.dlrm_metrics import MetricsLogger
 from generative_recommenders_tpu_torch.utils.checkpoint import (
     latest_step,
@@ -88,16 +117,19 @@ def to_device(batch: Tuple, device: torch.device) -> Tuple:
 _DROPOUT, _STOCHASTIC_DEPTH = 0, 1
 
 
-def step_seed(seed: int, stream: int, step: int) -> int:
-    """A 63-bit seed for one stream of one step."""
-    return int(np.random.SeedSequence([seed, stream, step]).generate_state(1, np.uint64)[0] >> 1)
+def step_seed(seed: int, stream: int, step: int, rank: int = 0) -> int:
+    """A 63-bit seed for one stream of one step on one rank (rank 0 draws
+    what a run without a mesh draws)."""
+    key = [seed, stream, step] + ([rank] if rank else [])
+    return int(np.random.SeedSequence(key).generate_state(1, np.uint64)[0] >> 1)
 
 
 class DlrmTrainer:
     """Owns the model and its two optimizers on ``device`` ("cuda" unless
     the caller asks for the CPU; without a card it raises). The weights are
-    drawn from ``seed``, each step's dropout masks and stochastic-depth
-    coins from generators seeded by (``seed``, stream, step)."""
+    drawn from ``seed`` (alike on every rank of a ``mesh``), each step's
+    dropout masks and stochastic-depth coins from generators seeded by
+    (``seed``, stream, step)."""
 
     def __init__(
         self,
@@ -106,13 +138,24 @@ class DlrmTrainer:
         cfg: DlrmTrainConfig,
         device: str = "cuda",
         seed: int = 0,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             # never a silent fall back to the CPU
             raise RuntimeError("no CUDA device is available; train on the CPU with device='cpu'")
+        self.mesh = mesh
         with torch.device(self.device):
             self.model = DlrmHSTU(hstu_cfg, tables, torch.Generator(self.device).manual_seed(seed))
+        self.sharded: Tuple[str, ...] = ()
+        if mesh is not None:
+            self.sharded = shard_tables(self.model, [f"embedding_tables_{t.name}" for t in tables], mesh)
+            shards = {id(p) for n, p in self.model.named_parameters() if n in self.sharded}
+            if shards:
+                # the sharded tables through the exchange, a whole one locally
+                self.model.lookup_fn = lambda table, ids: (
+                    sharded_lookup(table, ids, mesh) if id(table) in shards else table[ids]
+                )
         self.cfg = cfg
         self.hstu_cfg = hstu_cfg
         self.seed = seed
@@ -121,11 +164,16 @@ class DlrmTrainer:
             self.model, dense_lr=cfg.dense_lr, sparse_lr=cfg.sparse_lr
         )
 
+    @property
+    def rank(self) -> int:
+        return 0 if self.mesh is None else self.mesh.rank
+
     def generators(self, step: int) -> Tuple[torch.Generator, torch.Generator]:
         """(the dropout's generator on the model's device, stochastic depth's
-        on the host) of training step ``step``."""
+        on the host) of training step ``step``; the dropout's differs by
+        rank, stochastic depth's does not."""
         return (
-            torch.Generator(self.device).manual_seed(step_seed(self.seed, _DROPOUT, step)),
+            torch.Generator(self.device).manual_seed(step_seed(self.seed, _DROPOUT, step, self.rank)),
             torch.Generator().manual_seed(step_seed(self.seed, _STOCHASTIC_DEPTH, step)),
         )
 
@@ -136,15 +184,16 @@ class DlrmTrainer:
         gen = sd_gen = None
         if not deterministic:
             gen, sd_gen = self.generators(self.step)
-        _, _, aux_losses, preds, labels, weights = self.model(
-            uih, ul, cands, nc, deterministic=deterministic, compute_losses=True,
-            gen=gen, sd_gen=sd_gen,
-        )
+        with sharded_batch() if self.mesh is not None else contextlib.nullcontext():
+            _, _, aux_losses, preds, labels, weights = self.model(
+                uih, ul, cands, nc, deterministic=deterministic, compute_losses=True,
+                gen=gen, sd_gen=sd_gen,
+            )
         return sum(aux_losses.values()), preds, labels, weights
 
     def train_step(self, batch: Tuple):
-        """One optimizer step on a device batch; returns (loss, preds,
-        labels, weights), detached."""
+        """One optimizer step on a device batch (this rank's rows); returns
+        (loss, preds, labels, weights), detached, of the global batch."""
         self.sparse_opt.zero_grad(set_to_none=True)
         self.dense_opt.zero_grad(set_to_none=True)
         loss, preds, labels, weights = self.loss(batch)
@@ -152,23 +201,57 @@ class DlrmTrainer:
         for p in self.model.parameters():
             if p.grad is None:  # a layer stochastic depth skipped: optax sees zeros
                 p.grad = torch.zeros_like(p)
+        loss = loss.detach()
+        if self.mesh is not None:
+            loss = self._sum_gradients(loss)
         self.sparse_opt.step()
         self.dense_opt.step()
         self.step += 1
-        return loss.detach(), preds.detach(), labels, weights
+        return (loss,) + self._gathered(preds.detach(), labels, weights)
+
+    def _sum_gradients(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sums every gradient but the table shards' (the exchange summed
+        those) over the world; returns the global loss."""
+        named = [(n, p) for n, p in self.model.named_parameters() if n not in self.sharded]
+        is_table = lambda n: n.startswith("embedding_tables_")  # noqa: E731
+        return sum_gradients([p for n, p in named if not is_table(n)], [p for n, p in named if is_table(n)], loss)
+
+    def _gathered(self, preds, labels, weights):
+        """[T, B, M] tensors of this rank's rows as the global batch's."""
+        if self.mesh is None:
+            return preds, labels, weights
+        return tuple(all_gather_tensor(t.contiguous(), dim=1) for t in (preds, labels, weights))
 
     def restore(self, ckpt_dir: str, step: Optional[int] = None) -> None:
         """Loads the model's parameters from a checkpoint (default: the
         latest under ``ckpt_dir``); training goes on from the checkpoint's
         step number."""
         step = latest_step(ckpt_dir) if step is None else step
-        self.model.load_state_dict(restore_checkpoint(ckpt_dir, self.device, step))
+        state = restore_checkpoint(ckpt_dir, self.device, step)
+        for name in self.sharded:
+            state[name] = shard_rows(state[name], self.mesh)
+        self.model.load_state_dict(state)
         self.step = step
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters with every table whole (gathered from its
+        shards: a collective, every rank calls it)."""
+        state = self.model.state_dict()
+        for name in self.sharded:
+            state[name] = all_gather_tensor(state[name], self.mesh.model_group)
+        return state
+
+    def save(self, ckpt_dir: str) -> None:
+        """Writes the checkpoint of the steps trained so far: rank 0 writes,
+        every rank calls it."""
+        state = self.state_dict()
+        if self.rank == 0:
+            save_checkpoint(ckpt_dir, state, self.step)
 
     @torch.no_grad()
     def eval_step(self, batch: Tuple):
-        """(preds, labels, weights) without dropout."""
-        return self.loss(batch, deterministic=True)[1:]
+        """(preds, labels, weights) of the global batch, without dropout."""
+        return self._gathered(*self.loss(batch, deterministic=True)[1:])
 
 
 def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]:
@@ -195,7 +278,7 @@ def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]
         metrics.update(preds, labels, weights)
         losses.append(float(loss))
         step_s.append(time.perf_counter() - t_step)
-        n_examples += int(raw[1].shape[0])
+        n_examples += int(raw[1].shape[0]) * (1 if trainer.mesh is None else trainer.mesh.size)
         if profiler is not None:
             profiler.step()
         if step % cfg.log_every == 0:
@@ -206,12 +289,12 @@ def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]
             tb.scalar("losses/total", losses[-1], step)
             tb.scalars(metrics.compute_and_log(step), step, prefix="train/")
         if cfg.ckpt_dir and cfg.save_every and trainer.step % cfg.save_every == 0:
-            save_checkpoint(cfg.ckpt_dir, trainer.model.state_dict(), trainer.step)
+            trainer.save(cfg.ckpt_dir)
             saved = trainer.step
     if profiler is not None:
         profiler.close()
     if cfg.ckpt_dir and saved != trainer.step:
-        save_checkpoint(cfg.ckpt_dir, trainer.model.state_dict(), trainer.step)
+        trainer.save(cfg.ckpt_dir)
     tb.close()
     return {
         "metrics": metrics.compute(),

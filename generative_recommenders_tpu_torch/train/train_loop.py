@@ -1,5 +1,6 @@
-"""Research training loop on one device: train and eval steps and the epoch
-loop (port of `generative_recommenders_tpu/train/train_loop.py`).
+"""Research training loop: train and eval steps and the epoch loop (port of
+`generative_recommenders_tpu/train/train_loop.py`); `parallel/train.py`
+runs it on every rank of a mesh.
 
 A train step is: the host batch sliced to its length bucket, features,
 stochastic length, the target scattered into the ids, item embeddings, the
@@ -33,6 +34,7 @@ seed but does not draw the JAX package's masks, lengths and negatives.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -51,6 +53,7 @@ from generative_recommenders_tpu_torch.data.features import (
     scatter_target_into_ids,
     seq_features_from_row,
 )
+from generative_recommenders_tpu_torch.models.embeddings import lookup_rows
 from generative_recommenders_tpu_torch.models.losses import (
     bce_loss,
     bce_loss_with_ratings,
@@ -63,6 +66,8 @@ from generative_recommenders_tpu_torch.models.samplers import (
     maybe_l2_norm,
 )
 from generative_recommenders_tpu_torch.models.sequential import ModelConfig, SequentialRecommender
+from generative_recommenders_tpu_torch.parallel.distributed import batch_rows
+from generative_recommenders_tpu_torch.parallel.sharding import shard_batches
 from generative_recommenders_tpu_torch.train.eval_metrics import (
     MAX_K,
     MetricsAccumulator,
@@ -242,10 +247,12 @@ class ResearchTrainer:
             return self._weighted(loss, aux)
         num_to_sample = 1 if cfg.loss_module == "BCELoss" else cfg.num_negatives
         if cfg.sampling_strategy == "in-batch":
-            flat_ids = past_ids.reshape(-1)
+            # the pool is the global batch's ids, as the JAX trainer's
+            # process_batch sees them under a mesh
+            flat_ids = batch_rows(past_ids.reshape(-1))
             state = self.sampler.process_batch(
                 ids=flat_ids, presences=flat_ids != 0,
-                embeddings=input_embeddings.reshape(-1, input_embeddings.shape[-1]),
+                embeddings=batch_rows(input_embeddings.reshape(-1, input_embeddings.shape[-1])),
             )
             neg_ids, neg_emb = self.sampler(self.negatives_gen, state, sup_ids, num_to_sample)
         else:
@@ -270,17 +277,18 @@ class ResearchTrainer:
 
     def _negatives_embedding_fn(self):
         """The local negatives' lookup: the model's table, or under
-        ``compute_dtype="bfloat16"`` a bfloat16 copy of it, gathered and
-        zeroed at id 0; the gradient reaches the float32 table through the
-        cast."""
+        ``compute_dtype="bfloat16"`` a bfloat16 copy of it, gathered (through
+        the table's exchange when it is sharded) and zeroed at id 0; the
+        gradient reaches the float32 table through the cast."""
         model = self.model
         if self.cfg.model.compute_dtype != "bfloat16":
             return model.get_item_embeddings
-        table16 = model.embedding_module.item_emb.to(torch.bfloat16)
+        emb_module = model.embedding_module
+        table16 = emb_module.item_emb.to(torch.bfloat16)
         num_items = self.cfg.model.num_items
 
         def lookup(ids: torch.Tensor) -> torch.Tensor:
-            e = table16[ids.clamp(0, num_items)]
+            e = lookup_rows(table16, ids, num_items, emb_module.lookup_fn)
             return e * (ids != 0)[..., None].to(e.dtype)
 
         return lookup
@@ -317,12 +325,25 @@ class ResearchTrainer:
         if cfg.seq_len_buckets or cfg.runtime_bucketing:
             batch = bucket_batch(batch, cfg.seq_len_buckets, cfg.runtime_bucketing)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, _ = self.loss(to_device(batch, self.device))
-        loss.backward()
+        # the backward too: the loss checkpoint recomputes the loss in it
+        with self._batch_scope():
+            loss, _ = self.loss(to_device(batch, self.device))
+            loss.backward()
+        loss = self._sum_gradients(loss.detach())
         self.optimizer.step()
         if self.schedule is not None:
             self.schedule.step()
-        return loss.detach()
+        return loss
+
+    def _batch_scope(self):
+        """The context the loss runs in (a mesh's trainer spreads the batch
+        over its ranks)."""
+        return contextlib.nullcontext()
+
+    def _sum_gradients(self, loss: torch.Tensor) -> torch.Tensor:
+        """The gradients of the whole batch, and its loss (a mesh's trainer
+        sums the ranks')."""
+        return loss
 
     # ------------------------------------------------------------ checkpoint
     def checkpoint_state(self) -> Dict[str, Any]:
@@ -335,6 +356,10 @@ class ResearchTrainer:
                 "schedule": None if self.schedule is None else self.schedule.state_dict(),
             },
         }
+
+    def save(self, ckpt_dir: str, step: int) -> None:
+        """Writes `checkpoint_state` as checkpoint ``step`` under ``ckpt_dir``."""
+        save_checkpoint(ckpt_dir, self.checkpoint_state(), step)
 
     def load_checkpoint_state(self, state: Dict[str, Any]) -> None:
         self.model.load_state_dict(state["params"])
@@ -427,11 +452,34 @@ def train_loop(
     step's loss and host wall time (``losses``, ``step_s``; a step ends when
     its loss reaches the host), and ``examples_per_s`` over the train
     steps."""
-    tb = SummaryLogger(tb_log_dir)
     trainer = ResearchTrainer(cfg, train_dataset.all_item_ids(), device=device)
+    return run_epochs(trainer, train_dataset, eval_dataset, log_every, max_steps, tb_log_dir, ckpt_dir,
+                      save_ckpt_every_n)
+
+
+def run_epochs(
+    trainer: ResearchTrainer,
+    train_dataset: SequenceDataset,
+    eval_dataset: SequenceDataset,
+    log_every: int = 100,
+    max_steps: Optional[int] = None,
+    tb_log_dir: Optional[str] = None,
+    ckpt_dir: Optional[str] = None,
+    save_ckpt_every_n: int = 0,
+    num_shards: int = 1,
+    shard_index: int = 0,
+) -> Dict[str, Any]:
+    """`train_loop`'s epochs for ``trainer``. With ``num_shards`` > 1 every
+    rank reads the same global batches and keeps its rows ``[k b, (k + 1)
+    b)`` of each (k = ``shard_index``)."""
+    cfg = trainer.cfg
+    tb = SummaryLogger(tb_log_dir)
+
+    def shard(batches: Iterator[Dict[str, np.ndarray]]) -> Iterator[Dict[str, np.ndarray]]:
+        return batches if num_shards == 1 else shard_batches(batches, num_shards, shard_index)
 
     def eval_batches(seed: int) -> Iterator[Dict[str, np.ndarray]]:
-        return batch_iterator(eval_dataset, cfg.eval_batch_size, shuffle=True, seed=seed)
+        return shard(batch_iterator(eval_dataset, cfg.eval_batch_size, shuffle=True, seed=seed))
 
     batch_id = 0
     history, losses, step_s = [], [], []
@@ -447,7 +495,7 @@ def train_loop(
             epoch_batches = batch_iterator(
                 train_dataset, cfg.local_batch_size, shuffle=True, seed=cfg.random_seed + epoch
             )
-        for batch in epoch_batches:
+        for batch in shard(epoch_batches):
             if cfg.eval_interval > 0 and batch_id > 0 and batch_id % cfg.eval_interval == 0:
                 m = trainer.eval_epoch(
                     eval_batches(cfg.random_seed + batch_id), max_iters=cfg.partial_eval_num_iters
@@ -479,7 +527,7 @@ def train_loop(
         history.append(metrics)
         tb.scalars(metrics, batch_id, prefix="eval/")
         if ckpt_dir and save_ckpt_every_n and (epoch + 1) % save_ckpt_every_n == 0:
-            save_checkpoint(ckpt_dir, trainer.checkpoint_state(), epoch)
+            trainer.save(ckpt_dir, epoch)
             logger.info("checkpoint @ epoch %d -> %s", epoch, ckpt_dir)
         logger.info(
             "eval epoch %d: NDCG@10 %.4f HR@10 %.4f HR@50 %.4f MRR %.4f",

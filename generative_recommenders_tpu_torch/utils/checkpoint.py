@@ -3,8 +3,10 @@
 `torch.load` where the JAX package uses Orbax). A checkpoint is one file,
 ``<path>/<step>.pt``, holding a nested dict of tensors (and plain Python
 values): the research trainer saves ``{"params", "opt_state"}``, the ranker
-its model's parameters, tables included. One device holds the whole state,
-so the JAX package's sparse/dense split has no counterpart here.
+its model's parameters, tables included. A checkpoint always holds whole
+tables: a trainer on a mesh gathers its shards before rank 0 writes, and
+takes its rows of the file on restore, so the JAX package's sparse/dense
+split has no counterpart here.
 """
 
 from __future__ import annotations

@@ -683,15 +683,21 @@ def test_research_cli_trains_a_preset_from_a_csv(tmp_path, capsys):
     assert len(out["losses"]) == 11 and len(out["history"]) == 2  # 8 batches an epoch
 
 
-def test_research_cli_refusals():
+def test_research_cli_refusals(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):  # the default device is the card
             t_cli.main(["--smoke"])
     for argv in (
         ["--smoke", "--device", "cpu", "--attn_kernel", "pallas"],
-        ["--smoke", "--device", "cpu", "--distributed"],
-        ["--smoke", "--device", "cpu", "--num_processes", "2"],
+        ["--smoke", "--device", "cpu", "--num_processes", "2"],  # the bootstrap flags need --distributed
         ["--preset", "no-such-preset", "--data_csv", "x", "--device", "cpu"],
     ):
         with pytest.raises(SystemExit):
             t_cli.main(argv)
+    # --distributed is ported: without a coordinator or torchrun's variables
+    # its rendezvous fails, and the CLI raises instead of training alone
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError):
+        t_cli.main(["--smoke", "--device", "cpu", "--distributed"])
+    assert not torch.distributed.is_initialized()

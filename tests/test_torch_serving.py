@@ -137,7 +137,8 @@ def test_serving_cli_refuses_to_fall_back_to_cpu():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port (the serving, ranker-training and research
-    stacks, the data paths: whatever lies under the package) and
+    stacks, the data paths, the distribution layer: whatever lies under the
+    package) and
     `chip_smoke.py`; nor pandas, which the card's machine does not have."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
@@ -153,7 +154,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for stack in ("models.sequential", "models.hstu", "train.train_loop", "train.eval_metrics",
                   "data.features", "configs.research", "cli.train_research",
                   "ops.cuda.hstu_attention_relbias", "data.preprocessor", "data.reco_dataset",
-                  "data.dlrm_public_datasets", "cli.preprocess_dlrm_data", "cli.run_fractal_expansion"):
+                  "data.dlrm_public_datasets", "cli.preprocess_dlrm_data", "cli.run_fractal_expansion",
+                  "parallel.distributed", "parallel.mesh", "parallel.sharding", "parallel.embedding",
+                  "parallel.train"):
         assert f"generative_recommenders_tpu_torch.{stack}" in modules
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")])}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True, timeout=120)
