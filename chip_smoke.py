@@ -29,7 +29,15 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    and K7 on bfloat16 q, k, v and dO (the first HSTU block's types under
    compute_dtype="bfloat16") against their bfloat16 plain versions, at the
    ml-3b layer-0 shape on a corpus batch and (in the ml-1m phase) at the
-   ml-1m large preset's, timed, with their bounds;
+   ml-1m large preset's, timed, with their bounds; K7-det (the fixed-order
+   relative-bias backward, float32 and bfloat16) against the plain backward
+   at the research shape, at the seams of its tilings (tile edges, head
+   groups that end unfilled, N > Nm) and (in the ml-1m phase) at the ml-1m
+   large preset's, every output the same bits on a second run, timed
+   against K7 in the same call; K1 and K2 on bfloat16 (the bias-free
+   research model's first block) against their bfloat16 plain versions at
+   the ml-3b layer-0 shape, at bench.py's shape (B 8, N 2048, H 4, D 64,
+   alpha 1/8) and at their seams, timed, with their bounds;
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -67,7 +75,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    on a small research model, GPU kernels against the CPU plain versions;
    then the same preset with compute_dtype="bfloat16" (2 + 10 steps and the
    eval; block 0 through K6-bf16 / K7-bf16, the other 15 through K6 / K7),
-   one small bfloat16 step GPU against CPU; then the preset in float32 with
+   one small bfloat16 step GPU against CPU; then the same preset bias-free
+   (enable_relative_attention_bias=False) in bfloat16, 2 + 10 steps and the
+   eval (block 0 through K1-bf16 / K2-bf16, the other 15 through K1 / K2),
+   profiled, and a small bias-free bfloat16 model's embeddings and one step
+   GPU against CPU; then the preset in float32 with
    remat=True and with loss_activation_checkpoint=True (2 + 5 steps each,
    K6 32 a step under remat), their peaks and medians against the research
    phase's, and one small step with dropout on with and without each,
@@ -100,7 +112,15 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    mi_loss weighted 0.001) one epoch through `train_loop` on the registry's
    files and a full MoL eval, `MoLBruteForceTopK` top-100 for 128 users
    through `CandidateIndex(top_k_module=...)` against the same on the CPU,
-   and one small MoL step GPU against CPU. Between the two: the preset with
+   and one small MoL step GPU against CPU. After the first: the deterministic
+   research phase, in a process of its own, the only one with
+   CUBLAS_WORKSPACE_CONFIG set (torch.use_deterministic_algorithms(True)
+   needs it before the first cuBLAS call): the ml-1m large preset
+   twice from one seed, 2 + 10 steps each, losses and every parameter
+   bit-identical and the relative-bias backward on K7-det; the ml-3b preset
+   in float32, 2 + 5 steps, its median against the research phase's, both
+   profiled; a small bfloat16 model twice (K7-det-bf16 in block 0). Between
+   the two: the preset with
    attention dropout 0.2 (2 + 10 steps through the plain composite, 0 K6 /
    K7 a step, K6 in the eval) and the position-only bias (no timestamps:
    K6 / K7 on zero timestamps and a one-entry time table against their plain
@@ -158,9 +178,10 @@ import time
 PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
-# the bfloat16 K6 / K7 multiply bfloat16 values with one exact TF32 product
-# each (dense TF32; bfloat16 itself would be 989e12)
-PEAK_TF32_FLOPS = 495e12
+# dense bfloat16 in the tensor cores: the bound of the kernels on bfloat16
+# operands (K1, K2, K6, K7, K7-det), which by their own choice multiply with
+# one exact TF32 product each, at half this rate
+PEAK_BF16_FLOPS = 989e12
 
 # the full-width debug preset, as served
 B, MAX_UIH, MAX_CANDS, CHUNK = 32, 512, 160, 5
@@ -226,6 +247,21 @@ BF16_TOL = 2.0**-6
 # flipped rounding reaches every gradient: the JAX package's own bfloat16
 # tolerance (tests/test_relbias_attention.py, 3e-2), the loss 1e-3 relative
 BF16_GRAD_TOL, BF16_LOSS_RTOL = 3e-2, 1e-3
+# the bias-free bfloat16 model, GPU against CPU: tests/test_torch_bf16.py's
+# tolerances (outputs l2-normalised, 4e-3 absolute; the loss 1e-4 relative;
+# gradients BF16_GRAD_TOL of their max)
+BF16_MODEL_ATOL, BF16_FREE_LOSS_RTOL = 4e-3, 1e-4
+# K7-det on bfloat16: its float32 table gradients, now summed in one fixed
+# order, against the plain version's (1e-5 of the max; the outputs BF16_TOL)
+DET_BF16_TABLE_TOL = 1e-5
+# the deterministic research phase: the ml-1m large preset twice from one
+# seed, 2 + 10 steps each; then the ml-3b preset in float32, 2 + 5 steps
+DET_RESEARCH_STEPS, DET_ML3B_STEPS = 10, 5
+# its process's cuBLAS workspace (its alone) and time limit
+DET_CUBLAS_WORKSPACE, DET_TIMEOUT = ":4096:8", 600
+# bench.py's attention pair, used here as a kernel shape only (B, N, H, D;
+# alpha 1 / sqrt(D); lengths from default_rng(0))
+BENCH_SHAPE = (8, 2048, 4, 64)
 # one step's gradients with and without per-block recomputation, dropout on,
 # on the card: the same kernels on the same inputs, but K7 sums dq and the
 # tables with atomics in an order that changes from run to run
@@ -315,6 +351,19 @@ def profile(name: str, fn) -> None:
     if comm:
         print("    collectives: " + ", ".join(f"{e.key} {e.cpu_time_total / 1e3:.2f} ms x{e.count}"
                                          for e in sorted(comm, key=lambda e: -e.cpu_time_total)))
+
+
+def kernel_function(mangled: str) -> str:
+    """The unqualified function name of a mangled `ns::fn<...>` symbol (the
+    last name of its `_ZN <length><name> ...` prefix), or the symbol."""
+    names, i = [], 3
+    while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    return names[-1] if names else mangled
 
 
 def median(xs) -> float:
@@ -491,7 +540,8 @@ class FixedNegatives:
 
 # ------------------------------------------------------ distribution ranks
 def kernel_counters() -> dict:
-    """Every kernel's launch counter, by name (the bfloat16 K6 / K7 apart)."""
+    """Every kernel's launch counter, by name (the bfloat16 kernels and
+    K7-det apart)."""
     from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
         delta_hstu_mha_cuda,
         hstu_mha_bwd_cuda,
@@ -507,8 +557,31 @@ def kernel_counters() -> dict:
         "K1": hstu_mha_dense_cuda.launches, "K5": delta_hstu_mha_cuda.launches,
         "K2": bwd["hstu_mha_bwd_fused"], "K3": bwd["hstu_mha_bwd_dq"], "K4": bwd["hstu_mha_bwd_dkv"],
         "K6": hstu_mha_dense_relbias_cuda.launches, "K7": hstu_mha_relbias_bwd_cuda.launches,
+        "K1-bf16": hstu_mha_dense_cuda.launches_bf16, "K2-bf16": hstu_mha_bwd_cuda.launches_bf16,
         "K6-bf16": hstu_mha_dense_relbias_cuda.launches_bf16, "K7-bf16": hstu_mha_relbias_bwd_cuda.launches_bf16,
+        "K7-det": hstu_mha_relbias_bwd_cuda.launches_det,
+        "K7-det-bf16": hstu_mha_relbias_bwd_cuda.launches_det_bf16,
     }
+
+
+# the counters a run reports only where they launched
+OPTIONAL_KERNELS = ("K1-bf16", "K2-bf16", "K6-bf16", "K7-bf16", "K7-det", "K7-det-bf16")
+
+
+def small_research():
+    """The small research model's settings (3 blocks, 300 items, N 60), its
+    float32 config and its corpus of 16 users: (model keywords, config,
+    dataset)."""
+    from generative_recommenders_tpu_torch.data.dataset import SequenceDataset, synthetic_user_sequences
+    from generative_recommenders_tpu_torch.models.sequential import ModelConfig
+    from generative_recommenders_tpu_torch.train.train_loop import TrainConfig
+
+    sseqs = synthetic_user_sequences(num_users=16, num_items=300, max_len=60, min_len=2, seed=3)
+    sds = SequenceDataset(sseqs, 56, ignore_last_n=1)
+    small_model = dict(num_items=300, max_sequence_len=56, gr_output_length=3, item_embedding_dim=32,
+                       num_blocks=3, num_heads=2, linear_dropout_rate=0.0, dropout_rate=0.0)
+    small_cfg = TrainConfig(model=ModelConfig(dqk=16, dv=16, **small_model), local_batch_size=8, num_negatives=16)
+    return small_model, small_cfg, sds
 
 
 def parity_configs():
@@ -611,6 +684,148 @@ def rank_main(argv) -> None:
                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     print("RANK_RESULT " + json.dumps(result), flush=True)
     dist.destroy_process_group()
+
+
+def det_main(argv) -> None:
+    """The deterministic research phase, in a process of its own:
+    ``chip_smoke.py det <the ml-1m phase's median step, ms> <the research
+    phase's, ms>``, started by `main` with CUBLAS_WORKSPACE_CONFIG set for
+    it alone (torch.use_deterministic_algorithms needs it before the first
+    cuBLAS call). Under deterministic algorithms the relative-bias backward
+    takes K7-det, so two runs from one seed give the same bits: the ml-1m
+    large preset twice, the ml-3b preset in float32 against the research
+    phase's median, a small bfloat16 model twice. Reads the files the
+    earlier phases wrote under DATA_ROOT. Prints its report, then its
+    launches as one line ``DET_RESULT <json>``."""
+    import torch
+
+    from generative_recommenders_tpu_torch.configs.research import RESEARCH_PRESETS
+    from generative_recommenders_tpu_torch.data.dataset import batch_iterator
+    from generative_recommenders_tpu_torch.data.reco_dataset import get_reco_dataset
+    from generative_recommenders_tpu_torch.train import train_loop as research
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m_med, r_median = map(float, argv)
+    all_counters = kernel_counters()
+    total = dict.fromkeys(all_counters, 0)
+
+    def count_reset():
+        for c in all_counters.values():
+            c.reset()
+
+    def counts():
+        """The launches since `count_reset` (the optional kernels' where
+        they launched), also added to the phase's totals."""
+        now = {k_: c.count for k_, c in all_counters.items() if c.count or k_ not in OPTIONAL_KERNELS}
+        for k_, n_ in now.items():
+            total[k_] += n_
+        return now
+
+    mcfg, rcfg = RESEARCH_PRESETS[ML1M_PRESET], RESEARCH_PRESETS[RESEARCH_PRESET]
+    mm1, rm = mcfg.model, rcfg.model
+    shard_train = get_reco_dataset("ml-3b", rm.max_sequence_len, data_root=DATA_ROOT).train_dataset
+    rbatch = next(batch_iterator(shard_train, rcfg.local_batch_size, shuffle=True, seed=7))
+    _, small_cfg, sds = small_research()
+    d_reco = get_reco_dataset("ml-1m", mm1.max_sequence_len, data_root=DATA_ROOT)
+    print(
+        f"deterministic research phase: torch.use_deterministic_algorithms(True), CUBLAS_WORKSPACE_CONFIG="
+        f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}; preset {ML1M_PRESET} uncut over the ml-1m phase's files, "
+        f"{RESEARCH_WARMUPS} + {DET_RESEARCH_STEPS} steps of ResearchTrainer.train_step, twice from one seed"
+    )
+    row = next(batch_iterator(d_reco.train_dataset, mcfg.local_batch_size, shuffle=True, seed=0))
+    det_mode = {"warn_only": False}
+
+    def det_steps(cfg_, ds_, n_steps, seed):
+        """``n_steps`` train steps of a fresh trainer under deterministic
+        algorithms: (trainer, losses, step seconds, launches). warn_only is
+        off until an operation of the step refuses (it has no deterministic
+        implementation): that one is named, and the steps run again, and
+        from then on, with warn_only=True, as the ranker's deterministic
+        phase runs."""
+        torch.use_deterministic_algorithms(True, warn_only=det_mode["warn_only"])
+        try:
+            trainer_ = research.ResearchTrainer(cfg_, ds_.all_item_ids(), device="cuda")
+            it_ = batch_iterator(ds_, cfg_.local_batch_size, shuffle=True, seed=seed)
+            count_reset()
+            losses_, steps_ = [], []
+            for _ in range(n_steps):
+                b_ = next(it_)
+                t0_ = time.perf_counter()
+                losses_.append(float(trainer_.train_step(b_)))
+                steps_.append(time.perf_counter() - t0_)
+            return trainer_, losses_, steps_, counts()
+        except RuntimeError as e:
+            if det_mode["warn_only"] or "deterministic" not in str(e):
+                raise
+            print(f"  warn_only=False refused: {str(e).splitlines()[0]}; the runs take warn_only=True")
+            det_mode["warn_only"] = True
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return det_steps(cfg_, ds_, n_steps, seed)
+
+    def det_twice(name, cfg_, ds_, n_steps, want):
+        """Two runs of ``det_steps`` from one seed: their losses and every
+        parameter bit-identical, ``want`` launches in each. Returns the
+        second run's trainer and median step (ms)."""
+        runs_ = []
+        for _ in range(2):
+            trainer_, losses_, steps_, n_ = det_steps(cfg_, ds_, n_steps, 21)
+            check(all(math.isfinite(x) for x in losses_), f"{name}: losses {losses_}")
+            check(n_ == want, f"{name}: launched {n_}, expected {want}")
+            runs_.append((losses_, {k_: p_.detach().clone() for k_, p_ in trainer_.model.named_parameters()},
+                          steps_))
+            if len(runs_) == 1:
+                del trainer_
+        (la, pa, _), (lb, pb, sb) = runs_
+        same = la == lb and pa.keys() == pb.keys() and all(torch.equal(pa[k_], pb[k_]) for k_ in pa)
+        med = 1e3 * median(sb[RESEARCH_WARMUPS:] or sb)
+        print(f"  {name}: median step {med:.2f} ms; losses {[round(x, 5) for x in la]}; launches {n_} a run; "
+              f"the two runs' losses and every parameter bit-identical: {same} (warn_only {det_mode['warn_only']})")
+        check(same, f"{name}: two deterministic runs from one seed differ")
+        return trainer_, med
+
+    d_steps = RESEARCH_WARMUPS + DET_RESEARCH_STEPS
+    blocks1 = mm1.num_blocks
+    torch.cuda.reset_peak_memory_stats()
+    d_trainer, d_med = det_twice(f"{ML1M_PRESET}, deterministic", mcfg, d_reco.train_dataset, d_steps,
+                                 {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": blocks1 * d_steps, "K7": 0,
+                                  "K7-det": blocks1 * d_steps})
+    print(f"  against the ml-1m phase's median step without deterministic algorithms {m_med:.2f} ms; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.use_deterministic_algorithms(True, warn_only=det_mode["warn_only"])
+    try:
+        profile("deterministic ml-1m research training step", lambda: d_trainer.train_step(row))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del d_trainer, d_reco
+    torch.cuda.empty_cache()
+    # the ml-3b preset in float32 under deterministic algorithms, against the
+    # research phase's median (both in this call)
+    torch.cuda.reset_peak_memory_stats()
+    n3 = RESEARCH_WARMUPS + DET_ML3B_STEPS
+    t3, l3, s3, n_3 = det_steps(rcfg, shard_train, n3, 11)
+    want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": rm.num_blocks * n3, "K7": 0,
+              "K7-det": rm.num_blocks * n3}
+    check(n_3 == want_n and all(math.isfinite(x) for x in l3), f"deterministic ml-3b: launched {n_3}, losses {l3}")
+    det3_med = 1e3 * median(s3[RESEARCH_WARMUPS:])
+    print(f"  {RESEARCH_PRESET} in float32, deterministic, {RESEARCH_WARMUPS} + {DET_ML3B_STEPS} steps: median "
+          f"step {det3_med:.2f} ms against the research phase's {r_median:.2f} ms ({det3_med / r_median:.2f}x); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {n_3}")
+    torch.use_deterministic_algorithms(True, warn_only=det_mode["warn_only"])
+    try:
+        profile("deterministic ml-3b research training step", lambda: t3.train_step(rbatch))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del t3
+    torch.cuda.empty_cache()
+    small16 = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, compute_dtype="bfloat16"))
+    # a small bfloat16 model twice, over its corpus' two batches: block 0 on
+    # K7-det-bf16
+    det_twice("small bfloat16 research model, deterministic", small16, sds, 2,
+              {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 4, "K7": 0, "K6-bf16": 2,
+               "K7-det": 4, "K7-det-bf16": 2})
+    print("DET_RESULT " + json.dumps(total), flush=True)
 
 
 def free_port() -> int:
@@ -756,14 +971,16 @@ def main() -> None:
     check(all(r["built"] for r in warmed.values()) and not any(build._stale(name) for name in warmed),
           "the warm-up CLI left a kernel unbuilt or stale")
     for name, log in logs.items():
-        # ptxas -v: per entry point (named by its template arguments: the
-        # padded width first) its registers and its spill stores / loads
+        # ptxas -v: per entry point (named by its function and its template
+        # arguments: the padded width first, bf16 for a bfloat16 instance) its
+        # registers and its spill stores / loads
         entries, entry = {}, None
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 mangled = line.split("'")[1]
-                entry = ",".join(a or b or "bf16" for a, b, c in re.findall(
-                    r"Li(\d+)E|Lb([01])E|(?<=E)(13__nv_bfloat16)(?=E)", mangled)) or mangled
+                args = ",".join(a or b or "bf16" for a, b, c in re.findall(
+                    r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)(?!Ex)", mangled))
+                entry = f"{kernel_function(mangled)} {args}".strip()
                 entries[entry] = ["?", ""]
             elif entry and "bytes spill stores" in line and not line.strip().endswith(
                     "0 bytes spill stores, 0 bytes spill loads"):
@@ -1150,10 +1367,11 @@ def main() -> None:
     )
     del native_rows, rows_, py_train
 
-    def relbias_views(Bc, N, Hc, Dc, Vc):
+    def relbias_views(Bc, N, Hc, Dc, Vc, dtype=torch.float32):
         """q, k, v as the research STU gives them: views of the split of one
-        [Bc, N, (2V + 2D) * H] projection (u, v, q, k), never copied."""
-        proj = rand(Bc, N, Hc * (2 * Vc + 2 * Dc))
+        [Bc, N, (2V + 2D) * H] projection (u, v, q, k) of ``dtype``, never
+        copied."""
+        proj = rand(Bc, N, Hc * (2 * Vc + 2 * Dc)).to(dtype)
         _, v, q, k = torch.split(proj, [Hc * Vc, Hc * Vc, Hc * Dc, Hc * Dc], dim=-1)
         return q.reshape(Bc, N, Hc, Dc), k.reshape(Bc, N, Hc, Dc), v.reshape(Bc, N, Hc, Vc)
 
@@ -1331,6 +1549,61 @@ def main() -> None:
         )
         print(f"  ml-20m large preset at N={N_} (Nm={Nm20}, B={mB}, H={mm.num_heads}, mean length "
               f"{lens_.float().mean().item():.1f}): K6 {bucket_ms[N_][0]:.4f} ms, K7 {bucket_ms[N_][1]:.4f} ms")
+
+    # K7-det: the same function summed in one fixed order (the dq pass on
+    # K3's body with the bias; K7's body without dq, each block's table sums
+    # to its own row of a partial buffer; the rows added in block order)
+    det_errs = {"K7-det": [], "K7-det-bf16": []}
+
+    def det_case(name, Bc, N, lengths, ts, Nm=None, nb=128, nt=None, Hc=2, Dc=RD, Vc=RV, bf16=False,
+                 qkv=None, **kw):
+        """K7-det (bfloat16: K7-det-bf16, alpha 1) against the plain backward
+        on uvqk views and a strided dO: every output, the tables included, the
+        same bits on a second run; dead rows exactly 0."""
+        label = "K7-det-bf16" if bf16 else "K7-det"
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        q, k, v = qkv or relbias_views(Bc, N, Hc, Dc, Vc, dtype)
+        pos_w, ts_w = bias_tables(Nm or N, nb)
+        do = rand(N, Bc, Hc, Vc).to(dtype).transpose(0, 1)
+        args = dict(alpha=1.0, max_seq_len=N, num_buckets=nb, num_targets=nt, **kw)
+        dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
+        poison_allocator(3 * Bc * N * Hc * max(Dc, Vc) * 4)
+        grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, deterministic=True, **args)
+        again = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, deterministic=True, **args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)), f"{label} {name}: an output differs between two runs")
+        del again
+        wants = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
+        for g, a, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants):
+            table = g in ("dpos_w", "dts_w")
+            check(a.dtype == w.dtype, f"{label} {name} {g}: type {a.dtype}, plain {w.dtype}")
+            tol = (DET_BF16_TABLE_TOL if table else BF16_TOL) if bf16 else REL_TOL
+            det_errs[label].append(compare(f"{label} {name} {g}", a.float(), w.float(), None if table else dead,
+                                           rel_tol=tol))
+        return q, k, v, pos_w, ts_w, do, args
+
+    print(f"K7-det, the fixed-order relative-bias backward, vs the plain backward (float32, {REL_TOL} of each "
+          "output's max, the tables included; every output the same bits twice):")
+    det_case(f"research shape (B={RB}, N={RN}, H={RH}, D=V={RD}) on the research case's q, k, v", RB, RN, r_len,
+             r_ts, Hc=RH, qkv=slice_case[:3])
+    det_case("lengths at the tile edges (63 .. 129)", 6, 140, edges, random_ts(6, 140, edges))
+    for heads in (3, 5):  # groups of 4 heads: one group unfilled, and one whole with one unfilled
+        det_case(f"H={heads}, a head group unfilled", 3, 140, l140, random_ts(3, 140, l140), Hc=heads)
+    det_case("D=V=50, H=3 (width 64: groups of 2 heads)", 2, 211, ints(1, 212, 2),
+             random_ts(2, 211, full(2, 211)), Hc=3, Dc=50, Vc=50)
+    det_case("N > Nm (clipped diagonals summed in order)", 3, 140, l140, random_ts(3, 140, l140), Nm=100)
+    det_case("num_targets with contextual rows", 4, 96, l4, random_ts(4, 96, l4),
+             nt=torch.minimum(ints(0, 6, 4), l4 - 1), contextual_seq_len=3)
+    det_case("max_attn_len window", 4, 150, l150, random_ts(4, 150, l150), nt=ints(0, 10, 4),
+             max_attn_len=37, min_full_attn_seq_len=16)
+    # K7-det against K7 in the same call, on the research case's inputs: the
+    # same function, so K7's bound is its bound and its share shows what the
+    # fixed order costs
+    k7_again_ms = device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(q, k, v, r_len, r_ts, pos_w, ts_w, do, **r_args), 10)
+    k7det_ms = device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(
+        q, k, v, r_len, r_ts, pos_w, ts_w, do, deterministic=True, **r_args), 10)
+    print(f"  research shape: K7-det {k7det_ms:.4f} ms against K7 {k7_again_ms:.4f} ms in this call "
+          f"({k7det_ms / k7_again_ms:.2f}x; K7 earlier {k7_ms:.4f} ms)")
     del slice_case, m20_case, b139_case, q, k, v, do, q_, k_, v_, do_
     torch.cuda.empty_cache()
 
@@ -1403,16 +1676,117 @@ def main() -> None:
     k6b_ms, k7b_ms, k6b_plain_ms, k7b_plain_ms = k6b_times
     print(
         f"  ml-3b layer 0: K6-bf16 {k6b_ms:.4f} ms (plain {k6b_plain_ms:.4f}, bound "
-        f"{bound_ms(k6b_work, PEAK_TF32_FLOPS):.4f}; float32 K6 {k6_ms:.4f}), K7-bf16 {k7b_ms:.4f} ms (plain "
-        f"{k7b_plain_ms:.4f}, bound {bound_ms(k7b_work, PEAK_TF32_FLOPS):.4f}; float32 K7 {k7_ms:.4f})"
+        f"{bound_ms(k6b_work, PEAK_BF16_FLOPS):.4f}; float32 K6 {k6_ms:.4f}), K7-bf16 {k7b_ms:.4f} ms (plain "
+        f"{k7b_plain_ms:.4f}, bound {bound_ms(k7b_work, PEAK_BF16_FLOPS):.4f}; float32 K7 {k7_ms:.4f})"
     )
-    del rb_case
+    print(f"K7-det-bf16 vs the bfloat16 plain backward (outputs {BF16_TOL:.4g} of their max, the tables "
+          f"{DET_BF16_TABLE_TOL}; every output the same bits twice):")
+    det_case(f"ml-3b layer 0 (B={RB}, N={RN}, H={RH}, D=V={RD}) on the bfloat16 case's q, k, v", RB, RN, r_len,
+             r_ts, Hc=RH, bf16=True, qkv=rb_case[:3])
+    det_case("H=3, lengths at the tile edges (63 .. 129)", 6, 140, edges, random_ts(6, 140, edges), Hc=3, bf16=True)
+    det_case("N > Nm, num_targets", 3, 140, l140, random_ts(3, 140, l140), Nm=100, bf16=True,
+             nt=torch.minimum(ints(0, 6, 3), l140 - 1))
+    q_, k_, v_, pw_, tw_, do_, a_ = rb_case
+    k7b_again_ms = device_time_ms(
+        lambda: hstu_mha_relbias_bwd_cuda(q_, k_, v_, r_len, r_ts, pw_, tw_, do_, **a_), 10)
+    k7db_ms = device_time_ms(
+        lambda: hstu_mha_relbias_bwd_cuda(q_, k_, v_, r_len, r_ts, pw_, tw_, do_, deterministic=True, **a_), 10)
+    print(f"  ml-3b layer 0: K7-det-bf16 {k7db_ms:.4f} ms against K7-bf16 {k7b_again_ms:.4f} ms in this call "
+          f"({k7db_ms / k7b_again_ms:.2f}x)")
+    del rb_case, q_, k_, v_, do_
+    torch.cuda.empty_cache()
+
+    # K1 and K2 on bfloat16: the first block of the bias-free research model
+    # under compute_dtype="bfloat16" (enable_relative_attention_bias=False)
+    d16_errs = {"K1-bf16": [], "K2-bf16": []}
+
+    def dense_bf16_case(name, Bc, N, lengths, Hc, Dc, Vc, nt=None, alpha_=1.0, qkv=None, **kw):
+        """K1-bf16 and K2-bf16 against their bfloat16 plain versions on
+        bfloat16 views of one uvqk projection (or ``qkv``) and a strided dO:
+        dead rows exactly 0, K1's output and K2's dk and dv the same bits on
+        a second run."""
+        bf = torch.bfloat16
+        q, k, v = qkv or relbias_views(Bc, N, Hc, Dc, Vc, bf)
+        do = rand(N, Bc, Hc, Vc).to(bf).transpose(0, 1)
+        args = dict(alpha=alpha_, max_seq_len=N, num_targets=nt, **kw)
+        dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
+        poison_allocator(Bc * N * Hc * Vc * 2)
+        got = hstu_mha_dense_cuda(q, k, v, lengths, **args)
+        want = hstu_mha_dense_plain(q, k, v, lengths, **args)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == bf, f"K1-bf16 {name}: output types {got.dtype}, {want.dtype}")
+        check(torch.equal(got, hstu_mha_dense_cuda(q, k, v, lengths, **args)), f"K1-bf16 {name}: two runs differ")
+        d16_errs["K1-bf16"].append(compare(f"K1-bf16 {name}", got.float(), want.float(), dead, rel_tol=BF16_TOL))
+        del got, want
+        poison_allocator(3 * Bc * N * Hc * max(Dc, Vc) * 4)
+        grads = hstu_mha_bwd_cuda(q, k, v, lengths, do, **args)
+        again = hstu_mha_bwd_cuda(q, k, v, lengths, do, **args)
+        torch.cuda.synchronize()
+        check(torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2]),
+              f"K2-bf16 {name}: dk or dv differ between two runs")
+        del again
+        wants = hstu_mha_bwd_plain(q, k, v, lengths, do, **args)
+        for g, a, w in zip(("dq", "dk", "dv"), grads, wants):
+            check(a.dtype == w.dtype == bf, f"K2-bf16 {name} {g}: type {a.dtype}")
+            d16_errs["K2-bf16"].append(compare(f"K2-bf16 {name} {g}", a.float(), w.float(), dead, rel_tol=BF16_TOL))
+        return q, k, v, do, args
+
+    def dense_bf16_times(case, lengths, Bc, N, Hc, Dc, Vc):
+        """(K1-bf16 ms, K2-bf16 ms, plain K1 ms, plain K2 ms, K1's work, K2's
+        work) of a case; the work is (operations, bytes), 2 bytes for every
+        element of q, k, v, dO and the outputs (the live rows of the inputs,
+        every row of the outputs) and the lengths."""
+        q_, k_, v_, do_, a_ = case
+        times = (
+            device_time_ms(lambda: hstu_mha_dense_cuda(q_, k_, v_, lengths, **a_), 20),
+            device_time_ms(lambda: hstu_mha_bwd_cuda(q_, k_, v_, lengths, do_, **a_), 10),
+            device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, lengths, **a_), 3),
+            device_time_ms(lambda: hstu_mha_bwd_plain(q_, k_, v_, lengths, do_, **a_), 2),
+        )
+        live = apply_padding_guard(make_valid_attn_mask(N, lengths, num_targets=a_.get("num_targets")),
+                                   lengths).sum().item()
+        rows = lengths.sum().item() * Hc
+        w1 = (live * Hc * 2 * (Dc + Vc), 2 * (rows * (2 * Dc + Vc) + Bc * N * Hc * Vc) + 4 * Bc)
+        w2 = (live * Hc * 2 * (3 * Dc + 2 * Vc), 2 * (rows * (2 * Dc + 2 * Vc) + Bc * N * Hc * (2 * Dc + Vc)) + 4 * Bc)
+        return times + (w1, w2)
+
+    print(f"K1 and K2 on bfloat16 (K1-bf16, K2-bf16) vs their bfloat16 plain versions (outputs {BF16_TOL:.4g} of "
+          "their max):")
+    d16_case = dense_bf16_case(f"ml-3b layer 0 (B={RB}, N={RN}, H={RH}, D=V={RD}, alpha 1), bfloat16 uvqk views, "
+                               "lengths of a corpus batch", RB, RN, r_len, RH, RD, RV)
+    *d16_times, d16_w1, d16_w2 = dense_bf16_times(d16_case, r_len, RB, RN, RH, RD, RV)
+    del d16_case
+    bB, bN, bH, bD = BENCH_SHAPE
+    brng = np.random.default_rng(0)
+    bench_len = torch.as_tensor(np.clip(brng.integers(bN // 8, bN, size=(bB,)), 1, bN), dtype=torch.int32,
+                                device="cuda")
+    bench_qkv = tuple(torch.as_tensor(brng.standard_normal((bB, bN, bH, bD), np.float32) * 0.1, device="cuda")
+                      .to(torch.bfloat16) for _ in range(3))
+    bench_case = dense_bf16_case(f"bench.py's shape (B={bB}, N={bN}, H={bH}, D={bD}, alpha 1/{bD**0.5:g}), "
+                                 "lengths from default_rng(0)", bB, bN, bench_len, bH, bD, bD, alpha_=bD**-0.5,
+                                 qkv=bench_qkv)
+    *b16_times, b16_w1, b16_w2 = dense_bf16_times(bench_case, bench_len, bB, bN, bH, bD, bD)
+    del bench_case, bench_qkv
+    dense_bf16_case("lengths at the tile edges (31 .. 129), contextual rows and targets", 9, 140, fwd_edges, 2, 32,
+                    32, nt=ints(0, 20, 9).clamp(max=fwd_edges - 4), contextual_seq_len=3)
+    dense_bf16_case("a row of length 0 beside live rows", 4, 100,
+                    torch.tensor([0, 100, 0, 37], dtype=torch.int32, device="cuda"), 2, 32, 32)
+    dense_bf16_case("D=V=64, H=3, lengths at the tile edges", 9, 140, fwd_edges, 3, 64, 64)
+    dense_bf16_case("D=V=128 (one head a block), targets and contextual rows", 3, 150, ints(8, 151, 3), 4, 128, 128,
+                    nt=ints(0, 5, 3), contextual_seq_len=6)
+    dense_bf16_case("alpha 1/8, a window with full-attention rows", 4, 150, ints(20, 151, 4), 2, 32, 32,
+                    nt=ints(0, 10, 4), alpha_=0.125, max_attn_len=16, min_full_attn_seq_len=8)
+    dense_bf16_case("D=V=25 (scalar loads), non-causal", 3, 97, ints(1, 98, 3), 2, 25, 25, causal=False)
+    for label, (t1, t2, p1, p2), w1, w2 in (("ml-3b layer 0", d16_times, d16_w1, d16_w2),
+                                            (f"bench.py's shape (N={bN})", b16_times, b16_w1, b16_w2)):
+        print(f"  {label}: K1-bf16 {t1:.4f} ms (plain {p1:.4f}, bound {bound_ms(w1, PEAK_BF16_FLOPS):.4f}), "
+              f"K2-bf16 {t2:.4f} ms (plain {p2:.4f}, bound {bound_ms(w2, PEAK_BF16_FLOPS):.4f})")
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- serving phase
     all_counters = kernel_counters()
-    # the bfloat16 K6 and K7, counted apart
-    counters_bf16 = {k_: all_counters[k_] for k_ in ("K6-bf16", "K7-bf16")}
+    # the bfloat16 kernels and K7-det, counted apart
+    counters_bf16 = {k_: all_counters[k_] for k_ in OPTIONAL_KERNELS}
     counters = {k_: c for k_, c in all_counters.items() if k_ not in counters_bf16}
     main_path_launches = dict.fromkeys(all_counters, 0)
 
@@ -1990,12 +2364,7 @@ def main() -> None:
         check(len(width_) == 2 and width_[0] == width_[1], f"{name}: the encoder's widths {width_}")
         return width_[1]
 
-    sseqs = synthetic_user_sequences(num_users=16, num_items=300, max_len=60, min_len=2, seed=3)
-    sds = SequenceDataset(sseqs, 56, ignore_last_n=1)
-    small_model = dict(num_items=300, max_sequence_len=56, gr_output_length=3, item_embedding_dim=32,
-                       num_blocks=3, num_heads=2, linear_dropout_rate=0.0, dropout_rate=0.0)
-    small_cfg = research.TrainConfig(model=ModelConfig(dqk=16, dv=16, **small_model),
-                                     local_batch_size=8, num_negatives=16)
+    small_model, small_cfg, sds = small_research()
     sbatch = next(batch_iterator(sds, 8, shuffle=False))
     gpu_vs_cpu_step("research model", small_cfg, sds, sbatch, FixedNegatives, {"K6": 3, "K7": 3})
 
@@ -2042,6 +2411,69 @@ def main() -> None:
     gpu_vs_cpu_step("bfloat16 research model", small16, sds, sbatch, FixedNegatives,
                     {"K6": 2, "K7": 2, "K6-bf16": 1, "K7-bf16": 1},
                     loss_rtol=BF16_LOSS_RTOL, grad_tol=BF16_GRAD_TOL)
+
+    # -------------------------------- bias-free bfloat16 research phase
+    # the same preset with enable_relative_attention_bias=False and
+    # compute_dtype="bfloat16": block 0's attention on K1-bf16 / K2-bf16, the
+    # other 15 blocks' on K1 / K2, as the JAX package runs
+    # hstu_mha_dense_pallas on bfloat16 and float32 under attn_kernel="pallas"
+    fcfg = dataclasses.replace(rcfg, num_epochs=1, model=dataclasses.replace(
+        rm, compute_dtype="bfloat16", enable_relative_attention_bias=False))
+    print(
+        f"bias-free bfloat16 research phase: preset {RESEARCH_PRESET} with enable_relative_attention_bias=False "
+        f"and compute_dtype='bfloat16' (block 0 on K1-bf16 / K2-bf16, blocks 1..{L - 1} on K1 / K2); "
+        f"{steps_total} steps, then an eval of {eval_batches} batches, over the research phase's shards"
+    )
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    count_reset()
+    t0 = time.perf_counter()
+    fout = research.train_loop(fcfg, shard_train, shard_eval, log_every=1, max_steps=steps_total, device="cuda")
+    loop_s = time.perf_counter() - t0
+    n = counts()
+    flosses, fsteps, fmetrics = fout["losses"], fout["step_s"], fout["history"][-1]
+    check(len(flosses) == steps_total and all(math.isfinite(x) for x in flosses), f"bias-free losses: {flosses}")
+    f_median = 1e3 * median(fsteps[RESEARCH_WARMUPS:])
+    print(
+        f"  {RESEARCH_STEPS} steps after {RESEARCH_WARMUPS} warm-ups: "
+        f"{RB * RESEARCH_STEPS / sum(fsteps[RESEARCH_WARMUPS:]):.1f} examples/s, median step {f_median:.2f} ms "
+        f"(bfloat16 with the bias: {h_median:.2f}; float32: {r_median:.2f}); losses {[round(x, 4) for x in flosses]}; "
+        f"the whole loop with its eval {loop_s:.1f} s; eval HR@10 {fmetrics['hr@10']:.4f}, NDCG@10 "
+        f"{fmetrics['ndcg@10']:.4f}; launches {n}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+    )
+    want_n = {"K1": (L - 1) * (steps_total + eval_batches), "K2": (L - 1) * steps_total, "K3": 0, "K4": 0,
+              "K5": 0, "K6": 0, "K7": 0, "K1-bf16": steps_total + eval_batches, "K2-bf16": steps_total}
+    check(n == want_n, f"the bias-free bfloat16 research loop launched {n}, expected {want_n}")
+    check(sum(flosses[-3:]) <= sum(flosses[:3]) * 1.02, "the bias-free bfloat16 research loss rises")
+    ftrainer = fout["trainer"]
+    profile("bias-free bfloat16 research training step", lambda: ftrainer.train_step(rbatch))
+    del ftrainer, fout
+    torch.cuda.empty_cache()
+    # a small bias-free bfloat16 model, GPU against CPU: its embeddings, then
+    # one step's loss and gradients
+    free16 = dataclasses.replace(small16, model=dataclasses.replace(small16.model, enable_relative_attention_bias=False))
+    fm_cpu = research.ResearchTrainer(free16, sds.all_item_ids(), device="cpu").model
+    fm_gpu = copy.deepcopy(fm_cpu).to("cuda")
+    sf, _, _ = seq_features_from_row({k_: torch.as_tensor(v_) for k_, v_ in sbatch.items()},
+                                     free16.model.gr_output_length + 1)
+    embs = {}
+    before = {k_: c.count for k_, c in all_counters.items()}
+    for dev, m_ in (("cpu", fm_cpu), ("cuda", fm_gpu)):
+        ids_ = sf.past_ids.to(dev)
+        with torch.no_grad():
+            embs[dev] = m_(sf.past_lengths.to(dev), ids_, m_.get_item_embeddings(ids_),
+                           {k_: v_.to(dev) for k_, v_ in sf.past_payloads.items()}, deterministic=True).cpu()
+    counts_now = {k_: c.count - before[k_] for k_, c in all_counters.items() if c.count != before[k_]}
+    e_err = (embs["cuda"] - embs["cpu"]).abs().max().item()
+    print(f"  small bias-free bfloat16 model, embeddings GPU kernels vs CPU plain versions: max_abs_err {e_err:.3e} "
+          f"(tol {BF16_MODEL_ATOL}); launches {counts_now}")
+    check(e_err <= BF16_MODEL_ATOL and counts_now == {"K1": 2, "K1-bf16": 1},
+          "GPU and CPU bias-free bfloat16 embeddings disagree, or took other kernels")
+    del fm_cpu, fm_gpu, embs
+    gpu_vs_cpu_step("bias-free bfloat16 research model", free16, sds, sbatch, FixedNegatives,
+                    {"K1": 2, "K2": 2, "K1-bf16": 1, "K2-bf16": 1},
+                    loss_rtol=BF16_FREE_LOSS_RTOL, grad_tol=BF16_GRAD_TOL)
 
     # ------------------------------------------------------ remat phase
     # the same preset in float32, each block recomputed in the backward
@@ -2401,9 +2833,20 @@ def main() -> None:
     *m16_times, m16_w6, m16_w7 = bf16_times(m16_case, l1, ts1, mcfg.local_batch_size, N1, mm1.num_heads,
                                             mm1.dqk, mm1.dv)
     print(f"  ml-1m large preset at N={N1} in bfloat16: K6-bf16 {m16_times[0]:.4f} ms (plain {m16_times[2]:.4f}, "
-          f"bound {bound_ms(m16_w6, PEAK_TF32_FLOPS):.4f}), K7-bf16 {m16_times[1]:.4f} ms (plain "
-          f"{m16_times[3]:.4f}, bound {bound_ms(m16_w7, PEAK_TF32_FLOPS):.4f})")
+          f"bound {bound_ms(m16_w6, PEAK_BF16_FLOPS):.4f}), K7-bf16 {m16_times[1]:.4f} ms (plain "
+          f"{m16_times[3]:.4f}, bound {bound_ms(m16_w7, PEAK_BF16_FLOPS):.4f})")
     del m16_case
+    ml1m_name = f"ml-1m large preset (B={mcfg.local_batch_size}, N={N1}, H={mm1.num_heads}, D=V={mm1.dqk})"
+    for bf16_ in (False, True):
+        dq_, dk_, dv_, dpw_, dtw_, ddo_, da_ = det_case(
+            f"{ml1m_name}, a batch of the preprocessed ml-1m", mcfg.local_batch_size, N1, l1, ts1,
+            Hc=mm1.num_heads, Dc=mm1.dqk, Vc=mm1.dv, bf16=bf16_)
+        t7 = device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(dq_, dk_, dv_, l1, ts1, dpw_, dtw_, ddo_, **da_), 10)
+        t7d = device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(
+            dq_, dk_, dv_, l1, ts1, dpw_, dtw_, ddo_, deterministic=True, **da_), 10)
+        label_ = "K7-det-bf16 against K7-bf16" if bf16_ else "K7-det against K7"
+        print(f"  {ml1m_name}: {label_} {t7d:.4f} ms against {t7:.4f} ms in this call ({t7d / t7:.2f}x)")
+        del dq_, dk_, dv_, ddo_
     ck_research = os.path.join(DATA_ROOT, "ckpt", "ml-1m-research")
     torch.cuda.reset_peak_memory_stats()
     count_reset()
@@ -2434,6 +2877,29 @@ def main() -> None:
     profile("ml-1m research training step", lambda: m_trainer.train_step(row))
     del mout, saved, m_trainer
     torch.cuda.empty_cache()
+
+    # ------------------------------------------ deterministic research phase
+    # in a process of its own, the only one with CUBLAS_WORKSPACE_CONFIG set
+    # (torch.use_deterministic_algorithms needs it before the process's first
+    # cuBLAS call): every other phase's GEMMs keep cuBLAS's default workspace
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2**30
+    sys.stdout.flush()
+    try:
+        det = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "det", repr(m_med), repr(r_median)],
+            env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": DET_CUBLAS_WORKSPACE},
+            capture_output=True, text=True, timeout=DET_TIMEOUT,
+        )
+    except subprocess.TimeoutExpired:
+        fail(f"the deterministic research phase ran past {DET_TIMEOUT} s")
+    report, _, result = det.stdout.partition("DET_RESULT ")
+    print(report, end="")
+    check(det.returncode == 0 and result, f"the deterministic research phase exited {det.returncode}:\n"
+          f"{det.stderr[-3000:]}")
+    print(f"  (its own process; this one held {held:.2f} GiB of device memory meanwhile)")
+    for k_, n_ in json.loads(result.splitlines()[0]).items():
+        main_path_launches[k_] += n_
 
     # ---------------------------------------------- attention dropout phase
     # the ml-1m large preset with attn_dropout_rate 0.2 on the registry's
@@ -2817,13 +3283,13 @@ def main() -> None:
 
     # --------------------------------------------------------------- report
     peaks = {PEAK_F32_FLOPS: "float32 FMA, 67e12", PEAK_3XTF32_FLOPS: "3xTF32, 495e12 / 3",
-             PEAK_TF32_FLOPS: "TF32, 495e12 (bfloat16 operands, one exact TF32 product)"}
+             PEAK_BF16_FLOPS: "bfloat16, 989e12 (the kernel multiplies with one exact TF32 product, at half)"}
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes, peak=PEAK_F32_FLOPS):
         """``peak``: the rate the kernel's operations are held to, float32
         FMA for a kernel outside the tensor cores, a third of dense TF32 for
-        a 3xTF32 one, dense TF32 for the bfloat16 kernels' single TF32
-        products."""
+        a 3xTF32 one, dense bfloat16 for a kernel on bfloat16 operands (the
+        card's rate for the type, whatever product the kernel takes)."""
         t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
         return {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -2867,14 +3333,32 @@ def main() -> None:
         # K6 and K7 on bfloat16 at the ml-3b preset's layer 0; max_abs_err
         # is the largest of their cases' (outputs and tables alike)
         entry("hstu_mha_relbias_fwd_bf16", src + "hstu_mha_relbias_fwd.cu", tpu_rel + "172", launches["K6-bf16"],
-              max(bf16_errs["K6-bf16"]), k6b_ms, k6b_plain_ms, *k6b_work, peak=PEAK_TF32_FLOPS),
+              max(bf16_errs["K6-bf16"]), k6b_ms, k6b_plain_ms, *k6b_work, peak=PEAK_BF16_FLOPS),
         entry("hstu_mha_relbias_bwd_bf16", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7-bf16"],
-              max(bf16_errs["K7-bf16"]), k7b_ms, k7b_plain_ms, *k7b_work, peak=PEAK_TF32_FLOPS),
+              max(bf16_errs["K7-bf16"]), k7b_ms, k7b_plain_ms, *k7b_work, peak=PEAK_BF16_FLOPS),
+        # K1 and K2 on bfloat16 at the ml-3b preset's layer 0 (the bias-free
+        # model's first block)
+        entry("hstu_mha_fwd_bf16", src + "hstu_mha_fwd.cu", tpu + "163", launches["K1-bf16"],
+              max(d16_errs["K1-bf16"]), d16_times[0], d16_times[2], *d16_w1, peak=PEAK_BF16_FLOPS),
+        entry("hstu_mha_bwd_fused_bf16", src + "hstu_mha_bwd_fused.cu", tpu + "403", launches["K2-bf16"],
+              max(d16_errs["K2-bf16"]), d16_times[1], d16_times[3], *d16_w2, peak=PEAK_BF16_FLOPS),
+        # K7-det: K7's function, so K7's work and bound, at the research
+        # shape (float32) and the ml-3b layer 0 (bfloat16)
+        entry("hstu_mha_relbias_bwd_det", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7-det"],
+              max(det_errs["K7-det"]), k7det_ms, k7_plain_ms, *k7_work, peak=PEAK_3XTF32_FLOPS),
+        entry("hstu_mha_relbias_bwd_det_bf16", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298",
+              launches["K7-det-bf16"], max(det_errs["K7-det-bf16"]), k7db_ms, k7b_plain_ms, *k7b_work,
+              peak=PEAK_BF16_FLOPS),
     ]
     shapes = [f"serving N={N_full}", f"M-FALCON M={CHUNK}", f"training N={N_tr}",
               f"uih {DET_UIH} N={N_det}", f"uih {DET_UIH} N={N_det}",
               f"research B={RB} N={RN}", f"research B={RB} N={RN}",
-              f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16"]
+              f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16",
+              f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16",
+              f"research B={RB} N={RN}", f"research layer 0 B={RB} N={RN} bfloat16"]
+    check(all(kr["launches"] > 0 for kr in kernels),
+          "a kernel of the main paths was launched no time: "
+          + ", ".join(kr["name"] for kr in kernels if kr["launches"] == 0))
     for kr, shape in zip(kernels, shapes):
         print(
             f"  {kr['name']}: {kr['ms']:.4f} ms at {shape}, bound {kr['bound_ms']:.4f} ms "
@@ -2896,5 +3380,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["rank"]:
         rank_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["det"]:
+        det_main(sys.argv[2:])
     else:
         main()

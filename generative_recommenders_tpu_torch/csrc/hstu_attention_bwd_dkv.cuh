@@ -3,7 +3,16 @@
 // dq, dk and dv) and of K4 (hstu_mha_bwd_dkv.cu: dk and dv; with K3 the
 // deterministic split backward). Replaces the Pallas TPU kernels
 // `_bwd_fused_kernel_rkv` and `_bwd_dkv_kernel` of
-// generative_recommenders_tpu/ops/pallas/hstu_attention.py.
+// generative_recommenders_tpu/ops/pallas/hstu_attention.py. K2 also on
+// bfloat16 (E = __nv_bfloat16; K4's bfloat16 instance is not built), with
+// the TPU kernel's rounding points (`_bwd_fused_kernel_rkv`): Q enters as
+// bfloat16(alpha q) where alpha != 1 and dO as bfloat16(dO / norm), so S,
+// dP and dS take no alpha and no 1 / norm; P is rounded to bfloat16 before
+// dV = P^T dO and dS before dK = dS^T (alpha Q) and dQ = dS K; dq takes one
+// alpha as it is added to its float32 buffer, which a second kernel writes
+// as bfloat16; dk and dv are written as bfloat16. The bfloat16 tiles are
+// converted to float32 on their way into shared memory (synchronously), and
+// the products are one exact TF32 `mma` each (tf32_mma.cuh).
 //
 // Per head, with S recomputed from Q and K (the forward saves only q, k, v):
 //
@@ -58,6 +67,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -73,14 +83,17 @@ constexpr int kMaxShared = 232448;
 constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;
 
+// E: float, or __nv_bfloat16; typed pointers (untyped ones cast in the
+// kernel cost K7 120 more bytes of spills).
+template <typename E>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* dout;
-  float* dq;  // K2: contiguous [B, N, H, D], a zeroed accumulation buffer; K4: null
-  float* dk;  // contiguous [B, N, H, D]
-  float* dv;  // contiguous [B, N, H, V]
+  const E* q;
+  const E* k;
+  const E* v;
+  const E* dout;
+  float* dq;  // K2: contiguous [B, N, H, D], a zeroed float32 accumulation buffer; K4: null
+  E* dk;      // contiguous [B, N, H, D]
+  E* dv;      // contiguous [B, N, H, V]
   const int* lengths;      // int32 [B]
   const int* num_targets;  // int32 [B] or null (no targets)
   int B, N, H, D, V;
@@ -110,10 +123,19 @@ __host__ __device__ constexpr int smem_bytes() {
   return 4 * ((BK + 2 * BQ) * (W + 8 + WV + 8) + 2 * BQ * (BK + 8) + BQ / 16 + BK / 8);
 }
 
-// W: the padded head width; FUSED: K2 (dQ too).
-template <int W, bool FUSED>
-__global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
+// W: the padded head width; FUSED: K2 (dQ too); E: the type of q, k, v, dO,
+// dk and dv (float, or __nv_bfloat16).
+template <int W, bool FUSED, typename E>
+__global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params<E> p) {
   using T = Tiling<W>;
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  // float32: alpha and 1 / norm applied to S, dP and dV on use; bfloat16:
+  // folded into the Q and dO tiles, rounded, as the TPU kernel rounds alpha q
+  // and dO / norm (each scalar itself in bfloat16, a weakly typed Python
+  // float)
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
+  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
   constexpr int BQ = T::BQ, BK = T::BK, NG = T::NG;
   constexpr int WV = W < 128 ? W : 128;
   constexpr int PK = W + 8;   // pitch of the Q and K tiles
@@ -163,10 +185,10 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
     for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
   if (col0 < length) {
-    const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-    const float* vb = p.v + b * p.v_sb + h * p.v_sh;
-    const float* ob = p.dout + b * p.do_sb + h * p.do_sh;
+    const E* qb = p.q + b * p.q_sb + h * p.q_sh;
+    const E* kb = p.k + b * p.k_sb + h * p.k_sh;
+    const E* vb = p.v + b * p.v_sb + h * p.v_sh;
+    const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
     const bool causal = p.causal != 0;
     const int ctx = p.contextual_seq_len;
     // causal: a row past the contextual rows sees no column past itself, so
@@ -180,8 +202,14 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
     // the step's Q and dO tiles: query rows r0 .. + BQ into stage `st`
     auto load_step = [&](int r0, int st) {
       float* Q = stages + st * STAGE;
-      load_tile<W, PK, BQ, kThreads>(Q, qb, p.q_sn, r0, length, p.D, p.vec_q != 0);
-      load_tile<WV, PV, BQ, kThreads>(Q + BQ * PK, ob, p.do_sn, r0, length, p.V, p.vec_do != 0);
+      if constexpr (kBf16) {  // alpha q and dO / norm, rounded to bfloat16
+        load_tile<W, PK, BQ, kThreads>(Q, qb, p.q_sn, r0, length, p.D, p.vec_q != 0, q_scale);
+        load_tile<WV, PV, BQ, kThreads>(Q + BQ * PK, ob, p.do_sn, r0, length, p.V, p.vec_do != 0,
+                                        do_scale);
+      } else {
+        load_tile<W, PK, BQ, kThreads>(Q, qb, p.q_sn, r0, length, p.D, p.vec_q != 0);
+        load_tile<WV, PV, BQ, kThreads>(Q + BQ * PK, ob, p.do_sn, r0, length, p.V, p.vec_do != 0);
+      }
     };
     load_tile<W, PK, BK, kThreads>(Ks, kb, p.k_sn, col0, length, p.D, p.vec_k != 0);
     load_tile<WV, PV, BK, kThreads>(Vs, vb, p.v_sn, col0, length, p.V, p.vec_v != 0);
@@ -233,13 +261,13 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
           for (int ks = 0; ks < W / 8; ++ks) {
             const FragA a = load_a(Qs, PK, wr * 16, ks * 8);
 #pragma unroll
-            for (int j = 0; j < NA; ++j) mma3(s[j], a, load_b_nk(Ks, PK, (wc * NA + j) * 8, ks * 8));
+            for (int j = 0; j < NA; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, PK, (wc * NA + j) * 8, ks * 8));
           }
 #pragma unroll
           for (int ks = 0; ks < WV / 8; ++ks) {
             const FragA a = load_a(dOs, PV, wr * 16, ks * 8);
 #pragma unroll
-            for (int j = 0; j < NA; ++j) mma3(dp[j], a, load_b_nk(Vs, PV, (wc * NA + j) * 8, ks * 8));
+            for (int j = 0; j < NA; ++j) mma<kBf16>(dp[j], a, load_b_nk(Vs, PV, (wc * NA + j) * 8, ks * 8));
           }
           if (lane == 0) row_live[wr] = live;
         }
@@ -250,10 +278,14 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
           for (int c = 0; c < 4; ++c) {
             pv[c] = ds[c] = 0.f;
             if ((ok_bits >> (4 * j + c)) & 1u) {
-              const float x = s[j][c] * p.alpha;
+              const float x = s[j][c] * s_alpha;
               const float sig = __fdividef(1.f, 1.f + __expf(-x));
               pv[c] = x * sig;
-              ds[c] = dp[j][c] * p.inv_norm * sig * (1.f + x * (1.f - sig));
+              ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
+            }
+            if constexpr (kBf16) {  // the products take P and dS in bfloat16
+              pv[c] = round_bf16(pv[c]);
+              ds[c] = round_bf16(ds[c]);
             }
           }
           const int at = (wr * 16 + g) * PS + (wc * NA + j) * 8 + 2 * t;
@@ -298,7 +330,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
           for (int ks = next_step(0); ks < row_steps; ks = next_step(ks + 1)) {
             const FragA a = load_a_t(A, PS, am * 16, ks * 8);
 #pragma unroll
-            for (int n = 0; n < NG; ++n) mma3(part[n], a, load_b_kn(Bm, pitch, ks * 8, n0 + n * 8));
+            for (int n = 0; n < NG; ++n) mma<kBf16>(part[n], a, load_b_kn(Bm, pitch, ks * 8, n0 + n * 8));
           }
 #pragma unroll
           for (int n = 0; n < NG; ++n)
@@ -323,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
           const FragA a = load_a(dSs, PS, wr * 16, ks * 8);
 #pragma unroll
           for (int j = 0; j < NQ; ++j)
-            mma3(dq[j], a, load_b_kn<true>(Ks, PK, ks * 8, (wc * NQ + j) * 8));
+            mma<kBf16>(dq[j], a, load_b_kn<true>(Ks, PK, ks * 8, (wc * NQ + j) * 8));
         }
         // dead rows keep the buffer's zeros. Where D is a multiple of 4 a
         // lane pair trades halves, so that each lane adds four floats of one
@@ -365,33 +397,36 @@ __global__ void __launch_bounds__(kThreads, 1) dkv_kernel(Params p) {
     const int tile = (ac * GB + gi) * NG;
     const bool is_dv = tile < NVT;
     const int n0 = 8 * (is_dv ? tile : tile - NVT);
-    float* out = is_dv ? p.dv : p.dk;
+    E* out = is_dv ? p.dv : p.dk;
     const int width = is_dv ? p.V : p.D;
-    const float scale = is_dv ? p.inv_norm : p.alpha;
+    const float scale = is_dv ? dp_scale : s_alpha;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int col = col0 + am * 16 + g + 8 * i;
       if (col >= p.N) continue;
-      float* dst = out + (((long long)b * p.N + col) * p.H + h) * width;
+      E* dst = out + (((long long)b * p.N + col) * p.H + h) * width;
 #pragma unroll
       for (int n = 0; n < NG; ++n) {
         const int d = n0 + n * 8 + 2 * t;
         const float x0 = scale * acc[gi * NG + n][2 * i], x1 = scale * acc[gi * NG + n][2 * i + 1];
         if (d + 1 < width && width % 2 == 0) {
-          *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
+          if constexpr (kBf16)
+            *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(x0, x1);
+          else
+            *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
         } else {
-          if (d < width) dst[d] = x0;
-          if (d + 1 < width) dst[d + 1] = x1;
+          if (d < width) dst[d] = E(x0);
+          if (d + 1 < width) dst[d + 1] = E(x1);
         }
       }
     }
   }
 }
 
-template <int W, bool FUSED>
-cudaError_t launch_w(const Params& p, cudaStream_t stream) {
+template <int W, bool FUSED, typename E>
+cudaError_t launch_w(const Params<E>& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes<W>();
-  auto kernel = dkv_kernel<W, FUSED>;
+  auto kernel = dkv_kernel<W, FUSED, E>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
@@ -404,16 +439,16 @@ cudaError_t launch_w(const Params& p, cudaStream_t stream) {
 // Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
 // 256 and V at most 128 (the Python wrapper checks both, and decides the
 // `vec_*` flags); both are padded to the next of 32, 64, 128 (256 for D).
-template <bool FUSED>
-int launch(const Params& p, void* stream) {
+template <bool FUSED, typename E>
+int launch(const Params<E>& p, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.D > 256 || p.V < 1 || p.V > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = p.D > p.V ? p.D : p.V;
-  if (w <= 32) return (int)launch_w<32, FUSED>(p, s);
-  if (w <= 64) return (int)launch_w<64, FUSED>(p, s);
-  if (w <= 128) return (int)launch_w<128, FUSED>(p, s);
-  return (int)launch_w<256, FUSED>(p, s);
+  if (w <= 32) return (int)launch_w<32, FUSED, E>(p, s);
+  if (w <= 64) return (int)launch_w<64, FUSED, E>(p, s);
+  if (w <= 128) return (int)launch_w<128, FUSED, E>(p, s);
+  return (int)launch_w<256, FUSED, E>(p, s);
 }
 
 }  // namespace hstu_bwd_dkv

@@ -2,11 +2,20 @@
 // in and out: the body of K3 (hstu_mha_bwd_dq.cu), dQ alone, which with K4
 // (hstu_mha_bwd_dkv.cu) makes the deterministic split backward. Replaces the
 // Pallas TPU kernel `_bwd_dq_kernel` of
-// generative_recommenders_tpu/ops/pallas/hstu_attention.py.
+// generative_recommenders_tpu/ops/pallas/hstu_attention.py. With RELBIAS it
+// is also the dq pass of K7-det (hstu_mha_relbias_bwd.cu), the fixed-order
+// backward of `_bwd_kernel_relbias` (hstu_attention_relbias.py), which keeps
+// dq in VMEM over a sequential grid: S gains the relative bias, per (row,
+// column) `pos_w[pos_index] + ts_w[ts_bucket]` of hstu_attention.cuh, with
+// both tables and the batch row's timestamps in shared memory as K6 holds
+// them; in float32 and on bfloat16 q, k, v and dO (T = __nv_bfloat16, K7's
+// bfloat16 rounding points: dO enters as bfloat16(dO / norm), dS is rounded
+// to bfloat16 before dQ = dS K, whose float32 sum is written as bfloat16;
+// products one exact TF32 `mma` each).
 //
 // Per head, with S recomputed from Q and K (the forward saves only q, k, v):
 //
-//   S = alpha Q K^T   sig = sigmoid(S)   dOn = dO / norm
+//   S = alpha Q K^T (+ bias)   sig = sigmoid(S)   dOn = dO / norm
 //   dS = (dOn V^T) * sig (1 + S (1 - sig)) * mask   dQ = alpha dS K
 //
 // with the mask `valid_elem` of hstu_attention.cuh, length guard on, so rows
@@ -48,10 +57,10 @@
 // columns of a step, so that Q, dO, two stages of K and V and dS fit a
 // block's shared memory (at width 256 a step takes 32 key columns, else 64:
 // at width 128 64 columns were faster on the H100 than 32, and than 32 rows
-// by 64 columns or 128 rows by 32); heads are not grouped. The element type
-// T of q, k, v, dO and dq is a parameter of the body; only float is
-// instantiated (bf16 would add its fragment loads and `mma.m16n8k16`
-// products beside tf32_mma.cuh's, and a load_tile of 2-byte elements).
+// by 64 columns or 128 rows by 32); heads are not grouped (with RELBIAS
+// the bias is rebuilt per head: the simple first form of K7-det's dq pass).
+// The element type T of q, k, v, dO and dq is a parameter of the body: float,
+// and __nv_bfloat16 for K7-det's bfloat16 dq pass.
 #pragma once
 
 #include <cstdint>
@@ -88,6 +97,11 @@ struct Params {
   float alpha, inv_norm;
   int causal, max_attn_len, contextual_seq_len, min_full_attn_seq_len;
   int vec_q, vec_k, vec_v, vec_do;  // rows readable in 16-byte pieces
+  // the relative bias (RELBIAS) only
+  const float* ts = nullptr;     // float32 [B, N] timestamps, contiguous
+  const float* pos_w = nullptr;  // float32 [2 Nm - 1]
+  const float* ts_w = nullptr;   // float32 [NB + 1]
+  int Nm = 0, NB = 0;
 };
 
 // Per padded width W: query rows per block (BQ), key columns per step (BK),
@@ -100,17 +114,25 @@ template <> struct Tiling<256> { static constexpr int BQ = 64, BK = 32, NG = 4; 
 
 // Q [BQ][W + 8] and dO [BQ][WV + 8], resident; two stages of K [BK][W + 8]
 // and V [BK][WV + 8]; dS [BQ][BK + 8]; the step's live flags of the 16-row
-// groups of the query tile.
+// groups of the query tile; with the relative bias `tables` more floats (both
+// tables and the batch row's timestamps).
 template <int W>
-__host__ __device__ constexpr int smem_bytes() {
+__host__ __device__ constexpr int smem_bytes(int tables = 0) {
   constexpr int WV = W < 128 ? W : 128, BQ = Tiling<W>::BQ, BK = Tiling<W>::BK;
-  return 4 * ((BQ + 2 * BK) * (W + 8 + WV + 8) + BQ * (BK + 8) + BQ / 16);
+  return 4 * ((BQ + 2 * BK) * (W + 8 + WV + 8) + BQ * (BK + 8) + BQ / 16 + tables);
 }
 
-// T: the element type; W: the padded head width.
-template <typename T, int W>
+// T: the element type; W: the padded head width; RELBIAS: K7-det's dq pass,
+// the relative bias added to S.
+template <typename T, int W, bool RELBIAS>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
-  static_assert(std::is_same<T, float>::value, "only float32 has fragment loads and products");
+  constexpr bool kBf16 = !std::is_same<T, float>::value;
+  // float32: alpha and 1 / norm applied to S and dP on use; bfloat16: folded
+  // into the Q and dO tiles, rounded, as the TPU kernels round alpha q and
+  // dO / norm
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
+  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
   using Tl = Tiling<W>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, NG = Tl::NG;
   constexpr int WV = W < 128 ? W : 128;
@@ -132,6 +154,9 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
   float* stages = dOs + BQ * PV;   // 2 x { K [BK][PK], V [BK][PV] }
   float* dSs = stages + 2 * STAGE;  // [BQ][PS]
   int* row_live = reinterpret_cast<int*>(dSs + BQ * PS);  // [RG]
+  float* pos_s = reinterpret_cast<float*>(row_live + RG);  // RELBIAS: pos_w [2 Nm - 1]
+  float* ts_s = pos_s + 2 * p.Nm - 1;                       // RELBIAS: ts_w [NB + 1]
+  float* tk_s = ts_s + p.NB + 1;                            // RELBIAS: the row's timestamps [N]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -171,12 +196,33 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
       load_tile<W, PK, BK, kThreads>(K, kb, p.k_sn, c0, length, p.D, p.vec_k != 0);
       load_tile<WV, PV, BK, kThreads>(K + BK * PK, vb, p.v_sn, c0, length, p.V, p.vec_v != 0);
     };
-    load_tile<W, PK, BQ, kThreads>(Qs, qb, p.q_sn, row0, length, p.D, p.vec_q != 0);
-    load_tile<WV, PV, BQ, kThreads>(dOs, ob, p.do_sn, row0, length, p.V, p.vec_do != 0);
+    if constexpr (kBf16) {  // alpha q and dO / norm, rounded to bfloat16
+      load_tile<W, PK, BQ, kThreads>(Qs, qb, p.q_sn, row0, length, p.D, p.vec_q != 0, q_scale);
+      load_tile<WV, PV, BQ, kThreads>(dOs, ob, p.do_sn, row0, length, p.V, p.vec_do != 0, do_scale);
+    } else {
+      load_tile<W, PK, BQ, kThreads>(Qs, qb, p.q_sn, row0, length, p.D, p.vec_q != 0);
+      load_tile<WV, PV, BQ, kThreads>(dOs, ob, p.do_sn, row0, length, p.V, p.vec_do != 0);
+    }
     load_step(0, 0);
     cp_async_commit();
     // a flag holds step + 1 where the step has a live element in the row group
     if (threadIdx.x < RG) row_live[threadIdx.x] = 0;
+    // RELBIAS: the tables and the key-side timestamps, in place after the
+    // first step's barrier; the thread's two rows read the next position's
+    // timestamp (the last position's at the last row), whether or not it lies
+    // past the row's length
+    float tq[2] = {0.f, 0.f};
+    if constexpr (RELBIAS) {
+      const float* tsb = p.ts + (long long)b * p.N;
+      for (int idx = threadIdx.x; idx < 2 * p.Nm - 1; idx += kThreads) pos_s[idx] = p.pos_w[idx];
+      for (int idx = threadIdx.x; idx <= p.NB; idx += kThreads) ts_s[idx] = p.ts_w[idx];
+      for (int idx = threadIdx.x; idx < kv_end; idx += kThreads) tk_s[idx] = tsb[idx];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r_first + g + 8 * i;
+        if (row < p.N) tq[i] = tsb[min(row + 1, p.N - 1)];
+      }
+    }
 
     for (int step = 0, col0 = 0; col0 < kv_end; ++step, col0 += BK) {
       const float* Ks = stages + (step & 1) * STAGE;
@@ -219,13 +265,13 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
           for (int ks = 0; ks < W / 8; ++ks) {
             const FragA a = load_a(Qs, PK, wr * 16, ks * 8);
 #pragma unroll
-            for (int j = 0; j < NA; ++j) mma3(s[j], a, load_b_nk(Ks, PK, (wc * NA + j) * 8, ks * 8));
+            for (int j = 0; j < NA; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, PK, (wc * NA + j) * 8, ks * 8));
           }
 #pragma unroll
           for (int ks = 0; ks < WV / 8; ++ks) {
             const FragA a = load_a(dOs, PV, wr * 16, ks * 8);
 #pragma unroll
-            for (int j = 0; j < NA; ++j) mma3(dp[j], a, load_b_nk(Vs, PV, (wc * NA + j) * 8, ks * 8));
+            for (int j = 0; j < NA; ++j) mma<kBf16>(dp[j], a, load_b_nk(Vs, PV, (wc * NA + j) * 8, ks * 8));
           }
           if (lane == 0) row_live[wr] = live;
         }
@@ -236,10 +282,18 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
           for (int c = 0; c < 4; ++c) {
             ds[c] = 0.f;
             if ((ok_bits >> (4 * j + c)) & 1u) {
-              const float x = s[j][c] * p.alpha;
+              float x = s[j][c] * s_alpha;
+              if constexpr (RELBIAS) {
+                const int row = r_first + g + 8 * (c >> 1);
+                const int col = col0 + (wc * NA + j) * 8 + 2 * t + (c & 1);
+                x = fmaf(s[j][c], s_alpha,
+                         pos_s[hstu::pos_index(row, col, p.Nm)] +
+                             ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)]);
+              }
               const float sig = __fdividef(1.f, 1.f + __expf(-x));
-              ds[c] = dp[j][c] * p.inv_norm * sig * (1.f + x * (1.f - sig));
+              ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
             }
+            if constexpr (kBf16) ds[c] = round_bf16(ds[c]);  // dQ = dS K takes dS in bfloat16
           }
           const int at = (wr * 16 + g) * PS + (wc * NA + j) * 8 + 2 * t;
           *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
@@ -269,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
           for (int ks = 0; ks < my_col_steps; ++ks) {
             const FragA a = load_a(dSs, PS, wr * 16, ks * 8);
 #pragma unroll
-            for (int n = 0; n < NG; ++n) mma3(part[n], a, load_b_kn<true>(Ks, PK, ks * 8, d0 + n * 8));
+            for (int n = 0; n < NG; ++n) mma<kBf16>(part[n], a, load_b_kn<true>(Ks, PK, ks * 8, d0 + n * 8));
           }
 #pragma unroll
           for (int n = 0; n < NG; ++n)
@@ -294,19 +348,23 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
       const float x0 = in ? p.alpha * acc[j][2 * i] : 0.f;
       const float x1 = in ? p.alpha * acc[j][2 * i + 1] : 0.f;
       if (d + 1 < p.D && p.D % 2 == 0) {
-        *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
+        if constexpr (kBf16)
+          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(x0, x1);
+        else
+          *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
       } else {
-        if (d < p.D) dst[d] = x0;
-        if (d + 1 < p.D) dst[d + 1] = x1;
+        if (d < p.D) dst[d] = T(x0);
+        if (d + 1 < p.D) dst[d + 1] = T(x1);
       }
     }
   }
 }
 
-template <typename T, int W>
+template <typename T, int W, bool RELBIAS>
 cudaError_t launch_w(const Params<T>& p, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<W>();
-  auto kernel = dq_kernel<T, W>;
+  const int smem = smem_bytes<W>(RELBIAS ? 2 * p.Nm - 1 + p.NB + 1 + p.N : 0);
+  if (smem > kMaxShared) return cudaErrorInvalidValue;
+  auto kernel = dq_kernel<T, W, RELBIAS>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
@@ -319,16 +377,24 @@ cudaError_t launch_w(const Params<T>& p, cudaStream_t stream) {
 // Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
 // 256 and V at most 128 (the Python wrapper checks both, and decides the
 // `vec_*` flags); both are padded to the next of 32, 64, 128 (256 for D).
-template <typename T>
+// RELBIAS (K7-det's dq pass) takes K7's widths, D and V at most 64, and needs
+// both tables and the row's timestamps to fit the block's shared memory
+// beside the tiles.
+template <typename T, bool RELBIAS = false>
 int launch(const Params<T>& p, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.D > 256 || p.V < 1 || p.V > 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = p.D > p.V ? p.D : p.V;
-  if (w <= 32) return (int)launch_w<T, 32>(p, s);
-  if (w <= 64) return (int)launch_w<T, 64>(p, s);
-  if (w <= 128) return (int)launch_w<T, 128>(p, s);
-  return (int)launch_w<T, 256>(p, s);
+  if constexpr (RELBIAS) {
+    if (w > 64 || p.Nm < 1 || p.NB < 0) return (int)cudaErrorInvalidValue;
+    return (int)(w <= 32 ? launch_w<T, 32, true>(p, s) : launch_w<T, 64, true>(p, s));
+  } else {
+    if (w <= 32) return (int)launch_w<T, 32, false>(p, s);
+    if (w <= 64) return (int)launch_w<T, 64, false>(p, s);
+    if (w <= 128) return (int)launch_w<T, 128, false>(p, s);
+    return (int)launch_w<T, 256, false>(p, s);
+  }
 }
 
 }  // namespace hstu_bwd_dq

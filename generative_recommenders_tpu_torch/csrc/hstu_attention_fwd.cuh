@@ -1,11 +1,13 @@
 // HSTU attention forward for Hopper (sm_90a) on the tensor cores, float32 in
 // and out: the shared body of the dense kernel K1 (hstu_mha_fwd.cu) and the
-// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu); K6 also bfloat16 in and
-// out (T = __nv_bfloat16), with the TPU kernel's rounding: S and the sum
-// P V in float32, P rounded to bfloat16 before P V, O written as bfloat16.
-// The bfloat16 tiles are converted to float32 on their way into shared
-// memory (synchronously, `load_tile`'s bfloat16 overload), and every product
-// is one exact TF32 `mma` (`mma<true>`, tf32_mma.cuh) instead of three.
+// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu); both also bfloat16 in
+// and out (E = __nv_bfloat16), with the TPU kernels' rounding: alpha Q
+// rounded to bfloat16 (where alpha != 1), S and the sum P V in float32, P
+// rounded to bfloat16 before P V, O = (P V) / norm written as bfloat16. The
+// bfloat16 tiles are converted to float32 on their way into shared memory
+// (synchronously, `load_tile`'s bfloat16 overload, which also forms alpha Q),
+// and every product is one exact TF32 `mma` (`mma<true>`, tf32_mma.cuh)
+// instead of three.
 //
 //   S = alpha Q K^T (+ bias)   P = silu(S) * valid_mask   O = (P V) / norm
 //
@@ -77,7 +79,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxShared = 232448;
 
 struct Params {
-  // float32, or bfloat16 for K6's bfloat16 kernel
+  // float32, or bfloat16 for the bfloat16 kernels
   const void* q;
   const void* k;
   const void* v;
@@ -128,7 +130,7 @@ __device__ __forceinline__ FragA frag_a_p(const float (&s)[4]) {
 }
 
 // W: the padded head width; RELBIAS: K6, the relative bias added to S; E:
-// the type of q, k, v and out (float, or __nv_bfloat16 for K6).
+// the type of q, k, v and out (float, or __nv_bfloat16).
 template <int W, bool RELBIAS, typename E>
 __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kernel(Params p) {
   using T = Tiling<W>;
@@ -175,6 +177,11 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
   const bool plain_causal =
       causal && p.contextual_seq_len == 0 && nt == 0 && p.max_attn_len == 0;
   const int row_lo = q0 + warp * 16 + g;  // the thread's rows: row_lo, row_lo + 8
+  // bfloat16: alpha rides the Q tile, rounded to bfloat16 as the TPU kernel
+  // rounds alpha q (the scalar itself in bfloat16, as JAX's weakly typed
+  // Python float); S then takes no alpha
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
+  const float s_alpha = kBf16 ? 1.f : p.alpha;
   // `valid_elem` (length guard on) cut into what depends on the row alone,
   // once per block, and what depends on the column: contextual rows and
   // columns folded onto 0, both clipped at the target boundary
@@ -213,9 +220,14 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
       load_tile<WV, PV, BK, kThreads>(K + BK * PQ, vb + hh * p.v_sh, p.v_sn, kt * BK, length,
                                       p.V, p.vec_v != 0);
     };
-    for (int hh = 0; hh < nh; ++hh)
-      load_tile<W, PQ, kRows, kThreads>(Qs + hh * kRows * PQ, qb + hh * p.q_sh, p.q_sn, q0, p.N,
-                                        p.D, p.vec_q != 0);
+    for (int hh = 0; hh < nh; ++hh) {
+      if constexpr (kBf16)  // alpha q, rounded to bfloat16
+        load_tile<W, PQ, kRows, kThreads>(Qs + hh * kRows * PQ, qb + hh * p.q_sh, p.q_sn, q0, p.N,
+                                          p.D, p.vec_q != 0, q_scale);
+      else
+        load_tile<W, PQ, kRows, kThreads>(Qs + hh * kRows * PQ, qb + hh * p.q_sh, p.q_sn, q0, p.N,
+                                          p.D, p.vec_q != 0);
+    }
     load_step(0, 0, 0);
     cp_async_commit();
     if (RELBIAS) {  // visible after the barrier before the first key tile's bias
@@ -336,8 +348,8 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
 #pragma unroll
               for (int c = 0; c < 4; ++c) {
                 const int e = 4 * j + c;
-                const float x = RELBIAS ? fmaf(s[j][c], p.alpha, bias[RELBIAS ? e : 0])
-                                        : s[j][c] * p.alpha;
+                const float x = RELBIAS ? fmaf(s[j][c], s_alpha, bias[RELBIAS ? e : 0])
+                                        : s[j][c] * s_alpha;
                 s[j][c] = __fdividef(x, 1.f + __expf(-x));
               }
             if (!interior) {
@@ -441,7 +453,7 @@ __host__ inline bool vec16(const void* ptr, long long sb, long long sn, long lon
 // Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
 // 256 and V at most 128 (the Python wrapper checks both); both are padded to
 // the next of 32, 64, 128 (256 for D). RELBIAS also needs both tables to fit
-// the block's shared memory beside the tiles. E: float, or __nv_bfloat16 (K6).
+// the block's shared memory beside the tiles. E: float, or __nv_bfloat16.
 template <bool RELBIAS, typename E = float>
 int launch(Params p, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;

@@ -15,9 +15,9 @@ extern "C" int hstu_mha_bwd_dkv(
     long long v_sb, long long v_sn, long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len, int contextual_seq_len,
     int min_full_attn_seq_len, int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
-  hstu_bwd_dkv::Params p{q, k, v, dout, dq, dk, dv, lengths, num_targets, B, N, H, D, V,
-                         q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, do_sb, do_sn, do_sh,
-                         alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
-                         min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do};
-  return hstu_bwd_dkv::launch</*FUSED=*/false>(p, stream);
+  hstu_bwd_dkv::Params<float> p{q, k, v, dout, dq, dk, dv, lengths, num_targets, B, N, H, D, V,
+                                q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, do_sb, do_sn, do_sh,
+                                alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
+                                min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do};
+  return hstu_bwd_dkv::launch</*FUSED=*/false, float>(p, stream);
 }

@@ -83,10 +83,31 @@
 // bfloat16; dq is summed in a zeroed float32 buffer, as in float32, and a
 // second kernel writes it as bfloat16. alpha must be 1 (the research model's;
 // the TPU kernel rounds alpha q to bfloat16, which this kernel does not).
+//
+// K7-det (`hstu_mha_relbias_bwd_det`, and `_bf16` on bfloat16 at the same
+// rounding points) computes the same function and sums every output in one
+// fixed order, so that it gives the same bits on every run, as the TPU
+// kernel does by keeping dq and both table sums in VMEM over a sequential
+// grid. A sum across blocks needs atomics or a second pass; the atomics are
+// what change the order, so it takes passes:
+// * dq: K3's body (hstu_attention_bwd_dq.cuh) with the relative bias, one
+//   block per (64-row query tile, head, batch row), Q and dO resident, dQ in
+//   registers over a walk of the key tiles in order. It recomputes S and dP,
+//   which this kernel computes too: three products more per live tile pair.
+// * dk, dv and the tables: this kernel with DET set, which computes no dQ.
+//   Each block writes the table entries it holds (zeros elsewhere) to its
+//   own row of a float32 [blocks, (2 Nm - 1) + (NB + 1)] buffer instead of
+//   adding them with atomics; diagonals clipped to one entry (N > Nm) are
+//   summed by one thread in order.
+// * a third kernel adds the blocks' rows entry by entry in block order.
+// Bound: K7's (the same function; on bfloat16 K7-bf16's, its operations at
+// the card's bfloat16 rate, 989 TFLOP/s); what K7-det takes beyond K7's time
+// is the cost of the fixed order.
 #include <cstdint>
 #include <type_traits>
 
 #include "hstu_attention.cuh"
+#include "hstu_attention_bwd_dq.cuh"
 #include "tf32_mma.cuh"
 
 namespace hstu_relbias_bwd {
@@ -128,6 +149,9 @@ struct Params {
   int causal, max_attn_len, contextual_seq_len, min_full_attn_seq_len;
   int Nm, NB;
   int vec_q, vec_k, vec_v, vec_do;  // rows readable in 16-byte pieces
+  // DET: float32 [blocks, (2 Nm - 1) + (NB + 1)], each block's table sums
+  // (dq is null then)
+  float* partial = nullptr;
 };
 
 // K and V of HG heads, two (Q, dO) buffers, P, dS and dS summed over heads,
@@ -139,11 +163,11 @@ __host__ __device__ constexpr int smem_floats(int w, int hg, int n_pos, int n_ts
 
 // Rows [r0, r0 + 64) of one head of a strided [.., N, H, w] tensor into a
 // [64][W + 8] shared tile, asynchronously; zero at rows >= lim and in the pad
-// columns [w, W). A float32 tile is copied as it is: `scale` is the bfloat16
-// overload's and must be 1 here.
+// columns [w, W). A float32 tile is copied as it is: 1 / norm is applied to
+// dP in float32, so this overload takes no scale.
 template <int W>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn,
-                                          int r0, int lim, int w, bool vec, float scale = 1.f) {
+                                          int r0, int lim, int w, bool vec) {
   constexpr int P = W + kPad;
   if (vec) {
     constexpr int C4 = W / 4;
@@ -167,27 +191,38 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
 template <int W>
 __device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, long long sn,
                                           int r0, int lim, int w, bool vec, float scale = 1.f) {
-  constexpr int P = W + kPad;
-  hstu_tf32::load_tile<W, P, kT, kThreads>(dst, src, sn, r0, lim, w, vec);
-  if (scale != 1.f) {
-    __syncthreads();  // the block's stores are whole before any thread rescales
-    for (int idx = threadIdx.x; idx < kT * W; idx += kThreads) {
-      float& x = dst[idx / W * P + idx % W];
-      x = round_bf16(x * scale);
-    }
+  hstu_tf32::load_tile<W, W + kPad, kT, kThreads>(dst, src, sn, r0, lim, w, vec, scale);
+}
+
+// K7-det's table gradients: the blocks' rows of `partial` [blocks][n] added
+// entry by entry in block order. A block of 1024 threads takes 32 entries:
+// each of 32 slices sums the rows slice, slice + 32, ... in turn, then one
+// thread an entry adds the 32 slices in order. Entry e < n_pos goes to
+// dpos[e], the rest to dts[e - n_pos].
+__global__ void __launch_bounds__(1024) sum_partials_kernel(const float* partial, int blocks, int n,
+                                                            int n_pos, float* dpos, float* dts) {
+  __shared__ float sums[32][33];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int e = blockIdx.x * 32 + lane;
+  float sum = 0.f;
+  if (e < n)
+    for (int b = slice; b < blocks; b += 32) sum += partial[(long long)b * n + e];
+  sums[slice][lane] = sum;
+  __syncthreads();
+  if (slice == 0 && e < n) {
+    float total = 0.f;
+    for (int i = 0; i < 32; ++i) total += sums[i][lane];
+    if (e < n_pos)
+      dpos[e] = total;
+    else
+      dts[e - n_pos] = total;
   }
 }
 
-// dq's float32 sums written as bfloat16
-__global__ void to_bf16_kernel(const float* x, __nv_bfloat16* y, long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x)
-    y[i] = __float2bfloat16_rn(x[i]);
-}
-
 // W: the padded head width (32 or 64); HG: heads per block; E: the type of
-// q, k, v, dO, dk and dv (float, or __nv_bfloat16).
-template <int W, int HG, typename E>
+// q, k, v, dO, dk and dv (float, or __nv_bfloat16); DET: K7-det's second
+// pass, no dQ and the table sums to the block's row of `partial`.
+template <int W, int HG, typename E, bool DET>
 __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   constexpr bool kBf16 = !std::is_same<E, float>::value;
   // 1 / norm: applied to dP and dV on use in float32; in bfloat16 folded into
@@ -268,7 +303,10 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
     // col <= row below the length
     const bool plain_causal = lower_only && nt == 0 && p.max_attn_len == 0;
     load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0);
-    load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0, do_scale);
+    if constexpr (kBf16)  // dO / norm, rounded to bfloat16
+      load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0, do_scale);
+    else
+      load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0);
     cp_async_commit();
     __syncthreads();  // the tables are in place
 
@@ -348,8 +386,12 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
             if (nrow < length) {
               float* nQ = stages + ((step + 1) & 1) * 2 * kT * P;
               load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0);
-              load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
-                           p.vec_do != 0, do_scale);
+              if constexpr (kBf16)
+                load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
+                             p.vec_do != 0, do_scale);
+              else
+                load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
+                             p.vec_do != 0);
             }
             cp_async_commit();
           }
@@ -429,44 +471,46 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
 #pragma unroll
               for (int c = 0; c < 4; ++c) acc[hh][j][c] += part[j][c];
           }
-          // dQ = dS K: the warp's query rows wr 16 .. + 16 and output columns
-          // wc W / 4 .. + W / 4, summed over the live columns
-          float dq[NQ][4];
-#pragma unroll
-          for (int j = 0; j < NQ; ++j)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) dq[j][c] = 0.f;
-          for (int ks = 0; ks < my_col_steps; ++ks) {
-            const FragA a = load_a(dSs, kSP, wr * 16, ks * 8);
+          if constexpr (!DET) {  // K7-det's dq is the first pass's
+            // dQ = dS K: the warp's query rows wr 16 .. + 16 and output columns
+            // wc W / 4 .. + W / 4, summed over the live columns
+            float dq[NQ][4];
 #pragma unroll
             for (int j = 0; j < NQ; ++j)
-              mma<kBf16>(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
-          }
-          // dead rows keep the buffer's zeros. Where D is a multiple of 4 a
-          // lane pair trades halves, so that each lane adds four floats of
-          // one row at once: the even lane row g, the odd lane row g + 8
-          const bool odd = (t & 1) != 0;
-          float* dqh = p.dq + ((long long)b * p.N * p.H + h0 + hh) * p.D;
 #pragma unroll
-          for (int j = 0; j < NQ; ++j) {
-            const float r0 = __shfl_xor_sync(kFull, odd ? dq[j][0] : dq[j][2], 1);
-            const float r1 = __shfl_xor_sync(kFull, odd ? dq[j][1] : dq[j][3], 1);
-            if (p.D % 4 == 0) {
-              const int row = row0 + wr * 16 + g + (odd ? 8 : 0);
-              const int d = wc * (W / 4) + j * 8 + 2 * (t & ~1);
-              if (row < length && d < p.D) {
-                const float4 x = odd ? make_float4(r0, r1, dq[j][2], dq[j][3])
-                                     : make_float4(dq[j][0], dq[j][1], r0, r1);
-                atomicAdd(reinterpret_cast<float4*>(dqh + (long long)row * p.H * p.D + d),
-                          make_float4(p.alpha * x.x, p.alpha * x.y, p.alpha * x.z, p.alpha * x.w));
-              }
-            } else {
+              for (int c = 0; c < 4; ++c) dq[j][c] = 0.f;
+            for (int ks = 0; ks < my_col_steps; ++ks) {
+              const FragA a = load_a(dSs, kSP, wr * 16, ks * 8);
 #pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                const int row = row0 + wr * 16 + g + 8 * (c / 2);
-                const int d = wc * (W / 4) + j * 8 + 2 * t + c % 2;
-                if (row < length && d < p.D)
-                  atomicAdd(dqh + (long long)row * p.H * p.D + d, p.alpha * dq[j][c]);
+              for (int j = 0; j < NQ; ++j)
+                mma<kBf16>(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
+            }
+            // dead rows keep the buffer's zeros. Where D is a multiple of 4 a
+            // lane pair trades halves, so that each lane adds four floats of
+            // one row at once: the even lane row g, the odd lane row g + 8
+            const bool odd = (t & 1) != 0;
+            float* dqh = p.dq + ((long long)b * p.N * p.H + h0 + hh) * p.D;
+#pragma unroll
+            for (int j = 0; j < NQ; ++j) {
+              const float r0 = __shfl_xor_sync(kFull, odd ? dq[j][0] : dq[j][2], 1);
+              const float r1 = __shfl_xor_sync(kFull, odd ? dq[j][1] : dq[j][3], 1);
+              if (p.D % 4 == 0) {
+                const int row = row0 + wr * 16 + g + (odd ? 8 : 0);
+                const int d = wc * (W / 4) + j * 8 + 2 * (t & ~1);
+                if (row < length && d < p.D) {
+                  const float4 x = odd ? make_float4(r0, r1, dq[j][2], dq[j][3])
+                                       : make_float4(dq[j][0], dq[j][1], r0, r1);
+                  atomicAdd(reinterpret_cast<float4*>(dqh + (long long)row * p.H * p.D + d),
+                            make_float4(p.alpha * x.x, p.alpha * x.y, p.alpha * x.z, p.alpha * x.w));
+                }
+              } else {
+#pragma unroll
+                for (int c = 0; c < 4; ++c) {
+                  const int row = row0 + wr * 16 + g + 8 * (c / 2);
+                  const int d = wc * (W / 4) + j * 8 + 2 * t + c % 2;
+                  if (row < length && d < p.D)
+                    atomicAdd(dqh + (long long)row * p.H * p.D + d, p.alpha * dq[j][c]);
+                }
               }
             }
           }
@@ -515,26 +559,55 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
         }
         sum += __shfl_xor_sync(kFull, sum, 1);
         sum += __shfl_xor_sync(kFull, sum, 2);
-        // diagonals clipped to one entry (N > Nm) meet here: an atomic
-        if (part == 0 && sum != 0.f)
-          atomicAdd(dpos_s + hstu::pos_index(row0 + kT - 1, col0 + dd, p.Nm), sum);
+        if constexpr (DET) {
+          if (part == 0) Ps[dd] = sum;  // P is free: every warp is past its products
+        } else {
+          // diagonals clipped to one entry (N > Nm) meet here: an atomic
+          if (part == 0 && sum != 0.f)
+            atomicAdd(dpos_s + hstu::pos_index(row0 + kT - 1, col0 + dd, p.Nm), sum);
+        }
+      }
+      if constexpr (DET) {
+        // each run of diagonals that meet on one entry (one diagonal, or
+        // those clipped where N > Nm) summed in order by one thread
+        __syncthreads();
+        const int dd = threadIdx.x, last = row0 + kT - 1;
+        const int idx = hstu::pos_index(last, col0 + dd, p.Nm);
+        if (dd < 2 * kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {
+          float sum = 0.f;
+          for (int e = dd; e < 2 * kT - 1 && hstu::pos_index(last, col0 + e, p.Nm) == idx; ++e) sum += Ps[e];
+          dpos_s[idx] += sum;
+        }
       }
     }
 
-    // the block's live elements lie at rows < length and columns
-    // [col0, col0 + cols): their diagonals span the window [lo, hi]
     __syncthreads();
-    const int lo = hstu::pos_index(length - 1, col0, p.Nm);
-    const int hi = hstu::pos_index(0, col0 + cols - 1, p.Nm);
-    for (int idx = lo + threadIdx.x; idx <= hi; idx += kThreads) {
-      const float sum = dpos_s[idx];
-      if (sum != 0.f) atomicAdd(p.dpos + idx, sum);
+    if constexpr (DET) {  // the block's row of `partial`: every entry, zeros where untouched
+      float* row = p.partial + (long long)block * (n_pos + n_ts);
+      for (int idx = threadIdx.x; idx < n_pos; idx += kThreads) row[idx] = dpos_s[idx];
+      for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) {
+        float sum = 0.f;
+        for (int w = 0; w < kWarps; ++w) sum += dts_s[w * n_ts + idx];
+        row[n_pos + idx] = sum;
+      }
+    } else {
+      // the block's live elements lie at rows < length and columns
+      // [col0, col0 + cols): their diagonals span the window [lo, hi]
+      const int lo = hstu::pos_index(length - 1, col0, p.Nm);
+      const int hi = hstu::pos_index(0, col0 + cols - 1, p.Nm);
+      for (int idx = lo + threadIdx.x; idx <= hi; idx += kThreads) {
+        const float sum = dpos_s[idx];
+        if (sum != 0.f) atomicAdd(p.dpos + idx, sum);
+      }
+      for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) {
+        float sum = 0.f;
+        for (int w = 0; w < kWarps; ++w) sum += dts_s[w * n_ts + idx];
+        if (sum != 0.f) atomicAdd(p.dts + idx, sum);
+      }
     }
-    for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) {
-      float sum = 0.f;
-      for (int w = 0; w < kWarps; ++w) sum += dts_s[w * n_ts + idx];
-      if (sum != 0.f) atomicAdd(p.dts + idx, sum);
-    }
+  } else if constexpr (DET) {  // a dead key tile's row of `partial` holds zeros
+    const int n = 2 * p.Nm - 1 + p.NB + 1;
+    for (int idx = threadIdx.x; idx < n; idx += kThreads) p.partial[(long long)block * n + idx] = 0.f;
   }
 
   // every element of dk and dv is written: zeros where the tile is dead
@@ -561,10 +634,10 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   }
 }
 
-template <int W, int HG, typename E>
+template <int W, int HG, typename E, bool DET>
 cudaError_t launch_w(const Params<E>& p, cudaStream_t stream) {
   const int smem = smem_floats(W, HG, 2 * p.Nm - 1, p.NB + 1) * (int)sizeof(float);
-  auto kernel = relbias_bwd_kernel<W, HG, E>;
+  auto kernel = relbias_bwd_kernel<W, HG, E, DET>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -573,14 +646,38 @@ cudaError_t launch_w(const Params<E>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename E>
+template <typename E, bool DET = false>
 int launch(const Params<E>& p, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.V < 1 || p.D > 64 || p.V > 64 || p.Nm < 1 || p.NB < 0 || p.NB > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.D <= 32 && p.V <= 32) return (int)launch_w<32, 4, E>(p, s);
-  return (int)launch_w<64, 2, E>(p, s);
+  if (p.D <= 32 && p.V <= 32) return (int)launch_w<32, 4, E, DET>(p, s);
+  return (int)launch_w<64, 2, E, DET>(p, s);
+}
+
+// K7-det: the dq pass, this kernel without dq (DET), then the sum of the
+// blocks' table rows in block order. dq: [B, N, H, D] of q's type, written
+// whole; partial: float32 [blocks, (2 Nm - 1) + (NB + 1)] with blocks =
+// ceil(N / 64) * ceil(H / HG) * B; dpos and dts are written, not added to.
+template <typename E>
+int launch_det(const Params<E>& p, E* dq, void* stream) {
+  if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
+  hstu_bwd_dq::Params<E> d{p.q, p.k, p.v, p.dout, dq, p.lengths, p.num_targets, p.B, p.N, p.H, p.D, p.V,
+                           p.q_sb, p.q_sn, p.q_sh, p.k_sb, p.k_sn, p.k_sh, p.v_sb, p.v_sn, p.v_sh,
+                           p.do_sb, p.do_sn, p.do_sh, p.alpha, p.inv_norm, p.causal, p.max_attn_len,
+                           p.contextual_seq_len, p.min_full_attn_seq_len,
+                           p.vec_q, p.vec_k, p.vec_v, p.vec_do, p.ts, p.pos_w, p.ts_w, p.Nm, p.NB};
+  int err = hstu_bwd_dq::launch<E, /*RELBIAS=*/true>(d, stream);
+  if (err != 0) return err;
+  err = launch<E, /*DET=*/true>(p, stream);
+  if (err != 0) return err;
+  const int hg = p.D <= 32 && p.V <= 32 ? 4 : 2;
+  const long long blocks = (long long)((p.N + kT - 1) / kT) * ((p.H + hg - 1) / hg) * p.B;
+  const int n_pos = 2 * p.Nm - 1, n = n_pos + p.NB + 1;
+  sum_partials_kernel<<<(n + 31) / 32, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      p.partial, (int)blocks, n, n_pos, p.dpos, p.dts);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hstu_relbias_bwd
@@ -632,10 +729,52 @@ extern "C" int hstu_mha_relbias_bwd_bf16(
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
   const int err = hstu_relbias_bwd::launch<__nv_bfloat16>(p, stream);
-  const long long n = (long long)B * N * H * D;
-  if (err != 0 || n == 0) return err;
-  const long long blocks = n / 256 + 1 < 4096 ? n / 256 + 1 : 4096;
-  hstu_relbias_bwd::to_bf16_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      dq32, dq, n);
-  return (int)cudaGetLastError();
+  if (err != 0) return err;
+  return (int)hstu_tf32::to_bf16(dq32, dq, (long long)B * N * H * D, static_cast<cudaStream_t>(stream));
+}
+
+// K7-det on float32: dq, dk and dv written whole; partial a float32
+// [blocks, (2 Nm - 1) + (NB + 1)] scratch buffer (`launch_det`); dpos and dts
+// written whole. The same bits on every run.
+extern "C" int hstu_mha_relbias_bwd_det(
+    const float* q, const float* k, const float* v, const float* dout,
+    float* dq, float* dk, float* dv, const int* lengths,
+    const int* num_targets, const float* ts, const float* pos_w,
+    const float* ts_w, float* dpos, float* dts, float* partial,
+    int B, int N, int H, int D, int V,
+    long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+    long long v_sh, long long do_sb, long long do_sn, long long do_sh,
+    float alpha, float inv_norm, int causal, int max_attn_len,
+    int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+  hstu_relbias_bwd::Params<float> p{
+      q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
+      B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
+      do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
+      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial};
+  return hstu_relbias_bwd::launch_det<float>(p, dq, stream);
+}
+
+// K7-det on bfloat16 q, k, v, dout, dq, dk and dv (K7-bf16's rounding
+// points); alpha must be 1, as K7-bf16's.
+extern "C" int hstu_mha_relbias_bwd_det_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
+    const int* lengths, const int* num_targets, const float* ts, const float* pos_w,
+    const float* ts_w, float* dpos, float* dts, float* partial,
+    int B, int N, int H, int D, int V,
+    long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+    long long v_sh, long long do_sb, long long do_sn, long long do_sh,
+    float alpha, float inv_norm, int causal, int max_attn_len,
+    int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+  if (alpha != 1.f) return (int)cudaErrorInvalidValue;
+  hstu_relbias_bwd::Params<__nv_bfloat16> p{
+      q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
+      B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
+      do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
+      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial};
+  return hstu_relbias_bwd::launch_det<__nv_bfloat16>(p, dq, stream);
 }

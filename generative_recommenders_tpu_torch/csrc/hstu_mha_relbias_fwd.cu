@@ -11,9 +11,10 @@
 // per (row, column) for the group; 32-column key tiles double-buffered by
 // `cp.async`, two blocks an SM. `hstu_mha_relbias_fwd_bf16` is the same
 // kernel on bfloat16 q, k, v and out (the bias tables and the timestamps stay
-// float32): at 2 (2 D + V) bytes per live row and head its bound halves, and
-// its products are one exact TF32 `mma` each (989 TFLOP/s is the bfloat16
-// rate; the TF32 rate, 495, is what this kernel runs at).
+// float32): at 2 (2 D + V) bytes per live row and head its bound halves,
+// and its operations are held to the card's bfloat16 rate, 989 TFLOP/s,
+// though its products are one exact TF32 `mma` each, which run at half that
+// rate (the TF32 rate, 495).
 #include "hstu_attention_fwd.cuh"
 
 extern "C" int hstu_mha_relbias_fwd(

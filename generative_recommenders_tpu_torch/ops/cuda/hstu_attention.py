@@ -31,10 +31,27 @@ The TPU wrappers' transposes, their padding of N to tile multiples, their
 block-size tables and the backward's `_pack_rows`
 residual packing are VMEM and lane-padding artefacts and are not ported:
 the kernels read strided [B, N, H, D] views and mask the ragged edge
-themselves. These kernels take float32 only (the serving and training
-paths' type); the relative-bias pair K6 / K7 also takes bfloat16
-(`ops/cuda/hstu_attention_relbias.py`), the one path of the JAX package that
-reaches its kernels in bfloat16.
+themselves.
+
+bfloat16: K1 and K2 also take bfloat16 q, k, v (and dO), the types the JAX
+package's ``compute_dtype="bfloat16"`` gives the first block of the
+bias-free HSTU research model (``enable_relative_attention_bias=False``),
+whose attention reaches `hstu_mha_dense_pallas` on bfloat16 under
+``attn_kernel="pallas"`` (and ``"auto"`` at N >= 512); the relative-bias
+pair K6 / K7 takes bfloat16 too (`ops/cuda/hstu_attention_relbias.py`).
+The entry points ``hstu_mha_fwd_bf16`` and ``hstu_mha_bwd_fused_bf16``
+(K1-bf16, K2-bf16) keep the Pallas kernels' rounding points: alpha q
+rounded to bfloat16 (where alpha != 1), S, dP and dS in float32 from exact
+products, P rounded to bfloat16 before P V and P^T dO, dO entering the
+backward as bfloat16(dO / norm), dS rounded before dS^T (alpha q) and dS K,
+dq taking one alpha at its float32 flush; out, dq, dk and dv in bfloat16.
+Their plain versions (`_dense_fwd_plain_bf16`, `_dense_bwd_plain_bf16`)
+round at the same points, and a bfloat16 CPU tensor goes through them;
+autograd through a bfloat16 forward would round dP instead. They count
+their launches in ``launches_bf16`` beside ``launches``. The split backward
+K3 + K4 takes float32 only: under deterministic algorithms a bfloat16
+backward raises (or warns and takes K2-bf16, with ``warn_only``). K5 takes
+float32 only.
 
 HSTU attention replaces softmax with a pointwise gate:
 
@@ -46,6 +63,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -62,16 +80,26 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of the entry points (csrc/*.cu); the backward kernels share
 # one, which ends with the `vec_*` flags of q, k, v and dO
 _ARGTYPES = {
-    "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P],
+    **{
+        name: [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P]
+        for name in ("hstu_mha_fwd", "hstu_mha_fwd_bf16")
+    },
     "delta_hstu_mha_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P],
     **{
         name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_P]  # mask ints, flags
         for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
     },
+    # one more pointer: dq's float32 sums beside the bfloat16 dq
+    "hstu_mha_bwd_fused_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_P],
 }
-# entry points that live in another kernel's library: entry -> library
-_LIBRARY: Dict[str, str] = {}
+# entry points that live in another kernel's library: entry -> library (the
+# bfloat16 K1 and K2 are second entry points of K1's and K2's libraries)
+_LIBRARY: Dict[str, str] = {
+    "hstu_mha_fwd_bf16": "hstu_mha_fwd",
+    "hstu_mha_bwd_fused_bf16": "hstu_mha_bwd_fused",
+}
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+_DENSE_TYPES = (torch.float32, torch.bfloat16)  # K1's and K2's; K3, K4 and K5 take float32
 _MAX_V = 128
 _MAX_D = 256
 # K5's tiling (csrc/delta_hstu_mha_fwd.cu): key columns and query rows per block
@@ -120,6 +148,84 @@ def hstu_mha_dense(
     return out.to(v.dtype)
 
 
+def _plain_mask(N: int, lengths: torch.Tensor, kw: dict) -> torch.Tensor:
+    """The spec mask AND row/col < length, bool [B, N, N] (``kw``: the
+    kernels' mask keywords)."""
+    return apply_padding_guard(
+        make_valid_attn_mask(
+            N, lengths, causal=kw["causal"], num_targets=kw["num_targets"],
+            max_attn_len=kw["max_attn_len"], contextual_seq_len=kw["contextual_seq_len"],
+            min_full_attn_seq_len=kw["min_full_attn_seq_len"],
+        ),
+        lengths,
+    )
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16, as float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_scalar(x: float) -> float:
+    """A Python float as it meets a bfloat16 array in JAX: a weakly typed
+    scalar, rounded to bfloat16 first."""
+    return _bf16(torch.tensor(x)).item()
+
+
+def _scaled_q(q: torch.Tensor, alpha: float) -> torch.Tensor:
+    """alpha q rounded to bfloat16, as float32: the Pallas kernels' bfloat16
+    product (q as it is where alpha is 1)."""
+    return q.float() if alpha == 1.0 else _bf16(q.float() * _bf16_scalar(alpha))
+
+
+def _dense_fwd_plain_bf16(q, k, v, lengths, kw) -> torch.Tensor:
+    """K1-bf16's function: S = (alpha q) k^T in float32 from bfloat16
+    inputs, P = silu(S) * mask rounded to bfloat16, O = (P V) / norm in
+    float32, returned as bfloat16."""
+    N = q.shape[1]
+    mask = _plain_mask(N, lengths, kw)
+    s = torch.einsum("bnhd,bmhd->bhnm", _scaled_q(q, kw["alpha"]), k.float())
+    p = _bf16(torch.where(mask[:, None], F.silu(s), 0.0))
+    out = torch.einsum("bhnm,bmhv->bnhv", p, v.float()) * (1.0 / (kw["max_seq_len"] or N))
+    return out.to(torch.bfloat16)
+
+
+def _dense_bwd_plain_bf16(q, k, v, lengths, do, kw) -> Grads:
+    """K2-bf16's function, written out: dO / norm rounded to bfloat16 (1 /
+    norm itself in bfloat16, the Pallas kernel's weakly typed scalar), dV =
+    bf16(P)^T dO, dP = dO V^T and dS = dP * dsilu in float32, dK = bf16(dS)^T
+    (alpha q), dQ = alpha bf16(dS) K; all three returned as bfloat16."""
+    N = q.shape[1]
+    mask = _plain_mask(N, lengths, kw)[:, None]
+    qs = _scaled_q(q, kw["alpha"])
+    dob = _bf16(do.float() * _bf16_scalar(1.0 / (kw["max_seq_len"] or N)))
+    s = torch.einsum("bnhd,bmhd->bhnm", qs, k.float())
+    sig = torch.sigmoid(s)
+    p = torch.where(mask, s * sig, 0.0)
+    dv = torch.einsum("bhnm,bnhv->bmhv", _bf16(p), dob)
+    dp = torch.einsum("bnhv,bmhv->bhnm", dob, v.float())
+    ds16 = _bf16(torch.where(mask, dp * sig * (1.0 + s * (1.0 - sig)), 0.0))
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds16, qs)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds16, k.float()) * kw["alpha"]
+    return dq.to(torch.bfloat16), dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+class _DensePlainBf16(torch.autograd.Function):
+    """The bfloat16 plain version, forward and backward at the kernels'
+    rounding points; gradients for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, kw):
+        ctx.save_for_backward(q, k, v, lengths)
+        ctx.kw = kw
+        return _dense_fwd_plain_bf16(q, k, v, lengths, kw)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lengths = ctx.saved_tensors
+        return (*_dense_bwd_plain_bf16(q, k, v, lengths, do, ctx.kw), None, None)
+
+
 def hstu_mha_dense_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -135,17 +241,15 @@ def hstu_mha_dense_plain(
     min_full_attn_seq_len: int = 0,
 ) -> torch.Tensor:
     """K1's function in plain PyTorch: the spec mask AND row/col < length,
-    then `hstu_mha_dense`. Rows >= length come out 0."""
+    then `hstu_mha_dense`. Rows >= length come out 0. Differentiable in q, k
+    and v: in float32 by autograd, whose gradient is the plain backward; in
+    bfloat16 through `_DensePlainBf16`, at the kernels' rounding points."""
+    kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
+                   contextual_seq_len, min_full_attn_seq_len)
+    if q.dtype == torch.bfloat16:
+        return _DensePlainBf16.apply(q, k, v, lengths, kw)
     N = q.shape[1]
-    mask = apply_padding_guard(
-        make_valid_attn_mask(
-            N, lengths, causal=causal, num_targets=num_targets,
-            max_attn_len=max_attn_len, contextual_seq_len=contextual_seq_len,
-            min_full_attn_seq_len=min_full_attn_seq_len,
-        ),
-        lengths,
-    )
-    return hstu_mha_dense(q, k, v, alpha=alpha, max_seq_len=max_seq_len or N, mask=mask)
+    return hstu_mha_dense(q, k, v, alpha=alpha, max_seq_len=max_seq_len or N, mask=_plain_mask(N, lengths, kw))
 
 
 def hstu_mha_bwd_plain(
@@ -158,7 +262,8 @@ def hstu_mha_bwd_plain(
 ) -> Grads:
     """The backward kernels' function in plain PyTorch: (dq, dk, dv) of
     `hstu_mha_dense_plain` (same keywords) at the output gradient ``do``,
-    by autograd. Rows and columns >= length get exact zeros."""
+    by autograd (in bfloat16 through `_DensePlainBf16`'s written-out
+    backward). Rows and columns >= length get exact zeros."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = hstu_mha_dense_plain(*leaves, lengths, **kw)
@@ -226,10 +331,9 @@ def _check_qkv(q, k, v, dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> t
     device = q.device
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CPU or CUDA tensors, got {device}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, 4, device, dtypes)
-    if not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"q, k and v must have one type, got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check("q", q, 4, device, dtypes)
+    for name, t in (("k", k), ("v", v)):  # q's type
+        _check(name, t, 4, device, (q.dtype,))
     B, _, H, D = q.shape
     if k.shape[0] != B or k.shape[2:] != (H, D) or v.shape[:3] != k.shape[:3]:
         raise ValueError(
@@ -267,9 +371,10 @@ def _mask_args(kw: dict, N: int) -> tuple:
     )
 
 
-# The tiling of K1's and K6's shared forward body (csrc/hstu_attention_fwd.cuh):
-# padded width -> (warps per block, each with 16 query rows; heads per block;
-# key columns per tile)
+# The tiling of K1's and K6's shared forward body (csrc/hstu_attention_fwd.cuh),
+# float32 and bfloat16 alike (a bfloat16 tile is converted to float32 on its
+# way into shared memory): padded width -> (warps per block, each with 16
+# query rows; heads per block; key columns per tile)
 _FWD_TILING = {32: (8, 2, 32), 64: (8, 2, 32), 128: (4, 1, 32), 256: (4, 1, 16)}
 _MAX_SHARED_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
@@ -308,8 +413,8 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
 
 
 # The tiling of K2's and K4's shared backward body
-# (csrc/hstu_attention_bwd_dkv.cuh): padded width -> (query rows per step,
-# key columns per block); one head a block, 16 warps
+# (csrc/hstu_attention_bwd_dkv.cuh), K2-bf16's too: padded width -> (query
+# rows per step, key columns per block); one head a block, 16 warps
 _BWD_TILING = {32: (64, 64), 64: (64, 64), 128: (32, 64), 256: (32, 64)}
 
 
@@ -362,28 +467,33 @@ def _dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
 
 
 def _dense_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
-    """Launches K1 on checked CUDA tensors (lens, nt: int32 or nt None)."""
+    """Launches K1, or K1-bf16 on bfloat16, on checked CUDA tensors (lens,
+    nt: int32 or nt None)."""
     B, N, H, D = q.shape
     V = v.shape[3]
-    out = torch.empty((B, N, H, V), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.empty((B, N, H, V), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    _fwd_plan(D, V, H, 0, 0, False, B, N)  # raises on what the kernel does not take
+    # raises on what the kernel does not take; the bfloat16 instance tiles as
+    # the float32 one
+    _fwd_plan(D, V, H, 0, 0, False, B, N)
     _launch(
-        "hstu_mha_fwd",
+        "hstu_mha_fwd_bf16" if bf16 else "hstu_mha_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *_mask_args(kw, N), _stream(q.device),
     )
-    hstu_mha_dense_cuda.launches.add()
+    (hstu_mha_dense_cuda.launches_bf16 if bf16 else hstu_mha_dense_cuda.launches).add()
     return out
 
 
 class _HstuMhaDense(torch.autograd.Function):
     """K1 forward; backward by K2, or by K3 then K4 under
-    ``torch.use_deterministic_algorithms(True)``. Saves q, k and v as they
-    are (views of the uvqk projection on the STU path)."""
+    ``torch.use_deterministic_algorithms(True)``; on bfloat16 K1-bf16 and
+    K2-bf16, which has no split yet (`hstu_mha_bwd_cuda` refuses it). Saves
+    q, k and v as they are (views of the uvqk projection on the STU path)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lens, nt, kw):
@@ -394,10 +504,8 @@ class _HstuMhaDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, lens, nt = ctx.saved_tensors
-        dq, dk, dv = hstu_mha_bwd_cuda(
-            q, k, v, lens, do, split=torch.are_deterministic_algorithms_enabled(),
-            num_targets=nt, **ctx.kw,
-        )
+        dq, dk, dv = hstu_mha_bwd_cuda(q, k, v, lens, do, split=torch.are_deterministic_algorithms_enabled(),
+                                       num_targets=nt, **ctx.kw)
         return dq, dk, dv, None, None, None
 
 
@@ -427,16 +535,16 @@ def hstu_mha_dense_cuda(
     min_full_attn_seq_len: int = 0,
 ) -> torch.Tensor:
     """Dense HSTU attention with jagged ``lengths`` (rows/cols >= length are
-    dead, their outputs 0). Returns [B, N, H, V], differentiable in q, k and
-    v. The optional [B, N, N] ``bias`` of the TPU kernel is not ported yet
-    and raises."""
+    dead, their outputs 0). Returns [B, N, H, V] of q's type (float32 or
+    bfloat16), differentiable in q, k and v. The optional [B, N, N] ``bias``
+    of the TPU kernel is not ported yet and raises."""
     if bias is not None:
         raise NotImplementedError("the additive [B, N, N] bias is not ported yet")
     kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                    contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":
         return hstu_mha_dense_plain(q, k, v, lengths, **kw)
-    device = _check_qkv(q, k, v)
+    device = _check_qkv(q, k, v, _DENSE_TYPES)
     B, N = q.shape[:2]
     if k.shape[1] != N:
         raise ValueError(f"k has {k.shape[1]} rows, q has {N}")
@@ -454,19 +562,23 @@ def _last_dim_contiguous(do: torch.Tensor) -> torch.Tensor:
 
 def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     """Launches one backward kernel on checked CUDA tensors (lens, nt:
-    int32 or nt None; do contiguous in its last dim) and counts it. Returns
-    (dq, dk, dv), None for the outputs the kernel does not write."""
+    int32 or nt None; do contiguous in its last dim, of q's type) and counts
+    it. Returns (dq, dk, dv), None for the outputs the kernel does not
+    write."""
     B, N, H, D = q.shape
     V = v.shape[3]
-    new = lambda shape, zero=False: (torch.zeros if zero else torch.empty)(  # noqa: E731
-        shape, dtype=torch.float32, device=q.device
+    bf16 = name == "hstu_mha_bwd_fused_bf16"
+    new = lambda shape, zero=False, dtype=q.dtype: (torch.zeros if zero else torch.empty)(  # noqa: E731
+        shape, dtype=dtype, device=q.device
     )
-    # K2 adds its dq shares into a zeroed buffer with atomics
+    # K2 adds its dq shares into a zeroed float32 buffer with atomics, which
+    # K2-bf16 then writes as bfloat16
+    dq32 = new((B, N, H, D), zero=True, dtype=torch.float32) if bf16 else None
     dq = None if name == "hstu_mha_bwd_dkv" else new((B, N, H, D), zero=name == "hstu_mha_bwd_fused")
     dk, dv = (None, None) if name == "hstu_mha_bwd_dq" else (new((B, N, H, D)), new((B, N, H, V)))
     if B * N * H == 0:
         return dq, dk, dv
-    # raises on what the kernel does not take
+    # raises on what the kernel does not take; K2-bf16 tiles as K2
     (_dq_plan if name == "hstu_mha_bwd_dq" else _bwd_plan)(D, V, H, B, N)
     # the kernels read q, k, v and dO in 16-byte pieces where each allows it
     # (on the STU path q, k and v are strided views of one projection)
@@ -475,11 +587,11 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     _launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
+        *((ptr(dq32),) if bf16 else ()), ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *_mask_args(kw, N), *vec, _stream(q.device),
     )
-    hstu_mha_bwd_cuda.launches[name].add()
+    (hstu_mha_bwd_cuda.launches_bf16 if bf16 else hstu_mha_bwd_cuda.launches[name]).add()
     return dq, dk, dv
 
 
@@ -502,22 +614,37 @@ def hstu_mha_bwd_cuda(
     """(dq, dk, dv) of `hstu_mha_dense_cuda` at ``do``: by kernel K2, whose
     dq is summed with atomics, so its last bits vary from run to run; or,
     with ``split``, by K3 (dq) then K4 (dk, dv), which give the same bits
-    every run. ``launches`` holds one counter per kernel, keyed by its C
-    entry point."""
+    every run. On bfloat16 (q, k, v and ``do``) by K2-bf16: K3 and K4 take
+    float32 only, so ``split`` raises a RuntimeError there, or warns and
+    takes K2-bf16 under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``. ``launches`` holds one counter per float32 kernel,
+    keyed by its C entry point; ``launches_bf16`` counts K2-bf16."""
     kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                    contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":
         return hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
-    device = _check_qkv(q, k, v)
+    device = _check_qkv(q, k, v, _DENSE_TYPES)
     B, N, H, _ = q.shape
     if k.shape[1] != N or do.shape != (B, N, H, v.shape[3]):
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, do {tuple(do.shape)}"
         )
     do = _last_dim_contiguous(do)
-    _check("do", do, 4, device)
+    _check("do", do, 4, device, (q.dtype,))
     lens = _int_vector("lengths", lengths, B, device)
     nt = None if num_targets is None else _int_vector("num_targets", num_targets, B, device)
+    if q.dtype == torch.bfloat16:
+        if split:
+            msg = (
+                "hstu_mha_bwd_cuda does not have a deterministic implementation on bfloat16: "
+                "kernel K2-bf16 sums dq with atomicAdd, and the split backward K3 + K4 is not "
+                "built for bfloat16 yet (K3/K4-bf16). Turn it off for this operation with "
+                "torch.use_deterministic_algorithms(False), or only warn with warn_only=True."
+            )
+            if not torch.is_deterministic_algorithms_warn_only_enabled():
+                raise RuntimeError(msg)
+            warnings.warn(msg)
+        return _bwd_kernel("hstu_mha_bwd_fused_bf16", q, k, v, lens, nt, do, kw)
     if not split:
         return _bwd_kernel("hstu_mha_bwd_fused", q, k, v, lens, nt, do, kw)
     dq = _bwd_kernel("hstu_mha_bwd_dq", q, k, v, lens, nt, do, kw)[0]
@@ -627,7 +754,9 @@ def delta_hstu_mha_cuda(
 
 
 hstu_mha_dense_cuda.launches = LaunchCounter()
+hstu_mha_dense_cuda.launches_bf16 = LaunchCounter()
 hstu_mha_bwd_cuda.launches = {
     name: LaunchCounter() for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
 }
+hstu_mha_bwd_cuda.launches_bf16 = LaunchCounter()
 delta_hstu_mha_cuda.launches = LaunchCounter()

@@ -11,7 +11,9 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py`:
 * ``hstu_mha_relbias_bwd_cuda``: kernel K7 (`csrc/hstu_mha_relbias_bwd.cu`),
   replacing `_bwd_kernel_relbias` (the custom VJP `_relbias_call` becomes
   `_HstuMhaRelbias`): 3xTF32 products on the tensor cores, a group of heads
-  inside one block (`_relbias_bwd_plan`), head widths up to 64.
+  inside one block (`_relbias_bwd_plan`), head widths up to 64; or, with
+  ``deterministic``, K7-det (the same library): the same function summed in
+  one fixed order (`_relbias_det_plan`).
 
     bias[b, i, j] = pos_w[clip(j - i + Nm - 1, 0, 2 Nm - 2)]
                   + ts_w[clip(floor(ln(max(|ts[b, min(i + 1, N - 1)]
@@ -44,25 +46,25 @@ and take ``alpha = 1`` only (the TPU kernel rounds alpha q to bfloat16 in
 the kernel; the research model's alpha is 1).
 
 K7 sums dq, ``dpos_w`` and ``dts_w`` with atomics, in an order that changes
-from run to run, and the JAX package has no other backward for this
-function: under ``torch.use_deterministic_algorithms(True)`` the backward
-raises (or warns, with ``warn_only``), as PyTorch's own atomics-based
-operations do.
+from run to run. The Pallas kernel keeps those sums in VMEM over a
+sequential grid, so every run of the JAX package gives the same bits; K7-det
+does too, by passes instead of atomics: dq by K3's body with the bias (one
+block per query tile, dq in registers), dk, dv and each block's table sums
+by K7's body without dq (the sums to the block's own row of a float32
+[blocks, (2 Nm - 1) + (NB + 1)] buffer), and the rows added entry by entry
+in block order. Under ``torch.use_deterministic_algorithms(True)`` the
+autograd function takes K7-det, in float32 and bfloat16 alike; it counts
+its launches in ``launches_det`` and ``launches_det_bf16``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import warnings
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from generative_recommenders_tpu_torch.ops.attention_mask import (
-    apply_padding_guard,
-    make_valid_attn_mask,
-)
 from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 from generative_recommenders_tpu_torch.ops.cuda.build import LaunchCounter
 
@@ -74,11 +76,18 @@ ha._ARGTYPES.update({
     "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P],
     # one more pointer: dq's float32 sums beside the bfloat16 dq
     "hstu_mha_relbias_bwd_bf16": [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P],
+    # one more pointer: the blocks' table sums
+    **{
+        name: [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P]
+        for name in ("hstu_mha_relbias_bwd_det", "hstu_mha_relbias_bwd_det_bf16")
+    },
 })
-# the bfloat16 kernels are second entry points of K6's and K7's libraries
+# the bfloat16 kernels and K7-det are second entry points of K6's and K7's
+# libraries
 ha._LIBRARY.update({
     "hstu_mha_relbias_fwd_bf16": "hstu_mha_relbias_fwd",
-    "hstu_mha_relbias_bwd_bf16": "hstu_mha_relbias_bwd",
+    **{name: "hstu_mha_relbias_bwd" for name in
+       ("hstu_mha_relbias_bwd_bf16", "hstu_mha_relbias_bwd_det", "hstu_mha_relbias_bwd_det_bf16")},
 })
 # K7's tiling (csrc/hstu_mha_relbias_bwd.cu): 64 x 64 tile pairs, every tile
 # at a pitch of its width + 8; a Hopper block's shared memory
@@ -127,21 +136,7 @@ def relative_bias_plain(
     return pos_w[rel] + ts_w[bucket]
 
 
-def _plain_mask(N: int, lengths: torch.Tensor, kw: dict) -> torch.Tensor:
-    """The spec mask AND row/col < length, bool [B, N, N]."""
-    return apply_padding_guard(
-        make_valid_attn_mask(
-            N, lengths, causal=kw["causal"], num_targets=kw["num_targets"],
-            max_attn_len=kw["max_attn_len"], contextual_seq_len=kw["contextual_seq_len"],
-            min_full_attn_seq_len=kw["min_full_attn_seq_len"],
-        ),
-        lengths,
-    )
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to bfloat16, as float32."""
-    return x.to(torch.bfloat16).float()
+_plain_mask, _bf16 = ha._plain_mask, ha._bf16
 
 
 def _check_bf16_alpha(alpha: float) -> None:
@@ -175,7 +170,7 @@ def _relbias_bwd_plain_bf16(q, k, v, lengths, timestamps, pos_w, ts_w, do, num_b
     _check_bf16_alpha(kw["alpha"])
     N = q.shape[1]
     mask = _plain_mask(N, lengths, kw)[:, None]
-    inv_norm = _bf16(torch.tensor(1.0 / (kw["max_seq_len"] or N))).item()
+    inv_norm = ha._bf16_scalar(1.0 / (kw["max_seq_len"] or N))
     dob = _bf16(do.float() * inv_norm)
     with torch.enable_grad():
         tables = [t.detach().float().requires_grad_(True) for t in (pos_w, ts_w)]
@@ -265,7 +260,7 @@ def _checked(q, k, v, lengths, timestamps, pos_w, ts_w, num_buckets: int, num_ta
     """Checks the CUDA inputs of both kernels; returns the timestamps as
     contiguous float32 and lengths and num_targets as int32 (or None). q, k
     and v are float32 or bfloat16, the tables float32."""
-    if q.dtype == torch.bfloat16:  # K6 and K7 alone also take bfloat16
+    if q.dtype == torch.bfloat16:
         device = ha._check_qkv(q, k, v, (torch.bfloat16,))
     else:
         device = ha._check_qkv(q, k, v)
@@ -350,45 +345,86 @@ def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int) -> dict:
                 shared_bytes=shared_bytes)
 
 
-def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict) -> RelbiasGrads:
-    """Launches K7 on checked CUDA tensors (as `_relbias_fwd`; do contiguous
-    in its last dim, of q's type) and counts it. dq (in float32) and both
-    table gradients are summed into zeroed buffers; the bfloat16 kernel
-    writes dq's sums as bfloat16 at its end."""
+def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int) -> dict:
+    """K7-det's launches: the dq pass on K3's body (`hstu_attention._dq_plan`:
+    one block per (64-row query tile, head, batch row)) with both tables and
+    the batch row's timestamps added to its shared memory; then K7's body
+    without dq on K7's grid (`_relbias_bwd_plan`: (key tile, head group,
+    batch row)), each block writing its table sums to its own row of the
+    float32 ``partial`` buffer [blocks, (2 Nm - 1) + (NB + 1)]; then the rows
+    added in block order, one CUDA block per 32 entries. Raises where K7
+    does, or where the dq pass's tables do not fit."""
+    bwd = _relbias_bwd_plan(D, V, H, Nm, NB)
+    dq = ha._dq_plan(D, V, H, B, N)
+    dq_shared = dq["shared_bytes"] + 4 * (2 * Nm - 1 + NB + 1 + N)
+    if dq_shared > _MAX_SHARED_BYTES:
+        raise ValueError(
+            f"K7-det's dq pass needs {dq_shared} bytes of shared memory (tables and timestamps for "
+            f"Nm={Nm}, NB={NB}, N={N}); a block has {_MAX_SHARED_BYTES}"
+        )
+    grid = (-(-N // _BWD_TILE), bwd["head_groups"], B)
+    blocks = grid[0] * grid[1] * grid[2]
+    entries = 2 * Nm - 1 + NB + 1
+    return dict(width=bwd["width"], head_group=bwd["head_group"], dq_grid=dq["grid"],
+                dq_shared_bytes=dq_shared, grid=grid, shared_bytes=bwd["shared_bytes"],
+                partial_shape=(blocks, entries), sum_grid=(-(-entries // 32),))
+
+
+def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic: bool = False) -> RelbiasGrads:
+    """Launches K7, or K7-det with ``deterministic``, on checked CUDA tensors
+    (as `_relbias_fwd`; do contiguous in its last dim, of q's type) and
+    counts it. K7 sums dq (in float32) and both table gradients into zeroed
+    buffers, and its bfloat16 kernel writes dq's sums as bfloat16 at its end;
+    K7-det writes every output whole, in a fixed order."""
     B, N, H, D = q.shape
     V = v.shape[3]
     Nm, NB = (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         _check_bf16_alpha(kw["alpha"])
-    _relbias_bwd_plan(D, V, H, Nm, NB)  # raises on what the kernel does not take
+    # raises on what the kernels do not take
+    plan = (_relbias_det_plan(D, V, H, B, N, Nm, NB) if deterministic else _relbias_bwd_plan(D, V, H, Nm, NB))
     new = lambda fn, *shape, dtype=torch.float32: fn(shape, dtype=dtype, device=q.device)  # noqa: E731
-    dq32 = new(torch.zeros, B, N, H, D)
-    dq = new(torch.empty, B, N, H, D, dtype=q.dtype) if bf16 else dq32
     dk, dv = new(torch.empty, B, N, H, D, dtype=q.dtype), new(torch.empty, B, N, H, V, dtype=q.dtype)
-    dpos, dts = new(torch.zeros, pos_w.shape[0]), new(torch.zeros, ts_w.shape[0])
-    if B * N * H == 0:
-        return dq, dk, dv, dpos, dts
-    dq_ptrs = (dq32.data_ptr(), dq.data_ptr()) if bf16 else (dq.data_ptr(),)
+    if deterministic:
+        dq = new(torch.empty, B, N, H, D, dtype=q.dtype)
+        dpos, dts = new(torch.empty, pos_w.shape[0]), new(torch.empty, ts_w.shape[0])
+        if B * N * H == 0:
+            return dq, dk, dv, dpos.zero_(), dts.zero_()
+        partial = new(torch.empty, *plan["partial_shape"])
+        name = "hstu_mha_relbias_bwd_det_bf16" if bf16 else "hstu_mha_relbias_bwd_det"
+        dq_ptrs, tail = (dq.data_ptr(),), (partial.data_ptr(),)
+    else:
+        dq32 = new(torch.zeros, B, N, H, D)
+        dq = new(torch.empty, B, N, H, D, dtype=q.dtype) if bf16 else dq32
+        dpos, dts = new(torch.zeros, pos_w.shape[0]), new(torch.zeros, ts_w.shape[0])
+        if B * N * H == 0:
+            return dq, dk, dv, dpos, dts
+        name = "hstu_mha_relbias_bwd_bf16" if bf16 else "hstu_mha_relbias_bwd"
+        dq_ptrs, tail = ((dq32.data_ptr(), dq.data_ptr()) if bf16 else (dq.data_ptr(),)), ()
     ha._launch(
-        "hstu_mha_relbias_bwd_bf16" if bf16 else "hstu_mha_relbias_bwd",
+        name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         *dq_ptrs, dk.data_ptr(), dv.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
-        ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(),
+        ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(), *tail,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *ha._mask_args(kw, N), Nm, NB,
         *(int(ha._vec16(t)) for t in (q, k, v, do)), ha._stream(q.device),
     )
-    counters = hstu_mha_relbias_bwd_cuda
-    (counters.launches_bf16 if bf16 else counters.launches).add()
+    c = hstu_mha_relbias_bwd_cuda
+    {
+        (False, False): c.launches, (True, False): c.launches_bf16,
+        (False, True): c.launches_det, (True, True): c.launches_det_bf16,
+    }[bf16, deterministic].add()
     return dq, dk, dv, dpos, dts
 
 
 class _HstuMhaRelbias(torch.autograd.Function):
-    """K6 forward, K7 backward: gradients for q, k, v, ``pos_w`` and
-    ``ts_w``, none for the timestamps and the lengths. Saves q, k and v as
-    they are (views of the uvqk projection on the STU path)."""
+    """K6 forward, K7 backward, or K7-det under
+    ``torch.use_deterministic_algorithms(True)``: gradients for q, k, v,
+    ``pos_w`` and ``ts_w``, none for the timestamps and the lengths. Saves q,
+    k and v as they are (views of the uvqk projection on the STU path)."""
 
     @staticmethod
     def forward(ctx, q, k, v, pos_w, ts_w, ts, lens, nt, kw):
@@ -399,19 +435,10 @@ class _HstuMhaRelbias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, pos_w, ts_w, ts, lens, nt = ctx.saved_tensors
-        if torch.are_deterministic_algorithms_enabled():
-            msg = (
-                "hstu_mha_relbias_bwd_cuda does not have a deterministic implementation: "
-                "kernel K7 sums dq, dpos_w and dts_w with atomicAdd, and the relative-bias "
-                "attention has no split backward. Turn it off for this operation with "
-                "torch.use_deterministic_algorithms(False), or only warn with warn_only=True."
-            )
-            if not torch.is_deterministic_algorithms_warn_only_enabled():
-                raise RuntimeError(msg)
-            warnings.warn(msg)
         grads = hstu_mha_relbias_bwd_cuda(
             q, k, v, lens, ts, pos_w, ts_w, do, num_targets=nt,
-            num_buckets=ts_w.shape[0] - 1, **ctx.kw,
+            num_buckets=ts_w.shape[0] - 1,
+            deterministic=torch.are_deterministic_algorithms_enabled(), **ctx.kw,
         )
         return (*grads, None, None, None, None)
 
@@ -460,6 +487,7 @@ def hstu_mha_relbias_bwd_cuda(
     ts_w: torch.Tensor,  # float32 [num_buckets + 1]
     do: torch.Tensor,  # [B, N, H, V]: the gradient of the output
     *,
+    deterministic: bool = False,
     alpha: float = 1.0,
     max_seq_len: Optional[int] = None,
     num_buckets: int = 128,
@@ -470,11 +498,12 @@ def hstu_mha_relbias_bwd_cuda(
     min_full_attn_seq_len: int = 0,
 ) -> RelbiasGrads:
     """(dq, dk, dv, dpos_w, dts_w) of `hstu_mha_dense_relbias_cuda` at
-    ``do``, by kernel K7; dq and the table gradients are summed with atomics,
-    so their last bits vary from run to run (dk and dv are the same bits
-    every run). Heads wider than 64, or tables that do not fit a block's
-    shared memory beside the tiles, raise. CPU tensors go through the plain
-    backward."""
+    ``do``, by kernel K7, whose dq and table gradients are summed with
+    atomics, so their last bits vary from run to run (dk and dv are the same
+    bits every run); or, with ``deterministic``, by K7-det, every output the
+    same bits every run. Heads wider than 64, or tables that do not fit a
+    block's shared memory beside the tiles, raise. CPU tensors go through
+    the plain backward."""
     kw = ha._dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                       contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":
@@ -487,10 +516,12 @@ def hstu_mha_relbias_bwd_cuda(
     do = ha._last_dim_contiguous(do)
     ha._check("do", do, 4, q.device, (q.dtype,))
     kw.pop("num_targets")
-    return _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw)
+    return _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw, deterministic)
 
 
 hstu_mha_dense_relbias_cuda.launches = LaunchCounter()
 hstu_mha_dense_relbias_cuda.launches_bf16 = LaunchCounter()
 hstu_mha_relbias_bwd_cuda.launches = LaunchCounter()
 hstu_mha_relbias_bwd_cuda.launches_bf16 = LaunchCounter()
+hstu_mha_relbias_bwd_cuda.launches_det = LaunchCounter()
+hstu_mha_relbias_bwd_cuda.launches_det_bf16 = LaunchCounter()

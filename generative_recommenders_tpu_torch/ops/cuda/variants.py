@@ -84,8 +84,8 @@ _NO_SPLIT = _sub(
 _K7: Dict[str, Edit] = {
     "table sums": _both(_sub("unsigned rest = __ballot_sync(kFull, ok);", "unsigned rest = 0;"),
                         _sub("for (int r = part; r < kT; r += 4) {", "for (int r = part; r < 0; r += 4) {")),
-    "dq atomics": _sub("if (row < length && d < p.D) {\n                const float4 x",
-                       "if (false) {\n                const float4 x"),
+    "dq atomics": _sub("if (row < length && d < p.D) {\n                  const float4 x",
+                       "if (false) {\n                  const float4 x"),
     "sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;"),
     "bucket logf": _sub("const int bucket = hstu::ts_bucket(tq, tk[j * 2 + c], p.NB);", "const int bucket = 3;"),
     "S and dP": _sub("if (!dead) {", "if (false) {"),
@@ -113,17 +113,19 @@ _K16: Dict[str, Edit] = {
     # every element live: no mask to compute, no warp skipped
     "the mask": _both(_sub("      if (!interior) {\n        ok_bits = 0;", "      if (false) {\n        ok_bits = 0;", _FWD),
                       _sub("            if (!interior) {\n#pragma unroll", "            if (false) {\n#pragma unroll", _FWD)),
-    "Q's loads": _sub("for (int hh = 0; hh < nh; ++hh)\n      load_tile<W, PQ, kRows, kThreads>",
-                      "for (int hh = 0; hh < 0; ++hh)\n      load_tile<W, PQ, kRows, kThreads>", _FWD),
+    "Q's loads": _sub("for (int hh = 0; hh < nh; ++hh) {\n      if constexpr (kBf16)",
+                      "for (int hh = 0; hh < 0; ++hh) {\n      if constexpr (kBf16)", _FWD),
 }
 # K2 and K4: edits of their shared body
 _BWD = "hstu_attention_bwd_dkv.cuh"
 _K24: Dict[str, Edit] = {
     "mma.sync (plain adds instead)": _NO_MMA,
     "the split (big = x, small = 0)": _NO_SPLIT,
+    # the float32 branch's loads: the variants time the float32 entry points
     "Q and dO loads": _both(
-        _sub("(Q, qb, p.q_sn, r0, length, p.D,", "(Q, qb, p.q_sn, r0, 0, p.D,", _BWD),
-        _sub("(Q + BQ * PK, ob, p.do_sn, r0, length, p.V,", "(Q + BQ * PK, ob, p.do_sn, r0, 0, p.V,", _BWD)),
+        _sub("(Q, qb, p.q_sn, r0, length, p.D, p.vec_q != 0);", "(Q, qb, p.q_sn, r0, 0, p.D, p.vec_q != 0);", _BWD),
+        _sub("(Q + BQ * PK, ob, p.do_sn, r0, length, p.V, p.vec_do != 0);",
+             "(Q + BQ * PK, ob, p.do_sn, r0, 0, p.V, p.vec_do != 0);", _BWD)),
     "sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;", _BWD),
     "S and dP": _both(_sub("for (int ks = 0; ks < W / 8; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD),
                       _sub("for (int ks = 0; ks < WV / 8; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD)),

@@ -390,21 +390,22 @@ def test_dq_launch_plan_raises(args, match):
 
 
 _C_TYPES = {"const float*": ha._P, "float*": ha._P, "const int*": ha._P, "int*": ha._P, "void*": ha._P, "int": ha._I,
-            "long long": ha._L, "float": ha._F}
+            "long long": ha._L, "float": ha._F, "const __nv_bfloat16*": ha._P, "__nv_bfloat16*": ha._P}
 
 
 @pytest.mark.parametrize("name", sorted(ha._ARGTYPES))
 def test_argtypes_follow_the_c_signatures(name):
     """Each kernel's ctypes argument list has the types of its `extern "C"`
     entry point, parameter by parameter (the backward kernels' ends with
-    the four `vec_*` flags): a pointer or an int out of place would be cut
-    or misread without an error."""
+    the four `vec_*` flags), in the source of its library (a bfloat16 entry
+    point lives in its float32 kernel's): a pointer or an int out of place
+    would be cut or misread without an error."""
     import os
     import re
 
     from generative_recommenders_tpu_torch.ops.cuda import build
 
-    with open(os.path.join(build.CSRC_DIR, build.KERNEL_SOURCES[name])) as f:
+    with open(os.path.join(build.CSRC_DIR, build.KERNEL_SOURCES[ha._LIBRARY.get(name, name)])) as f:
         src = f.read()
     params = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S).group(1)
     types = [re.sub(r"\s+", " ", p.strip()).rsplit(" ", 1)[0] for p in params.split(",")]

@@ -26,7 +26,11 @@ tiles of 64 or 128 rows and groups of 1 or 2 heads, and sum in a fixed order
 counts, head counts and widths where those tilings end. K6 and K7 on
 bfloat16 are held to their bfloat16 plain versions within 2^-6 of each
 bfloat16 output's largest entry (the same rounding points; a sum taken in
-another order now and then rounds to the neighbouring bfloat16).
+another order now and then rounds to the neighbouring bfloat16); so are K1
+and K2 on bfloat16 (K1-bf16, K2-bf16), whose dk and dv are the same bits on
+every run. K7-det, the fixed-order relative-bias backward, gives the same
+bits in every output on a second run, and is held to 2e-5 of each output's
+largest entry in float32 (to 2^-6, the tables to 1e-5, on bfloat16).
 """
 
 import numpy as np
@@ -514,8 +518,8 @@ def test_relbias_kernels_match_plain(cuda, case, shape):
 @pytest.mark.gpu
 def test_relbias_attention_is_differentiable_on_the_card(cuda):
     """Autograd through `hstu_mha_dense_relbias_cuda` reaches q, k, v and
-    both tables by K7; under `torch.use_deterministic_algorithms(True)` the
-    backward raises a RuntimeError that names the kernel's wrapper."""
+    both tables by K7; under `torch.use_deterministic_algorithms(True)` by
+    K7-det (no raise), the same gradients within the tables' tolerance."""
     B, N, H, D, V, Nm, nb = 2, 70, 2, 32, 32, 80, 128
     q, k, v, lengths, ts, pos_w, ts_w, _ = _relbias_inputs(9, B, N, H, D, V, Nm, nb, False, cuda)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v, pos_w, ts_w)]
@@ -531,14 +535,20 @@ def test_relbias_attention_is_differentiable_on_the_card(cuda):
         scale = r.grad.abs().max().item()
         assert (leaf.grad - r.grad).abs().max().item() <= TABLE_TOL * scale + 1e-7
 
+    for leaf in leaves:
+        leaf.grad = None
+    det = hstu_mha_relbias_bwd_cuda.launches_det.count
     out = hstu_mha_dense_relbias_cuda(*leaves[:3], lengths, ts, *leaves[3:], max_seq_len=N)
     torch.use_deterministic_algorithms(True)
     try:
-        with pytest.raises(RuntimeError, match="hstu_mha_relbias_bwd_cuda does not have a deterministic"):
-            out.sum().backward()
+        out.square().sum().backward()
     finally:
         torch.use_deterministic_algorithms(False)
-    assert hstu_mha_relbias_bwd_cuda.launches.count == bwd + 1  # nothing was launched
+    assert hstu_mha_relbias_bwd_cuda.launches.count == bwd + 1  # K7 not again
+    assert hstu_mha_relbias_bwd_cuda.launches_det.count == det + 1
+    for leaf, r in zip(leaves, ref):
+        scale = r.grad.abs().max().item()
+        assert (leaf.grad - r.grad).abs().max().item() <= TABLE_TOL * scale + 1e-7
 
 
 @pytest.mark.gpu
@@ -697,3 +707,192 @@ def test_relbias_bf16_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="do must be bfloat16"):
         c7(qb, kb, vb, lengths, ts, pos_w, ts_w, torch.zeros(B, N, H, V, device=cuda))
     assert (c6.launches_bf16.count, c7.launches_bf16.count) == before
+
+
+# ------------------------------------------------ K1 and K2 on bfloat16
+def _bf16_err(got, want):
+    """|got - want|'s largest entry as a share of want's (float32 of both)."""
+    return (got.float() - want.float()).abs().max().item() / max(want.float().abs().max().item(), 1e-30)
+
+
+def _bf16_views(seed, B, N, H, D, V, device):
+    """q, k, v as bfloat16 views of one bfloat16 uvqk projection, and a
+    strided bfloat16 dO."""
+    rng = np.random.default_rng(seed)
+    proj = torch.as_tensor(rng.standard_normal((B, N, H * (2 * V + 2 * D))).astype(np.float32),
+                           device=device).to(torch.bfloat16)
+    _, v, q, k = torch.split(proj, [H * V, H * V, H * D, H * D], dim=-1)
+    do = torch.as_tensor(rng.standard_normal((N, B, H, V)).astype(np.float32), device=device)
+    return (q.reshape(B, N, H, D), k.reshape(B, N, H, D), v.reshape(B, N, H, V),
+            do.to(torch.bfloat16).transpose(0, 1))
+
+
+def _dense_bf16_checks(q, k, v, lengths, do, kw):
+    """K1-bf16 and K2-bf16 against their bfloat16 plain versions: each
+    launch counted once as a bfloat16 launch (no float32 launch), every
+    output bfloat16 within `BF16_TOL` of its largest entry, rows >= length
+    exactly 0, dk and dv the same bits on a second run."""
+    before = (hstu_mha_dense_cuda.launches.count, hstu_mha_dense_cuda.launches_bf16.count,
+              hstu_mha_bwd_cuda.launches_bf16.count, *_bwd_counts())
+    got = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+    grads = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+    after = (hstu_mha_dense_cuda.launches.count, hstu_mha_dense_cuda.launches_bf16.count,
+             hstu_mha_bwd_cuda.launches_bf16.count, *_bwd_counts())
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 0, 0, 0]
+    want = [hstu_mha_dense_plain(q, k, v, lengths, **kw), *hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)]
+    dead = torch.arange(q.shape[1], device=q.device)[None, :] >= lengths[:, None]
+    for name, g, w in zip(("out", "dq", "dk", "dv"), [got, *grads], want):
+        assert g.dtype == w.dtype == torch.bfloat16, name
+        assert _bf16_err(g, w) <= BF16_TOL, f"{name}: {_bf16_err(g, w):.2e} of its max"
+        assert (g[dead] == 0).all(), name
+    again = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha", [1.0, 0.125])
+@pytest.mark.parametrize("case", CASES)
+def test_dense_bf16_kernels_match_plain(cuda, case, alpha):
+    """K1-bf16 and K2-bf16 on bfloat16 views of one projection, at alpha 1
+    (the research model's) and 1/8 (alpha q rounded to bfloat16), with each
+    mask case; a row of length 0 beside full ones."""
+    case = dict(case)
+    nt_on = case.pop("num_targets", False)
+    B, N, H, D, V = 3, 150, 2, 32, 32
+    q, k, v, do = _bf16_views(21, B, N, H, D, V, cuda)
+    lengths = torch.tensor([N, 77, 0], dtype=torch.int32, device=cuda)
+    nt = torch.tensor([3, 2, 0], dtype=torch.int32, device=cuda) if nt_on else None
+    _dense_bf16_checks(q, k, v, lengths, do, dict(alpha=alpha, max_seq_len=N + 7, num_targets=nt, **case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name", ["tile edges", "D=V=32, H=3", "D=V=64, H=3", "D=V=25", "D=256, V=128", "targets and contextual rows", "window"]
+)
+def test_dense_bf16_kernels_at_their_seams(cuda, name):
+    """K1-bf16 and K2-bf16 where the forward's and the backward's tilings
+    end (the float32 seams' inputs rounded to bfloat16)."""
+    q, k, v, lengths, kw = _dense_seam(name, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(q.shape[1], q.shape[0], q.shape[2], v.shape[3], device=cuda).to(torch.bfloat16).transpose(0, 1)
+    _dense_bf16_checks(q, k, v, lengths, do, kw)
+
+
+@pytest.mark.gpu
+def test_dense_bf16_attention_is_differentiable_on_the_card(cuda):
+    """Autograd through `hstu_mha_dense_cuda` on bfloat16 reaches q, k and v
+    by K1-bf16 and K2-bf16; under deterministic algorithms the bfloat16
+    backward raises a RuntimeError naming K3/K4-bf16 (nothing launched), or
+    with ``warn_only`` warns and takes K2-bf16."""
+    B, N, H, D, V = 2, 70, 2, 32, 32
+    q, k, v, _ = _bf16_views(22, B, N, H, D, V, cuda)
+    lengths = torch.tensor([N, 41], dtype=torch.int32, device=cuda)
+    weight = torch.randn(B, N, H, V, device=cuda)
+
+    def grads():
+        leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+        (hstu_mha_dense_cuda(*leaves, lengths).float() * weight).sum().backward()
+        return [x.grad for x in leaves]
+
+    k2 = hstu_mha_bwd_cuda.launches_bf16.count
+    got = grads()
+    assert hstu_mha_bwd_cuda.launches_bf16.count == k2 + 1
+    want = hstu_mha_bwd_plain(q, k, v, lengths, weight.to(torch.bfloat16))
+    for g, w in zip(got, want):
+        assert _bf16_err(g, w) <= BF16_TOL
+    split = _bwd_counts()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(RuntimeError, match="K3/K4-bf16"):
+            grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert hstu_mha_bwd_cuda.launches_bf16.count == k2 + 1 and _bwd_counts() == split
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with pytest.warns(UserWarning, match="K3/K4-bf16"):
+            grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert hstu_mha_bwd_cuda.launches_bf16.count == k2 + 2
+
+
+# ------------------------------------------- K7-det, the fixed-order K7
+DET_TOL = 2e-5  # of an output's largest entry, float32
+DET_TABLE_TOL_BF16 = 1e-5  # of a table gradient's largest entry, bfloat16 inputs
+
+
+def _det_checks(args, do, kw, bf16):
+    """K7-det against the plain backward, its launch counted once as K7-det
+    (float32 or bfloat16) and nothing else; every output, tables included,
+    the same bits on a second run; rows >= length exactly 0."""
+    c = hstu_mha_relbias_bwd_cuda
+    counters = (c.launches, c.launches_bf16, c.launches_det, c.launches_det_bf16)
+    before = [x.count for x in counters]
+    grads = c(*args, do, deterministic=True, **kw)
+    assert [x.count - b for x, b in zip(counters, before)] == ([0, 0, 0, 1] if bf16 else [0, 0, 1, 0])
+    again = c(*args, do, deterministic=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = hstu_mha_relbias_bwd_plain(*args, do, **kw)
+    q, lengths = args[0], args[3]
+    dead = torch.arange(q.shape[1], device=q.device)[None, :] >= lengths[:, None]
+    for name, g, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, want):
+        table = name.startswith("dpos") or name.startswith("dts")
+        assert g.dtype == w.dtype == (torch.float32 if table or not bf16 else torch.bfloat16), name
+        tol = (DET_TABLE_TOL_BF16 if table else BF16_TOL) if bf16 else DET_TOL
+        assert _bf16_err(g, w) <= tol, f"{name}: {_bf16_err(g, w):.2e} of its max"
+        if not table:
+            assert (g[dead] == 0).all(), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RELBIAS_CASES)
+@pytest.mark.parametrize("shape", [(3, 211, 2, 32, 32, 211, 128), (2, 100, 2, 25, 25, 120, 40)])
+def test_relbias_det_matches_plain(cuda, case, shape, bf16):
+    """K7-det (float32; bfloat16 at alpha 1) at the research widths with each
+    mask case."""
+    case = dict(case)
+    B, N, H, D, V, Nm, nb = shape
+    nt_on = case.pop("num_targets", False)
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(23, B, N, H, D, V, Nm, nb, nt_on, cuda)
+    if bf16:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(N, B, H, V, device=cuda).to(q.dtype).transpose(0, 1)  # strided
+    kw = dict(alpha=1.0 if bf16 else 0.8, max_seq_len=N, num_buckets=nb, num_targets=nt, **case)
+    _det_checks((q, k, v, lengths, ts, pos_w, ts_w), do, kw, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "name",
+    ["tile edges", "H=1", "H=3", "H=8", "D=V=25", "D=V=50, H=1", "N > Nm", "targets and contextual rows"],
+)
+def test_relbias_det_at_its_seams(cuda, name, bf16):
+    """K7-det where K7's tile pairs and head groups and K3's query tiles end,
+    and where clipped diagonals share one table entry (N > Nm)."""
+    args, kw = _relbias_seam(name, cuda)
+    if bf16:
+        args = tuple(x.to(torch.bfloat16) for x in args[:3]) + args[3:]
+        kw = dict(kw, alpha=1.0)
+    q, v = args[0], args[2]
+    do = torch.randn(q.shape[1], q.shape[0], q.shape[2], v.shape[3], device=cuda).to(q.dtype).transpose(0, 1)
+    _det_checks(args, do, kw, bf16)
+
+
+@pytest.mark.gpu
+def test_relbias_det_plan_matches_the_launch(cuda):
+    """`_relbias_det_plan`'s partial buffer is what K7-det writes: at
+    ml-1m large's shape, the blocks' rows sum to the table gradients."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    B, N, H, D, V, Nm, nb = 4, 211, 2, 25, 25, 211, 128
+    q, k, v, lengths, ts, pos_w, ts_w, _ = _relbias_inputs(24, B, N, H, D, V, Nm, nb, False, cuda)
+    plan = hr._relbias_det_plan(D, V, H, B, N, Nm, nb)
+    assert plan["partial_shape"] == (4 * 1 * B, 2 * Nm - 1 + nb + 1)
+    do = torch.randn(B, N, H, V, device=cuda)
+    grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, deterministic=True, max_seq_len=N)
+    want = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, max_seq_len=N)
+    for g, w in zip(grads[3:], want[3:]):
+        assert _bf16_err(g, w) <= DET_TOL

@@ -3,7 +3,7 @@ plain version (`hstu_mha_dense_relbias_plain`, and the wrappers on CPU
 tensors) against `hstu_mha_dense_pallas_relbias` in interpret mode, forward
 and, by `jax.grad` against autograd, backward (dq, dk, dv and both bias
 tables' gradients); the wiring of the autograd function that joins K6 and K7
-on the card; the raise under deterministic mode; the lengths at which the
+on the card, and its K7-det under deterministic mode; the lengths at which the
 CUDA backward's 64 x 64 tile pairs and the forward's 32-column key tiles
 end, and head counts that the forward's and backward's head groups do not
 fill; and what K6's and K7's wrappers compute in Python (head width, head
@@ -14,6 +14,8 @@ Tolerances as that file's: forward rtol = atol = 2e-5, gradients 2e-4 (both
 sides are float32 but sum in different orders; a table entry sums up to
 B * H * N^2 / 2 terms).
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -146,7 +148,8 @@ def test_bias_reads_the_next_timestamp_past_the_length():
 def _stand_ins(monkeypatch):
     """K6's launch replaced by the plain forward on CPU tensors, with the
     arguments the launch helper gets; the backward wrapper (which computes
-    the plain backward on CPU tensors) recorded. Returns the list of calls."""
+    the plain backward on CPU tensors) recorded as K7, or as K7-det where it
+    is asked for the fixed order. Returns the list of calls."""
     called = []
 
     def fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw):
@@ -159,7 +162,8 @@ def _stand_ins(monkeypatch):
     bwd = hr.hstu_mha_relbias_bwd_cuda
     monkeypatch.setattr(hr, "_relbias_fwd", fwd)
     monkeypatch.setattr(
-        hr, "hstu_mha_relbias_bwd_cuda", lambda *a, **kw: called.append("K7") or bwd(*a, **kw)
+        hr, "hstu_mha_relbias_bwd_cuda",
+        lambda *a, **kw: called.append("K7-det" if kw["deterministic"] else "K7") or bwd(*a, **kw),
     )
     return called
 
@@ -237,28 +241,33 @@ def test_timestamps_are_cast_before_they_are_subtracted():
 
 @pytest.mark.parametrize("warn_only", [False, True])
 def test_backward_raises_under_deterministic_mode(warn_only, monkeypatch):
-    """K7 sums with atomics and has no split twin: under
-    `torch.use_deterministic_algorithms(True)` the backward raises a
-    RuntimeError that names it, or warns under ``warn_only``."""
+    """Under `torch.use_deterministic_algorithms(True)`, with or without
+    ``warn_only``, the backward no longer raises or warns (K7 sums with
+    atomics; the refusal is gone): it takes K7-det, the fixed-order
+    backward, and gives the plain version's gradients."""
     B, N, H, D, V, Nm = 2, 12, 2, 8, 8, 12
     q, k, v, lengths, ts, pos_w, ts_w = _setup(13, B, N, H, D, V, Nm, nb=8)
     kw = dict(alpha=1.0, max_seq_len=N, causal=True, max_attn_len=0,
               contextual_seq_len=0, min_full_attn_seq_len=0)
-    weight = torch.ones(B, N, H * V)
-    _stand_ins(monkeypatch)
+    weight = torch.as_tensor(np.random.default_rng(14).standard_normal((B, N, H * V)).astype(np.float32))
+    called = _stand_ins(monkeypatch)
     prev = torch.are_deterministic_algorithms_enabled()
     prev_warn = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
-        if warn_only:
-            with pytest.warns(UserWarning, match="hstu_mha_relbias_bwd_cuda"):
-                grads = _through_the_function(q, k, v, lengths, ts, pos_w, ts_w, None, weight, kw)
-            assert all(g is not None for g in grads)
-        else:
-            with pytest.raises(RuntimeError, match="hstu_mha_relbias_bwd_cuda does not have a deterministic"):
-                _through_the_function(q, k, v, lengths, ts, pos_w, ts_w, None, weight, kw)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got = _through_the_function(q, k, v, lengths, ts, pos_w, ts_w, None, weight, kw)
     finally:
         torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
+    assert called == ["K6", "K7-det"]
+    t = torch.as_tensor
+    ref = [t(x).requires_grad_(True) for x in (q, k, v, pos_w, ts_w)]
+    out = hr.hstu_mha_dense_relbias_plain(*ref[:3], t(lengths), t(ts), *ref[3:], num_buckets=8, **kw)
+    (out.reshape(B, N, H * V) * weight).sum().backward()
+    dv, dq, dk = torch.split(got[0], [H * V, H * D, H * D], dim=-1)
+    for g, r in zip((dq.reshape(B, N, H, D), dk.reshape(B, N, H, D), dv.reshape(B, N, H, V), got[1], got[2]), ref):
+        torch.testing.assert_close(g, r.grad, rtol=1e-5, atol=1e-6)
 
 
 def test_input_checks(monkeypatch):
