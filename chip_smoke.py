@@ -34,10 +34,21 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    at the research shape, at the seams of its tilings (tile edges, head
    groups that end unfilled, N > Nm) and (in the ml-1m phase) at the ml-1m
    large preset's, every output the same bits on a second run, timed
-   against K7 in the same call; K1 and K2 on bfloat16 (the bias-free
-   research model's first block) against their bfloat16 plain versions at
-   the ml-3b layer-0 shape, at bench.py's shape (B 8, N 2048, H 4, D 64,
-   alpha 1/8) and at their seams, timed, with their bounds;
+   against K7 in the same call; K6-bf16, K7-bf16 and K7-det-bf16 at alpha
+   1/8 and 0.3 (alpha q rounded to bfloat16); K1 to K4 on bfloat16 (the bias-free
+   research model's first block; K3-bf16 + K4-bf16 its deterministic
+   backward, every output the same bits twice) against their bfloat16 plain
+   versions at the ml-3b layer-0 shape, at bench.py's shape (B 8, N 2048,
+   H 4, D 64, alpha 1/8), at its width at N 4096 (where the JAX package
+   takes the split backward on bfloat16) and at their seams, timed, with
+   their bounds; K1-bias (K1 with an additive [B, N, N] bias, float32 and
+   bfloat16) at the serving shape with a per-row and a broadcast bias, at
+   the tile edges with targets and contextual rows and a bfloat16 bias, and
+   with a bias read element by element, timed beside K1 without the bias;
+   then the biased-attention parity phase: the ml-3b relative bias
+   materialised on a corpus batch through K1-bias against its plain version
+   and K6's in-kernel bias (float32 and bfloat16), timed there, its launches
+   counted as a main path's;
 3. serving phase: runs the port's serving CLI in the Offline scenario at the
    full width of the `debug` preset, once dense and once with --mfalcon,
    with the launch counters set to 0 just before each run and read just
@@ -119,7 +130,10 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    twice from one seed, 2 + 10 steps each, losses and every parameter
    bit-identical and the relative-bias backward on K7-det; the ml-3b preset
    in float32, 2 + 5 steps, its median against the research phase's, both
-   profiled; a small bfloat16 model twice (K7-det-bf16 in block 0). Between
+   profiled; a small bfloat16 model twice (K7-det-bf16 in block 0); a small
+   bias-free bfloat16 model twice (K3-bf16 + K4-bf16 in block 0, K3 + K4 in
+   the others, warn_only off); the ml-3b preset bias-free in bfloat16, 2 + 5
+   steps, its launches and median against the bias-free phase's. Between
    the two: the preset with
    attention dropout 0.2 (2 + 10 steps through the plain composite, 0 K6 /
    K7 a step, K6 in the eval) and the position-only bias (no timestamps:
@@ -260,8 +274,10 @@ DET_RESEARCH_STEPS, DET_ML3B_STEPS = 10, 5
 # its process's cuBLAS workspace (its alone) and time limit
 DET_CUBLAS_WORKSPACE, DET_TIMEOUT = ":4096:8", 600
 # bench.py's attention pair, used here as a kernel shape only (B, N, H, D;
-# alpha 1 / sqrt(D); lengths from default_rng(0))
-BENCH_SHAPE = (8, 2048, 4, 64)
+# alpha 1 / sqrt(D); lengths from default_rng(0)); at its width the JAX
+# package's backward outgrows VMEM on bfloat16 from N 4096 on and takes the
+# split kernels (`_use_resident_bwd`), which K3-bf16 + K4-bf16 replace
+BENCH_SHAPE, BENCH_SPLIT_N = (8, 2048, 4, 64), 4096
 # one step's gradients with and without per-block recomputation, dropout on,
 # on the card: the same kernels on the same inputs, but K7 sums dq and the
 # tables with atomics in an order that changes from run to run
@@ -552,20 +568,23 @@ def kernel_counters() -> dict:
         hstu_mha_relbias_bwd_cuda,
     )
 
-    bwd = hstu_mha_bwd_cuda.launches
+    fwd, bwd = hstu_mha_dense_cuda.launches, hstu_mha_bwd_cuda.launches
     return {
-        "K1": hstu_mha_dense_cuda.launches, "K5": delta_hstu_mha_cuda.launches,
+        "K1": fwd["hstu_mha_fwd"], "K5": delta_hstu_mha_cuda.launches,
         "K2": bwd["hstu_mha_bwd_fused"], "K3": bwd["hstu_mha_bwd_dq"], "K4": bwd["hstu_mha_bwd_dkv"],
         "K6": hstu_mha_dense_relbias_cuda.launches, "K7": hstu_mha_relbias_bwd_cuda.launches,
-        "K1-bf16": hstu_mha_dense_cuda.launches_bf16, "K2-bf16": hstu_mha_bwd_cuda.launches_bf16,
+        "K1-bf16": fwd["hstu_mha_fwd_bf16"], "K2-bf16": bwd["hstu_mha_bwd_fused_bf16"],
+        "K3-bf16": bwd["hstu_mha_bwd_dq_bf16"], "K4-bf16": bwd["hstu_mha_bwd_dkv_bf16"],
         "K6-bf16": hstu_mha_dense_relbias_cuda.launches_bf16, "K7-bf16": hstu_mha_relbias_bwd_cuda.launches_bf16,
         "K7-det": hstu_mha_relbias_bwd_cuda.launches_det,
         "K7-det-bf16": hstu_mha_relbias_bwd_cuda.launches_det_bf16,
+        "K1-bias": fwd["hstu_mha_fwd_bias"], "K1-bias-bf16": fwd["hstu_mha_fwd_bias_bf16"],
     }
 
 
 # the counters a run reports only where they launched
-OPTIONAL_KERNELS = ("K1-bf16", "K2-bf16", "K6-bf16", "K7-bf16", "K7-det", "K7-det-bf16")
+OPTIONAL_KERNELS = ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16", "K6-bf16", "K7-bf16", "K7-det", "K7-det-bf16",
+                    "K1-bias", "K1-bias-bf16")
 
 
 def small_research():
@@ -689,14 +708,17 @@ def rank_main(argv) -> None:
 def det_main(argv) -> None:
     """The deterministic research phase, in a process of its own:
     ``chip_smoke.py det <the ml-1m phase's median step, ms> <the research
-    phase's, ms>``, started by `main` with CUBLAS_WORKSPACE_CONFIG set for
-    it alone (torch.use_deterministic_algorithms needs it before the first
-    cuBLAS call). Under deterministic algorithms the relative-bias backward
-    takes K7-det, so two runs from one seed give the same bits: the ml-1m
-    large preset twice, the ml-3b preset in float32 against the research
-    phase's median, a small bfloat16 model twice. Reads the files the
-    earlier phases wrote under DATA_ROOT. Prints its report, then its
-    launches as one line ``DET_RESULT <json>``."""
+    phase's, ms> <the bias-free bfloat16 phase's, ms>``, started by `main`
+    with CUBLAS_WORKSPACE_CONFIG set for it alone
+    (torch.use_deterministic_algorithms needs it before the first cuBLAS
+    call). Under deterministic algorithms the relative-bias backward takes
+    K7-det and the bias-free one K3 + K4 (K3-bf16 + K4-bf16 on bfloat16), so
+    two runs from one seed give the same bits: the ml-1m large preset twice,
+    the ml-3b preset in float32 against the research phase's median, a small
+    bfloat16 model twice, a small bias-free bfloat16 model twice, the ml-3b
+    preset bias-free in bfloat16 against the bias-free phase's median.
+    Reads the files the earlier phases wrote under DATA_ROOT. Prints its
+    report, then its launches as one line ``DET_RESULT <json>``."""
     import torch
 
     from generative_recommenders_tpu_torch.configs.research import RESEARCH_PRESETS
@@ -706,7 +728,7 @@ def det_main(argv) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    m_med, r_median = map(float, argv)
+    m_med, r_median, f_median = map(float, argv)
     all_counters = kernel_counters()
     total = dict.fromkeys(all_counters, 0)
 
@@ -825,6 +847,34 @@ def det_main(argv) -> None:
     det_twice("small bfloat16 research model, deterministic", small16, sds, 2,
               {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 4, "K7": 0, "K6-bf16": 2,
                "K7-det": 4, "K7-det-bf16": 2})
+    # the same bias-free: block 0's backward on K3-bf16 + K4-bf16, the other
+    # blocks' on K3 + K4, no atomics anywhere (no K2, no K2-bf16), with
+    # warn_only off
+    free16 = dataclasses.replace(small16, model=dataclasses.replace(small16.model,
+                                                                    enable_relative_attention_bias=False))
+    det_twice("small bias-free bfloat16 research model, deterministic", free16, sds, 2,
+              {"K1": 4, "K2": 0, "K3": 4, "K4": 4, "K5": 0, "K6": 0, "K7": 0, "K1-bf16": 2, "K3-bf16": 2,
+               "K4-bf16": 2})
+    check(not det_mode["warn_only"], "an operation of a deterministic step refused with warn_only off")
+    # the ml-3b preset bias-free in bfloat16 under deterministic algorithms,
+    # against the bias-free bfloat16 phase's median (both in this call)
+    fcfg = dataclasses.replace(rcfg, model=dataclasses.replace(rm, compute_dtype="bfloat16",
+                                                               enable_relative_attention_bias=False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tf_, lf_, sf_, n_f = det_steps(fcfg, shard_train, n3, 11)
+    rest = (rm.num_blocks - 1) * n3
+    want_f = {"K1": rest, "K2": 0, "K3": rest, "K4": rest, "K5": 0, "K6": 0, "K7": 0, "K1-bf16": n3,
+              "K3-bf16": n3, "K4-bf16": n3}
+    check(n_f == want_f and all(math.isfinite(x) for x in lf_) and not det_mode["warn_only"],
+          f"deterministic bias-free bfloat16 ml-3b: launched {n_f} (expected {want_f}), losses {lf_}, warn_only "
+          f"{det_mode['warn_only']}")
+    f_det_med = 1e3 * median(sf_[RESEARCH_WARMUPS:])
+    print(f"  {RESEARCH_PRESET} bias-free in bfloat16, deterministic, {RESEARCH_WARMUPS} + {DET_ML3B_STEPS} steps: "
+          f"median step {f_det_med:.2f} ms against the bias-free bfloat16 phase's {f_median:.2f} ms "
+          f"({f_det_med / f_median:.2f}x); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {n_f} (warn_only {det_mode['warn_only']})")
+    del tf_
     print("DET_RESULT " + json.dumps(total), flush=True)
 
 
@@ -939,6 +989,7 @@ def main() -> None:
             hstu_mha_dense_relbias_plain,
             hstu_mha_relbias_bwd_cuda,
             hstu_mha_relbias_bwd_plain,
+            relative_bias_plain,
         )
         from generative_recommenders_tpu_torch.ops.hstu_compute import hstu_compute_uqvk
         from generative_recommenders_tpu_torch.train.dlrm_train import (
@@ -1144,6 +1195,62 @@ def main() -> None:
     ).sum().item()
     k1_flops = live * H * 2 * (D + V)
     k1_bytes = 4 * (serve_len.sum().item() * H * (2 * D + V) + B * N_full * H * V + B * 2)
+
+    # K1-bias: K1 with an additive [B, N, N] bias added to S before silu (the
+    # forward-only path of `hstu_mha_dense_pallas(bias=...)`), float32 and
+    # bfloat16 q, k, v, against its plain version
+    bias_errs = {"K1-bias": [], "K1-bias-bf16": []}
+
+    def bias_case(name, Bc, N, lengths, nt=None, Hc=H, Dc=D, Vc=V, qkv=None, bias=None, bf16=False, **kw):
+        """K1-bias (on bfloat16 q, k, v: K1-bias-bf16) against its plain
+        version, with ``bias`` (by default a float32 [Bc, N, N] one): dead
+        rows exactly 0, the same bits on a second run."""
+        label = "K1-bias-bf16" if bf16 else "K1-bias"
+        q_, k_, v_ = qkv or (rand(Bc, N, Hc, Dc), rand(Bc, N, Hc, Dc), rand(Bc, N, Hc, Vc))
+        if bf16:
+            q_, k_, v_ = (x.to(torch.bfloat16) for x in (q_, k_, v_))
+        args = dict(alpha=1.0 / Dc**0.5, max_seq_len=kw.pop("max_seq_len", N), num_targets=nt,
+                    bias=rand(Bc, N, N) if bias is None else bias, **kw)
+        poison_allocator(Bc * N * Hc * Vc * 4)
+        got = hstu_mha_dense_cuda(q_, k_, v_, lengths, **args)
+        want = hstu_mha_dense_plain(q_, k_, v_, lengths, **args)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == q_.dtype, f"{label} {name}: output types {got.dtype}, {want.dtype}")
+        check(torch.equal(got, hstu_mha_dense_cuda(q_, k_, v_, lengths, **args)),
+              f"{label} {name}: two runs differ in their bits")
+        dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
+        bias_errs[label].append(compare(f"{label} {name}", got.float(), want.float(), dead,
+                                        rel_tol=BF16_TOL if bf16 else REL_TOL))
+
+    print(f"K1-bias (K1 with an additive [B, N, N] bias) vs its plain version (outputs {REL_TOL} of their max in "
+          f"float32, {BF16_TOL:.4g} on bfloat16):")
+    serve_bias = rand(B, N_full, N_full)
+    for bf16_ in (False, True):
+        bias_case(f"serving shape (B={B}, N={N_full}, H={H}, D=V={D}), q/k/v split from the uvqk projection, a "
+                  "float32 [B, N, N] bias", B, N_full, serve_len, nc, qkv=(q, k, v), bias=serve_bias, bf16=bf16_,
+                  max_seq_len=norm, contextual_seq_len=C)
+        bias_case("serving shape, one [1, N, N] bias broadcast over the batch", B, N_full, serve_len, nc,
+                  qkv=(q, k, v), bias=serve_bias[:1], bf16=bf16_, max_seq_len=norm, contextual_seq_len=C)
+        bias_case("lengths at the tile edges (31 .. 129), targets and contextual rows, a bfloat16 bias", 9, 140,
+                  fwd_edges, ints(0, 20, 9).clamp(max=fwd_edges - C - 1), bias=rand(9, 140, 140).to(torch.bfloat16),
+                  bf16=bf16_, contextual_seq_len=C)
+        bias_case("N=97, D=V=32, H=3, its rows at an odd pitch (the bias read one element at a time)", 5, 97,
+                  ints(1, 98, 5), Hc=3, Dc=32, Vc=32, bias=rand(5, 97, 98)[..., :97], bf16=bf16_)
+        bias_case("D=V=64, a window with full-attention rows", 4, 150, ints(20, 151, 4), ints(0, 10, 4), Hc=2,
+                  Dc=64, Vc=64, bf16=bf16_, max_attn_len=16, min_full_attn_seq_len=8)
+    # times and bounds at the serving shape with the float32 [B, N, N] bias:
+    # K1's work and the bias's live elements, 4 bytes each
+    kb_args = dict(k1_args, bias=serve_bias)
+    q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+    kb_ms = device_time_ms(lambda: hstu_mha_dense_cuda(q, k, v, serve_len, **kb_args), 50)
+    kb_plain_ms = device_time_ms(lambda: hstu_mha_dense_plain(q, k, v, serve_len, **kb_args), 5)
+    kb16_ms = device_time_ms(lambda: hstu_mha_dense_cuda(q16, k16, v16, serve_len, **kb_args), 50)
+    kb16_plain_ms = device_time_ms(lambda: hstu_mha_dense_plain(q16, k16, v16, serve_len, **kb_args), 5)
+    k1_again_ms = device_time_ms(lambda: hstu_mha_dense_cuda(q, k, v, serve_len, **k1_args), 50)
+    print(f"  serving shape: K1-bias {kb_ms:.4f} ms (plain {kb_plain_ms:.4f}), K1-bias-bf16 {kb16_ms:.4f} ms "
+          f"(plain {kb16_plain_ms:.4f}), K1 without the bias {k1_again_ms:.4f} ms in this call; the bias's live "
+          f"elements {live} ({4 * live / 2**20:.1f} MiB of float32)")
+    del serve_bias, q16, k16, v16
 
     Nd = C + MAX_UIH + CHUNK
     # M-FALCON pads the cache, so its k and v are contiguous; q is a view
@@ -1556,16 +1663,16 @@ def main() -> None:
     det_errs = {"K7-det": [], "K7-det-bf16": []}
 
     def det_case(name, Bc, N, lengths, ts, Nm=None, nb=128, nt=None, Hc=2, Dc=RD, Vc=RV, bf16=False,
-                 qkv=None, **kw):
-        """K7-det (bfloat16: K7-det-bf16, alpha 1) against the plain backward
-        on uvqk views and a strided dO: every output, the tables included, the
-        same bits on a second run; dead rows exactly 0."""
+                 qkv=None, alpha_=1.0, **kw):
+        """K7-det (bfloat16: K7-det-bf16) against the plain backward on uvqk
+        views and a strided dO: every output, the tables included, the same
+        bits on a second run; dead rows exactly 0."""
         label = "K7-det-bf16" if bf16 else "K7-det"
         dtype = torch.bfloat16 if bf16 else torch.float32
         q, k, v = qkv or relbias_views(Bc, N, Hc, Dc, Vc, dtype)
         pos_w, ts_w = bias_tables(Nm or N, nb)
         do = rand(N, Bc, Hc, Vc).to(dtype).transpose(0, 1)
-        args = dict(alpha=1.0, max_seq_len=N, num_buckets=nb, num_targets=nt, **kw)
+        args = dict(alpha=alpha_, max_seq_len=N, num_buckets=nb, num_targets=nt, **kw)
         dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
         poison_allocator(3 * Bc * N * Hc * max(Dc, Vc) * 4)
         grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, deterministic=True, **args)
@@ -1611,18 +1718,18 @@ def main() -> None:
     # under compute_dtype="bfloat16"
     bf16_errs = {"K6-bf16": [], "K7-bf16": []}
 
-    def relbias_bf16_case(name, Bc, N, lengths, ts, Hc, Dc, Vc):
+    def relbias_bf16_case(name, Bc, N, lengths, ts, Hc, Dc, Vc, alpha_=1.0):
         """K6 and K7 on bfloat16 views of one bfloat16 uvqk projection and a
         strided bfloat16 dO, against their bfloat16 plain versions (the same
-        rounding points); dead rows exactly 0, dk and dv the same bits on a
-        second run."""
+        rounding points, alpha q rounded to bfloat16 where alpha != 1); dead
+        rows exactly 0, dk and dv the same bits on a second run."""
         bf = torch.bfloat16
         proj = rand(Bc, N, Hc * (2 * Vc + 2 * Dc)).to(bf)
         _, v, q, k = torch.split(proj, [Hc * Vc, Hc * Vc, Hc * Dc, Hc * Dc], dim=-1)
         q, k, v = q.reshape(Bc, N, Hc, Dc), k.reshape(Bc, N, Hc, Dc), v.reshape(Bc, N, Hc, Vc)
         pos_w, ts_w = bias_tables(N, 128)
         do = rand(N, Bc, Hc, Vc).to(bf).transpose(0, 1)
-        args = dict(alpha=1.0, max_seq_len=N, num_buckets=128)
+        args = dict(alpha=alpha_, max_seq_len=N, num_buckets=128)
         dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
         poison_allocator(Bc * N * Hc * Vc * 2)
         got = hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **args)
@@ -1694,17 +1801,42 @@ def main() -> None:
     print(f"  ml-3b layer 0: K7-det-bf16 {k7db_ms:.4f} ms against K7-bf16 {k7b_again_ms:.4f} ms in this call "
           f"({k7db_ms / k7b_again_ms:.2f}x)")
     del rb_case, q_, k_, v_, do_
+    # alpha other than 1 on bfloat16: the kernels form alpha q in bfloat16 as
+    # the Pallas pair does (the research model's alpha is 1)
+    print("K6-bf16, K7-bf16 and K7-det-bf16 at alpha 1/8 and 0.3 (alpha q rounded to bfloat16):")
+    rb8_case = relbias_bf16_case(f"ml-3b layer 0 (B={RB}, N={RN}, H={RH}, D=V={RD}), alpha 1/8", RB, RN, r_len,
+                                 r_ts, RH, RD, RV, alpha_=0.125)
+    det_case(f"ml-3b layer 0 (B={RB}, N={RN}, H={RH}, D=V={RD}), alpha 1/8, on the bfloat16 case's q, k, v", RB,
+             RN, r_len, r_ts, Hc=RH, bf16=True, qkv=rb8_case[:3], alpha_=0.125)
+    # 0.3 is not a bfloat16 number, so bfloat16(alpha q) differs from alpha q
+    e_ts = random_ts(6, 140, edges)
+    a3_case = relbias_bf16_case("H=3, lengths at the tile edges (63 .. 129), alpha 0.3", 6, 140, edges, e_ts, 3,
+                                RD, RV, alpha_=0.3)
+    det_case("H=3, lengths at the tile edges (63 .. 129), alpha 0.3, on the bfloat16 case's q, k, v", 6, 140, edges,
+             e_ts, Hc=3, bf16=True, qkv=a3_case[:3], alpha_=0.3)
+    del a3_case
+    # the scale rides the tile loads: alpha 1/8 against alpha 1 on the same inputs, in this call
+    q_, k_, v_, pw_, tw_, do_, a8 = rb8_case
+    k6b8 = [device_time_ms(lambda: hstu_mha_dense_relbias_cuda(q_, k_, v_, r_len, r_ts, pw_, tw_, **a_), 20)
+            for a_ in (dict(a8, alpha=1.0), a8)]
+    k7b8 = [device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(q_, k_, v_, r_len, r_ts, pw_, tw_, do_, **a_), 10)
+            for a_ in (dict(a8, alpha=1.0), a8)]
+    print(f"  ml-3b layer 0, the same inputs: K6-bf16 {k6b8[0]:.4f} ms at alpha 1, {k6b8[1]:.4f} ms at alpha 1/8; "
+          f"K7-bf16 {k7b8[0]:.4f} and {k7b8[1]:.4f} ms")
+    del rb8_case, q_, k_, v_, do_
     torch.cuda.empty_cache()
 
-    # K1 and K2 on bfloat16: the first block of the bias-free research model
-    # under compute_dtype="bfloat16" (enable_relative_attention_bias=False)
-    d16_errs = {"K1-bf16": [], "K2-bf16": []}
+    # K1 to K4 on bfloat16: the first block of the bias-free research model
+    # under compute_dtype="bfloat16" (enable_relative_attention_bias=False);
+    # K3-bf16 + K4-bf16 its deterministic backward
+    d16_errs = {"K1-bf16": [], "K2-bf16": [], "K3-bf16": [], "K4-bf16": []}
 
     def dense_bf16_case(name, Bc, N, lengths, Hc, Dc, Vc, nt=None, alpha_=1.0, qkv=None, **kw):
-        """K1-bf16 and K2-bf16 against their bfloat16 plain versions on
-        bfloat16 views of one uvqk projection (or ``qkv``) and a strided dO:
-        dead rows exactly 0, K1's output and K2's dk and dv the same bits on
-        a second run."""
+        """K1-bf16, K2-bf16 and K3-bf16 + K4-bf16 against their bfloat16
+        plain versions (one plain backward: the split rounds where the fused
+        kernel does) on bfloat16 views of one uvqk projection (or ``qkv``)
+        and a strided dO: dead rows exactly 0, K1's output, K2's dk and dv and
+        every output of the split the same bits on a second run."""
         bf = torch.bfloat16
         q, k, v = qkv or relbias_views(Bc, N, Hc, Dc, Vc, bf)
         do = rand(N, Bc, Hc, Vc).to(bf).transpose(0, 1)
@@ -1729,44 +1861,69 @@ def main() -> None:
         for g, a, w in zip(("dq", "dk", "dv"), grads, wants):
             check(a.dtype == w.dtype == bf, f"K2-bf16 {name} {g}: type {a.dtype}")
             d16_errs["K2-bf16"].append(compare(f"K2-bf16 {name} {g}", a.float(), w.float(), dead, rel_tol=BF16_TOL))
+        del grads
+        poison_allocator(3 * Bc * N * Hc * max(Dc, Vc) * 4)
+        split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **args)
+        again = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(split, again)),
+              f"K3-bf16 + K4-bf16 {name}: an output differs between two runs")
+        del again
+        for g, a, w in zip(("dq", "dk", "dv"), split, wants):
+            label = "K3-bf16" if g == "dq" else "K4-bf16"
+            check(a.dtype == w.dtype == bf, f"{label} {name} {g}: type {a.dtype}")
+            d16_errs[label].append(compare(f"{label} {name} {g}", a.float(), w.float(), dead, rel_tol=BF16_TOL))
         return q, k, v, do, args
 
     def dense_bf16_times(case, lengths, Bc, N, Hc, Dc, Vc):
-        """(K1-bf16 ms, K2-bf16 ms, plain K1 ms, plain K2 ms, K1's work, K2's
-        work) of a case; the work is (operations, bytes), 2 bytes for every
-        element of q, k, v, dO and the outputs (the live rows of the inputs,
-        every row of the outputs) and the lengths."""
+        """(K1-bf16 ms, K2-bf16 ms, plain K1 ms, plain K2 ms, K3-bf16 ms,
+        K4-bf16 ms, K1's work, K2's, K3's, K4's) of a case (K3 and K4 timed
+        one at a time, on the arguments the wrapper passes them; the plain
+        backward is the plain version of each); the work is (operations,
+        bytes), 2 bytes for every element of q, k, v, dO and the outputs (the
+        live rows of the inputs, every row of the outputs) and the lengths."""
         q_, k_, v_, do_, a_ = case
+        one = dict(alpha=a_["alpha"], max_seq_len=N, causal=True, max_attn_len=0, contextual_seq_len=0,
+                   min_full_attn_seq_len=0)
+        l_ = lengths.int()
         times = (
             device_time_ms(lambda: hstu_mha_dense_cuda(q_, k_, v_, lengths, **a_), 20),
             device_time_ms(lambda: hstu_mha_bwd_cuda(q_, k_, v_, lengths, do_, **a_), 10),
             device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, lengths, **a_), 3),
             device_time_ms(lambda: hstu_mha_bwd_plain(q_, k_, v_, lengths, do_, **a_), 2),
+            device_time_ms(lambda: _bwd_kernel("hstu_mha_bwd_dq_bf16", q_, k_, v_, l_, None, do_, one), 10),
+            device_time_ms(lambda: _bwd_kernel("hstu_mha_bwd_dkv_bf16", q_, k_, v_, l_, None, do_, one), 10),
         )
         live = apply_padding_guard(make_valid_attn_mask(N, lengths, num_targets=a_.get("num_targets")),
                                    lengths).sum().item()
         rows = lengths.sum().item() * Hc
+        rows_in = 2 * rows * (2 * Dc + 2 * Vc) + 4 * Bc  # q, k, v and dO's live rows, the lengths
         w1 = (live * Hc * 2 * (Dc + Vc), 2 * (rows * (2 * Dc + Vc) + Bc * N * Hc * Vc) + 4 * Bc)
-        w2 = (live * Hc * 2 * (3 * Dc + 2 * Vc), 2 * (rows * (2 * Dc + 2 * Vc) + Bc * N * Hc * (2 * Dc + Vc)) + 4 * Bc)
-        return times + (w1, w2)
+        w2 = (live * Hc * 2 * (3 * Dc + 2 * Vc), rows_in + 2 * Bc * N * Hc * (2 * Dc + Vc))
+        w3 = (live * Hc * 2 * (2 * Dc + Vc), rows_in + 2 * Bc * N * Hc * Dc)
+        w4 = (live * Hc * 2 * (2 * Dc + 2 * Vc), rows_in + 2 * Bc * N * Hc * (Dc + Vc))
+        return times + (w1, w2, w3, w4)
 
-    print(f"K1 and K2 on bfloat16 (K1-bf16, K2-bf16) vs their bfloat16 plain versions (outputs {BF16_TOL:.4g} of "
-          "their max):")
+    print(f"K1 to K4 on bfloat16 (K1-bf16, K2-bf16, K3-bf16 + K4-bf16) vs their bfloat16 plain versions (outputs "
+          f"{BF16_TOL:.4g} of their max):")
     d16_case = dense_bf16_case(f"ml-3b layer 0 (B={RB}, N={RN}, H={RH}, D=V={RD}, alpha 1), bfloat16 uvqk views, "
                                "lengths of a corpus batch", RB, RN, r_len, RH, RD, RV)
-    *d16_times, d16_w1, d16_w2 = dense_bf16_times(d16_case, r_len, RB, RN, RH, RD, RV)
+    *d16_times, d16_w1, d16_w2, d16_w3, d16_w4 = dense_bf16_times(d16_case, r_len, RB, RN, RH, RD, RV)
     del d16_case
     bB, bN, bH, bD = BENCH_SHAPE
-    brng = np.random.default_rng(0)
-    bench_len = torch.as_tensor(np.clip(brng.integers(bN // 8, bN, size=(bB,)), 1, bN), dtype=torch.int32,
-                                device="cuda")
-    bench_qkv = tuple(torch.as_tensor(brng.standard_normal((bB, bN, bH, bD), np.float32) * 0.1, device="cuda")
-                      .to(torch.bfloat16) for _ in range(3))
-    bench_case = dense_bf16_case(f"bench.py's shape (B={bB}, N={bN}, H={bH}, D={bD}, alpha 1/{bD**0.5:g}), "
-                                 "lengths from default_rng(0)", bB, bN, bench_len, bH, bD, bD, alpha_=bD**-0.5,
-                                 qkv=bench_qkv)
-    *b16_times, b16_w1, b16_w2 = dense_bf16_times(bench_case, bench_len, bB, bN, bH, bD, bD)
-    del bench_case, bench_qkv
+    b16 = {}  # bench.py's shape at N and at the N where the JAX package takes the split on bfloat16
+    for n_ in (bN, BENCH_SPLIT_N):
+        brng = np.random.default_rng(0)
+        bench_len = torch.as_tensor(np.clip(brng.integers(n_ // 8, n_, size=(bB,)), 1, n_), dtype=torch.int32,
+                                    device="cuda")
+        bench_qkv = tuple(torch.as_tensor(brng.standard_normal((bB, n_, bH, bD), np.float32) * 0.1, device="cuda")
+                          .to(torch.bfloat16) for _ in range(3))
+        bench_case = dense_bf16_case(f"bench.py's shape (B={bB}, N={n_}, H={bH}, D={bD}, alpha 1/{bD**0.5:g}), "
+                                     "lengths from default_rng(0)", bB, n_, bench_len, bH, bD, bD, alpha_=bD**-0.5,
+                                     qkv=bench_qkv)
+        b16[n_] = dense_bf16_times(bench_case, bench_len, bB, n_, bH, bD, bD)
+        del bench_case, bench_qkv
+        torch.cuda.empty_cache()
     dense_bf16_case("lengths at the tile edges (31 .. 129), contextual rows and targets", 9, 140, fwd_edges, 2, 32,
                     32, nt=ints(0, 20, 9).clamp(max=fwd_edges - 4), contextual_seq_len=3)
     dense_bf16_case("a row of length 0 beside live rows", 4, 100,
@@ -1777,10 +1934,14 @@ def main() -> None:
     dense_bf16_case("alpha 1/8, a window with full-attention rows", 4, 150, ints(20, 151, 4), 2, 32, 32,
                     nt=ints(0, 10, 4), alpha_=0.125, max_attn_len=16, min_full_attn_seq_len=8)
     dense_bf16_case("D=V=25 (scalar loads), non-causal", 3, 97, ints(1, 98, 3), 2, 25, 25, causal=False)
-    for label, (t1, t2, p1, p2), w1, w2 in (("ml-3b layer 0", d16_times, d16_w1, d16_w2),
-                                            (f"bench.py's shape (N={bN})", b16_times, b16_w1, b16_w2)):
+    for label, (t1, t2, p1, p2, t3, t4), (w1, w2, w3, w4) in (
+            ("ml-3b layer 0", d16_times, (d16_w1, d16_w2, d16_w3, d16_w4)),
+            *((f"bench.py's shape (N={n_})", b_[:6], b_[6:]) for n_, b_ in b16.items())):
         print(f"  {label}: K1-bf16 {t1:.4f} ms (plain {p1:.4f}, bound {bound_ms(w1, PEAK_BF16_FLOPS):.4f}), "
-              f"K2-bf16 {t2:.4f} ms (plain {p2:.4f}, bound {bound_ms(w2, PEAK_BF16_FLOPS):.4f})")
+              f"K2-bf16 {t2:.4f} ms (plain {p2:.4f}, bound {bound_ms(w2, PEAK_BF16_FLOPS):.4f}), "
+              f"K3-bf16 {t3:.4f} ms (bound {bound_ms(w3, PEAK_BF16_FLOPS):.4f}), K4-bf16 {t4:.4f} ms (bound "
+              f"{bound_ms(w4, PEAK_BF16_FLOPS):.4f}); the split K3-bf16 + K4-bf16 {t3 + t4:.4f} ms against the "
+              f"fused K2-bf16's {t2:.4f} ms")
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- serving phase
@@ -1803,6 +1964,61 @@ def main() -> None:
         for name, n in now.items():
             main_path_launches[name] += n
         return now
+
+    # ------------------------------------------- biased-attention parity phase
+    # K1-bias through its entry point as its users call it, in the parity
+    # experiment the JAX package keeps the biased forward for: the ml-3b
+    # preset's relative bias materialised as [B, N, N] on a corpus batch and
+    # added by K1-bias, against its plain version on the same inputs and
+    # against K6, which rebuilds the same bias inside the kernel, on the same
+    # q, k, v at layer 0's shape; float32, then bfloat16 (K1-bias-bf16, and
+    # K6-bf16). This is the path that counts K1-bias's launches, so the
+    # `kernels` line times K1-bias here.
+    print(f"biased-attention parity phase: the {RESEARCH_PRESET} relative bias materialised as [B={RB}, N={RN}, "
+          f"N={RN}] on a corpus batch through K1-bias, against its plain version and against K6's bias built in "
+          f"the kernel (H={RH}, D=V={RD})")
+    pos_w, ts_w = bias_tables(RN, 128)
+    materialised = relative_bias_plain(r_ts, pos_w, ts_w, 128)
+    dead = torch.arange(RN, device="cuda")[None, :] >= r_len[:, None]
+    parity = dict(alpha=1.0, max_seq_len=RN, bias=materialised)
+    parity_qkv = {}
+    count_reset()
+    for dtype_, tol_ in ((torch.float32, REL_TOL), (torch.bfloat16, BF16_TOL)):
+        sfx = "-bf16" if dtype_ == torch.bfloat16 else ""
+        q_, k_, v_ = parity_qkv[dtype_] = relbias_views(RB, RN, RH, RD, RV, dtype_)
+        got = hstu_mha_dense_cuda(q_, k_, v_, r_len, **parity)
+        plain = hstu_mha_dense_plain(q_, k_, v_, r_len, **parity)
+        want = hstu_mha_dense_relbias_cuda(q_, k_, v_, r_len, r_ts, pos_w, ts_w, alpha=1.0, max_seq_len=RN,
+                                           num_buckets=128)
+        check(got.dtype == plain.dtype == dtype_, f"K1-bias{sfx} parity: output types {got.dtype}, {plain.dtype}")
+        bias_errs[f"K1-bias{sfx}"].append(compare(f"K1-bias{sfx} with the materialised bias vs its plain version",
+                                                  got.float(), plain.float(), dead, rel_tol=tol_))
+        compare(f"K1-bias{sfx} with the materialised bias vs K6{sfx}", got.float(), want.float(), dead,
+                rel_tol=tol_)
+        del got, plain, want
+    n = counts()
+    want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 1, "K7": 0, "K6-bf16": 1, "K1-bias": 1,
+              "K1-bias-bf16": 1}
+    check(n == want_n, f"the parity phase launched {n}, expected {want_n}")
+    print(f"  launches {n}")
+    # times and bounds at this shape, after the counts are read: K1's work
+    # on the live (row, column) pairs and the float32 bias's live elements
+    p_live = apply_padding_guard(make_valid_attn_mask(RN, r_len), r_len).sum().item()
+    p_rows = r_len.sum().item() * RH
+    parity_ms = {}
+    for dtype_, q_k_v in parity_qkv.items():
+        size = q_k_v[0].element_size()
+        work = (p_live * RH * 2 * (RD + RV),
+                size * (p_rows * (2 * RD + RV) + RB * RN * RH * RV) + 4 * RB + 4 * p_live)
+        parity_ms[dtype_] = (device_time_ms(lambda: hstu_mha_dense_cuda(*q_k_v, r_len, **parity), 20),
+                             device_time_ms(lambda: hstu_mha_dense_plain(*q_k_v, r_len, **parity), 3), work)
+    (k1b_ms, k1b_plain_ms, k1b_work), (k1b16_ms, k1b16_plain_ms, k1b16_work) = (
+        parity_ms[torch.float32], parity_ms[torch.bfloat16])
+    print(f"  ml-3b layer 0 with the materialised bias: K1-bias {k1b_ms:.4f} ms (plain {k1b_plain_ms:.4f}), "
+          f"K1-bias-bf16 {k1b16_ms:.4f} ms (plain {k1b16_plain_ms:.4f}); the bias's live elements {p_live} "
+          f"({4 * p_live / 2**20:.1f} MiB of float32)")
+    del pos_w, ts_w, materialised, parity, parity_qkv, q_, k_, v_
+    torch.cuda.empty_cache()
 
     argv = [
         "--device", "cuda", "--scenario", "Offline",
@@ -2887,7 +3103,7 @@ def main() -> None:
     sys.stdout.flush()
     try:
         det = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "det", repr(m_med), repr(r_median)],
+            [sys.executable, os.path.abspath(__file__), "det", repr(m_med), repr(r_median), repr(f_median)],
             env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": DET_CUBLAS_WORKSPACE},
             capture_output=True, text=True, timeout=DET_TIMEOUT,
         )
@@ -3342,6 +3558,20 @@ def main() -> None:
               max(d16_errs["K1-bf16"]), d16_times[0], d16_times[2], *d16_w1, peak=PEAK_BF16_FLOPS),
         entry("hstu_mha_bwd_fused_bf16", src + "hstu_mha_bwd_fused.cu", tpu + "403", launches["K2-bf16"],
               max(d16_errs["K2-bf16"]), d16_times[1], d16_times[3], *d16_w2, peak=PEAK_BF16_FLOPS),
+        # K3 and K4 on bfloat16 at the ml-3b preset's layer 0 (the deterministic
+        # bias-free model's first block); the plain version of each is the
+        # bfloat16 plain backward, which computes dq, dk and dv together
+        entry("hstu_mha_bwd_dq_bf16", src + "hstu_mha_bwd_dq.cu", tpu + "895", launches["K3-bf16"],
+              max(d16_errs["K3-bf16"]), d16_times[4], d16_times[3], *d16_w3, peak=PEAK_BF16_FLOPS),
+        entry("hstu_mha_bwd_dkv_bf16", src + "hstu_mha_bwd_dkv.cu", tpu + "951", launches["K4-bf16"],
+              max(d16_errs["K4-bf16"]), d16_times[5], d16_times[3], *d16_w4, peak=PEAK_BF16_FLOPS),
+        # K1-bias at the ml-3b preset's layer 0 with its relative bias
+        # materialised as a float32 [B, N, N] one (the parity phase, where
+        # its launches are counted), on float32 and bfloat16 q, k, v
+        entry("hstu_mha_fwd_bias", src + "hstu_mha_fwd.cu", tpu + "163", launches["K1-bias"],
+              max(bias_errs["K1-bias"]), k1b_ms, k1b_plain_ms, *k1b_work, peak=PEAK_3XTF32_FLOPS),
+        entry("hstu_mha_fwd_bias_bf16", src + "hstu_mha_fwd.cu", tpu + "163", launches["K1-bias-bf16"],
+              max(bias_errs["K1-bias-bf16"]), k1b16_ms, k1b16_plain_ms, *k1b16_work, peak=PEAK_BF16_FLOPS),
         # K7-det: K7's function, so K7's work and bound, at the research
         # shape (float32) and the ml-3b layer 0 (bfloat16)
         entry("hstu_mha_relbias_bwd_det", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298", launches["K7-det"],
@@ -3355,6 +3585,9 @@ def main() -> None:
               f"research B={RB} N={RN}", f"research B={RB} N={RN}",
               f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16",
               f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16",
+              f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16",
+              f"research layer 0 B={RB} N={RN}, float32 [B, N, N] bias",
+              f"research layer 0 B={RB} N={RN} bfloat16, float32 [B, N, N] bias",
               f"research B={RB} N={RN}", f"research layer 0 B={RB} N={RN} bfloat16"]
     check(all(kr["launches"] > 0 for kr in kernels),
           "a kernel of the main paths was launched no time: "

@@ -3,14 +3,15 @@
 // dq, dk and dv) and of K4 (hstu_mha_bwd_dkv.cu: dk and dv; with K3 the
 // deterministic split backward). Replaces the Pallas TPU kernels
 // `_bwd_fused_kernel_rkv` and `_bwd_dkv_kernel` of
-// generative_recommenders_tpu/ops/pallas/hstu_attention.py. K2 also on
-// bfloat16 (E = __nv_bfloat16; K4's bfloat16 instance is not built), with
-// the TPU kernel's rounding points (`_bwd_fused_kernel_rkv`): Q enters as
+// generative_recommenders_tpu/ops/pallas/hstu_attention.py. Both also on
+// bfloat16 (E = __nv_bfloat16: K2-bf16, and K4-bf16 of the deterministic
+// bfloat16 backward), with the TPU kernels' rounding points
+// (`_bwd_fused_kernel_rkv`, `_bwd_dkv_kernel`): Q enters as
 // bfloat16(alpha q) where alpha != 1 and dO as bfloat16(dO / norm), so S,
 // dP and dS take no alpha and no 1 / norm; P is rounded to bfloat16 before
-// dV = P^T dO and dS before dK = dS^T (alpha Q) and dQ = dS K; dq takes one
-// alpha as it is added to its float32 buffer, which a second kernel writes
-// as bfloat16; dk and dv are written as bfloat16. The bfloat16 tiles are
+// dV = P^T dO and dS before dK = dS^T (alpha Q) and dQ = dS K; K2's dq takes
+// one alpha as it is added to its float32 buffer, which a second kernel
+// writes as bfloat16; dk and dv are written as bfloat16. The bfloat16 tiles are
 // converted to float32 on their way into shared memory (synchronously), and
 // the products are one exact TF32 `mma` each (tf32_mma.cuh).
 //

@@ -2,16 +2,19 @@
 // in and out: the body of K3 (hstu_mha_bwd_dq.cu), dQ alone, which with K4
 // (hstu_mha_bwd_dkv.cu) makes the deterministic split backward. Replaces the
 // Pallas TPU kernel `_bwd_dq_kernel` of
-// generative_recommenders_tpu/ops/pallas/hstu_attention.py. With RELBIAS it
+// generative_recommenders_tpu/ops/pallas/hstu_attention.py, also on bfloat16
+// q, k, v, dO and dq (K3-bf16, T = __nv_bfloat16, at the rounding points
+// below). With RELBIAS it
 // is also the dq pass of K7-det (hstu_mha_relbias_bwd.cu), the fixed-order
 // backward of `_bwd_kernel_relbias` (hstu_attention_relbias.py), which keeps
 // dq in VMEM over a sequential grid: S gains the relative bias, per (row,
 // column) `pos_w[pos_index] + ts_w[ts_bucket]` of hstu_attention.cuh, with
 // both tables and the batch row's timestamps in shared memory as K6 holds
-// them; in float32 and on bfloat16 q, k, v and dO (T = __nv_bfloat16, K7's
-// bfloat16 rounding points: dO enters as bfloat16(dO / norm), dS is rounded
-// to bfloat16 before dQ = dS K, whose float32 sum is written as bfloat16;
-// products one exact TF32 `mma` each).
+// them; in float32 and on bfloat16. On bfloat16 (the TPU kernels' rounding
+// points): Q enters as bfloat16(alpha q) where alpha != 1 and dO as
+// bfloat16(dO / norm), dS is rounded to bfloat16 before dQ = dS K, whose
+// float32 sum takes alpha and is written as bfloat16; the products are one
+// exact TF32 `mma` each.
 //
 // Per head, with S recomputed from Q and K (the forward saves only q, k, v):
 //
@@ -60,7 +63,7 @@
 // by 64 columns or 128 rows by 32); heads are not grouped (with RELBIAS
 // the bias is rebuilt per head: the simple first form of K7-det's dq pass).
 // The element type T of q, k, v, dO and dq is a parameter of the body: float,
-// and __nv_bfloat16 for K7-det's bfloat16 dq pass.
+// and __nv_bfloat16 for K3-bf16 and K7-det's bfloat16 dq pass.
 #pragma once
 
 #include <cstdint>

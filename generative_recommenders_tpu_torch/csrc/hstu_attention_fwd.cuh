@@ -1,6 +1,7 @@
 // HSTU attention forward for Hopper (sm_90a) on the tensor cores, float32 in
-// and out: the shared body of the dense kernel K1 (hstu_mha_fwd.cu) and the
-// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu); both also bfloat16 in
+// and out: the shared body of the dense kernel K1 (hstu_mha_fwd.cu), of K1
+// with an additive dense [B, N, N] bias (K1-bias, the same file) and of the
+// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu); all also bfloat16 in
 // and out (E = __nv_bfloat16), with the TPU kernels' rounding: alpha Q
 // rounded to bfloat16 (where alpha != 1), S and the sum P V in float32, P
 // rounded to bfloat16 before P V, O = (P V) / norm written as bfloat16. The
@@ -12,7 +13,11 @@
 //   S = alpha Q K^T (+ bias)   P = silu(S) * valid_mask   O = (P V) / norm
 //
 // with the mask `valid_elem` (length guard on) and, for K6, the bias of
-// `pos_index` / `ts_bucket` (hstu_attention.cuh). Replaces the Pallas TPU
+// `pos_index` / `ts_bucket` (hstu_attention.cuh); for K1-bias the bias read
+// per live element from device memory, float32 or bfloat16 (held as
+// float32), with a batch stride that may be 0 (one [N, N] bias for every
+// row). The bias is a compile-time mode (`Bias`): K1's and K6's instances
+// hold none of the others' code. Replaces the Pallas TPU
 // kernels `_fwd_kernel_rkv` / `_fwd_kernel` of
 // generative_recommenders_tpu/ops/pallas/hstu_attention.py and
 // `_fwd_kernel_relbias` of hstu_attention_relbias.py.
@@ -99,7 +104,18 @@ struct Params {
   int Nm = 0, NB = 0;
   // rows readable in 16-byte pieces (set by `launch`)
   int vec_q = 0, vec_k = 0, vec_v = 0;
+  // K1-bias only: the dense bias [B or 1, N, N], float32 or bfloat16
+  // (bias_bf16), contiguous along the key axis; the batch stride 0 for one
+  // bias shared by every batch row
+  const void* bias = nullptr;
+  long long bias_sb = 0, bias_sn = 0;
+  int bias_bf16 = 0;
+  int vec_bias = 0;  // pairs of neighbouring columns readable at once (set by `launch`)
 };
+
+// The bias added to S: none (K1), the relative bias rebuilt from two tables
+// and the timestamps (K6), or a dense [B, N, N] tensor (K1-bias).
+enum Bias : int { kNoBias = 0, kRelBias = 1, kDenseBias = 2 };
 
 // Per padded width W: warps per block (each owns 16 query rows), heads per
 // block, key columns per tile, blocks an SM (what the shared memory and the
@@ -129,11 +145,26 @@ __device__ __forceinline__ FragA frag_a_p(const float (&s)[4]) {
   return f;
 }
 
-// W: the padded head width; RELBIAS: K6, the relative bias added to S; E:
-// the type of q, k, v and out (float, or __nv_bfloat16).
-template <int W, bool RELBIAS, typename E>
+// K1-bias: elements `at` and `at + 1` of the dense bias as float32, each where
+// its flag is set (0 where not; `second` implies `first`), by one load of
+// both (8 bytes of float32, 4 of bfloat16) where `vec_bias` allows.
+__device__ __forceinline__ float2 load_bias2(const Params& p, long long at, bool first, bool second) {
+  if (p.bias_bf16) {
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.bias) + at;
+    if (second && p.vec_bias) return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x));
+    return make_float2(first ? __bfloat162float(x[0]) : 0.f, second ? __bfloat162float(x[1]) : 0.f);
+  }
+  const float* x = static_cast<const float*>(p.bias) + at;
+  if (second && p.vec_bias) return *reinterpret_cast<const float2*>(x);
+  return make_float2(first ? x[0] : 0.f, second ? x[1] : 0.f);
+}
+
+// W: the padded head width; BIAS: the bias added to S (`Bias`); E: the type
+// of q, k, v and out (float, or __nv_bfloat16).
+template <int W, int BIAS, typename E>
 __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kernel(Params p) {
   using T = Tiling<W>;
+  constexpr bool RELBIAS = BIAS == kRelBias, DENSE = BIAS == kDenseBias, BIASED = RELBIAS || DENSE;
   constexpr bool kBf16 = !std::is_same<E, float>::value;
   constexpr int HG = T::HG, BK = T::BK;
   constexpr int kRows = 16 * T::NW, kThreads = 32 * T::NW;
@@ -254,7 +285,7 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
       // mask and bias of the thread's elements of the warp's 16 x BK part of
       // the tile, once for every head: element e = 4 j + c is row
       // row_lo + 8 (c / 2), column c0 + 8 j + 2 t + c % 2
-      float bias[RELBIAS ? NT * 4 : 1];
+      float bias[BIASED ? NT * 4 : 1];
       if (RELBIAS && kt == 0) __syncthreads();  // the tables and timestamps are in place
       // the warp's 16 x BK part lies wholly inside the mask (away from the
       // diagonal, the length and a window's edge; the common case): causal,
@@ -307,6 +338,25 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
       // the warp's part of the tile holds no live element (above the
       // diagonal, past the length, outside a window): no products
       const bool dead = __all_sync(kFull, ok_bits == 0);
+      if constexpr (DENSE) {
+        // the bias of the thread's elements, two neighbouring columns of a row
+        // a load (a warp's load covers whole 32-byte sectors); nothing is read
+        // for a dead part of the tile, nor past the length (masked below)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row_lo + 8 * i;
+          const bool live = !dead && row < length;
+          const long long at = b * p.bias_sb + (long long)row * p.bias_sn;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int col = c0 + 8 * j + 2 * t;
+            const float2 x = live ? load_bias2(p, at + col, col < length, col + 1 < length)
+                                  : make_float2(0.f, 0.f);
+            bias[4 * j + 2 * i] = x.x;
+            bias[4 * j + 2 * i + 1] = x.y;
+          }
+        }
+      }
 
 #pragma unroll
       for (int hh = 0; hh < HG; ++hh) {
@@ -348,8 +398,8 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
 #pragma unroll
               for (int c = 0; c < 4; ++c) {
                 const int e = 4 * j + c;
-                const float x = RELBIAS ? fmaf(s[j][c], s_alpha, bias[RELBIAS ? e : 0])
-                                        : s[j][c] * s_alpha;
+                const float x = BIASED ? fmaf(s[j][c], s_alpha, bias[BIASED ? e : 0])
+                                       : s[j][c] * s_alpha;
                 s[j][c] = __fdividef(x, 1.f + __expf(-x));
               }
             if (!interior) {
@@ -426,14 +476,14 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
   }
 }
 
-template <int W, bool RELBIAS, typename E>
+template <int W, int BIAS, typename E>
 cudaError_t launch_w(const Params& p, cudaStream_t stream) {
   using T = Tiling<W>;
-  const int tables = RELBIAS ? 2 * p.Nm - 1 + p.NB + 1 : 0;
-  const int ts_row = RELBIAS ? (p.N + T::BK - 1) / T::BK * T::BK : 0;
+  const int tables = BIAS == kRelBias ? 2 * p.Nm - 1 + p.NB + 1 : 0;
+  const int ts_row = BIAS == kRelBias ? (p.N + T::BK - 1) / T::BK * T::BK : 0;
   const long long smem = (long long)smem_floats<W>(tables, ts_row) * (long long)sizeof(float);
   if (smem > kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = fwd_kernel<W, RELBIAS, E>;
+  auto kernel = fwd_kernel<W, BIAS, E>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -452,22 +502,28 @@ __host__ inline bool vec16(const void* ptr, long long sb, long long sn, long lon
 
 // Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
 // 256 and V at most 128 (the Python wrapper checks both); both are padded to
-// the next of 32, 64, 128 (256 for D). RELBIAS also needs both tables to fit
-// the block's shared memory beside the tiles. E: float, or __nv_bfloat16.
-template <bool RELBIAS, typename E = float>
+// the next of 32, 64, 128 (256 for D). kRelBias also needs both tables to fit
+// the block's shared memory beside the tiles; kDenseBias a bias. E: float, or
+// __nv_bfloat16.
+template <int BIAS, typename E = float>
 int launch(Params p, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.D > 256 || p.V < 1 || p.V > 128) return (int)cudaErrorInvalidValue;
-  if (RELBIAS && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
+  if (BIAS == kRelBias && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
+  if (BIAS == kDenseBias) {
+    if (p.bias == nullptr) return (int)cudaErrorInvalidValue;
+    const int pair = p.bias_bf16 ? 4 : 8;  // bytes of two elements
+    p.vec_bias = reinterpret_cast<uintptr_t>(p.bias) % pair == 0 && p.bias_sb % 2 == 0 && p.bias_sn % 2 == 0;
+  }
   p.vec_q = vec16(p.q, p.q_sb, p.q_sn, p.q_sh, p.D);
   p.vec_k = vec16(p.k, p.k_sb, p.k_sn, p.k_sh, p.D);
   p.vec_v = vec16(p.v, p.v_sb, p.v_sn, p.v_sh, p.V);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = p.D > p.V ? p.D : p.V;
-  if (w <= 32) return (int)launch_w<32, RELBIAS, E>(p, s);
-  if (w <= 64) return (int)launch_w<64, RELBIAS, E>(p, s);
-  if (w <= 128) return (int)launch_w<128, RELBIAS, E>(p, s);
-  return (int)launch_w<256, RELBIAS, E>(p, s);
+  if (w <= 32) return (int)launch_w<32, BIAS, E>(p, s);
+  if (w <= 64) return (int)launch_w<64, BIAS, E>(p, s);
+  if (w <= 128) return (int)launch_w<128, BIAS, E>(p, s);
+  return (int)launch_w<256, BIAS, E>(p, s);
 }
 
 }  // namespace hstu_fwd

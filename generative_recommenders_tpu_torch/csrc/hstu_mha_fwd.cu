@@ -19,6 +19,19 @@
 // its operations at the card's bfloat16 rate, 989 TFLOP/s. The kernel's
 // products are one exact TF32 `mma` each, which run at half that rate (the
 // TF32 rate, 495): a bfloat16 `mma` is work for a later change.
+//
+// `hstu_mha_fwd_bias` and `hstu_mha_fwd_bias_bf16` (K1-bias) are K1 and
+// K1-bf16 with an additive [B, N, N] bias added to S = alpha Q K^T before
+// silu, as `_fwd_kernel_rkv` / `_fwd_kernel` take it under `has_bias` (a
+// forward-only path of the JAX package: parity and inference experiments).
+// The bias is float32 or bfloat16 (converted to float32 on load, as the TPU
+// kernel casts it), contiguous along the key axis, its batch stride 0 for one
+// [N, N] bias shared by the batch; each thread reads the bias of its own S
+// elements from device memory into registers, two neighbouring columns a
+// load, and only those of live rows and columns below the length, once for
+// the block's group of heads. Bound: K1's bytes and operations plus the
+// bias's bytes over the live elements, 4 (float32) or 2 (bfloat16) a (row,
+// column) pair; at the serving shape the bias's bytes dominate.
 #include "hstu_attention_fwd.cuh"
 
 extern "C" int hstu_mha_fwd(
@@ -34,7 +47,7 @@ extern "C" int hstu_mha_fwd(
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len};
-  return hstu_fwd::launch</*RELBIAS=*/false>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kNoBias>(p, stream);
 }
 
 extern "C" int hstu_mha_fwd_bf16(
@@ -50,5 +63,49 @@ extern "C" int hstu_mha_fwd_bf16(
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len};
-  return hstu_fwd::launch</*RELBIAS=*/false, __nv_bfloat16>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kNoBias, __nv_bfloat16>(p, stream);
+}
+
+// K1-bias: q, k, v and out float32 (hstu_mha_fwd_bias) or bfloat16
+// (hstu_mha_fwd_bias_bf16); bias float32 or bfloat16 (bias_bf16) with strides
+// bias_sb (0: one bias for every batch row) and bias_sn, contiguous along the
+// key axis.
+extern "C" int hstu_mha_fwd_bias(
+    const float* q, const float* k, const float* v, float* out,
+    const int* lengths, const int* num_targets, const void* bias,
+    int B, int N, int H, int D, int V,
+    long long q_sb, long long q_sn, long long q_sh,
+    long long k_sb, long long k_sn, long long k_sh,
+    long long v_sb, long long v_sn, long long v_sh, long long bias_sb, long long bias_sn,
+    float alpha, float inv_norm, int causal, int max_attn_len,
+    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, void* stream) {
+  hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
+                     q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
+                     alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
+                     min_full_attn_seq_len};
+  p.bias = bias;
+  p.bias_sb = bias_sb;
+  p.bias_sn = bias_sn;
+  p.bias_bf16 = bias_bf16;
+  return hstu_fwd::launch<hstu_fwd::kDenseBias>(p, stream);
+}
+
+extern "C" int hstu_mha_fwd_bias_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
+    const int* lengths, const int* num_targets, const void* bias,
+    int B, int N, int H, int D, int V,
+    long long q_sb, long long q_sn, long long q_sh,
+    long long k_sb, long long k_sn, long long k_sh,
+    long long v_sb, long long v_sn, long long v_sh, long long bias_sb, long long bias_sn,
+    float alpha, float inv_norm, int causal, int max_attn_len,
+    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, void* stream) {
+  hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
+                     q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
+                     alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
+                     min_full_attn_seq_len};
+  p.bias = bias;
+  p.bias_sb = bias_sb;
+  p.bias_sn = bias_sn;
+  p.bias_bf16 = bias_bf16;
+  return hstu_fwd::launch<hstu_fwd::kDenseBias, __nv_bfloat16>(p, stream);
 }

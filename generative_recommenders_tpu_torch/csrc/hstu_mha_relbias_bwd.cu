@@ -81,8 +81,10 @@
 // float32 on their way into shared memory (synchronously), and its products
 // are one exact TF32 `mma` each (tf32_mma.cuh). dk and dv are written as
 // bfloat16; dq is summed in a zeroed float32 buffer, as in float32, and a
-// second kernel writes it as bfloat16. alpha must be 1 (the research model's;
-// the TPU kernel rounds alpha q to bfloat16, which this kernel does not).
+// second kernel writes it as bfloat16. Where alpha != 1, Q enters as
+// bfloat16(alpha q), as the TPU kernel forms it: S takes no alpha, dK =
+// dS^T (alpha Q) none either, and dq takes alpha as it is added to its
+// float32 buffer.
 //
 // K7-det (`hstu_mha_relbias_bwd_det`, and `_bf16` on bfloat16 at the same
 // rounding points) computes the same function and sums every output in one
@@ -225,9 +227,11 @@ __global__ void __launch_bounds__(1024) sum_partials_kernel(const float* partial
 template <int W, int HG, typename E, bool DET>
 __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   constexpr bool kBf16 = !std::is_same<E, float>::value;
-  // 1 / norm: applied to dP and dV on use in float32; in bfloat16 folded into
-  // dO's tiles, rounded, as the TPU kernel rounds dO / norm
-  const float dp_scale = kBf16 ? 1.f : p.inv_norm;
+  // alpha and 1 / norm: applied to S, dK, dP and dV on use in float32; in
+  // bfloat16 folded into Q's and dO's tiles, rounded, as the TPU kernel
+  // rounds alpha q and dO / norm (dq takes alpha as it is written, in both)
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
   const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
   constexpr int P = W + kPad;  // pitch of the Q, K, V and dO tiles
   constexpr int NA = W / 16;  // 8-wide output tiles per warp in dK or dV
@@ -302,11 +306,13 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
     // no targets and no window either (the research models): the mask is
     // col <= row below the length
     const bool plain_causal = lower_only && nt == 0 && p.max_attn_len == 0;
-    load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0);
-    if constexpr (kBf16)  // dO / norm, rounded to bfloat16
+    if constexpr (kBf16) {  // alpha q and dO / norm, rounded to bfloat16
+      load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0, q_scale);
       load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0, do_scale);
-    else
+    } else {
+      load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0);
       load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0);
+    }
     cp_async_commit();
     __syncthreads();  // the tables are in place
 
@@ -385,13 +391,15 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
             }
             if (nrow < length) {
               float* nQ = stages + ((step + 1) & 1) * 2 * kT * P;
-              load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0);
-              if constexpr (kBf16)
+              if constexpr (kBf16) {
+                load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0, q_scale);
                 load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
                              p.vec_do != 0, do_scale);
-              else
+              } else {
+                load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0);
                 load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
                              p.vec_do != 0);
+              }
             }
             cp_async_commit();
           }
@@ -426,7 +434,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
               const int e = 4 * j + c;
               pv[c] = ds[c] = 0.f;
               if ((ok_bits >> e) & 1u) {
-                const float x = fmaf(s[j][c], p.alpha, bias[e]);
+                const float x = fmaf(s[j][c], s_alpha, bias[e]);
                 const float sig = __fdividef(1.f, 1.f + __expf(-x));
                 pv[c] = x * sig;
                 ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
@@ -613,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   // every element of dk and dv is written: zeros where the tile is dead
   E* out = dv_warp ? p.dv : p.dk;
   const int width = dv_warp ? p.V : p.D;
-  const float scale = dv_warp ? dp_scale : p.alpha;
+  const float scale = dv_warp ? dp_scale : s_alpha;
 #pragma unroll
   for (int hh = 0; hh < HG; ++hh) {
     if (hh >= nh) continue;
@@ -722,7 +730,6 @@ extern "C" int hstu_mha_relbias_bwd_bf16(
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
     int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
-  if (alpha != 1.f) return (int)cudaErrorInvalidValue;
   hstu_relbias_bwd::Params<__nv_bfloat16> p{
       q, k, v, dout, dq32, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
@@ -757,7 +764,7 @@ extern "C" int hstu_mha_relbias_bwd_det(
 }
 
 // K7-det on bfloat16 q, k, v, dout, dq, dk and dv (K7-bf16's rounding
-// points); alpha must be 1, as K7-bf16's.
+// points, alpha q rounded to bfloat16 in both passes).
 extern "C" int hstu_mha_relbias_bwd_det_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
@@ -770,7 +777,6 @@ extern "C" int hstu_mha_relbias_bwd_det_bf16(
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
     int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
-  if (alpha != 1.f) return (int)cudaErrorInvalidValue;
   hstu_relbias_bwd::Params<__nv_bfloat16> p{
       q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,

@@ -14,7 +14,8 @@
 // float32): at 2 (2 D + V) bytes per live row and head its bound halves,
 // and its operations are held to the card's bfloat16 rate, 989 TFLOP/s,
 // though its products are one exact TF32 `mma` each, which run at half that
-// rate (the TF32 rate, 495).
+// rate (the TF32 rate, 495). Where alpha != 1 it forms alpha q in bfloat16
+// on the way into shared memory, as the TPU kernel does.
 #include "hstu_attention_fwd.cuh"
 
 extern "C" int hstu_mha_relbias_fwd(
@@ -32,7 +33,7 @@ extern "C" int hstu_mha_relbias_fwd(
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
-  return hstu_fwd::launch</*RELBIAS=*/true>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kRelBias>(p, stream);
 }
 
 extern "C" int hstu_mha_relbias_fwd_bf16(
@@ -50,5 +51,5 @@ extern "C" int hstu_mha_relbias_fwd_bf16(
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
-  return hstu_fwd::launch</*RELBIAS=*/true, __nv_bfloat16>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kRelBias, __nv_bfloat16>(p, stream);
 }

@@ -6,7 +6,10 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
   `_fwd_kernel_rkv` / `_fwd_kernel` behind `hstu_mha_dense_pallas`
   (3xTF32 products on the tensor cores, launched by `_fwd_plan`), and on
   CUDA tensors differentiable through the backward kernels below (the
-  custom VJP `_hstu_mha_pallas_core` becomes `_HstuMhaDense`);
+  custom VJP `_hstu_mha_pallas_core` becomes `_HstuMhaDense`); with
+  ``bias``, K1-bias (`hstu_mha_fwd_bias[_bf16]` in the same library), the
+  same kernel with an additive [B or 1, N, N] bias read per live element,
+  a forward-only path as in the JAX package (its gradient raises);
 * ``hstu_mha_bwd_cuda``: kernel K2 (`csrc/hstu_mha_bwd_fused.cu`),
   replacing `_bwd_fused_kernel_rkv`, the default backward; or, with
   ``split``, kernels K3 then K4 (`csrc/hstu_mha_bwd_dq.cu`,
@@ -26,32 +29,32 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
 All keep the JAX signatures and the [B, N, H, D] layout. A wrapper given
 CPU tensors computes its plain version; given CUDA tensors it launches its
 kernels on the current stream or raises, and counts each launch, where it
-happens, in its ``launches`` counter (the backward has one per kernel).
+happens, in its ``launches``: one counter for K5, and for the forward and
+the backward a dict of counters keyed by C entry point.
 The TPU wrappers' transposes, their padding of N to tile multiples, their
 block-size tables and the backward's `_pack_rows`
 residual packing are VMEM and lane-padding artefacts and are not ported:
 the kernels read strided [B, N, H, D] views and mask the ragged edge
 themselves.
 
-bfloat16: K1 and K2 also take bfloat16 q, k, v (and dO), the types the JAX
+bfloat16: K1 to K4 also take bfloat16 q, k, v (and dO), the types the JAX
 package's ``compute_dtype="bfloat16"`` gives the first block of the
 bias-free HSTU research model (``enable_relative_attention_bias=False``),
 whose attention reaches `hstu_mha_dense_pallas` on bfloat16 under
 ``attn_kernel="pallas"`` (and ``"auto"`` at N >= 512); the relative-bias
 pair K6 / K7 takes bfloat16 too (`ops/cuda/hstu_attention_relbias.py`).
-The entry points ``hstu_mha_fwd_bf16`` and ``hstu_mha_bwd_fused_bf16``
-(K1-bf16, K2-bf16) keep the Pallas kernels' rounding points: alpha q
-rounded to bfloat16 (where alpha != 1), S, dP and dS in float32 from exact
-products, P rounded to bfloat16 before P V and P^T dO, dO entering the
-backward as bfloat16(dO / norm), dS rounded before dS^T (alpha q) and dS K,
-dq taking one alpha at its float32 flush; out, dq, dk and dv in bfloat16.
-Their plain versions (`_dense_fwd_plain_bf16`, `_dense_bwd_plain_bf16`)
-round at the same points, and a bfloat16 CPU tensor goes through them;
-autograd through a bfloat16 forward would round dP instead. They count
-their launches in ``launches_bf16`` beside ``launches``. The split backward
-K3 + K4 takes float32 only: under deterministic algorithms a bfloat16
-backward raises (or warns and takes K2-bf16, with ``warn_only``). K5 takes
-float32 only.
+The entry points ``hstu_mha_fwd_bf16``, ``hstu_mha_bwd_fused_bf16``,
+``hstu_mha_bwd_dq_bf16`` and ``hstu_mha_bwd_dkv_bf16`` (K1-bf16 to K4-bf16)
+keep the Pallas kernels' rounding points: alpha q rounded to bfloat16
+(where alpha != 1), S, dP and dS in float32 from exact products, P rounded
+to bfloat16 before P V and P^T dO, dO entering the backward as
+bfloat16(dO / norm), dS rounded before dS^T (alpha q) and dS K, dq taking
+one alpha at its float32 flush; out, dq, dk and dv in bfloat16. The split
+K3-bf16 + K4-bf16 rounds where the fused K2-bf16 does, as `_bwd_dq_kernel`
+and `_bwd_dkv_kernel` round where `_bwd_fused_kernel_rkv` does, so one
+plain version serves both (`_dense_fwd_plain_bf16`, `_dense_bwd_plain_bf16`);
+a bfloat16 CPU tensor goes through them; autograd through a bfloat16
+forward would round dP instead. K5 takes float32 only.
 
 HSTU attention replaces softmax with a pointwise gate:
 
@@ -63,7 +66,6 @@ from __future__ import annotations
 
 import ctypes
 import threading
-import warnings
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -84,22 +86,33 @@ _ARGTYPES = {
         name: [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P]
         for name in ("hstu_mha_fwd", "hstu_mha_fwd_bf16")
     },
+    # the bias pointer, its two strides and its type flag
+    **{
+        name: [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_P]
+        for name in ("hstu_mha_fwd_bias", "hstu_mha_fwd_bias_bf16")
+    },
     "delta_hstu_mha_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P],
     **{
         name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_P]  # mask ints, flags
-        for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
+        for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv",
+                     "hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16")
     },
     # one more pointer: dq's float32 sums beside the bfloat16 dq
     "hstu_mha_bwd_fused_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_P],
 }
 # entry points that live in another kernel's library: entry -> library (the
-# bfloat16 K1 and K2 are second entry points of K1's and K2's libraries)
+# bfloat16 K1 to K4 and K1-bias are second entry points of K1's to K4's
+# libraries)
 _LIBRARY: Dict[str, str] = {
     "hstu_mha_fwd_bf16": "hstu_mha_fwd",
+    "hstu_mha_fwd_bias": "hstu_mha_fwd",
+    "hstu_mha_fwd_bias_bf16": "hstu_mha_fwd",
     "hstu_mha_bwd_fused_bf16": "hstu_mha_bwd_fused",
+    "hstu_mha_bwd_dq_bf16": "hstu_mha_bwd_dq",
+    "hstu_mha_bwd_dkv_bf16": "hstu_mha_bwd_dkv",
 }
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-_DENSE_TYPES = (torch.float32, torch.bfloat16)  # K1's and K2's; K3, K4 and K5 take float32
+_DENSE_TYPES = (torch.float32, torch.bfloat16)  # K1's to K4's (and K1-bias's bias); K5 takes float32
 _MAX_V = 128
 _MAX_D = 256
 # K5's tiling (csrc/delta_hstu_mha_fwd.cu): key columns and query rows per block
@@ -178,13 +191,16 @@ def _scaled_q(q: torch.Tensor, alpha: float) -> torch.Tensor:
     return q.float() if alpha == 1.0 else _bf16(q.float() * _bf16_scalar(alpha))
 
 
-def _dense_fwd_plain_bf16(q, k, v, lengths, kw) -> torch.Tensor:
+def _dense_fwd_plain_bf16(q, k, v, lengths, kw, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K1-bf16's function: S = (alpha q) k^T in float32 from bfloat16
-    inputs, P = silu(S) * mask rounded to bfloat16, O = (P V) / norm in
-    float32, returned as bfloat16."""
+    inputs (plus the [B or 1, N, N] ``bias`` in float32: K1-bias's), P =
+    silu(S) * mask rounded to bfloat16, O = (P V) / norm in float32,
+    returned as bfloat16."""
     N = q.shape[1]
     mask = _plain_mask(N, lengths, kw)
     s = torch.einsum("bnhd,bmhd->bhnm", _scaled_q(q, kw["alpha"]), k.float())
+    if bias is not None:
+        s = s + bias.float()[:, None]
     p = _bf16(torch.where(mask[:, None], F.silu(s), 0.0))
     out = torch.einsum("bhnm,bmhv->bnhv", p, v.float()) * (1.0 / (kw["max_seq_len"] or N))
     return out.to(torch.bfloat16)
@@ -234,22 +250,28 @@ def hstu_mha_dense_plain(
     *,
     alpha: float = 1.0,
     max_seq_len: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,  # [B or 1, N, N], float32 or bfloat16
     causal: bool = True,
     num_targets: Optional[torch.Tensor] = None,
     max_attn_len: int = 0,
     contextual_seq_len: int = 0,
     min_full_attn_seq_len: int = 0,
 ) -> torch.Tensor:
-    """K1's function in plain PyTorch: the spec mask AND row/col < length,
-    then `hstu_mha_dense`. Rows >= length come out 0. Differentiable in q, k
-    and v: in float32 by autograd, whose gradient is the plain backward; in
-    bfloat16 through `_DensePlainBf16`, at the kernels' rounding points."""
+    """K1's function in plain PyTorch (K1-bias's with ``bias``, added to S
+    before silu in float32): the spec mask AND row/col < length, then
+    `hstu_mha_dense`. Rows >= length come out 0. Differentiable in q, k and
+    v: in float32 by autograd, whose gradient is the plain backward; in
+    bfloat16 through `_DensePlainBf16`, at the kernels' rounding points (with
+    a bias, which no backward kernel takes, by autograd)."""
     kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                    contextual_seq_len, min_full_attn_seq_len)
     if q.dtype == torch.bfloat16:
+        if bias is not None:
+            return _dense_fwd_plain_bf16(q, k, v, lengths, kw, bias)
         return _DensePlainBf16.apply(q, k, v, lengths, kw)
     N = q.shape[1]
-    return hstu_mha_dense(q, k, v, alpha=alpha, max_seq_len=max_seq_len or N, mask=_plain_mask(N, lengths, kw))
+    return hstu_mha_dense(q, k, v, alpha=alpha, max_seq_len=max_seq_len or N, mask=_plain_mask(N, lengths, kw),
+                          bias=bias)
 
 
 def hstu_mha_bwd_plain(
@@ -466,34 +488,43 @@ def _dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
                 grid=(blocks,))
 
 
-def _dense_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
+def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launches K1, or K1-bf16 on bfloat16, on checked CUDA tensors (lens,
-    nt: int32 or nt None)."""
+    nt: int32 or nt None); with a checked ``bias`` ([B or 1, N, N],
+    contiguous in its last dim), K1-bias."""
     B, N, H, D = q.shape
     V = v.shape[3]
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty((B, N, H, V), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    # raises on what the kernel does not take; the bfloat16 instance tiles as
-    # the float32 one
+    # raises on what the kernel does not take; the bfloat16 and the biased
+    # instances tile as the float32 one (the bias is read into registers)
     _fwd_plan(D, V, H, 0, 0, False, B, N)
+    name = "hstu_mha_fwd" + ("" if bias is None else "_bias") + ("_bf16" if bf16 else "")
+    # the bias's pointer, its batch stride (0: one bias for every row), its
+    # row stride and its type
+    bias_ptr, bias_strides, bias_type = (), (), ()
+    if bias is not None:
+        bias_ptr = (bias.data_ptr(),)
+        bias_strides = (0 if bias.shape[0] == 1 else bias.stride(0), bias.stride(1))
+        bias_type = (int(bias.dtype == torch.bfloat16),)
     _launch(
-        "hstu_mha_fwd_bf16" if bf16 else "hstu_mha_fwd",
+        name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lens.data_ptr(), None if nt is None else nt.data_ptr(),
-        B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *_mask_args(kw, N), _stream(q.device),
+        lens.data_ptr(), None if nt is None else nt.data_ptr(), *bias_ptr,
+        B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *bias_strides,
+        *_mask_args(kw, N), *bias_type, _stream(q.device),
     )
-    (hstu_mha_dense_cuda.launches_bf16 if bf16 else hstu_mha_dense_cuda.launches).add()
+    hstu_mha_dense_cuda.launches[name].add()
     return out
 
 
 class _HstuMhaDense(torch.autograd.Function):
     """K1 forward; backward by K2, or by K3 then K4 under
     ``torch.use_deterministic_algorithms(True)``; on bfloat16 K1-bf16 and
-    K2-bf16, which has no split yet (`hstu_mha_bwd_cuda` refuses it). Saves
-    q, k and v as they are (views of the uvqk projection on the STU path)."""
+    K2-bf16, or K3-bf16 then K4-bf16. Saves q, k and v as they are (views of
+    the uvqk projection on the STU path)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lens, nt, kw):
@@ -507,6 +538,24 @@ class _HstuMhaDense(torch.autograd.Function):
         dq, dk, dv = hstu_mha_bwd_cuda(q, k, v, lens, do, split=torch.are_deterministic_algorithms_enabled(),
                                        num_targets=nt, **ctx.kw)
         return dq, dk, dv, None, None, None
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """The attention with an additive bias, computed by ``run`` (K1-bias on
+    the card, the plain version on the CPU): forward-only, as the JAX
+    package's `hstu_mha_dense_pallas(bias=...)` is (its custom VJP covers
+    the bias-free call alone), so the backward raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, run):
+        return run()
+
+    @staticmethod
+    def backward(ctx, do):
+        raise NotImplementedError(
+            "hstu_mha_dense_cuda with an additive bias is forward-only (parity and inference experiments, "
+            "as hstu_mha_dense_pallas(bias=...) in the JAX package): no backward kernel takes the bias"
+        )
 
 
 def _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
@@ -536,13 +585,14 @@ def hstu_mha_dense_cuda(
 ) -> torch.Tensor:
     """Dense HSTU attention with jagged ``lengths`` (rows/cols >= length are
     dead, their outputs 0). Returns [B, N, H, V] of q's type (float32 or
-    bfloat16), differentiable in q, k and v. The optional [B, N, N] ``bias``
-    of the TPU kernel is not ported yet and raises."""
-    if bias is not None:
-        raise NotImplementedError("the additive [B, N, N] bias is not ported yet")
+    bfloat16), differentiable in q, k and v. With ``bias`` ([B or 1, N, N],
+    float32 or bfloat16, added to alpha q k^T before silu) it runs K1-bias,
+    forward-only: its gradient raises NotImplementedError, on the CPU too."""
     kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                    contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":
+        if bias is not None:
+            return _ForwardOnly.apply(q, k, v, bias, lambda: hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw))
         return hstu_mha_dense_plain(q, k, v, lengths, **kw)
     device = _check_qkv(q, k, v, _DENSE_TYPES)
     B, N = q.shape[:2]
@@ -551,6 +601,12 @@ def hstu_mha_dense_cuda(
     lens = _int_vector("lengths", lengths, B, device)
     nt = None if num_targets is None else _int_vector("num_targets", num_targets, B, device)
     kw.pop("num_targets")
+    if bias is not None:
+        bias = _last_dim_contiguous(bias)
+        _check("bias", bias, 3, device, _DENSE_TYPES)
+        if bias.shape[0] not in (1, B) or bias.shape[1:] != (N, N):
+            raise ValueError(f"bias must have shape ({B} or 1, {N}, {N}), got {tuple(bias.shape)}")
+        return _ForwardOnly.apply(q, k, v, bias, lambda: _dense_fwd(q, k, v, lens, nt, kw, bias))
     return _HstuMhaDense.apply(q, k, v, lens, nt, kw)
 
 
@@ -567,19 +623,22 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     write."""
     B, N, H, D = q.shape
     V = v.shape[3]
-    bf16 = name == "hstu_mha_bwd_fused_bf16"
+    bf16 = name.endswith("_bf16")
+    kernel = name.removesuffix("_bf16")  # K2, K3 or K4
     new = lambda shape, zero=False, dtype=q.dtype: (torch.zeros if zero else torch.empty)(  # noqa: E731
         shape, dtype=dtype, device=q.device
     )
     # K2 adds its dq shares into a zeroed float32 buffer with atomics, which
     # K2-bf16 then writes as bfloat16
-    dq32 = new((B, N, H, D), zero=True, dtype=torch.float32) if bf16 else None
-    dq = None if name == "hstu_mha_bwd_dkv" else new((B, N, H, D), zero=name == "hstu_mha_bwd_fused")
-    dk, dv = (None, None) if name == "hstu_mha_bwd_dq" else (new((B, N, H, D)), new((B, N, H, V)))
+    fused = kernel == "hstu_mha_bwd_fused"
+    dq32 = new((B, N, H, D), zero=True, dtype=torch.float32) if fused and bf16 else None
+    dq = None if kernel == "hstu_mha_bwd_dkv" else new((B, N, H, D), zero=fused and not bf16)
+    dk, dv = (None, None) if kernel == "hstu_mha_bwd_dq" else (new((B, N, H, D)), new((B, N, H, V)))
     if B * N * H == 0:
         return dq, dk, dv
-    # raises on what the kernel does not take; K2-bf16 tiles as K2
-    (_dq_plan if name == "hstu_mha_bwd_dq" else _bwd_plan)(D, V, H, B, N)
+    # raises on what the kernel does not take; the bfloat16 instances tile as
+    # the float32 ones
+    (_dq_plan if kernel == "hstu_mha_bwd_dq" else _bwd_plan)(D, V, H, B, N)
     # the kernels read q, k, v and dO in 16-byte pieces where each allows it
     # (on the STU path q, k and v are strided views of one projection)
     vec = tuple(int(_vec16(t)) for t in (q, k, v, do))
@@ -587,11 +646,11 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     _launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        *((ptr(dq32),) if bf16 else ()), ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
+        *((ptr(dq32),) if dq32 is not None else ()), ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *_mask_args(kw, N), *vec, _stream(q.device),
     )
-    (hstu_mha_bwd_cuda.launches_bf16 if bf16 else hstu_mha_bwd_cuda.launches[name]).add()
+    hstu_mha_bwd_cuda.launches[name].add()
     return dq, dk, dv
 
 
@@ -614,11 +673,9 @@ def hstu_mha_bwd_cuda(
     """(dq, dk, dv) of `hstu_mha_dense_cuda` at ``do``: by kernel K2, whose
     dq is summed with atomics, so its last bits vary from run to run; or,
     with ``split``, by K3 (dq) then K4 (dk, dv), which give the same bits
-    every run. On bfloat16 (q, k, v and ``do``) by K2-bf16: K3 and K4 take
-    float32 only, so ``split`` raises a RuntimeError there, or warns and
-    takes K2-bf16 under ``torch.use_deterministic_algorithms(True,
-    warn_only=True)``. ``launches`` holds one counter per float32 kernel,
-    keyed by its C entry point; ``launches_bf16`` counts K2-bf16."""
+    every run. On bfloat16 (q, k, v and ``do``) by their bfloat16 entry
+    points, K2-bf16 or K3-bf16 then K4-bf16. ``launches`` holds one counter
+    per kernel, keyed by its C entry point."""
     kw = _dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                    contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":
@@ -633,22 +690,11 @@ def hstu_mha_bwd_cuda(
     _check("do", do, 4, device, (q.dtype,))
     lens = _int_vector("lengths", lengths, B, device)
     nt = None if num_targets is None else _int_vector("num_targets", num_targets, B, device)
-    if q.dtype == torch.bfloat16:
-        if split:
-            msg = (
-                "hstu_mha_bwd_cuda does not have a deterministic implementation on bfloat16: "
-                "kernel K2-bf16 sums dq with atomicAdd, and the split backward K3 + K4 is not "
-                "built for bfloat16 yet (K3/K4-bf16). Turn it off for this operation with "
-                "torch.use_deterministic_algorithms(False), or only warn with warn_only=True."
-            )
-            if not torch.is_deterministic_algorithms_warn_only_enabled():
-                raise RuntimeError(msg)
-            warnings.warn(msg)
-        return _bwd_kernel("hstu_mha_bwd_fused_bf16", q, k, v, lens, nt, do, kw)
+    suffix = "_bf16" if q.dtype == torch.bfloat16 else ""
     if not split:
-        return _bwd_kernel("hstu_mha_bwd_fused", q, k, v, lens, nt, do, kw)
-    dq = _bwd_kernel("hstu_mha_bwd_dq", q, k, v, lens, nt, do, kw)[0]
-    _, dk, dv = _bwd_kernel("hstu_mha_bwd_dkv", q, k, v, lens, nt, do, kw)
+        return _bwd_kernel("hstu_mha_bwd_fused" + suffix, q, k, v, lens, nt, do, kw)
+    dq = _bwd_kernel("hstu_mha_bwd_dq" + suffix, q, k, v, lens, nt, do, kw)[0]
+    _, dk, dv = _bwd_kernel("hstu_mha_bwd_dkv" + suffix, q, k, v, lens, nt, do, kw)
     return dq, dk, dv
 
 
@@ -753,10 +799,12 @@ def delta_hstu_mha_cuda(
     return out
 
 
-hstu_mha_dense_cuda.launches = LaunchCounter()
-hstu_mha_dense_cuda.launches_bf16 = LaunchCounter()
-hstu_mha_bwd_cuda.launches = {
-    name: LaunchCounter() for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
+hstu_mha_dense_cuda.launches = {
+    name + sfx: LaunchCounter() for name in ("hstu_mha_fwd", "hstu_mha_fwd_bias") for sfx in ("", "_bf16")
 }
-hstu_mha_bwd_cuda.launches_bf16 = LaunchCounter()
+hstu_mha_bwd_cuda.launches = {
+    name + sfx: LaunchCounter()
+    for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
+    for sfx in ("", "_bf16")
+}
 delta_hstu_mha_cuda.launches = LaunchCounter()

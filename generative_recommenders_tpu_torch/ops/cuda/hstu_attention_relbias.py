@@ -33,17 +33,17 @@ host scatter-add that rebuilds ``dpos_w`` are not ported.
 
 bfloat16: both kernels also take bfloat16 q, k, v (and dO), the type the
 JAX package's ``compute_dtype="bfloat16"`` gives the first HSTU block, with
-the Pallas kernels' rounding points: S, dP and dS in float32 from exact
-products, P rounded to bfloat16 before P V (forward) and P^T dO (backward),
-dO entering the backward as bfloat16(dO * bfloat16(1 / norm)), dS rounded
-to bfloat16 before dS^T Q and dS K, the table gradients from the float32 dS
-summed over the heads; out, dq, dk and dv in bfloat16, the table gradients
-in float32. Their plain versions follow the same rounding points
-(`_relbias_fwd_plain_bf16`, `_relbias_bwd_plain_bf16`); autograd through a
-bfloat16 forward would round dP instead. The bfloat16 kernels count their
-launches in ``launches_bf16``, beside the float32 kernels' ``launches``,
-and take ``alpha = 1`` only (the TPU kernel rounds alpha q to bfloat16 in
-the kernel; the research model's alpha is 1).
+the Pallas kernels' rounding points: alpha q rounded to bfloat16 (where
+alpha != 1), S, dP and dS in float32 from exact products, P rounded to
+bfloat16 before P V (forward) and P^T dO (backward), dO entering the
+backward as bfloat16(dO * bfloat16(1 / norm)), dS rounded to bfloat16
+before dS^T (alpha q) and dS K, dq taking one alpha at its float32 flush,
+the table gradients from the float32 dS summed over the heads; out, dq, dk
+and dv in bfloat16, the table gradients in float32. Their plain versions
+follow the same rounding points (`_relbias_fwd_plain_bf16`,
+`_relbias_bwd_plain_bf16`); autograd through a bfloat16 forward would round
+dP instead. The bfloat16 kernels count their launches in
+``launches_bf16``, beside the float32 kernels' ``launches``.
 
 K7 sums dq, ``dpos_w`` and ``dts_w`` with atomics, in an order that changes
 from run to run. The Pallas kernel keeps those sums in VMEM over a
@@ -136,38 +136,29 @@ def relative_bias_plain(
     return pos_w[rel] + ts_w[bucket]
 
 
-_plain_mask, _bf16 = ha._plain_mask, ha._bf16
-
-
-def _check_bf16_alpha(alpha: float) -> None:
-    if alpha != 1.0:
-        raise ValueError(
-            f"the bfloat16 relative-bias attention takes alpha = 1 (got {alpha}): the TPU kernel "
-            "rounds alpha * q to bfloat16, which the port does not"
-        )
+_plain_mask, _bf16, _scaled_q = ha._plain_mask, ha._bf16, ha._scaled_q
 
 
 def _relbias_fwd_plain_bf16(q, k, v, lengths, timestamps, pos_w, ts_w, num_buckets, kw) -> torch.Tensor:
-    """K6's bfloat16 function: S = q k^T + bias in float32 from bfloat16
-    inputs, P = silu(S) * mask rounded to bfloat16, O = (P V) / norm in
-    float32, returned as bfloat16."""
-    _check_bf16_alpha(kw["alpha"])
+    """K6's bfloat16 function: S = (alpha q) k^T + bias in float32 from
+    bfloat16 inputs (alpha q rounded to bfloat16), P = silu(S) * mask
+    rounded to bfloat16, O = (P V) / norm in float32, returned as
+    bfloat16."""
     N = q.shape[1]
     mask = _plain_mask(N, lengths, kw)
     bias = relative_bias_plain(timestamps, pos_w, ts_w, num_buckets)
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) + bias[:, None]
+    s = torch.einsum("bnhd,bmhd->bhnm", _scaled_q(q, kw["alpha"]), k.float()) + bias[:, None]
     p = _bf16(torch.where(mask[:, None], F.silu(s), 0.0))
     out = torch.einsum("bhnm,bmhv->bnhv", p, v.float()) * (1.0 / (kw["max_seq_len"] or N))
     return out.to(torch.bfloat16)
 
 
 def _relbias_bwd_plain_bf16(q, k, v, lengths, timestamps, pos_w, ts_w, do, num_buckets, kw) -> RelbiasGrads:
-    """K7's bfloat16 function, written out: dO / norm rounded to bfloat16
-    (with 1 / norm itself in bfloat16, the Pallas kernel's weakly typed
-    scalar), dV = bf16(P)^T dO, dP = dO V^T and dS = dP * dsilu in float32,
-    dK = bf16(dS)^T Q, dQ = bf16(dS) K, the table gradients from the float32
-    dS summed over the heads."""
-    _check_bf16_alpha(kw["alpha"])
+    """K7's bfloat16 function, written out: alpha q and dO / norm rounded to
+    bfloat16 (alpha and 1 / norm themselves in bfloat16, the Pallas kernel's
+    weakly typed scalars), dV = bf16(P)^T dO, dP = dO V^T and dS = dP *
+    dsilu in float32, dK = bf16(dS)^T (alpha q), dQ = alpha bf16(dS) K, the
+    table gradients from the float32 dS summed over the heads."""
     N = q.shape[1]
     mask = _plain_mask(N, lengths, kw)[:, None]
     inv_norm = ha._bf16_scalar(1.0 / (kw["max_seq_len"] or N))
@@ -175,15 +166,16 @@ def _relbias_bwd_plain_bf16(q, k, v, lengths, timestamps, pos_w, ts_w, do, num_b
     with torch.enable_grad():
         tables = [t.detach().float().requires_grad_(True) for t in (pos_w, ts_w)]
         bias = relative_bias_plain(timestamps, *tables, num_buckets)
-    s = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) + bias.detach()[:, None]
+    qs = _scaled_q(q, kw["alpha"])
+    s = torch.einsum("bnhd,bmhd->bhnm", qs, k.float()) + bias.detach()[:, None]
     sig = torch.sigmoid(s)
     p = torch.where(mask, s * sig, 0.0)
     dv = torch.einsum("bhnm,bnhv->bmhv", _bf16(p), dob)
     dp = torch.einsum("bnhv,bmhv->bhnm", dob, v.float())
     ds = torch.where(mask, dp * sig * (1.0 + s * (1.0 - sig)), 0.0)
     ds16 = _bf16(ds)
-    dk = torch.einsum("bhnm,bnhd->bmhd", ds16, q.float())
-    dq = torch.einsum("bhnm,bmhd->bnhd", ds16, k.float())
+    dk = torch.einsum("bhnm,bnhd->bmhd", ds16, qs)
+    dq = torch.einsum("bhnm,bmhd->bnhd", ds16, k.float()) * kw["alpha"]
     dpos, dts = torch.autograd.grad(bias, tables, ds.sum(1))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dpos, dts
 
@@ -291,8 +283,6 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     B, N, H, D = q.shape
     V = v.shape[3]
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_bf16_alpha(kw["alpha"])
     out = torch.empty((B, N, H, V), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -380,8 +370,6 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
     V = v.shape[3]
     Nm, NB = (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1
     bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        _check_bf16_alpha(kw["alpha"])
     # raises on what the kernels do not take
     plan = (_relbias_det_plan(D, V, H, B, N, Nm, NB) if deterministic else _relbias_bwd_plan(D, V, H, Nm, NB))
     new = lambda fn, *shape, dtype=torch.float32: fn(shape, dtype=dtype, device=q.device)  # noqa: E731

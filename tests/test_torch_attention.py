@@ -157,10 +157,16 @@ def test_delta_plain_matches_pallas_and_xla(case):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
-    q = torch.zeros(1, 4, 1, 8)
+    """The additive bias's forward runs (K1-bias's plain version here) and
+    its gradient raises NotImplementedError, the forward-only path of the
+    JAX package; meta tensors, neither CPU nor CUDA, raise."""
+    q = torch.ones(1, 4, 1, 8, requires_grad=True)
     lengths = torch.tensor([4])
-    with pytest.raises(NotImplementedError):
-        hstu_mha_dense_cuda(q, q, q, lengths, bias=torch.zeros(1, 4, 4))
+    out = hstu_mha_dense_cuda(q, q, q, lengths, bias=torch.zeros(1, 4, 4))
+    torch.testing.assert_close(out, hstu_mha_dense_cuda(q, q, q, lengths), rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        out.sum().backward()
+    q = q.detach()
     meta = q.to("meta")
     with pytest.raises(ValueError):
         hstu_mha_dense_cuda(meta, meta, meta, lengths)
@@ -323,14 +329,15 @@ def test_dense_launch_goes_by_the_plan(monkeypatch):
     lens = torch.tensor([70, 9], dtype=torch.int32)
     kw = dict(alpha=1.0, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
               min_full_attn_seq_len=0)
-    before = hstu_mha_dense_cuda.launches.count
+    counter = hstu_mha_dense_cuda.launches["hstu_mha_fwd"]
+    before = counter.count
     assert ha._dense_fwd(q, q, q, lens, None, kw).shape == (2, 70, 3, 32)
     assert len(calls) == 1 and calls[0][0] == "hstu_mha_fwd"
-    assert hstu_mha_dense_cuda.launches.count == before + 1
+    assert counter.count == before + 1
     monkeypatch.setattr(ha, "_MAX_GRID_X", 2)
     with pytest.raises(ValueError, match="grid"):
         ha._dense_fwd(q, q, q, lens, None, kw)
-    assert len(calls) == 1 and hstu_mha_dense_cuda.launches.count == before + 1
+    assert len(calls) == 1 and counter.count == before + 1
 
 
 # padded width -> (query rows, key columns, shared bytes), as
@@ -390,7 +397,8 @@ def test_dq_launch_plan_raises(args, match):
 
 
 _C_TYPES = {"const float*": ha._P, "float*": ha._P, "const int*": ha._P, "int*": ha._P, "void*": ha._P, "int": ha._I,
-            "long long": ha._L, "float": ha._F, "const __nv_bfloat16*": ha._P, "__nv_bfloat16*": ha._P}
+            "long long": ha._L, "float": ha._F, "const __nv_bfloat16*": ha._P, "__nv_bfloat16*": ha._P,
+            "const void*": ha._P}  # K1-bias's bias: float32 or bfloat16
 
 
 @pytest.mark.parametrize("name", sorted(ha._ARGTYPES))

@@ -78,14 +78,21 @@ def _close_to_max(got, want, tol, what=""):
 
 
 # ------------------------------------------------------- K6 / K7 in bfloat16
-@pytest.mark.parametrize("B, N, H, D, Nm, lengths", [
-    (2, 70, 2, 8, 80, (70, 41)),
-    (3, 45, 1, 25, 45, (45, 1, 30)),
-], ids=["N70_D8", "N45_D25"])
-def test_bf16_plain_kernels_match_pallas_interpret(B, N, H, D, Nm, lengths):
+@pytest.mark.parametrize("B, N, H, D, Nm, lengths, alpha", [
+    (2, 70, 2, 8, 80, (70, 41), 1.0),
+    (3, 45, 1, 25, 45, (45, 1, 30), 1.0),
+    (2, 70, 2, 8, 80, (70, 41), 0.125),
+    (3, 45, 1, 25, 45, (45, 1, 30), 0.125),
+    (2, 70, 2, 8, 80, (70, 41), 0.3),
+    (3, 45, 1, 25, 45, (45, 1, 30), 0.3),
+], ids=["N70_D8", "N45_D25", "N70_D8_alpha0.125", "N45_D25_alpha0.125", "N70_D8_alpha0.3", "N45_D25_alpha0.3"])
+def test_bf16_plain_kernels_match_pallas_interpret(B, N, H, D, Nm, lengths, alpha):
     """The bfloat16 plain forward and backward (`_RelbiasPlainBf16`, the
     CPU path of `hstu_mha_dense_relbias_cuda`) against `jax.grad` through
-    the Pallas kernels in interpret mode, on the same bfloat16 inputs."""
+    the Pallas kernels in interpret mode, on the same bfloat16 inputs, at
+    alpha 1, 1/8 and 0.3. At 0.3, which bfloat16 does not hold exactly,
+    bfloat16(alpha q) differs from alpha q in float32, so the case holds the
+    port to the kernels' rounding point as well as to their formula."""
     rng = np.random.default_rng(N)
     q, k, v = (rng.standard_normal((B, N, H, D)).astype(np.float32) * 0.3 for _ in range(3))
     lengths = np.asarray(lengths, np.int32)
@@ -96,7 +103,7 @@ def test_bf16_plain_kernels_match_pallas_interpret(B, N, H, D, Nm, lengths):
 
     def loss(q_, k_, v_, pw, tw):
         out = hstu_mha_dense_pallas_relbias(
-            q_, k_, v_, jnp.asarray(lengths), jnp.asarray(ts), pw, tw,
+            q_, k_, v_, jnp.asarray(lengths), jnp.asarray(ts), pw, tw, alpha=alpha,
             block_q=128, block_k=128, interpret=True,
         )
         return jnp.sum(out.astype(jnp.float32) * w), out
@@ -109,7 +116,7 @@ def test_bf16_plain_kernels_match_pallas_interpret(B, N, H, D, Nm, lengths):
     for t in leaves:
         t.requires_grad_(True)
     out = t_rb.hstu_mha_dense_relbias_cuda(*leaves[:3], torch.as_tensor(lengths), torch.as_tensor(ts),
-                                           *leaves[3:])
+                                           *leaves[3:], alpha=alpha)
     assert out.dtype == torch.bfloat16
     (out.float() * torch.as_tensor(w)).sum().backward()
     _close_to_max(out, want_out, KERNEL_TOL, "out")
@@ -120,7 +127,7 @@ def test_bf16_plain_kernels_match_pallas_interpret(B, N, H, D, Nm, lengths):
     do = torch.as_tensor(w).to(torch.bfloat16)  # the gradient of out.float() * w, as autograd casts it
     grads = t_rb.hstu_mha_relbias_bwd_cuda(
         *(t.detach() for t in leaves[:3]), torch.as_tensor(lengths), torch.as_tensor(ts),
-        *(t.detach() for t in leaves[3:]), do,
+        *(t.detach() for t in leaves[3:]), do, alpha=alpha,
     )
     for t, g in zip(leaves, grads, strict=True):
         torch.testing.assert_close(g, t.grad, rtol=0, atol=0)
@@ -128,8 +135,8 @@ def test_bf16_plain_kernels_match_pallas_interpret(B, N, H, D, Nm, lengths):
 
 def test_bf16_plain_rounds_where_the_kernels_round():
     """P enters P V rounded to bfloat16: the forward equals the float32
-    formula with P rounded, not the unrounded one; alpha other than 1 is
-    refused (the TPU kernel rounds alpha q to bfloat16, the port does not)."""
+    formula with P rounded, not the unrounded one; at alpha 0.5 the port
+    rounds alpha q to bfloat16, as the TPU kernel does, and matches it."""
     rng = np.random.default_rng(3)
     B, N, H, D = 2, 20, 1, 8
     q, k, v = (torch.as_tensor(rng.standard_normal((B, N, H, D)).astype(np.float32)).to(torch.bfloat16)
@@ -144,8 +151,14 @@ def test_bf16_plain_rounds_where_the_kernels_round():
     rounded = (torch.einsum("bhnm,bmhv->bnhv", p.to(torch.bfloat16).float(), v.float()) / N).to(torch.bfloat16)
     unrounded = (torch.einsum("bhnm,bmhv->bnhv", p, v.float()) / N).to(torch.bfloat16)
     assert torch.equal(got, rounded) and not torch.equal(got, unrounded)
-    with pytest.raises(ValueError, match="alpha = 1"):
-        t_rb.hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, alpha=0.5)
+    half = t_rb.hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, alpha=0.5)
+    want = hstu_mha_dense_pallas_relbias(
+        *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)), jnp.asarray(lengths.numpy()),
+        jnp.asarray(ts.numpy()), jnp.asarray(pos_w.numpy()), jnp.asarray(ts_w.numpy()), alpha=0.5,
+        block_q=128, block_k=128, interpret=True,
+    )
+    assert half.dtype == torch.bfloat16
+    _close_to_max(half, want, KERNEL_TOL, "out at alpha 0.5")
 
 
 # ------------------------------------------------------------------- model

@@ -15,8 +15,9 @@ on the CPU at a small size.
 * `_HstuMhaDense` on bfloat16, driven on the CPU with K1's launch replaced
   by a stand-in: K1-bf16 then K2-bf16, autograd's gradients; under
   deterministic algorithms it asks `hstu_mha_bwd_cuda` for the split, which
-  on bfloat16 CUDA tensors raises (K3/K4-bf16 are not built), or warns and
-  takes K2-bf16 with ``warn_only``.
+  on bfloat16 CUDA tensors launches K3-bf16 then K4-bf16, with no warning
+  (`tests/test_torch_bf16_split.py` holds the split against the JAX
+  package's).
 
 Tolerances, as `tests/test_torch_bf16.py`'s: the kernels' bfloat16 outputs
 within 2^-7 of their largest entry (two roundings: a float32 sum that lands
@@ -331,37 +332,38 @@ def _bf16_split_as_on_the_card(monkeypatch):
 
 @pytest.mark.parametrize("warn_only", [False, True])
 def test_bf16_backward_refuses_the_split_under_deterministic_mode(monkeypatch, warn_only):
-    """The split backward K3 + K4 takes float32 only. Under
+    """The split backward no longer refuses bfloat16. Under
     `torch.use_deterministic_algorithms(True)` the autograd function asks
     `hstu_mha_bwd_cuda` for the split on bfloat16 too (on the CPU the plain
-    backward answers, deterministic itself); on the card the wrapper raises
-    a RuntimeError that names K3/K4-bf16, or with ``warn_only`` warns and
-    launches K2-bf16."""
+    backward answers, deterministic itself); on the card the wrapper
+    launches K3-bf16 then K4-bf16, with no warning, ``warn_only`` or not."""
     called, got, want = _through_the_function(monkeypatch, deterministic=True, warn_only=warn_only)
     assert called == ["K1-bf16", "K3+K4"]
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     prev, prev_warn = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True, warn_only=warn_only)
     try:
-        if warn_only:
-            with pytest.warns(UserWarning, match="K3/K4-bf16"):
-                assert _bf16_split_as_on_the_card(monkeypatch) == ["hstu_mha_bwd_fused_bf16"]
-        else:
-            with pytest.raises(RuntimeError, match="K3/K4-bf16"):
-                _bf16_split_as_on_the_card(monkeypatch)
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            assert _bf16_split_as_on_the_card(monkeypatch) == ["hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16"]
     finally:
         torch.use_deterministic_algorithms(prev, warn_only=prev_warn)
 
 
 def test_bf16_backward_wrapper_refuses_the_split(monkeypatch):
-    """`hstu_mha_bwd_cuda(split=True)` on bfloat16 CUDA tensors raises
-    before anything launches, deterministic algorithms on or off (driven
-    here with the device check passed); on CPU tensors the plain backward
-    answers without a warning."""
+    """`hstu_mha_bwd_cuda(split=True)` on bfloat16 CUDA tensors launches
+    K3-bf16 then K4-bf16 (driven here with the device check passed and the
+    launches recorded), deterministic algorithms off; without ``split`` it
+    launches K2-bf16. On CPU tensors the plain backward answers without a
+    warning."""
     q = torch.zeros(2, 8, 1, 8, dtype=torch.bfloat16)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         plain = ha.hstu_mha_bwd_cuda(q, q, q, torch.tensor([8, 3]), q, split=True)  # the CPU: the plain backward
-    assert all(g.dtype == torch.bfloat16 for g in plain)
-    with pytest.raises(RuntimeError, match="K3/K4-bf16"):
-        _bf16_split_as_on_the_card(monkeypatch)
+        assert all(g.dtype == torch.bfloat16 for g in plain)
+        assert _bf16_split_as_on_the_card(monkeypatch) == ["hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16"]
+    launched = []
+    monkeypatch.setattr(ha, "_bwd_kernel", lambda name, q_, *a: launched.append(name) or (q_, q_, q_))
+    meta = q.to("meta")
+    ha.hstu_mha_bwd_cuda(meta, meta, meta, torch.tensor([8, 3]), meta)
+    assert launched == ["hstu_mha_bwd_fused_bf16"]

@@ -28,10 +28,18 @@ bfloat16 are held to their bfloat16 plain versions within 2^-6 of each
 bfloat16 output's largest entry (the same rounding points; a sum taken in
 another order now and then rounds to the neighbouring bfloat16); so are K1
 and K2 on bfloat16 (K1-bf16, K2-bf16), whose dk and dv are the same bits on
-every run. K7-det, the fixed-order relative-bias backward, gives the same
-bits in every output on a second run, and is held to 2e-5 of each output's
-largest entry in float32 (to 2^-6, the tables to 1e-5, on bfloat16).
+every run; so are K3-bf16 and K4-bf16, the split backward on bfloat16,
+whose every output is the same bits on a second run. K6-bf16 and K7-bf16
+also at alpha 1/8 (alpha q rounded to bfloat16). K7-det, the fixed-order
+relative-bias backward, gives the same bits in every output on a second
+run, and is held to 2e-5 of each output's largest entry in float32 (to
+2^-6, the tables to 1e-5, on bfloat16). K1-bias, K1 with an additive [B, N,
+N] bias, is held to its plain version as K1 (float32) and K1-bf16
+(bfloat16) are, with a float32 or bfloat16 bias, one per batch row or one
+for the batch.
 """
+
+import warnings
 
 import numpy as np
 import pytest
@@ -107,9 +115,9 @@ def test_dense_kernel_matches_plain(cuda, case):
     nt_on = case.pop("num_targets", False)
     q, k, v, lengths, nt = _inputs(0, 3, 70, 70, 2, 32, 32, case.get("contextual_seq_len", 0), nt_on, cuda)
     kw = dict(alpha=0.7, max_seq_len=90, num_targets=nt, **case)
-    launches = hstu_mha_dense_cuda.launches.count
+    launches = hstu_mha_dense_cuda.launches["hstu_mha_fwd"].count
     got = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
-    assert hstu_mha_dense_cuda.launches.count == launches + 1
+    assert hstu_mha_dense_cuda.launches["hstu_mha_fwd"].count == launches + 1
     torch.testing.assert_close(got, hstu_mha_dense_plain(q, k, v, lengths, **kw), **TOL)
 
 
@@ -457,11 +465,11 @@ def test_empty_batch_counts_no_launch(cuda):
     """A batch of no rows launches no kernel, and no counter moves."""
     q, k, v = (torch.zeros(0, 8, 2, 16, device=cuda) for _ in range(3))
     lengths = torch.zeros(0, dtype=torch.int32, device=cuda)
-    fwd, bwd = hstu_mha_dense_cuda.launches.count, _bwd_counts()
+    fwd, bwd = [c.count for c in hstu_mha_dense_cuda.launches.values()], _bwd_counts()
     assert hstu_mha_dense_cuda(q, k, v, lengths).shape == (0, 8, 2, 16)
     for split in (False, True):
         assert all(g.shape == (0, 8, 2, 16) for g in hstu_mha_bwd_cuda(q, k, v, lengths, v, split=split))
-    assert hstu_mha_dense_cuda.launches.count == fwd and _bwd_counts() == bwd
+    assert [c.count for c in hstu_mha_dense_cuda.launches.values()] == fwd and _bwd_counts() == bwd
 
 
 def _relbias_inputs(seed, B, N, H, D, V, Nm, nb, num_targets, device):
@@ -692,16 +700,16 @@ def test_relbias_bf16_kernels_match_plain(cuda, case, shape):
 
 @pytest.mark.gpu
 def test_relbias_bf16_refuses_what_it_does_not_take(cuda):
-    """alpha other than 1 (the TPU kernel rounds alpha q to bfloat16), a dO
-    of another type than q, and q, k, v of mixed types raise; nothing is
-    launched."""
+    """alpha other than 1 is taken (K6-bf16 against its plain version, one
+    launch); a dO of another type than q, and q, k, v of mixed types raise,
+    and nothing is launched."""
     B, N, H, D, V, Nm, nb = 2, 40, 2, 32, 32, 40, 128
     q, k, v, lengths, ts, pos_w, ts_w, _ = _relbias_inputs(10, B, N, H, D, V, Nm, nb, False, cuda)
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
     c6, c7 = hstu_mha_dense_relbias_cuda, hstu_mha_relbias_bwd_cuda
+    got = c6(qb, kb, vb, lengths, ts, pos_w, ts_w, alpha=0.5)
+    assert _bf16_err(got, hstu_mha_dense_relbias_plain(qb, kb, vb, lengths, ts, pos_w, ts_w, alpha=0.5)) <= BF16_TOL
     before = (c6.launches_bf16.count, c7.launches_bf16.count)
-    with pytest.raises(ValueError, match="alpha = 1"):
-        c6(qb, kb, vb, lengths, ts, pos_w, ts_w, alpha=0.5)
     with pytest.raises(TypeError, match="k must be bfloat16"):
         c6(qb, k, vb, lengths, ts, pos_w, ts_w)
     with pytest.raises(TypeError, match="do must be bfloat16"):
@@ -727,26 +735,36 @@ def _bf16_views(seed, B, N, H, D, V, device):
             do.to(torch.bfloat16).transpose(0, 1))
 
 
+def _bf16_bwd_counts():
+    """The launch counts of K2-bf16, K3-bf16 and K4-bf16."""
+    c = hstu_mha_bwd_cuda.launches
+    return [c[n].count for n in ("hstu_mha_bwd_fused_bf16", "hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16")]
+
+
 def _dense_bf16_checks(q, k, v, lengths, do, kw):
-    """K1-bf16 and K2-bf16 against their bfloat16 plain versions: each
-    launch counted once as a bfloat16 launch (no float32 launch), every
-    output bfloat16 within `BF16_TOL` of its largest entry, rows >= length
-    exactly 0, dk and dv the same bits on a second run."""
-    before = (hstu_mha_dense_cuda.launches.count, hstu_mha_dense_cuda.launches_bf16.count,
-              hstu_mha_bwd_cuda.launches_bf16.count, *_bwd_counts())
+    """K1-bf16 and K2-bf16, then K3-bf16 + K4-bf16, against their bfloat16
+    plain versions: each launch counted once as a bfloat16 launch (no
+    float32 launch), every output bfloat16 within `BF16_TOL` of its largest
+    entry, rows >= length exactly 0, K2-bf16's dk and dv and every output of
+    the split the same bits on a second run."""
+    fwd = hstu_mha_dense_cuda.launches
+    before = (fwd["hstu_mha_fwd"].count, fwd["hstu_mha_fwd_bf16"].count, *_bf16_bwd_counts(), *_bwd_counts())
     got = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
     grads = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
-    after = (hstu_mha_dense_cuda.launches.count, hstu_mha_dense_cuda.launches_bf16.count,
-             hstu_mha_bwd_cuda.launches_bf16.count, *_bwd_counts())
-    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 0, 0, 0]
+    split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    after = (fwd["hstu_mha_fwd"].count, fwd["hstu_mha_fwd_bf16"].count, *_bf16_bwd_counts(), *_bwd_counts())
+    assert [a - b for a, b in zip(after, before)] == [0, 1, 1, 1, 1, 0, 0, 0]
     want = [hstu_mha_dense_plain(q, k, v, lengths, **kw), *hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)]
     dead = torch.arange(q.shape[1], device=q.device)[None, :] >= lengths[:, None]
-    for name, g, w in zip(("out", "dq", "dk", "dv"), [got, *grads], want):
+    for name, g, w in zip(("out", "dq", "dk", "dv", "split dq", "split dk", "split dv"),
+                          [got, *grads, *split], want + want[1:]):
         assert g.dtype == w.dtype == torch.bfloat16, name
         assert _bf16_err(g, w) <= BF16_TOL, f"{name}: {_bf16_err(g, w):.2e} of its max"
         assert (g[dead] == 0).all(), name
     again = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
     assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+    again = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(split, again))
 
 
 @pytest.mark.gpu
@@ -781,9 +799,8 @@ def test_dense_bf16_kernels_at_their_seams(cuda, name):
 @pytest.mark.gpu
 def test_dense_bf16_attention_is_differentiable_on_the_card(cuda):
     """Autograd through `hstu_mha_dense_cuda` on bfloat16 reaches q, k and v
-    by K1-bf16 and K2-bf16; under deterministic algorithms the bfloat16
-    backward raises a RuntimeError naming K3/K4-bf16 (nothing launched), or
-    with ``warn_only`` warns and takes K2-bf16."""
+    by K1-bf16 and K2-bf16; under deterministic algorithms (``warn_only``
+    or not, no warning) by K3-bf16 then K4-bf16, the same bits twice."""
     B, N, H, D, V = 2, 70, 2, 32, 32
     q, k, v, _ = _bf16_views(22, B, N, H, D, V, cuda)
     lengths = torch.tensor([N, 41], dtype=torch.int32, device=cuda)
@@ -794,27 +811,26 @@ def test_dense_bf16_attention_is_differentiable_on_the_card(cuda):
         (hstu_mha_dense_cuda(*leaves, lengths).float() * weight).sum().backward()
         return [x.grad for x in leaves]
 
-    k2 = hstu_mha_bwd_cuda.launches_bf16.count
+    k2 = _bf16_bwd_counts()
     got = grads()
-    assert hstu_mha_bwd_cuda.launches_bf16.count == k2 + 1
+    assert [a - b for a, b in zip(_bf16_bwd_counts(), k2)] == [1, 0, 0]
     want = hstu_mha_bwd_plain(q, k, v, lengths, weight.to(torch.bfloat16))
     for g, w in zip(got, want):
         assert _bf16_err(g, w) <= BF16_TOL
     split = _bwd_counts()
-    torch.use_deterministic_algorithms(True)
-    try:
-        with pytest.raises(RuntimeError, match="K3/K4-bf16"):
-            grads()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    assert hstu_mha_bwd_cuda.launches_bf16.count == k2 + 1 and _bwd_counts() == split
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with pytest.warns(UserWarning, match="K3/K4-bf16"):
-            grads()
-    finally:
-        torch.use_deterministic_algorithms(False)
-    assert hstu_mha_bwd_cuda.launches_bf16.count == k2 + 2
+    runs = []
+    for warn_only in (False, True):
+        torch.use_deterministic_algorithms(True, warn_only=warn_only)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("error")
+                runs.append(grads())
+        finally:
+            torch.use_deterministic_algorithms(False)
+    assert [a - b for a, b in zip(_bf16_bwd_counts(), k2)] == [1, 2, 2] and _bwd_counts() == split
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for g, w in zip(runs[0], want):
+        assert _bf16_err(g, w) <= BF16_TOL
 
 
 # ------------------------------------------- K7-det, the fixed-order K7
@@ -896,3 +912,110 @@ def test_relbias_det_plan_matches_the_launch(cuda):
     want = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, max_seq_len=N)
     for g, w in zip(grads[3:], want[3:]):
         assert _bf16_err(g, w) <= DET_TOL
+
+
+# ------------------------------------ K6 / K7 on bfloat16 at alpha 1/8 and 0.3
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha", [0.125, 0.3])
+@pytest.mark.parametrize("deterministic", [False, True], ids=["K7-bf16", "K7-det-bf16"])
+@pytest.mark.parametrize("shape", [(3, 211, 2, 32, 32, 211, 128), (2, 100, 2, 25, 25, 120, 40)])
+def test_relbias_bf16_kernels_at_alpha(cuda, shape, deterministic, alpha):
+    """K6-bf16 and K7-bf16 (or K7-det-bf16) at alpha 1/8 and 0.3 (which
+    bfloat16 does not hold exactly), which the kernels form as
+    bfloat16(alpha q) on their way into shared memory, against their
+    bfloat16 plain versions, which round there too (and which
+    `tests/test_torch_bf16.py` holds against the Pallas pair at the same
+    alphas); K7-det-bf16's every output the same bits twice."""
+    B, N, H, D, V, Nm, nb = shape
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(25, B, N, H, D, V, Nm, nb, True, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(alpha=alpha, max_seq_len=N, num_buckets=nb, num_targets=nt)
+    got = hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **kw)
+    assert _bf16_err(got, hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, **kw)) <= BF16_TOL
+    do = torch.randn(N, B, H, V, device=cuda).to(torch.bfloat16).transpose(0, 1)
+    args = (q, k, v, lengths, ts, pos_w, ts_w)
+    if deterministic:
+        _det_checks(args, do, kw, bf16=True)
+        return
+    grads = hstu_mha_relbias_bwd_cuda(*args, do, **kw)
+    want = hstu_mha_relbias_bwd_plain(*args, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, want):
+        table = name in ("dpos_w", "dts_w")
+        assert _bf16_err(g, w) <= (TABLE_TOL if table else BF16_TOL), f"{name}: {_bf16_err(g, w):.2e} of its max"
+
+
+# --------------------------------------------- K3-bf16 + K4-bf16 at the seams
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "tile edges on uvqk views", "window with full-attention rows", "contextual rows past a query tile",
+    "D=200, V=96", "D=V=32", "D=V=25", "a row of length 0 beside live rows", "non-causal",
+])
+def test_split_bf16_kernels_at_their_seams(cuda, name):
+    """K3-bf16 and K4-bf16 where K3's and K4's tilings end (the float32
+    seams' inputs rounded to bfloat16, alpha 1/sqrt(D)) against the
+    bfloat16 plain backward, every output the same bits twice."""
+    q, k, v, lengths, kw = _dq_seam(name, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(q.shape[1], q.shape[0], q.shape[2], v.shape[3], device=cuda).to(torch.bfloat16).transpose(0, 1)
+    before = _bf16_bwd_counts()
+    split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    assert [a - b for a, b in zip(_bf16_bwd_counts(), before)] == [0, 1, 1]
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    dead = torch.arange(q.shape[1], device=cuda)[None, :] >= lengths[:, None]
+    for g_name, g, w in zip(("dq", "dk", "dv"), split, want):
+        assert g.dtype == torch.bfloat16 and _bf16_err(g, w) <= BF16_TOL, f"{g_name}: {_bf16_err(g, w):.2e}"
+        assert (g[dead] == 0).all(), g_name
+    again = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(split, again))
+
+
+# ----------------------------------------------------------------- K1-bias
+def _bias_checks(q, k, v, lengths, bias, kw):
+    """K1-bias against its plain version: one launch on its entry point's
+    counter and none on K1's, the output of q's type within TOL (float32) or
+    `BF16_TOL` (bfloat16), rows >= length exactly 0, the same bits twice."""
+    bf16 = q.dtype == torch.bfloat16
+    c = hstu_mha_dense_cuda.launches
+    counters = [c[n] for n in ("hstu_mha_fwd", "hstu_mha_fwd_bf16", "hstu_mha_fwd_bias", "hstu_mha_fwd_bias_bf16")]
+    before = [x.count for x in counters]
+    got = hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw)
+    assert [x.count - b for x, b in zip(counters, before)] == [0, 0, int(not bf16), int(bf16)]
+    want = hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw)
+    assert got.dtype == want.dtype == q.dtype
+    if bf16:
+        assert _bf16_err(got, want) <= BF16_TOL, f"{_bf16_err(got, want):.2e} of its max"
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+    dead = torch.arange(q.shape[1], device=q.device)[None, :] >= lengths[:, None]
+    assert (got[dead] == 0).all()
+    assert torch.equal(got, hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bias_type", ["float32", "bfloat16"])
+@pytest.mark.parametrize("qkv_type", ["float32", "bfloat16"])
+@pytest.mark.parametrize("broadcast", [False, True], ids=["bias [B, N, N]", "bias [1, N, N]"])
+@pytest.mark.parametrize("case", CASES)
+def test_dense_bias_kernel_matches_plain(cuda, case, broadcast, qkv_type, bias_type):
+    """K1-bias with each mask case at N = 70 (not a tile multiple), on views
+    of one projection."""
+    case = dict(case)
+    nt_on = case.pop("num_targets", False)
+    q, k, v, lengths, nt = _inputs(30, 3, 70, 70, 2, 32, 32, case.get("contextual_seq_len", 0), nt_on, cuda)
+    if qkv_type == "bfloat16":
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    bias = torch.randn(1 if broadcast else 3, 70, 70, device=cuda).to(getattr(torch, bias_type))
+    _bias_checks(q, k, v, lengths, bias, dict(alpha=0.7, max_seq_len=90, num_targets=nt, **case))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name", ["tile edges", "D=V=32, H=3", "D=V=64, H=3", "D=V=25", "D=256, V=128", "targets and contextual rows", "window"]
+)
+def test_dense_bias_kernel_at_its_seams(cuda, name):
+    """K1-bias where K1's tiling ends, with a bias whose rows lie at an odd
+    pitch (element pairs read one by one) and with a contiguous one."""
+    q, k, v, lengths, kw = _dense_seam(name, cuda)
+    B, N = q.shape[:2]
+    _bias_checks(q, k, v, lengths, torch.randn(B, N, N + 1, device=cuda)[..., :N], kw)
+    _bias_checks(q, k, v, lengths, torch.randn(B, N, N, device=cuda), kw)

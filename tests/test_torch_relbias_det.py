@@ -168,23 +168,25 @@ def test_autograd_function_takes_k7_det_under_deterministic_mode(monkeypatch, bf
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
 
 
-def _small_trainer(compute_dtype):
+def _small_trainer(compute_dtype, relbias=True):
     model = t_seq.ModelConfig(
         main_module="HSTU", num_items=120, max_sequence_len=36, gr_output_length=3, item_embedding_dim=32,
         num_blocks=2, num_heads=2, dqk=16, dv=16, linear_dropout_rate=0.2, dropout_rate=0.2,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, enable_relative_attention_bias=relbias,
     )
     cfg = t_train.TrainConfig(model=model, local_batch_size=4, eval_batch_size=4, num_negatives=6)
     return t_train.ResearchTrainer(cfg, np.arange(1, 121), device="cpu")
 
 
-@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
-def test_research_step_under_deterministic_mode_equals_one_without(compute_dtype):
+@pytest.mark.parametrize("compute_dtype, relbias", [("float32", True), ("bfloat16", True), ("bfloat16", False)],
+                         ids=["float32", "bfloat16", "bfloat16-bias-free"])
+def test_research_step_under_deterministic_mode_equals_one_without(compute_dtype, relbias):
     """Two research train steps from one seed (dropout on), one under
     `torch.use_deterministic_algorithms(True)` (warn_only off: no operation
     of the step refuses), give the same loss and the same parameters, bit
     for bit: on the CPU every path is already the plain one, and deterministic
-    mode changes no function."""
+    mode changes no function. Also the bias-free bfloat16 model, whose
+    deterministic backward on the card is K3-bf16 + K4-bf16."""
     rng = np.random.default_rng(35)
     B, L = 4, 36
     lengths = rng.integers(1, L + 1, size=(B,))
@@ -204,7 +206,7 @@ def test_research_step_under_deterministic_mode_equals_one_without(compute_dtype
     results = []
     for deterministic in (False, True):
         torch.manual_seed(0)
-        trainer = _small_trainer(compute_dtype)
+        trainer = _small_trainer(compute_dtype, relbias)
         prev = torch.are_deterministic_algorithms_enabled()
         torch.use_deterministic_algorithms(deterministic)
         try:
