@@ -139,6 +139,20 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    K7 a step, K6 in the eval) and the position-only bias (no timestamps:
    K6 / K7 on zero timestamps and a one-entry time table against their plain
    versions at the preset's shape, timed; a small encoder GPU against CPU);
+   the every-shape phases run before the deterministic one (its process
+   also runs the long-history model twice): K1, K1-bias, K2 and K3 + K4
+   (float32 and bfloat16) and K5 at V 136, 192, 256, 320 and D 264, 320,
+   512 against their plain versions, each wide instance timed at V 256 and
+   D 512 with its bound; K6, K7 and K7-det at two heads of 128, at N = Nm =
+   4096 with full rows, at N 256 against Nm 22000 and with 1024 buckets,
+   held and timed at the wide-head and long-history layer shapes (and the
+   wide bodies, their routes forced, against the tables-read route where
+   the tables are read); the long-history phase (the ml-3b preset's widths
+   at N = Nm = 4096, batch 8, 2 + 5 steps and two eval batches on 64
+   histories of 3,600 to 4,086 events, ml-3b shards of their own); the
+   wide-head phase (`ml-20m/hstu-sampled-softmax-n128` with dqk = dv =
+   128, 2 + 5 steps and an eval batch); small models at those widths (two heads of
+   128, dv 192, a ranker with linear_dim 256) GPU against CPU;
 10. movielens-1m ranker phase: `train_ranker --dataset movielens-1m` on
    that `sasrec_format.csv` at full width with `--ckpt_dir` (K1, K2 3 a
    step), `--mode eval` from the checkpoint, then `inference.main
@@ -294,6 +308,19 @@ ATTN_DROPOUT, DROPOUT_STEPS = 0.2, 10
 # tolerances (losses, parameters)
 DIST_WARMUPS, DIST_STEPS, DIST_TIMEOUT = 2, 10, 600
 MESH_LOSS_RTOL, MESH_PARAM_TOL = 1e-5, dict(rtol=5e-5, atol=1e-6)
+# the long-history phase: the ml-3b preset's widths at max_sequence_len 4085
+# (N = Nm = 4096 with its 10 output positions and one more), batch 8 cut
+# from 96 so that B N stays below the preset's, 2 + 5 steps and two eval
+# batches; under deterministic algorithms 2 + 3 steps, twice
+LONG_SEQ_LEN, LONG_BATCH, LONG_STEPS, LONG_DET_STEPS = 4085, 8, 5, 3
+# its corpus: 64 users' histories of 3600 to 4086 events, as ml-3b shards of
+# their own
+LONG_USERS, LONG_MIN_LEN, LONG_ROOT = 64, 3600, os.path.join(DATA_ROOT, "long-history")
+# the wide-head phase: ml-20m/hstu-sampled-softmax-n128 with dqk = dv = 128
+# (its d 256 over its 2 heads), 2 + 5 steps and an eval batch
+WIDE_PRESET, WIDE_HEAD, WIDE_STEPS = "ml-20m/hstu-sampled-softmax-n128", 128, 5
+# the wide-values kernel phase: each dense entry point at these (D, V)
+WIDE_SHAPES = ((64, 136), (64, 192), (64, 256), (64, 320), (264, 64), (320, 64), (512, 64))
 # the parity checks' small models: a ranker with 128-row tables, a research
 # model with 127 items (128 rows), global batches of 8
 PARITY_HASH, PARITY_ITEMS, PARITY_BATCH = 128, 127, 8
@@ -554,6 +581,31 @@ class FixedNegatives:
         return sampled, self.sampler.normalize_embeddings(item_embedding_fn(sampled))
 
 
+@contextlib.contextmanager
+def wide_routes():
+    """The relative-bias launch plans with the wide bodies' route whatever
+    the head width, for the length of the block: the wide bodies (which take
+    any width and read both tables from device memory) timed against the
+    routes the plans choose, on the same inputs."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    saved = fwd, bwd, det = hr.ha._fwd_plan, hr._relbias_bwd_plan, hr._relbias_det_plan
+    hr.ha._fwd_plan = lambda D, V, H, Nm, NB, relbias, B=1, N=1: fwd(max(D, 257), V, H, Nm, NB, relbias, B, N)
+    hr._relbias_bwd_plan = lambda D, V, H, Nm, NB: bwd(max(D, 65), V, H, Nm, NB)
+    hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB: det(max(D, 65), V, H, B, N, Nm, NB)
+    try:
+        yield
+    finally:
+        hr.ha._fwd_plan, hr._relbias_bwd_plan, hr._relbias_det_plan = saved
+
+
+def route_launches(counters: dict) -> dict:
+    """The launches since the counters' reset on routes other than the
+    narrow body's, keyed "<kernel>/<route>" (``read``: the tables read from
+    device memory; ``wide``: the wide bodies)."""
+    return {f"{k_}/{r}": n for k_, c in counters.items() for r, n in c.routes.items() if r != "narrow"}
+
+
 # ------------------------------------------------------ distribution ranks
 def kernel_counters() -> dict:
     """Every kernel's launch counter, by name (the bfloat16 kernels and
@@ -708,7 +760,8 @@ def rank_main(argv) -> None:
 def det_main(argv) -> None:
     """The deterministic research phase, in a process of its own:
     ``chip_smoke.py det <the ml-1m phase's median step, ms> <the research
-    phase's, ms> <the bias-free bfloat16 phase's, ms>``, started by `main`
+    phase's, ms> <the bias-free bfloat16 phase's, ms> <the long-history
+    phase's, ms>``, started by `main`
     with CUBLAS_WORKSPACE_CONFIG set for it alone
     (torch.use_deterministic_algorithms needs it before the first cuBLAS
     call). Under deterministic algorithms the relative-bias backward takes
@@ -716,7 +769,8 @@ def det_main(argv) -> None:
     two runs from one seed give the same bits: the ml-1m large preset twice,
     the ml-3b preset in float32 against the research phase's median, a small
     bfloat16 model twice, a small bias-free bfloat16 model twice, the ml-3b
-    preset bias-free in bfloat16 against the bias-free phase's median.
+    preset bias-free in bfloat16 against the bias-free phase's median, the
+    long-history phase's model (N = Nm = 4096) twice.
     Reads the files the earlier phases wrote under DATA_ROOT. Prints its
     report, then its launches as one line ``DET_RESULT <json>``."""
     import torch
@@ -728,9 +782,10 @@ def det_main(argv) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    m_med, r_median, f_median = map(float, argv)
+    m_med, r_median, f_median, lh_median = map(float, argv)
     all_counters = kernel_counters()
     total = dict.fromkeys(all_counters, 0)
+    total_routes = {}  # "<kernel>/<route>": the launches on routes other than the narrow body's
 
     def count_reset():
         for c in all_counters.values():
@@ -738,10 +793,13 @@ def det_main(argv) -> None:
 
     def counts():
         """The launches since `count_reset` (the optional kernels' where
-        they launched), also added to the phase's totals."""
+        they launched), also added to the phase's totals (those on other
+        routes than the narrow body's also apart)."""
         now = {k_: c.count for k_, c in all_counters.items() if c.count or k_ not in OPTIONAL_KERNELS}
         for k_, n_ in now.items():
             total[k_] += n_
+        for key, n_ in route_launches(all_counters).items():
+            total_routes[key] = total_routes.get(key, 0) + n_
         return now
 
     mcfg, rcfg = RESEARCH_PRESETS[ML1M_PRESET], RESEARCH_PRESETS[RESEARCH_PRESET]
@@ -875,7 +933,23 @@ def det_main(argv) -> None:
           f"({f_det_med / f_median:.2f}x); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"launches {n_f} (warn_only {det_mode['warn_only']})")
     del tf_
-    print("DET_RESULT " + json.dumps(total), flush=True)
+    # the long-history phase's model (N = Nm = 4096) under deterministic
+    # algorithms: K7-det with the position table read from device memory,
+    # twice from one seed
+    lh_cfg = dataclasses.replace(rcfg, num_epochs=1, local_batch_size=LONG_BATCH, eval_batch_size=LONG_BATCH,
+                                 model=dataclasses.replace(rm, max_sequence_len=LONG_SEQ_LEN))
+    lh_train = get_reco_dataset("ml-3b", LONG_SEQ_LEN, data_root=LONG_ROOT).train_dataset
+    n_lh = RESEARCH_WARMUPS + LONG_DET_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, lh_det_med = det_twice(
+        f"{RESEARCH_PRESET} at max_sequence_len {LONG_SEQ_LEN} (N = Nm = {lh_cfg.model.total_seq_len}), batch "
+        f"{LONG_BATCH}, deterministic, {RESEARCH_WARMUPS} + {LONG_DET_STEPS} steps", lh_cfg, lh_train, n_lh,
+        {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": rm.num_blocks * n_lh, "K7": 0,
+         "K7-det": rm.num_blocks * n_lh})
+    print(f"  against the long-history phase's median step without deterministic algorithms {lh_median:.2f} ms "
+          f"({lh_det_med / lh_median:.2f}x); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print("DET_RESULT " + json.dumps({"launches": total, "routes": total_routes}), flush=True)
 
 
 def free_port() -> int:
@@ -974,6 +1048,7 @@ def main() -> None:
             make_valid_attn_mask,
         )
         from generative_recommenders_tpu_torch.ops.cuda import build
+        from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
         from generative_recommenders_tpu_torch.data.dlrm_factory import make_dlrm_batches
         from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import (
             _bwd_kernel,
@@ -1950,6 +2025,7 @@ def main() -> None:
     counters_bf16 = {k_: all_counters[k_] for k_ in OPTIONAL_KERNELS}
     counters = {k_: c for k_, c in all_counters.items() if k_ not in counters_bf16}
     main_path_launches = dict.fromkeys(all_counters, 0)
+    main_path_routes = {}  # "<kernel>/<route>": the launches on routes other than the narrow body's
 
     def count_reset():
         for c in all_counters.values():
@@ -1958,11 +2034,14 @@ def main() -> None:
     def counts():
         """The launch counts since `count_reset`, also added to the main
         path's totals: every float32 kernel's, and the bfloat16 kernels'
-        where they launched."""
+        where they launched; those on other routes than the narrow body's
+        also apart."""
         now = {name: c.count for name, c in counters.items()}
         now.update({name: c.count for name, c in counters_bf16.items() if c.count})
         for name, n in now.items():
             main_path_launches[name] += n
+        for key, n in route_launches(all_counters).items():
+            main_path_routes[key] = main_path_routes.get(key, 0) + n
         return now
 
     # ------------------------------------------- biased-attention parity phase
@@ -3094,6 +3173,357 @@ def main() -> None:
     del mout, saved, m_trainer
     torch.cuda.empty_cache()
 
+    # ---------------------------------------------------- every-shape phases
+    # The shapes the narrow tilings do not take: each entry point at wide
+    # values and heads (the wide bodies of csrc/hstu_attention_wide.cuh) and
+    # with long position tables (read from device memory) against its plain
+    # version, timed with its bound; then the model paths that need them.
+    def every_shape_phases():
+        """The every-shape phases; returns the long-history phase's median step (ms)."""
+        def rel_err(got, want):
+            return (got.float() - want.float()).abs().max().item() / max(want.float().abs().max().item(), 1e-30)
+
+        def held(name, got, want, tol, dead=None):
+            check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite kernel output")
+            err = rel_err(got, want)
+            print(f"  {name}: {err:.3e} of the plain version's max (tol {tol:.3g}) {'ok' if err <= tol else 'FAIL'}")
+            check(err <= tol, f"{name}: kernel disagrees with its plain version")
+            if dead is not None:
+                check(bool((got[dead] == 0).all()), f"{name}: rows >= length are not 0")
+            return err
+
+        def timed_row(kernel, shape, fn, plain, work, peak, reps=10):
+            """Times ``fn`` and prints it beside its bound and ``plain``: the
+            plain version (a function, timed here) or its time (ms). Returns
+            both times (ms)."""
+            ms = device_time_ms(fn, reps)
+            plain_ms = plain if isinstance(plain, float) else device_time_ms(plain, 2)
+            t_ops, t_bytes = work[0] / peak * 1e3, work[1] / PEAK_BYTES_PER_S * 1e3
+            print(f"  {kernel} at {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+                  f"({'operations' if t_ops >= t_bytes else 'bytes'}; operations {t_ops:.4f} at {peaks_of[peak]}, "
+                  f"bytes {t_bytes:.4f})")
+            return ms, plain_ms
+
+        peaks_of = {PEAK_F32_FLOPS: "float32 FMA", PEAK_3XTF32_FLOPS: "3xTF32", PEAK_BF16_FLOPS: "bfloat16"}
+
+        def views(Bc, N, Hc, Dc, Vc, dtype):
+            """q, k, v as views of one [Bc, N, H (2 D + V)] projection, and a strided dO."""
+            proj = rand(Bc, N, Hc * (2 * Dc + Vc)).to(dtype)
+            v_, q_, k_ = torch.split(proj, [Hc * Vc, Hc * Dc, Hc * Dc], dim=-1)
+            do_ = rand(N, Bc, Hc, Vc).to(dtype).transpose(0, 1)
+            return q_.reshape(Bc, N, Hc, Dc), k_.reshape(Bc, N, Hc, Dc), v_.reshape(Bc, N, Hc, Vc), do_
+
+        wB, wN, wH = 4, 512, 2
+        w_len = torch.cat([torch.full((1,), wN, device="cuda", dtype=torch.int32), ints(wN // 4, wN, wB - 1)])
+        w_nt = torch.minimum(ints(0, 5, wB), w_len - 1)
+        w_dead = torch.arange(wN, device="cuda")[None, :] >= w_len[:, None]
+        print(f"wide-values kernel phase: K1, K1-bias, K2, K3 + K4 (float32 and bfloat16) and K5 (float32) at (D, V) in "
+              f"{list(WIDE_SHAPES)}, B={wB}, N={wN}, H={wH}, targets, on views of one projection, against their plain "
+              f"versions (float32 {REL_TOL} of the max, bfloat16 {BF16_TOL:.4g}); the split's outputs the same bits twice")
+        for Dw, Vw in WIDE_SHAPES:
+            for dt in (torch.float32, torch.bfloat16):
+                bf = dt == torch.bfloat16
+                tag, tol = f"{'-bf16' if bf else ''} D={Dw} V={Vw}", BF16_TOL if bf else REL_TOL
+                q_, k_, v_, do_ = views(wB, wN, wH, Dw, Vw, dt)
+                a_ = dict(alpha=Dw**-0.5, max_seq_len=wN, num_targets=w_nt)
+                held("K1" + tag, hstu_mha_dense_cuda(q_, k_, v_, w_len, **a_),
+                     hstu_mha_dense_plain(q_, k_, v_, w_len, **a_), tol, w_dead)
+                bias_ = rand(wB, wN, wN) * 0.3
+                held("K1-bias" + tag, hstu_mha_dense_cuda(q_, k_, v_, w_len, bias=bias_, **a_),
+                     hstu_mha_dense_plain(q_, k_, v_, w_len, bias=bias_, **a_), tol, w_dead)
+                want = hstu_mha_bwd_plain(q_, k_, v_, w_len, do_, **a_)
+                for kname, split in (("K2", False), ("K3 + K4", True)):
+                    got = hstu_mha_bwd_cuda(q_, k_, v_, w_len, do_, split=split, **a_)
+                    for gname, g, w in zip(("dq", "dk", "dv"), got, want):
+                        held(f"{kname}{tag} {gname}", g, w, tol, w_dead)
+                again = hstu_mha_bwd_cuda(q_, k_, v_, w_len, do_, split=True, **a_)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K3 + K4{tag}: two runs differ")
+                if not bf:
+                    dq_ = rand(wB, CHUNK, wH, Dw)
+                    a5 = dict(alpha=Dw**-0.5, norm_len=wN, num_targets=w_nt)
+                    got5 = delta_hstu_mha_cuda(dq_, k_, v_, w_len, **a5)
+                    held("K5" + tag, got5, delta_hstu_mha_plain(dq_, k_, v_, w_len, **a5), tol)
+                    check(torch.equal(got5, delta_hstu_mha_cuda(dq_, k_, v_, w_len, **a5)), f"K5{tag}: two runs differ")
+            del q_, k_, v_, do_, bias_, want, got, again
+        # the wide instances' times at V 256 and at D 512, B 4, N 2048, H 2
+        tB, tN = 4, 2048
+        t_len = torch.cat([torch.full((1,), tN, device="cuda", dtype=torch.int32), ints(tN // 2, tN, tB - 1)])
+        t_live = apply_padding_guard(make_valid_attn_mask(tN, t_len), t_len).sum().item()
+        t_rows = t_len.sum().item() * wH
+        one = dict(max_seq_len=tN, causal=True, max_attn_len=0, contextual_seq_len=0, min_full_attn_seq_len=0)
+        for Dw, Vw in ((64, 256), (512, 64)):
+            for dt in (torch.float32, torch.bfloat16):
+                bf = dt == torch.bfloat16
+                s_, sfx, ent = (2, "-bf16", "_bf16") if bf else (4, "", "")
+                peak = PEAK_BF16_FLOPS if bf else PEAK_3XTF32_FLOPS
+                q_, k_, v_, do_ = views(tB, tN, wH, Dw, Vw, dt)
+                a_ = dict(alpha=Dw**-0.5, max_seq_len=tN)
+                shape = f"D={Dw} V={Vw}, B={tB} N={tN} H={wH}"
+                rows_in = s_ * t_rows * (2 * Dw + 2 * Vw) + 4 * tB
+                fwd_in = s_ * t_rows * (2 * Dw + Vw) + 4 * tB
+                timed_row("K1" + sfx, shape, lambda: hstu_mha_dense_cuda(q_, k_, v_, t_len, **a_),
+                          lambda: hstu_mha_dense_plain(q_, k_, v_, t_len, **a_),
+                          (t_live * wH * 2 * (Dw + Vw), fwd_in + s_ * tB * tN * wH * Vw), peak)
+                bias_ = rand(tB, tN, tN) * 0.3
+                timed_row("K1-bias" + sfx, shape, lambda: hstu_mha_dense_cuda(q_, k_, v_, t_len, bias=bias_, **a_),
+                          lambda: hstu_mha_dense_plain(q_, k_, v_, t_len, bias=bias_, **a_),
+                          (t_live * wH * 2 * (Dw + Vw), fwd_in + s_ * tB * tN * wH * Vw + 4 * t_live), peak)
+                del bias_
+                timed_row("K2" + sfx, shape, lambda: hstu_mha_bwd_cuda(q_, k_, v_, t_len, do_, **a_),
+                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_),
+                          (t_live * wH * 2 * (3 * Dw + 2 * Vw), rows_in + s_ * tB * tN * wH * (2 * Dw + Vw)), peak)
+                do_c = do_.contiguous()
+                one_ = dict(one, alpha=Dw**-0.5)
+                timed_row("K3" + sfx, shape, lambda: _bwd_kernel("hstu_mha_bwd_dq" + ent, q_, k_, v_, t_len, None, do_c,
+                                                                 one_),
+                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_),
+                          (t_live * wH * 2 * (2 * Dw + Vw), rows_in + s_ * tB * tN * wH * Dw), peak)
+                timed_row("K4" + sfx, shape, lambda: _bwd_kernel("hstu_mha_bwd_dkv" + ent, q_, k_, v_, t_len, None, do_c,
+                                                                 one_),
+                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_),
+                          (t_live * wH * 2 * (2 * Dw + 2 * Vw), rows_in + s_ * tB * tN * wH * (Dw + Vw)), peak)
+                if not bf:
+                    dq_ = rand(tB, CHUNK, wH, Dw)
+                    live5 = sum(min(int(n_), tN) for n_ in t_len.tolist()) * CHUNK  # each delta row sees up to its length
+                    timed_row("K5", f"M={CHUNK}, " + shape, lambda: delta_hstu_mha_cuda(dq_, k_, v_, t_len, norm_len=tN),
+                              lambda: delta_hstu_mha_plain(dq_, k_, v_, t_len, norm_len=tN),
+                              (live5 * wH * 2 * (Dw + Vw),
+                               4 * (tB * CHUNK * wH * Dw + t_len.sum().item() * wH * (Dw + Vw) + tB * CHUNK * wH * Vw)
+                               + 4 * tB), PEAK_F32_FLOPS, reps=20)
+                del q_, k_, v_, do_, do_c
+        torch.cuda.empty_cache()
+
+        # the relative-bias pair at wide heads and with long tables
+        def relbias_all(name, args, do_, kw, bf):
+            """K6, K7 and K7-det against their plain versions; K7-det's outputs
+            the same bits twice."""
+            tol = BF16_TOL if bf else REL_TOL
+            dead = torch.arange(args[0].shape[1], device="cuda")[None, :] >= args[3][:, None]
+            held(f"K6 {name}", hstu_mha_dense_relbias_cuda(*args, **kw), hstu_mha_dense_relbias_plain(*args, **kw), tol,
+                 dead)
+            want = hstu_mha_relbias_bwd_plain(*args, do_, **kw)
+            for kname, det in (("K7", False), ("K7-det", True)):
+                got = hstu_mha_relbias_bwd_cuda(*args, do_, deterministic=det, **kw)
+                for gname, g, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want):
+                    table = gname.startswith(("dpos", "dts"))
+                    held(f"{kname} {name} {gname}", g, w, (DET_BF16_TABLE_TOL if bf and det else TABLE_TOL) if table
+                         else tol, None if table else dead)
+            again = hstu_mha_relbias_bwd_cuda(*args, do_, deterministic=True, **kw)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K7-det {name}: two runs differ")
+
+        def relbias_inputs(Bc, N, Hc, Dc, lengths, Nm, nb, dtype=torch.float32):
+            q_, k_, v_, do_ = views(Bc, N, Hc, Dc, Dc, dtype)
+            pw_, tw_ = bias_tables(Nm, nb)
+            return (q_, k_, v_, lengths, random_ts(Bc, N, lengths), pw_, tw_), do_
+
+        print(f"wide-head and long-table kernel phase: K6, K7 and K7-det (float32 and bfloat16) against their plain "
+              f"versions (outputs {REL_TOL} / {BF16_TOL:.4g} of the max, tables {TABLE_TOL}; K7-det twice, bit-equal)")
+        for Dc, Nm, N, nb, what in ((WIDE_HEAD, 211, 211, 128, "two heads of 128 (the wide-head phase's)"),
+                                    (256, 300, 300, 128, "two heads of 256 (K6 on the wide body)"),
+                                    (32, 4096, 4096, 128, "the long-history phase's width, N = Nm = 4096, full rows"),
+                                    (64, 22000, 256, 128, "N 256 against Nm 22000 (every table read from memory)"),
+                                    (64, 256, 256, 1024, "1024 buckets, gaps past float32's range on one row")):
+            Bc = 2
+            lengths = torch.cat([torch.full((1,), N, device="cuda", dtype=torch.int32), ints(N // 3, N, Bc - 1)])
+            for dt in (torch.float32, torch.bfloat16):
+                bf = dt == torch.bfloat16
+                args, do_ = relbias_inputs(Bc, N, 2, Dc, lengths, Nm, nb, dt)
+                if nb > 295:  # an infinite gap is bucket NB, a near-FLT_MAX one bucket 294
+                    ts_ = args[4].float()
+                    ts_[1, ::7], ts_[1, 3::7] = 3e38, -3e38
+                    args = args[:4] + (ts_,) + args[5:]
+                relbias_all(f"{'bfloat16 ' if bf else ''}{what}", args, do_,
+                            dict(alpha=1.0 if bf else Dc**-0.5, max_seq_len=N, num_buckets=nb), bf)
+                del args, do_
+        # K6, K7 and K7-det held against their plain versions and timed,
+        # float32 and bfloat16, full rows: at the wide-head phase's layer (K7 on
+        # the wide bodies), at two heads of 256 (K6 too), at the long-history
+        # phase's layer (K7's tables read; B 2 stands in for the phase's 8: a
+        # block's work is the same, B only multiplies the grid, and the plain
+        # backward at B 8 would hold [8, 8, 4096, 4096] float32 tensors of 4.3
+        # GB) and at N 4096 against Nm 16384 (every table read, K6's and the dq
+        # pass's too); the plain backward once a shape and type. Where tables
+        # are read, the wide bodies (which read them too) are held and timed
+        # on the same float32 inputs, their plans' routes forced
+        # (`wide_routes`). The main paths' routes other than the narrow body's
+        # keep their numbers for the `kernels` line (`route_rows`).
+        route_rows = {}
+        for Bc, N, Hc, Dc, Nm, shape, main in (
+                (128, 211, 2, WIDE_HEAD, 211, f"ml-20m layer, D=V={WIDE_HEAD}, B=128 N=211 H=2", True),
+                (4, 1024, 2, 256, 1024, "D=V=256, B=4 N=1024 H=2", False),
+                (2, 4096, 8, 32, 4096, "ml-3b layer at N=Nm=4096, B=2 H=8", True),
+                (2, 4096, 8, 64, 16384, "N=4096 against Nm=16384, D=V=64, B=2 H=8", False)):
+            lengths = torch.full((Bc,), N, device="cuda", dtype=torch.int32)
+            live = N * (N + 1) // 2 * Bc
+            rows = Bc * N * Hc
+            small = 4 * (Bc * N + 2 * Nm - 1 + 129 + Bc)
+            for dt in (torch.float32, torch.bfloat16):
+                bf = dt == torch.bfloat16
+                s_, sfx, peak = (2, "-bf16", PEAK_BF16_FLOPS) if bf else (4, "", PEAK_3XTF32_FLOPS)
+                tol = BF16_TOL if bf else REL_TOL
+                args, do_ = relbias_inputs(Bc, N, Hc, Dc, lengths, Nm, 128, dt)
+                kw = dict(alpha=1.0 if bf else Dc**-0.5, max_seq_len=N, num_buckets=128)
+                w6 = (live * Hc * 2 * (2 * Dc), s_ * (rows * 3 * Dc + rows * Dc) + small)
+                w7 = (live * Hc * 2 * (5 * Dc), s_ * (rows * 4 * Dc + rows * 3 * Dc) + 4 * (2 * Nm - 1 + 129) + small)
+                want6 = hstu_mha_dense_relbias_plain(*args, **kw)
+                wants = []  # the plain backward's result, from the call that times it
+                plain7 = device_time_ms(lambda: wants.append(hstu_mha_relbias_bwd_plain(*args, do_, **kw)), 1)
+                want7 = wants[-1]
+                del wants
+
+                def hold7(kname, got):
+                    """K7's or K7-det's five outputs against the plain backward's;
+                    returns the largest error."""
+                    table_tol = DET_BF16_TABLE_TOL if bf and kname.startswith("K7-det") else TABLE_TOL
+                    return max(held(f"{kname} at {shape} {gname}", g, w, table_tol if gname in ("dpos_w", "dts_w")
+                                    else tol)
+                               for gname, g, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want7))
+
+                def measure(tag, routes):
+                    """K6, K7 and K7-det (their plans' routes forced to the wide
+                    bodies' with ``routes``) held and timed; returns their
+                    numbers by kernel."""
+                    got = {}
+                    with (wide_routes() if routes else contextlib.nullcontext()):
+                        e6 = held(f"K6{tag} at {shape}", hstu_mha_dense_relbias_cuda(*args, **kw), want6, tol)
+                        e7 = hold7("K7" + tag, hstu_mha_relbias_bwd_cuda(*args, do_, **kw))
+                        det = hstu_mha_relbias_bwd_cuda(*args, do_, deterministic=True, **kw)
+                        ed = hold7("K7-det" + tag, det)
+                        again = hstu_mha_relbias_bwd_cuda(*args, do_, deterministic=True, **kw)
+                        check(all(torch.equal(a, b) for a, b in zip(det, again)), f"K7-det{tag} at {shape}: two runs differ")
+                        del det, again
+                        for kname, fn, work, err in (
+                                ("K6", lambda: hstu_mha_dense_relbias_cuda(*args, **kw), w6, e6),
+                                ("K7", lambda: hstu_mha_relbias_bwd_cuda(*args, do_, **kw), w7, e7),
+                                ("K7-det", lambda: hstu_mha_relbias_bwd_cuda(*args, do_, deterministic=True, **kw), w7,
+                                 ed)):
+                            plain = (lambda: hstu_mha_dense_relbias_plain(*args, **kw)) if kname == "K6" else plain7
+                            ms, plain_ms = timed_row(kname + tag, shape, fn, plain, work, peak,
+                                                     reps=10 if kname == "K6" else 5)
+                            got[kname] = dict(shape=shape, ms=ms, plain_ms=plain_ms, work=work, peak=peak, err=err)
+                    return got
+
+                own = measure(sfx, False)
+                if main and not bf:
+                    for kname, route in (("K6", hr.ha._fwd_plan(Dc, Dc, Hc, Nm, 128, True, Bc, N)["route"]),
+                                         ("K7", hr._relbias_bwd_plan(Dc, Dc, Hc, Nm, 128)["route"]),
+                                         ("K7-det", hr._relbias_det_plan(Dc, Dc, Hc, Bc, N, Nm, 128)["route"])):
+                        if route != "narrow":
+                            route_rows[f"{kname}/{route}"] = own[kname]
+                if not bf and Nm > 2048:  # the tables read: the wide bodies on the same inputs
+                    wide = measure(" (wide bodies)", True)
+                    print(f"  tables read against the wide bodies at {shape}: " + ", ".join(
+                        f"{k_} {own[k_]['ms']:.4f} vs {wide[k_]['ms']:.4f} ms" for k_ in own))
+                del args, do_, want6, want7
+                torch.cuda.empty_cache()
+
+        # ------------------------------------------------- long-history phase
+        # the ml-3b preset's widths with a position table of Nm = 4096 rows (max
+        # sequence length 4085: N = 4085 + 10 + 1), batch 8, float32, on long
+        # histories: LONG_USERS users of LONG_MIN_LEN to 4086 events (rows 88 to
+        # 100 % live), written as ml-3b shards under LONG_ROOT and read through
+        # the registry as the research phase's are
+        lh_cfg = dataclasses.replace(rcfg, num_epochs=1, local_batch_size=LONG_BATCH, eval_batch_size=LONG_BATCH,
+                                     model=dataclasses.replace(rm, max_sequence_len=LONG_SEQ_LEN))
+        lm = lh_cfg.model
+        lseqs = synthetic_user_sequences_vectorized(num_users=LONG_USERS, num_items=rm.num_items,
+                                                    max_len=LONG_SEQ_LEN + 1, min_len=LONG_MIN_LEN, seed=6)
+        long_dir = os.path.join(LONG_ROOT, "ml-3b")
+        shutil.rmtree(long_dir, ignore_errors=True)
+        os.makedirs(long_dir)
+        write_ml3b_shards(os.path.join(long_dir, "16x32"), lseqs, ML3B_SHARDS)
+        lh_train = get_reco_dataset("ml-3b", LONG_SEQ_LEN, data_root=LONG_ROOT).train_dataset
+        n_ev = 2 * LONG_BATCH
+        lh_eval = SequenceDataset(dataclasses.replace(lseqs, user_ids=lseqs.user_ids[:n_ev],
+                                                      item_ids=lseqs.item_ids[:n_ev], ratings=lseqs.ratings[:n_ev],
+                                                      timestamps=lseqs.timestamps[:n_ev]),
+                                  LONG_SEQ_LEN, ignore_last_n=0)
+        lh_live = sum(min(len(x) - 1, LONG_SEQ_LEN) for x in lseqs.item_ids) / (LONG_USERS * lm.total_seq_len)
+        lh_steps = RESEARCH_WARMUPS + LONG_STEPS
+        print(f"long-history phase: preset {RESEARCH_PRESET} at its widths ({lm.num_blocks} blocks, {lm.num_heads} heads, "
+              f"dqk=dv={lm.dqk}, d={lm.item_embedding_dim}, {lh_cfg.num_negatives} negatives) with max_sequence_len "
+              f"{LONG_SEQ_LEN}: N = Nm = {lm.total_seq_len}; batch {LONG_BATCH} (cut from {rcfg.local_batch_size}: "
+              f"B N = {LONG_BATCH * lm.total_seq_len} against the preset's {RB * RN}); float32; {RESEARCH_WARMUPS} + "
+              f"{LONG_STEPS} steps over {LONG_USERS} histories of {LONG_MIN_LEN} to {LONG_SEQ_LEN + 1} events (the "
+              f"training rows {lh_live:.1%} live on average), then an eval of 2 batches")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        count_reset()
+        t0 = time.perf_counter()
+        lout = research.train_loop(lh_cfg, lh_train, lh_eval, log_every=1, max_steps=lh_steps, device="cuda")
+        loop_s = time.perf_counter() - t0
+        n = counts()
+        llosses, lsteps, lmetrics = lout["losses"], lout["step_s"], lout["history"][-1]
+        check(len(llosses) == lh_steps and all(math.isfinite(x) for x in llosses), f"long-history losses: {llosses}")
+        lh_median = 1e3 * median(lsteps[RESEARCH_WARMUPS:])
+        lh_peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"  median step {lh_median:.2f} ms over {LONG_STEPS} steps (the research phase's, N={RN} batch {RB}: "
+              f"{r_median:.2f} ms); losses {[round(x, 4) for x in llosses]}; the loop with its eval {loop_s:.1f} s; "
+              f"eval HR@10 {lmetrics['hr@10']:.4f}; launches {n}; peak device memory {lh_peak:.2f} GiB")
+        want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": lm.num_blocks * (lh_steps + 2),
+                  "K7": lm.num_blocks * lh_steps}
+        check(n == want_n, f"the long-history loop launched {n}, expected {want_n}")
+        check(all(math.isfinite(v_) and 0.0 <= v_ <= 1.0 for k_, v_ in lmetrics.items() if k_ != "epoch"),
+              f"long-history eval metrics out of range: {lmetrics}")
+        del lout
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------------- wide-head phase
+        # ml-20m/hstu-sampled-softmax-n128 with dqk = dv = 128: its d 256 split
+        # over its 2 heads (K6 on its width-128 tiling, K7 on the wide bodies), on
+        # the SASRec phase's ml-20m corpus
+        wcfg_ = RESEARCH_PRESETS[WIDE_PRESET]
+        wh_cfg = dataclasses.replace(wcfg_, num_epochs=1, model=dataclasses.replace(wcfg_.model, dqk=WIDE_HEAD,
+                                                                                    dv=WIDE_HEAD))
+        wm = wh_cfg.model
+        wh_train = SequenceDataset(aseqs, wm.max_sequence_len, ignore_last_n=1)
+        n_ev = wh_cfg.eval_batch_size
+        wh_eval = SequenceDataset(dataclasses.replace(aseqs, user_ids=aseqs.user_ids[:n_ev], item_ids=aseqs.item_ids[:n_ev],
+                                                      ratings=aseqs.ratings[:n_ev], timestamps=aseqs.timestamps[:n_ev]),
+                                  wm.max_sequence_len, ignore_last_n=0)
+        wh_steps = RESEARCH_WARMUPS + WIDE_STEPS
+        print(f"wide-head phase: preset {WIDE_PRESET} ({wm.num_blocks} blocks, {wm.num_heads} heads, "
+              f"d={wm.item_embedding_dim}) with dqk = dv = {WIDE_HEAD}; N={wm.total_seq_len}, batch "
+              f"{wh_cfg.local_batch_size}, {wm.num_items:,} items, float32; {RESEARCH_WARMUPS} + {WIDE_STEPS} steps, "
+              f"then an eval batch, over the SASRec phase's corpus")
+        torch.cuda.reset_peak_memory_stats()
+        count_reset()
+        t0 = time.perf_counter()
+        wout = research.train_loop(wh_cfg, wh_train, wh_eval, log_every=1, max_steps=wh_steps, device="cuda")
+        loop_s = time.perf_counter() - t0
+        n = counts()
+        wlosses, wsteps = wout["losses"], wout["step_s"]
+        check(len(wlosses) == wh_steps and all(math.isfinite(x) for x in wlosses), f"wide-head losses: {wlosses}")
+        wh_median = 1e3 * median(wsteps[RESEARCH_WARMUPS:])
+        print(f"  median step {wh_median:.2f} ms; losses {[round(x, 4) for x in wlosses]}; the loop with its eval "
+              f"{loop_s:.1f} s; eval HR@10 {wout['history'][-1]['hr@10']:.4f}; launches {n}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": wm.num_blocks * (wh_steps + 1),
+                  "K7": wm.num_blocks * wh_steps}
+        check(n == want_n, f"the wide-head loop launched {n}, expected {want_n}")
+        del wout
+        torch.cuda.empty_cache()
+        # small models of the shapes, GPU kernels against CPU plain versions: two
+        # heads of 128 (d 256), a research model with dv 192, a ranker with
+        # linear_dim 256
+        _, small_cfg, sds = small_research()
+        sbatch = next(batch_iterator(sds, 8, shuffle=False))
+        for what, over in (("wide-head research model (2 heads of 128, d 256)",
+                            dict(dqk=WIDE_HEAD, dv=WIDE_HEAD, item_embedding_dim=256)),
+                           ("research model with dv 192", dict(dv=192))):
+            gpu_vs_cpu_step(what, dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, **over)),
+                            sds, sbatch, FixedNegatives, {"K6": 3, "K7": 3})
+        vcfg = dataclasses.replace(gcfg, hstu_attn_linear_dim=256)
+        v_err, v_names, v_n = small_step_grads(vcfg)
+        print(f"  small ranker with linear_dim 256 (V 256: K1 and K2 on the wide bodies), one step's gradients, GPU "
+              f"kernels vs CPU plain versions: largest error {v_err:.3e} of the gradient's max over {len(v_names)} "
+              f"parameters (tol {GRAD_TOL}); K1 {v_n['K1']}, K2 {v_n['K2']}")
+        check(v_n == {"K1": vcfg.hstu_attn_num_layers, "K2": vcfg.hstu_attn_num_layers} and v_err <= GRAD_TOL,
+              "the small linear_dim 256 ranker disagrees or launched other kernels")
+        return lh_median, route_rows
+
+    lh_median, route_rows = every_shape_phases()
+
     # ------------------------------------------ deterministic research phase
     # in a process of its own, the only one with CUBLAS_WORKSPACE_CONFIG set
     # (torch.use_deterministic_algorithms needs it before the process's first
@@ -3103,7 +3533,8 @@ def main() -> None:
     sys.stdout.flush()
     try:
         det = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "det", repr(m_med), repr(r_median), repr(f_median)],
+            [sys.executable, os.path.abspath(__file__), "det", repr(m_med), repr(r_median), repr(f_median),
+             repr(lh_median)],
             env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": DET_CUBLAS_WORKSPACE},
             capture_output=True, text=True, timeout=DET_TIMEOUT,
         )
@@ -3114,8 +3545,11 @@ def main() -> None:
     check(det.returncode == 0 and result, f"the deterministic research phase exited {det.returncode}:\n"
           f"{det.stderr[-3000:]}")
     print(f"  (its own process; this one held {held:.2f} GiB of device memory meanwhile)")
-    for k_, n_ in json.loads(result.splitlines()[0]).items():
+    det_counts = json.loads(result.splitlines()[0])
+    for k_, n_ in det_counts["launches"].items():
         main_path_launches[k_] += n_
+    for k_, n_ in det_counts["routes"].items():
+        main_path_routes[k_] = main_path_routes.get(k_, 0) + n_
 
     # ---------------------------------------------- attention dropout phase
     # the ml-1m large preset with attn_dropout_rate 0.2 on the registry's
@@ -3589,6 +4023,21 @@ def main() -> None:
               f"research layer 0 B={RB} N={RN}, float32 [B, N, N] bias",
               f"research layer 0 B={RB} N={RN} bfloat16, float32 [B, N, N] bias",
               f"research B={RB} N={RN}", f"research layer 0 B={RB} N={RN} bfloat16"]
+    # the launches of the main paths on other routes than the narrow body's
+    # (the tables read, the wide bodies) leave their kernel's row for rows of
+    # their own, timed at the shape of the main path that launched them
+    rows_of = dict(zip(("K1", "K5", "K2", "K3", "K4", "K6", "K7", "K6-bf16", "K7-bf16", "K1-bf16", "K2-bf16",
+                        "K3-bf16", "K4-bf16", "K1-bias", "K1-bias-bf16", "K7-det", "K7-det-bf16"), kernels))
+    for key, n_ in sorted(main_path_routes.items()):
+        label, route = key.split("/")
+        base = rows_of[label]
+        check(key in route_rows, f"{key}: {n_} launches on the main paths, timed at none of their shapes")
+        base["launches"] -= n_
+        r = route_rows[key]
+        kernels.append(entry(f"{base['name']}/{route}", (src + "hstu_attention_wide.cuh") if route == "wide"
+                             else base["source"], base["replaces"], n_, r["err"], r["ms"], r["plain_ms"], *r["work"],
+                             peak=r["peak"]))
+        shapes.append(r["shape"])
     check(all(kr["launches"] > 0 for kr in kernels),
           "a kernel of the main paths was launched no time: "
           + ", ".join(kr["name"] for kr in kernels if kr["launches"] == 0))

@@ -41,6 +41,14 @@
 //   products of a lane group are summed by a transposing butterfly (7
 //   shuffles), which leaves row r's sum on lane r of the group, where the
 //   mask and the silu are computed once; P then reaches the warp by shuffle.
+// * Any width: V is cut into chunks of 128 columns, one a block (a factor of
+//   the grid's y), each with its own arrival counter; D up to 256 is padded
+//   to 32, 64, 128 or 256 and q staged in shared memory, and a wider D takes
+//   an instance that walks it in chunks of 256, reading q's chunk from
+//   device memory (through the L1 cache) beside K's, S summed over the
+//   chunks.
+#include <cstdint>
+
 #include "hstu_attention.cuh"
 
 namespace hstu_delta {
@@ -63,12 +71,14 @@ struct Params {
   const int* lengths;      // int32 [B]
   const int* num_targets;  // int32 [B] or null (no targets)
   int B, M, N, H, D, V;
+  int n_vc;  // V's chunks of kMaxV columns
   long long q_sb, q_sn, q_sh;
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
   float alpha, inv_norm;
   int max_attn_len, contextual_seq_len, min_full_attn_seq_len;
   int vec_k, vec_v;  // pointer, strides and width are multiples of 4 floats
+  int vec_q;         // the same of q (the wide instance reads q in 16-byte pieces)
 };
 
 __device__ __forceinline__ float4 load4(const float* p, int at, int w, bool vec) {
@@ -92,18 +102,24 @@ __device__ __forceinline__ void store4(float* p, int at, int w, bool vec, float4
   if (at + 3 < w) p[at + 3] = x.w;
 }
 
-// DI float4 per lane and K row: D is padded with zeros to 32 * DI.
-template <int DI>
+// DI float4 per lane and K row: D is padded with zeros to 32 * DI. WIDE (DI
+// = 8): D above 256, walked in chunks of 32 * DI with q read from device
+// memory.
+template <int DI, bool WIDE = false>
 __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   constexpr int DP = 32 * DI;
-  __shared__ __align__(16) float qs[kRows][DP];
+  __shared__ __align__(16) float qs[WIDE ? 1 : kRows][DP];
   __shared__ __align__(16) float red[kWarps][kRows][kMaxV];
   __shared__ int s_last;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int grp = lane >> 3, l8 = lane & 7;
   const int chunk = blockIdx.x;
-  const int h = blockIdx.y % p.H, rt = blockIdx.y / p.H;
+  // grid y: head, then row tile, then V chunk
+  const int row_tiles = gridDim.y / (p.H * p.n_vc);
+  const int h = blockIdx.y % p.H, rt = blockIdx.y / p.H % row_tiles;
+  const int vc = blockIdx.y / (p.H * row_tiles);
+  const int v0 = vc * kMaxV, vw = min(kMaxV, p.V - v0);  // the block's V columns
   const int b = blockIdx.z;
   const int length = min(p.lengths[b], p.N);
   const int n_live = max(1, (length + kChunk - 1) / kChunk);
@@ -117,18 +133,19 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   const int mrow = min(max(length - p.M + m0 + l8, 0), p.N - 1);
 
   const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh + v0;
   const int cbase = chunk * kChunk + warp * (kChunk / kWarps);
   const bool vec_k = p.vec_k != 0, vec_v = p.vec_v != 0;
   // the warp's four key columns from c0 on: lane group grp reads K row
   // c0 + grp, the whole warp each of the four V rows; zeros past the length
   float4 kr[DI], vr[4];
-  auto load_k = [&](int c0) {
+  // K's columns d0 .. d0 + DP of row c0 + grp
+  auto load_k = [&](int c0, int d0) {
     const int col = c0 + grp;
     const float* kp = kb + (long long)col * p.k_sn;
 #pragma unroll
     for (int i = 0; i < DI; ++i) {
-      const int at = (i * 8 + l8) * 4;
+      const int at = d0 + (i * 8 + l8) * 4;
       kr[i] = (col < length && at < p.D) ? load4(kp, at, p.D, vec_k)
                                          : make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -137,20 +154,21 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int at = lane * 4;
-      vr[j] = (c0 + j < length && at < p.V)
-                  ? load4(vb + (long long)(c0 + j) * p.v_sn, at, p.V, vec_v)
+      vr[j] = (c0 + j < length && at < vw)
+                  ? load4(vb + (long long)(c0 + j) * p.v_sn, at, vw, vec_v)
                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   };
   // the first columns are on their way while q goes to shared memory
-  load_k(cbase);
+  if (!WIDE) load_k(cbase, 0);
   load_v(cbase);
 
   const float* qb = p.q + b * p.q_sb + h * p.q_sh;
-  for (int idx = tid; idx < kRows * DP; idx += kThreads) {
-    const int r = idx / DP, d = idx % DP;
-    qs[r][d] = (r < mr && d < p.D) ? qb[(m0 + r) * p.q_sn + d] : 0.f;
-  }
+  if (!WIDE)
+    for (int idx = tid; idx < kRows * DP; idx += kThreads) {
+      const int r = idx / DP, d = idx % DP;
+      qs[WIDE ? 0 : r][d] = (r < mr && d < p.D) ? qb[(m0 + r) * p.q_sn + d] : 0.f;
+    }
   __syncthreads();
 
   float4 acc[kRows];
@@ -166,21 +184,44 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
 
     float s[kRows];
 #pragma unroll
-    for (int m = 0; m < kRows; ++m) {
-      s[m] = 0.f;
-      if (m < mr) {
+    for (int m = 0; m < kRows; ++m) s[m] = 0.f;
+    if constexpr (WIDE) {
+      // D's chunks in turn: K's and q's from device memory
+      for (int d0 = 0; d0 < p.D; d0 += DP) {
+        load_k(c0, d0);
 #pragma unroll
-        for (int i = 0; i < DI; ++i) {
-          const float4 qq = *reinterpret_cast<const float4*>(&qs[m][(i * 8 + l8) * 4]);
-          s[m] = fmaf(qq.x, kr[i].x, s[m]);
-          s[m] = fmaf(qq.y, kr[i].y, s[m]);
-          s[m] = fmaf(qq.z, kr[i].z, s[m]);
-          s[m] = fmaf(qq.w, kr[i].w, s[m]);
+        for (int m = 0; m < kRows; ++m) {
+          if (m < mr) {
+            const float* qm = qb + (long long)(m0 + m) * p.q_sn;
+#pragma unroll
+            for (int i = 0; i < DI; ++i) {
+              const int at = d0 + (i * 8 + l8) * 4;
+              const float4 qq = at < p.D ? load4(qm, at, p.D, p.vec_q != 0) : make_float4(0.f, 0.f, 0.f, 0.f);
+              s[m] = fmaf(qq.x, kr[i].x, s[m]);
+              s[m] = fmaf(qq.y, kr[i].y, s[m]);
+              s[m] = fmaf(qq.z, kr[i].z, s[m]);
+              s[m] = fmaf(qq.w, kr[i].w, s[m]);
+            }
+          }
         }
       }
+    } else {
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        if (m < mr) {
+#pragma unroll
+          for (int i = 0; i < DI; ++i) {
+            const float4 qq = *reinterpret_cast<const float4*>(&qs[WIDE ? 0 : m][(i * 8 + l8) * 4]);
+            s[m] = fmaf(qq.x, kr[i].x, s[m]);
+            s[m] = fmaf(qq.y, kr[i].y, s[m]);
+            s[m] = fmaf(qq.z, kr[i].z, s[m]);
+            s[m] = fmaf(qq.w, kr[i].w, s[m]);
+          }
+        }
+      }
+      // the next columns' K, while this one's P is formed
+      if (it + 1 < kIters) load_k(c0 + 4, 0);
     }
-    // the next columns' K, while this one's P is formed
-    if (it + 1 < kIters) load_k(c0 + 4);
     // sum over the group's 8 lanes, halving the rows a lane keeps at each
     // step: lane l8 ends with row l8's dot product
     float w4[4], w2[2];
@@ -226,13 +267,13 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   const bool direct = n_live == 1;
   const bool vec_o = p.V % 4 == 0;  // out and scratch come from the allocator
   const long long row_floats = (long long)p.H * p.V;
-  const long long out_at = ((long long)b * p.M + m0) * row_floats + (long long)h * p.V;
+  const long long out_at = ((long long)b * p.M + m0) * row_floats + (long long)h * p.V + v0;
   const long long chunk_floats = (long long)p.B * p.M * row_floats;
   float* dst = direct ? p.out + out_at : p.scratch + chunk * chunk_floats + out_at;
   const float scale = direct ? p.inv_norm : 1.f;
   for (int idx = tid; idx < kRows * (kMaxV / 4); idx += kThreads) {
     const int m = idx / (kMaxV / 4), at = (idx % (kMaxV / 4)) * 4;
-    if (m >= mr || at >= p.V) continue;
+    if (m >= mr || at >= vw) continue;
     float4 sum = *reinterpret_cast<const float4*>(&red[0][m][at]);
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) {
@@ -240,7 +281,7 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
       sum.x += r.x; sum.y += r.y; sum.z += r.z; sum.w += r.w;
     }
     sum.x *= scale; sum.y *= scale; sum.z *= scale; sum.w *= scale;
-    store4(dst + m * row_floats, at, p.V, vec_o, sum);
+    store4(dst + m * row_floats, at, vw, vec_o, sum);
   }
   if (direct) return;
 
@@ -249,8 +290,7 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   // and the fence before its count; the last block's loads bypass L1)
   __syncthreads();
   if (tid == 0) {
-    const int row_tiles = gridDim.y / p.H;
-    int* counter = p.counters + ((long long)b * p.H + h) * row_tiles + rt;
+    int* counter = p.counters + (((long long)b * p.H + h) * row_tiles + rt) * p.n_vc + vc;
     __threadfence();
     const int arrived = atomicAdd(counter, 1);
     __threadfence();
@@ -261,7 +301,7 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   if (!s_last) return;
   for (int idx = tid; idx < kRows * (kMaxV / 4); idx += kThreads) {
     const int m = idx / (kMaxV / 4), at = (idx % (kMaxV / 4)) * 4;
-    if (m >= mr || at >= p.V) continue;
+    if (m >= mr || at >= vw) continue;
     float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int c = 0; c < n_live; ++c) {
       const float* src = p.scratch + c * chunk_floats + out_at + m * row_floats;
@@ -270,29 +310,31 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
         r = __ldcg(reinterpret_cast<const float4*>(src + at));
       } else {
         r.x = __ldcg(src + at);
-        r.y = at + 1 < p.V ? __ldcg(src + at + 1) : 0.f;
-        r.z = at + 2 < p.V ? __ldcg(src + at + 2) : 0.f;
-        r.w = at + 3 < p.V ? __ldcg(src + at + 3) : 0.f;
+        r.y = at + 1 < vw ? __ldcg(src + at + 1) : 0.f;
+        r.z = at + 2 < vw ? __ldcg(src + at + 2) : 0.f;
+        r.w = at + 3 < vw ? __ldcg(src + at + 3) : 0.f;
       }
       sum.x += r.x; sum.y += r.y; sum.z += r.z; sum.w += r.w;
     }
     sum.x *= p.inv_norm; sum.y *= p.inv_norm; sum.z *= p.inv_norm; sum.w *= p.inv_norm;
-    store4(p.out + out_at + m * row_floats, at, p.V, vec_o, sum);
+    store4(p.out + out_at + m * row_floats, at, vw, vec_o, sum);
   }
 }
 
-template <int DI>
+template <int DI, bool WIDE = false>
 cudaError_t launch_di(const Params& p, int chunks, int row_tiles, cudaStream_t stream) {
-  dim3 grid(chunks, p.H * row_tiles, p.B);
-  delta_kernel<DI><<<grid, kThreads, 0, stream>>>(p);
+  const long long gy = (long long)p.H * row_tiles * p.n_vc;
+  if (gy > 65535 || p.B > 65535) return cudaErrorInvalidValue;
+  dim3 grid(chunks, (unsigned)gy, p.B);
+  delta_kernel<DI, WIDE><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace hstu_delta
 
-// Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
-// 256 and V at most 128 (the Python wrapper checks both, sizes `scratch` and
-// `counters`, and decides `vec_k` / `vec_v`).
+// Launches on `stream`; returns the launch's cudaGetLastError(). Any D and V
+// (the Python wrapper sizes `scratch` and `counters`, one counter per (batch
+// row, head, row tile, V chunk), and decides `vec_k` / `vec_v`).
 extern "C" int delta_hstu_mha_fwd(
     const float* q, const float* k, const float* v, float* out, float* scratch,
     int* counters, const int* lengths, const int* num_targets,
@@ -304,17 +346,20 @@ extern "C" int delta_hstu_mha_fwd(
     int min_full_attn_seq_len, int vec_k, int vec_v, void* stream) {
   using namespace hstu_delta;
   if (B == 0 || M == 0 || H == 0 || N == 0) return 0;
-  if (D < 1 || D > 256 || V < 1 || V > kMaxV) return (int)cudaErrorInvalidValue;
+  if (D < 1 || V < 1) return (int)cudaErrorInvalidValue;
   const int chunks = (N + kChunk - 1) / kChunk;
   const int row_tiles = (M + kRows - 1) / kRows;
   if (chunks > 1 && (scratch == nullptr || counters == nullptr))
     return (int)cudaErrorInvalidValue;
-  Params p{q, k, v, out, scratch, counters, lengths, num_targets, B, M, N, H, D, V,
+  const int vec_q = reinterpret_cast<uintptr_t>(q) % 16 == 0 && q_sb % 4 == 0 && q_sn % 4 == 0 &&
+                    q_sh % 4 == 0 && D % 4 == 0;
+  Params p{q, k, v, out, scratch, counters, lengths, num_targets, B, M, N, H, D, V, (V + kMaxV - 1) / kMaxV,
            q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, alpha, inv_norm,
-           max_attn_len, contextual_seq_len, min_full_attn_seq_len, vec_k, vec_v};
+           max_attn_len, contextual_seq_len, min_full_attn_seq_len, vec_k, vec_v, vec_q};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D <= 32) return (int)launch_di<1>(p, chunks, row_tiles, s);
   if (D <= 64) return (int)launch_di<2>(p, chunks, row_tiles, s);
   if (D <= 128) return (int)launch_di<4>(p, chunks, row_tiles, s);
-  return (int)launch_di<8>(p, chunks, row_tiles, s);
+  if (D <= 256) return (int)launch_di<8>(p, chunks, row_tiles, s);
+  return (int)launch_di<8, true>(p, chunks, row_tiles, s);
 }

@@ -62,9 +62,10 @@
 //   dk and dv, give the same bits on every run; K2's dq may vary in its last
 //   bits.
 // Head widths are padded with zero columns to W = 32, 64, 128 or 256 (V to at
-// most 128). `Tiling` sets per width the query rows of a step, so that K and
-// V, two stages of Q and dO, P and dS fit a block's shared memory; heads are
-// not grouped.
+// most 128; wider heads take the wide bodies of hstu_attention_wide.cuh, by
+// the route the Python plan gives `launch`). `Tiling` sets per width the query rows of a step,
+// so that K and V, two stages of Q and dO, P and dS fit a block's shared
+// memory; heads are not grouped.
 #pragma once
 
 #include <cstdint>
@@ -73,6 +74,7 @@
 #include <cuda_runtime.h>
 
 #include "hstu_attention.cuh"
+#include "hstu_attention_wide.cuh"
 #include "tf32_mma.cuh"
 
 namespace hstu_bwd_dkv {
@@ -437,14 +439,39 @@ cudaError_t launch_w(const Params<E>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
-// 256 and V at most 128 (the Python wrapper checks both, and decides the
-// `vec_*` flags); both are padded to the next of 32, 64, 128 (256 for D).
+// The wide bodies on the same parameters: K4 is `hstu_wide::dkv_kernel`; K2
+// is `hstu_wide::dq_kernel`, which writes the float32 dq buffer whole (K2's
+// float32 dq, or K2-bf16's sums that the entry point rounds), then the same.
 template <bool FUSED, typename E>
-int launch(const Params<E>& p, void* stream) {
+int launch_wide(const Params<E>& p, cudaStream_t stream) {
+  hstu_wide::Params<E> w = hstu_wide::from<E>(p);
+  w.dout = p.dout;
+  w.dq = p.dq;
+  w.dk = p.dk;
+  w.dv = p.dv;
+  w.do_sb = p.do_sb;
+  w.do_sn = p.do_sn;
+  w.do_sh = p.do_sh;
+  w.vec_do = p.vec_do;
+  if (FUSED) {
+    const cudaError_t err = hstu_wide::launch_dq<false, E, float>(w, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)hstu_wide::launch_dkv<false, false, E>(w, stream);
+}
+
+// Launches on `stream` the body `route` names (hstu::Route, the Python
+// plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
+// body, D up to 256 and V up to 128 padded to the next of 32, 64, 128 (256
+// for D); kWide: the wide bodies. The Python wrapper decides the `vec_*`
+// flags.
+template <bool FUSED, typename E>
+int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
-  if (p.D < 1 || p.D > 256 || p.V < 1 || p.V > 128) return (int)cudaErrorInvalidValue;
+  if (p.D < 1 || p.V < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == hstu::kWide) return launch_wide<FUSED, E>(p, s);
+  if (route != hstu::kNarrow || p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
   const int w = p.D > p.V ? p.D : p.V;
   if (w <= 32) return (int)launch_w<32, FUSED, E>(p, s);
   if (w <= 64) return (int)launch_w<64, FUSED, E>(p, s);

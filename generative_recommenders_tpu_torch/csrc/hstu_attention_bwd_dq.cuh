@@ -56,11 +56,12 @@
 //   the deterministic backward needs. Every element of dq is written, zeros
 //   at dead rows and at rows in [length, N).
 // Head widths are padded with zero columns to W = 32, 64, 128 or 256 (V to at
-// most 128). `Tiling` sets per width the query rows of a block and the key
-// columns of a step, so that Q, dO, two stages of K and V and dS fit a
-// block's shared memory (at width 256 a step takes 32 key columns, else 64:
-// at width 128 64 columns were faster on the H100 than 32, and than 32 rows
-// by 64 columns or 128 rows by 32); heads are not grouped (with RELBIAS
+// most 128; wider heads take the wide bodies of hstu_attention_wide.cuh, by
+// the route the Python plan gives `launch`). `Tiling` sets per width the query rows of a block
+// and the key columns of a step, so that Q, dO, two stages of K and V and dS
+// fit a block's shared memory (at width 256 a step takes 32 key columns, else
+// 64: at width 128 64 columns were faster on the H100 than 32, and than 32
+// rows by 64 columns or 128 rows by 32); heads are not grouped (with RELBIAS
 // the bias is rebuilt per head: the simple first form of K7-det's dq pass).
 // The element type T of q, k, v, dO and dq is a parameter of the body: float,
 // and __nv_bfloat16 for K3-bf16 and K7-det's bfloat16 dq pass.
@@ -72,6 +73,7 @@
 #include <cuda_runtime.h>
 
 #include "hstu_attention.cuh"
+#include "hstu_attention_wide.cuh"
 #include "tf32_mma.cuh"
 
 namespace hstu_bwd_dq {
@@ -126,8 +128,12 @@ __host__ __device__ constexpr int smem_bytes(int tables = 0) {
 }
 
 // T: the element type; W: the padded head width; RELBIAS: K7-det's dq pass,
-// the relative bias added to S.
-template <typename T, int W, bool RELBIAS>
+// the relative bias added to S; GT (with RELBIAS): the tables and the row's
+// timestamps read from device memory through the L1 cache, not staged, where
+// they do not fit the block's shared memory beside the tiles (a long
+// position table: a key tile's bias reads a window of BQ + BK - 1
+// consecutive entries of pos_w).
+template <typename T, int W, bool RELBIAS, bool GT = false>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   // float32: alpha and 1 / norm applied to S and dP on use; bfloat16: folded
@@ -217,9 +223,11 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
     float tq[2] = {0.f, 0.f};
     if constexpr (RELBIAS) {
       const float* tsb = p.ts + (long long)b * p.N;
-      for (int idx = threadIdx.x; idx < 2 * p.Nm - 1; idx += kThreads) pos_s[idx] = p.pos_w[idx];
-      for (int idx = threadIdx.x; idx <= p.NB; idx += kThreads) ts_s[idx] = p.ts_w[idx];
-      for (int idx = threadIdx.x; idx < kv_end; idx += kThreads) tk_s[idx] = tsb[idx];
+      if constexpr (!GT) {
+        for (int idx = threadIdx.x; idx < 2 * p.Nm - 1; idx += kThreads) pos_s[idx] = p.pos_w[idx];
+        for (int idx = threadIdx.x; idx <= p.NB; idx += kThreads) ts_s[idx] = p.ts_w[idx];
+        for (int idx = threadIdx.x; idx < kv_end; idx += kThreads) tk_s[idx] = tsb[idx];
+      }
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int row = r_first + g + 8 * i;
@@ -289,9 +297,15 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
               if constexpr (RELBIAS) {
                 const int row = r_first + g + 8 * (c >> 1);
                 const int col = col0 + (wc * NA + j) * 8 + 2 * t + (c & 1);
-                x = fmaf(s[j][c], s_alpha,
-                         pos_s[hstu::pos_index(row, col, p.Nm)] +
-                             ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)]);
+                if constexpr (GT)
+                  x = fmaf(s[j][c], s_alpha,
+                           __ldg(p.pos_w + hstu::pos_index(row, col, p.Nm)) +
+                               __ldg(p.ts_w + hstu::ts_bucket(tq[c >> 1], __ldg(p.ts + (long long)b * p.N + col),
+                                                              p.NB)));
+                else
+                  x = fmaf(s[j][c], s_alpha,
+                           pos_s[hstu::pos_index(row, col, p.Nm)] +
+                               ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)]);
               }
               const float sig = __fdividef(1.f, 1.f + __expf(-x));
               ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
@@ -363,11 +377,12 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
   }
 }
 
-template <typename T, int W, bool RELBIAS>
+template <typename T, int W, bool RELBIAS, bool GT = false>
 cudaError_t launch_w(const Params<T>& p, cudaStream_t stream) {
-  const int smem = smem_bytes<W>(RELBIAS ? 2 * p.Nm - 1 + p.NB + 1 + p.N : 0);
-  if (smem > kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = dq_kernel<T, W, RELBIAS>;
+  const long long tables = RELBIAS && !GT ? 2LL * p.Nm - 1 + p.NB + 1 + p.N : 0;
+  if (smem_bytes<W>() + 4 * tables > kMaxShared) return cudaErrorInvalidValue;
+  const int smem = smem_bytes<W>((int)tables);
+  auto kernel = dq_kernel<T, W, RELBIAS, GT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
@@ -377,22 +392,46 @@ cudaError_t launch_w(const Params<T>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
-// 256 and V at most 128 (the Python wrapper checks both, and decides the
-// `vec_*` flags); both are padded to the next of 32, 64, 128 (256 for D).
-// RELBIAS (K7-det's dq pass) takes K7's widths, D and V at most 64, and needs
-// both tables and the row's timestamps to fit the block's shared memory
-// beside the tiles.
+// The wide body (`hstu_wide::dq_kernel`) on the same parameters
+template <typename T, bool RELBIAS>
+int launch_wide(const Params<T>& p, cudaStream_t stream) {
+  hstu_wide::Params<T> w = hstu_wide::from<T>(p);
+  w.dout = p.dout;
+  w.dq = p.dq;
+  w.do_sb = p.do_sb;
+  w.do_sn = p.do_sn;
+  w.do_sh = p.do_sh;
+  w.vec_do = p.vec_do;
+  w.ts = p.ts;
+  w.pos_w = p.pos_w;
+  w.ts_w = p.ts_w;
+  w.Nm = p.Nm;
+  w.NB = p.NB;
+  return (int)hstu_wide::launch_dq<RELBIAS, T, T>(w, stream);
+}
+
+// Launches on `stream` the body `route` names (hstu::Route, the Python
+// plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
+// body, D up to 256 and V up to 128 padded to the next of 32, 64, 128 (256
+// for D); kWide: the wide body. RELBIAS (K7-det's dq pass) takes this body
+// at K7's widths, D and V at most 64, with both tables and the row's
+// timestamps staged beside the tiles (kNarrow) or read from device memory
+// (kRead: GT). The Python wrapper decides the `vec_*` flags.
 template <typename T, bool RELBIAS = false>
-int launch(const Params<T>& p, void* stream) {
+int launch(const Params<T>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
-  if (p.D < 1 || p.D > 256 || p.V < 1 || p.V > 128) return (int)cudaErrorInvalidValue;
+  if (p.D < 1 || p.V < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = p.D > p.V ? p.D : p.V;
+  if (RELBIAS && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
+  if (route == hstu::kWide) return launch_wide<T, RELBIAS>(p, s);
   if constexpr (RELBIAS) {
-    if (w > 64 || p.Nm < 1 || p.NB < 0) return (int)cudaErrorInvalidValue;
+    if (w > 64) return (int)cudaErrorInvalidValue;
+    if (route == hstu::kRead)
+      return (int)(w <= 32 ? launch_w<T, 32, true, true>(p, s) : launch_w<T, 64, true, true>(p, s));
     return (int)(w <= 32 ? launch_w<T, 32, true>(p, s) : launch_w<T, 64, true>(p, s));
   } else {
+    if (route != hstu::kNarrow || p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
     if (w <= 32) return (int)launch_w<T, 32, false>(p, s);
     if (w <= 64) return (int)launch_w<T, 64, false>(p, s);
     if (w <= 128) return (int)launch_w<T, 128, false>(p, s);

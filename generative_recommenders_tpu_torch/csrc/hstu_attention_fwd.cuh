@@ -62,10 +62,11 @@
 //   whose part of the key tile holds no live element skips its products.
 //   Blocks start last query tile first: those walk the most key tiles.
 // Head widths are padded with zero columns to W = 32, 64, 128 or 256 (V to at
-// most 128). `Tiling` sets per width the warps (query rows) and heads of a
-// block and its key tile, so that blocks fit the shared memory and the
-// registers: at the research width 8 warps, 2 heads, 32 columns, 2 blocks an
-// SM; at the serving width 4 warps, 1 head, 32 columns, 2 blocks an SM.
+// most 128; wider heads take the wide bodies of hstu_attention_wide.cuh, by
+// the route the Python plan gives `launch`). `Tiling` sets per width the warps (query rows) and
+// heads of a block and its key tile, so that blocks fit the shared memory and
+// the registers: at the research width 8 warps, 2 heads, 32 columns, 2 blocks
+// an SM; at the serving width 4 warps, 1 head, 32 columns, 2 blocks an SM.
 #pragma once
 
 #include <cstdint>
@@ -74,6 +75,7 @@
 #include <cuda_runtime.h>
 
 #include "hstu_attention.cuh"
+#include "hstu_attention_wide.cuh"
 #include "tf32_mma.cuh"
 
 namespace hstu_fwd {
@@ -115,7 +117,11 @@ struct Params {
 
 // The bias added to S: none (K1), the relative bias rebuilt from two tables
 // and the timestamps (K6), or a dense [B, N, N] tensor (K1-bias).
-enum Bias : int { kNoBias = 0, kRelBias = 1, kDenseBias = 2 };
+// kRelBiasGlobal is K6 where the tables and the row's timestamps do not fit
+// the block's shared memory beside the tiles (a long position table): they
+// are read through the L1 cache instead of staged, each key tile's bias from
+// a window of rows + key columns - 1 consecutive entries of pos_w.
+enum Bias : int { kNoBias = 0, kRelBias = 1, kDenseBias = 2, kRelBiasGlobal = 3 };
 
 // Per padded width W: warps per block (each owns 16 query rows), heads per
 // block, key columns per tile, blocks an SM (what the shared memory and the
@@ -164,7 +170,8 @@ __device__ __forceinline__ float2 load_bias2(const Params& p, long long at, bool
 template <int W, int BIAS, typename E>
 __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kernel(Params p) {
   using T = Tiling<W>;
-  constexpr bool RELBIAS = BIAS == kRelBias, DENSE = BIAS == kDenseBias, BIASED = RELBIAS || DENSE;
+  constexpr bool GT = BIAS == kRelBiasGlobal;  // the tables read from device memory
+  constexpr bool RELBIAS = BIAS == kRelBias || GT, DENSE = BIAS == kDenseBias, BIASED = RELBIAS || DENSE;
   constexpr bool kBf16 = !std::is_same<E, float>::value;
   constexpr int HG = T::HG, BK = T::BK;
   constexpr int kRows = 16 * T::NW, kThreads = 32 * T::NW;
@@ -261,7 +268,7 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
     }
     load_step(0, 0, 0);
     cp_async_commit();
-    if (RELBIAS) {  // visible after the barrier before the first key tile's bias
+    if (RELBIAS && !GT) {  // visible after the barrier before the first key tile's bias
       for (int idx = threadIdx.x; idx < 2 * p.Nm - 1; idx += kThreads) pos_s[idx] = p.pos_w[idx];
       for (int idx = threadIdx.x; idx <= p.NB; idx += kThreads) ts_s[idx] = p.ts_w[idx];
       for (int idx = threadIdx.x; idx < n_kt * BK; idx += kThreads)
@@ -331,8 +338,13 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
           for (int c = 0; c < 4; ++c) {
             const int row = row_lo + 8 * (c >> 1);
             const int col = c0 + 8 * j + 2 * t + (c & 1);
-            bias[RELBIAS ? 4 * j + c : 0] = pos_s[hstu::pos_index(row, col, p.Nm)] +
-                                            ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)];
+            if constexpr (GT)
+              bias[4 * j + c] = __ldg(p.pos_w + hstu::pos_index(row, col, p.Nm)) +
+                                __ldg(p.ts_w + hstu::ts_bucket(tq[c >> 1], col < p.N ? __ldg(tsb + col) : 0.f,
+                                                               p.NB));
+            else
+              bias[RELBIAS ? 4 * j + c : 0] = pos_s[hstu::pos_index(row, col, p.Nm)] +
+                                              ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)];
           }
       }
       // the warp's part of the tile holds no live element (above the
@@ -500,15 +512,46 @@ __host__ inline bool vec16(const void* ptr, long long sb, long long sn, long lon
          sh % 4 == 0 && w % 4 == 0;
 }
 
-// Launches on `stream`; returns the launch's cudaGetLastError(). D is at most
-// 256 and V at most 128 (the Python wrapper checks both); both are padded to
-// the next of 32, 64, 128 (256 for D). kRelBias also needs both tables to fit
-// the block's shared memory beside the tiles; kDenseBias a bias. E: float, or
-// __nv_bfloat16.
+// The wide body (hstu_attention_wide.cuh) on the same parameters
+template <int BIAS, typename E>
+int launch_wide(const Params& p, cudaStream_t stream) {
+  hstu_wide::Params<E> w = hstu_wide::from<E>(p);
+  w.out = p.out;
+  w.ts = p.ts;
+  w.pos_w = p.pos_w;
+  w.ts_w = p.ts_w;
+  w.Nm = p.Nm;
+  w.NB = p.NB;
+  w.bias = p.bias;
+  w.bias_sb = p.bias_sb;
+  w.bias_sn = p.bias_sn;
+  w.bias_bf16 = p.bias_bf16;
+  constexpr int WB = BIAS == kNoBias ? hstu_wide::kNoBias
+                                     : (BIAS == kDenseBias ? hstu_wide::kDenseBias : hstu_wide::kRelBias);
+  return (int)hstu_wide::launch_fwd<WB, E>(w, stream);
+}
+
+// This body at the next of the widths 32, 64, 128 (256 for D) above D and V
+template <int BIAS, typename E>
+int launch_narrow(const Params& p, cudaStream_t s) {
+  if (p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
+  const int w = p.D > p.V ? p.D : p.V;
+  if (w <= 32) return (int)launch_w<32, BIAS, E>(p, s);
+  if (w <= 64) return (int)launch_w<64, BIAS, E>(p, s);
+  if (w <= 128) return (int)launch_w<128, BIAS, E>(p, s);
+  return (int)launch_w<256, BIAS, E>(p, s);
+}
+
+// Launches on `stream` the body `route` names (hstu::Route, the Python
+// plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
+// body, D up to 256 and V up to 128, K6's tables and the row's timestamps
+// staged in shared memory; kRead: K6 on this body with them read from device
+// memory (kRelBiasGlobal); kWide: the wide body (`hstu_wide::fwd_kernel`).
+// kDenseBias needs a bias. E: float, or __nv_bfloat16.
 template <int BIAS, typename E = float>
-int launch(Params p, void* stream) {
+int launch(Params p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
-  if (p.D < 1 || p.D > 256 || p.V < 1 || p.V > 128) return (int)cudaErrorInvalidValue;
+  if (p.D < 1 || p.V < 1) return (int)cudaErrorInvalidValue;
   if (BIAS == kRelBias && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
   if (BIAS == kDenseBias) {
     if (p.bias == nullptr) return (int)cudaErrorInvalidValue;
@@ -519,11 +562,12 @@ int launch(Params p, void* stream) {
   p.vec_k = vec16(p.k, p.k_sb, p.k_sn, p.k_sh, p.D);
   p.vec_v = vec16(p.v, p.v_sb, p.v_sn, p.v_sh, p.V);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w = p.D > p.V ? p.D : p.V;
-  if (w <= 32) return (int)launch_w<32, BIAS, E>(p, s);
-  if (w <= 64) return (int)launch_w<64, BIAS, E>(p, s);
-  if (w <= 128) return (int)launch_w<128, BIAS, E>(p, s);
-  return (int)launch_w<256, BIAS, E>(p, s);
+  if (route == hstu::kWide) return launch_wide<BIAS, E>(p, s);
+  if (route == hstu::kNarrow) return launch_narrow<BIAS, E>(p, s);
+  if constexpr (BIAS == kRelBias) {
+    if (route == hstu::kRead) return launch_narrow<kRelBiasGlobal, E>(p, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hstu_fwd

@@ -26,12 +26,12 @@ extern "C" int hstu_mha_bwd_dq(
     long long q_sb, long long q_sn, long long q_sh, long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len, int contextual_seq_len,
-    int min_full_attn_seq_len, int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+    int min_full_attn_seq_len, int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_bwd_dq::Params<float> p{q, k, v, dout, dq, lengths, num_targets, B, N, H, D, V,
                                q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, do_sb, do_sn, do_sh,
                                alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                                min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do};
-  return hstu_bwd_dq::launch(p, stream);
+  return hstu_bwd_dq::launch(p, route, stream);
 }
 
 // The bfloat16 kernel: q, k, v, dout and dq bfloat16; dk and dv null. vec_*:
@@ -43,11 +43,11 @@ extern "C" int hstu_mha_bwd_dq_bf16(
     long long q_sb, long long q_sn, long long q_sh, long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len, int contextual_seq_len,
-    int min_full_attn_seq_len, int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+    int min_full_attn_seq_len, int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_bwd_dq::Params<__nv_bfloat16> p{
       q, k, v, dout, dq, lengths, num_targets, B, N, H, D, V,
       q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, do_sb, do_sn, do_sh,
       alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
       min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do};
-  return hstu_bwd_dq::launch(p, stream);
+  return hstu_bwd_dq::launch(p, route, stream);
 }

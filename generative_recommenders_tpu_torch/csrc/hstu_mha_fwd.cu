@@ -42,12 +42,12 @@ extern "C" int hstu_mha_fwd(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len};
-  return hstu_fwd::launch<hstu_fwd::kNoBias>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kNoBias>(p, route, stream);
 }
 
 extern "C" int hstu_mha_fwd_bf16(
@@ -58,12 +58,12 @@ extern "C" int hstu_mha_fwd_bf16(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len};
-  return hstu_fwd::launch<hstu_fwd::kNoBias, __nv_bfloat16>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kNoBias, __nv_bfloat16>(p, route, stream);
 }
 
 // K1-bias: q, k, v and out float32 (hstu_mha_fwd_bias) or bfloat16
@@ -78,7 +78,7 @@ extern "C" int hstu_mha_fwd_bias(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long bias_sb, long long bias_sn,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
@@ -87,7 +87,7 @@ extern "C" int hstu_mha_fwd_bias(
   p.bias_sb = bias_sb;
   p.bias_sn = bias_sn;
   p.bias_bf16 = bias_bf16;
-  return hstu_fwd::launch<hstu_fwd::kDenseBias>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kDenseBias>(p, route, stream);
 }
 
 extern "C" int hstu_mha_fwd_bias_bf16(
@@ -98,7 +98,7 @@ extern "C" int hstu_mha_fwd_bias_bf16(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long bias_sb, long long bias_sn,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
@@ -107,5 +107,5 @@ extern "C" int hstu_mha_fwd_bias_bf16(
   p.bias_sb = bias_sb;
   p.bias_sn = bias_sn;
   p.bias_bf16 = bias_bf16;
-  return hstu_fwd::launch<hstu_fwd::kDenseBias, __nv_bfloat16>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kDenseBias, __nv_bfloat16>(p, route, stream);
 }

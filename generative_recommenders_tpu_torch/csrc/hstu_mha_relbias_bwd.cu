@@ -70,8 +70,17 @@
 //   tiles a dq row is added to from at most N / 64 blocks. dk and dv use no
 //   atomics and give the same bits on every run; dq and the table gradients
 //   arrive in an order that changes from run to run.
-// Head widths are padded with zero columns to W = 32 or 64; larger heads are
-// refused (the Python wrapper raises; no research preset has them).
+// * A long table (LONG: both tables, their sums and the per-warp copies do not
+//   fit the block's shared memory beside the tiles) is read, not staged: a
+//   tile pair's bias reads a window of 127 consecutive entries of pos_w
+//   through the L1 cache, and each step's diagonal sums (that window of
+//   dpos_w) go to the zeroed global dpos_w with atomicAdd at the step's end
+//   (K7-det: to the block's row of `partial`, one thread per entry, in step
+//   order). dts_w's per-warp copies keep the buckets a float32 time gap
+//   reaches (`hstu_wide::kTsSlots`), so NB does not decide what fits.
+// Head widths are padded with zero columns to W = 32 or 64; wider heads take
+// the wide bodies (hstu_attention_wide.cuh): the relative-bias dq pass, then
+// dK, dV and the table sums with atomics (K7) or in block order (K7-det).
 //
 // `hstu_mha_relbias_bwd_bf16` is the same kernel on bfloat16 q, k, v and dO,
 // with the TPU kernel's rounding points: dO enters as bfloat16(dO / norm),
@@ -110,6 +119,7 @@
 
 #include "hstu_attention.cuh"
 #include "hstu_attention_bwd_dq.cuh"
+#include "hstu_attention_wide.cuh"
 #include "tf32_mma.cuh"
 
 namespace hstu_relbias_bwd {
@@ -158,9 +168,13 @@ struct Params {
 
 // K and V of HG heads, two (Q, dO) buffers, P, dS and dS summed over heads,
 // both tables, dpos_w's sums and one copy of dts_w's sums per warp.
-__host__ __device__ constexpr int smem_floats(int w, int hg, int n_pos, int n_ts) {
-  return 2 * hg * kT * (w + kPad) + 4 * kT * (w + kPad) + 3 * kT * kSP + 2 * n_pos +
+__host__ __device__ constexpr long long smem_floats(int w, int hg, long long n_pos, long long n_ts) {
+  return 2LL * hg * kT * (w + kPad) + 4 * kT * (w + kPad) + 3 * kT * kSP + 2 * n_pos +
          (1 + kWarps) * n_ts;
+}
+// LONG: the tiles and one copy per warp of dts_w's reachable buckets
+__host__ __device__ constexpr long long smem_floats_long(int w, int hg, int n_ts) {
+  return smem_floats(w, hg, 0, 0) + kWarps * (n_ts < hstu_wide::kTsSlots ? n_ts : hstu_wide::kTsSlots);
 }
 
 // Rows [r0, r0 + 64) of one head of a strided [.., N, H, w] tensor into a
@@ -223,8 +237,9 @@ __global__ void __launch_bounds__(1024) sum_partials_kernel(const float* partial
 
 // W: the padded head width (32 or 64); HG: heads per block; E: the type of
 // q, k, v, dO, dk and dv (float, or __nv_bfloat16); DET: K7-det's second
-// pass, no dQ and the table sums to the block's row of `partial`.
-template <int W, int HG, typename E, bool DET>
+// pass, no dQ and the table sums to the block's row of `partial`; LONG: the
+// tables read from device memory and dpos_w's sums flushed per step.
+template <int W, int HG, typename E, bool DET, bool LONG = false>
 __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   constexpr bool kBf16 = !std::is_same<E, float>::value;
   // alpha and 1 / norm: applied to S, dK, dP and dV on use in float32; in
@@ -245,10 +260,13 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   float* dSs = Ps + kT * kSP;          // [64][72]
   float* Ts = dSs + kT * kSP;          // [64][72]: dS summed over the heads
   const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1;
+  // LONG: the buckets a float32 time gap reaches, the last slot bucket NB
+  const int n_slots = LONG ? min(n_ts, hstu_wide::kTsSlots) : n_ts;
   float* pos_s = Ts + kT * kSP;        // pos_w [2 Nm - 1]
   float* ts_s = pos_s + n_pos;         // ts_w [NB + 1]
   float* dpos_s = ts_s + n_ts;         // dpos_w's sums [2 Nm - 1]
-  float* dts_s = dpos_s + n_pos;       // dts_w's sums, one copy per warp
+  // dts_w's sums, one copy per warp (LONG: right after the tiles)
+  float* dts_s = LONG ? Ts + kT * kSP : dpos_s + n_pos;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -269,6 +287,8 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   const int b = block / groups % p.B;
   const int length = min(p.lengths[b], p.N);
   const int nt = p.num_targets ? p.num_targets[b] : 0;
+  // DET: the block's row of `partial`
+  float* prow = DET ? p.partial + (long long)block * (n_pos + n_ts) : nullptr;
 
   float acc[HG][NA][4];
 #pragma unroll
@@ -288,13 +308,18 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
       load_tile<W>(Ks + hh * kT * P, kb + hh * p.k_sh, p.k_sn, col0, length, p.D, p.vec_k != 0);
       load_tile<W>(Vs + hh * kT * P, vb + hh * p.v_sh, p.v_sn, col0, length, p.V, p.vec_v != 0);
     }
-    for (int idx = threadIdx.x; idx < n_pos; idx += kThreads) {
-      pos_s[idx] = p.pos_w[idx];
-      dpos_s[idx] = 0.f;
+    if constexpr (LONG) {
+      if (DET)  // the steps add to the row's dpos_w entries
+        for (int idx = threadIdx.x; idx < n_pos; idx += kThreads) prow[idx] = 0.f;
+    } else {
+      for (int idx = threadIdx.x; idx < n_pos; idx += kThreads) {
+        pos_s[idx] = p.pos_w[idx];
+        dpos_s[idx] = 0.f;
+      }
+      for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) ts_s[idx] = p.ts_w[idx];
     }
-    for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) ts_s[idx] = p.ts_w[idx];
-    for (int idx = threadIdx.x; idx < kWarps * n_ts; idx += kThreads) dts_s[idx] = 0.f;
-    float* my_dts = dts_s + warp * n_ts;
+    for (int idx = threadIdx.x; idx < kWarps * n_slots; idx += kThreads) dts_s[idx] = 0.f;
+    float* my_dts = dts_s + warp * n_slots;
     const int cols = min(kT, length - col0);
     const int col_steps = (cols + 7) / 8;
     // causal without contextual rows: a row sees no column past itself, so
@@ -359,8 +384,13 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
                      : hstu::valid_elem(row, col, length, nt, p.causal != 0, p.max_attn_len,
                                         p.contextual_seq_len, p.min_full_attn_seq_len,
                                         /*guard=*/true));
-            const int bucket = hstu::ts_bucket(tq, tk[j * 2 + c], p.NB);
-            bias[e] = pos_s[hstu::pos_index(row, col, p.Nm)] + ts_s[bucket];
+            int bucket = hstu::ts_bucket(tq, tk[j * 2 + c], p.NB);
+            if constexpr (LONG) {
+              bias[e] = __ldg(p.pos_w + hstu::pos_index(row, col, p.Nm)) + __ldg(p.ts_w + bucket);
+              bucket = min(bucket, n_slots - 1);  // its slot
+            } else {
+              bias[e] = pos_s[hstu::pos_index(row, col, p.Nm)] + ts_s[bucket];
+            }
             dssum[e] = 0.f;
             ok_bits |= (ok ? 1u : 0u) << e;
             if (e % 2 == 0) buckets[e / 2] = (unsigned)bucket;
@@ -571,8 +601,9 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
           if (part == 0) Ps[dd] = sum;  // P is free: every warp is past its products
         } else {
           // diagonals clipped to one entry (N > Nm) meet here: an atomic
+          // (LONG: the step's window of dpos_w, straight to device memory)
           if (part == 0 && sum != 0.f)
-            atomicAdd(dpos_s + hstu::pos_index(row0 + kT - 1, col0 + dd, p.Nm), sum);
+            atomicAdd((LONG ? p.dpos : dpos_s) + hstu::pos_index(row0 + kT - 1, col0 + dd, p.Nm), sum);
         }
       }
       if constexpr (DET) {
@@ -584,33 +615,39 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
         if (dd < 2 * kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {
           float sum = 0.f;
           for (int e = dd; e < 2 * kT - 1 && hstu::pos_index(last, col0 + e, p.Nm) == idx; ++e) sum += Ps[e];
-          dpos_s[idx] += sum;
+          (LONG ? prow : dpos_s)[idx] += sum;
         }
       }
     }
 
     __syncthreads();
+    // LONG: slot s of dts_w's copies holds bucket s, the last one bucket NB
+    auto slot_of = [&](int idx) { return idx < n_slots - 1 ? idx : (idx == p.NB ? n_slots - 1 : -1); };
     if constexpr (DET) {  // the block's row of `partial`: every entry, zeros where untouched
-      float* row = p.partial + (long long)block * (n_pos + n_ts);
-      for (int idx = threadIdx.x; idx < n_pos; idx += kThreads) row[idx] = dpos_s[idx];
+      if constexpr (!LONG)
+        for (int idx = threadIdx.x; idx < n_pos; idx += kThreads) prow[idx] = dpos_s[idx];
       for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) {
+        const int s = LONG ? slot_of(idx) : idx;
         float sum = 0.f;
-        for (int w = 0; w < kWarps; ++w) sum += dts_s[w * n_ts + idx];
-        row[n_pos + idx] = sum;
+        if (s >= 0)
+          for (int w = 0; w < kWarps; ++w) sum += dts_s[w * n_slots + s];
+        prow[n_pos + idx] = sum;
       }
     } else {
-      // the block's live elements lie at rows < length and columns
-      // [col0, col0 + cols): their diagonals span the window [lo, hi]
-      const int lo = hstu::pos_index(length - 1, col0, p.Nm);
-      const int hi = hstu::pos_index(0, col0 + cols - 1, p.Nm);
-      for (int idx = lo + threadIdx.x; idx <= hi; idx += kThreads) {
-        const float sum = dpos_s[idx];
-        if (sum != 0.f) atomicAdd(p.dpos + idx, sum);
+      if constexpr (!LONG) {
+        // the block's live elements lie at rows < length and columns
+        // [col0, col0 + cols): their diagonals span the window [lo, hi]
+        const int lo = hstu::pos_index(length - 1, col0, p.Nm);
+        const int hi = hstu::pos_index(0, col0 + cols - 1, p.Nm);
+        for (int idx = lo + threadIdx.x; idx <= hi; idx += kThreads) {
+          const float sum = dpos_s[idx];
+          if (sum != 0.f) atomicAdd(p.dpos + idx, sum);
+        }
       }
-      for (int idx = threadIdx.x; idx < n_ts; idx += kThreads) {
+      for (int idx = threadIdx.x; idx < n_slots; idx += kThreads) {
         float sum = 0.f;
-        for (int w = 0; w < kWarps; ++w) sum += dts_s[w * n_ts + idx];
-        if (sum != 0.f) atomicAdd(p.dts + idx, sum);
+        for (int w = 0; w < kWarps; ++w) sum += dts_s[w * n_slots + idx];
+        if (sum != 0.f) atomicAdd(p.dts + (LONG && idx == n_slots - 1 ? p.NB : idx), sum);
       }
     }
   } else if constexpr (DET) {  // a dead key tile's row of `partial` holds zeros
@@ -642,58 +679,109 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   }
 }
 
-template <int W, int HG, typename E, bool DET>
+template <int W, int HG, typename E, bool DET, bool LONG = false>
 cudaError_t launch_w(const Params<E>& p, cudaStream_t stream) {
-  const int smem = smem_floats(W, HG, 2 * p.Nm - 1, p.NB + 1) * (int)sizeof(float);
-  auto kernel = relbias_bwd_kernel<W, HG, E, DET>;
+  const long long smem =
+      4 * (LONG ? smem_floats_long(W, HG, p.NB + 1) : smem_floats(W, HG, 2LL * p.Nm - 1, p.NB + 1LL));
+  if (smem > hstu_wide::kMaxShared) return cudaErrorInvalidValue;
+  auto kernel = relbias_bwd_kernel<W, HG, E, DET, LONG>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((p.N + kT - 1) / kT, (p.H + HG - 1) / HG, p.B);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
+  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
+  kernel<<<grid, kThreads, (size_t)smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename E, bool DET = false>
-int launch(const Params<E>& p, void* stream) {
-  if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
-  if (p.D < 1 || p.V < 1 || p.D > 64 || p.V > 64 || p.Nm < 1 || p.NB < 0 || p.NB > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.D <= 32 && p.V <= 32) return (int)launch_w<32, 4, E, DET>(p, s);
-  return (int)launch_w<64, 2, E, DET>(p, s);
+// The wide bodies' parameters (hstu_attention_wide.cuh): dq as the caller sets it
+template <typename E>
+hstu_wide::Params<E> wide_params(const Params<E>& p, void* dq) {
+  hstu_wide::Params<E> w = hstu_wide::from<E>(p);
+  w.dout = p.dout;
+  w.dq = dq;
+  w.dk = p.dk;
+  w.dv = p.dv;
+  w.do_sb = p.do_sb;
+  w.do_sn = p.do_sn;
+  w.do_sh = p.do_sh;
+  w.vec_do = p.vec_do;
+  w.ts = p.ts;
+  w.pos_w = p.pos_w;
+  w.ts_w = p.ts_w;
+  w.Nm = p.Nm;
+  w.NB = p.NB;
+  w.dpos = p.dpos;
+  w.dts = p.dts;
+  w.partial = p.partial;
+  return w;
 }
 
-// K7-det: the dq pass, this kernel without dq (DET), then the sum of the
-// blocks' table rows in block order. dq: [B, N, H, D] of q's type, written
-// whole; partial: float32 [blocks, (2 Nm - 1) + (NB + 1)] with blocks =
-// ceil(N / 64) * ceil(H / HG) * B; dpos and dts are written, not added to.
-template <typename E>
-int launch_det(const Params<E>& p, E* dq, void* stream) {
+// This body (kNarrow: the tables staged; kRead: LONG), or with kWide (K7
+// alone) the wide bodies: the relative-bias dq pass, then dk, dv and the
+// tables.
+template <typename E, bool DET = false>
+int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
+  if (p.D < 1 || p.V < 1 || p.Nm < 1 || p.NB < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!DET && route == hstu::kWide) {
+    const hstu_wide::Params<E> w = wide_params(p, p.dq);
+    const cudaError_t err = hstu_wide::launch_dq<true, E, float>(w, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)hstu_wide::launch_dkv<true, false, E>(w, s);
+  }
+  if (p.D > 64 || p.V > 64 || (route != hstu::kNarrow && route != hstu::kRead))
+    return (int)cudaErrorInvalidValue;
+  const bool read = route == hstu::kRead;
+  if (p.D <= 32 && p.V <= 32)
+    return (int)(read ? launch_w<32, 4, E, DET, true>(p, s) : launch_w<32, 4, E, DET>(p, s));
+  return (int)(read ? launch_w<64, 2, E, DET, true>(p, s) : launch_w<64, 2, E, DET>(p, s));
+}
+
+// K7-det: the dq pass (on `dq_route`), this kernel without dq (DET, on
+// `route`), then the sum of the blocks' table rows in block order; with
+// kWide, the wide bodies, their rows summed in order. dq: [B, N, H, D] of
+// q's type, written whole; partial: float32 [blocks, (2 Nm - 1) + (NB + 1)]
+// with blocks = ceil(N / 64) * ceil(H / HG) * B (kWide: one row per key
+// tile, head and batch row); dpos and dts are written, not added to.
+template <typename E>
+int launch_det(const Params<E>& p, E* dq, int route, int dq_route, void* stream) {
+  if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
+  if (p.D < 1 || p.V < 1 || p.Nm < 1 || p.NB < 0) return (int)cudaErrorInvalidValue;
+  const int n_pos = 2 * p.Nm - 1, n = n_pos + p.NB + 1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == hstu::kWide) {
+    const hstu_wide::Params<E> w = wide_params(p, dq);
+    cudaError_t err = hstu_wide::launch_dq<true, E, E>(w, s);
+    if (err != cudaSuccess) return (int)err;
+    err = hstu_wide::launch_dkv<true, true, E>(w, s);
+    if (err != cudaSuccess) return (int)err;
+    sum_partials_kernel<<<(n + 31) / 32, 1024, 0, s>>>(
+        p.partial, (int)hstu_wide::dkv_table_rows(p.B, p.N, p.H), n, n_pos, p.dpos, p.dts);
+    return (int)cudaGetLastError();
+  }
   hstu_bwd_dq::Params<E> d{p.q, p.k, p.v, p.dout, dq, p.lengths, p.num_targets, p.B, p.N, p.H, p.D, p.V,
                            p.q_sb, p.q_sn, p.q_sh, p.k_sb, p.k_sn, p.k_sh, p.v_sb, p.v_sn, p.v_sh,
                            p.do_sb, p.do_sn, p.do_sh, p.alpha, p.inv_norm, p.causal, p.max_attn_len,
                            p.contextual_seq_len, p.min_full_attn_seq_len,
                            p.vec_q, p.vec_k, p.vec_v, p.vec_do, p.ts, p.pos_w, p.ts_w, p.Nm, p.NB};
-  int err = hstu_bwd_dq::launch<E, /*RELBIAS=*/true>(d, stream);
+  int err = hstu_bwd_dq::launch<E, /*RELBIAS=*/true>(d, dq_route, stream);
   if (err != 0) return err;
-  err = launch<E, /*DET=*/true>(p, stream);
+  err = launch<E, /*DET=*/true>(p, route, stream);
   if (err != 0) return err;
   const int hg = p.D <= 32 && p.V <= 32 ? 4 : 2;
   const long long blocks = (long long)((p.N + kT - 1) / kT) * ((p.H + hg - 1) / hg) * p.B;
-  const int n_pos = 2 * p.Nm - 1, n = n_pos + p.NB + 1;
-  sum_partials_kernel<<<(n + 31) / 32, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-      p.partial, (int)blocks, n, n_pos, p.dpos, p.dts);
+  sum_partials_kernel<<<(n + 31) / 32, 1024, 0, s>>>(p.partial, (int)blocks, n, n_pos, p.dpos, p.dts);
   return (int)cudaGetLastError();
 }
 
 }  // namespace hstu_relbias_bwd
 
-// Launches on `stream`; returns the launch's cudaGetLastError(). D and V are
-// at most 64, NB under 65536, and the tiles and both tables with their
-// gradients' sums fit the block's shared memory (the Python wrapper checks
-// all three and decides the `vec_*` flags).
+// Launches on `stream` the body `route` names (hstu::Route, the Python
+// plan's choice); returns the launch's cudaGetLastError(). D and V up to 64
+// take this kernel, its tables staged (kNarrow) or read (kRead: LONG); kWide
+// the wide bodies. The Python wrapper decides the `vec_*` flags.
 extern "C" int hstu_mha_relbias_bwd(
     const float* q, const float* k, const float* v, const float* dout,
     float* dq, float* dk, float* dv, const int* lengths,
@@ -705,13 +793,13 @@ extern "C" int hstu_mha_relbias_bwd(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+    int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<float> p{
       q, k, v, dout, dq, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
-  return hstu_relbias_bwd::launch<float>(p, stream);
+  return hstu_relbias_bwd::launch<float>(p, route, stream);
 }
 
 // The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; dq32 a zeroed
@@ -729,20 +817,21 @@ extern "C" int hstu_mha_relbias_bwd_bf16(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+    int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<__nv_bfloat16> p{
       q, k, v, dout, dq32, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
-  const int err = hstu_relbias_bwd::launch<__nv_bfloat16>(p, stream);
+  const int err = hstu_relbias_bwd::launch<__nv_bfloat16>(p, route, stream);
   if (err != 0) return err;
   return (int)hstu_tf32::to_bf16(dq32, dq, (long long)B * N * H * D, static_cast<cudaStream_t>(stream));
 }
 
 // K7-det on float32: dq, dk and dv written whole; partial a float32
 // [blocks, (2 Nm - 1) + (NB + 1)] scratch buffer (`launch_det`); dpos and dts
-// written whole. The same bits on every run.
+// written whole; `route` this kernel's body, `dq_route` the dq pass's. The
+// same bits on every run.
 extern "C" int hstu_mha_relbias_bwd_det(
     const float* q, const float* k, const float* v, const float* dout,
     float* dq, float* dk, float* dv, const int* lengths,
@@ -754,13 +843,14 @@ extern "C" int hstu_mha_relbias_bwd_det(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+    int vec_q, int vec_k, int vec_v, int vec_do, int route, int dq_route,
+    void* stream) {
   hstu_relbias_bwd::Params<float> p{
       q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial};
-  return hstu_relbias_bwd::launch_det<float>(p, dq, stream);
+  return hstu_relbias_bwd::launch_det<float>(p, dq, route, dq_route, stream);
 }
 
 // K7-det on bfloat16 q, k, v, dout, dq, dk and dv (K7-bf16's rounding
@@ -776,11 +866,12 @@ extern "C" int hstu_mha_relbias_bwd_det_bf16(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int vec_q, int vec_k, int vec_v, int vec_do, void* stream) {
+    int vec_q, int vec_k, int vec_v, int vec_do, int route, int dq_route,
+    void* stream) {
   hstu_relbias_bwd::Params<__nv_bfloat16> p{
       q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial};
-  return hstu_relbias_bwd::launch_det<__nv_bfloat16>(p, dq, stream);
+  return hstu_relbias_bwd::launch_det<__nv_bfloat16>(p, dq, route, dq_route, stream);
 }

@@ -28,12 +28,12 @@ extern "C" int hstu_mha_relbias_fwd(
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    void* stream) {
+    int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
-  return hstu_fwd::launch<hstu_fwd::kRelBias>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kRelBias>(p, route, stream);
 }
 
 extern "C" int hstu_mha_relbias_fwd_bf16(
@@ -46,10 +46,10 @@ extern "C" int hstu_mha_relbias_fwd_bf16(
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    void* stream) {
+    int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
-  return hstu_fwd::launch<hstu_fwd::kRelBias, __nv_bfloat16>(p, stream);
+  return hstu_fwd::launch<hstu_fwd::kRelBias, __nv_bfloat16>(p, route, stream);
 }

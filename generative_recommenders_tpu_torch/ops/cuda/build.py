@@ -36,12 +36,25 @@ KERNEL_SOURCES = {
 }
 _HEADERS = (
     "hstu_attention.cuh", "hstu_attention_bwd_dkv.cuh", "hstu_attention_bwd_dq.cuh", "hstu_attention_fwd.cuh",
-    "tf32_mma.cuh",
+    "hstu_attention_wide.cuh", "tf32_mma.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# The relative-bias backward's library holds 31 kernel instances and sets the
+# build's time: nvcc optimizes its device code on every core
+# (`--split-compile`), which took its build from 66 to 39 s on an 8-core host
+# beside an H100; ptxas reports the same registers and spills for every
+# instance either way (the other libraries keep one thread: two of K2's
+# instances come out with other register counts when split).
+_SPLIT_COMPILE = ("hstu_mha_relbias_bwd",)
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The nvcc flags of kernel ``name``'s library."""
+    return NVCC_FLAGS + (("--split-compile=0",) if name in _SPLIT_COMPILE else ())
+
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -49,24 +62,36 @@ build_seconds: Dict[str, float] = {}  # the last build of each kernel: seconds u
 
 
 class LaunchCounter:
-    """Counts a kernel's launches. Thread-safe: the serving harness may run
-    predictions on several producer threads."""
+    """Counts a kernel's launches, and apart the launches of each route its
+    plan took (``narrow``, ``read`` or ``wide``, `hstu_attention._ROUTES`).
+    Thread-safe: the serving harness may run predictions on several producer
+    threads."""
 
     def __init__(self) -> None:
         self._n = 0
+        self._routes: Dict[str, int] = {}
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, route: str = "") -> None:
         with self._lock:
             self._n += 1
+            if route:
+                self._routes[route] = self._routes.get(route, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._routes = {}
 
     @property
     def count(self) -> int:
         return self._n
+
+    @property
+    def routes(self) -> Dict[str, int]:
+        """The launches by route since the last `reset`."""
+        with self._lock:
+            return dict(self._routes)
 
 
 def library_path(name: str) -> str:
@@ -87,7 +112,7 @@ def _nvcc() -> str:
 def source_hash(name: str) -> str:
     """sha256 of the kernel's source, every shared header and the nvcc
     flags: the library's cache key."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for s in (KERNEL_SOURCES[name],) + _HEADERS:
         h.update(s.encode())
         with open(os.path.join(CSRC_DIR, s), "rb") as f:
@@ -122,7 +147,7 @@ def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[st
     hashes = {n: source_hash(n) for n in todo}  # of what this build compiles
     for n in todo:
         tmp = library_path(n) + f".{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, KERNEL_SOURCES[n])]
+        cmd = [nvcc, *nvcc_flags(n), "-o", tmp, os.path.join(CSRC_DIR, KERNEL_SOURCES[n])]
         procs[n] = (
             tmp,
             subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

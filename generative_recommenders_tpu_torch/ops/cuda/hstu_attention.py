@@ -80,25 +80,26 @@ from generative_recommenders_tpu_torch.ops.cuda.build import LaunchCounter, load
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/*.cu); the backward kernels share
-# one, which ends with the `vec_*` flags of q, k, v and dO
+# one, which ends with the `vec_*` flags of q, k, v and dO; every one but
+# K5's ends with the route of its plan (`_ROUTES`) and the stream
 _ARGTYPES = {
     **{
-        name: [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P]
+        name: [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_I, _P]
         for name in ("hstu_mha_fwd", "hstu_mha_fwd_bf16")
     },
     # the bias pointer, its two strides and its type flag
     **{
-        name: [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_P]
+        name: [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_I, _P]
         for name in ("hstu_mha_fwd_bias", "hstu_mha_fwd_bias_bf16")
     },
     "delta_hstu_mha_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P],
     **{
-        name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_P]  # mask ints, flags
+        name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P]  # mask ints, flags
         for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv",
                      "hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16")
     },
     # one more pointer: dq's float32 sums beside the bfloat16 dq
-    "hstu_mha_bwd_fused_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_P],
+    "hstu_mha_bwd_fused_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
 }
 # entry points that live in another kernel's library: entry -> library (the
 # bfloat16 K1 to K4 and K1-bias are second entry points of K1's to K4's
@@ -113,11 +114,14 @@ _LIBRARY: Dict[str, str] = {
 }
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 _DENSE_TYPES = (torch.float32, torch.bfloat16)  # K1's to K4's (and K1-bias's bias); K5 takes float32
-_MAX_V = 128
-_MAX_D = 256
-# K5's tiling (csrc/delta_hstu_mha_fwd.cu): key columns and query rows per block
+# the widest heads the narrow bodies take (D up to 256 and V up to 128);
+# wider ones take the wide bodies (csrc/hstu_attention_wide.cuh)
+_NARROW_D, _NARROW_V = 256, 128
+# K5's tiling (csrc/delta_hstu_mha_fwd.cu): key columns and query rows per
+# block, V's columns per block
 _DELTA_CHUNK = 64
 _DELTA_ROWS = 8
+_DELTA_V = 128
 _MAX_GRID_YZ = 65535
 # K5's arrival counters, one zeroed int32 buffer per (device, stream): the
 # kernel leaves every counter at 0 again
@@ -361,11 +365,14 @@ def _check_qkv(q, k, v, dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> t
         raise ValueError(
             f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}"
         )
-    if not (0 < D <= _MAX_D and 0 < v.shape[3] <= _MAX_V):
-        raise ValueError(
-            f"the kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={v.shape[3]}"
-        )
+    _check_widths(D, v.shape[3])
     return device
+
+
+def _check_widths(D: int, V: int) -> None:
+    """The kernels take any head width but 0."""
+    if D < 1 or V < 1:
+        raise ValueError(f"the kernels take head widths of at least 1; got D={D}, V={V}")
 
 
 def _launch(name: str, *args) -> None:
@@ -400,38 +407,72 @@ def _mask_args(kw: dict, N: int) -> tuple:
 _FWD_TILING = {32: (8, 2, 32), 64: (8, 2, 32), 128: (4, 1, 32), 256: (4, 1, 16)}
 _MAX_SHARED_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
+# The body a launch takes, which the plans choose and the C entry points take
+# as they are told (`hstu::Route`, csrc/hstu_attention.cuh): the narrow body
+# (its tables staged in shared memory), the narrow body with the relative
+# bias's tables read from device memory, the wide body
+_ROUTES = {"narrow": 0, "read": 1, "wide": 2}
+# The wide bodies (csrc/hstu_attention_wide.cuh): D and V in chunks of 128
+# columns, tiles at a pitch of 136; per body its rows and columns, and its
+# shared memory
+_WIDE_CHUNK = 128
+_WIDE_FWD = dict(query_rows=64, key_tile=32, shared_bytes=4 * (64 * 136 + 32 * 136 + 32 * 132))
+# (the dq pass also 8 warps' live flags)
+_WIDE_DQ = dict(query_rows=64, key_cols=32, shared_bytes=4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8))
+# the relative-bias dkv pass adds the float32 dS, the step's diagonal sums
+# and eight warps' copies of dts_w's reachable buckets (296)
+_WIDE_DKV = dict(query_rows=32, key_cols=64, shared_bytes=4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72))
+_WIDE_DKV_RELBIAS_BYTES = _WIDE_DKV["shared_bytes"] + 4 * (32 * 72 + 96 + 8 * 296)
+
+
+def _chunks(w: int) -> int:
+    return -(-w // _WIDE_CHUNK)
+
+
+def _narrow(D: int, V: int) -> bool:
+    """Whether K1's to K4's own tilings take the widths."""
+    return D <= _NARROW_D and V <= _NARROW_V
+
+
+def _check_grid(blocks: int, what: str) -> None:
+    if blocks > _MAX_GRID_X:
+        raise ValueError(f"{what}'s grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
 
 
 def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 1, N: int = 1) -> dict:
-    """K1's and K6's launch: the width both D and V are padded to (the next
-    of 32, 64, 128, or 256 for D > 128; V at most 128), the heads a block
-    loops inside (a group of 2 or 1), the head groups (H need not be a
+    """K1's and K6's launch, its ``route`` the body the C entry point takes
+    (`_ROUTES`). Up to D 256 and V 128 (`_narrow`, route ``narrow``): the
+    width both are padded to (the next of 32, 64, 128, or 256 for D > 128), the heads a
+    block loops inside (a group of 2 or 1), the head groups (H need not be a
     multiple), the key columns per tile, the block's shared memory (Q of the
     group at a pitch of W + 8; two stages of a K tile at W + 8 and a V tile
-    at V's width + 4; K6's two tables and the row's timestamps) and the
+    at V's width + 4; K6's two tables and the row's timestamps, staged where
+    they fit, else read from device memory: route ``read``) and the
     one-dimensional grid of (query tile, head group, batch row) blocks, one
-    warp per 16 query rows. Raises on what the kernel does not take."""
-    if not (0 < D <= _MAX_D and 0 < V <= _MAX_V):
-        raise ValueError(f"the forward kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={V}")
+    warp per 16 query rows. Wider heads (route ``wide``): the wide body's 64 query
+    rows and 32-column key tiles, one head a block, D and V in chunks of 128,
+    a block per (query tile, head, batch row, V chunk). Raises on a width of
+    0 and on a grid beyond CUDA's."""
+    _check_widths(D, V)
+    if not _narrow(D, V):
+        v_chunks = _chunks(V)
+        blocks = -(-N // _WIDE_FWD["query_rows"]) * H * B * v_chunks
+        _check_grid(blocks, "the wide forward kernel")
+        return dict(_WIDE_FWD, route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=v_chunks,
+                    head_group=1, head_groups=H, grid=(blocks,))
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
     warps, head_group, key_tile = _FWD_TILING[width]
     rows = 16 * warps
-    vw = min(width, _MAX_V)
+    vw = min(width, _NARROW_V)
     tiles = head_group * rows * (width + 8) + 2 * key_tile * (width + 8 + vw + 4)
     tables = (2 * Nm - 1 + NB + 1 + -(-N // key_tile) * key_tile) if relbias else 0
-    shared_bytes = 4 * (tiles + tables)
-    if shared_bytes > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the relative-bias forward kernel needs {shared_bytes} bytes of shared memory "
-            f"({4 * tiles} of tiles at width {width}, {4 * tables} of tables and timestamps for "
-            f"Nm={Nm}, NB={NB}, N={N}); a block has {_MAX_SHARED_BYTES}"
-        )
+    read = 4 * (tiles + tables) > _MAX_SHARED_BYTES  # a long table: read, not staged
+    shared_bytes = 4 * (tiles + (0 if read else tables))
     head_groups = -(-H // head_group)
     blocks = -(-N // rows) * head_groups * B
-    if blocks > _MAX_GRID_X:
-        raise ValueError(f"the forward kernel's grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
-    return dict(width=width, query_rows=rows, head_group=head_group, head_groups=head_groups,
-                key_tile=key_tile, shared_bytes=shared_bytes, grid=(blocks,))
+    _check_grid(blocks, "the forward kernel")
+    return dict(route="read" if read else "narrow", width=width, query_rows=rows, head_group=head_group,
+                head_groups=head_groups, key_tile=key_tile, shared_bytes=shared_bytes, grid=(blocks,))
 
 
 # The tiling of K2's and K4's shared backward body
@@ -440,26 +481,48 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
 _BWD_TILING = {32: (64, 64), 64: (64, 64), 128: (32, 64), 256: (32, 64)}
 
 
+def _wide_dkv_plan(D: int, V: int, H: int, B: int, N: int, relbias: bool = False) -> dict:
+    """The wide dkv pass (`hstu_wide::dkv_kernel`): a block per (64-column
+    key tile, head, batch row, output chunk), the chunks dV's then dK's."""
+    rows = -(-N // _WIDE_DKV["key_cols"]) * H * B
+    blocks = rows * (_chunks(D) + _chunks(V))
+    _check_grid(blocks, "the wide dkv kernel")
+    shared = _WIDE_DKV_RELBIAS_BYTES if relbias else _WIDE_DKV["shared_bytes"]
+    return dict(_WIDE_DKV, route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V),
+                head_group=1, shared_bytes=shared, grid=(blocks,), table_rows=rows)
+
+
+def _wide_dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
+    """The wide dq pass (`hstu_wide::dq_kernel`): a block per (64-row query
+    tile, head, batch row, dQ chunk)."""
+    blocks = -(-N // _WIDE_DQ["query_rows"]) * H * B * _chunks(D)
+    _check_grid(blocks, "the wide dq kernel")
+    return dict(_WIDE_DQ, route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V),
+                head_group=1, grid=(blocks,))
+
+
 def _bwd_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
-    """K2's and K4's launch: the width both D and V are padded to (the next
-    of 32, 64, 128, or 256 for D > 128; V at most 128), the query rows of a
+    """K2's and K4's launch, its ``route`` the body the C entry points take.
+    Up to D 256 and V 128 (route ``narrow``): the width both are padded
+    to (the next of 32, 64, 128, or 256 for D > 128), the query rows of a
     step of the walk, the key columns of a block, one head a block, the
     block's shared memory (K and V of the key tile and two stages of Q and dO,
     at pitches of W + 8 and V's width + 8; P and dS at the key columns + 8;
     the step's live flags of 16-row and 8-column groups) and the
-    one-dimensional grid of (key tile, head, batch row) blocks. Raises on
-    what the kernels do not take."""
-    if not (0 < D <= _MAX_D and 0 < V <= _MAX_V):
-        raise ValueError(f"the backward kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={V}")
+    one-dimensional grid of (key tile, head, batch row) blocks. Wider heads
+    (route ``wide``): the wide dkv pass (K2: after the wide dq pass, ``dq`` its plan). Raises
+    on a width of 0 and on a grid beyond CUDA's."""
+    _check_widths(D, V)
+    if not _narrow(D, V):
+        return dict(_wide_dkv_plan(D, V, H, B, N), dq=_wide_dq_plan(D, V, H, B, N))
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
     rows, cols = _BWD_TILING[width]
-    vw = min(width, _MAX_V)
+    vw = min(width, _NARROW_V)
     shared_bytes = 4 * ((cols + 2 * rows) * (width + 8 + vw + 8) + 2 * rows * (cols + 8) + rows // 16 + cols // 8)
     blocks = -(-N // cols) * H * B
-    if blocks > _MAX_GRID_X:
-        raise ValueError(f"the backward kernels' grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
-    return dict(width=width, query_rows=rows, key_cols=cols, head_group=1, shared_bytes=shared_bytes,
-                grid=(blocks,))
+    _check_grid(blocks, "the backward kernels")
+    return dict(route="narrow", width=width, query_rows=rows, key_cols=cols, head_group=1,
+                shared_bytes=shared_bytes, grid=(blocks,))
 
 
 # The tiling of K3's body (csrc/hstu_attention_bwd_dq.cuh): padded width ->
@@ -468,24 +531,26 @@ _DQ_TILING = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (64, 32)}
 
 
 def _dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
-    """K3's launch: the width both D and V are padded to (the next of 32, 64,
-    128, or 256 for D > 128; V at most 128), the query rows of a block, the
+    """K3's launch, its ``route`` the body the C entry point takes. Up to D
+    256 and V 128 (route ``narrow``): the width both are padded to (the
+    next of 32, 64, 128, or 256 for D > 128), the query rows of a block, the
     key columns of a step of the walk, one head a block, the block's shared
     memory (Q and dO of the query tile and two stages of K and V, at pitches
     of W + 8 and V's width + 8; dS at the key columns + 8; the step's live
     flags of 16-row groups) and the one-dimensional grid of (query tile,
-    head, batch row) blocks. Raises on what the kernel does not take."""
-    if not (0 < D <= _MAX_D and 0 < V <= _MAX_V):
-        raise ValueError(f"the backward kernels take D <= {_MAX_D} and V <= {_MAX_V}; got D={D}, V={V}")
+    head, batch row) blocks. Wider heads (route ``wide``): the wide dq pass. Raises on a
+    width of 0 and on a grid beyond CUDA's."""
+    _check_widths(D, V)
+    if not _narrow(D, V):
+        return _wide_dq_plan(D, V, H, B, N)
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
     rows, cols = _DQ_TILING[width]
-    vw = min(width, _MAX_V)
+    vw = min(width, _NARROW_V)
     shared_bytes = 4 * ((rows + 2 * cols) * (width + 8 + vw + 8) + rows * (cols + 8) + rows // 16)
     blocks = -(-N // rows) * H * B
-    if blocks > _MAX_GRID_X:
-        raise ValueError(f"the dq backward kernel's grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
-    return dict(width=width, query_rows=rows, key_cols=cols, head_group=1, shared_bytes=shared_bytes,
-                grid=(blocks,))
+    _check_grid(blocks, "the dq backward kernel")
+    return dict(route="narrow", width=width, query_rows=rows, key_cols=cols, head_group=1,
+                shared_bytes=shared_bytes, grid=(blocks,))
 
 
 def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -500,7 +565,7 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
         return out
     # raises on what the kernel does not take; the bfloat16 and the biased
     # instances tile as the float32 one (the bias is read into registers)
-    _fwd_plan(D, V, H, 0, 0, False, B, N)
+    route = _fwd_plan(D, V, H, 0, 0, False, B, N)["route"]
     name = "hstu_mha_fwd" + ("" if bias is None else "_bias") + ("_bf16" if bf16 else "")
     # the bias's pointer, its batch stride (0: one bias for every row), its
     # row stride and its type
@@ -514,9 +579,9 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(), *bias_ptr,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *bias_strides,
-        *_mask_args(kw, N), *bias_type, _stream(q.device),
+        *_mask_args(kw, N), *bias_type, _ROUTES[route], _stream(q.device),
     )
-    hstu_mha_dense_cuda.launches[name].add()
+    hstu_mha_dense_cuda.launches[name].add(route)
     return out
 
 
@@ -638,7 +703,7 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
         return dq, dk, dv
     # raises on what the kernel does not take; the bfloat16 instances tile as
     # the float32 ones
-    (_dq_plan if kernel == "hstu_mha_bwd_dq" else _bwd_plan)(D, V, H, B, N)
+    route = (_dq_plan if kernel == "hstu_mha_bwd_dq" else _bwd_plan)(D, V, H, B, N)["route"]
     # the kernels read q, k, v and dO in 16-byte pieces where each allows it
     # (on the STU path q, k and v are strided views of one projection)
     vec = tuple(int(_vec16(t)) for t in (q, k, v, do))
@@ -648,9 +713,9 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         *((ptr(dq32),) if dq32 is not None else ()), ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        *_mask_args(kw, N), *vec, _stream(q.device),
+        *_mask_args(kw, N), *vec, _ROUTES[route], _stream(q.device),
     )
-    hstu_mha_bwd_cuda.launches[name].add()
+    hstu_mha_bwd_cuda.launches[name].add(route)
     return dq, dk, dv
 
 
@@ -710,24 +775,35 @@ def _vec16(t: torch.Tensor) -> bool:
     )
 
 
-def _delta_plan(B: int, M: int, N: int, H: int, V: int) -> dict:
-    """K5's launch: the key range in chunks of 64 columns and the M query
-    rows in tiles of 8, one block per (chunk, head x row tile, batch row);
-    the [chunks, B, M, H, V] scratch of the chunks' partial sums (none with
-    one chunk: the block writes the output) and one arrival counter per
-    (batch row, head, row tile). Raises where the grid exceeds CUDA's."""
+def _delta_plan(B: int, M: int, N: int, H: int, V: int, D: int = 1) -> dict:
+    """K5's launch: the key range in chunks of 64 columns, the M query rows
+    in tiles of 8 and V in chunks of 128 columns, one block per (chunk, head
+    x row tile x V chunk, batch row); the [chunks, B, M, H, V] scratch of the
+    chunks' partial sums (none with one chunk: the block writes the output)
+    and one arrival counter per (batch row, head, row tile, V chunk); q
+    staged in shared memory up to D 256, read in chunks of 256 from device
+    memory above (``wide``, an instance of the same kernel that the entry
+    point picks by D). Raises on a width of 0 and where the grid
+    exceeds CUDA's."""
+    _check_widths(D, V)
     chunks = -(-N // _DELTA_CHUNK)
     row_tiles = -(-M // _DELTA_ROWS)
-    grid = (chunks, H * row_tiles, B)
+    v_chunks = -(-V // _DELTA_V)
+    grid = (chunks, H * row_tiles * v_chunks, B)
     if grid[1] > _MAX_GRID_YZ or grid[2] > _MAX_GRID_YZ:
         raise ValueError(
             f"K5's grid {grid} exceeds {_MAX_GRID_YZ} blocks in y or z "
-            f"(B={B}, M={M}, H={H}): split the batch"
+            f"(B={B}, M={M}, H={H}, V={V}): split the batch"
         )
     return dict(
-        chunks=chunks, row_tiles=row_tiles, grid=grid,
+        chunks=chunks, row_tiles=row_tiles, v_chunks=v_chunks, grid=grid,
         scratch_shape=(chunks, B, M, H, V) if chunks > 1 else None,
-        counters=B * H * row_tiles,
+        counters=B * H * row_tiles * v_chunks, wide=D > _NARROW_D,
+        # q's rows of the block (D padded to 32, 64, 128 or 256; the wide
+        # instance keeps one row of 256) and the V chunk's sums of its 4
+        # warps, in static shared memory
+        shared_bytes=4 * (_DELTA_ROWS * next(w for w in (32, 64, 128, 256) if D <= w) if D <= _NARROW_D
+                          else _NARROW_D) + 4 * 4 * _DELTA_ROWS * _DELTA_V + 4,
     )
 
 
@@ -779,7 +855,7 @@ def delta_hstu_mha_cuda(
     out = torch.empty((B, M, H, V), dtype=torch.float32, device=device)
     if out.numel() == 0 or N == 0:
         return out.zero_()
-    plan = _delta_plan(B, M, N, H, V)
+    plan = _delta_plan(B, M, N, H, V, D)
     scratch = counters = None
     if plan["scratch_shape"] is not None:
         scratch = torch.empty(plan["scratch_shape"], dtype=torch.float32, device=device)

@@ -11,7 +11,8 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py`:
 * ``hstu_mha_relbias_bwd_cuda``: kernel K7 (`csrc/hstu_mha_relbias_bwd.cu`),
   replacing `_bwd_kernel_relbias` (the custom VJP `_relbias_call` becomes
   `_HstuMhaRelbias`): 3xTF32 products on the tensor cores, a group of heads
-  inside one block (`_relbias_bwd_plan`), head widths up to 64; or, with
+  inside one block (`_relbias_bwd_plan`), head widths up to 64 (wider heads
+  take the wide bodies, csrc/hstu_attention_wide.cuh); or, with
   ``deterministic``, K7-det (the same library): the same function summed in
   one fixed order (`_relbias_det_plan`).
 
@@ -21,7 +22,10 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py`:
     out = silu(alpha * q k^T + bias) / max_seq_len * valid_mask @ v
 
 The kernels never build the [B, N, N] bias: both tables sit in shared memory
-and each element looks its two entries up. The plain version builds it.
+and each element looks its two entries up; a table too long for shared
+memory (a long maximum length) is read through the L1 cache instead, a tile
+pair's bias from a window of consecutive entries. The plain version builds
+it.
 Timestamps are cast to float32 before they are subtracted, as the JAX
 package casts them (near 1.6e9 that rounds them to 128 s), and row i reads
 the timestamp of position i + 1 whether or not it lies past the row's
@@ -69,16 +73,18 @@ from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 from generative_recommenders_tpu_torch.ops.cuda.build import LaunchCounter
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signatures of the entry points (csrc/hstu_mha_relbias_*.cu)
+# C signatures of the entry points (csrc/hstu_mha_relbias_*.cu), each ending
+# with its plan's route (K7-det's: its body's, then its dq pass's) and the
+# stream
 ha._ARGTYPES.update({
-    "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_P],
-    "hstu_mha_relbias_fwd_bf16": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_P],
-    "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P],
+    "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
+    "hstu_mha_relbias_fwd_bf16": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
+    "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
     # one more pointer: dq's float32 sums beside the bfloat16 dq
-    "hstu_mha_relbias_bwd_bf16": [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P],
+    "hstu_mha_relbias_bwd_bf16": [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
     # one more pointer: the blocks' table sums
     **{
-        name: [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_P]
+        name: [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _I, _P]
         for name in ("hstu_mha_relbias_bwd_det", "hstu_mha_relbias_bwd_det_bf16")
     },
 })
@@ -92,8 +98,10 @@ ha._LIBRARY.update({
 # K7's tiling (csrc/hstu_mha_relbias_bwd.cu): 64 x 64 tile pairs, every tile
 # at a pitch of its width + 8; a Hopper block's shared memory
 _BWD_TILE, _BWD_PITCH, _BWD_WARPS = 64, 72, 16
-_MAX_BWD_WIDTH = 64
-_MAX_BWD_BUCKETS = 65535
+_NARROW_BWD_WIDTH = 64  # wider heads take the wide bodies (csrc/hstu_attention_wide.cuh)
+# the buckets a float32 time gap reaches: 0 .. 294 and NB (an infinite gap),
+# the slots of dts_w's copies where the tables are read (`hstu_wide::kTsSlots`)
+_TS_SLOTS = 296
 _MAX_SHARED_BYTES = ha._MAX_SHARED_BYTES
 _INV_LOG_BASE = 1.0 / 0.301  # bucket(x) = floor(ln(x) / 0.301)
 RelbiasGrads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -287,7 +295,7 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     if out.numel() == 0:
         return out
     # raises on what the kernel does not take
-    ha._fwd_plan(D, V, H, (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, True, B, N)
+    route = ha._fwd_plan(D, V, H, (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, True, B, N)["route"]
     ha._launch(
         "hstu_mha_relbias_fwd_bf16" if bf16 else "hstu_mha_relbias_fwd",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -295,28 +303,31 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *ha._mask_args(kw, N), (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1,
-        ha._stream(q.device),
+        ha._ROUTES[route], ha._stream(q.device),
     )
     counters = hstu_mha_dense_relbias_cuda
-    (counters.launches_bf16 if bf16 else counters.launches).add()
+    (counters.launches_bf16 if bf16 else counters.launches).add(route)
     return out
 
 
 def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int) -> dict:
-    """K7's launch: the head width both D and V are padded to (32 or 64), the
-    heads a block loops inside (4 or 2: their K, V, dK and dV tiles fill its
-    shared memory and registers), the head groups (H need not be a multiple)
-    and the block's shared memory: K and V of the group, two (Q, dO)
-    buffers, P, dS and dS summed over the heads, both tables, ``dpos_w``'s
-    sums and one copy of ``dts_w``'s sums per warp. Raises on
-    heads wider than 64, on more than 65535 buckets and on tables that do
-    not fit beside the tiles."""
-    if D > _MAX_BWD_WIDTH or V > _MAX_BWD_WIDTH:
-        raise ValueError(
-            f"the relative-bias backward kernel takes D, V <= {_MAX_BWD_WIDTH}; got D={D}, V={V}"
-        )
-    if NB > _MAX_BWD_BUCKETS:
-        raise ValueError(f"the relative-bias backward kernel takes at most {_MAX_BWD_BUCKETS} buckets, got {NB}")
+    """K7's launch, its ``route`` the body the C entry point takes. D and V up
+    to 64 (route ``narrow``): the head width both are padded to (32
+    or 64), the heads a block loops inside (4 or 2: their K, V, dK and dV
+    tiles fill its shared memory and registers), the head groups (H need not
+    be a multiple) and the block's shared memory: K and V of the group, two
+    (Q, dO) buffers, P, dS and dS summed over the heads, both tables,
+    ``dpos_w``'s sums and one copy of ``dts_w``'s sums per warp; where the
+    tables do not fit beside the tiles (a long position table, many
+    buckets), the tables are read from device memory and the warps' copies
+    keep the reachable buckets (route ``read``). Wider heads
+    (route ``wide``): the wide relative-bias dq pass, then the wide dkv pass with
+    the table sums (a block per key tile, head, batch row and output chunk).
+    Raises on a width of 0."""
+    ha._check_widths(D, V)
+    if max(D, V) > _NARROW_BWD_WIDTH:
+        return dict(route="wide", width=ha._WIDE_CHUNK, head_group=1, head_groups=H,
+                    shared_bytes=ha._WIDE_DKV_RELBIAS_BYTES, dq_shared_bytes=ha._WIDE_DQ["shared_bytes"])
     width = 32 if max(D, V) <= 32 else 64
     head_group = 128 // width
     tiles = (
@@ -324,40 +335,50 @@ def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int) -> dict:
         + 3 * _BWD_TILE * _BWD_PITCH  # P, dS, dS summed over the heads
     )
     tables = 2 * (2 * Nm - 1) + (1 + _BWD_WARPS) * (NB + 1)
-    shared_bytes = 4 * (tiles + tables)
-    if shared_bytes > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"the relative-bias backward kernel needs {shared_bytes} bytes of shared memory "
-            f"({4 * tiles} of tiles, {4 * tables} of tables for Nm={Nm}, NB={NB}); "
-            f"a block has {_MAX_SHARED_BYTES}"
-        )
-    return dict(width=width, head_group=head_group, head_groups=-(-H // head_group),
-                shared_bytes=shared_bytes)
+    plan = dict(route="narrow", width=width, head_group=head_group, head_groups=-(-H // head_group),
+                shared_bytes=4 * (tiles + tables))
+    if plan["shared_bytes"] > _MAX_SHARED_BYTES:  # read, not staged
+        plan.update(route="read", shared_bytes=4 * (tiles + _BWD_WARPS * min(NB + 1, _TS_SLOTS)))
+    return plan
+
+
+def _relbias_grid(N: int, head_groups: int, B: int) -> Tuple[int, int, int]:
+    """K7's grid of (key tile, head group, batch row) blocks; raises beyond
+    CUDA's 65535 in y or z."""
+    grid = (-(-N // _BWD_TILE), head_groups, B)
+    if grid[1] > ha._MAX_GRID_YZ or grid[2] > ha._MAX_GRID_YZ:
+        raise ValueError(f"K7's grid {grid} exceeds {ha._MAX_GRID_YZ} blocks in y or z: split the batch")
+    return grid
 
 
 def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int) -> dict:
-    """K7-det's launches: the dq pass on K3's body (`hstu_attention._dq_plan`:
-    one block per (64-row query tile, head, batch row)) with both tables and
-    the batch row's timestamps added to its shared memory; then K7's body
-    without dq on K7's grid (`_relbias_bwd_plan`: (key tile, head group,
-    batch row)), each block writing its table sums to its own row of the
-    float32 ``partial`` buffer [blocks, (2 Nm - 1) + (NB + 1)]; then the rows
-    added in block order, one CUDA block per 32 entries. Raises where K7
-    does, or where the dq pass's tables do not fit."""
+    """K7-det's launches. D and V up to 64: the dq pass on K3's body
+    (`hstu_attention._dq_plan`: one block per (64-row query tile, head, batch
+    row)) with both tables and the batch row's timestamps added to its shared
+    memory where they fit (else read from device memory: ``dq_route``
+    ``read``); then K7's body without dq on K7's grid (`_relbias_bwd_plan`:
+    (key tile, head group, batch row)), each block writing its table sums to
+    its own row of the float32 ``partial`` buffer [blocks, (2 Nm - 1) + (NB +
+    1)]; then the rows added in block order, one CUDA block per 32 entries.
+    Wider heads: the wide dq pass and the wide dkv pass, whose blocks of
+    chunk 0 write one row per (key tile, head, batch row). Raises on a width
+    of 0 and on a grid beyond CUDA's."""
     bwd = _relbias_bwd_plan(D, V, H, Nm, NB)
+    entries = 2 * Nm - 1 + NB + 1
+    if bwd["route"] == "wide":
+        dq = ha._wide_dq_plan(D, V, H, B, N)
+        dkv = ha._wide_dkv_plan(D, V, H, B, N, relbias=True)
+        return dict(bwd, dq_route="wide", dq_grid=dq["grid"], grid=dkv["grid"],
+                    partial_shape=(dkv["table_rows"], entries), sum_grid=(-(-entries // 32),))
     dq = ha._dq_plan(D, V, H, B, N)
     dq_shared = dq["shared_bytes"] + 4 * (2 * Nm - 1 + NB + 1 + N)
-    if dq_shared > _MAX_SHARED_BYTES:
-        raise ValueError(
-            f"K7-det's dq pass needs {dq_shared} bytes of shared memory (tables and timestamps for "
-            f"Nm={Nm}, NB={NB}, N={N}); a block has {_MAX_SHARED_BYTES}"
-        )
-    grid = (-(-N // _BWD_TILE), bwd["head_groups"], B)
+    read = dq_shared > _MAX_SHARED_BYTES  # the dq pass reads the tables
+    grid = _relbias_grid(N, bwd["head_groups"], B)
     blocks = grid[0] * grid[1] * grid[2]
-    entries = 2 * Nm - 1 + NB + 1
-    return dict(width=bwd["width"], head_group=bwd["head_group"], dq_grid=dq["grid"],
-                dq_shared_bytes=dq_shared, grid=grid, shared_bytes=bwd["shared_bytes"],
-                partial_shape=(blocks, entries), sum_grid=(-(-entries // 32),))
+    return dict(route=bwd["route"], dq_route="read" if read else "narrow", width=bwd["width"],
+                head_group=bwd["head_group"], dq_grid=dq["grid"],
+                dq_shared_bytes=dq["shared_bytes"] if read else dq_shared, grid=grid,
+                shared_bytes=bwd["shared_bytes"], partial_shape=(blocks, entries), sum_grid=(-(-entries // 32),))
 
 
 def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic: bool = False) -> RelbiasGrads:
@@ -371,7 +392,15 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
     Nm, NB = (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1
     bf16 = q.dtype == torch.bfloat16
     # raises on what the kernels do not take
-    plan = (_relbias_det_plan(D, V, H, B, N, Nm, NB) if deterministic else _relbias_bwd_plan(D, V, H, Nm, NB))
+    if deterministic:
+        plan = _relbias_det_plan(D, V, H, B, N, Nm, NB)
+    else:
+        plan = _relbias_bwd_plan(D, V, H, Nm, NB)
+        if plan["route"] == "wide":
+            ha._wide_dq_plan(D, V, H, B, N)
+            ha._wide_dkv_plan(D, V, H, B, N, relbias=True)
+        else:
+            _relbias_grid(N, plan["head_groups"], B)
     new = lambda fn, *shape, dtype=torch.float32: fn(shape, dtype=dtype, device=q.device)  # noqa: E731
     dk, dv = new(torch.empty, B, N, H, D, dtype=q.dtype), new(torch.empty, B, N, H, V, dtype=q.dtype)
     if deterministic:
@@ -382,6 +411,7 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
         partial = new(torch.empty, *plan["partial_shape"])
         name = "hstu_mha_relbias_bwd_det_bf16" if bf16 else "hstu_mha_relbias_bwd_det"
         dq_ptrs, tail = (dq.data_ptr(),), (partial.data_ptr(),)
+        routes = (ha._ROUTES[plan["route"]], ha._ROUTES[plan["dq_route"]])
     else:
         dq32 = new(torch.zeros, B, N, H, D)
         dq = new(torch.empty, B, N, H, D, dtype=q.dtype) if bf16 else dq32
@@ -390,6 +420,7 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
             return dq, dk, dv, dpos, dts
         name = "hstu_mha_relbias_bwd_bf16" if bf16 else "hstu_mha_relbias_bwd"
         dq_ptrs, tail = ((dq32.data_ptr(), dq.data_ptr()) if bf16 else (dq.data_ptr(),)), ()
+        routes = (ha._ROUTES[plan["route"]],)
     ha._launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -398,13 +429,13 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(), *tail,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *ha._mask_args(kw, N), Nm, NB,
-        *(int(ha._vec16(t)) for t in (q, k, v, do)), ha._stream(q.device),
+        *(int(ha._vec16(t)) for t in (q, k, v, do)), *routes, ha._stream(q.device),
     )
     c = hstu_mha_relbias_bwd_cuda
     {
         (False, False): c.launches, (True, False): c.launches_bf16,
         (False, True): c.launches_det, (True, True): c.launches_det_bf16,
-    }[bf16, deterministic].add()
+    }[bf16, deterministic].add(plan["route"])
     return dq, dk, dv, dpos, dts
 
 
@@ -489,9 +520,10 @@ def hstu_mha_relbias_bwd_cuda(
     ``do``, by kernel K7, whose dq and table gradients are summed with
     atomics, so their last bits vary from run to run (dk and dv are the same
     bits every run); or, with ``deterministic``, by K7-det, every output the
-    same bits every run. Heads wider than 64, or tables that do not fit a
-    block's shared memory beside the tiles, raise. CPU tensors go through
-    the plain backward."""
+    same bits every run. Any head width and table length (heads wider than
+    64 take the wide bodies, tables that do not fit a block's shared memory
+    are read from device memory). CPU tensors go through the plain
+    backward."""
     kw = ha._dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,
                       contextual_seq_len, min_full_attn_seq_len)
     if q.device.type == "cpu":

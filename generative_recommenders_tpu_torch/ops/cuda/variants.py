@@ -87,7 +87,7 @@ _K7: Dict[str, Edit] = {
     "dq atomics": _sub("if (row < length && d < p.D) {\n                  const float4 x",
                        "if (false) {\n                  const float4 x"),
     "sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;"),
-    "bucket logf": _sub("const int bucket = hstu::ts_bucket(tq, tk[j * 2 + c], p.NB);", "const int bucket = 3;"),
+    "bucket logf": _sub("int bucket = hstu::ts_bucket(tq, tk[j * 2 + c], p.NB);", "int bucket = 3;"),
     "S and dP": _sub("if (!dead) {", "if (false) {"),
     "dV and dK": _sub("for (int ks = row_step_first; ks < row_steps; ++ks) {",
                       "for (int ks = row_step_first; ks < 0; ++ks) {"),
@@ -102,7 +102,7 @@ _K16: Dict[str, Edit] = {
     "silu": _sub("s[j][c] = __fdividef(x, 1.f + __expf(-x));", "s[j][c] = x;", _FWD),
     _BIAS: _sub(
         "bias[RELBIAS ? 4 * j + c : 0] = pos_s[hstu::pos_index(row, col, p.Nm)] +\n"
-        "                                            ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)];",
+        "                                              ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)];",
         "bias[RELBIAS ? 4 * j + c : 0] = 0.f;", _FWD),
     "mma.sync (plain adds instead)": _NO_MMA,
     "the split (big = x, small = 0)": _NO_SPLIT,
@@ -156,7 +156,7 @@ _K3_TILINGS = ("BQ 64, BK 32", "BQ 32, BK 64", "BQ 128, BK 32")
 _K5: Dict[str, Edit] = {
     "the last block's sum": _sub("  if (!s_last) return;\n", "  return;\n"),
     "K loads": _sub("      kr[i] = (col < length && at < p.D) ? load4", "      kr[i] = (col < length && at < 0) ? load4"),
-    "V loads": _sub("      vr[j] = (c0 + j < length && at < p.V)", "      vr[j] = (c0 + j < length && at < 0)"),
+    "V loads": _sub("      vr[j] = (c0 + j < length && at < vw)", "      vr[j] = (c0 + j < length && at < 0)"),
     "silu": _sub("const float pv = ok ? x / (1.f + expf(-x)) : 0.f;", "const float pv = ok ? x : 0.f;"),
     "P shuffles": _sub("          const float pm = __shfl_sync(kFull, pv, j * 8 + m);", "          const float pm = pv;"),
 }
@@ -239,7 +239,7 @@ def _build_all(root: str, chosen: List[int]) -> None:
             with open(os.path.join(d, name), "w") as f:
                 f.write(text)
         r = subprocess.run(
-            [nvcc, *build.NVCC_FLAGS, "-I", d, "-I", build.CSRC_DIR, "-o", os.path.join(d, f"lib{kernel}.so"),
+            [nvcc, *build.nvcc_flags(kernel), "-I", d, "-I", build.CSRC_DIR, "-o", os.path.join(d, f"lib{kernel}.so"),
              os.path.join(d, build.KERNEL_SOURCES[kernel])],
             capture_output=True, text=True,
         )
@@ -264,7 +264,7 @@ def _build_other(root: str, csrc: str, kernels: List[str]) -> None:
         d = os.path.join(root, kernel)
         os.makedirs(d, exist_ok=True)
         procs.append(subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-I", csrc, "-o", os.path.join(d, f"lib{kernel}.so"),
+            [nvcc, *build.nvcc_flags(kernel), "-I", csrc, "-o", os.path.join(d, f"lib{kernel}.so"),
              os.path.join(csrc, build.KERNEL_SOURCES[kernel])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))

@@ -313,10 +313,23 @@ def test_forward_launch_plan_takes_the_wider_of_d_and_v():
     assert ha._fwd_plan(200, 16, 2, 0, 0, False)["width"] == 256
 
 
-@pytest.mark.parametrize("args,match", [((257, 32), "D <= 256"), ((32, 129), "V <= 128")])
+@pytest.mark.parametrize("args,match", [((0, 32), "at least 1"), ((32, 0), "at least 1")])
 def test_forward_launch_plan_raises(args, match):
+    """A width of 0 is the one width the kernels refuse."""
     with pytest.raises(ValueError, match=match):
         ha._fwd_plan(*args, 2, 0, 0, False)
+
+
+@pytest.mark.parametrize("D,V", [(257, 32), (32, 129), (256, 129), (512, 320)])
+def test_forward_launch_plan_admits_wide_heads(D, V):
+    """D above 256 or V above 128 take the wide body: 64 query
+    rows, 32-column key tiles, a block per (query tile, head, batch row, V
+    chunk of 128)."""
+    B, H, N = 3, 2, 674
+    plan = ha._fwd_plan(D, V, H, 0, 0, False, B, N)
+    assert plan["route"] == "wide" and plan["d_chunks"] == -(-D // 128) and plan["v_chunks"] == -(-V // 128)
+    assert plan["shared_bytes"] == 4 * (64 * 136 + 32 * 136 + 32 * 132) <= 232448
+    assert plan["grid"] == (-(-N // 64) * H * B * plan["v_chunks"],)
 
 
 def test_dense_launch_goes_by_the_plan(monkeypatch):
@@ -362,10 +375,23 @@ def test_backward_launch_plan(D, V, H):
     assert plan["grid"] == (-(-N // cols) * H * B,)
 
 
-@pytest.mark.parametrize("args,match", [((257, 32), "D <= 256"), ((32, 129), "V <= 128"), ((0, 32), "D <= 256")])
+@pytest.mark.parametrize("args,match", [((0, 32), "at least 1"), ((32, 0), "at least 1")])
 def test_backward_launch_plan_raises(args, match):
     with pytest.raises(ValueError, match=match):
         ha._bwd_plan(*args, 4, 32, 268)
+
+
+@pytest.mark.parametrize("D,V", [(257, 32), (32, 129), (256, 256), (320, 136)])
+def test_backward_launch_plan_admits_wide_heads(D, V):
+    """D above 256 or V above 128 take the wide dkv pass (K2:
+    after the wide dq pass): a block per (64-column key tile, head, batch
+    row, output chunk), the chunks dV's then dK's."""
+    B, H, N = 32, 4, 268
+    plan = ha._bwd_plan(D, V, H, B, N)
+    chunks = -(-D // 128) + -(-V // 128)
+    assert plan["route"] == "wide" and plan["grid"] == (-(-N // 64) * H * B * chunks,)
+    assert plan["shared_bytes"] == 4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72) <= 232448
+    assert plan["dq"]["grid"] == (-(-N // 64) * H * B * -(-D // 128),)
 
 
 # padded width -> (query rows, key columns, shared bytes), as
@@ -390,10 +416,20 @@ def test_dq_launch_plan(D, V, H):
     assert plan["grid"] == (-(-N // rows) * H * B,)
 
 
-@pytest.mark.parametrize("args,match", [((257, 32), "D <= 256"), ((32, 129), "V <= 128"), ((0, 32), "D <= 256")])
+@pytest.mark.parametrize("args,match", [((0, 32), "at least 1"), ((32, 0), "at least 1")])
 def test_dq_launch_plan_raises(args, match):
     with pytest.raises(ValueError, match=match):
         ha._dq_plan(*args, 4, 32, 1036)
+
+
+@pytest.mark.parametrize("D,V", [(257, 32), (32, 129), (256, 256), (1024, 8)])
+def test_dq_launch_plan_admits_wide_heads(D, V):
+    """D above 256 or V above 128 take the wide dq pass: a
+    block per (64-row query tile, head, batch row, dQ chunk of 128)."""
+    B, H, N = 32, 4, 1036
+    plan = ha._dq_plan(D, V, H, B, N)
+    assert plan["route"] == "wide" and plan["grid"] == (-(-N // 64) * H * B * -(-D // 128),)
+    assert plan["shared_bytes"] == 4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8) <= 232448
 
 
 _C_TYPES = {"const float*": ha._P, "float*": ha._P, "const int*": ha._P, "int*": ha._P, "void*": ha._P, "int": ha._I,
@@ -405,7 +441,8 @@ _C_TYPES = {"const float*": ha._P, "float*": ha._P, "const int*": ha._P, "int*":
 def test_argtypes_follow_the_c_signatures(name):
     """Each kernel's ctypes argument list has the types of its `extern "C"`
     entry point, parameter by parameter (the backward kernels' ends with
-    the four `vec_*` flags), in the source of its library (a bfloat16 entry
+    the four `vec_*` flags before the route; every one but K5's with the
+    route and the stream), in the source of its library (a bfloat16 entry
     point lives in its float32 kernel's): a pointer or an int out of place
     would be cut or misread without an error."""
     import os
@@ -418,8 +455,11 @@ def test_argtypes_follow_the_c_signatures(name):
     params = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{", src, re.S).group(1)
     types = [re.sub(r"\s+", " ", p.strip()).rsplit(" ", 1)[0] for p in params.split(",")]
     assert [_C_TYPES[t] for t in types] == ha._ARGTYPES[name]
+    names = [p.split()[-1] for p in params.split(",")]
     if name.startswith("hstu_mha_bwd"):
-        assert [p.split()[-1] for p in params.split(",")][-5:-1] == ["vec_q", "vec_k", "vec_v", "vec_do"]
+        assert names[-6:-2] == ["vec_q", "vec_k", "vec_v", "vec_do"]
+    if name != "delta_hstu_mha_fwd":
+        assert names[-2:] == ["route", "stream"]
 
 
 def _uvqk_views(B, N, H, D, V, seed=0):
@@ -450,7 +490,8 @@ def _shifted(x):
 def test_backward_launch_decides_vector_loads(monkeypatch, layout, want):
     """K2, K3 and K4 take the `vec_*` flags of q, k, v and dO (16-byte loads
     where the pointer, the strides and the width allow them). Each call
-    passes as many arguments as its C signature has."""
+    passes as many arguments as its C signature has, the last two its
+    plan's route and the stream."""
     calls = []
     monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
     monkeypatch.setattr(ha, "_stream", lambda device: 0)
@@ -474,7 +515,7 @@ def test_backward_launch_decides_vector_loads(monkeypatch, layout, want):
         assert hstu_mha_bwd_cuda.launches[name].count == before + 1
         args = calls[-1]
         assert args[0] == name and len(args) == 1 + len(ha._ARGTYPES[name])
-        assert args[-5:-1] == want
+        assert args[-6:-2] == want and args[-2] == ha._ROUTES["narrow"]
 
 
 def test_backward_launch_goes_by_the_plan(monkeypatch):

@@ -139,5 +139,5 @@ def test_split_bf16_launch(monkeypatch, name):
         assert dq is None and dk.dtype == dv.dtype == torch.bfloat16 and dv.shape == (B, N, H, V)
         assert dq_ptr is None and (dk_ptr, dv_ptr) == (dk.data_ptr(), dv.data_ptr())
     # q, k and v are views of one projection at a pitch of 80 elements; dO is contiguous
-    assert call[-5:-1] == tuple(int(ha._vec16(t)) for t in (q, k, v, do))
+    assert call[-6:-2] == tuple(int(ha._vec16(t)) for t in (q, k, v, do)) and call[-2] == ha._ROUTES["narrow"]
     assert call[15:18] == q.stride()[:3] and call[27] == 0.125  # alpha, whole: the kernel rounds it

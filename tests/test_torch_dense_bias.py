@@ -154,7 +154,7 @@ def test_bias_launch(monkeypatch, bf16, broadcast):
     assert call[7] == bias.data_ptr()
     assert call[8:13] == (B, N, H, D, D)
     assert call[22:24] == (0 if broadcast else N * 72, 72)
-    assert call[24:26] == (0.5, 1.0 / N) and call[-2] == 1
+    assert call[24:26] == (0.5, 1.0 / N) and call[-3] == 1 and call[-2] == ha._ROUTES["narrow"]
     assert [c.count - b for c, b in zip(counters, before)] == [0, 0, int(not bf16), int(bf16)]
 
 

@@ -78,6 +78,9 @@ RELBIAS_CASES = [
     dict(causal=False),
 ]
 TABLE_TOL = 2e-5  # of a table gradient's largest entry
+# the wide bodies and the long tables against the plain versions, as a share
+# of each output's largest entry: chip_smoke.py's REL_TOL (float32)
+WIDE_TOL = 2e-5
 DELTA_CASES = [
     dict(),
     dict(num_targets=True, contextual_seq_len=2),
@@ -629,14 +632,18 @@ def test_relbias_backward_at_its_seams(cuda, name):
 
 
 @pytest.mark.gpu
-def test_relbias_backward_refuses_wide_heads(cuda):
-    """Heads wider than 64 raise on the card; nothing falls back."""
+def test_relbias_backward_takes_wide_heads(cuda):
+    """Heads wider than 64 take the wide bodies: one K7
+    launch, against the plain backward."""
     (q, k, v, lengths, ts, pos_w, ts_w), kw = _relbias_seam("H=1", cuda)
-    wide = torch.zeros(*q.shape[:3], 72, device=cuda)
+    wide = torch.randn(*q.shape[:3], 72, device=cuda) * 0.3
+    do = torch.randn_like(v)
     before = hstu_mha_relbias_bwd_cuda.launches.count
-    with pytest.raises(ValueError, match="D, V <= 64"):
-        hstu_mha_relbias_bwd_cuda(wide, wide, v, lengths, ts, pos_w, ts_w, torch.zeros_like(v), **kw)
-    assert hstu_mha_relbias_bwd_cuda.launches.count == before
+    grads = hstu_mha_relbias_bwd_cuda(wide, wide, v, lengths, ts, pos_w, ts_w, do, **kw)
+    assert hstu_mha_relbias_bwd_cuda.launches.count == before + 1
+    want = hstu_mha_relbias_bwd_plain(wide, wide, v, lengths, ts, pos_w, ts_w, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, want):
+        assert _bf16_err(g, w) <= WIDE_TOL, f"{name}: {_bf16_err(g, w):.2e} of its max"
 
 
 @pytest.mark.gpu
@@ -1019,3 +1026,155 @@ def test_dense_bias_kernel_at_its_seams(cuda, name):
     B, N = q.shape[:2]
     _bias_checks(q, k, v, lengths, torch.randn(B, N, N + 1, device=cuda)[..., :N], kw)
     _bias_checks(q, k, v, lengths, torch.randn(B, N, N, device=cuda), kw)
+
+
+# ------------------------------------------------- every width, every table
+# Heads wider than the narrow bodies take (D above 256 or V above 128; D or V
+# above 64 in the relative-bias backward) run on the wide bodies
+# (csrc/hstu_attention_wide.cuh); position tables too long to stage beside
+# the tiles, and more buckets than fit, are read from device memory. Each is
+# held to its plain version: float32 within WIDE_TOL of each output's largest
+# entry, bfloat16 within BF16_TOL (tables: TABLE_TOL with atomics, the same
+# bits twice under K7-det).
+WIDE_SHAPES = [(32, 136), (64, 192), (128, 256), (32, 320), (264, 32), (320, 64), (512, 136)]
+
+
+def _wide_views(seed, B, N, H, D, V, dtype, device):
+    """q, k, v as views of one projection, a strided dO, lengths with a
+    short row, num_targets; alpha 1 / sqrt(D) keeps S of order 1."""
+    rng = np.random.default_rng(seed)
+    proj = torch.as_tensor(rng.standard_normal((B, N, H * (2 * D + V))).astype(np.float32),
+                           device=device).to(dtype)
+    v, q, k = torch.split(proj, [H * V, H * D, H * D], dim=-1)
+    do = torch.as_tensor(rng.standard_normal((N, B, H, V)).astype(np.float32), device=device).to(dtype)
+    lengths = rng.integers(1, N, size=(B,)).astype(np.int32)
+    lengths[0] = N
+    nt = np.minimum(rng.integers(0, 4, size=(B,)), lengths - 2).clip(0).astype(np.int32)
+    return (q.reshape(B, N, H, D), k.reshape(B, N, H, D), v.reshape(B, N, H, V), do.transpose(0, 1),
+            torch.as_tensor(lengths, device=device), torch.as_tensor(nt, device=device))
+
+
+def _held(name, got, want, bf16, tol=WIDE_TOL):
+    err = _bf16_err(got, want)
+    assert err <= (BF16_TOL if bf16 else tol), f"{name}: {err:.2e} of its max"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", WIDE_SHAPES)
+def test_dense_kernels_at_wide_heads(cuda, D, V, bf16):
+    """K1, K1-bias, K2 and K3 + K4 (float32 or bfloat16) at widths their own
+    tilings do not take, with targets and a contextual row, on views of one
+    projection; each launch counted once, K3 + K4 the same bits twice."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, do, lengths, nt = _wide_views(40, 2, 150, 2, D, V, dtype, cuda)
+    kw = dict(alpha=D**-0.5, max_seq_len=160, num_targets=nt, contextual_seq_len=1)
+    sfx = "_bf16" if bf16 else ""
+    fwd, bwd = hstu_mha_dense_cuda.launches, hstu_mha_bwd_cuda.launches
+    before = [fwd["hstu_mha_fwd" + sfx].count, fwd["hstu_mha_fwd_bias" + sfx].count,
+              bwd["hstu_mha_bwd_fused" + sfx].count, bwd["hstu_mha_bwd_dq" + sfx].count,
+              bwd["hstu_mha_bwd_dkv" + sfx].count]
+    out = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+    bias = torch.randn(2, 150, 150, device=cuda) * 0.3
+    biased = hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw)
+    fused = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+    split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    after = [fwd["hstu_mha_fwd" + sfx].count, fwd["hstu_mha_fwd_bias" + sfx].count,
+             bwd["hstu_mha_bwd_fused" + sfx].count, bwd["hstu_mha_bwd_dq" + sfx].count,
+             bwd["hstu_mha_bwd_dkv" + sfx].count]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1]
+    _held("out", out, hstu_mha_dense_plain(q, k, v, lengths, **kw), bf16)
+    _held("biased out", biased, hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw), bf16)
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    dead = torch.arange(150, device=cuda)[None, :] >= lengths[:, None]
+    for kind, grads in (("K2", fused), ("K3 + K4", split)):
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            _held(f"{kind} {name}", g, w, bf16)
+            assert (g[dead] == 0).all()
+    again = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(split, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,V", [(32, 136), (64, 256), (264, 32), (320, 200), (1024, 8)])
+def test_delta_kernel_at_wide_heads(cuda, D, V):
+    """K5 at V above 128 (V in chunks of 128 across the grid) and D above 256
+    (q read in chunks), over several key chunks and row tiles."""
+    q, k, v, lengths, nt = _inputs(41, 3, 12, 200, 2, D, V, 1, True, cuda)
+    kw = dict(alpha=D**-0.5, norm_len=210, num_targets=nt, contextual_seq_len=1)
+    before = delta_hstu_mha_cuda.launches.count
+    got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
+    assert delta_hstu_mha_cuda.launches.count == before + 1
+    _held("out", got, delta_hstu_mha_plain(q, k, v, lengths, **kw), False)
+    assert torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **kw))
+
+
+def _relbias_all(args, do, kw, bf16):
+    """K6, K7 and K7-det against their plain versions: each launch counted
+    once, on the route its plan chose, the tables within TABLE_TOL (K7-det:
+    DET_TOL, the same bits twice)."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    c6, c7 = hstu_mha_dense_relbias_cuda, hstu_mha_relbias_bwd_cuda
+    counters = (c6.launches_bf16 if bf16 else c6.launches, c7.launches_bf16 if bf16 else c7.launches)
+    before = [(x.count, x.routes) for x in counters]
+    out = c6(*args, **kw)
+    grads = c7(*args, do, **kw)
+    assert [x.count - b for x, (b, _) in zip(counters, before)] == [1, 1]
+    (B, N, H, D), V = args[0].shape, args[2].shape[3]
+    Nm, NB = (args[5].shape[0] + 1) // 2, args[6].shape[0] - 1
+    routes = [hr.ha._fwd_plan(D, V, H, Nm, NB, True, B, N)["route"], hr._relbias_bwd_plan(D, V, H, Nm, NB)["route"]]
+    assert [[r for r, n in x.routes.items() if n != b.get(r, 0)] for x, (_, b) in zip(counters, before)] == [
+        [r] for r in routes]
+    _held("out", out, hstu_mha_dense_relbias_plain(*args, **kw), bf16)
+    want = hstu_mha_relbias_bwd_plain(*args, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        _held(name, g, w, bf16)
+    for name, g, w in zip(("dpos_w", "dts_w"), grads[3:], want[3:]):
+        _held(name, g, w, False, TABLE_TOL)
+    _det_checks(args, do, kw, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", [(128, 128), (72, 32), (256, 256), (320, 136)])
+def test_relbias_kernels_at_wide_heads(cuda, D, V, bf16):
+    """K6 (its own tiling up to D 256 / V 128, the wide body above) and K7 /
+    K7-det (the wide bodies above 64) at the heads of a d 256 model split
+    over 2 heads and wider."""
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(42, 2, 150, 2, D, V, 160, 128, True, cuda)
+    if bf16:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(150, 2, 2, V, device=cuda).to(q.dtype).transpose(0, 1)
+    kw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=150, num_buckets=128, num_targets=nt)
+    _relbias_all((q, k, v, lengths, ts, pos_w, ts_w), do, kw, bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "H,D,N,Nm,nb",
+    [(2, 32, 300, 2848, 128), (2, 64, 200, 1312, 128), (2, 64, 200, 500, 1024), (2, 32, 300, 22000, 128),
+     (2, 64, 260, 22000, 200), (8, 32, 4096, 4096, 128), (8, 64, 700, 2048, 128)],
+    ids=["width 32, Nm 2848", "width 64, Nm 1312", "1024 buckets", "width 32, Nm 22000", "width 64, Nm 22000",
+         "H 8, width 32, N = Nm = 4096", "H 8, width 64, Nm 2048"],
+)
+def test_relbias_kernels_with_long_tables(cuda, H, D, N, Nm, nb, bf16):
+    """Tables that do not fit beside the tiles: K7 and K7-det
+    read them and flush each step's window of dpos_w; at Nm 22000 K6 and
+    K7-det's dq pass read them too. Short batches against a long table, as
+    a model with a long maximum length trains; the 1024-bucket case puts
+    gaps past float32's range on some rows (bucket NB) and gaps near it. At
+    H 8 K7's groups of 4 (width 32) and 2 (width 64) heads are full, as in
+    the long-history model (H 8, N = Nm = 4096, width 32)."""
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(43, 3, N, H, D, D, Nm, nb, False, cuda)
+    if nb > 295:
+        ts = ts.to(torch.float32)
+        ts[1, ::7] = 3e38
+        ts[1, 3::7] = -3e38
+    if bf16:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(N, 3, H, D, device=cuda).to(q.dtype).transpose(0, 1)
+    kw = dict(alpha=1.0 if bf16 else 0.5, max_seq_len=N, num_buckets=nb, num_targets=None)
+    _relbias_all((q, k, v, lengths, ts, pos_w, ts_w), do, kw, bf16)

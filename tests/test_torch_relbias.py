@@ -344,26 +344,40 @@ def test_backward_launch_plan(D, V, H, Nm, NB, width, head_group, head_groups, s
     dS and their head sum at 64 x 72, both tables, dpos_w's sums and 16
     copies of dts_w's."""
     plan = hr._relbias_bwd_plan(D, V, H, Nm, NB)
-    assert plan == dict(width=width, head_group=head_group, head_groups=head_groups,
+    assert plan == dict(route="narrow", width=width, head_group=head_group, head_groups=head_groups,
                         shared_bytes=shared_bytes)
     tiles = (2 * head_group + 4) * 64 * (width + 8) + 3 * 64 * 72
     assert shared_bytes == 4 * (tiles + 2 * (2 * Nm - 1) + 17 * (NB + 1)) <= 232448
 
 
-@pytest.mark.parametrize(
-    "args,match",
-    [
-        ((65, 32, 2, 100, 128), "D, V <= 64"),
-        ((32, 128, 2, 100, 128), "D, V <= 64"),
-        ((32, 32, 2, 100, 70000), "65535 buckets"),
-        ((32, 32, 2, 8000, 128), "bytes of shared memory"),
-    ],
-)
+@pytest.mark.parametrize("args,match", [((0, 32, 2, 100, 128), "at least 1"), ((32, 0, 2, 100, 128), "at least 1")])
 def test_backward_launch_plan_raises(args, match):
     """What the kernel does not take raises with the sizes; nothing falls
-    back to the plain version."""
+    back to the plain version. A width of 0 is all that is left."""
     with pytest.raises(ValueError, match=match):
         hr._relbias_bwd_plan(*args)
+
+
+@pytest.mark.parametrize(
+    "args,route",
+    [
+        ((65, 32, 2, 100, 128), "wide"),
+        ((32, 128, 2, 100, 128), "wide"),
+        ((32, 32, 2, 100, 70000), "read"),
+        ((32, 32, 2, 8000, 128), "read"),
+    ],
+)
+def test_backward_launch_plan_admits(args, route):
+    """Shapes past K7's staged tiling: heads wider than 64 take the wide bodies;
+    many buckets and a long position table are read from device memory,
+    with 16 copies of dts_w's 296 reachable buckets beside the tiles."""
+    plan = hr._relbias_bwd_plan(*args)
+    assert plan["shared_bytes"] <= 232448 and plan["route"] == route
+    if route == "wide":
+        assert plan["head_group"] == 1 and plan["head_groups"] == args[2]
+    else:
+        tiles = (2 * plan["head_group"] + 4) * 64 * (plan["width"] + 8) + 3 * 64 * 72
+        assert plan["shared_bytes"] == 4 * (tiles + 16 * min(args[4] + 1, 296))
 
 
 @pytest.mark.parametrize("H", [3, 5])
@@ -397,14 +411,18 @@ def test_forward_launch_plan(D, H):
     assert plan["shared_bytes"] <= 232448
 
 
-def test_forward_launch_plan_raises_on_tables_that_do_not_fit():
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        hr.ha._fwd_plan(128, 128, 2, 20000, 128, True, 2, 20100)
+def test_forward_launch_plan_reads_tables_that_do_not_fit():
+    """Tables that do not fit beside the tiles are read from
+    device memory: the plan keeps the tiles alone."""
+    plan = hr.ha._fwd_plan(128, 128, 2, 20000, 128, True, 2, 20100)
+    dense = hr.ha._fwd_plan(128, 128, 2, 0, 0, False, 2, 20100)
+    assert plan == dict(dense, route="read")
 
 
 def test_forward_launch_goes_by_the_plan(monkeypatch):
     """`_relbias_fwd` checks the plan before it launches: tables that do not
-    fit raise and nothing is launched or counted."""
+    fit are read (a launch), a grid beyond CUDA's raises and nothing is
+    launched or counted."""
     calls = []
     monkeypatch.setattr(hr.ha, "_launch", lambda *a: calls.append(a))
     monkeypatch.setattr(hr.ha, "_stream", lambda device: 0)
@@ -416,6 +434,10 @@ def test_forward_launch_goes_by_the_plan(monkeypatch):
     before = hr.hstu_mha_dense_relbias_cuda.launches.count
     hr._relbias_fwd(q, q, q, lens, None, ts, torch.zeros(2 * N - 1), torch.zeros(129), kw)
     assert len(calls) == 1 and calls[0][0] == "hstu_mha_relbias_fwd"
-    with pytest.raises(ValueError, match="bytes of shared memory"):
-        hr._relbias_fwd(q, q, q, lens, None, ts, torch.zeros(2 * 60000 - 1), torch.zeros(129), kw)
-    assert len(calls) == 1 and hr.hstu_mha_dense_relbias_cuda.launches.count == before + 1
+    hr._relbias_fwd(q, q, q, lens, None, ts, torch.zeros(2 * 60000 - 1), torch.zeros(129), kw)
+    assert len(calls) == 2 and calls[1][0] == "hstu_mha_relbias_fwd"
+    assert [c[-2] for c in calls] == [hr.ha._ROUTES["narrow"], hr.ha._ROUTES["read"]]
+    monkeypatch.setattr(hr.ha, "_MAX_GRID_X", 1)
+    with pytest.raises(ValueError, match="grid"):
+        hr._relbias_fwd(q, q, q, lens, None, ts, torch.zeros(2 * N - 1), torch.zeros(129), kw)
+    assert len(calls) == 2 and hr.hstu_mha_dense_relbias_cuda.launches.count == before + 2

@@ -72,13 +72,36 @@ def test_det_launch_plan(D, V, H, B, N, Nm, NB, width, head_group, grid, partial
 
 
 @pytest.mark.parametrize("args, match", [
-    ((72, 32, 2, 2, 100, 100, 128), "D, V <= 64"),
-    ((32, 32, 2, 2, 100, 20000, 128), "bytes of shared memory"),
-    ((32, 32, 2, 2, 40000, 1000, 10), "dq pass"),
+    ((0, 32, 2, 2, 100, 100, 128), "at least 1"),
+    ((32, 32, 2, 70000, 100, 100, 128), "grid"),
 ])
 def test_det_launch_plan_raises(args, match):
+    """A width of 0 and a grid beyond CUDA's are all it refuses."""
     with pytest.raises(ValueError, match=match):
         hr._relbias_det_plan(*args)
+
+
+@pytest.mark.parametrize("args, route", [
+    ((72, 32, 2, 2, 100, 100, 128), "wide"),
+    ((32, 32, 2, 2, 100, 20000, 128), "read"),
+    ((32, 32, 2, 2, 40000, 1000, 10), "dq read"),
+])
+def test_det_launch_plan_admits(args, route):
+    """Shapes past K7-det's staged tiling: wide heads take the wide bodies, one
+    row of `partial` per (key tile, head, batch row); a long table is read
+    from device memory by K7's body, and the dq pass reads the tables and
+    the timestamps where they do not fit beside its tiles."""
+    D, V, H, B, N, Nm, NB = args
+    plan = hr._relbias_det_plan(*args)
+    assert plan["shared_bytes"] <= 232448 and plan["dq_shared_bytes"] <= 232448
+    assert plan["partial_shape"][1] == 2 * Nm - 1 + NB + 1
+    if route == "wide":
+        assert plan["route"] == plan["dq_route"] == "wide" and plan["partial_shape"][0] == -(-N // 64) * H * B
+    elif route == "read":
+        assert plan["route"] == "read"
+    else:
+        assert plan["route"] == "narrow" and plan["dq_route"] == "read"
+        assert plan["dq_shared_bytes"] == hr.ha._dq_plan(D, V, H, B, N)["shared_bytes"]
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
@@ -106,6 +129,7 @@ def test_deterministic_launch_goes_by_the_plan(monkeypatch, bf16):
                             deterministic=True)
     name = "hstu_mha_relbias_bwd_det_bf16" if bf16 else "hstu_mha_relbias_bwd_det"
     assert len(calls) == 1 and calls[0][0] == name and len(calls[0]) == 1 + len(hr.ha._ARGTYPES[name])
+    assert calls[0][-3:-1] == (hr.ha._ROUTES["narrow"],) * 2  # K7's body's route, the dq pass's
     assert [x.count - b for x, b in zip(counters, before)] == ([0, 0, 0, 1] if bf16 else [0, 0, 1, 0])
     assert [g.dtype for g in grads] == [dtype] * 3 + [torch.float32] * 2
     assert hr._relbias_det_plan(D, D, H, B, N, Nm, NB)["partial_shape"] in allocs
