@@ -25,7 +25,10 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    row of length 0, K3 also at its own tiling's seams (lengths at its query-
    and key-tile edges, a window with full-attention rows), the outputs of K1,
    K3, K4 and K5 and the dk and dv of K2 and K7 the same bits on a second
-   run; K1 and K2 also timed at the training and deterministic shapes; K6
+   run; K5-bf16 (K5 on bfloat16 q, k, v) against its bfloat16 plain
+   version at the serving chunk (q a strided view), at M 160, at the chunk
+   edges with a window and alpha 0.3, at D = V = 25 and 64, the same bits
+   twice, timed beside K5; K1 and K2 also timed at the training and deterministic shapes; K6
    and K7 on bfloat16 q, k, v and dO (the first HSTU block's types under
    compute_dtype="bfloat16") against their bfloat16 plain versions, at the
    ml-3b layer-0 shape on a corpus batch and (in the ml-1m phase) at the
@@ -69,7 +72,8 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    seed, dropout on: gradients, launches, the bytes kept for the backward,
    peak memory and median step of each); the jagged attention phase
    (`ops/hstu_attention.py`: `hstu_mha` through K1 and `delta_hstu_mha`
-   through K5 at the serving shape against their plain versions); the
+   through K5, and on bfloat16 through K5-bf16, at the serving shape
+   against their plain versions; the path that counts K5-bf16's launches); the
    interleave preprocessor at the training widths, forward and backward,
    GPU against CPU; and `train_ranker --output_trace` over 36 steps of a
    small ranker, whose Chrome trace must hold K1's and K2's events;
@@ -194,7 +198,6 @@ import itertools
 import json
 import math
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -396,19 +399,6 @@ def profile(name: str, fn) -> None:
                                          for e in sorted(comm, key=lambda e: -e.cpu_time_total)))
 
 
-def kernel_function(mangled: str) -> str:
-    """The unqualified function name of a mangled `ns::fn<...>` symbol (the
-    last name of its `_ZN <length><name> ...` prefix), or the symbol."""
-    names, i = [], 3
-    while mangled.startswith("_ZN") and i < len(mangled) and mangled[i].isdigit():
-        j = i
-        while mangled[j].isdigit():
-            j += 1
-        names.append(mangled[j:j + int(mangled[i:j])])
-        i = j + int(mangled[i:j])
-    return names[-1] if names else mangled
-
-
 def median(xs) -> float:
     s = sorted(xs)
     return (s[(len(s) - 1) // 2] + s[len(s) // 2]) / 2
@@ -592,7 +582,7 @@ def wide_routes():
     saved = fwd, bwd, det = hr.ha._fwd_plan, hr._relbias_bwd_plan, hr._relbias_det_plan
     hr.ha._fwd_plan = lambda D, V, H, Nm, NB, relbias, B=1, N=1: fwd(max(D, 257), V, H, Nm, NB, relbias, B, N)
     hr._relbias_bwd_plan = lambda D, V, H, Nm, NB: bwd(max(D, 65), V, H, Nm, NB)
-    hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB: det(max(D, 65), V, H, B, N, Nm, NB)
+    hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB, *a: det(max(D, 65), V, H, B, N, Nm, NB, *a)
     try:
         yield
     finally:
@@ -622,7 +612,8 @@ def kernel_counters() -> dict:
 
     fwd, bwd = hstu_mha_dense_cuda.launches, hstu_mha_bwd_cuda.launches
     return {
-        "K1": fwd["hstu_mha_fwd"], "K5": delta_hstu_mha_cuda.launches,
+        "K1": fwd["hstu_mha_fwd"], "K5": delta_hstu_mha_cuda.launches["delta_hstu_mha_fwd"],
+        "K5-bf16": delta_hstu_mha_cuda.launches["delta_hstu_mha_fwd_bf16"],
         "K2": bwd["hstu_mha_bwd_fused"], "K3": bwd["hstu_mha_bwd_dq"], "K4": bwd["hstu_mha_bwd_dkv"],
         "K6": hstu_mha_dense_relbias_cuda.launches, "K7": hstu_mha_relbias_bwd_cuda.launches,
         "K1-bf16": fwd["hstu_mha_fwd_bf16"], "K2-bf16": bwd["hstu_mha_bwd_fused_bf16"],
@@ -635,7 +626,8 @@ def kernel_counters() -> dict:
 
 
 # the counters a run reports only where they launched
-OPTIONAL_KERNELS = ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16", "K6-bf16", "K7-bf16", "K7-det", "K7-det-bf16",
+OPTIONAL_KERNELS = ("K1-bf16", "K2-bf16", "K3-bf16", "K4-bf16", "K5-bf16", "K6-bf16", "K7-bf16", "K7-det",
+                    "K7-det-bf16",
                     "K1-bias", "K1-bias-bf16")
 
 
@@ -1097,24 +1089,7 @@ def main() -> None:
     check(all(r["built"] for r in warmed.values()) and not any(build._stale(name) for name in warmed),
           "the warm-up CLI left a kernel unbuilt or stale")
     for name, log in logs.items():
-        # ptxas -v: per entry point (named by its function and its template
-        # arguments: the padded width first, bf16 for a bfloat16 instance) its
-        # registers and its spill stores / loads
-        entries, entry = {}, None
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                mangled = line.split("'")[1]
-                args = ",".join(a or b or "bf16" for a, b, c in re.findall(
-                    r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16)(?!Ex)", mangled))
-                entry = f"{kernel_function(mangled)} {args}".strip()
-                entries[entry] = ["?", ""]
-            elif entry and "bytes spill stores" in line and not line.strip().endswith(
-                    "0 bytes spill stores, 0 bytes spill loads"):
-                stores, loads = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-                entries[entry][1] = f", spill {stores} / {loads} bytes"
-            elif entry and line.lstrip().startswith("ptxas info") and "registers" in line:
-                entries[entry][0] = re.search(r"Used (\d+) registers", line).group(1)
-        print(f"  {name}: " + "; ".join(f"<{k}> {r} registers{sp}" for k, (r, sp) in entries.items()))
+        print(f"  {name}: {warm_cache.ptxas_report(log)}")
 
     # -------------------------------------------------------- kernel phase
     cfg = get_hstu_configs("debug", max_uih_len=MAX_UIH, max_num_candidates=MAX_CANDS)
@@ -1339,6 +1314,54 @@ def main() -> None:
     k5_flops = live5 * H * 2 * (D + V)
     k5_bytes = 4 * (B * CHUNK * H * D + d_len.sum().item() * H * (D + V) + B * CHUNK * H * V + B * 2)
     torch.cuda.synchronize()
+
+    # K5 on bfloat16 (K5-bf16): against its bfloat16 plain version (alpha q
+    # and P rounded to bfloat16 as `_delta_fwd_kernel_rkv` rounds them, the
+    # output once), 2^-6 of the output's max; the same bits twice
+    errs["K5-bf16"] = []
+
+    def bf16_like(x):
+        """x in bfloat16 at x's strides (a strided view stays one)."""
+        return torch.empty_strided(x.shape, x.stride(), dtype=torch.bfloat16, device="cuda").copy_(x)
+
+    def delta_bf16_case(name, q_, k_, v_, lengths, **kw):
+        q_, k_, v_ = (bf16_like(x) for x in (q_, k_, v_))
+        got = delta_hstu_mha_cuda(q_, k_, v_, lengths, **kw)
+        want = delta_hstu_mha_plain(q_, k_, v_, lengths, **kw)
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == torch.bfloat16, f"K5-bf16 {name}: output types {got.dtype}, {want.dtype}")
+        check(torch.equal(got, delta_hstu_mha_cuda(q_, k_, v_, lengths, **kw)),
+              f"K5-bf16 {name}: two runs differ in their bits")
+        return compare(f"K5-bf16 {name}", got.float(), want.float(), rel_tol=BF16_TOL)
+
+    print(f"K5-bf16 vs its bfloat16 plain version ({BF16_TOL:.4g} of the output's max; the same bits twice):")
+    edges5 = torch.tensor([58, 59, 60, 122, 123, 124], dtype=torch.int32, device="cuda")
+    errs["K5-bf16"] += [
+        delta_bf16_case(f"serving shape (M={CHUNK}), q a strided view of the uvqk projection", dq, dk, dv, d_len,
+                        **k5_args),
+        delta_bf16_case(f"M={MAX_CANDS}", rand(B, MAX_CANDS, H, D), rand(B, Nd + MAX_CANDS - CHUNK, H, D),
+                        rand(B, Nd + MAX_CANDS - CHUNK, H, V), (cache_len + MAX_CANDS).int(), alpha=alpha,
+                        num_targets=torch.full((B,), MAX_CANDS, dtype=torch.int32, device="cuda"),
+                        contextual_seq_len=C, norm_len=norm),
+        delta_bf16_case("lengths at the chunk edges, alpha 0.3 (not a bfloat16 number), a window", rand(6, 5, H, D),
+                        rand(6, 200, H, D), rand(6, 200, H, V), edges5 + 5, alpha=0.3,
+                        num_targets=torch.full((6,), 5, dtype=torch.int32, device="cuda"), max_attn_len=16,
+                        min_full_attn_seq_len=8),
+        delta_bf16_case("D=V=25 (scalar loads)", rand(3, 5, H, 25), rand(3, 145, H, 25), rand(3, 145, H, 25),
+                        ints(5, 146, 3), alpha=0.2),
+        delta_bf16_case("D=V=64, M=17 (three row tiles)", rand(4, 17, H, 64), rand(4, 167, H, 64),
+                        rand(4, 167, H, 64), ints(17, 168, 4), alpha=0.125),
+    ]
+    # times beside K5's on the same values; the bound at 2 bytes an element
+    dq16, dk16, dv16 = (bf16_like(x) for x in (dq, dk, dv))
+    k5b_ms = device_time_ms(lambda: delta_hstu_mha_cuda(dq16, dk16, dv16, d_len, **k5_args), 200)
+    k5b_plain_ms = device_time_ms(lambda: delta_hstu_mha_plain(dq16, dk16, dv16, d_len, **k5_args), 20)
+    k5_again_ms = device_time_ms(lambda: delta_hstu_mha_cuda(dq, dk, dv, d_len, **k5_args), 200)
+    k5b_bytes = 2 * (B * CHUNK * H * D + d_len.sum().item() * H * (D + V) + B * CHUNK * H * V) + 4 * B * 2
+    print(f"  serving shape: K5-bf16 {k5b_ms:.4f} ms (plain {k5b_plain_ms:.4f}, bound "
+          f"{k5b_bytes / PEAK_BYTES_PER_S * 1e3:.4f} by bytes), K5 {k5_again_ms:.4f} ms in this call "
+          f"(earlier {k5_ms:.4f})")
+    del dq16, dk16, dv16
 
     # ------------------------------------------------ backward kernel phase
     def bwd_case(name, Bc, N, lengths, nt=None, Dc=D, Vc=V, qkv=None, **kw):
@@ -2452,6 +2475,19 @@ def main() -> None:
     dd_err = (d_got - j_got[rows]).abs().max().item() / max(j_got[rows].abs().max().item(), 1e-30)
     errs["K1"].append(j_err)
     errs["K5"].append(d_err)
+    # the same delta rows on bfloat16 q, k and v: K5-bf16 through the jagged
+    # entry point, against its bfloat16 plain version on the padded rows
+    jq16, jk16, jv16 = (x.to(torch.bfloat16) for x in (jq, jk, jv))
+    count_reset()
+    d16_got = jagged_attention.delta_hstu_mha(JN, alpha, jq16[rows], jk16, jv16, joff, contextual_seq_len=C)
+    n_d16 = counts()
+    d16_want = delta_hstu_mha_plain(jq16[rows].reshape(B, JM, H, D), pad_(jk16, D), pad_(jv16, V), jl, alpha=alpha,
+                                    contextual_seq_len=C, norm_len=JN).reshape(B * JM, H, V)
+    check(d16_got.dtype == torch.bfloat16, f"K5-bf16 jagged delta_hstu_mha returned {d16_got.dtype}")
+    errs["K5-bf16"].append(compare("K5-bf16 jagged delta_hstu_mha", d16_got.float(), d16_want.float(), None,
+                                   rel_tol=BF16_TOL))
+    check(n_d16 == {**dict.fromkeys(n_d, 0), "K5-bf16": 1}, f"the bfloat16 jagged delta launched {n_d16}")
+    del jq16, jk16, jv16
     print(f"jagged attention phase: B={B}, N={JN} (lengths {int(jl.min())}..{int(jl.max())}, {int(joff[-1]):,} of "
           f"{cap:,} slots live), H={H}, D=V={D}, M={JM}: hstu_mha launched {n_j}, delta_hstu_mha {n_d}; the delta "
           f"rows against the full attention's rows {dd_err:.3e} of their max")
@@ -4013,6 +4049,10 @@ def main() -> None:
         entry("hstu_mha_relbias_bwd_det_bf16", src + "hstu_mha_relbias_bwd.cu", tpu_rel + "298",
               launches["K7-det-bf16"], max(det_errs["K7-det-bf16"]), k7db_ms, k7b_plain_ms, *k7b_work,
               peak=PEAK_BF16_FLOPS),
+        # K5-bf16 at the serving chunk on bfloat16 copies of K5's inputs; its
+        # launches are the jagged attention phase's
+        entry("delta_hstu_mha_fwd_bf16", src + "delta_hstu_mha_fwd.cu", tpu + "1412", launches["K5-bf16"],
+              max(errs["K5-bf16"]), k5b_ms, k5b_plain_ms, k5_flops, k5b_bytes, peak=PEAK_BF16_FLOPS),
     ]
     shapes = [f"serving N={N_full}", f"M-FALCON M={CHUNK}", f"training N={N_tr}",
               f"uih {DET_UIH} N={N_det}", f"uih {DET_UIH} N={N_det}",
@@ -4022,12 +4062,13 @@ def main() -> None:
               f"research layer 0 B={RB} N={RN} bfloat16", f"research layer 0 B={RB} N={RN} bfloat16",
               f"research layer 0 B={RB} N={RN}, float32 [B, N, N] bias",
               f"research layer 0 B={RB} N={RN} bfloat16, float32 [B, N, N] bias",
-              f"research B={RB} N={RN}", f"research layer 0 B={RB} N={RN} bfloat16"]
+              f"research B={RB} N={RN}", f"research layer 0 B={RB} N={RN} bfloat16", f"M-FALCON M={CHUNK} bfloat16"]
     # the launches of the main paths on other routes than the narrow body's
     # (the tables read, the wide bodies) leave their kernel's row for rows of
     # their own, timed at the shape of the main path that launched them
     rows_of = dict(zip(("K1", "K5", "K2", "K3", "K4", "K6", "K7", "K6-bf16", "K7-bf16", "K1-bf16", "K2-bf16",
-                        "K3-bf16", "K4-bf16", "K1-bias", "K1-bias-bf16", "K7-det", "K7-det-bf16"), kernels))
+                        "K3-bf16", "K4-bf16", "K1-bias", "K1-bias-bf16", "K7-det", "K7-det-bf16", "K5-bf16"),
+                       kernels))
     for key, n_ in sorted(main_path_routes.items()):
         label, route = key.split("/")
         base = rows_of[label]

@@ -1,4 +1,5 @@
-// K5: M-FALCON cached-decode attention forward for Hopper (sm_90a), float32.
+// K5: M-FALCON cached-decode attention forward for Hopper (sm_90a), float32
+// (`delta_hstu_mha_fwd`) and bfloat16 (`delta_hstu_mha_fwd_bf16`).
 // The M newest queries of each row (positions length-M .. length-1,
 // [B, M, H, D]) attend over the cache + delta keys/values ([B, N, H, D],
 // [B, N, H, V]); out is [B, M, H, V]:
@@ -47,7 +48,21 @@
 //   an instance that walks it in chunks of 256, reading q's chunk from
 //   device memory (through the L1 cache) beside K's, S summed over the
 //   chunks.
+//
+// On bfloat16 q, k and v (the element type E a template parameter) the
+// kernel keeps the rounding points of `_delta_fwd_kernel_rkv`: q enters as
+// bfloat16(alpha q) where alpha != 1 (alpha itself rounded to bfloat16, the
+// TPU kernel's weakly typed scalar), S and the sums are float32 (a product of
+// two bfloat16 values is exact in float32), P is rounded to bfloat16 before
+// P V, and the output is (P V) / norm rounded once to bfloat16: by the block
+// of a row with one live chunk, else by the last block to arrive, whose
+// chunk sums stay float32 in `scratch`. K and V arrive in 8-byte loads of 4
+// elements, the lane layout of the float32 kernel's 16-byte ones, converted
+// to float32 in registers. Bound: the bytes of K and V at 2 per element.
 #include <cstdint>
+#include <type_traits>
+
+#include <cuda_bf16.h>
 
 #include "hstu_attention.cuh"
 
@@ -61,11 +76,13 @@ constexpr int kRows = 8;       // query rows per block
 constexpr int kMaxV = 128;     // one float4 per lane
 constexpr unsigned kFull = 0xffffffffu;
 
+// E: float, or __nv_bfloat16 (q, k, v and out); the scratch is float32
+template <typename E>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  float* out;      // contiguous [B, M, H, V]
+  const E* q;
+  const E* k;
+  const E* v;
+  E* out;          // contiguous [B, M, H, V]
   float* scratch;  // contiguous [chunks, B, M, H, V]; unused with one chunk
   int* counters;   // [B, H, row tiles], zero between launches
   const int* lengths;      // int32 [B]
@@ -77,8 +94,8 @@ struct Params {
   long long v_sb, v_sn, v_sh;
   float alpha, inv_norm;
   int max_attn_len, contextual_seq_len, min_full_attn_seq_len;
-  int vec_k, vec_v;  // pointer, strides and width are multiples of 4 floats
-  int vec_q;         // the same of q (the wide instance reads q in 16-byte pieces)
+  int vec_k, vec_v;  // pointer, strides and width are multiples of 4 elements
+  int vec_q;         // the same of q (the wide instance reads q in pieces of 4)
 };
 
 __device__ __forceinline__ float4 load4(const float* p, int at, int w, bool vec) {
@@ -91,6 +108,29 @@ __device__ __forceinline__ float4 load4(const float* p, int at, int w, bool vec)
   return r;
 }
 
+// bfloat16: 4 elements in one 8-byte load, converted to float32 (a bfloat16
+// is the top half of the float32 of the same value)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int at, int w, bool vec) {
+  if (vec) {
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(p + at));
+    return make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
+                       __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
+  }
+  float4 r;
+  r.x = at < w ? __bfloat162float(p[at]) : 0.f;
+  r.y = at + 1 < w ? __bfloat162float(p[at + 1]) : 0.f;
+  r.z = at + 2 < w ? __bfloat162float(p[at + 2]) : 0.f;
+  r.w = at + 3 < w ? __bfloat162float(p[at + 3]) : 0.f;
+  return r;
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 __device__ __forceinline__ void store4(float* p, int at, int w, bool vec, float4 x) {
   if (vec) {
     *reinterpret_cast<float4*>(p + at) = x;
@@ -102,11 +142,29 @@ __device__ __forceinline__ void store4(float* p, int at, int w, bool vec, float4
   if (at + 3 < w) p[at + 3] = x.w;
 }
 
-// DI float4 per lane and K row: D is padded with zeros to 32 * DI. WIDE (DI
-// = 8): D above 256, walked in chunks of 32 * DI with q read from device
-// memory.
-template <int DI, bool WIDE = false>
-__global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
+// the output on bfloat16, each element rounded once
+__device__ __forceinline__ void store4(__nv_bfloat16* p, int at, int w, bool vec, float4 x) {
+  if (vec) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+    *reinterpret_cast<uint2*>(p + at) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+    return;
+  }
+  if (at < w) p[at] = __float2bfloat16_rn(x.x);
+  if (at + 1 < w) p[at + 1] = __float2bfloat16_rn(x.y);
+  if (at + 2 < w) p[at + 2] = __float2bfloat16_rn(x.z);
+  if (at + 3 < w) p[at + 3] = __float2bfloat16_rn(x.w);
+}
+
+// DI pieces of 4 elements per lane and K row: D is padded with zeros to 32 *
+// DI. WIDE (DI = 8): D above 256, walked in chunks of 32 * DI with q read
+// from device memory. E: the element type of q, k, v and out.
+template <typename E, int DI, bool WIDE = false>
+__global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params<E> p) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  // bfloat16: alpha folded into q, rounded, as the TPU kernel forms alpha q
+  const float s_alpha = kBf16 ? 1.f : p.alpha;
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
   constexpr int DP = 32 * DI;
   __shared__ __align__(16) float qs[WIDE ? 1 : kRows][DP];
   __shared__ __align__(16) float red[kWarps][kRows][kMaxV];
@@ -132,8 +190,8 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   const bool my_live = l8 < mr;
   const int mrow = min(max(length - p.M + m0 + l8, 0), p.N - 1);
 
-  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const float* vb = p.v + b * p.v_sb + h * p.v_sh + v0;
+  const E* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const E* vb = p.v + b * p.v_sb + h * p.v_sh + v0;
   const int cbase = chunk * kChunk + warp * (kChunk / kWarps);
   const bool vec_k = p.vec_k != 0, vec_v = p.vec_v != 0;
   // the warp's four key columns from c0 on: lane group grp reads K row
@@ -142,7 +200,7 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   // K's columns d0 .. d0 + DP of row c0 + grp
   auto load_k = [&](int c0, int d0) {
     const int col = c0 + grp;
-    const float* kp = kb + (long long)col * p.k_sn;
+    const E* kp = kb + (long long)col * p.k_sn;
 #pragma unroll
     for (int i = 0; i < DI; ++i) {
       const int at = d0 + (i * 8 + l8) * 4;
@@ -163,11 +221,13 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   if (!WIDE) load_k(cbase, 0);
   load_v(cbase);
 
-  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const E* qb = p.q + b * p.q_sb + h * p.q_sh;
+  // bfloat16(alpha q) where alpha != 1
+  auto scaled = [&](float x) { return q_scale != 1.f ? round_bf16(x * q_scale) : x; };
   if (!WIDE)
     for (int idx = tid; idx < kRows * DP; idx += kThreads) {
       const int r = idx / DP, d = idx % DP;
-      qs[WIDE ? 0 : r][d] = (r < mr && d < p.D) ? qb[(m0 + r) * p.q_sn + d] : 0.f;
+      qs[WIDE ? 0 : r][d] = (r < mr && d < p.D) ? scaled(to_float(qb[(m0 + r) * p.q_sn + d])) : 0.f;
     }
   __syncthreads();
 
@@ -192,11 +252,13 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
 #pragma unroll
         for (int m = 0; m < kRows; ++m) {
           if (m < mr) {
-            const float* qm = qb + (long long)(m0 + m) * p.q_sn;
+            const E* qm = qb + (long long)(m0 + m) * p.q_sn;
 #pragma unroll
             for (int i = 0; i < DI; ++i) {
               const int at = d0 + (i * 8 + l8) * 4;
-              const float4 qq = at < p.D ? load4(qm, at, p.D, p.vec_q != 0) : make_float4(0.f, 0.f, 0.f, 0.f);
+              float4 qq = at < p.D ? load4(qm, at, p.D, p.vec_q != 0) : make_float4(0.f, 0.f, 0.f, 0.f);
+              if constexpr (kBf16)
+                qq = make_float4(scaled(qq.x), scaled(qq.y), scaled(qq.z), scaled(qq.w));
               s[m] = fmaf(qq.x, kr[i].x, s[m]);
               s[m] = fmaf(qq.y, kr[i].y, s[m]);
               s[m] = fmaf(qq.z, kr[i].z, s[m]);
@@ -237,12 +299,13 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
       w2[i] = keep + __shfl_xor_sync(kFull, send, 2);
     }
     const float send = b0 ? w2[0] : w2[1], keep = b0 ? w2[1] : w2[0];
-    const float x = (keep + __shfl_xor_sync(kFull, send, 1)) * p.alpha;
+    const float x = (keep + __shfl_xor_sync(kFull, send, 1)) * s_alpha;
     const bool ok = my_live && in &&
                     hstu::valid_elem(mrow, col, length, nt, /*causal=*/true, p.max_attn_len,
                                      p.contextual_seq_len, p.min_full_attn_seq_len,
                                      /*guard=*/false);
-    const float pv = ok ? x / (1.f + expf(-x)) : 0.f;
+    float pv = ok ? x / (1.f + expf(-x)) : 0.f;
+    if constexpr (kBf16) pv = round_bf16(pv);  // P V takes P in bfloat16
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
 #pragma unroll
@@ -266,10 +329,11 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   __syncthreads();
   const bool direct = n_live == 1;
   const bool vec_o = p.V % 4 == 0;  // out and scratch come from the allocator
+  // (out's rows in 16-byte pieces of float32, 8-byte ones of bfloat16)
   const long long row_floats = (long long)p.H * p.V;
   const long long out_at = ((long long)b * p.M + m0) * row_floats + (long long)h * p.V + v0;
   const long long chunk_floats = (long long)p.B * p.M * row_floats;
-  float* dst = direct ? p.out + out_at : p.scratch + chunk * chunk_floats + out_at;
+  float* part = direct ? nullptr : p.scratch + chunk * chunk_floats + out_at;
   const float scale = direct ? p.inv_norm : 1.f;
   for (int idx = tid; idx < kRows * (kMaxV / 4); idx += kThreads) {
     const int m = idx / (kMaxV / 4), at = (idx % (kMaxV / 4)) * 4;
@@ -281,7 +345,10 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
       sum.x += r.x; sum.y += r.y; sum.z += r.z; sum.w += r.w;
     }
     sum.x *= scale; sum.y *= scale; sum.z *= scale; sum.w *= scale;
-    store4(dst + m * row_floats, at, vw, vec_o, sum);
+    if (direct)
+      store4(p.out + out_at + m * row_floats, at, vw, vec_o, sum);
+    else
+      store4(part + m * row_floats, at, vw, vec_o, sum);
   }
   if (direct) return;
 
@@ -321,20 +388,45 @@ __global__ void __launch_bounds__(kThreads, 4) delta_kernel(Params p) {
   }
 }
 
-template <int DI, bool WIDE = false>
-cudaError_t launch_di(const Params& p, int chunks, int row_tiles, cudaStream_t stream) {
+template <typename E, int DI, bool WIDE = false>
+cudaError_t launch_di(const Params<E>& p, int chunks, int row_tiles, cudaStream_t stream) {
   const long long gy = (long long)p.H * row_tiles * p.n_vc;
   if (gy > 65535 || p.B > 65535) return cudaErrorInvalidValue;
   dim3 grid(chunks, (unsigned)gy, p.B);
-  delta_kernel<DI, WIDE><<<grid, kThreads, 0, stream>>>(p);
+  delta_kernel<E, DI, WIDE><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Any D and V (the Python wrapper sizes `scratch` and `counters`, one counter
+// per (batch row, head, row tile, V chunk), and decides `vec_k` / `vec_v`).
+template <typename E>
+int launch(const E* q, const E* k, const E* v, E* out, float* scratch, int* counters, const int* lengths,
+           const int* num_targets, int B, int M, int N, int H, int D, int V, long long q_sb, long long q_sn,
+           long long q_sh, long long k_sb, long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+           long long v_sh, float alpha, float inv_norm, int max_attn_len, int contextual_seq_len,
+           int min_full_attn_seq_len, int vec_k, int vec_v, void* stream) {
+  if (B == 0 || M == 0 || H == 0 || N == 0) return 0;
+  if (D < 1 || V < 1) return (int)cudaErrorInvalidValue;
+  const int chunks = (N + kChunk - 1) / kChunk;
+  const int row_tiles = (M + kRows - 1) / kRows;
+  if (chunks > 1 && (scratch == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int vec_q = reinterpret_cast<uintptr_t>(q) % 16 == 0 && q_sb % 4 == 0 && q_sn % 4 == 0 &&
+                    q_sh % 4 == 0 && D % 4 == 0;
+  Params<E> p{q, k, v, out, scratch, counters, lengths, num_targets, B, M, N, H, D, V, (V + kMaxV - 1) / kMaxV,
+              q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, alpha, inv_norm,
+              max_attn_len, contextual_seq_len, min_full_attn_seq_len, vec_k, vec_v, vec_q};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D <= 32) return (int)launch_di<E, 1>(p, chunks, row_tiles, s);
+  if (D <= 64) return (int)launch_di<E, 2>(p, chunks, row_tiles, s);
+  if (D <= 128) return (int)launch_di<E, 4>(p, chunks, row_tiles, s);
+  if (D <= 256) return (int)launch_di<E, 8>(p, chunks, row_tiles, s);
+  return (int)launch_di<E, 8, true>(p, chunks, row_tiles, s);
 }
 
 }  // namespace hstu_delta
 
-// Launches on `stream`; returns the launch's cudaGetLastError(). Any D and V
-// (the Python wrapper sizes `scratch` and `counters`, one counter per (batch
-// row, head, row tile, V chunk), and decides `vec_k` / `vec_v`).
+// Launches on `stream`; returns the launch's cudaGetLastError().
 extern "C" int delta_hstu_mha_fwd(
     const float* q, const float* k, const float* v, float* out, float* scratch,
     int* counters, const int* lengths, const int* num_targets,
@@ -344,22 +436,24 @@ extern "C" int delta_hstu_mha_fwd(
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int max_attn_len, int contextual_seq_len,
     int min_full_attn_seq_len, int vec_k, int vec_v, void* stream) {
-  using namespace hstu_delta;
-  if (B == 0 || M == 0 || H == 0 || N == 0) return 0;
-  if (D < 1 || V < 1) return (int)cudaErrorInvalidValue;
-  const int chunks = (N + kChunk - 1) / kChunk;
-  const int row_tiles = (M + kRows - 1) / kRows;
-  if (chunks > 1 && (scratch == nullptr || counters == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int vec_q = reinterpret_cast<uintptr_t>(q) % 16 == 0 && q_sb % 4 == 0 && q_sn % 4 == 0 &&
-                    q_sh % 4 == 0 && D % 4 == 0;
-  Params p{q, k, v, out, scratch, counters, lengths, num_targets, B, M, N, H, D, V, (V + kMaxV - 1) / kMaxV,
-           q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, alpha, inv_norm,
-           max_attn_len, contextual_seq_len, min_full_attn_seq_len, vec_k, vec_v, vec_q};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D <= 32) return (int)launch_di<1>(p, chunks, row_tiles, s);
-  if (D <= 64) return (int)launch_di<2>(p, chunks, row_tiles, s);
-  if (D <= 128) return (int)launch_di<4>(p, chunks, row_tiles, s);
-  if (D <= 256) return (int)launch_di<8>(p, chunks, row_tiles, s);
-  return (int)launch_di<8, true>(p, chunks, row_tiles, s);
+  return hstu_delta::launch<float>(q, k, v, out, scratch, counters, lengths, num_targets, B, M, N, H, D, V,
+                                   q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, alpha, inv_norm,
+                                   max_attn_len, contextual_seq_len, min_full_attn_seq_len, vec_k, vec_v, stream);
+}
+
+// The bfloat16 kernel: q, k, v and out bfloat16, scratch float32; vec_k,
+// vec_v: rows readable in 8-byte pieces.
+extern "C" int delta_hstu_mha_fwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
+    float* scratch, int* counters, const int* lengths, const int* num_targets,
+    int B, int M, int N, int H, int D, int V,
+    long long q_sb, long long q_sn, long long q_sh,
+    long long k_sb, long long k_sn, long long k_sh,
+    long long v_sb, long long v_sn, long long v_sh,
+    float alpha, float inv_norm, int max_attn_len, int contextual_seq_len,
+    int min_full_attn_seq_len, int vec_k, int vec_v, void* stream) {
+  return hstu_delta::launch<__nv_bfloat16>(q, k, v, out, scratch, counters, lengths, num_targets, B, M, N, H, D,
+                                           V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, alpha,
+                                           inv_norm, max_attn_len, contextual_seq_len, min_full_attn_seq_len,
+                                           vec_k, vec_v, stream);
 }

@@ -22,7 +22,7 @@ namespace hstu {
 // The body a launch takes, as the Python plan chose it (`route` of the plans
 // in ops/cuda/hstu_attention.py and hstu_attention_relbias.py): the narrow
 // body with its tables staged in shared memory, the narrow body with its
-// tables read from device memory (K6, K7, K7-det's dq pass), or the wide body
+// tables read from device memory (K6, K7 and K7-det), or the wide body
 // of hstu_attention_wide.cuh. A launch takes the route it is given and
 // returns cudaErrorInvalidValue where that body cannot take the shape.
 enum Route : int { kNarrow = 0, kRead = 1, kWide = 2 };

@@ -4,21 +4,14 @@
 // Pallas TPU kernel `_bwd_dq_kernel` of
 // generative_recommenders_tpu/ops/pallas/hstu_attention.py, also on bfloat16
 // q, k, v, dO and dq (K3-bf16, T = __nv_bfloat16, at the rounding points
-// below). With RELBIAS it
-// is also the dq pass of K7-det (hstu_mha_relbias_bwd.cu), the fixed-order
-// backward of `_bwd_kernel_relbias` (hstu_attention_relbias.py), which keeps
-// dq in VMEM over a sequential grid: S gains the relative bias, per (row,
-// column) `pos_w[pos_index] + ts_w[ts_bucket]` of hstu_attention.cuh, with
-// both tables and the batch row's timestamps in shared memory as K6 holds
-// them; in float32 and on bfloat16. On bfloat16 (the TPU kernels' rounding
-// points): Q enters as bfloat16(alpha q) where alpha != 1 and dO as
+// below). On bfloat16 (the TPU kernels' rounding points): Q enters as bfloat16(alpha q) where alpha != 1 and dO as
 // bfloat16(dO / norm), dS is rounded to bfloat16 before dQ = dS K, whose
 // float32 sum takes alpha and is written as bfloat16; the products are one
 // exact TF32 `mma` each.
 //
 // Per head, with S recomputed from Q and K (the forward saves only q, k, v):
 //
-//   S = alpha Q K^T (+ bias)   sig = sigmoid(S)   dOn = dO / norm
+//   S = alpha Q K^T   sig = sigmoid(S)   dOn = dO / norm
 //   dS = (dOn V^T) * sig (1 + S (1 - sig)) * mask   dQ = alpha dS K
 //
 // with the mask `valid_elem` of hstu_attention.cuh, length guard on, so rows
@@ -61,10 +54,9 @@
 // and the key columns of a step, so that Q, dO, two stages of K and V and dS
 // fit a block's shared memory (at width 256 a step takes 32 key columns, else
 // 64: at width 128 64 columns were faster on the H100 than 32, and than 32
-// rows by 64 columns or 128 rows by 32); heads are not grouped (with RELBIAS
-// the bias is rebuilt per head: the simple first form of K7-det's dq pass).
+// rows by 64 columns or 128 rows by 32); heads are not grouped.
 // The element type T of q, k, v, dO and dq is a parameter of the body: float,
-// and __nv_bfloat16 for K3-bf16 and K7-det's bfloat16 dq pass.
+// and __nv_bfloat16 for K3-bf16.
 #pragma once
 
 #include <cstdint>
@@ -102,11 +94,6 @@ struct Params {
   float alpha, inv_norm;
   int causal, max_attn_len, contextual_seq_len, min_full_attn_seq_len;
   int vec_q, vec_k, vec_v, vec_do;  // rows readable in 16-byte pieces
-  // the relative bias (RELBIAS) only
-  const float* ts = nullptr;     // float32 [B, N] timestamps, contiguous
-  const float* pos_w = nullptr;  // float32 [2 Nm - 1]
-  const float* ts_w = nullptr;   // float32 [NB + 1]
-  int Nm = 0, NB = 0;
 };
 
 // Per padded width W: query rows per block (BQ), key columns per step (BK),
@@ -119,21 +106,15 @@ template <> struct Tiling<256> { static constexpr int BQ = 64, BK = 32, NG = 4; 
 
 // Q [BQ][W + 8] and dO [BQ][WV + 8], resident; two stages of K [BK][W + 8]
 // and V [BK][WV + 8]; dS [BQ][BK + 8]; the step's live flags of the 16-row
-// groups of the query tile; with the relative bias `tables` more floats (both
-// tables and the batch row's timestamps).
+// groups of the query tile.
 template <int W>
-__host__ __device__ constexpr int smem_bytes(int tables = 0) {
+__host__ __device__ constexpr int smem_bytes() {
   constexpr int WV = W < 128 ? W : 128, BQ = Tiling<W>::BQ, BK = Tiling<W>::BK;
-  return 4 * ((BQ + 2 * BK) * (W + 8 + WV + 8) + BQ * (BK + 8) + BQ / 16 + tables);
+  return 4 * ((BQ + 2 * BK) * (W + 8 + WV + 8) + BQ * (BK + 8) + BQ / 16);
 }
 
-// T: the element type; W: the padded head width; RELBIAS: K7-det's dq pass,
-// the relative bias added to S; GT (with RELBIAS): the tables and the row's
-// timestamps read from device memory through the L1 cache, not staged, where
-// they do not fit the block's shared memory beside the tiles (a long
-// position table: a key tile's bias reads a window of BQ + BK - 1
-// consecutive entries of pos_w).
-template <typename T, int W, bool RELBIAS, bool GT = false>
+// T: the element type; W: the padded head width.
+template <typename T, int W>
 __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
   constexpr bool kBf16 = !std::is_same<T, float>::value;
   // float32: alpha and 1 / norm applied to S and dP on use; bfloat16: folded
@@ -163,9 +144,6 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
   float* stages = dOs + BQ * PV;   // 2 x { K [BK][PK], V [BK][PV] }
   float* dSs = stages + 2 * STAGE;  // [BQ][PS]
   int* row_live = reinterpret_cast<int*>(dSs + BQ * PS);  // [RG]
-  float* pos_s = reinterpret_cast<float*>(row_live + RG);  // RELBIAS: pos_w [2 Nm - 1]
-  float* ts_s = pos_s + 2 * p.Nm - 1;                       // RELBIAS: ts_w [NB + 1]
-  float* tk_s = ts_s + p.NB + 1;                            // RELBIAS: the row's timestamps [N]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -216,24 +194,6 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
     cp_async_commit();
     // a flag holds step + 1 where the step has a live element in the row group
     if (threadIdx.x < RG) row_live[threadIdx.x] = 0;
-    // RELBIAS: the tables and the key-side timestamps, in place after the
-    // first step's barrier; the thread's two rows read the next position's
-    // timestamp (the last position's at the last row), whether or not it lies
-    // past the row's length
-    float tq[2] = {0.f, 0.f};
-    if constexpr (RELBIAS) {
-      const float* tsb = p.ts + (long long)b * p.N;
-      if constexpr (!GT) {
-        for (int idx = threadIdx.x; idx < 2 * p.Nm - 1; idx += kThreads) pos_s[idx] = p.pos_w[idx];
-        for (int idx = threadIdx.x; idx <= p.NB; idx += kThreads) ts_s[idx] = p.ts_w[idx];
-        for (int idx = threadIdx.x; idx < kv_end; idx += kThreads) tk_s[idx] = tsb[idx];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = r_first + g + 8 * i;
-        if (row < p.N) tq[i] = tsb[min(row + 1, p.N - 1)];
-      }
-    }
 
     for (int step = 0, col0 = 0; col0 < kv_end; ++step, col0 += BK) {
       const float* Ks = stages + (step & 1) * STAGE;
@@ -293,20 +253,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
           for (int c = 0; c < 4; ++c) {
             ds[c] = 0.f;
             if ((ok_bits >> (4 * j + c)) & 1u) {
-              float x = s[j][c] * s_alpha;
-              if constexpr (RELBIAS) {
-                const int row = r_first + g + 8 * (c >> 1);
-                const int col = col0 + (wc * NA + j) * 8 + 2 * t + (c & 1);
-                if constexpr (GT)
-                  x = fmaf(s[j][c], s_alpha,
-                           __ldg(p.pos_w + hstu::pos_index(row, col, p.Nm)) +
-                               __ldg(p.ts_w + hstu::ts_bucket(tq[c >> 1], __ldg(p.ts + (long long)b * p.N + col),
-                                                              p.NB)));
-                else
-                  x = fmaf(s[j][c], s_alpha,
-                           pos_s[hstu::pos_index(row, col, p.Nm)] +
-                               ts_s[hstu::ts_bucket(tq[c >> 1], tk_s[col], p.NB)]);
-              }
+              const float x = s[j][c] * s_alpha;
               const float sig = __fdividef(1.f, 1.f + __expf(-x));
               ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
             }
@@ -377,12 +324,10 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
   }
 }
 
-template <typename T, int W, bool RELBIAS, bool GT = false>
+template <typename T, int W>
 cudaError_t launch_w(const Params<T>& p, cudaStream_t stream) {
-  const long long tables = RELBIAS && !GT ? 2LL * p.Nm - 1 + p.NB + 1 + p.N : 0;
-  if (smem_bytes<W>() + 4 * tables > kMaxShared) return cudaErrorInvalidValue;
-  const int smem = smem_bytes<W>((int)tables);
-  auto kernel = dq_kernel<T, W, RELBIAS, GT>;
+  const int smem = smem_bytes<W>();
+  auto kernel = dq_kernel<T, W>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
@@ -393,7 +338,7 @@ cudaError_t launch_w(const Params<T>& p, cudaStream_t stream) {
 }
 
 // The wide body (`hstu_wide::dq_kernel`) on the same parameters
-template <typename T, bool RELBIAS>
+template <typename T>
 int launch_wide(const Params<T>& p, cudaStream_t stream) {
   hstu_wide::Params<T> w = hstu_wide::from<T>(p);
   w.dout = p.dout;
@@ -402,41 +347,26 @@ int launch_wide(const Params<T>& p, cudaStream_t stream) {
   w.do_sn = p.do_sn;
   w.do_sh = p.do_sh;
   w.vec_do = p.vec_do;
-  w.ts = p.ts;
-  w.pos_w = p.pos_w;
-  w.ts_w = p.ts_w;
-  w.Nm = p.Nm;
-  w.NB = p.NB;
-  return (int)hstu_wide::launch_dq<RELBIAS, T, T>(w, stream);
+  return (int)hstu_wide::launch_dq<false, T, T>(w, stream);
 }
 
 // Launches on `stream` the body `route` names (hstu::Route, the Python
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
 // body, D up to 256 and V up to 128 padded to the next of 32, 64, 128 (256
-// for D); kWide: the wide body. RELBIAS (K7-det's dq pass) takes this body
-// at K7's widths, D and V at most 64, with both tables and the row's
-// timestamps staged beside the tiles (kNarrow) or read from device memory
-// (kRead: GT). The Python wrapper decides the `vec_*` flags.
-template <typename T, bool RELBIAS = false>
+// for D); kWide: the wide body. The Python wrapper decides the `vec_*`
+// flags.
+template <typename T>
 int launch(const Params<T>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.V < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int w = p.D > p.V ? p.D : p.V;
-  if (RELBIAS && (p.Nm < 1 || p.NB < 0)) return (int)cudaErrorInvalidValue;
-  if (route == hstu::kWide) return launch_wide<T, RELBIAS>(p, s);
-  if constexpr (RELBIAS) {
-    if (w > 64) return (int)cudaErrorInvalidValue;
-    if (route == hstu::kRead)
-      return (int)(w <= 32 ? launch_w<T, 32, true, true>(p, s) : launch_w<T, 64, true, true>(p, s));
-    return (int)(w <= 32 ? launch_w<T, 32, true>(p, s) : launch_w<T, 64, true>(p, s));
-  } else {
-    if (route != hstu::kNarrow || p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
-    if (w <= 32) return (int)launch_w<T, 32, false>(p, s);
-    if (w <= 64) return (int)launch_w<T, 64, false>(p, s);
-    if (w <= 128) return (int)launch_w<T, 128, false>(p, s);
-    return (int)launch_w<T, 256, false>(p, s);
-  }
+  if (route == hstu::kWide) return launch_wide<T>(p, s);
+  if (route != hstu::kNarrow || p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
+  if (w <= 32) return (int)launch_w<T, 32>(p, s);
+  if (w <= 64) return (int)launch_w<T, 64>(p, s);
+  if (w <= 128) return (int)launch_w<T, 128>(p, s);
+  return (int)launch_w<T, 256>(p, s);
 }
 
 }  // namespace hstu_bwd_dq

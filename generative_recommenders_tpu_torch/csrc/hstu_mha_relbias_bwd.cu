@@ -100,25 +100,30 @@
 // fixed order, so that it gives the same bits on every run, as the TPU
 // kernel does by keeping dq and both table sums in VMEM over a sequential
 // grid. A sum across blocks needs atomics or a second pass; the atomics are
-// what change the order, so it takes passes:
-// * dq: K3's body (hstu_attention_bwd_dq.cuh) with the relative bias, one
-//   block per (64-row query tile, head, batch row), Q and dO resident, dQ in
-//   registers over a walk of the key tiles in order. It recomputes S and dP,
-//   which this kernel computes too: three products more per live tile pair.
-// * dk, dv and the tables: this kernel with DET set, which computes no dQ.
-//   Each block writes the table entries it holds (zeros elsewhere) to its
-//   own row of a float32 [blocks, (2 Nm - 1) + (NB + 1)] buffer instead of
-//   adding them with atomics; diagonals clipped to one entry (N > Nm) are
-//   summed by one thread in order.
-// * a third kernel adds the blocks' rows entry by entry in block order.
+// what change the order, so it takes one pass over the tile pairs and a
+// second launch for the sums:
+// * this kernel with DET set: dk and dv as in K7; dQ = dS K of each (query
+//   tile, head) step, as K7 computes it, stored (not added) to the tile
+//   pair's own 64 x D slot of a float32 `dq_partial` buffer [B, pairs, 64,
+//   H, D]: one slot per (batch row, query tile, key tile) that the walk
+//   visits (`det_slot`: the pairs on and below the diagonal of a causal walk
+//   without contextual rows, else every pair), rows at or past the length
+//   left unwritten; each block's table sums written (not added) to its own
+//   row of a float32 [blocks, (2 Nm - 1) + (NB + 1)] buffer `partial`, zeros
+//   where it holds none; diagonals clipped to one entry (N > Nm) summed by
+//   one thread in order;
+// * `det_sums_kernel`: each dq element the sum of its slots over the key
+//   tiles in ascending order, rounded once to q's type; the blocks' rows of
+//   `partial` added entry by entry in block order.
 // Bound: K7's (the same function; on bfloat16 K7-bf16's, its operations at
 // the card's bfloat16 rate, 989 TFLOP/s); what K7-det takes beyond K7's time
-// is the cost of the fixed order.
+// is the cost of the fixed order: the slots' 64 x D x 4 bytes per live tile
+// pair and head written once and read once, where K7 adds into an
+// L2-resident dq.
 #include <cstdint>
 #include <type_traits>
 
 #include "hstu_attention.cuh"
-#include "hstu_attention_bwd_dq.cuh"
 #include "hstu_attention_wide.cuh"
 #include "tf32_mma.cuh"
 
@@ -161,10 +166,24 @@ struct Params {
   int causal, max_attn_len, contextual_seq_len, min_full_attn_seq_len;
   int Nm, NB;
   int vec_q, vec_k, vec_v, vec_do;  // rows readable in 16-byte pieces
-  // DET: float32 [blocks, (2 Nm - 1) + (NB + 1)], each block's table sums
-  // (dq is null then)
+  // DET: float32 [blocks, (2 Nm - 1) + (NB + 1)], each block's table sums,
+  // and float32 [B, pairs, 64, H, D], each visited tile pair's dQ (dq is
+  // null then)
   float* partial = nullptr;
+  float* dq_partial = nullptr;
 };
+
+// K7-det's slot of the tile pair (query tile qt, key tile kt) among a batch
+// row's: the walk visits the pairs with kt <= qt where a causal mask has no
+// contextual rows (`lower_only`), else all tiles x tiles; a query tile's
+// slots are consecutive in kt. Mirrored by `_det_slot` in
+// ops/cuda/hstu_attention_relbias.py.
+__host__ __device__ __forceinline__ long long det_slot(int qt, int kt, int tiles, bool lower_only) {
+  return lower_only ? (long long)qt * (qt + 1) / 2 + kt : (long long)qt * tiles + kt;
+}
+__host__ __device__ __forceinline__ long long det_pairs(int tiles, bool lower_only) {
+  return lower_only ? (long long)tiles * (tiles + 1) / 2 : (long long)tiles * tiles;
+}
 
 // K and V of HG heads, two (Q, dO) buffers, P, dS and dS summed over heads,
 // both tables, dpos_w's sums and one copy of dts_w's sums per warp.
@@ -210,35 +229,92 @@ __device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, 
   hstu_tf32::load_tile<W, W + kPad, kT, kThreads>(dst, src, sn, r0, lim, w, vec, scale);
 }
 
-// K7-det's table gradients: the blocks' rows of `partial` [blocks][n] added
-// entry by entry in block order. A block of 1024 threads takes 32 entries:
-// each of 32 slices sums the rows slice, slice + 32, ... in turn, then one
-// thread an entry adds the 32 slices in order. Entry e < n_pos goes to
-// dpos[e], the rest to dts[e - n_pos].
-__global__ void __launch_bounds__(1024) sum_partials_kernel(const float* partial, int blocks, int n,
-                                                            int n_pos, float* dpos, float* dts) {
+// K7-det's last launch, 1024 threads a block. The first B * tiles * chunks
+// blocks: dq, each element the sum of its slots of `dq_partial` over the
+// key tiles in ascending order, in float32, written once in q's type (zeros
+// at rows past the length); a block takes 4096 floats (1024 where H D is not
+// a multiple of 4) of a query tile's 64 x H x D. The blocks after: the
+// blocks' rows of `partial` [rows][n] added entry by entry in block order, 32
+// entries a block: each of 32 slices sums the rows slice, slice + 32, ... in
+// turn, then one thread an entry adds the 32 slices in order. Entry e <
+// n_pos goes to dpos[e], the rest to dts[e - n_pos]. tiles = 0: the tables
+// alone (the wide bodies' K7-det).
+template <typename E>
+struct SumParams {
+  const float* dq_partial;  // [B, pairs, 64, H, D]
+  E* dq;                    // [B, N, H, D]
+  const int* lengths;
+  int B, N, H, D, tiles, chunks, lower_only;
+  const float* partial;  // [rows, n]
+  int rows, n, n_pos;
+  float* dpos;
+  float* dts;
+};
+
+template <typename E>
+__global__ void __launch_bounds__(1024) det_sums_kernel(SumParams<E> s) {
+  const int dq_blocks = s.B * s.tiles * s.chunks;
+  if ((int)blockIdx.x < dq_blocks) {
+    const int chunk = blockIdx.x % s.chunks, qt = blockIdx.x / s.chunks % s.tiles;
+    const int b = blockIdx.x / (s.chunks * s.tiles);
+    const long long hd = (long long)s.H * s.D;
+    const int row0 = qt * kT;
+    const int length = min(s.lengths[b], s.N);
+    const int live = max(0, min(kT, length - row0));  // the tile's rows below the length
+    // the key tiles whose walk visits this query tile, in ascending order
+    const int kts = live == 0 ? 0 : (s.lower_only ? qt + 1 : (length + kT - 1) / kT);
+    const float* src = s.dq_partial + ((long long)b * det_pairs(s.tiles, s.lower_only) +
+                                       det_slot(qt, 0, s.tiles, s.lower_only)) * kT * hd;
+    E* dst = s.dq + ((long long)b * s.N + row0) * hd;
+    const bool vec = hd % 4 == 0;
+    const long long i = ((long long)chunk * 1024 + threadIdx.x) * (vec ? 4 : 1);
+    if (i >= min(kT, s.N - row0) * hd) return;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i < live * hd) {
+      for (int kt = 0; kt < kts; ++kt) {
+        const float* sp = src + (long long)kt * kT * hd + i;
+        if (vec) {
+          const float4 r = __ldcs(reinterpret_cast<const float4*>(sp));
+          x.x += r.x; x.y += r.y; x.z += r.z; x.w += r.w;
+        } else {
+          x.x += __ldcs(sp);
+        }
+      }
+    }
+    if (!vec) {
+      dst[i] = E(x.x);
+    } else if constexpr (std::is_same<E, float>::value) {
+      *reinterpret_cast<float4*>(dst + i) = x;
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y), hi = __floats2bfloat162_rn(x.z, x.w);
+      *reinterpret_cast<uint2*>(dst + i) =
+          make_uint2(*reinterpret_cast<const unsigned*>(&lo), *reinterpret_cast<const unsigned*>(&hi));
+    }
+    return;
+  }
   __shared__ float sums[32][33];
   const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
-  const int e = blockIdx.x * 32 + lane;
+  const int e = ((int)blockIdx.x - dq_blocks) * 32 + lane;
   float sum = 0.f;
-  if (e < n)
-    for (int b = slice; b < blocks; b += 32) sum += partial[(long long)b * n + e];
+  if (e < s.n)
+    for (int r = slice; r < s.rows; r += 32) sum += s.partial[(long long)r * s.n + e];
   sums[slice][lane] = sum;
   __syncthreads();
-  if (slice == 0 && e < n) {
+  if (slice == 0 && e < s.n) {
     float total = 0.f;
     for (int i = 0; i < 32; ++i) total += sums[i][lane];
-    if (e < n_pos)
-      dpos[e] = total;
+    if (e < s.n_pos)
+      s.dpos[e] = total;
     else
-      dts[e - n_pos] = total;
+      s.dts[e - s.n_pos] = total;
   }
 }
 
 // W: the padded head width (32 or 64); HG: heads per block; E: the type of
-// q, k, v, dO, dk and dv (float, or __nv_bfloat16); DET: K7-det's second
-// pass, no dQ and the table sums to the block's row of `partial`; LONG: the
-// tables read from device memory and dpos_w's sums flushed per step.
+// q, k, v, dO, dk and dv (float, or __nv_bfloat16); DET: K7-det's pass, dQ
+// stored to its tile pair's slot of `dq_partial` and the table sums to the
+// block's row of `partial`; LONG: the tables read from device memory and
+// dpos_w's sums flushed per step.
 template <int W, int HG, typename E, bool DET, bool LONG = false>
 __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   constexpr bool kBf16 = !std::is_same<E, float>::value;
@@ -328,6 +404,9 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
     // boundary, so the skips are off then)
     const bool lower_only = p.causal != 0 && p.contextual_seq_len == 0;
     const int row_first = lower_only ? col0 : 0;
+    // DET: the batch row's dQ slots, and the key tile's among them
+    const int tiles = (p.N + kT - 1) / kT;
+    float* dq_slots = DET ? p.dq_partial + (long long)b * det_pairs(tiles, lower_only) * kT * p.H * p.D : nullptr;
     // no targets and no window either (the research models): the mask is
     // col <= row below the length
     const bool plain_causal = lower_only && nt == 0 && p.max_attn_len == 0;
@@ -509,7 +588,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
 #pragma unroll
               for (int c = 0; c < 4; ++c) acc[hh][j][c] += part[j][c];
           }
-          if constexpr (!DET) {  // K7-det's dq is the first pass's
+          {
             // dQ = dS K: the warp's query rows wr 16 .. + 16 and output columns
             // wc W / 4 .. + W / 4, summed over the live columns
             float dq[NQ][4];
@@ -523,11 +602,21 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
               for (int j = 0; j < NQ; ++j)
                 mma<kBf16>(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
             }
-            // dead rows keep the buffer's zeros. Where D is a multiple of 4 a
-            // lane pair trades halves, so that each lane adds four floats of
-            // one row at once: the even lane row g, the odd lane row g + 8
+            // dead rows keep the buffer's zeros (K7-det: are not written).
+            // Where D is a multiple of 4 a lane pair trades halves, so that
+            // each lane adds four floats of one row at once: the even lane row
+            // g, the odd lane row g + 8. K7 adds to dq's rows with atomics;
+            // K7-det stores the tile pair's rows to its slot
             const bool odd = (t & 1) != 0;
             float* dqh = p.dq + ((long long)b * p.N * p.H + h0 + hh) * p.D;
+            // K7-det: the slot's row of query row `row`, less row0
+            const long long slot_row = DET ? det_slot(row0 / kT, col0 / kT, tiles, lower_only) * kT - row0 : 0;
+            auto dq_at = [&](int row, int d) {
+              if constexpr (DET)
+                return dq_slots + ((slot_row + row) * p.H + h0 + hh) * p.D + d;
+              else
+                return dqh + (long long)row * p.H * p.D + d;
+            };
 #pragma unroll
             for (int j = 0; j < NQ; ++j) {
               const float r0 = __shfl_xor_sync(kFull, odd ? dq[j][0] : dq[j][2], 1);
@@ -538,16 +627,25 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
                 if (row < length && d < p.D) {
                   const float4 x = odd ? make_float4(r0, r1, dq[j][2], dq[j][3])
                                        : make_float4(dq[j][0], dq[j][1], r0, r1);
-                  atomicAdd(reinterpret_cast<float4*>(dqh + (long long)row * p.H * p.D + d),
-                            make_float4(p.alpha * x.x, p.alpha * x.y, p.alpha * x.z, p.alpha * x.w));
+                  float4* at = reinterpret_cast<float4*>(dq_at(row, d));
+                  const float4 ax = make_float4(p.alpha * x.x, p.alpha * x.y, p.alpha * x.z, p.alpha * x.w);
+                  if constexpr (DET)
+                    *at = ax;
+                  else
+                    atomicAdd(at, ax);
                 }
               } else {
 #pragma unroll
                 for (int c = 0; c < 4; ++c) {
                   const int row = row0 + wr * 16 + g + 8 * (c / 2);
                   const int d = wc * (W / 4) + j * 8 + 2 * t + c % 2;
-                  if (row < length && d < p.D)
-                    atomicAdd(dqh + (long long)row * p.H * p.D + d, p.alpha * dq[j][c]);
+                  if (row < length && d < p.D) {
+                    float* at = dq_at(row, d);
+                    if constexpr (DET)
+                      *at = p.alpha * dq[j][c];
+                    else
+                      atomicAdd(at, p.alpha * dq[j][c]);
+                  }
                 }
               }
             }
@@ -739,40 +837,46 @@ int launch(const Params<E>& p, int route, void* stream) {
   return (int)(read ? launch_w<64, 2, E, DET, true>(p, s) : launch_w<64, 2, E, DET>(p, s));
 }
 
-// K7-det: the dq pass (on `dq_route`), this kernel without dq (DET, on
-// `route`), then the sum of the blocks' table rows in block order; with
-// kWide, the wide bodies, their rows summed in order. dq: [B, N, H, D] of
-// q's type, written whole; partial: float32 [blocks, (2 Nm - 1) + (NB + 1)]
-// with blocks = ceil(N / 64) * ceil(H / HG) * B (kWide: one row per key
-// tile, head and batch row); dpos and dts are written, not added to.
+// K7-det: this kernel with DET (on `route`), then `det_sums_kernel`: dq from
+// the tile pairs' slots, summed over the key tiles in ascending order, and
+// the blocks' table rows in block order; with kWide, the wide bodies (the
+// relative-bias dq pass, then dk, dv and the table rows), their rows summed
+// in order by the same kernel. dq: [B, N, H, D] of q's type, written whole;
+// partial: float32 [blocks, (2 Nm - 1) + (NB + 1)] with blocks = ceil(N /
+// 64) * ceil(H / HG) * B (kWide: one row per key tile, head and batch row);
+// dq_partial: float32 [B, det_pairs, 64, H, D] (unused with kWide); dpos and
+// dts are written, not added to.
 template <typename E>
-int launch_det(const Params<E>& p, E* dq, int route, int dq_route, void* stream) {
+int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.V < 1 || p.Nm < 1 || p.NB < 0) return (int)cudaErrorInvalidValue;
   const int n_pos = 2 * p.Nm - 1, n = n_pos + p.NB + 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (p.N + kT - 1) / kT;
+  const bool lower_only = p.causal != 0 && p.contextual_seq_len == 0;
+  // one block per 4096 floats (1024 unvectorized) of a query tile's 64 x H x D
+  const long long hd = (long long)p.H * p.D;
+  const int chunks = (int)((kT * hd + (hd % 4 == 0 ? 4096 : 1024) - 1) / (hd % 4 == 0 ? 4096 : 1024));
+  SumParams<E> sp{p.dq_partial, dq, p.lengths, p.B, p.N, p.H, p.D, tiles, chunks, lower_only,
+                  p.partial, 0, n, n_pos, p.dpos, p.dts};
   if (route == hstu::kWide) {
     const hstu_wide::Params<E> w = wide_params(p, dq);
     cudaError_t err = hstu_wide::launch_dq<true, E, E>(w, s);
     if (err != cudaSuccess) return (int)err;
     err = hstu_wide::launch_dkv<true, true, E>(w, s);
     if (err != cudaSuccess) return (int)err;
-    sum_partials_kernel<<<(n + 31) / 32, 1024, 0, s>>>(
-        p.partial, (int)hstu_wide::dkv_table_rows(p.B, p.N, p.H), n, n_pos, p.dpos, p.dts);
-    return (int)cudaGetLastError();
+    sp.tiles = 0;  // the tables alone
+    sp.rows = (int)hstu_wide::dkv_table_rows(p.B, p.N, p.H);
+  } else {
+    if (p.dq_partial == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = launch<E, /*DET=*/true>(p, route, stream);
+    if (err != 0) return err;
+    const int hg = p.D <= 32 && p.V <= 32 ? 4 : 2;
+    sp.rows = (int)((long long)tiles * ((p.H + hg - 1) / hg) * p.B);
   }
-  hstu_bwd_dq::Params<E> d{p.q, p.k, p.v, p.dout, dq, p.lengths, p.num_targets, p.B, p.N, p.H, p.D, p.V,
-                           p.q_sb, p.q_sn, p.q_sh, p.k_sb, p.k_sn, p.k_sh, p.v_sb, p.v_sn, p.v_sh,
-                           p.do_sb, p.do_sn, p.do_sh, p.alpha, p.inv_norm, p.causal, p.max_attn_len,
-                           p.contextual_seq_len, p.min_full_attn_seq_len,
-                           p.vec_q, p.vec_k, p.vec_v, p.vec_do, p.ts, p.pos_w, p.ts_w, p.Nm, p.NB};
-  int err = hstu_bwd_dq::launch<E, /*RELBIAS=*/true>(d, dq_route, stream);
-  if (err != 0) return err;
-  err = launch<E, /*DET=*/true>(p, route, stream);
-  if (err != 0) return err;
-  const int hg = p.D <= 32 && p.V <= 32 ? 4 : 2;
-  const long long blocks = (long long)((p.N + kT - 1) / kT) * ((p.H + hg - 1) / hg) * p.B;
-  sum_partials_kernel<<<(n + 31) / 32, 1024, 0, s>>>(p.partial, (int)blocks, n, n_pos, p.dpos, p.dts);
+  const long long blocks = (long long)sp.B * sp.tiles * sp.chunks + (n + 31) / 32;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  det_sums_kernel<E><<<(unsigned)blocks, 1024, 0, s>>>(sp);
   return (int)cudaGetLastError();
 }
 
@@ -828,50 +932,48 @@ extern "C" int hstu_mha_relbias_bwd_bf16(
   return (int)hstu_tf32::to_bf16(dq32, dq, (long long)B * N * H * D, static_cast<cudaStream_t>(stream));
 }
 
-// K7-det on float32: dq, dk and dv written whole; partial a float32
-// [blocks, (2 Nm - 1) + (NB + 1)] scratch buffer (`launch_det`); dpos and dts
-// written whole; `route` this kernel's body, `dq_route` the dq pass's. The
-// same bits on every run.
+// K7-det on float32: dq, dk and dv written whole; partial and dq_partial
+// float32 scratch buffers (`launch_det`); dpos and dts written whole;
+// `route` this kernel's body. The same bits on every run.
 extern "C" int hstu_mha_relbias_bwd_det(
     const float* q, const float* k, const float* v, const float* dout,
     float* dq, float* dk, float* dv, const int* lengths,
     const int* num_targets, const float* ts, const float* pos_w,
-    const float* ts_w, float* dpos, float* dts, float* partial,
+    const float* ts_w, float* dpos, float* dts, float* partial, float* dq_partial,
     int B, int N, int H, int D, int V,
     long long q_sb, long long q_sn, long long q_sh, long long k_sb,
     long long k_sn, long long k_sh, long long v_sb, long long v_sn,
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int vec_q, int vec_k, int vec_v, int vec_do, int route, int dq_route,
-    void* stream) {
+    int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<float> p{
       q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
-      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial};
-  return hstu_relbias_bwd::launch_det<float>(p, dq, route, dq_route, stream);
+      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial, dq_partial};
+  return hstu_relbias_bwd::launch_det<float>(p, dq, route, stream);
 }
 
 // K7-det on bfloat16 q, k, v, dout, dq, dk and dv (K7-bf16's rounding
-// points, alpha q rounded to bfloat16 in both passes).
+// points, alpha q rounded to bfloat16; dq's slots float32, each element's
+// sum rounded once).
 extern "C" int hstu_mha_relbias_bwd_det_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
     const int* lengths, const int* num_targets, const float* ts, const float* pos_w,
-    const float* ts_w, float* dpos, float* dts, float* partial,
+    const float* ts_w, float* dpos, float* dts, float* partial, float* dq_partial,
     int B, int N, int H, int D, int V,
     long long q_sb, long long q_sn, long long q_sh, long long k_sb,
     long long k_sn, long long k_sh, long long v_sb, long long v_sn,
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int vec_q, int vec_k, int vec_v, int vec_do, int route, int dq_route,
-    void* stream) {
+    int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<__nv_bfloat16> p{
       q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
-      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial};
-  return hstu_relbias_bwd::launch_det<__nv_bfloat16>(p, dq, route, dq_route, stream);
+      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial, dq_partial};
+  return hstu_relbias_bwd::launch_det<__nv_bfloat16>(p, dq, route, stream);
 }

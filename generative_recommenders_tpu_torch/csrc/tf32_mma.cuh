@@ -3,8 +3,7 @@
 // `cp.async` with the tile load built on it. Shared by the relative-bias
 // backward K7 (hstu_mha_relbias_bwd.cu), the forward body of K1 and K6
 // (hstu_attention_fwd.cuh) and the backward bodies of K2 and K4
-// (hstu_attention_bwd_dkv.cuh) and of K3 and K7-det's dq pass
-// (hstu_attention_bwd_dq.cuh).
+// (hstu_attention_bwd_dkv.cuh) and of K3 (hstu_attention_bwd_dq.cuh).
 //
 // The bfloat16 kernels (K1, K2, K6, K7 and K7-det on bfloat16 q, k, v) read
 // their tiles through `load_tile`'s bfloat16 overload, which converts to

@@ -2,11 +2,11 @@
 `generative_recommenders_tpu/modules/action_encoder.py`).
 
 `ActionEncoder` decodes per-event action bitmasks into concatenated
-per-action-type embeddings; candidate positions get a learned target-action
-embedding, also exposed alone for the M-FALCON delta path. `ContentEncoder`
-concatenates side features onto the item embeddings. The JAX encoder's
-watch-time thresholds (synthetic actions) are not ported: no preset sets
-them.
+per-action-type embeddings, with optional watch-time thresholds that each
+add a synthetic action type (set where the event's watch time reaches the
+threshold); candidate positions get a learned target-action embedding,
+also exposed alone for the M-FALCON delta path. `ContentEncoder`
+concatenates side features onto the item embeddings.
 """
 
 from __future__ import annotations
@@ -21,19 +21,27 @@ from generative_recommenders_tpu_torch.ops.padded import valid_mask
 
 
 class ActionEncoder(nn.Module):
+    """``watchtime_to_action_thresholds_and_weights``: (threshold, weight)
+    pairs; each ORs ``weight`` into an event's bitmask where the payload
+    ``watchtime_feature_name`` is at least ``threshold``, and adds one action
+    type (a row of the [A + T, d] table) for that bit."""
+
     def __init__(
         self,
         action_embedding_dim: int,
         action_feature_name: str,
         action_weights: Tuple[int, ...],
+        watchtime_feature_name: str = "",
+        watchtime_to_action_thresholds_and_weights: Tuple[Tuple[int, int], ...] = (),
         gen: Optional[torch.Generator] = None,
     ) -> None:
         super().__init__()
         self.action_feature_name = action_feature_name
-        self.register_buffer(
-            "_weights", torch.tensor(action_weights, dtype=torch.int32), persistent=False
-        )
-        A, d = len(action_weights), action_embedding_dim
+        self.watchtime_feature_name = watchtime_feature_name
+        self.watchtime_to_action_thresholds_and_weights = tuple(watchtime_to_action_thresholds_and_weights)
+        weights = tuple(action_weights) + tuple(w for _, w in self.watchtime_to_action_thresholds_and_weights)
+        self.register_buffer("_weights", torch.tensor(weights, dtype=torch.int32), persistent=False)
+        A, d = len(weights), action_embedding_dim
         self.action_embedding_table = new_param((A, d), normal(0.1), gen)
         self.target_action_embedding_table = new_param((1, A * d), normal(0.1), gen)
 
@@ -45,9 +53,13 @@ class ActionEncoder(nn.Module):
         """[1, A*d]: the learned candidate-position action embedding."""
         return self.target_action_embedding_table
 
-    def encode_actions(self, actions: torch.Tensor) -> torch.Tensor:
-        """Bitmask [...] -> [..., A*d] embeddings (uih positions)."""
-        exploded = (actions.to(torch.int32)[..., None] & self._weights) > 0  # [..., A]
+    def encode_actions(self, actions: torch.Tensor, watchtimes: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Bitmask [...] -> [..., A*d] embeddings (uih positions); with
+        thresholds, ``watchtimes`` [...] sets their bits first."""
+        actions = actions.to(torch.int32)
+        for threshold, weight in self.watchtime_to_action_thresholds_and_weights:
+            actions = actions | (watchtimes >= threshold).to(torch.int32) * weight
+        exploded = (actions[..., None] & self._weights) > 0  # [..., A]
         table = self.action_embedding_table
         return (exploded[..., None].to(table.dtype) * table).reshape(
             *actions.shape, self.output_embedding_dim
@@ -61,9 +73,13 @@ class ActionEncoder(nn.Module):
         """[B, N, A*d]; candidate positions (>= uih length) get the target
         embedding."""
         actions = seq_payloads[self.action_feature_name]
+        watchtimes = (
+            seq_payloads.get(self.watchtime_feature_name)
+            if self.watchtime_to_action_thresholds_and_weights else None
+        )
         is_uih = valid_mask(uih_lengths, actions.shape[1])[:, :, None]
         return torch.where(
-            is_uih, self.encode_actions(actions),
+            is_uih, self.encode_actions(actions, watchtimes),
             self.target_action_embedding_table.reshape(1, 1, -1),
         )
 

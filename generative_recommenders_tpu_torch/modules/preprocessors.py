@@ -52,7 +52,7 @@ class ContextualPreprocessor(nn.Module):
         self.action_encoder = None
         if action_weights is not None:
             self.action_encoder = ActionEncoder(
-                action_embedding_dim, action_feature_name, tuple(action_weights), gen
+                action_embedding_dim, action_feature_name, tuple(action_weights), gen=gen
             )
             self.action_mlp = SwishMLP(
                 self.action_encoder.output_embedding_dim, hidden_dim,

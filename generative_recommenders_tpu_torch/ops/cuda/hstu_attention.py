@@ -29,8 +29,7 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention.py`:
 All keep the JAX signatures and the [B, N, H, D] layout. A wrapper given
 CPU tensors computes its plain version; given CUDA tensors it launches its
 kernels on the current stream or raises, and counts each launch, where it
-happens, in its ``launches``: one counter for K5, and for the forward and
-the backward a dict of counters keyed by C entry point.
+happens, in its ``launches``: a dict of counters keyed by C entry point.
 The TPU wrappers' transposes, their padding of N to tile multiples, their
 block-size tables and the backward's `_pack_rows`
 residual packing are VMEM and lane-padding artefacts and are not ported:
@@ -54,7 +53,10 @@ K3-bf16 + K4-bf16 rounds where the fused K2-bf16 does, as `_bwd_dq_kernel`
 and `_bwd_dkv_kernel` round where `_bwd_fused_kernel_rkv` does, so one
 plain version serves both (`_dense_fwd_plain_bf16`, `_dense_bwd_plain_bf16`);
 a bfloat16 CPU tensor goes through them; autograd through a bfloat16
-forward would round dP instead. K5 takes float32 only.
+forward would round dP instead. K5 takes bfloat16 too (K5-bf16,
+``delta_hstu_mha_fwd_bf16``, the second entry point of K5's library), at
+the rounding points of `_delta_fwd_kernel_rkv`: alpha q rounded to
+bfloat16, P rounded to bfloat16 before P V, the output rounded once.
 
 HSTU attention replaces softmax with a pointwise gate:
 
@@ -92,7 +94,10 @@ _ARGTYPES = {
         name: [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_I, _P]
         for name in ("hstu_mha_fwd_bias", "hstu_mha_fwd_bias_bf16")
     },
-    "delta_hstu_mha_fwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P],
+    **{
+        name: [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P]
+        for name in ("delta_hstu_mha_fwd", "delta_hstu_mha_fwd_bf16")
+    },
     **{
         name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P]  # mask ints, flags
         for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv",
@@ -102,7 +107,7 @@ _ARGTYPES = {
     "hstu_mha_bwd_fused_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
 }
 # entry points that live in another kernel's library: entry -> library (the
-# bfloat16 K1 to K4 and K1-bias are second entry points of K1's to K4's
+# bfloat16 K1 to K5 and K1-bias are second entry points of K1's to K5's
 # libraries)
 _LIBRARY: Dict[str, str] = {
     "hstu_mha_fwd_bf16": "hstu_mha_fwd",
@@ -111,9 +116,10 @@ _LIBRARY: Dict[str, str] = {
     "hstu_mha_bwd_fused_bf16": "hstu_mha_bwd_fused",
     "hstu_mha_bwd_dq_bf16": "hstu_mha_bwd_dq",
     "hstu_mha_bwd_dkv_bf16": "hstu_mha_bwd_dkv",
+    "delta_hstu_mha_fwd_bf16": "delta_hstu_mha_fwd",
 }
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-_DENSE_TYPES = (torch.float32, torch.bfloat16)  # K1's to K4's (and K1-bias's bias); K5 takes float32
+_DENSE_TYPES = (torch.float32, torch.bfloat16)  # K1's to K5's (and K1-bias's bias)
 # the widest heads the narrow bodies take (D up to 256 and V up to 128);
 # wider ones take the wide bodies (csrc/hstu_attention_wide.cuh)
 _NARROW_D, _NARROW_V = 256, 128
@@ -313,19 +319,30 @@ def delta_hstu_mha_plain(
     """K5's function in plain PyTorch (the XLA branch of
     `ops/hstu_compute.py:delta_hstu_mha`): the M delta queries sit at
     positions [length - M, length) and see the matching rows of the full
-    mask. Returns [B, M, H, V]."""
+    mask. Returns [B, M, H, V]. On bfloat16 (K5-bf16's function) at the
+    rounding points of `_delta_fwd_kernel_rkv`: S = bfloat16(alpha q) k^T in
+    float32, P = silu(S) * mask rounded to bfloat16, (P V) / norm in float32,
+    returned as bfloat16."""
     B, M = delta_q.shape[:2]
     N = k.shape[1]
-    qk = torch.einsum("bmhd,bnhd->bhmn", delta_q.float(), k.float()) * alpha
-    p = F.silu(qk) / (norm_len or N)
+    bf16 = delta_q.dtype == torch.bfloat16
+    q = _scaled_q(delta_q, alpha) if bf16 else delta_q.float()
+    qk = torch.einsum("bmhd,bnhd->bhmn", q, k.float())
+    if not bf16:
+        qk = qk * alpha
     row_idx = seq_lengths.long()[:, None] - M + torch.arange(M, device=k.device)[None, :]
     delta_mask = make_delta_attn_mask(
         N, seq_lengths, row_idx.clamp(0, N - 1), causal=True,
         num_targets=num_targets, max_attn_len=max_attn_len,
         contextual_seq_len=contextual_seq_len,
         min_full_attn_seq_len=min_full_attn_seq_len,
-    )
-    p = p * delta_mask[:, None, :, :].to(p.dtype)
+    )[:, None, :, :]
+    if bf16:
+        p = _bf16(torch.where(delta_mask, F.silu(qk), 0.0))
+        out = torch.einsum("bhmn,bnhv->bmhv", p, v.float()) * (1.0 / (norm_len or N))
+        return out.to(torch.bfloat16)
+    p = F.silu(qk) / (norm_len or N)
+    p = p * delta_mask.to(p.dtype)
     return torch.einsum("bhmn,bnhv->bmhv", p, v.float()).to(v.dtype)
 
 
@@ -839,7 +856,9 @@ def delta_hstu_mha_cuda(
     """Delta-q attention of the M-FALCON cached path: the M delta queries sit
     at positions [length - M, length) and attend over the full K/V under
     `make_delta_attn_mask`, scaled by 1 / ``norm_len`` (default N). It must
-    equal the normaliser of the prefill forward. Returns [B, M, H, V]."""
+    equal the normaliser of the prefill forward. Returns [B, M, H, V] of v's
+    type: float32, or bfloat16 (K5-bf16, `delta_hstu_mha_fwd_bf16`) where q,
+    k and v are bfloat16."""
     kw = dict(
         alpha=alpha, num_targets=num_targets, max_attn_len=max_attn_len,
         contextual_seq_len=contextual_seq_len,
@@ -847,12 +866,21 @@ def delta_hstu_mha_cuda(
     )
     if delta_q.device.type == "cpu":
         return delta_hstu_mha_plain(delta_q, k, v, seq_lengths, **kw)
-    device = _check_qkv(delta_q, k, v)
-    B, M, H, D = delta_q.shape
-    N, V = k.shape[1], v.shape[3]
+    device = _check_qkv(delta_q, k, v, _DENSE_TYPES)
+    B = delta_q.shape[0]
     lens = _int_vector("seq_lengths", seq_lengths, B, device)
     nt = None if num_targets is None else _int_vector("num_targets", num_targets, B, device)
-    out = torch.empty((B, M, H, V), dtype=torch.float32, device=device)
+    return _delta_fwd(delta_q, k, v, lens, nt, kw)
+
+
+def _delta_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
+    """Launches K5 (K5-bf16 on bfloat16) on checked CUDA tensors (lens, nt:
+    int32 or nt None; ``kw``: `delta_hstu_mha_cuda`'s keywords but
+    num_targets) and counts it under its entry point."""
+    B, M, H, D = q.shape
+    N, V = k.shape[1], v.shape[3]
+    device = q.device
+    out = torch.empty((B, M, H, V), dtype=v.dtype, device=device)
     if out.numel() == 0 or N == 0:
         return out.zero_()
     plan = _delta_plan(B, M, N, H, V, D)
@@ -860,18 +888,19 @@ def delta_hstu_mha_cuda(
     if plan["scratch_shape"] is not None:
         scratch = torch.empty(plan["scratch_shape"], dtype=torch.float32, device=device)
         counters = _delta_counter_buffer(device, plan["counters"])
+    name = "delta_hstu_mha_fwd_bf16" if q.dtype == torch.bfloat16 else "delta_hstu_mha_fwd"
     _launch(
-        "delta_hstu_mha_fwd",
-        delta_q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        name,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
         None if counters is None else counters.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
-        B, M, N, H, D, V, *delta_q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        alpha, 1.0 / (norm_len or N),
-        max_attn_len, contextual_seq_len, min_full_attn_seq_len,
+        B, M, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        kw["alpha"], 1.0 / (kw["norm_len"] or N),
+        kw["max_attn_len"], kw["contextual_seq_len"], kw["min_full_attn_seq_len"],
         int(_vec16(k)), int(_vec16(v)), _stream(device),
     )
-    delta_hstu_mha_cuda.launches.add()
+    delta_hstu_mha_cuda.launches[name].add()
     return out
 
 
@@ -883,4 +912,4 @@ hstu_mha_bwd_cuda.launches = {
     for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
     for sfx in ("", "_bf16")
 }
-delta_hstu_mha_cuda.launches = LaunchCounter()
+delta_hstu_mha_cuda.launches = {name: LaunchCounter() for name in ("delta_hstu_mha_fwd", "delta_hstu_mha_fwd_bf16")}

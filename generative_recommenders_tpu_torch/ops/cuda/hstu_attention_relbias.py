@@ -52,13 +52,15 @@ dP instead. The bfloat16 kernels count their launches in
 K7 sums dq, ``dpos_w`` and ``dts_w`` with atomics, in an order that changes
 from run to run. The Pallas kernel keeps those sums in VMEM over a
 sequential grid, so every run of the JAX package gives the same bits; K7-det
-does too, by passes instead of atomics: dq by K3's body with the bias (one
-block per query tile, dq in registers), dk, dv and each block's table sums
-by K7's body without dq (the sums to the block's own row of a float32
-[blocks, (2 Nm - 1) + (NB + 1)] buffer), and the rows added entry by entry
-in block order. Under ``torch.use_deterministic_algorithms(True)`` the
-autograd function takes K7-det, in float32 and bfloat16 alike; it counts
-its launches in ``launches_det`` and ``launches_det_bf16``.
+does too, with stores instead of atomics: K7's body computes everything in
+one pass over the tile pairs, storing each tile pair's dQ to a slot of its
+own (a float32 [B, pairs, 64, H, D] buffer, `_det_slot`) and each block's
+table sums to its own row of a float32 [blocks, (2 Nm - 1) + (NB + 1)]
+buffer; a second launch sums each dq element's slots over the key tiles in
+ascending order and the table rows entry by entry in block order. Under
+``torch.use_deterministic_algorithms(True)`` the autograd function takes
+K7-det, in float32 and bfloat16 alike; it counts its launches in
+``launches_det`` and ``launches_det_bf16``.
 """
 
 from __future__ import annotations
@@ -74,17 +76,16 @@ from generative_recommenders_tpu_torch.ops.cuda.build import LaunchCounter
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points (csrc/hstu_mha_relbias_*.cu), each ending
-# with its plan's route (K7-det's: its body's, then its dq pass's) and the
-# stream
+# with its plan's route and the stream
 ha._ARGTYPES.update({
     "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
     "hstu_mha_relbias_fwd_bf16": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
     "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
     # one more pointer: dq's float32 sums beside the bfloat16 dq
     "hstu_mha_relbias_bwd_bf16": [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
-    # one more pointer: the blocks' table sums
+    # two more pointers: the blocks' table sums, the tile pairs' dQ
     **{
-        name: [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _I, _P]
+        name: [_P] * 16 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P]
         for name in ("hstu_mha_relbias_bwd_det", "hstu_mha_relbias_bwd_det_bf16")
     },
 })
@@ -351,34 +352,51 @@ def _relbias_grid(N: int, head_groups: int, B: int) -> Tuple[int, int, int]:
     return grid
 
 
-def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int) -> dict:
-    """K7-det's launches. D and V up to 64: the dq pass on K3's body
-    (`hstu_attention._dq_plan`: one block per (64-row query tile, head, batch
-    row)) with both tables and the batch row's timestamps added to its shared
-    memory where they fit (else read from device memory: ``dq_route``
-    ``read``); then K7's body without dq on K7's grid (`_relbias_bwd_plan`:
-    (key tile, head group, batch row)), each block writing its table sums to
-    its own row of the float32 ``partial`` buffer [blocks, (2 Nm - 1) + (NB +
-    1)]; then the rows added in block order, one CUDA block per 32 entries.
-    Wider heads: the wide dq pass and the wide dkv pass, whose blocks of
-    chunk 0 write one row per (key tile, head, batch row). Raises on a width
-    of 0 and on a grid beyond CUDA's."""
+def _det_slot(qt: int, kt: int, tiles: int, lower_only: bool) -> int:
+    """K7-det's slot of the tile pair (query tile ``qt``, key tile ``kt``)
+    among a batch row's (`det_slot` in csrc/hstu_mha_relbias_bwd.cu): the
+    walk of a causal mask without contextual rows (``lower_only``) visits
+    the pairs with kt <= qt, any other walk every pair; a query tile's slots
+    are consecutive in kt."""
+    return qt * (qt + 1) // 2 + kt if lower_only else qt * tiles + kt
+
+
+def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, causal: bool = True,
+                      contextual_seq_len: int = 0) -> dict:
+    """K7-det's launches. D and V up to 64: K7's body on K7's grid
+    (`_relbias_bwd_plan`: (key tile, head group, batch row)), on its route,
+    each block storing the dQ of every tile pair its walk visits to the
+    pair's slot of the float32 ``dq_partial`` buffer [B, pairs, 64, H, D]
+    (``pairs`` slots per batch row, `_det_slot`; the walk of a causal mask
+    without contextual rows takes the key tile's own query tile and those
+    after it, ``lower_only``) and its table sums to its own row of the
+    float32 ``partial`` buffer [blocks, (2 Nm - 1) + (NB + 1)]; then one
+    launch of ``sum_grid`` blocks of 1024 threads: ``sum_chunks`` blocks per
+    query tile and batch row sum its dq's slots over the key tiles in
+    ascending order (4096 floats a block, 1024 where H D is not a multiple of
+    4), the rest the table rows in block order, 32 entries a block. Wider
+    heads: the wide dq pass, the wide dkv pass, whose blocks of chunk 0
+    write one row per (key tile, head, batch row), and the same sum launch
+    on the tables alone. Raises on a width of 0 and on a grid beyond
+    CUDA's."""
     bwd = _relbias_bwd_plan(D, V, H, Nm, NB)
     entries = 2 * Nm - 1 + NB + 1
+    table_blocks = -(-entries // 32)
     if bwd["route"] == "wide":
         dq = ha._wide_dq_plan(D, V, H, B, N)
         dkv = ha._wide_dkv_plan(D, V, H, B, N, relbias=True)
-        return dict(bwd, dq_route="wide", dq_grid=dq["grid"], grid=dkv["grid"],
-                    partial_shape=(dkv["table_rows"], entries), sum_grid=(-(-entries // 32),))
-    dq = ha._dq_plan(D, V, H, B, N)
-    dq_shared = dq["shared_bytes"] + 4 * (2 * Nm - 1 + NB + 1 + N)
-    read = dq_shared > _MAX_SHARED_BYTES  # the dq pass reads the tables
+        return dict(bwd, dq_grid=dq["grid"], grid=dkv["grid"], partial_shape=(dkv["table_rows"], entries),
+                    dq_partial_shape=None, sum_grid=(table_blocks,))
     grid = _relbias_grid(N, bwd["head_groups"], B)
-    blocks = grid[0] * grid[1] * grid[2]
-    return dict(route=bwd["route"], dq_route="read" if read else "narrow", width=bwd["width"],
-                head_group=bwd["head_group"], dq_grid=dq["grid"],
-                dq_shared_bytes=dq["shared_bytes"] if read else dq_shared, grid=grid,
-                shared_bytes=bwd["shared_bytes"], partial_shape=(blocks, entries), sum_grid=(-(-entries // 32),))
+    tiles = -(-N // _BWD_TILE)
+    lower_only = causal and contextual_seq_len == 0
+    pairs = _det_slot(tiles, 0, tiles, lower_only)  # the slot after the last pair's
+    per_block = 4096 if H * D % 4 == 0 else 1024
+    chunks = -(-(_BWD_TILE * H * D) // per_block)
+    return dict(route=bwd["route"], width=bwd["width"], head_group=bwd["head_group"], grid=grid,
+                shared_bytes=bwd["shared_bytes"], partial_shape=(grid[0] * grid[1] * grid[2], entries),
+                tiles=tiles, lower_only=lower_only, pairs=pairs, dq_partial_shape=(B, pairs, _BWD_TILE, H, D),
+                sum_chunks=chunks, sum_grid=(B * tiles * chunks + table_blocks,))
 
 
 def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic: bool = False) -> RelbiasGrads:
@@ -386,14 +404,15 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
     (as `_relbias_fwd`; do contiguous in its last dim, of q's type) and
     counts it. K7 sums dq (in float32) and both table gradients into zeroed
     buffers, and its bfloat16 kernel writes dq's sums as bfloat16 at its end;
-    K7-det writes every output whole, in a fixed order."""
+    K7-det writes every output whole, in a fixed order, through the scratch
+    buffers of its plan."""
     B, N, H, D = q.shape
     V = v.shape[3]
     Nm, NB = (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1
     bf16 = q.dtype == torch.bfloat16
     # raises on what the kernels do not take
     if deterministic:
-        plan = _relbias_det_plan(D, V, H, B, N, Nm, NB)
+        plan = _relbias_det_plan(D, V, H, B, N, Nm, NB, kw["causal"], kw["contextual_seq_len"])
     else:
         plan = _relbias_bwd_plan(D, V, H, Nm, NB)
         if plan["route"] == "wide":
@@ -409,9 +428,10 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
         if B * N * H == 0:
             return dq, dk, dv, dpos.zero_(), dts.zero_()
         partial = new(torch.empty, *plan["partial_shape"])
+        dq_partial = None if plan["dq_partial_shape"] is None else new(torch.empty, *plan["dq_partial_shape"])
         name = "hstu_mha_relbias_bwd_det_bf16" if bf16 else "hstu_mha_relbias_bwd_det"
-        dq_ptrs, tail = (dq.data_ptr(),), (partial.data_ptr(),)
-        routes = (ha._ROUTES[plan["route"]], ha._ROUTES[plan["dq_route"]])
+        dq_ptrs = (dq.data_ptr(),)
+        tail = (partial.data_ptr(), None if dq_partial is None else dq_partial.data_ptr())
     else:
         dq32 = new(torch.zeros, B, N, H, D)
         dq = new(torch.empty, B, N, H, D, dtype=q.dtype) if bf16 else dq32
@@ -420,7 +440,6 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
             return dq, dk, dv, dpos, dts
         name = "hstu_mha_relbias_bwd_bf16" if bf16 else "hstu_mha_relbias_bwd"
         dq_ptrs, tail = ((dq32.data_ptr(), dq.data_ptr()) if bf16 else (dq.data_ptr(),)), ()
-        routes = (ha._ROUTES[plan["route"]],)
     ha._launch(
         name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -429,7 +448,7 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(), *tail,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *ha._mask_args(kw, N), Nm, NB,
-        *(int(ha._vec16(t)) for t in (q, k, v, do)), *routes, ha._stream(q.device),
+        *(int(ha._vec16(t)) for t in (q, k, v, do)), ha._ROUTES[plan["route"]], ha._stream(q.device),
     )
     c = hstu_mha_relbias_bwd_cuda
     {

@@ -30,7 +30,24 @@ of one uvqk projection); K2 at the ranker's training shape (B 32, N 268, H 4,
 D = V = 128, lengths 100..268, 1..10 targets, 2 contextual rows, q/k/v views
 of one uvqk projection, a strided dO) and K3 and K4 at their deterministic
 shape (the same with N 1036, lengths 300..1036). K3 is also timed with other
-tilings at that width (its `Tiling` line substituted).
+tilings at that width (its `Tiling` line substituted). K7's variants are
+timed as K7 and as K7-det (the same body with DET), on the same inputs, and
+K7-det also at the long-history layer (B 2, N = Nm = 4096, lengths
+3600..4096); one of them is K7-det's other design for dq's ordered sum
+(the last block to reach a query tile sums its slots), checked bit for bit
+against the shipped one.
+
+    python PATH/TO/variants.py --det
+
+(run as a file, with ``PYTHONPATH`` naming the checkout whose package to
+time) times K7 and K7-det, float32 and bfloat16, through the public wrapper
+alone, at the main paths' layer shapes: ml-3b's layer 0 (B 96, N 511, H 8,
+D = V = 32, lengths 1..511) and the long-history layer (B 2, N = Nm = 4096,
+H 8, D = V = 32, lengths 3600..4096), and the peak device memory of a
+K7-det call there. Its wrapper is the same in every checkout since the
+relative-bias kernels took ``deterministic``, so the same file times
+another checkout's K7-det, whatever its C signature: run it from both, in
+turns, in one call on one card.
 """
 
 from __future__ import annotations
@@ -95,6 +112,62 @@ _K7: Dict[str, Edit] = {
     "mma.sync (plain adds instead)": _NO_MMA,
     "the split (big = x, small = 0)": _NO_SPLIT,
 }
+# K7-det's other design for dq's ordered sum: the last block to reach a
+# (batch row, head group, query tile), counted by a device-wide counter as K5
+# counts its chunks, sums that tile's slots over the key tiles in ascending
+# order while they may still be in L2 and writes dq (rows past the length
+# zeroed before the launch); the second launch adds the table rows alone.
+# The same sums in the same order as the shipped design: the same bits.
+_LAST_BLOCK = "K7-det's dq summed by the last block to reach a query tile"
+_K7_DESIGNS: Dict[str, Edit] = {
+    _LAST_BLOCK: _both(
+        _sub("  float* dq_partial = nullptr;\n};",
+             "  float* dq_partial = nullptr;\n  E* dq_final = nullptr;\n};"),
+        _sub("template <typename E>\nstruct SumParams {",
+             "__device__ int g_det_counters[1 << 16];  // zero, and left zero by the last block\n\n"
+             "template <typename E>\nstruct SumParams {"),
+        _sub("      // The tile pair's dS, summed over the group's heads, into the block's\n",
+             """      if constexpr (DET) {
+        __shared__ int s_last;
+        __syncthreads();  // the block's slot stores of this query tile are issued
+        const int qt = row0 / kT;
+        const int need = lower_only ? qt + 1 : (length + kT - 1) / kT;
+        if (threadIdx.x == 0) {
+          int* counter = g_det_counters + ((long long)b * groups + h0 / HG) * tiles + qt;
+          __threadfence();
+          const int arrived = atomicAdd(counter, 1);
+          __threadfence();
+          s_last = arrived == need - 1;
+          if (s_last) atomicExch(counter, 0);
+        }
+        __syncthreads();
+        if (s_last) {
+          const int rows = min(kT, length - row0);
+          for (int idx = threadIdx.x; idx < rows * nh * p.D; idx += kThreads) {
+            const int r = idx / (nh * p.D), hd = idx / p.D % nh, d = idx % p.D;
+            float sum = 0.f;
+            for (int kt = 0; kt < need; ++kt)
+              sum += __ldcg(dq_slots + ((det_slot(qt, kt, tiles, lower_only) * kT + r) * p.H + h0 + hd) * p.D + d);
+            p.dq_final[(((long long)b * p.N + row0 + r) * p.H + h0 + hd) * p.D + d] = E(sum);
+          }
+        }
+      }
+      // The tile pair's dS, summed over the group's heads, into the block's
+"""),
+        _sub("    const int err = launch<E, /*DET=*/true>(p, route, stream);",
+             "    Params<E> last = p;\n    last.dq_final = dq;\n"
+             "    cudaMemsetAsync(dq, 0, (size_t)p.B * p.N * p.H * p.D * sizeof(E), s);\n"
+             "    const int err = launch<E, /*DET=*/true>(last, route, stream);"),
+        _sub("    sp.rows = (int)((long long)tiles * ((p.H + hg - 1) / hg) * p.B);",
+             "    sp.rows = (int)((long long)tiles * ((p.H + hg - 1) / hg) * p.B);\n    sp.tiles = 0;"),
+    ),
+}
+_K7.update({
+    # K7-det's own phases (K7 runs none of them)
+    "K7-det's ordered sum of the slots": _sub("for (int kt = 0; kt < kts; ++kt) {", "for (int kt = 0; kt < 0; ++kt) {"),
+    "K7-det's diagonal runs": _sub(
+        "if (dd < 2 * kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {", "if (false) {"),
+})
 # K1 and K6: edits of their shared body
 _FWD = "hstu_attention_fwd.cuh"
 _BIAS = "the bias (its logf, its table reads)"
@@ -157,7 +230,7 @@ _K5: Dict[str, Edit] = {
     "the last block's sum": _sub("  if (!s_last) return;\n", "  return;\n"),
     "K loads": _sub("      kr[i] = (col < length && at < p.D) ? load4", "      kr[i] = (col < length && at < 0) ? load4"),
     "V loads": _sub("      vr[j] = (c0 + j < length && at < vw)", "      vr[j] = (c0 + j < length && at < 0)"),
-    "silu": _sub("const float pv = ok ? x / (1.f + expf(-x)) : 0.f;", "const float pv = ok ? x : 0.f;"),
+    "silu": _sub("float pv = ok ? x / (1.f + expf(-x)) : 0.f;", "float pv = ok ? x : 0.f;"),
     "P shuffles": _sub("          const float pm = __shfl_sync(kFull, pv, j * 8 + m);", "          const float pm = pv;"),
 }
 # (kernel, label, phases taken out)
@@ -168,6 +241,7 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
         ("hstu_mha_relbias_bwd", "without the three products' loops", ("S and dP", "dV and dK", "dQ")),
         ("hstu_mha_relbias_bwd", "loads, barriers and stores alone",
          ("S and dP", "dV and dK", "dQ", "dq atomics", "table sums", "sigmoid", "bucket logf")),
+        ("hstu_mha_relbias_bwd", _LAST_BLOCK, (_LAST_BLOCK,)),
         ("delta_hstu_mha_fwd", "as shipped", ()),
     ]
     + [("delta_hstu_mha_fwd", f"without {name}", (name,)) for name in _K5]
@@ -201,7 +275,7 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
         )
     ]
 )
-_EDITS = {"hstu_mha_relbias_bwd": _K7, "delta_hstu_mha_fwd": _K5, "hstu_mha_fwd": _K16,
+_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS}, "delta_hstu_mha_fwd": _K5, "hstu_mha_fwd": _K16,
           "hstu_mha_relbias_fwd": _K16, "hstu_mha_bwd_fused": _K24, "hstu_mha_bwd_dkv": _K24,
           "hstu_mha_bwd_dq": _K3}
 
@@ -345,6 +419,22 @@ def main(argv: Optional[List[str]] = None) -> None:
     def k3():
         _bwd_kernel("hstu_mha_bwd_dq", *k4_in[:4], k4_in[4], k4_in[5], k4_in[6])
 
+    def k7det():
+        return hstu_mha_relbias_bwd_cuda(q, k, v, lens, ts, pos_w, ts_w, do, alpha=1.0, max_seq_len=N,
+                                         deterministic=True)
+
+    # K7-det also at the long-history layer (B 2, N = Nm = 4096: the tables read)
+    LB, LN = 2, 4096
+    _, lv, lq, lk = torch.split(rand(LB, LN, 4 * H * D), [H * D] * 4, dim=-1)
+    lq, lk, lv = (x.reshape(LB, LN, H, D) for x in (lq, lk, lv))
+    l_lens = ints(3600, LN + 1, LB)
+    l_ts = 1_500_000_000 + torch.cumsum(torch.randint(1, 86400, (LB, LN), device="cuda", generator=gen), 1)
+    l_pos, l_do = rand(2 * LN - 1) * 0.1, rand(LN, LB, H, D).transpose(0, 1)
+
+    def k7det_long():
+        return hstu_mha_relbias_bwd_cuda(lq, lk, lv, l_lens, l_ts, l_pos, ts_w, l_do, alpha=1.0, max_seq_len=LN,
+                                         deterministic=True)
+
     def device_ms(fn, reps):
         fn()
         torch.cuda.synchronize()
@@ -362,6 +452,9 @@ def main(argv: Optional[List[str]] = None) -> None:
              "hstu_mha_bwd_fused": (k2, 50), "hstu_mha_bwd_dkv": (k4, 20),
              "hstu_mha_bwd_dq": (k3, 20)}
     args = list(sys.argv[1:] if argv is None else argv)
+    if args == ["--det"]:
+        det_times(device_ms, rand, ints, gen)
+        return
     other = None
     if "--against" in args:
         at = args.index("--against")
@@ -386,15 +479,61 @@ def main(argv: Optional[List[str]] = None) -> None:
                     print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms")
             return
         root = os.path.join(build.BUILD_DIR, "variants")
+        # the shipped K7-det's outputs, which a design that sums in the same
+        # order must give bit for bit
+        shipped_det = [k7det(), k7det_long()] if any(VARIANTS[i][1] in _K7_DESIGNS for i in chosen) else None
         _build_all(root, chosen)
         for i in chosen:
             kernel, label, _ = VARIANTS[i]
             build._libs.clear()
             _preload(kernel, os.path.join(root, f"v{i}"))
             fn, reps = timed[kernel]
-            print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms")
+            det = ""
+            if kernel == "hstu_mha_relbias_bwd":
+                det = f", K7-det {device_ms(k7det, reps):.4f} ms, at N 4096 {device_ms(k7det_long, reps):.4f} ms"
+                if label in _K7_DESIGNS:
+                    same = all(torch.equal(a, b) for got, want in zip((k7det(), k7det_long()), shipped_det)
+                               for a, b in zip(got, want))
+                    det += f" (the shipped K7-det's bits: {same})"
+            print(f"{kernel:22s} {label:45s} {device_ms(fn, reps):.4f} ms{det}")
     finally:
         build._libs.clear()
+
+
+def det_times(device_ms, rand, ints, gen) -> None:
+    """K7 and K7-det (float32, bfloat16) at ml-3b's layer 0 and the
+    long-history layer, each on q/k/v views of one projection and a strided
+    dO; the peak device memory of K7-det at the long-history layer."""
+    import torch
+
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import hstu_mha_relbias_bwd_cuda
+
+    for name, B, N, lo in (("ml-3b layer 0", 96, 511, 1), ("long-history layer", 2, 4096, 3600)):
+        H, D = 8, 32
+        _, v, q, k = torch.split(rand(B, N, 4 * H * D), [H * D] * 4, dim=-1)
+        lens = ints(lo, N + 1, B)
+        steps = torch.randint(1, 86400, (B, N), device="cuda", generator=gen)
+        ts = (1_500_000_000 + torch.cumsum(steps, 1)) * (torch.arange(N, device="cuda")[None] <= lens[:, None])
+        pos_w, ts_w = rand(2 * N - 1) * 0.1, rand(129) * 0.1
+        do = rand(N, B, H, D).transpose(0, 1)
+        for dtype in (torch.float32, torch.bfloat16):
+            q_, k_, v_, do_ = (x.reshape(B, N, H, D).to(dtype) if x is not do else x.to(dtype)
+                               for x in (q, k, v, do))
+            times = {}
+            for det in (False, True, True, False):
+                def fn():
+                    hstu_mha_relbias_bwd_cuda(q_, k_, v_, lens, ts, pos_w, ts_w, do_, alpha=1.0, max_seq_len=N,
+                                              deterministic=det)
+                times.setdefault(det, []).append(device_ms(fn, 10))
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            hstu_mha_relbias_bwd_cuda(q_, k_, v_, lens, ts, pos_w, ts_w, do_, alpha=1.0, max_seq_len=N,
+                                      deterministic=True)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+            print(f"{name} (B {B}, N {N}, H {H}, D = V = {D}) {str(dtype)[6:]}: K7-det "
+                  + " / ".join(f"{t:.4f}" for t in times[True]) + " ms, K7 "
+                  + " / ".join(f"{t:.4f}" for t in times[False]) + f" ms; K7-det's call {peak:.1f} MiB above its inputs")
 
 
 def _preload(kernel: str, directory: str) -> None:

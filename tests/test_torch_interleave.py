@@ -83,27 +83,71 @@ def test_content_encoder_matches_jax():
     assert t_ae.ContentEncoder(D)(T(emb), T(uih), {}) is not None
 
 
-def _pair(use_pmlp, ctx):
+# two watch-time thresholds: each adds an action type, bits 4 and 8 of the mask
+THRESHOLDS = ((30, 4), (60, 8))
+
+
+def _pair(use_pmlp, ctx, thresholds=()):
     kw = dict(input_embedding_dim=8, output_embedding_dim=12, contextual_feature_to_max_length=ctx,
               contextual_feature_to_min_uih_length=(("u", 4),) if ctx else (), use_parameterized_mlps=use_pmlp,
               mlp_hidden_dim=16, enable_interleaving=True)
+    wt = dict(watchtime_feature_name="wt", watchtime_to_action_thresholds_and_weights=thresholds) if thresholds else {}
     jm = j_cip.ContextualInterleavePreprocessor(
         content_encoder=j_ae.ContentEncoder(input_embedding_dim=8),
-        action_encoder=j_ae.ActionEncoder(action_embedding_dim=4, action_feature_name="w", action_weights=(1, 2)),
+        action_encoder=j_ae.ActionEncoder(action_embedding_dim=4, action_feature_name="w", action_weights=(1, 2),
+                                          **wt),
         **kw,
     )
     tm = t_cip.ContextualInterleavePreprocessor(
-        content_encoder=t_ae.ContentEncoder(8), action_encoder=t_ae.ActionEncoder(4, "w", (1, 2)), **kw,
+        content_encoder=t_ae.ContentEncoder(8), action_encoder=t_ae.ActionEncoder(4, "w", (1, 2), **wt), **kw,
     )
     return jm, tm
 
 
-@pytest.mark.parametrize("use_pmlp", [False, True], ids=["simple", "parameterized"])
-def test_interleave_preprocessor_matches_jax(use_pmlp):
-    """Inference (targets keep their content token only) and training
-    (targets interleaved too): embeddings, lengths, uih lengths, targets and
-    timestamps against the JAX module, with a contextual prefix under the
-    parameterized MLPs; every gradient of the training output."""
+def _watchtimes(rng, shape):
+    """Watch times around the thresholds, both exactly at them."""
+    wt = rng.integers(0, 100, shape).astype(np.int32)
+    wt.flat[0], wt.flat[1] = 30, 60
+    return wt
+
+
+def test_action_encoder_with_watchtime_thresholds_matches_jax():
+    """Two watch-time thresholds: the [A + T, d] table and its [1, (A + T) d]
+    target row carried over by `params_from_flax`, the bits ORed into the
+    mask where the watch time reaches each threshold, candidate positions on
+    the target row; the forward within 1e-6 and every gradient within 1e-6
+    of its largest entry."""
+    B, N = 3, 7
+    rng = np.random.default_rng(3)
+    payloads = {"w": rng.integers(0, 4, (B, N)).astype(np.int32), "wt": _watchtimes(rng, (B, N))}
+    uih = np.array([7, 4, 1], np.int32)
+    je = j_ae.ActionEncoder(action_embedding_dim=4, action_feature_name="w", action_weights=(1, 2),
+                            watchtime_feature_name="wt", watchtime_to_action_thresholds_and_weights=THRESHOLDS)
+    params = je.init(jax.random.PRNGKey(0), uih, uih + 2, payloads)
+    te = t_ae.ActionEncoder(4, "w", (1, 2), watchtime_feature_name="wt",
+                            watchtime_to_action_thresholds_and_weights=THRESHOLDS)
+    te.load_state_dict(_to_torch(params))
+    assert te.action_embedding_table.shape == (4, 4) and te.output_embedding_dim == je.output_embedding_dim == 16
+    loss_w = rng.standard_normal((B, N, 16)).astype(np.float32)
+    want, grads = jax.value_and_grad(lambda p_: jnp.sum(je.apply(p_, uih, uih + 2, payloads) * loss_w))(params)
+    got = te(T(uih), {k: T(v) for k, v in payloads.items()})
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(je.apply(params, uih, uih + 2, payloads)),
+                               rtol=0, atol=1e-6)
+    # a threshold's bit reaches the table: the last row is live somewhere
+    assert float(got.detach()[..., 12:].abs().sum()) > 0
+    loss = (got * T(loss_w)).sum()
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-6)
+    loss.backward()
+    named = dict(te.named_parameters())
+    for name, g in _to_torch(grads).items():
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(), rtol=0,
+                                   atol=1e-6 * float(g.abs().max()), err_msg=name)
+
+
+def _check_interleave(use_pmlp, thresholds=(), rel_tol=None, grad_tol=1e-5):
+    """The preprocessor pair's outputs (to TOL, or with ``rel_tol`` within
+    that share of the output's largest entry) and every gradient (within
+    ``grad_tol`` of its largest entry)."""
     B, N = 2, 6
     rng = np.random.default_rng(0)
     uih = np.array([3, 4], np.int32)
@@ -111,10 +155,12 @@ def test_interleave_preprocessor_matches_jax(use_pmlp):
     emb = rng.standard_normal((B, N, 8)).astype(np.float32)
     ts = rng.integers(1, 100, (B, N)).astype(np.int32)
     payloads = {"w": rng.integers(0, 4, (B, N)).astype(np.int32)}
+    if thresholds:
+        payloads["wt"] = _watchtimes(rng, (B, N))
     ctx = (("u", 1),) if use_pmlp else ()
     if use_pmlp:
         payloads["u"] = rng.standard_normal((B, 8)).astype(np.float32)
-    jm, tm = _pair(use_pmlp, ctx)
+    jm, tm = _pair(use_pmlp, ctx, thresholds)
     args = (emb, uih + nt, ts, uih, nt, payloads)
     params = jax.jit(jm.init, static_argnums=7)(jax.random.PRNGKey(0), *args, True)
     fields = ("seq_embeddings", "seq_lengths", "seq_timestamps", "uih_lengths", "num_targets")
@@ -131,7 +177,9 @@ def test_interleave_preprocessor_matches_jax(use_pmlp):
     for deterministic in (True, False):
         want = apply(params, deterministic)
         got = tm(*t_args, deterministic=deterministic, gen=torch.Generator())
-        np.testing.assert_allclose(got.seq_embeddings.detach().numpy(), np.asarray(want["seq_embeddings"]), **TOL)
+        want_emb = np.asarray(want["seq_embeddings"])
+        tol = TOL if rel_tol is None else dict(rtol=0, atol=rel_tol * float(np.abs(want_emb).max()))
+        np.testing.assert_allclose(got.seq_embeddings.detach().numpy(), want_emb, **tol)
         for f in fields[1:]:
             np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(want[f]), err_msg=f)
         assert got.contextual_seq_len == jm.max_contextual_seq_len == C
@@ -142,7 +190,24 @@ def test_interleave_preprocessor_matches_jax(use_pmlp):
     named = dict(tm.named_parameters())
     for name, g in _to_torch(grads).items():
         scale = max(float(g.abs().max()), 1e-30)
-        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(), rtol=0, atol=1e-5 * scale, err_msg=name)
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(), rtol=0, atol=grad_tol * scale, err_msg=name)
+
+
+@pytest.mark.parametrize("use_pmlp", [False, True], ids=["simple", "parameterized"])
+def test_interleave_preprocessor_matches_jax(use_pmlp):
+    """Inference (targets keep their content token only) and training
+    (targets interleaved too): embeddings, lengths, uih lengths, targets and
+    timestamps against the JAX module, with a contextual prefix under the
+    parameterized MLPs; every gradient of the training output."""
+    _check_interleave(use_pmlp)
+
+
+@pytest.mark.parametrize("use_pmlp", [False, True], ids=["simple", "parameterized"])
+def test_interleave_preprocessor_with_watchtime_thresholds_matches_jax(use_pmlp):
+    """The same with the action encoder's two watch-time thresholds: its
+    [4, 4] table through `params_from_flax`, the watch times read from the
+    payloads; outputs and every gradient within 1e-6 of their largest entry."""
+    _check_interleave(use_pmlp, THRESHOLDS, rel_tol=1e-6, grad_tol=1e-6)
 
 
 def test_parameterized_contextual_dropout_draws_from_the_generator():

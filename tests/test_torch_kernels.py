@@ -131,9 +131,9 @@ def test_delta_kernel_matches_plain(cuda, case):
     nt_on = case.pop("num_targets", False)
     q, k, v, lengths, nt = _inputs(1, 3, 5, 70, 2, 32, 32, case.get("contextual_seq_len", 0), nt_on, cuda)
     kw = dict(alpha=0.6, norm_len=90, num_targets=nt, **case)
-    launches = delta_hstu_mha_cuda.launches.count
+    launches = delta_hstu_mha_cuda.launches["delta_hstu_mha_fwd"].count
     got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
-    assert delta_hstu_mha_cuda.launches.count == launches + 1
+    assert delta_hstu_mha_cuda.launches["delta_hstu_mha_fwd"].count == launches + 1
     torch.testing.assert_close(got, delta_hstu_mha_plain(q, k, v, lengths, **kw), **TOL)
 
 
@@ -196,6 +196,56 @@ def test_delta_kernel_on_a_strided_q_view(cuda):
     shifted = [torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].reshape(x.shape) for x in (k, v)]
     assert all(x.data_ptr() % 16 == 4 for x in shifted)
     torch.testing.assert_close(delta_hstu_mha_cuda(q, *shifted, lengths, **kw), want, **TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DELTA_CASES)
+@pytest.mark.parametrize("alpha", [1.0, 0.3])
+def test_delta_bf16_kernel_matches_plain(cuda, case, alpha):
+    """K5-bf16 against its bfloat16 plain version within 2^-6 of the
+    output's largest entry, counted under its own entry point; the same
+    bits on a second run. alpha 0.3 is no bfloat16 number: alpha q is
+    rounded where the Pallas kernel rounds it."""
+    case = dict(case)
+    nt_on = case.pop("num_targets", False)
+    q, k, v, lengths, nt = _inputs(1, 3, 5, 70, 2, 32, 32, case.get("contextual_seq_len", 0), nt_on, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(alpha=alpha, norm_len=90, num_targets=nt, **case)
+    counters = delta_hstu_mha_cuda.launches
+    before = {k_: c.count for k_, c in counters.items()}
+    got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
+    assert {k_: c.count - before[k_] for k_, c in counters.items()} == {"delta_hstu_mha_fwd": 0,
+                                                                         "delta_hstu_mha_fwd_bf16": 1}
+    assert got.dtype == torch.bfloat16
+    assert _bf16_err(got, delta_hstu_mha_plain(q, k, v, lengths, **kw)) <= BF16_TOL
+    assert torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "name",
+    ["chunk edges", "empty cache beside a full row", "M=1", "M=17", "D=V=40", "D=V=25"],
+)
+def test_delta_bf16_kernel_at_its_seams(cuda, name):
+    """K5-bf16 at the seams of K5's tiling (the 8-byte loads where the rows
+    allow them, the scalar path at D = V = 25), and at V above 128 and D
+    above 256; the same bits twice."""
+    q, k, v, lengths, nt = (x.to(torch.bfloat16) if x.is_floating_point() else x for x in _delta_seam(name, cuda))
+    kw = dict(alpha=0.6, norm_len=230, num_targets=nt, contextual_seq_len=0)
+    got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
+    assert _bf16_err(got, delta_hstu_mha_plain(q, k, v, lengths, **kw)) <= BF16_TOL
+    assert torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,V", [(64, 256), (320, 32)])
+def test_delta_bf16_kernel_at_wide_heads(cuda, D, V):
+    q, k, v, lengths, nt = _inputs(41, 3, 12, 200, 2, D, V, 1, True, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    kw = dict(alpha=D**-0.5, norm_len=210, num_targets=nt, contextual_seq_len=1)
+    got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
+    assert _bf16_err(got, delta_hstu_mha_plain(q, k, v, lengths, **kw)) <= BF16_TOL
+    assert torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **kw))
 
 
 @pytest.mark.gpu
@@ -847,13 +897,22 @@ DET_TABLE_TOL_BF16 = 1e-5  # of a table gradient's largest entry, bfloat16 input
 
 def _det_checks(args, do, kw, bf16):
     """K7-det against the plain backward, its launch counted once as K7-det
-    (float32 or bfloat16) and nothing else; every output, tables included,
-    the same bits on a second run; rows >= length exactly 0."""
+    (float32 or bfloat16) and nothing else (no dq pass: K3's counters stand
+    still, and the plan has none); every output, tables included, the same
+    bits on a second run; rows >= length exactly 0."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
     c = hstu_mha_relbias_bwd_cuda
-    counters = (c.launches, c.launches_bf16, c.launches_det, c.launches_det_bf16)
+    dq_pass = hstu_mha_bwd_cuda.launches
+    counters = (c.launches, c.launches_bf16, c.launches_det, c.launches_det_bf16,
+                dq_pass["hstu_mha_bwd_dq"], dq_pass["hstu_mha_bwd_dq_bf16"])
     before = [x.count for x in counters]
     grads = c(*args, do, deterministic=True, **kw)
-    assert [x.count - b for x, b in zip(counters, before)] == ([0, 0, 0, 1] if bf16 else [0, 0, 1, 0])
+    assert [x.count - b for x, b in zip(counters, before)] == ([0, 0, 0, 1, 0, 0] if bf16 else [0, 0, 1, 0, 0, 0])
+    q, v, pos_w, ts_w = args[0], args[2], args[5], args[6]
+    plan = hr._relbias_det_plan(q.shape[3], v.shape[3], q.shape[2], q.shape[0], q.shape[1], (pos_w.shape[0] + 1) // 2,
+                                ts_w.shape[0] - 1, kw.get("causal", True), kw.get("contextual_seq_len", 0))
+    assert "dq_route" not in plan
     again = c(*args, do, deterministic=True, **kw)
     assert all(torch.equal(a, b) for a, b in zip(grads, again))
     want = hstu_mha_relbias_bwd_plain(*args, do, **kw)
@@ -1103,9 +1162,9 @@ def test_delta_kernel_at_wide_heads(cuda, D, V):
     (q read in chunks), over several key chunks and row tiles."""
     q, k, v, lengths, nt = _inputs(41, 3, 12, 200, 2, D, V, 1, True, cuda)
     kw = dict(alpha=D**-0.5, norm_len=210, num_targets=nt, contextual_seq_len=1)
-    before = delta_hstu_mha_cuda.launches.count
+    before = delta_hstu_mha_cuda.launches["delta_hstu_mha_fwd"].count
     got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
-    assert delta_hstu_mha_cuda.launches.count == before + 1
+    assert delta_hstu_mha_cuda.launches["delta_hstu_mha_fwd"].count == before + 1
     _held("out", got, delta_hstu_mha_plain(q, k, v, lengths, **kw), False)
     assert torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **kw))
 
@@ -1162,8 +1221,8 @@ def test_relbias_kernels_at_wide_heads(cuda, D, V, bf16):
 )
 def test_relbias_kernels_with_long_tables(cuda, H, D, N, Nm, nb, bf16):
     """Tables that do not fit beside the tiles: K7 and K7-det
-    read them and flush each step's window of dpos_w; at Nm 22000 K6 and
-    K7-det's dq pass read them too. Short batches against a long table, as
+    read them and flush each step's window of dpos_w; at Nm 22000 K6
+    reads them too. Short batches against a long table, as
     a model with a long maximum length trains; the 1024-bucket case puts
     gaps past float32's range on some rows (bucket NB) and gaps near it. At
     H 8 K7's groups of 4 (width 32) and 2 (width 64) heads are full, as in

@@ -6,9 +6,11 @@ plain backward whatever ``deterministic`` says, which `tests/test_torch_relbias.
 and `tests/test_torch_bf16.py` hold against the Pallas VJP; the kernel's own
 arithmetic is held to it on the card (`tests/test_torch_kernels.py`).
 
-* `_relbias_det_plan`: the dq pass's grid and shared memory, K7's grid, the
-  partial buffer of the blocks' table sums (1,536 x 1,150 floats at ml-3b's
-  shape), the sum's grid, and what it refuses.
+* `_relbias_det_plan`: K7's grid, the partial buffer of the blocks' table
+  sums (1,536 x 1,150 floats at ml-3b's shape), the dQ slots (one per tile
+  pair the walk visits, `_det_slot`, against a Python enumeration of the C
+  walk), the sum's grid, and what it refuses; the slots' ordered sum
+  emulated in plain PyTorch against the plain backward's dq.
 * `_relbias_bwd` with ``deterministic``: the entry point, the arguments its
   C signature takes, the partial buffer of the plan, the counters
   ``launches_det`` / ``launches_det_bf16``.
@@ -46,29 +48,33 @@ def _inputs(seed, B, N, H, D, V, Nm, nb, bf16):
 
 
 @pytest.mark.parametrize(
-    "D, V, H, B, N, Nm, NB, width, head_group, grid, partial_shape, dq_grid, dq_shared_bytes",
+    "D, V, H, B, N, Nm, NB, width, head_group, grid, partial_shape, dq_partial_shape, sum_grid",
     [
         # ml-3b/hstu-sampled-softmax-n96-seqlen500-large: 8 key tiles x 2 head
-        # groups x 96 rows = 1,536 blocks of 1,150 floats (7.1 MB)
-        (32, 32, 8, 96, 511, 511, 128, 32, 4, (8, 2, 96), (1536, 1150), (8 * 8 * 96,),
-         4 * ((64 + 128) * (40 + 40) + 64 * 72 + 4 + 1021 + 129 + 511)),
-        # ml-1m/hstu-sampled-softmax-n128-large: D = V = 25, 2 heads in one group
-        (25, 25, 2, 128, 211, 211, 128, 32, 4, (4, 1, 128), (512, 550), (4 * 2 * 128,),
-         4 * ((64 + 128) * (40 + 40) + 64 * 72 + 4 + 421 + 129 + 211)),
+        # groups x 96 rows = 1,536 blocks of 1,150 floats (7.1 MB); 36 causal
+        # tile pairs a row, each 64 x 8 heads x 32 floats (226 MB); 4 sum
+        # blocks per query tile, then 36 for the tables
+        (32, 32, 8, 96, 511, 511, 128, 32, 4, (8, 2, 96), (1536, 1150), (96, 36, 64, 8, 32),
+         (96 * 8 * 4 + 36,)),
+        # ml-1m/hstu-sampled-softmax-n128-large: D = V = 25, 2 heads in one
+        # group; H D = 50 is not a multiple of 4: 1024 floats a sum block
+        (25, 25, 2, 128, 211, 211, 128, 32, 4, (4, 1, 128), (512, 550), (128, 10, 64, 2, 25),
+         (128 * 4 * 4 + 18,)),
         # width 64: groups of 2 heads, H = 3 leaves one unfilled
-        (50, 50, 3, 2, 140, 140, 64, 64, 2, (3, 2, 2), (12, 344), (3 * 3 * 2,),
-         4 * ((64 + 128) * (72 + 72) + 64 * 72 + 4 + 279 + 65 + 140)),
+        (50, 50, 3, 2, 140, 140, 64, 64, 2, (3, 2, 2), (12, 344), (2, 6, 64, 3, 50), (2 * 3 * 10 + 11,)),
     ],
     ids=["ml-3b", "ml-1m-large", "width-64"],
 )
-def test_det_launch_plan(D, V, H, B, N, Nm, NB, width, head_group, grid, partial_shape, dq_grid, dq_shared_bytes):
+def test_det_launch_plan(D, V, H, B, N, Nm, NB, width, head_group, grid, partial_shape, dq_partial_shape,
+                         sum_grid):
     plan = hr._relbias_det_plan(D, V, H, B, N, Nm, NB)
     assert plan["width"] == width and plan["head_group"] == head_group
     assert plan["grid"] == grid and plan["partial_shape"] == partial_shape
     assert plan["partial_shape"][0] == grid[0] * grid[1] * grid[2]
-    assert plan["dq_grid"] == dq_grid and plan["dq_shared_bytes"] == dq_shared_bytes <= 232448
+    assert plan["dq_partial_shape"] == dq_partial_shape and plan["pairs"] == dq_partial_shape[1]
     assert plan["shared_bytes"] == hr._relbias_bwd_plan(D, V, H, Nm, NB)["shared_bytes"]
-    assert plan["sum_grid"] == (-(-partial_shape[1] // 32),)
+    assert plan["sum_grid"] == sum_grid
+    assert "dq_route" not in plan and "dq_shared_bytes" not in plan  # no dq pass
 
 
 @pytest.mark.parametrize("args, match", [
@@ -87,21 +93,24 @@ def test_det_launch_plan_raises(args, match):
     ((32, 32, 2, 2, 40000, 1000, 10), "dq read"),
 ])
 def test_det_launch_plan_admits(args, route):
-    """Shapes past K7-det's staged tiling: wide heads take the wide bodies, one
-    row of `partial` per (key tile, head, batch row); a long table is read
-    from device memory by K7's body, and the dq pass reads the tables and
-    the timestamps where they do not fit beside its tiles."""
+    """Shapes past K7-det's staged tiling: wide heads take the wide bodies
+    (their dq pass, then one row of `partial` per (key tile, head, batch
+    row), no dQ slots); a long table is read from device memory by K7's
+    body; a long N (40,000 rows) takes the narrow body, its dQ slots one
+    per causal tile pair."""
     D, V, H, B, N, Nm, NB = args
     plan = hr._relbias_det_plan(*args)
-    assert plan["shared_bytes"] <= 232448 and plan["dq_shared_bytes"] <= 232448
+    assert plan["shared_bytes"] <= 232448
     assert plan["partial_shape"][1] == 2 * Nm - 1 + NB + 1
     if route == "wide":
-        assert plan["route"] == plan["dq_route"] == "wide" and plan["partial_shape"][0] == -(-N // 64) * H * B
+        assert plan["route"] == "wide" and plan["dq_shared_bytes"] <= 232448
+        assert plan["partial_shape"][0] == -(-N // 64) * H * B and plan["dq_partial_shape"] is None
+        assert plan["sum_grid"] == (-(-(2 * Nm - 1 + NB + 1) // 32),)  # the tables alone
     elif route == "read":
         assert plan["route"] == "read"
     else:
-        assert plan["route"] == "narrow" and plan["dq_route"] == "read"
-        assert plan["dq_shared_bytes"] == hr.ha._dq_plan(D, V, H, B, N)["shared_bytes"]
+        tiles = -(-N // 64)
+        assert plan["route"] == "narrow" and plan["dq_partial_shape"] == (B, tiles * (tiles + 1) // 2, 64, H, D)
 
 
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
@@ -129,10 +138,101 @@ def test_deterministic_launch_goes_by_the_plan(monkeypatch, bf16):
                             deterministic=True)
     name = "hstu_mha_relbias_bwd_det_bf16" if bf16 else "hstu_mha_relbias_bwd_det"
     assert len(calls) == 1 and calls[0][0] == name and len(calls[0]) == 1 + len(hr.ha._ARGTYPES[name])
-    assert calls[0][-3:-1] == (hr.ha._ROUTES["narrow"],) * 2  # K7's body's route, the dq pass's
+    assert calls[0][-2] == hr.ha._ROUTES["narrow"]  # K7's body's route
     assert [x.count - b for x, b in zip(counters, before)] == ([0, 0, 0, 1] if bf16 else [0, 0, 1, 0])
     assert [g.dtype for g in grads] == [dtype] * 3 + [torch.float32] * 2
-    assert hr._relbias_det_plan(D, D, H, B, N, Nm, NB)["partial_shape"] in allocs
+    plan = hr._relbias_det_plan(D, D, H, B, N, Nm, NB)
+    assert plan["partial_shape"] in allocs and plan["dq_partial_shape"] in allocs
+    # the two scratch pointers follow dpos and dts: the table rows, the dQ slots
+    assert all(isinstance(x, int) and x for x in calls[0][15:17])
+
+
+def _walk_pairs(N, lower_only, length=None):
+    """The (query tile, key tile) pairs K7's walk visits at a row's
+    ``length`` (default N), as csrc/hstu_mha_relbias_bwd.cu walks them: a
+    block per key tile below the length, its query tiles from its own
+    (``lower_only``) or the first, up to the length."""
+    length = N if length is None else length
+    return [(row0 // 64, col0 // 64) for col0 in range(0, length, 64)
+            for row0 in range(col0 if lower_only else 0, length, 64)]
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 511, 4096])
+@pytest.mark.parametrize("mask", ["causal", "contextual rows", "max_attn_len", "non-causal"])
+def test_det_slots_hold_the_walks_pairs(N, mask):
+    """`_relbias_det_plan`'s dQ slots against the C walk's pairs: every pair
+    the walk visits has a slot of its own, and no slot is left for a pair it
+    does not visit (a window does not shorten the walk; contextual rows and
+    a non-causal mask make it take every pair); the `dq_partial` shape. At
+    shorter lengths the sum reads exactly the slots the walk writes."""
+    causal = mask != "non-causal"
+    ctx = 3 if mask == "contextual rows" else 0
+    B, H, D = 2, 8, 32
+    plan = hr._relbias_det_plan(D, D, H, B, N, N, 128, causal, ctx)
+    lower_only = causal and ctx == 0
+    assert plan["lower_only"] == lower_only
+    tiles = -(-N // 64)
+    pairs = _walk_pairs(N, lower_only)
+    slots = [hr._det_slot(qt, kt, tiles, lower_only) for qt, kt in pairs]
+    assert sorted(slots) == list(range(plan["pairs"])) and len(set(slots)) == len(pairs)
+    assert plan["dq_partial_shape"] == (B, len(pairs), 64, H, D)
+    for length in sorted({1, 64, 65, N // 2 + 1, N}):
+        if length > N:
+            continue
+        written = set(_walk_pairs(N, lower_only, length))
+        # det_sums_kernel: a live query tile's key tiles 0 .. qt (lower_only)
+        # or every key tile below the length, in ascending order
+        read = {(qt, kt) for qt in range(-(-length // 64))
+                for kt in range(qt + 1 if lower_only else -(-length // 64))}
+        assert read == written
+
+
+@pytest.mark.parametrize("case", [dict(), dict(num_targets=True, max_attn_len=37), dict(contextual_seq_len=3),
+                                  dict(causal=False)], ids=["causal", "window", "contextual", "non-causal"])
+def test_ordered_slot_sum_matches_plain_dq(case):
+    """K7-det's dq as its two launches form it, emulated in plain PyTorch:
+    each visited tile pair's alpha dS K stored to its slot (rows past the
+    length left out), then each query tile's slots added over the key tiles
+    in ascending order; against `hstu_mha_relbias_bwd_plain`'s dq within
+    2e-5 of its largest entry."""
+    B, N, H, D, V, Nm, nb = 3, 150, 2, 8, 8, 150, 16
+    q, k, v, do, lengths, ts, pos_w, ts_w = _inputs(36, B, N, H, D, V, Nm, nb, False)
+    case = dict(case)
+    nt = np.minimum(np.array([2, 1, 3]), lengths - 1).astype(np.int32) if case.pop("num_targets", False) else None
+    kw = dict(alpha=0.7, max_seq_len=N, causal=True, num_targets=None if nt is None else torch.as_tensor(nt),
+              max_attn_len=0, contextual_seq_len=0, min_full_attn_seq_len=0)
+    kw.update(case)
+    T = torch.as_tensor
+    want = hr.hstu_mha_relbias_bwd_plain(T(q), T(k), T(v), T(lengths), T(ts), T(pos_w), T(ts_w), T(do),
+                                         num_buckets=nb, **kw)[0]
+    # dS as K7 forms it
+    mask = hr._plain_mask(N, T(lengths), kw)[:, None]
+    bias = hr.relative_bias_plain(T(ts), T(pos_w), T(ts_w), nb)[:, None]
+    s = torch.einsum("bnhd,bmhd->bhnm", T(q), T(k)) * kw["alpha"] + bias
+    sig = torch.sigmoid(s)
+    dp = torch.einsum("bnhv,bmhv->bhnm", T(do), T(v)) / N
+    ds = torch.where(mask, dp * sig * (1 + s * (1 - sig)), 0.0)
+    plan = hr._relbias_det_plan(D, V, H, B, N, Nm, nb, kw["causal"], kw["contextual_seq_len"])
+    lower_only, tiles = plan["lower_only"], plan["tiles"]
+    slots = torch.full(plan["dq_partial_shape"], float("nan"))
+    for b in range(B):
+        for qt, kt in _walk_pairs(N, lower_only, int(lengths[b])):
+            r0, c0 = qt * 64, kt * 64
+            rows = min(64, int(lengths[b]) - r0)
+            tile = kw["alpha"] * torch.einsum("hrc,chd->rhd", ds[b, :, r0:r0 + rows, c0:c0 + 64], T(k)[b, c0:c0 + 64])
+            slots[b, hr._det_slot(qt, kt, tiles, lower_only), :rows] = tile
+    got = torch.zeros(B, N, H, D)
+    for b in range(B):
+        length = int(lengths[b])
+        for qt in range(-(-length // 64)):
+            rows = min(64, length - qt * 64)
+            acc = torch.zeros(rows, H, D)
+            for kt in range(qt + 1 if lower_only else -(-length // 64)):
+                acc = acc + slots[b, hr._det_slot(qt, kt, tiles, lower_only), :rows]
+            got[b, qt * 64:qt * 64 + rows] = acc
+    assert torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= 2e-5 * want.abs().max().item(), err
 
 
 def _stand_ins(monkeypatch):

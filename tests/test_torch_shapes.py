@@ -124,7 +124,8 @@ def test_every_shape_gets_a_plan_that_fits(plan):
         else:
             key = (H, N, D, V, Nm, NB)
             p = hr._relbias_det_plan(D, V, H, B, N, Nm, NB)
-            got = [p, dict(shared_bytes=p["dq_shared_bytes"])]
+            # the wide bodies' dq pass beside their dkv pass; the narrow route has none
+            got = [p] + ([dict(shared_bytes=p["dq_shared_bytes"])] if p["route"] == "wide" else [])
         if key in seen:
             continue
         seen.add(key)
@@ -160,9 +161,12 @@ def test_long_tables_are_read_where_staged_ones_do_not_fit(H, N, D, Nm, NB):
     plan = hr._relbias_bwd_plan(D, D, H, Nm, NB)
     assert plan["route"] == "read" and plan["shared_bytes"] <= SHARED
     det = hr._relbias_det_plan(D, D, H, 8, N, Nm, NB)
-    assert det["route"] == "read" and det["shared_bytes"] <= SHARED and det["dq_shared_bytes"] <= SHARED
-    # K7-det's partial buffer: one row of both tables per block
+    assert det["route"] == "read" and det["shared_bytes"] <= SHARED
+    # K7-det's partial buffer: one row of both tables per block; its dQ slots:
+    # one per tile pair on and below the diagonal
     assert det["partial_shape"] == (det["grid"][0] * det["grid"][1] * det["grid"][2], 2 * Nm - 1 + NB + 1)
+    tiles = -(-N // 64)
+    assert det["dq_partial_shape"] == (8, tiles * (tiles + 1) // 2, 64, H, D)
 
 
 def test_refusals_left():
