@@ -44,7 +44,10 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    versions at the ml-3b layer-0 shape, at bench.py's shape (B 8, N 2048,
    H 4, D 64, alpha 1/8), at its width at N 4096 (where the JAX package
    takes the split backward on bfloat16) and at their seams, timed, with
-   their bounds; K1-bias (K1 with an additive [B, N, N] bias, float32 and
+   their bounds and, at bench.py's shape, the pair K1-bf16 + K2-bf16 in
+   TFLOP/s under bench.py's FLOP model (K1-bf16, K1-bias-bf16 and K6-bf16
+   share the bfloat16 forward body, K2-bf16 and K4-bf16 the bfloat16
+   backward body; K1-bf16's and K6-bf16's outputs the same bits twice too); K1-bias (K1 with an additive [B, N, N] bias, float32 and
    bfloat16) at the serving shape with a per-row and a broadcast bias, at
    the tile edges with targets and contextual rows and a bfloat16 bias, and
    with a bias read element by element, timed beside K1 without the bias;
@@ -136,8 +139,9 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    in float32, 2 + 5 steps, its median against the research phase's, both
    profiled; a small bfloat16 model twice (K7-det-bf16 in block 0); a small
    bias-free bfloat16 model twice (K3-bf16 + K4-bf16 in block 0, K3 + K4 in
-   the others, warn_only off); the ml-3b preset bias-free in bfloat16, 2 + 5
-   steps, its launches and median against the bias-free phase's. Between
+   the others, warn_only off); the ml-3b preset bias-free in bfloat16 twice,
+   2 + 5 steps each, bit-identical, its launches and median against the
+   bias-free phase's. Between
    the two: the preset with
    attention dropout 0.2 (2 + 10 steps through the plain composite, 0 K6 /
    K7 a step, K6 in the eval) and the position-only bias (no timestamps:
@@ -210,8 +214,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 # dense bfloat16 in the tensor cores: the bound of the kernels on bfloat16
-# operands (K1, K2, K6, K7, K7-det), which by their own choice multiply with
-# one exact TF32 product each, at half this rate
+# operands; K1, K2, K4 and K6 multiply on the bfloat16 tensor cores, K3, K7
+# and K7-det with one exact TF32 product each, at half this rate
 PEAK_BF16_FLOPS = 989e12
 
 # the full-width debug preset, as served
@@ -580,7 +584,7 @@ def wide_routes():
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
 
     saved = fwd, bwd, det = hr.ha._fwd_plan, hr._relbias_bwd_plan, hr._relbias_det_plan
-    hr.ha._fwd_plan = lambda D, V, H, Nm, NB, relbias, B=1, N=1: fwd(max(D, 257), V, H, Nm, NB, relbias, B, N)
+    hr.ha._fwd_plan = lambda D, V, H, Nm, NB, relbias, *a: fwd(max(D, 257), V, H, Nm, NB, relbias, *a)
     hr._relbias_bwd_plan = lambda D, V, H, Nm, NB: bwd(max(D, 65), V, H, Nm, NB)
     hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB, *a: det(max(D, 65), V, H, B, N, Nm, NB, *a)
     try:
@@ -761,7 +765,7 @@ def det_main(argv) -> None:
     two runs from one seed give the same bits: the ml-1m large preset twice,
     the ml-3b preset in float32 against the research phase's median, a small
     bfloat16 model twice, a small bias-free bfloat16 model twice, the ml-3b
-    preset bias-free in bfloat16 against the bias-free phase's median, the
+    preset bias-free in bfloat16 twice against the bias-free phase's median, the
     long-history phase's model (N = Nm = 4096) twice.
     Reads the files the earlier phases wrote under DATA_ROOT. Prints its
     report, then its launches as one line ``DET_RESULT <json>``."""
@@ -907,23 +911,20 @@ def det_main(argv) -> None:
                "K4-bf16": 2})
     check(not det_mode["warn_only"], "an operation of a deterministic step refused with warn_only off")
     # the ml-3b preset bias-free in bfloat16 under deterministic algorithms,
-    # against the bias-free bfloat16 phase's median (both in this call)
+    # twice from one seed (block 0 on K3-bf16 + K4-bf16), against the
+    # bias-free bfloat16 phase's median (both in this call)
     fcfg = dataclasses.replace(rcfg, model=dataclasses.replace(rm, compute_dtype="bfloat16",
                                                                enable_relative_attention_bias=False))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tf_, lf_, sf_, n_f = det_steps(fcfg, shard_train, n3, 11)
     rest = (rm.num_blocks - 1) * n3
     want_f = {"K1": rest, "K2": 0, "K3": rest, "K4": rest, "K5": 0, "K6": 0, "K7": 0, "K1-bf16": n3,
               "K3-bf16": n3, "K4-bf16": n3}
-    check(n_f == want_f and all(math.isfinite(x) for x in lf_) and not det_mode["warn_only"],
-          f"deterministic bias-free bfloat16 ml-3b: launched {n_f} (expected {want_f}), losses {lf_}, warn_only "
-          f"{det_mode['warn_only']}")
-    f_det_med = 1e3 * median(sf_[RESEARCH_WARMUPS:])
-    print(f"  {RESEARCH_PRESET} bias-free in bfloat16, deterministic, {RESEARCH_WARMUPS} + {DET_ML3B_STEPS} steps: "
-          f"median step {f_det_med:.2f} ms against the bias-free bfloat16 phase's {f_median:.2f} ms "
-          f"({f_det_med / f_median:.2f}x); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches {n_f} (warn_only {det_mode['warn_only']})")
+    tf_, f_det_med = det_twice(f"{RESEARCH_PRESET} bias-free in bfloat16, deterministic, {RESEARCH_WARMUPS} + "
+                               f"{DET_ML3B_STEPS} steps", fcfg, shard_train, n3, want_f)
+    check(not det_mode["warn_only"], "a deterministic bias-free bfloat16 ml-3b step refused with warn_only off")
+    print(f"  against the bias-free bfloat16 phase's {f_median:.2f} ms ({f_det_med / f_median:.2f}x); peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tf_
     # the long-history phase's model (N = Nm = 4096) under deterministic
     # algorithms: K7-det with the position table read from device memory,
@@ -1820,7 +1821,8 @@ def main() -> None:
         """K6 and K7 on bfloat16 views of one bfloat16 uvqk projection and a
         strided bfloat16 dO, against their bfloat16 plain versions (the same
         rounding points, alpha q rounded to bfloat16 where alpha != 1); dead
-        rows exactly 0, dk and dv the same bits on a second run."""
+        rows exactly 0, K6's output and K7's dk and dv the same bits on a
+        second run."""
         bf = torch.bfloat16
         proj = rand(Bc, N, Hc * (2 * Vc + 2 * Dc)).to(bf)
         _, v, q, k = torch.split(proj, [Hc * Vc, Hc * Vc, Hc * Dc, Hc * Dc], dim=-1)
@@ -1834,6 +1836,8 @@ def main() -> None:
         want = hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, **args)
         torch.cuda.synchronize()
         check(got.dtype == want.dtype == bf, f"K6-bf16 {name}: output types {got.dtype}, {want.dtype}")
+        check(torch.equal(got, hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **args)),
+              f"K6-bf16 {name}: two runs differ")
         bf16_errs["K6-bf16"].append(compare(f"K6-bf16 {name}", got.float(), want.float(), dead, rel_tol=BF16_TOL))
         del got, want
         grads = hstu_mha_relbias_bwd_cuda(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
@@ -2010,10 +2014,12 @@ def main() -> None:
     del d16_case
     bB, bN, bH, bD = BENCH_SHAPE
     b16 = {}  # bench.py's shape at N and at the N where the JAX package takes the split on bfloat16
+    b16_flops = {}  # bench.py's FLOP model of the pair: 3.5 times the forward's 2 H (D + D) L^2 / 2
     for n_ in (bN, BENCH_SPLIT_N):
         brng = np.random.default_rng(0)
         bench_len = torch.as_tensor(np.clip(brng.integers(n_ // 8, n_, size=(bB,)), 1, n_), dtype=torch.int32,
                                     device="cuda")
+        b16_flops[n_] = 3.5 * sum(2.0 * bH * (bD + bD) * float(x) ** 2 / 2.0 for x in bench_len.tolist())
         bench_qkv = tuple(torch.as_tensor(brng.standard_normal((bB, n_, bH, bD), np.float32) * 0.1, device="cuda")
                           .to(torch.bfloat16) for _ in range(3))
         bench_case = dense_bf16_case(f"bench.py's shape (B={bB}, N={n_}, H={bH}, D={bD}, alpha 1/{bD**0.5:g}), "
@@ -2032,14 +2038,16 @@ def main() -> None:
     dense_bf16_case("alpha 1/8, a window with full-attention rows", 4, 150, ints(20, 151, 4), 2, 32, 32,
                     nt=ints(0, 10, 4), alpha_=0.125, max_attn_len=16, min_full_attn_seq_len=8)
     dense_bf16_case("D=V=25 (scalar loads), non-causal", 3, 97, ints(1, 98, 3), 2, 25, 25, causal=False)
-    for label, (t1, t2, p1, p2, t3, t4), (w1, w2, w3, w4) in (
-            ("ml-3b layer 0", d16_times, (d16_w1, d16_w2, d16_w3, d16_w4)),
-            *((f"bench.py's shape (N={n_})", b_[:6], b_[6:]) for n_, b_ in b16.items())):
+    for label, (t1, t2, p1, p2, t3, t4), (w1, w2, w3, w4), flops in (
+            ("ml-3b layer 0", d16_times, (d16_w1, d16_w2, d16_w3, d16_w4), None),
+            *((f"bench.py's shape (N={n_})", b_[:6], b_[6:], b16_flops[n_]) for n_, b_ in b16.items())):
+        pair = "" if flops is None else (f"; the pair K1-bf16 + K2-bf16 {t1 + t2:.4f} ms, "
+                                         f"{flops / ((t1 + t2) * 1e-3) / 1e12:.2f} TFLOP/s under bench.py's FLOP model")
         print(f"  {label}: K1-bf16 {t1:.4f} ms (plain {p1:.4f}, bound {bound_ms(w1, PEAK_BF16_FLOPS):.4f}), "
               f"K2-bf16 {t2:.4f} ms (plain {p2:.4f}, bound {bound_ms(w2, PEAK_BF16_FLOPS):.4f}), "
               f"K3-bf16 {t3:.4f} ms (bound {bound_ms(w3, PEAK_BF16_FLOPS):.4f}), K4-bf16 {t4:.4f} ms (bound "
               f"{bound_ms(w4, PEAK_BF16_FLOPS):.4f}); the split K3-bf16 + K4-bf16 {t3 + t4:.4f} ms against the "
-              f"fused K2-bf16's {t2:.4f} ms")
+              f"fused K2-bf16's {t2:.4f} ms{pair}")
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------- serving phase
@@ -3969,7 +3977,9 @@ def main() -> None:
 
     # --------------------------------------------------------------- report
     peaks = {PEAK_F32_FLOPS: "float32 FMA, 67e12", PEAK_3XTF32_FLOPS: "3xTF32, 495e12 / 3",
-             PEAK_BF16_FLOPS: "bfloat16, 989e12 (the kernel multiplies with one exact TF32 product, at half)"}
+             PEAK_BF16_FLOPS: "bfloat16, 989e12 (K1-, K1-bias-, K2-, K4- and K6-bf16 multiply on the bfloat16 "
+                              "tensor cores; K3-, K7- and K7-det-bf16 with one exact TF32 product, at half; K5-bf16 in "
+                              "float32 FMA)"}
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes, peak=PEAK_F32_FLOPS):
         """``peak``: the rate the kernel's operations are held to, float32

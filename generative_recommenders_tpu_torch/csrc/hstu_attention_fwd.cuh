@@ -1,14 +1,10 @@
 // HSTU attention forward for Hopper (sm_90a) on the tensor cores, float32 in
 // and out: the shared body of the dense kernel K1 (hstu_mha_fwd.cu), of K1
 // with an additive dense [B, N, N] bias (K1-bias, the same file) and of the
-// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu); all also bfloat16 in
-// and out (E = __nv_bfloat16), with the TPU kernels' rounding: alpha Q
-// rounded to bfloat16 (where alpha != 1), S and the sum P V in float32, P
-// rounded to bfloat16 before P V, O = (P V) / norm written as bfloat16. The
-// bfloat16 tiles are converted to float32 on their way into shared memory
-// (synchronously, `load_tile`'s bfloat16 overload, which also forms alpha Q),
-// and every product is one exact TF32 `mma` (`mma<true>`, tf32_mma.cuh)
-// instead of three.
+// relative-bias kernel K6 (hstu_mha_relbias_fwd.cu). On bfloat16 q, k and v
+// the three take the bfloat16 body of hstu_attention_fwd_bf16.cuh (included
+// at the end of this file), up to D 256 and V 128; wider heads take the wide
+// body on either type.
 //
 //   S = alpha Q K^T (+ bias)   P = silu(S) * valid_mask   O = (P V) / norm
 //
@@ -113,6 +109,11 @@ struct Params {
   long long bias_sb = 0, bias_sn = 0;
   int bias_bf16 = 0;
   int vec_bias = 0;  // pairs of neighbouring columns readable at once (set by `launch`)
+  // the bfloat16 body only: key columns a chunk of a walk (the plan's), and
+  // the float32 [chunks, B, N, H, V] sums of a walk cut in chunks (null
+  // where the plan cuts none)
+  int chunk = 0;
+  float* scratch = nullptr;
 };
 
 // The bias added to S: none (K1), the relative bias rebuilt from two tables
@@ -165,14 +166,12 @@ __device__ __forceinline__ float2 load_bias2(const Params& p, long long at, bool
   return make_float2(first ? x[0] : 0.f, second ? x[1] : 0.f);
 }
 
-// W: the padded head width; BIAS: the bias added to S (`Bias`); E: the type
-// of q, k, v and out (float, or __nv_bfloat16).
-template <int W, int BIAS, typename E>
+// W: the padded head width; BIAS: the bias added to S (`Bias`).
+template <int W, int BIAS>
 __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kernel(Params p) {
   using T = Tiling<W>;
   constexpr bool GT = BIAS == kRelBiasGlobal;  // the tables read from device memory
   constexpr bool RELBIAS = BIAS == kRelBias || GT, DENSE = BIAS == kDenseBias, BIASED = RELBIAS || DENSE;
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
   constexpr int HG = T::HG, BK = T::BK;
   constexpr int kRows = 16 * T::NW, kThreads = 32 * T::NW;
   constexpr int WV = W < 128 ? W : 128;
@@ -215,11 +214,7 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
   const bool plain_causal =
       causal && p.contextual_seq_len == 0 && nt == 0 && p.max_attn_len == 0;
   const int row_lo = q0 + warp * 16 + g;  // the thread's rows: row_lo, row_lo + 8
-  // bfloat16: alpha rides the Q tile, rounded to bfloat16 as the TPU kernel
-  // rounds alpha q (the scalar itself in bfloat16, as JAX's weakly typed
-  // Python float); S then takes no alpha
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float s_alpha = kBf16 ? 1.f : p.alpha;
+  const float s_alpha = p.alpha;
   // `valid_elem` (length guard on) cut into what depends on the row alone,
   // once per block, and what depends on the column: contextual rows and
   // columns folded onto 0, both clipped at the target boundary
@@ -246,9 +241,9 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
       for (int c = 0; c < 4; ++c) acc[hh][j][c] = 0.f;
 
   if (n_kt > 0) {
-    const E* qb = static_cast<const E*>(p.q) + b * p.q_sb + h0 * p.q_sh;
-    const E* kb = static_cast<const E*>(p.k) + b * p.k_sb + h0 * p.k_sh;
-    const E* vb = static_cast<const E*>(p.v) + b * p.v_sb + h0 * p.v_sh;
+    const float* qb = static_cast<const float*>(p.q) + b * p.q_sb + h0 * p.q_sh;
+    const float* kb = static_cast<const float*>(p.k) + b * p.k_sb + h0 * p.k_sh;
+    const float* vb = static_cast<const float*>(p.v) + b * p.v_sb + h0 * p.v_sh;
     const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
     // the step's K and V tiles: step (kt, hh) into stage `st`
     auto load_step = [&](int kt, int hh, int st) {
@@ -258,14 +253,9 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
       load_tile<WV, PV, BK, kThreads>(K + BK * PQ, vb + hh * p.v_sh, p.v_sn, kt * BK, length,
                                       p.V, p.vec_v != 0);
     };
-    for (int hh = 0; hh < nh; ++hh) {
-      if constexpr (kBf16)  // alpha q, rounded to bfloat16
-        load_tile<W, PQ, kRows, kThreads>(Qs + hh * kRows * PQ, qb + hh * p.q_sh, p.q_sn, q0, p.N,
-                                          p.D, p.vec_q != 0, q_scale);
-      else
-        load_tile<W, PQ, kRows, kThreads>(Qs + hh * kRows * PQ, qb + hh * p.q_sh, p.q_sn, q0, p.N,
-                                          p.D, p.vec_q != 0);
-    }
+    for (int hh = 0; hh < nh; ++hh)
+      load_tile<W, PQ, kRows, kThreads>(Qs + hh * kRows * PQ, qb + hh * p.q_sh, p.q_sn, q0, p.N, p.D,
+                                        p.vec_q != 0);
     load_step(0, 0, 0);
     cp_async_commit();
     if (RELBIAS && !GT) {  // visible after the barrier before the first key tile's bias
@@ -401,7 +391,7 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
             for (int ks = 0; ks < KS; ++ks) {  // S's k-steps
               const FragA a = load_a(Qh, PQ, warp * 16, ks * 8);
 #pragma unroll
-              for (int j = 0; j < NT; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, PQ, j * 8, ks * 8));
+              for (int j = 0; j < NT; ++j) mma3(s[j], a, load_b_nk(Ks, PQ, j * 8, ks * 8));
             }
             // P = silu(alpha s + bias), 0 where masked; an interior part has
             // nothing to mask
@@ -420,12 +410,6 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
 #pragma unroll
                 for (int c = 0; c < 4; ++c)
                   if (!((ok_bits >> (4 * j + c)) & 1u)) s[j][c] = 0.f;
-            }
-            if constexpr (kBf16) {  // P V takes P in bfloat16, as the TPU kernel
-#pragma unroll
-              for (int j = 0; j < NT; ++j)
-#pragma unroll
-                for (int c = 0; c < 4; ++c) s[j][c] = round_bf16(s[j][c]);
             }
             // O += P V, the tile's share in fresh accumulators (NG output
             // tiles side by side) added to the walk's sum in float32
@@ -446,7 +430,7 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
                 const FragA a = NO > NG ? pa[NO > NG ? j : 0] : frag_a_p(s[j]);
 #pragma unroll
                 for (int n = 0; n < NG; ++n)
-                  mma<kBf16>(part[n], a, load_b_kn<true>(Vs, PV, j * 8, (n0 + n) * 8));
+                  mma3(part[n], a, load_b_kn<true>(Vs, PV, j * 8, (n0 + n) * 8));
               }
 #pragma unroll
               for (int n = 0; n < NG; ++n)
@@ -469,33 +453,30 @@ __global__ void __launch_bounds__(32 * Tiling<W>::NW, Tiling<W>::MINB) fwd_kerne
     for (int i = 0; i < 2; ++i) {
       const int row = row_lo + 8 * i;
       if (row >= p.N) continue;
-      E* o = static_cast<E*>(p.out) + (((long long)b * p.N + row) * p.H + h0 + hh) * p.V;
+      float* o = static_cast<float*>(p.out) + (((long long)b * p.N + row) * p.H + h0 + hh) * p.V;
 #pragma unroll
       for (int n = 0; n < NO; ++n) {
         const int col = 8 * n + 2 * t;
         const float x0 = acc[hh][n][2 * i] * p.inv_norm, x1 = acc[hh][n][2 * i + 1] * p.inv_norm;
         if (col + 1 < p.V && p.V % 2 == 0) {
-          if constexpr (kBf16)
-            *reinterpret_cast<__nv_bfloat162*>(o + col) = __floats2bfloat162_rn(x0, x1);
-          else
-            *reinterpret_cast<float2*>(o + col) = make_float2(x0, x1);
+          *reinterpret_cast<float2*>(o + col) = make_float2(x0, x1);
         } else {
-          if (col < p.V) o[col] = E(x0);
-          if (col + 1 < p.V) o[col + 1] = E(x1);
+          if (col < p.V) o[col] = x0;
+          if (col + 1 < p.V) o[col + 1] = x1;
         }
       }
     }
   }
 }
 
-template <int W, int BIAS, typename E>
+template <int W, int BIAS>
 cudaError_t launch_w(const Params& p, cudaStream_t stream) {
   using T = Tiling<W>;
   const int tables = BIAS == kRelBias ? 2 * p.Nm - 1 + p.NB + 1 : 0;
   const int ts_row = BIAS == kRelBias ? (p.N + T::BK - 1) / T::BK * T::BK : 0;
   const long long smem = (long long)smem_floats<W>(tables, ts_row) * (long long)sizeof(float);
   if (smem > kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = fwd_kernel<W, BIAS, E>;
+  auto kernel = fwd_kernel<W, BIAS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -532,22 +513,28 @@ int launch_wide(const Params& p, cudaStream_t stream) {
 }
 
 // This body at the next of the widths 32, 64, 128 (256 for D) above D and V
-template <int BIAS, typename E>
+template <int BIAS>
 int launch_narrow(const Params& p, cudaStream_t s) {
   if (p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
   const int w = p.D > p.V ? p.D : p.V;
-  if (w <= 32) return (int)launch_w<32, BIAS, E>(p, s);
-  if (w <= 64) return (int)launch_w<64, BIAS, E>(p, s);
-  if (w <= 128) return (int)launch_w<128, BIAS, E>(p, s);
-  return (int)launch_w<256, BIAS, E>(p, s);
+  if (w <= 32) return (int)launch_w<32, BIAS>(p, s);
+  if (w <= 64) return (int)launch_w<64, BIAS>(p, s);
+  if (w <= 128) return (int)launch_w<128, BIAS>(p, s);
+  return (int)launch_w<256, BIAS>(p, s);
 }
+
+// The bfloat16 body's launch on the narrow and the tables-read routes
+// (hstu_attention_fwd_bf16.cuh)
+template <int BIAS>
+int launch_bf16(Params p, int route, cudaStream_t s);
 
 // Launches on `stream` the body `route` names (hstu::Route, the Python
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
-// body, D up to 256 and V up to 128, K6's tables and the row's timestamps
-// staged in shared memory; kRead: K6 on this body with them read from device
-// memory (kRelBiasGlobal); kWide: the wide body (`hstu_wide::fwd_kernel`).
-// kDenseBias needs a bias. E: float, or __nv_bfloat16.
+// body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128, K6's
+// tables and the row's timestamps staged in shared memory; kRead: K6 on
+// that body with them read from device memory (kRelBiasGlobal); kWide: the
+// wide body (`hstu_wide::fwd_kernel`). kDenseBias needs a bias. E: float,
+// or __nv_bfloat16.
 template <int BIAS, typename E = float>
 int launch(Params p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
@@ -558,16 +545,23 @@ int launch(Params p, int route, void* stream) {
     const int pair = p.bias_bf16 ? 4 : 8;  // bytes of two elements
     p.vec_bias = reinterpret_cast<uintptr_t>(p.bias) % pair == 0 && p.bias_sb % 2 == 0 && p.bias_sn % 2 == 0;
   }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if constexpr (!std::is_same<E, float>::value) {
+    if (route != hstu::kWide) return launch_bf16<BIAS>(p, route, s);
+  }
   p.vec_q = vec16(p.q, p.q_sb, p.q_sn, p.q_sh, p.D);
   p.vec_k = vec16(p.k, p.k_sb, p.k_sn, p.k_sh, p.D);
   p.vec_v = vec16(p.v, p.v_sb, p.v_sn, p.v_sh, p.V);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == hstu::kWide) return launch_wide<BIAS, E>(p, s);
-  if (route == hstu::kNarrow) return launch_narrow<BIAS, E>(p, s);
-  if constexpr (BIAS == kRelBias) {
-    if (route == hstu::kRead) return launch_narrow<kRelBiasGlobal, E>(p, s);
+  if constexpr (std::is_same<E, float>::value) {
+    if (route == hstu::kNarrow) return launch_narrow<BIAS>(p, s);
+    if constexpr (BIAS == kRelBias) {
+      if (route == hstu::kRead) return launch_narrow<kRelBiasGlobal>(p, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hstu_fwd
+
+#include "hstu_attention_fwd_bf16.cuh"

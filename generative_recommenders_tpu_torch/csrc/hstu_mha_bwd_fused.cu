@@ -5,15 +5,15 @@
 // hstu_attention_bwd_dkv.cuh for the design (five 3xTF32 products per tile
 // pair on the tensor cores).
 //
-// `hstu_mha_bwd_fused_bf16` (K2-bf16) is the same kernel on bfloat16 q, k, v
-// and dO, the backward of K1-bf16 (the first HSTU block of the bias-free
-// research model under compute_dtype="bfloat16"), at the TPU kernel's
-// rounding points (hstu_attention_bwd_dkv.cuh). Bound: 2 (2 D + 2 V) bytes
-// per live row and head for q, k, v and dO and 2 (2 D + V) per element of the
-// outputs, with 8 D more per element for dq's float32 buffer (zeroed, summed
-// into, read by the second kernel), or its operations at the card's bfloat16
-// rate (989 TFLOP/s); the products are one exact TF32 `mma` each, at half
-// that rate.
+// `hstu_mha_bwd_fused_bf16` (K2-bf16) is K2 on bfloat16 q, k, v and dO, the
+// backward of K1-bf16 (the first HSTU block of the bias-free research model
+// under compute_dtype="bfloat16"), at the TPU kernel's rounding points, on
+// the bfloat16 body of hstu_attention_bwd_dkv_bf16.cuh (a pre-scaling pass
+// into the wrapper's qs and dos, then `mma.sync` m16n8k16 on the bfloat16
+// tensor cores). Bound: 2 (2 D + 2 V) bytes per live row and head for q, k,
+// v and dO and 2 (2 D + V) per element of the outputs, with 8 D more per
+// element for dq's float32 buffer (zeroed, summed into, read by the second
+// kernel), or its operations at the card's bfloat16 rate (989 TFLOP/s).
 #include "hstu_attention_bwd_dkv.cuh"
 
 // dq is zeroed; vec_*: whether q, k, v and dO may be read in 16-byte pieces.
@@ -32,12 +32,16 @@ extern "C" int hstu_mha_bwd_fused(
   return hstu_bwd_dkv::launch</*FUSED=*/true, float>(p, route, stream);
 }
 
-// The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; dq32 a zeroed
-// float32 [B, N, H, D] buffer for dq's sums, which a second launch writes
-// into dq as bfloat16. vec_*: rows readable in 8-byte pieces.
+// The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; qs and dos
+// contiguous [B, N, H, D] and [B, N, H, V] bfloat16 buffers for bfloat16(alpha
+// q) (null where alpha is 1) and bfloat16(dO / norm); dq32 a zeroed float32
+// [B, N, H, D] buffer for dq's sums, which a last launch writes into dq as
+// bfloat16. vec_*: rows readable in 16-byte pieces (8-byte ones on the wide
+// route).
 extern "C" int hstu_mha_bwd_fused_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const __nv_bfloat16* dout, float* dq32, __nv_bfloat16* dq, __nv_bfloat16* dk,
+    const __nv_bfloat16* dout, __nv_bfloat16* qs, __nv_bfloat16* dos, float* dq32, __nv_bfloat16* dq,
+    __nv_bfloat16* dk,
     __nv_bfloat16* dv, const int* lengths, const int* num_targets,
     int B, int N, int H, int D, int V,
     long long q_sb, long long q_sn, long long q_sh, long long k_sb, long long k_sn, long long k_sh,
@@ -48,7 +52,7 @@ extern "C" int hstu_mha_bwd_fused_bf16(
       q, k, v, dout, dq32, dk, dv, lengths, num_targets, B, N, H, D, V,
       q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, do_sb, do_sn, do_sh,
       alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
-      min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do};
+      min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do, qs, dos};
   const int err = hstu_bwd_dkv::launch</*FUSED=*/true, __nv_bfloat16>(p, route, stream);
   if (err != 0) return err;
   return (int)hstu_tf32::to_bf16(dq32, dq, (long long)B * N * H * D, static_cast<cudaStream_t>(stream));

@@ -9,13 +9,14 @@
 // registers, a group of 2 heads and 128 query rows per block of 8 warps, so
 // that the mask, the bucket's logf and both table reads are computed once
 // per (row, column) for the group; 32-column key tiles double-buffered by
-// `cp.async`, two blocks an SM. `hstu_mha_relbias_fwd_bf16` is the same
-// kernel on bfloat16 q, k, v and out (the bias tables and the timestamps stay
-// float32): at 2 (2 D + V) bytes per live row and head its bound halves,
-// and its operations are held to the card's bfloat16 rate, 989 TFLOP/s,
-// though its products are one exact TF32 `mma` each, which run at half that
-// rate (the TF32 rate, 495). Where alpha != 1 it forms alpha q in bfloat16
-// on the way into shared memory, as the TPU kernel does.
+// `cp.async`, two blocks an SM. `hstu_mha_relbias_fwd_bf16` is K6 on
+// bfloat16 q, k, v and out (the bias tables and the timestamps stay
+// float32), on the bfloat16 body of hstu_attention_fwd_bf16.cuh (`mma.sync`
+// m16n8k16 on the bfloat16 tensor cores, long walks cut in chunks of the
+// plan's `chunk` key columns, their float32 sums in `scratch`): at 2 (2 D +
+// V) bytes per live row and head its bound halves, and its operations are
+// held to the card's bfloat16 rate, 989 TFLOP/s. Where alpha != 1 it forms
+// alpha q in bfloat16 as it stages Q, as the TPU kernel does.
 #include "hstu_attention_fwd.cuh"
 
 extern "C" int hstu_mha_relbias_fwd(
@@ -38,7 +39,7 @@ extern "C" int hstu_mha_relbias_fwd(
 
 extern "C" int hstu_mha_relbias_fwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v, __nv_bfloat16* out,
-    const int* lengths, const int* num_targets, const float* ts,
+    float* scratch, const int* lengths, const int* num_targets, const float* ts,
     const float* pos_w, const float* ts_w,
     int B, int N, int H, int D, int V,
     long long q_sb, long long q_sn, long long q_sh,
@@ -46,10 +47,12 @@ extern "C" int hstu_mha_relbias_fwd_bf16(
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int route, void* stream) {
+    int chunk, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
+  p.chunk = chunk;
+  p.scratch = scratch;
   return hstu_fwd::launch<hstu_fwd::kRelBias, __nv_bfloat16>(p, route, stream);
 }

@@ -35,8 +35,9 @@ KERNEL_SOURCES = {
     "hstu_mha_relbias_bwd": "hstu_mha_relbias_bwd.cu",
 }
 _HEADERS = (
-    "hstu_attention.cuh", "hstu_attention_bwd_dkv.cuh", "hstu_attention_bwd_dq.cuh", "hstu_attention_fwd.cuh",
-    "hstu_attention_wide.cuh", "tf32_mma.cuh",
+    "bf16_mma.cuh", "hstu_attention.cuh", "hstu_attention_bwd_dkv.cuh", "hstu_attention_bwd_dkv_bf16.cuh",
+    "hstu_attention_bwd_dq.cuh", "hstu_attention_fwd.cuh", "hstu_attention_fwd_bf16.cuh", "hstu_attention_wide.cuh",
+    "tf32_mma.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

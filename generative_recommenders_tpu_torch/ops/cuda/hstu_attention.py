@@ -53,8 +53,17 @@ K3-bf16 + K4-bf16 rounds where the fused K2-bf16 does, as `_bwd_dq_kernel`
 and `_bwd_dkv_kernel` round where `_bwd_fused_kernel_rkv` does, so one
 plain version serves both (`_dense_fwd_plain_bf16`, `_dense_bwd_plain_bf16`);
 a bfloat16 CPU tensor goes through them; autograd through a bfloat16
-forward would round dP instead. K5 takes bfloat16 too (K5-bf16,
-``delta_hstu_mha_fwd_bf16``, the second entry point of K5's library), at
+forward would round dP instead. K1-bf16 (and K1-bias-bf16, K6-bf16) and
+K2-bf16 (and K4-bf16) run bodies of their own on the bfloat16 tensor cores
+(`csrc/hstu_attention_fwd_bf16.cuh`, `csrc/hstu_attention_bwd_dkv_bf16.cuh`),
+planned by `_fwd_plan` and `_bwd_plan` on the element type: the forward cuts
+a walk over the keys longer than a chunk (`_walk_chunk`) across blocks and
+adds the chunks' float32 sums, kept in a scratch the wrapper allocates, in
+chunk order (`_dense_fwd_chunks_bf16` models that order); the backward first
+forms bfloat16(alpha q) and bfloat16(dO / norm) once per call into buffers
+the wrapper allocates (`_prescaled` is that pass's plain twin). K5 takes
+bfloat16 too (K5-bf16, ``delta_hstu_mha_fwd_bf16``, the second entry point
+of K5's library), at
 the rounding points of `_delta_fwd_kernel_rkv`: alpha q rounded to
 bfloat16, P rounded to bfloat16 before P V, the output rounded once.
 
@@ -85,26 +94,24 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # one, which ends with the `vec_*` flags of q, k, v and dO; every one but
 # K5's ends with the route of its plan (`_ROUTES`) and the stream
 _ARGTYPES = {
-    **{
-        name: [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_I, _P]
-        for name in ("hstu_mha_fwd", "hstu_mha_fwd_bf16")
-    },
+    "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_I, _P],
+    # the bfloat16 body's scratch after out and its chunk before the route
+    "hstu_mha_fwd_bf16": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_I] + [_I, _P],
     # the bias pointer, its two strides and its type flag
-    **{
-        name: [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_I, _P]
-        for name in ("hstu_mha_fwd_bias", "hstu_mha_fwd_bias_bf16")
-    },
+    "hstu_mha_fwd_bias": [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_I, _P],
+    "hstu_mha_fwd_bias_bf16": [_P] * 8 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_I] + [_I, _P],
     **{
         name: [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P]
         for name in ("delta_hstu_mha_fwd", "delta_hstu_mha_fwd_bf16")
     },
     **{
         name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P]  # mask ints, flags
-        for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv",
-                     "hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16")
+        for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv", "hstu_mha_bwd_dq_bf16")
     },
-    # one more pointer: dq's float32 sums beside the bfloat16 dq
-    "hstu_mha_bwd_fused_bf16": [_P] * 10 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
+    # two more pointers after dO: the bfloat16 body's alpha q and dO / norm
+    "hstu_mha_bwd_dkv_bf16": [_P] * 11 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
+    # and one more: dq's float32 sums beside the bfloat16 dq
+    "hstu_mha_bwd_fused_bf16": [_P] * 12 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
 }
 # entry points that live in another kernel's library: entry -> library (the
 # bfloat16 K1 to K5 and K1-bias are second entry points of K1's to K5's
@@ -195,10 +202,17 @@ def _bf16_scalar(x: float) -> float:
     return _bf16(torch.tensor(x)).item()
 
 
+def _prescaled(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """bfloat16(x bfloat16(scale)), as bfloat16: alpha q and dO / norm as the
+    Pallas kernels form them on bfloat16, and as the bfloat16 backward body's
+    pre-scaling pass (`prescale_kernel`) writes them."""
+    return (x.float() * _bf16_scalar(scale)).to(torch.bfloat16)
+
+
 def _scaled_q(q: torch.Tensor, alpha: float) -> torch.Tensor:
     """alpha q rounded to bfloat16, as float32: the Pallas kernels' bfloat16
     product (q as it is where alpha is 1)."""
-    return q.float() if alpha == 1.0 else _bf16(q.float() * _bf16_scalar(alpha))
+    return q.float() if alpha == 1.0 else _prescaled(q, alpha).float()
 
 
 def _dense_fwd_plain_bf16(q, k, v, lengths, kw, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -224,7 +238,7 @@ def _dense_bwd_plain_bf16(q, k, v, lengths, do, kw) -> Grads:
     N = q.shape[1]
     mask = _plain_mask(N, lengths, kw)[:, None]
     qs = _scaled_q(q, kw["alpha"])
-    dob = _bf16(do.float() * _bf16_scalar(1.0 / (kw["max_seq_len"] or N)))
+    dob = _prescaled(do, 1.0 / (kw["max_seq_len"] or N)).float()
     s = torch.einsum("bnhd,bmhd->bhnm", qs, k.float())
     sig = torch.sigmoid(s)
     p = torch.where(mask, s * sig, 0.0)
@@ -417,11 +431,20 @@ def _mask_args(kw: dict, N: int) -> tuple:
     )
 
 
-# The tiling of K1's and K6's shared forward body (csrc/hstu_attention_fwd.cuh),
-# float32 and bfloat16 alike (a bfloat16 tile is converted to float32 on its
-# way into shared memory): padded width -> (warps per block, each with 16
-# query rows; heads per block; key columns per tile)
+# The tiling of K1's and K6's shared forward body (csrc/hstu_attention_fwd.cuh):
+# padded width -> (warps per block, each with 16 query rows; heads per
+# block; key columns per tile)
 _FWD_TILING = {32: (8, 2, 32), 64: (8, 2, 32), 128: (4, 1, 32), 256: (4, 1, 16)}
+# The same for their bfloat16 body (csrc/hstu_attention_fwd_bf16.cuh), whose
+# tiles are bfloat16 at a pitch of their width + 8
+_FWD_TILING_BF16 = {32: (4, 2, 32), 64: (4, 1, 64), 128: (4, 1, 64), 256: (4, 1, 32)}
+# the bfloat16 body's chunk: the key columns of a walk one block takes; a
+# longer walk is cut across blocks and the chunks' float32 sums are added in
+# chunk order
+_FWD_CHUNK_BF16 = 512
+# the most chunks a walk is cut in: a longer sequence takes longer chunks,
+# which bounds the scratch ([chunks, B, N, H, V] float32)
+_MAX_CHUNKS = 4
 _MAX_SHARED_BYTES = 232448
 _MAX_GRID_X = 2**31 - 1
 # The body a launch takes, which the plans choose and the C entry points take
@@ -456,20 +479,35 @@ def _check_grid(blocks: int, what: str) -> None:
         raise ValueError(f"{what}'s grid of {blocks} blocks exceeds {_MAX_GRID_X}: split the batch")
 
 
-def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 1, N: int = 1) -> dict:
-    """K1's and K6's launch, its ``route`` the body the C entry point takes
-    (`_ROUTES`). Up to D 256 and V 128 (`_narrow`, route ``narrow``): the
-    width both are padded to (the next of 32, 64, 128, or 256 for D > 128), the heads a
-    block loops inside (a group of 2 or 1), the head groups (H need not be a
-    multiple), the key columns per tile, the block's shared memory (Q of the
-    group at a pitch of W + 8; two stages of a K tile at W + 8 and a V tile
-    at V's width + 4; K6's two tables and the row's timestamps, staged where
-    they fit, else read from device memory: route ``read``) and the
-    one-dimensional grid of (query tile, head group, batch row) blocks, one
-    warp per 16 query rows. Wider heads (route ``wide``): the wide body's 64 query
-    rows and 32-column key tiles, one head a block, D and V in chunks of 128,
-    a block per (query tile, head, batch row, V chunk). Raises on a width of
-    0 and on a grid beyond CUDA's."""
+def _walk_chunk(N: int, tile: int) -> int:
+    """The key columns of a chunk of a walk over N: whole tiles, at least
+    `_FWD_CHUNK_BF16` and enough that no walk takes more than `_MAX_CHUNKS`
+    chunks."""
+    return max(_FWD_CHUNK_BF16 // tile, -(-(-(-N // tile)) // _MAX_CHUNKS)) * tile
+
+
+def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 1, N: int = 1,
+              dtype: torch.dtype = torch.float32) -> dict:
+    """K1's and K6's launch on q's type ``dtype``, its ``route`` the body the
+    C entry point takes (`_ROUTES`). Up to D 256 and V 128 (`_narrow`, route
+    ``narrow``): the width both are padded to (the next of 32, 64, 128, or 256
+    for D > 128), the heads a block loops inside (a group of 2 or 1), the
+    head groups (H need not be a multiple), the key columns per tile, the
+    block's shared memory (Q of the group at a pitch of W + 8; two stages of
+    a K tile at W + 8 and a V tile at V's width + 4; K6's two tables and the
+    row's timestamps, staged where they fit, else read from device memory:
+    route ``read``) and the one-dimensional grid of (query tile, head group,
+    batch row) blocks, one warp per 16 query rows. On bfloat16 the bfloat16
+    body's (`_FWD_TILING_BF16`; its tiles bfloat16, V's at its width + 8),
+    with walks cut in chunks of ``key_chunk`` key columns (`_walk_chunk`): a
+    block per (query tile, chunk, head group, batch row), the ``chunks`` of
+    the longest walk, the float32 ``scratch_shape`` [chunks, B, N, H, V] of
+    the chunks' sums (None with one chunk) and the ``sums_grid`` of the pass
+    that adds them.
+    Wider heads (route ``wide``, either type): the wide body's 64 query rows
+    and 32-column key tiles, one head a block, D and V in chunks of 128, a
+    block per (query tile, head, batch row, V chunk). Raises on a width of 0
+    and on a grid beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
         v_chunks = _chunks(V)
@@ -478,24 +516,38 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
         return dict(_WIDE_FWD, route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=v_chunks,
                     head_group=1, head_groups=H, grid=(blocks,))
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
-    warps, head_group, key_tile = _FWD_TILING[width]
+    bf16 = dtype == torch.bfloat16
+    warps, head_group, key_tile = (_FWD_TILING_BF16 if bf16 else _FWD_TILING)[width]
     rows = 16 * warps
     vw = min(width, _NARROW_V)
-    tiles = head_group * rows * (width + 8) + 2 * key_tile * (width + 8 + vw + 4)
+    tile_bytes = (2 * (head_group * rows * (width + 8) + 2 * key_tile * (width + 8 + vw + 8)) if bf16
+                  else 4 * (head_group * rows * (width + 8) + 2 * key_tile * (width + 8 + vw + 4)))
     tables = (2 * Nm - 1 + NB + 1 + -(-N // key_tile) * key_tile) if relbias else 0
-    read = 4 * (tiles + tables) > _MAX_SHARED_BYTES  # a long table: read, not staged
-    shared_bytes = 4 * (tiles + (0 if read else tables))
+    read = tile_bytes + 4 * tables > _MAX_SHARED_BYTES  # a long table: read, not staged
+    shared_bytes = tile_bytes + (0 if read else 4 * tables)
     head_groups = -(-H // head_group)
     blocks = -(-N // rows) * head_groups * B
+    plan = dict(route="read" if read else "narrow", width=width, query_rows=rows, head_group=head_group,
+                head_groups=head_groups, key_tile=key_tile, shared_bytes=shared_bytes)
+    if bf16:
+        chunk = _walk_chunk(N, key_tile)
+        chunks = -(-N // chunk)
+        blocks *= chunks
+        plan.update(key_chunk=chunk, chunks=chunks,
+                    scratch_shape=(chunks, B, N, H, V) if chunks > 1 else None,
+                    sums_grid=(B * N,) if chunks > 1 else None)
+        _check_grid(B * N, "the bfloat16 forward's sums")
     _check_grid(blocks, "the forward kernel")
-    return dict(route="read" if read else "narrow", width=width, query_rows=rows, head_group=head_group,
-                head_groups=head_groups, key_tile=key_tile, shared_bytes=shared_bytes, grid=(blocks,))
+    return dict(plan, grid=(blocks,))
 
 
 # The tiling of K2's and K4's shared backward body
-# (csrc/hstu_attention_bwd_dkv.cuh), K2-bf16's too: padded width -> (query
-# rows per step, key columns per block); one head a block, 16 warps
+# (csrc/hstu_attention_bwd_dkv.cuh): padded width -> (query rows per step,
+# key columns per block); one head a block, 16 warps
 _BWD_TILING = {32: (64, 64), 64: (64, 64), 128: (32, 64), 256: (32, 64)}
+# The same for their bfloat16 body (csrc/hstu_attention_bwd_dkv_bf16.cuh):
+# (query rows per step, key columns per block, warps)
+_BWD_TILING_BF16 = {32: (64, 64, 8), 64: (128, 64, 16), 128: (32, 64, 8), 256: (32, 64, 8)}
 
 
 def _wide_dkv_plan(D: int, V: int, H: int, B: int, N: int, relbias: bool = False) -> dict:
@@ -518,21 +570,35 @@ def _wide_dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
                 head_group=1, grid=(blocks,))
 
 
-def _bwd_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
-    """K2's and K4's launch, its ``route`` the body the C entry points take.
-    Up to D 256 and V 128 (route ``narrow``): the width both are padded
-    to (the next of 32, 64, 128, or 256 for D > 128), the query rows of a
-    step of the walk, the key columns of a block, one head a block, the
-    block's shared memory (K and V of the key tile and two stages of Q and dO,
-    at pitches of W + 8 and V's width + 8; P and dS at the key columns + 8;
-    the step's live flags of 16-row and 8-column groups) and the
-    one-dimensional grid of (key tile, head, batch row) blocks. Wider heads
-    (route ``wide``): the wide dkv pass (K2: after the wide dq pass, ``dq`` its plan). Raises
-    on a width of 0 and on a grid beyond CUDA's."""
+def _bwd_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.float32) -> dict:
+    """K2's and K4's launch on q's type ``dtype``, its ``route`` the body the
+    C entry points take. Up to D 256 and V 128 (route ``narrow``): the width
+    both are padded to (the next of 32, 64, 128, or 256 for D > 128), the
+    query rows of a step of the walk, the key columns of a block, one head a
+    block, the block's shared memory (K and V of the key tile and two stages
+    of Q and dO, at pitches of W + 8 and V's width + 8; P and dS at the key
+    columns + 8; the step's live flags of 16-row and 8-column groups) and the
+    one-dimensional grid of (key tile, head, batch row) blocks. On bfloat16
+    the bfloat16 body's (`_BWD_TILING_BF16`, its tiles bfloat16, 8 or 16
+    warps a block), after the pre-scaling pass (a block per batch row and row,
+    ``prescale_grid``) into the bfloat16 buffers ``q_scaled_shape`` (where
+    alpha != 1) and ``do_scaled_shape``. Wider heads (route ``wide``, either
+    type): the wide dkv pass (K2: after the wide dq pass, ``dq`` its plan).
+    Raises on a width of 0 and on a grid beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
         return dict(_wide_dkv_plan(D, V, H, B, N), dq=_wide_dq_plan(D, V, H, B, N))
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
+    if dtype == torch.bfloat16:
+        rows, cols, warps = _BWD_TILING_BF16[width]
+        vw = min(width, _NARROW_V)
+        shared_bytes = 2 * ((cols + 2 * rows) * (width + 8 + vw + 8) + 2 * rows * (cols + 8)) + 4 * (rows // 16 + cols // 8)
+        blocks = -(-N // cols) * H * B
+        _check_grid(blocks, "the backward kernels")
+        _check_grid(B * N, "the pre-scaling pass")
+        return dict(route="narrow", width=width, query_rows=rows, key_cols=cols, head_group=1, warps=warps,
+                    shared_bytes=shared_bytes, grid=(blocks,), prescale_grid=(B * N,), q_scaled_shape=(B, N, H, D),
+                    do_scaled_shape=(B, N, H, V))
     rows, cols = _BWD_TILING[width]
     vw = min(width, _NARROW_V)
     shared_bytes = 4 * ((cols + 2 * rows) * (width + 8 + vw + 8) + 2 * rows * (cols + 8) + rows // 16 + cols // 8)
@@ -580,10 +646,14 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
     out = torch.empty((B, N, H, V), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    # raises on what the kernel does not take; the bfloat16 and the biased
-    # instances tile as the float32 one (the bias is read into registers)
-    route = _fwd_plan(D, V, H, 0, 0, False, B, N)["route"]
+    # raises on what the kernel does not take; the biased instances tile as
+    # the others (the bias is read into registers)
+    plan = _fwd_plan(D, V, H, 0, 0, False, B, N, q.dtype)
+    route = plan["route"]
     name = "hstu_mha_fwd" + ("" if bias is None else "_bias") + ("_bf16" if bf16 else "")
+    # the bfloat16 entry points' scratch after out and chunk before the route
+    scratch = _fwd_scratch(plan, q.device) if bf16 else None
+    extra_ptr, extra_int = (((_ptr(scratch),), (plan.get("key_chunk", 0),)) if bf16 else ((), ()))
     # the bias's pointer, its batch stride (0: one bias for every row), its
     # row stride and its type
     bias_ptr, bias_strides, bias_type = (), (), ()
@@ -593,13 +663,55 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
         bias_type = (int(bias.dtype == torch.bfloat16),)
     _launch(
         name,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *extra_ptr,
         lens.data_ptr(), None if nt is None else nt.data_ptr(), *bias_ptr,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *bias_strides,
-        *_mask_args(kw, N), *bias_type, _ROUTES[route], _stream(q.device),
+        *_mask_args(kw, N), *bias_type, *extra_int, _ROUTES[route], _stream(q.device),
     )
     hstu_mha_dense_cuda.launches[name].add(route)
     return out
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _fwd_scratch(plan: dict, device: torch.device) -> Optional[torch.Tensor]:
+    """The bfloat16 forward's float32 scratch for the chunks' sums (None
+    where its plan cuts no walk in chunks, or takes the wide body, whose
+    chunk is 0)."""
+    shape = plan.get("scratch_shape")
+    return None if shape is None else torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _dense_fwd_chunks_bf16(q, k, v, lengths, kw, plan: dict) -> torch.Tensor:
+    """K1-bf16's function summed in the bfloat16 body's order, in plain
+    PyTorch (a model of the kernel, for the tests; ``plan``: `_fwd_plan` on
+    bfloat16): each query tile of ``query_rows`` rows walks the keys below
+    its walk's end (the length; for causal attention the tile's last row
+    once the tile is past the contextual rows) in chunks of ``key_chunk``
+    columns; a walk of one chunk gives bfloat16(sum / norm), a longer one the
+    float32 sums of its chunks added in chunk order, then bfloat16(sum /
+    norm). Within a chunk the sum's order is the tensor cores', which no plain
+    version repeats."""
+    B, N = q.shape[:2]
+    mask = _plain_mask(N, lengths, kw)
+    s = torch.einsum("bnhd,bmhd->bhnm", _scaled_q(q, kw["alpha"]), k.float())
+    p = _bf16(torch.where(mask[:, None], F.silu(s), 0.0))
+    inv_norm = 1.0 / (kw["max_seq_len"] or N)
+    rows, chunk = plan["query_rows"], plan["key_chunk"]
+    out = torch.zeros(B, N, q.shape[2], v.shape[3])
+    for b in range(B):
+        length = min(int(lengths[b]), N)
+        for q0 in range(0, length, rows):
+            end = min(length, q0 + rows) if kw["causal"] and q0 >= kw["contextual_seq_len"] else length
+            total = None
+            for c0 in range(0, end, chunk):
+                part = torch.einsum("hnm,mhv->nhv", p[b, :, q0:q0 + rows, c0:min(end, c0 + chunk)],
+                                    v[b, c0:min(end, c0 + chunk)].float())
+                total = part if total is None else total + part
+            out[b, q0:q0 + rows] = total * inv_norm
+    return out.to(torch.bfloat16)
 
 
 class _HstuMhaDense(torch.autograd.Function):
@@ -713,22 +825,33 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     # K2 adds its dq shares into a zeroed float32 buffer with atomics, which
     # K2-bf16 then writes as bfloat16
     fused = kernel == "hstu_mha_bwd_fused"
+    split_dq = kernel == "hstu_mha_bwd_dq"
     dq32 = new((B, N, H, D), zero=True, dtype=torch.float32) if fused and bf16 else None
     dq = None if kernel == "hstu_mha_bwd_dkv" else new((B, N, H, D), zero=fused and not bf16)
-    dk, dv = (None, None) if kernel == "hstu_mha_bwd_dq" else (new((B, N, H, D)), new((B, N, H, V)))
+    dk, dv = (None, None) if split_dq else (new((B, N, H, D)), new((B, N, H, V)))
     if B * N * H == 0:
         return dq, dk, dv
-    # raises on what the kernel does not take; the bfloat16 instances tile as
-    # the float32 ones
-    route = (_dq_plan if kernel == "hstu_mha_bwd_dq" else _bwd_plan)(D, V, H, B, N)["route"]
-    # the kernels read q, k, v and dO in 16-byte pieces where each allows it
-    # (on the STU path q, k and v are strided views of one projection)
-    vec = tuple(int(_vec16(t)) for t in (q, k, v, do))
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    # raises on what the kernel does not take
+    plan = _dq_plan(D, V, H, B, N) if split_dq else _bwd_plan(D, V, H, B, N, q.dtype)
+    route = plan["route"]
+    # K2-bf16's and K4-bf16's bfloat16 body: its pre-scaling pass writes
+    # bfloat16(alpha q) (where alpha != 1) and bfloat16(dO / norm) into
+    # buffers of their own (pointers after dO), and it reads its rows in
+    # 16-byte pieces of 8 elements
+    body16 = bf16 and not split_dq and route == "narrow"
+    scaled = ()
+    if bf16 and not split_dq:
+        qs = new(plan["q_scaled_shape"]) if body16 and kw["alpha"] != 1.0 else None
+        dos = new(plan["do_scaled_shape"]) if body16 else None
+        scaled = (qs, dos)
+    # the kernels read q, k, v and dO in 16-byte pieces (8-byte ones on the
+    # other bfloat16 bodies) where each allows it (on the STU path q, k and v
+    # are strided views of one projection)
+    vec = tuple(int(_vec16(t, 8 if body16 else 4)) for t in (q, k, v, do))
     _launch(
         name,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        *((ptr(dq32),) if dq32 is not None else ()), ptr(dq), ptr(dk), ptr(dv), lens.data_ptr(), ptr(nt),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(_ptr(t) for t in scaled),
+        *((_ptr(dq32),) if dq32 is not None else ()), _ptr(dq), _ptr(dk), _ptr(dv), lens.data_ptr(), _ptr(nt),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *_mask_args(kw, N), *vec, _ROUTES[route], _stream(q.device),
     )
@@ -780,15 +903,15 @@ def hstu_mha_bwd_cuda(
     return dq, dk, dv
 
 
-def _vec16(t: torch.Tensor) -> bool:
-    """Whether a kernel may read ``t``'s rows in pieces of 4 elements (16
-    bytes of float32, 8 of bfloat16): a 16-byte aligned pointer, every
-    stride but the last and the width multiples of 4 (the last stride is 1,
-    `_check`)."""
+def _vec16(t: torch.Tensor, elems: int = 4) -> bool:
+    """Whether a kernel may read ``t``'s rows in pieces of ``elems`` elements
+    (4: 16 bytes of float32, 8 of bfloat16; 8: 16 bytes of bfloat16): a
+    16-byte aligned pointer, every stride but the last and the width
+    multiples of ``elems`` (the last stride is 1, `_check`)."""
     return (
         t.data_ptr() % 16 == 0
-        and t.shape[-1] % 4 == 0
-        and all(s % 4 == 0 for s in t.stride()[:-1])
+        and t.shape[-1] % elems == 0
+        and all(s % elems == 0 for s in t.stride()[:-1])
     )
 
 

@@ -46,7 +46,9 @@ the table gradients from the float32 dS summed over the heads; out, dq, dk
 and dv in bfloat16, the table gradients in float32. Their plain versions
 follow the same rounding points (`_relbias_fwd_plain_bf16`,
 `_relbias_bwd_plain_bf16`); autograd through a bfloat16 forward would round
-dP instead. The bfloat16 kernels count their launches in
+dP instead. K6-bf16 runs K1-bf16's body on the bfloat16 tensor cores
+(`csrc/hstu_attention_fwd_bf16.cuh`, its long walks cut in chunks whose sums
+a scratch holds, `hstu_attention._fwd_plan` on bfloat16). The bfloat16 kernels count their launches in
 ``launches_bf16``, beside the float32 kernels' ``launches``.
 
 K7 sums dq, ``dpos_w`` and ``dts_w`` with atomics, in an order that changes
@@ -79,7 +81,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # with its plan's route and the stream
 ha._ARGTYPES.update({
     "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
-    "hstu_mha_relbias_fwd_bf16": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
+    # the bfloat16 body's scratch after out and its chunk before the route
+    "hstu_mha_relbias_fwd_bf16": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I] + [_I, _P],
     "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
     # one more pointer: dq's float32 sums beside the bfloat16 dq
     "hstu_mha_relbias_bwd_bf16": [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
@@ -296,14 +299,18 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     if out.numel() == 0:
         return out
     # raises on what the kernel does not take
-    route = ha._fwd_plan(D, V, H, (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, True, B, N)["route"]
+    plan = ha._fwd_plan(D, V, H, (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, True, B, N, q.dtype)
+    route = plan["route"]
+    # the bfloat16 entry point's scratch after out and chunk before the route
+    scratch = ha._fwd_scratch(plan, q.device) if bf16 else None
+    extra_ptr, extra_int = (((ha._ptr(scratch),), (plan.get("key_chunk", 0),)) if bf16 else ((), ()))
     ha._launch(
         "hstu_mha_relbias_fwd_bf16" if bf16 else "hstu_mha_relbias_fwd",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *extra_ptr,
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *ha._mask_args(kw, N), (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1,
+        *ha._mask_args(kw, N), (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, *extra_int,
         ha._ROUTES[route], ha._stream(q.device),
     )
     counters = hstu_mha_dense_relbias_cuda

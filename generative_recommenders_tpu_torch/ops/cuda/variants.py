@@ -37,6 +37,28 @@ K7-det also at the long-history layer (B 2, N = Nm = 4096, lengths
 (the last block to reach a query tile sums its slots), checked bit for bit
 against the shipped one.
 
+    python PATH/TO/variants.py --bf16
+
+(run as a file, with ``PYTHONPATH`` naming the checkout whose package to
+time, as ``--det``) times the bfloat16 kernels K1-bf16, K2-bf16 and K4-bf16
+through their wrappers at bench.py's shape (B 8, N 2048, H 4, D 64, alpha
+1/8, lengths from default_rng(0)) and at N 4096, and K1-bf16, K2-bf16,
+K4-bf16, K6-bf16 and K1-bias-bf16 at ml-3b's block 0 (B 96, N 511, H 8, D
+32, alpha 1, lengths 1..511), with the pair's TFLOP/s at bench.py's shape
+under bench.py's FLOP model (3.5 times the forward's 2 H (2 D) L^2 / 2); in
+a checkout whose forward cuts walks in chunks (`_FWD_CHUNK_BF16`) also
+K1-bf16 at other chunks and with none.
+
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --bf16-variants [TEXT ...]
+
+builds and times the knock-outs of the bfloat16 bodies (labels "bf16: ...",
+or those holding one of the TEXTs, beside the shipped bodies):
+the tiles copied synchronously in place of `cp.async`, the products as two
+TF32 m16n8k8 each in place of one bfloat16 m16n8k16, the backward's phases
+one at a time, and other tilings of both bodies, for K1-bf16, K2-bf16,
+K4-bf16 (bench.py's shapes and ml-3b's block 0) and K6-bf16 (ml-3b's block
+0).
+
     python PATH/TO/variants.py --det
 
 (run as a file, with ``PYTHONPATH`` naming the checkout whose package to
@@ -168,6 +190,73 @@ _K7.update({
     "K7-det's diagonal runs": _sub(
         "if (dd < 2 * kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {", "if (false) {"),
 })
+# The bfloat16 bodies' knock-outs: edits of their shared helpers. cp.async as
+# a synchronous 16-byte copy through registers (the same zeros where !ok);
+# m16n8k16 as two TF32 m16n8k8 products on the halves of each pair (the
+# bfloat16 k = 2t, 2t + 1 as the TF32 k = t, t + 4: the same exact sums)
+_BF16 = "bf16_mma.cuh"
+_BF16_EDITS: Dict[str, Edit] = {
+    "bf16: cp.async (a synchronous copy instead)": _sub(
+        '''  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");''',
+        '''  (void)d;
+  *reinterpret_cast<uint4*>(dst) = ok ? *reinterpret_cast<const uint4*>(src) : make_uint4(0u, 0u, 0u, 0u);''',
+        _BF16),
+    "bf16: m16n8k16 (two TF32 m16n8k8 instead)": _sub(
+        '''  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));''',
+        '''  const uint32_t lo[4] = {a[0] << 16, a[1] << 16, a[0] & 0xffff0000u, a[1] & 0xffff0000u};
+  const uint32_t hi[4] = {a[2] << 16, a[3] << 16, a[2] & 0xffff0000u, a[3] & 0xffff0000u};
+  const uint32_t blo[2] = {b0 << 16, b0 & 0xffff0000u}, bhi[2] = {b1 << 16, b1 & 0xffff0000u};
+  hstu_tf32::mma_tf32(c, lo, blo);
+  hstu_tf32::mma_tf32(c, hi, bhi);''',
+        _BF16),
+}
+# the bfloat16 backward body's phases and both bodies' tilings
+_BWD16, _FWD16 = "hstu_attention_bwd_dkv_bf16.cuh", "hstu_attention_fwd_bf16.cuh"
+_T32B = "template <> struct TilingBf16<32> { static constexpr int BQ = 64, BK = 64, NG = 2, NW = 8, MINB = 2; };"
+_T64B = "template <> struct TilingBf16<64> { static constexpr int BQ = 128, BK = 64, NG = 4, NW = 16, MINB = 1; };"
+_T32F = "template <> struct TilingBf16<32> { static constexpr int NW = 4, HG = 2, BK = 32, MINB = 4; };"
+_T64F = "template <> struct TilingBf16<64> { static constexpr int NW = 4, HG = 1, BK = 64, MINB = 3; };"
+_BWD16_EDITS: Dict[str, Edit] = {
+    "bf16: without S and dP": _both(
+        _sub("for (int ks = 0; ks < W / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD16),
+        _sub("for (int ks = 0; ks < WV / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD16)),
+    "bf16: without the sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;",
+                                      _BWD16),
+    "bf16: without dV and dK": _sub("for (int ks = next_step(0); ks < row_steps;", "for (int ks = next_step(0); ks < 0;",
+                                    _BWD16),
+    "bf16: without dQ": _sub("for (int ks = 0; ks < my_col_steps; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _BWD16),
+    "bf16: without dq atomics": _sub("if (row < length && d < p.D) {\n              const float4 x",
+                                     "if (false) {\n              const float4 x", _BWD16),
+    "bf16: width 32 at BK 128": _sub(_T32B, _T32B.replace("BK = 64", "BK = 128"), _BWD16),
+    "bf16: width 32 at BK 32": _sub(_T32B, _T32B.replace("BK = 64", "BK = 32"), _BWD16),
+    "bf16: width 32 at BK 32, 3 blocks an SM": _sub(
+        _T32B, _T32B.replace("BK = 64", "BK = 32").replace("MINB = 2", "MINB = 3"), _BWD16),
+    "bf16: width 64 at BK 32": _sub(_T64B, _T64B.replace("BK = 64, NG = 4", "BK = 32, NG = 2"), _BWD16),
+    "bf16: width 64 at BQ 64, 8 warps": _sub(
+        _T64B, _T64B.replace("BQ = 128", "BQ = 64").replace("NW = 16, MINB = 1", "NW = 8, MINB = 2"), _BWD16),
+    "bf16: width 64 at BQ 64, 16 warps": _sub(_T64B, _T64B.replace("BQ = 128", "BQ = 64"), _BWD16),
+    "bf16: width 64 at BQ 32, 8 warps": _sub(
+        _T64B, _T64B.replace("BQ = 128", "BQ = 32").replace("NW = 16, MINB = 1", "NW = 8, MINB = 2"), _BWD16),
+    "bf16: width 32 at BQ 128, 16 warps": _sub(
+        _T32B, _T32B.replace("BQ = 64", "BQ = 128").replace("NW = 8, MINB = 2", "NW = 16, MINB = 1"), _BWD16),
+    # one MUFU instruction a sigmoid instead of two (other numbers: a time alone)
+    "bf16: the sigmoid by tanh.approx": _sub(
+        "const float sig = __fdividef(1.f, 1.f + __expf(-x));",
+        'float th;\n              asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(0.5f * x));\n'
+        "              const float sig = fmaf(0.5f, th, 0.5f);", _BWD16),
+}
+_FWD16_EDITS: Dict[str, Edit] = {
+    "bf16: width 32 at 3 blocks an SM": _sub(_T32F, _T32F.replace("MINB = 4", "MINB = 3"), _FWD16),
+    "bf16: width 64 at 2 blocks an SM": _sub(_T64F, _T64F.replace("MINB = 3", "MINB = 2"), _FWD16),
+    "bf16: width 64, two heads a block": _sub(_T64F, _T64F.replace("HG = 1", "HG = 2"), _FWD16),
+    "bf16: width 32, one head a block": _sub(_T32F, _T32F.replace("HG = 2", "HG = 1"), _FWD16),
+    "bf16: width 32, 8 warps": _sub(_T32F, _T32F.replace("NW = 4", "NW = 8").replace("MINB = 4", "MINB = 2"), _FWD16),
+    "bf16: width 32 at BK 64": _sub(_T32F, _T32F.replace("BK = 32", "BK = 64"), _FWD16),
+}
 # K1 and K6: edits of their shared body
 _FWD = "hstu_attention_fwd.cuh"
 _BIAS = "the bias (its logf, its table reads)"
@@ -186,8 +275,8 @@ _K16: Dict[str, Edit] = {
     # every element live: no mask to compute, no warp skipped
     "the mask": _both(_sub("      if (!interior) {\n        ok_bits = 0;", "      if (false) {\n        ok_bits = 0;", _FWD),
                       _sub("            if (!interior) {\n#pragma unroll", "            if (false) {\n#pragma unroll", _FWD)),
-    "Q's loads": _sub("for (int hh = 0; hh < nh; ++hh) {\n      if constexpr (kBf16)",
-                      "for (int hh = 0; hh < 0; ++hh) {\n      if constexpr (kBf16)", _FWD),
+    "Q's loads": _sub("for (int hh = 0; hh < nh; ++hh)\n      load_tile<W, PQ, kRows, kThreads>",
+                      "for (int hh = 0; hh < 0; ++hh)\n      load_tile<W, PQ, kRows, kThreads>", _FWD),
 }
 # K2 and K4: edits of their shared body
 _BWD = "hstu_attention_bwd_dkv.cuh"
@@ -274,10 +363,18 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
                 + ((_BIAS,) if kernel == "hstu_mha_relbias_fwd" else ()))]
         )
     ]
+    + [(kernel, label, phases)
+       for kernel in ("hstu_mha_fwd", "hstu_mha_bwd_fused", "hstu_mha_bwd_dkv")
+       for label, phases in [("bf16: as shipped", ())] + [(name, (name,)) for name in _BF16_EDITS]
+       + [(name, (name,)) for name in (_FWD16_EDITS if kernel == "hstu_mha_fwd" else _BWD16_EDITS)
+          if kernel == "hstu_mha_bwd_fused" or name not in ("bf16: without dQ", "bf16: without dq atomics")]]
+    + [("hstu_mha_relbias_fwd", "bf16: as shipped", ())]
+    + [("hstu_mha_relbias_fwd", name, (name,)) for name in _FWD16_EDITS]
 )
-_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS}, "delta_hstu_mha_fwd": _K5, "hstu_mha_fwd": _K16,
-          "hstu_mha_relbias_fwd": _K16, "hstu_mha_bwd_fused": _K24, "hstu_mha_bwd_dkv": _K24,
-          "hstu_mha_bwd_dq": _K3}
+_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS}, "delta_hstu_mha_fwd": _K5,
+          "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS}, "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS},
+          "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
+          "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS}, "hstu_mha_bwd_dq": _K3}
 
 
 def shipped_sources(kernel: str) -> Dict[str, str]:
@@ -455,6 +552,25 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args == ["--det"]:
         det_times(device_ms, rand, ints, gen)
         return
+    if args == ["--bf16"]:
+        bf16_times(device_ms, bf16_inputs(rand, gen), chunks=True)
+        return
+    if args[:1] == ["--bf16-variants"]:
+        inputs = bf16_inputs(rand, gen)
+        chosen = [i for i, (_, label, _) in enumerate(VARIANTS)
+                  if label.startswith("bf16") and (len(args) == 1 or label == "bf16: as shipped"
+                                                   or any(a in label for a in args[1:]))]
+        root = os.path.join(build.BUILD_DIR, "variants")
+        try:
+            _build_all(root, chosen)
+            for i in chosen:
+                kernel, label, _ = VARIANTS[i]
+                build._libs.clear()
+                _preload(kernel, os.path.join(root, f"v{i}"))
+                bf16_times(device_ms, inputs, only=_BF16_KERNEL[kernel], label=label)
+        finally:
+            build._libs.clear()
+        return
     other = None
     if "--against" in args:
         at = args.index("--against")
@@ -534,6 +650,88 @@ def det_times(device_ms, rand, ints, gen) -> None:
             print(f"{name} (B {B}, N {N}, H {H}, D = V = {D}) {str(dtype)[6:]}: K7-det "
                   + " / ".join(f"{t:.4f}" for t in times[True]) + " ms, K7 "
                   + " / ".join(f"{t:.4f}" for t in times[False]) + f" ms; K7-det's call {peak:.1f} MiB above its inputs")
+
+
+# the bfloat16 kernel each variant's library holds, as `bf16_times` names it
+_BF16_KERNEL = {"hstu_mha_fwd": "K1-bf16", "hstu_mha_bwd_fused": "K2-bf16", "hstu_mha_bwd_dkv": "K4-bf16",
+                "hstu_mha_relbias_fwd": "K6-bf16"}
+
+
+def bf16_inputs(rand, gen) -> Dict[str, tuple]:
+    """The bfloat16 kernels' inputs by shape: bench.py's at N 2048 and 4096
+    (q, k, v and dO from default_rng(0), after the lengths, as bench.py makes
+    them) and ml-3b's block 0 (q, k, v views of one bfloat16 uvqk projection,
+    a strided dO, lengths 1..511, timestamps and both tables for K6, a
+    bfloat16 [B, N, N] bias for K1-bias); each (q, k, v, lengths, dO, the
+    wrappers' keywords, extras)."""
+    import numpy as np
+    import torch
+
+    bf = torch.bfloat16
+    shapes = {}
+    for N in (2048, 4096):
+        B, H, D = 8, 4, 64
+        rng = np.random.default_rng(0)
+        lens = torch.as_tensor(np.clip(rng.integers(N // 8, N, size=(B,)), 1, N), dtype=torch.int32, device="cuda")
+        q, k, v, do = (torch.as_tensor(rng.standard_normal((B, N, H, D), np.float32) * 0.1, device="cuda").to(bf)
+                       for _ in range(4))
+        shapes[f"bench.py's shape (B {B}, N {N}, H {H}, D {D})"] = (q, k, v, lens, do, dict(alpha=D**-0.5,
+                                                                                             max_seq_len=N), {})
+    B, N, H, D = 96, 511, 8, 32
+    _, v, q, k = torch.split(rand(B, N, 4 * H * D).to(bf), [H * D] * 4, dim=-1)
+    q, k, v = (x.reshape(B, N, H, D) for x in (q, k, v))
+    lens = torch.randint(1, N + 1, (B,), device="cuda", generator=gen, dtype=torch.int32)
+    steps = torch.randint(1, 86400, (B, N), device="cuda", generator=gen)
+    ts = (1_500_000_000 + torch.cumsum(steps, 1)) * (torch.arange(N, device="cuda")[None] <= lens[:, None])
+    extras = dict(ts=ts, pos_w=rand(2 * N - 1) * 0.1, ts_w=rand(129) * 0.1, bias=(rand(B, N, N) * 0.1).to(bf))
+    shapes[f"ml-3b block 0 (B {B}, N {N}, H {H}, D {D})"] = (q, k, v, lens, rand(N, B, H, D).to(bf).transpose(0, 1),
+                                                             dict(alpha=1.0, max_seq_len=N), extras)
+    return shapes
+
+
+def bf16_times(device_ms, inputs: Dict[str, tuple], only: Optional[str] = None, label: str = "",
+               chunks: bool = False) -> None:
+    """Prints the bfloat16 kernels' times (``only``: one of them) at each
+    shape of ``inputs`` (`bf16_inputs`), each the mean of its launches
+    through the wrapper; at bench.py's shape also the pair K1-bf16 + K2-bf16
+    in TFLOP/s under bench.py's FLOP model; with ``chunks``, K1-bf16 at
+    bench.py's shapes with other chunks of its walks (no bound on their
+    number) and with none, where the checkout cuts walks in chunks."""
+    import torch
+
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import hstu_mha_dense_relbias_cuda
+
+    for shape, (q, k, v, lens, do, kw, ex) in inputs.items():
+        one = dict(kw, causal=True, max_attn_len=0, contextual_seq_len=0, min_full_attn_seq_len=0)
+        fns = {
+            "K1-bf16": (lambda: ha.hstu_mha_dense_cuda(q, k, v, lens, **kw), 50),
+            "K2-bf16": (lambda: ha.hstu_mha_bwd_cuda(q, k, v, lens, do, **kw), 20),
+            "K4-bf16": (lambda: ha._bwd_kernel("hstu_mha_bwd_dkv_bf16", q, k, v, lens, None, do, one), 20),
+        }
+        if ex:
+            fns["K6-bf16"] = (lambda: hstu_mha_dense_relbias_cuda(q, k, v, lens, ex["ts"], ex["pos_w"], ex["ts_w"],
+                                                                  **kw), 50)
+            fns["K1-bias-bf16"] = (lambda: ha.hstu_mha_dense_cuda(q, k, v, lens, bias=ex["bias"], **kw), 20)
+        times = {name: device_ms(fn, reps) for name, (fn, reps) in fns.items() if only in (None, name)}
+        print(f"{label + ': ' if label else ''}{shape}: " + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items()))
+        if not ex and only is None:
+            B, N, H, D = q.shape
+            fwd_flops = sum(2.0 * H * (D + D) * float(x) ** 2 / 2.0 for x in lens.tolist())
+            pair = times["K1-bf16"] + times["K2-bf16"]
+            print(f"  the pair K1-bf16 + K2-bf16 {pair:.4f} ms: {3.5 * fwd_flops / (pair * 1e-3) / 1e12:.2f} TFLOP/s "
+                  "under bench.py's FLOP model")
+            if chunks and hasattr(ha, "_FWD_CHUNK_BF16"):
+                shipped = ha._FWD_CHUNK_BF16, ha._MAX_CHUNKS
+                try:
+                    ha._MAX_CHUNKS = 1 << 20
+                    for c in (256, 512, 1024, 1 << 30):
+                        ha._FWD_CHUNK_BF16 = c
+                        t = device_ms(fns["K1-bf16"][0], 50)
+                        print(f"  K1-bf16 with {'no chunks' if c == 1 << 30 else f'chunks of {c}'} {t:.4f} ms "
+                              f"(shipped: {times['K1-bf16']:.4f})")
+                finally:
+                    ha._FWD_CHUNK_BF16, ha._MAX_CHUNKS = shipped
 
 
 def _preload(kernel: str, directory: str) -> None:

@@ -131,8 +131,10 @@ def test_bias_launch(monkeypatch, bf16, broadcast):
     the device check passed) with the launch recorded, not made: K1-bias's
     entry point of q's type, the bias's pointer after num_targets, its batch
     stride (0 for one bias broadcast over the batch) and row stride after
-    v's strides, its type flag last before the stream; the C signature's
-    length; one count on the entry point's counter and none on K1's."""
+    v's strides, its type flag last before the route (on bfloat16 the
+    bfloat16 body's scratch pointer after out, None at N 70, and its chunk
+    after the type flag); the C signature's length; one count on the entry
+    point's counter and none on K1's."""
     calls = []
     monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
     monkeypatch.setattr(ha, "_stream", lambda device: 0)
@@ -151,10 +153,13 @@ def test_bias_launch(monkeypatch, bf16, broadcast):
     (call,) = calls
     assert call[0] == name and ha._LIBRARY[name] == "hstu_mha_fwd"
     assert len(call) - 1 == len(ha._ARGTYPES[name])
-    assert call[7] == bias.data_ptr()
-    assert call[8:13] == (B, N, H, D, D)
-    assert call[22:24] == (0 if broadcast else N * 72, 72)
-    assert call[24:26] == (0.5, 1.0 / N) and call[-3] == 1 and call[-2] == ha._ROUTES["narrow"]
+    o = int(bf16)  # the scratch pointer after out
+    if bf16:
+        assert call[5] is None and call[-3] == ha._fwd_plan(D, D, H, 0, 0, False, B, N, dtype)["key_chunk"]
+    assert call[7 + o] == bias.data_ptr()
+    assert call[8 + o:13 + o] == (B, N, H, D, D)
+    assert call[22 + o:24 + o] == (0 if broadcast else N * 72, 72)
+    assert call[24 + o:26 + o] == (0.5, 1.0 / N) and call[-3 - o] == 1 and call[-2] == ha._ROUTES["narrow"]
     assert [c.count - b for c, b in zip(counters, before)] == [0, 0, int(not bf16), int(bf16)]
 
 

@@ -890,6 +890,44 @@ def test_dense_bf16_attention_is_differentiable_on_the_card(cuda):
         assert _bf16_err(g, w) <= BF16_TOL
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("case", [dict(), dict(causal=False), dict(num_targets=True, contextual_seq_len=3),
+                                  dict(max_attn_len=300, min_full_attn_seq_len=40)])
+def test_bf16_forward_cuts_long_walks(cuda, case, D):
+    """K1-bf16 and K6-bf16 where a walk over the keys spans several chunks of
+    the bfloat16 body's plan (N 1300 in chunks of 512: up to three, their
+    float32 sums added in chunk order; widths 32 and 64, whose tilings
+    differ): within 2^-6 of their plain versions,
+    rows >= length exactly 0, the same bits on a second run; K2-bf16 and
+    K3-bf16 + K4-bf16 at the same lengths (`_dense_bf16_checks`)."""
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import _fwd_plan
+
+    case = dict(case)
+    nt_on = case.pop("num_targets", False)
+    B, N, H, V = 3, 1300, 3, D
+    plan = _fwd_plan(D, V, H, 0, 0, False, B, N, torch.bfloat16)
+    assert plan["chunks"] == 3 and plan["scratch_shape"] == (3, B, N, H, V)
+    q, k, v, do = _bf16_views(31, B, N, H, D, V, cuda)
+    lengths = torch.tensor([N, 1030, 0], dtype=torch.int32, device=cuda)
+    nt = torch.tensor([5, 2, 0], dtype=torch.int32, device=cuda) if nt_on else None
+    kw = dict(alpha=0.125, max_seq_len=N, num_targets=nt, **case)
+    _dense_bf16_checks(q, k, v, lengths, do, kw)
+    got = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+    assert torch.equal(got, hstu_mha_dense_cuda(q, k, v, lengths, **kw))
+    rng = np.random.default_rng(32)
+    ts = torch.as_tensor(1_600_000_000 + np.cumsum(rng.integers(1, 90000, size=(B, N)), axis=1), device=cuda)
+    pos_w = torch.as_tensor((rng.standard_normal(2 * N - 1) * 0.05).astype(np.float32), device=cuda)
+    ts_w = torch.as_tensor((rng.standard_normal(129) * 0.05).astype(np.float32), device=cuda)
+    got = hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **kw)
+    assert torch.equal(got, hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **kw))
+    want = hstu_mha_dense_relbias_plain(q, k, v, lengths, ts, pos_w, ts_w, **kw)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _bf16_err(got, want) <= BF16_TOL, f"K6-bf16: {_bf16_err(got, want):.2e} of its max"
+    dead = torch.arange(N, device=cuda)[None, :] >= lengths[:, None]
+    assert (got[dead] == 0).all()
+
+
 # ------------------------------------------- K7-det, the fixed-order K7
 DET_TOL = 2e-5  # of an output's largest entry, float32
 DET_TABLE_TOL_BF16 = 1e-5  # of a table gradient's largest entry, bfloat16 inputs
@@ -1183,7 +1221,8 @@ def _relbias_all(args, do, kw, bf16):
     assert [x.count - b for x, (b, _) in zip(counters, before)] == [1, 1]
     (B, N, H, D), V = args[0].shape, args[2].shape[3]
     Nm, NB = (args[5].shape[0] + 1) // 2, args[6].shape[0] - 1
-    routes = [hr.ha._fwd_plan(D, V, H, Nm, NB, True, B, N)["route"], hr._relbias_bwd_plan(D, V, H, Nm, NB)["route"]]
+    routes = [hr.ha._fwd_plan(D, V, H, Nm, NB, True, B, N, args[0].dtype)["route"],
+              hr._relbias_bwd_plan(D, V, H, Nm, NB)["route"]]
     assert [[r for r, n in x.routes.items() if n != b.get(r, 0)] for x, (_, b) in zip(counters, before)] == [
         [r] for r in routes]
     _held("out", out, hstu_mha_dense_relbias_plain(*args, **kw), bf16)
