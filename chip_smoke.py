@@ -38,7 +38,10 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    groups that end unfilled, N > Nm) and (in the ml-1m phase) at the ml-1m
    large preset's, every output the same bits on a second run, timed
    against K7 in the same call; K6-bf16, K7-bf16 and K7-det-bf16 at alpha
-   1/8 and 0.3 (alpha q rounded to bfloat16); K1 to K4 on bfloat16 (the bias-free
+   1/8 and 0.3 (alpha q rounded to bfloat16), and K7-bf16 and K7-det-bf16
+   (their bfloat16 body: 4 heads of width 32 a block, 2 of width 64) at H 9
+   and at D = V = 50 with H 3, where a head group ends unfilled, at lengths
+   on the tile edges; K1 to K4 on bfloat16 (the bias-free
    research model's first block; K3-bf16 + K4-bf16 its deterministic
    backward, every output the same bits twice) against their bfloat16 plain
    versions at the ml-3b layer-0 shape, at bench.py's shape (B 8, N 2048,
@@ -47,7 +50,9 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    their bounds and, at bench.py's shape, the pair K1-bf16 + K2-bf16 in
    TFLOP/s under bench.py's FLOP model (K1-bf16, K1-bias-bf16 and K6-bf16
    share the bfloat16 forward body, K2-bf16 and K4-bf16 the bfloat16
-   backward body; K1-bf16's and K6-bf16's outputs the same bits twice too); K1-bias (K1 with an additive [B, N, N] bias, float32 and
+   backward body, K3-bf16 a bfloat16 dq body, K7-bf16 and K7-det-bf16 a
+   bfloat16 relative-bias body; K1-bf16's and K6-bf16's outputs the same bits
+   twice too); K1-bias (K1 with an additive [B, N, N] bias, float32 and
    bfloat16) at the serving shape with a per-row and a broadcast bias, at
    the tile edges with targets and contextual rows and a bfloat16 bias, and
    with a bias read element by element, timed beside K1 without the bias;
@@ -214,8 +219,8 @@ PEAK_F32_FLOPS = 67e12
 PEAK_3XTF32_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 # dense bfloat16 in the tensor cores: the bound of the kernels on bfloat16
-# operands; K1, K2, K4 and K6 multiply on the bfloat16 tensor cores, K3, K7
-# and K7-det with one exact TF32 product each, at half this rate
+# operands, which multiply on the bfloat16 tensor cores (K5-bf16 in float32
+# FMA)
 PEAK_BF16_FLOPS = 989e12
 
 # the full-width debug preset, as served
@@ -585,7 +590,7 @@ def wide_routes():
 
     saved = fwd, bwd, det = hr.ha._fwd_plan, hr._relbias_bwd_plan, hr._relbias_det_plan
     hr.ha._fwd_plan = lambda D, V, H, Nm, NB, relbias, *a: fwd(max(D, 257), V, H, Nm, NB, relbias, *a)
-    hr._relbias_bwd_plan = lambda D, V, H, Nm, NB: bwd(max(D, 65), V, H, Nm, NB)
+    hr._relbias_bwd_plan = lambda D, V, H, Nm, NB, *a: bwd(max(D, 65), V, H, Nm, NB, *a)
     hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB, *a: det(max(D, 65), V, H, B, N, Nm, NB, *a)
     try:
         yield
@@ -1917,6 +1922,18 @@ def main() -> None:
     det_case("H=3, lengths at the tile edges (63 .. 129), alpha 0.3, on the bfloat16 case's q, k, v", 6, 140, edges,
              e_ts, Hc=3, bf16=True, qkv=a3_case[:3], alpha_=0.3)
     del a3_case
+    # the bfloat16 body's head groups (4 heads of width 32, 2 of width 64)
+    # left unfilled: H 9 at width 32, H 3 at width 64
+    h9_case = relbias_bf16_case("H=9, lengths at the tile edges (63 .. 129)", 6, 140, edges, e_ts, 9, RD, RV)
+    det_case("H=9, lengths at the tile edges (63 .. 129), on the bfloat16 case's q, k, v", 6, 140, edges, e_ts,
+             Hc=9, bf16=True, qkv=h9_case[:3])
+    del h9_case
+    w64_len = ints(1, 212, 3)
+    w64_ts = random_ts(3, 211, w64_len)
+    w64_case = relbias_bf16_case("D=V=50, H=3 (width 64: groups of 2 heads)", 3, 211, w64_len, w64_ts, 3, 50, 50)
+    det_case("D=V=50, H=3 (width 64), on the bfloat16 case's q, k, v", 3, 211, w64_len, w64_ts, Hc=3, Dc=50,
+             Vc=50, bf16=True, qkv=w64_case[:3])
+    del w64_case
     # the scale rides the tile loads: alpha 1/8 against alpha 1 on the same inputs, in this call
     q_, k_, v_, pw_, tw_, do_, a8 = rb8_case
     k6b8 = [device_time_ms(lambda: hstu_mha_dense_relbias_cuda(q_, k_, v_, r_len, r_ts, pw_, tw_, **a_), 20)
@@ -3977,9 +3994,8 @@ def main() -> None:
 
     # --------------------------------------------------------------- report
     peaks = {PEAK_F32_FLOPS: "float32 FMA, 67e12", PEAK_3XTF32_FLOPS: "3xTF32, 495e12 / 3",
-             PEAK_BF16_FLOPS: "bfloat16, 989e12 (K1-, K1-bias-, K2-, K4- and K6-bf16 multiply on the bfloat16 "
-                              "tensor cores; K3-, K7- and K7-det-bf16 with one exact TF32 product, at half; K5-bf16 in "
-                              "float32 FMA)"}
+             PEAK_BF16_FLOPS: "bfloat16, 989e12 (K1- to K4-, K1-bias-, K6-, K7- and K7-det-bf16 multiply on the "
+                              "bfloat16 tensor cores; K5-bf16 in float32 FMA)"}
 
     def entry(name, src, replaces, launches, err, ms, plain_ms, flops, nbytes, peak=PEAK_F32_FLOPS):
         """``peak``: the rate the kernel's operations are held to, float32

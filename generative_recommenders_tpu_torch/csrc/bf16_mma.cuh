@@ -1,9 +1,11 @@
 // Hopper's bfloat16 tensor cores through `mma.sync.m16n8k16`: bfloat16 tiles
 // staged in shared memory by 16-byte `cp.async`, fragments loaded by
 // `ldmatrix` (`.trans` for an operand whose k runs along a tile's rows), and
-// float32 accumulators. Shared by the bfloat16 forward body of K1, K1-bias
-// and K6 (hstu_attention_fwd_bf16.cuh) and the bfloat16 backward body of K2
-// and K4 (hstu_attention_bwd_dkv_bf16.cuh).
+// float32 accumulators, and the pre-scaling pass of the backward bodies.
+// Shared by the bfloat16 forward body of K1, K1-bias and K6
+// (hstu_attention_fwd_bf16.cuh), the bfloat16 backward body of K2 and K4
+// (hstu_attention_bwd_dkv_bf16.cuh), that of K3 (hstu_attention_bwd_dq_bf16.cuh)
+// and that of K7 and K7-det (hstu_attention_relbias_bwd_bf16.cuh).
 //
 // Every tile is [rows][pitch] bfloat16 with a pitch of its width + 8
 // elements: 16 bytes more than a multiple of 64, so the eight 16-byte rows an
@@ -134,6 +136,13 @@ __device__ __forceinline__ const bf16* b_kn_at(const bf16* X, int pitch, int k0,
   return X + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * pitch + n0 + ((lane >> 4) << 3);
 }
 
+// The lane's address for `ldsm_t` of one 8-column tile's B fragments at two
+// k-steps (k0 and k0 + 16) of a tile stored [k][n]: r0, r1 step k0's b0, b1;
+// r2, r3 step k0 + 16's (K in dQ where a warp owns one 8-column tile)
+__device__ __forceinline__ const bf16* b_kn_pair_at(const bf16* X, int pitch, int k0, int n0) {
+  return X + (k0 + (threadIdx.x & 31)) * pitch + n0;
+}
+
 // The lane's address for `ldsm_t` of a 16 x 16 A fragment that is the
 // transpose of a tile stored [k][m] (P^T and dS^T in dV and dK), at (m0, k0)
 __device__ __forceinline__ const bf16* a_t_at(const bf16* X, int pitch, int m0, int k0) {
@@ -147,6 +156,52 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// y = bfloat16(x bfloat16(scale)) on the live rows of a strided bfloat16
+// [B, N, H, w] tensor x, into the contiguous [B, N, H, w] y: alpha q and
+// dO / norm as the TPU kernels round them (the scalar itself in bfloat16, as
+// JAX's weakly typed Python float), once per call. One block a (batch row,
+// row).
+__global__ void prescale_kernel(const bf16* x, long long sb, long long sn, long long sh, int w, bf16* y,
+                                const int* lengths, int N, int H, float scale_) {
+  const int b = (int)(blockIdx.x / (unsigned)N), row = (int)(blockIdx.x % (unsigned)N);
+  if (row >= min(lengths[b], N)) return;
+  const float scale = hstu_tf32::round_bf16(scale_);
+  const bf16* src = x + b * sb + row * sn;
+  bf16* dst = y + ((long long)b * N + row) * H * w;
+  for (int e = threadIdx.x; e < H * w; e += blockDim.x)
+    dst[e] = __float2bfloat16_rn(__bfloat162float(src[e / w * sh + e % w]) * scale);
+}
+
+// The pre-scaling pass of a bfloat16 backward body, on the parameters `p`
+// of any of them: bfloat16(alpha q) into the wrapper's buffer p.qs (where
+// alpha != 1) and bfloat16(dO / norm) into p.dos, contiguous [B, N, H, D]
+// and [B, N, H, V]; p's q and dO then point at them, read in 16-byte pieces
+// where the width allows. Returns the launches' error, or
+// cudaErrorInvalidValue where a buffer is missing.
+template <typename P>
+cudaError_t prescale(P& p, cudaStream_t s) {
+  if (p.dos == nullptr || (p.alpha != 1.f && p.qs == nullptr)) return cudaErrorInvalidValue;
+  const long long rows = (long long)p.B * p.N;
+  if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (p.alpha != 1.f) {
+    prescale_kernel<<<(unsigned)rows, 128, 0, s>>>(p.q, p.q_sb, p.q_sn, p.q_sh, p.D, p.qs, p.lengths, p.N, p.H,
+                                                   p.alpha);
+    p.q = p.qs;
+    p.q_sb = (long long)p.N * p.H * p.D;
+    p.q_sn = (long long)p.H * p.D;
+    p.q_sh = p.D;
+    p.vec_q = p.D % 8 == 0;
+  }
+  prescale_kernel<<<(unsigned)rows, 128, 0, s>>>(p.dout, p.do_sb, p.do_sn, p.do_sh, p.V, p.dos, p.lengths, p.N, p.H,
+                                                 p.inv_norm);
+  p.dout = p.dos;
+  p.do_sb = (long long)p.N * p.H * p.V;
+  p.do_sn = (long long)p.H * p.V;
+  p.do_sh = p.V;
+  p.vec_do = p.V % 8 == 0;
+  return cudaGetLastError();
 }
 
 }  // namespace hstu_bf16

@@ -351,22 +351,6 @@ __global__ void __launch_bounds__(32 * TilingBf16<W>::NW, TilingBf16<W>::MINB)
   }
 }
 
-// y = bfloat16(x bfloat16(scale)) on the live rows of a strided bfloat16
-// [B, N, H, w] tensor x, into the contiguous [B, N, H, w] y: alpha q and
-// dO / norm as the TPU kernels round them (the scalar itself in bfloat16, as
-// JAX's weakly typed Python float), once per call. One block a (batch row,
-// row).
-__global__ void prescale_kernel(const __nv_bfloat16* x, long long sb, long long sn, long long sh, int w,
-                                __nv_bfloat16* y, const int* lengths, int N, int H, float scale_) {
-  const int b = (int)(blockIdx.x / (unsigned)N), row = (int)(blockIdx.x % (unsigned)N);
-  if (row >= min(lengths[b], N)) return;
-  const float scale = round_bf16(scale_);
-  const __nv_bfloat16* src = x + b * sb + row * sn;
-  __nv_bfloat16* dst = y + ((long long)b * N + row) * H * w;
-  for (int e = threadIdx.x; e < H * w; e += blockDim.x)
-    dst[e] = __float2bfloat16_rn(__bfloat162float(src[e / w * sh + e % w]) * scale);
-}
-
 template <int W, bool FUSED>
 cudaError_t launch_bf16_w(const Params<__nv_bfloat16>& p, cudaStream_t stream) {
   constexpr int smem = smem_bytes_bf16<W>();
@@ -379,34 +363,15 @@ cudaError_t launch_bf16_w(const Params<__nv_bfloat16>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The pre-scaling pass, then this body at the next of the widths 32, 64, 128
-// (256 for D) above D and V. The wrapper's buffers: qs [B, N, H, D] for
-// bfloat16(alpha q) (null where alpha is 1: q is read as it is), dos [B, N,
-// H, V] for bfloat16(dO / norm).
+// The pre-scaling pass (`hstu_bf16::prescale`), then this body at the next of
+// the widths 32, 64, 128 (256 for D) above D and V. The wrapper's buffers: qs
+// [B, N, H, D] for bfloat16(alpha q) (null where alpha is 1: q is read as it
+// is), dos [B, N, H, V] for bfloat16(dO / norm).
 template <bool FUSED>
 int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s) {
   if (p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
-  if (p.dos == nullptr || (p.alpha != 1.f && p.qs == nullptr)) return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)p.B * p.N;
-  if (rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   Params<__nv_bfloat16> r = p;
-  if (p.alpha != 1.f) {
-    prescale_kernel<<<(unsigned)rows, 128, 0, s>>>(p.q, p.q_sb, p.q_sn, p.q_sh, p.D, p.qs, p.lengths, p.N, p.H,
-                                                   p.alpha);
-    r.q = p.qs;
-    r.q_sb = (long long)p.N * p.H * p.D;
-    r.q_sn = (long long)p.H * p.D;
-    r.q_sh = p.D;
-    r.vec_q = p.D % 8 == 0;
-  }
-  prescale_kernel<<<(unsigned)rows, 128, 0, s>>>(p.dout, p.do_sb, p.do_sn, p.do_sh, p.V, p.dos, p.lengths, p.N,
-                                                 p.H, p.inv_norm);
-  r.dout = p.dos;
-  r.do_sb = (long long)p.N * p.H * p.V;
-  r.do_sn = (long long)p.H * p.V;
-  r.do_sh = p.V;
-  r.vec_do = p.V % 8 == 0;
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = hstu_bf16::prescale(r, s);
   if (err != cudaSuccess) return (int)err;
   const int w = p.D > p.V ? p.D : p.V;
   if (w <= 32) return (int)launch_bf16_w<32, FUSED>(r, s);

@@ -2,12 +2,10 @@
 // in and out: the body of K3 (hstu_mha_bwd_dq.cu), dQ alone, which with K4
 // (hstu_mha_bwd_dkv.cu) makes the deterministic split backward. Replaces the
 // Pallas TPU kernel `_bwd_dq_kernel` of
-// generative_recommenders_tpu/ops/pallas/hstu_attention.py, also on bfloat16
-// q, k, v, dO and dq (K3-bf16, T = __nv_bfloat16, at the rounding points
-// below). On bfloat16 (the TPU kernels' rounding points): Q enters as bfloat16(alpha q) where alpha != 1 and dO as
-// bfloat16(dO / norm), dS is rounded to bfloat16 before dQ = dS K, whose
-// float32 sum takes alpha and is written as bfloat16; the products are one
-// exact TF32 `mma` each.
+// generative_recommenders_tpu/ops/pallas/hstu_attention.py. On bfloat16 q, k,
+// v, dO and dq (K3-bf16) the bfloat16 body of hstu_attention_bwd_dq_bf16.cuh
+// (included at the end of this file) takes the narrow route; wider heads
+// take the wide body on either type.
 //
 // Per head, with S recomputed from Q and K (the forward saves only q, k, v):
 //
@@ -55,8 +53,6 @@
 // fit a block's shared memory (at width 256 a step takes 32 key columns, else
 // 64: at width 128 64 columns were faster on the H100 than 32, and than 32
 // rows by 64 columns or 128 rows by 32); heads are not grouped.
-// The element type T of q, k, v, dO and dq is a parameter of the body: float,
-// and __nv_bfloat16 for K3-bf16.
 #pragma once
 
 #include <cstdint>
@@ -94,6 +90,10 @@ struct Params {
   float alpha, inv_norm;
   int causal, max_attn_len, contextual_seq_len, min_full_attn_seq_len;
   int vec_q, vec_k, vec_v, vec_do;  // rows readable in 16-byte pieces
+  // the bfloat16 body only: the wrapper's buffers for bfloat16(alpha q)
+  // (null where alpha is 1) and bfloat16(dO / norm), contiguous
+  T* qs = nullptr;
+  T* dos = nullptr;
 };
 
 // Per padded width W: query rows per block (BQ), key columns per step (BK),
@@ -113,16 +113,11 @@ __host__ __device__ constexpr int smem_bytes() {
   return 4 * ((BQ + 2 * BK) * (W + 8 + WV + 8) + BQ * (BK + 8) + BQ / 16);
 }
 
-// T: the element type; W: the padded head width.
-template <typename T, int W>
-__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
-  constexpr bool kBf16 = !std::is_same<T, float>::value;
-  // float32: alpha and 1 / norm applied to S and dP on use; bfloat16: folded
-  // into the Q and dO tiles, rounded, as the TPU kernels round alpha q and
-  // dO / norm
-  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
+// W: the padded head width.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<float> p) {
+  // alpha and 1 / norm applied to S and dP on use
+  const float s_alpha = p.alpha, dp_scale = p.inv_norm;
   using Tl = Tiling<W>;
   constexpr int BQ = Tl::BQ, BK = Tl::BK, NG = Tl::NG;
   constexpr int WV = W < 128 ? W : 128;
@@ -166,10 +161,10 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
     for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
 
   if (row0 < length) {
-    const T* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const T* kb = p.k + b * p.k_sb + h * p.k_sh;
-    const T* vb = p.v + b * p.v_sb + h * p.v_sh;
-    const T* ob = p.dout + b * p.do_sb + h * p.do_sh;
+    const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+    const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+    const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+    const float* ob = p.dout + b * p.do_sb + h * p.do_sh;
     const bool causal = p.causal != 0;
     const int ctx = p.contextual_seq_len;
     // causal: a row past the contextual rows sees no column past itself
@@ -183,13 +178,8 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
       load_tile<W, PK, BK, kThreads>(K, kb, p.k_sn, c0, length, p.D, p.vec_k != 0);
       load_tile<WV, PV, BK, kThreads>(K + BK * PK, vb, p.v_sn, c0, length, p.V, p.vec_v != 0);
     };
-    if constexpr (kBf16) {  // alpha q and dO / norm, rounded to bfloat16
-      load_tile<W, PK, BQ, kThreads>(Qs, qb, p.q_sn, row0, length, p.D, p.vec_q != 0, q_scale);
-      load_tile<WV, PV, BQ, kThreads>(dOs, ob, p.do_sn, row0, length, p.V, p.vec_do != 0, do_scale);
-    } else {
-      load_tile<W, PK, BQ, kThreads>(Qs, qb, p.q_sn, row0, length, p.D, p.vec_q != 0);
-      load_tile<WV, PV, BQ, kThreads>(dOs, ob, p.do_sn, row0, length, p.V, p.vec_do != 0);
-    }
+    load_tile<W, PK, BQ, kThreads>(Qs, qb, p.q_sn, row0, length, p.D, p.vec_q != 0);
+    load_tile<WV, PV, BQ, kThreads>(dOs, ob, p.do_sn, row0, length, p.V, p.vec_do != 0);
     load_step(0, 0);
     cp_async_commit();
     // a flag holds step + 1 where the step has a live element in the row group
@@ -236,13 +226,13 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
           for (int ks = 0; ks < W / 8; ++ks) {
             const FragA a = load_a(Qs, PK, wr * 16, ks * 8);
 #pragma unroll
-            for (int j = 0; j < NA; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, PK, (wc * NA + j) * 8, ks * 8));
+            for (int j = 0; j < NA; ++j) mma3(s[j], a, load_b_nk(Ks, PK, (wc * NA + j) * 8, ks * 8));
           }
 #pragma unroll
           for (int ks = 0; ks < WV / 8; ++ks) {
             const FragA a = load_a(dOs, PV, wr * 16, ks * 8);
 #pragma unroll
-            for (int j = 0; j < NA; ++j) mma<kBf16>(dp[j], a, load_b_nk(Vs, PV, (wc * NA + j) * 8, ks * 8));
+            for (int j = 0; j < NA; ++j) mma3(dp[j], a, load_b_nk(Vs, PV, (wc * NA + j) * 8, ks * 8));
           }
           if (lane == 0) row_live[wr] = live;
         }
@@ -257,7 +247,6 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
               const float sig = __fdividef(1.f, 1.f + __expf(-x));
               ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
             }
-            if constexpr (kBf16) ds[c] = round_bf16(ds[c]);  // dQ = dS K takes dS in bfloat16
           }
           const int at = (wr * 16 + g) * PS + (wc * NA + j) * 8 + 2 * t;
           *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
@@ -287,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
           for (int ks = 0; ks < my_col_steps; ++ks) {
             const FragA a = load_a(dSs, PS, wr * 16, ks * 8);
 #pragma unroll
-            for (int n = 0; n < NG; ++n) mma<kBf16>(part[n], a, load_b_kn<true>(Ks, PK, ks * 8, d0 + n * 8));
+            for (int n = 0; n < NG; ++n) mma3(part[n], a, load_b_kn<true>(Ks, PK, ks * 8, d0 + n * 8));
           }
 #pragma unroll
           for (int n = 0; n < NG; ++n)
@@ -305,29 +294,26 @@ __global__ void __launch_bounds__(kThreads, 1) dq_kernel(Params<T> p) {
     const int row = row0 + wr * 16 + g + 8 * i;
     if (row >= p.N) continue;
     const bool in = row < length;
-    T* dst = p.dq + (((long long)b * p.N + row) * p.H + h) * p.D;
+    float* dst = p.dq + (((long long)b * p.N + row) * p.H + h) * p.D;
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
       const int d = (wc * NQ + j) * 8 + 2 * t;
       const float x0 = in ? p.alpha * acc[j][2 * i] : 0.f;
       const float x1 = in ? p.alpha * acc[j][2 * i + 1] : 0.f;
       if (d + 1 < p.D && p.D % 2 == 0) {
-        if constexpr (kBf16)
-          *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(x0, x1);
-        else
-          *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
+        *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
       } else {
-        if (d < p.D) dst[d] = T(x0);
-        if (d + 1 < p.D) dst[d + 1] = T(x1);
+        if (d < p.D) dst[d] = x0;
+        if (d + 1 < p.D) dst[d + 1] = x1;
       }
     }
   }
 }
 
-template <typename T, int W>
-cudaError_t launch_w(const Params<T>& p, cudaStream_t stream) {
+template <int W>
+cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
   const int smem = smem_bytes<W>();
-  auto kernel = dq_kernel<T, W>;
+  auto kernel = dq_kernel<W>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks =
@@ -350,23 +336,34 @@ int launch_wide(const Params<T>& p, cudaStream_t stream) {
   return (int)hstu_wide::launch_dq<false, T, T>(w, stream);
 }
 
+// The bfloat16 body's launch (hstu_attention_bwd_dq_bf16.cuh): its
+// pre-scaling pass, then the body
+int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s);
+
 // Launches on `stream` the body `route` names (hstu::Route, the Python
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
-// body, D up to 256 and V up to 128 padded to the next of 32, 64, 128 (256
-// for D); kWide: the wide body. The Python wrapper decides the `vec_*`
-// flags.
+// body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128 padded
+// to the next of 32, 64, 128 (256 for D); kWide: the wide body. The Python
+// wrapper decides the `vec_*` flags (pieces of 16 bytes; of 8 bytes for the
+// wide body on bfloat16).
 template <typename T>
 int launch(const Params<T>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.V < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int w = p.D > p.V ? p.D : p.V;
   if (route == hstu::kWide) return launch_wide<T>(p, s);
   if (route != hstu::kNarrow || p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
-  if (w <= 32) return (int)launch_w<T, 32>(p, s);
-  if (w <= 64) return (int)launch_w<T, 64>(p, s);
-  if (w <= 128) return (int)launch_w<T, 128>(p, s);
-  return (int)launch_w<T, 256>(p, s);
+  if constexpr (std::is_same<T, float>::value) {
+    const int w = p.D > p.V ? p.D : p.V;
+    if (w <= 32) return (int)launch_w<32>(p, s);
+    if (w <= 64) return (int)launch_w<64>(p, s);
+    if (w <= 128) return (int)launch_w<128>(p, s);
+    return (int)launch_w<256>(p, s);
+  } else {
+    return launch_bf16(p, s);
+  }
 }
 
 }  // namespace hstu_bwd_dq
+
+#include "hstu_attention_bwd_dq_bf16.cuh"

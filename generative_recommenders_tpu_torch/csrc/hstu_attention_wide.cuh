@@ -16,10 +16,10 @@
 //   dimension of the grid), and recomputes S and dP for it.
 // Q (or K) and dO (or V) stay resident in shared memory where they are one
 // chunk wide; wider ones are loaded chunk by chunk per tile. The products
-// are K7's: `mma.sync.m16n8k8` TF32, 3xTF32 in float32 and one exact TF32
-// product on bfloat16 values (tf32_mma.cuh), at the bfloat16 rounding points
-// of the narrow bodies (alpha q and dO / norm rounded on load, P and dS
-// rounded before their products). Tables and timestamps of the relative
+// are `mma.sync.m16n8k8` TF32 (tf32_mma.cuh): 3xTF32 in float32, as K7's
+// float32 body, and one exact TF32 product on bfloat16 values, at the
+// bfloat16 rounding points of the narrow bodies (alpha q and dO / norm
+// rounded on load, P and dS rounded before their products). Tables and timestamps of the relative
 // bias are read through the L1 cache, never staged: a table of any length
 // fits. The relative-bias backward is two passes, as K7-det:
 // * `dq_kernel` with the bias: one block per (64-row query tile, head, batch

@@ -82,18 +82,15 @@
 // the wide bodies (hstu_attention_wide.cuh): the relative-bias dq pass, then
 // dK, dV and the table sums with atomics (K7) or in block order (K7-det).
 //
-// `hstu_mha_relbias_bwd_bf16` is the same kernel on bfloat16 q, k, v and dO,
-// with the TPU kernel's rounding points: dO enters as bfloat16(dO / norm),
-// S, dP and dS are float32, P and dS are rounded to bfloat16 before the
-// products dV = P^T dO, dK = dS^T Q and dQ = dS K, and the table gradients
-// come from the float32 dS summed over the heads. Its tiles are converted to
-// float32 on their way into shared memory (synchronously), and its products
-// are one exact TF32 `mma` each (tf32_mma.cuh). dk and dv are written as
-// bfloat16; dq is summed in a zeroed float32 buffer, as in float32, and a
-// second kernel writes it as bfloat16. Where alpha != 1, Q enters as
-// bfloat16(alpha q), as the TPU kernel forms it: S takes no alpha, dK =
-// dS^T (alpha Q) none either, and dq takes alpha as it is added to its
-// float32 buffer.
+// `hstu_mha_relbias_bwd_bf16` (K7-bf16) computes the same function on
+// bfloat16 q, k, v and dO, with the TPU kernel's rounding points, on a body of
+// its own on the bfloat16 tensor cores (hstu_attention_relbias_bwd_bf16.cuh,
+// included before its entry points at the end of this file): a
+// pre-scaling pass forms bfloat16(alpha q) and bfloat16(dO / norm), the
+// tiles stay bfloat16 and arrive by `cp.async`, and the five products are
+// `mma.sync.m16n8k16`. Its dq is summed in a zeroed float32 buffer, as in
+// float32, and a second kernel writes it as bfloat16. This body is float32
+// only.
 //
 // K7-det (`hstu_mha_relbias_bwd_det`, and `_bf16` on bfloat16 at the same
 // rounding points) computes the same function and sums every output in one
@@ -138,7 +135,7 @@ constexpr int kPad = 8;        // every tile's pitch is 8 more than its width
 constexpr int kSP = kT + kPad; // pitch of the P and dS tiles
 constexpr unsigned kFull = 0xffffffffu;
 
-// E: float, or __nv_bfloat16 for the bfloat16 kernel. The pointers keep
+// E: float, or __nv_bfloat16 for the bfloat16 body. The pointers keep
 // their element type: with untyped (void) pointers cast in the kernel, ptxas
 // spilled 400 bytes instead of 280 in the float32 width-32 instance.
 template <typename E>
@@ -171,6 +168,10 @@ struct Params {
   // null then)
   float* partial = nullptr;
   float* dq_partial = nullptr;
+  // the bfloat16 body only: the wrapper's buffers for bfloat16(alpha q)
+  // (null where alpha is 1) and bfloat16(dO / norm), contiguous
+  E* qs = nullptr;
+  E* dos = nullptr;
 };
 
 // K7-det's slot of the tile pair (query tile qt, key tile kt) among a batch
@@ -198,8 +199,7 @@ __host__ __device__ constexpr long long smem_floats_long(int w, int hg, int n_ts
 
 // Rows [r0, r0 + 64) of one head of a strided [.., N, H, w] tensor into a
 // [64][W + 8] shared tile, asynchronously; zero at rows >= lim and in the pad
-// columns [w, W). A float32 tile is copied as it is: 1 / norm is applied to
-// dP in float32, so this overload takes no scale.
+// columns [w, W). Copied as it is: 1 / norm is applied to dP in float32.
 template <int W>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn,
                                           int r0, int lim, int w, bool vec) {
@@ -218,15 +218,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
       cp_async4(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
     }
   }
-}
-
-// The same of a bfloat16 tensor, converted to float32 (synchronously), and
-// where scale != 1 multiplied by it and rounded to bfloat16 again: the TPU
-// kernel's bfloat16 product dO / norm.
-template <int W>
-__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, long long sn,
-                                          int r0, int lim, int w, bool vec, float scale = 1.f) {
-  hstu_tf32::load_tile<W, W + kPad, kT, kThreads>(dst, src, sn, r0, lim, w, vec, scale);
 }
 
 // K7-det's last launch, 1024 threads a block. The first B * tiles * chunks
@@ -310,20 +301,15 @@ __global__ void __launch_bounds__(1024) det_sums_kernel(SumParams<E> s) {
   }
 }
 
-// W: the padded head width (32 or 64); HG: heads per block; E: the type of
-// q, k, v, dO, dk and dv (float, or __nv_bfloat16); DET: K7-det's pass, dQ
-// stored to its tile pair's slot of `dq_partial` and the table sums to the
-// block's row of `partial`; LONG: the tables read from device memory and
-// dpos_w's sums flushed per step.
-template <int W, int HG, typename E, bool DET, bool LONG = false>
-__global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
-  // alpha and 1 / norm: applied to S, dK, dP and dV on use in float32; in
-  // bfloat16 folded into Q's and dO's tiles, rounded, as the TPU kernel
-  // rounds alpha q and dO / norm (dq takes alpha as it is written, in both)
-  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
+// W: the padded head width (32 or 64); HG: heads per block; DET: K7-det's
+// pass, dQ stored to its tile pair's slot of `dq_partial` and the table sums
+// to the block's row of `partial`; LONG: the tables read from device memory
+// and dpos_w's sums flushed per step.
+template <int W, int HG, bool DET, bool LONG = false>
+__global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> p) {
+  // alpha and 1 / norm: applied to S, dK, dP and dV on use (dq takes alpha
+  // as it is written)
+  const float s_alpha = p.alpha, dp_scale = p.inv_norm;
   constexpr int P = W + kPad;  // pitch of the Q, K, V and dO tiles
   constexpr int NA = W / 16;  // 8-wide output tiles per warp in dK or dV
   constexpr int NQ = W / 32;  // and in dQ
@@ -375,10 +361,10 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
       for (int c = 0; c < 4; ++c) acc[hh][j][c] = 0.f;
 
   if (col0 < length) {
-    const E* qb = p.q + b * p.q_sb + h0 * p.q_sh;
-    const E* kb = p.k + b * p.k_sb + h0 * p.k_sh;
-    const E* vb = p.v + b * p.v_sb + h0 * p.v_sh;
-    const E* ob = p.dout + b * p.do_sb + h0 * p.do_sh;
+    const float* qb = p.q + b * p.q_sb + h0 * p.q_sh;
+    const float* kb = p.k + b * p.k_sb + h0 * p.k_sh;
+    const float* vb = p.v + b * p.v_sb + h0 * p.v_sh;
+    const float* ob = p.dout + b * p.do_sb + h0 * p.do_sh;
     const float* tsb = p.ts + (long long)b * p.N;
     for (int hh = 0; hh < nh; ++hh) {
       load_tile<W>(Ks + hh * kT * P, kb + hh * p.k_sh, p.k_sn, col0, length, p.D, p.vec_k != 0);
@@ -410,13 +396,8 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
     // no targets and no window either (the research models): the mask is
     // col <= row below the length
     const bool plain_causal = lower_only && nt == 0 && p.max_attn_len == 0;
-    if constexpr (kBf16) {  // alpha q and dO / norm, rounded to bfloat16
-      load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0, q_scale);
-      load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0, do_scale);
-    } else {
-      load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0);
-      load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0);
-    }
+    load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0);
+    load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0);
     cp_async_commit();
     __syncthreads();  // the tables are in place
 
@@ -500,15 +481,8 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
             }
             if (nrow < length) {
               float* nQ = stages + ((step + 1) & 1) * 2 * kT * P;
-              if constexpr (kBf16) {
-                load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0, q_scale);
-                load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
-                             p.vec_do != 0, do_scale);
-              } else {
-                load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0);
-                load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V,
-                             p.vec_do != 0);
-              }
+              load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0);
+              load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V, p.vec_do != 0);
             }
             cp_async_commit();
           }
@@ -525,14 +499,14 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
               const FragA a = load_a(Qs, P, wr * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < 2; ++j)
-                mma<kBf16>(s[j], a, load_b_nk(Kh, P, wc * 16 + j * 8, ks * 8));
+                mma3(s[j], a, load_b_nk(Kh, P, wc * 16 + j * 8, ks * 8));
             }
 #pragma unroll
             for (int ks = 0; ks < KS; ++ks) {
               const FragA a = load_a(dOs, P, wr * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < 2; ++j)
-                mma<kBf16>(dp[j], a, load_b_nk(Vh, P, wc * 16 + j * 8, ks * 8));
+                mma3(dp[j], a, load_b_nk(Vh, P, wc * 16 + j * 8, ks * 8));
             }
           }
 #pragma unroll
@@ -548,13 +522,6 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
                 pv[c] = x * sig;
                 ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
                 dssum[e] += ds[c];
-              }
-            }
-            if constexpr (kBf16) {  // the products take P and dS in bfloat16
-#pragma unroll
-              for (int c = 0; c < 4; ++c) {
-                pv[c] = round_bf16(pv[c]);
-                ds[c] = round_bf16(ds[c]);
               }
             }
             const int at = (wr * 16 + g) * kSP + wc * 16 + j * 8 + 2 * t;
@@ -581,7 +548,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
               const FragA a = load_a_t(A, kSP, am * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < NA; ++j)
-                mma<kBf16>(part[j], a, load_b_kn(Bm, P, ks * 8, an + j * 8));
+                mma3(part[j], a, load_b_kn(Bm, P, ks * 8, an + j * 8));
             }
 #pragma unroll
             for (int j = 0; j < NA; ++j)
@@ -600,7 +567,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
               const FragA a = load_a(dSs, kSP, wr * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < NQ; ++j)
-                mma<kBf16>(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
+                mma3(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
             }
             // dead rows keep the buffer's zeros (K7-det: are not written).
             // Where D is a multiple of 4 a lane pair trades halves, so that
@@ -754,7 +721,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
   }
 
   // every element of dk and dv is written: zeros where the tile is dead
-  E* out = dv_warp ? p.dv : p.dk;
+  float* out = dv_warp ? p.dv : p.dk;
   const int width = dv_warp ? p.V : p.D;
   const float scale = dv_warp ? dp_scale : s_alpha;
 #pragma unroll
@@ -764,25 +731,25 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<E> p) {
     for (int i = 0; i < 2; ++i) {
       const int col = col0 + am * 16 + g + 8 * i;
       if (col >= p.N) continue;
-      E* dst = out + (((long long)b * p.N + col) * p.H + h0 + hh) * width;
+      float* dst = out + (((long long)b * p.N + col) * p.H + h0 + hh) * width;
 #pragma unroll
       for (int j = 0; j < NA; ++j) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int d = an + j * 8 + 2 * t + c;
-          if (d < width) dst[d] = E(scale * acc[hh][j][2 * i + c]);
+          if (d < width) dst[d] = scale * acc[hh][j][2 * i + c];
         }
       }
     }
   }
 }
 
-template <int W, int HG, typename E, bool DET, bool LONG = false>
-cudaError_t launch_w(const Params<E>& p, cudaStream_t stream) {
+template <int W, int HG, bool DET, bool LONG = false>
+cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
   const long long smem =
       4 * (LONG ? smem_floats_long(W, HG, p.NB + 1) : smem_floats(W, HG, 2LL * p.Nm - 1, p.NB + 1LL));
   if (smem > hstu_wide::kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = relbias_bwd_kernel<W, HG, E, DET, LONG>;
+  auto kernel = relbias_bwd_kernel<W, HG, DET, LONG>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -815,9 +782,15 @@ hstu_wide::Params<E> wide_params(const Params<E>& p, void* dq) {
   return w;
 }
 
-// This body (kNarrow: the tables staged; kRead: LONG), or with kWide (K7
-// alone) the wide bodies: the relative-bias dq pass, then dk, dv and the
-// tables.
+// The bfloat16 body (hstu_attention_relbias_bwd_bf16.cuh): its pre-scaling
+// pass, then the body on `route`; and the heads a block of it takes
+template <bool DET>
+int launch_bf16(const Params<__nv_bfloat16>& p, int route, cudaStream_t s);
+int head_group_bf16(int D, int V);
+
+// This body on float32, the bfloat16 body on bfloat16 (kNarrow: the tables
+// staged; kRead: LONG), or with kWide (K7 alone) the wide bodies: the
+// relative-bias dq pass, then dk, dv and the tables.
 template <typename E, bool DET = false>
 int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
@@ -831,10 +804,14 @@ int launch(const Params<E>& p, int route, void* stream) {
   }
   if (p.D > 64 || p.V > 64 || (route != hstu::kNarrow && route != hstu::kRead))
     return (int)cudaErrorInvalidValue;
-  const bool read = route == hstu::kRead;
-  if (p.D <= 32 && p.V <= 32)
-    return (int)(read ? launch_w<32, 4, E, DET, true>(p, s) : launch_w<32, 4, E, DET>(p, s));
-  return (int)(read ? launch_w<64, 2, E, DET, true>(p, s) : launch_w<64, 2, E, DET>(p, s));
+  if constexpr (std::is_same<E, float>::value) {
+    const bool read = route == hstu::kRead;
+    if (p.D <= 32 && p.V <= 32)
+      return (int)(read ? launch_w<32, 4, DET, true>(p, s) : launch_w<32, 4, DET>(p, s));
+    return (int)(read ? launch_w<64, 2, DET, true>(p, s) : launch_w<64, 2, DET>(p, s));
+  } else {
+    return launch_bf16<DET>(p, route, s);
+  }
 }
 
 // K7-det: this kernel with DET (on `route`), then `det_sums_kernel`: dq from
@@ -871,7 +848,7 @@ int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
     if (p.dq_partial == nullptr) return (int)cudaErrorInvalidValue;
     const int err = launch<E, /*DET=*/true>(p, route, stream);
     if (err != 0) return err;
-    const int hg = p.D <= 32 && p.V <= 32 ? 4 : 2;
+    const int hg = std::is_same<E, float>::value ? (p.D <= 32 && p.V <= 32 ? 4 : 2) : head_group_bf16(p.D, p.V);
     sp.rows = (int)((long long)tiles * ((p.H + hg - 1) / hg) * p.B);
   }
   const long long blocks = (long long)sp.B * sp.tiles * sp.chunks + (n + 31) / 32;
@@ -906,32 +883,6 @@ extern "C" int hstu_mha_relbias_bwd(
   return hstu_relbias_bwd::launch<float>(p, route, stream);
 }
 
-// The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; dq32 a zeroed
-// float32 [B, N, H, D] buffer for dq's sums, which a second launch writes
-// into dq as bfloat16; the tables, the timestamps and their gradients
-// float32. The `vec_*` flags: rows readable in 8-byte pieces.
-extern "C" int hstu_mha_relbias_bwd_bf16(
-    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const __nv_bfloat16* dout, float* dq32, __nv_bfloat16* dq, __nv_bfloat16* dk,
-    __nv_bfloat16* dv, const int* lengths, const int* num_targets, const float* ts,
-    const float* pos_w, const float* ts_w, float* dpos, float* dts,
-    int B, int N, int H, int D, int V,
-    long long q_sb, long long q_sn, long long q_sh, long long k_sb,
-    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
-    long long v_sh, long long do_sb, long long do_sn, long long do_sh,
-    float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
-  hstu_relbias_bwd::Params<__nv_bfloat16> p{
-      q, k, v, dout, dq32, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
-      B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
-      do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
-      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
-  const int err = hstu_relbias_bwd::launch<__nv_bfloat16>(p, route, stream);
-  if (err != 0) return err;
-  return (int)hstu_tf32::to_bf16(dq32, dq, (long long)B * N * H * D, static_cast<cudaStream_t>(stream));
-}
-
 // K7-det on float32: dq, dk and dv written whole; partial and dq_partial
 // float32 scratch buffers (`launch_det`); dpos and dts written whole;
 // `route` this kernel's body. The same bits on every run.
@@ -955,13 +906,46 @@ extern "C" int hstu_mha_relbias_bwd_det(
   return hstu_relbias_bwd::launch_det<float>(p, dq, route, stream);
 }
 
+#include "hstu_attention_relbias_bwd_bf16.cuh"
+
+// The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; qs and dos
+// contiguous [B, N, H, D] and [B, N, H, V] bfloat16 buffers for
+// bfloat16(alpha q) (null where alpha is 1) and bfloat16(dO / norm) (both
+// null on the wide route); dq32 a zeroed float32 [B, N, H, D] buffer for dq's
+// sums, which a last launch writes into dq as bfloat16; the tables, the
+// timestamps and their gradients float32. vec_*: rows readable in 16-byte
+// pieces (8-byte ones on the wide route).
+extern "C" int hstu_mha_relbias_bwd_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const __nv_bfloat16* dout, __nv_bfloat16* qs, __nv_bfloat16* dos, float* dq32, __nv_bfloat16* dq,
+    __nv_bfloat16* dk, __nv_bfloat16* dv, const int* lengths, const int* num_targets, const float* ts,
+    const float* pos_w, const float* ts_w, float* dpos, float* dts,
+    int B, int N, int H, int D, int V,
+    long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+    long long v_sh, long long do_sb, long long do_sn, long long do_sh,
+    float alpha, float inv_norm, int causal, int max_attn_len,
+    int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
+  hstu_relbias_bwd::Params<__nv_bfloat16> p{
+      q, k, v, dout, dq32, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
+      B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
+      do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
+      contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
+  p.qs = qs;
+  p.dos = dos;
+  const int err = hstu_relbias_bwd::launch<__nv_bfloat16>(p, route, stream);
+  if (err != 0) return err;
+  return (int)hstu_tf32::to_bf16(dq32, dq, (long long)B * N * H * D, static_cast<cudaStream_t>(stream));
+}
+
 // K7-det on bfloat16 q, k, v, dout, dq, dk and dv (K7-bf16's rounding
-// points, alpha q rounded to bfloat16; dq's slots float32, each element's
-// sum rounded once).
+// points; dq's slots float32, each element's sum rounded once); qs and dos as
+// K7-bf16's.
 extern "C" int hstu_mha_relbias_bwd_det_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-    const __nv_bfloat16* dout, __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv,
-    const int* lengths, const int* num_targets, const float* ts, const float* pos_w,
+    const __nv_bfloat16* dout, __nv_bfloat16* qs, __nv_bfloat16* dos, __nv_bfloat16* dq, __nv_bfloat16* dk,
+    __nv_bfloat16* dv, const int* lengths, const int* num_targets, const float* ts, const float* pos_w,
     const float* ts_w, float* dpos, float* dts, float* partial, float* dq_partial,
     int B, int N, int H, int D, int V,
     long long q_sb, long long q_sn, long long q_sh, long long k_sb,
@@ -975,5 +959,7 @@ extern "C" int hstu_mha_relbias_bwd_det_bf16(
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial, dq_partial};
+  p.qs = qs;
+  p.dos = dos;
   return hstu_relbias_bwd::launch_det<__nv_bfloat16>(p, dq, route, stream);
 }

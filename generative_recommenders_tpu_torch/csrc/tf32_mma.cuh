@@ -5,16 +5,16 @@
 // (hstu_attention_fwd.cuh) and the backward bodies of K2 and K4
 // (hstu_attention_bwd_dkv.cuh) and of K3 (hstu_attention_bwd_dq.cuh).
 //
-// The bfloat16 instances of K3, K7, K7-det and the wide bodies (on bfloat16
+// The wide bodies' bfloat16 instances (hstu_attention_wide.cuh, on bfloat16
 // q, k, v) read their tiles through `load_tile`'s bfloat16 overload, which
 // converts to float32 on the way into shared memory, and multiply with
 // `mma<true>`: one TF32 product, exact, because every operand they multiply
 // is a bfloat16 value (the inputs, alpha q, dO / norm, and P and dS rounded
 // to bfloat16 as the TPU kernels round them), and a bfloat16 value is exact
-// in TF32 (its split leaves small = 0). Those that sum dq with atomics (K7,
-// and K2-bf16's bfloat16 body) sum it in a float32 buffer that `to_bf16`
-// writes as bfloat16. K1's, K2's, K4's and K6's bfloat16 instances take the
-// bfloat16 tensor cores instead (bf16_mma.cuh).
+// in TF32 (its split leaves small = 0). The bfloat16 bodies of the narrow
+// kernels take the bfloat16 tensor cores instead (bf16_mma.cuh); those that
+// sum dq with atomics (K2-bf16, K7-bf16) sum it in a float32 buffer that
+// `to_bf16` writes as bfloat16.
 #pragma once
 
 #include <cstdint>

@@ -36,8 +36,8 @@ KERNEL_SOURCES = {
 }
 _HEADERS = (
     "bf16_mma.cuh", "hstu_attention.cuh", "hstu_attention_bwd_dkv.cuh", "hstu_attention_bwd_dkv_bf16.cuh",
-    "hstu_attention_bwd_dq.cuh", "hstu_attention_fwd.cuh", "hstu_attention_fwd_bf16.cuh", "hstu_attention_wide.cuh",
-    "tf32_mma.cuh",
+    "hstu_attention_bwd_dq.cuh", "hstu_attention_bwd_dq_bf16.cuh", "hstu_attention_fwd.cuh",
+    "hstu_attention_fwd_bf16.cuh", "hstu_attention_relbias_bwd_bf16.cuh", "hstu_attention_wide.cuh", "tf32_mma.cuh",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -53,10 +53,11 @@ K3-bf16 + K4-bf16 rounds where the fused K2-bf16 does, as `_bwd_dq_kernel`
 and `_bwd_dkv_kernel` round where `_bwd_fused_kernel_rkv` does, so one
 plain version serves both (`_dense_fwd_plain_bf16`, `_dense_bwd_plain_bf16`);
 a bfloat16 CPU tensor goes through them; autograd through a bfloat16
-forward would round dP instead. K1-bf16 (and K1-bias-bf16, K6-bf16) and
-K2-bf16 (and K4-bf16) run bodies of their own on the bfloat16 tensor cores
-(`csrc/hstu_attention_fwd_bf16.cuh`, `csrc/hstu_attention_bwd_dkv_bf16.cuh`),
-planned by `_fwd_plan` and `_bwd_plan` on the element type: the forward cuts
+forward would round dP instead. K1-bf16 (and K1-bias-bf16, K6-bf16),
+K2-bf16 (and K4-bf16) and K3-bf16 run bodies of their own on the bfloat16
+tensor cores (`csrc/hstu_attention_fwd_bf16.cuh`,
+`csrc/hstu_attention_bwd_dkv_bf16.cuh`, `csrc/hstu_attention_bwd_dq_bf16.cuh`),
+planned by `_fwd_plan`, `_bwd_plan` and `_dq_plan` on the element type: the forward cuts
 a walk over the keys longer than a chunk (`_walk_chunk`) across blocks and
 adds the chunks' float32 sums, kept in a scratch the wrapper allocates, in
 chunk order (`_dense_fwd_chunks_bf16` models that order); the backward first
@@ -106,10 +107,13 @@ _ARGTYPES = {
     },
     **{
         name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P]  # mask ints, flags
-        for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv", "hstu_mha_bwd_dq_bf16")
+        for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
     },
-    # two more pointers after dO: the bfloat16 body's alpha q and dO / norm
-    "hstu_mha_bwd_dkv_bf16": [_P] * 11 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
+    # two more pointers after dO: the bfloat16 bodies' alpha q and dO / norm
+    **{
+        name: [_P] * 11 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P]
+        for name in ("hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16")
+    },
     # and one more: dq's float32 sums beside the bfloat16 dq
     "hstu_mha_bwd_fused_bf16": [_P] * 12 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
 }
@@ -611,24 +615,40 @@ def _bwd_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch
 # The tiling of K3's body (csrc/hstu_attention_bwd_dq.cuh): padded width ->
 # (query rows per block, key columns per step); one head a block, 16 warps
 _DQ_TILING = {32: (64, 64), 64: (64, 64), 128: (64, 64), 256: (64, 32)}
+# The same for its bfloat16 body (csrc/hstu_attention_bwd_dq_bf16.cuh):
+# (query rows per block, key columns per step, warps)
+_DQ_TILING_BF16 = {32: (64, 64, 4), 64: (64, 64, 4), 128: (64, 32, 4), 256: (64, 32, 4)}
 
 
-def _dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
-    """K3's launch, its ``route`` the body the C entry point takes. Up to D
-    256 and V 128 (route ``narrow``): the width both are padded to (the
-    next of 32, 64, 128, or 256 for D > 128), the query rows of a block, the
-    key columns of a step of the walk, one head a block, the block's shared
-    memory (Q and dO of the query tile and two stages of K and V, at pitches
-    of W + 8 and V's width + 8; dS at the key columns + 8; the step's live
-    flags of 16-row groups) and the one-dimensional grid of (query tile,
-    head, batch row) blocks. Wider heads (route ``wide``): the wide dq pass. Raises on a
-    width of 0 and on a grid beyond CUDA's."""
+def _dq_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.float32) -> dict:
+    """K3's launch on q's type ``dtype``, its ``route`` the body the C entry
+    point takes. Up to D 256 and V 128 (route ``narrow``): the width both are
+    padded to (the next of 32, 64, 128, or 256 for D > 128), the query rows
+    of a block, the key columns of a step of the walk, one head a block, the
+    block's shared memory (Q and dO of the query tile and two stages of K and
+    V, at pitches of W + 8 and V's width + 8; dS at the key columns + 8; the
+    step's live flags of 16-row groups) and the one-dimensional grid of
+    (query tile, head, batch row) blocks. On bfloat16 the bfloat16 body's
+    (`_DQ_TILING_BF16`: its tiles bfloat16, one warp per 16 query rows, dS
+    kept in registers), after the pre-scaling pass (a block per batch row
+    and row, ``prescale_grid``) into the bfloat16 buffers ``q_scaled_shape``
+    (where alpha != 1) and ``do_scaled_shape``. Wider heads (route ``wide``,
+    either type): the wide dq pass. Raises on a width of 0 and on a grid
+    beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
         return _wide_dq_plan(D, V, H, B, N)
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
-    rows, cols = _DQ_TILING[width]
     vw = min(width, _NARROW_V)
+    if dtype == torch.bfloat16:
+        rows, cols, warps = _DQ_TILING_BF16[width]
+        blocks = -(-N // rows) * H * B
+        _check_grid(blocks, "the dq backward kernel")
+        _check_grid(B * N, "the pre-scaling pass")
+        return dict(route="narrow", width=width, query_rows=rows, key_cols=cols, head_group=1, warps=warps,
+                    shared_bytes=2 * (rows + 2 * cols) * (width + 8 + vw + 8), grid=(blocks,),
+                    prescale_grid=(B * N,), q_scaled_shape=(B, N, H, D), do_scaled_shape=(B, N, H, V))
+    rows, cols = _DQ_TILING[width]
     shared_bytes = 4 * ((rows + 2 * cols) * (width + 8 + vw + 8) + rows * (cols + 8) + rows // 16)
     blocks = -(-N // rows) * H * B
     _check_grid(blocks, "the dq backward kernel")
@@ -832,15 +852,15 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     if B * N * H == 0:
         return dq, dk, dv
     # raises on what the kernel does not take
-    plan = _dq_plan(D, V, H, B, N) if split_dq else _bwd_plan(D, V, H, B, N, q.dtype)
+    plan = (_dq_plan if split_dq else _bwd_plan)(D, V, H, B, N, q.dtype)
     route = plan["route"]
-    # K2-bf16's and K4-bf16's bfloat16 body: its pre-scaling pass writes
-    # bfloat16(alpha q) (where alpha != 1) and bfloat16(dO / norm) into
-    # buffers of their own (pointers after dO), and it reads its rows in
-    # 16-byte pieces of 8 elements
-    body16 = bf16 and not split_dq and route == "narrow"
+    # the bfloat16 bodies (K2-bf16 and K4-bf16's, K3-bf16's): a pre-scaling
+    # pass writes bfloat16(alpha q) (where alpha != 1) and bfloat16(dO /
+    # norm) into buffers of their own (pointers after dO; none on the wide
+    # route), and the body reads its rows in 16-byte pieces of 8 elements
+    body16 = bf16 and route == "narrow"
     scaled = ()
-    if bf16 and not split_dq:
+    if bf16:
         qs = new(plan["q_scaled_shape"]) if body16 and kw["alpha"] != 1.0 else None
         dos = new(plan["do_scaled_shape"]) if body16 else None
         scaled = (qs, dos)

@@ -14,7 +14,9 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py`:
   inside one block (`_relbias_bwd_plan`), head widths up to 64 (wider heads
   take the wide bodies, csrc/hstu_attention_wide.cuh); or, with
   ``deterministic``, K7-det (the same library): the same function summed in
-  one fixed order (`_relbias_det_plan`).
+  one fixed order (`_relbias_det_plan`). On bfloat16 both run a body of
+  their own on the bfloat16 tensor cores
+  (`csrc/hstu_attention_relbias_bwd_bf16.cuh`), after a pre-scaling pass.
 
     bias[b, i, j] = pos_w[clip(j - i + Nm - 1, 0, 2 Nm - 2)]
                   + ts_w[clip(floor(ln(max(|ts[b, min(i + 1, N - 1)]
@@ -48,7 +50,12 @@ follow the same rounding points (`_relbias_fwd_plain_bf16`,
 `_relbias_bwd_plain_bf16`); autograd through a bfloat16 forward would round
 dP instead. K6-bf16 runs K1-bf16's body on the bfloat16 tensor cores
 (`csrc/hstu_attention_fwd_bf16.cuh`, its long walks cut in chunks whose sums
-a scratch holds, `hstu_attention._fwd_plan` on bfloat16). The bfloat16 kernels count their launches in
+a scratch holds, `hstu_attention._fwd_plan` on bfloat16); K7-bf16 and
+K7-det-bf16 a bfloat16 body of their own
+(`csrc/hstu_attention_relbias_bwd_bf16.cuh`: bfloat16(alpha q) and
+bfloat16(dO / norm) formed once per call into buffers the wrapper
+allocates, ``mma.sync.m16n8k16`` on bfloat16 tiles, 4 heads of width 32 a
+block). The bfloat16 kernels count their launches in
 ``launches_bf16``, beside the float32 kernels' ``launches``.
 
 K7 sums dq, ``dpos_w`` and ``dts_w`` with atomics, in an order that changes
@@ -84,13 +91,13 @@ ha._ARGTYPES.update({
     # the bfloat16 body's scratch after out and its chunk before the route
     "hstu_mha_relbias_fwd_bf16": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I] + [_I, _P],
     "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
-    # one more pointer: dq's float32 sums beside the bfloat16 dq
-    "hstu_mha_relbias_bwd_bf16": [_P] * 15 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
-    # two more pointers: the blocks' table sums, the tile pairs' dQ
-    **{
-        name: [_P] * 16 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P]
-        for name in ("hstu_mha_relbias_bwd_det", "hstu_mha_relbias_bwd_det_bf16")
-    },
+    # three more pointers: the bfloat16 body's alpha q and dO / norm after dO,
+    # dq's float32 sums beside the bfloat16 dq
+    "hstu_mha_relbias_bwd_bf16": [_P] * 17 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
+    # two more pointers: the blocks' table sums, the tile pairs' dQ (and on
+    # bfloat16 alpha q and dO / norm after dO)
+    "hstu_mha_relbias_bwd_det": [_P] * 16 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
+    "hstu_mha_relbias_bwd_det_bf16": [_P] * 18 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
 })
 # the bfloat16 kernels and K7-det are second entry points of K6's and K7's
 # libraries
@@ -103,6 +110,9 @@ ha._LIBRARY.update({
 # at a pitch of its width + 8; a Hopper block's shared memory
 _BWD_TILE, _BWD_PITCH, _BWD_WARPS = 64, 72, 16
 _NARROW_BWD_WIDTH = 64  # wider heads take the wide bodies (csrc/hstu_attention_wide.cuh)
+# the heads a block of K7's bfloat16 body loops inside, by padded width
+# (`TilingBf16` of csrc/hstu_attention_relbias_bwd_bf16.cuh)
+_HEAD_GROUP_BF16 = {32: 4, 64: 2}
 # the buckets a float32 time gap reaches: 0 .. 294 and NB (an infinite gap),
 # the slots of dts_w's copies where the tables are read (`hstu_wide::kTsSlots`)
 _TS_SLOTS = 296
@@ -318,35 +328,47 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     return out
 
 
-def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int) -> dict:
-    """K7's launch, its ``route`` the body the C entry point takes. D and V up
-    to 64 (route ``narrow``): the head width both are padded to (32
-    or 64), the heads a block loops inside (4 or 2: their K, V, dK and dV
-    tiles fill its shared memory and registers), the head groups (H need not
-    be a multiple) and the block's shared memory: K and V of the group, two
-    (Q, dO) buffers, P, dS and dS summed over the heads, both tables,
-    ``dpos_w``'s sums and one copy of ``dts_w``'s sums per warp; where the
-    tables do not fit beside the tiles (a long position table, many
-    buckets), the tables are read from device memory and the warps' copies
-    keep the reachable buckets (route ``read``). Wider heads
-    (route ``wide``): the wide relative-bias dq pass, then the wide dkv pass with
-    the table sums (a block per key tile, head, batch row and output chunk).
-    Raises on a width of 0."""
+def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int, dtype: torch.dtype = torch.float32,
+                      B: int = 1, N: int = 1) -> dict:
+    """K7's launch on q's type ``dtype``, its ``route`` the body the C entry
+    point takes. D and V up to 64 (route ``narrow``): the head width both
+    are padded to (32 or 64), the heads a block loops inside (4 or 2: their
+    K, V, dK and dV tiles fill its shared memory and registers), the head
+    groups (H need not be a multiple) and the block's shared memory: K and V
+    of the group, two (Q, dO) buffers, P, dS and dS summed over the heads,
+    both tables, ``dpos_w``'s sums and one copy of ``dts_w``'s sums per
+    warp; where the tables do not fit beside the tiles (a long position
+    table, many buckets), the tables are read from device memory and the
+    warps' copies keep the reachable buckets (route ``read``). On bfloat16
+    the bfloat16 body's: its tiles, P and dS bfloat16 (the head sum of dS
+    float32), `_HEAD_GROUP_BF16` heads a block, so that longer tables are
+    staged (at width 32 and 128 buckets up to Nm 7,836 against float32's
+    2,844); after the pre-scaling pass (a block per batch
+    row and row of the [B, N] batch, ``prescale_grid``) into the bfloat16
+    buffers ``q_scaled_shape`` (where alpha != 1) and ``do_scaled_shape``.
+    Wider heads (route ``wide``, either type): the wide relative-bias dq
+    pass, then the wide dkv pass with the table sums (a block per key tile,
+    head, batch row and output chunk). Raises on a width of 0."""
     ha._check_widths(D, V)
     if max(D, V) > _NARROW_BWD_WIDTH:
         return dict(route="wide", width=ha._WIDE_CHUNK, head_group=1, head_groups=H,
                     shared_bytes=ha._WIDE_DKV_RELBIAS_BYTES, dq_shared_bytes=ha._WIDE_DQ["shared_bytes"])
     width = 32 if max(D, V) <= 32 else 64
-    head_group = 128 // width
-    tiles = (
-        (2 * head_group + 4) * _BWD_TILE * (width + 8)  # K, V of the group; two (Q, dO) buffers
-        + 3 * _BWD_TILE * _BWD_PITCH  # P, dS, dS summed over the heads
-    )
+    bf16 = dtype == torch.bfloat16
+    head_group = _HEAD_GROUP_BF16[width] if bf16 else 128 // width
+    if bf16:  # bytes: bfloat16 K, V of the group, two (Q, dO) stages, P and dS; dS summed over the heads
+        tile_bytes = 2 * ((2 * head_group + 4) * _BWD_TILE * (width + 8) + 2 * _BWD_TILE * _BWD_PITCH) \
+            + 4 * _BWD_TILE * _BWD_PITCH
+    else:  # floats: K, V of the group, two (Q, dO) buffers; P, dS, dS summed over the heads
+        tile_bytes = 4 * ((2 * head_group + 4) * _BWD_TILE * (width + 8) + 3 * _BWD_TILE * _BWD_PITCH)
     tables = 2 * (2 * Nm - 1) + (1 + _BWD_WARPS) * (NB + 1)
     plan = dict(route="narrow", width=width, head_group=head_group, head_groups=-(-H // head_group),
-                shared_bytes=4 * (tiles + tables))
+                shared_bytes=tile_bytes + 4 * tables)
     if plan["shared_bytes"] > _MAX_SHARED_BYTES:  # read, not staged
-        plan.update(route="read", shared_bytes=4 * (tiles + _BWD_WARPS * min(NB + 1, _TS_SLOTS)))
+        plan.update(route="read", shared_bytes=tile_bytes + 4 * _BWD_WARPS * min(NB + 1, _TS_SLOTS))
+    if bf16:
+        ha._check_grid(B * N, "the pre-scaling pass")
+        plan.update(prescale_grid=(B * N,), q_scaled_shape=(B, N, H, D), do_scaled_shape=(B, N, H, V))
     return plan
 
 
@@ -369,7 +391,7 @@ def _det_slot(qt: int, kt: int, tiles: int, lower_only: bool) -> int:
 
 
 def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, causal: bool = True,
-                      contextual_seq_len: int = 0) -> dict:
+                      contextual_seq_len: int = 0, dtype: torch.dtype = torch.float32) -> dict:
     """K7-det's launches. D and V up to 64: K7's body on K7's grid
     (`_relbias_bwd_plan`: (key tile, head group, batch row)), on its route,
     each block storing the dQ of every tile pair its walk visits to the
@@ -384,9 +406,10 @@ def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, 
     4), the rest the table rows in block order, 32 entries a block. Wider
     heads: the wide dq pass, the wide dkv pass, whose blocks of chunk 0
     write one row per (key tile, head, batch row), and the same sum launch
-    on the tables alone. Raises on a width of 0 and on a grid beyond
-    CUDA's."""
-    bwd = _relbias_bwd_plan(D, V, H, Nm, NB)
+    on the tables alone. On bfloat16 K7's bfloat16 body (`_relbias_bwd_plan`
+    on ``dtype``: its head groups, its route, its pre-scaled buffers). Raises
+    on a width of 0 and on a grid beyond CUDA's."""
+    bwd = _relbias_bwd_plan(D, V, H, Nm, NB, dtype, B, N)
     entries = 2 * Nm - 1 + NB + 1
     table_blocks = -(-entries // 32)
     if bwd["route"] == "wide":
@@ -400,10 +423,11 @@ def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, 
     pairs = _det_slot(tiles, 0, tiles, lower_only)  # the slot after the last pair's
     per_block = 4096 if H * D % 4 == 0 else 1024
     chunks = -(-(_BWD_TILE * H * D) // per_block)
+    scaled = {k: bwd[k] for k in ("prescale_grid", "q_scaled_shape", "do_scaled_shape") if k in bwd}
     return dict(route=bwd["route"], width=bwd["width"], head_group=bwd["head_group"], grid=grid,
                 shared_bytes=bwd["shared_bytes"], partial_shape=(grid[0] * grid[1] * grid[2], entries),
                 tiles=tiles, lower_only=lower_only, pairs=pairs, dq_partial_shape=(B, pairs, _BWD_TILE, H, D),
-                sum_chunks=chunks, sum_grid=(B * tiles * chunks + table_blocks,))
+                sum_chunks=chunks, sum_grid=(B * tiles * chunks + table_blocks,), **scaled)
 
 
 def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic: bool = False) -> RelbiasGrads:
@@ -419,9 +443,9 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
     bf16 = q.dtype == torch.bfloat16
     # raises on what the kernels do not take
     if deterministic:
-        plan = _relbias_det_plan(D, V, H, B, N, Nm, NB, kw["causal"], kw["contextual_seq_len"])
+        plan = _relbias_det_plan(D, V, H, B, N, Nm, NB, kw["causal"], kw["contextual_seq_len"], q.dtype)
     else:
-        plan = _relbias_bwd_plan(D, V, H, Nm, NB)
+        plan = _relbias_bwd_plan(D, V, H, Nm, NB, q.dtype, B, N)
         if plan["route"] == "wide":
             ha._wide_dq_plan(D, V, H, B, N)
             ha._wide_dkv_plan(D, V, H, B, N, relbias=True)
@@ -447,15 +471,26 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
             return dq, dk, dv, dpos, dts
         name = "hstu_mha_relbias_bwd_bf16" if bf16 else "hstu_mha_relbias_bwd"
         dq_ptrs, tail = ((dq32.data_ptr(), dq.data_ptr()) if bf16 else (dq.data_ptr(),)), ()
+    # the bfloat16 body (routes narrow and read): its pre-scaling pass writes
+    # bfloat16(alpha q) (where alpha != 1) and bfloat16(dO / norm) into
+    # buffers of their own (pointers after dO; none on the wide route), and
+    # it reads its rows in 16-byte pieces of 8 elements
+    body16 = bf16 and plan["route"] != "wide"
+    scaled = ()
+    if bf16:
+        qs = new(torch.empty, *plan["q_scaled_shape"], dtype=q.dtype) if body16 and kw["alpha"] != 1.0 else None
+        dos = new(torch.empty, *plan["do_scaled_shape"], dtype=q.dtype) if body16 else None
+        scaled = (ha._ptr(qs), ha._ptr(dos))
     ha._launch(
         name,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *scaled,
         *dq_ptrs, dk.data_ptr(), dv.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(), *tail,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *ha._mask_args(kw, N), Nm, NB,
-        *(int(ha._vec16(t)) for t in (q, k, v, do)), ha._ROUTES[plan["route"]], ha._stream(q.device),
+        *(int(ha._vec16(t, 8 if body16 else 4)) for t in (q, k, v, do)), ha._ROUTES[plan["route"]],
+        ha._stream(q.device),
     )
     c = hstu_mha_relbias_bwd_cuda
     {

@@ -40,24 +40,30 @@ against the shipped one.
     python PATH/TO/variants.py --bf16
 
 (run as a file, with ``PYTHONPATH`` naming the checkout whose package to
-time, as ``--det``) times the bfloat16 kernels K1-bf16, K2-bf16 and K4-bf16
-through their wrappers at bench.py's shape (B 8, N 2048, H 4, D 64, alpha
-1/8, lengths from default_rng(0)) and at N 4096, and K1-bf16, K2-bf16,
-K4-bf16, K6-bf16 and K1-bias-bf16 at ml-3b's block 0 (B 96, N 511, H 8, D
-32, alpha 1, lengths 1..511), with the pair's TFLOP/s at bench.py's shape
-under bench.py's FLOP model (3.5 times the forward's 2 H (2 D) L^2 / 2); in
-a checkout whose forward cuts walks in chunks (`_FWD_CHUNK_BF16`) also
-K1-bf16 at other chunks and with none.
+time, as ``--det``) times the bfloat16 kernels K1-bf16 to K4-bf16 through
+their wrappers at bench.py's shape (B 8, N 2048, H 4, D 64, alpha 1/8,
+lengths from default_rng(0)) and at N 4096; K1-bf16 to K4-bf16, K6-bf16,
+K1-bias-bf16, K7-bf16 and K7-det-bf16 at ml-3b's block 0 (B 96, N 511, H
+8, D 32, alpha 1, lengths 1..511); and K7-bf16 and K7-det-bf16 at the
+long-history layer (B 2, N = Nm = 4096, H 8, D 32, lengths 3600..4096);
+with the split K3-bf16 + K4-bf16 against K2-bf16, and the pair K1-bf16 +
+K2-bf16's TFLOP/s at bench.py's shape under bench.py's FLOP model (3.5 times
+the forward's 2 H (2 D) L^2 / 2); in a checkout whose forward cuts walks in
+chunks (`_FWD_CHUNK_BF16`) also K1-bf16 at other chunks and with none.
 
-    python -m generative_recommenders_tpu_torch.ops.cuda.variants --bf16-variants [TEXT ...]
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --bf16-variants [KERNEL ...] [TEXT ...]
 
-builds and times the knock-outs of the bfloat16 bodies (labels "bf16: ...",
-or those holding one of the TEXTs, beside the shipped bodies):
+builds and times the knock-outs of the bfloat16 bodies (labels "bf16: ...";
+of the named kernels' libraries, or those holding one of the TEXTs, beside
+the shipped bodies):
 the tiles copied synchronously in place of `cp.async`, the products as two
 TF32 m16n8k8 each in place of one bfloat16 m16n8k16, the backward's phases
-one at a time, and other tilings of both bodies, for K1-bf16, K2-bf16,
-K4-bf16 (bench.py's shapes and ml-3b's block 0) and K6-bf16 (ml-3b's block
-0).
+one at a time, and other tilings of the bodies, for K1-bf16, K2-bf16,
+K3-bf16, K4-bf16 (bench.py's shapes and ml-3b's block 0), K6-bf16 (ml-3b's
+block 0) and K7-bf16 with K7-det-bf16 (ml-3b's block 0 and the long-history
+layer): K7's table sums and bucket logf taken out, its 4 heads a block
+at width 32 against 8 and 2, and K3's dS through shared memory against
+registers.
 
     python PATH/TO/variants.py --det
 
@@ -74,8 +80,10 @@ turns, in one call on one card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+import re
 import subprocess
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
@@ -143,8 +151,7 @@ _K7: Dict[str, Edit] = {
 _LAST_BLOCK = "K7-det's dq summed by the last block to reach a query tile"
 _K7_DESIGNS: Dict[str, Edit] = {
     _LAST_BLOCK: _both(
-        _sub("  float* dq_partial = nullptr;\n};",
-             "  float* dq_partial = nullptr;\n  E* dq_final = nullptr;\n};"),
+        _sub("  E* dos = nullptr;\n};", "  E* dos = nullptr;\n  E* dq_final = nullptr;\n};"),
         _sub("template <typename E>\nstruct SumParams {",
              "__device__ int g_det_counters[1 << 16];  // zero, and left zero by the last block\n\n"
              "template <typename E>\nstruct SumParams {"),
@@ -248,6 +255,66 @@ _BWD16_EDITS: Dict[str, Edit] = {
         "const float sig = __fdividef(1.f, 1.f + __expf(-x));",
         'float th;\n              asm("tanh.approx.f32 %0, %1;" : "=f"(th) : "f"(0.5f * x));\n'
         "              const float sig = fmaf(0.5f, th, 0.5f);", _BWD16),
+}
+# K7's and K7-det's bfloat16 body: its phases, and other head groups (the
+# wrapper's plan patched to match, `_plan_patch`)
+_R16 = "hstu_attention_relbias_bwd_bf16.cuh"
+_R16_EDITS: Dict[str, Edit] = {
+    "bf16: without the table sums": _both(
+        _sub("unsigned rest = __ballot_sync(kFull, ok);", "unsigned rest = 0;", _R16),
+        _sub("for (int r = part; r < kT; r += 4) {", "for (int r = part; r < 0; r += 4) {", _R16)),
+    "bf16: without the bucket logf": _sub("int bucket = hstu::ts_bucket(tq, tk[j * 2 + c], p.NB);", "int bucket = 3;",
+                                          _R16),
+    "bf16: without S and dP": _sub("if (!dead) {", "if (false) {", _R16),
+    "bf16: without the sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;",
+                                      _R16),
+    "bf16: without dV and dK": _sub("if (ks < row_step_first || ks >= row_steps) continue;", "continue;", _R16),
+    "bf16: without dQ": _both(
+        _sub("for (int ks = 0; ks < kT / 16; ks += 2) {", "for (int ks = 0; ks < 0; ks += 2) {", _R16),
+        _sub("                if (ks >= my_col_steps) continue;\n                uint32_t a[4], kf[4];\n"
+             "                hstu_bf16::ldsm(a,", "                continue;\n                uint32_t a[4], kf[4];\n"
+             "                hstu_bf16::ldsm(a,", _R16)),
+    **{f"bf16: width {w}, {hg} heads a block": _sub(
+        f"template <> struct TilingBf16<{w}> {{ static constexpr int HG = {shipped}; }};",
+        f"template <> struct TilingBf16<{w}> {{ static constexpr int HG = {hg}; }};", _R16)
+       for w, shipped, hg in ((32, 4, 8), (32, 4, 2))},
+}
+# K3-bf16's body: dS through shared memory (each warp stores its 16 rows and
+# reads them back by `ldmatrix`) in place of registers, and other tilings
+_Q16 = "hstu_attention_bwd_dq_bf16.cuh"
+_T32Q = "template <> struct TilingBf16<32> { static constexpr int NW = 4, BK = 64, MINB = 4; };"
+_T64Q = "template <> struct TilingBf16<64> { static constexpr int NW = 4, BK = 64, MINB = 3; };"
+_Q16_EDITS: Dict[str, Edit] = {
+    "bf16: dS through shared memory": _both(
+        _sub("  return 2 * (BQ + 2 * BK) * (W + 8 + WV + 8);",
+             "  return 2 * (BQ + 2 * BK) * (W + 8 + WV + 8) + 2 * BQ * (BK + 8);", _Q16),
+        _sub("      // dQ += dS K over the 16-column steps that reach the warp's rows: on a\n",
+             """      {  // dS stored to the warp's 16 rows of a tile, read back as A fragments
+        bf16* dSw = stages + 2 * STAGE + warp * 16 * (BK + 8);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          *reinterpret_cast<uint32_t*>(dSw + g * (BK + 8) + j * 8 + 2 * t) = da[j / 2][(j & 1) * 2];
+          *reinterpret_cast<uint32_t*>(dSw + (g + 8) * (BK + 8) + j * 8 + 2 * t) = da[j / 2][(j & 1) * 2 + 1];
+        }
+        __syncwarp();
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) hstu_bf16::ldsm(da[kk], hstu_bf16::a_at(dSw, BK + 8, 0, kk * 16));
+        __syncwarp();
+      }
+      // dQ += dS K over the 16-column steps that reach the warp's rows: on a
+""", _Q16)),
+    "bf16: without S and dP": _both(
+        _sub("for (int ks = 0; ks < W / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _Q16),
+        _sub("for (int ks = 0; ks < WV / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {", _Q16)),
+    "bf16: without the sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;",
+                                      _Q16),
+    "bf16: without dQ": _sub("        if (kk < kk_end) {", "        if (false) {", _Q16),
+    "bf16: width 32 at BK 32": _sub(_T32Q, _T32Q.replace("BK = 64", "BK = 32"), _Q16),
+    "bf16: width 32 at 3 blocks an SM": _sub(_T32Q, _T32Q.replace("MINB = 4", "MINB = 3"), _Q16),
+    "bf16: width 32, 8 warps": _sub(_T32Q, _T32Q.replace("NW = 4", "NW = 8").replace("MINB = 4", "MINB = 2"), _Q16),
+    "bf16: width 64 at BK 32": _sub(_T64Q, _T64Q.replace("BK = 64", "BK = 32"), _Q16),
+    "bf16: width 64 at 2 blocks an SM": _sub(_T64Q, _T64Q.replace("MINB = 3", "MINB = 2"), _Q16),
+    "bf16: width 64, 8 warps": _sub(_T64Q, _T64Q.replace("NW = 4", "NW = 8").replace("MINB = 3", "MINB = 1"), _Q16),
 }
 _FWD16_EDITS: Dict[str, Edit] = {
     "bf16: width 32 at 3 blocks an SM": _sub(_T32F, _T32F.replace("MINB = 4", "MINB = 3"), _FWD16),
@@ -370,11 +437,17 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
           if kernel == "hstu_mha_bwd_fused" or name not in ("bf16: without dQ", "bf16: without dq atomics")]]
     + [("hstu_mha_relbias_fwd", "bf16: as shipped", ())]
     + [("hstu_mha_relbias_fwd", name, (name,)) for name in _FWD16_EDITS]
+    + [(kernel, label, phases)
+       for kernel, own in (("hstu_mha_relbias_bwd", _R16_EDITS), ("hstu_mha_bwd_dq", _Q16_EDITS))
+       for label, phases in [("bf16: as shipped", ())] + [(name, (name,)) for name in {**_BF16_EDITS, **own}]]
+    + [("hstu_mha_relbias_bwd", "bf16: without the table sums and the bucket logf",
+        ("bf16: without the table sums", "bf16: without the bucket logf"))]
 )
-_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS}, "delta_hstu_mha_fwd": _K5,
+_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS}, "delta_hstu_mha_fwd": _K5,
           "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS}, "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS},
           "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
-          "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS}, "hstu_mha_bwd_dq": _K3}
+          "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
+          "hstu_mha_bwd_dq": {**_K3, **_BF16_EDITS, **_Q16_EDITS}}
 
 
 def shipped_sources(kernel: str) -> Dict[str, str]:
@@ -557,9 +630,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     if args[:1] == ["--bf16-variants"]:
         inputs = bf16_inputs(rand, gen)
-        chosen = [i for i, (_, label, _) in enumerate(VARIANTS)
-                  if label.startswith("bf16") and (len(args) == 1 or label == "bf16: as shipped"
-                                                   or any(a in label for a in args[1:]))]
+        # kernels' names keep those kernels' variants, other TEXTs those whose label holds one
+        kernels = [a for a in args[1:] if a in build.KERNEL_SOURCES]
+        texts = [a for a in args[1:] if a not in kernels]
+        chosen = [i for i, (kernel, label, _) in enumerate(VARIANTS)
+                  if label.startswith("bf16") and (not kernels or kernel in kernels)
+                  and (not texts or label == "bf16: as shipped" or any(a in label for a in texts))]
         root = os.path.join(build.BUILD_DIR, "variants")
         try:
             _build_all(root, chosen)
@@ -567,7 +643,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                 kernel, label, _ = VARIANTS[i]
                 build._libs.clear()
                 _preload(kernel, os.path.join(root, f"v{i}"))
-                bf16_times(device_ms, inputs, only=_BF16_KERNEL[kernel], label=label)
+                with _plan_patch(label):
+                    bf16_times(device_ms, inputs, only=_BF16_KERNEL[kernel], label=label)
         finally:
             build._libs.clear()
         return
@@ -652,9 +729,26 @@ def det_times(device_ms, rand, ints, gen) -> None:
                   + " / ".join(f"{t:.4f}" for t in times[False]) + f" ms; K7-det's call {peak:.1f} MiB above its inputs")
 
 
-# the bfloat16 kernel each variant's library holds, as `bf16_times` names it
-_BF16_KERNEL = {"hstu_mha_fwd": "K1-bf16", "hstu_mha_bwd_fused": "K2-bf16", "hstu_mha_bwd_dkv": "K4-bf16",
-                "hstu_mha_relbias_fwd": "K6-bf16"}
+# the bfloat16 kernels each variant's library holds, as `bf16_times` names them
+_BF16_KERNEL = {"hstu_mha_fwd": ("K1-bf16",), "hstu_mha_bwd_fused": ("K2-bf16",), "hstu_mha_bwd_dkv": ("K4-bf16",),
+                "hstu_mha_relbias_fwd": ("K6-bf16",), "hstu_mha_relbias_bwd": ("K7-bf16", "K7-det-bf16"),
+                "hstu_mha_bwd_dq": ("K3-bf16",)}
+
+
+@contextlib.contextmanager
+def _plan_patch(label: str):
+    """The wrapper's plan matched to a variant that changes what the plan
+    mirrors: K7's bfloat16 head group (K7-det sizes its buffers by it)."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    shipped = dict(hr._HEAD_GROUP_BF16)
+    group = re.fullmatch(r"bf16: width (\d+), (\d+) heads a block", label)
+    if group:
+        hr._HEAD_GROUP_BF16[int(group[1])] = int(group[2])
+    try:
+        yield
+    finally:
+        hr._HEAD_GROUP_BF16.update(shipped)
 
 
 def bf16_inputs(rand, gen) -> Dict[str, tuple]:
@@ -686,35 +780,61 @@ def bf16_inputs(rand, gen) -> Dict[str, tuple]:
     extras = dict(ts=ts, pos_w=rand(2 * N - 1) * 0.1, ts_w=rand(129) * 0.1, bias=(rand(B, N, N) * 0.1).to(bf))
     shapes[f"ml-3b block 0 (B {B}, N {N}, H {H}, D {D})"] = (q, k, v, lens, rand(N, B, H, D).to(bf).transpose(0, 1),
                                                              dict(alpha=1.0, max_seq_len=N), extras)
+    # the long-history layer: ml-3b's widths at N = Nm = 4096, K7 alone
+    B, N = 2, 4096
+    _, v, q, k = torch.split(rand(B, N, 4 * H * D).to(bf), [H * D] * 4, dim=-1)
+    q, k, v = (x.reshape(B, N, H, D) for x in (q, k, v))
+    lens = torch.randint(3600, N + 1, (B,), device="cuda", generator=gen, dtype=torch.int32)
+    ts = 1_500_000_000 + torch.cumsum(torch.randint(1, 86400, (B, N), device="cuda", generator=gen), 1)
+    extras = dict(ts=ts, pos_w=rand(2 * N - 1) * 0.1, ts_w=rand(129) * 0.1, kernels=("K7-bf16", "K7-det-bf16"))
+    shapes[f"long-history layer (B {B}, N = Nm = {N}, H {H}, D {D})"] = (
+        q, k, v, lens, rand(N, B, H, D).to(bf).transpose(0, 1), dict(alpha=1.0, max_seq_len=N), extras)
     return shapes
 
 
-def bf16_times(device_ms, inputs: Dict[str, tuple], only: Optional[str] = None, label: str = "",
+def bf16_times(device_ms, inputs: Dict[str, tuple], only: Optional[Tuple[str, ...]] = None, label: str = "",
                chunks: bool = False) -> None:
-    """Prints the bfloat16 kernels' times (``only``: one of them) at each
+    """Prints the bfloat16 kernels' times (``only``: some of them) at each
     shape of ``inputs`` (`bf16_inputs`), each the mean of its launches
-    through the wrapper; at bench.py's shape also the pair K1-bf16 + K2-bf16
-    in TFLOP/s under bench.py's FLOP model; with ``chunks``, K1-bf16 at
-    bench.py's shapes with other chunks of its walks (no bound on their
-    number) and with none, where the checkout cuts walks in chunks."""
+    through the wrapper (K3-bf16 through `_bwd_kernel`, K7-bf16 and
+    K7-det-bf16 through `hstu_mha_relbias_bwd_cuda`: calls that every
+    checkout since the relative-bias backward took ``deterministic`` has);
+    the split K3-bf16 + K4-bf16 against K2-bf16; at bench.py's shape also
+    the pair K1-bf16 + K2-bf16 in TFLOP/s under bench.py's FLOP model; with
+    ``chunks``, K1-bf16 at bench.py's shapes with other chunks of its walks
+    (no bound on their number) and with none, where the checkout cuts walks
+    in chunks."""
     import torch
 
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
-    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import hstu_mha_dense_relbias_cuda
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention_relbias import (
+        hstu_mha_dense_relbias_cuda,
+        hstu_mha_relbias_bwd_cuda,
+    )
 
     for shape, (q, k, v, lens, do, kw, ex) in inputs.items():
         one = dict(kw, causal=True, max_attn_len=0, contextual_seq_len=0, min_full_attn_seq_len=0)
         fns = {
             "K1-bf16": (lambda: ha.hstu_mha_dense_cuda(q, k, v, lens, **kw), 50),
             "K2-bf16": (lambda: ha.hstu_mha_bwd_cuda(q, k, v, lens, do, **kw), 20),
+            "K3-bf16": (lambda: ha._bwd_kernel("hstu_mha_bwd_dq_bf16", q, k, v, lens, None, do, one), 20),
             "K4-bf16": (lambda: ha._bwd_kernel("hstu_mha_bwd_dkv_bf16", q, k, v, lens, None, do, one), 20),
         }
         if ex:
             fns["K6-bf16"] = (lambda: hstu_mha_dense_relbias_cuda(q, k, v, lens, ex["ts"], ex["pos_w"], ex["ts_w"],
                                                                   **kw), 50)
-            fns["K1-bias-bf16"] = (lambda: ha.hstu_mha_dense_cuda(q, k, v, lens, bias=ex["bias"], **kw), 20)
-        times = {name: device_ms(fn, reps) for name, (fn, reps) in fns.items() if only in (None, name)}
+            if "bias" in ex:
+                fns["K1-bias-bf16"] = (lambda: ha.hstu_mha_dense_cuda(q, k, v, lens, bias=ex["bias"], **kw), 20)
+            for det in (False, True):
+                fns["K7-det-bf16" if det else "K7-bf16"] = (
+                    lambda det=det: hstu_mha_relbias_bwd_cuda(q, k, v, lens, ex["ts"], ex["pos_w"], ex["ts_w"], do,
+                                                              deterministic=det, **kw), 10)
+        wanted = ex.get("kernels", fns) if only is None else only
+        times = {name: device_ms(fn, reps) for name, (fn, reps) in fns.items() if name in wanted}
         print(f"{label + ': ' if label else ''}{shape}: " + ", ".join(f"{n} {t:.4f} ms" for n, t in times.items()))
+        if all(n in times for n in ("K2-bf16", "K3-bf16", "K4-bf16")):
+            split = times["K3-bf16"] + times["K4-bf16"]
+            print(f"  the split K3-bf16 + K4-bf16 {split:.4f} ms: {split / times['K2-bf16']:.2f}x K2-bf16")
         if not ex and only is None:
             B, N, H, D = q.shape
             fwd_flops = sum(2.0 * H * (D + D) * float(x) ** 2 / 2.0 for x in lens.tolist())

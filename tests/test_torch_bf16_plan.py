@@ -232,3 +232,205 @@ def test_bf16_backward_launch_passes_its_buffers(monkeypatch, alpha):
     assert len(call) - 1 == len(ha._ARGTYPES["hstu_mha_bwd_fused_bf16"])
     assert (call[5] is None) == (alpha == 1.0) and isinstance(call[6], int) and isinstance(call[7], int)
     assert call[-6:-2] == (1, 1, 1, 1) == tuple(int(ha._vec16(t, 8)) for t in (q, k, v, do))
+
+
+# ------------------ K7's and K3's bfloat16 bodies (the relative-bias backward, dq)
+def _relbias_tile_bytes(width, group, bf16):
+    """K7's tiles in a block: K and V of the group and two (Q, dO) stages at
+    a pitch of the width + 8; P, dS and dS summed over the heads at 64 x 72
+    (the bfloat16 body: all bfloat16 but the head sum)."""
+    if bf16:
+        return 2 * ((2 * group + 4) * 64 * (width + 8) + 2 * 64 * 72) + 4 * 64 * 72
+    return 4 * ((2 * group + 4) * 64 * (width + 8) + 3 * 64 * 72)
+
+
+@pytest.mark.parametrize("D,V", [(1, 1), (8, 16), (25, 25), (32, 32), (33, 20), (48, 40), (16, 64), (64, 64)])
+def test_bf16_relbias_plans_at_every_narrow_width(D, V):
+    """K7's and K7-det's bfloat16 plans at every narrow width: 4 heads a
+    block at width 32, 2 at 64, the shared bytes of bfloat16 tiles with ml-3b's
+    tables staged (route ``narrow``) within a Hopper block's, the
+    pre-scaling pass's grid and buffers; K7-det on K7's body: its route,
+    bytes and buffers, one row of table sums per (key tile, head group,
+    batch row)."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    B, N, H, Nm, NB = 96, 511, 8, 511, 128
+    width = 32 if max(D, V) <= 32 else 64
+    group = {32: 4, 64: 2}[width]
+    assert hr._HEAD_GROUP_BF16 == {32: 4, 64: 2}
+    plan = hr._relbias_bwd_plan(D, V, H, Nm, NB, torch.bfloat16, B, N)
+    shared = _relbias_tile_bytes(width, group, True) + 4 * (2 * (2 * Nm - 1) + 17 * (NB + 1))
+    assert plan == dict(route="narrow", width=width, head_group=group, head_groups=-(-H // group),
+                        shared_bytes=shared, prescale_grid=(B * N,), q_scaled_shape=(B, N, H, D),
+                        do_scaled_shape=(B, N, H, V))
+    assert shared <= SHARED
+    det = hr._relbias_det_plan(D, V, H, B, N, Nm, NB, True, 0, torch.bfloat16)
+    assert (det["route"], det["shared_bytes"], det["head_group"]) == ("narrow", shared, group)
+    assert det["grid"] == (-(-N // 64), -(-H // group), B)
+    assert det["partial_shape"] == (-(-N // 64) * -(-H // group) * B, 2 * Nm - 1 + NB + 1)
+    assert {k: det[k] for k in ("prescale_grid", "q_scaled_shape", "do_scaled_shape")} == {
+        k: plan[k] for k in ("prescale_grid", "q_scaled_shape", "do_scaled_shape")}
+
+
+def _largest_staged_table(width, group, bf16, NB):
+    """The longest position table (Nm) that K7's body stages beside its
+    tiles and NB + 1 buckets."""
+    free = (SHARED - _relbias_tile_bytes(width, group, bf16)) // 4 - 17 * (NB + 1)
+    return (free // 2 + 1) // 2
+
+
+@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("NB", [128, 1000])
+def test_bf16_relbias_read_threshold(width, NB):
+    """The tables-read route's threshold on bfloat16: bfloat16 tiles leave
+    the tables more room than float32 ones, so longer tables are staged
+    (route ``narrow``) up to the last Nm that fits and read beyond it (route
+    ``read``: the tiles and 16 copies of the reachable buckets); the float32
+    plan reads the longest table the bfloat16 one stages. K7-det reads where
+    K7 does."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    B, N, H = 2, 256, 8
+    group = {32: 4, 64: 2}[width]
+    last = _largest_staged_table(width, group, True, NB)
+    assert last > _largest_staged_table(width, 128 // width, False, NB)
+    for Nm, route in ((last, "narrow"), (last + 1, "read")):
+        plan = hr._relbias_bwd_plan(width, width, H, Nm, NB, torch.bfloat16, B, N)
+        assert plan["route"] == route and plan["shared_bytes"] <= SHARED
+        if route == "read":
+            assert plan["shared_bytes"] == _relbias_tile_bytes(width, group, True) + 4 * 16 * min(NB + 1, 296)
+        assert hr._relbias_det_plan(width, width, H, B, N, Nm, NB, True, 0, torch.bfloat16)["route"] == route
+    assert hr._relbias_bwd_plan(width, width, H, last, NB)["route"] == "read"
+
+
+def test_bf16_relbias_plan_at_the_long_history_layer():
+    """At N = Nm = 4096 (ml-3b's widths) the bfloat16 body stages both
+    tables (route ``narrow``) where the float32 body reads them."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    assert hr._relbias_bwd_plan(32, 32, 8, 4096, 128, torch.bfloat16, 2, 4096)["route"] == "narrow"
+    assert hr._relbias_bwd_plan(32, 32, 8, 4096, 128)["route"] == "read"
+
+
+@pytest.mark.parametrize("D,V", [(1, 1), (25, 25), (32, 32), (40, 16), (64, 64), (16, 100), (128, 128),
+                                 (200, 96), (256, 128)])
+def test_bf16_dq_plan_at_every_narrow_width(D, V):
+    """K3-bf16's plan at every narrow width: 4 warps of 16 query rows a
+    block, 64-column key steps up to width 64 and 32 above, bfloat16 Q and
+    dO resident and two stages of K and V within a Hopper block's shared
+    memory, a block per (query tile, head, batch row), and the pre-scaling
+    pass's grid and buffers."""
+    B, N, H = 96, 511, 8
+    plan = ha._dq_plan(D, V, H, B, N, torch.bfloat16)
+    width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
+    cols = 64 if width <= 64 else 32
+    assert ha._DQ_TILING_BF16[width] == (64, cols, 4)
+    vw = min(width, 128)
+    assert plan == dict(route="narrow", width=width, query_rows=64, key_cols=cols, head_group=1, warps=4,
+                        shared_bytes=2 * (64 + 2 * cols) * (width + 8 + vw + 8), grid=(-(-N // 64) * H * B,),
+                        prescale_grid=(B * N,), q_scaled_shape=(B, N, H, D), do_scaled_shape=(B, N, H, V))
+    assert plan["shared_bytes"] <= SHARED
+
+
+def test_float32_backward_plans_stay():
+    """The float32 plans of K3 and K7 are those of the float32 bodies, with
+    no key of the bfloat16 ones, and the element type defaults to float32;
+    the wide routes are the same on both types."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    for D in (25, 32, 64):
+        width = 32 if D <= 32 else 64
+        group = 128 // width
+        plan = hr._relbias_bwd_plan(D, D, 8, 511, 128)
+        assert plan == hr._relbias_bwd_plan(D, D, 8, 511, 128, torch.float32, 96, 511) == dict(
+            route="narrow", width=width, head_group=group, head_groups=-(-8 // group),
+            shared_bytes=_relbias_tile_bytes(width, group, False) + 4 * (2 * 1021 + 17 * 129))
+        assert "q_scaled_shape" not in hr._relbias_det_plan(D, D, 8, 96, 511, 511, 128)
+    for D, cols in ((32, 64), (64, 64), (128, 64), (256, 32)):
+        vw = min(D, 128)
+        assert ha._dq_plan(D, vw, 4, 8, 1036) == ha._dq_plan(D, vw, 4, 8, 1036, torch.float32) == dict(
+            route="narrow", width=D, query_rows=64, key_cols=cols, head_group=1,
+            shared_bytes=4 * ((64 + 2 * cols) * (D + 8 + vw + 8) + 64 * (cols + 8) + 4),
+            grid=(-(-1036 // 64) * 4 * 8,))
+    assert ha._dq_plan(320, 64, 2, 2, 256, torch.bfloat16) == ha._dq_plan(320, 64, 2, 2, 256)
+    assert hr._relbias_bwd_plan(72, 72, 2, 100, 128, torch.bfloat16) == hr._relbias_bwd_plan(72, 72, 2, 100, 128)
+
+
+def _recorded(monkeypatch):
+    """The launches, recorded and not made."""
+    calls = []
+    monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
+    monkeypatch.setattr(ha, "_stream", lambda device: 0)
+    return calls
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.3])
+@pytest.mark.parametrize("deterministic", [False, True], ids=["K7-bf16", "K7-det-bf16"])
+@pytest.mark.parametrize("Nm,D,route", [(70, 32, "narrow"), (8000, 32, "read"), (70, 72, "wide")])
+def test_bf16_relbias_launch_passes_its_buffers(monkeypatch, alpha, deterministic, Nm, D, route):
+    """`_relbias_bwd` on bfloat16 (the launch recorded, not made): on the
+    bfloat16 body's routes (``narrow``, ``read``) bfloat16(alpha q)'s buffer
+    after dO where alpha != 1 (None at alpha 1), then bfloat16(dO / norm)'s,
+    the rows read in pieces of 8 elements (q, k and v views of one
+    projection at a pitch of 80 elements, dO contiguous); on
+    the wide route neither buffer and pieces of 4; the plan's route; one
+    count on K7-bf16's or K7-det-bf16's counter."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    calls = _recorded(monkeypatch)
+    B, N, H = 2, 70, 3
+    if D == 32:
+        proj = torch.zeros(B, N, H * 80, dtype=torch.bfloat16)
+        q, k, v = (x.reshape(B, N, H, -1) for x in torch.split(proj, [H * 32, H * 32, H * 16], dim=-1))
+    else:
+        q, k, v = (torch.zeros(B, N, H, D, dtype=torch.bfloat16) for _ in range(3))
+    V = v.shape[3]
+    do = torch.zeros(B, N, H, V, dtype=torch.bfloat16)
+    lens, ts = torch.tensor([N, 9], dtype=torch.int32), torch.zeros(B, N)
+    kw = dict(alpha=alpha, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
+              min_full_attn_seq_len=0)
+    c = hr.hstu_mha_relbias_bwd_cuda
+    counter = c.launches_det_bf16 if deterministic else c.launches_bf16
+    before = counter.count
+    hr._relbias_bwd(q, k, v, lens, None, ts, torch.zeros(2 * Nm - 1), torch.zeros(129), do, kw, deterministic)
+    assert counter.count == before + 1
+    (call,) = calls
+    name = "hstu_mha_relbias_bwd_det_bf16" if deterministic else "hstu_mha_relbias_bwd_bf16"
+    assert call[0] == name and len(call) - 1 == len(ha._ARGTYPES[name])
+    plan = (hr._relbias_det_plan(D, V, H, B, N, Nm, 128, True, 0, torch.bfloat16) if deterministic
+            else hr._relbias_bwd_plan(D, V, H, Nm, 128, torch.bfloat16, B, N))
+    assert plan["route"] == route and call[-2] == ha._ROUTES[route]
+    if route == "wide":
+        assert call[5] is None and call[6] is None
+        assert call[-6:-2] == tuple(int(ha._vec16(t, 4)) for t in (q, k, v, do))
+    else:
+        assert (call[5] is None) == (alpha == 1.0) and isinstance(call[6], int) and call[5] != call[6]
+        assert plan["q_scaled_shape"] == (B, N, H, D) and plan["do_scaled_shape"] == (B, N, H, V)
+        assert call[-6:-2] == (1, 1, 1, 1) == tuple(int(ha._vec16(t, 8)) for t in (q, k, v, do))
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.3])
+@pytest.mark.parametrize("D,route", [(32, "narrow"), (200, "narrow"), (320, "wide")])
+def test_bf16_dq_launch_passes_its_buffers(monkeypatch, alpha, D, route):
+    """`_bwd_kernel` for K3-bf16 (the launch recorded, not made): on the
+    bfloat16 body (route ``narrow``) alpha q's buffer after dO where alpha
+    != 1, then dO / norm's, and pieces of 8 elements; on the wide route
+    neither, and pieces of 4; dq bfloat16 and dk, dv None."""
+    calls = _recorded(monkeypatch)
+    B, N, H, V = 2, 70, 3, 64
+    q, k = torch.zeros(B, N, H, D, dtype=torch.bfloat16), torch.zeros(B, N, H, D, dtype=torch.bfloat16)
+    v, do = torch.zeros(B, N, H, V, dtype=torch.bfloat16), torch.zeros(B, N, H, V, dtype=torch.bfloat16)
+    kw = dict(alpha=alpha, max_seq_len=None, causal=True, max_attn_len=0, contextual_seq_len=0,
+              min_full_attn_seq_len=0)
+    dq, dk, dv = ha._bwd_kernel("hstu_mha_bwd_dq_bf16", q, k, v, torch.tensor([N, 9], dtype=torch.int32), None, do,
+                                kw)
+    assert dq.dtype == torch.bfloat16 and dk is None and dv is None
+    (call,) = calls
+    assert len(call) - 1 == len(ha._ARGTYPES["hstu_mha_bwd_dq_bf16"]) and call[-2] == ha._ROUTES[route]
+    assert ha._dq_plan(D, V, H, B, N, torch.bfloat16)["route"] == route
+    if route == "wide":
+        assert call[5] is None and call[6] is None
+    else:
+        assert (call[5] is None) == (alpha == 1.0) and isinstance(call[6], int)
+    assert call[7] == dq.data_ptr()
+    assert call[-6:-2] == tuple(int(ha._vec16(t, 8 if route == "narrow" else 4)) for t in (q, k, v, do))

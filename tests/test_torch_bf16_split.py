@@ -110,11 +110,12 @@ def test_bf16_split_backward_matches_pallas_split(jax_split, case, alpha):
 @pytest.mark.parametrize("name", ["hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16"])
 def test_split_bf16_launch(monkeypatch, name):
     """`_bwd_kernel` for K3-bf16 and K4-bf16 (the launch recorded, not
-    made): the float32 kernels' C signature (K4-bf16's with the bfloat16
-    body's two pre-scaled buffers after dO, alpha q's at alpha 1/8 and dO /
-    norm's, of their shapes), bfloat16 outputs where the kernel writes them
-    and None where not (no float32 dq buffer: neither sums with atomics), the
-    `vec_*` flags, and one count on the entry point's own counter."""
+    made): the float32 kernels' C signature with the bfloat16 bodies' two
+    pre-scaled buffers after dO (alpha q's at alpha 1/8 and dO / norm's, of
+    their plans' shapes), bfloat16 outputs where the kernel writes them and
+    None where not (no float32 dq buffer: neither sums with atomics), the
+    `vec_*` flags (pieces of 8 elements), and one count on the entry point's
+    own counter."""
     calls = []
     monkeypatch.setattr(ha, "_launch", lambda *a: calls.append(a))
     monkeypatch.setattr(ha, "_stream", lambda device: 0)
@@ -132,11 +133,10 @@ def test_split_bf16_launch(monkeypatch, name):
     assert counters[name].count == before[name] + 1
     (call,) = calls
     assert call[0] == name and len(call) - 1 == len(ha._ARGTYPES[name]) and ha._LIBRARY[name] == name[:-5]
-    o = 2 if name == "hstu_mha_bwd_dkv_bf16" else 0  # the pre-scaled buffers after dO
-    if o:
-        plan = ha._bwd_plan(D, V, H, B, N, torch.bfloat16)
-        assert plan["q_scaled_shape"] == (B, N, H, D) and plan["do_scaled_shape"] == (B, N, H, V)
-        assert all(isinstance(p, int) for p in call[5:7]) and call[5] != call[6]
+    o = 2  # the pre-scaled buffers after dO
+    plan = (ha._bwd_plan if name == "hstu_mha_bwd_dkv_bf16" else ha._dq_plan)(D, V, H, B, N, torch.bfloat16)
+    assert plan["q_scaled_shape"] == (B, N, H, D) and plan["do_scaled_shape"] == (B, N, H, V)
+    assert all(isinstance(p, int) for p in call[5:7]) and call[5] != call[6]
     dq_ptr, dk_ptr, dv_ptr = call[5 + o:8 + o]
     if name == "hstu_mha_bwd_dq_bf16":
         assert dq.dtype == torch.bfloat16 and dq.shape == (B, N, H, D) and dk is None and dv is None
@@ -145,5 +145,5 @@ def test_split_bf16_launch(monkeypatch, name):
         assert dq is None and dk.dtype == dv.dtype == torch.bfloat16 and dv.shape == (B, N, H, V)
         assert dq_ptr is None and (dk_ptr, dv_ptr) == (dk.data_ptr(), dv.data_ptr())
     # q, k and v are views of one projection at a pitch of 80 elements; dO is contiguous
-    assert call[-6:-2] == tuple(int(ha._vec16(t)) for t in (q, k, v, do)) and call[-2] == ha._ROUTES["narrow"]
+    assert call[-6:-2] == tuple(int(ha._vec16(t, 8)) for t in (q, k, v, do)) and call[-2] == ha._ROUTES["narrow"]
     assert call[15 + o:18 + o] == q.stride()[:3] and call[27 + o] == 0.125  # alpha, whole: the kernel rounds it

@@ -30,9 +30,11 @@ another order now and then rounds to the neighbouring bfloat16); so are K1
 and K2 on bfloat16 (K1-bf16, K2-bf16), whose dk and dv are the same bits on
 every run; so are K3-bf16 and K4-bf16, the split backward on bfloat16,
 whose every output is the same bits on a second run. K6-bf16 and K7-bf16
-also at alpha 1/8 (alpha q rounded to bfloat16). K7-det, the fixed-order
-relative-bias backward, gives the same bits in every output on a second
-run, and is held to 2e-5 of each output's largest entry in float32 (to
+also at alpha 1/8 (alpha q rounded to bfloat16). K7-bf16, K7-det-bf16 and K3-bf16
+run bodies of their own on the bfloat16 tensor cores, also held at lengths
+on their tile edges and at head groups left unfilled. K7-det, the
+fixed-order relative-bias backward, gives the same bits in every output on
+a second run, and is held to 2e-5 of each output's largest entry in float32 (to
 2^-6, the tables to 1e-5, on bfloat16). K1-bias, K1 with an additive [B, N,
 N] bias, is held to its plain version as K1 (float32) and K1-bf16
 (bfloat16) are, with a float32 or bfloat16 bias, one per batch row or one
@@ -1073,6 +1075,63 @@ def test_split_bf16_kernels_at_their_seams(cuda, name):
     assert all(torch.equal(a, b) for a, b in zip(split, again))
 
 
+# ------------------- the bfloat16 bodies of K7, K7-det and K3 at their edges
+EDGE_LENGTHS = [15, 16, 17, 63, 64, 65, 127, 128, 129]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["K7-bf16", "K7-det-bf16", "K3-bf16"])
+@pytest.mark.parametrize("H,D,V", [(3, 32, 32), (9, 32, 32), (3, 64, 64), (2, 48, 40), (3, 25, 25)])
+def test_bf16_backward_bodies_at_their_edges(cuda, kernel, H, D, V):
+    """The bfloat16 bodies of K7, K7-det and K3 at lengths on the edges of
+    their 16-row steps and 64-row tiles, with head groups that H leaves
+    unfilled (3 and 9 heads against K7's groups of 4 at width 32), at widths
+    32 and 64, at D 48 / V 40 and at D = V = 25 (rows read element by
+    element), at alpha 0.3 (bfloat16(alpha q) formed by the pre-scaling
+    pass), against their bfloat16 plain versions: outputs within
+    `BF16_TOL`, the tables within `TABLE_TOL` (K7-det's
+    `DET_TABLE_TOL_BF16`), rows past the length exactly 0; K7-bf16's dk and
+    dv, every output of K7-det-bf16 and K3-bf16's dq the same bits on a
+    second run."""
+    B, N = len(EDGE_LENGTHS), 140
+    if kernel == "K3-bf16":
+        q, k, v, do = _bf16_views(31, B, N, H, D, V, cuda)
+        lengths = torch.tensor(EDGE_LENGTHS, dtype=torch.int32, device=cuda)
+        kw = dict(alpha=0.3, max_seq_len=N)
+        before = _bf16_bwd_counts()
+        dq = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)[0]
+        assert [a - b for a, b in zip(_bf16_bwd_counts(), before)] == [0, 1, 1]
+        want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)[0]
+        assert dq.dtype == torch.bfloat16 and _bf16_err(dq, want) <= BF16_TOL, f"dq: {_bf16_err(dq, want):.2e}"
+        assert (dq[torch.arange(N, device=cuda)[None, :] >= lengths[:, None]] == 0).all()
+        assert torch.equal(dq, hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)[0])
+        return
+    q, k, v, _, ts, pos_w, ts_w, _ = _relbias_inputs(32, B, N, H, D, V, N, 128, False, cuda)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    lengths = torch.tensor(EDGE_LENGTHS, dtype=torch.int32, device=cuda)
+    args = (q, k, v, lengths, ts, pos_w, ts_w)
+    do = torch.randn(N, B, H, V, device=cuda).to(torch.bfloat16).transpose(0, 1)
+    kw = dict(alpha=0.3, max_seq_len=N, num_buckets=128)
+    if kernel == "K7-det-bf16":
+        _det_checks(args, do, kw, bf16=True)
+        return
+    c = hstu_mha_relbias_bwd_cuda
+    before = (c.launches.count, c.launches_bf16.count, c.launches_det_bf16.count)
+    grads = c(*args, do, **kw)
+    assert [x - b for x, b in zip((c.launches.count, c.launches_bf16.count, c.launches_det_bf16.count), before)] \
+        == [0, 1, 0]
+    want = hstu_mha_relbias_bwd_plain(*args, do, **kw)
+    dead = torch.arange(N, device=cuda)[None, :] >= lengths[:, None]
+    for name, g, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, want):
+        table = name in ("dpos_w", "dts_w")
+        assert g.dtype == (torch.float32 if table else torch.bfloat16), name
+        assert _bf16_err(g, w) <= (TABLE_TOL if table else BF16_TOL), f"{name}: {_bf16_err(g, w):.2e} of its max"
+        if not table:
+            assert (g[dead] == 0).all(), name
+    again = c(*args, do, **kw)
+    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+
+
 # ----------------------------------------------------------------- K1-bias
 def _bias_checks(q, k, v, lengths, bias, kw):
     """K1-bias against its plain version: one launch on its entry point's
@@ -1222,7 +1281,7 @@ def _relbias_all(args, do, kw, bf16):
     (B, N, H, D), V = args[0].shape, args[2].shape[3]
     Nm, NB = (args[5].shape[0] + 1) // 2, args[6].shape[0] - 1
     routes = [hr.ha._fwd_plan(D, V, H, Nm, NB, True, B, N, args[0].dtype)["route"],
-              hr._relbias_bwd_plan(D, V, H, Nm, NB)["route"]]
+              hr._relbias_bwd_plan(D, V, H, Nm, NB, args[0].dtype, B, N)["route"]]
     assert [[r for r, n in x.routes.items() if n != b.get(r, 0)] for x, (_, b) in zip(counters, before)] == [
         [r] for r in routes]
     _held("out", out, hstu_mha_dense_relbias_plain(*args, **kw), bf16)
@@ -1254,14 +1313,17 @@ def test_relbias_kernels_at_wide_heads(cuda, D, V, bf16):
 @pytest.mark.parametrize(
     "H,D,N,Nm,nb",
     [(2, 32, 300, 2848, 128), (2, 64, 200, 1312, 128), (2, 64, 200, 500, 1024), (2, 32, 300, 22000, 128),
-     (2, 64, 260, 22000, 200), (8, 32, 4096, 4096, 128), (8, 64, 700, 2048, 128)],
+     (2, 64, 260, 22000, 200), (8, 32, 4096, 4096, 128), (8, 64, 700, 2048, 128), (2, 64, 200, 8000, 1024)],
     ids=["width 32, Nm 2848", "width 64, Nm 1312", "1024 buckets", "width 32, Nm 22000", "width 64, Nm 22000",
-         "H 8, width 32, N = Nm = 4096", "H 8, width 64, Nm 2048"],
+         "H 8, width 32, N = Nm = 4096", "H 8, width 64, Nm 2048", "1024 buckets, Nm 8000"],
 )
 def test_relbias_kernels_with_long_tables(cuda, H, D, N, Nm, nb, bf16):
     """Tables that do not fit beside the tiles: K7 and K7-det
     read them and flush each step's window of dpos_w; at Nm 22000 K6
-    reads them too. Short batches against a long table, as
+    reads them too. On bfloat16, whose tiles take half the bytes, K7 and
+    K7-det stage the tables up to Nm 2848, 2048 and 4096 and with 1024
+    buckets at Nm 500, and read them at Nm 8000 and beyond (each launch
+    on the route its plan chose for its type). Short batches against a long table, as
     a model with a long maximum length trains; the 1024-bucket case puts
     gaps past float32's range on some rows (bucket NB) and gaps near it. At
     H 8 K7's groups of 4 (width 32) and 2 (width 64) heads are full, as in

@@ -141,10 +141,15 @@ def test_deterministic_launch_goes_by_the_plan(monkeypatch, bf16):
     assert calls[0][-2] == hr.ha._ROUTES["narrow"]  # K7's body's route
     assert [x.count - b for x, b in zip(counters, before)] == ([0, 0, 0, 1] if bf16 else [0, 0, 1, 0])
     assert [g.dtype for g in grads] == [dtype] * 3 + [torch.float32] * 2
-    plan = hr._relbias_det_plan(D, D, H, B, N, Nm, NB)
+    plan = hr._relbias_det_plan(D, D, H, B, N, Nm, NB, True, 0, dtype)
     assert plan["partial_shape"] in allocs and plan["dq_partial_shape"] in allocs
-    # the two scratch pointers follow dpos and dts: the table rows, the dQ slots
-    assert all(isinstance(x, int) and x for x in calls[0][15:17])
+    # the two scratch pointers follow dpos and dts: the table rows, the dQ
+    # slots (on bfloat16 after the pre-scaled buffers, alpha q's None at
+    # alpha 1, then dO / norm's)
+    o = 2 if bf16 else 0
+    assert all(isinstance(x, int) and x for x in calls[0][15 + o:17 + o])
+    if bf16:
+        assert calls[0][5] is None and isinstance(calls[0][6], int) and plan["do_scaled_shape"] in allocs
 
 
 def _walk_pairs(N, lower_only, length=None):
