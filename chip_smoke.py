@@ -39,8 +39,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    large preset's, every output the same bits on a second run, timed
    against K7 in the same call; K6-bf16, K7-bf16 and K7-det-bf16 at alpha
    1/8 and 0.3 (alpha q rounded to bfloat16), and K7-bf16 and K7-det-bf16
-   (their bfloat16 body: 4 heads of width 32 a block, 2 of width 64) at H 9
-   and at D = V = 50 with H 3, where a head group ends unfilled, at lengths
+   (their bfloat16 body: 4 heads of width 32 a block, 2 of width 64 and
+   128) at H 9 and at D = V = 50 with H 3, where a head group ends
+   unfilled, at lengths on the tile edges; K6 / K7 / K7-det at heads of 65
+   to 128 (D = V = 72, 96, 128 and D 128 / V 64, float32 and bfloat16: the
+   one-pass bodies at width 128), their tables staged and read, at lengths
    on the tile edges; K1 to K4 on bfloat16 (the bias-free
    research model's first block; K3-bf16 + K4-bf16 its deterministic
    backward, every output the same bits twice) against their bfloat16 plain
@@ -160,7 +163,8 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    4096 with full rows, at N 256 against Nm 22000 and with 1024 buckets,
    held and timed at the wide-head and long-history layer shapes (and the
    wide bodies, their routes forced, against the tables-read route where
-   the tables are read); the long-history phase (the ml-3b preset's widths
+   the tables are read and against the one-pass bodies at the wide-head
+   layer); the long-history phase (the ml-3b preset's widths
    at N = Nm = 4096, batch 8, 2 + 5 steps and two eval batches on 64
    histories of 3,600 to 4,086 events, ml-3b shards of their own); the
    wide-head phase (`ml-20m/hstu-sampled-softmax-n128` with dqk = dv =
@@ -589,9 +593,10 @@ def wide_routes():
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
 
     saved = fwd, bwd, det = hr.ha._fwd_plan, hr._relbias_bwd_plan, hr._relbias_det_plan
+    wide = hr._NARROW_BWD_WIDTH + 1  # past the one-pass bodies' widths
     hr.ha._fwd_plan = lambda D, V, H, Nm, NB, relbias, *a: fwd(max(D, 257), V, H, Nm, NB, relbias, *a)
-    hr._relbias_bwd_plan = lambda D, V, H, Nm, NB, *a: bwd(max(D, 65), V, H, Nm, NB, *a)
-    hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB, *a: det(max(D, 65), V, H, B, N, Nm, NB, *a)
+    hr._relbias_bwd_plan = lambda D, V, H, Nm, NB, *a: bwd(max(D, wide), V, H, Nm, NB, *a)
+    hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB, *a: det(max(D, wide), V, H, B, N, Nm, NB, *a)
     try:
         yield
     finally:
@@ -1617,7 +1622,7 @@ def main() -> None:
         pos_w, ts_w = bias_tables(Nm or N, nb)
         do = rand(N, Bc, Hc, Vc).transpose(0, 1)
         # the research STU's scales: alpha 1, the runtime N as the normaliser
-        args = dict(alpha=1.0, max_seq_len=N, num_buckets=nb, num_targets=nt, **kw)
+        args = {"alpha": 1.0, "max_seq_len": N, "num_buckets": nb, "num_targets": nt, **kw}
         dead = torch.arange(N, device="cuda")[None, :] >= lengths[:, None]
         poison_allocator(Bc * N * Hc * Vc * 4)
         got = hstu_mha_dense_relbias_cuda(q, k, v, lengths, ts, pos_w, ts_w, **args)
@@ -1721,6 +1726,13 @@ def main() -> None:
     relbias_case("N > Nm (clipped diagonals)", 3, 140, l140, random_ts(3, 140, l140), Nm=100)
     relbias_case("num_targets with contextual rows", 4, 96, l4, random_ts(4, 96, l4),
                  nt=torch.minimum(ints(0, 6, 4), l4 - 1), contextual_seq_len=3)
+    # heads of 65 to 128: the one-pass body at width 128 (one head a block,
+    # 32 query rows a step), its tables staged or read
+    for Dc, Vc in ((72, 72), (96, 96), (128, 128), (128, 64)):
+        relbias_case(f"D={Dc} V={Vc} (width 128, one pass), lengths at the tile edges", 6, 140, edges,
+                     random_ts(6, 140, edges), Dc=Dc, Vc=Vc, alpha=Dc**-0.5)
+    relbias_case("D=V=96 against Nm 8000 (width 128, tables read), num_targets", 4, 150, l150,
+                 random_ts(4, 150, l150), Nm=8000, nt=ints(0, 10, 4), Dc=96, Vc=96, alpha=96**-0.5)
 
     # times and bounds at the research shape, on the views and the strided dO
     q, k, v, pos_w, ts_w, do, r_args = slice_case
@@ -1807,6 +1819,11 @@ def main() -> None:
              nt=torch.minimum(ints(0, 6, 4), l4 - 1), contextual_seq_len=3)
     det_case("max_attn_len window", 4, 150, l150, random_ts(4, 150, l150), nt=ints(0, 10, 4),
              max_attn_len=37, min_full_attn_seq_len=16)
+    for Dc, Vc, bf in ((96, 96, False), (128, 64, False), (96, 96, True), (128, 128, True)):
+        det_case(f"D={Dc} V={Vc} (width 128, one pass), lengths at the tile edges", 6, 140, edges,
+                 random_ts(6, 140, edges), Dc=Dc, Vc=Vc, bf16=bf, alpha_=1.0 if bf else Dc**-0.5)
+    det_case("D=V=128 against Nm 8000 (width 128, tables read)", 4, 150, l150, random_ts(4, 150, l150), Nm=8000,
+             Dc=128, Vc=128, alpha_=128**-0.5)
     # K7-det against K7 in the same call, on the research case's inputs: the
     # same function, so K7's bound is its bound and its share shows what the
     # fixed order costs
@@ -1934,6 +1951,10 @@ def main() -> None:
     det_case("D=V=50, H=3 (width 64), on the bfloat16 case's q, k, v", 3, 211, w64_len, w64_ts, Hc=3, Dc=50,
              Vc=50, bf16=True, qkv=w64_case[:3])
     del w64_case
+    # heads of 65 to 128: the bfloat16 body at width 128, two heads a block (H 3: one group unfilled)
+    for Dc, Vc in ((128, 128), (96, 96), (128, 64), (72, 72)):
+        relbias_bf16_case(f"D={Dc} V={Vc}, H=3, lengths at the tile edges (width 128, one pass)", 6, 140, edges,
+                          e_ts, 3, Dc, Vc)
     # the scale rides the tile loads: alpha 1/8 against alpha 1 on the same inputs, in this call
     q_, k_, v_, pw_, tw_, do_, a8 = rb8_case
     k6b8 = [device_time_ms(lambda: hstu_mha_dense_relbias_cuda(q_, k_, v_, r_len, r_ts, pw_, tw_, **a_), 20)
@@ -3397,8 +3418,9 @@ def main() -> None:
                             dict(alpha=1.0 if bf else Dc**-0.5, max_seq_len=N, num_buckets=nb), bf)
                 del args, do_
         # K6, K7 and K7-det held against their plain versions and timed,
-        # float32 and bfloat16, full rows: at the wide-head phase's layer (K7 on
-        # the wide bodies), at two heads of 256 (K6 too), at the long-history
+        # float32 and bfloat16, full rows: at the wide-head phase's layer (K7 in
+        # one pass at width 128, held and timed against the wide bodies forced
+        # on the same inputs), at two heads of 256 (K6 too), at the long-history
         # phase's layer (K7's tables read; B 2 stands in for the phase's 8: a
         # block's work is the same, B only multiplies the grid, and the plain
         # backward at B 8 would hold [8, 8, 4096, 4096] float32 tensors of 4.3
@@ -3471,10 +3493,13 @@ def main() -> None:
                                          ("K7-det", hr._relbias_det_plan(Dc, Dc, Hc, Bc, N, Nm, 128)["route"])):
                         if route != "narrow":
                             route_rows[f"{kname}/{route}"] = own[kname]
-                if not bf and Nm > 2048:  # the tables read: the wide bodies on the same inputs
+                # the tables read, or heads of 65 to 128 in one pass: the wide
+                # bodies on the same inputs
+                if (not bf and Nm > 2048) or Dc == WIDE_HEAD:
                     wide = measure(" (wide bodies)", True)
-                    print(f"  tables read against the wide bodies at {shape}: " + ", ".join(
-                        f"{k_} {own[k_]['ms']:.4f} vs {wide[k_]['ms']:.4f} ms" for k_ in own))
+                    print(f"  {'tables read' if Nm > 2048 else 'one pass'} against the wide bodies at {shape}"
+                          f"{' (bfloat16)' if bf else ''}: " + ", ".join(
+                              f"{k_} {own[k_]['ms']:.4f} vs {wide[k_]['ms']:.4f} ms" for k_ in own))
                 del args, do_, want6, want7
                 torch.cuda.empty_cache()
 
@@ -3531,7 +3556,7 @@ def main() -> None:
 
         # ---------------------------------------------------- wide-head phase
         # ml-20m/hstu-sampled-softmax-n128 with dqk = dv = 128: its d 256 split
-        # over its 2 heads (K6 on its width-128 tiling, K7 on the wide bodies), on
+        # over its 2 heads (K6 on its width-128 tiling, K7 in one pass at width 128), on
         # the SASRec phase's ml-20m corpus
         wcfg_ = RESEARCH_PRESETS[WIDE_PRESET]
         wh_cfg = dataclasses.replace(wcfg_, num_epochs=1, model=dataclasses.replace(wcfg_.model, dqk=WIDE_HEAD,
@@ -3562,6 +3587,9 @@ def main() -> None:
         want_n = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": wm.num_blocks * (wh_steps + 1),
                   "K7": wm.num_blocks * wh_steps}
         check(n == want_n, f"the wide-head loop launched {n}, expected {want_n}")
+        # heads of 128 take K7's one-pass body (route narrow), not the wide bodies
+        k7_routes = all_counters["K7"].routes
+        check(k7_routes == {"narrow": want_n["K7"]}, f"the wide-head loop's K7 launches went by {k7_routes}")
         del wout
         torch.cuda.empty_cache()
         # small models of the shapes, GPU kernels against CPU plain versions: two

@@ -1,6 +1,6 @@
 // The bfloat16 body of K7 and K7-det (`hstu_mha_relbias_bwd_bf16`,
 // `hstu_mha_relbias_bwd_det_bf16`) on Hopper's bfloat16 tensor cores, for D
-// and V up to 64, the tables staged (kNarrow) or read (kRead); wider heads
+// and V up to 128, the tables staged (kNarrow) or read (kRead); wider heads
 // keep the wide bodies of hstu_attention_wide.cuh. Replaces
 // `_bwd_kernel_relbias` of
 // generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py on
@@ -38,7 +38,11 @@
 //   8). K and V stay bfloat16 at a pitch of width + 8, so a block could hold
 //   all 8 of ml-3b's heads (80 KB) and pay the work per (row, column) once
 //   for them; 4 heads a block (`TilingBf16`) were faster, 8 spill their
-//   accumulators and halve the grid (PERF.md).
+//   accumulators and halve the grid (PERF.md). Heads of 65 to 128 take two
+//   heads a block at width 128 (K and V of both and two stages in 172 KB, so
+//   the copies stay double-buffered; one head a block took 6% longer, the
+//   per-element work paid for one head alone), and S and dP are computed
+//   once per tile pair, where the wide bodies computed them three times.
 // * The five products are `mma.sync.m16n8k16` on `ldmatrix` fragments: S and
 //   dP from the tiles as stored; dV += P^T dO and dK += dS^T Q with P and dS
 //   as bfloat16 tiles, read by `ldmatrix.trans`, as are dO and Q; dQ = dS K
@@ -70,8 +74,12 @@ namespace hstu_relbias_bwd {
 template <int W> struct TilingBf16;
 template <> struct TilingBf16<32> { static constexpr int HG = 4; };
 template <> struct TilingBf16<64> { static constexpr int HG = 2; };
+template <> struct TilingBf16<128> { static constexpr int HG = 2; };
 
-int head_group_bf16(int D, int V) { return D <= 32 && V <= 32 ? TilingBf16<32>::HG : TilingBf16<64>::HG; }
+int head_group_bf16(int D, int V) {
+  const int w = D > V ? D : V;
+  return w <= 32 ? TilingBf16<32>::HG : w <= 64 ? TilingBf16<64>::HG : TilingBf16<128>::HG;
+}
 
 // Bytes: K and V of HG heads and two (Q, dO) stages, bfloat16 at a pitch of
 // w + 8; P and dS bfloat16 [64][72]; dS summed over the heads, float32
@@ -85,7 +93,7 @@ __host__ __device__ constexpr long long smem_bytes_bf16_long(int w, int hg, int 
   return smem_bytes_bf16(w, hg, 0, 0) + 4LL * kWarps * (n_ts < hstu_wide::kTsSlots ? n_ts : hstu_wide::kTsSlots);
 }
 
-// W: the padded head width (32 or 64); HG: heads per block; DET: K7-det's
+// W: the padded head width (32, 64 or 128); HG: heads per block; DET: K7-det's
 // pass; LONG: the tables read. `p` after the pre-scaling pass: q is
 // bfloat16(alpha q) and dout bfloat16(dO / norm).
 template <int W, int HG, bool DET, bool LONG>
@@ -95,7 +103,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_bf16_kernel(Params<__
   constexpr int KS = W / 16;   // k-steps of S and dP over a head's width
   constexpr int NA = W / 16;   // 8-column tiles per warp of dK or dV
   constexpr int NQ = W / 32;   // and of dQ
-  static_assert(NA % 2 == 0 && (NQ == 1 || NQ == 2), "fragments are loaded two 8-column tiles at a time");
+  static_assert(NA % 2 == 0 && (NQ == 1 || NQ % 2 == 0), "fragments are loaded two 8-column tiles at a time");
   extern __shared__ __align__(16) float relbias_bf16_smem[];
   bf16* Ks = reinterpret_cast<bf16*>(relbias_bf16_smem);  // [HG][64][P]
   bf16* Vs = Ks + HG * kT * P;                              // [HG][64][P]
@@ -356,9 +364,12 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_bf16_kernel(Params<__
                 if (ks >= my_col_steps) continue;
                 uint32_t a[4], kf[4];
                 hstu_bf16::ldsm(a, hstu_bf16::a_at(dSs, kSP, wr * 16, ks * 16));
-                hstu_bf16::ldsm_t(kf, hstu_bf16::b_kn_at(Kh, P, ks * 16, wc * 16));
-                hstu_bf16::mma(dq[0], a, kf[0], kf[1]);
-                hstu_bf16::mma(dq[1], a, kf[2], kf[3]);
+#pragma unroll
+                for (int j = 0; j < NQ; j += 2) {
+                  hstu_bf16::ldsm_t(kf, hstu_bf16::b_kn_at(Kh, P, ks * 16, wc * (W / 4) + j * 8));
+                  hstu_bf16::mma(dq[j], a, kf[0], kf[1]);
+                  hstu_bf16::mma(dq[j + 1], a, kf[2], kf[3]);
+                }
               }
             }
             // dead rows keep the buffer's zeros (K7-det: are not written).
@@ -552,10 +563,11 @@ cudaError_t launch_bf16_w(const Params<__nv_bfloat16>& p, cudaStream_t stream) {
 }
 
 // The pre-scaling pass into the wrapper's p.qs and p.dos, then this body on
-// `route` (kNarrow: the tables staged; kRead: read, LONG) at width 32 or 64.
+// `route` (kNarrow: the tables staged; kRead: read, LONG) at width 32, 64 or
+// 128.
 template <bool DET>
 int launch_bf16(const Params<__nv_bfloat16>& p, int route, cudaStream_t s) {
-  if (p.D > 64 || p.V > 64 || (route != hstu::kNarrow && route != hstu::kRead)) return (int)cudaErrorInvalidValue;
+  if (p.D > 128 || p.V > 128 || (route != hstu::kNarrow && route != hstu::kRead)) return (int)cudaErrorInvalidValue;
   Params<__nv_bfloat16> r = p;
   const cudaError_t err = hstu_bf16::prescale(r, s);
   if (err != cudaSuccess) return (int)err;
@@ -564,8 +576,12 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int route, cudaStream_t s) {
     constexpr int HG = TilingBf16<32>::HG;
     return (int)(read ? launch_bf16_w<32, HG, DET, true>(r, s) : launch_bf16_w<32, HG, DET, false>(r, s));
   }
-  constexpr int HG = TilingBf16<64>::HG;
-  return (int)(read ? launch_bf16_w<64, HG, DET, true>(r, s) : launch_bf16_w<64, HG, DET, false>(r, s));
+  if (p.D <= 64 && p.V <= 64) {
+    constexpr int HG = TilingBf16<64>::HG;
+    return (int)(read ? launch_bf16_w<64, HG, DET, true>(r, s) : launch_bf16_w<64, HG, DET, false>(r, s));
+  }
+  constexpr int HG = TilingBf16<128>::HG;
+  return (int)(read ? launch_bf16_w<128, HG, DET, true>(r, s) : launch_bf16_w<128, HG, DET, false>(r, s));
 }
 
 }  // namespace hstu_relbias_bwd

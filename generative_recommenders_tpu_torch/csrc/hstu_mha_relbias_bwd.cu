@@ -39,9 +39,9 @@
 //   splitting set the pace (PERF.md has the measurements).
 // * The bias once per (row, column), not once per head. A block of 16 warps
 //   owns a 64-column key tile of one batch row and a group of HG heads
-//   (4 at width 32, 2 at width 64; H need not be a multiple). K and V of the
-//   group stay in shared memory and dK / dV in registers for the whole walk
-//   over the live 64-row query tiles. Per tile pair the mask, `pos_index`,
+//   (4 at width 32, 2 at width 64, 1 at 128; H need not be a multiple). K
+//   and V of the group stay in shared memory and dK / dV in registers for the
+//   whole walk over the live 64-row query tiles. Per tile pair the mask, `pos_index`,
 //   `ts_bucket` (one logf) and both table reads are computed once and kept in
 //   registers; per head only x = alpha s + bias, the sigmoid and dS follow,
 //   and dS is summed over the group's heads in registers before the table
@@ -78,9 +78,21 @@
 //   (K7-det: to the block's row of `partial`, one thread per entry, in step
 //   order). dts_w's per-warp copies keep the buckets a float32 time gap
 //   reaches (`hstu_wide::kTsSlots`), so NB does not decide what fits.
-// Head widths are padded with zero columns to W = 32 or 64; wider heads take
-// the wide bodies (hstu_attention_wide.cuh): the relative-bias dq pass, then
-// dK, dV and the table sums with atomics (K7) or in block order (K7-det).
+// * Heads of 65 to 128 (W = 128, `Tiling<128>`): one head a block, whose K, V
+//   and dK / dV in registers (8 warps 16 key rows x 64 columns of dV, 8 of
+//   dK) take what the head group took at narrower widths. Two (Q, dO) stages
+//   of 64 rows at a pitch of 136 do not fit beside K and V (264 KB with the
+//   P, dS and head-sum tiles), so the walk takes its 64-row query tiles 32
+//   rows a step, the 16 warps as 2 x 8 over the step's 32 x 64 part of S,
+//   and keeps two stages (154 KB of tiles); with one head, dS is its own head
+//   sum and the diagonal sums read the dS tile. One 64-row stage, its next
+//   tiles requested once every warp is past dV and dK (`ST = 1`), took 13%
+//   longer (PERF.md). S and dP are computed once per tile pair, as at every
+//   narrower width: the wide bodies compute them three times (a dq pass,
+//   then one dkv pass per output chunk).
+// Head widths are padded with zero columns to W = 32, 64 or 128; wider heads
+// take the wide bodies (hstu_attention_wide.cuh): the relative-bias dq pass,
+// then dK, dV and the table sums with atomics (K7) or in block order (K7-det).
 //
 // `hstu_mha_relbias_bwd_bf16` (K7-bf16) computes the same function on
 // bfloat16 q, k, v and dO, with the TPU kernel's rounding points, on a body of
@@ -135,6 +147,22 @@ constexpr int kPad = 8;        // every tile's pitch is 8 more than its width
 constexpr int kSP = kT + kPad; // pitch of the P and dS tiles
 constexpr unsigned kFull = 0xffffffffu;
 
+// The float32 body's tiling per padded width, mirrored by `_TILING_F32` in
+// ops/cuda/hstu_attention_relbias.py: HG heads a block, the walk's 64-row
+// query tiles taken QT rows a step, ST (Q, dO) stages (2: the next step's
+// tiles arrive while this step's products run; 1: while its dQ and table
+// sums run)
+template <int W> struct Tiling;
+template <> struct Tiling<32> { static constexpr int HG = 4, QT = 64, ST = 2; };
+template <> struct Tiling<64> { static constexpr int HG = 2, QT = 64, ST = 2; };
+template <> struct Tiling<128> { static constexpr int HG = 1, QT = 32, ST = 2; };
+
+// the float32 body's heads a block at widths D and V
+inline int head_group_f32(int D, int V) {
+  const int w = D > V ? D : V;
+  return w <= 32 ? Tiling<32>::HG : w <= 64 ? Tiling<64>::HG : Tiling<128>::HG;
+}
+
 // E: float, or __nv_bfloat16 for the bfloat16 body. The pointers keep
 // their element type: with untyped (void) pointers cast in the kernel, ptxas
 // spilled 400 bytes instead of 280 in the float32 width-32 instance.
@@ -186,33 +214,34 @@ __host__ __device__ __forceinline__ long long det_pairs(int tiles, bool lower_on
   return lower_only ? (long long)tiles * (tiles + 1) / 2 : (long long)tiles * tiles;
 }
 
-// K and V of HG heads, two (Q, dO) buffers, P, dS and dS summed over heads,
-// both tables, dpos_w's sums and one copy of dts_w's sums per warp.
-__host__ __device__ constexpr long long smem_floats(int w, int hg, long long n_pos, long long n_ts) {
-  return 2LL * hg * kT * (w + kPad) + 4 * kT * (w + kPad) + 3 * kT * kSP + 2 * n_pos +
+// K and V of HG heads, st (Q, dO) stages of qt rows, P, dS and (more than
+// one head) dS summed over the heads, both tables, dpos_w's sums and one copy
+// of dts_w's sums per warp.
+__host__ __device__ constexpr long long smem_floats(int w, int hg, int qt, int st, long long n_pos, long long n_ts) {
+  return 2LL * hg * kT * (w + kPad) + 2LL * st * qt * (w + kPad) + (hg > 1 ? 3 : 2) * qt * kSP + 2 * n_pos +
          (1 + kWarps) * n_ts;
 }
 // LONG: the tiles and one copy per warp of dts_w's reachable buckets
-__host__ __device__ constexpr long long smem_floats_long(int w, int hg, int n_ts) {
-  return smem_floats(w, hg, 0, 0) + kWarps * (n_ts < hstu_wide::kTsSlots ? n_ts : hstu_wide::kTsSlots);
+__host__ __device__ constexpr long long smem_floats_long(int w, int hg, int qt, int st, int n_ts) {
+  return smem_floats(w, hg, qt, st, 0, 0) + kWarps * (n_ts < hstu_wide::kTsSlots ? n_ts : hstu_wide::kTsSlots);
 }
 
-// Rows [r0, r0 + 64) of one head of a strided [.., N, H, w] tensor into a
-// [64][W + 8] shared tile, asynchronously; zero at rows >= lim and in the pad
+// Rows [r0, r0 + R) of one head of a strided [.., N, H, w] tensor into a
+// [R][W + 8] shared tile, asynchronously; zero at rows >= lim and in the pad
 // columns [w, W). Copied as it is: 1 / norm is applied to dP in float32.
-template <int W>
+template <int W, int R = kT>
 __device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn,
                                           int r0, int lim, int w, bool vec) {
   constexpr int P = W + kPad;
   if (vec) {
     constexpr int C4 = W / 4;
-    for (int idx = threadIdx.x; idx < kT * C4; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < R * C4; idx += kThreads) {
       const int r = idx / C4, c = (idx % C4) * 4;
       const bool ok = r0 + r < lim && c < w;
       cp_async16(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < kT * W; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < R * W; idx += kThreads) {
       const int r = idx / W, c = idx % W;
       const bool ok = r0 + r < lim && c < w;
       cp_async4(dst + r * P + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
@@ -301,38 +330,47 @@ __global__ void __launch_bounds__(1024) det_sums_kernel(SumParams<E> s) {
   }
 }
 
-// W: the padded head width (32 or 64); HG: heads per block; DET: K7-det's
-// pass, dQ stored to its tile pair's slot of `dq_partial` and the table sums
-// to the block's row of `partial`; LONG: the tables read from device memory
-// and dpos_w's sums flushed per step.
-template <int W, int HG, bool DET, bool LONG = false>
+// W: the padded head width (32, 64 or 128), its tiling `Tiling<W>`; DET:
+// K7-det's pass, dQ stored to its tile pair's slot of `dq_partial` and the
+// table sums to the block's row of `partial`; LONG: the tables read from
+// device memory and dpos_w's sums flushed per step.
+template <int W, bool DET, bool LONG = false>
 __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> p) {
+  constexpr int HG = Tiling<W>::HG, QT = Tiling<W>::QT, ST = Tiling<W>::ST;
   // alpha and 1 / norm: applied to S, dK, dP and dV on use (dq takes alpha
   // as it is written)
   const float s_alpha = p.alpha, dp_scale = p.inv_norm;
   constexpr int P = W + kPad;  // pitch of the Q, K, V and dO tiles
-  constexpr int NA = W / 16;  // 8-wide output tiles per warp in dK or dV
-  constexpr int NQ = W / 32;  // and in dQ
-  constexpr int KS = W / 8;   // k-steps over a head's width
+  // the 16 warps over a step's QT x 64 part of S: WR rows of warps, WC
+  // columns, each warp 16 rows x 8 JN columns
+  constexpr int WR = QT / 16, WC = kWarps / WR, JN = kT / WC / 8;
+  constexpr int NE = 4 * JN;       // the elements of S a thread holds
+  constexpr int NA = W / 16;       // 8-wide output tiles per warp in dK or dV
+  constexpr int NQ = W / 8 / WC;   // and in dQ
+  constexpr int KS = W / 8;        // k-steps over a head's width
+  static_assert(kT % QT == 0 && WR * WC == kWarps && JN >= 1 && NQ >= 1, "a step's tiling");
+  // one head: dS is its own head sum, and the diagonal sums read the dS tile
+  constexpr bool kOwnTs = HG > 1;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;                    // [HG][64][P]
   float* Vs = Ks + HG * kT * P;        // [HG][64][P]
-  float* stages = Vs + HG * kT * P;    // 2 x { Q [64][P], dO [64][P] }
-  float* Ps = stages + 4 * kT * P;     // [64][72]
-  float* dSs = Ps + kT * kSP;          // [64][72]
-  float* Ts = dSs + kT * kSP;          // [64][72]: dS summed over the heads
+  float* stages = Vs + HG * kT * P;    // ST x { Q [QT][P], dO [QT][P] }
+  float* Ps = stages + ST * 2 * QT * P;  // [QT][72]
+  float* dSs = Ps + QT * kSP;          // [QT][72]
+  float* Ts = kOwnTs ? dSs + QT * kSP : dSs;  // [QT][72]: dS summed over the heads
+  float* tables = Ts + QT * kSP;
   const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1;
   // LONG: the buckets a float32 time gap reaches, the last slot bucket NB
   const int n_slots = LONG ? min(n_ts, hstu_wide::kTsSlots) : n_ts;
-  float* pos_s = Ts + kT * kSP;        // pos_w [2 Nm - 1]
+  float* pos_s = tables;               // pos_w [2 Nm - 1]
   float* ts_s = pos_s + n_pos;         // ts_w [NB + 1]
   float* dpos_s = ts_s + n_ts;         // dpos_w's sums [2 Nm - 1]
   // dts_w's sums, one copy per warp (LONG: right after the tiles)
-  float* dts_s = LONG ? Ts + kT * kSP : dpos_s + n_pos;
+  float* dts_s = LONG ? tables : dpos_s + n_pos;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wr = warp >> 2, wc = warp & 3;  // the warp's place in the 4 x 4 grid
+  const int wr = warp / WC, wc = warp % WC;  // the warp's place in the WR x WC grid
   // warps 0..7 sum dV, warps 8..15 dK: key rows am 16 .. + 16 of the tile,
   // output columns an .. + W / 2
   const bool dv_warp = warp < kWarps / 2;
@@ -396,34 +434,48 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
     // no targets and no window either (the research models): the mask is
     // col <= row below the length
     const bool plain_causal = lower_only && nt == 0 && p.max_attn_len == 0;
-    load_tile<W>(stages, qb, p.q_sn, row_first, length, p.D, p.vec_q != 0);
-    load_tile<W>(stages + kT * P, ob, p.do_sn, row_first, length, p.V, p.vec_do != 0);
+    // the step's Q and dO tiles: query rows r0 .. + QT of head hh into stage `st`
+    auto load_step = [&](int r0, int hh, int st) {
+      float* Q = stages + st * 2 * QT * P;
+      load_tile<W, QT>(Q, qb + hh * p.q_sh, p.q_sn, r0, length, p.D, p.vec_q != 0);
+      load_tile<W, QT>(Q + QT * P, ob + hh * p.do_sh, p.do_sn, r0, length, p.V, p.vec_do != 0);
+    };
+    // the step after the one at (r0, hh): its query rows and head
+    auto next_step = [&](int r0, int hh, int& nrow, int& nhh) {
+      nrow = r0;
+      nhh = hh + 1;
+      if (nhh >= nh) {
+        nhh = 0;
+        nrow = r0 + QT;
+      }
+    };
+    load_step(row_first, 0, 0);
     cp_async_commit();
     __syncthreads();  // the tables are in place
 
-    // the key-side timestamps of the thread's four columns
-    float tk[4];
+    // the key-side timestamps of the thread's columns
+    float tk[2 * JN];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < JN; ++j)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        const int col = col0 + wc * 16 + j * 8 + 2 * t + c;
+        const int col = col0 + wc * (8 * JN) + j * 8 + 2 * t + c;
         tk[j * 2 + c] = col < p.N ? tsb[col] : 0.f;
       }
 
     int step = 0;
-    for (int row0 = row_first; row0 < length; row0 += kT) {
-      const int row_steps = (min(kT, length - row0) + 7) / 8;
+    for (int row0 = row_first; row0 < length; row0 += QT) {
+      const int row_steps = (min(QT, length - row0) + 7) / 8;
       // on the diagonal tile pair: the first query rows that see the warp's
       // key rows, and the last key columns that the warp's query rows see
       const int row_step_first = lower_only ? max(col0 + am * 16 - row0, 0) / 8 : 0;
       const int my_col_steps =
           lower_only ? min(col_steps, (row0 + wr * 16 + 15 - col0) / 8 + 1) : col_steps;
-      // mask, bias and bucket of the thread's 8 elements of the 64 x 64 tile
-      // pair, once for every head: element e = 4 j + c is row
-      // wr 16 + g + 8 (c / 2), column wc 16 + 8 j + 2 t + c % 2
-      float bias[8], dssum[8];
-      unsigned buckets[4];  // two 16-bit bucket indices each
+      // mask, bias and bucket of the thread's NE elements of the QT x 64
+      // step, once for every head: element e = 4 j + 2 i + c is row
+      // wr 16 + g + 8 i, column wc 8 JN + 8 j + 2 t + c
+      float bias[NE], dssum[NE];
+      unsigned buckets[NE / 2];  // two 16-bit bucket indices each
       unsigned ok_bits = 0;
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -432,11 +484,11 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
         // the last row), whether or not it lies past the row's length
         const float tq = row < p.N ? tsb[min(row + 1, p.N - 1)] : 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < JN; ++j)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int e = 4 * j + 2 * i + c;
-            const int col = col0 + wc * 16 + j * 8 + 2 * t + c;
+            const int col = col0 + wc * (8 * JN) + j * 8 + 2 * t + c;
             const bool ok =
                 row < length && col < length &&
                 (plain_causal
@@ -457,40 +509,33 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
             else buckets[e / 2] |= (unsigned)bucket << 16;
           }
       }
-      // the warp's 16 x 16 tile of S holds no live element (above the
-      // diagonal, past the length, outside a window): no products, no
-      // sigmoid, zeros to P and dS
+      // the warp's part of S holds no live element (above the diagonal, past
+      // the length, outside a window): no products, no sigmoid, zeros to P
+      // and dS
       const bool dead = __all_sync(kFull, ok_bits == 0);
 
 #pragma unroll
       for (int hh = 0; hh < HG; ++hh) {
         if (hh < nh) {
-          float* Qs = stages + (step & 1) * 2 * kT * P;
-          float* dOs = Qs + kT * P;
+          float* Qs = stages + (ST == 2 ? step & 1 : 0) * 2 * QT * P;
+          float* dOs = Qs + QT * P;
           const float* Kh = Ks + hh * kT * P;
           const float* Vh = Vs + hh * kT * P;
           cp_async_wait_all();
           // this step's Q and dO are in place, and every warp is done with
           // the previous step's tiles
           __syncthreads();
-          {  // the next step's Q and dO, into the other buffer
-            int nrow = row0, nhh = hh + 1;
-            if (nhh >= nh) {
-              nhh = 0;
-              nrow = row0 + kT;
-            }
-            if (nrow < length) {
-              float* nQ = stages + ((step + 1) & 1) * 2 * kT * P;
-              load_tile<W>(nQ, qb + nhh * p.q_sh, p.q_sn, nrow, length, p.D, p.vec_q != 0);
-              load_tile<W>(nQ + kT * P, ob + nhh * p.do_sh, p.do_sn, nrow, length, p.V, p.vec_do != 0);
-            }
+          if constexpr (ST == 2) {  // the next step's Q and dO, into the other stage
+            int nrow, nhh;
+            next_step(row0, hh, nrow, nhh);
+            if (nrow < length) load_step(nrow, nhh, (step + 1) & 1);
             cp_async_commit();
           }
 
-          // S = Q K^T and dP = dO V^T: the warp's 16 x 16 tile
-          float s[2][4], dp[2][4];
+          // S = Q K^T and dP = dO V^T: the warp's 16 x 8 JN part
+          float s[JN][4], dp[JN][4];
 #pragma unroll
-          for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < JN; ++j)
 #pragma unroll
             for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
           if (!dead) {
@@ -498,19 +543,19 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
             for (int ks = 0; ks < KS; ++ks) {
               const FragA a = load_a(Qs, P, wr * 16, ks * 8);
 #pragma unroll
-              for (int j = 0; j < 2; ++j)
-                mma3(s[j], a, load_b_nk(Kh, P, wc * 16 + j * 8, ks * 8));
+              for (int j = 0; j < JN; ++j)
+                mma3(s[j], a, load_b_nk(Kh, P, wc * (8 * JN) + j * 8, ks * 8));
             }
 #pragma unroll
             for (int ks = 0; ks < KS; ++ks) {
               const FragA a = load_a(dOs, P, wr * 16, ks * 8);
 #pragma unroll
-              for (int j = 0; j < 2; ++j)
-                mma3(dp[j], a, load_b_nk(Vh, P, wc * 16 + j * 8, ks * 8));
+              for (int j = 0; j < JN; ++j)
+                mma3(dp[j], a, load_b_nk(Vh, P, wc * (8 * JN) + j * 8, ks * 8));
             }
           }
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
+          for (int j = 0; j < JN; ++j) {
             float pv[4], ds[4];
 #pragma unroll
             for (int c = 0; c < 4; ++c) {
@@ -524,7 +569,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
                 dssum[e] += ds[c];
               }
             }
-            const int at = (wr * 16 + g) * kSP + wc * 16 + j * 8 + 2 * t;
+            const int at = (wr * 16 + g) * kSP + wc * (8 * JN) + j * 8 + 2 * t;
             *reinterpret_cast<float2*>(Ps + at) = make_float2(pv[0], pv[1]);
             *reinterpret_cast<float2*>(Ps + at + 8 * kSP) = make_float2(pv[2], pv[3]);
             *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
@@ -555,9 +600,18 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
 #pragma unroll
               for (int c = 0; c < 4; ++c) acc[hh][j][c] += part[j][c];
           }
+          if constexpr (ST == 1) {
+            // every warp is past Q and dO: the next step's tiles, into the
+            // one stage, while dQ and the table sums run
+            __syncthreads();
+            int nrow, nhh;
+            next_step(row0, hh, nrow, nhh);
+            if (nrow < length) load_step(nrow, nhh, 0);
+            cp_async_commit();
+          }
           {
             // dQ = dS K: the warp's query rows wr 16 .. + 16 and output columns
-            // wc W / 4 .. + W / 4, summed over the live columns
+            // wc W / WC .. + W / WC, summed over the live columns
             float dq[NQ][4];
 #pragma unroll
             for (int j = 0; j < NQ; ++j)
@@ -567,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
               const FragA a = load_a(dSs, kSP, wr * 16, ks * 8);
 #pragma unroll
               for (int j = 0; j < NQ; ++j)
-                mma3(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / 4) + j * 8));
+                mma3(dq[j], a, load_b_kn<true>(Kh, P, ks * 8, wc * (W / WC) + j * 8));
             }
             // dead rows keep the buffer's zeros (K7-det: are not written).
             // Where D is a multiple of 4 a lane pair trades halves, so that
@@ -576,8 +630,10 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
             // K7-det stores the tile pair's rows to its slot
             const bool odd = (t & 1) != 0;
             float* dqh = p.dq + ((long long)b * p.N * p.H + h0 + hh) * p.D;
-            // K7-det: the slot's row of query row `row`, less row0
-            const long long slot_row = DET ? det_slot(row0 / kT, col0 / kT, tiles, lower_only) * kT - row0 : 0;
+            // K7-det: the slot's row of query row `row`, less the start of
+            // its 64-row query tile
+            const long long slot_row =
+                DET ? det_slot(row0 / kT, col0 / kT, tiles, lower_only) * kT - row0 / kT * kT : 0;
             auto dq_at = [&](int row, int d) {
               if constexpr (DET)
                 return dq_slots + ((slot_row + row) * p.H + h0 + hh) * p.D + d;
@@ -590,7 +646,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
               const float r1 = __shfl_xor_sync(kFull, odd ? dq[j][1] : dq[j][3], 1);
               if (p.D % 4 == 0) {
                 const int row = row0 + wr * 16 + g + (odd ? 8 : 0);
-                const int d = wc * (W / 4) + j * 8 + 2 * (t & ~1);
+                const int d = wc * (W / WC) + j * 8 + 2 * (t & ~1);
                 if (row < length && d < p.D) {
                   const float4 x = odd ? make_float4(r0, r1, dq[j][2], dq[j][3])
                                        : make_float4(dq[j][0], dq[j][1], r0, r1);
@@ -605,7 +661,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
 #pragma unroll
                 for (int c = 0; c < 4; ++c) {
                   const int row = row0 + wr * 16 + g + 8 * (c / 2);
-                  const int d = wc * (W / 4) + j * 8 + 2 * t + c % 2;
+                  const int d = wc * (W / WC) + j * 8 + 2 * t + c % 2;
                   if (row < length && d < p.D) {
                     float* at = dq_at(row, d);
                     if constexpr (DET)
@@ -628,7 +684,7 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
       // table: no atomics. dpos_w: the sums go to shared memory as a tile,
       // and each diagonal is then summed by four threads.
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < NE; ++e) {
         const bool ok = (ok_bits >> e) & 1u;
         const int key = (int)((buckets[e / 2] >> (16 * (e % 2))) & 0xffffu);
         unsigned rest = __ballot_sync(kFull, ok);
@@ -644,20 +700,22 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
           rest &= ~__ballot_sync(kFull, mine);
         }
       }
+      if constexpr (kOwnTs) {  // (one head: the dS tile holds these sums already)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int at = (wr * 16 + g) * kSP + wc * 16 + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(Ts + at) = make_float2(dssum[4 * j], dssum[4 * j + 1]);
-        *reinterpret_cast<float2*>(Ts + at + 8 * kSP) =
-            make_float2(dssum[4 * j + 2], dssum[4 * j + 3]);
+        for (int j = 0; j < JN; ++j) {
+          const int at = (wr * 16 + g) * kSP + wc * (8 * JN) + j * 8 + 2 * t;
+          *reinterpret_cast<float2*>(Ts + at) = make_float2(dssum[4 * j], dssum[4 * j + 1]);
+          *reinterpret_cast<float2*>(Ts + at + 8 * kSP) =
+              make_float2(dssum[4 * j + 2], dssum[4 * j + 3]);
+        }
       }
       __syncthreads();  // the next write of Ts follows the next step's barrier
       {
-        // diagonal dd holds the elements with col - row = dd - 63
+        // diagonal dd holds the elements with col - row = dd - (QT - 1)
         const int dd = threadIdx.x >> 2, part = threadIdx.x & 3;
         float sum = 0.f;
-        for (int r = part; r < kT; r += 4) {
-          const int c = r + dd - (kT - 1);
+        for (int r = part; r < QT; r += 4) {
+          const int c = r + dd - (QT - 1);
           if (c >= 0 && c < kT) sum += Ts[r * kSP + c];
         }
         sum += __shfl_xor_sync(kFull, sum, 1);
@@ -668,23 +726,22 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
           // diagonals clipped to one entry (N > Nm) meet here: an atomic
           // (LONG: the step's window of dpos_w, straight to device memory)
           if (part == 0 && sum != 0.f)
-            atomicAdd((LONG ? p.dpos : dpos_s) + hstu::pos_index(row0 + kT - 1, col0 + dd, p.Nm), sum);
+            atomicAdd((LONG ? p.dpos : dpos_s) + hstu::pos_index(row0 + QT - 1, col0 + dd, p.Nm), sum);
         }
       }
       if constexpr (DET) {
         // each run of diagonals that meet on one entry (one diagonal, or
         // those clipped where N > Nm) summed in order by one thread
         __syncthreads();
-        const int dd = threadIdx.x, last = row0 + kT - 1;
+        const int dd = threadIdx.x, last = row0 + QT - 1;
         const int idx = hstu::pos_index(last, col0 + dd, p.Nm);
-        if (dd < 2 * kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {
+        if (dd < QT + kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {
           float sum = 0.f;
-          for (int e = dd; e < 2 * kT - 1 && hstu::pos_index(last, col0 + e, p.Nm) == idx; ++e) sum += Ps[e];
+          for (int e = dd; e < QT + kT - 1 && hstu::pos_index(last, col0 + e, p.Nm) == idx; ++e) sum += Ps[e];
           (LONG ? prow : dpos_s)[idx] += sum;
         }
       }
     }
-
     __syncthreads();
     // LONG: slot s of dts_w's copies holds bucket s, the last one bucket NB
     auto slot_of = [&](int idx) { return idx < n_slots - 1 ? idx : (idx == p.NB ? n_slots - 1 : -1); };
@@ -744,12 +801,13 @@ __global__ void __launch_bounds__(kThreads, 1) relbias_bwd_kernel(Params<float> 
   }
 }
 
-template <int W, int HG, bool DET, bool LONG = false>
+template <int W, bool DET, bool LONG = false>
 cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
-  const long long smem =
-      4 * (LONG ? smem_floats_long(W, HG, p.NB + 1) : smem_floats(W, HG, 2LL * p.Nm - 1, p.NB + 1LL));
+  constexpr int HG = Tiling<W>::HG, QT = Tiling<W>::QT, ST = Tiling<W>::ST;
+  const long long smem = 4 * (LONG ? smem_floats_long(W, HG, QT, ST, p.NB + 1)
+                                   : smem_floats(W, HG, QT, ST, 2LL * p.Nm - 1, p.NB + 1LL));
   if (smem > hstu_wide::kMaxShared) return cudaErrorInvalidValue;
-  auto kernel = relbias_bwd_kernel<W, HG, DET, LONG>;
+  auto kernel = relbias_bwd_kernel<W, DET, LONG>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -789,7 +847,8 @@ int launch_bf16(const Params<__nv_bfloat16>& p, int route, cudaStream_t s);
 int head_group_bf16(int D, int V);
 
 // This body on float32, the bfloat16 body on bfloat16 (kNarrow: the tables
-// staged; kRead: LONG), or with kWide (K7 alone) the wide bodies: the
+// staged; kRead: LONG; D and V up to 128), or with kWide (K7 alone) the wide
+// bodies: the
 // relative-bias dq pass, then dk, dv and the tables.
 template <typename E, bool DET = false>
 int launch(const Params<E>& p, int route, void* stream) {
@@ -802,13 +861,13 @@ int launch(const Params<E>& p, int route, void* stream) {
     if (err != cudaSuccess) return (int)err;
     return (int)hstu_wide::launch_dkv<true, false, E>(w, s);
   }
-  if (p.D > 64 || p.V > 64 || (route != hstu::kNarrow && route != hstu::kRead))
+  if (p.D > 128 || p.V > 128 || (route != hstu::kNarrow && route != hstu::kRead))
     return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<E, float>::value) {
     const bool read = route == hstu::kRead;
-    if (p.D <= 32 && p.V <= 32)
-      return (int)(read ? launch_w<32, 4, DET, true>(p, s) : launch_w<32, 4, DET>(p, s));
-    return (int)(read ? launch_w<64, 2, DET, true>(p, s) : launch_w<64, 2, DET>(p, s));
+    if (p.D <= 32 && p.V <= 32) return (int)(read ? launch_w<32, DET, true>(p, s) : launch_w<32, DET>(p, s));
+    if (p.D <= 64 && p.V <= 64) return (int)(read ? launch_w<64, DET, true>(p, s) : launch_w<64, DET>(p, s));
+    return (int)(read ? launch_w<128, DET, true>(p, s) : launch_w<128, DET>(p, s));
   } else {
     return launch_bf16<DET>(p, route, s);
   }
@@ -848,7 +907,7 @@ int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
     if (p.dq_partial == nullptr) return (int)cudaErrorInvalidValue;
     const int err = launch<E, /*DET=*/true>(p, route, stream);
     if (err != 0) return err;
-    const int hg = std::is_same<E, float>::value ? (p.D <= 32 && p.V <= 32 ? 4 : 2) : head_group_bf16(p.D, p.V);
+    const int hg = std::is_same<E, float>::value ? head_group_f32(p.D, p.V) : head_group_bf16(p.D, p.V);
     sp.rows = (int)((long long)tiles * ((p.H + hg - 1) / hg) * p.B);
   }
   const long long blocks = (long long)sp.B * sp.tiles * sp.chunks + (n + 31) / 32;
@@ -860,7 +919,7 @@ int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
 }  // namespace hstu_relbias_bwd
 
 // Launches on `stream` the body `route` names (hstu::Route, the Python
-// plan's choice); returns the launch's cudaGetLastError(). D and V up to 64
+// plan's choice); returns the launch's cudaGetLastError(). D and V up to 128
 // take this kernel, its tables staged (kNarrow) or read (kRead: LONG); kWide
 // the wide bodies. The Python wrapper decides the `vec_*` flags.
 extern "C" int hstu_mha_relbias_bwd(

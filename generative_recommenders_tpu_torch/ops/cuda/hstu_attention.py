@@ -935,7 +935,7 @@ def _vec16(t: torch.Tensor, elems: int = 4) -> bool:
     )
 
 
-def _delta_plan(B: int, M: int, N: int, H: int, V: int, D: int = 1) -> dict:
+def _delta_plan(B: int, M: int, N: int, H: int, V: int, D: int = 1, dtype: torch.dtype = torch.float32) -> dict:
     """K5's launch: the key range in chunks of 64 columns, the M query rows
     in tiles of 8 and V in chunks of 128 columns, one block per (chunk, head
     x row tile x V chunk, batch row); the [chunks, B, M, H, V] scratch of the
@@ -943,7 +943,10 @@ def _delta_plan(B: int, M: int, N: int, H: int, V: int, D: int = 1) -> dict:
     and one arrival counter per (batch row, head, row tile, V chunk); q
     staged in shared memory up to D 256, read in chunks of 256 from device
     memory above (``wide``, an instance of the same kernel that the entry
-    point picks by D). Raises on a width of 0 and where the grid
+    point picks by D). On bfloat16 (K5-bf16's kernel) a lane reads 8
+    elements of a K row at once (``k_piece``: D padded to 64, 128 or 256)
+    and owns 8 V columns (``v_piece``), where float32 takes 4 of each (D
+    padded to 32 up to 256). Raises on a width of 0 and where the grid
     exceeds CUDA's."""
     _check_widths(D, V)
     chunks = -(-N // _DELTA_CHUNK)
@@ -955,14 +958,15 @@ def _delta_plan(B: int, M: int, N: int, H: int, V: int, D: int = 1) -> dict:
             f"K5's grid {grid} exceeds {_MAX_GRID_YZ} blocks in y or z "
             f"(B={B}, M={M}, H={H}, V={V}): split the batch"
         )
+    piece = 8 if dtype == torch.bfloat16 else 4
     return dict(
         chunks=chunks, row_tiles=row_tiles, v_chunks=v_chunks, grid=grid,
         scratch_shape=(chunks, B, M, H, V) if chunks > 1 else None,
-        counters=B * H * row_tiles * v_chunks, wide=D > _NARROW_D,
-        # q's rows of the block (D padded to 32, 64, 128 or 256; the wide
-        # instance keeps one row of 256) and the V chunk's sums of its 4
-        # warps, in static shared memory
-        shared_bytes=4 * (_DELTA_ROWS * next(w for w in (32, 64, 128, 256) if D <= w) if D <= _NARROW_D
+        counters=B * H * row_tiles * v_chunks, wide=D > _NARROW_D, k_piece=piece, v_piece=piece,
+        # q's rows of the block as float32 (D padded to 8 lanes' pieces: 32
+        # or 64 up to 256; the wide instance keeps one row of 256) and the V
+        # chunk's sums of its 4 warps, in static shared memory
+        shared_bytes=4 * (_DELTA_ROWS * next(w for w in (32, 64, 128, 256) if D <= w and w >= 8 * piece) if D <= _NARROW_D
                           else _NARROW_D) + 4 * 4 * _DELTA_ROWS * _DELTA_V + 4,
     )
 
@@ -1026,7 +1030,7 @@ def _delta_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
     out = torch.empty((B, M, H, V), dtype=v.dtype, device=device)
     if out.numel() == 0 or N == 0:
         return out.zero_()
-    plan = _delta_plan(B, M, N, H, V, D)
+    plan = _delta_plan(B, M, N, H, V, D, q.dtype)
     scratch = counters = None
     if plan["scratch_shape"] is not None:
         scratch = torch.empty(plan["scratch_shape"], dtype=torch.float32, device=device)
@@ -1041,7 +1045,7 @@ def _delta_fwd(q, k, v, lens, nt, kw: dict) -> torch.Tensor:
         B, M, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         kw["alpha"], 1.0 / (kw["norm_len"] or N),
         kw["max_attn_len"], kw["contextual_seq_len"], kw["min_full_attn_seq_len"],
-        int(_vec16(k)), int(_vec16(v)), _stream(device),
+        int(_vec16(k, plan["k_piece"])), int(_vec16(v, plan["v_piece"])), _stream(device),
     )
     delta_hstu_mha_cuda.launches[name].add()
     return out

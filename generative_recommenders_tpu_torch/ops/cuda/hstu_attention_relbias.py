@@ -11,8 +11,9 @@ Port of `generative_recommenders_tpu/ops/pallas/hstu_attention_relbias.py`:
 * ``hstu_mha_relbias_bwd_cuda``: kernel K7 (`csrc/hstu_mha_relbias_bwd.cu`),
   replacing `_bwd_kernel_relbias` (the custom VJP `_relbias_call` becomes
   `_HstuMhaRelbias`): 3xTF32 products on the tensor cores, a group of heads
-  inside one block (`_relbias_bwd_plan`), head widths up to 64 (wider heads
-  take the wide bodies, csrc/hstu_attention_wide.cuh); or, with
+  inside one block (`_relbias_bwd_plan`), head widths up to 128 in one pass
+  over the tile pairs (wider heads take the wide bodies,
+  csrc/hstu_attention_wide.cuh); or, with
   ``deterministic``, K7-det (the same library): the same function summed in
   one fixed order (`_relbias_det_plan`). On bfloat16 both run a body of
   their own on the bfloat16 tensor cores
@@ -55,7 +56,7 @@ K7-det-bf16 a bfloat16 body of their own
 (`csrc/hstu_attention_relbias_bwd_bf16.cuh`: bfloat16(alpha q) and
 bfloat16(dO / norm) formed once per call into buffers the wrapper
 allocates, ``mma.sync.m16n8k16`` on bfloat16 tiles, 4 heads of width 32 a
-block). The bfloat16 kernels count their launches in
+block, 2 of width 128). The bfloat16 kernels count their launches in
 ``launches_bf16``, beside the float32 kernels' ``launches``.
 
 K7 sums dq, ``dpos_w`` and ``dts_w`` with atomics, in an order that changes
@@ -109,10 +110,14 @@ ha._LIBRARY.update({
 # K7's tiling (csrc/hstu_mha_relbias_bwd.cu): 64 x 64 tile pairs, every tile
 # at a pitch of its width + 8; a Hopper block's shared memory
 _BWD_TILE, _BWD_PITCH, _BWD_WARPS = 64, 72, 16
-_NARROW_BWD_WIDTH = 64  # wider heads take the wide bodies (csrc/hstu_attention_wide.cuh)
+_NARROW_BWD_WIDTH = 128  # wider heads take the wide bodies (csrc/hstu_attention_wide.cuh)
+# K7's float32 body by padded width (`Tiling` of csrc/hstu_mha_relbias_bwd.cu):
+# the heads a block loops inside, the query rows of a step, the (Q, dO)
+# stages
+_TILING_F32 = {32: (4, 64, 2), 64: (2, 64, 2), 128: (1, 32, 2)}
 # the heads a block of K7's bfloat16 body loops inside, by padded width
 # (`TilingBf16` of csrc/hstu_attention_relbias_bwd_bf16.cuh)
-_HEAD_GROUP_BF16 = {32: 4, 64: 2}
+_HEAD_GROUP_BF16 = {32: 4, 64: 2, 128: 2}
 # the buckets a float32 time gap reaches: 0 .. 294 and NB (an infinite gap),
 # the slots of dts_w's copies where the tables are read (`hstu_wide::kTsSlots`)
 _TS_SLOTS = 296
@@ -331,13 +336,15 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
 def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int, dtype: torch.dtype = torch.float32,
                       B: int = 1, N: int = 1) -> dict:
     """K7's launch on q's type ``dtype``, its ``route`` the body the C entry
-    point takes. D and V up to 64 (route ``narrow``): the head width both
-    are padded to (32 or 64), the heads a block loops inside (4 or 2: their
-    K, V, dK and dV tiles fill its shared memory and registers), the head
-    groups (H need not be a multiple) and the block's shared memory: K and V
-    of the group, two (Q, dO) buffers, P, dS and dS summed over the heads,
-    both tables, ``dpos_w``'s sums and one copy of ``dts_w``'s sums per
-    warp; where the tables do not fit beside the tiles (a long position
+    point takes. D and V up to 128 (route ``narrow``): the head width both
+    are padded to (32, 64 or 128), the heads a block loops inside (4, 2 or
+    1 on float32, 4, 2 or 2 on bfloat16: their K, V, dK and dV tiles fill
+    its shared memory and registers),
+    the head groups (H need not be a multiple) and the block's shared
+    memory: K and V of the group, two (Q, dO) stages (of 32 query rows at
+    width 128 on float32, `_TILING_F32`), P, dS and dS summed over the heads
+    (a head alone: its dS), both tables, ``dpos_w``'s sums and one copy of
+    ``dts_w``'s sums per warp; where the tables do not fit beside the tiles (a long position
     table, many buckets), the tables are read from device memory and the
     warps' copies keep the reachable buckets (route ``read``). On bfloat16
     the bfloat16 body's: its tiles, P and dS bfloat16 (the head sum of dS
@@ -353,14 +360,16 @@ def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int, dtype: torch.dty
     if max(D, V) > _NARROW_BWD_WIDTH:
         return dict(route="wide", width=ha._WIDE_CHUNK, head_group=1, head_groups=H,
                     shared_bytes=ha._WIDE_DKV_RELBIAS_BYTES, dq_shared_bytes=ha._WIDE_DQ["shared_bytes"])
-    width = 32 if max(D, V) <= 32 else 64
+    width = next(w for w in (32, 64, 128) if max(D, V) <= w)
     bf16 = dtype == torch.bfloat16
-    head_group = _HEAD_GROUP_BF16[width] if bf16 else 128 // width
     if bf16:  # bytes: bfloat16 K, V of the group, two (Q, dO) stages, P and dS; dS summed over the heads
+        head_group = _HEAD_GROUP_BF16[width]
         tile_bytes = 2 * ((2 * head_group + 4) * _BWD_TILE * (width + 8) + 2 * _BWD_TILE * _BWD_PITCH) \
             + 4 * _BWD_TILE * _BWD_PITCH
-    else:  # floats: K, V of the group, two (Q, dO) buffers; P, dS, dS summed over the heads
-        tile_bytes = 4 * ((2 * head_group + 4) * _BWD_TILE * (width + 8) + 3 * _BWD_TILE * _BWD_PITCH)
+    else:  # floats: K, V of the group, the (Q, dO) stages; P, dS, dS summed over the heads (one head: dS)
+        head_group, rows, stages = _TILING_F32[width]
+        tile_bytes = 4 * (2 * head_group * _BWD_TILE * (width + 8) + 2 * stages * rows * (width + 8)
+                          + (3 if head_group > 1 else 2) * rows * _BWD_PITCH)
     tables = 2 * (2 * Nm - 1) + (1 + _BWD_WARPS) * (NB + 1)
     plan = dict(route="narrow", width=width, head_group=head_group, head_groups=-(-H // head_group),
                 shared_bytes=tile_bytes + 4 * tables)
@@ -392,7 +401,7 @@ def _det_slot(qt: int, kt: int, tiles: int, lower_only: bool) -> int:
 
 def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, causal: bool = True,
                       contextual_seq_len: int = 0, dtype: torch.dtype = torch.float32) -> dict:
-    """K7-det's launches. D and V up to 64: K7's body on K7's grid
+    """K7-det's launches. D and V up to 128: K7's body on K7's grid
     (`_relbias_bwd_plan`: (key tile, head group, batch row)), on its route,
     each block storing the dQ of every tile pair its walk visits to the
     pair's slot of the float32 ``dq_partial`` buffer [B, pairs, 64, H, D]
@@ -582,7 +591,7 @@ def hstu_mha_relbias_bwd_cuda(
     atomics, so their last bits vary from run to run (dk and dv are the same
     bits every run); or, with ``deterministic``, by K7-det, every output the
     same bits every run. Any head width and table length (heads wider than
-    64 take the wide bodies, tables that do not fit a block's shared memory
+    128 take the wide bodies, tables that do not fit a block's shared memory
     are read from device memory). CPU tensors go through the plain
     backward."""
     kw = ha._dense_kw(alpha, max_seq_len, causal, num_targets, max_attn_len,

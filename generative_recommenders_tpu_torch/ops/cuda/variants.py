@@ -65,6 +65,27 @@ layer): K7's table sums and bucket logf taken out, its 4 heads a block
 at width 32 against 8 and 2, and K3's dS through shared memory against
 registers.
 
+    python PATH/TO/variants.py --wide
+
+(run as a file, with ``PYTHONPATH`` naming the checkout whose package to
+time, as ``--bf16``) times K7, K7-det, K7-bf16 and K7-det-bf16 through the
+public wrapper at the wide-head layer (ml-20m n128 with two heads of 128: B
+128, N = Nm = 211, H 2, D = V = 128, 128 buckets, full rows), at D = V = 96
+and D 128 / V 64 (the same B, N, H) and at D = V = 256 (the wide bodies in
+every checkout), each also with the wide bodies forced on the same inputs;
+and K5 and K5-bf16 at the serving chunk. Run it from the parent's checkout
+and this one in turns (parent, new, new, parent) in one call.
+
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-variants
+
+builds and times the knock-outs of K7's width-128 instances (labels "w128:
+..."; float32 and bfloat16, K7 and K7-det, at the wide-head layer): the
+copies synchronous in place of `cp.async`, two TF32 m16n8k8 in place of one
+m16n8k16 (bfloat16), the float32 body's steps of 64 query rows with one
+(Q, dO) stage in place of 32 rows with two, without the table sums, and
+one head a block on bfloat16 in place of two (label "bf16: width 128, 1
+head a block").
+
     python PATH/TO/variants.py --det
 
 (run as a file, with ``PYTHONPATH`` naming the checkout whose package to
@@ -130,7 +151,7 @@ _NO_SPLIT = _sub(
     "  big = __float_as_uint(x);\n  small = 0;\n", _TF32)
 _K7: Dict[str, Edit] = {
     "table sums": _both(_sub("unsigned rest = __ballot_sync(kFull, ok);", "unsigned rest = 0;"),
-                        _sub("for (int r = part; r < kT; r += 4) {", "for (int r = part; r < 0; r += 4) {")),
+                        _sub("for (int r = part; r < QT; r += 4) {", "for (int r = part; r < 0; r += 4) {")),
     "dq atomics": _sub("if (row < length && d < p.D) {\n                  const float4 x",
                        "if (false) {\n                  const float4 x"),
     "sigmoid": _sub("const float sig = __fdividef(1.f, 1.f + __expf(-x));", "const float sig = x;"),
@@ -195,7 +216,7 @@ _K7.update({
     # K7-det's own phases (K7 runs none of them)
     "K7-det's ordered sum of the slots": _sub("for (int kt = 0; kt < kts; ++kt) {", "for (int kt = 0; kt < 0; ++kt) {"),
     "K7-det's diagonal runs": _sub(
-        "if (dd < 2 * kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {", "if (false) {"),
+        "if (dd < QT + kT - 1 && (dd == 0 || hstu::pos_index(last, col0 + dd - 1, p.Nm) != idx)) {", "if (false) {"),
 })
 # The bfloat16 bodies' knock-outs: edits of their shared helpers. cp.async as
 # a synchronous 16-byte copy through registers (the same zeros where !ok);
@@ -274,10 +295,10 @@ _R16_EDITS: Dict[str, Edit] = {
         _sub("                if (ks >= my_col_steps) continue;\n                uint32_t a[4], kf[4];\n"
              "                hstu_bf16::ldsm(a,", "                continue;\n                uint32_t a[4], kf[4];\n"
              "                hstu_bf16::ldsm(a,", _R16)),
-    **{f"bf16: width {w}, {hg} heads a block": _sub(
+    **{f"bf16: width {w}, {hg} head{'s' if hg > 1 else ''} a block": _sub(
         f"template <> struct TilingBf16<{w}> {{ static constexpr int HG = {shipped}; }};",
         f"template <> struct TilingBf16<{w}> {{ static constexpr int HG = {hg}; }};", _R16)
-       for w, shipped, hg in ((32, 4, 8), (32, 4, 2))},
+       for w, shipped, hg in ((32, 4, 8), (32, 4, 2), (128, 2, 1))},
 }
 # K3-bf16's body: dS through shared memory (each warp stores its 16 rows and
 # reads them back by `ldmatrix`) in place of registers, and other tilings
@@ -323,6 +344,25 @@ _FWD16_EDITS: Dict[str, Edit] = {
     "bf16: width 32, one head a block": _sub(_T32F, _T32F.replace("HG = 2", "HG = 1"), _FWD16),
     "bf16: width 32, 8 warps": _sub(_T32F, _T32F.replace("NW = 4", "NW = 8").replace("MINB = 4", "MINB = 2"), _FWD16),
     "bf16: width 32 at BK 64": _sub(_T32F, _T32F.replace("BK = 32", "BK = 64"), _FWD16),
+}
+# K7's width-128 instances (float32 and bfloat16): the copies synchronous
+# (both bodies' `cp.async` as a copy through registers), the bfloat16
+# products as two TF32 ones, the float32 body's other tiling (64-row steps,
+# one (Q, dO) stage), the table sums taken out; and the bfloat16 body's one
+# head a block (the plan patched to match, `_plan_patch`)
+_T128 = "template <> struct Tiling<128> { static constexpr int HG = 1, QT = 32, ST = 2; };"
+_W128_EDITS: Dict[str, Edit] = {
+    "w128: synchronous copies": _both(
+        _sub('''  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");''',
+             '''  (void)d;
+  *reinterpret_cast<float4*>(dst) = ok ? *reinterpret_cast<const float4*>(src) : make_float4(0.f, 0.f, 0.f, 0.f);''',
+             _TF32),
+        _BF16_EDITS["bf16: cp.async (a synchronous copy instead)"]),
+    "w128: two TF32 m16n8k8 in place of m16n8k16": _BF16_EDITS["bf16: m16n8k16 (two TF32 m16n8k8 instead)"],
+    "w128: 64-row steps, one (Q, dO) stage (float32)": _sub(_T128, _T128.replace("QT = 32, ST = 2", "QT = 64, ST = 1")),
+    "w128: without the table sums": _both(_K7["table sums"], _R16_EDITS["bf16: without the table sums"]),
 }
 # K1 and K6: edits of their shared body
 _FWD = "hstu_attention_fwd.cuh"
@@ -383,7 +423,7 @@ _K3: Dict[str, Edit] = {
 }
 _K3_TILINGS = ("BQ 64, BK 32", "BQ 32, BK 64", "BQ 128, BK 32")
 _K5: Dict[str, Edit] = {
-    "the last block's sum": _sub("  if (!s_last) return;\n", "  return;\n"),
+    "the last block's sum": _sub("  if (!*s_last) return;\n", "  return;\n"),
     "K loads": _sub("      kr[i] = (col < length && at < p.D) ? load4", "      kr[i] = (col < length && at < 0) ? load4"),
     "V loads": _sub("      vr[j] = (c0 + j < length && at < vw)", "      vr[j] = (c0 + j < length && at < 0)"),
     "silu": _sub("float pv = ok ? x / (1.f + expf(-x)) : 0.f;", "float pv = ok ? x : 0.f;"),
@@ -442,8 +482,11 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
        for label, phases in [("bf16: as shipped", ())] + [(name, (name,)) for name in {**_BF16_EDITS, **own}]]
     + [("hstu_mha_relbias_bwd", "bf16: without the table sums and the bucket logf",
         ("bf16: without the table sums", "bf16: without the bucket logf"))]
+    + [("hstu_mha_relbias_bwd", "w128: as shipped", ())]
+    + [("hstu_mha_relbias_bwd", name, (name,)) for name in _W128_EDITS]
 )
-_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS}, "delta_hstu_mha_fwd": _K5,
+_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS},
+          "delta_hstu_mha_fwd": _K5,
           "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS}, "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS},
           "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
           "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
@@ -628,6 +671,26 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args == ["--bf16"]:
         bf16_times(device_ms, bf16_inputs(rand, gen), chunks=True)
         return
+    if args == ["--wide"]:
+        wide_times(device_ms, wide_inputs(rand, gen))
+        k5_times(device_ms, rand, ints)
+        return
+    if args == ["--wide-variants"]:
+        inputs = {k_: v_ for k_, v_ in wide_inputs(rand, gen).items() if k_.startswith("wide-head layer")}
+        chosen = [i for i, (_, label, _) in enumerate(VARIANTS)
+                  if label.startswith("w128") or label == "bf16: width 128, 1 head a block"]
+        root = os.path.join(build.BUILD_DIR, "variants")
+        try:
+            _build_all(root, chosen)
+            for i in chosen:
+                kernel, label, _ = VARIANTS[i]
+                build._libs.clear()
+                _preload(kernel, os.path.join(root, f"v{i}"))
+                with _plan_patch(label):
+                    wide_times(device_ms, inputs, label=label, forced=False)
+        finally:
+            build._libs.clear()
+        return
     if args[:1] == ["--bf16-variants"]:
         inputs = bf16_inputs(rand, gen)
         # kernels' names keep those kernels' variants, other TEXTs those whose label holds one
@@ -742,7 +805,7 @@ def _plan_patch(label: str):
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
 
     shipped = dict(hr._HEAD_GROUP_BF16)
-    group = re.fullmatch(r"bf16: width (\d+), (\d+) heads a block", label)
+    group = re.fullmatch(r"bf16: width (\d+), (\d+) heads? a block", label)
     if group:
         hr._HEAD_GROUP_BF16[int(group[1])] = int(group[2])
     try:
@@ -852,6 +915,92 @@ def bf16_times(device_ms, inputs: Dict[str, tuple], only: Optional[Tuple[str, ..
                               f"(shipped: {times['K1-bf16']:.4f})")
                 finally:
                     ha._FWD_CHUNK_BF16, ha._MAX_CHUNKS = shipped
+
+
+def wide_inputs(rand, gen) -> Dict[str, tuple]:
+    """K7's inputs at the heads above 64, float32 and bfloat16: q, k, v views
+    of one projection and a strided dO, full rows (as chip_smoke.py's
+    every-shape phase times them), timestamps and both tables; by shape:
+    (float32 args, bfloat16 args, float32 dO, bfloat16 dO, D)."""
+    import torch
+
+    shapes = {}
+    for name, B, N, H, D, V in (("wide-head layer", 128, 211, 2, 128, 128), ("D = V = 96", 128, 211, 2, 96, 96),
+                                ("D 128 / V 64", 128, 211, 2, 128, 64), ("D = V = 256", 4, 1024, 2, 256, 256)):
+        proj = rand(B, N, H * (2 * D + V))
+        v, q, k = torch.split(proj, [H * V, H * D, H * D], dim=-1)
+        q, k, v = q.reshape(B, N, H, D), k.reshape(B, N, H, D), v.reshape(B, N, H, V)
+        lens = torch.full((B,), N, dtype=torch.int32, device="cuda")
+        steps = torch.randint(1, 86400, (B, N), device="cuda", generator=gen)
+        ts = 1_500_000_000 + torch.cumsum(steps, 1)
+        pos_w, ts_w = rand(2 * N - 1) * 0.1, rand(129) * 0.1
+        do = rand(N, B, H, V).transpose(0, 1)
+        b16 = [x.to(torch.bfloat16) for x in (q, k, v, do)]
+        shapes[f"{name} (B {B}, N = Nm = {N}, H {H}, D {D}, V {V})"] = (
+            (q, k, v, lens, ts, pos_w, ts_w), (*b16[:3], lens, ts, pos_w, ts_w), do, b16[3], D)
+    return shapes
+
+
+@contextlib.contextmanager
+def _wide_forced():
+    """K7's plans with the wide bodies' route at every width (in the checkout
+    on ``PYTHONPATH``, whatever its narrow bound)."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    bwd, det = hr._relbias_bwd_plan, hr._relbias_det_plan
+    wide = getattr(hr, "_NARROW_BWD_WIDTH", 64) + 1
+    hr._relbias_bwd_plan = lambda D, V, H, Nm, NB, *a: bwd(max(D, wide), V, H, Nm, NB, *a)
+    hr._relbias_det_plan = lambda D, V, H, B, N, Nm, NB, *a: det(max(D, wide), V, H, B, N, Nm, NB, *a)
+    try:
+        yield
+    finally:
+        hr._relbias_bwd_plan, hr._relbias_det_plan = bwd, det
+
+
+def wide_times(device_ms, inputs: Dict[str, tuple], label: str = "", forced: bool = True) -> None:
+    """Prints K7, K7-det, K7-bf16 and K7-det-bf16 at each shape of ``inputs``
+    (`wide_inputs`), each the mean of 10 launches through
+    `hstu_mha_relbias_bwd_cuda` (float32 at alpha D^-1/2, bfloat16 at 1), the
+    route their plans took, and with ``forced`` the same with the wide
+    bodies forced."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    c = hr.hstu_mha_relbias_bwd_cuda
+    for shape, (a32, a16, do32, do16, D) in inputs.items():
+        def one(tag):
+            out = {}
+            for name, args, do, det, alpha, counter in (
+                    ("K7", a32, do32, False, D**-0.5, c.launches), ("K7-det", a32, do32, True, D**-0.5, c.launches_det),
+                    ("K7-bf16", a16, do16, False, 1.0, c.launches_bf16),
+                    ("K7-det-bf16", a16, do16, True, 1.0, c.launches_det_bf16)):
+                counter.reset()
+                out[name] = device_ms(lambda: c(*args, do, deterministic=det, alpha=alpha, max_seq_len=args[0].shape[1],
+                                                num_buckets=128), 10)
+                out[name] = f"{out[name]:.4f} ms ({'/'.join(counter.routes)})"
+            print(f"{label + ': ' if label else ''}{shape}{tag}: " + ", ".join(f"{n} {t}" for n, t in out.items()))
+
+        one("")
+        if forced:
+            with _wide_forced():
+                one(", the wide bodies forced")
+
+
+def k5_times(device_ms, rand, ints) -> None:
+    """K5 and K5-bf16 at the serving chunk (B 32, M 5, H 4, D = V = 128, N 523,
+    lengths 100..329, q a strided view), each the mean of 300 launches."""
+    import torch
+
+    from generative_recommenders_tpu_torch.ops.cuda.hstu_attention import delta_hstu_mha_cuda
+
+    dq = rand(32, 5, 4 * 512)[..., 1024:1536].reshape(32, 5, 4, 128)
+    dk, dv, dlen = rand(32, 523, 4, 128), rand(32, 523, 4, 128), ints(100, 330, 32)
+    m5 = torch.full((32,), 5, dtype=torch.int32, device="cuda")
+    times = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q_, k_, v_ = (x.to(dtype) for x in (dq, dk, dv))
+        times.append(device_ms(lambda: delta_hstu_mha_cuda(q_, k_, v_, dlen, alpha=128**-0.5, num_targets=m5,
+                                                           norm_len=678, contextual_seq_len=6), 300))
+    print(f"the serving chunk (B 32, M 5, N 523, H 4, D = V = 128): K5 {times[0]:.4f} ms, K5-bf16 {times[1]:.4f} ms")
 
 
 def _preload(kernel: str, directory: str) -> None:

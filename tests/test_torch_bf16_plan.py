@@ -257,7 +257,7 @@ def test_bf16_relbias_plans_at_every_narrow_width(D, V):
     B, N, H, Nm, NB = 96, 511, 8, 511, 128
     width = 32 if max(D, V) <= 32 else 64
     group = {32: 4, 64: 2}[width]
-    assert hr._HEAD_GROUP_BF16 == {32: 4, 64: 2}
+    assert hr._HEAD_GROUP_BF16 == {32: 4, 64: 2, 128: 2}
     plan = hr._relbias_bwd_plan(D, V, H, Nm, NB, torch.bfloat16, B, N)
     shared = _relbias_tile_bytes(width, group, True) + 4 * (2 * (2 * Nm - 1) + 17 * (NB + 1))
     assert plan == dict(route="narrow", width=width, head_group=group, head_groups=-(-H // group),
@@ -353,7 +353,7 @@ def test_float32_backward_plans_stay():
             shared_bytes=4 * ((64 + 2 * cols) * (D + 8 + vw + 8) + 64 * (cols + 8) + 4),
             grid=(-(-1036 // 64) * 4 * 8,))
     assert ha._dq_plan(320, 64, 2, 2, 256, torch.bfloat16) == ha._dq_plan(320, 64, 2, 2, 256)
-    assert hr._relbias_bwd_plan(72, 72, 2, 100, 128, torch.bfloat16) == hr._relbias_bwd_plan(72, 72, 2, 100, 128)
+    assert hr._relbias_bwd_plan(136, 136, 2, 100, 128, torch.bfloat16) == hr._relbias_bwd_plan(136, 136, 2, 100, 128)
 
 
 def _recorded(monkeypatch):
@@ -366,7 +366,7 @@ def _recorded(monkeypatch):
 
 @pytest.mark.parametrize("alpha", [1.0, 0.3])
 @pytest.mark.parametrize("deterministic", [False, True], ids=["K7-bf16", "K7-det-bf16"])
-@pytest.mark.parametrize("Nm,D,route", [(70, 32, "narrow"), (8000, 32, "read"), (70, 72, "wide")])
+@pytest.mark.parametrize("Nm,D,route", [(70, 32, "narrow"), (8000, 32, "read"), (70, 136, "wide")])
 def test_bf16_relbias_launch_passes_its_buffers(monkeypatch, alpha, deterministic, Nm, D, route):
     """`_relbias_bwd` on bfloat16 (the launch recorded, not made): on the
     bfloat16 body's routes (``narrow``, ``read``) bfloat16(alpha q)'s buffer

@@ -229,9 +229,9 @@ def test_delta_bf16_kernel_matches_plain(cuda, case, alpha):
     ["chunk edges", "empty cache beside a full row", "M=1", "M=17", "D=V=40", "D=V=25"],
 )
 def test_delta_bf16_kernel_at_its_seams(cuda, name):
-    """K5-bf16 at the seams of K5's tiling (the 8-byte loads where the rows
-    allow them, the scalar path at D = V = 25), and at V above 128 and D
-    above 256; the same bits twice."""
+    """K5-bf16 at the seams of K5's tiling (the 16-byte loads of 8 elements
+    where the rows allow them, the scalar path at D = V = 25), and at V
+    above 128 and D above 256; the same bits twice."""
     q, k, v, lengths, nt = (x.to(torch.bfloat16) if x.is_floating_point() else x for x in _delta_seam(name, cuda))
     kw = dict(alpha=0.6, norm_len=230, num_targets=nt, contextual_seq_len=0)
     got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
@@ -685,10 +685,10 @@ def test_relbias_backward_at_its_seams(cuda, name):
 
 @pytest.mark.gpu
 def test_relbias_backward_takes_wide_heads(cuda):
-    """Heads wider than 64 take the wide bodies: one K7
+    """Heads wider than 128 take the wide bodies: one K7
     launch, against the plain backward."""
     (q, k, v, lengths, ts, pos_w, ts_w), kw = _relbias_seam("H=1", cuda)
-    wide = torch.randn(*q.shape[:3], 72, device=cuda) * 0.3
+    wide = torch.randn(*q.shape[:3], 136, device=cuda) * 0.3
     do = torch.randn_like(v)
     before = hstu_mha_relbias_bwd_cuda.launches.count
     grads = hstu_mha_relbias_bwd_cuda(wide, wide, v, lengths, ts, pos_w, ts_w, do, **kw)
@@ -1081,12 +1081,14 @@ EDGE_LENGTHS = [15, 16, 17, 63, 64, 65, 127, 128, 129]
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["K7-bf16", "K7-det-bf16", "K3-bf16"])
-@pytest.mark.parametrize("H,D,V", [(3, 32, 32), (9, 32, 32), (3, 64, 64), (2, 48, 40), (3, 25, 25)])
+@pytest.mark.parametrize("H,D,V", [(3, 32, 32), (9, 32, 32), (3, 64, 64), (2, 48, 40), (3, 25, 25), (3, 128, 128),
+                                   (1, 100, 72)])
 def test_bf16_backward_bodies_at_their_edges(cuda, kernel, H, D, V):
     """The bfloat16 bodies of K7, K7-det and K3 at lengths on the edges of
     their 16-row steps and 64-row tiles, with head groups that H leaves
-    unfilled (3 and 9 heads against K7's groups of 4 at width 32), at widths
-    32 and 64, at D 48 / V 40 and at D = V = 25 (rows read element by
+    unfilled (3 and 9 heads against K7's groups of 4 at width 32, 3 and 1
+    against its groups of 2 at width 128), at widths 32, 64 and 128, at D 48
+    / V 40, D 100 / V 72 and at D = V = 25 (rows read element by
     element), at alpha 0.3 (bfloat16(alpha q) formed by the pre-scaling
     pass), against their bfloat16 plain versions: outputs within
     `BF16_TOL`, the tables within `TABLE_TOL` (K7-det's
@@ -1298,8 +1300,8 @@ def _relbias_all(args, do, kw, bf16):
 @pytest.mark.parametrize("D,V", [(128, 128), (72, 32), (256, 256), (320, 136)])
 def test_relbias_kernels_at_wide_heads(cuda, D, V, bf16):
     """K6 (its own tiling up to D 256 / V 128, the wide body above) and K7 /
-    K7-det (the wide bodies above 64) at the heads of a d 256 model split
-    over 2 heads and wider."""
+    K7-det (one pass up to 128, the wide bodies above) at the heads of a d
+    256 model split over 2 heads and wider."""
     q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(42, 2, 150, 2, D, V, 160, 128, True, cuda)
     if bf16:
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
@@ -1338,3 +1340,102 @@ def test_relbias_kernels_with_long_tables(cuda, H, D, N, Nm, nb, bf16):
     do = torch.randn(N, 3, H, D, device=cuda).to(q.dtype).transpose(0, 1)
     kw = dict(alpha=1.0 if bf16 else 0.5, max_seq_len=N, num_buckets=nb, num_targets=None)
     _relbias_all((q, k, v, lengths, ts, pos_w, ts_w), do, kw, bf16)
+
+
+# ------------------------------------- K7 and K7-det in one pass up to 128
+ONE_PASS_SHAPES = [(72, 72), (96, 96), (128, 128), (128, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("Nm", [160, 8000], ids=["tables staged", "tables read"])
+@pytest.mark.parametrize("D,V", ONE_PASS_SHAPES)
+def test_relbias_backward_in_one_pass_up_to_128(cuda, D, V, Nm, bf16):
+    """K7 and K7-det at heads of 65 to 128 (float32 or bfloat16) take their
+    one-pass bodies (routes ``narrow`` and ``read``, not the wide bodies),
+    with targets, lengths on the 64-row tile edges and a table staged or
+    read: outputs within `WIDE_TOL` (bfloat16 `BF16_TOL`) of the plain
+    backward, the tables within `TABLE_TOL` (K7-det-bf16's within
+    `DET_TABLE_TOL_BF16`), K7's dk and dv and every K7-det output the same
+    bits on a second run."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    B, N, H = 4, 150, 2
+    q, k, v, _, ts, pos_w, ts_w, nt = _relbias_inputs(44, B, N, H, D, V, Nm, 128, True, cuda)
+    lengths = torch.tensor([150, 64, 65, 129], dtype=torch.int32, device=cuda)
+    if bf16:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    dtype = q.dtype
+    route = hr._relbias_bwd_plan(D, V, H, Nm, 128, dtype, B, N)["route"]
+    assert route == ("narrow" if Nm == 160 else "read")
+    assert hr._relbias_det_plan(D, V, H, B, N, Nm, 128, True, 0, dtype)["route"] == route
+    do = torch.randn(N, B, H, V, device=cuda).to(dtype).transpose(0, 1)
+    kw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=N, num_buckets=128, num_targets=nt)
+    args = (q, k, v, lengths, ts, pos_w, ts_w)
+    _relbias_all(args, do, kw, bf16)
+    grads = hstu_mha_relbias_bwd_cuda(*args, do, **kw)
+    again = hstu_mha_relbias_bwd_cuda(*args, do, **kw)
+    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", ONE_PASS_SHAPES)
+def test_relbias_one_pass_against_the_wide_bodies(cuda, D, V, bf16):
+    """The one-pass bodies and the wide bodies (forced on the same inputs by
+    `variants._wide_forced`) compute one function: K7's and K7-det's outputs
+    within `WIDE_TOL` (bfloat16: `BF16_TOL`, the tables `TABLE_TOL`) of each
+    other."""
+    from generative_recommenders_tpu_torch.ops.cuda.variants import _wide_forced
+
+    B, N, H = 3, 140, 2
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(45, B, N, H, D, V, 140, 128, False, cuda)
+    if bf16:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(N, B, H, V, device=cuda).to(q.dtype).transpose(0, 1)
+    kw = dict(alpha=0.5, max_seq_len=N, num_buckets=128)
+    args = (q, k, v, lengths, ts, pos_w, ts_w)
+    own = [hstu_mha_relbias_bwd_cuda(*args, do, deterministic=det, **kw) for det in (False, True)]
+    c = hstu_mha_relbias_bwd_cuda
+    before = (c.launches_bf16 if bf16 else c.launches).routes.get("wide", 0)
+    with _wide_forced():
+        wide = [hstu_mha_relbias_bwd_cuda(*args, do, deterministic=det, **kw) for det in (False, True)]
+    assert (c.launches_bf16 if bf16 else c.launches).routes.get("wide", 0) == before + 1
+    for got, want in zip(own, wide):
+        for name, g, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want):
+            table = name in ("dpos_w", "dts_w")
+            _held(name, g, w, bf16 and not table, TABLE_TOL if table else WIDE_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "D,V,view",
+    [(128, 128, True), (128, 128, False), (40, 40, True), (25, 25, False), (8, 136, False), (64, 256, True),
+     (512, 64, False), (264, 40, True)],
+)
+def test_delta_bf16_kernel_in_16_byte_pieces(cuda, D, V, view):
+    """K5-bf16's layout (a lane reads 8 elements of a K row in one 16-byte
+    load and owns 8 V columns) at widths that take the pieces (D and V
+    multiples of 8 on views of one projection or contiguous rows), at widths
+    read element by element (D 25, V 136 by 8-column pieces past V 128), at
+    V 256 (two V chunks) and at D above 256 (q read in chunks): within
+    `BF16_TOL` of its plain version, the same bits on a second run."""
+    rng = np.random.default_rng(46)
+    B, M, N, H = 3, 5, 200, 2
+    t = lambda x: torch.as_tensor(x.astype(np.float32), device=cuda).to(torch.bfloat16)  # noqa: E731
+    if view:  # K and V as views of one projection, 8 columns a head before them
+        proj = t(rng.standard_normal((B, N, H * (8 + D + V))))
+        k = proj[..., 8 * H:8 * H + H * D].reshape(B, N, H, D)
+        v = proj[..., 8 * H + H * D:].reshape(B, N, H, V)
+    else:
+        k, v = t(rng.standard_normal((B, N, H, D))), t(rng.standard_normal((B, N, H, V)))
+    q = t(rng.standard_normal((B, M, H, D)))
+    lengths = torch.tensor([200, 70, 5], dtype=torch.int32, device=cuda)
+    kw = dict(alpha=D**-0.5, norm_len=210, num_targets=torch.tensor([2, 0, 1], dtype=torch.int32, device=cuda))
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    assert ha._vec16(k, 8) == (D % 8 == 0) and ha._delta_plan(B, M, N, H, V, D, torch.bfloat16)["k_piece"] == 8
+    got = delta_hstu_mha_cuda(q, k, v, lengths, **kw)
+    assert got.dtype == torch.bfloat16
+    assert _bf16_err(got, delta_hstu_mha_plain(q, k, v, lengths, **kw)) <= BF16_TOL
+    assert torch.equal(got, delta_hstu_mha_cuda(q, k, v, lengths, **kw))

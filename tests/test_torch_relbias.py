@@ -361,14 +361,14 @@ def test_backward_launch_plan_raises(args, match):
 @pytest.mark.parametrize(
     "args,route",
     [
-        ((65, 32, 2, 100, 128), "wide"),
-        ((32, 128, 2, 100, 128), "wide"),
+        ((129, 32, 2, 100, 128), "wide"),
+        ((32, 136, 2, 100, 128), "wide"),
         ((32, 32, 2, 100, 70000), "read"),
         ((32, 32, 2, 8000, 128), "read"),
     ],
 )
 def test_backward_launch_plan_admits(args, route):
-    """Shapes past K7's staged tiling: heads wider than 64 take the wide bodies;
+    """Shapes past K7's staged tiling: heads wider than 128 take the wide bodies;
     many buckets and a long position table are read from device memory,
     with 16 copies of dts_w's 296 reachable buckets beside the tiles."""
     plan = hr._relbias_bwd_plan(*args)

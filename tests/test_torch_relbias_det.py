@@ -88,7 +88,7 @@ def test_det_launch_plan_raises(args, match):
 
 
 @pytest.mark.parametrize("args, route", [
-    ((72, 32, 2, 2, 100, 100, 128), "wide"),
+    ((136, 32, 2, 2, 100, 100, 128), "wide"),
     ((32, 32, 2, 2, 100, 20000, 128), "read"),
     ((32, 32, 2, 2, 40000, 1000, 10), "dq read"),
 ])

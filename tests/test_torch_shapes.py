@@ -97,7 +97,7 @@ def test_the_grid_holds_what_the_pallas_gates_admit():
 def test_every_shape_gets_a_plan_that_fits(plan):
     """Every launch plan admits every shape of the grid within a block's
     shared memory; the narrow tilings keep their widths (D up to 256 and V
-    up to 128, or D and V up to 64 for K7), the rest take the wide bodies."""
+    up to 128, or D and V up to 128 for K7), the rest take the wide bodies."""
     B = 8
     seen = set()
     for H, N, D, V, Nm, NB in _grid():
@@ -131,7 +131,7 @@ def test_every_shape_gets_a_plan_that_fits(plan):
         seen.add(key)
         for p in got:
             assert 0 < p["shared_bytes"] <= SHARED, (plan, H, N, D, V, Nm, NB, p)
-        narrow = max(D, V) <= 64 if plan.startswith("relbias b") or plan == "relbias det" else D <= 256 and V <= 128
+        narrow = max(D, V) <= 128 if plan.startswith("relbias b") or plan == "relbias det" else D <= 256 and V <= 128
         if plan != "delta":
             assert (got[0]["route"] == "wide") == (not narrow), (plan, D, V, got[0])
     assert seen
