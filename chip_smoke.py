@@ -73,7 +73,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    the losses and that every attention forward and backward went through
    K1 and K2; then a deterministic phase (`torch.use_deterministic_algorithms`)
    at uih 1024 that must take K3 + K4 and give the same bits twice (and a
-   profile of one of its steps); then one
+   profile of one of its steps); then the V-256 ranker phase: the same preset
+   at DlrmHSTUConfig's own hstu_attn_linear_dim 256 (2 + 10 steps, K1 and K2
+   3 a step on the wide route, one step profiled) and deterministic at uih
+   1024 twice (K1, K3, K4 on the wide route, the same bits), K1- to K4-wide
+   held and timed at its layers with their bounds; then one
    training step's gradients on a small model, GPU kernels against the CPU
    plain versions; every ranker step here runs under the default STU
    recompute flags. Then the dynamic-STU ranker (`train_ranker
@@ -158,8 +162,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    the every-shape phases run before the deterministic one (its process
    also runs the long-history model twice): K1, K1-bias, K2 and K3 + K4
    (float32 and bfloat16) and K5 at V 136, 192, 256, 320 and D 264, 320,
-   512 against their plain versions, each wide instance timed at V 256 and
-   D 512 with its bound; K6, K7 and K7-det at two heads of 128, at N = Nm =
+   512 and at (D, V) (512, 512), (640, 512) and (128, 256) (the wide
+   backward's clusters at their edges; K2's dk and dv the same bits twice)
+   against their plain versions, each wide instance timed at V 256 and
+   D 512 with its bound; K6, K7 and K7-det at two heads of 128 and of 256
+   (with Nm 8000: the tables read), at N = Nm =
    4096 with full rows, at N 256 against Nm 22000 and with 1024 buckets,
    held and timed at the wide-head and long-history layer shapes (and the
    wide bodies, their routes forced, against the tables-read route where
@@ -234,6 +241,8 @@ NUM_QUERIES, NUM_WARMUPS, QSL_BATCHES = 24, 2, 4
 # the full-width debug preset, as trained (the train CLI's defaults)
 TRAIN_UIH, TRAIN_CANDS, TRAIN_WARMUPS, TRAIN_STEPS = 256, 10, 2, 20
 DET_UIH, DET_STEPS = 1024, 3  # the deterministic phase, one layer
+# the ranker at DlrmHSTUConfig's own hstu_attn_linear_dim (256): its timed steps
+V256_STEPS = 10
 # the research phase: the preset at full width over a synthetic corpus
 RESEARCH_PRESET = "ml-3b/hstu-sampled-softmax-n96-seqlen500-large"
 RESEARCH_USERS, RESEARCH_WARMUPS, RESEARCH_STEPS = 2000, 2, 10
@@ -336,7 +345,10 @@ LONG_USERS, LONG_MIN_LEN, LONG_ROOT = 64, 3600, os.path.join(DATA_ROOT, "long-hi
 # (its d 256 over its 2 heads), 2 + 5 steps and an eval batch
 WIDE_PRESET, WIDE_HEAD, WIDE_STEPS = "ml-20m/hstu-sampled-softmax-n128", 128, 5
 # the wide-values kernel phase: each dense entry point at these (D, V)
-WIDE_SHAPES = ((64, 136), (64, 192), (64, 256), (64, 320), (264, 64), (320, 64), (512, 64))
+# (and the wide backward's clusters at their edges: 8 chunks at one a block,
+# 9 past a portable cluster, the V-256 ranker's layer)
+WIDE_SHAPES = ((64, 136), (64, 192), (64, 256), (64, 320), (264, 64), (320, 64), (512, 64), (512, 512), (640, 512),
+               (128, 256))
 # the parity checks' small models: a ranker with 128-row tables, a research
 # model with 127 items (128 rows), global batches of 8
 PARITY_HASH, PARITY_ITEMS, PARITY_BATCH = 128, 127, 8
@@ -370,10 +382,11 @@ def device_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profile(name: str, fn) -> None:
+def profile(name: str, fn, show=()) -> None:
     """Prints one call's host wall time, the card's busy time in it (the sum
     of its kernels' device times; one stream, so they do not overlap), the
-    idle share, the kernels that take the most device time, and the
+    idle share, the kernels that take the most device time, those whose name
+    holds one of ``show`` with their share of the busy time, and the
     collectives' host times where there are any."""
     import torch
     from torch.autograd import DeviceType
@@ -404,6 +417,10 @@ def profile(name: str, fn) -> None:
     )
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    for e in events:
+        if any(x in e.key for x in show):
+            print(f"    {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.self_device_time_total / 1e3 / busy_ms:.1%}"
+                  f" of the busy time: {e.key[:90]}")
     # a rank's collectives, as their backends record them on the host (from
     # start to end, a wait for the other ranks included)
     comm = [e for e in prof.key_averages() if e.key.startswith(("gloo:", "nccl:"))]
@@ -1042,7 +1059,7 @@ def main() -> None:
         from generative_recommenders_tpu_torch.modules.contextual_interleave_preprocessor import (
             ContextualInterleavePreprocessor,
         )
-        from generative_recommenders_tpu_torch.modules.dlrm_hstu import DlrmHSTU
+        from generative_recommenders_tpu_torch.modules.dlrm_hstu import DlrmHSTU, DlrmHSTUConfig
         from generative_recommenders_tpu_torch.ops import hstu_attention as jagged_attention
         from generative_recommenders_tpu_torch.ops import jagged
         from generative_recommenders_tpu_torch.ops.attention_mask import (
@@ -2321,6 +2338,120 @@ def main() -> None:
     check(same, "two deterministic runs from one seed differ")
     del det_runs, p1, p2
 
+    # --------------------------------------------------- V-256 ranker phase
+    # the training phase's preset at DlrmHSTUConfig's own linear width (256;
+    # every preset overrides it to 128): V 256 takes every layer's forward to
+    # the wide forward (K1-wide) and its backward to the wide backward's
+    # clusters (K2-wide; K3- and K4-wide under deterministic algorithms)
+    v_lin = next(f_.default for f_ in dataclasses.fields(DlrmHSTUConfig) if f_.name == "hstu_attn_linear_dim")
+    v_cfg = dataclasses.replace(tcfg, hstu_attn_linear_dim=v_lin)
+    Vw = v_cfg.hstu_attn_linear_dim
+    print(
+        f"V-{Vw} ranker phase: the training phase's preset and batches with hstu_attn_linear_dim {Vw} "
+        f"(DlrmHSTUConfig's own; qk {v_cfg.hstu_attn_qk_dim}), {L_tr} layers, H={H}, N={N_tr}, batch {B}, "
+        f"{TRAIN_WARMUPS} + {V256_STEPS} steps"
+    )
+    trainer = DlrmTrainer(v_cfg, train_tables, DlrmTrainConfig(), device="cuda", seed=0)
+    v_warm = train_loop(trainer, batches(v_cfg, TRAIN_WARMUPS, 0))
+    count_reset()
+    v_out = train_loop(trainer, batches(v_cfg, V256_STEPS, 1))
+    n = counts()
+    v_routes = {k_: all_counters[k_].routes for k_ in ("K1", "K2")}
+    v_losses = v_warm["losses"] + v_out["losses"]
+    v_median = 1e3 * median(v_out["step_s"])
+    print(f"  {V256_STEPS} steps after {TRAIN_WARMUPS} warm-ups: {v_out['examples_per_s']:.1f} examples/s, median "
+          f"step {v_median:.2f} ms (the training phase at V {V}: {median_ms:.2f}); loss {v_losses[0]:.5f} at the "
+          f"first step, {v_losses[-1]:.5f} at the last; launches {n}, by route {v_routes}")
+    check(all(math.isfinite(x) for x in v_losses), f"non-finite V-{Vw} training loss: {v_losses}")
+    want_n = {**dict.fromkeys(n, 0), "K1": L_tr * V256_STEPS, "K2": L_tr * V256_STEPS}
+    check(n == want_n, f"the V-{Vw} ranker launched {n}, expected {want_n}")
+    check(v_routes == {"K1": {"wide": L_tr * V256_STEPS}, "K2": {"wide": L_tr * V256_STEPS}},
+          f"the V-{Vw} ranker's launches went by {v_routes}, expected the wide route")
+    batch = to_device(next(batches(v_cfg, 1, 2)), trainer.device)
+    profile(f"V-{Vw} ranker training step", lambda: trainer.train_step(batch), show=("hstu_wide::",))
+    del trainer, batch
+    # deterministic, at the same widths: K1, then K3 + K4 on the wide route
+    v_det_cfg = dataclasses.replace(det_cfg, hstu_attn_linear_dim=Vw)
+    v_det = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for run in range(2):
+            trainer = DlrmTrainer(v_det_cfg, det_tables, DlrmTrainConfig(), device="cuda", seed=3)
+            count_reset()
+            det_out = train_loop(trainer, batches(v_det_cfg, DET_STEPS, 4))
+            n = counts()
+            routes_ = {k_: all_counters[k_].routes for k_ in ("K1", "K3", "K4")}
+            want_n = {**dict.fromkeys(n, 0), "K1": DET_STEPS, "K3": DET_STEPS, "K4": DET_STEPS}
+            check(n == want_n, f"the deterministic V-{Vw} run launched {n}, expected {want_n}")
+            check(routes_ == {k_: {"wide": DET_STEPS} for k_ in routes_},
+                  f"the deterministic V-{Vw} run's launches went by {routes_}")
+            check(all(math.isfinite(x) for x in det_out["losses"]), f"non-finite deterministic V-{Vw} loss")
+            v_det.append((det_out["losses"], [p.detach().clone() for p in trainer.model.parameters()]))
+            del trainer
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (l1, p1), (l2, p2) = v_det
+    same = l1 == l2 and all(torch.equal(a, b) for a, b in zip(p1, p2))
+    print(f"  deterministic, {v_det_cfg.hstu_attn_num_layers} layer, N={N_det}, {DET_STEPS} steps twice: losses {l1} "
+          f"and {l2}; every parameter bit-identical: {same}")
+    check(same, f"two deterministic V-{Vw} runs from one seed differ")
+    del v_det, p1, p2
+
+    # the wide route's rows of the kernels line, at the layer shapes this
+    # phase gave them: K1-wide and K2-wide at the training shape, K3-wide and
+    # K4-wide at the deterministic one, on views of one uvqk projection at V
+    # 256 with the batches' lengths, targets and contextual rows
+    v256_rows = {}
+    for N_, lens_, nt_, kernels_ in ((N_tr, tr_len, tr_nt, ("K1", "K2")), (N_det, det_len, det_nt, ("K3", "K4"))):
+        width = (2 * Vw + 2 * D) * H
+        _, q_, k_, v_ = hstu_compute_uqvk(
+            rand(B, N_, Dm), torch.ones(Dm, device="cuda"), torch.zeros(Dm, device="cuda"),
+            rand(Dm, width) / Dm**0.5, rand(width), num_heads=H, attn_dim=D, hidden_dim=Vw,
+        )
+        do_ = rand(N_, B, H, Vw).transpose(0, 1)
+        a_ = dict(alpha=alpha, max_seq_len=N_, num_targets=nt_, contextual_seq_len=C)
+        one_ = dict(alpha=alpha, max_seq_len=N_, causal=True, max_attn_len=0, contextual_seq_len=C,
+                    min_full_attn_seq_len=0)
+        dead_ = torch.arange(N_, device="cuda")[None, :] >= lens_[:, None]
+        live_ = apply_padding_guard(make_valid_attn_mask(N_, lens_, num_targets=nt_, contextual_seq_len=C),
+                                    lens_).sum().item()
+        rows_ = lens_.sum().item() * H
+        want_f = hstu_mha_dense_plain(q_, k_, v_, lens_, **a_)
+        want_b = hstu_mha_bwd_plain(q_, k_, v_, lens_, do_, **a_)
+        plain_b = device_time_ms(lambda: hstu_mha_bwd_plain(q_, k_, v_, lens_, do_, **a_), 3)
+        nt_c = nt_.int()
+        got_ = {"K1": (hstu_mha_dense_cuda(q_, k_, v_, lens_, **a_),),
+                "K2": hstu_mha_bwd_cuda(q_, k_, v_, lens_, do_, **a_),
+                "K3": _bwd_kernel("hstu_mha_bwd_dq", q_, k_, v_, lens_, nt_c, do_, one_)[:1],
+                "K4": _bwd_kernel("hstu_mha_bwd_dkv", q_, k_, v_, lens_, nt_c, do_, one_)[1:]}
+        wants_ = {"K1": (want_f,), "K2": want_b, "K3": want_b[:1], "K4": want_b[1:]}
+        names_ = {"K1": ("out",), "K2": ("dq", "dk", "dv"), "K3": ("dq",), "K4": ("dk", "dv")}
+        fns_ = {"K1": lambda: hstu_mha_dense_cuda(q_, k_, v_, lens_, **a_),
+                "K2": lambda: hstu_mha_bwd_cuda(q_, k_, v_, lens_, do_, **a_),
+                "K3": lambda: _bwd_kernel("hstu_mha_bwd_dq", q_, k_, v_, lens_, nt_c, do_, one_),
+                "K4": lambda: _bwd_kernel("hstu_mha_bwd_dkv", q_, k_, v_, lens_, nt_c, do_, one_)}
+        rows_in = 4 * rows_ * (2 * D + 2 * Vw) + 4 * B * 2  # q, k, v, dO, lengths, targets
+        works_ = {  # (flops, bytes): each input read once, each output written once
+            "K1": (live_ * H * 2 * (D + Vw), 4 * rows_ * (2 * D + Vw) + 4 * B * 2 + 4 * B * N_ * H * Vw),
+            "K2": (live_ * H * 2 * (3 * D + 2 * Vw), rows_in + 4 * B * N_ * H * (2 * D + Vw)),
+            "K3": (live_ * H * 2 * (2 * D + Vw), rows_in + 4 * B * N_ * H * D),
+            "K4": (live_ * H * 2 * (2 * D + 2 * Vw), rows_in + 4 * B * N_ * H * (D + Vw)),
+        }
+        plain_f = device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, lens_, **a_), 3)
+        for kname in kernels_:
+            err_ = max(compare(f"{kname}-wide V={Vw} N={N_} {g}", a, w, dead_)
+                       for g, a, w in zip(names_[kname], got_[kname], wants_[kname]))
+            ms_ = device_time_ms(fns_[kname], 20)
+            t_ops, t_bytes = works_[kname][0] / PEAK_3XTF32_FLOPS * 1e3, works_[kname][1] / PEAK_BYTES_PER_S * 1e3
+            print(f"  {kname}-wide at the V-{Vw} ranker's layer (B={B} N={N_} H={H} D={D} V={Vw}): {ms_:.4f} ms, "
+                  f"bound {max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), plain "
+                  f"{plain_f if kname == 'K1' else plain_b:.4f} ms")
+            v256_rows[f"{kname}/wide"] = dict(
+                shape=f"V-{Vw} ranker layer B={B} N={N_} H={H} D={D} V={Vw}", ms=ms_, err=err_,
+                plain_ms=plain_f if kname == "K1" else plain_b, work=works_[kname], peak=PEAK_3XTF32_FLOPS)
+        del q_, k_, v_, do_, want_f, want_b, got_
+    torch.cuda.empty_cache()
+
     def small_step_grads(cfg_, coins=()):
         """One training forward and backward of a small ranker from one seed
         on each device, dropout off (the devices' random streams differ) and
@@ -3318,6 +3449,10 @@ def main() -> None:
                     got = hstu_mha_bwd_cuda(q_, k_, v_, w_len, do_, split=split, **a_)
                     for gname, g, w in zip(("dq", "dk", "dv"), got, want):
                         held(f"{kname}{tag} {gname}", g, w, tol, w_dead)
+                    if not split:  # K2's dk and dv: no atomics, the same bits
+                        again = hstu_mha_bwd_cuda(q_, k_, v_, w_len, do_, **a_)
+                        check(torch.equal(got[1], again[1]) and torch.equal(got[2], again[2]),
+                              f"K2{tag}: dk or dv differ between two runs")
                 again = hstu_mha_bwd_cuda(q_, k_, v_, w_len, do_, split=True, **a_)
                 check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K3 + K4{tag}: two runs differ")
                 if not bf:
@@ -3402,6 +3537,7 @@ def main() -> None:
               f"versions (outputs {REL_TOL} / {BF16_TOL:.4g} of the max, tables {TABLE_TOL}; K7-det twice, bit-equal)")
         for Dc, Nm, N, nb, what in ((WIDE_HEAD, 211, 211, 128, "two heads of 128 (the wide-head phase's)"),
                                     (256, 300, 300, 128, "two heads of 256 (K6 on the wide body)"),
+                                    (256, 8000, 300, 128, "two heads of 256 against Nm 8000 (the tables read)"),
                                     (32, 4096, 4096, 128, "the long-history phase's width, N = Nm = 4096, full rows"),
                                     (64, 22000, 256, 128, "N 256 against Nm 22000 (every table read from memory)"),
                                     (64, 256, 256, 1024, "1024 buckets, gaps past float32's range on one row")):
@@ -3612,6 +3748,7 @@ def main() -> None:
         return lh_median, route_rows
 
     lh_median, route_rows = every_shape_phases()
+    route_rows.update(v256_rows)  # the V-256 ranker's wide rows
 
     # ------------------------------------------ deterministic research phase
     # in a process of its own, the only one with CUBLAS_WORKSPACE_CONFIG set

@@ -5,7 +5,8 @@
 // Shared by the bfloat16 forward body of K1, K1-bias and K6
 // (hstu_attention_fwd_bf16.cuh), the bfloat16 backward body of K2 and K4
 // (hstu_attention_bwd_dkv_bf16.cuh), that of K3 (hstu_attention_bwd_dq_bf16.cuh)
-// and that of K7 and K7-det (hstu_attention_relbias_bwd_bf16.cuh).
+// that of K7 and K7-det (hstu_attention_relbias_bwd_bf16.cuh) and the wide
+// backward's (hstu_attention_wide.cuh).
 //
 // Every tile is [rows][pitch] bfloat16 with a pitch of its width + 8
 // elements: 16 bytes more than a multiple of 64, so the eight 16-byte rows an

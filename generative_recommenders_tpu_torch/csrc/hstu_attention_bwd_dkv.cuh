@@ -417,9 +417,10 @@ cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The wide bodies on the same parameters: K4 is `hstu_wide::dkv_kernel`; K2
-// is `hstu_wide::dq_kernel`, which writes the float32 dq buffer whole (K2's
-// float32 dq, or K2-bf16's sums that the entry point rounds), then the same.
+// The wide backward on the same parameters (hstu_attention_wide.cuh): its
+// dkv pass, K2's with FUSED (dQ added into the zeroed float32 dq: K2's dq,
+// or K2-bf16's sums that the entry point rounds); bfloat16 after the
+// pre-scaling pass into the wrapper's qs and dos.
 template <bool FUSED, typename E>
 int launch_wide(const Params<E>& p, cudaStream_t stream) {
   hstu_wide::Params<E> w = hstu_wide::from<E>(p);
@@ -431,11 +432,11 @@ int launch_wide(const Params<E>& p, cudaStream_t stream) {
   w.do_sn = p.do_sn;
   w.do_sh = p.do_sh;
   w.vec_do = p.vec_do;
-  if (FUSED) {
-    const cudaError_t err = hstu_wide::launch_dq<false, E, float>(w, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)hstu_wide::launch_dkv<false, false, E>(w, stream);
+  w.qs = p.qs;
+  w.dos = p.dos;
+  const cudaError_t err = hstu_wide::prescale(w, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)hstu_wide::launch_bwd<hstu_wide::kDkvPass, false, false, FUSED, E>(w, stream);
 }
 
 // The bfloat16 body's launch (hstu_attention_bwd_dkv_bf16.cuh)
@@ -446,8 +447,7 @@ int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s);
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
 // body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128 padded
 // to the next of 32, 64, 128 (256 for D); kWide: the wide bodies. The Python
-// wrapper decides the `vec_*` flags (pieces of 16 bytes; of 8 bytes for the
-// wide bodies on bfloat16).
+// wrapper decides the `vec_*` flags (pieces of 16 bytes).
 template <bool FUSED, typename E>
 int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;

@@ -323,7 +323,9 @@ cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The wide body (`hstu_wide::dq_kernel`) on the same parameters
+// The wide backward's dq pass (hstu_attention_wide.cuh) on the same
+// parameters; bfloat16 after the pre-scaling pass into the wrapper's qs and
+// dos
 template <typename T>
 int launch_wide(const Params<T>& p, cudaStream_t stream) {
   hstu_wide::Params<T> w = hstu_wide::from<T>(p);
@@ -333,7 +335,11 @@ int launch_wide(const Params<T>& p, cudaStream_t stream) {
   w.do_sn = p.do_sn;
   w.do_sh = p.do_sh;
   w.vec_do = p.vec_do;
-  return (int)hstu_wide::launch_dq<false, T, T>(w, stream);
+  w.qs = p.qs;
+  w.dos = p.dos;
+  const cudaError_t err = hstu_wide::prescale(w, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)hstu_wide::launch_bwd<hstu_wide::kDqPass, false, false, false, T>(w, stream);
 }
 
 // The bfloat16 body's launch (hstu_attention_bwd_dq_bf16.cuh): its
@@ -344,8 +350,7 @@ int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s);
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
 // body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128 padded
 // to the next of 32, 64, 128 (256 for D); kWide: the wide body. The Python
-// wrapper decides the `vec_*` flags (pieces of 16 bytes; of 8 bytes for the
-// wide body on bfloat16).
+// wrapper decides the `vec_*` flags (pieces of 16 bytes).
 template <typename T>
 int launch(const Params<T>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;

@@ -7,42 +7,32 @@
 // counterpart. The entry points dispatch here by shape:
 // * the forward (K1, K1-bias, K6): V above 128 or D above 256;
 // * the dense backward (K2, K3, K4): V above 128 or D above 256;
-// * the relative-bias backward (K7, K7-det): D or V above 64.
+// * the relative-bias backward (K7, K7-det): D or V above 128.
 // Every width is cut into chunks of kC = 128 columns, the last one padded
-// with zeros:
-// * S = alpha Q K^T and dP = dO V^T are summed over their chunks in
-//   registers before the bias, silu and the mask (they do not split);
-// * O, dQ, dK and dV split by column: each block owns one output chunk (a
-//   dimension of the grid), and recomputes S and dP for it.
-// Q (or K) and dO (or V) stay resident in shared memory where they are one
-// chunk wide; wider ones are loaded chunk by chunk per tile. The products
-// are `mma.sync.m16n8k8` TF32 (tf32_mma.cuh): 3xTF32 in float32, as K7's
-// float32 body, and one exact TF32 product on bfloat16 values, at the
-// bfloat16 rounding points of the narrow bodies (alpha q and dO / norm
-// rounded on load, P and dS rounded before their products). Tables and timestamps of the relative
-// bias are read through the L1 cache, never staged: a table of any length
-// fits. The relative-bias backward is two passes, as K7-det:
-// * `dq_kernel` with the bias: one block per (64-row query tile, head, batch
-//   row, dQ chunk), dQ in registers over a walk of the key tiles, written
-//   whole (no atomics);
-// * `dkv_kernel` with the bias: one block per (64-column key tile, head,
-//   batch row, dK or dV chunk), dK / dV in registers over a walk of the
-//   query tiles; the blocks of chunk 0 also sum the table gradients, per
-//   step: `dpos_w` by diagonals of the step's dS, `dts_w` per warp by
-//   shuffles into the warp's copy of the reachable buckets. K7 adds both to
-//   the zeroed tables with atomics; K7-det writes them to the block's row
-//   of `partial`, which the relative-bias kernel sums in block order.
-// The dense fused backward K2 is the same pair without the bias.
-// Bound: the kernels' own (the same functions). These are simple bodies:
-// loads wait, and S and dP are recomputed per output chunk; a wide
-// instance is right first and slow (PERF.md has its times).
+// with zeros.
+// * The forward (`fwd_kernel`): one block per (64-row query tile, head,
+//   batch row, V chunk); S = alpha Q K^T is summed over D's chunks in
+//   registers before the bias, silu and the mask, and recomputed by each
+//   V chunk's block; its products `mma.sync.m16n8k8` TF32 (tf32_mma.cuh):
+//   3xTF32 in float32, one exact TF32 product on bfloat16 values (alpha q
+//   rounded on load, P before P V). Its loads wait: right first and slow.
+// * The backward (`bwd_kernel`, below): one thread block cluster per
+//   64-row tile, whose blocks split D's and V's chunks, form their own parts
+//   of S and dP once per tile pair and sum them through distributed shared
+//   memory in rank order; 3xTF32 in float32, the bfloat16 tensor cores
+//   (m16n8k16) on bfloat16; copies double-buffered by `cp.async`.
+// Tables and timestamps of the relative bias are read through the L1 cache,
+// never staged: a table of any length fits.
+// Bound: the kernels' own (the same functions); PERF.md has the times.
 #pragma once
 
 #include <cstdint>
 #include <type_traits>
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bf16_mma.cuh"
 #include "hstu_attention.cuh"
 #include "tf32_mma.cuh"
 
@@ -53,7 +43,7 @@ using namespace hstu_tf32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxShared = 232448;
 constexpr int kThreads = 128;     // the forward: 4 warps
-constexpr int kBwdThreads = 256;  // the dq and dkv passes: 8 warps
+constexpr int kBwdThreads = 256;  // the backward: 8 warps
 constexpr int kC = 128;        // columns of a chunk of D or V
 constexpr int kP = kC + 8;     // pitch of a chunk tile
 // A float32 time gap |dt| <= FLT_MAX has floor(ln(|dt|) / 0.301) <= 294, so
@@ -71,7 +61,7 @@ struct Params {
   const E* v;
   const E* dout;
   void* out;  // the forward: E, contiguous [B, N, H, V]
-  void* dq;   // the dq pass: float or E (`dq_kernel`'s DQ), contiguous [B, N, H, D]
+  void* dq;   // the dq pass: E; the dkv pass with FUSED: a zeroed float32 buffer; contiguous [B, N, H, D]
   E* dk;      // contiguous [B, N, H, D]
   E* dv;      // contiguous [B, N, H, V]
   const int* lengths;      // int32 [B]
@@ -97,6 +87,10 @@ struct Params {
   const void* bias = nullptr;
   long long bias_sb = 0, bias_sn = 0;
   int bias_bf16 = 0;
+  // the bfloat16 backward: the wrapper's buffers for bfloat16(alpha q)
+  // (where alpha != 1) and bfloat16(dO / norm)
+  E* qs = nullptr;
+  E* dos = nullptr;
 };
 
 __host__ __device__ constexpr int chunks(int w) { return (w + kC - 1) / kC; }
@@ -104,23 +98,7 @@ __host__ __device__ constexpr int chunks(int w) { return (w + kC - 1) / kC; }
 // The forward: Q [64][kP], K [32][kP], V [32][kC + 4]
 constexpr int kFwdRows = 64, kFwdCols = 32;
 constexpr int fwd_smem_bytes() { return 4 * (kFwdRows * kP + kFwdCols * kP + kFwdCols * (kC + 4)); }
-// The dq pass: Q and dO [64][kP], K and V [32][kP], dS [64][32 + 8], the
-// warps' live flags
-constexpr int kDqRows = 64, kDqCols = 32;
-constexpr int dq_smem_bytes() {
-  return 4 * (2 * kDqRows * kP + 2 * kDqCols * kP + kDqRows * (kDqCols + 8) + kBwdThreads / 32);
-}
-// The dkv pass: Q and dO [32][kP], K and V [64][kP], P and dS [32][64 + 8];
-// with the bias the float32 dS [32][72], the step's diagonal sums and eight
-// warps' copies of `dts_w`'s sums
-constexpr int kDkvRows = 32, kDkvCols = 64, kDiags = kDkvRows + kDkvCols - 1;
-constexpr int dkv_smem_bytes(bool relbias) {
-  return 4 * (2 * kDkvRows * kP + 2 * kDkvCols * kP + 2 * kDkvRows * (kDkvCols + 8) +
-              (relbias ? kDkvRows * (kDkvCols + 8) + kDiags + 1 + kBwdThreads / 32 * kTsSlots : 0));
-}
-static_assert(dkv_smem_bytes(true) <= kMaxShared && dq_smem_bytes() <= kMaxShared &&
-                  fwd_smem_bytes() <= kMaxShared,
-              "the tiles fit a block's shared memory");
+static_assert(fwd_smem_bytes() <= kMaxShared, "the tiles fit a block's shared memory");
 
 // Chunk c (columns c kC .. + kC) of one head's rows [r0, r0 + ROWS) into a
 // [ROWS][P] tile: float32 asynchronously, bfloat16 converted (scaled and
@@ -338,426 +316,556 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Params<E> p) {
   }
 }
 
-// ------------------------------------------------------------------ dq pass
-// One block of 8 warps per (64-row query tile, head, batch row, dQ chunk):
-// warp w owns query rows (w / 2) 16 .. + 16 and, of each 32-column key tile,
-// columns (w % 2) 16 .. + 16 of S and dP, and of the block's dQ chunk
-// columns (w % 2) 64 .. + 64. Per key tile S is summed over D's chunks and
-// dP over V's, dS goes to shared memory, and dQ += dS K for the block's
-// chunk of K. DQ: the type dq is written in (float for a float32 buffer that
-// a second kernel rounds to bfloat16; else E).
-template <bool RELBIAS, typename E, typename DQ>
-__global__ void __launch_bounds__(kBwdThreads) dq_kernel(Params<E> p) {
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
-  constexpr int BQ = kDqRows, BK = kDqCols, NA = BK / 16, NQ = kC / 16, PS = BK + 8, T = kBwdThreads;
-  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;            // [64][kP]
-  float* dOs = Qs + BQ * kP;   // [64][kP]
-  float* Ks = dOs + BQ * kP;   // [32][kP]
-  float* Vs = Ks + BK * kP;    // [32][kP]
-  float* dSs = Vs + BK * kP;   // [64][PS]
-  int* part_live = reinterpret_cast<int*>(dSs + BQ * PS);  // [8]: the warps' parts of S that hold a live element
+// ----------------------------------------------------------------- backward
+// One thread block cluster per (64-row tile, head, batch row): per query
+// tile in the dq pass, per key tile in the dkv pass. The cluster's blocks
+// split D's and V's chunks (`Cluster`): ranks 0 .. nd - 1 own M chunks of D
+// each (the last may own fewer), ranks nd .. nd + nv - 1 M chunks of V. A
+// D-block keeps its chunks of Q (dq pass) or K (dkv pass) resident and
+// streams K or Q; a V-block keeps dO or V resident and streams V or dO, 32
+// rows a step in two stages (the next step's rows arrive while this step
+// runs). Per step each block forms only its own part of T = R X^T (R the
+// resident rows, X the streamed ones: S or S^T summed over the block's D
+// chunks, dP or dP^T over its V chunks); the parts are summed through
+// distributed shared memory in rank order (S and dP, the same bits on every
+// run), and the per-element work (mask, bias, silu, P, dS) fills each
+// block's A tile:
+// * SPLIT (clusters of kSplitFrom blocks and more): warp w's 16 x 16
+//   fragment of T belongs to block w % cs; every block stores its part of
+//   the fragment into the owner's receive buffer, the owner sums the parts,
+//   does the fragment's per-element work and stores its dS or P into every
+//   block's A tile; two cluster barriers a step;
+// * else every block reads every block's part from its exchange buffers and
+//   does all the per-element work itself; one cluster barrier a step.
+// Each block then forms its own outputs from its own chunks:
+// * the dq pass (K3, K7-det's first pass): dQ_c += dS K_c in the D-blocks
+//   (the V-blocks lend dP);
+// * the dkv pass (K4; with FUSED K2 and K7; K7-det's second pass): dK_c +=
+//   dS^T Q_c in the D-blocks, dV_c += P^T dO_c in the V-blocks; FUSED: the
+//   D-blocks also add dQ_c = dS K_c into the zeroed float32 dq with float4
+//   atomics. With the relative bias `dpos_w` is summed by diagonals of the
+//   step's dS in the step's table block (rank s % cs at step s), `dts_w` per
+//   warp by shuffles into the warp's copy of the reachable buckets where the
+//   fragment's per-element work runs; K7 adds both to the zeroed tables with
+//   atomics, K7-det writes each block's to its own row of `partial`, which
+//   the relative-bias kernel sums in row order.
+// Products per live element and head, from the code: S 2 D and dP 2 V once
+// in either pass; dQ 2 D, dK 2 D, dV 2 V: K2 and K7 2 (3 D + 2 V), K3 2 (2 D
+// + V), K4 2 (2 D + 2 V), K7-det K3's plus K4's.
+// float32 multiplies in 3xTF32 (tf32_mma.cuh); bfloat16 keeps bfloat16
+// tiles and multiplies with m16n8k16 on `ldmatrix` fragments (bf16_mma.cuh),
+// at the narrow bodies' rounding points: alpha q and dO / norm rounded once
+// by the pre-scaling pass, P and dS rounded to bfloat16 before their
+// products, S, dP and the outputs' sums float32.
+constexpr int kR = 64;                   // resident rows of a tile
+constexpr int kS = 32;                   // streamed rows a step
+constexpr int kXP = kS + 8;              // pitch of the exchange buffers and of the A tile
+constexpr int kDiags = kR + kS - 1;      // diagonals of a step's dS^T
+constexpr int kPortableCluster = 8;      // blocks a cluster takes on any card
+constexpr int kMaxCluster = 16;          // with cudaFuncAttributeNonPortableClusterSizeAllowed
+constexpr int kMaxOwn = 2;               // chunks a block owns at most
+// Clusters of kSplitFrom blocks and more split the per-element work by
+// fragment (each block sums, forms and hands out the fragments it owns:
+// remote stores, two cluster barriers a step); smaller ones repeat it in
+// every block (each reading every block's part of T: remote loads, one
+// barrier), which measured faster there (PERF.md)
+constexpr int kSplitFrom = 5;
+// a block's receive buffer when split: cs * ceil(8 / cs) fragments of 256
+// floats, at most 16 for cs up to 16, in the space of the two exchange
+// buffers [2][64][kXP] of the repeated work
+constexpr int kRecvSlots = 16;
+constexpr int kXchFloats = 2 * kR * kXP;
+static_assert(kRecvSlots * 256 <= kXchFloats, "the receive buffer fits the exchange buffers");
+enum Pass : int { kDqPass = 0, kDkvPass = 1 };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
-  const int n_qt = (p.N + BQ - 1) / BQ;
-  int blk = (int)blockIdx.x;
-  const int oc = blk % n_dc;
-  blk /= n_dc;
-  const int h = blk % p.H;
-  blk /= p.H;
-  const int b = blk % p.B;
-  const int row0 = (n_qt - 1 - blk / p.B) * BQ;
-  const int length = min(p.lengths[b], p.N);
-  const int nt = p.num_targets ? p.num_targets[b] : 0;
-  const int r_first = row0 + wr * 16;
-
-  float acc[NQ][4];
-#pragma unroll
-  for (int j = 0; j < NQ; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  if (row0 < length) {
-    const E* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const E* kb = p.k + b * p.k_sb + h * p.k_sh;
-    const E* vb = p.v + b * p.v_sb + h * p.v_sh;
-    const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
-    const int kv_end = p.causal && row0 >= p.contextual_seq_len ? min(length, row0 + BQ) : length;
-    const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
-    float tq[2] = {0.f, 0.f};
-    if (RELBIAS) {
-      tq[0] = ts_row(tsb, r_first + g, p.N);
-      tq[1] = ts_row(tsb, r_first + g + 8, p.N);
-    }
-    if (n_dc == 1) load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, row0, length, p.D, 0, p.vec_q != 0, q_scale);
-    if (n_vc == 1) load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, row0, length, p.V, 0, p.vec_do != 0, do_scale);
-    const int steps = max(n_dc, n_vc);
-    for (int col0 = 0; col0 < kv_end; col0 += BK) {
-      // element e = 4 j + c is row r_first + g + 8 (c / 2), column
-      // col0 + wc 16 + 8 j + 2 t + c % 2
-      uint32_t ok_bits = 0;
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const bool ok =
-              live(p, r_first + g + 8 * (c >> 1), col0 + wc * 16 + 8 * j + 2 * t + (c & 1), length, nt);
-          ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
-        }
-      const bool dead = __all_sync(kFull, ok_bits == 0);
-      float s[NA][4], dp[NA][4];
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-      for (int c = 0; c < steps; ++c) {
-        __syncthreads();  // every warp is done with the tiles, dS and the flags
-        if (c < n_dc) {
-          if (n_dc > 1) load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, row0, length, p.D, c, p.vec_q != 0, q_scale);
-          load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, c, p.vec_k != 0, 1.f);
-        }
-        if (c < n_vc) {
-          if (n_vc > 1) load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, row0, length, p.V, c, p.vec_do != 0, do_scale);
-          load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, c, p.vec_v != 0, 1.f);
-        }
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (!dead) {
-          if (c < n_dc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(Qs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, kP, wc * 16 + j * 8, ks * 8));
-            }
-          }
-          if (c < n_vc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(dOs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(dp[j], a, load_b_nk(Vs, kP, wc * 16 + j * 8, ks * 8));
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NA; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ds[c] = 0.f;
-          if ((ok_bits >> (4 * j + c)) & 1u) {
-            float x = s[j][c] * s_alpha;
-            if constexpr (RELBIAS) {
-              const int row = r_first + g + 8 * (c >> 1), col = col0 + wc * 16 + 8 * j + 2 * t + (c & 1);
-              int bucket;
-              x = fmaf(s[j][c], s_alpha, rel_bias(p, row, col, tq[c >> 1], ts_col(tsb, col, p.N), bucket));
-            }
-            const float sig = __fdividef(1.f, 1.f + __expf(-x));
-            ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
-          }
-          if constexpr (kBf16) ds[c] = round_bf16(ds[c]);  // dQ = dS K takes dS in bfloat16
-        }
-        const int at = (wr * 16 + g) * PS + wc * 16 + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
-        *reinterpret_cast<float2*>(dSs + at + 8 * PS) = make_float2(ds[2], ds[3]);
-      }
-      if (lane == 0) part_live[warp] = !dead;
-      __syncthreads();  // dS and the flags are whole, and every warp is past its reads of K
-      if (n_dc > 1 && oc != n_dc - 1) {  // K's chunk of the block's dQ columns
-        load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, oc, p.vec_k != 0, 1.f);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-      }
-      if (part_live[2 * wr] || part_live[2 * wr + 1]) {  // a live element in the warp's rows
-        const int col_steps = (min(BK, length - col0) + 7) / 8;
-#pragma unroll
-        for (int n0 = 0; n0 < NQ; n0 += 4) {
-          float part[4][4];
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
-          for (int ks = 0; ks < col_steps; ++ks) {
-            const FragA a = load_a(dSs, PS, wr * 16, ks * 8);
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              mma<kBf16>(part[n], a, load_b_kn<true>(Ks, kP, ks * 8, wc * 64 + (n0 + n) * 8));
-          }
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
-        }
-      }
-    }
+// The cluster of a backward launch (mirrored by `_wide_cluster` in
+// ops/cuda/hstu_attention.py): M chunks a block, one while chunks(D) +
+// chunks(V) blocks fit a portable cluster, else two; nd D-blocks, nv
+// V-blocks, cs = nd + nv; split: the per-element work split across the
+// blocks. cs = 0: wider than 16 blocks of two chunks.
+struct Cluster {
+  int m, nd, nv, cs, split;
+};
+inline Cluster cluster_of(int D, int V) {
+  const int n_dc = chunks(D), n_vc = chunks(V);
+  for (int m = 1; m <= kMaxOwn; ++m) {
+    const int nd = (n_dc + m - 1) / m, nv = (n_vc + m - 1) / m;
+    if (nd + nv <= kPortableCluster || (m == kMaxOwn && nd + nv <= kMaxCluster))
+      return {m, nd, nv, nd + nv, nd + nv >= kSplitFrom ? 1 : 0};
   }
+  return {0, 0, 0, 0, 0};
+}
 
-  // every element of the chunk's columns in the tile's rows: zeros at rows
-  // past the length
+// A block's shared memory: R [M][64][kP] and two stages of X [2][M][32][kP]
+// of the element type, two float32 exchange buffers [2][64][kXP] (or the
+// receive buffer), the A tile (P^T, dS^T or dS) [64][kXP] of the element
+// type, the warps' live flags; with the table sums the float32 dS^T
+// [64][kXP], the step's diagonal sums and eight warps' copies of `dts_w`'s
+// sums.
+constexpr int bwd_smem_bytes(int elem, int m, bool tables) {
+  return elem * (m * kR * kP + 2 * m * kS * kP + kR * kXP) + 4 * (kXchFloats + kBwdThreads / 32) +
+         (tables ? 4 * (kR * kXP + kDiags + 1 + kBwdThreads / 32 * kTsSlots) : 0);
+}
+static_assert(bwd_smem_bytes(4, kMaxOwn, true) <= kMaxShared, "the tiles fit a block's shared memory");
+// Blocks an SM holds by shared memory (228 KB, 1 KB reserved a block): where
+// two fit, the registers are held to two blocks' worth too (128 a thread);
+// ptxas otherwise took up to 166 for the bfloat16 K7 and left one block an
+// SM, 1.4x slower (PERF.md)
+constexpr int bwd_blocks_per_sm(int elem, int m, bool tables) {
+  return 2 * (bwd_smem_bytes(elem, m, tables) + 1024) <= 233472 ? 2 : 1;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + ROWS) of chunk c of one head's rows of width w into a
+// [ROWS][kP] tile of the element type, asynchronously where `vec` (float32
+// always): zeros at rows >= lim and columns >= w
+template <int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, long long sn, int r0, int lim, int w, int c,
+                                          bool vec) {
+  load_tile<kC, kP, ROWS, kBwdThreads>(dst, src + c * kC, sn, r0, lim, w - c * kC, vec);
+}
+template <int ROWS>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, long long sn, int r0, int lim,
+                                          int w, int c, bool vec) {
+  hstu_bf16::load_rows<kC, kP, ROWS, kBwdThreads>(dst, src + c * kC, sn, r0, lim, w - c * kC, vec);
+}
+
+// t += R X^T for the warp's 16 x 16 part of T (rows wm 16 .., columns wn
+// 16 ..), over the kw live columns of one chunk
+__device__ __forceinline__ void part_product(float (&t)[2][4], const float* R, const float* X, int wm, int wn,
+                                             int kw) {
+  const int steps = (kw + 7) / 8;
+#pragma unroll 4
+  for (int ks = 0; ks < steps; ++ks) {
+    const FragA a = load_a(R, kP, wm * 16, ks * 8);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r_first + g + 8 * i;
-    if (row >= p.N) continue;
-    const float scale = row < length ? p.alpha : 0.f;
-    DQ* dst = static_cast<DQ*>(p.dq) + (((long long)b * p.N + row) * p.H + h) * p.D;
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-      store2(dst, oc * kC + wc * 64 + 8 * j + 2 * t, p.D, scale * acc[j][2 * i], scale * acc[j][2 * i + 1]);
+    for (int j = 0; j < 2; ++j) mma3(t[j], a, load_b_nk(X, kP, wn * 16 + j * 8, ks * 8));
+  }
+}
+__device__ __forceinline__ void part_product(float (&t)[2][4], const __nv_bfloat16* R, const __nv_bfloat16* X, int wm,
+                                             int wn, int kw) {
+  const int steps = (kw + 15) / 16;
+#pragma unroll 4
+  for (int ks = 0; ks < steps; ++ks) {
+    uint32_t a[4], b[4];
+    hstu_bf16::ldsm(a, hstu_bf16::a_at(R, kP, wm * 16, ks * 16));
+    hstu_bf16::ldsm(b, hstu_bf16::b_nk_at(X, kP, wn * 16, ks * 16));
+    hstu_bf16::mma(t[0], a, b[0], b[1]);
+    hstu_bf16::mma(t[1], a, b[2], b[3]);
   }
 }
 
-// ----------------------------------------------------------------- dkv pass
-// One block of 8 warps per (64-column key tile, head, batch row, output
-// chunk): chunks 0 .. n_vc - 1 are dV's, the rest dK's. Per 32-row query
-// step warp w computes rows (w / 4) 16 .. + 16 by columns (w % 4) 16 .. + 16
-// of S (summed over D's chunks) and dP (over V's) and writes P and dS to
-// shared memory; then it sums dV += P^T dO or dK += dS^T Q for key rows
-// (w / 2) 16 .. + 16 and columns (w % 2) 64 .. + 64 of the block's chunk.
-// RELBIAS: the bias added to S, and the blocks of chunk 0 sum the table
-// gradients; DET: those sums to the block's row of `partial` in a fixed order.
-template <bool RELBIAS, bool DET, typename E>
-__global__ void __launch_bounds__(kBwdThreads) dkv_kernel(Params<E> p) {
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
-  constexpr int BQ = kDkvRows, BK = kDkvCols, NA = 2, NO = kC / 16, PS = BK + 8, T = kBwdThreads;
-  constexpr int NW = T / 32;
-  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // [32][kP]
-  float* dOs = Qs + BQ * kP;    // [32][kP]
-  float* Ks = dOs + BQ * kP;    // [64][kP]
-  float* Vs = Ks + BK * kP;     // [64][kP]
-  float* Ps = Vs + BK * kP;     // [32][PS]
-  float* dSs = Ps + BQ * PS;    // [32][PS]
-  float* Ts = dSs + BQ * PS;    // RELBIAS: dS in float32 [32][PS]
-  float* diag = Ts + BQ * PS;   // RELBIAS: the step's diagonal sums [kDiags + 1]
-  float* dts_s = diag + kDiags + 1;  // RELBIAS: `dts_w`'s sums, one copy per warp [8][kTsSlots]
+// acc += A X for the warp's 16 rows (wm 16 ..) by 64 columns (wn 64 ..) of
+// a chunk: A the block's [64][kXP] tile, k over the step's kn live rows of
+// X. float32: the step's share is summed in fresh accumulators, then added
+// in float32: summed across the walk's steps inside the tensor cores'
+// accumulators, dK at N 4096 drifted past 2e-5 of its max. bfloat16 (its
+// outputs rounded to 8 bits) sums in place.
+__device__ __forceinline__ void out_product(float (&acc)[8][4], const float* A, const float* X, int wm, int wn,
+                                            int kn) {
+  const int steps = (kn + 7) / 8;
+  float part[8][4] = {};
+  for (int ks = 0; ks < steps; ++ks) {
+    const FragA a = load_a(A, kXP, wm * 16, ks * 8);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mma3(part[n], a, load_b_kn<true>(X, kP, ks * 8, wn * 64 + n * 8));
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
+}
+__device__ __forceinline__ void out_product(float (&acc)[8][4], const __nv_bfloat16* A, const __nv_bfloat16* X, int wm,
+                                            int wn, int kn) {
+  const int steps = (kn + 15) / 16;
+  for (int ks = 0; ks < steps; ++ks) {
+    uint32_t a[4];
+    hstu_bf16::ldsm(a, hstu_bf16::a_at(A, kXP, wm * 16, ks * 16));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      hstu_bf16::ldsm_t(b, hstu_bf16::b_kn_at(X, kP, ks * 16, wn * 64 + np * 16));
+      hstu_bf16::mma(acc[2 * np], a, b[0], b[1]);
+      hstu_bf16::mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
 
+// dq = A^T R for the warp's 16 streamed rows (wq 16 ..) by 32 columns (wd
+// 32 ..) of a chunk: A the block's [64][kXP] dS^T, k over the kr live
+// resident rows
+__device__ __forceinline__ void dq_product(float (&dq)[4][4], const float* A, const float* R, int wq, int wd, int kr) {
+  const int steps = (kr + 7) / 8;
+  for (int ks = 0; ks < steps; ++ks) {
+    const FragA a = load_a_t(A, kXP, wq * 16, ks * 8);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) mma3(dq[n], a, load_b_kn(R, kP, ks * 8, wd * 32 + n * 8));
+  }
+}
+__device__ __forceinline__ void dq_product(float (&dq)[4][4], const __nv_bfloat16* A, const __nv_bfloat16* R, int wq,
+                                           int wd, int kr) {
+  const int steps = (kr + 15) / 16;
+  for (int ks = 0; ks < steps; ++ks) {
+    uint32_t a[4];
+    hstu_bf16::ldsm_t(a, hstu_bf16::a_t_at(A, kXP, wq * 16, ks * 16));
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t b[4];
+      hstu_bf16::ldsm_t(b, hstu_bf16::b_kn_at(R, kP, ks * 16, wd * 32 + np * 16));
+      hstu_bf16::mma(dq[2 * np], a, b[0], b[1]);
+      hstu_bf16::mma(dq[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// a pair of values of the A tile, as the element type
+__device__ __forceinline__ void put2(float* at, float x0, float x1) {
+  *reinterpret_cast<float2*>(at) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void put2(__nv_bfloat16* at, float x0, float x1) {
+  *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(x0, x1);
+}
+
+// 8 warps: warp w owns rows (w / 2) 16 .. + 16 of T (and of the outputs)
+// and T's columns (w % 2) 16 .. + 16 (the outputs' (w % 2) 64 .. + 64).
+// Element e = 4 j + c of a warp's part of T is T's row wm 16 + g + 8 (c / 2),
+// column wn 16 + 8 j + 2 t + c % 2: in the dq pass query row base + row and
+// key column s0 + column; in the dkv pass key column base + row and query
+// row s0 + column.
+template <int PASS, bool RELBIAS, bool DET, bool FUSED, int M, bool SPLIT, typename E>
+__global__ void __launch_bounds__(kBwdThreads, bwd_blocks_per_sm(sizeof(E), M, RELBIAS && PASS == kDkvPass))
+    bwd_kernel(Params<E> p, Cluster cl) {
+  namespace cg = cooperative_groups;
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  constexpr bool kDkv = PASS == kDkvPass;
+  constexpr bool kTables = RELBIAS && kDkv;
+  constexpr int T = kBwdThreads, NW = T / 32;
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* Rs = reinterpret_cast<E*>(smem_raw);                        // [M][kR][kP]
+  E* Xs = Rs + M * kR * kP;                                       // [2][M][kS][kP]
+  float* xch = reinterpret_cast<float*>(Xs + 2 * M * kS * kP);    // [2][kR][kXP] or [kRecvSlots][256]
+  E* As = reinterpret_cast<E*>(xch + kXchFloats);                 // [kR][kXP]
+  int* part_live = reinterpret_cast<int*>(As + kR * kXP);         // [NW]
+  float* Ts = reinterpret_cast<float*>(part_live + NW);           // tables: dS^T [kR][kXP]
+  float* diag = Ts + kR * kXP;                                    // tables: [kDiags + 1]
+  float* dts_s = diag + kDiags + 1;                               // tables: [NW][kTsSlots]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wr = warp >> 2, wc = warp & 3;  // S and dP: query rows wr 16 .., key columns wc 16 ..
-  const int am = warp >> 1, an = (warp & 1) * 64;  // dV / dK: key rows am 16 .., columns an ..
-  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
-  int blk = (int)blockIdx.x;
-  const int oc = blk % (n_vc + n_dc);
-  blk /= n_vc + n_dc;
-  const int h = blk % p.H;
-  blk /= p.H;
-  const int b = blk % p.B;
-  const int kt = blk / p.B;
-  const int col0 = kt * BK;
+  const int wm = warp >> 1, wn = warp & 1;
+  const bool is_d = rank < cl.nd;
+  const int width = is_d ? p.D : p.V;
+  const int c0 = (is_d ? rank : rank - cl.nd) * M;  // the block's first chunk
+  const int own = min(M, chunks(width) - c0);
+  // the cluster's unit counts the head first and the tile last; in the dq
+  // pass from the end, so that the longest walks start first
+  int unit = (int)(blockIdx.x / (unsigned)cl.cs);
+  const int h = unit % p.H;
+  unit /= p.H;
+  const int b = unit % p.B;
+  const int n_tiles = (p.N + kR - 1) / kR;
+  const int base = (kDkv ? unit / p.B : n_tiles - 1 - unit / p.B) * kR;
   const int length = min(p.lengths[b], p.N);
   const int nt = p.num_targets ? p.num_targets[b] : 0;
-  const bool is_dv = oc < n_vc;
-  const int och = is_dv ? oc : oc - n_vc;  // the chunk of dV or dK
-  const bool tables = RELBIAS && oc == 0;
-  const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1;
-  const int n_slots = min(n_ts, kTsSlots);
-  float* prow = DET && tables ? p.partial + ((long long)kt * p.H * p.B + (long long)h * p.B + b) * (n_pos + n_ts)
-                              : nullptr;
+  const E* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const E* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const E* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
+  const E* rsrc = kDkv ? (is_d ? kb : vb) : (is_d ? qb : ob);
+  const E* xsrc = kDkv ? (is_d ? qb : ob) : (is_d ? kb : vb);
+  const long long r_sn = kDkv ? (is_d ? p.k_sn : p.v_sn) : (is_d ? p.q_sn : p.do_sn);
+  const long long x_sn = kDkv ? (is_d ? p.q_sn : p.do_sn) : (is_d ? p.k_sn : p.v_sn);
+  const bool r_vec = (kDkv ? (is_d ? p.vec_k : p.vec_v) : (is_d ? p.vec_q : p.vec_do)) != 0;
+  const bool x_vec = (kDkv ? (is_d ? p.vec_q : p.vec_do) : (is_d ? p.vec_k : p.vec_v)) != 0;
+  const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
 
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  // the walk. dq pass: the key tiles up to the tile's last visible column;
+  // dkv pass (causal): the query steps of the contextual rows (which see
+  // every column below the target boundary), then those from the key tile's
+  // own on
+  const bool causal = p.causal != 0;
+  int end = 0;
+  if (base < length) end = !kDkv && causal && base >= p.contextual_seq_len ? min(length, base + kR) : length;
+  const int ctx_end = causal ? (p.contextual_seq_len + kS - 1) / kS * kS : 0;
+  auto next_step = [&](int s) { return kDkv && causal && s >= ctx_end && s < base ? base : s; };
 
-  if (col0 < length) {
-    const E* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const E* kb = p.k + b * p.k_sb + h * p.k_sh;
-    const E* vb = p.v + b * p.v_sb + h * p.v_sh;
-    const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
-    const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
-    if (tables) {
-      for (int idx = threadIdx.x; idx < NW * kTsSlots; idx += T) dts_s[idx] = 0.f;
-      if (DET)
-        for (int idx = threadIdx.x; idx < n_pos; idx += T) prow[idx] = 0.f;
+  const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1, n_slots = min(n_ts, kTsSlots);
+  float* prow = kTables && DET ? p.partial + (long long)blockIdx.x * (n_pos + n_ts) : nullptr;
+  float* my_dts = dts_s + warp * kTsSlots;
+  if constexpr (kTables) {
+    for (int idx = threadIdx.x; idx < NW * kTsSlots; idx += T) dts_s[idx] = 0.f;
+    if (DET)
+      for (int idx = threadIdx.x; idx < n_pos; idx += T) prow[idx] = 0.f;
+  }
+
+  float acc[M][8][4];
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+
+  int s0 = next_step(0);
+  if (s0 < end) {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if (i < own) {
+        load_rows<kR>(Rs + i * kR * kP, rsrc, r_sn, base, length, width, c0 + i, r_vec);
+        load_rows<kS>(Xs + i * kS * kP, xsrc, x_sn, s0, length, width, c0 + i, x_vec);
+      }
+  }
+  cp_async_commit();
+  const int at = (wm * 16 + g) * kXP + wn * 16 + 2 * t;  // the lane's first pair in T's tiles
+  for (int step = 0; s0 < end; ++step) {
+    const int s1 = next_step(s0 + kS);
+    const int stage = step & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this step's rows are in place; every warp is done with the last step's
+    if (s1 < end) {   // the next step's rows, into the other stage, while this step runs
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+        if (i < own) load_rows<kS>(Xs + ((stage ^ 1) * M + i) * kS * kP, xsrc, x_sn, s1, length, width, c0 + i, x_vec);
     }
-    if (n_dc == 1) load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, 0, p.vec_k != 0, 1.f);
-    if (n_vc == 1) load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, 0, p.vec_v != 0, 1.f);
-    // the key-side timestamps of the thread's four columns
-    float tk[NA][2];
+    cp_async_commit();
+
+    uint32_t ok_bits = 0;
 #pragma unroll
-    for (int j = 0; j < NA; ++j)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int c = 0; c < 2; ++c) tk[j][c] = RELBIAS ? ts_col(tsb, col0 + wc * 16 + 8 * j + 2 * t + c, p.N) : 0.f;
-    // causal: the walk takes the query tiles of the contextual rows (which
-    // see every column below the target boundary), then those from the key
-    // tile's own on
-    const bool causal = p.causal != 0;
-    const int ctx_end = causal ? (p.contextual_seq_len + BQ - 1) / BQ * BQ : 0;
-    auto skip_to_diagonal = [&](int r) { return causal && r >= ctx_end && r < col0 ? col0 : r; };
-    const int steps = max(n_dc, n_vc);
-    float* my_dts = dts_s + warp * kTsSlots;
-    for (int r0 = skip_to_diagonal(0); r0 < length; r0 = skip_to_diagonal(r0 + BQ)) {
-      // element e = 4 j + c is row r0 + wr 16 + g + 8 (c / 2), column
-      // col0 + wc 16 + 8 j + 2 t + c % 2
-      uint32_t ok_bits = 0;
-      float bias[RELBIAS ? 4 * NA : 1];
-      int slot[RELBIAS ? 4 * NA : 1];
+      for (int c = 0; c < 4; ++c) {
+        const int tr = wm * 16 + g + 8 * (c >> 1), tc = wn * 16 + 8 * j + 2 * t + (c & 1);
+        const bool ok = kDkv ? live(p, s0 + tc, base + tr, length, nt) : live(p, base + tr, s0 + tc, length, nt);
+        ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
+      }
+    const bool dead = __all_sync(kFull, ok_bits == 0);
+
+    // the block's part of T
+    float tp[2][4];
 #pragma unroll
-      for (int j = 0; j < NA; ++j)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int e = 4 * j + c;
-          const int row = r0 + wr * 16 + g + 8 * (c >> 1), col = col0 + wc * 16 + 8 * j + 2 * t + (c & 1);
-          const bool ok = live(p, row, col, length, nt);
-          ok_bits |= (ok ? 1u : 0u) << e;
-          if constexpr (RELBIAS) {
-            int bucket = 0;
-            bias[e] = ok ? rel_bias(p, row, col, ts_row(tsb, row, p.N), tk[j][c & 1], bucket) : 0.f;
-            slot[e] = min(bucket, n_slots - 1);
-          }
-        }
-      const bool dead = __all_sync(kFull, ok_bits == 0);
-      float s[NA][4], dp[NA][4];
+      for (int c = 0; c < 4; ++c) tp[j][c] = 0.f;
+    if (!dead) {
 #pragma unroll
-      for (int j = 0; j < NA; ++j)
+      for (int i = 0; i < M; ++i)
+        if (i < own)
+          part_product(tp, Rs + i * kR * kP, Xs + (stage * M + i) * kS * kP, wm, wn, min(kC, width - (c0 + i) * kC));
+    }
+    if (lane == 0) part_live[warp] = !dead;
+    // split: the warp's fragment of T belongs to block warp % cs, which
+    // takes every block's part of it into its own buffer (remote stores, lane
+    // by lane), sums them, does the fragment's per-element work and stores
+    // its part of the A tile (dS or P) to every block that needs it, and the
+    // float32 dS to the step's table block. Else every block reads every
+    // block's part from its exchange buffer and does all the work itself.
+    constexpr bool split = SPLIT;
+    const int nslot = (NW + cl.cs - 1) / cl.cs, fslot = warp / cl.cs;
+    const bool mine = !split || warp % cl.cs == rank;
+    const int tblock = step % cl.cs;  // the step's table block
+    float* xb = xch + (split ? 0 : stage * kR * kXP);
+    if (split) {
+      float* dst = cluster.map_shared_rank(xch, warp % cl.cs) + ((rank * nslot + fslot) * 32 + lane) * 8;
+      *reinterpret_cast<float4*>(dst) = make_float4(tp[0][0], tp[0][1], tp[0][2], tp[0][3]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(tp[1][0], tp[1][1], tp[1][2], tp[1][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        *reinterpret_cast<float2*>(xb + at + 8 * j) = make_float2(tp[j][0], tp[j][1]);
+        *reinterpret_cast<float2*>(xb + at + 8 * j + 8 * kXP) = make_float2(tp[j][2], tp[j][3]);
+      }
+    }
+    cluster_arrive();
+    // the bias while the other blocks arrive
+    float bias[RELBIAS ? 8 : 1];
+    int slot[kTables ? 8 : 1];
+    if constexpr (RELBIAS) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int tr = wm * 16 + g + 8 * ((e & 3) >> 1), tc = wn * 16 + 8 * (e >> 2) + 2 * t + (e & 1);
+        const int row = kDkv ? s0 + tc : base + tr, col = kDkv ? base + tr : s0 + tc;
+        int bucket = 0;
+        bias[e] = mine && (ok_bits >> e) & 1u
+                      ? rel_bias(p, row, col, ts_row(tsb, row, p.N), ts_col(tsb, col, p.N), bucket)
+                      : 0.f;
+        if constexpr (kTables) slot[e] = min(bucket, n_slots - 1);
+      }
+    }
+    cluster_wait();
+    // the per-element work: the A tile (dq pass: dS; dkv pass: dS^T for the
+    // D-blocks, P^T for the V-blocks); unsplit, the dq pass's V-blocks are
+    // done
+    const bool forms = split ? mine : kDkv || is_d;
+    const bool tables = kTables && tblock == rank;
+    if (forms) {
+      // S and dP of the warp's fragment: every block's part, in rank order
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-      for (int c = 0; c < steps; ++c) {
-        __syncthreads();  // every warp is done with the tiles, P, dS and the sums
-        if (c < n_dc) {
-          load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, r0, length, p.D, c, p.vec_q != 0, q_scale);
-          if (n_dc > 1) load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, c, p.vec_k != 0, 1.f);
-        }
-        if (c < n_vc) {
-          load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, r0, length, p.V, c, p.vec_do != 0, do_scale);
-          if (n_vc > 1) load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, c, p.vec_v != 0, 1.f);
-        }
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (!dead) {
-          if (c < n_dc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(Qs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, kP, wc * 16 + j * 8, ks * 8));
-            }
+      if (!dead) {
+        // the part's elements 0..3 (j = 0) in x0, 4..7 in x1
+        auto add = [](float (&acc)[2][4], const float4& x0, const float4& x1) {
+          acc[0][0] += x0.x, acc[0][1] += x0.y, acc[0][2] += x0.z, acc[0][3] += x0.w;
+          acc[1][0] += x1.x, acc[1][1] += x1.y, acc[1][2] += x1.z, acc[1][3] += x1.w;
+        };
+        for (int r = 0; r < cl.cs; ++r) {
+          float4 x0, x1;
+          if (split) {
+            const float* src = xch + ((r * nslot + fslot) * 32 + lane) * 8;
+            x0 = *reinterpret_cast<const float4*>(src);
+            x1 = *reinterpret_cast<const float4*>(src + 4);
+          } else {
+            const float* src = cluster.map_shared_rank(xb, r);
+            const float2 lo0 = *reinterpret_cast<const float2*>(src + at);
+            const float2 hi0 = *reinterpret_cast<const float2*>(src + at + 8 * kXP);
+            const float2 lo1 = *reinterpret_cast<const float2*>(src + at + 8);
+            const float2 hi1 = *reinterpret_cast<const float2*>(src + at + 8 + 8 * kXP);
+            x0 = make_float4(lo0.x, lo0.y, hi0.x, hi0.y);
+            x1 = make_float4(lo1.x, lo1.y, hi1.x, hi1.y);
           }
-          if (c < n_vc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(dOs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(dp[j], a, load_b_nk(Vs, kP, wc * 16 + j * 8, ks * 8));
-            }
-          }
+          // one branch each: a runtime choice of array would put both in local memory
+          if (r < cl.nd)
+            add(s, x0, x1);
+          else
+            add(dp, x0, x1);
         }
       }
-      float dsf[RELBIAS ? 4 * NA : 1];
+      float pv[8], ds[8];
 #pragma unroll
-      for (int j = 0; j < NA; ++j) {
-        float pv[4], ds[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int e = 4 * j + c;
-          pv[c] = ds[c] = 0.f;
-          if ((ok_bits >> e) & 1u) {
-            const float x = RELBIAS ? fmaf(s[j][c], s_alpha, bias[RELBIAS ? e : 0]) : s[j][c] * s_alpha;
-            const float sig = __fdividef(1.f, 1.f + __expf(-x));
-            pv[c] = x * sig;
-            ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
-          }
-          if constexpr (RELBIAS) dsf[e] = ds[c];
-          if constexpr (kBf16) {  // the products take P and dS in bfloat16
-            pv[c] = round_bf16(pv[c]);
-            ds[c] = round_bf16(ds[c]);
-          }
-        }
-        const int at = (wr * 16 + g) * PS + wc * 16 + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(Ps + at) = make_float2(pv[0], pv[1]);
-        *reinterpret_cast<float2*>(Ps + at + 8 * PS) = make_float2(pv[2], pv[3]);
-        *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
-        *reinterpret_cast<float2*>(dSs + at + 8 * PS) = make_float2(ds[2], ds[3]);
-        if constexpr (RELBIAS) {
-          if (tables) {
-            *reinterpret_cast<float2*>(Ts + at) = make_float2(dsf[4 * j], dsf[4 * j + 1]);
-            *reinterpret_cast<float2*>(Ts + at + 8 * PS) = make_float2(dsf[4 * j + 2], dsf[4 * j + 3]);
-          }
+      for (int e = 0; e < 8; ++e) {
+        pv[e] = ds[e] = 0.f;
+        if ((ok_bits >> e) & 1u) {
+          const float sv = s[e >> 2][e & 3];
+          const float x = RELBIAS ? fmaf(sv, s_alpha, bias[RELBIAS ? e : 0]) : sv * s_alpha;
+          const float sig = __fdividef(1.f, 1.f + __expf(-x));
+          ds[e] = dp[e >> 2][e & 3] * dp_scale * sig * (1.f + x * (1.f - sig));
+          pv[e] = x * sig;
         }
       }
-      if constexpr (RELBIAS) {
-        if (tables) {
+      // bfloat16: P and dS rounded before their products (`put2`)
+      for (int r = split ? 0 : rank; r < (split ? cl.cs : rank + 1); ++r) {
+        if (!kDkv && r >= cl.nd) break;  // the dq pass's V-blocks take no A tile
+        E* Ab = split ? cluster.map_shared_rank(As, r) : As;
+        const bool wants_p = kDkv && r >= cl.nd;
+        float av[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) av[e] = wants_p ? pv[e] : ds[e];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          put2(Ab + at + 8 * j, av[4 * j], av[4 * j + 1]);
+          put2(Ab + at + 8 * j + 8 * kXP, av[4 * j + 2], av[4 * j + 3]);
+        }
+      }
+      if constexpr (kTables) {
+        if (split || tables) {
+          float* Tb = split ? cluster.map_shared_rank(Ts, tblock) : Ts;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            put2(Tb + at + 8 * j, ds[4 * j], ds[4 * j + 1]);
+            put2(Tb + at + 8 * j + 8 * kXP, ds[4 * j + 2], ds[4 * j + 3]);
+          }
           // dts_w: per element slot the warp takes its distinct buckets in
           // turn, sums each by shuffles, and one lane adds the sum to the
           // warp's own copy (no atomics)
 #pragma unroll
-          for (int e = 0; e < 4 * NA; ++e) {
+          for (int e = 0; e < 8; ++e) {
             const bool ok = (ok_bits >> e) & 1u;
             const int key = slot[e];
             unsigned rest = __ballot_sync(kFull, ok);
             while (rest != 0) {
               const int first = __ffs(rest) - 1;
               const int bucket = __shfl_sync(kFull, key, first);
-              const bool mine = ok && key == bucket;
-              float sum = mine ? dsf[e] : 0.f;
+              const bool same = ok && key == bucket;
+              float sum = same ? ds[e] : 0.f;
 #pragma unroll
               for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
               if (lane == first) my_dts[bucket] += sum;
               __syncwarp();
-              rest &= ~__ballot_sync(kFull, mine);
+              rest &= ~__ballot_sync(kFull, same);
             }
           }
         }
       }
-      __syncthreads();  // P, dS and the float32 dS are whole
+    }
+    if (split) {  // every block's A tile, the table block's dS^T and the flags are whole
+      cluster_arrive();
+      cluster_wait();
+    } else {
+      __syncthreads();  // the A tile, the float32 dS^T and the flags are whole
+    }
 
-      // the output chunk's operand: dO's chunk for dV, Q's for dK
-      const int have = is_dv ? n_vc - 1 : n_dc - 1;  // the chunk left in the tile
-      if (och != have) {
-        if (is_dv)
-          load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, r0, length, p.V, och, p.vec_do != 0, do_scale);
-        else
-          load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, r0, length, p.D, och, p.vec_q != 0, q_scale);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-      }
-      {  // dV += P^T dO or dK += dS^T Q for the warp's 16 key rows and 64 columns
-        const float* A = is_dv ? Ps : dSs;
-        const float* Bm = is_dv ? dOs : Qs;
-        const int row_steps = (min(BQ, length - r0) + 7) / 8;
+    const int kn = min(kS, length - s0);  // the step's live streamed rows
+    if ((kDkv || is_d) && (part_live[2 * wm] || part_live[2 * wm + 1])) {
 #pragma unroll
-        for (int n0 = 0; n0 < NO; n0 += 4) {
-          float part[4][4];
+      for (int i = 0; i < M; ++i)
+        if (i < own) out_product(acc[i], As, Xs + (stage * M + i) * kS * kP, wm, wn, kn);
+    }
+    if constexpr (FUSED) {
+      // dQ = dS K for the step's 32 query rows: warp w rows (w / 4) 16 ..,
+      // columns (w % 4) 32 .. of each of the block's chunks. Where D is a
+      // multiple of 4 a lane pair trades halves, so that each lane adds four
+      // floats of one row at once: the even lane row g, the odd lane row g + 8
+      const int wq = warp >> 2, wd = warp & 3;
+      if (is_d && (part_live[wq] || part_live[2 + wq] || part_live[4 + wq] || part_live[6 + wq])) {
+        const int kr = min(kR, length - base);
+        const bool odd = (t & 1) != 0;
+        float* dqh = static_cast<float*>(p.dq) + ((long long)b * p.N * p.H + h) * p.D;
+#pragma unroll
+        for (int i = 0; i < M; ++i) {
+          if (i >= own) continue;
+          float dq[4][4];
 #pragma unroll
           for (int n = 0; n < 4; ++n)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
-          for (int ks = 0; ks < row_steps; ++ks) {
-            const FragA a = load_a_t(A, PS, am * 16, ks * 8);
+            for (int c = 0; c < 4; ++c) dq[n][c] = 0.f;
+          dq_product(dq, As, Rs + i * kR * kP, wq, wd, kr);
+          const int d0 = (c0 + i) * kC + wd * 32;
 #pragma unroll
-            for (int n = 0; n < 4; ++n) mma<kBf16>(part[n], a, load_b_kn(Bm, kP, ks * 8, an + (n0 + n) * 8));
+          for (int n = 0; n < 4; ++n) {
+            const float x0 = __shfl_xor_sync(kFull, odd ? dq[n][0] : dq[n][2], 1);
+            const float x1 = __shfl_xor_sync(kFull, odd ? dq[n][1] : dq[n][3], 1);
+            if (p.D % 4 == 0) {
+              const int row = s0 + wq * 16 + g + (odd ? 8 : 0);
+              const int d = d0 + n * 8 + 2 * (t & ~1);
+              if (row < length && d < p.D) {
+                const float4 x = odd ? make_float4(x0, x1, dq[n][2], dq[n][3]) : make_float4(dq[n][0], dq[n][1], x0, x1);
+                atomicAdd(reinterpret_cast<float4*>(dqh + (long long)row * p.H * p.D + d),
+                          make_float4(p.alpha * x.x, p.alpha * x.y, p.alpha * x.z, p.alpha * x.w));
+              }
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const int row = s0 + wq * 16 + g + 8 * (c / 2);
+                const int d = d0 + n * 8 + 2 * t + c % 2;
+                if (row < length && d < p.D) atomicAdd(dqh + (long long)row * p.H * p.D + d, p.alpha * dq[n][c]);
+              }
+            }
           }
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
         }
       }
+    }
+    if constexpr (kTables) {
       if (tables) {
-        // dpos_w: diagonal d holds the elements with col - row = d - (BQ - 1)
+        // dpos_w: diagonal d holds the elements with col - row = d - (kS - 1)
+        // + base - s0
         const int d = threadIdx.x;
-        const int last = r0 + BQ - 1;
+        const int last = s0 + kS - 1;
         float sum = 0.f;
         if (d < kDiags)
-          for (int r = 0; r < BQ; ++r) {
-            const int cc = r + d - (BQ - 1);
-            if (cc >= 0 && cc < BK) sum += Ts[r * PS + cc];
+          for (int tc = 0; tc < kS; ++tc) {
+            const int tr = d - (kS - 1) + tc;
+            if (tr >= 0 && tr < kR) sum += Ts[tr * kXP + tc];
           }
         if constexpr (DET) {
           // each run of diagonals that meet on one entry (one diagonal, or
@@ -766,52 +874,61 @@ __global__ void __launch_bounds__(kBwdThreads) dkv_kernel(Params<E> p) {
           if (d < kDiags) diag[d] = sum;
           __syncthreads();
           if (d < kDiags) {
-            const int idx = hstu::pos_index(last, col0 + d, p.Nm);
-            if (d == 0 || hstu::pos_index(last, col0 + d - 1, p.Nm) != idx) {
+            const int idx = hstu::pos_index(last, base + d, p.Nm);
+            if (d == 0 || hstu::pos_index(last, base + d - 1, p.Nm) != idx) {
               float run = 0.f;
-              for (int e = d; e < kDiags && hstu::pos_index(last, col0 + e, p.Nm) == idx; ++e) run += diag[e];
+              for (int e = d; e < kDiags && hstu::pos_index(last, base + e, p.Nm) == idx; ++e) run += diag[e];
               prow[idx] += run;
             }
           }
         } else {
-          if (d < kDiags && sum != 0.f) atomicAdd(p.dpos + hstu::pos_index(last, col0 + d, p.Nm), sum);
+          if (d < kDiags && sum != 0.f) atomicAdd(p.dpos + hstu::pos_index(last, base + d, p.Nm), sum);
         }
       }
     }
-    if (tables) {
-      __syncthreads();  // every warp's copy of dts_w's sums is whole
-      for (int idx = threadIdx.x; idx < (DET ? n_ts : n_slots); idx += T) {
-        // DET: every entry of the row; else the slots, each to its bucket
-        // (slot n_slots - 1 holds bucket NB)
-        const int s = DET ? (idx < n_slots - 1 ? idx : (idx == p.NB ? n_slots - 1 : -1)) : idx;
-        float sum = 0.f;
-        if (s >= 0)
-          for (int w = 0; w < NW; ++w) sum += dts_s[w * kTsSlots + s];
-        if constexpr (DET) {
-          prow[n_pos + idx] = sum;
-        } else {
-          if (sum != 0.f) atomicAdd(p.dts + (idx == n_slots - 1 ? p.NB : idx), sum);
-        }
-      }
-    }
-  } else if (DET && tables) {  // a dead key tile's row of `partial` holds zeros
-    for (int idx = threadIdx.x; idx < n_pos + n_ts; idx += T) prow[idx] = 0.f;
+    s0 = s1;
   }
 
-  // every element of the chunk's columns in the tile's key rows: zeros where
-  // the tile is dead
-  E* out = is_dv ? p.dv : p.dk;
-  const int width = is_dv ? p.V : p.D;
-  const float scale = is_dv ? dp_scale : s_alpha;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int col = col0 + am * 16 + g + 8 * i;
-    if (col >= p.N) continue;
-    E* dst = out + (((long long)b * p.N + col) * p.H + h) * width;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      store2(dst, och * kC + an + 8 * n + 2 * t, width, scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
+  if constexpr (kTables) {
+    __syncthreads();  // every warp's copy of dts_w's sums is whole
+    for (int idx = threadIdx.x; idx < (DET ? n_ts : n_slots); idx += T) {
+      // DET: every entry of the row; else the slots, each to its bucket
+      // (slot n_slots - 1 holds bucket NB)
+      const int sl = DET ? (idx < n_slots - 1 ? idx : (idx == p.NB ? n_slots - 1 : -1)) : idx;
+      float sum = 0.f;
+      if (sl >= 0)
+        for (int w = 0; w < NW; ++w) sum += dts_s[w * kTsSlots + sl];
+      if constexpr (DET) {
+        prow[n_pos + idx] = sum;
+      } else {
+        if (sum != 0.f) atomicAdd(p.dts + (idx == n_slots - 1 ? p.NB : idx), sum);
+      }
+    }
   }
+  // no block leaves while another may still read its exchange buffers
+  cluster_arrive();
+
+  // every element of the block's chunks in the tile's rows: zeros where the
+  // tile is dead (the dq pass's V-blocks own no output)
+  if (kDkv || is_d) {
+    E* out = kDkv ? (is_d ? p.dk : p.dv) : static_cast<E*>(p.dq);
+    const float scale = kDkv ? (is_d ? s_alpha : dp_scale) : p.alpha;
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      if (i >= own) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = base + wm * 16 + g + 8 * r;
+        if (row >= p.N) continue;
+        E* dst = out + (((long long)b * p.N + row) * p.H + h) * width;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          store2(dst, (c0 + i) * kC + wn * 64 + 8 * n + 2 * t, width, scale * acc[i][n][2 * r],
+                 scale * acc[i][n][2 * r + 1]);
+      }
+    }
+  }
+  cluster_wait();
 }
 
 // ------------------------------------------------------------------ launches
@@ -829,34 +946,79 @@ cudaError_t launch_fwd(const Params<E>& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool RELBIAS, typename E, typename DQ>
-cudaError_t launch_dq(const Params<E>& p, cudaStream_t stream) {
-  constexpr int smem = dq_smem_bytes();
-  auto kernel = dq_kernel<RELBIAS, E, DQ>;
+// The rows of K7-det's `partial` that the dkv pass with DET writes: one per
+// block, (tile, batch row, head, rank) in that order
+inline long long bwd_table_rows(int B, int N, int H, int D, int V) {
+  return (long long)((N + kR - 1) / kR) * H * B * cluster_of(D, V).cs;
+}
+
+// A backward pass: one cluster of cs blocks per (64-row tile, head, batch
+// row), launched by cudaLaunchKernelEx. A cluster no part of the card can
+// hold (cudaOccupancyMaxActiveClusters 0, asked once per card and cluster
+// size) is refused with cudaErrorInvalidConfiguration, never run otherwise.
+template <int PASS, bool RELBIAS, bool DET, bool FUSED, int M, bool SPLIT, typename E>
+cudaError_t launch_bwd_m(const Params<E>& p, const Cluster& cl, cudaStream_t stream) {
+  constexpr int smem = bwd_smem_bytes((int)sizeof(E), M, RELBIAS && PASS == kDkvPass);
+  auto kernel = bwd_kernel<PASS, RELBIAS, DET, FUSED, M, SPLIT, E>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cl.cs > kPortableCluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((p.N + kDqRows - 1) / kDqRows) * p.H * p.B * chunks(p.D);
+  const long long blocks = (long long)((p.N + kR - 1) / kR) * p.H * p.B * cl.cs;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(p);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cl.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static int fits[8][kMaxCluster + 1] = {};  // per card and cluster size: 1 fits, -1 does not, 0 not asked
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int known = device < 8 ? fits[device][cl.cs] : 0;
+  if (known == 0) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    known = clusters > 0 ? 1 : -1;
+    if (device < 8) fits[device][cl.cs] = known;
+  }
+  if (known < 0) return cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, p, cl);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// The rows of K7-det's `partial` that `dkv_kernel<true, true>` writes: one
-// per (key tile, head, batch row)
-inline long long dkv_table_rows(int B, int N, int H) {
-  return (long long)((N + kDkvCols - 1) / kDkvCols) * H * B;
+template <int PASS, bool RELBIAS, bool DET, bool FUSED, typename E>
+cudaError_t launch_bwd(const Params<E>& p, cudaStream_t stream) {
+  const Cluster cl = cluster_of(p.D, p.V);
+  if (cl.cs == 0) return cudaErrorInvalidValue;
+  if (cl.m == 1) {
+    if (cl.split) return launch_bwd_m<PASS, RELBIAS, DET, FUSED, 1, true, E>(p, cl, stream);
+    return launch_bwd_m<PASS, RELBIAS, DET, FUSED, 1, false, E>(p, cl, stream);
+  }
+  // two chunks a block: more than 8 chunks, so at least 5 blocks, split
+  if (!cl.split) return cudaErrorInvalidValue;
+  return launch_bwd_m<PASS, RELBIAS, DET, FUSED, kMaxOwn, true, E>(p, cl, stream);
 }
 
-template <bool RELBIAS, bool DET, typename E>
-cudaError_t launch_dkv(const Params<E>& p, cudaStream_t stream) {
-  constexpr int smem = dkv_smem_bytes(RELBIAS);
-  auto kernel = dkv_kernel<RELBIAS, DET, E>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = dkv_table_rows(p.B, p.N, p.H) * (chunks(p.D) + chunks(p.V));
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+// The bfloat16 backward's pre-scaling pass (bf16_mma.cuh) on the wide
+// parameters: q and dO then point at bfloat16(alpha q) and bfloat16(dO /
+// norm) in the wrapper's buffers. float32: nothing.
+template <typename E>
+cudaError_t prescale(Params<E>& p, cudaStream_t stream) {
+  if constexpr (std::is_same<E, float>::value) {
+    return cudaSuccess;
+  } else {
+    return hstu_bf16::prescale(p, stream);
+  }
 }
 
 // The wide parameters from a narrow body's: the pointers, shapes, strides,

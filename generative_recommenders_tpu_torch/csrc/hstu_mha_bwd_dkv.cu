@@ -35,8 +35,7 @@ extern "C" int hstu_mha_bwd_dkv(
 }
 
 // The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; qs and dos
-// K2-bf16's buffers; dq null. vec_*: rows readable in 16-byte pieces (8-byte
-// ones on the wide route).
+// K2-bf16's buffers; dq null. vec_*: rows readable in 16-byte pieces.
 extern "C" int hstu_mha_bwd_dkv_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, __nv_bfloat16* qs, __nv_bfloat16* dos, __nv_bfloat16* dq, __nv_bfloat16* dk,

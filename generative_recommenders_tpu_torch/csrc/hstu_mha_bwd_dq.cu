@@ -37,9 +37,8 @@ extern "C" int hstu_mha_bwd_dq(
 
 // The bfloat16 kernel: q, k, v, dout and dq bfloat16; qs and dos contiguous
 // [B, N, H, D] and [B, N, H, V] bfloat16 buffers for bfloat16(alpha q) (null
-// where alpha is 1) and bfloat16(dO / norm) (both null on the wide route); dk
-// and dv null. vec_*: rows readable in 16-byte pieces (8-byte ones on the
-// wide route).
+// where alpha is 1) and bfloat16(dO / norm); dk and dv null. vec_*: rows
+// readable in 16-byte pieces.
 extern "C" int hstu_mha_bwd_dq_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, __nv_bfloat16* qs, __nv_bfloat16* dos, __nv_bfloat16* dq, __nv_bfloat16* dk,

@@ -36,8 +36,7 @@ extern "C" int hstu_mha_bwd_fused(
 // contiguous [B, N, H, D] and [B, N, H, V] bfloat16 buffers for bfloat16(alpha
 // q) (null where alpha is 1) and bfloat16(dO / norm); dq32 a zeroed float32
 // [B, N, H, D] buffer for dq's sums, which a last launch writes into dq as
-// bfloat16. vec_*: rows readable in 16-byte pieces (8-byte ones on the wide
-// route).
+// bfloat16. vec_*: rows readable in 16-byte pieces.
 extern "C" int hstu_mha_bwd_fused_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, __nv_bfloat16* qs, __nv_bfloat16* dos, float* dq32, __nv_bfloat16* dq,

@@ -88,11 +88,12 @@
 //   sum and the diagonal sums read the dS tile. One 64-row stage, its next
 //   tiles requested once every warp is past dV and dK (`ST = 1`), took 13%
 //   longer (PERF.md). S and dP are computed once per tile pair, as at every
-//   narrower width: the wide bodies compute them three times (a dq pass,
-//   then one dkv pass per output chunk).
+//   narrower width and in the wide backward.
 // Head widths are padded with zero columns to W = 32, 64 or 128; wider heads
-// take the wide bodies (hstu_attention_wide.cuh): the relative-bias dq pass,
-// then dK, dV and the table sums with atomics (K7) or in block order (K7-det).
+// take the wide backward (hstu_attention_wide.cuh): K7 its dkv pass with dQ
+// added into the zeroed float32 dq and the table sums with atomics, K7-det
+// its dq pass, then its dkv pass with each block's table sums in a row of
+// its own.
 //
 // `hstu_mha_relbias_bwd_bf16` (K7-bf16) computes the same function on
 // bfloat16 q, k, v and dO, with the TPU kernel's rounding points, on a body of
@@ -837,6 +838,8 @@ hstu_wide::Params<E> wide_params(const Params<E>& p, void* dq) {
   w.dpos = p.dpos;
   w.dts = p.dts;
   w.partial = p.partial;
+  w.qs = p.qs;
+  w.dos = p.dos;
   return w;
 }
 
@@ -848,18 +851,17 @@ int head_group_bf16(int D, int V);
 
 // This body on float32, the bfloat16 body on bfloat16 (kNarrow: the tables
 // staged; kRead: LONG; D and V up to 128), or with kWide (K7 alone) the wide
-// bodies: the
-// relative-bias dq pass, then dk, dv and the tables.
+// backward's dkv pass with dQ (FUSED) and the tables.
 template <typename E, bool DET = false>
 int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.V < 1 || p.Nm < 1 || p.NB < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!DET && route == hstu::kWide) {
-    const hstu_wide::Params<E> w = wide_params(p, p.dq);
-    const cudaError_t err = hstu_wide::launch_dq<true, E, float>(w, s);
+  if (!DET && route == hstu::kWide) {  // one pass, dQ added into the zeroed float32 dq
+    hstu_wide::Params<E> w = wide_params(p, p.dq);
+    const cudaError_t err = hstu_wide::prescale(w, s);
     if (err != cudaSuccess) return (int)err;
-    return (int)hstu_wide::launch_dkv<true, false, E>(w, s);
+    return (int)hstu_wide::launch_bwd<hstu_wide::kDkvPass, true, false, true, E>(w, s);
   }
   if (p.D > 128 || p.V > 128 || (route != hstu::kNarrow && route != hstu::kRead))
     return (int)cudaErrorInvalidValue;
@@ -875,11 +877,12 @@ int launch(const Params<E>& p, int route, void* stream) {
 
 // K7-det: this kernel with DET (on `route`), then `det_sums_kernel`: dq from
 // the tile pairs' slots, summed over the key tiles in ascending order, and
-// the blocks' table rows in block order; with kWide, the wide bodies (the
-// relative-bias dq pass, then dk, dv and the table rows), their rows summed
-// in order by the same kernel. dq: [B, N, H, D] of q's type, written whole;
-// partial: float32 [blocks, (2 Nm - 1) + (NB + 1)] with blocks = ceil(N /
-// 64) * ceil(H / HG) * B (kWide: one row per key tile, head and batch row);
+// the blocks' table rows in block order; with kWide, the wide backward (its
+// relative-bias dq pass, then its dkv pass with the table rows), their rows
+// summed in order by the same kernel. dq: [B, N, H, D] of q's type, written
+// whole; partial: float32 [blocks, (2 Nm - 1) + (NB + 1)] with blocks =
+// ceil(N / 64) * ceil(H / HG) * B (kWide: one row per block of the dkv pass,
+// `hstu_wide::bwd_table_rows`);
 // dq_partial: float32 [B, det_pairs, 64, H, D] (unused with kWide); dpos and
 // dts are written, not added to.
 template <typename E>
@@ -896,13 +899,15 @@ int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
   SumParams<E> sp{p.dq_partial, dq, p.lengths, p.B, p.N, p.H, p.D, tiles, chunks, lower_only,
                   p.partial, 0, n, n_pos, p.dpos, p.dts};
   if (route == hstu::kWide) {
-    const hstu_wide::Params<E> w = wide_params(p, dq);
-    cudaError_t err = hstu_wide::launch_dq<true, E, E>(w, s);
+    hstu_wide::Params<E> w = wide_params(p, dq);
+    cudaError_t err = hstu_wide::prescale(w, s);
     if (err != cudaSuccess) return (int)err;
-    err = hstu_wide::launch_dkv<true, true, E>(w, s);
+    err = hstu_wide::launch_bwd<hstu_wide::kDqPass, true, false, false, E>(w, s);
+    if (err != cudaSuccess) return (int)err;
+    err = hstu_wide::launch_bwd<hstu_wide::kDkvPass, true, true, false, E>(w, s);
     if (err != cudaSuccess) return (int)err;
     sp.tiles = 0;  // the tables alone
-    sp.rows = (int)hstu_wide::dkv_table_rows(p.B, p.N, p.H);
+    sp.rows = (int)hstu_wide::bwd_table_rows(p.B, p.N, p.H, p.D, p.V);
   } else {
     if (p.dq_partial == nullptr) return (int)cudaErrorInvalidValue;
     const int err = launch<E, /*DET=*/true>(p, route, stream);
@@ -969,11 +974,10 @@ extern "C" int hstu_mha_relbias_bwd_det(
 
 // The bfloat16 kernel: q, k, v, dout, dk and dv bfloat16; qs and dos
 // contiguous [B, N, H, D] and [B, N, H, V] bfloat16 buffers for
-// bfloat16(alpha q) (null where alpha is 1) and bfloat16(dO / norm) (both
-// null on the wide route); dq32 a zeroed float32 [B, N, H, D] buffer for dq's
-// sums, which a last launch writes into dq as bfloat16; the tables, the
-// timestamps and their gradients float32. vec_*: rows readable in 16-byte
-// pieces (8-byte ones on the wide route).
+// bfloat16(alpha q) (null where alpha is 1) and bfloat16(dO / norm); dq32 a
+// zeroed float32 [B, N, H, D] buffer for dq's sums, which a last launch
+// writes into dq as bfloat16; the tables, the timestamps and their gradients
+// float32. vec_*: rows readable in 16-byte pieces.
 extern "C" int hstu_mha_relbias_bwd_bf16(
     const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
     const __nv_bfloat16* dout, __nv_bfloat16* qs, __nv_bfloat16* dos, float* dq32, __nv_bfloat16* dq,

@@ -5,7 +5,7 @@
 // (hstu_attention_fwd.cuh) and the backward bodies of K2 and K4
 // (hstu_attention_bwd_dkv.cuh) and of K3 (hstu_attention_bwd_dq.cuh).
 //
-// The wide bodies' bfloat16 instances (hstu_attention_wide.cuh, on bfloat16
+// The wide forward's bfloat16 instances (hstu_attention_wide.cuh, on bfloat16
 // q, k, v) read their tiles through `load_tile`'s bfloat16 overload, which
 // converts to float32 on the way into shared memory, and multiply with
 // `mma<true>`: one TF32 product, exact, because every operand they multiply

@@ -422,6 +422,21 @@ def _launch(name: str, *args) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
 
 
+def _launch_planned(plan: dict, name: str, *args) -> None:
+    """`_launch`, whose error names the sizes of a wide backward's ``plan``
+    (a cluster the card cannot hold is refused so, never run otherwise)."""
+    try:
+        _launch(name, *args)
+    except RuntimeError as e:
+        if "cluster" not in plan:
+            raise
+        raise RuntimeError(
+            f"{e} (the wide backward at D={plan['d_chunks']} and V={plan['v_chunks']} chunks of {_WIDE_CHUNK}: "
+            f"clusters of {plan['cluster']} blocks of {plan['chunks_per_block']} chunks, {plan['shared_bytes']} "
+            f"bytes of shared memory a block, a grid of {plan['grid'][0]} blocks)"
+        ) from None
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -457,16 +472,20 @@ _MAX_GRID_X = 2**31 - 1
 # bias's tables read from device memory, the wide body
 _ROUTES = {"narrow": 0, "read": 1, "wide": 2}
 # The wide bodies (csrc/hstu_attention_wide.cuh): D and V in chunks of 128
-# columns, tiles at a pitch of 136; per body its rows and columns, and its
+# columns, tiles at a pitch of 136; the forward's rows and columns, and its
 # shared memory
 _WIDE_CHUNK = 128
 _WIDE_FWD = dict(query_rows=64, key_tile=32, shared_bytes=4 * (64 * 136 + 32 * 136 + 32 * 132))
-# (the dq pass also 8 warps' live flags)
-_WIDE_DQ = dict(query_rows=64, key_cols=32, shared_bytes=4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8))
-# the relative-bias dkv pass adds the float32 dS, the step's diagonal sums
-# and eight warps' copies of dts_w's reachable buckets (296)
-_WIDE_DKV = dict(query_rows=32, key_cols=64, shared_bytes=4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72))
-_WIDE_DKV_RELBIAS_BYTES = _WIDE_DKV["shared_bytes"] + 4 * (32 * 72 + 96 + 8 * 296)
+# The wide backward (`hstu_wide::bwd_kernel`): one cluster of blocks per
+# 64-row tile, 32 streamed rows a step, its exchange buffers and A tile at a
+# pitch of 40; a block owns one chunk, or two where one a block would need
+# more than a portable cluster's 8 blocks; 16 blocks at most (a non-portable
+# cluster); clusters of 5 blocks and more split the per-element work across
+# their blocks, smaller ones repeat it in each
+_WIDE_BWD_ROWS, _WIDE_BWD_STEP, _WIDE_BWD_XP = 64, 32, 40
+_PORTABLE_CLUSTER, _MAX_CLUSTER, _MAX_OWN, _SPLIT_FROM = 8, 16, 2, 5
+# the buckets a float32 time gap reaches (`hstu_wide::kTsSlots`)
+_WIDE_TS_SLOTS = 296
 
 
 def _chunks(w: int) -> int:
@@ -554,24 +573,70 @@ _BWD_TILING = {32: (64, 64), 64: (64, 64), 128: (32, 64), 256: (32, 64)}
 _BWD_TILING_BF16 = {32: (64, 64, 8), 64: (128, 64, 16), 128: (32, 64, 8), 256: (32, 64, 8)}
 
 
-def _wide_dkv_plan(D: int, V: int, H: int, B: int, N: int, relbias: bool = False) -> dict:
-    """The wide dkv pass (`hstu_wide::dkv_kernel`): a block per (64-column
-    key tile, head, batch row, output chunk), the chunks dV's then dK's."""
-    rows = -(-N // _WIDE_DKV["key_cols"]) * H * B
-    blocks = rows * (_chunks(D) + _chunks(V))
-    _check_grid(blocks, "the wide dkv kernel")
-    shared = _WIDE_DKV_RELBIAS_BYTES if relbias else _WIDE_DKV["shared_bytes"]
-    return dict(_WIDE_DKV, route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V),
-                head_group=1, shared_bytes=shared, grid=(blocks,), table_rows=rows)
+def _wide_cluster(D: int, V: int) -> Tuple[int, int, int]:
+    """The wide backward's cluster at widths D and V (`hstu_wide::cluster_of`):
+    (chunks a block owns, D-blocks, V-blocks). Raises past 16 blocks of two
+    chunks, with the sizes."""
+    n_dc, n_vc = _chunks(D), _chunks(V)
+    for m in range(1, _MAX_OWN + 1):
+        nd, nv = -(-n_dc // m), -(-n_vc // m)
+        if nd + nv <= _PORTABLE_CLUSTER or (m == _MAX_OWN and nd + nv <= _MAX_CLUSTER):
+            return m, nd, nv
+    raise ValueError(
+        f"the wide backward takes clusters of up to {_MAX_CLUSTER} blocks of {_MAX_OWN} chunks of {_WIDE_CHUNK} "
+        f"columns; D={D} and V={V} are {n_dc} + {n_vc} chunks, a cluster of {nd + nv} blocks"
+    )
 
 
-def _wide_dq_plan(D: int, V: int, H: int, B: int, N: int) -> dict:
-    """The wide dq pass (`hstu_wide::dq_kernel`): a block per (64-row query
-    tile, head, batch row, dQ chunk)."""
-    blocks = -(-N // _WIDE_DQ["query_rows"]) * H * B * _chunks(D)
-    _check_grid(blocks, "the wide dq kernel")
-    return dict(_WIDE_DQ, route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V),
-                head_group=1, grid=(blocks,))
+def _wide_bwd_bytes(m: int, elem: int, tables: bool) -> int:
+    """A wide backward block's shared memory: R [m][64][136] and two stages
+    of X [2][m][32][136] of the element type (``elem`` bytes), two float32
+    exchange buffers [2][64][40] (or, split, the receive buffer of 16
+    fragments of 256 in their space), the A tile [64][40] of the element
+    type, eight warps' live flags; with the table sums the float32 dS^T
+    [64][40], the step's 95 diagonal sums (and one) and eight warps' copies
+    of dts_w's 296 reachable buckets."""
+    rows, step, xp = _WIDE_BWD_ROWS, _WIDE_BWD_STEP, _WIDE_BWD_XP
+    pitch = _WIDE_CHUNK + 8
+    tiles = elem * (m * rows * pitch + 2 * m * step * pitch + rows * xp) + 4 * (2 * rows * xp + 8)
+    return tiles + (4 * (rows * xp + rows + step + 8 * _WIDE_TS_SLOTS) if tables else 0)
+
+
+def _wide_bwd_plan(what: str, D: int, V: int, H: int, B: int, N: int, tables: bool,
+                   dtype: torch.dtype) -> dict:
+    """One pass of the wide backward: a cluster of ``cluster`` blocks per
+    (64-row tile, head, batch row), ``d_blocks`` owning D's chunks then
+    ``v_blocks`` V's, ``chunks_per_block`` each, the per-element work split
+    across them (``split_work``, from 5 blocks) or repeated in each; on
+    bfloat16 after the pre-scaling pass (``prescale_grid``) into
+    ``q_scaled_shape`` (where alpha != 1) and ``do_scaled_shape``. Raises on
+    a grid beyond CUDA's."""
+    m, nd, nv = _wide_cluster(D, V)
+    cs = nd + nv
+    blocks = -(-N // _WIDE_BWD_ROWS) * H * B * cs
+    _check_grid(blocks, f"{what} (clusters of {cs} blocks)")
+    plan = dict(route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1,
+                cluster=cs, chunks_per_block=m, d_blocks=nd, v_blocks=nv, split_work=cs >= _SPLIT_FROM,
+                shared_bytes=_wide_bwd_bytes(m, dtype.itemsize, tables), grid=(blocks,))
+    if dtype == torch.bfloat16:
+        _check_grid(B * N, "the pre-scaling pass")
+        plan.update(prescale_grid=(B * N,), q_scaled_shape=(B, N, H, D), do_scaled_shape=(B, N, H, V))
+    return plan
+
+
+def _wide_dkv_plan(D: int, V: int, H: int, B: int, N: int, relbias: bool = False,
+                   dtype: torch.dtype = torch.float32) -> dict:
+    """The wide dkv pass (K4; K2 and K7 with dQ; K7-det's second pass): a
+    cluster per (64-column key tile, head, batch row), `_wide_bwd_plan`;
+    ``table_rows``: K7-det's rows of `partial`, one per block."""
+    plan = _wide_bwd_plan("the wide dkv kernel", D, V, H, B, N, relbias, dtype)
+    return dict(plan, table_rows=plan["grid"][0])
+
+
+def _wide_dq_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.float32) -> dict:
+    """The wide dq pass (K3; K7-det's first pass): a cluster per (64-row
+    query tile, head, batch row), `_wide_bwd_plan`."""
+    return _wide_bwd_plan("the wide dq kernel", D, V, H, B, N, False, dtype)
 
 
 def _bwd_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.float32) -> dict:
@@ -587,11 +652,12 @@ def _bwd_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch
     warps a block), after the pre-scaling pass (a block per batch row and row,
     ``prescale_grid``) into the bfloat16 buffers ``q_scaled_shape`` (where
     alpha != 1) and ``do_scaled_shape``. Wider heads (route ``wide``, either
-    type): the wide dkv pass (K2: after the wide dq pass, ``dq`` its plan).
-    Raises on a width of 0 and on a grid beyond CUDA's."""
+    type): the wide dkv pass (K2 with its dQ; ``dq`` the wide dq pass of
+    the split backward beside it). Raises on a width of 0 and on a grid or a
+    cluster beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
-        return dict(_wide_dkv_plan(D, V, H, B, N), dq=_wide_dq_plan(D, V, H, B, N))
+        return dict(_wide_dkv_plan(D, V, H, B, N, dtype=dtype), dq=_wide_dq_plan(D, V, H, B, N, dtype))
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
     if dtype == torch.bfloat16:
         rows, cols, warps = _BWD_TILING_BF16[width]
@@ -633,11 +699,11 @@ def _dq_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.
     kept in registers), after the pre-scaling pass (a block per batch row
     and row, ``prescale_grid``) into the bfloat16 buffers ``q_scaled_shape``
     (where alpha != 1) and ``do_scaled_shape``. Wider heads (route ``wide``,
-    either type): the wide dq pass. Raises on a width of 0 and on a grid
-    beyond CUDA's."""
+    either type): the wide dq pass. Raises on a width of 0 and on a grid or
+    a cluster beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
-        return _wide_dq_plan(D, V, H, B, N)
+        return _wide_dq_plan(D, V, H, B, N, dtype)
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
     vw = min(width, _NARROW_V)
     if dtype == torch.bfloat16:
@@ -854,22 +920,19 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     # raises on what the kernel does not take
     plan = (_dq_plan if split_dq else _bwd_plan)(D, V, H, B, N, q.dtype)
     route = plan["route"]
-    # the bfloat16 bodies (K2-bf16 and K4-bf16's, K3-bf16's): a pre-scaling
-    # pass writes bfloat16(alpha q) (where alpha != 1) and bfloat16(dO /
-    # norm) into buffers of their own (pointers after dO; none on the wide
-    # route), and the body reads its rows in 16-byte pieces of 8 elements
-    body16 = bf16 and route == "narrow"
+    # the bfloat16 bodies (K2-bf16 and K4-bf16's, K3-bf16's, the wide
+    # backward's): a pre-scaling pass writes bfloat16(alpha q) (where alpha
+    # != 1) and bfloat16(dO / norm) into buffers of their own (pointers after
+    # dO), and the body reads its rows in 16-byte pieces of 8 elements
     scaled = ()
     if bf16:
-        qs = new(plan["q_scaled_shape"]) if body16 and kw["alpha"] != 1.0 else None
-        dos = new(plan["do_scaled_shape"]) if body16 else None
-        scaled = (qs, dos)
-    # the kernels read q, k, v and dO in 16-byte pieces (8-byte ones on the
-    # other bfloat16 bodies) where each allows it (on the STU path q, k and v
-    # are strided views of one projection)
-    vec = tuple(int(_vec16(t, 8 if body16 else 4)) for t in (q, k, v, do))
-    _launch(
-        name,
+        qs = new(plan["q_scaled_shape"]) if kw["alpha"] != 1.0 else None
+        scaled = (qs, new(plan["do_scaled_shape"]))
+    # the kernels read q, k, v and dO in 16-byte pieces where each allows it
+    # (on the STU path q, k and v are strided views of one projection)
+    vec = tuple(int(_vec16(t, 8 if bf16 else 4)) for t in (q, k, v, do))
+    _launch_planned(
+        plan, name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(_ptr(t) for t in scaled),
         *((_ptr(dq32),) if dq32 is not None else ()), _ptr(dq), _ptr(dk), _ptr(dv), lens.data_ptr(), _ptr(nt),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],

@@ -353,13 +353,13 @@ def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int, dtype: torch.dty
     2,844); after the pre-scaling pass (a block per batch
     row and row of the [B, N] batch, ``prescale_grid``) into the bfloat16
     buffers ``q_scaled_shape`` (where alpha != 1) and ``do_scaled_shape``.
-    Wider heads (route ``wide``, either type): the wide relative-bias dq
-    pass, then the wide dkv pass with the table sums (a block per key tile,
-    head, batch row and output chunk). Raises on a width of 0."""
+    Wider heads (route ``wide``, either type): the wide backward's dkv pass
+    with dQ and the table sums (`ha._wide_dkv_plan`: a cluster per key tile,
+    head and batch row); on bfloat16 after the pre-scaling pass. Raises on a
+    width of 0 and on a grid or a cluster beyond CUDA's."""
     ha._check_widths(D, V)
     if max(D, V) > _NARROW_BWD_WIDTH:
-        return dict(route="wide", width=ha._WIDE_CHUNK, head_group=1, head_groups=H,
-                    shared_bytes=ha._WIDE_DKV_RELBIAS_BYTES, dq_shared_bytes=ha._WIDE_DQ["shared_bytes"])
+        return dict(ha._wide_dkv_plan(D, V, H, B, N, relbias=True, dtype=dtype), head_groups=H)
     width = next(w for w in (32, 64, 128) if max(D, V) <= w)
     bf16 = dtype == torch.bfloat16
     if bf16:  # bytes: bfloat16 K, V of the group, two (Q, dO) stages, P and dS; dS summed over the heads
@@ -413,19 +413,18 @@ def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, 
     query tile and batch row sum its dq's slots over the key tiles in
     ascending order (4096 floats a block, 1024 where H D is not a multiple of
     4), the rest the table rows in block order, 32 entries a block. Wider
-    heads: the wide dq pass, the wide dkv pass, whose blocks of chunk 0
-    write one row per (key tile, head, batch row), and the same sum launch
-    on the tables alone. On bfloat16 K7's bfloat16 body (`_relbias_bwd_plan`
+    heads: the wide backward's dq pass with the bias, its dkv pass, whose
+    blocks each write one row, and the same sum launch on the tables
+    alone. On bfloat16 K7's bfloat16 body (`_relbias_bwd_plan`
     on ``dtype``: its head groups, its route, its pre-scaled buffers). Raises
     on a width of 0 and on a grid beyond CUDA's."""
     bwd = _relbias_bwd_plan(D, V, H, Nm, NB, dtype, B, N)
     entries = 2 * Nm - 1 + NB + 1
     table_blocks = -(-entries // 32)
     if bwd["route"] == "wide":
-        dq = ha._wide_dq_plan(D, V, H, B, N)
-        dkv = ha._wide_dkv_plan(D, V, H, B, N, relbias=True)
-        return dict(bwd, dq_grid=dq["grid"], grid=dkv["grid"], partial_shape=(dkv["table_rows"], entries),
-                    dq_partial_shape=None, sum_grid=(table_blocks,))
+        dq = ha._wide_dq_plan(D, V, H, B, N, dtype)
+        return dict(bwd, dq_grid=dq["grid"], dq_shared_bytes=dq["shared_bytes"],
+                    partial_shape=(bwd["table_rows"], entries), dq_partial_shape=None, sum_grid=(table_blocks,))
     grid = _relbias_grid(N, bwd["head_groups"], B)
     tiles = -(-N // _BWD_TILE)
     lower_only = causal and contextual_seq_len == 0
@@ -455,10 +454,7 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
         plan = _relbias_det_plan(D, V, H, B, N, Nm, NB, kw["causal"], kw["contextual_seq_len"], q.dtype)
     else:
         plan = _relbias_bwd_plan(D, V, H, Nm, NB, q.dtype, B, N)
-        if plan["route"] == "wide":
-            ha._wide_dq_plan(D, V, H, B, N)
-            ha._wide_dkv_plan(D, V, H, B, N, relbias=True)
-        else:
+        if plan["route"] != "wide":
             _relbias_grid(N, plan["head_groups"], B)
     new = lambda fn, *shape, dtype=torch.float32: fn(shape, dtype=dtype, device=q.device)  # noqa: E731
     dk, dv = new(torch.empty, B, N, H, D, dtype=q.dtype), new(torch.empty, B, N, H, V, dtype=q.dtype)
@@ -480,25 +476,24 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
             return dq, dk, dv, dpos, dts
         name = "hstu_mha_relbias_bwd_bf16" if bf16 else "hstu_mha_relbias_bwd"
         dq_ptrs, tail = ((dq32.data_ptr(), dq.data_ptr()) if bf16 else (dq.data_ptr(),)), ()
-    # the bfloat16 body (routes narrow and read): its pre-scaling pass writes
+    # the bfloat16 bodies (every route): a pre-scaling pass writes
     # bfloat16(alpha q) (where alpha != 1) and bfloat16(dO / norm) into
-    # buffers of their own (pointers after dO; none on the wide route), and
-    # it reads its rows in 16-byte pieces of 8 elements
-    body16 = bf16 and plan["route"] != "wide"
+    # buffers of their own (pointers after dO), and the body reads its rows
+    # in 16-byte pieces of 8 elements
     scaled = ()
     if bf16:
-        qs = new(torch.empty, *plan["q_scaled_shape"], dtype=q.dtype) if body16 and kw["alpha"] != 1.0 else None
-        dos = new(torch.empty, *plan["do_scaled_shape"], dtype=q.dtype) if body16 else None
+        qs = new(torch.empty, *plan["q_scaled_shape"], dtype=q.dtype) if kw["alpha"] != 1.0 else None
+        dos = new(torch.empty, *plan["do_scaled_shape"], dtype=q.dtype)
         scaled = (ha._ptr(qs), ha._ptr(dos))
-    ha._launch(
-        name,
+    ha._launch_planned(
+        plan, name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *scaled,
         *dq_ptrs, dk.data_ptr(), dv.data_ptr(),
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(), *tail,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
         *ha._mask_args(kw, N), Nm, NB,
-        *(int(ha._vec16(t, 8 if body16 else 4)) for t in (q, k, v, do)), ha._ROUTES[plan["route"]],
+        *(int(ha._vec16(t, 8 if bf16 else 4)) for t in (q, k, v, do)), ha._ROUTES[plan["route"]],
         ha._stream(q.device),
     )
     c = hstu_mha_relbias_bwd_cuda

@@ -86,6 +86,34 @@ m16n8k16 (bfloat16), the float32 body's steps of 64 query rows with one
 one head a block on bfloat16 in place of two (label "bf16: width 128, 1
 head a block").
 
+    python PATH/TO/variants.py --wide-bwd
+
+(run as a file, with ``PYTHONPATH`` naming the checkout whose package to
+time, as ``--wide``) times the wide backward through the wrappers, float32
+and bfloat16, each the mean of 10 launches: K2, K3 and K4 at D 512 / V 64
+and at D 64 / V 256 (B 4, N 2048, H 2, lengths N / 2 .. N, one full row),
+the same at the V-256 ranker's layer (B 32, N 268, H 4, D 128, V 256), K7
+and K7-det at D = V = 256 (B 4, N 1024, H 2, 128 buckets); beside each shape
+the plain backward (the mean of 2). Run it from the parent's checkout and
+this one in turns (parent, new, new, parent) in one call.
+
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-bwd-variants [KERNEL ...]
+
+builds and times the knock-outs of the wide backward (labels "wbwd: ...";
+of the named kernels' libraries: K2's at D 512 / V 64 and D 64 / V 256,
+K3's there and at the V-256 ranker's layer, K7's at D = V = 256): the
+copies synchronous in place of `cp.async`, two TF32 m16n8k8 in place of one
+m16n8k16 (bfloat16), without the per-element work (the sigmoid and the
+bias), the per-element work repeated in every block (each reading every
+block's part of T) and split across the cluster by fragment at every
+cluster size, in place of split from 5 blocks and repeated below,
+without distributed shared memory (each block stores into and loads from
+its own), without the step's cluster barriers, without the products, the
+float32 step's share of dK, dV or dQ summed in two passes of four tiles or
+in place across the walk (in place of one pass of fresh sums); K7's
+`dpos_w` sums on the block of rank 0 in place of step by step across the
+cluster, and without the table sums.
+
     python PATH/TO/variants.py --det
 
 (run as a file, with ``PYTHONPATH`` naming the checkout whose package to
@@ -364,6 +392,78 @@ _W128_EDITS: Dict[str, Edit] = {
     "w128: 64-row steps, one (Q, dO) stage (float32)": _sub(_T128, _T128.replace("QT = 32, ST = 2", "QT = 64, ST = 1")),
     "w128: without the table sums": _both(_K7["table sums"], _R16_EDITS["bf16: without the table sums"]),
 }
+# The wide backward (`bwd_kernel` in hstu_attention_wide.cuh): the copies
+# synchronous, the bfloat16 products as two TF32 ones (both as the width-128
+# knock-outs edit them), the per-element work taken out, K7's table sums on
+# one block of the cluster, or taken out
+_WIDE = "hstu_attention_wide.cuh"
+_WIDE_TABLES = "const int tblock = step % cl.cs;  // the step's table block"
+_WIDE_BWD_EDITS: Dict[str, Edit] = {
+    "wbwd: synchronous copies": _W128_EDITS["w128: synchronous copies"],
+    "wbwd: two TF32 m16n8k8 in place of m16n8k16": _BF16_EDITS["bf16: m16n8k16 (two TF32 m16n8k8 instead)"],
+    # the shipped design splits the per-element work across clusters of 5
+    # blocks and more by fragment and repeats it in every block of a smaller
+    # one (each reading every block's part of T): each way at every size
+    "wbwd: the per-element work repeated at every cluster size": _sub("constexpr int kSplitFrom = 5;",
+                                                                      "constexpr int kSplitFrom = 17;", _WIDE),
+    "wbwd: the per-element work split at every cluster size": _sub("constexpr int kSplitFrom = 5;",
+                                                                   "constexpr int kSplitFrom = 1;", _WIDE),
+    "wbwd: without the per-element work (sigmoid, bias)": _both(
+        _sub("          const float x = RELBIAS ? fmaf(sv, s_alpha, bias[RELBIAS ? e : 0]) : sv * s_alpha;\n"
+             "          const float sig = __fdividef(1.f, 1.f + __expf(-x));",
+             "          const float x = sv;\n          const float sig = x;", _WIDE),
+        _sub("        bias[e] = mine && (ok_bits >> e) & 1u", "        bias[e] = false && (ok_bits >> e) & 1u", _WIDE)),
+    "wbwd: the table sums on one block": _sub(_WIDE_TABLES, "const int tblock = 0;", _WIDE),
+    "wbwd: without the table sums": _both(
+        _sub("const bool tables = kTables && tblock == rank;", "const bool tables = false;", _WIDE),
+        _sub("        if (split || tables) {\n          float* Tb", "        if (false) {\n          float* Tb", _WIDE)),
+    # what the cluster costs: the stores into (split) and the loads from the
+    # other blocks' buffers kept in the block's own, and the step's cluster
+    # barriers taken out (the last one, before the blocks leave, stays)
+    "wbwd: without distributed shared memory": _both(
+        _sub("cluster.map_shared_rank(xch, warp % cl.cs)", "(xch + 0 * (warp % cl.cs))", _WIDE),
+        _sub("E* Ab = split ? cluster.map_shared_rank(As, r) : As;", "E* Ab = As + 0 * r;", _WIDE),
+        _sub("float* Tb = split ? cluster.map_shared_rank(Ts, tblock) : Ts;", "float* Tb = Ts + 0 * tblock;", _WIDE),
+        _sub("const float* src = cluster.map_shared_rank(xb, r);", "const float* src = xb + 0 * r;", _WIDE)),
+    "wbwd: without the step's cluster barriers": _both(
+        _sub("    cluster_arrive();\n    // the bias while the other blocks arrive", "    // the bias", _WIDE),
+        _sub("    cluster_wait();\n    // the per-element work", "    // the per-element work", _WIDE),
+        _sub("      cluster_arrive();\n      cluster_wait();\n    } else {", "    } else {", _WIDE)),
+    # the float32 step's share of dK, dV or dQ: in two passes over k of four
+    # tiles' fresh sums each, or summed in place across the walk (as
+    # bfloat16 sums; off by up to 3e-5 of the max at N 4096)
+    "wbwd: float32 step sums in two passes of four tiles": _sub(
+        """  float part[8][4] = {};
+  for (int ks = 0; ks < steps; ++ks) {
+    const FragA a = load_a(A, kXP, wm * 16, ks * 8);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) mma3(part[n], a, load_b_kn<true>(X, kP, ks * 8, wn * 64 + n * 8));
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];""", """#pragma unroll
+  for (int n0 = 0; n0 < 8; n0 += 4) {
+    float part[4][4] = {};
+    for (int ks = 0; ks < steps; ++ks) {
+      const FragA a = load_a(A, kXP, wm * 16, ks * 8);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) mma3(part[n], a, load_b_kn<true>(X, kP, ks * 8, wn * 64 + (n0 + n) * 8));
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
+  }""", _WIDE),
+    "wbwd: float32 summed in place across the walk": _sub(
+        "mma3(part[n], a, load_b_kn<true>(X, kP, ks * 8, wn * 64 + n * 8));",
+        "mma3(acc[n], a, load_b_kn<true>(X, kP, ks * 8, wn * 64 + n * 8));", _WIDE),
+    "wbwd: without the products": _both(
+        _sub("          part_product(tp, Rs", "          if (false) part_product(tp, Rs", _WIDE),
+        _sub("    if ((kDkv || is_d) && (part_live[2 * wm] || part_live[2 * wm + 1])) {",
+             "    if (false && (part_live[2 * wm] || part_live[2 * wm + 1])) {", _WIDE),
+        _sub("          dq_product(dq, As, Rs", "          if (false) dq_product(dq, As, Rs", _WIDE)),
+}
 # K1 and K6: edits of their shared body
 _FWD = "hstu_attention_fwd.cuh"
 _BIAS = "the bias (its logf, its table reads)"
@@ -484,13 +584,17 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
         ("bf16: without the table sums", "bf16: without the bucket logf"))]
     + [("hstu_mha_relbias_bwd", "w128: as shipped", ())]
     + [("hstu_mha_relbias_bwd", name, (name,)) for name in _W128_EDITS]
+    + [(kernel, label, phases)
+       for kernel in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_relbias_bwd")
+       for label, phases in [("wbwd: as shipped", ())] + [(name, (name,)) for name in _WIDE_BWD_EDITS
+                                                          if kernel == "hstu_mha_relbias_bwd" or "table" not in name]]
 )
-_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS},
+_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS, **_WIDE_BWD_EDITS},
           "delta_hstu_mha_fwd": _K5,
           "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS}, "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS},
-          "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
+          "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_BWD_EDITS},
           "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
-          "hstu_mha_bwd_dq": {**_K3, **_BF16_EDITS, **_Q16_EDITS}}
+          "hstu_mha_bwd_dq": {**_K3, **_BF16_EDITS, **_Q16_EDITS, **_WIDE_BWD_EDITS}}
 
 
 def shipped_sources(kernel: str) -> Dict[str, str]:
@@ -674,6 +778,29 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args == ["--wide"]:
         wide_times(device_ms, wide_inputs(rand, gen))
         k5_times(device_ms, rand, ints)
+        return
+    if args == ["--wide-bwd"]:
+        wide_bwd_times(device_ms, wide_bwd_inputs(rand, gen))
+        return
+    if args[:1] == ["--wide-bwd-variants"]:
+        inputs = wide_bwd_inputs(rand, gen)
+        # naming kernels keeps their libraries' variants
+        chosen = [i for i, (kernel, label, _) in enumerate(VARIANTS)
+                  if label.startswith("wbwd") and (len(args) == 1 or kernel in args[1:])]
+        root = os.path.join(build.BUILD_DIR, "variants")
+        try:
+            _build_all(root, chosen)
+            for i in chosen:
+                kernel, label, _ = VARIANTS[i]
+                build._libs.clear()
+                _preload(kernel, os.path.join(root, f"v{i}"))
+                relbias = kernel == "hstu_mha_relbias_bwd"
+                only = {"hstu_mha_bwd_fused": ("K2", "K2-bf16"), "hstu_mha_bwd_dq": ("K3", "K3-bf16")}.get(kernel)
+                wide_bwd_times(device_ms, {k_: v_ for k_, v_ in inputs.items() if (v_["tables"] is not None) == relbias
+                                           and (kernel == "hstu_mha_bwd_dq" or "ranker" not in k_)},
+                               label=f"{label} ({kernel})", plain=False, only=only)
+        finally:
+            build._libs.clear()
         return
     if args == ["--wide-variants"]:
         inputs = {k_: v_ for k_, v_ in wide_inputs(rand, gen).items() if k_.startswith("wide-head layer")}
@@ -983,6 +1110,81 @@ def wide_times(device_ms, inputs: Dict[str, tuple], label: str = "", forced: boo
         if forced:
             with _wide_forced():
                 one(", the wide bodies forced")
+
+
+def wide_bwd_inputs(rand, gen) -> Dict[str, dict]:
+    """The wide backward's inputs by shape, float32 and bfloat16: q, k, v
+    views of one projection and a strided dO, lengths N / 2 .. N with one
+    full row; at D = V = 256 also the relative bias's timestamps and tables
+    (``tables``, else None)."""
+    import torch
+
+    shapes = {}
+    for name, B, N, H, D, V, relbias in (("D 512 / V 64", 4, 2048, 2, 512, 64, False),
+                                         ("D 64 / V 256", 4, 2048, 2, 64, 256, False),
+                                         ("the V-256 ranker's layer", 32, 268, 4, 128, 256, False),
+                                         ("D = V = 256", 4, 1024, 2, 256, 256, True)):
+        proj = rand(B, N, H * (2 * D + V))
+        v, q, k = torch.split(proj, [H * V, H * D, H * D], dim=-1)
+        q, k, v = q.reshape(B, N, H, D), k.reshape(B, N, H, D), v.reshape(B, N, H, V)
+        do = rand(N, B, H, V).transpose(0, 1)
+        lens = torch.cat([torch.full((1,), N, dtype=torch.int32, device="cuda"),
+                          torch.randint(N // 2, N, (B - 1,), device="cuda", generator=gen, dtype=torch.int32)])
+        tables = None
+        if relbias:
+            ts = 1_500_000_000 + torch.cumsum(torch.randint(1, 86400, (B, N), device="cuda", generator=gen), 1)
+            tables = (ts, rand(2 * N - 1) * 0.1, rand(129) * 0.1)
+        shapes[f"{name} (B {B}, N {N}, H {H}, D {D}, V {V})"] = dict(
+            f32=(q, k, v, do), bf16=tuple(x.to(torch.bfloat16) for x in (q, k, v, do)), lens=lens, D=D, N=N,
+            tables=tables)
+    return shapes
+
+
+def wide_bwd_times(device_ms, inputs: Dict[str, dict], label: str = "", plain: bool = True,
+                   only: Optional[Tuple[str, ...]] = None) -> None:
+    """Prints, per shape of ``inputs`` (`wide_bwd_inputs`), the wide backward's
+    kernels through their wrappers, each the mean of 10 launches, with the
+    route each plan took: K2, K3 and K4 (float32 at alpha D^-1/2; bfloat16 the
+    same), or K7 and K7-det with the tables; with ``plain`` the plain backward
+    of each type (the mean of 2). ``only``: the kernels to time."""
+    import torch
+
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    for shape, x in inputs.items():
+        out = {}
+        for sfx, (q, k, v, do) in (("", x["f32"]), ("-bf16", x["bf16"])):
+            ent = sfx.replace("-", "_")
+            kw = dict(alpha=x["D"] ** -0.5, max_seq_len=x["N"])
+            lens = x["lens"]
+            if x["tables"] is not None:
+                ts, pos_w, ts_w = x["tables"]
+                c = hr.hstu_mha_relbias_bwd_cuda
+                args = (q, k, v, lens, ts, pos_w, ts_w, do)
+                runs = {f"K7{sfx}": (lambda: c(*args, num_buckets=128, **kw), c.launches_bf16 if sfx else c.launches),
+                        f"K7-det{sfx}": (lambda: c(*args, deterministic=True, num_buckets=128, **kw),
+                                         c.launches_det_bf16 if sfx else c.launches_det)}
+                plain_fn = lambda: hr.hstu_mha_relbias_bwd_plain(*args, num_buckets=128, **kw)  # noqa: E731
+            else:
+                do_c = do.contiguous()
+                one = dict(kw, causal=True, max_attn_len=0, contextual_seq_len=0, min_full_attn_seq_len=0)
+                lc = ha.hstu_mha_bwd_cuda.launches
+                runs = {f"K2{sfx}": (lambda: ha.hstu_mha_bwd_cuda(q, k, v, lens, do, **kw), lc["hstu_mha_bwd_fused" + ent]),
+                        f"K3{sfx}": (lambda: ha._bwd_kernel("hstu_mha_bwd_dq" + ent, q, k, v, lens, None, do_c, one),
+                                     lc["hstu_mha_bwd_dq" + ent]),
+                        f"K4{sfx}": (lambda: ha._bwd_kernel("hstu_mha_bwd_dkv" + ent, q, k, v, lens, None, do_c, one),
+                                     lc["hstu_mha_bwd_dkv" + ent])}
+                plain_fn = lambda: ha.hstu_mha_bwd_plain(q, k, v, lens, do, **kw)  # noqa: E731
+            for name, (fn, counter) in runs.items():
+                if only is not None and name not in only:
+                    continue
+                counter.reset()
+                out[name] = f"{device_ms(fn, 10):.4f} ms ({'/'.join(counter.routes)})"
+            if plain:
+                out[f"plain{sfx}"] = f"{device_ms(plain_fn, 2):.4f} ms"
+            torch.cuda.empty_cache()
+        print(f"{label + ': ' if label else ''}{shape}: " + ", ".join(f"{n} {t}" for n, t in out.items()))
 
 
 def k5_times(device_ms, rand, ints) -> None:

@@ -383,15 +383,18 @@ def test_backward_launch_plan_raises(args, match):
 
 @pytest.mark.parametrize("D,V", [(257, 32), (32, 129), (256, 256), (320, 136)])
 def test_backward_launch_plan_admits_wide_heads(D, V):
-    """D above 256 or V above 128 take the wide dkv pass (K2:
-    after the wide dq pass): a block per (64-column key tile, head, batch
-    row, output chunk), the chunks dV's then dK's."""
+    """D above 256 or V above 128 take the wide dkv pass (K2 with its dQ): a
+    cluster per (64-column key tile, head, batch row) of one block per
+    chunk, D's then V's; each block 64 resident rows of one chunk, two
+    stages of 32 streamed rows, two exchange buffers and the A tile."""
     B, H, N = 32, 4, 268
     plan = ha._bwd_plan(D, V, H, B, N)
     chunks = -(-D // 128) + -(-V // 128)
     assert plan["route"] == "wide" and plan["grid"] == (-(-N // 64) * H * B * chunks,)
-    assert plan["shared_bytes"] == 4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72) <= 232448
-    assert plan["dq"]["grid"] == (-(-N // 64) * H * B * -(-D // 128),)
+    assert plan["cluster"] == chunks and plan["chunks_per_block"] == 1
+    assert plan["d_blocks"] == -(-D // 128) and plan["v_blocks"] == -(-V // 128)
+    assert plan["shared_bytes"] == 4 * (64 * 136 + 2 * 32 * 136 + 64 * 40 + 2 * 64 * 40 + 8) <= 232448
+    assert plan["dq"]["grid"] == plan["grid"]
 
 
 # padded width -> (query rows, key columns, shared bytes), as
@@ -424,12 +427,17 @@ def test_dq_launch_plan_raises(args, match):
 
 @pytest.mark.parametrize("D,V", [(257, 32), (32, 129), (256, 256), (1024, 8)])
 def test_dq_launch_plan_admits_wide_heads(D, V):
-    """D above 256 or V above 128 take the wide dq pass: a
-    block per (64-row query tile, head, batch row, dQ chunk of 128)."""
+    """D above 256 or V above 128 take the wide dq pass: a cluster per
+    (64-row query tile, head, batch row), one block per chunk of D and V of
+    128, or per two chunks past a portable cluster's 8 blocks (D 1024: 8 + 1
+    chunks in 4 + 1 blocks)."""
     B, H, N = 32, 4, 1036
     plan = ha._dq_plan(D, V, H, B, N)
-    assert plan["route"] == "wide" and plan["grid"] == (-(-N // 64) * H * B * -(-D // 128),)
-    assert plan["shared_bytes"] == 4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8) <= 232448
+    m = 1 if -(-D // 128) + -(-V // 128) <= 8 else 2
+    cluster = -(-D // (128 * m)) + -(-V // (128 * m))
+    assert plan["route"] == "wide" and plan["grid"] == (-(-N // 64) * H * B * cluster,)
+    assert plan["cluster"] == cluster and plan["chunks_per_block"] == m
+    assert plan["shared_bytes"] == 4 * (m * 64 * 136 + 2 * m * 32 * 136 + 64 * 40 + 2 * 64 * 40 + 8) <= 232448
 
 
 _C_TYPES = {"const float*": ha._P, "float*": ha._P, "const int*": ha._P, "int*": ha._P, "void*": ha._P, "int": ha._I,

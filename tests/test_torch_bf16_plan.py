@@ -122,12 +122,16 @@ def test_bf16_plans_at_every_narrow_width(D, V):
 def test_bf16_plans_read_tables_that_do_not_fit_and_keep_the_wide_body():
     """K6-bf16 reads a table that does not fit beside its bfloat16 tiles
     (route ``read``, the tiles' bytes alone), and heads wider than D 256 or
-    V 128 take the wide bodies on bfloat16 as on float32."""
+    V 128 take the wide bodies on bfloat16 as on float32 (the backward's
+    clusters the same, on bfloat16 tiles after the pre-scaling pass)."""
     plan = ha._fwd_plan(64, 64, 2, 30000, 128, True, 2, 256, torch.bfloat16)
     dense = ha._fwd_plan(64, 64, 2, 0, 0, False, 2, 256, torch.bfloat16)
     assert plan == dict(dense, route="read")
     assert ha._fwd_plan(320, 64, 2, 0, 0, False, 2, 256, torch.bfloat16) == ha._fwd_plan(320, 64, 2, 0, 0, False, 2, 256)
-    assert ha._bwd_plan(64, 136, 2, 2, 256, torch.bfloat16) == ha._bwd_plan(64, 136, 2, 2, 256)
+    b16, f32 = ha._bwd_plan(64, 136, 2, 2, 256, torch.bfloat16), ha._bwd_plan(64, 136, 2, 2, 256)
+    assert b16["route"] == f32["route"] == "wide" and b16["grid"] == f32["grid"] and b16["cluster"] == f32["cluster"]
+    assert b16["shared_bytes"] < f32["shared_bytes"] and b16["do_scaled_shape"] == (2, 256, 2, 136)
+    assert "do_scaled_shape" not in f32
 
 
 def _bf16_inputs(seed, B, N, H, D, ctx, targets):
@@ -335,7 +339,8 @@ def test_bf16_dq_plan_at_every_narrow_width(D, V):
 def test_float32_backward_plans_stay():
     """The float32 plans of K3 and K7 are those of the float32 bodies, with
     no key of the bfloat16 ones, and the element type defaults to float32;
-    the wide routes are the same on both types."""
+    the wide routes are taken at the same widths and grids on both types,
+    the bfloat16 one with its pre-scaling pass."""
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
 
     for D in (25, 32, 64):
@@ -352,8 +357,11 @@ def test_float32_backward_plans_stay():
             route="narrow", width=D, query_rows=64, key_cols=cols, head_group=1,
             shared_bytes=4 * ((64 + 2 * cols) * (D + 8 + vw + 8) + 64 * (cols + 8) + 4),
             grid=(-(-1036 // 64) * 4 * 8,))
-    assert ha._dq_plan(320, 64, 2, 2, 256, torch.bfloat16) == ha._dq_plan(320, 64, 2, 2, 256)
-    assert hr._relbias_bwd_plan(136, 136, 2, 100, 128, torch.bfloat16) == hr._relbias_bwd_plan(136, 136, 2, 100, 128)
+    for b16, f32 in ((ha._dq_plan(320, 64, 2, 2, 256, torch.bfloat16), ha._dq_plan(320, 64, 2, 2, 256)),
+                     (hr._relbias_bwd_plan(136, 136, 2, 100, 128, torch.bfloat16),
+                      hr._relbias_bwd_plan(136, 136, 2, 100, 128))):
+        assert b16["route"] == f32["route"] == "wide" and b16["grid"] == f32["grid"]
+        assert "q_scaled_shape" in b16 and "q_scaled_shape" not in f32
 
 
 def _recorded(monkeypatch):
@@ -368,13 +376,13 @@ def _recorded(monkeypatch):
 @pytest.mark.parametrize("deterministic", [False, True], ids=["K7-bf16", "K7-det-bf16"])
 @pytest.mark.parametrize("Nm,D,route", [(70, 32, "narrow"), (8000, 32, "read"), (70, 136, "wide")])
 def test_bf16_relbias_launch_passes_its_buffers(monkeypatch, alpha, deterministic, Nm, D, route):
-    """`_relbias_bwd` on bfloat16 (the launch recorded, not made): on the
-    bfloat16 body's routes (``narrow``, ``read``) bfloat16(alpha q)'s buffer
+    """`_relbias_bwd` on bfloat16 (the launch recorded, not made): on every
+    route (the bfloat16 body's ``narrow`` and ``read``, and ``wide``, whose
+    clusters take the pre-scaling pass too) bfloat16(alpha q)'s buffer
     after dO where alpha != 1 (None at alpha 1), then bfloat16(dO / norm)'s,
     the rows read in pieces of 8 elements (q, k and v views of one
-    projection at a pitch of 80 elements, dO contiguous); on
-    the wide route neither buffer and pieces of 4; the plan's route; one
-    count on K7-bf16's or K7-det-bf16's counter."""
+    projection at a pitch of 80 elements, dO contiguous); the plan's route;
+    one count on K7-bf16's or K7-det-bf16's counter."""
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
 
     calls = _recorded(monkeypatch)
@@ -400,22 +408,18 @@ def test_bf16_relbias_launch_passes_its_buffers(monkeypatch, alpha, deterministi
     plan = (hr._relbias_det_plan(D, V, H, B, N, Nm, 128, True, 0, torch.bfloat16) if deterministic
             else hr._relbias_bwd_plan(D, V, H, Nm, 128, torch.bfloat16, B, N))
     assert plan["route"] == route and call[-2] == ha._ROUTES[route]
-    if route == "wide":
-        assert call[5] is None and call[6] is None
-        assert call[-6:-2] == tuple(int(ha._vec16(t, 4)) for t in (q, k, v, do))
-    else:
-        assert (call[5] is None) == (alpha == 1.0) and isinstance(call[6], int) and call[5] != call[6]
-        assert plan["q_scaled_shape"] == (B, N, H, D) and plan["do_scaled_shape"] == (B, N, H, V)
-        assert call[-6:-2] == (1, 1, 1, 1) == tuple(int(ha._vec16(t, 8)) for t in (q, k, v, do))
+    assert (call[5] is None) == (alpha == 1.0) and isinstance(call[6], int) and call[5] != call[6]
+    assert plan["q_scaled_shape"] == (B, N, H, D) and plan["do_scaled_shape"] == (B, N, H, V)
+    assert call[-6:-2] == (1, 1, 1, 1) == tuple(int(ha._vec16(t, 8)) for t in (q, k, v, do))
 
 
 @pytest.mark.parametrize("alpha", [1.0, 0.3])
 @pytest.mark.parametrize("D,route", [(32, "narrow"), (200, "narrow"), (320, "wide")])
 def test_bf16_dq_launch_passes_its_buffers(monkeypatch, alpha, D, route):
     """`_bwd_kernel` for K3-bf16 (the launch recorded, not made): on the
-    bfloat16 body (route ``narrow``) alpha q's buffer after dO where alpha
-    != 1, then dO / norm's, and pieces of 8 elements; on the wide route
-    neither, and pieces of 4; dq bfloat16 and dk, dv None."""
+    bfloat16 body (route ``narrow``) and on the wide route alike alpha q's
+    buffer after dO where alpha != 1, then dO / norm's, and pieces of 8
+    elements; dq bfloat16 and dk, dv None."""
     calls = _recorded(monkeypatch)
     B, N, H, V = 2, 70, 3, 64
     q, k = torch.zeros(B, N, H, D, dtype=torch.bfloat16), torch.zeros(B, N, H, D, dtype=torch.bfloat16)
@@ -428,9 +432,6 @@ def test_bf16_dq_launch_passes_its_buffers(monkeypatch, alpha, D, route):
     (call,) = calls
     assert len(call) - 1 == len(ha._ARGTYPES["hstu_mha_bwd_dq_bf16"]) and call[-2] == ha._ROUTES[route]
     assert ha._dq_plan(D, V, H, B, N, torch.bfloat16)["route"] == route
-    if route == "wide":
-        assert call[5] is None and call[6] is None
-    else:
-        assert (call[5] is None) == (alpha == 1.0) and isinstance(call[6], int)
+    assert (call[5] is None) == (alpha == 1.0) and isinstance(call[6], int)
     assert call[7] == dq.data_ptr()
-    assert call[-6:-2] == tuple(int(ha._vec16(t, 8 if route == "narrow" else 4)) for t in (q, k, v, do))
+    assert call[-6:-2] == tuple(int(ha._vec16(t, 8)) for t in (q, k, v, do))

@@ -38,7 +38,12 @@ a second run, and is held to 2e-5 of each output's largest entry in float32 (to
 2^-6, the tables to 1e-5, on bfloat16). K1-bias, K1 with an additive [B, N,
 N] bias, is held to its plain version as K1 (float32) and K1-bf16
 (bfloat16) are, with a float32 or bfloat16 bias, one per batch row or one
-for the batch.
+for the batch. The wide backward (heads above the narrow bodies' widths: a
+thread block cluster per tile, one block per chunk of 128 columns of D and
+V, two past a portable cluster's 8 blocks) is also run at the cluster's
+edges (D = V = 512, D 640 / V 512, the V-256 ranker's D 128 / V 256) and
+with the relative bias's tables read; its dk and dv, and K7-det's every
+output, the same bits on a second run.
 """
 
 import warnings
@@ -1340,6 +1345,65 @@ def test_relbias_kernels_with_long_tables(cuda, H, D, N, Nm, nb, bf16):
     do = torch.randn(N, 3, H, D, device=cuda).to(q.dtype).transpose(0, 1)
     kw = dict(alpha=1.0 if bf16 else 0.5, max_seq_len=N, num_buckets=nb, num_targets=None)
     _relbias_all((q, k, v, lengths, ts, pos_w, ts_w), do, kw, bf16)
+
+
+# ------------------------------- the wide backward at its clusters' edges
+# (D, V): 8 chunks, the most a portable cluster holds at one chunk a block;
+# 9 chunks, past it (5 blocks of two chunks); the V-256 ranker's layer
+CLUSTER_SHAPES = [(512, 512), (640, 512), (128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", CLUSTER_SHAPES)
+def test_wide_backward_at_the_cluster_edges(cuda, D, V, bf16):
+    """K2 and K3 + K4 (float32 or bfloat16) on the wide backward's clusters
+    at the portable cluster's edge, past it and at the V-256 ranker's
+    layer, with targets and a contextual row: every output within
+    `WIDE_TOL` (bfloat16 `BF16_TOL`) of the plain backward, zeros past the
+    lengths; K2's dk and dv and every output of K3 + K4 the same bits on a
+    second run; each launch on the route ``wide``."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, do, lengths, nt = _wide_views(46, 2, 150, 2, D, V, dtype, cuda)
+    kw = dict(alpha=D**-0.5, max_seq_len=160, num_targets=nt, contextual_seq_len=1)
+    sfx = "_bf16" if bf16 else ""
+    counter = hstu_mha_bwd_cuda.launches["hstu_mha_bwd_fused" + sfx]
+    before = counter.routes.get("wide", 0)
+    fused = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+    assert counter.routes.get("wide", 0) == before + 1
+    split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    dead = torch.arange(150, device=cuda)[None, :] >= lengths[:, None]
+    for kind, grads in (("K2", fused), ("K3 + K4", split)):
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            _held(f"{kind} {name}", g, w, bf16)
+            assert (g[dead] == 0).all()
+    again = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+    assert torch.equal(fused[1], again[1]) and torch.equal(fused[2], again[2])
+    again = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(split, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V,Nm", [(256, 256, 8000), (136, 512, 300), (640, 512, 160)])
+def test_wide_relbias_backward_on_clusters(cuda, D, V, Nm, bf16):
+    """K7 and K7-det on the wide backward's clusters, the tables read from
+    device memory (Nm 8000: more than a narrow block stages), at widths
+    that take one chunk a block and past a portable cluster: outputs and
+    tables against the plain backward (`_relbias_all`: K7-det's outputs the
+    same bits twice), K7's dk and dv the same bits twice."""
+    q, k, v, lengths, ts, pos_w, ts_w, nt = _relbias_inputs(47, 3, 150, 2, D, V, Nm, 128, True, cuda)
+    if bf16:
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    do = torch.randn(150, 3, 2, V, device=cuda).to(q.dtype).transpose(0, 1)
+    kw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=150, num_buckets=128, num_targets=nt)
+    args = (q, k, v, lengths, ts, pos_w, ts_w)
+    _relbias_all(args, do, kw, bf16)
+    grads = hstu_mha_relbias_bwd_cuda(*args, do, **kw)
+    again = hstu_mha_relbias_bwd_cuda(*args, do, **kw)
+    assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
 
 
 # ------------------------------------- K7 and K7-det in one pass up to 128

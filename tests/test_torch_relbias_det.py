@@ -93,9 +93,10 @@ def test_det_launch_plan_raises(args, match):
     ((32, 32, 2, 2, 40000, 1000, 10), "dq read"),
 ])
 def test_det_launch_plan_admits(args, route):
-    """Shapes past K7-det's staged tiling: wide heads take the wide bodies
-    (their dq pass, then one row of `partial` per (key tile, head, batch
-    row), no dQ slots); a long table is read from device memory by K7's
+    """Shapes past K7-det's staged tiling: wide heads take the wide backward
+    (its dq pass, then one row of `partial` per block of its dkv pass: a
+    cluster of one block per chunk of D and V per (key tile, head, batch
+    row); no dQ slots); a long table is read from device memory by K7's
     body; a long N (40,000 rows) takes the narrow body, its dQ slots one
     per causal tile pair."""
     D, V, H, B, N, Nm, NB = args
@@ -104,7 +105,8 @@ def test_det_launch_plan_admits(args, route):
     assert plan["partial_shape"][1] == 2 * Nm - 1 + NB + 1
     if route == "wide":
         assert plan["route"] == "wide" and plan["dq_shared_bytes"] <= 232448
-        assert plan["partial_shape"][0] == -(-N // 64) * H * B and plan["dq_partial_shape"] is None
+        assert plan["partial_shape"][0] == -(-N // 64) * H * B * (-(-D // 128) + -(-V // 128))
+        assert plan["dq_partial_shape"] is None
         assert plan["sum_grid"] == (-(-(2 * Nm - 1 + NB + 1) // 32),)  # the tables alone
     elif route == "read":
         assert plan["route"] == "read"
