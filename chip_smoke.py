@@ -68,6 +68,9 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    with the launch counters set to 0 just before each run and read just
    after; checks that the dense and M-FALCON predictions agree, and that
    the GPU path agrees with the CPU path (plain versions) on a small model;
+   then the same at --attn_dim 256 (qk = v = 256: K1 on the wide forward's
+   route its plan takes, in float32 the per-chunk body), dense and M-FALCON
+   agreeing, one dense predict profiled, K1 held and timed at its layer;
 4. training phase: trains the full-width `debug` preset through the port's
    `train_loop` (2 warm-up steps, then 20 counted and timed ones), checks
    the losses and that every attention forward and backward went through
@@ -75,8 +78,9 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    at uih 1024 that must take K3 + K4 and give the same bits twice (and a
    profile of one of its steps); then the V-256 ranker phase: the same preset
    at DlrmHSTUConfig's own hstu_attn_linear_dim 256 (2 + 10 steps, K1 and K2
-   3 a step on the wide route, one step profiled) and deterministic at uih
-   1024 twice (K1, K3, K4 on the wide route, the same bits), K1- to K4-wide
+   3 a step, K2 on the wide route and float32 K1 on the per-chunk one, one
+   step profiled) and deterministic at uih 1024 twice (K1 the same, K3, K4
+   on the wide route, the same bits), K1- to K4-wide
    held and timed at its layers with their bounds; then one
    training step's gradients on a small model, GPU kernels against the CPU
    plain versions; every ranker step here runs under the default STU
@@ -349,9 +353,30 @@ WIDE_PRESET, WIDE_HEAD, WIDE_STEPS = "ml-20m/hstu-sampled-softmax-n128", 128, 5
 # 9 past a portable cluster, the V-256 ranker's layer)
 WIDE_SHAPES = ((64, 136), (64, 192), (64, 256), (64, 320), (264, 64), (320, 64), (512, 64), (512, 512), (640, 512),
                (128, 256))
+# the widest-heads phases: (D, V) past 16 blocks of two chunks of the wide
+# backward's clusters, which take its per-chunk bodies (route wide_chunks)
+WIDEST = ((3968, 128), (2048, 2049))
 # the parity checks' small models: a ranker with 128-row tables, a research
 # model with 127 items (128 rows), global batches of 8
 PARITY_HASH, PARITY_ITEMS, PARITY_BATCH = 128, 127, 8
+
+
+# the attention kernels' work a call, in units of D and V: products per live
+# (query, key) pair of a head, columns read a live row (q, k, v and dO),
+# columns written an output row
+ATTN_WORK = {"K1": (1, 1, 2, 1, 0, 1), "K6": (1, 1, 2, 1, 0, 1), "K2": (3, 2, 2, 2, 2, 1), "K7": (3, 2, 2, 2, 2, 1),
+             "K3": (2, 1, 2, 2, 1, 0), "K4": (2, 2, 2, 2, 1, 1)}
+
+
+def attn_work(kernel: str, live: int, H: int, D: int, V: int, rows: int, out_rows: int, elem: int, extra: int = 0):
+    """(operations, bytes) of one call of ``kernel`` (K1, K6, K2, K7, K3, K4:
+    `ATTN_WORK`): ``live`` (query, key) pairs of a head that the mask keeps,
+    ``H`` heads, each of the ``rows`` live rows (of every head) read once,
+    each of the ``out_rows`` output rows (B N H) written once, ``elem`` bytes
+    an element, ``extra`` the bytes of the small inputs (lengths, targets,
+    tables, a dense bias)."""
+    pd, pv, rd, rv, wd, wv = ATTN_WORK[kernel]
+    return live * H * 2 * (pd * D + pv * V), elem * (rows * (rd * D + rv * V) + out_rows * (wd * D + wv * V)) + extra
 
 
 def fail(msg: str) -> None:
@@ -2272,6 +2297,77 @@ def main() -> None:
     print(f"  small model, GPU kernels vs CPU plain versions: max_abs_diff {small_err:.3e} (tol {PRED_TOL})")
     check(small_err <= PRED_TOL, "GPU and CPU predictions disagree")
 
+    # -------------------------------------- serving phase at --attn_dim 256
+    # the serving phase's argv with --attn_dim 256 (qk = v = 256, the CLI's
+    # own flag): V 256 is past the narrow forward's 128, so every layer of
+    # every dense predict takes the wide forward (K1; in float32 at D = V =
+    # 256 its per-chunk body, route wide_chunks, measured faster there than
+    # the clusters); M-FALCON takes it for the prefix and K5 for its
+    # candidates
+    WA = 256
+    wa_cfg = dataclasses.replace(cfg, hstu_attn_qk_dim=WA, hstu_attn_linear_dim=WA)
+    wa_route = hr.ha._fwd_plan(WA, WA, H, 0, 0, False, B, N_full)["route"]
+    print(f"serving phase at --attn_dim {WA}: debug preset, {L} layers, H={H}, qk=v={WA}, "
+          f"d_model={wa_cfg.hstu_transducer_embedding_dim}, the serving phase's uih + candidates (N={N_full}), batch "
+          f"{B}, {NUM_QUERIES} queries and int8 tables of {HASH_SIZE:,} rows")
+    for mode, extra in (("dense", []), ("mfalcon", ["--mfalcon"])):
+        count_reset()
+        result = serve.main(argv + ["--attn_dim", str(WA)] + extra)
+        n = counts()
+        k1_routes = dict(all_counters["K1"].routes)
+        predicts = NUM_WARMUPS + int(result["query_count"])
+        print(
+            f"  {mode}: qps {result['qps']:.3f}, scored (real, unpadded) candidates/s "
+            f"{result['scored_candidates_per_s']:.1f}, p50 {result['p50_ms']:.2f} ms, "
+            f"p99 {result['p99_ms']:.2f} ms; launches {n}, K1 by route {k1_routes}, over {predicts} predicts"
+        )
+        check(result["qps"] > 0 and int(result["query_count"]) == NUM_QUERIES, f"{mode} at {WA}: bad result {result}")
+        want_n = {**dict.fromkeys(n, 0), "K1": L * predicts,
+                  "K5": L * chunks * predicts if mode == "mfalcon" else 0}
+        check(n == want_n, f"{mode} at --attn_dim {WA} launched {n}, expected {want_n}")
+        # dense: the serving layer's route; M-FALCON's prefix (the uih rows
+        # alone) by its own plan, a wide route either way
+        check(k1_routes == {wa_route: L * predicts} if mode == "dense"
+              else set(k1_routes) <= {"wide", "wide_chunks"}, f"{mode} at --attn_dim {WA}: K1 went by {k1_routes}")
+    # dense vs M-FALCON on the invariance check's batch, at this width
+    with torch.device("cuda"):
+        model = DlrmHSTU(wa_cfg, tables, torch.Generator("cuda").manual_seed(1))
+    family = HSTUModelFamily(model, quantize=False)
+    dense = family.predict(uih_t, ul_t, cands_t, nc_t)
+    mf = family.predict_mfalcon(uih_t, ul_t, cands_t, torch.as_tensor(qt, device="cuda"))
+    check(tuple(dense.shape) == (T_tasks, B, MAX_CANDS), f"predict shape at --attn_dim {WA}: {tuple(dense.shape)}")
+    check(bool(torch.isfinite(dense).all() and torch.isfinite(mf).all()), f"non-finite predictions at {WA}")
+    wa_err = (dense - mf).abs().max().item()
+    print(f"  dense vs M-FALCON predictions at --attn_dim {WA}, one batch: max_abs_diff {wa_err:.3e} (tol {PRED_TOL})")
+    check(wa_err <= PRED_TOL, f"dense and M-FALCON predictions disagree at --attn_dim {WA}")
+    served = HSTUModelFamily(model, quantize=True)
+    profile(f"dense predict at --attn_dim {WA}", lambda: served.predict(uih_t, ul_t, cands_t, nc_t),
+            show=("hstu_wide::",))
+    # K1-wide alone at a layer of this predict: B, N, H, qk = v = 256, each
+    # row's uih + candidates + contextual rows, the candidates as targets
+    sl = torch.as_tensor(ul_b + MAX_CANDS + C, device="cuda", dtype=torch.int32)
+    s_nt = torch.full((B,), MAX_CANDS, device="cuda", dtype=torch.int32)
+    q_, k_, v_ = (x.reshape(B, N_full, H, WA) for x in torch.split(rand(B, N_full, 3 * H * WA), H * WA, dim=-1))
+    a_ = dict(alpha=WA**-0.5, max_seq_len=N_full, num_targets=s_nt, contextual_seq_len=C)
+    s_live = apply_padding_guard(make_valid_attn_mask(N_full, sl, num_targets=s_nt, contextual_seq_len=C),
+                                 sl).sum().item()
+    sa_ms = device_time_ms(lambda: hstu_mha_dense_cuda(q_, k_, v_, sl, **a_), 20)
+    sa_plain = device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, sl, **a_), 3)
+    sa_err = compare(f"K1-wide at the --attn_dim {WA} serving layer", hstu_mha_dense_cuda(q_, k_, v_, sl, **a_),
+                     hstu_mha_dense_plain(q_, k_, v_, sl, **a_),
+                     torch.arange(N_full, device="cuda")[None, :] >= sl[:, None])
+    sa_work = attn_work("K1", s_live, H, WA, WA, sl.sum().item() * H, B * N_full * H, 4, 8 * B)
+    t_ops, t_bytes = sa_work[0] / PEAK_3XTF32_FLOPS * 1e3, sa_work[1] / PEAK_BYTES_PER_S * 1e3
+    print(f"  K1-wide ({wa_route}) at the --attn_dim {WA} serving layer (B={B} N={N_full} H={H} D=V={WA}): "
+          f"{sa_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), "
+          f"plain {sa_plain:.4f} ms, max abs err {sa_err:.3e}")
+    # most of K1-wide's launches on the main paths are at this layer: its
+    # route's row of the kernels line
+    serve_rows = {f"K1/{wa_route}": dict(shape=f"--attn_dim {WA} serving layer B={B} N={N_full} H={H} D=V={WA}",
+                                         ms=sa_ms, plain_ms=sa_plain, work=sa_work, peak=PEAK_3XTF32_FLOPS, err=sa_err)}
+    del model, family, served, dense, mf, q_, k_, v_
+    torch.cuda.empty_cache()
+
     # ------------------------------------------------------- training phase
     L_tr = tcfg.hstu_attn_num_layers
     print(
@@ -2341,8 +2437,9 @@ def main() -> None:
     # --------------------------------------------------- V-256 ranker phase
     # the training phase's preset at DlrmHSTUConfig's own linear width (256;
     # every preset overrides it to 128): V 256 takes every layer's forward to
-    # the wide forward (K1-wide) and its backward to the wide backward's
-    # clusters (K2-wide; K3- and K4-wide under deterministic algorithms)
+    # the wide forward (K1-wide; float32 at D 128 on the per-chunk body,
+    # measured faster there) and its backward to the wide backward's clusters
+    # (K2-wide; K3- and K4-wide under deterministic algorithms)
     v_lin = next(f_.default for f_ in dataclasses.fields(DlrmHSTUConfig) if f_.name == "hstu_attn_linear_dim")
     v_cfg = dataclasses.replace(tcfg, hstu_attn_linear_dim=v_lin)
     Vw = v_cfg.hstu_attn_linear_dim
@@ -2365,8 +2462,9 @@ def main() -> None:
     check(all(math.isfinite(x) for x in v_losses), f"non-finite V-{Vw} training loss: {v_losses}")
     want_n = {**dict.fromkeys(n, 0), "K1": L_tr * V256_STEPS, "K2": L_tr * V256_STEPS}
     check(n == want_n, f"the V-{Vw} ranker launched {n}, expected {want_n}")
-    check(v_routes == {"K1": {"wide": L_tr * V256_STEPS}, "K2": {"wide": L_tr * V256_STEPS}},
-          f"the V-{Vw} ranker's launches went by {v_routes}, expected the wide route")
+    v_fwd = hr.ha._fwd_plan(D, Vw, H, 0, 0, False, B, N_tr)["route"]  # float32: the per-chunk body (measured faster)
+    check(v_routes == {"K1": {v_fwd: L_tr * V256_STEPS}, "K2": {"wide": L_tr * V256_STEPS}},
+          f"the V-{Vw} ranker's launches went by {v_routes}, expected K1 on {v_fwd}, K2 on the wide route")
     batch = to_device(next(batches(v_cfg, 1, 2)), trainer.device)
     profile(f"V-{Vw} ranker training step", lambda: trainer.train_step(batch), show=("hstu_wide::",))
     del trainer, batch
@@ -2383,7 +2481,8 @@ def main() -> None:
             routes_ = {k_: all_counters[k_].routes for k_ in ("K1", "K3", "K4")}
             want_n = {**dict.fromkeys(n, 0), "K1": DET_STEPS, "K3": DET_STEPS, "K4": DET_STEPS}
             check(n == want_n, f"the deterministic V-{Vw} run launched {n}, expected {want_n}")
-            check(routes_ == {k_: {"wide": DET_STEPS} for k_ in routes_},
+            d_fwd = hr.ha._fwd_plan(v_det_cfg.hstu_attn_qk_dim, Vw, H, 0, 0, False, 1, N_det)["route"]
+            check(routes_ == {"K1": {d_fwd: DET_STEPS}, "K3": {"wide": DET_STEPS}, "K4": {"wide": DET_STEPS}},
                   f"the deterministic V-{Vw} run's launches went by {routes_}")
             check(all(math.isfinite(x) for x in det_out["losses"]), f"non-finite deterministic V-{Vw} loss")
             v_det.append((det_out["losses"], [p.detach().clone() for p in trainer.model.parameters()]))
@@ -2396,6 +2495,54 @@ def main() -> None:
           f"and {l2}; every parameter bit-identical: {same}")
     check(same, f"two deterministic V-{Vw} runs from one seed differ")
     del v_det, p1, p2
+
+    # ------------------------------------------------ widest-heads phase
+    # the ranker trained at widths past 16 blocks of two 128-column chunks of
+    # the wide backward's clusters: qk 3968 / linear 128 (31 + 1 chunks) and
+    # qk 2048 / linear 2049 (16 + 17); one layer, batch 8, the training
+    # phase's uih and candidates, tables of 100,000 rows: the forward on
+    # clusters (K1, route wide), the backward on the per-chunk bodies (K2,
+    # route wide_chunks; K3 + K4 under deterministic algorithms)
+    WB_, WS_, WH_ = 8, 2, 100_000
+    x_tables = get_embedding_table_config("debug", hash_size=WH_, dim=tcfg.hstu_embedding_table_dim)
+    for qk_, lin_ in WIDEST:
+        x_cfg = dataclasses.replace(tcfg, hstu_attn_num_layers=1, hstu_attn_qk_dim=qk_, hstu_attn_linear_dim=lin_)
+        x_batches = lambda n_, seed_: make_dlrm_batches("debug", x_cfg, hash_size=WH_, batch_size=WB_,  # noqa: E731
+                                                        num_batches=n_, seed=seed_)
+        print(f"widest-heads phase: the training phase's preset with 1 layer, qk {qk_}, linear {lin_} "
+              f"({-(-qk_ // 128)} + {-(-lin_ // 128)} chunks), H={H}, N={N_tr}, batch {WB_}, 1 + {WS_} steps, then "
+              f"{WS_} deterministic")
+        trainer = DlrmTrainer(x_cfg, x_tables, DlrmTrainConfig(), device="cuda", seed=0)
+        train_loop(trainer, x_batches(1, 0))
+        count_reset()
+        x_out = train_loop(trainer, x_batches(WS_, 1))
+        n = counts()
+        x_routes = {k_: dict(all_counters[k_].routes) for k_ in ("K1", "K2")}
+        print(f"  median step {1e3 * median(x_out['step_s']):.2f} ms; losses {x_out['losses']}; launches by route "
+              f"{x_routes}")
+        # the forward on the route of its plan (both widths: clusters of 16
+        # blocks)
+        fwd_route = hr.ha._fwd_plan(qk_, lin_, H, 0, 0, False, WB_, N_tr)["route"]
+        check(all(math.isfinite(x) for x in x_out["losses"]), f"non-finite loss at qk {qk_} / linear {lin_}")
+        check(n == {**dict.fromkeys(n, 0), "K1": WS_, "K2": WS_}, f"qk {qk_} / linear {lin_} launched {n}")
+        check(x_routes == {"K1": {fwd_route: WS_}, "K2": {"wide_chunks": WS_}},
+              f"qk {qk_} / linear {lin_}: the launches went by {x_routes}")
+        del trainer
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            trainer = DlrmTrainer(x_cfg, x_tables, DlrmTrainConfig(), device="cuda", seed=3)
+            count_reset()
+            x_out = train_loop(trainer, x_batches(WS_, 4))
+            n = counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        x_routes = {k_: dict(all_counters[k_].routes) for k_ in ("K1", "K3", "K4")}
+        print(f"  deterministic: losses {x_out['losses']}; launches by route {x_routes}")
+        check(all(math.isfinite(x) for x in x_out["losses"]), f"non-finite deterministic loss at qk {qk_}")
+        check(x_routes == {"K1": {fwd_route: WS_}, "K3": {"wide_chunks": WS_}, "K4": {"wide_chunks": WS_}},
+              f"deterministic qk {qk_} / linear {lin_}: the launches went by {x_routes}")
+        del trainer, x_out
+        torch.cuda.empty_cache()
 
     # the wide route's rows of the kernels line, at the layer shapes this
     # phase gave them: K1-wide and K2-wide at the training shape, K3-wide and
@@ -2430,13 +2577,9 @@ def main() -> None:
                 "K2": lambda: hstu_mha_bwd_cuda(q_, k_, v_, lens_, do_, **a_),
                 "K3": lambda: _bwd_kernel("hstu_mha_bwd_dq", q_, k_, v_, lens_, nt_c, do_, one_),
                 "K4": lambda: _bwd_kernel("hstu_mha_bwd_dkv", q_, k_, v_, lens_, nt_c, do_, one_)}
-        rows_in = 4 * rows_ * (2 * D + 2 * Vw) + 4 * B * 2  # q, k, v, dO, lengths, targets
-        works_ = {  # (flops, bytes): each input read once, each output written once
-            "K1": (live_ * H * 2 * (D + Vw), 4 * rows_ * (2 * D + Vw) + 4 * B * 2 + 4 * B * N_ * H * Vw),
-            "K2": (live_ * H * 2 * (3 * D + 2 * Vw), rows_in + 4 * B * N_ * H * (2 * D + Vw)),
-            "K3": (live_ * H * 2 * (2 * D + Vw), rows_in + 4 * B * N_ * H * D),
-            "K4": (live_ * H * 2 * (2 * D + 2 * Vw), rows_in + 4 * B * N_ * H * (D + Vw)),
-        }
+        # (flops, bytes): each input read once (q, k, v, dO, lengths, targets),
+        # each output written once
+        works_ = {k_: attn_work(k_, live_, H, D, Vw, rows_, B * N_ * H, 4, 4 * B * 2) for k_ in kernels_}
         plain_f = device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, lens_, **a_), 3)
         for kname in kernels_:
             err_ = max(compare(f"{kname}-wide V={Vw} N={N_} {g}", a, w, dead_)
@@ -2446,7 +2589,9 @@ def main() -> None:
             print(f"  {kname}-wide at the V-{Vw} ranker's layer (B={B} N={N_} H={H} D={D} V={Vw}): {ms_:.4f} ms, "
                   f"bound {max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), plain "
                   f"{plain_f if kname == 'K1' else plain_b:.4f} ms")
-            v256_rows[f"{kname}/wide"] = dict(
+            route_ = (hr.ha._fwd_plan(D, Vw, H, 0, 0, False, B, N_)["route"] if kname == "K1"
+                      else "wide")
+            v256_rows[f"{kname}/{route_}"] = dict(
                 shape=f"V-{Vw} ranker layer B={B} N={N_} H={H} D={D} V={Vw}", ms=ms_, err=err_,
                 plain_ms=plain_f if kname == "K1" else plain_b, work=works_[kname], peak=PEAK_3XTF32_FLOPS)
         del q_, k_, v_, do_, want_f, want_b, got_
@@ -3462,6 +3607,96 @@ def main() -> None:
                     held("K5" + tag, got5, delta_hstu_mha_plain(dq_, k_, v_, w_len, **a5), tol)
                     check(torch.equal(got5, delta_hstu_mha_cuda(dq_, k_, v_, w_len, **a5)), f"K5{tag}: two runs differ")
             del q_, k_, v_, do_, bias_, want, got, again
+        # the widest heads (`WIDEST`, past 16 blocks of two chunks of the wide
+        # backward's clusters), B 1, H 1, N 300, a full row: K1, K1-bias and K6
+        # on the forward's clusters, K2, K3 + K4, K7 and K7-det on the
+        # per-chunk route, both types, against their plain versions; the
+        # forward, K3 + K4 and K7-det the same bits twice. The float32 times
+        # at D 3968 / V 128 are the rows of the main paths' launches on these
+        # routes (the widest-heads phases; K1-wide's too).
+        widest_rows = {}
+        xB, xN, xH = 1, 300, 1
+        x_len = torch.full((xB,), xN, device="cuda", dtype=torch.int32)
+        x_live = xN * (xN + 1) // 2
+        print(f"widest-heads kernel phase: (D, V) in {list(WIDEST)}, B={xB} N={xN} H={xH}, full rows: K1, K1-bias, K6, "
+              f"K2, K3 + K4, K7 and K7-det (float32 and bfloat16) against their plain versions")
+        for Dw, Vw in WIDEST:
+            for dt in (torch.float32, torch.bfloat16):
+                bf = dt == torch.bfloat16
+                s_, sfx, peak = (2, "-bf16", PEAK_BF16_FLOPS) if bf else (4, "", PEAK_3XTF32_FLOPS)
+                tag, tol = f"{sfx} D={Dw} V={Vw}", BF16_TOL if bf else REL_TOL
+                q_, k_, v_, do_ = views(xB, xN, xH, Dw, Vw, dt)
+                a_ = dict(alpha=Dw**-0.5, max_seq_len=xN)
+                f1 = hstu_mha_dense_cuda(q_, k_, v_, x_len, **a_)
+                e1 = held("K1" + tag, f1, hstu_mha_dense_plain(q_, k_, v_, x_len, **a_), tol)
+                check(torch.equal(f1, hstu_mha_dense_cuda(q_, k_, v_, x_len, **a_)), f"K1{tag}: two runs differ")
+                bias_ = rand(xB, xN, xN) * 0.3
+                held("K1-bias" + tag, hstu_mha_dense_cuda(q_, k_, v_, x_len, bias=bias_, **a_),
+                     hstu_mha_dense_plain(q_, k_, v_, x_len, bias=bias_, **a_), tol)
+                want = hstu_mha_bwd_plain(q_, k_, v_, x_len, do_, **a_)
+                errs_ = {}
+                for kname, split in (("K2", False), ("K3 + K4", True)):
+                    got = hstu_mha_bwd_cuda(q_, k_, v_, x_len, do_, split=split, **a_)
+                    errs_[kname] = [held(f"{kname}{tag} {g}", x_, w_, tol) for g, x_, w_ in zip(("dq", "dk", "dv"),
+                                                                                                  got, want)]
+                again = hstu_mha_bwd_cuda(q_, k_, v_, x_len, do_, split=True, **a_)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K3 + K4{tag}: two runs differ")
+                pw_, tw_ = bias_tables(xN, 128)
+                rargs = (q_, k_, v_, x_len, random_ts(xB, xN, x_len), pw_, tw_)
+                rkw = dict(alpha=1.0 if bf else Dw**-0.5, max_seq_len=xN, num_buckets=128)
+                e6 = held("K6" + tag, hstu_mha_dense_relbias_cuda(*rargs, **rkw),
+                          hstu_mha_dense_relbias_plain(*rargs, **rkw), tol)
+                want7 = hstu_mha_relbias_bwd_plain(*rargs, do_, **rkw)
+                for kname, det in (("K7", False), ("K7-det", True)):
+                    got = hstu_mha_relbias_bwd_cuda(*rargs, do_, deterministic=det, **rkw)
+                    errs_[kname] = [held(f"{kname}{tag} {g}", x_, w_, (DET_BF16_TABLE_TOL if bf and det else TABLE_TOL)
+                                         if g.startswith("d") and g.endswith("_w") else tol)
+                                    for g, x_, w_ in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want7)]
+                again = hstu_mha_relbias_bwd_cuda(*rargs, do_, deterministic=True, **rkw)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K7-det{tag}: two runs differ")
+                fwd_route = "wide" if hr.ha._wide_fwd_cluster(Dw, Vw) else "wide_chunks"
+                routes_ = (hr.ha._fwd_plan(Dw, Vw, xH, 0, 0, False, xB, xN, dt)["route"],
+                           hr.ha._bwd_plan(Dw, Vw, xH, xB, xN, dt)["route"],
+                           hr._relbias_bwd_plan(Dw, Vw, xH, xN, 128, dt, xB, xN)["route"])
+                print(f"  the plans' routes at D={Dw} V={Vw}{sfx} (forward, backward, K7): {routes_}")
+                check(routes_ == (fwd_route, "wide_chunks", "wide_chunks"), f"D={Dw} V={Vw}: routes {routes_}")
+                # times beside the plain versions and the bounds
+                rows = xB * xN * xH
+                small = 4 * (xB * xN + 2 * xN - 1 + 129 + xB)
+                one_ = dict(alpha=Dw**-0.5, max_seq_len=xN, causal=True, max_attn_len=0, contextual_seq_len=0,
+                            min_full_attn_seq_len=0)
+                do_c = do_.contiguous()
+                ent = sfx.replace("-", "_")
+                work = lambda k_, extra=0: attn_work(k_, x_live, xH, Dw, Vw, rows, rows, s_, 4 * xB + extra)  # noqa: E731
+                timed = {
+                    "K1": (lambda: hstu_mha_dense_cuda(q_, k_, v_, x_len, **a_),
+                           lambda: hstu_mha_dense_plain(q_, k_, v_, x_len, **a_), work("K1"), e1),
+                    "K6": (lambda: hstu_mha_dense_relbias_cuda(*rargs, **rkw),
+                           lambda: hstu_mha_dense_relbias_plain(*rargs, **rkw), work("K6", small), e6),
+                    "K2": (lambda: hstu_mha_bwd_cuda(q_, k_, v_, x_len, do_, **a_),
+                           lambda: hstu_mha_bwd_plain(q_, k_, v_, x_len, do_, **a_), work("K2"), max(errs_["K2"])),
+                    "K3": (lambda: _bwd_kernel("hstu_mha_bwd_dq" + ent, q_, k_, v_, x_len, None, do_c, one_),
+                           lambda: hstu_mha_bwd_plain(q_, k_, v_, x_len, do_, **a_), work("K3"),
+                           errs_["K3 + K4"][0]),
+                    "K4": (lambda: _bwd_kernel("hstu_mha_bwd_dkv" + ent, q_, k_, v_, x_len, None, do_c, one_),
+                           lambda: hstu_mha_bwd_plain(q_, k_, v_, x_len, do_, **a_), work("K4"),
+                           max(errs_["K3 + K4"][1:])),
+                    "K7": (lambda: hstu_mha_relbias_bwd_cuda(*rargs, do_, **rkw),
+                           lambda: hstu_mha_relbias_bwd_plain(*rargs, do_, **rkw), work("K7", 2 * small),
+                           max(errs_["K7"])),
+                    "K7-det": (lambda: hstu_mha_relbias_bwd_cuda(*rargs, do_, deterministic=True, **rkw),
+                               lambda: hstu_mha_relbias_bwd_plain(*rargs, do_, **rkw), work("K7", 2 * small),
+                               max(errs_["K7-det"])),
+                }
+                shape = f"D={Dw} V={Vw}, B={xB} N={xN} H={xH}{' bfloat16' if bf else ''}"
+                for kname, (fn, plain, work, err) in timed.items():
+                    ms, plain_ms = timed_row(kname + sfx, shape, fn, plain, work, peak, reps=5)
+                    key = f"{kname}/{fwd_route if kname in ('K1', 'K6') else 'wide_chunks'}"
+                    if not bf and key not in widest_rows:  # each route's row at the first shape it takes
+                        widest_rows[key] = dict(shape=shape, ms=ms, plain_ms=plain_ms, work=work, peak=peak, err=err)
+                del q_, k_, v_, do_, do_c, bias_, want, want7, got, again, rargs, timed
+                torch.cuda.empty_cache()
+
         # the wide instances' times at V 256 and at D 512, B 4, N 2048, H 2
         tB, tN = 4, 2048
         t_len = torch.cat([torch.full((1,), tN, device="cuda", dtype=torch.int32), ints(tN // 2, tN, tB - 1)])
@@ -3476,29 +3711,25 @@ def main() -> None:
                 q_, k_, v_, do_ = views(tB, tN, wH, Dw, Vw, dt)
                 a_ = dict(alpha=Dw**-0.5, max_seq_len=tN)
                 shape = f"D={Dw} V={Vw}, B={tB} N={tN} H={wH}"
-                rows_in = s_ * t_rows * (2 * Dw + 2 * Vw) + 4 * tB
-                fwd_in = s_ * t_rows * (2 * Dw + Vw) + 4 * tB
+                work = lambda k_, extra=0: attn_work(k_, t_live, wH, Dw, Vw, t_rows, tB * tN * wH, s_,  # noqa: E731
+                                                     4 * tB + extra)
                 timed_row("K1" + sfx, shape, lambda: hstu_mha_dense_cuda(q_, k_, v_, t_len, **a_),
-                          lambda: hstu_mha_dense_plain(q_, k_, v_, t_len, **a_),
-                          (t_live * wH * 2 * (Dw + Vw), fwd_in + s_ * tB * tN * wH * Vw), peak)
+                          lambda: hstu_mha_dense_plain(q_, k_, v_, t_len, **a_), work("K1"), peak)
                 bias_ = rand(tB, tN, tN) * 0.3
                 timed_row("K1-bias" + sfx, shape, lambda: hstu_mha_dense_cuda(q_, k_, v_, t_len, bias=bias_, **a_),
-                          lambda: hstu_mha_dense_plain(q_, k_, v_, t_len, bias=bias_, **a_),
-                          (t_live * wH * 2 * (Dw + Vw), fwd_in + s_ * tB * tN * wH * Vw + 4 * t_live), peak)
+                          lambda: hstu_mha_dense_plain(q_, k_, v_, t_len, bias=bias_, **a_), work("K1", 4 * t_live),
+                          peak)
                 del bias_
                 timed_row("K2" + sfx, shape, lambda: hstu_mha_bwd_cuda(q_, k_, v_, t_len, do_, **a_),
-                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_),
-                          (t_live * wH * 2 * (3 * Dw + 2 * Vw), rows_in + s_ * tB * tN * wH * (2 * Dw + Vw)), peak)
+                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_), work("K2"), peak)
                 do_c = do_.contiguous()
                 one_ = dict(one, alpha=Dw**-0.5)
                 timed_row("K3" + sfx, shape, lambda: _bwd_kernel("hstu_mha_bwd_dq" + ent, q_, k_, v_, t_len, None, do_c,
                                                                  one_),
-                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_),
-                          (t_live * wH * 2 * (2 * Dw + Vw), rows_in + s_ * tB * tN * wH * Dw), peak)
+                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_), work("K3"), peak)
                 timed_row("K4" + sfx, shape, lambda: _bwd_kernel("hstu_mha_bwd_dkv" + ent, q_, k_, v_, t_len, None, do_c,
                                                                  one_),
-                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_),
-                          (t_live * wH * 2 * (2 * Dw + 2 * Vw), rows_in + s_ * tB * tN * wH * (Dw + Vw)), peak)
+                          lambda: hstu_mha_bwd_plain(q_, k_, v_, t_len, do_, **a_), work("K4"), peak)
                 if not bf:
                     dq_ = rand(tB, CHUNK, wH, Dw)
                     live5 = sum(min(int(n_), tN) for n_ in t_len.tolist()) * CHUNK  # each delta row sees up to its length
@@ -3745,10 +3976,33 @@ def main() -> None:
               f"parameters (tol {GRAD_TOL}); K1 {v_n['K1']}, K2 {v_n['K2']}")
         check(v_n == {"K1": vcfg.hstu_attn_num_layers, "K2": vcfg.hstu_attn_num_layers} and v_err <= GRAD_TOL,
               "the small linear_dim 256 ranker disagrees or launched other kernels")
+        # the widest heads on the research model (the relative bias): the
+        # small model at dqk / dv of `WIDEST`, one step each on the card
+        # against the CPU, counted as a main path's: K6 on the forward's
+        # clusters, K7 on the per-chunk route; under deterministic
+        # algorithms K7-det
+        for qk_, lin_ in WIDEST:
+            x_cfg = dataclasses.replace(small_cfg, model=dataclasses.replace(small_cfg.model, dqk=qk_, dv=lin_))
+            for det in (False, True):
+                k7 = "K7-det" if det else "K7"
+                count_reset()
+                torch.use_deterministic_algorithms(det, warn_only=True)
+                try:
+                    gpu_vs_cpu_step(f"research model with dqk {qk_} / dv {lin_}{' (deterministic)' if det else ''}",
+                                    x_cfg, sds, sbatch, FixedNegatives, {"K6": 3, k7: 3})
+                finally:
+                    torch.use_deterministic_algorithms(False)
+                counts()
+                x_routes = {k_: dict(all_counters[k_].routes) for k_ in ("K6", k7)}
+                fwd_route = "wide" if hr.ha._wide_fwd_cluster(qk_, lin_) else "wide_chunks"
+                check(x_routes == {"K6": {fwd_route: 3}, k7: {"wide_chunks": 3}},
+                      f"dqk {qk_} / dv {lin_}: the launches went by {x_routes}")
+        route_rows.update(widest_rows)
         return lh_median, route_rows
 
     lh_median, route_rows = every_shape_phases()
     route_rows.update(v256_rows)  # the V-256 ranker's wide rows
+    route_rows.update(serve_rows)  # K1's at the --attn_dim 256 serving layer (most of its launches)
 
     # ------------------------------------------ deterministic research phase
     # in a process of its own, the only one with CUBLAS_WORKSPACE_CONFIG set
@@ -4266,8 +4520,8 @@ def main() -> None:
         check(key in route_rows, f"{key}: {n_} launches on the main paths, timed at none of their shapes")
         base["launches"] -= n_
         r = route_rows[key]
-        kernels.append(entry(f"{base['name']}/{route}", (src + "hstu_attention_wide.cuh") if route == "wide"
-                             else base["source"], base["replaces"], n_, r["err"], r["ms"], r["plain_ms"], *r["work"],
+        kernels.append(entry(f"{base['name']}/{route}", (src + "hstu_attention_wide.cuh")
+                             if route in ("wide", "wide_chunks") else base["source"], base["replaces"], n_, r["err"], r["ms"], r["plain_ms"], *r["work"],
                              peak=r["peak"]))
         shapes.append(r["shape"])
     check(all(kr["launches"] > 0 for kr in kernels),

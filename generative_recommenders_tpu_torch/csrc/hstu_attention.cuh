@@ -22,10 +22,11 @@ namespace hstu {
 // The body a launch takes, as the Python plan chose it (`route` of the plans
 // in ops/cuda/hstu_attention.py and hstu_attention_relbias.py): the narrow
 // body with its tables staged in shared memory, the narrow body with its
-// tables read from device memory (K6, K7 and K7-det), or the wide body
-// of hstu_attention_wide.cuh. A launch takes the route it is given and
+// tables read from device memory (K6, K7 and K7-det), the wide bodies on
+// thread block clusters of hstu_attention_wide.cuh, or its per-chunk bodies
+// (the widths no cluster takes). A launch takes the route it is given and
 // returns cudaErrorInvalidValue where that body cannot take the shape.
-enum Route : int { kNarrow = 0, kRead = 1, kWide = 2 };
+enum Route : int { kNarrow = 0, kRead = 1, kWide = 2, kWideChunks = 3 };
 
 // bucket(x) = floor(ln(x) / 0.301), computed as ln(x) * (1 / 0.301) with the
 // full-precision logf: the form of the TPU kernel and of the plain version.

@@ -421,8 +421,12 @@ cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
 // dkv pass, K2's with FUSED (dQ added into the zeroed float32 dq: K2's dq,
 // or K2-bf16's sums that the entry point rounds); bfloat16 after the
 // pre-scaling pass into the wrapper's qs and dos.
+//
+// kWideChunks (`chunks`): K4 is `hstu_wide::dkv_chunks_kernel`; K2 is
+// `hstu_wide::dq_chunks_kernel`, which writes the float32 dq buffer whole
+// (K2's dq, or K2-bf16's sums), then the same; no pre-scaling pass.
 template <bool FUSED, typename E>
-int launch_wide(const Params<E>& p, cudaStream_t stream) {
+int launch_wide(const Params<E>& p, bool chunks, cudaStream_t stream) {
   hstu_wide::Params<E> w = hstu_wide::from<E>(p);
   w.dout = p.dout;
   w.dq = p.dq;
@@ -434,6 +438,13 @@ int launch_wide(const Params<E>& p, cudaStream_t stream) {
   w.vec_do = p.vec_do;
   w.qs = p.qs;
   w.dos = p.dos;
+  if (chunks) {
+    if (FUSED) {
+      const cudaError_t err = hstu_wide::launch_dq_chunks<false, E, float>(w, stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+    return (int)hstu_wide::launch_dkv_chunks<false, false, E>(w, stream);
+  }
   const cudaError_t err = hstu_wide::prescale(w, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)hstu_wide::launch_bwd<hstu_wide::kDkvPass, false, false, FUSED, E>(w, stream);
@@ -446,14 +457,15 @@ int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s);
 // Launches on `stream` the body `route` names (hstu::Route, the Python
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
 // body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128 padded
-// to the next of 32, 64, 128 (256 for D); kWide: the wide bodies. The Python
+// to the next of 32, 64, 128 (256 for D); kWide: the wide bodies on
+// clusters; kWideChunks: the per-chunk wide bodies. The Python
 // wrapper decides the `vec_*` flags (pieces of 16 bytes).
 template <bool FUSED, typename E>
 int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.V < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == hstu::kWide) return launch_wide<FUSED, E>(p, s);
+  if (route == hstu::kWide || route == hstu::kWideChunks) return launch_wide<FUSED, E>(p, route == hstu::kWideChunks, s);
   if (route != hstu::kNarrow || p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<E, float>::value) {
     const int w = p.D > p.V ? p.D : p.V;

@@ -325,9 +325,10 @@ cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
 
 // The wide backward's dq pass (hstu_attention_wide.cuh) on the same
 // parameters; bfloat16 after the pre-scaling pass into the wrapper's qs and
-// dos
+// dos; `chunks`: the per-chunk dq pass (`hstu_wide::dq_chunks_kernel`, no
+// pre-scaling pass)
 template <typename T>
-int launch_wide(const Params<T>& p, cudaStream_t stream) {
+int launch_wide(const Params<T>& p, bool chunks, cudaStream_t stream) {
   hstu_wide::Params<T> w = hstu_wide::from<T>(p);
   w.dout = p.dout;
   w.dq = p.dq;
@@ -337,6 +338,7 @@ int launch_wide(const Params<T>& p, cudaStream_t stream) {
   w.vec_do = p.vec_do;
   w.qs = p.qs;
   w.dos = p.dos;
+  if (chunks) return (int)hstu_wide::launch_dq_chunks<false, T, T>(w, stream);
   const cudaError_t err = hstu_wide::prescale(w, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)hstu_wide::launch_bwd<hstu_wide::kDqPass, false, false, false, T>(w, stream);
@@ -349,14 +351,15 @@ int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s);
 // Launches on `stream` the body `route` names (hstu::Route, the Python
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
 // body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128 padded
-// to the next of 32, 64, 128 (256 for D); kWide: the wide body. The Python
+// to the next of 32, 64, 128 (256 for D); kWide: the wide body on clusters;
+// kWideChunks: the per-chunk wide body. The Python
 // wrapper decides the `vec_*` flags (pieces of 16 bytes).
 template <typename T>
 int launch(const Params<T>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
   if (p.D < 1 || p.V < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == hstu::kWide) return launch_wide<T>(p, s);
+  if (route == hstu::kWide || route == hstu::kWideChunks) return launch_wide<T>(p, route == hstu::kWideChunks, s);
   if (route != hstu::kNarrow || p.D > 256 || p.V > 128) return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<T, float>::value) {
     const int w = p.D > p.V ? p.D : p.V;

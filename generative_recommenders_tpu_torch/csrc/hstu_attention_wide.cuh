@@ -4,23 +4,29 @@
 // generative_recommenders_tpu/ops/pallas/hstu_attention.py and
 // hstu_attention_relbias.py lane-pad any width and, past their VMEM gates,
 // drop to 3-D-grid kernels that take any width; these bodies are the port's
-// counterpart. The entry points dispatch here by shape:
+// counterpart. The entry points dispatch here by the route of the Python
+// plan (`hstu::Route`):
 // * the forward (K1, K1-bias, K6): V above 128 or D above 256;
 // * the dense backward (K2, K3, K4): V above 128 or D above 256;
 // * the relative-bias backward (K7, K7-det): D or V above 128.
-// Every width is cut into chunks of kC = 128 columns, the last one padded
-// with zeros.
-// * The forward (`fwd_kernel`): one block per (64-row query tile, head,
-//   batch row, V chunk); S = alpha Q K^T is summed over D's chunks in
-//   registers before the bias, silu and the mask, and recomputed by each
-//   V chunk's block; its products `mma.sync.m16n8k8` TF32 (tf32_mma.cuh):
-//   3xTF32 in float32, one exact TF32 product on bfloat16 values (alpha q
-//   rounded on load, P before P V). Its loads wait: right first and slow.
-// * The backward (`bwd_kernel`, below): one thread block cluster per
-//   64-row tile, whose blocks split D's and V's chunks, form their own parts
-//   of S and dP once per tile pair and sum them through distributed shared
-//   memory in rank order; 3xTF32 in float32, the bfloat16 tensor cores
-//   (m16n8k16) on bfloat16; copies double-buffered by `cp.async`.
+// Route kWide: thread block clusters whose blocks split D's and V's columns
+// and form S (and dP) once per tile pair, the blocks' parts summed through
+// distributed shared memory in rank order (the same bits on every run);
+// copies double-buffered by `cp.async`; 3xTF32 in float32, the bfloat16
+// tensor cores (m16n8k16) on bfloat16:
+// * the forward (`fwd_kernel`): one cluster per (64-row query tile, head,
+//   batch row), each block a slice of D's columns for S (Q resident, K
+//   streamed) and of V's for O (V streamed, O in registers);
+// * the backward (`bwd_kernel`): one cluster per 64-row tile, each block one
+//   or two 128-column chunks of D or of V.
+// Route kWideChunks, for the widths no cluster takes (the forward past 16
+// blocks of 3 tiles of 128 columns, the backward past 16 blocks of two
+// chunks) and for the float32 forward where it was measured faster (D of 65
+// to 256 and V of two chunks on grids that fill the card, or D up to 128
+// without a bias; the Python plan chooses): the per-chunk bodies (`fwd_chunks_kernel`, `dq_chunks_kernel`,
+// `dkv_chunks_kernel`), a block per output chunk, which recompute S (and dP)
+// for each chunk, multiply in TF32 on float32 tiles (3xTF32 in float32, one
+// exact product on bfloat16 values) and whose loads wait; any width.
 // Tables and timestamps of the relative bias are read through the L1 cache,
 // never staged: a table of any length fits.
 // Bound: the kernels' own (the same functions); PERF.md has the times.
@@ -42,8 +48,8 @@ using namespace hstu_tf32;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxShared = 232448;
-constexpr int kThreads = 128;     // the forward: 4 warps
-constexpr int kBwdThreads = 256;  // the backward: 8 warps
+constexpr int kThreads = 128;     // the per-chunk forward: 4 warps
+constexpr int kBwdThreads = 256;  // the other bodies: 8 warps
 constexpr int kC = 128;        // columns of a chunk of D or V
 constexpr int kP = kC + 8;     // pitch of a chunk tile
 // A float32 time gap |dt| <= FLT_MAX has floor(ln(|dt|) / 0.301) <= 294, so
@@ -61,7 +67,8 @@ struct Params {
   const E* v;
   const E* dout;
   void* out;  // the forward: E, contiguous [B, N, H, V]
-  void* dq;   // the dq pass: E; the dkv pass with FUSED: a zeroed float32 buffer; contiguous [B, N, H, D]
+  void* dq;   // the dq pass: E; the dkv pass with FUSED: a zeroed float32 buffer; `dq_chunks_kernel`: its DQ;
+              // contiguous [B, N, H, D]
   E* dk;      // contiguous [B, N, H, D]
   E* dv;      // contiguous [B, N, H, V]
   const int* lengths;      // int32 [B]
@@ -95,14 +102,31 @@ struct Params {
 
 __host__ __device__ constexpr int chunks(int w) { return (w + kC - 1) / kC; }
 
-// The forward: Q [64][kP], K [32][kP], V [32][kC + 4]
+// The per-chunk forward: Q [64][kP], K [32][kP], V [32][kC + 4]
 constexpr int kFwdRows = 64, kFwdCols = 32;
-constexpr int fwd_smem_bytes() { return 4 * (kFwdRows * kP + kFwdCols * kP + kFwdCols * (kC + 4)); }
-static_assert(fwd_smem_bytes() <= kMaxShared, "the tiles fit a block's shared memory");
+constexpr int fwd_chunks_smem_bytes() { return 4 * (kFwdRows * kP + kFwdCols * kP + kFwdCols * (kC + 4)); }
+// The per-chunk dq pass: Q and dO [64][kP], K and V [32][kP], dS [64][32 + 8],
+// the warps' live flags
+constexpr int kDqRows = 64, kDqCols = 32;
+constexpr int dq_chunks_smem_bytes() {
+  return 4 * (2 * kDqRows * kP + 2 * kDqCols * kP + kDqRows * (kDqCols + 8) + kBwdThreads / 32);
+}
+// The per-chunk dkv pass: Q and dO [32][kP], K and V [64][kP], P and dS [32][64
+// + 8]; with the bias the float32 dS [32][72], the step's diagonal sums and
+// eight warps' copies of `dts_w`'s sums
+constexpr int kDkvRows = 32, kDkvCols = 64, kDkvDiags = kDkvRows + kDkvCols - 1;
+constexpr int dkv_chunks_smem_bytes(bool relbias) {
+  return 4 * (2 * kDkvRows * kP + 2 * kDkvCols * kP + 2 * kDkvRows * (kDkvCols + 8) +
+              (relbias ? kDkvRows * (kDkvCols + 8) + kDkvDiags + 1 + kBwdThreads / 32 * kTsSlots : 0));
+}
+static_assert(dkv_chunks_smem_bytes(true) <= kMaxShared && dq_chunks_smem_bytes() <= kMaxShared &&
+                  fwd_chunks_smem_bytes() <= kMaxShared,
+              "the tiles fit a block's shared memory");
 
-// Chunk c (columns c kC .. + kC) of one head's rows [r0, r0 + ROWS) into a
-// [ROWS][P] tile: float32 asynchronously, bfloat16 converted (scaled and
-// rounded where scale != 1); zeros at rows >= lim and columns >= w.
+// The per-chunk bodies' loads: chunk c (columns c kC .. + kC) of one head's
+// rows [r0, r0 + ROWS) into a [ROWS][P] float32 tile: float32
+// asynchronously, bfloat16 converted (scaled and rounded where scale != 1);
+// zeros at rows >= lim and columns >= w.
 template <int P, int ROWS, int THREADS, typename E>
 __device__ __forceinline__ void load_chunk(float* dst, const E* src, long long sn, int r0, int lim,
                                            int w, int c, bool vec, float scale) {
@@ -165,154 +189,6 @@ __device__ __forceinline__ void store2(T* dst, int col, int w, float x0, float x
   } else {
     if (col < w) dst[col] = T(x0);
     if (col + 1 < w) dst[col + 1] = T(x1);
-  }
-}
-
-// ------------------------------------------------------------------ forward
-// One block of 4 warps per (64-row query tile, head, batch row, V chunk):
-// each warp owns 16 query rows. Per 32-column key tile S is summed over D's
-// chunks, then P = silu(alpha S + bias) * mask stays in registers as the A
-// fragment of P V (`frag_a_c`) for the block's V chunk.
-template <int BIAS, typename E>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(Params<E> p) {
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
-  constexpr int kRows = kFwdRows, BK = kFwdCols, NT = BK / 8, NO = kC / 8, PV = kC + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // [64][kP]
-  float* Ks = Qs + kRows * kP;  // [32][kP]
-  float* Vs = Ks + BK * kP;     // [32][PV]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
-  const int n_qt = (p.N + kRows - 1) / kRows;
-  // the block's index counts the V chunk first and the query tile last, from
-  // the row's end: the longest walks start first
-  int blk = (int)blockIdx.x;
-  const int vc = blk % n_vc;
-  blk /= n_vc;
-  const int h = blk % p.H;
-  blk /= p.H;
-  const int b = blk % p.B;
-  const int q0 = (n_qt - 1 - blk / p.B) * kRows;
-  const int length = min(p.lengths[b], p.N);
-  const int nt = p.num_targets ? p.num_targets[b] : 0;
-  int kv_limit = length;
-  if (p.causal && q0 >= p.contextual_seq_len) kv_limit = min(kv_limit, q0 + kRows);
-  if (q0 >= length) kv_limit = 0;
-  const int n_kt = (kv_limit + BK - 1) / BK;
-  // bfloat16: alpha rides Q, rounded; S then takes none
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float s_alpha = kBf16 ? 1.f : p.alpha;
-  const int row_lo = q0 + warp * 16 + g;
-  const E* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const E* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const E* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* tsb = BIAS == kRelBias ? p.ts + (long long)b * p.N : nullptr;
-  float tq[2] = {0.f, 0.f};
-  if (BIAS == kRelBias) {
-    tq[0] = ts_row(tsb, row_lo, p.N);
-    tq[1] = ts_row(tsb, row_lo + 8, p.N);
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  // one chunk of D: Q stays for the whole walk
-  if (n_dc == 1 && n_kt > 0) load_chunk<kP, kRows, kThreads>(Qs, qb, p.q_sn, q0, length, p.D, 0, p.vec_q != 0, q_scale);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int c0 = kt * BK;
-    // element e = 4 j + c is row row_lo + 8 (c / 2), column c0 + 8 j + 2 t + c % 2
-    uint32_t ok_bits = 0;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const bool ok = live(p, row_lo + 8 * (c >> 1), c0 + 8 * j + 2 * t + (c & 1), length, nt);
-        ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
-      }
-    const bool dead = __all_sync(kFull, ok_bits == 0);
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-    for (int dc = 0; dc < n_dc; ++dc) {
-      __syncthreads();  // every warp is done with the tiles
-      if (n_dc > 1) load_chunk<kP, kRows, kThreads>(Qs, qb, p.q_sn, q0, length, p.D, dc, p.vec_q != 0, q_scale);
-      load_chunk<kP, BK, kThreads>(Ks, kb, p.k_sn, c0, length, p.D, dc, p.vec_k != 0, 1.f);
-      if (dc == 0) load_chunk<PV, BK, kThreads>(Vs, vb, p.v_sn, c0, length, p.V, vc, p.vec_v != 0, 1.f);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      if (!dead) {
-#pragma unroll 4
-        for (int ks = 0; ks < kC / 8; ++ks) {
-          const FragA a = load_a(Qs, kP, warp * 16, ks * 8);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma<kBf16>(s[j], a, load_b_nk(Ks, kP, j * 8, ks * 8));
-        }
-      }
-    }
-    if (dead) continue;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int e = 4 * j + c;
-        float x = 0.f;
-        if ((ok_bits >> e) & 1u) {
-          const int row = row_lo + 8 * (c >> 1), col = c0 + 8 * j + 2 * t + (c & 1);
-          float bias = 0.f;
-          if constexpr (BIAS == kRelBias) {
-            int bucket;
-            bias = rel_bias(p, row, col, tq[c >> 1], ts_col(tsb, col, p.N), bucket);
-          } else if constexpr (BIAS == kDenseBias) {
-            bias = dense_bias(p, b, row, col);
-          }
-          x = BIAS == kNoBias ? s[j][c] * s_alpha : fmaf(s[j][c], s_alpha, bias);
-          x = __fdividef(x, 1.f + __expf(-x));
-          if constexpr (kBf16) x = round_bf16(x);  // P V takes P in bfloat16
-        } else {
-          x = 0.f;
-        }
-        s[j][c] = x;
-      }
-    FragA pa[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) pa[j] = frag_a_c(s[j]);
-    // O += P V: the tile's share in fresh accumulators, added in float32
-#pragma unroll
-    for (int n0 = 0; n0 < NO; n0 += 4) {
-      float part[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) mma<kBf16>(part[n], pa[j], load_b_kn<true>(Vs, PV, j * 8, (n0 + n) * 8));
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
-    }
-  }
-
-  // every element of the chunk's columns in the tile's rows below N: zeros
-  // where the row is dead
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row_lo + 8 * i;
-    if (row >= p.N) continue;
-    E* o = static_cast<E*>(p.out) + (((long long)b * p.N + row) * p.H + h) * p.V;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      store2(o, vc * kC + 8 * n + 2 * t, p.V, acc[n][2 * i] * p.inv_norm, acc[n][2 * i + 1] * p.inv_norm);
   }
 }
 
@@ -382,7 +258,8 @@ enum Pass : int { kDqPass = 0, kDkvPass = 1 };
 // ops/cuda/hstu_attention.py): M chunks a block, one while chunks(D) +
 // chunks(V) blocks fit a portable cluster, else two; nd D-blocks, nv
 // V-blocks, cs = nd + nv; split: the per-element work split across the
-// blocks. cs = 0: wider than 16 blocks of two chunks.
+// blocks. cs = 0: wider than 16 blocks of two chunks (the per-chunk bodies
+// take those widths, route kWideChunks).
 struct Cluster {
   int m, nd, nv, cs, split;
 };
@@ -437,25 +314,25 @@ __device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat1
 }
 
 // t += R X^T for the warp's 16 x 16 part of T (rows wm 16 .., columns wn
-// 16 ..), over the kw live columns of one chunk
+// 16 ..), over the kw live columns of one chunk (tiles at a pitch of `pitch`)
 __device__ __forceinline__ void part_product(float (&t)[2][4], const float* R, const float* X, int wm, int wn,
-                                             int kw) {
+                                             int kw, int pitch = kP) {
   const int steps = (kw + 7) / 8;
 #pragma unroll 4
   for (int ks = 0; ks < steps; ++ks) {
-    const FragA a = load_a(R, kP, wm * 16, ks * 8);
+    const FragA a = load_a(R, pitch, wm * 16, ks * 8);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) mma3(t[j], a, load_b_nk(X, kP, wn * 16 + j * 8, ks * 8));
+    for (int j = 0; j < 2; ++j) mma3(t[j], a, load_b_nk(X, pitch, wn * 16 + j * 8, ks * 8));
   }
 }
 __device__ __forceinline__ void part_product(float (&t)[2][4], const __nv_bfloat16* R, const __nv_bfloat16* X, int wm,
-                                             int wn, int kw) {
+                                             int wn, int kw, int pitch = kP) {
   const int steps = (kw + 15) / 16;
 #pragma unroll 4
   for (int ks = 0; ks < steps; ++ks) {
     uint32_t a[4], b[4];
-    hstu_bf16::ldsm(a, hstu_bf16::a_at(R, kP, wm * 16, ks * 16));
-    hstu_bf16::ldsm(b, hstu_bf16::b_nk_at(X, kP, wn * 16, ks * 16));
+    hstu_bf16::ldsm(a, hstu_bf16::a_at(R, pitch, wm * 16, ks * 16));
+    hstu_bf16::ldsm(b, hstu_bf16::b_nk_at(X, pitch, wn * 16, ks * 16));
     hstu_bf16::mma(t[0], a, b[0], b[1]);
     hstu_bf16::mma(t[1], a, b[2], b[3]);
   }
@@ -931,13 +808,1168 @@ __global__ void __launch_bounds__(kBwdThreads, bwd_blocks_per_sm(sizeof(E), M, R
   cluster_wait();
 }
 
+// ------------------------------------------------------------------ forward
+// One thread block cluster of cs blocks per (64-row query tile, head, batch
+// row) (`FwdCluster`): block r owns D's columns [r dw, r dw + dw) and V's
+// columns [r vw, r vw + vw) (the last blocks' may be short or empty), in md
+// and mv tiles of up to 128 columns. It keeps its columns of Q resident for
+// the whole walk and streams its columns of K and V, 32 key rows a step in
+// two stages (the next step's rows arrive while this step runs). Per step
+// each block forms only its own part of S = Q K^T, over its D columns; the
+// parts are summed through distributed shared memory in rank order (S, and so
+// O, the same bits on every run; no atomics), the per-element work (mask,
+// bias, silu) fills each block's P tile, and each block adds P V for its own
+// V columns to O in registers:
+// * SPLIT (clusters of kFwdSplitFrom blocks and more): warp w's fragment of
+//   S belongs to block w % cs, which takes every block's part of it (remote
+//   stores), sums them, does the fragment's per-element work and stores its
+//   P into every block's P tile; two cluster barriers a step;
+// * else every block reads every block's part of S (remote loads) and does
+//   all the per-element work itself; one cluster barrier a step; the P tile
+//   lies in the exchange buffer of the other stage, which no block reads
+//   during the step.
+// 8 warps: warp w forms S's rows (w / 2) 16 .. + 16, columns (w % 2) 16 ..
+// + 16 of the step, and O's rows (w / 2) 16 .. + 16 in half of each of the
+// block's V tiles. Products per live element and head: S 2 D, P V 2 V, each
+// once. float32 multiplies in 3xTF32; bfloat16 keeps bfloat16 tiles and
+// multiplies with m16n8k16 on `ldmatrix` fragments, at the narrow body's
+// rounding points: alpha q rounded once as Q is staged, P rounded to
+// bfloat16 before P V, S and O summed in float32.
+struct FwdCluster {
+  int cs, dw, vw, md, mv, split;
+};
+// Clusters of this many blocks and more split the per-element work by
+// fragment; smaller ones repeat it in every block (PERF.md has both: split,
+// 2 blocks lost 3-7%, 4 blocks won 14-16%)
+constexpr int kFwdSplitFrom = 4;
+// the tiles a block holds at most: md + mv (two of either at most)
+constexpr int kFwdMaxTiles = 3;
+
+// The pitch of a block's tiles of w columns: w + 8 where one tile holds them,
+// else kP (tiles of 128)
+__host__ __device__ constexpr int fwd_pitch(int w) { return (w < kC ? w : kC) + 8; }
+
+// A block's shared memory: Q [md][64][pd] and two stages of K [2][md][32][pd]
+// and of V [2][mv][32][pv] of the element type, two float32 exchange buffers
+// [2][64][kXP] (or the receive buffer), SPLIT the P tile [64][kXP] of the
+// element type (else in the exchange buffers), the warps' live flags
+inline int fwd_smem_bytes(int elem, const FwdCluster& c) {
+  const int pd = fwd_pitch(c.dw), pv = fwd_pitch(c.vw);
+  return elem * (c.md * kR * pd + 2 * c.md * kS * pd + 2 * c.mv * kS * pv + (c.split ? kR * kXP : 0)) +
+         4 * (kXchFloats + kBwdThreads / 32);
+}
+
+// The forward's cluster (mirrored by `_wide_fwd_cluster` in
+// ops/cuda/hstu_attention.py): a block per chunk of V or per two chunks of D,
+// whichever needs more, 16 at most (a block's S part over more of D spreads
+// each step's fixed costs: at D 512 / V 64, 2 blocks of 256 columns took
+// 0.83 ms in float32 where 4 of 128 took 0.98); each block's columns of D and
+// of V the widths' shares rounded up to 32. cs = 0 where a block would hold
+// more than kFwdMaxTiles tiles (the per-chunk forward takes those widths,
+// route kWideChunks).
+inline FwdCluster fwd_cluster_of(int D, int V) {
+  const int cs = min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));
+  const int dw = ((D + cs - 1) / cs + 31) / 32 * 32, vw = ((V + cs - 1) / cs + 31) / 32 * 32;
+  const int md = chunks(dw), mv = chunks(vw);
+  if (md > kMaxOwn || mv > kMaxOwn || md + mv > kFwdMaxTiles) return {0, 0, 0, 0, 0, 0};
+  return {cs, dw, vw, md, mv, cs >= kFwdSplitFrom ? 1 : 0};
+}
+
+// Columns [0, w) of one head's rows [r0, r0 + ROWS) (src at the block's
+// first column) into a [ROWS][pitch] tile of the element type: zeros at rows
+// >= lim and at columns [w, w rounded up to 32); later columns are neither
+// loaded nor read. float32 by `cp.async` (16-byte pieces where vec).
+template <int ROWS>
+__device__ __forceinline__ void fwd_load(float* dst, const float* src, long long sn, int r0, int lim, int w,
+                                         int pitch, bool vec, float /*scale*/) {
+  if (w <= 0) return;
+  const int wp = (w + 31) & ~31;
+  if (vec) {
+    for (int idx = threadIdx.x; idx < ROWS * (kC / 4); idx += kBwdThreads) {
+      const int r = idx / (kC / 4), c = idx % (kC / 4) * 4;
+      if (c >= wp) continue;
+      const bool ok = r0 + r < lim && c < w;
+      cp_async16(dst + r * pitch + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * kC; idx += kBwdThreads) {
+      const int r = idx / kC, c = idx % kC;
+      if (c >= wp) continue;
+      const bool ok = r0 + r < lim && c < w;
+      cp_async4(dst + r * pitch + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
+    }
+  }
+}
+// bfloat16: by 16-byte `cp.async` where vec (pieces of 8), else element by
+// element; where scale != 1 (alpha q) each element stored as bfloat16(x
+// scale), synchronously. A synchronous tile is in place after the barrier
+// that follows, as an asynchronous one after its wait and that barrier.
+template <int ROWS>
+__device__ __forceinline__ void fwd_load(__nv_bfloat16* dst, const __nv_bfloat16* src, long long sn, int r0,
+                                         int lim, int w, int pitch, bool vec, float scale) {
+  if (w <= 0) return;
+  const int wp = (w + 31) & ~31;
+  if (vec) {
+    for (int idx = threadIdx.x; idx < ROWS * (kC / 8); idx += kBwdThreads) {
+      const int r = idx / (kC / 8), c = idx % (kC / 8) * 8;
+      if (c >= wp) continue;
+      const bool ok = r0 + r < lim && c < w;
+      if (scale != 1.f) {
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (ok) x = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * sn + c);
+        uint32_t* e = reinterpret_cast<uint32_t*>(&x);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)  // a bfloat16 is the top half of the float32 of the same value
+          e[i] = hstu_bf16::pack(__uint_as_float(e[i] << 16) * scale, __uint_as_float(e[i] & 0xffff0000u) * scale);
+        *reinterpret_cast<uint4*>(dst + r * pitch + c) = x;
+      } else {
+        hstu_bf16::cp_async16(dst + r * pitch + c, ok ? src + (long long)(r0 + r) * sn + c : src, ok);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < ROWS * kC; idx += kBwdThreads) {
+      const int r = idx / kC, c = idx % kC;
+      if (c >= wp) continue;
+      const float x = r0 + r < lim && c < w ? __bfloat162float(src[(long long)(r0 + r) * sn + c]) : 0.f;
+      dst[r * pitch + c] = __float2bfloat16_rn(x * scale);
+    }
+  }
+}
+
+// acc += P X for the warp's 16 rows (wm 16 ..) by nt 8-column tiles of X from
+// column n0: P the block's [64][kXP] tile, X [kS][pitch], k over the step's
+// kn live key rows. float32 sums the step's share in fresh accumulators, then
+// adds it in float32 (as `out_product`); bfloat16 sums in place, and where nt
+// is odd also forms the next tile, which nobody stores.
+__device__ __forceinline__ void pv_product(float (&acc)[8][4], const float* P, const float* X, int pitch, int wm,
+                                           int n0, int nt, int kn) {
+  const int steps = (kn + 7) / 8;
+  float part[8][4] = {};
+  for (int ks = 0; ks < steps; ++ks) {
+    const FragA a = load_a(P, kXP, wm * 16, ks * 8);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (n < nt) mma3(part[n], a, load_b_kn<true>(X, pitch, ks * 8, n0 + n * 8));
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] += part[n][c];
+}
+__device__ __forceinline__ void pv_product(float (&acc)[8][4], const __nv_bfloat16* P, const __nv_bfloat16* X,
+                                           int pitch, int wm, int n0, int nt, int kn) {
+  const int steps = (kn + 15) / 16;
+  for (int ks = 0; ks < steps; ++ks) {
+    uint32_t a[4];
+    hstu_bf16::ldsm(a, hstu_bf16::a_at(P, kXP, wm * 16, ks * 16));
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      if (2 * np >= nt) break;
+      uint32_t b[4];
+      hstu_bf16::ldsm_t(b, hstu_bf16::b_kn_at(X, pitch, ks * 16, n0 + np * 16));
+      hstu_bf16::mma(acc[2 * np], a, b[0], b[1]);
+      hstu_bf16::mma(acc[2 * np + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The two warps of row group wm, which write and read rows wm 16 .. + 16 of
+// the P tile (named barrier 1 + wm of 64 threads; 0 is __syncthreads')
+__device__ __forceinline__ void pair_sync(int wm) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + wm) : "memory");
+}
+
+// A warp's columns of a V tile of w live columns: [n0, n0 + 8 nt) of the
+// tile, the two warps of a row group a half each (in 16-column steps)
+__device__ __forceinline__ void pv_cols(int w, int wn, int& n0, int& nt) {
+  w = max(w, 0);
+  const int half = ((w + 1) / 2 + 15) & ~15;
+  n0 = wn * half;
+  nt = (max(0, min(w, n0 + half) - n0) + 7) / 8;
+}
+
+template <int BIAS, int MV, bool SPLIT, typename E>
+__global__ void __launch_bounds__(kBwdThreads, MV == 1 ? 2 : 1) fwd_kernel(Params<E> p, FwdCluster cl) {
+  namespace cg = cooperative_groups;
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  constexpr int NW = kBwdThreads / 32;
+  // bfloat16: alpha rides Q, rounded; S then takes none
+  const float s_alpha = kBf16 ? 1.f : p.alpha;
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
+  const int pd = fwd_pitch(cl.dw), pv = fwd_pitch(cl.vw), md = cl.md, cs = cl.cs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* Qs = reinterpret_cast<E*>(smem_raw);                           // [md][kR][pd]
+  E* Ks = Qs + md * kR * pd;                                         // [2][md][kS][pd]
+  E* Vs = Ks + 2 * md * kS * pd;                                     // [2][MV][kS][pv]
+  float* xch = reinterpret_cast<float*>(Vs + 2 * MV * kS * pv);      // [2][kR][kXP] or [kRecvSlots][256]
+  E* Ps = reinterpret_cast<E*>(xch + kXchFloats);                    // SPLIT: [kR][kXP]
+  int* part_live = reinterpret_cast<int*>(SPLIT ? Ps + kR * kXP : Ps);  // [NW]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  // the cluster's unit counts the head first and the tile last, from the
+  // row's end: the longest walks start first
+  int unit = (int)(blockIdx.x / (unsigned)cs);
+  const int h = unit % p.H;
+  unit /= p.H;
+  const int b = unit % p.B;
+  const int n_tiles = (p.N + kR - 1) / kR;
+  const int base = (n_tiles - 1 - unit / p.B) * kR;
+  const int length = min(p.lengths[b], p.N);
+  const int nt = p.num_targets ? p.num_targets[b] : 0;
+  // the block's columns of D and of V
+  const int dlo = rank * cl.dw, vlo = rank * cl.vw;
+  const int dcols = max(0, min(cl.dw, p.D - dlo)), vcols = max(0, min(cl.vw, p.V - vlo));
+  const E* qb = p.q + b * p.q_sb + h * p.q_sh + dlo;
+  const E* kb = p.k + b * p.k_sb + h * p.k_sh + dlo;
+  const E* vb = p.v + b * p.v_sb + h * p.v_sh + vlo;
+  const float* tsb = BIAS == kRelBias ? p.ts + (long long)b * p.N : nullptr;
+  // the walk: the key tiles up to the tile's last visible column
+  int end = 0;
+  if (base < length) end = p.causal && base >= p.contextual_seq_len ? min(length, base + kR) : length;
+  auto load_step = [&](int stage, int s) {
+    for (int i = 0; i < md; ++i)
+      fwd_load<kS>(Ks + (stage * md + i) * kS * pd, kb + i * kC, p.k_sn, s, length, min(kC, dcols - i * kC), pd,
+                   p.vec_k != 0, 1.f);
+#pragma unroll
+    for (int i = 0; i < MV; ++i)
+      if (i < cl.mv)
+        fwd_load<kS>(Vs + (stage * MV + i) * kS * pv, vb + i * kC, p.v_sn, s, length, min(kC, vcols - i * kC), pv,
+                     p.vec_v != 0, 1.f);
+  };
+
+  float acc[MV][8][4];
+#pragma unroll
+  for (int i = 0; i < MV; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+
+  if (end > 0) {
+    for (int i = 0; i < md; ++i)
+      fwd_load<kR>(Qs + i * kR * pd, qb + i * kC, p.q_sn, base, length, min(kC, dcols - i * kC), pd, p.vec_q != 0,
+                   q_scale);
+    load_step(0, 0);
+  }
+  cp_async_commit();
+  const int at = (wm * 16 + g) * kXP + wn * 16 + 2 * t;  // the lane's first pair in S's tiles
+  float tq[2] = {0.f, 0.f};                                // the rows' next timestamps
+  if constexpr (BIAS == kRelBias) {
+    tq[0] = ts_row(tsb, base + wm * 16 + g, p.N);
+    tq[1] = ts_row(tsb, base + wm * 16 + g + 8, p.N);
+  }
+  for (int step = 0, s0 = 0; s0 < end; ++step, s0 += kS) {
+    const int stage = step & 1;
+    cp_async_wait_all();
+    __syncthreads();  // this step's rows are in place; every warp is done with the last step's
+    if (s0 + kS < end) load_step(stage ^ 1, s0 + kS);  // the next step's, into the other stage
+    cp_async_commit();
+
+    // element e = 4 j + c of the warp's fragment: row base + wm 16 + g + 8 (c
+    // / 2), column s0 + wn 16 + 8 j + 2 t + c % 2
+    uint32_t ok_bits = 0;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool ok = live(p, base + wm * 16 + g + 8 * (c >> 1), s0 + wn * 16 + 8 * j + 2 * t + (c & 1), length, nt);
+        ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
+      }
+    const bool dead = __all_sync(kFull, ok_bits == 0);
+
+    // the block's part of S
+    float sp[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sp[j][c] = 0.f;
+    if (!dead) {
+      for (int i = 0; i < md; ++i) {
+        const int kw = min(kC, dcols - i * kC);
+        if (kw > 0) part_product(sp, Qs + i * kR * pd, Ks + (stage * md + i) * kS * pd, wm, wn, kw, pd);
+      }
+    }
+    if (lane == 0) part_live[warp] = !dead;
+    const int nslot = (NW + cs - 1) / cs, fslot = warp / cs;
+    const bool mine = !SPLIT || warp % cs == rank;
+    float* xs = xch + (SPLIT ? 0 : stage * kR * kXP);  // the step's exchange buffer
+    // the P tile; repeated, in the other stage's exchange buffer, which every
+    // block has read (last step's) before the barrier below lets it on
+    E* Pt = SPLIT ? Ps : reinterpret_cast<E*>(xch + (stage ^ 1) * kR * kXP);
+    if constexpr (SPLIT) {
+      float* dst = cluster.map_shared_rank(xch, warp % cs) + ((rank * nslot + fslot) * 32 + lane) * 8;
+      *reinterpret_cast<float4*>(dst) = make_float4(sp[0][0], sp[0][1], sp[0][2], sp[0][3]);
+      *reinterpret_cast<float4*>(dst + 4) = make_float4(sp[1][0], sp[1][1], sp[1][2], sp[1][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        *reinterpret_cast<float2*>(xs + at + 8 * j) = make_float2(sp[j][0], sp[j][1]);
+        *reinterpret_cast<float2*>(xs + at + 8 * j + 8 * kXP) = make_float2(sp[j][2], sp[j][3]);
+      }
+    }
+    cluster_arrive();
+    // the bias, while the other blocks arrive
+    float bias[BIAS == kNoBias ? 1 : 8];
+    if constexpr (BIAS != kNoBias) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int row = base + wm * 16 + g + 8 * ((e & 3) >> 1), col = s0 + wn * 16 + 8 * (e >> 2) + 2 * t + (e & 1);
+        bias[e] = 0.f;
+        if (mine && (ok_bits >> e) & 1u) {
+          if constexpr (BIAS == kRelBias) {
+            int bucket;
+            bias[e] = rel_bias(p, row, col, tq[(e & 3) >> 1], ts_col(tsb, col, p.N), bucket);
+          } else {
+            bias[e] = dense_bias(p, b, row, col);
+          }
+        }
+      }
+    }
+    cluster_wait();
+    if (mine) {
+      // S of the warp's fragment: every block's part, in rank order
+      float s[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s[e] = 0.f;
+      if (!dead) {
+        for (int r = 0; r < cs; ++r) {
+          float4 x0, x1;
+          if constexpr (SPLIT) {
+            const float* src = xch + ((r * nslot + fslot) * 32 + lane) * 8;
+            x0 = *reinterpret_cast<const float4*>(src);
+            x1 = *reinterpret_cast<const float4*>(src + 4);
+          } else {
+            const float* src = cluster.map_shared_rank(xs, r);
+            const float2 lo0 = *reinterpret_cast<const float2*>(src + at);
+            const float2 hi0 = *reinterpret_cast<const float2*>(src + at + 8 * kXP);
+            const float2 lo1 = *reinterpret_cast<const float2*>(src + at + 8);
+            const float2 hi1 = *reinterpret_cast<const float2*>(src + at + 8 + 8 * kXP);
+            x0 = make_float4(lo0.x, lo0.y, hi0.x, hi0.y);
+            x1 = make_float4(lo1.x, lo1.y, hi1.x, hi1.y);
+          }
+          s[0] += x0.x, s[1] += x0.y, s[2] += x0.z, s[3] += x0.w;
+          s[4] += x1.x, s[5] += x1.y, s[6] += x1.z, s[7] += x1.w;
+        }
+      }
+      // P = silu(alpha S + bias) on live elements; bfloat16: rounded (`put2`)
+      float pe[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        pe[e] = 0.f;
+        if ((ok_bits >> e) & 1u) {
+          const float x = BIAS == kNoBias ? s[e] * s_alpha : fmaf(s[e], s_alpha, bias[BIAS == kNoBias ? 0 : e]);
+          pe[e] = __fdividef(x, 1.f + __expf(-x));
+        }
+      }
+      for (int r = SPLIT ? 0 : rank; r < (SPLIT ? cs : rank + 1); ++r) {
+        E* Pb = SPLIT ? cluster.map_shared_rank(Ps, r) : Pt;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          put2(Pb + at + 8 * j, pe[4 * j], pe[4 * j + 1]);
+          put2(Pb + at + 8 * j + 8 * kXP, pe[4 * j + 2], pe[4 * j + 3]);
+        }
+      }
+    }
+    if constexpr (!SPLIT) {
+      pair_sync(wm);  // the row group's rows of the P tile and its flags are whole
+    } else {  // every block's P tile and the flags are whole
+      cluster_arrive();
+      cluster_wait();
+    }
+
+    // O += P V over the block's V tiles, for the warp's rows where any is live
+    const int kn = min(kS, length - s0);
+    if (part_live[2 * wm] || part_live[2 * wm + 1]) {
+#pragma unroll
+      for (int i = 0; i < MV; ++i) {
+        int n0, ntiles;
+        pv_cols(min(kC, vcols - i * kC), wn, n0, ntiles);
+        if (i < cl.mv && ntiles > 0) pv_product(acc[i], Pt, Vs + (stage * MV + i) * kS * pv, pv, wm, n0, ntiles, kn);
+      }
+    }
+  }
+  // no block leaves while another may still read its exchange buffers or
+  // store into its P tile
+  cluster_arrive();
+
+  // every element of the block's V columns in the tile's rows below N: zeros
+  // where the row is dead
+#pragma unroll
+  for (int i = 0; i < MV; ++i) {
+    int n0, ntiles;
+    pv_cols(min(kC, vcols - i * kC), wn, n0, ntiles);
+    if (i >= cl.mv) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = base + wm * 16 + g + 8 * r;
+      if (row >= p.N) continue;
+      E* o = static_cast<E*>(p.out) + (((long long)b * p.N + row) * p.H + h) * p.V;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (n < ntiles)
+          store2(o, vlo + i * kC + n0 + 8 * n + 2 * t, p.V, acc[i][n][2 * r] * p.inv_norm,
+                 acc[i][n][2 * r + 1] * p.inv_norm);
+    }
+  }
+  cluster_wait();
+}
+
+// -------------------------------------------------------- per-chunk bodies
+// Route kWideChunks: the widths no cluster takes (and the float32 forward
+// where the plan measured it faster). The forward and the dq and
+// dkv passes of the backward, one block per output chunk; S = alpha Q K^T
+// and dP = dO V^T are summed over their chunks in registers before the bias,
+// silu and the mask, and recomputed by each output chunk's block. Q (or K)
+// and dO (or V) stay resident where they are one chunk wide; wider ones are
+// loaded chunk by chunk per tile, and every load waits. The products are
+// `mma.sync.m16n8k8` TF32 on float32 tiles: 3xTF32 in float32, one exact
+// TF32 product on bfloat16 values (alpha q and dO / norm rounded on load, P
+// and dS rounded before their products). The relative-bias backward is the
+// two passes, as K7-det: `dq_chunks_kernel` with the bias writes dQ whole (no
+// atomics); in `dkv_chunks_kernel` with the bias the blocks of chunk 0 also
+// sum the table gradients, per step: `dpos_w` by diagonals of the step's dS,
+// `dts_w` per warp by shuffles into the warp's copy of the reachable buckets.
+// K7 adds both to the zeroed tables with atomics; K7-det writes them to the
+// block's row of `partial`, which the relative-bias kernel sums in block
+// order. The dense fused backward K2 is the same pair without the bias.
+// One block of 4 warps per (64-row query tile, head, batch row, V chunk):
+// each warp owns 16 query rows. Per 32-column key tile S is summed over D's
+// chunks, then P = silu(alpha S + bias) * mask stays in registers as the A
+// fragment of P V (`frag_a_c`) for the block's V chunk.
+template <int BIAS, typename E>
+__global__ void __launch_bounds__(kThreads) fwd_chunks_kernel(Params<E> p) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  constexpr int kRows = kFwdRows, BK = kFwdCols, NT = BK / 8, NO = kC / 8, PV = kC + 4;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;             // [64][kP]
+  float* Ks = Qs + kRows * kP;  // [32][kP]
+  float* Vs = Ks + BK * kP;     // [32][PV]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
+  const int n_qt = (p.N + kRows - 1) / kRows;
+  // the block's index counts the V chunk first and the query tile last, from
+  // the row's end: the longest walks start first
+  int blk = (int)blockIdx.x;
+  const int vc = blk % n_vc;
+  blk /= n_vc;
+  const int h = blk % p.H;
+  blk /= p.H;
+  const int b = blk % p.B;
+  const int q0 = (n_qt - 1 - blk / p.B) * kRows;
+  const int length = min(p.lengths[b], p.N);
+  const int nt = p.num_targets ? p.num_targets[b] : 0;
+  int kv_limit = length;
+  if (p.causal && q0 >= p.contextual_seq_len) kv_limit = min(kv_limit, q0 + kRows);
+  if (q0 >= length) kv_limit = 0;
+  const int n_kt = (kv_limit + BK - 1) / BK;
+  // bfloat16: alpha rides Q, rounded; S then takes none
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
+  const float s_alpha = kBf16 ? 1.f : p.alpha;
+  const int row_lo = q0 + warp * 16 + g;
+  const E* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const E* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const E* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const float* tsb = BIAS == kRelBias ? p.ts + (long long)b * p.N : nullptr;
+  float tq[2] = {0.f, 0.f};
+  if (BIAS == kRelBias) {
+    tq[0] = ts_row(tsb, row_lo, p.N);
+    tq[1] = ts_row(tsb, row_lo + 8, p.N);
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  // one chunk of D: Q stays for the whole walk
+  if (n_dc == 1 && n_kt > 0) load_chunk<kP, kRows, kThreads>(Qs, qb, p.q_sn, q0, length, p.D, 0, p.vec_q != 0, q_scale);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int c0 = kt * BK;
+    // element e = 4 j + c is row row_lo + 8 (c / 2), column c0 + 8 j + 2 t + c % 2
+    uint32_t ok_bits = 0;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool ok = live(p, row_lo + 8 * (c >> 1), c0 + 8 * j + 2 * t + (c & 1), length, nt);
+        ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
+      }
+    const bool dead = __all_sync(kFull, ok_bits == 0);
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+    for (int dc = 0; dc < n_dc; ++dc) {
+      __syncthreads();  // every warp is done with the tiles
+      if (n_dc > 1) load_chunk<kP, kRows, kThreads>(Qs, qb, p.q_sn, q0, length, p.D, dc, p.vec_q != 0, q_scale);
+      load_chunk<kP, BK, kThreads>(Ks, kb, p.k_sn, c0, length, p.D, dc, p.vec_k != 0, 1.f);
+      if (dc == 0) load_chunk<PV, BK, kThreads>(Vs, vb, p.v_sn, c0, length, p.V, vc, p.vec_v != 0, 1.f);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      if (!dead) {
+        // the chunk's share in fresh accumulators, added in float32: summed in
+        // place across D's chunks, O drifted past 2e-5 of its max at D 8192
+        float sc[NT][4] = {};
+#pragma unroll 4
+        for (int ks = 0; ks < kC / 8; ++ks) {
+          const FragA a = load_a(Qs, kP, warp * 16, ks * 8);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma<kBf16>(sc[j], a, load_b_nk(Ks, kP, j * 8, ks * 8));
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) s[j][c] += sc[j][c];
+      }
+    }
+    if (dead) continue;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int e = 4 * j + c;
+        float x = 0.f;
+        if ((ok_bits >> e) & 1u) {
+          const int row = row_lo + 8 * (c >> 1), col = c0 + 8 * j + 2 * t + (c & 1);
+          float bias = 0.f;
+          if constexpr (BIAS == kRelBias) {
+            int bucket;
+            bias = rel_bias(p, row, col, tq[c >> 1], ts_col(tsb, col, p.N), bucket);
+          } else if constexpr (BIAS == kDenseBias) {
+            bias = dense_bias(p, b, row, col);
+          }
+          x = BIAS == kNoBias ? s[j][c] * s_alpha : fmaf(s[j][c], s_alpha, bias);
+          x = __fdividef(x, 1.f + __expf(-x));
+          if constexpr (kBf16) x = round_bf16(x);  // P V takes P in bfloat16
+        } else {
+          x = 0.f;
+        }
+        s[j][c] = x;
+      }
+    FragA pa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) pa[j] = frag_a_c(s[j]);
+    // O += P V: the tile's share in fresh accumulators, added in float32
+#pragma unroll
+    for (int n0 = 0; n0 < NO; n0 += 4) {
+      float part[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma<kBf16>(part[n], pa[j], load_b_kn<true>(Vs, PV, j * 8, (n0 + n) * 8));
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
+    }
+  }
+
+  // every element of the chunk's columns in the tile's rows below N: zeros
+  // where the row is dead
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row_lo + 8 * i;
+    if (row >= p.N) continue;
+    E* o = static_cast<E*>(p.out) + (((long long)b * p.N + row) * p.H + h) * p.V;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(o, vc * kC + 8 * n + 2 * t, p.V, acc[n][2 * i] * p.inv_norm, acc[n][2 * i + 1] * p.inv_norm);
+  }
+}
+
+// One block of 8 warps per (64-row query tile, head, batch row, dQ chunk):
+// warp w owns query rows (w / 2) 16 .. + 16 and, of each 32-column key tile,
+// columns (w % 2) 16 .. + 16 of S and dP, and of the block's dQ chunk
+// columns (w % 2) 64 .. + 64. Per key tile S is summed over D's chunks and
+// dP over V's, dS goes to shared memory, and dQ += dS K for the block's
+// chunk of K. DQ: the type dq is written in (float for a float32 buffer that
+// a second kernel rounds to bfloat16; else E).
+template <bool RELBIAS, typename E, typename DQ>
+__global__ void __launch_bounds__(kBwdThreads) dq_chunks_kernel(Params<E> p) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  constexpr int BQ = kDqRows, BK = kDqCols, NA = BK / 16, NQ = kC / 16, PS = BK + 8, T = kBwdThreads;
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
+  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;            // [64][kP]
+  float* dOs = Qs + BQ * kP;   // [64][kP]
+  float* Ks = dOs + BQ * kP;   // [32][kP]
+  float* Vs = Ks + BK * kP;    // [32][kP]
+  float* dSs = Vs + BK * kP;   // [64][PS]
+  int* part_live = reinterpret_cast<int*>(dSs + BQ * PS);  // [8]: the warps' parts of S that hold a live element
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 1, wc = warp & 1;
+  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
+  const int n_qt = (p.N + BQ - 1) / BQ;
+  int blk = (int)blockIdx.x;
+  const int oc = blk % n_dc;
+  blk /= n_dc;
+  const int h = blk % p.H;
+  blk /= p.H;
+  const int b = blk % p.B;
+  const int row0 = (n_qt - 1 - blk / p.B) * BQ;
+  const int length = min(p.lengths[b], p.N);
+  const int nt = p.num_targets ? p.num_targets[b] : 0;
+  const int r_first = row0 + wr * 16;
+
+  float acc[NQ][4];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  if (row0 < length) {
+    const E* qb = p.q + b * p.q_sb + h * p.q_sh;
+    const E* kb = p.k + b * p.k_sb + h * p.k_sh;
+    const E* vb = p.v + b * p.v_sb + h * p.v_sh;
+    const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
+    const int kv_end = p.causal && row0 >= p.contextual_seq_len ? min(length, row0 + BQ) : length;
+    const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
+    float tq[2] = {0.f, 0.f};
+    if (RELBIAS) {
+      tq[0] = ts_row(tsb, r_first + g, p.N);
+      tq[1] = ts_row(tsb, r_first + g + 8, p.N);
+    }
+    if (n_dc == 1) load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, row0, length, p.D, 0, p.vec_q != 0, q_scale);
+    if (n_vc == 1) load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, row0, length, p.V, 0, p.vec_do != 0, do_scale);
+    const int steps = max(n_dc, n_vc);
+    for (int col0 = 0; col0 < kv_end; col0 += BK) {
+      // element e = 4 j + c is row r_first + g + 8 (c / 2), column
+      // col0 + wc 16 + 8 j + 2 t + c % 2
+      uint32_t ok_bits = 0;
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool ok =
+              live(p, r_first + g + 8 * (c >> 1), col0 + wc * 16 + 8 * j + 2 * t + (c & 1), length, nt);
+          ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
+        }
+      const bool dead = __all_sync(kFull, ok_bits == 0);
+      float s[NA][4], dp[NA][4];
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+      for (int c = 0; c < steps; ++c) {
+        __syncthreads();  // every warp is done with the tiles, dS and the flags
+        if (c < n_dc) {
+          if (n_dc > 1) load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, row0, length, p.D, c, p.vec_q != 0, q_scale);
+          load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, c, p.vec_k != 0, 1.f);
+        }
+        if (c < n_vc) {
+          if (n_vc > 1) load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, row0, length, p.V, c, p.vec_do != 0, do_scale);
+          load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, c, p.vec_v != 0, 1.f);
+        }
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        if (!dead) {
+          // each chunk's share in fresh accumulators, added in float32:
+          // summed in place across the chunks, dV drifted past 2e-5 of its
+          // max at D 3968
+          float sc[NA][4] = {}, dc[NA][4] = {};
+          if (c < n_dc) {
+#pragma unroll 4
+            for (int ks = 0; ks < kC / 8; ++ks) {
+              const FragA a = load_a(Qs, kP, wr * 16, ks * 8);
+#pragma unroll
+              for (int j = 0; j < NA; ++j) mma<kBf16>(sc[j], a, load_b_nk(Ks, kP, wc * 16 + j * 8, ks * 8));
+            }
+          }
+          if (c < n_vc) {
+#pragma unroll 4
+            for (int ks = 0; ks < kC / 8; ++ks) {
+              const FragA a = load_a(dOs, kP, wr * 16, ks * 8);
+#pragma unroll
+              for (int j = 0; j < NA; ++j) mma<kBf16>(dc[j], a, load_b_nk(Vs, kP, wc * 16 + j * 8, ks * 8));
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NA; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e], dp[j][e] += dc[j][e];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          ds[c] = 0.f;
+          if ((ok_bits >> (4 * j + c)) & 1u) {
+            float x = s[j][c] * s_alpha;
+            if constexpr (RELBIAS) {
+              const int row = r_first + g + 8 * (c >> 1), col = col0 + wc * 16 + 8 * j + 2 * t + (c & 1);
+              int bucket;
+              x = fmaf(s[j][c], s_alpha, rel_bias(p, row, col, tq[c >> 1], ts_col(tsb, col, p.N), bucket));
+            }
+            const float sig = __fdividef(1.f, 1.f + __expf(-x));
+            ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
+          }
+          if constexpr (kBf16) ds[c] = round_bf16(ds[c]);  // dQ = dS K takes dS in bfloat16
+        }
+        const int at = (wr * 16 + g) * PS + wc * 16 + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
+        *reinterpret_cast<float2*>(dSs + at + 8 * PS) = make_float2(ds[2], ds[3]);
+      }
+      if (lane == 0) part_live[warp] = !dead;
+      __syncthreads();  // dS and the flags are whole, and every warp is past its reads of K
+      if (n_dc > 1 && oc != n_dc - 1) {  // K's chunk of the block's dQ columns
+        load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, oc, p.vec_k != 0, 1.f);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      if (part_live[2 * wr] || part_live[2 * wr + 1]) {  // a live element in the warp's rows
+        const int col_steps = (min(BK, length - col0) + 7) / 8;
+#pragma unroll
+        for (int n0 = 0; n0 < NQ; n0 += 4) {
+          float part[4][4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
+          for (int ks = 0; ks < col_steps; ++ks) {
+            const FragA a = load_a(dSs, PS, wr * 16, ks * 8);
+#pragma unroll
+            for (int n = 0; n < 4; ++n)
+              mma<kBf16>(part[n], a, load_b_kn<true>(Ks, kP, ks * 8, wc * 64 + (n0 + n) * 8));
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
+        }
+      }
+    }
+  }
+
+  // every element of the chunk's columns in the tile's rows: zeros at rows
+  // past the length
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r_first + g + 8 * i;
+    if (row >= p.N) continue;
+    const float scale = row < length ? p.alpha : 0.f;
+    DQ* dst = static_cast<DQ*>(p.dq) + (((long long)b * p.N + row) * p.H + h) * p.D;
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+      store2(dst, oc * kC + wc * 64 + 8 * j + 2 * t, p.D, scale * acc[j][2 * i], scale * acc[j][2 * i + 1]);
+  }
+}
+
+// One block of 8 warps per (64-column key tile, head, batch row, output
+// chunk): chunks 0 .. n_vc - 1 are dV's, the rest dK's. Per 32-row query
+// step warp w computes rows (w / 4) 16 .. + 16 by columns (w % 4) 16 .. + 16
+// of S (summed over D's chunks) and dP (over V's) and writes P and dS to
+// shared memory; then it sums dV += P^T dO or dK += dS^T Q for key rows
+// (w / 2) 16 .. + 16 and columns (w % 2) 64 .. + 64 of the block's chunk.
+// RELBIAS: the bias added to S, and the blocks of chunk 0 sum the table
+// gradients; DET: those sums to the block's row of `partial` in a fixed order.
+template <bool RELBIAS, bool DET, typename E>
+__global__ void __launch_bounds__(kBwdThreads) dkv_chunks_kernel(Params<E> p) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  constexpr int BQ = kDkvRows, BK = kDkvCols, NA = 2, NO = kC / 16, PS = BK + 8, T = kBwdThreads;
+  constexpr int NW = T / 32;
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
+  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;             // [32][kP]
+  float* dOs = Qs + BQ * kP;    // [32][kP]
+  float* Ks = dOs + BQ * kP;    // [64][kP]
+  float* Vs = Ks + BK * kP;     // [64][kP]
+  float* Ps = Vs + BK * kP;     // [32][PS]
+  float* dSs = Ps + BQ * PS;    // [32][PS]
+  float* Ts = dSs + BQ * PS;    // RELBIAS: dS in float32 [32][PS]
+  float* diag = Ts + BQ * PS;   // RELBIAS: the step's diagonal sums [kDkvDiags + 1]
+  float* dts_s = diag + kDkvDiags + 1;  // RELBIAS: `dts_w`'s sums, one copy per warp [8][kTsSlots]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 2, wc = warp & 3;  // S and dP: query rows wr 16 .., key columns wc 16 ..
+  const int am = warp >> 1, an = (warp & 1) * 64;  // dV / dK: key rows am 16 .., columns an ..
+  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
+  int blk = (int)blockIdx.x;
+  const int oc = blk % (n_vc + n_dc);
+  blk /= n_vc + n_dc;
+  const int h = blk % p.H;
+  blk /= p.H;
+  const int b = blk % p.B;
+  const int kt = blk / p.B;
+  const int col0 = kt * BK;
+  const int length = min(p.lengths[b], p.N);
+  const int nt = p.num_targets ? p.num_targets[b] : 0;
+  const bool is_dv = oc < n_vc;
+  const int och = is_dv ? oc : oc - n_vc;  // the chunk of dV or dK
+  const bool tables = RELBIAS && oc == 0;
+  const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1;
+  const int n_slots = min(n_ts, kTsSlots);
+  float* prow = DET && tables ? p.partial + ((long long)kt * p.H * p.B + (long long)h * p.B + b) * (n_pos + n_ts)
+                              : nullptr;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  if (col0 < length) {
+    const E* qb = p.q + b * p.q_sb + h * p.q_sh;
+    const E* kb = p.k + b * p.k_sb + h * p.k_sh;
+    const E* vb = p.v + b * p.v_sb + h * p.v_sh;
+    const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
+    const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
+    if (tables) {
+      for (int idx = threadIdx.x; idx < NW * kTsSlots; idx += T) dts_s[idx] = 0.f;
+      if (DET)
+        for (int idx = threadIdx.x; idx < n_pos; idx += T) prow[idx] = 0.f;
+    }
+    if (n_dc == 1) load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, 0, p.vec_k != 0, 1.f);
+    if (n_vc == 1) load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, 0, p.vec_v != 0, 1.f);
+    // the key-side timestamps of the thread's four columns
+    float tk[NA][2];
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) tk[j][c] = RELBIAS ? ts_col(tsb, col0 + wc * 16 + 8 * j + 2 * t + c, p.N) : 0.f;
+    // causal: the walk takes the query tiles of the contextual rows (which
+    // see every column below the target boundary), then those from the key
+    // tile's own on
+    const bool causal = p.causal != 0;
+    const int ctx_end = causal ? (p.contextual_seq_len + BQ - 1) / BQ * BQ : 0;
+    auto skip_to_diagonal = [&](int r) { return causal && r >= ctx_end && r < col0 ? col0 : r; };
+    const int steps = max(n_dc, n_vc);
+    float* my_dts = dts_s + warp * kTsSlots;
+    for (int r0 = skip_to_diagonal(0); r0 < length; r0 = skip_to_diagonal(r0 + BQ)) {
+      // element e = 4 j + c is row r0 + wr 16 + g + 8 (c / 2), column
+      // col0 + wc 16 + 8 j + 2 t + c % 2
+      uint32_t ok_bits = 0;
+      float bias[RELBIAS ? 4 * NA : 1];
+      int slot[RELBIAS ? 4 * NA : 1];
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int e = 4 * j + c;
+          const int row = r0 + wr * 16 + g + 8 * (c >> 1), col = col0 + wc * 16 + 8 * j + 2 * t + (c & 1);
+          const bool ok = live(p, row, col, length, nt);
+          ok_bits |= (ok ? 1u : 0u) << e;
+          if constexpr (RELBIAS) {
+            int bucket = 0;
+            bias[e] = ok ? rel_bias(p, row, col, ts_row(tsb, row, p.N), tk[j][c & 1], bucket) : 0.f;
+            slot[e] = min(bucket, n_slots - 1);
+          }
+        }
+      const bool dead = __all_sync(kFull, ok_bits == 0);
+      float s[NA][4], dp[NA][4];
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+      for (int c = 0; c < steps; ++c) {
+        __syncthreads();  // every warp is done with the tiles, P, dS and the sums
+        if (c < n_dc) {
+          load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, r0, length, p.D, c, p.vec_q != 0, q_scale);
+          if (n_dc > 1) load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, c, p.vec_k != 0, 1.f);
+        }
+        if (c < n_vc) {
+          load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, r0, length, p.V, c, p.vec_do != 0, do_scale);
+          if (n_vc > 1) load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, c, p.vec_v != 0, 1.f);
+        }
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        if (!dead) {
+          // each chunk's share in fresh accumulators, added in float32:
+          // summed in place across the chunks, dV drifted past 2e-5 of its
+          // max at D 3968
+          float sc[NA][4] = {}, dc[NA][4] = {};
+          if (c < n_dc) {
+#pragma unroll 4
+            for (int ks = 0; ks < kC / 8; ++ks) {
+              const FragA a = load_a(Qs, kP, wr * 16, ks * 8);
+#pragma unroll
+              for (int j = 0; j < NA; ++j) mma<kBf16>(sc[j], a, load_b_nk(Ks, kP, wc * 16 + j * 8, ks * 8));
+            }
+          }
+          if (c < n_vc) {
+#pragma unroll 4
+            for (int ks = 0; ks < kC / 8; ++ks) {
+              const FragA a = load_a(dOs, kP, wr * 16, ks * 8);
+#pragma unroll
+              for (int j = 0; j < NA; ++j) mma<kBf16>(dc[j], a, load_b_nk(Vs, kP, wc * 16 + j * 8, ks * 8));
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NA; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e], dp[j][e] += dc[j][e];
+        }
+      }
+      float dsf[RELBIAS ? 4 * NA : 1];
+#pragma unroll
+      for (int j = 0; j < NA; ++j) {
+        float pv[4], ds[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int e = 4 * j + c;
+          pv[c] = ds[c] = 0.f;
+          if ((ok_bits >> e) & 1u) {
+            const float x = RELBIAS ? fmaf(s[j][c], s_alpha, bias[RELBIAS ? e : 0]) : s[j][c] * s_alpha;
+            const float sig = __fdividef(1.f, 1.f + __expf(-x));
+            pv[c] = x * sig;
+            ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
+          }
+          if constexpr (RELBIAS) dsf[e] = ds[c];
+          if constexpr (kBf16) {  // the products take P and dS in bfloat16
+            pv[c] = round_bf16(pv[c]);
+            ds[c] = round_bf16(ds[c]);
+          }
+        }
+        const int at = (wr * 16 + g) * PS + wc * 16 + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(Ps + at) = make_float2(pv[0], pv[1]);
+        *reinterpret_cast<float2*>(Ps + at + 8 * PS) = make_float2(pv[2], pv[3]);
+        *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
+        *reinterpret_cast<float2*>(dSs + at + 8 * PS) = make_float2(ds[2], ds[3]);
+        if constexpr (RELBIAS) {
+          if (tables) {
+            *reinterpret_cast<float2*>(Ts + at) = make_float2(dsf[4 * j], dsf[4 * j + 1]);
+            *reinterpret_cast<float2*>(Ts + at + 8 * PS) = make_float2(dsf[4 * j + 2], dsf[4 * j + 3]);
+          }
+        }
+      }
+      if constexpr (RELBIAS) {
+        if (tables) {
+          // dts_w: per element slot the warp takes its distinct buckets in
+          // turn, sums each by shuffles, and one lane adds the sum to the
+          // warp's own copy (no atomics)
+#pragma unroll
+          for (int e = 0; e < 4 * NA; ++e) {
+            const bool ok = (ok_bits >> e) & 1u;
+            const int key = slot[e];
+            unsigned rest = __ballot_sync(kFull, ok);
+            while (rest != 0) {
+              const int first = __ffs(rest) - 1;
+              const int bucket = __shfl_sync(kFull, key, first);
+              const bool mine = ok && key == bucket;
+              float sum = mine ? dsf[e] : 0.f;
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+              if (lane == first) my_dts[bucket] += sum;
+              __syncwarp();
+              rest &= ~__ballot_sync(kFull, mine);
+            }
+          }
+        }
+      }
+      __syncthreads();  // P, dS and the float32 dS are whole
+
+      // the output chunk's operand: dO's chunk for dV, Q's for dK
+      const int have = is_dv ? n_vc - 1 : n_dc - 1;  // the chunk left in the tile
+      if (och != have) {
+        if (is_dv)
+          load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, r0, length, p.V, och, p.vec_do != 0, do_scale);
+        else
+          load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, r0, length, p.D, och, p.vec_q != 0, q_scale);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      {  // dV += P^T dO or dK += dS^T Q for the warp's 16 key rows and 64 columns
+        const float* A = is_dv ? Ps : dSs;
+        const float* Bm = is_dv ? dOs : Qs;
+        const int row_steps = (min(BQ, length - r0) + 7) / 8;
+#pragma unroll
+        for (int n0 = 0; n0 < NO; n0 += 4) {
+          float part[4][4];
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
+          for (int ks = 0; ks < row_steps; ++ks) {
+            const FragA a = load_a_t(A, PS, am * 16, ks * 8);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) mma<kBf16>(part[n], a, load_b_kn(Bm, kP, ks * 8, an + (n0 + n) * 8));
+          }
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
+        }
+      }
+      if (tables) {
+        // dpos_w: diagonal d holds the elements with col - row = d - (BQ - 1)
+        const int d = threadIdx.x;
+        const int last = r0 + BQ - 1;
+        float sum = 0.f;
+        if (d < kDkvDiags)
+          for (int r = 0; r < BQ; ++r) {
+            const int cc = r + d - (BQ - 1);
+            if (cc >= 0 && cc < BK) sum += Ts[r * PS + cc];
+          }
+        if constexpr (DET) {
+          // each run of diagonals that meet on one entry (one diagonal, or
+          // those clipped where N > Nm) summed in order by one thread, into
+          // the block's row
+          if (d < kDkvDiags) diag[d] = sum;
+          __syncthreads();
+          if (d < kDkvDiags) {
+            const int idx = hstu::pos_index(last, col0 + d, p.Nm);
+            if (d == 0 || hstu::pos_index(last, col0 + d - 1, p.Nm) != idx) {
+              float run = 0.f;
+              for (int e = d; e < kDkvDiags && hstu::pos_index(last, col0 + e, p.Nm) == idx; ++e) run += diag[e];
+              prow[idx] += run;
+            }
+          }
+        } else {
+          if (d < kDkvDiags && sum != 0.f) atomicAdd(p.dpos + hstu::pos_index(last, col0 + d, p.Nm), sum);
+        }
+      }
+    }
+    if (tables) {
+      __syncthreads();  // every warp's copy of dts_w's sums is whole
+      for (int idx = threadIdx.x; idx < (DET ? n_ts : n_slots); idx += T) {
+        // DET: every entry of the row; else the slots, each to its bucket
+        // (slot n_slots - 1 holds bucket NB)
+        const int s = DET ? (idx < n_slots - 1 ? idx : (idx == p.NB ? n_slots - 1 : -1)) : idx;
+        float sum = 0.f;
+        if (s >= 0)
+          for (int w = 0; w < NW; ++w) sum += dts_s[w * kTsSlots + s];
+        if constexpr (DET) {
+          prow[n_pos + idx] = sum;
+        } else {
+          if (sum != 0.f) atomicAdd(p.dts + (idx == n_slots - 1 ? p.NB : idx), sum);
+        }
+      }
+    }
+  } else if (DET && tables) {  // a dead key tile's row of `partial` holds zeros
+    for (int idx = threadIdx.x; idx < n_pos + n_ts; idx += T) prow[idx] = 0.f;
+  }
+
+  // every element of the chunk's columns in the tile's key rows: zeros where
+  // the tile is dead
+  E* out = is_dv ? p.dv : p.dk;
+  const int width = is_dv ? p.V : p.D;
+  const float scale = is_dv ? dp_scale : s_alpha;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int col = col0 + am * 16 + g + 8 * i;
+    if (col >= p.N) continue;
+    E* dst = out + (((long long)b * p.N + col) * p.H + h) * width;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(dst, och * kC + an + 8 * n + 2 * t, width, scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
+  }
+}
+
 // ------------------------------------------------------------------ launches
 // Each returns the launch's cudaGetLastError(); a grid past CUDA's limit of
 // 2^31 - 1 blocks is refused.
+
+// Launches `kernel` in clusters of `cs` blocks of kBwdThreads threads and
+// `smem` bytes of shared memory by cudaLaunchKernelEx. A cluster no part of
+// the card can hold (cudaOccupancyMaxActiveClusters 0, asked once per card,
+// cluster size and shared memory; `fits`: the bytes known to fit per card and
+// cluster size, `fails` the least known not to) is refused with
+// cudaErrorInvalidConfiguration, never run otherwise.
+template <typename Kernel, typename... Args>
+cudaError_t launch_clusters(Kernel kernel, long long blocks, int cs, int smem, int (&fits)[8][kMaxCluster + 1],
+                            int (&fails)[8][kMaxCluster + 1], cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cs > kPortableCluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(kBwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool known = device < 8 && smem <= fits[device][cs];
+  if (!known) {
+    if (device < 8 && fails[device][cs] != 0 && smem >= fails[device][cs]) return cudaErrorInvalidConfiguration;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (device < 8) {
+      if (clusters > 0 && smem > fits[device][cs]) fits[device][cs] = smem;
+      if (clusters == 0 && (fails[device][cs] == 0 || smem < fails[device][cs])) fails[device][cs] = smem;
+    }
+    if (clusters == 0) return cudaErrorInvalidConfiguration;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The forward on clusters: one cluster of cs blocks per (64-row query tile,
+// head, batch row). bfloat16 reads rows in 16-byte pieces of 8 where the
+// pointer, the strides and the width allow (float32: the caller's `vec_*`,
+// pieces of 4).
+template <int BIAS, int MV, bool SPLIT, typename E>
+cudaError_t launch_fwd_m(const Params<E>& p, const FwdCluster& cl, cudaStream_t stream) {
+  static int fits[8][kMaxCluster + 1] = {}, fails[8][kMaxCluster + 1] = {};
+  const long long blocks = (long long)((p.N + kR - 1) / kR) * p.H * p.B * cl.cs;
+  return launch_clusters(fwd_kernel<BIAS, MV, SPLIT, E>, blocks, cl.cs, fwd_smem_bytes((int)sizeof(E), cl), fits,
+                         fails, stream, p, cl);
+}
+
+__host__ inline int vec8(const void* ptr, long long sb, long long sn, long long sh, int w) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 && sn % 8 == 0 && sh % 8 == 0 && w % 8 == 0;
+}
+
 template <int BIAS, typename E>
-cudaError_t launch_fwd(const Params<E>& p, cudaStream_t stream) {
-  constexpr int smem = fwd_smem_bytes();
-  auto kernel = fwd_kernel<BIAS, E>;
+cudaError_t launch_fwd(Params<E> p, cudaStream_t stream) {
+  const FwdCluster cl = fwd_cluster_of(p.D, p.V);
+  if (cl.cs == 0) return cudaErrorInvalidValue;
+  if constexpr (!std::is_same<E, float>::value) {
+    p.vec_q = vec8(p.q, p.q_sb, p.q_sn, p.q_sh, p.D);
+    p.vec_k = vec8(p.k, p.k_sb, p.k_sn, p.k_sh, p.D);
+    p.vec_v = vec8(p.v, p.v_sb, p.v_sn, p.v_sh, p.V);
+  }
+  if (cl.mv == 1) {
+    if (cl.split) return launch_fwd_m<BIAS, 1, true, E>(p, cl, stream);
+    return launch_fwd_m<BIAS, 1, false, E>(p, cl, stream);
+  }
+  // two V tiles a block: V past 16 chunks, so 16 blocks, split
+  if (!cl.split) return cudaErrorInvalidValue;
+  return launch_fwd_m<BIAS, 2, true, E>(p, cl, stream);
+}
+
+// The per-chunk forward: a block per (64-row query tile, head, batch row, V
+// chunk)
+template <int BIAS, typename E>
+cudaError_t launch_fwd_chunks(const Params<E>& p, cudaStream_t stream) {
+  constexpr int smem = fwd_chunks_smem_bytes();
+  auto kernel = fwd_chunks_kernel<BIAS, E>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)((p.N + kFwdRows - 1) / kFwdRows) * p.H * p.B * chunks(p.V);
@@ -953,47 +1985,13 @@ inline long long bwd_table_rows(int B, int N, int H, int D, int V) {
 }
 
 // A backward pass: one cluster of cs blocks per (64-row tile, head, batch
-// row), launched by cudaLaunchKernelEx. A cluster no part of the card can
-// hold (cudaOccupancyMaxActiveClusters 0, asked once per card and cluster
-// size) is refused with cudaErrorInvalidConfiguration, never run otherwise.
+// row).
 template <int PASS, bool RELBIAS, bool DET, bool FUSED, int M, bool SPLIT, typename E>
 cudaError_t launch_bwd_m(const Params<E>& p, const Cluster& cl, cudaStream_t stream) {
-  constexpr int smem = bwd_smem_bytes((int)sizeof(E), M, RELBIAS && PASS == kDkvPass);
-  auto kernel = bwd_kernel<PASS, RELBIAS, DET, FUSED, M, SPLIT, E>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess && cl.cs > kPortableCluster)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return err;
+  static int fits[8][kMaxCluster + 1] = {}, fails[8][kMaxCluster + 1] = {};
   const long long blocks = (long long)((p.N + kR - 1) / kR) * p.H * p.B * cl.cs;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cl.cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kBwdThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  static int fits[8][kMaxCluster + 1] = {};  // per card and cluster size: 1 fits, -1 does not, 0 not asked
-  int device = 0;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  int known = device < 8 ? fits[device][cl.cs] : 0;
-  if (known == 0) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return err;
-    known = clusters > 0 ? 1 : -1;
-    if (device < 8) fits[device][cl.cs] = known;
-  }
-  if (known < 0) return cudaErrorInvalidConfiguration;
-  err = cudaLaunchKernelEx(&cfg, kernel, p, cl);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_clusters(bwd_kernel<PASS, RELBIAS, DET, FUSED, M, SPLIT, E>, blocks, cl.cs,
+                         bwd_smem_bytes((int)sizeof(E), M, RELBIAS && PASS == kDkvPass), fits, fails, stream, p, cl);
 }
 
 template <int PASS, bool RELBIAS, bool DET, bool FUSED, typename E>
@@ -1009,9 +2007,44 @@ cudaError_t launch_bwd(const Params<E>& p, cudaStream_t stream) {
   return launch_bwd_m<PASS, RELBIAS, DET, FUSED, kMaxOwn, true, E>(p, cl, stream);
 }
 
+// The per-chunk dq pass: a block per (64-row query tile, head, batch row, dQ
+// chunk), dQ written whole as DQ
+template <bool RELBIAS, typename E, typename DQ>
+cudaError_t launch_dq_chunks(const Params<E>& p, cudaStream_t stream) {
+  constexpr int smem = dq_chunks_smem_bytes();
+  auto kernel = dq_chunks_kernel<RELBIAS, E, DQ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = (long long)((p.N + kDqRows - 1) / kDqRows) * p.H * p.B * chunks(p.D);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The rows of K7-det's `partial` that the per-chunk dkv pass with DET
+// writes: one per (key tile, head, batch row)
+inline long long dkv_chunks_table_rows(int B, int N, int H) {
+  return (long long)((N + kDkvCols - 1) / kDkvCols) * H * B;
+}
+
+// The per-chunk dkv pass: a block per (64-column key tile, head, batch row,
+// dK or dV chunk)
+template <bool RELBIAS, bool DET, typename E>
+cudaError_t launch_dkv_chunks(const Params<E>& p, cudaStream_t stream) {
+  constexpr int smem = dkv_chunks_smem_bytes(RELBIAS);
+  auto kernel = dkv_chunks_kernel<RELBIAS, DET, E>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = dkv_chunks_table_rows(p.B, p.N, p.H) * (chunks(p.D) + chunks(p.V));
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // The bfloat16 backward's pre-scaling pass (bf16_mma.cuh) on the wide
 // parameters: q and dO then point at bfloat16(alpha q) and bfloat16(dO /
-// norm) in the wrapper's buffers. float32: nothing.
+// norm) in the wrapper's buffers. float32: nothing. (The per-chunk bodies
+// round alpha q and dO / norm as they load them and take no pass.)
 template <typename E>
 cudaError_t prescale(Params<E>& p, cudaStream_t stream) {
   if constexpr (std::is_same<E, float>::value) {

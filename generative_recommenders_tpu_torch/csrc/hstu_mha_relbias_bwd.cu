@@ -851,7 +851,9 @@ int head_group_bf16(int D, int V);
 
 // This body on float32, the bfloat16 body on bfloat16 (kNarrow: the tables
 // staged; kRead: LONG; D and V up to 128), or with kWide (K7 alone) the wide
-// backward's dkv pass with dQ (FUSED) and the tables.
+// backward's dkv pass with dQ (FUSED) and the tables; with kWideChunks the
+// per-chunk dq pass into the float32 dq, then the per-chunk dkv pass with the
+// tables.
 template <typename E, bool DET = false>
 int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
@@ -862,6 +864,12 @@ int launch(const Params<E>& p, int route, void* stream) {
     const cudaError_t err = hstu_wide::prescale(w, s);
     if (err != cudaSuccess) return (int)err;
     return (int)hstu_wide::launch_bwd<hstu_wide::kDkvPass, true, false, true, E>(w, s);
+  }
+  if (!DET && route == hstu::kWideChunks) {
+    const hstu_wide::Params<E> w = wide_params(p, p.dq);
+    const cudaError_t err = hstu_wide::launch_dq_chunks<true, E, float>(w, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)hstu_wide::launch_dkv_chunks<true, false, E>(w, s);
   }
   if (p.D > 128 || p.V > 128 || (route != hstu::kNarrow && route != hstu::kRead))
     return (int)cudaErrorInvalidValue;
@@ -879,12 +887,13 @@ int launch(const Params<E>& p, int route, void* stream) {
 // the tile pairs' slots, summed over the key tiles in ascending order, and
 // the blocks' table rows in block order; with kWide, the wide backward (its
 // relative-bias dq pass, then its dkv pass with the table rows), their rows
-// summed in order by the same kernel. dq: [B, N, H, D] of q's type, written
-// whole; partial: float32 [blocks, (2 Nm - 1) + (NB + 1)] with blocks =
-// ceil(N / 64) * ceil(H / HG) * B (kWide: one row per block of the dkv pass,
-// `hstu_wide::bwd_table_rows`);
-// dq_partial: float32 [B, det_pairs, 64, H, D] (unused with kWide); dpos and
-// dts are written, not added to.
+// summed in order by the same kernel; with kWideChunks the per-chunk passes
+// so (one row per key tile, head and batch row, `dkv_chunks_table_rows`).
+// dq: [B, N, H, D] of q's type, written whole; partial: float32 [blocks,
+// (2 Nm - 1) + (NB + 1)] with blocks = ceil(N / 64) * ceil(H / HG) * B
+// (kWide: one row per block of the dkv pass, `hstu_wide::bwd_table_rows`);
+// dq_partial: float32 [B, det_pairs, 64, H, D] (unused by the wide routes);
+// dpos and dts are written, not added to.
 template <typename E>
 int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
@@ -908,6 +917,14 @@ int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
     if (err != cudaSuccess) return (int)err;
     sp.tiles = 0;  // the tables alone
     sp.rows = (int)hstu_wide::bwd_table_rows(p.B, p.N, p.H, p.D, p.V);
+  } else if (route == hstu::kWideChunks) {
+    const hstu_wide::Params<E> w = wide_params(p, dq);
+    cudaError_t err = hstu_wide::launch_dq_chunks<true, E, E>(w, s);
+    if (err != cudaSuccess) return (int)err;
+    err = hstu_wide::launch_dkv_chunks<true, true, E>(w, s);
+    if (err != cudaSuccess) return (int)err;
+    sp.tiles = 0;
+    sp.rows = (int)hstu_wide::dkv_chunks_table_rows(p.B, p.N, p.H);
   } else {
     if (p.dq_partial == nullptr) return (int)cudaErrorInvalidValue;
     const int err = launch<E, /*DET=*/true>(p, route, stream);

@@ -47,9 +47,11 @@ NVCC_FLAGS = (
 # build's time: nvcc optimizes its device code on every core
 # (`--split-compile`), which took its build from 66 to 39 s on an 8-core host
 # beside an H100; ptxas reports the same registers and spills for every
-# instance either way (the other libraries keep one thread: two of K2's
-# instances come out with other register counts when split).
-_SPLIT_COMPILE = ("hstu_mha_relbias_bwd",)
+# instance either way. The forward's libraries, with the wide forward's
+# cluster instances, split too: K1's took 66 s on one thread, 38 s split
+# (the narrow K1 the same time). The others keep one thread: two of K2's
+# instances come out with other register counts when split.
+_SPLIT_COMPILE = ("hstu_mha_relbias_bwd", "hstu_mha_fwd", "hstu_mha_relbias_fwd")
 
 
 def nvcc_flags(name: str) -> tuple:

@@ -469,23 +469,39 @@ _MAX_GRID_X = 2**31 - 1
 # The body a launch takes, which the plans choose and the C entry points take
 # as they are told (`hstu::Route`, csrc/hstu_attention.cuh): the narrow body
 # (its tables staged in shared memory), the narrow body with the relative
-# bias's tables read from device memory, the wide body
-_ROUTES = {"narrow": 0, "read": 1, "wide": 2}
-# The wide bodies (csrc/hstu_attention_wide.cuh): D and V in chunks of 128
-# columns, tiles at a pitch of 136; the forward's rows and columns, and its
-# shared memory
+# bias's tables read from device memory, the wide bodies on thread block
+# clusters, the per-chunk wide bodies (the widths no cluster takes)
+_ROUTES = {"narrow": 0, "read": 1, "wide": 2, "wide_chunks": 3}
+# The wide bodies (csrc/hstu_attention_wide.cuh): D and V in chunks (or
+# tiles) of 128 columns, at a pitch of 136
 _WIDE_CHUNK = 128
-_WIDE_FWD = dict(query_rows=64, key_tile=32, shared_bytes=4 * (64 * 136 + 32 * 136 + 32 * 132))
-# The wide backward (`hstu_wide::bwd_kernel`): one cluster of blocks per
-# 64-row tile, 32 streamed rows a step, its exchange buffers and A tile at a
-# pitch of 40; a block owns one chunk, or two where one a block would need
-# more than a portable cluster's 8 blocks; 16 blocks at most (a non-portable
-# cluster); clusters of 5 blocks and more split the per-element work across
-# their blocks, smaller ones repeat it in each
+# The wide bodies on clusters (`hstu_wide::fwd_kernel`, `bwd_kernel`): one
+# cluster of 8-warp blocks per 64-row tile, 32 key (or streamed) rows a step,
+# the exchange buffers and the P (or A) tile at a pitch of 40; 16 blocks at
+# most (a non-portable cluster past 8); the per-element work split across
+# the blocks from a size on, repeated in each below.
+# The backward: a block owns one chunk of D or V, or two where one a block
+# would need more than a portable cluster's 8 blocks; split from 5 blocks.
 _WIDE_BWD_ROWS, _WIDE_BWD_STEP, _WIDE_BWD_XP = 64, 32, 40
 _PORTABLE_CLUSTER, _MAX_CLUSTER, _MAX_OWN, _SPLIT_FROM = 8, 16, 2, 5
+# The forward: a block per chunk of V or per two chunks of D, each block's
+# columns of D and of V their share rounded up to 32, in tiles of up to 128;
+# 3 tiles a block at most (two of either); the per-element work split from 4
+# blocks
+_WIDE_FWD_ROUND, _WIDE_FWD_MAX_TILES, _WIDE_FWD_SPLIT_FROM = 32, 3, 4
 # the buckets a float32 time gap reaches (`hstu_wide::kTsSlots`)
 _WIDE_TS_SLOTS = 296
+# The per-chunk wide bodies (route ``wide_chunks``): the forward's 64 query
+# rows and 32-column key tiles, a block of 4 warps per V chunk, its float32
+# Q, K and V tiles; the dq pass's 64 query rows and 32-column key tiles, a
+# block of 8 warps per dQ chunk; the dkv pass's 64 key columns and 32-row
+# query steps, a block of 8 warps per dK or dV chunk (with the relative bias:
+# the float32 dS, the 95 diagonals' sums and 8 warps' copies of the reachable
+# buckets)
+_CHUNKS_FWD = dict(query_rows=64, key_tile=32, shared_bytes=4 * (64 * 136 + 32 * 136 + 32 * 132))
+_CHUNKS_DQ_BYTES = 4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8)
+_CHUNKS_DKV_BYTES = 4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72)
+_CHUNKS_DKV_TABLE_BYTES = 4 * (32 * 72 + 96 + 8 * 296)
 
 
 def _chunks(w: int) -> int:
@@ -509,8 +525,60 @@ def _walk_chunk(N: int, tile: int) -> int:
     return max(_FWD_CHUNK_BF16 // tile, -(-(-(-N // tile)) // _MAX_CHUNKS)) * tile
 
 
+def _wide_fwd_cluster(D: int, V: int) -> Optional[Tuple[int, int, int, int, int]]:
+    """The wide forward's cluster at widths D and V (`hstu_wide::fwd_cluster_of`):
+    (blocks, D columns a block, V columns a block, D tiles, V tiles): a block
+    per chunk of V or per two chunks of D, 16 at most; None past 3 tiles a
+    block of 16 blocks."""
+    cs = min(_MAX_CLUSTER, max(-(-_chunks(D) // 2), _chunks(V)))
+    dw, vw = (-(-(-(-w // cs)) // _WIDE_FWD_ROUND) * _WIDE_FWD_ROUND for w in (D, V))
+    md, mv = _chunks(dw), _chunks(vw)
+    if md > _MAX_OWN or mv > _MAX_OWN or md + mv > _WIDE_FWD_MAX_TILES:
+        return None
+    return cs, dw, vw, md, mv
+
+
+# the (query tile, head, batch row) units from which the per-chunk forward's
+# blocks (4 warps, 3 an SM) fill the card well enough to beat the clusters
+# at D 129 to 256 or with a dense bias (measured: slower at 256 and 640
+# units, faster at 1408 and 4096)
+_FWD_PER_CHUNK_UNITS = 1024
+
+
+def _fwd_per_chunk(D: int, V: int, H: int, B: int, N: int, relbias: bool, bias: bool, dtype: torch.dtype) -> bool:
+    """Whether the per-chunk forward (route ``wide_chunks``) takes widths that
+    a cluster takes, because it was measured faster there
+    (`variants.py --wide-fwd-routes`, NVIDIA H100): float32 without the
+    relative bias at D of 65 to 256. Without a bias at D up to 128 (Q
+    resident in the per-chunk block) and V in two or three chunks, always
+    (the V-256 ranker's layer); at D 129 to 256, or with the dense bias
+    (read once per V chunk), at V in two chunks from
+    `_FWD_PER_CHUNK_UNITS` units on (the --attn_dim 256 serving layer).
+    There blocks forming S whole per V chunk beat clusters that form it
+    once and share it; bfloat16 and the relative bias, whose per-element
+    work the cluster does once, stay on the clusters."""
+    if dtype != torch.float32 or relbias or not 64 < D <= 2 * _WIDE_CHUNK:
+        return False
+    if D <= _WIDE_CHUNK and not bias and _chunks(V) in (2, 3):
+        return True
+    return _chunks(V) == 2 and -(-N // _WIDE_BWD_ROWS) * H * B >= _FWD_PER_CHUNK_UNITS
+
+
+def _wide_fwd_bytes(dw: int, vw: int, md: int, mv: int, elem: int, split: bool) -> int:
+    """A wide forward block's shared memory: Q [md][64][pd] and two stages of
+    K [2][md][32][pd] and of V [2][mv][32][pv] of the element type (``elem``
+    bytes; pd and pv the block's columns + 8, 136 where they take two
+    tiles), two float32 exchange buffers [2][64][40] (or, split, the receive
+    buffer in their space), ``split`` the P tile [64][40] of the element
+    type (else in the exchange buffers), eight warps' live flags."""
+    rows, step, xp = _WIDE_BWD_ROWS, _WIDE_BWD_STEP, _WIDE_BWD_XP
+    pd, pv = (min(w, _WIDE_CHUNK) + 8 for w in (dw, vw))
+    return (elem * (md * rows * pd + 2 * md * step * pd + 2 * mv * step * pv + (rows * xp if split else 0))
+            + 4 * (2 * rows * xp + 8))
+
+
 def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 1, N: int = 1,
-              dtype: torch.dtype = torch.float32) -> dict:
+              dtype: torch.dtype = torch.float32, bias: bool = False) -> dict:
     """K1's and K6's launch on q's type ``dtype``, its ``route`` the body the
     C entry point takes (`_ROUTES`). Up to D 256 and V 128 (`_narrow`, route
     ``narrow``): the width both are padded to (the next of 32, 64, 128, or 256
@@ -527,17 +595,36 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
     the longest walk, the float32 ``scratch_shape`` [chunks, B, N, H, V] of
     the chunks' sums (None with one chunk) and the ``sums_grid`` of the pass
     that adds them.
-    Wider heads (route ``wide``, either type): the wide body's 64 query rows
-    and 32-column key tiles, one head a block, D and V in chunks of 128, a
-    block per (query tile, head, batch row, V chunk). Raises on a width of 0
-    and on a grid beyond CUDA's."""
+    Wider heads, either type: route ``wide``, the wide forward on thread
+    block clusters (`_wide_fwd_cluster`): one cluster of ``cluster`` blocks
+    per (64-row query tile, head, batch row), 32 key rows a step; block r
+    owns D's columns [r d_cols, (r + 1) d_cols) in ``d_tiles`` tiles and V's
+    [r v_cols, (r + 1) v_cols) in ``v_tiles``, the per-element work split
+    across the blocks (``split_work``, from 4 blocks) or repeated in each;
+    ``shared_bytes`` the block's on q's type (the bias, dense or relative, is
+    read into registers and takes none). Past 3 tiles a block of 16 blocks,
+    and where it was measured faster (`_fwd_per_chunk`; ``bias``: K1-bias's
+    plan, which differs from K1's only there), route
+    ``wide_chunks``: the per-chunk forward, 64 query rows and 32-column key
+    tiles, a block per (query tile, head, batch row, V chunk). Raises on a
+    width of 0 and on a grid beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
-        v_chunks = _chunks(V)
-        blocks = -(-N // _WIDE_FWD["query_rows"]) * H * B * v_chunks
-        _check_grid(blocks, "the wide forward kernel")
-        return dict(_WIDE_FWD, route="wide", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=v_chunks,
-                    head_group=1, head_groups=H, grid=(blocks,))
+        cluster = _wide_fwd_cluster(D, V)
+        tiles = -(-N // _WIDE_BWD_ROWS)
+        if cluster is None or _fwd_per_chunk(D, V, H, B, N, relbias, bias, dtype):
+            blocks = tiles * H * B * _chunks(V)
+            _check_grid(blocks, "the per-chunk wide forward kernel")
+            return dict(_CHUNKS_FWD, route="wide_chunks", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V),
+                        head_group=1, head_groups=H, grid=(blocks,))
+        cs, dw, vw, md, mv = cluster
+        blocks = tiles * H * B * cs
+        split = cs >= _WIDE_FWD_SPLIT_FROM
+        _check_grid(blocks, f"the wide forward kernel (clusters of {cs} blocks)")
+        return dict(route="wide", width=_WIDE_CHUNK, query_rows=_WIDE_BWD_ROWS, key_tile=_WIDE_BWD_STEP,
+                    d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1, head_groups=H, cluster=cs, d_cols=dw,
+                    v_cols=vw, d_tiles=md, v_tiles=mv, split_work=split,
+                    shared_bytes=_wide_fwd_bytes(dw, vw, md, mv, dtype.itemsize, split), grid=(blocks,))
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
     bf16 = dtype == torch.bfloat16
     warps, head_group, key_tile = (_FWD_TILING_BF16 if bf16 else _FWD_TILING)[width]
@@ -573,19 +660,16 @@ _BWD_TILING = {32: (64, 64), 64: (64, 64), 128: (32, 64), 256: (32, 64)}
 _BWD_TILING_BF16 = {32: (64, 64, 8), 64: (128, 64, 16), 128: (32, 64, 8), 256: (32, 64, 8)}
 
 
-def _wide_cluster(D: int, V: int) -> Tuple[int, int, int]:
+def _wide_cluster(D: int, V: int) -> Optional[Tuple[int, int, int]]:
     """The wide backward's cluster at widths D and V (`hstu_wide::cluster_of`):
-    (chunks a block owns, D-blocks, V-blocks). Raises past 16 blocks of two
-    chunks, with the sizes."""
+    (chunks a block owns, D-blocks, V-blocks), or None past 16 blocks of two
+    chunks (the per-chunk bodies take those widths)."""
     n_dc, n_vc = _chunks(D), _chunks(V)
     for m in range(1, _MAX_OWN + 1):
         nd, nv = -(-n_dc // m), -(-n_vc // m)
         if nd + nv <= _PORTABLE_CLUSTER or (m == _MAX_OWN and nd + nv <= _MAX_CLUSTER):
             return m, nd, nv
-    raise ValueError(
-        f"the wide backward takes clusters of up to {_MAX_CLUSTER} blocks of {_MAX_OWN} chunks of {_WIDE_CHUNK} "
-        f"columns; D={D} and V={V} are {n_dc} + {n_vc} chunks, a cluster of {nd + nv} blocks"
-    )
+    return None
 
 
 def _wide_bwd_bytes(m: int, elem: int, tables: bool) -> int:
@@ -609,9 +693,21 @@ def _wide_bwd_plan(what: str, D: int, V: int, H: int, B: int, N: int, tables: bo
     ``v_blocks`` V's, ``chunks_per_block`` each, the per-element work split
     across them (``split_work``, from 5 blocks) or repeated in each; on
     bfloat16 after the pre-scaling pass (``prescale_grid``) into
-    ``q_scaled_shape`` (where alpha != 1) and ``do_scaled_shape``. Raises on
-    a grid beyond CUDA's."""
-    m, nd, nv = _wide_cluster(D, V)
+    ``q_scaled_shape`` (where alpha != 1) and ``do_scaled_shape``. Past 16
+    blocks of two chunks (route ``wide_chunks``): the per-chunk pass, a block
+    of 8 warps per (64-row tile, head, batch row, output chunk), no
+    pre-scaling pass; ``tables``: its blocks of chunk 0 sum the table
+    gradients. Raises on a grid beyond CUDA's."""
+    cluster = _wide_cluster(D, V)
+    if cluster is None:
+        dkv = what == "the wide dkv kernel"
+        outputs = _chunks(D) + (_chunks(V) if dkv else 0)
+        blocks = -(-N // _WIDE_BWD_ROWS) * H * B * outputs
+        _check_grid(blocks, f"the per-chunk {what.removeprefix('the ')}")
+        shared = (_CHUNKS_DKV_BYTES + (_CHUNKS_DKV_TABLE_BYTES if tables else 0)) if dkv else _CHUNKS_DQ_BYTES
+        return dict(route="wide_chunks", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1,
+                    output_chunks=outputs, shared_bytes=shared, grid=(blocks,))
+    m, nd, nv = cluster
     cs = nd + nv
     blocks = -(-N // _WIDE_BWD_ROWS) * H * B * cs
     _check_grid(blocks, f"{what} (clusters of {cs} blocks)")
@@ -628,9 +724,11 @@ def _wide_dkv_plan(D: int, V: int, H: int, B: int, N: int, relbias: bool = False
                    dtype: torch.dtype = torch.float32) -> dict:
     """The wide dkv pass (K4; K2 and K7 with dQ; K7-det's second pass): a
     cluster per (64-column key tile, head, batch row), `_wide_bwd_plan`;
-    ``table_rows``: K7-det's rows of `partial`, one per block."""
+    ``table_rows``: K7-det's rows of `partial`, one per block (per key tile,
+    head and batch row on the per-chunk route)."""
     plan = _wide_bwd_plan("the wide dkv kernel", D, V, H, B, N, relbias, dtype)
-    return dict(plan, table_rows=plan["grid"][0])
+    rows = plan["grid"][0] // (plan["output_chunks"] if plan["route"] == "wide_chunks" else 1)
+    return dict(plan, table_rows=rows)
 
 
 def _wide_dq_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.float32) -> dict:
@@ -653,8 +751,9 @@ def _bwd_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch
     ``prescale_grid``) into the bfloat16 buffers ``q_scaled_shape`` (where
     alpha != 1) and ``do_scaled_shape``. Wider heads (route ``wide``, either
     type): the wide dkv pass (K2 with its dQ; ``dq`` the wide dq pass of
-    the split backward beside it). Raises on a width of 0 and on a grid or a
-    cluster beyond CUDA's."""
+    the split backward beside it), route ``wide`` on clusters or
+    ``wide_chunks`` past them (K2 there: the per-chunk dq pass, then the dkv
+    pass). Raises on a width of 0 and on a grid beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
         return dict(_wide_dkv_plan(D, V, H, B, N, dtype=dtype), dq=_wide_dq_plan(D, V, H, B, N, dtype))
@@ -699,8 +798,8 @@ def _dq_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.
     kept in registers), after the pre-scaling pass (a block per batch row
     and row, ``prescale_grid``) into the bfloat16 buffers ``q_scaled_shape``
     (where alpha != 1) and ``do_scaled_shape``. Wider heads (route ``wide``,
-    either type): the wide dq pass. Raises on a width of 0 and on a grid or
-    a cluster beyond CUDA's."""
+    either type): the wide dq pass, on clusters or per chunk. Raises on a
+    width of 0 and on a grid beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
         return _wide_dq_plan(D, V, H, B, N, dtype)
@@ -733,8 +832,9 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
     if out.numel() == 0:
         return out
     # raises on what the kernel does not take; the biased instances tile as
-    # the others (the bias is read into registers)
-    plan = _fwd_plan(D, V, H, 0, 0, False, B, N, q.dtype)
+    # the others (the bias is read into registers) but may take another wide
+    # route
+    plan = _fwd_plan(D, V, H, 0, 0, False, B, N, q.dtype, bias=bias is not None)
     route = plan["route"]
     name = "hstu_mha_fwd" + ("" if bias is None else "_bias") + ("_bf16" if bf16 else "")
     # the bfloat16 entry points' scratch after out and chunk before the route
@@ -923,11 +1023,12 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     # the bfloat16 bodies (K2-bf16 and K4-bf16's, K3-bf16's, the wide
     # backward's): a pre-scaling pass writes bfloat16(alpha q) (where alpha
     # != 1) and bfloat16(dO / norm) into buffers of their own (pointers after
-    # dO), and the body reads its rows in 16-byte pieces of 8 elements
+    # dO), and the body reads its rows in 16-byte pieces of 8 elements (the
+    # per-chunk wide bodies round as they load and take none)
     scaled = ()
     if bf16:
-        qs = new(plan["q_scaled_shape"]) if kw["alpha"] != 1.0 else None
-        scaled = (qs, new(plan["do_scaled_shape"]))
+        qs = new(plan["q_scaled_shape"]) if kw["alpha"] != 1.0 and "q_scaled_shape" in plan else None
+        scaled = (qs, new(plan["do_scaled_shape"]) if "do_scaled_shape" in plan else None)
     # the kernels read q, k, v and dO in 16-byte pieces where each allows it
     # (on the STU path q, k and v are strided views of one projection)
     vec = tuple(int(_vec16(t, 8 if bf16 else 4)) for t in (q, k, v, do))

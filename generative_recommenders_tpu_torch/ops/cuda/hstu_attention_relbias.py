@@ -355,8 +355,10 @@ def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int, dtype: torch.dty
     buffers ``q_scaled_shape`` (where alpha != 1) and ``do_scaled_shape``.
     Wider heads (route ``wide``, either type): the wide backward's dkv pass
     with dQ and the table sums (`ha._wide_dkv_plan`: a cluster per key tile,
-    head and batch row); on bfloat16 after the pre-scaling pass. Raises on a
-    width of 0 and on a grid or a cluster beyond CUDA's."""
+    head and batch row); on bfloat16 after the pre-scaling pass. Past 16
+    blocks of two chunks (route ``wide_chunks``): the per-chunk dq pass with
+    the bias, then the per-chunk dkv pass with the table sums. Raises on a
+    width of 0 and on a grid beyond CUDA's."""
     ha._check_widths(D, V)
     if max(D, V) > _NARROW_BWD_WIDTH:
         return dict(ha._wide_dkv_plan(D, V, H, B, N, relbias=True, dtype=dtype), head_groups=H)
@@ -414,14 +416,15 @@ def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, 
     ascending order (4096 floats a block, 1024 where H D is not a multiple of
     4), the rest the table rows in block order, 32 entries a block. Wider
     heads: the wide backward's dq pass with the bias, its dkv pass, whose
-    blocks each write one row, and the same sum launch on the tables
-    alone. On bfloat16 K7's bfloat16 body (`_relbias_bwd_plan`
+    blocks each write one row (on the per-chunk route the blocks of chunk 0,
+    one per key tile, head and batch row), and the same sum launch on the
+    tables alone. On bfloat16 K7's bfloat16 body (`_relbias_bwd_plan`
     on ``dtype``: its head groups, its route, its pre-scaled buffers). Raises
     on a width of 0 and on a grid beyond CUDA's."""
     bwd = _relbias_bwd_plan(D, V, H, Nm, NB, dtype, B, N)
     entries = 2 * Nm - 1 + NB + 1
     table_blocks = -(-entries // 32)
-    if bwd["route"] == "wide":
+    if bwd["route"] in ("wide", "wide_chunks"):
         dq = ha._wide_dq_plan(D, V, H, B, N, dtype)
         return dict(bwd, dq_grid=dq["grid"], dq_shared_bytes=dq["shared_bytes"],
                     partial_shape=(bwd["table_rows"], entries), dq_partial_shape=None, sum_grid=(table_blocks,))
@@ -454,7 +457,7 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
         plan = _relbias_det_plan(D, V, H, B, N, Nm, NB, kw["causal"], kw["contextual_seq_len"], q.dtype)
     else:
         plan = _relbias_bwd_plan(D, V, H, Nm, NB, q.dtype, B, N)
-        if plan["route"] != "wide":
+        if plan["route"] not in ("wide", "wide_chunks"):
             _relbias_grid(N, plan["head_groups"], B)
     new = lambda fn, *shape, dtype=torch.float32: fn(shape, dtype=dtype, device=q.device)  # noqa: E731
     dk, dv = new(torch.empty, B, N, H, D, dtype=q.dtype), new(torch.empty, B, N, H, V, dtype=q.dtype)
@@ -480,10 +483,13 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
     # bfloat16(alpha q) (where alpha != 1) and bfloat16(dO / norm) into
     # buffers of their own (pointers after dO), and the body reads its rows
     # in 16-byte pieces of 8 elements
+    # (the per-chunk wide bodies round as they load and take none)
     scaled = ()
     if bf16:
-        qs = new(torch.empty, *plan["q_scaled_shape"], dtype=q.dtype) if kw["alpha"] != 1.0 else None
-        dos = new(torch.empty, *plan["do_scaled_shape"], dtype=q.dtype)
+        qs = dos = None
+        if "do_scaled_shape" in plan:
+            qs = new(torch.empty, *plan["q_scaled_shape"], dtype=q.dtype) if kw["alpha"] != 1.0 else None
+            dos = new(torch.empty, *plan["do_scaled_shape"], dtype=q.dtype)
         scaled = (ha._ptr(qs), ha._ptr(dos))
     ha._launch_planned(
         plan, name,

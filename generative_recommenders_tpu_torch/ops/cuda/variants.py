@@ -114,6 +114,43 @@ in place across the walk (in place of one pass of fresh sums); K7's
 `dpos_w` sums on the block of rank 0 in place of step by step across the
 cluster, and without the table sums.
 
+    python PATH/TO/variants.py --wide-fwd
+
+(run as a file, with ``PYTHONPATH`` naming the checkout whose package to
+time, as ``--wide-bwd``) times the wide forward through the public
+wrappers, float32 and bfloat16, each the mean of 10 launches: K1 and K1-bias
+at the V-256 ranker's layer (B 32, N 268, H 4, D 128, V 256, lengths N / 2
+.. N with one full row), at the --attn_dim 256 serving layer (B 32, N 674,
+H 4, D = V = 256) and at D 64 / V 256 and D 512 / V 64 (B 4, N 2048, H 2),
+K6 at D = V = 256 (B 4, N 1024, H 2, 128 buckets) and K6-long (N 4096
+against Nm 16384, D = V = 64, B 2, H 8, the wide bodies forced), beside
+each shape the plain forward (the mean of 2). Run it from the parent's
+checkout and this one in turns (parent, new, new, parent) in one call.
+
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-fwd-routes
+
+times the wide forward's two routes on the same inputs, float32 and
+bfloat16, each the mean of 10 launches: on the clusters (route ``wide``)
+and on the per-chunk body (``wide_chunks``), K1 and K1-bias (K6 at its
+shape) at `--wide-fwd`'s shapes but K6-long, at D 128, 192, 256 and 320
+against V 256 and D 128 and 256 against V 384 (B 4, N 2048, H 2), and at D
+128 and 256 against V 256 at (B 8, N 1024, H 2), (B 4, N 1536, H 2) and
+(B 32, N 2048, H 4): where `hstu_attention._fwd_per_chunk` sends float32 to
+the per-chunk body.
+
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-fwd-variants [KERNEL ...]
+
+builds and times the knock-outs of the wide forward (labels "wfwd: ..."; of
+K1's library at its shapes, of K6's at D = V = 256): S recomputed per V
+chunk (the per-chunk body, its route forced: no build), the copies
+synchronous in place of `cp.async` a step ahead, bfloat16 through two TF32
+m16n8k8 in place of one m16n8k16, the per-element work repeated in every
+block at every cluster size or split by fragment at every size (shipped:
+split from 4 blocks), without distributed shared memory (each block its own
+part: wrong sums), without the step's cluster barriers, without the
+products, without the per-element work (silu, the bias), a block per chunk
+of D too (shipped: per two chunks of D).
+
     python PATH/TO/variants.py --det
 
 (run as a file, with ``PYTHONPATH`` naming the checkout whose package to
@@ -464,6 +501,57 @@ _WIDE_BWD_EDITS: Dict[str, Edit] = {
              "    if (false && (part_live[2 * wm] || part_live[2 * wm + 1])) {", _WIDE),
         _sub("          dq_product(dq, As, Rs", "          if (false) dq_product(dq, As, Rs", _WIDE)),
 }
+# The wide forward (`fwd_kernel` in hstu_attention_wide.cuh): the copies
+# synchronous (the next step's rows waited for where they are asked for),
+# bfloat16 through two TF32 products (the width-128 knock-out's edit of the
+# shared m16n8k16), the split of the per-element work at every size or none,
+# the cluster's remote accesses and barriers, the products
+_WIDE_FWD_EDITS: Dict[str, Edit] = {
+    "wfwd: synchronous copies": _sub(
+        "    if (s0 + kS < end) load_step(stage ^ 1, s0 + kS);  // the next step's, into the other stage\n"
+        "    cp_async_commit();\n",
+        "    if (s0 + kS < end) load_step(stage ^ 1, s0 + kS);  // the next step's, into the other stage\n"
+        "    cp_async_commit();\n    cp_async_wait_all();\n    __syncthreads();\n", _WIDE),
+    "wfwd: bfloat16 through two TF32 m16n8k8 in place of m16n8k16":
+        _BF16_EDITS["bf16: m16n8k16 (two TF32 m16n8k8 instead)"],
+    "wfwd: the per-element work repeated at every cluster size": _sub("constexpr int kFwdSplitFrom = 4;",
+                                                                      "constexpr int kFwdSplitFrom = 17;", _WIDE),
+    "wfwd: the per-element work split at every cluster size": _sub("constexpr int kFwdSplitFrom = 4;",
+                                                                   "constexpr int kFwdSplitFrom = 1;", _WIDE),
+    "wfwd: without distributed shared memory": _both(
+        _sub("cluster.map_shared_rank(xch, warp % cs)", "(xch + 0 * (warp % cs))", _WIDE),
+        _sub("E* Pb = SPLIT ? cluster.map_shared_rank(Ps, r) : Pt;", "E* Pb = Pt + 0 * r;", _WIDE),
+        _sub("const float* src = cluster.map_shared_rank(xs, r);", "const float* src = xs + 0 * r;", _WIDE)),
+    "wfwd: without the step's cluster barriers": _both(
+        _sub("    cluster_arrive();\n    // the bias, while the other blocks arrive", "    // the bias", _WIDE),
+        _sub("    cluster_wait();\n    if (mine) {", "    if (mine) {", _WIDE),
+        _sub("    } else {  // every block's P tile and the flags are whole\n      cluster_arrive();\n      cluster_wait();\n",
+             "    } else {  // every block's P tile and the flags are whole\n", _WIDE)),
+    "wfwd: without the products": _both(
+        _sub("        if (kw > 0) part_product(sp,", "        if (false) part_product(sp,", _WIDE),
+        _sub("        if (i < cl.mv && ntiles > 0) pv_product(", "        if (false) pv_product(", _WIDE)),
+    "wfwd: without the per-element work (silu, bias)": _both(
+        _sub("          pe[e] = __fdividef(x, 1.f + __expf(-x));", "          pe[e] = x;", _WIDE),
+        _sub("        if (mine && (ok_bits >> e) & 1u) {\n          if constexpr (BIAS == kRelBias) {",
+             "        if (false && (ok_bits >> e) & 1u) {\n          if constexpr (BIAS == kRelBias) {", _WIDE)),
+    # a block per chunk of D too (twice the blocks where D is the wider,
+    # each with half the columns)
+    "wfwd: a block per chunk of D": _sub(
+        "  const int cs = min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));",
+        "  const int cs = min(kMaxCluster, max(chunks(D), chunks(V)));", _WIDE),
+    # at D = V = 256 (two chunks of each): 3 or 4 blocks of 96 or 64
+    # columns, whose float32 tiles let two blocks share an SM
+    "wfwd: 3 blocks at D = V = 256": _sub(
+        "  const int cs = min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));",
+        "  const int cs = chunks(D) == 2 && chunks(V) == 2 ? 3 : min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));",
+        _WIDE),
+    "wfwd: 4 blocks at D = V = 256": _sub(
+        "  const int cs = min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));",
+        "  const int cs = chunks(D) == 2 && chunks(V) == 2 ? 4 : min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));",
+        _WIDE),
+}
+# the knock-out that needs no build: the per-chunk body's route forced
+_WFWD_CHUNKS = "wfwd: S recomputed per V chunk (the per-chunk body)"
 # K1 and K6: edits of their shared body
 _FWD = "hstu_attention_fwd.cuh"
 _BIAS = "the bias (its logf, its table reads)"
@@ -588,10 +676,15 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
        for kernel in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_relbias_bwd")
        for label, phases in [("wbwd: as shipped", ())] + [(name, (name,)) for name in _WIDE_BWD_EDITS
                                                           if kernel == "hstu_mha_relbias_bwd" or "table" not in name]]
+    + [(kernel, label, phases)
+       for kernel in ("hstu_mha_fwd", "hstu_mha_relbias_fwd")
+       for label, phases in [("wfwd: as shipped", ()), (_WFWD_CHUNKS, ())]
+       + [(name, (name,)) for name in _WIDE_FWD_EDITS]]
 )
 _EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS, **_WIDE_BWD_EDITS},
           "delta_hstu_mha_fwd": _K5,
-          "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS}, "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS},
+          "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS, **_WIDE_FWD_EDITS},
+          "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS, **_WIDE_FWD_EDITS},
           "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_BWD_EDITS},
           "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
           "hstu_mha_bwd_dq": {**_K3, **_BF16_EDITS, **_Q16_EDITS, **_WIDE_BWD_EDITS}}
@@ -781,6 +874,31 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     if args == ["--wide-bwd"]:
         wide_bwd_times(device_ms, wide_bwd_inputs(rand, gen))
+        return
+    if args == ["--wide-fwd"]:
+        wide_fwd_times(device_ms, wide_fwd_inputs(rand, gen))
+        return
+    if args == ["--wide-fwd-routes"]:
+        wide_fwd_route_times(device_ms, rand, gen)
+        return
+    if args[:1] == ["--wide-fwd-variants"]:
+        inputs = wide_fwd_inputs(rand, gen)
+        chosen = [i for i, (kernel, label, _) in enumerate(VARIANTS)
+                  if label.startswith("wfwd") and (len(args) == 1 or kernel in args[1:])]
+        root = os.path.join(build.BUILD_DIR, "variants")
+        try:
+            _build_all(root, chosen)
+            for i in chosen:
+                kernel, label, _ = VARIANTS[i]
+                build._libs.clear()
+                _preload(kernel, os.path.join(root, f"v{i}"))
+                relbias = kernel == "hstu_mha_relbias_fwd"
+                with (_fwd_chunks_forced() if label == _WFWD_CHUNKS else contextlib.nullcontext()):
+                    wide_fwd_times(device_ms, {k_: v_ for k_, v_ in inputs.items()
+                                               if (v_["tables"] is not None) == relbias and "long" not in k_},
+                                   label=f"{label} ({kernel})", plain=False)
+        finally:
+            build._libs.clear()
         return
     if args[:1] == ["--wide-bwd-variants"]:
         inputs = wide_bwd_inputs(rand, gen)
@@ -1181,6 +1299,150 @@ def wide_bwd_times(device_ms, inputs: Dict[str, dict], label: str = "", plain: b
                     continue
                 counter.reset()
                 out[name] = f"{device_ms(fn, 10):.4f} ms ({'/'.join(counter.routes)})"
+            if plain:
+                out[f"plain{sfx}"] = f"{device_ms(plain_fn, 2):.4f} ms"
+            torch.cuda.empty_cache()
+        print(f"{label + ': ' if label else ''}{shape}: " + ", ".join(f"{n} {t}" for n, t in out.items()))
+
+
+# the wide forward's shapes: name, B, N, H, D, V, Nm (K6's table length; 0:
+# K1 and K1-bias), the wide bodies forced
+_WIDE_FWD_SHAPES = (("the V-256 ranker's layer", 32, 268, 4, 128, 256, 0, False),
+                    ("the --attn_dim 256 serving layer", 32, 674, 4, 256, 256, 0, False),
+                    ("D 64 / V 256", 4, 2048, 2, 64, 256, 0, False),
+                    ("D 512 / V 64", 4, 2048, 2, 512, 64, 0, False),
+                    ("K6 at D = V = 256", 4, 1024, 2, 256, 256, 1024, False),
+                    ("K6-long, N 4096 against Nm 16384", 2, 4096, 8, 64, 64, 16384, True))
+# and the further widths `--wide-fwd-routes` times both routes at
+_WIDE_FWD_ROUTE_SHAPES = (tuple((f"D {D} / V {V}", 4, 2048, 2, D, V, 0, False)
+                                for D, V in ((128, 256), (192, 256), (256, 256), (320, 256), (128, 384), (256, 384)))
+                          + tuple((f"D {D} / V 256", B, N, H, D, 256, 0, False)
+                                  for B, N, H in ((8, 1024, 2), (4, 1536, 2), (32, 2048, 4)) for D in (128, 256)))
+
+
+def wide_fwd_inputs(rand, gen, table=_WIDE_FWD_SHAPES) -> Dict[str, dict]:
+    """The wide forward's inputs by shape of ``table``, float32 and bfloat16:
+    q, k, v views of one projection, lengths N / 2 .. N with one full row, a
+    float32 [B, N, N] bias (K1-bias); for K6 the relative bias's timestamps
+    and tables (``tables``, else None); K6-long with full rows and the wide
+    bodies forced (``forced``)."""
+    import torch
+
+    shapes = {}
+    for name, B, N, H, D, V, Nm, forced in table:
+        proj = rand(B, N, H * (2 * D + V))
+        v, q, k = torch.split(proj, [H * V, H * D, H * D], dim=-1)
+        q, k, v = q.reshape(B, N, H, D), k.reshape(B, N, H, D), v.reshape(B, N, H, V)
+        if forced:
+            lens = torch.full((B,), N, dtype=torch.int32, device="cuda")
+        else:
+            lens = torch.cat([torch.full((1,), N, dtype=torch.int32, device="cuda"),
+                              torch.randint(N // 2, N, (B - 1,), device="cuda", generator=gen, dtype=torch.int32)])
+        tables = bias = None
+        if Nm:
+            ts = 1_500_000_000 + torch.cumsum(torch.randint(1, 86400, (B, N), device="cuda", generator=gen), 1)
+            tables = (ts, rand(2 * Nm - 1) * 0.1, rand(129) * 0.1)
+        else:
+            bias = rand(B, N, N) * 0.3
+        shapes[f"{name} (B {B}, N {N}, H {H}, D {D}, V {V})"] = dict(
+            f32=(q, k, v), bf16=tuple(x.to(torch.bfloat16) for x in (q, k, v)), lens=lens, D=D, N=N, bias=bias,
+            tables=tables, forced=forced)
+    return shapes
+
+
+@contextlib.contextmanager
+def _fwd_chunks_forced():
+    """The wide forward's plans with the per-chunk body's route (a checkout
+    that has one)."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    fwd = ha._fwd_plan
+    ha._fwd_plan = lambda *a, **k: (lambda p: dict(p, route="wide_chunks") if p["route"] == "wide" else p)(fwd(*a, **k))
+    try:
+        yield
+    finally:
+        ha._fwd_plan = fwd
+
+
+@contextlib.contextmanager
+def _fwd_clusters_forced():
+    """The wide forward's plans on the clusters wherever one takes the widths
+    (`hstu_attention._fwd_per_chunk` off)."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    rule = ha._fwd_per_chunk
+    ha._fwd_per_chunk = lambda *a: False
+    try:
+        yield
+    finally:
+        ha._fwd_per_chunk = rule
+
+
+def wide_fwd_route_times(device_ms, rand, gen) -> None:
+    """Prints the wide forward at `--wide-fwd`'s shapes but K6-long and at
+    `_WIDE_FWD_ROUTE_SHAPES`, on the clusters and on the per-chunk body, on
+    the same inputs: the measurements `hstu_attention._fwd_per_chunk`
+    follows."""
+    import torch
+
+    for shape in _WIDE_FWD_SHAPES[:-1] + _WIDE_FWD_ROUTE_SHAPES:
+        inputs = wide_fwd_inputs(rand, gen, (shape,))
+        for label, forced in (("clusters", _fwd_clusters_forced), ("per chunk", _fwd_chunks_forced)):
+            with forced():
+                wide_fwd_times(device_ms, inputs, label=label, plain=False)
+        del inputs
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _fwd_wide_forced():
+    """K6's plan with the wide route whatever the width (the wide bodies read
+    the tables from device memory, as the narrow body's route ``read``)."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    fwd = hr.ha._fwd_plan
+    hr.ha._fwd_plan = lambda D, V, H, Nm, NB, relbias, *a: fwd(max(D, 257), V, H, Nm, NB, relbias, *a)
+    try:
+        yield
+    finally:
+        hr.ha._fwd_plan = fwd
+
+
+def wide_fwd_times(device_ms, inputs: Dict[str, dict], label: str = "", plain: bool = True) -> None:
+    """Prints, per shape of ``inputs`` (`wide_fwd_inputs`), the wide forward
+    through the public wrappers, each the mean of 10 launches, with the route
+    each launch took: K1 and K1-bias, or K6; float32 at alpha D^-1/2, bfloat16
+    the same (K6-bf16 at alpha 1); with ``plain`` the plain forward of each
+    type (the mean of 2)."""
+    import torch
+
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
+
+    for shape, x in inputs.items():
+        out = {}
+        for sfx, (q, k, v) in (("", x["f32"]), ("-bf16", x["bf16"])):
+            ent = sfx.replace("-", "_")
+            kw = dict(alpha=x["D"] ** -0.5, max_seq_len=x["N"])
+            lens = x["lens"]
+            if x["tables"] is not None:
+                ts, pos_w, ts_w = x["tables"]
+                c = hr.hstu_mha_dense_relbias_cuda
+                args = (q, k, v, lens, ts, pos_w, ts_w)
+                rkw = dict(kw, alpha=1.0 if sfx else kw["alpha"], num_buckets=128)
+                runs = {f"K6{sfx}": (lambda: c(*args, **rkw), c.launches_bf16 if sfx else c.launches)}
+                plain_fn = lambda: hr.hstu_mha_dense_relbias_plain(*args, **rkw)  # noqa: E731
+            else:
+                lc = ha.hstu_mha_dense_cuda.launches
+                bias = x["bias"]
+                runs = {f"K1{sfx}": (lambda: ha.hstu_mha_dense_cuda(q, k, v, lens, **kw), lc["hstu_mha_fwd" + ent]),
+                        f"K1-bias{sfx}": (lambda: ha.hstu_mha_dense_cuda(q, k, v, lens, bias=bias, **kw),
+                                          lc["hstu_mha_fwd_bias" + ent])}
+                plain_fn = lambda: ha.hstu_mha_dense_plain(q, k, v, lens, **kw)  # noqa: E731
+            with (_fwd_wide_forced() if x["forced"] else contextlib.nullcontext()):
+                for name, (fn, counter) in runs.items():
+                    counter.reset()
+                    out[name] = f"{device_ms(fn, 10):.4f} ms ({'/'.join(counter.routes)})"
             if plain:
                 out[f"plain{sfx}"] = f"{device_ms(plain_fn, 2):.4f} ms"
             torch.cuda.empty_cache()

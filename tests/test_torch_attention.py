@@ -322,14 +322,17 @@ def test_forward_launch_plan_raises(args, match):
 
 @pytest.mark.parametrize("D,V", [(257, 32), (32, 129), (256, 129), (512, 320)])
 def test_forward_launch_plan_admits_wide_heads(D, V):
-    """D above 256 or V above 128 take the wide body: 64 query
-    rows, 32-column key tiles, a block per (query tile, head, batch row, V
-    chunk of 128)."""
+    """D above 256 or V above 128 take the wide body on thread block
+    clusters: 64 query rows, 32-key steps, a cluster of `_wide_fwd_cluster`
+    blocks per (query tile, head, batch row), each block's shared memory
+    `_wide_fwd_bytes` of its columns."""
     B, H, N = 3, 2, 674
     plan = ha._fwd_plan(D, V, H, 0, 0, False, B, N)
     assert plan["route"] == "wide" and plan["d_chunks"] == -(-D // 128) and plan["v_chunks"] == -(-V // 128)
-    assert plan["shared_bytes"] == 4 * (64 * 136 + 32 * 136 + 32 * 132) <= 232448
-    assert plan["grid"] == (-(-N // 64) * H * B * plan["v_chunks"],)
+    cs, dw, vw, md, mv = ha._wide_fwd_cluster(D, V)
+    assert (plan["query_rows"], plan["key_tile"], plan["cluster"]) == (64, 32, cs)
+    assert plan["shared_bytes"] == ha._wide_fwd_bytes(dw, vw, md, mv, 4, cs >= 4) <= 232448
+    assert plan["grid"] == (-(-N // 64) * H * B * cs,)
 
 
 def test_dense_launch_goes_by_the_plan(monkeypatch):

@@ -127,7 +127,9 @@ def test_bf16_plans_read_tables_that_do_not_fit_and_keep_the_wide_body():
     plan = ha._fwd_plan(64, 64, 2, 30000, 128, True, 2, 256, torch.bfloat16)
     dense = ha._fwd_plan(64, 64, 2, 0, 0, False, 2, 256, torch.bfloat16)
     assert plan == dict(dense, route="read")
-    assert ha._fwd_plan(320, 64, 2, 0, 0, False, 2, 256, torch.bfloat16) == ha._fwd_plan(320, 64, 2, 0, 0, False, 2, 256)
+    w16, w32 = ha._fwd_plan(320, 64, 2, 0, 0, False, 2, 256, torch.bfloat16), ha._fwd_plan(320, 64, 2, 0, 0, False, 2, 256)
+    assert w16["route"] == w32["route"] == "wide" and w16["grid"] == w32["grid"] and w16["cluster"] == w32["cluster"]
+    assert w16["shared_bytes"] < w32["shared_bytes"]  # bfloat16 tiles
     b16, f32 = ha._bwd_plan(64, 136, 2, 2, 256, torch.bfloat16), ha._bwd_plan(64, 136, 2, 2, 256)
     assert b16["route"] == f32["route"] == "wide" and b16["grid"] == f32["grid"] and b16["cluster"] == f32["cluster"]
     assert b16["shared_bytes"] < f32["shared_bytes"] and b16["do_scaled_shape"] == (2, 256, 2, 136)

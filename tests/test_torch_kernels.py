@@ -1406,6 +1406,75 @@ def test_wide_relbias_backward_on_clusters(cuda, D, V, Nm, bf16):
     assert torch.equal(grads[1], again[1]) and torch.equal(grads[2], again[2])
 
 
+# --------------------- the wide forward on clusters; the widest backward
+# (D, V): a cluster of 2 (D split in halves of 64), 4 (V's chunk in slices
+# of 32), 9 (split per-element work), and 16 blocks of 2 D tiles or of 2 V
+# tiles; D not a multiple of 8 (bfloat16 element loads)
+FWD_CLUSTER_SHAPES = [(128, 256), (512, 64), (1100, 700), (3968, 128), (2048, 2049), (36, 300)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", FWD_CLUSTER_SHAPES)
+def test_wide_forward_on_clusters(cuda, D, V, bf16):
+    """K1, K1-bias and K6 (float32 or bfloat16) on the wide forward's clusters
+    (route ``wide``; K1 in float32 at (128, 256) on ``wide_chunks``, where
+    the plan measured the per-chunk body faster), with targets and a
+    contextual row on views of one projection: within `WIDE_TOL` (bfloat16
+    `BF16_TOL`) of their plain versions, zeros past the lengths, the same
+    bits on a second run."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, _, lengths, nt = _wide_views(48, 2, 150, 2, D, V, dtype, cuda)
+    kw = dict(alpha=D**-0.5, max_seq_len=160, num_targets=nt, contextual_seq_len=1)
+    counter = hstu_mha_dense_cuda.launches["hstu_mha_fwd" + ("_bf16" if bf16 else "")]
+    route = "wide_chunks" if (D, V) == (128, 256) and not bf16 else "wide"
+    assert ha._fwd_plan(D, V, 2, 0, 0, False, 2, 150, dtype)["route"] == route
+    before = counter.routes.get(route, 0)
+    out = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+    assert counter.routes.get(route, 0) == before + 1
+    _held("out", out, hstu_mha_dense_plain(q, k, v, lengths, **kw), bf16)
+    dead = torch.arange(150, device=cuda)[None, :] >= lengths[:, None]
+    assert (out[dead] == 0).all()
+    assert torch.equal(out, hstu_mha_dense_cuda(q, k, v, lengths, **kw))
+    bias = torch.randn(2, 150, 150, device=cuda) * 0.3
+    _held("biased out", hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw),
+          hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw), bf16)
+    rq, rk, rv, rl, ts, pos_w, ts_w, rnt = _relbias_inputs(49, 2, 150, 2, D, V, 150, 128, True, cuda)
+    rq, rk, rv = (x.to(dtype) for x in (rq, rk, rv))
+    rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=150, num_buckets=128, num_targets=rnt)
+    _held("K6 out", hstu_mha_dense_relbias_cuda(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw),
+          hstu_mha_dense_relbias_plain(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw), bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", [(3968, 128), (2048, 2049)])
+def test_widest_backward_on_the_per_chunk_route(cuda, D, V, bf16):
+    """Past 16 blocks of two chunks, K2, K3 + K4, K7 and K7-det take the
+    per-chunk bodies (route ``wide_chunks``): against their plain versions,
+    K3 + K4's and K7-det's outputs the same bits twice."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, do, lengths, nt = _wide_views(50, 2, 100, 1, D, V, dtype, cuda)
+    kw = dict(alpha=D**-0.5, max_seq_len=110, num_targets=nt, contextual_seq_len=1)
+    counter = hstu_mha_bwd_cuda.launches["hstu_mha_bwd_fused" + ("_bf16" if bf16 else "")]
+    before = counter.routes.get("wide_chunks", 0)
+    fused = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+    assert counter.routes.get("wide_chunks", 0) == before + 1
+    split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+    for kind, grads in (("K2", fused), ("K3 + K4", split)):
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            _held(f"{kind} {name}", g, w, bf16)
+    assert all(torch.equal(a, b) for a, b in zip(split, hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)))
+    rq, rk, rv, rl, ts, pos_w, ts_w, rnt = _relbias_inputs(51, 2, 100, 1, D, V, 100, 128, True, cuda)
+    rq, rk, rv = (x.to(dtype) for x in (rq, rk, rv))
+    rdo = torch.randn(100, 2, 1, V, device=cuda).to(dtype).transpose(0, 1)
+    rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=100, num_buckets=128, num_targets=rnt)
+    _relbias_all((rq, rk, rv, rl, ts, pos_w, ts_w), rdo, rkw, bf16)
+
+
 # ------------------------------------- K7 and K7-det in one pass up to 128
 ONE_PASS_SHAPES = [(72, 72), (96, 96), (128, 128), (128, 64)]
 

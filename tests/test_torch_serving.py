@@ -1,9 +1,11 @@
 """The PyTorch port's serving slice against the JAX package, and its entry
 point's rules: `HSTUModelFamily.predict` and `predict_mfalcon` on the debug
-preset at small widths (JAX weights carried over, quantized and not), the
-random dataset's draws, the int8 table quantization, the serving CLI on the
-CPU, the refusal to fall back to the CPU, and the port's independence of
-JAX. Predictions are float32 sigmoids; atol = rtol = 1e-5."""
+preset at small widths (JAX weights carried over, quantized and not), and at
+qk = linear = 136 and 256, widths past the narrow forward's V 128 (the wide
+forward's on the card), the random dataset's draws, the int8 table
+quantization, the serving CLI on the CPU (also at --attn_dim 136), the
+refusal to fall back to the CPU, and the port's independence of JAX.
+Predictions are float32 sigmoids; atol = rtol = 1e-5."""
 
 import ast
 import dataclasses
@@ -48,21 +50,37 @@ CLI_SMALL = [
 ]
 
 
-def _configs(M=6):
-    jcfg = dataclasses.replace(j_configs.get_hstu_configs("debug", max_uih_len=24, max_num_candidates=M), **SMALL)
-    tcfg = dataclasses.replace(t_configs.get_hstu_configs("debug", max_uih_len=24, max_num_candidates=M), **SMALL)
+def _configs(M=6, **widths):
+    small = dict(SMALL, **widths)
+    jcfg = dataclasses.replace(j_configs.get_hstu_configs("debug", max_uih_len=24, max_num_candidates=M), **small)
+    tcfg = dataclasses.replace(t_configs.get_hstu_configs("debug", max_uih_len=24, max_num_candidates=M), **small)
     return jcfg, tcfg
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg, tcfg = _configs()
+def _models(**widths):
+    """The JAX model and the port's on its weights, and a batch of 4."""
+    jcfg, tcfg = _configs(**widths)
     jm = JaxDlrmHSTU(jcfg, j_configs.get_embedding_table_config("debug", hash_size=64, dim=16))
     uih, ul, cands, nc = JaxDataset(jcfg, hash_size=64, batch_size=4, seed=0).batch()
     params = jax.jit(lambda *a: jm.init(jax.random.PRNGKey(0), *a, True))(uih, ul, cands, nc)
     tm = DlrmHSTU(tcfg, t_configs.get_embedding_table_config("debug", hash_size=64, dim=16))
     tm.load_state_dict(params_from_flax(jax.tree_util.tree_map(np.asarray, params)))
     return jm, params, tm, (uih, ul, cands, nc)
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
+# head widths past the narrow forward's V 128: on the card every layer's
+# forward takes the wide forward (the `--attn_dim 256` serving path)
+WIDE_ATTN = (136, 256)
+
+
+@pytest.fixture(scope="module", params=WIDE_ATTN, ids=[f"attn{w}" for w in WIDE_ATTN])
+def wide_models(request):
+    return (*_models(hstu_attn_qk_dim=request.param, hstu_attn_linear_dim=request.param), request.param)
 
 
 def _torch(d):
@@ -86,6 +104,25 @@ def test_family_predictions_match_jax(models, quantize, mfalcon):
         if not quantize:  # the float family is the model's own forward
             with torch.no_grad():
                 torch.testing.assert_close(tm(*args, compute_losses=False)[3], got)
+    assert got.shape == (1, 4, 6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mfalcon", [False, True])
+def test_family_predictions_match_jax_at_wide_heads(wide_models, mfalcon):
+    """The served family (int8 tables) at qk = linear = 136 and 256, 2 layers
+    of 2 heads: dense predictions and M-FALCON's against the JAX family."""
+    jm, params, tm, (uih, ul, cands, nc), width = wide_models
+    assert tm.hstu_transducer.stu_module.layer_0.uvqk_weight.shape[1] == 2 * 4 * width  # 2 heads of u, v, q, k
+    jf = j_family.HSTUModelFamily(jm, params, quantize=True)
+    tf = t_family.HSTUModelFamily(tm, quantize=True)
+    if mfalcon:
+        qt = cands["item_query_time"][:, 0]
+        want = jf.predict_mfalcon(uih, ul, cands, qt, microbatch=4)
+        got = tf.predict_mfalcon(_torch(uih), torch.as_tensor(ul), _torch(cands), torch.as_tensor(qt), microbatch=4)
+    else:
+        want = jf.predict(uih, ul, cands, nc)
+        got = tf.predict(_torch(uih), torch.as_tensor(ul), _torch(cands), torch.as_tensor(nc))
     assert got.shape == (1, 4, 6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -123,6 +160,24 @@ def test_serving_cli_on_cpu(mfalcon):
     _, tcfg = _configs()
     live = [int(nc.sum()) for *_, nc in DLRMv3RandomDataset(tcfg, hash_size=100, batch_size=4).batches(2)]
     assert sum(live) < 2 * 4 * 6
+    assert result["scored_candidates_per_s"] == pytest.approx(result["qps"] * sum(live) / 2)
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="the load generator needs g++")
+@pytest.mark.parametrize("mfalcon", [False, True])
+def test_serving_cli_on_cpu_at_attn_dim_136(mfalcon):
+    """The serving CLI at --attn_dim 136 (qk = linear = 136, the wide
+    forward's widths on the card), dense and M-FALCON: every query served,
+    the real candidates counted."""
+    from generative_recommenders_tpu_torch.inference import main as serve
+
+    argv = list(CLI_SMALL)
+    argv[argv.index("--attn_dim") + 1] = "136"
+    result = serve.main(["--device", "cpu", "--scenario", "Offline", *argv]
+                        + (["--mfalcon", "--candidates_per_chunk", "4"] if mfalcon else []))
+    assert result["qps"] > 0 and result["query_count"] == 6
+    _, tcfg = _configs(hstu_attn_qk_dim=136, hstu_attn_linear_dim=136)
+    live = [int(nc.sum()) for *_, nc in DLRMv3RandomDataset(tcfg, hash_size=100, batch_size=4).batches(2)]
     assert result["scored_candidates_per_s"] == pytest.approx(result["qps"] * sum(live) / 2)
 
 

@@ -6,10 +6,12 @@ query width, on the CPU.
   one thread block cluster per 64-row tile whose blocks own the chunks of
   128 columns of D and of V, one each up to a portable cluster's 8 blocks,
   two each past it (up to 16 blocks, a non-portable cluster); each block's
-  shared memory within a Hopper block's 232,448 bytes; grids and clusters
-  past CUDA's limits refused with a ValueError that names the sizes. The
-  Python mirror of the cluster's shape and of the block's bytes against the
-  constants of the C header.
+  shared memory within a Hopper block's 232,448 bytes; past 16 blocks of two
+  chunks the per-chunk bodies (route ``wide_chunks``, one block per output
+  chunk), so that every width the wide forward takes, the backward takes;
+  grids past CUDA's limits refused with a ValueError that names the sizes.
+  The Python mirror of the cluster's shape and of the block's bytes against
+  the constants of the C header.
 * The DLRM ranker (`DlrmHSTU`) with hstu_attn_linear_dim unequal to
   hstu_attn_qk_dim (32 against 16, and 16 against 32; 2 heads, 2 layers, a
   small debug batch) against the JAX package's `DlrmTrainer` on the same
@@ -99,16 +101,43 @@ def test_shared_bytes_stay_within_a_block():
 
 
 @pytest.mark.parametrize("args,match", [
-    ((2176, 2048, 2, 4, 300), r"D=2176 and V=2048 are 17 \+ 16 chunks, a cluster of 17 blocks"),
-    ((128, 4096, 2, 4, 300), r"D=128 and V=4096 are 1 \+ 32 chunks"),
     ((512, 512, 2**16, 2**9, 2**10), r"clusters of 8 blocks.*exceeds"),
+    ((4096, 4096, 2**16, 2**9, 2**7), r"per-chunk wide d.* kernel's grid of \d+ blocks exceeds"),
 ])
 def test_plans_past_cuda_limits_raise_with_the_sizes(args, match):
-    """A cluster wider than 16 blocks of two chunks, or a grid past 2^31 - 1
-    blocks, raises a ValueError that names the sizes; nothing falls back."""
+    """A grid past 2^31 - 1 blocks, on clusters or per chunk, raises a
+    ValueError that names the sizes; nothing falls back."""
     for plan in (ha._bwd_plan, ha._dq_plan):
         with pytest.raises(ValueError, match=match):
             plan(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", [(2176, 2048), (128, 4096), (3968, 128), (2048, 2049)])
+def test_past_16_blocks_of_two_chunks_the_per_chunk_route(D, V, dtype):
+    """Widths a cluster of 16 blocks of two chunks does not take (these raised
+    before; the wide forward takes them) go to the per-chunk bodies, route
+    ``wide_chunks``: the dq pass a block per (64-row tile, head, batch row,
+    dQ chunk), the dkv pass one per dK or dV chunk, the bytes of their tiles
+    (`dq_chunks_smem_bytes`, `dkv_chunks_smem_bytes`), no pre-scaling pass on
+    bfloat16; K7's and K7-det's the same with the table sums on the dkv
+    pass's blocks of chunk 0, one row of `partial` each."""
+    B, H, N, Nm, NB = 4, 2, 300, 300, 128
+    assert ha._wide_cluster(D, V) is None
+    tiles, nd, nv = -(-N // 64), _chunks(D), _chunks(V)
+    dq = ha._dq_plan(D, V, H, B, N, dtype)
+    dkv = ha._bwd_plan(D, V, H, B, N, dtype)
+    assert dq["route"] == dkv["route"] == dkv["dq"]["route"] == "wide_chunks"
+    assert dq["grid"] == (tiles * H * B * nd,) and dkv["grid"] == (tiles * H * B * (nd + nv),)
+    assert dq["shared_bytes"] == 4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8) <= SHARED
+    assert dkv["shared_bytes"] == 4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72) <= SHARED
+    assert "do_scaled_shape" not in dq and "do_scaled_shape" not in dkv
+    k7 = hr._relbias_bwd_plan(D, V, H, Nm, NB, dtype, B, N)
+    assert k7["route"] == "wide_chunks" and k7["grid"] == dkv["grid"]
+    assert k7["shared_bytes"] == dkv["shared_bytes"] + 4 * (32 * 72 + 95 + 1 + 8 * 296) <= SHARED
+    det = hr._relbias_det_plan(D, V, H, B, N, Nm, NB, dtype=dtype)
+    assert det["route"] == "wide_chunks" and det["dq_grid"] == dq["grid"]
+    assert det["partial_shape"] == (tiles * H * B, 2 * Nm - 1 + NB + 1) and det["dq_partial_shape"] is None
 
 
 def test_relative_bias_plans_take_the_clusters():
@@ -167,9 +196,9 @@ def test_cluster_shape_matches_the_c_rule(D, V):
         if nd + nv <= 8 or (m == 2 and nd + nv <= 16):
             want = (m, nd, nv)
             break
-    if want is None:
-        with pytest.raises(ValueError, match="chunks"):
-            ha._wide_cluster(D, V)
+    if want is None:  # the per-chunk route
+        assert ha._wide_cluster(D, V) is None
+        assert ha._dq_plan(max(D, 257), V, 2, 4, 300)["route"] == "wide_chunks"
     else:
         assert ha._wide_cluster(D, V) == want
         plan = ha._dq_plan(max(D, 257), V, 2, 4, 300)  # past the narrow widths
