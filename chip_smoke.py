@@ -69,7 +69,7 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    after; checks that the dense and M-FALCON predictions agree, and that
    the GPU path agrees with the CPU path (plain versions) on a small model;
    then the same at --attn_dim 256 (qk = v = 256: K1 on the wide forward's
-   route its plan takes, in float32 the per-chunk body), dense and M-FALCON
+   route its plan takes, in float32 the tile forward), dense and M-FALCON
    agreeing, one dense predict profiled, K1 held and timed at its layer;
 4. training phase: trains the full-width `debug` preset through the port's
    `train_loop` (2 warm-up steps, then 20 counted and timed ones), checks
@@ -78,7 +78,7 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    at uih 1024 that must take K3 + K4 and give the same bits twice (and a
    profile of one of its steps); then the V-256 ranker phase: the same preset
    at DlrmHSTUConfig's own hstu_attn_linear_dim 256 (2 + 10 steps, K1 and K2
-   3 a step, K2 on the wide route and float32 K1 on the per-chunk one, one
+   3 a step, K2 on the wide route and float32 K1 on the tile forward's, one
    step profiled) and deterministic at uih 1024 twice (K1 the same, K3, K4
    on the wide route, the same bits), K1- to K4-wide
    held and timed at its layers with their bounds; then one
@@ -168,7 +168,11 @@ Needs one CUDA card; exits nonzero, printing no result, without one.
    (float32 and bfloat16) and K5 at V 136, 192, 256, 320 and D 264, 320,
    512 and at (D, V) (512, 512), (640, 512) and (128, 256) (the wide
    backward's clusters at their edges; K2's dk and dv the same bits twice)
-   against their plain versions, each wide instance timed at V 256 and
+   against their plain versions; the float32 tile forward (K1 and K1-bias,
+   route wide_tile) at the two main-path layers and at D 65 to 256 against
+   V 129 to 384 with rows on the 64-row tile edges, targets, contextual
+   rows and a float32 and a shared bfloat16 bias, the same bits twice; each
+   wide instance timed at V 256 and
    D 512 with its bound; K6, K7 and K7-det at two heads of 128 and of 256
    (with Nm 8000: the tables read), at N = Nm =
    4096 with full rows, at N 256 against Nm 22000 and with 1024 buckets,
@@ -354,8 +358,10 @@ WIDE_PRESET, WIDE_HEAD, WIDE_STEPS = "ml-20m/hstu-sampled-softmax-n128", 128, 5
 WIDE_SHAPES = ((64, 136), (64, 192), (64, 256), (64, 320), (264, 64), (320, 64), (512, 64), (512, 512), (640, 512),
                (128, 256))
 # the widest-heads phases: (D, V) past 16 blocks of two chunks of the wide
-# backward's clusters, which take its per-chunk bodies (route wide_chunks)
-WIDEST = ((3968, 128), (2048, 2049))
+# backward's clusters, which take its per-chunk bodies (route wide_chunks);
+# the forward takes its clusters at the first two and, past 3 tiles a block
+# of 16 (D's 34 chunks), its per-chunk body at the last
+WIDEST = ((3968, 128), (2048, 2049), (4352, 64))
 # the parity checks' small models: a ranker with 128-row tables, a research
 # model with 127 items (128 rows), global batches of 8
 PARITY_HASH, PARITY_ITEMS, PARITY_BATCH = 128, 127, 8
@@ -1657,9 +1663,12 @@ def main() -> None:
     rel_errs = {"K6": [], "K7": []}
 
     def relbias_case(name, Bc, N, lengths, ts, Nm=None, nb=128, nt=None, Hc=2, Dc=RD, Vc=RV,
-                     f64=False, **kw):
+                     f64=False, tables64=False, **kw):
         """K6 against the plain forward, K7 against the plain backward, on
-        uvqk views and a non-contiguous dO; dead rows exactly 0."""
+        uvqk views and a non-contiguous dO; dead rows exactly 0. ``tables64``:
+        the table gradients against a float64 run of the plain backward (one
+        time bucket: dts_w sums every live element of the batch, and the
+        float32 plain sum alone strays past TABLE_TOL of its max)."""
         q, k, v = relbias_views(Bc, N, Hc, Dc, Vc)
         pos_w, ts_w = bias_tables(Nm or N, nb)
         do = rand(N, Bc, Hc, Vc).transpose(0, 1)
@@ -1681,15 +1690,21 @@ def main() -> None:
               f"K7 {name}: dk or dv differ between two runs")
         del again
         wants = hstu_mha_relbias_bwd_plain(q, k, v, lengths, ts, pos_w, ts_w, do, **args)
-        for g, a, w in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants):
+        if f64 or tables64:
+            d = lambda t: t.double()  # noqa: E731
+            w64 = hstu_mha_relbias_bwd_plain(d(q), d(k), d(v), lengths, ts, d(pos_w), d(ts_w), d(do), **args)
+        for i, (g, a, w) in enumerate(zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants)):
             table = g in ("dpos_w", "dts_w")
+            if table and tables64:
+                print(f"    {g}: the float32 plain backward is {(w - w64[i]).abs().max().item():.3e} from float64")
+                rel_errs["K7"].append(compare(f"K7 {name} {g} (against float64)", a, w64[i].float(), None,
+                                              rel_tol=TABLE_TOL))
+                continue
             rel_errs["K7"].append(compare(f"K7 {name} {g}", a, w, None if table else dead,
                                           rel_tol=TABLE_TOL if table else REL_TOL))
         if f64:
             # what the tolerance of the table gradients rests on: both float32
             # results against a float64 run of the plain backward
-            d = lambda t: t.double()  # noqa: E731
-            w64 = hstu_mha_relbias_bwd_plain(d(q), d(k), d(v), lengths, ts, d(pos_w), d(ts_w), d(do), **args)
             for g, a, w, w8 in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), grads, wants, w64):
                 m = w8.abs().max().item()
                 print(f"    {g} vs float64 plain, of its max {m:.3e}: kernel "
@@ -2301,12 +2316,12 @@ def main() -> None:
     # the serving phase's argv with --attn_dim 256 (qk = v = 256, the CLI's
     # own flag): V 256 is past the narrow forward's 128, so every layer of
     # every dense predict takes the wide forward (K1; in float32 at D = V =
-    # 256 its per-chunk body, route wide_chunks, measured faster there than
-    # the clusters); M-FALCON takes it for the prefix and K5 for its
-    # candidates
+    # 256 the tile forward, route wide_tile); M-FALCON takes it for the
+    # prefix and K5 for its candidates
     WA = 256
     wa_cfg = dataclasses.replace(cfg, hstu_attn_qk_dim=WA, hstu_attn_linear_dim=WA)
     wa_route = hr.ha._fwd_plan(WA, WA, H, 0, 0, False, B, N_full)["route"]
+    wa_prefix_route = hr.ha._fwd_plan(WA, WA, H, 0, 0, False, B, C + MAX_UIH)["route"]  # M-FALCON's uih rows
     print(f"serving phase at --attn_dim {WA}: debug preset, {L} layers, H={H}, qk=v={WA}, "
           f"d_model={wa_cfg.hstu_transducer_embedding_dim}, the serving phase's uih + candidates (N={N_full}), batch "
           f"{B}, {NUM_QUERIES} queries and int8 tables of {HASH_SIZE:,} rows")
@@ -2326,9 +2341,10 @@ def main() -> None:
                   "K5": L * chunks * predicts if mode == "mfalcon" else 0}
         check(n == want_n, f"{mode} at --attn_dim {WA} launched {n}, expected {want_n}")
         # dense: the serving layer's route; M-FALCON's prefix (the uih rows
-        # alone) by its own plan, a wide route either way
-        check(k1_routes == {wa_route: L * predicts} if mode == "dense"
-              else set(k1_routes) <= {"wide", "wide_chunks"}, f"{mode} at --attn_dim {WA}: K1 went by {k1_routes}")
+        # alone) its own plan's
+        want_route = wa_route if mode == "dense" else wa_prefix_route
+        check(k1_routes == {want_route: L * predicts}, f"{mode} at --attn_dim {WA}: K1 went by {k1_routes}, "
+              f"expected {want_route}")
     # dense vs M-FALCON on the invariance check's batch, at this width
     with torch.device("cuda"):
         model = DlrmHSTU(wa_cfg, tables, torch.Generator("cuda").manual_seed(1))
@@ -2437,8 +2453,8 @@ def main() -> None:
     # --------------------------------------------------- V-256 ranker phase
     # the training phase's preset at DlrmHSTUConfig's own linear width (256;
     # every preset overrides it to 128): V 256 takes every layer's forward to
-    # the wide forward (K1-wide; float32 at D 128 on the per-chunk body,
-    # measured faster there) and its backward to the wide backward's clusters
+    # the wide forward (K1-wide; float32 at D 128 on the tile forward) and
+    # its backward to the wide backward's clusters
     # (K2-wide; K3- and K4-wide under deterministic algorithms)
     v_lin = next(f_.default for f_ in dataclasses.fields(DlrmHSTUConfig) if f_.name == "hstu_attn_linear_dim")
     v_cfg = dataclasses.replace(tcfg, hstu_attn_linear_dim=v_lin)
@@ -2462,7 +2478,7 @@ def main() -> None:
     check(all(math.isfinite(x) for x in v_losses), f"non-finite V-{Vw} training loss: {v_losses}")
     want_n = {**dict.fromkeys(n, 0), "K1": L_tr * V256_STEPS, "K2": L_tr * V256_STEPS}
     check(n == want_n, f"the V-{Vw} ranker launched {n}, expected {want_n}")
-    v_fwd = hr.ha._fwd_plan(D, Vw, H, 0, 0, False, B, N_tr)["route"]  # float32: the per-chunk body (measured faster)
+    v_fwd = hr.ha._fwd_plan(D, Vw, H, 0, 0, False, B, N_tr)["route"]  # float32: the tile forward
     check(v_routes == {"K1": {v_fwd: L_tr * V256_STEPS}, "K2": {"wide": L_tr * V256_STEPS}},
           f"the V-{Vw} ranker's launches went by {v_routes}, expected K1 on {v_fwd}, K2 on the wide route")
     batch = to_device(next(batches(v_cfg, 1, 2)), trainer.device)
@@ -2498,11 +2514,13 @@ def main() -> None:
 
     # ------------------------------------------------ widest-heads phase
     # the ranker trained at widths past 16 blocks of two 128-column chunks of
-    # the wide backward's clusters: qk 3968 / linear 128 (31 + 1 chunks) and
-    # qk 2048 / linear 2049 (16 + 17); one layer, batch 8, the training
-    # phase's uih and candidates, tables of 100,000 rows: the forward on
-    # clusters (K1, route wide), the backward on the per-chunk bodies (K2,
-    # route wide_chunks; K3 + K4 under deterministic algorithms)
+    # the wide backward's clusters: qk 3968 / linear 128 (31 + 1 chunks),
+    # qk 2048 / linear 2049 (16 + 17) and qk 4352 / linear 64 (34 + 1); one
+    # layer, batch 8, the training phase's uih and candidates, tables of
+    # 100,000 rows: the forward on its plan's route (K1: clusters, route
+    # wide; at qk 4352 the per-chunk body, route wide_chunks), the backward
+    # on the per-chunk bodies (K2, route wide_chunks; K3 + K4 under
+    # deterministic algorithms)
     WB_, WS_, WH_ = 8, 2, 100_000
     x_tables = get_embedding_table_config("debug", hash_size=WH_, dim=tcfg.hstu_embedding_table_dim)
     for qk_, lin_ in WIDEST:
@@ -2520,8 +2538,8 @@ def main() -> None:
         x_routes = {k_: dict(all_counters[k_].routes) for k_ in ("K1", "K2")}
         print(f"  median step {1e3 * median(x_out['step_s']):.2f} ms; losses {x_out['losses']}; launches by route "
               f"{x_routes}")
-        # the forward on the route of its plan (both widths: clusters of 16
-        # blocks)
+        # the forward on the route of its plan (clusters of 16 blocks, or per
+        # chunk past them)
         fwd_route = hr.ha._fwd_plan(qk_, lin_, H, 0, 0, False, WB_, N_tr)["route"]
         check(all(math.isfinite(x) for x in x_out["losses"]), f"non-finite loss at qk {qk_} / linear {lin_}")
         check(n == {**dict.fromkeys(n, 0), "K1": WS_, "K2": WS_}, f"qk {qk_} / linear {lin_} launched {n}")
@@ -3607,13 +3625,45 @@ def main() -> None:
                     held("K5" + tag, got5, delta_hstu_mha_plain(dq_, k_, v_, w_len, **a5), tol)
                     check(torch.equal(got5, delta_hstu_mha_cuda(dq_, k_, v_, w_len, **a5)), f"K5{tag}: two runs differ")
             del q_, k_, v_, do_, bias_, want, got, again
+        # the float32 tile forward (K1 and K1-bias, route wide_tile) against
+        # its plain version at the two main-path layers' widths and at D 65
+        # to 256 against V 129 to 384 where it takes them: N 150 (past two
+        # 64-row tiles) with rows of 150, 63, 64 and 65 (the tile edges), up
+        # to 3 targets and 2 contextual rows, on views of one projection;
+        # without a bias, with a float32 one per row and with a bfloat16 one
+        # shared by the batch (batch stride 0); REL_TOL of the output's max,
+        # zeros past the lengths, the same bits twice
+        gB, gN, gH = 4, 150, 2
+        g_len = torch.tensor([gN, 63, 64, 65], device="cuda", dtype=torch.int32)
+        g_nt = torch.tensor([3, 2, 0, 1], device="cuda", dtype=torch.int32)
+        g_dead = torch.arange(gN, device="cuda")[None, :] >= g_len[:, None]
+        tile_shapes = list(dict.fromkeys([(128, 256), (256, 256)] + [
+            (Dw, Vw) for Dw in (65, 129, 192, 256) for Vw in (129, 256, 384)
+            if hr.ha._fwd_tile(Dw, Vw, False, torch.float32)]))
+        print(f"tile forward kernel phase: K1 and K1-bias (float32, route wide_tile) at (D, V) in {tile_shapes}, "
+              f"B={gB} N={gN} H={gH}, lengths {g_len.tolist()}, targets {g_nt.tolist()}, 2 contextual rows, against "
+              f"their plain versions ({REL_TOL} of the max); the same bits twice")
+        for Dw, Vw in tile_shapes:
+            route_ = hr.ha._fwd_plan(Dw, Vw, gH, 0, 0, False, gB, gN)["route"]
+            check(route_ == "wide_tile", f"D={Dw} V={Vw}: the plan takes route {route_}, not wide_tile")
+            q_, k_, v_, _ = views(gB, gN, gH, Dw, Vw, torch.float32)
+            a_ = dict(alpha=Dw**-0.5, max_seq_len=gN, num_targets=g_nt, contextual_seq_len=2)
+            for label_, bias_ in (("K1", None), ("K1-bias, a float32 bias", rand(gB, gN, gN) * 0.3),
+                                  ("K1-bias, a shared bfloat16 bias", (rand(1, gN, gN) * 0.3).to(torch.bfloat16))):
+                kw_ = a_ if bias_ is None else dict(a_, bias=bias_)
+                got = hstu_mha_dense_cuda(q_, k_, v_, g_len, **kw_)
+                held(f"{label_} D={Dw} V={Vw}", got, hstu_mha_dense_plain(q_, k_, v_, g_len, **kw_), REL_TOL, g_dead)
+                check(torch.equal(got, hstu_mha_dense_cuda(q_, k_, v_, g_len, **kw_)),
+                      f"{label_} D={Dw} V={Vw}: two runs differ")
+            del q_, k_, v_, got, bias_
         # the widest heads (`WIDEST`, past 16 blocks of two chunks of the wide
         # backward's clusters), B 1, H 1, N 300, a full row: K1, K1-bias and K6
-        # on the forward's clusters, K2, K3 + K4, K7 and K7-det on the
-        # per-chunk route, both types, against their plain versions; the
-        # forward, K3 + K4 and K7-det the same bits twice. The float32 times
-        # at D 3968 / V 128 are the rows of the main paths' launches on these
-        # routes (the widest-heads phases; K1-wide's too).
+        # on the forward's clusters (per chunk at D 4352 / V 64, past them),
+        # K2, K3 + K4, K7 and K7-det on the per-chunk route, both types,
+        # against their plain versions; K1, K1-bias, K3 + K4 and K7-det the
+        # same bits twice. Each route's float32 times at the first of these
+        # shapes it takes are the rows of the main paths' launches on it (the
+        # widest-heads phases).
         widest_rows = {}
         xB, xN, xH = 1, 300, 1
         x_len = torch.full((xB,), xN, device="cuda", dtype=torch.int32)
@@ -3631,8 +3681,11 @@ def main() -> None:
                 e1 = held("K1" + tag, f1, hstu_mha_dense_plain(q_, k_, v_, x_len, **a_), tol)
                 check(torch.equal(f1, hstu_mha_dense_cuda(q_, k_, v_, x_len, **a_)), f"K1{tag}: two runs differ")
                 bias_ = rand(xB, xN, xN) * 0.3
-                held("K1-bias" + tag, hstu_mha_dense_cuda(q_, k_, v_, x_len, bias=bias_, **a_),
-                     hstu_mha_dense_plain(q_, k_, v_, x_len, bias=bias_, **a_), tol)
+                f1b = hstu_mha_dense_cuda(q_, k_, v_, x_len, bias=bias_, **a_)
+                held("K1-bias" + tag, f1b, hstu_mha_dense_plain(q_, k_, v_, x_len, bias=bias_, **a_), tol)
+                check(torch.equal(f1b, hstu_mha_dense_cuda(q_, k_, v_, x_len, bias=bias_, **a_)),
+                      f"K1-bias{tag}: two runs differ")
+                del f1b
                 want = hstu_mha_bwd_plain(q_, k_, v_, x_len, do_, **a_)
                 errs_ = {}
                 for kname, split in (("K2", False), ("K3 + K4", True)):
@@ -4065,13 +4118,13 @@ def main() -> None:
     # ------------------------------------------------- position-only bias
     # the encoder without timestamps: K6 / K7 on zero timestamps and a
     # one-entry time table (num_buckets 0) at the ml-1m shape against their
-    # plain versions, then a small encoder's forward and every gradient, the
+    # plain versions (the tables' gradients against float64), then a small encoder's forward and every gradient, the
     # card against the CPU
     zero_ts = torch.zeros_like(ts1)
     pq_, pk_, pv_, ppw_, ptw_, pdo_, pa_ = relbias_case(
         f"position-only bias, ml-1m large preset (B={mcfg.local_batch_size}, N={N1}, H={mm1.num_heads}, "
         f"D=V={mm1.dqk}), zero timestamps, num_buckets 0", mcfg.local_batch_size, N1, l1, zero_ts,
-        nb=0, Hc=mm1.num_heads, Dc=mm1.dqk, Vc=mm1.dv)
+        nb=0, Hc=mm1.num_heads, Dc=mm1.dqk, Vc=mm1.dv, tables64=True)
     pos_ms = (device_time_ms(lambda: hstu_mha_dense_relbias_cuda(pq_, pk_, pv_, l1, zero_ts, ppw_, ptw_, **pa_), 20),
               device_time_ms(lambda: hstu_mha_relbias_bwd_cuda(pq_, pk_, pv_, l1, zero_ts, ppw_, ptw_, pdo_, **pa_), 10))
     print(f"  position-only K6 {pos_ms[0]:.4f} ms, K7 {pos_ms[1]:.4f} ms (with timestamps at this shape: "
@@ -4521,8 +4574,8 @@ def main() -> None:
         base["launches"] -= n_
         r = route_rows[key]
         kernels.append(entry(f"{base['name']}/{route}", (src + "hstu_attention_wide.cuh")
-                             if route in ("wide", "wide_chunks") else base["source"], base["replaces"], n_, r["err"], r["ms"], r["plain_ms"], *r["work"],
-                             peak=r["peak"]))
+                             if route.startswith("wide") else base["source"], base["replaces"], n_, r["err"], r["ms"],
+                             r["plain_ms"], *r["work"], peak=r["peak"]))
         shapes.append(r["shape"])
     check(all(kr["launches"] > 0 for kr in kernels),
           "a kernel of the main paths was launched no time: "

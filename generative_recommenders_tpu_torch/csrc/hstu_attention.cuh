@@ -23,10 +23,12 @@ namespace hstu {
 // in ops/cuda/hstu_attention.py and hstu_attention_relbias.py): the narrow
 // body with its tables staged in shared memory, the narrow body with its
 // tables read from device memory (K6, K7 and K7-det), the wide bodies on
-// thread block clusters of hstu_attention_wide.cuh, or its per-chunk bodies
-// (the widths no cluster takes). A launch takes the route it is given and
-// returns cudaErrorInvalidValue where that body cannot take the shape.
-enum Route : int { kNarrow = 0, kRead = 1, kWide = 2, kWideChunks = 3 };
+// thread block clusters of hstu_attention_wide.cuh, its per-chunk bodies
+// (the widths no cluster takes), or its tile forward (float32 K1 and
+// K1-bias at V of 129 to 256, or to 384 at D up to 128). A launch takes the
+// route it is given and returns cudaErrorInvalidValue where that body cannot
+// take the shape.
+enum Route : int { kNarrow = 0, kRead = 1, kWide = 2, kWideChunks = 3, kWideTile = 4 };
 
 // bucket(x) = floor(ln(x) / 0.301), computed as ln(x) * (1 / 0.301) with the
 // full-precision logf: the form of the TPU kernel and of the plain version.

@@ -493,10 +493,11 @@ __host__ inline bool vec16(const void* ptr, long long sb, long long sn, long lon
          sh % 4 == 0 && w % 4 == 0;
 }
 
-// The wide bodies (hstu_attention_wide.cuh) on the same parameters: on
-// clusters, or per chunk (`chunks`)
+// The wide bodies (hstu_attention_wide.cuh) on the same parameters, by
+// route: on clusters (kWide), per chunk (kWideChunks), or the tile forward
+// (kWideTile: float32, no relative bias)
 template <int BIAS, typename E>
-int launch_wide(const Params& p, bool chunks, cudaStream_t stream) {
+int launch_wide(const Params& p, int route, cudaStream_t stream) {
   hstu_wide::Params<E> w = hstu_wide::from<E>(p);
   w.out = p.out;
   w.ts = p.ts;
@@ -510,7 +511,12 @@ int launch_wide(const Params& p, bool chunks, cudaStream_t stream) {
   w.bias_bf16 = p.bias_bf16;
   constexpr int WB = BIAS == kNoBias ? hstu_wide::kNoBias
                                      : (BIAS == kDenseBias ? hstu_wide::kDenseBias : hstu_wide::kRelBias);
-  return (int)(chunks ? hstu_wide::launch_fwd_chunks<WB, E>(w, stream) : hstu_wide::launch_fwd<WB, E>(w, stream));
+  if (route == hstu::kWideChunks) return (int)hstu_wide::launch_fwd_chunks<WB, E>(w, stream);
+  if (route == hstu::kWideTile) {
+    if constexpr (std::is_same<E, float>::value) return (int)hstu_wide::launch_tile<WB>(w, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)hstu_wide::launch_fwd<WB, E>(w, stream);
 }
 
 // This body at the next of the widths 32, 64, 128 (256 for D) above D and V
@@ -535,8 +541,9 @@ int launch_bf16(Params p, int route, cudaStream_t s);
 // tables and the row's timestamps staged in shared memory; kRead: K6 on
 // that body with them read from device memory (kRelBiasGlobal); kWide: the
 // wide body on clusters (`hstu_wide::fwd_kernel`); kWideChunks: the
-// per-chunk wide body (`hstu_wide::fwd_chunks_kernel`). kDenseBias needs a
-// bias. E: float, or __nv_bfloat16.
+// per-chunk wide body (`hstu_wide::fwd_chunks_kernel`); kWideTile: the tile
+// forward (`hstu_wide::tile_fwd_kernel`, float32 without the relative bias).
+// kDenseBias needs a bias. E: float, or __nv_bfloat16.
 template <int BIAS, typename E = float>
 int launch(Params p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
@@ -549,12 +556,14 @@ int launch(Params p, int route, void* stream) {
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (!std::is_same<E, float>::value) {
-    if (route != hstu::kWide && route != hstu::kWideChunks) return launch_bf16<BIAS>(p, route, s);
+    if (route != hstu::kWide && route != hstu::kWideChunks && route != hstu::kWideTile)
+      return launch_bf16<BIAS>(p, route, s);
   }
   p.vec_q = vec16(p.q, p.q_sb, p.q_sn, p.q_sh, p.D);
   p.vec_k = vec16(p.k, p.k_sb, p.k_sn, p.k_sh, p.D);
   p.vec_v = vec16(p.v, p.v_sb, p.v_sn, p.v_sh, p.V);
-  if (route == hstu::kWide || route == hstu::kWideChunks) return launch_wide<BIAS, E>(p, route == hstu::kWideChunks, s);
+  if (route == hstu::kWide || route == hstu::kWideChunks || route == hstu::kWideTile)
+    return launch_wide<BIAS, E>(p, route, s);
   if constexpr (std::is_same<E, float>::value) {
     if (route == hstu::kNarrow) return launch_narrow<BIAS>(p, s);
     if constexpr (BIAS == kRelBias) {

@@ -9,21 +9,27 @@
 // * the forward (K1, K1-bias, K6): V above 128 or D above 256;
 // * the dense backward (K2, K3, K4): V above 128 or D above 256;
 // * the relative-bias backward (K7, K7-det): D or V above 128.
+// Route kWideTile, the float32 forward of K1 and K1-bias at V of 129 to 256
+// with D up to 256 and V up to 384 with D up to 128 (`tile_fwd_kernel`):
+// one block of 8 warps per (64-row query tile, head, batch row), no cluster;
+// the two warps of a row group each form S over half of D for a 32-key step
+// and sum the halves through shared memory, both keep P in registers, each
+// multiplies P by half of V's columns; Q resident (registers up to D 128,
+// else shared memory), K and V streamed by `cp.async` in two stages, 3xTF32.
 // Route kWide: thread block clusters whose blocks split D's and V's columns
 // and form S (and dP) once per tile pair, the blocks' parts summed through
 // distributed shared memory in rank order (the same bits on every run);
 // copies double-buffered by `cp.async`; 3xTF32 in float32, the bfloat16
 // tensor cores (m16n8k16) on bfloat16:
-// * the forward (`fwd_kernel`): one cluster per (64-row query tile, head,
-//   batch row), each block a slice of D's columns for S (Q resident, K
-//   streamed) and of V's for O (V streamed, O in registers);
+// * the forward (`fwd_kernel`, bfloat16 and the relative bias everywhere,
+//   float32 K1 past the tile forward's widths): one cluster per (64-row
+//   query tile, head, batch row), each block a slice of D's columns for S
+//   (Q resident, K streamed) and of V's for O (V streamed, O in registers);
 // * the backward (`bwd_kernel`): one cluster per 64-row tile, each block one
 //   or two 128-column chunks of D or of V.
 // Route kWideChunks, for the widths no cluster takes (the forward past 16
 // blocks of 3 tiles of 128 columns, the backward past 16 blocks of two
-// chunks) and for the float32 forward where it was measured faster (D of 65
-// to 256 and V of two chunks on grids that fill the card, or D up to 128
-// without a bias; the Python plan chooses): the per-chunk bodies (`fwd_chunks_kernel`, `dq_chunks_kernel`,
+// chunks): the per-chunk bodies (`fwd_chunks_kernel`, `dq_chunks_kernel`,
 // `dkv_chunks_kernel`), a block per output chunk, which recompute S (and dP)
 // for each chunk, multiply in TF32 on float32 tiles (3xTF32 in float32, one
 // exact product on bfloat16 values) and whose loads wait; any width.
@@ -1218,9 +1224,315 @@ __global__ void __launch_bounds__(kBwdThreads, MV == 1 ? 2 : 1) fwd_kernel(Param
   cluster_wait();
 }
 
+// ----------------------------------------------------------- tile forward
+// Route kWideTile: the float32 forward (K1, K1-bias) at D up to 256 and V of
+// 129 to 256, and at D up to 128 V up to 384 (the Python plan chooses). One
+// block of 8 warps per (64-row query tile, head, batch row), no cluster.
+// Warp w owns query rows (w / 2) 16 .. + 16 (its row group) and half of D's
+// and of V's columns (w % 2). Per step of 32 key rows the two warps of a
+// row group each form their part of S = Q K^T for the group's 16 rows and
+// the step's keys over their half of D, in fresh float32 accumulators, and
+// meet in the exchange buffer under the group's named barrier
+// (`pair_sync`): S = the two parts' float32 sum, the same bits in both
+// warps, so both form P = silu(alpha S + bias) on the live elements and keep
+// it in registers as the A fragments of P V (`frag_a_c`); each then adds P V
+// over its half of V's columns to O in registers, the step's share in fresh
+// accumulators added in float32. S is formed once per (query tile, key
+// step) and each bias element read once: products per live element and
+// head 2 D + 2 V.
+// Bound on this card by shared memory's bandwidth and the tensor cores'
+// `mma.sync` rate together (PERF.md's knock-outs), so what the products read
+// from shared memory is cut to the fragments: Q stays resident for the whole
+// walk, in registers up to D 128 (each lane's A fragments of its warp's half
+// of D, loaded once), in shared memory past it (held in registers it
+// spilled); K and V stream as float32 tiles in two stages by `cp.async`
+// (the next step's rows issued before this step's products); each fragment
+// is split into its TF32 big and small parts as it is read (tiles of both
+// parts, split once as they land, read twice the bytes: PERF.md has both),
+// 8 bytes a lane: K's pair along D in one load, V's pair of key rows in
+// two, pitches 8 and 4 past a multiple of 32 floats, no bank conflicts.
+// 3xTF32 (`mma.sync.m16n8k8`), the small parts' products in accumulators
+// apart from the big parts'; no branch inside a group of P V's products, so
+// that their loads run ahead of them.
+// Shared memory at D = V = 256: 218,112 bytes; at D 128 / V 256, 117,760; one
+// block (8 warps) an SM, registers up to 255 a thread.
+constexpr int kTileRows = 64;             // query rows of a block
+constexpr int kTileStep = 32;             // key rows a step
+constexpr int kTileNs = kTileStep / 8;    // S's 8-key tiles a step (P V's k-steps)
+constexpr int kTileMaxD = 256;            // Q's 16 k-steps a lane holds
+constexpr int kTileMaxV = 384;            // 24 of O's 8-column tiles a warp (D up to 128)
+// D and V rounded up to 32: a warp's half of either is whole k-steps or
+// 8-column tiles, and the tiles' pitches (Dp + 8, Vp + 4) keep the
+// fragments' loads free of bank conflicts
+__host__ __device__ constexpr int tile_width(int w) { return (w + 31) / 32 * 32; }
+// A block's shared memory: two stages of K [32][Dp + 8] and of V [32][Vp +
+// 4] float32; the exchange buffer, each warp's part of S a float4 a lane
+// and 8-key tile [8][4][32]; at D past 128 Q [64][Dp + 8] float32
+__host__ __device__ constexpr int tile_smem_bytes(int D, int V) {
+  return 4 * 2 * kTileStep * (tile_width(D) + 8 + tile_width(V) + 4) + 16 * kBwdThreads * kTileNs +
+         (tile_width(D) > 128 ? 4 * kTileRows * (tile_width(D) + 8) : 0);
+}
+// Whether the tile forward takes the widths (its registers: Q's and O's)
+__host__ __device__ constexpr bool tile_takes(int D, int V) {
+  return D <= kTileMaxD && V <= kTileMaxV && (D <= 128 || V <= 256);
+}
+
+// 4 consecutive float32 values at src, w of them inside the row's width,
+// into dst by `cp.async` (one 16-byte piece where vec): zeros where !row_ok
+// and past the width (the copy then reads nothing, at a valid address: base)
+__device__ __forceinline__ void tile_load4(float* dst, const float* src, const float* base, bool row_ok, int w,
+                                           bool vec) {
+  if (vec) {
+    const bool ok = row_ok && w > 0;
+    cp_async16(dst, ok ? src : base, ok);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = row_ok && e < w;
+      cp_async4(dst + e, ok ? src + e : base, ok);
+    }
+  }
+}
+
+// Rows [r0, r0 + ROWS) of width w (columns [0, wp), wp a multiple of 4) into
+// a [ROWS][pitch] float32 tile: zeros past the length and w. The thread's
+// pieces are stepped through with no division or 64-bit product a piece:
+// 256 pieces on is rows + 256 / (wp / 4), the column piece + 256 % (wp / 4)
+template <int ROWS>
+__device__ __forceinline__ void tile_rows(float* dst, const float* src, long long sn, int r0, int length, int w,
+                                          int wp, int pitch, bool vec) {
+  const int n4 = wp / 4, dr = kBwdThreads / n4, dc = 4 * (kBwdThreads % n4);
+  int r = threadIdx.x / n4, c = 4 * (threadIdx.x % n4);
+  const float* s = src + (long long)(r0 + r) * sn + c;
+  float* d = dst + r * pitch + c;
+  while (r < ROWS) {
+    tile_load4(d, s, src, r0 + r < length, w - c, vec);
+    r += dr;
+    c += dc;
+    s += dr * sn + dc;
+    d += dr * pitch + dc;
+    if (c >= wp) c -= wp, ++r, s += sn - wp, d += pitch - wp;
+  }
+}
+
+// A step's K and V rows [s0, s0 + 32) into a stage
+__device__ __forceinline__ void tile_issue(float* ks, float* vs, const float* kb, const float* vb,
+                                           const Params<float>& p, int s0, int length, int dp, int vp) {
+  tile_rows<kTileStep>(ks, kb, p.k_sn, s0, length, p.D, dp, dp + 8, p.vec_k != 0);
+  tile_rows<kTileStep>(vs, vb, p.v_sn, s0, length, p.V, vp, vp + 4, p.vec_v != 0);
+}
+
+// The lane's values of Q's A fragments over its warp's half of D, k-step ks
+// at columns c0 = d_lo + 8 ks: q[ks] = (row g, c0 + 2 t), (row g + 8, c0 +
+// 2 t), (row g, c0 + 2 t + 1), (row g + 8, c0 + 2 t + 1), in `load_a`'s
+// order; zeros past the length and D
+template <int QK>
+__device__ __forceinline__ void tile_load_q(float (&q)[QK][4], const float* qb, const Params<float>& p, int r0,
+                                            int length, int d_lo, int nks) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < QK; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e & 1), col = d_lo + 8 * ks + 2 * t + (e >> 1);
+      q[ks][e] = ks < nks && row < length && col < p.D ? __ldg(qb + (long long)row * p.q_sn + col) : 0.f;
+    }
+}
+
+// QK: Q's k-steps a lane holds in registers (8, for D up to 128), or 0: Q
+// resident in shared memory [64][Dp + 8] (D of 129 to 256, where registers
+// held for Q spilled); NTV: O's 8-column tiles a warp holds (16 for V up to
+// 256, 24 up to 384)
+template <int BIAS, int QK, int NTV>
+__global__ void __launch_bounds__(kBwdThreads, 1) tile_fwd_kernel(Params<float> p) {
+  constexpr int NS = kTileNs;
+  const int dp = tile_width(p.D), vp = tile_width(p.V);
+  const int kp = dp + 8, vpp = vp + 4;                 // the tiles' pitches (and Q's: kp)
+  const int dh = dp / 2, vh = vp / 2, nvt = vh / 8;  // a warp's columns of D and of V, its O tiles
+  const int k_stage = kTileStep * kp, v_stage = kTileStep * vpp;  // floats
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                  // [2][32][kp]
+  float* Vs = Ks + 2 * k_stage;      // [2][32][vpp]
+  float* xch = Vs + 2 * v_stage;     // [8][NS][32] float4s
+  float* Qs = xch + 4 * NS * kBwdThreads;  // QK 0: [64][kp]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;
+  // the block's unit counts the head first and the tile last, from the
+  // row's end: the longest walks start first
+  int unit = (int)blockIdx.x;
+  const int h = unit % p.H;
+  unit /= p.H;
+  const int b = unit % p.B;
+  const int n_tiles = (p.N + kTileRows - 1) / kTileRows;
+  const int base = (n_tiles - 1 - unit / p.B) * kTileRows;
+  const int length = min(p.lengths[b], p.N);
+  const int nt = p.num_targets ? p.num_targets[b] : 0;
+  // the walk: the key rows up to the tile's last visible column
+  int end = 0;
+  if (base < length) end = p.causal && base >= p.contextual_seq_len ? min(length, base + kTileRows) : length;
+  const float* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const float* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const float* vb = p.v + b * p.v_sb + h * p.v_sh;
+  // a row group's part of the step lies wholly inside the mask (the narrow
+  // body's test): causal, every row and column live, the last column
+  // before the first row's own, the first inside the last row's window;
+  // contextual rows and columns folded onto 0, clipped at the targets
+  const int ctx = p.contextual_seq_len, mal = p.max_attn_len;
+  const int max_ids = length - (ctx > 0 ? ctx - 1 : 0) - nt;
+  auto fold = [&](int x) { return min(ctx > 0 ? max(x - ctx + 1, 0) : x, max_ids); };
+  const int r_first = base + wm * 16;
+  const int d_lo = wn * dh, nks = dh / 8;  // the warp's half of D: nks k-steps from column d_lo
+
+  float acc[NTV][4];
+#pragma unroll
+  for (int n = 0; n < NTV; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  if (end > 0) {
+    if constexpr (QK == 0) tile_rows<kTileRows>(Qs, qb, p.q_sn, base, length, p.D, dp, kp, p.vec_q != 0);
+    tile_issue(Ks, Vs, kb, vb, p, 0, length, dp, vp);
+  }
+  cp_async_commit();
+  float q[QK > 0 ? QK : 1][4];
+  if constexpr (QK > 0) tile_load_q<QK>(q, qb, p, r_first, end > 0 ? length : 0, d_lo, nks);
+  // the row group's parts of S, a float4 a lane and 8-key tile: the warp's
+  // and its partner's
+  float4* mine = reinterpret_cast<float4*>(xch) + warp * NS * 32 + lane;
+  const float4* other = reinterpret_cast<const float4*>(xch) + (warp ^ 1) * NS * 32 + lane;
+  for (int step = 0, s0 = 0; s0 < end; ++step, s0 += kTileStep) {
+    const float* ks = Ks + (step & 1) * k_stage;
+    const float* vs = Vs + (step & 1) * v_stage;
+    cp_async_wait_all();
+    __syncthreads();  // the step's K and V rows are in place; every warp is done with the last step's
+    if (s0 + kTileStep < end)
+      tile_issue(Ks + ((step + 1) & 1) * k_stage, Vs + ((step + 1) & 1) * v_stage, kb, vb, p, s0 + kTileStep, length,
+                 dp, vp);
+    cp_async_commit();
+
+    // element e = 4 j + c of the row group's part: row r_first + g + 8 (c /
+    // 2), column s0 + 8 j + 2 t + c % 2
+    const int c_last = s0 + kTileStep - 1;
+    const bool interior = p.causal && r_first + 15 < length && c_last < length && fold(c_last) < fold(r_first) &&
+                          (mal == 0 || fold(s0) >= fold(r_first + 15) - mal);
+    uint32_t ok_bits = ~0u;
+    if (!interior) {
+      ok_bits = 0;
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool ok = live(p, r_first + g + 8 * (c >> 1), s0 + 8 * j + 2 * t + (c & 1), length, nt);
+          ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
+        }
+    }
+    // the row group's part is dead: both its warps skip the step
+    if (__all_sync(kFull, ok_bits == 0)) continue;
+    // the dense bias of the live elements, while S is formed
+    float bias[BIAS == kNoBias ? 1 : 4 * NS];
+    if constexpr (BIAS == kDenseBias) {
+#pragma unroll
+      for (int e = 0; e < 4 * NS; ++e)
+        bias[e] = (ok_bits >> e) & 1u
+                      ? dense_bias(p, b, r_first + g + 8 * ((e & 3) >> 1), s0 + 8 * (e >> 2) + 2 * t + (e & 1))
+                      : 0.f;
+    }
+
+    // the warp's part of S, over its half of D's columns
+    float sb[NS][4], ss[NS][4];  // the big parts' products; the small parts'
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sb[j][c] = ss[j][c] = 0.f;
+#pragma unroll
+    for (int kq = 0; kq < (QK > 0 ? QK : kTileMaxD / 16); ++kq) {
+      if (kq >= nks) break;
+      FragA a;
+      if constexpr (QK > 0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split(q[kq][e], a.big[e], a.small[e]);
+      } else {
+        a = load_a(Qs, kp, wm * 16, d_lo + 8 * kq);
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const FragB f = load_b_nk(ks, kp, 8 * j, d_lo + 8 * kq);
+        mma_tf32(ss[j], a.small, f.big);
+        mma_tf32(ss[j], a.big, f.small);
+        mma_tf32(sb[j], a.big, f.big);
+      }
+    }
+    // S: the two halves' parts summed (a sum of two: the same bits in both
+    // warps of the row group)
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+      mine[32 * j] = make_float4(sb[j][0] + ss[j][0], sb[j][1] + ss[j][1], sb[j][2] + ss[j][2], sb[j][3] + ss[j][3]);
+    pair_sync(wm);  // both parts of the row group's S are in place
+    // P = silu(alpha S + bias) on the live elements (split into P V's A
+    // fragments where they are used: fewer registers held across P V)
+    float pj[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float4 x0 = mine[32 * j], x1 = other[32 * j];
+      const float sj[4] = {x0.x + x1.x, x0.y + x1.y, x0.z + x1.z, x0.w + x1.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int e = 4 * j + c;
+        float x = BIAS == kNoBias ? sj[c] * p.alpha : fmaf(sj[c], p.alpha, bias[BIAS == kNoBias ? 0 : e]);
+        x = __fdividef(x, 1.f + __expf(-x));
+        pj[j][c] = (ok_bits >> e) & 1u ? x : 0.f;
+      }
+    }
+    // O += P V over the warp's half of V's columns, 4 of its tiles at a
+    // time: no branch inside a group, so that its loads run ahead of its
+    // products (P is 0 past the length, V's rows there are zeros; a tile
+    // past the warp's columns, where nvt is not a multiple of 4, reads
+    // other columns of the stage and is never stored)
+    const float* vw = vs + wn * vh;
+#pragma unroll
+    for (int n0 = 0; n0 < NTV; n0 += 4) {
+      if (n0 >= nvt) break;
+      float pb[4][4], ps[4][4];  // the big parts' products; the small parts'
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) pb[n][c] = ps[n][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const FragA a = frag_a_c(pj[j]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const FragB f = load_b_kn<true>(vw, vpp, 8 * j, (n0 + n) * 8);
+          mma_tf32(ps[n], a.small, f.big);
+          mma_tf32(ps[n], a.big, f.small);
+          mma_tf32(pb[n], a.big, f.big);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n0 + n][c] += pb[n][c] + ps[n][c];
+    }
+  }
+
+  // every element of the warp's V columns in the tile's rows below N: zeros
+  // where the row is dead
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r_first + g + 8 * r;
+    if (row >= p.N) continue;
+    float* o = static_cast<float*>(p.out) + (((long long)b * p.N + row) * p.H + h) * p.V;
+#pragma unroll
+    for (int n = 0; n < NTV; ++n)
+      if (n < nvt)
+        store2(o, wn * vh + 8 * n + 2 * t, p.V, acc[n][2 * r] * p.inv_norm, acc[n][2 * r + 1] * p.inv_norm);
+  }
+}
+
 // -------------------------------------------------------- per-chunk bodies
-// Route kWideChunks: the widths no cluster takes (and the float32 forward
-// where the plan measured it faster). The forward and the dq and
+// Route kWideChunks: the widths no cluster takes. The forward and the dq and
 // dkv passes of the backward, one block per output chunk; S = alpha Q K^T
 // and dP = dO V^T are summed over their chunks in registers before the bias,
 // silu and the mask, and recomputed by each output chunk's block. Q (or K)
@@ -1976,6 +2288,26 @@ cudaError_t launch_fwd_chunks(const Params<E>& p, cudaStream_t stream) {
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The tile forward: a block per (64-row query tile, head, batch row); float32
+// K1 and K1-bias where `tile_takes` the widths
+template <int BIAS>
+cudaError_t launch_tile(const Params<float>& p, cudaStream_t stream) {
+  if constexpr (BIAS == kRelBias) {
+    return cudaErrorInvalidValue;
+  } else {
+    const int smem = tile_smem_bytes(p.D, p.V);
+    if (!tile_takes(p.D, p.V) || smem > kMaxShared) return cudaErrorInvalidValue;
+    auto kernel = tile_width(p.D) > 128 ? tile_fwd_kernel<BIAS, 0, 16>
+                  : tile_width(p.V) > 256 ? tile_fwd_kernel<BIAS, 8, 24> : tile_fwd_kernel<BIAS, 8, 16>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const long long blocks = (long long)((p.N + kTileRows - 1) / kTileRows) * p.H * p.B;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
 }
 
 // The rows of K7-det's `partial` that the dkv pass with DET writes: one per

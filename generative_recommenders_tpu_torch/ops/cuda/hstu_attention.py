@@ -470,8 +470,9 @@ _MAX_GRID_X = 2**31 - 1
 # as they are told (`hstu::Route`, csrc/hstu_attention.cuh): the narrow body
 # (its tables staged in shared memory), the narrow body with the relative
 # bias's tables read from device memory, the wide bodies on thread block
-# clusters, the per-chunk wide bodies (the widths no cluster takes)
-_ROUTES = {"narrow": 0, "read": 1, "wide": 2, "wide_chunks": 3}
+# clusters, the per-chunk wide bodies (the widths no cluster takes), the
+# tile forward (float32 K1 and K1-bias where `_fwd_tile` takes the widths)
+_ROUTES = {"narrow": 0, "read": 1, "wide": 2, "wide_chunks": 3, "wide_tile": 4}
 # The wide bodies (csrc/hstu_attention_wide.cuh): D and V in chunks (or
 # tiles) of 128 columns, at a pitch of 136
 _WIDE_CHUNK = 128
@@ -502,6 +503,11 @@ _CHUNKS_FWD = dict(query_rows=64, key_tile=32, shared_bytes=4 * (64 * 136 + 32 *
 _CHUNKS_DQ_BYTES = 4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8)
 _CHUNKS_DKV_BYTES = 4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72)
 _CHUNKS_DKV_TABLE_BYTES = 4 * (32 * 72 + 96 + 8 * 296)
+# The tile forward (route ``wide_tile``, `hstu_wide::tile_fwd_kernel`): a
+# block of 8 warps per 64-row query tile, 32 key rows a step; D and V
+# rounded up to 32 (Dp, Vp); D up to 256 with V up to 256, D up to 128 with
+# V up to 384 (the registers a lane holds of Q and O)
+_TILE_ROWS, _TILE_THREADS, _TILE_STEP, _TILE_MAX_D, _TILE_MAX_V = 64, 256, 32, 256, 384
 
 
 def _chunks(w: int) -> int:
@@ -538,30 +544,26 @@ def _wide_fwd_cluster(D: int, V: int) -> Optional[Tuple[int, int, int, int, int]
     return cs, dw, vw, md, mv
 
 
-# the (query tile, head, batch row) units from which the per-chunk forward's
-# blocks (4 warps, 3 an SM) fill the card well enough to beat the clusters
-# at D 129 to 256 or with a dense bias (measured: slower at 256 and 640
-# units, faster at 1408 and 4096)
-_FWD_PER_CHUNK_UNITS = 1024
+def _tile_width(w: int) -> int:
+    return -(-w // 32) * 32
 
 
-def _fwd_per_chunk(D: int, V: int, H: int, B: int, N: int, relbias: bool, bias: bool, dtype: torch.dtype) -> bool:
-    """Whether the per-chunk forward (route ``wide_chunks``) takes widths that
-    a cluster takes, because it was measured faster there
-    (`variants.py --wide-fwd-routes`, NVIDIA H100): float32 without the
-    relative bias at D of 65 to 256. Without a bias at D up to 128 (Q
-    resident in the per-chunk block) and V in two or three chunks, always
-    (the V-256 ranker's layer); at D 129 to 256, or with the dense bias
-    (read once per V chunk), at V in two chunks from
-    `_FWD_PER_CHUNK_UNITS` units on (the --attn_dim 256 serving layer).
-    There blocks forming S whole per V chunk beat clusters that form it
-    once and share it; bfloat16 and the relative bias, whose per-element
-    work the cluster does once, stay on the clusters."""
-    if dtype != torch.float32 or relbias or not 64 < D <= 2 * _WIDE_CHUNK:
-        return False
-    if D <= _WIDE_CHUNK and not bias and _chunks(V) in (2, 3):
-        return True
-    return _chunks(V) == 2 and -(-N // _WIDE_BWD_ROWS) * H * B >= _FWD_PER_CHUNK_UNITS
+def _tile_bytes(D: int, V: int) -> int:
+    """The tile forward's block's shared memory (`hstu_wide::tile_smem_bytes`):
+    two stages of K [32][Dp + 8] and of V [32][Vp + 4] float32, the exchange
+    of the 8 warps' parts of S [8][32][16] float32; at D past 128 Q [64][Dp
+    + 8] float32 (else in registers)."""
+    dp = _tile_width(D)
+    return (4 * 2 * _TILE_STEP * (dp + 8 + _tile_width(V) + 4) + 4 * _TILE_THREADS * _TILE_STEP // 2
+            + (4 * _TILE_ROWS * (dp + 8) if dp > _WIDE_CHUNK else 0))
+
+
+def _fwd_tile(D: int, V: int, relbias: bool, dtype: torch.dtype) -> bool:
+    """Whether the tile forward (route ``wide_tile``) takes the widths
+    (`hstu_wide::tile_takes`): float32 K1 and K1-bias at V of 129 to 256
+    with D up to 256, and V up to 384 with D up to 128."""
+    return (dtype == torch.float32 and not relbias and _NARROW_V < V <= _TILE_MAX_V and D <= _TILE_MAX_D
+            and (D <= _WIDE_CHUNK or V <= 2 * _WIDE_CHUNK))
 
 
 def _wide_fwd_bytes(dw: int, vw: int, md: int, mv: int, elem: int, split: bool) -> int:
@@ -578,7 +580,7 @@ def _wide_fwd_bytes(dw: int, vw: int, md: int, mv: int, elem: int, split: bool) 
 
 
 def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 1, N: int = 1,
-              dtype: torch.dtype = torch.float32, bias: bool = False) -> dict:
+              dtype: torch.dtype = torch.float32) -> dict:
     """K1's and K6's launch on q's type ``dtype``, its ``route`` the body the
     C entry point takes (`_ROUTES`). Up to D 256 and V 128 (`_narrow`, route
     ``narrow``): the width both are padded to (the next of 32, 64, 128, or 256
@@ -595,24 +597,35 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
     the longest walk, the float32 ``scratch_shape`` [chunks, B, N, H, V] of
     the chunks' sums (None with one chunk) and the ``sums_grid`` of the pass
     that adds them.
-    Wider heads, either type: route ``wide``, the wide forward on thread
-    block clusters (`_wide_fwd_cluster`): one cluster of ``cluster`` blocks
-    per (64-row query tile, head, batch row), 32 key rows a step; block r
-    owns D's columns [r d_cols, (r + 1) d_cols) in ``d_tiles`` tiles and V's
-    [r v_cols, (r + 1) v_cols) in ``v_tiles``, the per-element work split
-    across the blocks (``split_work``, from 4 blocks) or repeated in each;
-    ``shared_bytes`` the block's on q's type (the bias, dense or relative, is
-    read into registers and takes none). Past 3 tiles a block of 16 blocks,
-    and where it was measured faster (`_fwd_per_chunk`; ``bias``: K1-bias's
-    plan, which differs from K1's only there), route
+    Wider heads: float32 without the relative bias where the tile forward
+    takes the widths (`_fwd_tile`: V of 129 to 256 at D up to 256, to 384 at
+    D up to 128; measured faster there than both other wide bodies at every
+    shape of `variants.py --wide-fwd-routes`, NVIDIA H100), route
+    ``wide_tile``: one block of 8 warps per (64-row query tile, head, batch
+    row), 32 key rows a step, D and V rounded up to 32 (``d_cols``,
+    ``v_cols``), ``shared_bytes`` `_tile_bytes`. Else, either type: route
+    ``wide``, the wide forward on thread block clusters (`_wide_fwd_cluster`):
+    one cluster of ``cluster`` blocks per (64-row query tile, head, batch
+    row), 32 key rows a step; block r owns D's columns [r d_cols, (r + 1)
+    d_cols) in ``d_tiles`` tiles and V's [r v_cols, (r + 1) v_cols) in
+    ``v_tiles``, the per-element work split across the blocks
+    (``split_work``, from 4 blocks) or repeated in each; ``shared_bytes`` the
+    block's on q's type. Past 3 tiles a block of 16 blocks, route
     ``wide_chunks``: the per-chunk forward, 64 query rows and 32-column key
-    tiles, a block per (query tile, head, batch row, V chunk). Raises on a
-    width of 0 and on a grid beyond CUDA's."""
+    tiles, a block per (query tile, head, batch row, V chunk). The wide
+    bodies read the bias, dense or relative, into registers: K1-bias plans as
+    K1. Raises on a width of 0 and on a grid beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
         cluster = _wide_fwd_cluster(D, V)
         tiles = -(-N // _WIDE_BWD_ROWS)
-        if cluster is None or _fwd_per_chunk(D, V, H, B, N, relbias, bias, dtype):
+        if _fwd_tile(D, V, relbias, dtype):
+            blocks = tiles * H * B
+            _check_grid(blocks, "the tile forward kernel")
+            return dict(route="wide_tile", width=_WIDE_CHUNK, query_rows=_TILE_ROWS, key_tile=_TILE_STEP,
+                        d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1, head_groups=H,
+                        d_cols=_tile_width(D), v_cols=_tile_width(V), shared_bytes=_tile_bytes(D, V), grid=(blocks,))
+        if cluster is None:
             blocks = tiles * H * B * _chunks(V)
             _check_grid(blocks, "the per-chunk wide forward kernel")
             return dict(_CHUNKS_FWD, route="wide_chunks", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V),
@@ -832,9 +845,8 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
     if out.numel() == 0:
         return out
     # raises on what the kernel does not take; the biased instances tile as
-    # the others (the bias is read into registers) but may take another wide
-    # route
-    plan = _fwd_plan(D, V, H, 0, 0, False, B, N, q.dtype, bias=bias is not None)
+    # the others (the bias is read into registers)
+    plan = _fwd_plan(D, V, H, 0, 0, False, B, N, q.dtype)
     route = plan["route"]
     name = "hstu_mha_fwd" + ("" if bias is None else "_bias") + ("_bf16" if bf16 else "")
     # the bfloat16 entry points' scratch after out and chunk before the route

@@ -129,27 +129,35 @@ checkout and this one in turns (parent, new, new, parent) in one call.
 
     python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-fwd-routes
 
-times the wide forward's two routes on the same inputs, float32 and
-bfloat16, each the mean of 10 launches: on the clusters (route ``wide``)
-and on the per-chunk body (``wide_chunks``), K1 and K1-bias (K6 at its
-shape) at `--wide-fwd`'s shapes but K6-long, at D 128, 192, 256 and 320
-against V 256 and D 128 and 256 against V 384 (B 4, N 2048, H 2), and at D
-128 and 256 against V 256 at (B 8, N 1024, H 2), (B 4, N 1536, H 2) and
-(B 32, N 2048, H 4): where `hstu_attention._fwd_per_chunk` sends float32 to
-the per-chunk body.
+times the wide forward's routes on the same inputs, float32 and bfloat16,
+each the mean of 10 launches: on the clusters (route ``wide``), on the
+per-chunk body (``wide_chunks``) and, float32 where it takes the widths,
+on the tile forward (``wide_tile``), K1 and K1-bias (K6 at its shape) at
+`--wide-fwd`'s shapes but K6-long, at D 128, 192, 256 and 320 against V
+256 and D 128 and 256 against V 384 (B 4, N 2048, H 2), and at D 128 and
+256 against V 256 at (B 8, N 1024, H 2), (B 4, N 1536, H 2) and (B 32, N
+2048, H 4): the measurements `hstu_attention._fwd_tile` follows.
 
-    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-fwd-variants [KERNEL ...]
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-fwd-variants [KERNEL ...] [TEXT ...]
 
 builds and times the knock-outs of the wide forward (labels "wfwd: ..."; of
-K1's library at its shapes, of K6's at D = V = 256): S recomputed per V
-chunk (the per-chunk body, its route forced: no build), the copies
-synchronous in place of `cp.async` a step ahead, bfloat16 through two TF32
-m16n8k8 in place of one m16n8k16, the per-element work repeated in every
-block at every cluster size or split by fragment at every size (shipped:
-split from 4 blocks), without distributed shared memory (each block its own
-part: wrong sums), without the step's cluster barriers, without the
-products, without the per-element work (silu, the bias), a block per chunk
-of D too (shipped: per two chunks of D).
+the named kernels' libraries, or those whose label holds one of the other
+arguments; of K1's library at its shapes, of K6's at D = V = 256). The tile
+forward's ("wfwd: tile, ..."): the copies synchronous, S formed whole by
+each warp of a row group (its products twice, no exchange), Q reloaded
+every key step, Q in registers at D past 128, K and V split once into
+tiles of their big and small parts as they land (D up to 128), and
+without S's products, P V's, the per-element work, the exchange's barrier
+or the K and V copies.
+The clusters': S recomputed per V chunk (the per-chunk body, its route
+forced: no build), the copies synchronous in place of `cp.async` a step
+ahead, bfloat16 through two TF32 m16n8k8 in place of one m16n8k16, the
+per-element work repeated in every block at every cluster size or split by
+fragment at every size (shipped: split from 4 blocks), without distributed
+shared memory (each block its own part: wrong sums), without the step's
+cluster barriers, without the products, without the per-element work
+(silu, the bias), a block per chunk of D too (shipped: per two chunks of
+D).
 
     python PATH/TO/variants.py --det
 
@@ -550,6 +558,102 @@ _WIDE_FWD_EDITS: Dict[str, Edit] = {
         "  const int cs = chunks(D) == 2 && chunks(V) == 2 ? 4 : min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));",
         _WIDE),
 }
+# The tile forward (`tile_fwd_kernel`): the copies synchronous (each step's
+# rows issued and waited for at its start), S formed whole by each warp of a
+# row group (its half's products twice, no exchange), Q reloaded from device
+# memory every key step, K and V split once as they land (below), and each
+# phase taken out: S's products, P V's, the per-element work, the
+# exchange's barrier, the K and V copies
+# K and V split once as they land (where Q is in registers, D up to 128:
+# the small parts' tiles of one stage fit beside the two raw stages): after
+# the step's copies arrive, the block splits the stage in place into the big
+# parts and writes the small parts to tiles of their own, one more barrier a
+# step; the fragments then read both parts and split nothing
+_TILE_SPLIT_ONCE = """\
+__device__ __forceinline__ void tile_split(float* big, float* small, int n) {
+  for (int i = 4 * threadIdx.x; i < n; i += 4 * kBwdThreads) {
+    const float4 x = *reinterpret_cast<const float4*>(big + i);
+    uint32_t b[4], s[4];
+    split(x.x, b[0], s[0]);
+    split(x.y, b[1], s[1]);
+    split(x.z, b[2], s[2]);
+    split(x.w, b[3], s[3]);
+    *reinterpret_cast<float4*>(big + i) =
+        make_float4(__uint_as_float(b[0]), __uint_as_float(b[1]), __uint_as_float(b[2]), __uint_as_float(b[3]));
+    *reinterpret_cast<float4*>(small + i) =
+        make_float4(__uint_as_float(s[0]), __uint_as_float(s[1]), __uint_as_float(s[2]), __uint_as_float(s[3]));
+  }
+}
+__device__ __forceinline__ FragB tile_b_nk(const float* X, const float* L, int pitch, int n0, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3, o = (n0 + g) * pitch + k0 + 2 * t;
+  const float2 x = *reinterpret_cast<const float2*>(X + o), y = *reinterpret_cast<const float2*>(L + o);
+  return FragB{{__float_as_uint(x.x), __float_as_uint(x.y)}, {__float_as_uint(y.x), __float_as_uint(y.y)}};
+}
+__device__ __forceinline__ FragB tile_b_kn(const float* X, const float* L, int pitch, int k0, int n0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3, o = (k0 + 2 * t) * pitch + n0 + g;
+  return FragB{{__float_as_uint(X[o]), __float_as_uint(X[o + pitch])},
+               {__float_as_uint(L[o]), __float_as_uint(L[o + pitch])}};
+}
+"""
+_TILE_WAIT = ("    cp_async_wait_all();\n"
+              "    __syncthreads();  // the step's K and V rows are in place; every warp is done with the last step's\n")
+_WIDE_TILE_EDITS: Dict[str, Edit] = {
+    "wfwd: tile, synchronous copies": _sub(
+        _TILE_WAIT + "    if (s0 + kTileStep < end)\n"
+        "      tile_issue(Ks + ((step + 1) & 1) * k_stage, Vs + ((step + 1) & 1) * v_stage, kb, vb, p, s0 + kTileStep, length,\n"
+        "                 dp, vp);\n"
+        "    cp_async_commit();\n",
+        "    __syncthreads();\n"
+        "    if (s0 > 0) tile_issue(Ks + (step & 1) * k_stage, Vs + (step & 1) * v_stage, kb, vb, p, s0, length, dp, vp);\n"
+        "    cp_async_commit();\n" + _TILE_WAIT, _WIDE),
+    "wfwd: tile, S formed per V half": _both(
+        _sub("    for (int kq = 0; kq < (QK > 0 ? QK : kTileMaxD / 16); ++kq) {\n",
+             "    for (int rep = 0; rep < 2; ++rep)\n    for (int kq = 0; kq < (QK > 0 ? QK : kTileMaxD / 16); ++kq) {\n",
+             _WIDE),
+        _sub("    pair_sync(wm);  // both parts of the row group's S are in place\n", "", _WIDE),
+        _sub("const float4 x0 = mine[32 * j], x1 = other[32 * j];", "const float4 x0 = mine[32 * j], x1 = x0;", _WIDE)),
+    "wfwd: tile, Q reloaded per key tile": _sub(
+        _TILE_WAIT, "    if constexpr (QK > 0) tile_load_q<QK>(q, qb, p, r_first, length, d_lo, nks);\n"
+        "    else tile_rows<kTileRows>(Qs, qb, p.q_sn, base, length, p.D, dp, kp, p.vec_q != 0);\n"
+        "    cp_async_commit();\n" + _TILE_WAIT, _WIDE),
+    "wfwd: tile, Q in registers at D past 128": _sub("tile_width(p.D) > 128 ? tile_fwd_kernel<BIAS, 0, 16>",
+                                                     "tile_width(p.D) > 128 ? tile_fwd_kernel<BIAS, 16, 16>", _WIDE),
+    "wfwd: tile, without S's products": _sub("      if (kq >= nks) break;\n      FragA a;",
+                                             "      if (kq >= 0) break;\n      FragA a;", _WIDE),
+    "wfwd: tile, without P V's products": _sub("        const FragA a = frag_a_c(pj[j]);\n",
+                                               "        if (j >= 0) break;\n        const FragA a = frag_a_c(pj[j]);\n",
+                                               _WIDE),
+    "wfwd: tile, without the per-element work": _sub("        x = __fdividef(x, 1.f + __expf(-x));\n        pj[j][c]",
+                                                     "        pj[j][c]", _WIDE),
+    "wfwd: tile, without the exchange's barrier": _sub("    pair_sync(wm);  // both parts of the row group's S are in place\n",
+                                                       "", _WIDE),
+    "wfwd: tile, without K and V copies": _sub("    if (s0 + kTileStep < end)\n      tile_issue(",
+                                               "    if (false)\n      tile_issue(", _WIDE),
+    "wfwd: tile, K and V split once as they land (D up to 128)": _both(
+        _sub("(tile_width(D) > 128 ? 4 * kTileRows * (tile_width(D) + 8) : 0);",
+             "(tile_width(D) > 128 ? 4 * kTileRows * (tile_width(D) + 8)\n"
+             "                             : 4 * kTileStep * (tile_width(D) + 8 + tile_width(V) + 4));", _WIDE),
+        _sub("template <int BIAS, int QK, int NTV>\n__global__ void __launch_bounds__(kBwdThreads, 1) tile_fwd_kernel",
+             _TILE_SPLIT_ONCE + "template <int BIAS, int QK, int NTV>\n"
+             "__global__ void __launch_bounds__(kBwdThreads, 1) tile_fwd_kernel", _WIDE),
+        _sub("  float* Qs = xch + 4 * NS * kBwdThreads;  // QK 0: [64][kp]\n",
+             "  float* Qs = xch + 4 * NS * kBwdThreads;  // QK 0: [64][kp]\n"
+             "  float* Kl = Qs;                         // QK > 0: the step's small parts, K [32][kp]\n"
+             "  float* Vl = Kl + kTileStep * kp;        // and V [32][vpp]\n", _WIDE),
+        _sub("s0 + kTileStep, length,\n                 dp, vp);\n    cp_async_commit();\n",
+             "s0 + kTileStep, length,\n                 dp, vp);\n    cp_async_commit();\n"
+             "    if constexpr (QK > 0) {\n"
+             "      tile_split(const_cast<float*>(ks), Kl, k_stage);\n"
+             "      tile_split(const_cast<float*>(vs), Vl, v_stage);\n"
+             "      __syncthreads();\n"
+             "    }\n", _WIDE),
+        _sub("const FragB f = load_b_nk(ks, kp, 8 * j, d_lo + 8 * kq);",
+             "const FragB f = QK > 0 ? tile_b_nk(ks, Kl, kp, 8 * j, d_lo + 8 * kq)\n"
+             "                               : load_b_nk(ks, kp, 8 * j, d_lo + 8 * kq);", _WIDE),
+        _sub("const FragB f = load_b_kn<true>(vw, vpp, 8 * j, (n0 + n) * 8);",
+             "const FragB f = QK > 0 ? tile_b_kn(vw, Vl + wn * vh, vpp, 8 * j, (n0 + n) * 8)\n"
+             "                                 : load_b_kn<true>(vw, vpp, 8 * j, (n0 + n) * 8);", _WIDE)),
+}
 # the knock-out that needs no build: the per-chunk body's route forced
 _WFWD_CHUNKS = "wfwd: S recomputed per V chunk (the per-chunk body)"
 # K1 and K6: edits of their shared body
@@ -680,10 +784,12 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
        for kernel in ("hstu_mha_fwd", "hstu_mha_relbias_fwd")
        for label, phases in [("wfwd: as shipped", ()), (_WFWD_CHUNKS, ())]
        + [(name, (name,)) for name in _WIDE_FWD_EDITS]]
+    + [("hstu_mha_fwd", "wfwd: tile, as shipped", ())]
+    + [("hstu_mha_fwd", name, (name,)) for name in _WIDE_TILE_EDITS]
 )
 _EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS, **_WIDE_BWD_EDITS},
           "delta_hstu_mha_fwd": _K5,
-          "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS, **_WIDE_FWD_EDITS},
+          "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS, **_WIDE_FWD_EDITS, **_WIDE_TILE_EDITS},
           "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS, **_WIDE_FWD_EDITS},
           "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_BWD_EDITS},
           "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
@@ -883,8 +989,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     if args[:1] == ["--wide-fwd-variants"]:
         inputs = wide_fwd_inputs(rand, gen)
+        # kernels' names keep those kernels' variants, other TEXTs those whose label holds one
+        kernels = [a for a in args[1:] if a in build.KERNEL_SOURCES]
+        texts = [a for a in args[1:] if a not in kernels]
         chosen = [i for i, (kernel, label, _) in enumerate(VARIANTS)
-                  if label.startswith("wfwd") and (len(args) == 1 or kernel in args[1:])]
+                  if label.startswith("wfwd") and (not kernels or kernel in kernels)
+                  and (not texts or any(a in label for a in texts))]
         root = os.path.join(build.BUILD_DIR, "variants")
         try:
             _build_all(root, chosen)
@@ -1357,7 +1467,8 @@ def _fwd_chunks_forced():
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 
     fwd = ha._fwd_plan
-    ha._fwd_plan = lambda *a, **k: (lambda p: dict(p, route="wide_chunks") if p["route"] == "wide" else p)(fwd(*a, **k))
+    ha._fwd_plan = lambda *a, **k: (lambda p: dict(p, route="wide_chunks") if p["route"] in ("wide", "wide_tile")
+                                    else p)(fwd(*a, **k))
     try:
         yield
     finally:
@@ -1367,27 +1478,49 @@ def _fwd_chunks_forced():
 @contextlib.contextmanager
 def _fwd_clusters_forced():
     """The wide forward's plans on the clusters wherever one takes the widths
-    (`hstu_attention._fwd_per_chunk` off)."""
+    (`hstu_attention._fwd_tile` off)."""
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 
-    rule = ha._fwd_per_chunk
-    ha._fwd_per_chunk = lambda *a: False
+    rule = ha._fwd_tile
+    ha._fwd_tile = lambda *a: False
     try:
         yield
     finally:
-        ha._fwd_per_chunk = rule
+        ha._fwd_tile = rule
+
+
+@contextlib.contextmanager
+def _fwd_tile_forced():
+    """Float32 K1's and K1-bias's plans on the tile forward wherever it takes
+    the widths (`hstu_attention._fwd_tile`), whatever the plan's rule."""
+    import torch
+
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    fwd = ha._fwd_plan
+
+    def plan(D, V, H, Nm, NB, relbias, B=1, N=1, dtype=torch.float32):
+        p = fwd(D, V, H, Nm, NB, relbias, B, N, dtype)
+        return dict(p, route="wide_tile") if ha._fwd_tile(D, V, relbias, dtype) else p
+
+    ha._fwd_plan = plan
+    try:
+        yield
+    finally:
+        ha._fwd_plan = fwd
 
 
 def wide_fwd_route_times(device_ms, rand, gen) -> None:
     """Prints the wide forward at `--wide-fwd`'s shapes but K6-long and at
-    `_WIDE_FWD_ROUTE_SHAPES`, on the clusters and on the per-chunk body, on
-    the same inputs: the measurements `hstu_attention._fwd_per_chunk`
-    follows."""
+    `_WIDE_FWD_ROUTE_SHAPES`, on the clusters, on the per-chunk body and on
+    the tile forward (float32 where it takes the widths), on the same inputs:
+    the measurements the plan's routes follow."""
     import torch
 
     for shape in _WIDE_FWD_SHAPES[:-1] + _WIDE_FWD_ROUTE_SHAPES:
         inputs = wide_fwd_inputs(rand, gen, (shape,))
-        for label, forced in (("clusters", _fwd_clusters_forced), ("per chunk", _fwd_chunks_forced)):
+        for label, forced in (("clusters", _fwd_clusters_forced), ("per chunk", _fwd_chunks_forced),
+                              ("tile", _fwd_tile_forced)):
             with forced():
                 wide_fwd_times(device_ms, inputs, label=label, plain=False)
         del inputs

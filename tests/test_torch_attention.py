@@ -322,12 +322,20 @@ def test_forward_launch_plan_raises(args, match):
 
 @pytest.mark.parametrize("D,V", [(257, 32), (32, 129), (256, 129), (512, 320)])
 def test_forward_launch_plan_admits_wide_heads(D, V):
-    """D above 256 or V above 128 take the wide body on thread block
-    clusters: 64 query rows, 32-key steps, a cluster of `_wide_fwd_cluster`
-    blocks per (query tile, head, batch row), each block's shared memory
+    """D above 256 or V above 128 take a wide body: in float32 at D up to 256
+    (V 129 to 256; D up to 128 to V 384) the tile forward, one block per
+    (64-row query tile, head, batch row), 32-key steps, its block's shared
+    memory `_tile_bytes`; else the wide body on thread block clusters: 64
+    query rows, 32-key steps, a cluster of `_wide_fwd_cluster` blocks per
+    (query tile, head, batch row), each block's shared memory
     `_wide_fwd_bytes` of its columns."""
     B, H, N = 3, 2, 674
     plan = ha._fwd_plan(D, V, H, 0, 0, False, B, N)
+    if D <= 256 and V <= 256:
+        assert plan["route"] == "wide_tile" and (plan["query_rows"], plan["key_tile"]) == (64, 32)
+        assert plan["shared_bytes"] == ha._tile_bytes(D, V) <= 232448
+        assert plan["grid"] == (-(-N // 64) * H * B,)
+        return
     assert plan["route"] == "wide" and plan["d_chunks"] == -(-D // 128) and plan["v_chunks"] == -(-V // 128)
     cs, dw, vw, md, mv = ha._wide_fwd_cluster(D, V)
     assert (plan["query_rows"], plan["key_tile"], plan["cluster"]) == (64, 32, cs)

@@ -1418,18 +1418,17 @@ FWD_CLUSTER_SHAPES = [(128, 256), (512, 64), (1100, 700), (3968, 128), (2048, 20
 @pytest.mark.parametrize("D,V", FWD_CLUSTER_SHAPES)
 def test_wide_forward_on_clusters(cuda, D, V, bf16):
     """K1, K1-bias and K6 (float32 or bfloat16) on the wide forward's clusters
-    (route ``wide``; K1 in float32 at (128, 256) on ``wide_chunks``, where
-    the plan measured the per-chunk body faster), with targets and a
-    contextual row on views of one projection: within `WIDE_TOL` (bfloat16
-    `BF16_TOL`) of their plain versions, zeros past the lengths, the same
-    bits on a second run."""
+    (route ``wide``; K1 in float32 where the tile forward takes the widths
+    on it, ``wide_tile``), with targets and a contextual row on views
+    of one projection: within `WIDE_TOL` (bfloat16 `BF16_TOL`) of their
+    plain versions, zeros past the lengths, the same bits on a second run."""
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 
     dtype = torch.bfloat16 if bf16 else torch.float32
     q, k, v, _, lengths, nt = _wide_views(48, 2, 150, 2, D, V, dtype, cuda)
     kw = dict(alpha=D**-0.5, max_seq_len=160, num_targets=nt, contextual_seq_len=1)
     counter = hstu_mha_dense_cuda.launches["hstu_mha_fwd" + ("_bf16" if bf16 else "")]
-    route = "wide_chunks" if (D, V) == (128, 256) and not bf16 else "wide"
+    route = "wide_tile" if ha._fwd_tile(D, V, False, dtype) else "wide"
     assert ha._fwd_plan(D, V, 2, 0, 0, False, 2, 150, dtype)["route"] == route
     before = counter.routes.get(route, 0)
     out = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
@@ -1442,6 +1441,40 @@ def test_wide_forward_on_clusters(cuda, D, V, bf16):
     _held("biased out", hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw),
           hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw), bf16)
     rq, rk, rv, rl, ts, pos_w, ts_w, rnt = _relbias_inputs(49, 2, 150, 2, D, V, 150, 128, True, cuda)
+    rq, rk, rv = (x.to(dtype) for x in (rq, rk, rv))
+    rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=150, num_buckets=128, num_targets=rnt)
+    _held("K6 out", hstu_mha_dense_relbias_cuda(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw),
+          hstu_mha_dense_relbias_plain(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw), bf16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D,V", [(4352, 64), (8192, 64)])
+def test_wide_forward_past_the_clusters(cuda, D, V, bf16):
+    """Past 3 tiles a block of 16 blocks, K1, K1-bias and K6 (float32 or
+    bfloat16) take the per-chunk forward (route ``wide_chunks``), with
+    targets and a contextual row on views of one projection: within
+    `WIDE_TOL` (bfloat16 `BF16_TOL`) of their plain versions, zeros past the
+    lengths, K1's and K1-bias's outputs the same bits twice."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, _, lengths, nt = _wide_views(54, 2, 150, 2, D, V, dtype, cuda)
+    kw = dict(alpha=D**-0.5, max_seq_len=160, num_targets=nt, contextual_seq_len=1)
+    assert ha._fwd_plan(D, V, 2, 0, 0, False, 2, 150, dtype)["route"] == "wide_chunks"
+    counter = hstu_mha_dense_cuda.launches["hstu_mha_fwd" + ("_bf16" if bf16 else "")]
+    before = counter.routes.get("wide_chunks", 0)
+    out = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+    assert counter.routes.get("wide_chunks", 0) == before + 1
+    _held("out", out, hstu_mha_dense_plain(q, k, v, lengths, **kw), bf16)
+    dead = torch.arange(150, device=cuda)[None, :] >= lengths[:, None]
+    assert (out[dead] == 0).all()
+    assert torch.equal(out, hstu_mha_dense_cuda(q, k, v, lengths, **kw))
+    bias = torch.randn(2, 150, 150, device=cuda, generator=torch.Generator(cuda).manual_seed(55)) * 0.3
+    biased = hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw)
+    _held("biased out", biased, hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw), bf16)
+    assert torch.equal(biased, hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw))
+    rq, rk, rv, rl, ts, pos_w, ts_w, rnt = _relbias_inputs(56, 2, 150, 2, D, V, 150, 128, True, cuda)
     rq, rk, rv = (x.to(dtype) for x in (rq, rk, rv))
     rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=150, num_buckets=128, num_targets=rnt)
     _held("K6 out", hstu_mha_dense_relbias_cuda(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw),
@@ -1473,6 +1506,43 @@ def test_widest_backward_on_the_per_chunk_route(cuda, D, V, bf16):
     rdo = torch.randn(100, 2, 1, V, device=cuda).to(dtype).transpose(0, 1)
     rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=100, num_buckets=128, num_targets=rnt)
     _relbias_all((rq, rk, rv, rl, ts, pos_w, ts_w), rdo, rkw, bf16)
+
+
+# (D, V) of the tile forward: D up to 256 with V of 129 to 256, D up to 128
+# with V up to 384, and the two main-path layers' widths (D 128 / V 256, D =
+# V = 256)
+TILE_SHAPES = [(65, 129), (129, 256), (128, 384), (256, 256), (128, 256), (256, 129), (100, 320), (64, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,V", TILE_SHAPES)
+def test_wide_forward_on_the_tile_route(cuda, D, V):
+    """Float32 K1 and K1-bias on the tile forward (route ``wide_tile``): rows
+    on the 64-row tile edges (lengths 63, 64, 65 and N = 150), targets and a
+    contextual row, on views of one projection, a float32 bias per row and a
+    bfloat16 one shared by the batch (batch stride 0): within `WIDE_TOL` of
+    their plain versions, zeros past the lengths, the same bits twice."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    B, N, H = 4, 150, 2
+    q, k, v, _, _, nt = _wide_views(52, B, N, H, D, V, torch.float32, cuda)
+    lengths = torch.tensor([150, 63, 64, 65], dtype=torch.int32, device=cuda)
+    kw = dict(alpha=D**-0.5, max_seq_len=N, num_targets=nt, contextual_seq_len=2)
+    assert ha._fwd_plan(D, V, H, 0, 0, False, B, N)["route"] == "wide_tile"
+    counter = hstu_mha_dense_cuda.launches["hstu_mha_fwd"]
+    before = counter.routes.get("wide_tile", 0)
+    out = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+    assert counter.routes.get("wide_tile", 0) == before + 1
+    _held("out", out, hstu_mha_dense_plain(q, k, v, lengths, **kw), False)
+    dead = torch.arange(N, device=cuda)[None, :] >= lengths[:, None]
+    assert (out[dead] == 0).all()
+    assert torch.equal(out, hstu_mha_dense_cuda(q, k, v, lengths, **kw))
+    gen = torch.Generator(cuda).manual_seed(53)
+    for bias in (torch.randn(B, N, N, device=cuda, generator=gen) * 0.3,
+                 (torch.randn(1, N, N, device=cuda, generator=gen) * 0.3).to(torch.bfloat16)):
+        got = hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw)
+        _held(f"out with a {bias.dtype} bias", got, hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw), False)
+        assert torch.equal(got, hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw))
 
 
 # ------------------------------------- K7 and K7-det in one pass up to 128

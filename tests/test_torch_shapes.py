@@ -132,8 +132,8 @@ def test_every_shape_gets_a_plan_that_fits(plan):
         for p in got:
             assert 0 < p["shared_bytes"] <= SHARED, (plan, H, N, D, V, Nm, NB, p)
         narrow = max(D, V) <= 128 if plan.startswith("relbias b") or plan == "relbias det" else D <= 256 and V <= 128
-        if plan != "delta":  # the wide bodies: on clusters, or per chunk (the float32 forward where faster)
-            assert (got[0]["route"] in ("wide", "wide_chunks")) == (not narrow), (plan, D, V, got[0])
+        if plan != "delta":  # the wide bodies: on clusters, per chunk, or the float32 tile forward
+            assert (got[0]["route"] in ("wide", "wide_chunks", "wide_tile")) == (not narrow), (plan, D, V, got[0])
     assert seen
 
 

@@ -1,19 +1,23 @@
-"""The wide forward on thread block clusters, and the wide backward's widths
-past 16 blocks of two chunks, on the CPU.
+"""The wide forward's routes, and the wide backward's widths past 16 blocks
+of two chunks, on the CPU.
 
-* `_fwd_plan`'s wide branch (K1-, K1-bias- and K6-wide:
-  csrc/hstu_attention_wide.cuh's `fwd_kernel`): one thread block cluster per
-  (64-row query tile, head, batch row), a block per 128-column chunk of V or
-  per two of D, whichever needs more (16 at most); block r owns D's columns [r d_cols, (r + 1)
-  d_cols) and V's [r v_cols, (r + 1) v_cols), each share rounded up to 32,
-  in tiles of up to 128 (3 tiles a block at most); each block's shared
-  memory within a Hopper block's 232,448 bytes on both types, with and
-  without a bias (the bias is read into registers); past 3 tiles a block,
-  and in float32 without the relative bias where it was measured faster (D
-  of 65 to 128 and V of two or three chunks; D to 256 or a dense bias at V
-  of two chunks on grids of 1024 units or more), the per-chunk forward
-  (route ``wide_chunks``); a grid past CUDA's limit raises with its sizes. The Python mirror of the cluster's rule, of its
-  constants and of the block's bytes against the C header.
+* `_fwd_plan`'s wide branch (K1-, K1-bias- and K6-wide). Float32 K1 and
+  K1-bias at V of 129 to 256 with D up to 256, and V up to 384 with D up to
+  128, take the tile forward (route ``wide_tile``,
+  csrc/hstu_attention_wide.cuh's `tile_fwd_kernel`): one block of 8 warps
+  per (64-row query tile, head, batch row), its shared memory
+  `hstu_wide::tile_smem_bytes` within a Hopper block's 232,448 bytes.
+  Elsewhere, and on bfloat16 and with the relative bias everywhere, the
+  clusters (`fwd_kernel`): one thread block cluster per (64-row query tile,
+  head, batch row), a block per 128-column chunk of V or per two of D,
+  whichever needs more (16 at most); block r owns D's columns [r d_cols, (r
+  + 1) d_cols) and V's [r v_cols, (r + 1) v_cols), each share rounded up to
+  32, in tiles of up to 128 (3 tiles a block at most); each block's shared
+  memory within 232,448 bytes on both types, with and without a bias (the
+  bias is read into registers); past 3 tiles a block, the per-chunk forward
+  (route ``wide_chunks``); a grid past CUDA's limit raises with its sizes.
+  The Python mirror of the clusters' and the tile forward's rules, of their
+  constants and of their blocks' bytes against the C header.
 * The port's plain backward (the function the card holds the wide
   backward's per-chunk route to) against the JAX package's
   `hstu_mha_dense_pallas` in interpret mode and its VJP at D 3968 / V 128,
@@ -71,10 +75,18 @@ ISSUE_SHAPES = {
 }
 
 
-# the shapes where float32 K1 without a bias takes the per-chunk body on
-# `test_fwd_plan_is_one_cluster_per_tile`'s grid (128 units), measured faster
-# there than the clusters (`_fwd_per_chunk`)
-PER_CHUNK_F32 = {(128, 256)}
+# the shapes above where float32 K1 and K1-bias take the tile forward
+# (`_fwd_tile`), measured faster there than the clusters
+TILE_F32 = {(128, 256), (64, 256), (256, 256)}
+
+
+def _tile_bytes(D, V):
+    """The tile forward's block's shared memory from the kernel's layout: two
+    stages of K [32][Dp + 8] and of V [32][Vp + 4] float32, the exchange
+    [8][32][16] float32, and at Dp past 128 Q [64][Dp + 8] float32 (Dp, Vp:
+    D, V rounded up to 32)."""
+    dp, vp = -(-D // 32) * 32, -(-V // 32) * 32
+    return 4 * 2 * 32 * (dp + 8 + vp + 4) + 4 * 256 * 16 + (4 * 64 * (dp + 8) if dp > 128 else 0)
 
 
 @pytest.mark.parametrize("dtype", TYPES, ids=["float32", "bfloat16"])
@@ -82,16 +94,17 @@ PER_CHUNK_F32 = {(128, 256)}
 def test_fwd_plan_is_one_cluster_per_tile(D, V, dtype):
     """The cluster, each block's columns and tiles, the grid and the shared
     memory of K1, K1-bias and K6 (the relative bias) at the slice's shapes,
-    both types; float32 K1 at `PER_CHUNK_F32` the per-chunk body's grid, a
-    block per V chunk."""
+    both types; float32 K1 and K1-bias at `TILE_F32` the tile forward's: a
+    block per (query tile, head, batch row)."""
     B, H, N = 4, 2, 1000
     cs, dw, vw, md, mv = ISSUE_SHAPES[D, V]
     split = cs >= 4
     assert ha._wide_fwd_cluster(D, V) == (cs, dw, vw, md, mv)
-    for relbias, bias, Nm, NB in ((False, False, 0, 0), (False, True, 0, 0), (True, False, 4096, 128)):
-        plan = ha._fwd_plan(D, V, H, Nm, NB, relbias, B, N, dtype, bias=bias)
-        if (D, V) in PER_CHUNK_F32 and dtype == torch.float32 and not relbias and not bias:
-            assert plan["route"] == "wide_chunks" and plan["grid"] == (-(-N // 64) * H * B * 2,)
+    for relbias, Nm, NB in ((False, 0, 0), (True, 4096, 128)):
+        plan = ha._fwd_plan(D, V, H, Nm, NB, relbias, B, N, dtype)
+        if (D, V) in TILE_F32 and dtype == torch.float32 and not relbias:
+            assert plan["route"] == "wide_tile" and plan["grid"] == (-(-N // 64) * H * B,)
+            assert plan["shared_bytes"] == _tile_bytes(D, V) <= SHARED
             continue
         assert plan["route"] == "wide"
         assert (plan["cluster"], plan["d_cols"], plan["v_cols"], plan["d_tiles"], plan["v_tiles"]) == (cs, dw, vw, md, mv)
@@ -101,7 +114,7 @@ def test_fwd_plan_is_one_cluster_per_tile(D, V, dtype):
         assert cs * dw >= D and cs * vw >= V  # every column of D and of V has its block
 
 
-@pytest.mark.parametrize("D,V", [(8192, 64), (64, 8192), (4096, 4096), (3000, 3000)])
+@pytest.mark.parametrize("D,V", [(8192, 64), (64, 8192), (4096, 4096), (3000, 3000), (4352, 64)])
 def test_fwd_past_the_clusters_takes_the_per_chunk_body(D, V):
     """Where a block would hold more than 3 tiles of 128 columns, the
     per-chunk forward: a block of 4 warps per (64-row query tile, head,
@@ -114,36 +127,87 @@ def test_fwd_past_the_clusters_takes_the_per_chunk_body(D, V):
         assert plan["shared_bytes"] == 4 * (64 * 136 + 32 * 136 + 32 * 132) <= SHARED
 
 
-# (D, V, B, N, H, bias): whether float32 takes the per-chunk body; the
-# measured shapes (the V-256 ranker's layer: 640 units, the --attn_dim 256
-# serving layer: 1408, B 4 / N 2048 / H 2: 256) and the rule's edges
+# (D, V, B, N, H, bias): whether float32 takes the tile forward (the
+# per-chunk body's float32 shapes before it); the measured shapes (the
+# V-256 ranker's layer, the --attn_dim 256 serving layer, B 4 / N 2048 /
+# H 2) and the rule's edges, whatever the grid, with and without the bias
 PER_CHUNK_CASES = {
-    (128, 256, 32, 268, 4, False): True, (128, 256, 32, 268, 4, True): False,
+    (128, 256, 32, 268, 4, False): True, (128, 256, 32, 268, 4, True): True,
     (256, 256, 32, 674, 4, False): True, (256, 256, 32, 674, 4, True): True,
-    (128, 256, 4, 2048, 2, False): True, (256, 256, 4, 2048, 2, False): False,
-    (128, 384, 4, 2048, 2, False): True, (128, 384, 4, 2048, 2, True): False,
-    (256, 384, 32, 2048, 4, False): False, (64, 256, 32, 2048, 4, False): False,
+    (128, 256, 4, 2048, 2, False): True, (256, 256, 4, 2048, 2, False): True,
+    (128, 384, 4, 2048, 2, False): True, (128, 384, 4, 2048, 2, True): True,
+    (256, 384, 32, 2048, 4, False): False, (64, 256, 32, 2048, 4, False): True,
     (65, 129, 1, 64, 1, False): True, (129, 129, 16, 4096, 1, False): True,
-    (129, 129, 16, 4032, 1, False): False, (257, 256, 32, 2048, 4, False): False,
+    (129, 129, 16, 4032, 1, False): True, (257, 256, 32, 2048, 4, False): False,
     (128, 640, 4, 2048, 2, False): False, (512, 64, 32, 2048, 4, False): False,
 }
 
 
 @pytest.mark.parametrize("D,V,B,N,H,bias", list(PER_CHUNK_CASES))
 def test_fwd_per_chunk_where_measured_faster(D, V, B, N, H, bias):
-    """Float32 K1 takes the per-chunk body at D of 65 to 128 and V in two or
-    three chunks; at D 129 to 256, and K1-bias at any D of 65 to 256, at V
-    in two chunks from 1024 (query tile, head, batch row) units; bfloat16 and
-    K6 keep the clusters at every width a cluster takes."""
-    per_chunk = PER_CHUNK_CASES[D, V, B, N, H, bias]
+    """Float32 K1 and K1-bias (the bias plans as K1) take the tile forward,
+    measured faster than the per-chunk body and the clusters wherever it
+    takes the widths, on every grid: V of 129 to 256 with D up to 256, V up
+    to 384 with D up to 128; the clusters elsewhere. bfloat16 and K6 keep
+    the clusters at every width a cluster takes."""
+    tile = PER_CHUNK_CASES[D, V, B, N, H, bias]
     assert ha._wide_fwd_cluster(D, V) is not None
-    plan = ha._fwd_plan(D, V, H, 0, 0, False, B, N, bias=bias)
-    assert plan["route"] == ("wide_chunks" if per_chunk else "wide")
-    if per_chunk:
-        assert plan["grid"] == (-(-N // 64) * H * B * _chunks(V),)
-        assert plan["shared_bytes"] == 4 * (64 * 136 + 32 * 136 + 32 * 132)
-    assert ha._fwd_plan(D, V, H, 0, 0, False, B, N, torch.bfloat16, bias=bias)["route"] == "wide"
+    plan = ha._fwd_plan(D, V, H, 0, 0, False, B, N)
+    assert plan["route"] == ("wide_tile" if tile else "wide")
+    if tile:
+        assert plan["grid"] == (-(-N // 64) * H * B,)
+        assert plan["shared_bytes"] == _tile_bytes(D, V) <= SHARED
+    assert ha._fwd_plan(D, V, H, 0, 0, False, B, N, torch.bfloat16)["route"] == "wide"
     assert ha._fwd_plan(D, V, H, 1024, 128, True, B, N)["route"] == "wide"
+
+
+# the tile forward at D 65 to 256 and V 129 to 384 (the two main-path
+# layers' widths among them): it takes V up to 256, and to 384 at D up to
+# 128
+TILE_D, TILE_V = (65, 128, 129, 192, 256), (129, 256, 384)
+
+
+@pytest.mark.parametrize("V", TILE_V)
+@pytest.mark.parametrize("D", TILE_D)
+def test_fwd_tile_route_grid_and_bytes(D, V):
+    """Float32 K1 and K1-bias: the tile forward's route where it takes the
+    widths, a block per (64-row query tile, head, batch row), its shared
+    memory from the kernel's layout; the clusters where it does not;
+    bfloat16 and K6 on the clusters either way."""
+    tile = V <= 256 or D <= 128
+    for B, N, H in ((32, 674, 4), (32, 268, 4), (1, 65, 1)):
+        plan = ha._fwd_plan(D, V, H, 0, 0, False, B, N)
+        assert plan["route"] == ("wide_tile" if tile else "wide")
+        if tile:
+            assert plan["grid"] == (-(-N // 64) * H * B,) and (plan["query_rows"], plan["key_tile"]) == (64, 32)
+            assert (plan["d_cols"], plan["v_cols"]) == (-(-D // 32) * 32, -(-V // 32) * 32)
+            assert plan["shared_bytes"] == _tile_bytes(D, V) <= SHARED
+        assert ha._fwd_plan(D, V, H, 0, 0, False, B, N, torch.bfloat16)["route"] == "wide"
+        assert ha._fwd_plan(D, V, H, 1024, 128, True, B, N)["route"] == "wide"
+
+
+def test_fwd_tile_mirrors_the_header():
+    """The tile forward's constants, its rule and its block's bytes are the C
+    header's, and every block it takes fits 232,448 bytes."""
+    text = _header()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert (const("kTileRows"), const("kTileStep"), const("kTileMaxD"), const("kTileMaxV")) == (
+        ha._TILE_ROWS, ha._TILE_STEP, ha._TILE_MAX_D, ha._TILE_MAX_V) == (64, 32, 256, 384)
+    assert "return (w + 31) / 32 * 32;" in text  # tile_width
+    body = re.search(r"constexpr int tile_smem_bytes\(int D, int V\) \{(.*?)\n\}", text, re.S).group(1)
+    assert "4 * 2 * kTileStep * (tile_width(D) + 8 + tile_width(V) + 4) + 16 * kBwdThreads * kTileNs" in body
+    assert "(tile_width(D) > 128 ? 4 * kTileRows * (tile_width(D) + 8) : 0)" in body
+    assert "return D <= kTileMaxD && V <= kTileMaxV && (D <= 128 || V <= 256);" in text  # tile_takes
+    assert re.search(r"__launch_bounds__\(kBwdThreads, 1\) tile_fwd_kernel", text)
+    for D in range(1, 300, 7):
+        for V in range(120, 400, 11):
+            takes = D <= 256 and V <= 384 and (D <= 128 or V <= 256)
+            assert ha._fwd_tile(D, V, False, torch.float32) == (takes and V > 128)
+            if takes:
+                assert ha._tile_bytes(D, V) == _tile_bytes(D, V) <= SHARED
 
 
 def test_fwd_plan_bytes_stay_within_a_block():
