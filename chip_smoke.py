@@ -2562,58 +2562,74 @@ def main() -> None:
         del trainer, x_out
         torch.cuda.empty_cache()
 
-    # the wide route's rows of the kernels line, at the layer shapes this
-    # phase gave them: K1-wide and K2-wide at the training shape, K3-wide and
-    # K4-wide at the deterministic one, on views of one uvqk projection at V
-    # 256 with the batches' lengths, targets and contextual rows
-    v256_rows = {}
-    for N_, lens_, nt_, kernels_ in ((N_tr, tr_len, tr_nt, ("K1", "K2")), (N_det, det_len, det_nt, ("K3", "K4"))):
-        width = (2 * Vw + 2 * D) * H
+    def layer_rows(Bx, N_, lens_, nt_, Dx, Vx, kernels_, label, suffix, route_of):
+        """K1 and the backward kernels of ``kernels_`` at a ranker layer (Bx
+        rows of N_, H heads, qk Dx, linear Vx) on views of one uvqk
+        projection with the batches' lengths, targets and contextual rows:
+        each against its plain version, timed beside its bound and the
+        plain time; their rows of the kernels line, keyed by kernel and the
+        route ``route_of(kernel)``."""
+        rows = {}
+        width = (2 * Vx + 2 * Dx) * H
         _, q_, k_, v_ = hstu_compute_uqvk(
-            rand(B, N_, Dm), torch.ones(Dm, device="cuda"), torch.zeros(Dm, device="cuda"),
-            rand(Dm, width) / Dm**0.5, rand(width), num_heads=H, attn_dim=D, hidden_dim=Vw,
+            rand(Bx, N_, Dm), torch.ones(Dm, device="cuda"), torch.zeros(Dm, device="cuda"),
+            rand(Dm, width) / Dm**0.5, rand(width), num_heads=H, attn_dim=Dx, hidden_dim=Vx,
         )
-        do_ = rand(N_, B, H, Vw).transpose(0, 1)
-        a_ = dict(alpha=alpha, max_seq_len=N_, num_targets=nt_, contextual_seq_len=C)
-        one_ = dict(alpha=alpha, max_seq_len=N_, causal=True, max_attn_len=0, contextual_seq_len=C,
+        do_ = rand(N_, Bx, H, Vx).transpose(0, 1)
+        a_ = dict(alpha=Dx**-0.5, max_seq_len=N_, num_targets=nt_, contextual_seq_len=C)
+        one_ = dict(alpha=Dx**-0.5, max_seq_len=N_, causal=True, max_attn_len=0, contextual_seq_len=C,
                     min_full_attn_seq_len=0)
         dead_ = torch.arange(N_, device="cuda")[None, :] >= lens_[:, None]
         live_ = apply_padding_guard(make_valid_attn_mask(N_, lens_, num_targets=nt_, contextual_seq_len=C),
                                     lens_).sum().item()
         rows_ = lens_.sum().item() * H
-        want_f = hstu_mha_dense_plain(q_, k_, v_, lens_, **a_)
         want_b = hstu_mha_bwd_plain(q_, k_, v_, lens_, do_, **a_)
         plain_b = device_time_ms(lambda: hstu_mha_bwd_plain(q_, k_, v_, lens_, do_, **a_), 3)
         nt_c = nt_.int()
-        got_ = {"K1": (hstu_mha_dense_cuda(q_, k_, v_, lens_, **a_),),
-                "K2": hstu_mha_bwd_cuda(q_, k_, v_, lens_, do_, **a_),
-                "K3": _bwd_kernel("hstu_mha_bwd_dq", q_, k_, v_, lens_, nt_c, do_, one_)[:1],
-                "K4": _bwd_kernel("hstu_mha_bwd_dkv", q_, k_, v_, lens_, nt_c, do_, one_)[1:]}
-        wants_ = {"K1": (want_f,), "K2": want_b, "K3": want_b[:1], "K4": want_b[1:]}
-        names_ = {"K1": ("out",), "K2": ("dq", "dk", "dv"), "K3": ("dq",), "K4": ("dk", "dv")}
-        fns_ = {"K1": lambda: hstu_mha_dense_cuda(q_, k_, v_, lens_, **a_),
-                "K2": lambda: hstu_mha_bwd_cuda(q_, k_, v_, lens_, do_, **a_),
-                "K3": lambda: _bwd_kernel("hstu_mha_bwd_dq", q_, k_, v_, lens_, nt_c, do_, one_),
-                "K4": lambda: _bwd_kernel("hstu_mha_bwd_dkv", q_, k_, v_, lens_, nt_c, do_, one_)}
-        # (flops, bytes): each input read once (q, k, v, dO, lengths, targets),
-        # each output written once
-        works_ = {k_: attn_work(k_, live_, H, D, Vw, rows_, B * N_ * H, 4, 4 * B * 2) for k_ in kernels_}
-        plain_f = device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, lens_, **a_), 3)
+        fns_ = {"K1": (lambda: (hstu_mha_dense_cuda(q_, k_, v_, lens_, **a_),), ("out",)),
+                "K2": (lambda: hstu_mha_bwd_cuda(q_, k_, v_, lens_, do_, **a_), ("dq", "dk", "dv")),
+                "K3": (lambda: _bwd_kernel("hstu_mha_bwd_dq", q_, k_, v_, lens_, nt_c, do_, one_)[:1], ("dq",)),
+                "K4": (lambda: _bwd_kernel("hstu_mha_bwd_dkv", q_, k_, v_, lens_, nt_c, do_, one_)[1:], ("dk", "dv"))}
+        wants_ = {"K2": want_b, "K3": want_b[:1], "K4": want_b[1:]}
+        if "K1" in kernels_:
+            wants_["K1"] = (hstu_mha_dense_plain(q_, k_, v_, lens_, **a_),)
+            plain_f = device_time_ms(lambda: hstu_mha_dense_plain(q_, k_, v_, lens_, **a_), 3)
         for kname in kernels_:
-            err_ = max(compare(f"{kname}-wide V={Vw} N={N_} {g}", a, w, dead_)
-                       for g, a, w in zip(names_[kname], got_[kname], wants_[kname]))
-            ms_ = device_time_ms(fns_[kname], 20)
-            t_ops, t_bytes = works_[kname][0] / PEAK_3XTF32_FLOPS * 1e3, works_[kname][1] / PEAK_BYTES_PER_S * 1e3
-            print(f"  {kname}-wide at the V-{Vw} ranker's layer (B={B} N={N_} H={H} D={D} V={Vw}): {ms_:.4f} ms, "
+            fn_, names_ = fns_[kname]
+            err_ = max(compare(f"{kname}{suffix} {label} N={N_} {g}", a, w, dead_)
+                       for g, a, w in zip(names_, fn_(), wants_[kname]))
+            ms_ = device_time_ms(fn_, 20 if suffix else 10)
+            # (flops, bytes): each input read once (q, k, v, dO, lengths,
+            # targets), each output written once
+            work_ = attn_work(kname, live_, H, Dx, Vx, rows_, Bx * N_ * H, 4, 4 * Bx * 2)
+            plain_ = plain_f if kname == "K1" else plain_b
+            t_ops, t_bytes = work_[0] / PEAK_3XTF32_FLOPS * 1e3, work_[1] / PEAK_BYTES_PER_S * 1e3
+            route_ = route_of(kname)
+            print(f"  {kname}{suffix} at {label} (B={Bx} N={N_} H={H} D={Dx} V={Vx}, {route_}): {ms_:.4f} ms, "
                   f"bound {max(t_ops, t_bytes):.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'}), plain "
-                  f"{plain_f if kname == 'K1' else plain_b:.4f} ms")
-            route_ = (hr.ha._fwd_plan(D, Vw, H, 0, 0, False, B, N_)["route"] if kname == "K1"
-                      else "wide")
-            v256_rows[f"{kname}/{route_}"] = dict(
-                shape=f"V-{Vw} ranker layer B={B} N={N_} H={H} D={D} V={Vw}", ms=ms_, err=err_,
-                plain_ms=plain_f if kname == "K1" else plain_b, work=works_[kname], peak=PEAK_3XTF32_FLOPS)
-        del q_, k_, v_, do_, want_f, want_b, got_
-    torch.cuda.empty_cache()
+                  f"{plain_:.4f} ms")
+            rows[f"{kname}/{route_}"] = dict(shape=f"{label} B={Bx} N={N_} H={H} D={Dx} V={Vx}", ms=ms_, err=err_,
+                                             plain_ms=plain_, work=work_, peak=PEAK_3XTF32_FLOPS)
+        del q_, k_, v_, do_, want_b, wants_
+        torch.cuda.empty_cache()
+        return rows
+
+    # the wide route's rows of the kernels line, at the layer shapes this
+    # phase gave them: K1-wide and K2-wide at the training shape, K3-wide and
+    # K4-wide at the deterministic one, at V 256
+    v256_rows = {}
+    for N_, lens_, nt_, kernels_ in ((N_tr, tr_len, tr_nt, ("K1", "K2")), (N_det, det_len, det_nt, ("K3", "K4"))):
+        v256_rows.update(layer_rows(
+            B, N_, lens_, nt_, D, Vw, kernels_, f"the V-{Vw} ranker's layer", "-wide",
+            lambda k_: hr.ha._fwd_plan(D, Vw, H, 0, 0, False, B, N_)["route"] if k_ == "K1" else "wide"))
+    # the widest-heads ranker's layer (the phase above at qk 3968 / linear
+    # 128, batch 8, the training batches' lengths): K2, K3 and K4 on the
+    # per-pair route; the rows of the kernels line for their main-path
+    # launches
+    XD, XV = 3968, 128
+    check(hr.ha._bwd_plan(XD, XV, H, WB_, N_tr)["route"] == "wide_chunks", "the widest layer's backward route")
+    x_rows = layer_rows(WB_, N_tr, tr_len[:WB_], tr_nt[:WB_], XD, XV, ("K2", "K3", "K4"),
+                        "the widest-heads ranker's layer", "", lambda k_: "wide_chunks")
 
     def small_step_grads(cfg_, coins=()):
         """One training forward and backward of a small ranker from one seed
@@ -3659,9 +3675,9 @@ def main() -> None:
         # the widest heads (`WIDEST`, past 16 blocks of two chunks of the wide
         # backward's clusters), B 1, H 1, N 300, a full row: K1, K1-bias and K6
         # on the forward's clusters (per chunk at D 4352 / V 64, past them),
-        # K2, K3 + K4, K7 and K7-det on the per-chunk route, both types,
-        # against their plain versions; K1, K1-bias, K3 + K4 and K7-det the
-        # same bits twice. Each route's float32 times at the first of these
+        # K2, K3 + K4, K7 and K7-det on the per-pair route (`wide_chunks`), both
+        # types, against their plain versions; K1, K1-bias, K2, K3 + K4, K7-det
+        # and K7's dq, dk and dv the same bits twice. Each route's float32 times at the first of these
         # shapes it takes are the rows of the main paths' launches on it (the
         # widest-heads phases).
         widest_rows = {}
@@ -3692,8 +3708,9 @@ def main() -> None:
                     got = hstu_mha_bwd_cuda(q_, k_, v_, x_len, do_, split=split, **a_)
                     errs_[kname] = [held(f"{kname}{tag} {g}", x_, w_, tol) for g, x_, w_ in zip(("dq", "dk", "dv"),
                                                                                                   got, want)]
-                again = hstu_mha_bwd_cuda(q_, k_, v_, x_len, do_, split=True, **a_)
-                check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K3 + K4{tag}: two runs differ")
+                    # the per-pair route writes every output whole: K2's the same bits too
+                    again = hstu_mha_bwd_cuda(q_, k_, v_, x_len, do_, split=split, **a_)
+                    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{kname}{tag}: two runs differ")
                 pw_, tw_ = bias_tables(xN, 128)
                 rargs = (q_, k_, v_, x_len, random_ts(xB, xN, x_len), pw_, tw_)
                 rkw = dict(alpha=1.0 if bf else Dw**-0.5, max_seq_len=xN, num_buckets=128)
@@ -3705,8 +3722,10 @@ def main() -> None:
                     errs_[kname] = [held(f"{kname}{tag} {g}", x_, w_, (DET_BF16_TABLE_TOL if bf and det else TABLE_TOL)
                                          if g.startswith("d") and g.endswith("_w") else tol)
                                     for g, x_, w_ in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want7)]
-                again = hstu_mha_relbias_bwd_cuda(*rargs, do_, deterministic=True, **rkw)
-                check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K7-det{tag}: two runs differ")
+                    # K7-det: every output the same bits; K7: dq, dk and dv (its tables are added with atomics)
+                    again = hstu_mha_relbias_bwd_cuda(*rargs, do_, deterministic=det, **rkw)
+                    check(all(torch.equal(a, b) for a, b in list(zip(got, again))[:5 if det else 3]),
+                          f"{kname}{tag}: two runs differ")
                 fwd_route = "wide" if hr.ha._wide_fwd_cluster(Dw, Vw) else "wide_chunks"
                 routes_ = (hr.ha._fwd_plan(Dw, Vw, xH, 0, 0, False, xB, xN, dt)["route"],
                            hr.ha._bwd_plan(Dw, Vw, xH, xB, xN, dt)["route"],
@@ -3749,6 +3768,35 @@ def main() -> None:
                         widest_rows[key] = dict(shape=shape, ms=ms, plain_ms=plain_ms, work=work, peak=peak, err=err)
                 del q_, k_, v_, do_, do_c, bias_, want, want7, got, again, rargs, timed
                 torch.cuda.empty_cache()
+        # a shape whose per-pair scratch crosses groups: B 2, H 1, N 4096 at D
+        # 3968 / V 128, float32, rows of 4096 and 3000; each (batch row, head)
+        # slab's P, dS and flags take 134 MB, two past the 256 MiB cap, so the
+        # slabs run in two groups on one scratch: K2, K3 + K4 and K7-det against
+        # the plain backward
+        cB, cN, cD, cV = 2, 4096, 3968, 128
+        c_plan = hr.ha._bwd_plan(cD, cV, 1, cB, cN)
+        print(f"per-pair groups: D={cD} V={cV} B={cB} N={cN} H=1, {c_plan['groups']} groups of "
+              f"{c_plan['group_slabs']} slab, scratch {c_plan['scratch_shape'][0] * 4} bytes")
+        check(c_plan["route"] == "wide_chunks" and c_plan["groups"] == 2, f"the group-crossing plan: {c_plan}")
+        c_len = torch.tensor([cN, 3000], device="cuda", dtype=torch.int32)
+        q_, k_, v_, do_ = views(cB, cN, 1, cD, cV, torch.float32)
+        a_ = dict(alpha=cD**-0.5, max_seq_len=cN)
+        want = hstu_mha_bwd_plain(q_, k_, v_, c_len, do_, **a_)
+        c_dead = torch.arange(cN, device="cuda")[None, :] >= c_len[:, None]
+        for kname, split in (("K2", False), ("K3 + K4", True)):
+            got = hstu_mha_bwd_cuda(q_, k_, v_, c_len, do_, split=split, **a_)
+            for g, x_, w_ in zip(("dq", "dk", "dv"), got, want):
+                held(f"{kname} in two groups {g}", x_, w_, REL_TOL, c_dead)
+        del want, got
+        pw_, tw_ = bias_tables(cN, 128)
+        rargs = (q_, k_, v_, c_len, random_ts(cB, cN, c_len), pw_, tw_)
+        rkw = dict(alpha=cD**-0.5, max_seq_len=cN, num_buckets=128)
+        want7 = hstu_mha_relbias_bwd_plain(*rargs, do_, **rkw)
+        got = hstu_mha_relbias_bwd_cuda(*rargs, do_, deterministic=True, **rkw)
+        for g, x_, w_ in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want7):
+            held(f"K7-det in two groups {g}", x_, w_, TABLE_TOL if g.endswith("_w") else REL_TOL)
+        del q_, k_, v_, do_, rargs, want7, got
+        torch.cuda.empty_cache()
 
         # the wide instances' times at V 256 and at D 512, B 4, N 2048, H 2
         tB, tN = 4, 2048
@@ -4055,6 +4103,7 @@ def main() -> None:
 
     lh_median, route_rows = every_shape_phases()
     route_rows.update(v256_rows)  # the V-256 ranker's wide rows
+    route_rows.update(x_rows)  # K2's, K3's and K4's at the widest-heads ranker's layer (their launches')
     route_rows.update(serve_rows)  # K1's at the --attn_dim 256 serving layer (most of its launches)
 
     # ------------------------------------------ deterministic research phase

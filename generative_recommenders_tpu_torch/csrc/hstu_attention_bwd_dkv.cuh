@@ -105,6 +105,10 @@ struct Params {
   // (null where alpha is 1) and bfloat16(dO / norm), contiguous
   E* qs = nullptr;
   E* dos = nullptr;
+  // the per-pair wide backward (route kWideChunks): its float32 scratch,
+  // the slabs of a group and the S / dP pass's splits, as planned
+  float* scratch = nullptr;
+  int group_slabs = 0, splits = 0;
 };
 
 // Per padded width W: query rows per step (BQ), key columns per block (BK),
@@ -422,9 +426,9 @@ cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
 // or K2-bf16's sums that the entry point rounds); bfloat16 after the
 // pre-scaling pass into the wrapper's qs and dos.
 //
-// kWideChunks (`chunks`): K4 is `hstu_wide::dkv_chunks_kernel`; K2 is
-// `hstu_wide::dq_chunks_kernel`, which writes the float32 dq buffer whole
-// (K2's dq, or K2-bf16's sums), then the same; no pre-scaling pass.
+// kWideChunks (`chunks`): the per-pair backward on the wrapper's scratch, its
+// gradient pass with dK and dV (K4), and dQ with FUSED (K2), written whole
+// into the float32 dq buffer (K2's dq, or K2-bf16's sums).
 template <bool FUSED, typename E>
 int launch_wide(const Params<E>& p, bool chunks, cudaStream_t stream) {
   hstu_wide::Params<E> w = hstu_wide::from<E>(p);
@@ -439,11 +443,10 @@ int launch_wide(const Params<E>& p, bool chunks, cudaStream_t stream) {
   w.qs = p.qs;
   w.dos = p.dos;
   if (chunks) {
-    if (FUSED) {
-      const cudaError_t err = hstu_wide::launch_dq_chunks<false, E, float>(w, stream);
-      if (err != cudaSuccess) return (int)err;
-    }
-    return (int)hstu_wide::launch_dkv_chunks<false, false, E>(w, stream);
+    w.scratch = p.scratch;
+    w.group_slabs = p.group_slabs;
+    w.splits = p.splits;
+    return (int)hstu_wide::launch_pairs<false, false, FUSED, true, E, float>(w, stream);
   }
   const cudaError_t err = hstu_wide::prescale(w, stream);
   if (err != cudaSuccess) return (int)err;
@@ -458,7 +461,7 @@ int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s);
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
 // body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128 padded
 // to the next of 32, 64, 128 (256 for D); kWide: the wide bodies on
-// clusters; kWideChunks: the per-chunk wide bodies. The Python
+// clusters; kWideChunks: the per-pair wide backward. The Python
 // wrapper decides the `vec_*` flags (pieces of 16 bytes).
 template <bool FUSED, typename E>
 int launch(const Params<E>& p, int route, void* stream) {

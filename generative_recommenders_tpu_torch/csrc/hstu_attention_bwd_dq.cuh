@@ -94,6 +94,10 @@ struct Params {
   // (null where alpha is 1) and bfloat16(dO / norm), contiguous
   T* qs = nullptr;
   T* dos = nullptr;
+  // the per-pair wide backward (route kWideChunks): its float32 scratch,
+  // the slabs of a group and the S / dP pass's splits, as planned
+  float* scratch = nullptr;
+  int group_slabs = 0, splits = 0;
 };
 
 // Per padded width W: query rows per block (BQ), key columns per step (BK),
@@ -325,8 +329,8 @@ cudaError_t launch_w(const Params<float>& p, cudaStream_t stream) {
 
 // The wide backward's dq pass (hstu_attention_wide.cuh) on the same
 // parameters; bfloat16 after the pre-scaling pass into the wrapper's qs and
-// dos; `chunks`: the per-chunk dq pass (`hstu_wide::dq_chunks_kernel`, no
-// pre-scaling pass)
+// dos; `chunks`: the per-pair wide backward with dQ alone, on the wrapper's
+// scratch
 template <typename T>
 int launch_wide(const Params<T>& p, bool chunks, cudaStream_t stream) {
   hstu_wide::Params<T> w = hstu_wide::from<T>(p);
@@ -338,7 +342,12 @@ int launch_wide(const Params<T>& p, bool chunks, cudaStream_t stream) {
   w.vec_do = p.vec_do;
   w.qs = p.qs;
   w.dos = p.dos;
-  if (chunks) return (int)hstu_wide::launch_dq_chunks<false, T, T>(w, stream);
+  if (chunks) {
+    w.scratch = p.scratch;
+    w.group_slabs = p.group_slabs;
+    w.splits = p.splits;
+    return (int)hstu_wide::launch_pairs<false, false, true, false, T, T>(w, stream);
+  }
   const cudaError_t err = hstu_wide::prescale(w, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)hstu_wide::launch_bwd<hstu_wide::kDqPass, false, false, false, T>(w, stream);
@@ -352,7 +361,7 @@ int launch_bf16(const Params<__nv_bfloat16>& p, cudaStream_t s);
 // plan's choice); returns the launch's cudaGetLastError(). kNarrow: this
 // body (on bfloat16 the bfloat16 body), D up to 256 and V up to 128 padded
 // to the next of 32, 64, 128 (256 for D); kWide: the wide body on clusters;
-// kWideChunks: the per-chunk wide body. The Python
+// kWideChunks: the per-pair wide backward. The Python
 // wrapper decides the `vec_*` flags (pieces of 16 bytes).
 template <typename T>
 int launch(const Params<T>& p, int route, void* stream) {

@@ -27,12 +27,19 @@
 //   (Q resident, K streamed) and of V's for O (V streamed, O in registers);
 // * the backward (`bwd_kernel`): one cluster per 64-row tile, each block one
 //   or two 128-column chunks of D or of V.
-// Route kWideChunks, for the widths no cluster takes (the forward past 16
-// blocks of 3 tiles of 128 columns, the backward past 16 blocks of two
-// chunks): the per-chunk bodies (`fwd_chunks_kernel`, `dq_chunks_kernel`,
-// `dkv_chunks_kernel`), a block per output chunk, which recompute S (and dP)
-// for each chunk, multiply in TF32 on float32 tiles (3xTF32 in float32, one
-// exact product on bfloat16 values) and whose loads wait; any width.
+// Route kWideChunks, for the widths no cluster takes, any width:
+// * the forward past 16 blocks of 3 tiles of 128 columns: the per-chunk body
+//   (`fwd_chunks_kernel`), a block per V chunk, which recomputes S for each
+//   chunk, multiplies in TF32 on float32 tiles (3xTF32 in float32, one exact
+//   product on bfloat16 values) and whose loads wait;
+// * the backward past 16 blocks of two chunks: the per-pair backward
+//   (`sdp_kernel`, `grad_kernel`, `tables_kernel`), S and dP formed once per
+//   64 x 64 tile pair and kept as P and dS in a float32 scratch, then a block
+//   per output tile and chunk forms dQ, dK or dV over them; copies in a ring
+//   of `cp.async` stages, 3xTF32 in float32, m16n8k16 on bfloat16
+//   (`ops/cuda/variants.py --wide-chunks-bwd` times it, run as a file on
+//   the card from two checkouts in turns; `--wide-chunks-bwd-variants` its
+//   knock-outs).
 // Tables and timestamps of the relative bias are read through the L1 cache,
 // never staged: a table of any length fits.
 // Bound: the kernels' own (the same functions); PERF.md has the times.
@@ -73,7 +80,7 @@ struct Params {
   const E* v;
   const E* dout;
   void* out;  // the forward: E, contiguous [B, N, H, V]
-  void* dq;   // the dq pass: E; the dkv pass with FUSED: a zeroed float32 buffer; `dq_chunks_kernel`: its DQ;
+  void* dq;   // the dq pass: E; the dkv pass with FUSED: a zeroed float32 buffer; `grad_kernel`: its DQT;
               // contiguous [B, N, H, D]
   E* dk;      // contiguous [B, N, H, D]
   E* dv;      // contiguous [B, N, H, V]
@@ -104,6 +111,10 @@ struct Params {
   // (where alpha != 1) and bfloat16(dO / norm)
   E* qs = nullptr;
   E* dos = nullptr;
+  // the per-pair backward (route kWideChunks): the wrapper's float32
+  // scratch, the slabs of a group and the S / dP pass's splits, as planned
+  float* scratch = nullptr;
+  int group_slabs = 0, splits = 0;
 };
 
 __host__ __device__ constexpr int chunks(int w) { return (w + kC - 1) / kC; }
@@ -111,25 +122,9 @@ __host__ __device__ constexpr int chunks(int w) { return (w + kC - 1) / kC; }
 // The per-chunk forward: Q [64][kP], K [32][kP], V [32][kC + 4]
 constexpr int kFwdRows = 64, kFwdCols = 32;
 constexpr int fwd_chunks_smem_bytes() { return 4 * (kFwdRows * kP + kFwdCols * kP + kFwdCols * (kC + 4)); }
-// The per-chunk dq pass: Q and dO [64][kP], K and V [32][kP], dS [64][32 + 8],
-// the warps' live flags
-constexpr int kDqRows = 64, kDqCols = 32;
-constexpr int dq_chunks_smem_bytes() {
-  return 4 * (2 * kDqRows * kP + 2 * kDqCols * kP + kDqRows * (kDqCols + 8) + kBwdThreads / 32);
-}
-// The per-chunk dkv pass: Q and dO [32][kP], K and V [64][kP], P and dS [32][64
-// + 8]; with the bias the float32 dS [32][72], the step's diagonal sums and
-// eight warps' copies of `dts_w`'s sums
-constexpr int kDkvRows = 32, kDkvCols = 64, kDkvDiags = kDkvRows + kDkvCols - 1;
-constexpr int dkv_chunks_smem_bytes(bool relbias) {
-  return 4 * (2 * kDkvRows * kP + 2 * kDkvCols * kP + 2 * kDkvRows * (kDkvCols + 8) +
-              (relbias ? kDkvRows * (kDkvCols + 8) + kDkvDiags + 1 + kBwdThreads / 32 * kTsSlots : 0));
-}
-static_assert(dkv_chunks_smem_bytes(true) <= kMaxShared && dq_chunks_smem_bytes() <= kMaxShared &&
-                  fwd_chunks_smem_bytes() <= kMaxShared,
-              "the tiles fit a block's shared memory");
+static_assert(fwd_chunks_smem_bytes() <= kMaxShared, "the tiles fit a block's shared memory");
 
-// The per-chunk bodies' loads: chunk c (columns c kC .. + kC) of one head's
+// The per-chunk forward's loads: chunk c (columns c kC .. + kC) of one head's
 // rows [r0, r0 + ROWS) into a [ROWS][P] float32 tile: float32
 // asynchronously, bfloat16 converted (scaled and rounded where scale != 1);
 // zeros at rows >= lim and columns >= w.
@@ -1531,23 +1526,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1) tile_fwd_kernel(Params<float> 
   }
 }
 
-// -------------------------------------------------------- per-chunk bodies
-// Route kWideChunks: the widths no cluster takes. The forward and the dq and
-// dkv passes of the backward, one block per output chunk; S = alpha Q K^T
-// and dP = dO V^T are summed over their chunks in registers before the bias,
-// silu and the mask, and recomputed by each output chunk's block. Q (or K)
-// and dO (or V) stay resident where they are one chunk wide; wider ones are
-// loaded chunk by chunk per tile, and every load waits. The products are
+// --------------------------------------------------- per-chunk forward
+// Route kWideChunks's forward: the widths no cluster takes, one block per
+// output chunk; S = alpha Q K^T is summed over D's chunks in registers
+// before the bias, silu and the mask, and recomputed by each V chunk's
+// block. Q stays resident where it is one chunk wide; a wider one is loaded
+// chunk by chunk per tile, and every load waits. The products are
 // `mma.sync.m16n8k8` TF32 on float32 tiles: 3xTF32 in float32, one exact
-// TF32 product on bfloat16 values (alpha q and dO / norm rounded on load, P
-// and dS rounded before their products). The relative-bias backward is the
-// two passes, as K7-det: `dq_chunks_kernel` with the bias writes dQ whole (no
-// atomics); in `dkv_chunks_kernel` with the bias the blocks of chunk 0 also
-// sum the table gradients, per step: `dpos_w` by diagonals of the step's dS,
-// `dts_w` per warp by shuffles into the warp's copy of the reachable buckets.
-// K7 adds both to the zeroed tables with atomics; K7-det writes them to the
-// block's row of `partial`, which the relative-bias kernel sums in block
-// order. The dense fused backward K2 is the same pair without the bias.
+// TF32 product on bfloat16 values (alpha q rounded on load, P rounded before
+// P V).
 // One block of 4 warps per (64-row query tile, head, batch row, V chunk):
 // each warp owns 16 query rows. Per 32-column key tile S is summed over D's
 // chunks, then P = silu(alpha S + bias) * mask stays in registers as the A
@@ -1702,493 +1689,601 @@ __global__ void __launch_bounds__(kThreads) fwd_chunks_kernel(Params<E> p) {
   }
 }
 
-// One block of 8 warps per (64-row query tile, head, batch row, dQ chunk):
-// warp w owns query rows (w / 2) 16 .. + 16 and, of each 32-column key tile,
-// columns (w % 2) 16 .. + 16 of S and dP, and of the block's dQ chunk
-// columns (w % 2) 64 .. + 64. Per key tile S is summed over D's chunks and
-// dP over V's, dS goes to shared memory, and dQ += dS K for the block's
-// chunk of K. DQ: the type dq is written in (float for a float32 buffer that
-// a second kernel rounds to bfloat16; else E).
-template <bool RELBIAS, typename E, typename DQ>
-__global__ void __launch_bounds__(kBwdThreads) dq_chunks_kernel(Params<E> p) {
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
-  constexpr int BQ = kDqRows, BK = kDqCols, NA = BK / 16, NQ = kC / 16, PS = BK + 8, T = kBwdThreads;
-  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;            // [64][kP]
-  float* dOs = Qs + BQ * kP;   // [64][kP]
-  float* Ks = dOs + BQ * kP;   // [32][kP]
-  float* Vs = Ks + BK * kP;    // [32][kP]
-  float* dSs = Vs + BK * kP;   // [64][PS]
-  int* part_live = reinterpret_cast<int*>(dSs + BQ * PS);  // [8]: the warps' parts of S that hold a live element
+// ------------------------------------------------------ per-pair backward
+// Route kWideChunks's backward: K2, K3, K4, K7 and K7-det past 16 blocks of
+// two chunks (the TPU kernels `_bwd_fused_kernel_rkv`, `_bwd_dq_kernel` and
+// `_bwd_dkv_kernel` of hstu_attention.py and `_bwd_kernel_relbias` of
+// hstu_attention_relbias.py, whose 3-D grids take any width). At these
+// widths S and dP (B H N^2 scalars) are small beside Q, K, V and dO (B N H
+// (2 D + 2 V)): P and dS of the widest-heads ranker's layer take 26 MB,
+// against its 281 MB of inputs, and fit the card's 50 MB L2. So S and dP are
+// formed once per (64-row query tile, 64-column key tile) pair and kept, as
+// P and dS, in a float32 scratch that the wrapper allocates; then the three
+// gradient products run over them, each block writing one output tile whole
+// (the same bits on every run, no atomics). The (batch row, head) slabs run
+// in groups whose scratch fits the plan's cap, one group after the other:
+// * `sdp_kernel`, a block per (pair, split, slab): S summed over D's columns
+//   and dP over V's, 64 columns a step from a ring of kSdpStages `cp.async`
+//   stages (the next steps' copies in flight while a step multiplies), each
+//   step's share in fresh accumulators added in float32 (summed in place
+//   across the chunks, dV drifted past 2e-5 of its max at D 3968); then per
+//   element the bias (K7, K7-det), silu and the mask, P and dS to the
+//   scratch and the pair's live flag. Where the pairs are too few to fill
+//   the card (fewer than kSplitTarget blocks), the steps are split across
+//   `splits` blocks, whose partial S and dP `sdp_sums_kernel` adds in split
+//   order (the same bits on every run) before the per-element work;
+// * `grad_kernel`, a block per (64-row output tile, 128-column chunk, slab):
+//   dQ = dS K over the query tile's key tiles ascending, dK = dS^T Q and dV =
+//   P^T dO over the key tile's query tiles ascending; the A tile (P or dS)
+//   and the chunk's B tile in two `cp.async` stages;
+// * `tables_kernel` (K7, K7-det), a block per (64-column key tile, slab):
+//   `dpos_w` by diagonals of each pair's float32 dS and `dts_w` per warp by
+//   shuffles into the warp's copy of the reachable buckets, walking the key
+//   tile's query tiles ascending; K7 adds both to the zeroed tables with
+//   atomics, K7-det writes them to the block's row of `partial`, which the
+//   relative-bias kernel sums in row order.
+// Every pass walks the same pairs: the tiles below the length, causal ones
+// skipping a query tile of no contextual row that lies wholly above its key
+// tile (`walked`), and of those the pairs with a live element (the flag).
+// float32 multiplies in 3xTF32; bfloat16 keeps bfloat16 tiles of Q, K, V and
+// dO (alpha q and dO / norm from the pre-scaling pass) and multiplies with
+// m16n8k16 (`ldmatrix` fragments; P and dS rounded to bfloat16 as their
+// fragments are formed), S, dP, the scratch and the outputs' sums float32.
+// Products per live pair and head: S 2 D and dP 2 V per element once; dQ 2
+// D, dK 2 D, dV 2 V: K2 and K7 2 (4 D + 2 V), K3 2 (2 D + V), K4 2 (3 D + 2 V).
+constexpr int kPT = 64;                  // rows and columns of a tile pair
+constexpr int kPK = 64;                  // columns of D or V an S / dP step takes
+constexpr int kPA = kPK + 8;             // pitch of its tiles and of the A tile (P or dS)
+constexpr int kPairFloats = kPT * kPT;   // a pair's P (or dS) in the scratch, [64][64]
+constexpr int kSdpStages = 3;            // the S / dP pass's ring
+constexpr int kGradStages = 2;           // the gradient pass's
+constexpr int kPairDiags = 2 * kPT - 1;  // diagonals of a pair
+// the S / dP pass's blocks aimed at where the pairs are few: two an SM of
+// the H100's 132 (the plan's splits mirror it)
+constexpr int kSplitTarget = 264;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp >> 1, wc = warp & 1;
-  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
-  const int n_qt = (p.N + BQ - 1) / BQ;
-  int blk = (int)blockIdx.x;
-  const int oc = blk % n_dc;
-  blk /= n_dc;
-  const int h = blk % p.H;
-  blk /= p.H;
-  const int b = blk % p.B;
-  const int row0 = (n_qt - 1 - blk / p.B) * BQ;
-  const int length = min(p.lengths[b], p.N);
-  const int nt = p.num_targets ? p.num_targets[b] : 0;
-  const int r_first = row0 + wr * 16;
+__host__ __device__ constexpr int sdp_steps(int D, int V) { return (D + kPK - 1) / kPK + (V + kPK - 1) / kPK; }
+// shared memory: the ring of (R, X) tiles of the element type; the A tile
+// (float32) and the B tile (a 128-column chunk of the element type) per
+// stage; the pair's dS [64][65], its diagonal sums, eight warps' copies of
+// `dts_w`'s sums
+constexpr int sdp_smem_bytes(int elem) { return kSdpStages * 2 * kPT * kPA * elem; }
+constexpr int grad_smem_bytes(int elem) { return kGradStages * (4 * kPT * kPA + elem * kPT * kP); }
+constexpr int tables_smem_bytes() { return 4 * (kPT * (kPT + 1) + 2 * kPT + kBwdThreads / 32 * kTsSlots); }
+static_assert(2 * (sdp_smem_bytes(4) + 1024) <= 233472 && 2 * (grad_smem_bytes(4) + 1024) <= 233472,
+              "two blocks an SM");
 
-  float acc[NQ][4];
-#pragma unroll
-  for (int j = 0; j < NQ; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+// A launch's view of the scratch, per group: P [tiles][64][64] and dS
+// [tiles][64][64] float32, the pairs' live flags [tiles] (int, padded to 4),
+// then with splits the parts [splits][tiles][2][64][64] (S, dP): 2 tiles
+// 4096 + ceil(tiles / 4) 4 (+ splits tiles 8192) floats, the wrapper's
+// `scratch_shape`; tiles = group_slabs qt^2, pair (qt_, kt) of the group's
+// slab sl at (sl qt + qt_) qt + kt.
+struct Pairs {
+  float* scratch;
+  long long tiles;
+  int qt;            // 64-row tiles of N
+  int slab0;         // the group's first slab (b H + h)
+  int splits, per;   // the S / dP steps split in `splits` runs of `per`
+};
 
-  if (row0 < length) {
-    const E* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const E* kb = p.k + b * p.k_sb + h * p.k_sh;
-    const E* vb = p.v + b * p.v_sb + h * p.v_sh;
-    const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
-    const int kv_end = p.causal && row0 >= p.contextual_seq_len ? min(length, row0 + BQ) : length;
-    const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
-    float tq[2] = {0.f, 0.f};
-    if (RELBIAS) {
-      tq[0] = ts_row(tsb, r_first + g, p.N);
-      tq[1] = ts_row(tsb, r_first + g + 8, p.N);
-    }
-    if (n_dc == 1) load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, row0, length, p.D, 0, p.vec_q != 0, q_scale);
-    if (n_vc == 1) load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, row0, length, p.V, 0, p.vec_do != 0, do_scale);
-    const int steps = max(n_dc, n_vc);
-    for (int col0 = 0; col0 < kv_end; col0 += BK) {
-      // element e = 4 j + c is row r_first + g + 8 (c / 2), column
-      // col0 + wc 16 + 8 j + 2 t + c % 2
-      uint32_t ok_bits = 0;
+// Whether every pass visits the pair: both tiles start below the length, and
+// no causal pair whose query tile holds no contextual row lies wholly above
+// the diagonal (every element dead)
+template <typename E>
+__device__ __forceinline__ bool walked(const Params<E>& p, int qt, int kt, int length) {
+  return qt * kPT < length && kt * kPT < length && !(p.causal && qt * kPT >= p.contextual_seq_len && qt < kt);
+}
+
+// The S / dP pass's 8 warps: warp w owns rows (w / 4) 32 .. + 32 and
+// columns (w % 4) 16 .. + 16 of the pair; its element e = 4 (2 m + j) + c is
+// row (w / 4) 32 + 16 m + g + 8 (c / 2), column (w % 4) 16 + 8 j + 2 t + c % 2.
+template <typename E>
+__device__ __forceinline__ uint32_t pair_ok_bits(const Params<E>& p, int r0, int c0, int length, int nt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  uint32_t ok_bits = 0;
 #pragma unroll
-      for (int j = 0; j < NA; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const bool ok =
-              live(p, r_first + g + 8 * (c >> 1), col0 + wc * 16 + 8 * j + 2 * t + (c & 1), length, nt);
-          ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
-        }
-      const bool dead = __all_sync(kFull, ok_bits == 0);
-      float s[NA][4], dp[NA][4];
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-      for (int c = 0; c < steps; ++c) {
-        __syncthreads();  // every warp is done with the tiles, dS and the flags
-        if (c < n_dc) {
-          if (n_dc > 1) load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, row0, length, p.D, c, p.vec_q != 0, q_scale);
-          load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, c, p.vec_k != 0, 1.f);
-        }
-        if (c < n_vc) {
-          if (n_vc > 1) load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, row0, length, p.V, c, p.vec_do != 0, do_scale);
-          load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, c, p.vec_v != 0, 1.f);
-        }
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (!dead) {
-          // each chunk's share in fresh accumulators, added in float32:
-          // summed in place across the chunks, dV drifted past 2e-5 of its
-          // max at D 3968
-          float sc[NA][4] = {}, dc[NA][4] = {};
-          if (c < n_dc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(Qs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(sc[j], a, load_b_nk(Ks, kP, wc * 16 + j * 8, ks * 8));
-            }
-          }
-          if (c < n_vc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(dOs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(dc[j], a, load_b_nk(Vs, kP, wc * 16 + j * 8, ks * 8));
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < NA; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e], dp[j][e] += dc[j][e];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NA; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          ds[c] = 0.f;
-          if ((ok_bits >> (4 * j + c)) & 1u) {
-            float x = s[j][c] * s_alpha;
-            if constexpr (RELBIAS) {
-              const int row = r_first + g + 8 * (c >> 1), col = col0 + wc * 16 + 8 * j + 2 * t + (c & 1);
-              int bucket;
-              x = fmaf(s[j][c], s_alpha, rel_bias(p, row, col, tq[c >> 1], ts_col(tsb, col, p.N), bucket));
-            }
-            const float sig = __fdividef(1.f, 1.f + __expf(-x));
-            ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
-          }
-          if constexpr (kBf16) ds[c] = round_bf16(ds[c]);  // dQ = dS K takes dS in bfloat16
-        }
-        const int at = (wr * 16 + g) * PS + wc * 16 + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
-        *reinterpret_cast<float2*>(dSs + at + 8 * PS) = make_float2(ds[2], ds[3]);
-      }
-      if (lane == 0) part_live[warp] = !dead;
-      __syncthreads();  // dS and the flags are whole, and every warp is past its reads of K
-      if (n_dc > 1 && oc != n_dc - 1) {  // K's chunk of the block's dQ columns
-        load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, oc, p.vec_k != 0, 1.f);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-      }
-      if (part_live[2 * wr] || part_live[2 * wr + 1]) {  // a live element in the warp's rows
-        const int col_steps = (min(BK, length - col0) + 7) / 8;
-#pragma unroll
-        for (int n0 = 0; n0 < NQ; n0 += 4) {
-          float part[4][4];
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
-          for (int ks = 0; ks < col_steps; ++ks) {
-            const FragA a = load_a(dSs, PS, wr * 16, ks * 8);
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              mma<kBf16>(part[n], a, load_b_kn<true>(Ks, kP, ks * 8, wc * 64 + (n0 + n) * 8));
-          }
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
-        }
-      }
-    }
+  for (int e = 0; e < 16; ++e) {
+    const int row = r0 + (warp >> 2) * 32 + 16 * (e >> 3) + g + 8 * ((e & 3) >> 1);
+    const int col = c0 + (warp & 3) * 16 + 8 * ((e >> 2) & 1) + 2 * t + (e & 1);
+    ok_bits |= (live(p, row, col, length, nt) ? 1u : 0u) << e;
   }
+  return ok_bits;
+}
 
-  // every element of the chunk's columns in the tile's rows: zeros at rows
-  // past the length
+// x of a warp's part into (STORE) or added from (else) a [64][64] tile
+template <bool STORE>
+__device__ __forceinline__ void pair_io(float* tile, float (&x)[2][2][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r_first + g + 8 * i;
-    if (row >= p.N) continue;
-    const float scale = row < length ? p.alpha : 0.f;
-    DQ* dst = static_cast<DQ*>(p.dq) + (((long long)b * p.N + row) * p.H + h) * p.D;
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
-      store2(dst, oc * kC + wc * 64 + 8 * j + 2 * t, p.D, scale * acc[j][2 * i], scale * acc[j][2 * i + 1]);
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float2* at = reinterpret_cast<float2*>(tile + ((warp >> 2) * 32 + 16 * m + g + 8 * i) * kPT + (warp & 3) * 16 +
+                                               8 * j + 2 * t);
+        if constexpr (STORE) {
+          *at = make_float2(x[m][j][2 * i], x[m][j][2 * i + 1]);
+        } else {
+          const float2 v = *at;
+          x[m][j][2 * i] += v.x;
+          x[m][j][2 * i + 1] += v.y;
+        }
+      }
+}
+
+// The per-element work of a live pair: P = silu(x) and dS = dP silu'(x)
+// with x = alpha S (+ the bias), zeros where the mask is 0; P, dS and the
+// flag to the scratch. bfloat16: alpha and 1 / norm are in alpha q and dO /
+// norm already.
+template <bool RELBIAS, typename E>
+__device__ __forceinline__ void pair_finish(const Params<E>& p, const Pairs& w, long long tile,
+                                            float (&s)[2][2][4], float (&dp)[2][2][4], uint32_t ok_bits, int b,
+                                            int r0, int c0) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int m = e >> 3, j = (e >> 2) & 1, c = e & 3;
+    float pv = 0.f, ds = 0.f;
+    if ((ok_bits >> e) & 1u) {
+      float x = s[m][j][c] * s_alpha;
+      if constexpr (RELBIAS) {
+        const int row = r0 + (warp >> 2) * 32 + 16 * m + g + 8 * (c >> 1);
+        const int col = c0 + (warp & 3) * 16 + 8 * j + 2 * t + (c & 1);
+        int bucket;
+        x = fmaf(s[m][j][c], s_alpha, rel_bias(p, row, col, ts_row(tsb, row, p.N), ts_col(tsb, col, p.N), bucket));
+      }
+      const float sig = __fdividef(1.f, 1.f + __expf(-x));
+      pv = x * sig;
+      ds = dp[m][j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
+    }
+    s[m][j][c] = pv;
+    dp[m][j][c] = ds;
+  }
+  pair_io<true>(w.scratch + tile * kPairFloats, s);
+  pair_io<true>(w.scratch + (w.tiles + tile) * kPairFloats, dp);
+  if (threadIdx.x == 0) reinterpret_cast<int*>(w.scratch + 2 * w.tiles * kPairFloats)[tile] = 1;
+}
+
+// acc += R X^T over one 64-column step for the warp's 32 x 16 part
+__device__ __forceinline__ void sdp_product(float (&acc)[2][2][4], const float* R, const float* X, int wr, int wc) {
+#pragma unroll
+  for (int ks = 0; ks < kPK / 8; ++ks) {
+    const FragA a0 = load_a(R, kPA, wr * 32, ks * 8), a1 = load_a(R, kPA, wr * 32 + 16, ks * 8);
+    const FragB b0 = load_b_nk(X, kPA, wc * 16, ks * 8), b1 = load_b_nk(X, kPA, wc * 16 + 8, ks * 8);
+    mma3(acc[0][0], a0, b0);
+    mma3(acc[0][1], a0, b1);
+    mma3(acc[1][0], a1, b0);
+    mma3(acc[1][1], a1, b1);
+  }
+}
+__device__ __forceinline__ void sdp_product(float (&acc)[2][2][4], const __nv_bfloat16* R, const __nv_bfloat16* X,
+                                            int wr, int wc) {
+#pragma unroll
+  for (int ks = 0; ks < kPK / 16; ++ks) {
+    uint32_t a0[4], a1[4], b[4];
+    hstu_bf16::ldsm(a0, hstu_bf16::a_at(R, kPA, wr * 32, ks * 16));
+    hstu_bf16::ldsm(a1, hstu_bf16::a_at(R, kPA, wr * 32 + 16, ks * 16));
+    hstu_bf16::ldsm(b, hstu_bf16::b_nk_at(X, kPA, wc * 16, ks * 16));
+    hstu_bf16::mma(acc[0][0], a0, b[0], b[1]);
+    hstu_bf16::mma(acc[0][1], a0, b[2], b[3]);
+    hstu_bf16::mma(acc[1][0], a1, b[0], b[1]);
+    hstu_bf16::mma(acc[1][1], a1, b[2], b[3]);
   }
 }
 
-// One block of 8 warps per (64-column key tile, head, batch row, output
-// chunk): chunks 0 .. n_vc - 1 are dV's, the rest dK's. Per 32-row query
-// step warp w computes rows (w / 4) 16 .. + 16 by columns (w % 4) 16 .. + 16
-// of S (summed over D's chunks) and dP (over V's) and writes P and dS to
-// shared memory; then it sums dV += P^T dO or dK += dS^T Q for key rows
-// (w / 2) 16 .. + 16 and columns (w % 2) 64 .. + 64 of the block's chunk.
-// RELBIAS: the bias added to S, and the blocks of chunk 0 sum the table
-// gradients; DET: those sums to the block's row of `partial` in a fixed order.
-template <bool RELBIAS, bool DET, typename E>
-__global__ void __launch_bounds__(kBwdThreads) dkv_chunks_kernel(Params<E> p) {
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
-  constexpr int BQ = kDkvRows, BK = kDkvCols, NA = 2, NO = kC / 16, PS = BK + 8, T = kBwdThreads;
-  constexpr int NW = T / 32;
-  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float do_scale = kBf16 ? round_bf16(p.inv_norm) : 1.f;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // [32][kP]
-  float* dOs = Qs + BQ * kP;    // [32][kP]
-  float* Ks = dOs + BQ * kP;    // [64][kP]
-  float* Vs = Ks + BK * kP;     // [64][kP]
-  float* Ps = Vs + BK * kP;     // [32][PS]
-  float* dSs = Ps + BQ * PS;    // [32][PS]
-  float* Ts = dSs + BQ * PS;    // RELBIAS: dS in float32 [32][PS]
-  float* diag = Ts + BQ * PS;   // RELBIAS: the step's diagonal sums [kDkvDiags + 1]
-  float* dts_s = diag + kDkvDiags + 1;  // RELBIAS: `dts_w`'s sums, one copy per warp [8][kTsSlots]
+// Columns [c, c + 64) of one head's rows [r0, r0 + 64) of width w into a
+// [64][kPA] tile of the element type: zeros at rows >= lim and columns >= w
+__device__ __forceinline__ void load_step(float* dst, const float* src, long long sn, int r0, int lim, int w, int c,
+                                          bool vec) {
+  load_tile<kPK, kPA, kPT, kBwdThreads>(dst, src + c, sn, r0, lim, w - c, vec);
+}
+__device__ __forceinline__ void load_step(__nv_bfloat16* dst, const __nv_bfloat16* src, long long sn, int r0, int lim,
+                                          int w, int c, bool vec) {
+  hstu_bf16::load_rows<kPK, kPA, kPT, kBwdThreads>(dst, src + c, sn, r0, lim, w - c, vec);
+}
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = warp >> 2, wc = warp & 3;  // S and dP: query rows wr 16 .., key columns wc 16 ..
-  const int am = warp >> 1, an = (warp & 1) * 64;  // dV / dK: key rows am 16 .., columns an ..
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The S / dP pass: a block per (pair, split, slab of the group), pairs
+// ordered (slab, split, query tile, key tile). PARTS: the block sums steps
+// [split per, + per) and stores its partial S and dP; else every step, then
+// the per-element work.
+template <bool RELBIAS, bool PARTS, typename E>
+__global__ void __launch_bounds__(kBwdThreads, 2) sdp_kernel(Params<E> p, Pairs w) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* ring = reinterpret_cast<E*>(smem_raw);  // [kSdpStages][2][64][kPA]: R (Q or dO), X (K or V)
+  const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
+  long long blk = blockIdx.x;
+  const int kt = (int)(blk % w.qt);
+  blk /= w.qt;
+  const int qt = (int)(blk % w.qt);
+  blk /= w.qt;
+  const int sp = (int)(blk % w.splits);
+  const int sl = (int)(blk / w.splits);
+  const int slab = w.slab0 + sl, b = slab / p.H, h = slab % p.H;
+  const int length = min(p.lengths[b], p.N);
+  if (!walked(p, qt, kt, length)) return;
+  const int nt = p.num_targets ? p.num_targets[b] : 0;
+  const int r0 = qt * kPT, c0 = kt * kPT;
+  const long long tile = ((long long)sl * w.qt + qt) * w.qt + kt;
+  const uint32_t ok_bits = pair_ok_bits(p, r0, c0, length, nt);
+  if (!__syncthreads_or(ok_bits != 0)) {  // a dead pair: its flag 0 (the sums' kernel's with PARTS)
+    if (!PARTS && threadIdx.x == 0) reinterpret_cast<int*>(w.scratch + 2 * w.tiles * kPairFloats)[tile] = 0;
+    return;
+  }
+  const bool dead = __all_sync(kFull, ok_bits == 0);  // the warp's part
+  const E* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const E* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const E* vb = p.v + b * p.v_sb + h * p.v_sh;
+  const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
+  const int n_ds = (p.D + kPK - 1) / kPK, n_steps = n_ds + (p.V + kPK - 1) / kPK;
+  const int u0 = PARTS ? min(sp * w.per, n_steps) : 0, u1 = PARTS ? min(u0 + w.per, n_steps) : n_steps;
+  auto issue = [&](int u, int stage) {
+    E* R = ring + stage * 2 * kPT * kPA;
+    E* X = R + kPT * kPA;
+    if (u < n_ds) {
+      load_step(R, qb, p.q_sn, r0, length, p.D, u * kPK, p.vec_q != 0);
+      load_step(X, kb, p.k_sn, c0, length, p.D, u * kPK, p.vec_k != 0);
+    } else {
+      load_step(R, ob, p.do_sn, r0, length, p.V, (u - n_ds) * kPK, p.vec_do != 0);
+      load_step(X, vb, p.v_sn, c0, length, p.V, (u - n_ds) * kPK, p.vec_v != 0);
+    }
+  };
+  float s[2][2][4] = {}, dp[2][2][4] = {};
+#pragma unroll
+  for (int i = 0; i < kSdpStages - 1; ++i) {
+    if (u0 + i < u1) issue(u0 + i, i);
+    cp_async_commit();
+  }
+  for (int u = u0; u < u1; ++u) {
+    cp_async_wait<kSdpStages - 2>();
+    __syncthreads();  // step u's tiles are in place; every warp is done with step u - 1's stage
+    if (u + kSdpStages - 1 < u1) issue(u + kSdpStages - 1, (u + kSdpStages - 1 - u0) % kSdpStages);
+    cp_async_commit();
+    if (!dead) {
+      const E* R = ring + ((u - u0) % kSdpStages) * 2 * kPT * kPA;
+      float acc[2][2][4] = {};
+      sdp_product(acc, R, R + kPT * kPA, wr, wc);
+      if (u < n_ds) {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) s[m][j][c] += acc[m][j][c];
+      } else {
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) dp[m][j][c] += acc[m][j][c];
+      }
+    }
+  }
+  if constexpr (PARTS) {
+    float* part = w.scratch + 2 * w.tiles * kPairFloats + (w.tiles + 3) / 4 * 4 +
+                  ((long long)sp * w.tiles + tile) * 2 * kPairFloats;
+    pair_io<true>(part, s);
+    pair_io<true>(part + kPairFloats, dp);
+  } else {
+    pair_finish<RELBIAS>(p, w, tile, s, dp, ok_bits, b, r0, c0);
+  }
+}
+
+// The split S / dP pass's sums: a block per (pair, slab of the group) adds
+// the splits' parts in split order, then the per-element work.
+template <bool RELBIAS, typename E>
+__global__ void __launch_bounds__(kBwdThreads) sdp_sums_kernel(Params<E> p, Pairs w) {
+  long long blk = blockIdx.x;
+  const int kt = (int)(blk % w.qt);
+  blk /= w.qt;
+  const int qt = (int)(blk % w.qt);
+  const int sl = (int)(blk / w.qt);
+  const int slab = w.slab0 + sl, b = slab / p.H;
+  const int length = min(p.lengths[b], p.N);
+  if (!walked(p, qt, kt, length)) return;
+  const int nt = p.num_targets ? p.num_targets[b] : 0;
+  const int r0 = qt * kPT, c0 = kt * kPT;
+  const long long tile = ((long long)sl * w.qt + qt) * w.qt + kt;
+  const uint32_t ok_bits = pair_ok_bits(p, r0, c0, length, nt);
+  if (!__syncthreads_or(ok_bits != 0)) {
+    if (threadIdx.x == 0) reinterpret_cast<int*>(w.scratch + 2 * w.tiles * kPairFloats)[tile] = 0;
+    return;
+  }
+  float s[2][2][4] = {}, dp[2][2][4] = {};
+  const float* parts = w.scratch + 2 * w.tiles * kPairFloats + (w.tiles + 3) / 4 * 4;
+  for (int sp = 0; sp < w.splits; ++sp) {
+    float* part = const_cast<float*>(parts) + ((long long)sp * w.tiles + tile) * 2 * kPairFloats;
+    pair_io<false>(part, s);
+    pair_io<false>(part + kPairFloats, dp);
+  }
+  pair_finish<RELBIAS>(p, w, tile, s, dp, ok_bits, b, r0, c0);
+}
+
+// The bfloat16 A fragment (m16n8k16) of a float32 [m][k] tile at (m0, k0),
+// and of the transpose of a float32 [k][m] tile (A[m][k] = X[k][m]): each
+// pair rounded to bfloat16 as it is packed
+__device__ __forceinline__ void frag_a_bf16(uint32_t (&a)[4], const float* X, int pitch, int m0, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* x = X + (m0 + g) * pitch + k0 + 2 * t;
+  const float2 v0 = *reinterpret_cast<const float2*>(x), v1 = *reinterpret_cast<const float2*>(x + 8 * pitch);
+  const float2 v2 = *reinterpret_cast<const float2*>(x + 8), v3 = *reinterpret_cast<const float2*>(x + 8 * pitch + 8);
+  a[0] = hstu_bf16::pack(v0.x, v0.y);
+  a[1] = hstu_bf16::pack(v1.x, v1.y);
+  a[2] = hstu_bf16::pack(v2.x, v2.y);
+  a[3] = hstu_bf16::pack(v3.x, v3.y);
+}
+__device__ __forceinline__ void frag_a_t_bf16(uint32_t (&a)[4], const float* X, int pitch, int m0, int k0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* x = X + (k0 + 2 * t) * pitch + m0 + g;
+  a[0] = hstu_bf16::pack(x[0], x[pitch]);
+  a[1] = hstu_bf16::pack(x[8], x[pitch + 8]);
+  a[2] = hstu_bf16::pack(x[8 * pitch], x[9 * pitch]);
+  a[3] = hstu_bf16::pack(x[8 * pitch + 8], x[9 * pitch + 8]);
+}
+
+// acc += A B over one 64-deep step for the warp's 32 x 32 part (rows wr 32
+// .., columns wc 32 ..) of a 64 x 128 output tile: A the [64][kPA] copy of a
+// scratch tile (TRANS: its transpose, dS^T or P^T), B the chunk's [64][kP]
+// tile. float32: the step's share summed in fresh accumulators, then added
+// in float32 (summed across the walk in place, dK at N 4096 drifted past
+// 2e-5 of its max); bfloat16 (its outputs rounded to 8 bits) in place.
+template <bool TRANS>
+__device__ __forceinline__ void grad_product(float (&acc)[2][4][4], const float* A, const float* Bt, int wr, int wc) {
+  float part[2][4][4] = {};
+#pragma unroll 2
+  for (int ks = 0; ks < kPT / 8; ++ks) {
+    FragA a[2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      a[m] = TRANS ? load_a_t(A, kPA, wr * 32 + 16 * m, ks * 8) : load_a(A, kPA, wr * 32 + 16 * m, ks * 8);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const FragB bf = TRANS ? load_b_kn<false>(Bt, kP, ks * 8, wc * 32 + 8 * n)
+                             : load_b_kn<true>(Bt, kP, ks * 8, wc * 32 + 8 * n);
+      mma3(part[0][n], a[0], bf);
+      mma3(part[1][n], a[1], bf);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[m][n][c] += part[m][n][c];
+}
+template <bool TRANS>
+__device__ __forceinline__ void grad_product(float (&acc)[2][4][4], const float* A, const __nv_bfloat16* Bt, int wr,
+                                             int wc) {
+#pragma unroll
+  for (int ks = 0; ks < kPT / 16; ++ks) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (TRANS)
+        frag_a_t_bf16(a[m], A, kPA, wr * 32 + 16 * m, ks * 16);
+      else
+        frag_a_bf16(a[m], A, kPA, wr * 32 + 16 * m, ks * 16);
+    }
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t bf[4];
+      hstu_bf16::ldsm_t(bf, hstu_bf16::b_kn_at(Bt, kP, ks * 16, wc * 32 + 16 * np));
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        hstu_bf16::mma(acc[m][2 * np], a[m], bf[0], bf[1]);
+        hstu_bf16::mma(acc[m][2 * np + 1], a[m], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The gradient pass: a block per (64-row output tile, 128-column chunk, slab
+// of the group); per slab DQ's blocks (query tile, D chunk), then DKV's: dK's
+// (key tile, D chunk) and dV's (key tile, V chunk), the chunk fastest. The
+// block walks its tile's live pairs ascending, A (dS or P) and B (K's, Q's
+// or dO's chunk of the other tile's rows) in kGradStages stages, and writes
+// its tile whole: zeros past the length. DQT: dq's type (float for K2's and
+// K7's float32 buffer, else E).
+template <bool DQ, bool DKV, typename E, typename DQT>
+__global__ void __launch_bounds__(kBwdThreads, 2) grad_kernel(Params<E> p, Pairs w) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
+  constexpr int kStage = 4 * kPT * kPA + (int)sizeof(E) * kPT * kP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
+  const int wr = warp >> 2, wc = warp & 3;
   const int n_dc = chunks(p.D), n_vc = chunks(p.V);
-  int blk = (int)blockIdx.x;
-  const int oc = blk % (n_vc + n_dc);
-  blk /= n_vc + n_dc;
-  const int h = blk % p.H;
-  blk /= p.H;
-  const int b = blk % p.B;
-  const int kt = blk / p.B;
-  const int col0 = kt * BK;
+  const int q_blocks = DQ ? w.qt * n_dc : 0;
+  const int per_slab = q_blocks + (DKV ? w.qt * (n_dc + n_vc) : 0);
+  const int sl = (int)(blockIdx.x / (unsigned)per_slab);
+  int r = (int)(blockIdx.x % (unsigned)per_slab);
+  int kind = 0;  // 0 dQ, 1 dK, 2 dV
+  if (r >= q_blocks) {
+    r -= q_blocks;
+    kind = r < w.qt * n_dc ? 1 : 2;
+    if (kind == 2) r -= w.qt * n_dc;
+  }
+  const int nch = kind == 2 ? n_vc : n_dc;
+  const int ot = r / nch, oc = r % nch;
+  const int slab = w.slab0 + sl, b = slab / p.H, h = slab % p.H;
+  const int length = min(p.lengths[b], p.N);
+  const float* A_src = w.scratch + (kind == 2 ? 0 : w.tiles * kPairFloats);  // P or dS
+  const int* flags = reinterpret_cast<const int*>(w.scratch + 2 * w.tiles * kPairFloats);
+  const E* B_src = kind == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                             : kind == 1 ? p.q + b * p.q_sb + h * p.q_sh : p.dout + b * p.do_sb + h * p.do_sh;
+  const long long b_sn = kind == 0 ? p.k_sn : kind == 1 ? p.q_sn : p.do_sn;
+  const bool b_vec = (kind == 0 ? p.vec_k : kind == 1 ? p.vec_q : p.vec_do) != 0;
+  const int width = kind == 2 ? p.V : p.D;
+  const long long tile0 = (long long)sl * w.qt * w.qt;
+  // the walk's pair with other tile o: (ot, o) for dQ, (o, ot) for dK and dV
+  auto pair_of = [&](int o) { return kind == 0 ? tile0 + (long long)ot * w.qt + o : tile0 + (long long)o * w.qt + ot; };
+  auto next = [&](int o) {
+    for (; o < w.qt; ++o)
+      if ((kind == 0 ? walked(p, ot, o, length) : walked(p, o, ot, length)) && flags[pair_of(o)] != 0) break;
+    return o;
+  };
+  auto issue = [&](int o, int stage) {
+    float* As = reinterpret_cast<float*>(smem_raw + stage * kStage);
+    E* Bs = reinterpret_cast<E*>(smem_raw + stage * kStage + 4 * kPT * kPA);
+    const float* src = A_src + pair_of(o) * kPairFloats;
+    for (int idx = threadIdx.x; idx < kPT * kPT / 4; idx += kBwdThreads) {
+      const int rr = idx / (kPT / 4), cc = idx % (kPT / 4) * 4;
+      cp_async16(As + rr * kPA + cc, src + rr * kPT + cc, true);
+    }
+    load_rows<kPT>(Bs, B_src, b_sn, o * kPT, length, width, oc, b_vec);
+  };
+  float acc[2][4][4] = {};
+  int o = next(0), stage = 0;
+  if (o < w.qt) issue(o, 0);
+  cp_async_commit();
+  while (o < w.qt) {
+    const int on = next(o + 1);
+    if (on < w.qt) issue(on, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this step's tiles are in place
+    const float* As = reinterpret_cast<const float*>(smem_raw + stage * kStage);
+    const E* Bs = reinterpret_cast<const E*>(smem_raw + stage * kStage + 4 * kPT * kPA);
+    if (kind == 0)
+      grad_product<false>(acc, As, Bs, wr, wc);
+    else
+      grad_product<true>(acc, As, Bs, wr, wc);
+    __syncthreads();  // every warp is done with the stage the next issue fills
+    o = on;
+    stage ^= 1;
+  }
+  const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = ot * kPT + wr * 32 + 16 * m + g + 8 * i;
+      if (row >= p.N) continue;
+      const long long at = (((long long)b * p.N + row) * p.H + h) * width;
+      const float scale = kind == 0 ? (row < length ? p.alpha : 0.f) : kind == 1 ? s_alpha : dp_scale;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = oc * kC + wc * 32 + 8 * n + 2 * t;
+        const float x0 = scale * acc[m][n][2 * i], x1 = scale * acc[m][n][2 * i + 1];
+        if (kind == 0)
+          store2(static_cast<DQT*>(p.dq) + at, col, width, x0, x1);
+        else
+          store2((kind == 1 ? p.dk : p.dv) + at, col, width, x0, x1);
+      }
+    }
+}
+
+// The relative bias's table sums: a block per (64-column key tile, slab of
+// the group) walks its key tile's live pairs, query tiles ascending, over
+// the float32 dS in the scratch (warp w rows 8 w .. + 8 of a pair, lane l
+// columns l and l + 32): `dpos_w` by the pair's 127 diagonals, `dts_w` per
+// warp by shuffles into the warp's copy of the reachable buckets (no
+// atomics); K7 adds both to the zeroed tables with atomics, K7-det writes
+// them to the block's row of `partial` ((key tile, head, batch row) in that
+// order), each entry in the walk's order.
+template <bool DET, typename E>
+__global__ void __launch_bounds__(kBwdThreads) tables_kernel(Params<E> p, Pairs w) {
+  extern __shared__ __align__(16) float smem[];
+  float* Ts = smem;                        // the pair's dS [64][65]
+  float* diag = Ts + kPT * (kPT + 1);      // its diagonal sums [128]
+  float* dts_s = diag + 2 * kPT;           // `dts_w`'s sums, one copy per warp [8][kTsSlots]
+  constexpr int NW = kBwdThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kt = (int)(blockIdx.x % (unsigned)w.qt), sl = (int)(blockIdx.x / (unsigned)w.qt);
+  const int slab = w.slab0 + sl, b = slab / p.H, h = slab % p.H;
   const int length = min(p.lengths[b], p.N);
   const int nt = p.num_targets ? p.num_targets[b] : 0;
-  const bool is_dv = oc < n_vc;
-  const int och = is_dv ? oc : oc - n_vc;  // the chunk of dV or dK
-  const bool tables = RELBIAS && oc == 0;
-  const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1;
-  const int n_slots = min(n_ts, kTsSlots);
-  float* prow = DET && tables ? p.partial + ((long long)kt * p.H * p.B + (long long)h * p.B + b) * (n_pos + n_ts)
-                              : nullptr;
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  if (col0 < length) {
-    const E* qb = p.q + b * p.q_sb + h * p.q_sh;
-    const E* kb = p.k + b * p.k_sb + h * p.k_sh;
-    const E* vb = p.v + b * p.v_sb + h * p.v_sh;
-    const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
-    const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
-    if (tables) {
-      for (int idx = threadIdx.x; idx < NW * kTsSlots; idx += T) dts_s[idx] = 0.f;
-      if (DET)
-        for (int idx = threadIdx.x; idx < n_pos; idx += T) prow[idx] = 0.f;
-    }
-    if (n_dc == 1) load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, 0, p.vec_k != 0, 1.f);
-    if (n_vc == 1) load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, 0, p.vec_v != 0, 1.f);
-    // the key-side timestamps of the thread's four columns
-    float tk[NA][2];
-#pragma unroll
-    for (int j = 0; j < NA; ++j)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) tk[j][c] = RELBIAS ? ts_col(tsb, col0 + wc * 16 + 8 * j + 2 * t + c, p.N) : 0.f;
-    // causal: the walk takes the query tiles of the contextual rows (which
-    // see every column below the target boundary), then those from the key
-    // tile's own on
-    const bool causal = p.causal != 0;
-    const int ctx_end = causal ? (p.contextual_seq_len + BQ - 1) / BQ * BQ : 0;
-    auto skip_to_diagonal = [&](int r) { return causal && r >= ctx_end && r < col0 ? col0 : r; };
-    const int steps = max(n_dc, n_vc);
-    float* my_dts = dts_s + warp * kTsSlots;
-    for (int r0 = skip_to_diagonal(0); r0 < length; r0 = skip_to_diagonal(r0 + BQ)) {
-      // element e = 4 j + c is row r0 + wr 16 + g + 8 (c / 2), column
-      // col0 + wc 16 + 8 j + 2 t + c % 2
-      uint32_t ok_bits = 0;
-      float bias[RELBIAS ? 4 * NA : 1];
-      int slot[RELBIAS ? 4 * NA : 1];
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int e = 4 * j + c;
-          const int row = r0 + wr * 16 + g + 8 * (c >> 1), col = col0 + wc * 16 + 8 * j + 2 * t + (c & 1);
-          const bool ok = live(p, row, col, length, nt);
-          ok_bits |= (ok ? 1u : 0u) << e;
-          if constexpr (RELBIAS) {
-            int bucket = 0;
-            bias[e] = ok ? rel_bias(p, row, col, ts_row(tsb, row, p.N), tk[j][c & 1], bucket) : 0.f;
-            slot[e] = min(bucket, n_slots - 1);
-          }
-        }
-      const bool dead = __all_sync(kFull, ok_bits == 0);
-      float s[NA][4], dp[NA][4];
-#pragma unroll
-      for (int j = 0; j < NA; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
-      for (int c = 0; c < steps; ++c) {
-        __syncthreads();  // every warp is done with the tiles, P, dS and the sums
-        if (c < n_dc) {
-          load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, r0, length, p.D, c, p.vec_q != 0, q_scale);
-          if (n_dc > 1) load_chunk<kP, BK, T>(Ks, kb, p.k_sn, col0, length, p.D, c, p.vec_k != 0, 1.f);
-        }
-        if (c < n_vc) {
-          load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, r0, length, p.V, c, p.vec_do != 0, do_scale);
-          if (n_vc > 1) load_chunk<kP, BK, T>(Vs, vb, p.v_sn, col0, length, p.V, c, p.vec_v != 0, 1.f);
-        }
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        if (!dead) {
-          // each chunk's share in fresh accumulators, added in float32:
-          // summed in place across the chunks, dV drifted past 2e-5 of its
-          // max at D 3968
-          float sc[NA][4] = {}, dc[NA][4] = {};
-          if (c < n_dc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(Qs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(sc[j], a, load_b_nk(Ks, kP, wc * 16 + j * 8, ks * 8));
-            }
-          }
-          if (c < n_vc) {
-#pragma unroll 4
-            for (int ks = 0; ks < kC / 8; ++ks) {
-              const FragA a = load_a(dOs, kP, wr * 16, ks * 8);
-#pragma unroll
-              for (int j = 0; j < NA; ++j) mma<kBf16>(dc[j], a, load_b_nk(Vs, kP, wc * 16 + j * 8, ks * 8));
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < NA; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[j][e] += sc[j][e], dp[j][e] += dc[j][e];
-        }
-      }
-      float dsf[RELBIAS ? 4 * NA : 1];
-#pragma unroll
-      for (int j = 0; j < NA; ++j) {
-        float pv[4], ds[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int e = 4 * j + c;
-          pv[c] = ds[c] = 0.f;
-          if ((ok_bits >> e) & 1u) {
-            const float x = RELBIAS ? fmaf(s[j][c], s_alpha, bias[RELBIAS ? e : 0]) : s[j][c] * s_alpha;
-            const float sig = __fdividef(1.f, 1.f + __expf(-x));
-            pv[c] = x * sig;
-            ds[c] = dp[j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
-          }
-          if constexpr (RELBIAS) dsf[e] = ds[c];
-          if constexpr (kBf16) {  // the products take P and dS in bfloat16
-            pv[c] = round_bf16(pv[c]);
-            ds[c] = round_bf16(ds[c]);
-          }
-        }
-        const int at = (wr * 16 + g) * PS + wc * 16 + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(Ps + at) = make_float2(pv[0], pv[1]);
-        *reinterpret_cast<float2*>(Ps + at + 8 * PS) = make_float2(pv[2], pv[3]);
-        *reinterpret_cast<float2*>(dSs + at) = make_float2(ds[0], ds[1]);
-        *reinterpret_cast<float2*>(dSs + at + 8 * PS) = make_float2(ds[2], ds[3]);
-        if constexpr (RELBIAS) {
-          if (tables) {
-            *reinterpret_cast<float2*>(Ts + at) = make_float2(dsf[4 * j], dsf[4 * j + 1]);
-            *reinterpret_cast<float2*>(Ts + at + 8 * PS) = make_float2(dsf[4 * j + 2], dsf[4 * j + 3]);
-          }
-        }
-      }
-      if constexpr (RELBIAS) {
-        if (tables) {
-          // dts_w: per element slot the warp takes its distinct buckets in
-          // turn, sums each by shuffles, and one lane adds the sum to the
-          // warp's own copy (no atomics)
-#pragma unroll
-          for (int e = 0; e < 4 * NA; ++e) {
-            const bool ok = (ok_bits >> e) & 1u;
-            const int key = slot[e];
-            unsigned rest = __ballot_sync(kFull, ok);
-            while (rest != 0) {
-              const int first = __ffs(rest) - 1;
-              const int bucket = __shfl_sync(kFull, key, first);
-              const bool mine = ok && key == bucket;
-              float sum = mine ? dsf[e] : 0.f;
-#pragma unroll
-              for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-              if (lane == first) my_dts[bucket] += sum;
-              __syncwarp();
-              rest &= ~__ballot_sync(kFull, mine);
-            }
-          }
-        }
-      }
-      __syncthreads();  // P, dS and the float32 dS are whole
-
-      // the output chunk's operand: dO's chunk for dV, Q's for dK
-      const int have = is_dv ? n_vc - 1 : n_dc - 1;  // the chunk left in the tile
-      if (och != have) {
-        if (is_dv)
-          load_chunk<kP, BQ, T>(dOs, ob, p.do_sn, r0, length, p.V, och, p.vec_do != 0, do_scale);
-        else
-          load_chunk<kP, BQ, T>(Qs, qb, p.q_sn, r0, length, p.D, och, p.vec_q != 0, q_scale);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-      }
-      {  // dV += P^T dO or dK += dS^T Q for the warp's 16 key rows and 64 columns
-        const float* A = is_dv ? Ps : dSs;
-        const float* Bm = is_dv ? dOs : Qs;
-        const int row_steps = (min(BQ, length - r0) + 7) / 8;
-#pragma unroll
-        for (int n0 = 0; n0 < NO; n0 += 4) {
-          float part[4][4];
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
-          for (int ks = 0; ks < row_steps; ++ks) {
-            const FragA a = load_a_t(A, PS, am * 16, ks * 8);
-#pragma unroll
-            for (int n = 0; n < 4; ++n) mma<kBf16>(part[n], a, load_b_kn(Bm, kP, ks * 8, an + (n0 + n) * 8));
-          }
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
-        }
-      }
-      if (tables) {
-        // dpos_w: diagonal d holds the elements with col - row = d - (BQ - 1)
-        const int d = threadIdx.x;
-        const int last = r0 + BQ - 1;
-        float sum = 0.f;
-        if (d < kDkvDiags)
-          for (int r = 0; r < BQ; ++r) {
-            const int cc = r + d - (BQ - 1);
-            if (cc >= 0 && cc < BK) sum += Ts[r * PS + cc];
-          }
-        if constexpr (DET) {
-          // each run of diagonals that meet on one entry (one diagonal, or
-          // those clipped where N > Nm) summed in order by one thread, into
-          // the block's row
-          if (d < kDkvDiags) diag[d] = sum;
-          __syncthreads();
-          if (d < kDkvDiags) {
-            const int idx = hstu::pos_index(last, col0 + d, p.Nm);
-            if (d == 0 || hstu::pos_index(last, col0 + d - 1, p.Nm) != idx) {
-              float run = 0.f;
-              for (int e = d; e < kDkvDiags && hstu::pos_index(last, col0 + e, p.Nm) == idx; ++e) run += diag[e];
-              prow[idx] += run;
-            }
-          }
-        } else {
-          if (d < kDkvDiags && sum != 0.f) atomicAdd(p.dpos + hstu::pos_index(last, col0 + d, p.Nm), sum);
-        }
-      }
-    }
-    if (tables) {
-      __syncthreads();  // every warp's copy of dts_w's sums is whole
-      for (int idx = threadIdx.x; idx < (DET ? n_ts : n_slots); idx += T) {
-        // DET: every entry of the row; else the slots, each to its bucket
-        // (slot n_slots - 1 holds bucket NB)
-        const int s = DET ? (idx < n_slots - 1 ? idx : (idx == p.NB ? n_slots - 1 : -1)) : idx;
-        float sum = 0.f;
-        if (s >= 0)
-          for (int w = 0; w < NW; ++w) sum += dts_s[w * kTsSlots + s];
-        if constexpr (DET) {
-          prow[n_pos + idx] = sum;
-        } else {
-          if (sum != 0.f) atomicAdd(p.dts + (idx == n_slots - 1 ? p.NB : idx), sum);
-        }
-      }
-    }
-  } else if (DET && tables) {  // a dead key tile's row of `partial` holds zeros
-    for (int idx = threadIdx.x; idx < n_pos + n_ts; idx += T) prow[idx] = 0.f;
+  const int n_pos = 2 * p.Nm - 1, n_ts = p.NB + 1, n_slots = min(n_ts, kTsSlots);
+  const int c0 = kt * kPT;
+  float* prow = DET ? p.partial + ((long long)kt * p.H * p.B + (long long)h * p.B + b) * (n_pos + n_ts) : nullptr;
+  if (c0 >= length) {  // a dead key tile's row of `partial` holds zeros
+    if (DET)
+      for (int idx = threadIdx.x; idx < n_pos + n_ts; idx += kBwdThreads) prow[idx] = 0.f;
+    return;
   }
-
-  // every element of the chunk's columns in the tile's key rows: zeros where
-  // the tile is dead
-  E* out = is_dv ? p.dv : p.dk;
-  const int width = is_dv ? p.V : p.D;
-  const float scale = is_dv ? dp_scale : s_alpha;
+  for (int idx = threadIdx.x; idx < NW * kTsSlots; idx += kBwdThreads) dts_s[idx] = 0.f;
+  if (DET)
+    for (int idx = threadIdx.x; idx < n_pos; idx += kBwdThreads) prow[idx] = 0.f;
+  const float* dS = w.scratch + w.tiles * kPairFloats;
+  const int* flags = reinterpret_cast<const int*>(w.scratch + 2 * w.tiles * kPairFloats);
+  const long long tile0 = (long long)sl * w.qt * w.qt;
+  const float* tsb = p.ts + (long long)b * p.N;
+  const float tk[2] = {ts_col(tsb, c0 + lane, p.N), ts_col(tsb, c0 + 32 + lane, p.N)};
+  float* my_dts = dts_s + warp * kTsSlots;
+  for (int qt = 0; qt < w.qt; ++qt) {
+    const long long tile = tile0 + (long long)qt * w.qt + kt;
+    if (!walked(p, qt, kt, length) || flags[tile] == 0) continue;
+    const int r0 = qt * kPT;
+    __syncthreads();  // every warp is done with the last pair's dS and diagonal sums
+    const float* src = dS + tile * kPairFloats;
+#pragma unroll 4
+    for (int e = 0; e < 16; ++e) {
+      const int rl = warp * 8 + (e >> 1), cl = (e & 1) * 32 + lane;
+      const float x = src[rl * kPT + cl];
+      Ts[rl * (kPT + 1) + cl] = x;
+      const bool ok = live(p, r0 + rl, c0 + cl, length, nt);
+      const int key = min(hstu::ts_bucket(ts_row(tsb, r0 + rl, p.N), tk[e & 1], p.NB), n_slots - 1);
+      unsigned rest = __ballot_sync(kFull, ok);
+      while (rest != 0) {
+        const int first = __ffs(rest) - 1;
+        const int bucket = __shfl_sync(kFull, key, first);
+        const bool mine = ok && key == bucket;
+        float sum = mine ? x : 0.f;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int col = col0 + am * 16 + g + 8 * i;
-    if (col >= p.N) continue;
-    E* dst = out + (((long long)b * p.N + col) * p.H + h) * width;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      store2(dst, och * kC + an + 8 * n + 2 * t, width, scale * acc[n][2 * i], scale * acc[n][2 * i + 1]);
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
+        if (lane == first) my_dts[bucket] += sum;
+        __syncwarp();
+        rest &= ~__ballot_sync(kFull, mine);
+      }
+    }
+    __syncthreads();  // the pair's dS is whole
+    // dpos_w: diagonal d holds the elements with col - row = d - 63
+    const int d = threadIdx.x, last = r0 + kPT - 1;
+    float sum = 0.f;
+    if (d < kPairDiags)
+      for (int rr = 0; rr < kPT; ++rr) {
+        const int cc = rr + d - (kPT - 1);
+        if (cc >= 0 && cc < kPT) sum += Ts[rr * (kPT + 1) + cc];
+      }
+    if constexpr (DET) {
+      // each run of diagonals that meet on one entry (one diagonal, or those
+      // clipped where N > Nm) summed in order by one thread, into the row
+      if (d < kPairDiags) diag[d] = sum;
+      __syncthreads();
+      if (d < kPairDiags) {
+        const int idx = hstu::pos_index(last, c0 + d, p.Nm);
+        if (d == 0 || hstu::pos_index(last, c0 + d - 1, p.Nm) != idx) {
+          float run = 0.f;
+          for (int e = d; e < kPairDiags && hstu::pos_index(last, c0 + e, p.Nm) == idx; ++e) run += diag[e];
+          prow[idx] += run;
+        }
+      }
+    } else {
+      if (d < kPairDiags && sum != 0.f) atomicAdd(p.dpos + hstu::pos_index(last, c0 + d, p.Nm), sum);
+    }
+  }
+  __syncthreads();  // every warp's copy of dts_w's sums is whole
+  for (int idx = threadIdx.x; idx < (DET ? n_ts : n_slots); idx += kBwdThreads) {
+    // DET: every entry of the row; else the slots, each to its bucket (slot
+    // n_slots - 1 holds bucket NB)
+    const int s = DET ? (idx < n_slots - 1 ? idx : (idx == p.NB ? n_slots - 1 : -1)) : idx;
+    float sum = 0.f;
+    if (s >= 0)
+      for (int ww = 0; ww < NW; ++ww) sum += dts_s[ww * kTsSlots + s];
+    if constexpr (DET) {
+      prow[n_pos + idx] = sum;
+    } else {
+      if (sum != 0.f) atomicAdd(p.dts + (idx == n_slots - 1 ? p.NB : idx), sum);
+    }
   }
 }
 
@@ -2339,44 +2434,9 @@ cudaError_t launch_bwd(const Params<E>& p, cudaStream_t stream) {
   return launch_bwd_m<PASS, RELBIAS, DET, FUSED, kMaxOwn, true, E>(p, cl, stream);
 }
 
-// The per-chunk dq pass: a block per (64-row query tile, head, batch row, dQ
-// chunk), dQ written whole as DQ
-template <bool RELBIAS, typename E, typename DQ>
-cudaError_t launch_dq_chunks(const Params<E>& p, cudaStream_t stream) {
-  constexpr int smem = dq_chunks_smem_bytes();
-  auto kernel = dq_chunks_kernel<RELBIAS, E, DQ>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((p.N + kDqRows - 1) / kDqRows) * p.H * p.B * chunks(p.D);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// The rows of K7-det's `partial` that the per-chunk dkv pass with DET
-// writes: one per (key tile, head, batch row)
-inline long long dkv_chunks_table_rows(int B, int N, int H) {
-  return (long long)((N + kDkvCols - 1) / kDkvCols) * H * B;
-}
-
-// The per-chunk dkv pass: a block per (64-column key tile, head, batch row,
-// dK or dV chunk)
-template <bool RELBIAS, bool DET, typename E>
-cudaError_t launch_dkv_chunks(const Params<E>& p, cudaStream_t stream) {
-  constexpr int smem = dkv_chunks_smem_bytes(RELBIAS);
-  auto kernel = dkv_chunks_kernel<RELBIAS, DET, E>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = dkv_chunks_table_rows(p.B, p.N, p.H) * (chunks(p.D) + chunks(p.V));
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kBwdThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // The bfloat16 backward's pre-scaling pass (bf16_mma.cuh) on the wide
 // parameters: q and dO then point at bfloat16(alpha q) and bfloat16(dO /
-// norm) in the wrapper's buffers. float32: nothing. (The per-chunk bodies
-// round alpha q and dO / norm as they load them and take no pass.)
+// norm) in the wrapper's buffers. float32: nothing.
 template <typename E>
 cudaError_t prescale(Params<E>& p, cudaStream_t stream) {
   if constexpr (std::is_same<E, float>::value) {
@@ -2384,6 +2444,53 @@ cudaError_t prescale(Params<E>& p, cudaStream_t stream) {
   } else {
     return hstu_bf16::prescale(p, stream);
   }
+}
+
+// The per-pair backward (route kWideChunks) on the plan's scratch: for each
+// group of p.group_slabs (batch row, head) slabs in turn, the S / dP pass
+// (split in p.splits, then the splits' sums, where the plan splits it), the
+// gradient pass (dQ's blocks with DQ, dK's and dV's with DKV; dq written as
+// DQT) and with RELBIAS the table sums (DET: to `partial`'s rows, one per
+// key tile, head and batch row, `pairs_table_rows`). bfloat16 after the
+// pre-scaling pass. The scratch: as `Pairs` lays it out.
+inline long long pairs_table_rows(int B, int N, int H) { return (long long)((N + kPT - 1) / kPT) * H * B; }
+
+template <bool RELBIAS, bool DET, bool DQ, bool DKV, typename E, typename DQT>
+cudaError_t launch_pairs(Params<E> p, cudaStream_t stream) {
+  if (p.scratch == nullptr || p.group_slabs < 1 || p.splits < 1) return cudaErrorInvalidValue;
+  cudaError_t err = prescale(p, stream);
+  if (err != cudaSuccess) return err;
+  const int elem = (int)sizeof(E);
+  Pairs w;
+  w.scratch = p.scratch;
+  w.qt = (p.N + kPT - 1) / kPT;
+  w.tiles = (long long)p.group_slabs * w.qt * w.qt;
+  w.splits = p.splits;
+  w.per = (sdp_steps(p.D, p.V) + p.splits - 1) / p.splits;
+  const int per_slab = (DQ ? w.qt * chunks(p.D) : 0) + (DKV ? w.qt * (chunks(p.D) + chunks(p.V)) : 0);
+  void (*sdp)(Params<E>, Pairs) = w.splits > 1 ? sdp_kernel<RELBIAS, true, E> : sdp_kernel<RELBIAS, false, E>;
+  void (*sums)(Params<E>, Pairs) = sdp_sums_kernel<RELBIAS, E>;
+  void (*grad)(Params<E>, Pairs) = grad_kernel<DQ, DKV, E, DQT>;
+  err = cudaFuncSetAttribute(sdp, cudaFuncAttributeMaxDynamicSharedMemorySize, sdp_smem_bytes(elem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(grad, cudaFuncAttributeMaxDynamicSharedMemorySize, grad_smem_bytes(elem));
+  if (err != cudaSuccess) return err;
+  const int slabs_all = p.B * p.H;
+  for (int slab0 = 0; slab0 < slabs_all; slab0 += p.group_slabs) {
+    w.slab0 = slab0;
+    const int slabs = min(p.group_slabs, slabs_all - slab0);
+    const long long pairs = (long long)slabs * w.qt * w.qt;
+    const long long grid[4] = {pairs * w.splits, pairs, (long long)slabs * per_slab, (long long)slabs * w.qt};
+    for (long long g : grid)
+      if (g > 0x7fffffffLL) return cudaErrorInvalidValue;
+    sdp<<<(unsigned)grid[0], kBwdThreads, sdp_smem_bytes(elem), stream>>>(p, w);
+    if (w.splits > 1) sums<<<(unsigned)grid[1], kBwdThreads, 0, stream>>>(p, w);
+    grad<<<(unsigned)grid[2], kBwdThreads, grad_smem_bytes(elem), stream>>>(p, w);
+    if constexpr (RELBIAS) tables_kernel<DET, E><<<(unsigned)grid[3], kBwdThreads, tables_smem_bytes(), stream>>>(p, w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // The wide parameters from a narrow body's: the pointers, shapes, strides,

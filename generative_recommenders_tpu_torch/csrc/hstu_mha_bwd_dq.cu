@@ -20,6 +20,8 @@
 #include "hstu_attention_bwd_dq.cuh"
 
 // dk and dv are null; vec_*: whether q, k, v and dO may be read in 16-byte pieces.
+// scratch, group_slabs, splits: route kWideChunks's float32 scratch and its
+// plan (`_wide_bwd_plan`); null and 0 on every other route.
 extern "C" int hstu_mha_bwd_dq(
     const float* q, const float* k, const float* v, const float* dout,
     float* dq, float* dk, float* dv, const int* lengths, const int* num_targets,
@@ -27,11 +29,15 @@ extern "C" int hstu_mha_bwd_dq(
     long long q_sb, long long q_sn, long long q_sh, long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len, int contextual_seq_len,
-    int min_full_attn_seq_len, int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
+    int min_full_attn_seq_len,
+    float* scratch, int group_slabs, int splits, int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_bwd_dq::Params<float> p{q, k, v, dout, dq, lengths, num_targets, B, N, H, D, V,
                                q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, do_sb, do_sn, do_sh,
                                alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                                min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_bwd_dq::launch(p, route, stream);
 }
 
@@ -47,11 +53,15 @@ extern "C" int hstu_mha_bwd_dq_bf16(
     long long q_sb, long long q_sn, long long q_sh, long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len, int contextual_seq_len,
-    int min_full_attn_seq_len, int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
+    int min_full_attn_seq_len,
+    float* scratch, int group_slabs, int splits, int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_bwd_dq::Params<__nv_bfloat16> p{
       q, k, v, dout, dq, lengths, num_targets, B, N, H, D, V,
       q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh, do_sb, do_sn, do_sh,
       alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
       min_full_attn_seq_len, vec_q, vec_k, vec_v, vec_do, qs, dos};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_bwd_dq::launch(p, route, stream);
 }

@@ -201,6 +201,10 @@ struct Params {
   // (null where alpha is 1) and bfloat16(dO / norm), contiguous
   E* qs = nullptr;
   E* dos = nullptr;
+  // the per-pair wide backward (route kWideChunks): its float32 scratch,
+  // the slabs of a group and the S / dP pass's splits, as planned
+  float* scratch = nullptr;
+  int group_slabs = 0, splits = 0;
 };
 
 // K7-det's slot of the tile pair (query tile qt, key tile kt) among a batch
@@ -840,6 +844,9 @@ hstu_wide::Params<E> wide_params(const Params<E>& p, void* dq) {
   w.partial = p.partial;
   w.qs = p.qs;
   w.dos = p.dos;
+  w.scratch = p.scratch;
+  w.group_slabs = p.group_slabs;
+  w.splits = p.splits;
   return w;
 }
 
@@ -852,8 +859,8 @@ int head_group_bf16(int D, int V);
 // This body on float32, the bfloat16 body on bfloat16 (kNarrow: the tables
 // staged; kRead: LONG; D and V up to 128), or with kWide (K7 alone) the wide
 // backward's dkv pass with dQ (FUSED) and the tables; with kWideChunks the
-// per-chunk dq pass into the float32 dq, then the per-chunk dkv pass with the
-// tables.
+// per-pair wide backward on the wrapper's scratch, dQ written whole into the
+// float32 dq, the tables added with atomics.
 template <typename E, bool DET = false>
 int launch(const Params<E>& p, int route, void* stream) {
   if (p.B == 0 || p.N == 0 || p.H == 0) return 0;
@@ -865,12 +872,8 @@ int launch(const Params<E>& p, int route, void* stream) {
     if (err != cudaSuccess) return (int)err;
     return (int)hstu_wide::launch_bwd<hstu_wide::kDkvPass, true, false, true, E>(w, s);
   }
-  if (!DET && route == hstu::kWideChunks) {
-    const hstu_wide::Params<E> w = wide_params(p, p.dq);
-    const cudaError_t err = hstu_wide::launch_dq_chunks<true, E, float>(w, s);
-    if (err != cudaSuccess) return (int)err;
-    return (int)hstu_wide::launch_dkv_chunks<true, false, E>(w, s);
-  }
+  if (!DET && route == hstu::kWideChunks)
+    return (int)hstu_wide::launch_pairs<true, false, true, true, E, float>(wide_params(p, p.dq), s);
   if (p.D > 128 || p.V > 128 || (route != hstu::kNarrow && route != hstu::kRead))
     return (int)cudaErrorInvalidValue;
   if constexpr (std::is_same<E, float>::value) {
@@ -887,8 +890,9 @@ int launch(const Params<E>& p, int route, void* stream) {
 // the tile pairs' slots, summed over the key tiles in ascending order, and
 // the blocks' table rows in block order; with kWide, the wide backward (its
 // relative-bias dq pass, then its dkv pass with the table rows), their rows
-// summed in order by the same kernel; with kWideChunks the per-chunk passes
-// so (one row per key tile, head and batch row, `dkv_chunks_table_rows`).
+// summed in order by the same kernel; with kWideChunks the per-pair wide
+// backward on the wrapper's scratch, dq written whole, the table rows one per
+// key tile, head and batch row (`hstu_wide::pairs_table_rows`), the same.
 // dq: [B, N, H, D] of q's type, written whole; partial: float32 [blocks,
 // (2 Nm - 1) + (NB + 1)] with blocks = ceil(N / 64) * ceil(H / HG) * B
 // (kWide: one row per block of the dkv pass, `hstu_wide::bwd_table_rows`);
@@ -918,13 +922,10 @@ int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
     sp.tiles = 0;  // the tables alone
     sp.rows = (int)hstu_wide::bwd_table_rows(p.B, p.N, p.H, p.D, p.V);
   } else if (route == hstu::kWideChunks) {
-    const hstu_wide::Params<E> w = wide_params(p, dq);
-    cudaError_t err = hstu_wide::launch_dq_chunks<true, E, E>(w, s);
-    if (err != cudaSuccess) return (int)err;
-    err = hstu_wide::launch_dkv_chunks<true, true, E>(w, s);
+    const cudaError_t err = hstu_wide::launch_pairs<true, true, true, true, E, E>(wide_params(p, dq), s);
     if (err != cudaSuccess) return (int)err;
     sp.tiles = 0;
-    sp.rows = (int)hstu_wide::dkv_chunks_table_rows(p.B, p.N, p.H);
+    sp.rows = (int)hstu_wide::pairs_table_rows(p.B, p.N, p.H);
   } else {
     if (p.dq_partial == nullptr) return (int)cudaErrorInvalidValue;
     const int err = launch<E, /*DET=*/true>(p, route, stream);
@@ -943,7 +944,10 @@ int launch_det(const Params<E>& p, E* dq, int route, void* stream) {
 // Launches on `stream` the body `route` names (hstu::Route, the Python
 // plan's choice); returns the launch's cudaGetLastError(). D and V up to 128
 // take this kernel, its tables staged (kNarrow) or read (kRead: LONG); kWide
-// the wide bodies. The Python wrapper decides the `vec_*` flags.
+// the wide bodies on clusters, kWideChunks the per-pair wide backward. The
+// Python wrapper decides the `vec_*` flags.
+// scratch, group_slabs, splits: route kWideChunks's float32 scratch and its
+// plan (`_wide_bwd_plan`); null and 0 on every other route.
 extern "C" int hstu_mha_relbias_bwd(
     const float* q, const float* k, const float* v, const float* dout,
     float* dq, float* dk, float* dv, const int* lengths,
@@ -955,12 +959,16 @@ extern "C" int hstu_mha_relbias_bwd(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    float* scratch, int group_slabs, int splits,
     int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<float> p{
       q, k, v, dout, dq, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_relbias_bwd::launch<float>(p, route, stream);
 }
 
@@ -978,12 +986,16 @@ extern "C" int hstu_mha_relbias_bwd_det(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    float* scratch, int group_slabs, int splits,
     int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<float> p{
       q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial, dq_partial};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_relbias_bwd::launch_det<float>(p, dq, route, stream);
 }
 
@@ -1006,12 +1018,16 @@ extern "C" int hstu_mha_relbias_bwd_bf16(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    float* scratch, int group_slabs, int splits,
     int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<__nv_bfloat16> p{
       q, k, v, dout, dq32, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   p.qs = qs;
   p.dos = dos;
   const int err = hstu_relbias_bwd::launch<__nv_bfloat16>(p, route, stream);
@@ -1033,12 +1049,16 @@ extern "C" int hstu_mha_relbias_bwd_det_bf16(
     long long v_sh, long long do_sb, long long do_sn, long long do_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
+    float* scratch, int group_slabs, int splits,
     int vec_q, int vec_k, int vec_v, int vec_do, int route, void* stream) {
   hstu_relbias_bwd::Params<__nv_bfloat16> p{
       q, k, v, dout, nullptr, dk, dv, lengths, num_targets, ts, pos_w, ts_w, dpos, dts,
       B, N, H, D, V, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
       do_sb, do_sn, do_sh, alpha, inv_norm, causal, max_attn_len,
       contextual_seq_len, min_full_attn_seq_len, Nm, NB, vec_q, vec_k, vec_v, vec_do, partial, dq_partial};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   p.qs = qs;
   p.dos = dos;
   return hstu_relbias_bwd::launch_det<__nv_bfloat16>(p, dq, route, stream);

@@ -105,17 +105,20 @@ _ARGTYPES = {
         name: [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P]
         for name in ("delta_hstu_mha_fwd", "delta_hstu_mha_fwd_bf16")
     },
+    # the mask ints, then the per-pair route's scratch, its slabs a group
+    # and its splits (`_pairs_args`), then the flags
     **{
-        name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P]  # mask ints, flags
+        name: [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_P, _I, _I] + [_I] * 4 + [_I, _P]
         for name in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv")
     },
     # two more pointers after dO: the bfloat16 bodies' alpha q and dO / norm
     **{
-        name: [_P] * 11 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P]
+        name: [_P] * 11 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_P, _I, _I] + [_I] * 4 + [_I, _P]
         for name in ("hstu_mha_bwd_dq_bf16", "hstu_mha_bwd_dkv_bf16")
     },
     # and one more: dq's float32 sums beside the bfloat16 dq
-    "hstu_mha_bwd_fused_bf16": [_P] * 12 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_I] * 4 + [_I, _P],
+    "hstu_mha_bwd_fused_bf16": [_P] * 12 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 4 + [_P, _I, _I] + [_I] * 4
+    + [_I, _P],
 }
 # entry points that live in another kernel's library: entry -> library (the
 # bfloat16 K1 to K5 and K1-bias are second entry points of K1's to K5's
@@ -492,17 +495,29 @@ _PORTABLE_CLUSTER, _MAX_CLUSTER, _MAX_OWN, _SPLIT_FROM = 8, 16, 2, 5
 _WIDE_FWD_ROUND, _WIDE_FWD_MAX_TILES, _WIDE_FWD_SPLIT_FROM = 32, 3, 4
 # the buckets a float32 time gap reaches (`hstu_wide::kTsSlots`)
 _WIDE_TS_SLOTS = 296
-# The per-chunk wide bodies (route ``wide_chunks``): the forward's 64 query
-# rows and 32-column key tiles, a block of 4 warps per V chunk, its float32
-# Q, K and V tiles; the dq pass's 64 query rows and 32-column key tiles, a
-# block of 8 warps per dQ chunk; the dkv pass's 64 key columns and 32-row
-# query steps, a block of 8 warps per dK or dV chunk (with the relative bias:
-# the float32 dS, the 95 diagonals' sums and 8 warps' copies of the reachable
-# buckets)
+# The per-chunk wide forward (route ``wide_chunks``): 64 query rows and
+# 32-column key tiles, a block of 4 warps per V chunk, its float32 Q, K and V
+# tiles
 _CHUNKS_FWD = dict(query_rows=64, key_tile=32, shared_bytes=4 * (64 * 136 + 32 * 136 + 32 * 132))
-_CHUNKS_DQ_BYTES = 4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8)
-_CHUNKS_DKV_BYTES = 4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72)
-_CHUNKS_DKV_TABLE_BYTES = 4 * (32 * 72 + 96 + 8 * 296)
+# The per-pair wide backward (route ``wide_chunks`` of the backward,
+# `hstu_wide::sdp_kernel`, `grad_kernel`, `tables_kernel`): 64 x 64 tile
+# pairs; the S / dP pass 64 columns of D or V a step, its tiles at a pitch of
+# 72, in a ring of 3 stages, split across blocks where the pairs of a group
+# give fewer than 264 blocks (two an SM of the H100's 132); the gradient pass
+# a block per 64-row output tile and 128-column chunk, the float32 A tile (P
+# or dS) at a pitch of 72 and the chunk at 136, in 2 stages; the table sums a
+# block per key tile, the pair's dS at a pitch of 65, its 128 diagonal sums
+# and 8 warps' copies of the reachable buckets.
+_PAIR_TILE, _PAIR_STEP, _PAIR_PITCH, _SDP_STAGES, _GRAD_STAGES, _SPLIT_TARGET = 64, 64, 72, 3, 2, 264
+# The cap on a group's scratch for P, dS and the pairs' flags: 256 MiB, the
+# size of the widest-heads ranker layer's q and k together (B 8, N 268, H 4,
+# D 3968: 272 MB), so that the scratch never outgrows what the layer's own
+# tensors take, and 0.3% of the H100's 80 GB; a group under it whose P and
+# dS fit the 50 MB L2 stays there between the passes. The slabs past it run
+# in further groups, in turn, on the same scratch; a slab larger than the
+# cap is a group of its own. Where the S / dP pass is split, the partial S
+# and dP add fewer than 527 pairs' worth beside it (17.3 MB).
+_PAIR_SCRATCH_CAP = 256 * 2**20
 # The tile forward (route ``wide_tile``, `hstu_wide::tile_fwd_kernel`): a
 # block of 8 warps per 64-row query tile, 32 key rows a step; D and V
 # rounded up to 32 (Dp, Vp); D up to 256 with V up to 256, D up to 128 with
@@ -699,6 +714,47 @@ def _wide_bwd_bytes(m: int, elem: int, tables: bool) -> int:
     return tiles + (4 * (rows * xp + rows + step + 8 * _WIDE_TS_SLOTS) if tables else 0)
 
 
+def _pairs_plan(what: str, D: int, V: int, H: int, B: int, N: int, outputs: int, tables: bool,
+                dtype: torch.dtype) -> dict:
+    """The per-pair wide backward (route ``wide_chunks``): the (batch row,
+    head) slabs in ``groups`` of ``group_slabs`` whose P, dS and pair flags
+    stay under `_PAIR_SCRATCH_CAP` (a slab past it alone), each group in
+    turn on one float32 scratch of ``scratch_shape``: the S / dP pass a block
+    per (64 x 64 pair, split, slab) on ``sdp_grid``, its 64-column steps of D
+    then V in ``splits`` runs where the group's pairs give fewer than 264
+    blocks, the runs' sums on ``sums_grid`` (else None); the gradient pass a
+    block per (64-row tile, 128-column chunk, slab), ``output_chunks`` a tile,
+    on ``grid`` (``shared_bytes``); ``tables``: the table sums a block per
+    (key tile, slab) on ``tables_grid``; K7-det's ``table_rows``, one per
+    key tile, head and batch row. Grids of the largest group; on bfloat16 after
+    the pre-scaling pass. Raises on a grid beyond CUDA's."""
+    tile, step, pitch = _PAIR_TILE, _PAIR_STEP, _PAIR_PITCH
+    qt = -(-N // tile)
+    slab_bytes = 4 * (2 * qt * qt * tile * tile + qt * qt)
+    group = max(1, min(B * H, _PAIR_SCRATCH_CAP // slab_bytes))
+    pairs = group * qt * qt
+    steps = -(-D // step) + -(-V // step)
+    want = min(-(-_SPLIT_TARGET // pairs), steps)
+    splits = 1 if want <= 1 else -(-steps // -(-steps // want))
+    floats = 2 * pairs * tile * tile + -(-pairs // 4) * 4 + (splits * pairs * 2 * tile * tile if splits > 1 else 0)
+    elem = dtype.itemsize
+    plan = dict(route="wide_chunks", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1,
+                tile=tile, groups=-(-(B * H) // group), group_slabs=group, splits=splits, scratch_shape=(floats,),
+                sdp_grid=(pairs * splits,), sdp_shared_bytes=_SDP_STAGES * 2 * tile * pitch * elem,
+                sums_grid=(pairs,) if splits > 1 else None, output_chunks=outputs,
+                shared_bytes=_GRAD_STAGES * (4 * tile * pitch + elem * tile * (_WIDE_CHUNK + 8)),
+                grid=(group * qt * outputs,), table_rows=qt * H * B)
+    for name in ("sdp_grid", "grid"):
+        _check_grid(plan[name][0], f"the per-pair {what.removeprefix('the ')}")
+    if tables:
+        plan.update(tables_grid=(group * qt,),
+                    tables_shared_bytes=4 * (tile * (tile + 1) + 2 * tile + 8 * _WIDE_TS_SLOTS))
+    if dtype == torch.bfloat16:
+        _check_grid(B * N, "the pre-scaling pass")
+        plan.update(prescale_grid=(B * N,), q_scaled_shape=(B, N, H, D), do_scaled_shape=(B, N, H, V))
+    return plan
+
+
 def _wide_bwd_plan(what: str, D: int, V: int, H: int, B: int, N: int, tables: bool,
                    dtype: torch.dtype) -> dict:
     """One pass of the wide backward: a cluster of ``cluster`` blocks per
@@ -707,19 +763,15 @@ def _wide_bwd_plan(what: str, D: int, V: int, H: int, B: int, N: int, tables: bo
     across them (``split_work``, from 5 blocks) or repeated in each; on
     bfloat16 after the pre-scaling pass (``prescale_grid``) into
     ``q_scaled_shape`` (where alpha != 1) and ``do_scaled_shape``. Past 16
-    blocks of two chunks (route ``wide_chunks``): the per-chunk pass, a block
-    of 8 warps per (64-row tile, head, batch row, output chunk), no
-    pre-scaling pass; ``tables``: its blocks of chunk 0 sum the table
-    gradients. Raises on a grid beyond CUDA's."""
+    blocks of two chunks (route ``wide_chunks``): the per-pair backward
+    (`_pairs_plan`), S and dP formed once per tile pair, then the gradient
+    pass over dQ's chunks (the dq pass), dK's and dV's (the dkv pass), or all
+    three with ``tables`` (K7 and K7-det, with the table sums). Raises on a
+    grid beyond CUDA's."""
     cluster = _wide_cluster(D, V)
     if cluster is None:
-        dkv = what == "the wide dkv kernel"
-        outputs = _chunks(D) + (_chunks(V) if dkv else 0)
-        blocks = -(-N // _WIDE_BWD_ROWS) * H * B * outputs
-        _check_grid(blocks, f"the per-chunk {what.removeprefix('the ')}")
-        shared = (_CHUNKS_DKV_BYTES + (_CHUNKS_DKV_TABLE_BYTES if tables else 0)) if dkv else _CHUNKS_DQ_BYTES
-        return dict(route="wide_chunks", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1,
-                    output_chunks=outputs, shared_bytes=shared, grid=(blocks,))
+        outputs = _chunks(D) if what == "the wide dq kernel" else _chunks(D) * (2 if tables else 1) + _chunks(V)
+        return _pairs_plan(what, D, V, H, B, N, outputs, tables, dtype)
     m, nd, nv = cluster
     cs = nd + nv
     blocks = -(-N // _WIDE_BWD_ROWS) * H * B * cs
@@ -738,10 +790,9 @@ def _wide_dkv_plan(D: int, V: int, H: int, B: int, N: int, relbias: bool = False
     """The wide dkv pass (K4; K2 and K7 with dQ; K7-det's second pass): a
     cluster per (64-column key tile, head, batch row), `_wide_bwd_plan`;
     ``table_rows``: K7-det's rows of `partial`, one per block (per key tile,
-    head and batch row on the per-chunk route)."""
+    head and batch row on the per-pair route)."""
     plan = _wide_bwd_plan("the wide dkv kernel", D, V, H, B, N, relbias, dtype)
-    rows = plan["grid"][0] // (plan["output_chunks"] if plan["route"] == "wide_chunks" else 1)
-    return dict(plan, table_rows=rows)
+    return plan if "table_rows" in plan else dict(plan, table_rows=plan["grid"][0])
 
 
 def _wide_dq_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch.float32) -> dict:
@@ -765,11 +816,16 @@ def _bwd_plan(D: int, V: int, H: int, B: int, N: int, dtype: torch.dtype = torch
     alpha != 1) and ``do_scaled_shape``. Wider heads (route ``wide``, either
     type): the wide dkv pass (K2 with its dQ; ``dq`` the wide dq pass of
     the split backward beside it), route ``wide`` on clusters or
-    ``wide_chunks`` past them (K2 there: the per-chunk dq pass, then the dkv
-    pass). Raises on a width of 0 and on a grid beyond CUDA's."""
+    ``wide_chunks`` past them (K2 there: one gradient pass over dQ's, dK's
+    and dV's chunks, ``fused_grid``). Raises on a width of 0 and on a grid
+    beyond CUDA's."""
     _check_widths(D, V)
     if not _narrow(D, V):
-        return dict(_wide_dkv_plan(D, V, H, B, N, dtype=dtype), dq=_wide_dq_plan(D, V, H, B, N, dtype))
+        plan = dict(_wide_dkv_plan(D, V, H, B, N, dtype=dtype), dq=_wide_dq_plan(D, V, H, B, N, dtype))
+        if plan["route"] == "wide_chunks":
+            plan["fused_grid"] = (plan["grid"][0] + plan["dq"]["grid"][0],)
+            _check_grid(plan["fused_grid"][0], "the per-pair wide fused kernel")
+        return plan
     width = next(w for w in (32, 64, 128, 256) if max(D, V) <= w)
     if dtype == torch.bfloat16:
         rows, cols, warps = _BWD_TILING_BF16[width]
@@ -1002,6 +1058,17 @@ def hstu_mha_dense_cuda(
     return _HstuMhaDense.apply(q, k, v, lens, nt, kw)
 
 
+def _pairs_args(plan: dict, device: torch.device) -> Tuple[Optional[torch.Tensor], tuple]:
+    """The per-pair route's scratch (``wide_chunks``: a float32 tensor of the
+    plan's shape on ``device``, allocated here; the C code allocates
+    nothing) and the C entry points' arguments for it: its pointer, the
+    slabs a group and the splits; elsewhere None and (None, 0, 0)."""
+    if plan["route"] != "wide_chunks":
+        return None, (None, 0, 0)
+    scratch = torch.empty(plan["scratch_shape"], dtype=torch.float32, device=device)
+    return scratch, (scratch.data_ptr(), plan["group_slabs"], plan["splits"])
+
+
 def _last_dim_contiguous(do: torch.Tensor) -> torch.Tensor:
     # the gradient of a reshape may come strided; the kernels read any
     # stride but the last
@@ -1035,8 +1102,7 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     # the bfloat16 bodies (K2-bf16 and K4-bf16's, K3-bf16's, the wide
     # backward's): a pre-scaling pass writes bfloat16(alpha q) (where alpha
     # != 1) and bfloat16(dO / norm) into buffers of their own (pointers after
-    # dO), and the body reads its rows in 16-byte pieces of 8 elements (the
-    # per-chunk wide bodies round as they load and take none)
+    # dO), and the body reads its rows in 16-byte pieces of 8 elements
     scaled = ()
     if bf16:
         qs = new(plan["q_scaled_shape"]) if kw["alpha"] != 1.0 and "q_scaled_shape" in plan else None
@@ -1044,12 +1110,13 @@ def _bwd_kernel(name: str, q, k, v, lens, nt, do, kw: dict) -> Grads:
     # the kernels read q, k, v and dO in 16-byte pieces where each allows it
     # (on the STU path q, k and v are strided views of one projection)
     vec = tuple(int(_vec16(t, 8 if bf16 else 4)) for t in (q, k, v, do))
+    scratch, pairs = _pairs_args(plan, q.device)  # noqa: F841 (alive through the launch)
     _launch_planned(
         plan, name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *(_ptr(t) for t in scaled),
         *((_ptr(dq32),) if dq32 is not None else ()), _ptr(dq), _ptr(dk), _ptr(dv), lens.data_ptr(), _ptr(nt),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        *_mask_args(kw, N), *vec, _ROUTES[route], _stream(q.device),
+        *_mask_args(kw, N), *pairs, *vec, _ROUTES[route], _stream(q.device),
     )
     hstu_mha_bwd_cuda.launches[name].add(route)
     return dq, dk, dv

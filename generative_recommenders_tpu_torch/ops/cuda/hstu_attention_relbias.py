@@ -91,14 +91,20 @@ ha._ARGTYPES.update({
     "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
     # the bfloat16 body's scratch after out and its chunk before the route
     "hstu_mha_relbias_fwd_bf16": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I] + [_I, _P],
-    "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
+    # the mask ints, Nm and NB, then the per-pair route's scratch, its slabs
+    # a group and its splits (`ha._pairs_args`), then the flags
+    "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 6 + [_P, _I, _I] + [_I] * 4
+    + [_I, _P],
     # three more pointers: the bfloat16 body's alpha q and dO / norm after dO,
     # dq's float32 sums beside the bfloat16 dq
-    "hstu_mha_relbias_bwd_bf16": [_P] * 17 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
+    "hstu_mha_relbias_bwd_bf16": [_P] * 17 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 6 + [_P, _I, _I] + [_I] * 4
+    + [_I, _P],
     # two more pointers: the blocks' table sums, the tile pairs' dQ (and on
     # bfloat16 alpha q and dO / norm after dO)
-    "hstu_mha_relbias_bwd_det": [_P] * 16 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
-    "hstu_mha_relbias_bwd_det_bf16": [_P] * 18 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 10 + [_I, _P],
+    "hstu_mha_relbias_bwd_det": [_P] * 16 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 6 + [_P, _I, _I] + [_I] * 4
+    + [_I, _P],
+    "hstu_mha_relbias_bwd_det_bf16": [_P] * 18 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 6 + [_P, _I, _I]
+    + [_I] * 4 + [_I, _P],
 })
 # the bfloat16 kernels and K7-det are second entry points of K6's and K7's
 # libraries
@@ -356,8 +362,10 @@ def _relbias_bwd_plan(D: int, V: int, H: int, Nm: int, NB: int, dtype: torch.dty
     Wider heads (route ``wide``, either type): the wide backward's dkv pass
     with dQ and the table sums (`ha._wide_dkv_plan`: a cluster per key tile,
     head and batch row); on bfloat16 after the pre-scaling pass. Past 16
-    blocks of two chunks (route ``wide_chunks``): the per-chunk dq pass with
-    the bias, then the per-chunk dkv pass with the table sums. Raises on a
+    blocks of two chunks (route ``wide_chunks``): the per-pair backward
+    (`ha._pairs_plan`: S and dP formed once per tile pair with the bias, P
+    and dS kept in the wrapper's scratch, then one gradient pass over dQ's,
+    dK's and dV's chunks and the table sums, added with atomics). Raises on a
     width of 0 and on a grid beyond CUDA's."""
     ha._check_widths(D, V)
     if max(D, V) > _NARROW_BWD_WIDTH:
@@ -416,15 +424,19 @@ def _relbias_det_plan(D: int, V: int, H: int, B: int, N: int, Nm: int, NB: int, 
     ascending order (4096 floats a block, 1024 where H D is not a multiple of
     4), the rest the table rows in block order, 32 entries a block. Wider
     heads: the wide backward's dq pass with the bias, its dkv pass, whose
-    blocks each write one row (on the per-chunk route the blocks of chunk 0,
-    one per key tile, head and batch row), and the same sum launch on the
-    tables alone. On bfloat16 K7's bfloat16 body (`_relbias_bwd_plan`
+    blocks each write one row, and the same sum launch on the tables alone;
+    past the clusters (route ``wide_chunks``) the per-pair backward
+    (`ha._pairs_plan`: one S / dP pass, one gradient pass with dQ written
+    whole, the table sums a block per key tile, head and batch row, each
+    writing its row in the walk's order), then the same sum launch. On bfloat16 K7's bfloat16 body (`_relbias_bwd_plan`
     on ``dtype``: its head groups, its route, its pre-scaled buffers). Raises
     on a width of 0 and on a grid beyond CUDA's."""
     bwd = _relbias_bwd_plan(D, V, H, Nm, NB, dtype, B, N)
     entries = 2 * Nm - 1 + NB + 1
     table_blocks = -(-entries // 32)
-    if bwd["route"] in ("wide", "wide_chunks"):
+    if bwd["route"] == "wide_chunks":  # one S / dP pass, one gradient pass with dQ, the table rows
+        return dict(bwd, partial_shape=(bwd["table_rows"], entries), dq_partial_shape=None, sum_grid=(table_blocks,))
+    if bwd["route"] == "wide":
         dq = ha._wide_dq_plan(D, V, H, B, N, dtype)
         return dict(bwd, dq_grid=dq["grid"], dq_shared_bytes=dq["shared_bytes"],
                     partial_shape=(bwd["table_rows"], entries), dq_partial_shape=None, sum_grid=(table_blocks,))
@@ -483,7 +495,6 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
     # bfloat16(alpha q) (where alpha != 1) and bfloat16(dO / norm) into
     # buffers of their own (pointers after dO), and the body reads its rows
     # in 16-byte pieces of 8 elements
-    # (the per-chunk wide bodies round as they load and take none)
     scaled = ()
     if bf16:
         qs = dos = None
@@ -491,6 +502,7 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
             qs = new(torch.empty, *plan["q_scaled_shape"], dtype=q.dtype) if kw["alpha"] != 1.0 else None
             dos = new(torch.empty, *plan["do_scaled_shape"], dtype=q.dtype)
         scaled = (ha._ptr(qs), ha._ptr(dos))
+    scratch, pairs = ha._pairs_args(plan, q.device)  # noqa: F841 (alive through the launch)
     ha._launch_planned(
         plan, name,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), *scaled,
@@ -498,7 +510,7 @@ def _relbias_bwd(q, k, v, lens, nt, ts, pos_w, ts_w, do, kw: dict, deterministic
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(), dpos.data_ptr(), dts.data_ptr(), *tail,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-        *ha._mask_args(kw, N), Nm, NB,
+        *ha._mask_args(kw, N), Nm, NB, *pairs,
         *(int(ha._vec16(t, 8 if bf16 else 4)) for t in (q, k, v, do)), ha._ROUTES[plan["route"]],
         ha._stream(q.device),
     )

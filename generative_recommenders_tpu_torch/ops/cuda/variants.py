@@ -159,6 +159,29 @@ cluster barriers, without the products, without the per-element work
 (silu, the bias), a block per chunk of D too (shipped: per two chunks of
 D).
 
+    python PATH/TO/variants.py --wide-chunks-bwd
+
+(run as a file, with ``PYTHONPATH`` naming the checkout whose package to
+time, as ``--wide-bwd``) times the backward past the clusters (route
+``wide_chunks``: the per-pair backward) through the wrappers, float32 and
+bfloat16, each the mean of 10 launches: K2, K3 and K4, then K7 and K7-det
+(128 buckets), at D 3968 / V 128, D 2048 / V 2049 and D 4352 / V 64 (B 1, N
+300, H 1, a full row), and K2, K3 and K4 at the widest-heads ranker's layer
+(B 8, N 268, H 4, D 3968 / V 128, lengths N / 2 .. N with one full row);
+beside each shape the plain backward (the mean of 2). Run it from the
+parent's checkout and this one in turns (parent, new, new, parent) in one
+call.
+
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-chunks-bwd-variants [KERNEL ...]
+
+builds and times the per-pair backward's knock-outs (labels "wcb: ..."; of
+the named kernels' libraries, K2's, K3's, K4's and K7's, at
+``--wide-chunks-bwd``'s shapes): the copies synchronous (each step's tiles
+waited for before its products, in both passes, in place of the ring), no
+split of the S / dP steps across blocks (the plan patched: one block a
+pair whatever the grid), and the bfloat16 products as two TF32 m16n8k8 in
+place of one m16n8k16.
+
     python PATH/TO/variants.py --det
 
 (run as a file, with ``PYTHONPATH`` naming the checkout whose package to
@@ -245,7 +268,7 @@ _K7: Dict[str, Edit] = {
 _LAST_BLOCK = "K7-det's dq summed by the last block to reach a query tile"
 _K7_DESIGNS: Dict[str, Edit] = {
     _LAST_BLOCK: _both(
-        _sub("  E* dos = nullptr;\n};", "  E* dos = nullptr;\n  E* dq_final = nullptr;\n};"),
+        _sub("  int group_slabs = 0, splits = 0;\n};", "  int group_slabs = 0, splits = 0;\n  E* dq_final = nullptr;\n};"),
         _sub("template <typename E>\nstruct SumParams {",
              "__device__ int g_det_counters[1 << 16];  // zero, and left zero by the last block\n\n"
              "template <typename E>\nstruct SumParams {"),
@@ -436,6 +459,20 @@ _W128_EDITS: Dict[str, Edit] = {
     "w128: two TF32 m16n8k8 in place of m16n8k16": _BF16_EDITS["bf16: m16n8k16 (two TF32 m16n8k8 instead)"],
     "w128: 64-row steps, one (Q, dO) stage (float32)": _sub(_T128, _T128.replace("QT = 32, ST = 2", "QT = 64, ST = 1")),
     "w128: without the table sums": _both(_K7["table sums"], _R16_EDITS["bf16: without the table sums"]),
+}
+# The per-pair backward (route kWideChunks, `sdp_kernel` and `grad_kernel` in
+# hstu_attention_wide.cuh): each step's copies waited for before its
+# products (in place of the ring of stages), no split of the S / dP steps
+# (the plan patched, `_wcb_plan`: no source edit), the bfloat16 products as
+# two TF32 ones
+_WCB_NO_SPLIT = "wcb: no split of the S / dP steps across blocks"
+_WIDE_CHUNKS_BWD_EDITS: Dict[str, Edit] = {
+    "wcb: synchronous copies": _both(
+        _sub("    cp_async_commit();\n    if (!dead) {",
+             "    cp_async_commit();\n    cp_async_wait<0>();\n    __syncthreads();\n    if (!dead) {", "hstu_attention_wide.cuh"),
+        _sub("    cp_async_wait<1>();\n    __syncthreads();  // this step's tiles are in place",
+             "    cp_async_wait<0>();\n    __syncthreads();  // this step's tiles are in place", "hstu_attention_wide.cuh")),
+    "wcb: the bfloat16 products as two TF32 m16n8k8": _BF16_EDITS["bf16: m16n8k16 (two TF32 m16n8k8 instead)"],
 }
 # The wide backward (`bwd_kernel` in hstu_attention_wide.cuh): the copies
 # synchronous, the bfloat16 products as two TF32 ones (both as the width-128
@@ -786,14 +823,19 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
        + [(name, (name,)) for name in _WIDE_FWD_EDITS]]
     + [("hstu_mha_fwd", "wfwd: tile, as shipped", ())]
     + [("hstu_mha_fwd", name, (name,)) for name in _WIDE_TILE_EDITS]
+    + [(kernel, label, phases)
+       for kernel in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv", "hstu_mha_relbias_bwd")
+       for label, phases in [("wcb: as shipped", ()), (_WCB_NO_SPLIT, ())]
+       + [(name, (name,)) for name in _WIDE_CHUNKS_BWD_EDITS]]
 )
-_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS, **_WIDE_BWD_EDITS},
+_EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS, **_WIDE_BWD_EDITS,
+                                   **_WIDE_CHUNKS_BWD_EDITS},
           "delta_hstu_mha_fwd": _K5,
           "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS, **_WIDE_FWD_EDITS, **_WIDE_TILE_EDITS},
           "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS, **_WIDE_FWD_EDITS},
-          "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_BWD_EDITS},
-          "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS},
-          "hstu_mha_bwd_dq": {**_K3, **_BF16_EDITS, **_Q16_EDITS, **_WIDE_BWD_EDITS}}
+          "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_BWD_EDITS, **_WIDE_CHUNKS_BWD_EDITS},
+          "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_CHUNKS_BWD_EDITS},
+          "hstu_mha_bwd_dq": {**_K3, **_BF16_EDITS, **_Q16_EDITS, **_WIDE_BWD_EDITS, **_WIDE_CHUNKS_BWD_EDITS}}
 
 
 def shipped_sources(kernel: str) -> Dict[str, str]:
@@ -983,6 +1025,31 @@ def main(argv: Optional[List[str]] = None) -> None:
         return
     if args == ["--wide-fwd"]:
         wide_fwd_times(device_ms, wide_fwd_inputs(rand, gen))
+        return
+    if args == ["--wide-chunks-bwd"]:
+        wide_bwd_times(device_ms, wide_bwd_inputs(rand, gen, _WIDE_CHUNKS_BWD_SHAPES))
+        return
+    if args[:1] == ["--wide-chunks-bwd-variants"]:
+        inputs = wide_bwd_inputs(rand, gen, _WIDE_CHUNKS_BWD_SHAPES)
+        # naming kernels keeps their libraries' variants
+        chosen = [i for i, (kernel, label, _) in enumerate(VARIANTS)
+                  if label.startswith("wcb") and (len(args) == 1 or kernel in args[1:])]
+        root = os.path.join(build.BUILD_DIR, "variants")
+        try:
+            _build_all(root, chosen)
+            for i in chosen:
+                kernel, label, _ = VARIANTS[i]
+                build._libs.clear()
+                _preload(kernel, os.path.join(root, f"v{i}"))
+                relbias = kernel == "hstu_mha_relbias_bwd"
+                only = {"hstu_mha_bwd_fused": ("K2", "K2-bf16"), "hstu_mha_bwd_dq": ("K3", "K3-bf16"),
+                        "hstu_mha_bwd_dkv": ("K4", "K4-bf16")}.get(kernel)
+                with _wcb_plan(label):
+                    wide_bwd_times(device_ms, {k_: v_ for k_, v_ in inputs.items()
+                                               if (v_["tables"] is not None) == relbias},
+                                   label=f"{label} ({kernel})", plain=False, only=only)
+        finally:
+            build._libs.clear()
         return
     if args == ["--wide-fwd-routes"]:
         wide_fwd_route_times(device_ms, rand, gen)
@@ -1340,18 +1407,43 @@ def wide_times(device_ms, inputs: Dict[str, tuple], label: str = "", forced: boo
                 one(", the wide bodies forced")
 
 
-def wide_bwd_inputs(rand, gen) -> Dict[str, dict]:
-    """The wide backward's inputs by shape, float32 and bfloat16: q, k, v
-    views of one projection and a strided dO, lengths N / 2 .. N with one
-    full row; at D = V = 256 also the relative bias's timestamps and tables
-    (``tables``, else None)."""
+# the wide backward's shapes: name, B, N, H, D, V, the relative bias
+_WIDE_BWD_SHAPES = (("D 512 / V 64", 4, 2048, 2, 512, 64, False),
+                    ("D 64 / V 256", 4, 2048, 2, 64, 256, False),
+                    ("the V-256 ranker's layer", 32, 268, 4, 128, 256, False),
+                    ("D = V = 256", 4, 1024, 2, 256, 256, True))
+# past the clusters (route ``wide_chunks``): the widest heads at chip_smoke's
+# kernel phase (B 1, N 300, H 1), without and with the relative bias, and the
+# widest-heads ranker's layer
+_WIDE_CHUNKS_BWD_SHAPES = tuple((f"D {D} / V {V}{' with the bias' if rel else ''}", 1, 300, 1, D, V, rel)
+                                for D, V in ((3968, 128), (2048, 2049), (4352, 64)) for rel in (False, True)) + (
+    ("the widest-heads ranker's layer", 8, 268, 4, 3968, 128, False),)
+
+
+@contextlib.contextmanager
+def _wcb_plan(label: str):
+    """The per-pair backward's plan matched to a knock-out that changes what
+    the plan decides: no split of the S / dP steps."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
+    shipped = ha._SPLIT_TARGET
+    if label == _WCB_NO_SPLIT:
+        ha._SPLIT_TARGET = 1
+    try:
+        yield
+    finally:
+        ha._SPLIT_TARGET = shipped
+
+
+def wide_bwd_inputs(rand, gen, table=_WIDE_BWD_SHAPES) -> Dict[str, dict]:
+    """The wide backward's inputs by shape of ``table``, float32 and
+    bfloat16: q, k, v views of one projection and a strided dO, lengths N / 2
+    .. N with one full row; with the relative bias also its timestamps and
+    tables (``tables``, else None)."""
     import torch
 
     shapes = {}
-    for name, B, N, H, D, V, relbias in (("D 512 / V 64", 4, 2048, 2, 512, 64, False),
-                                         ("D 64 / V 256", 4, 2048, 2, 64, 256, False),
-                                         ("the V-256 ranker's layer", 32, 268, 4, 128, 256, False),
-                                         ("D = V = 256", 4, 1024, 2, 256, 256, True)):
+    for name, B, N, H, D, V, relbias in table:
         proj = rand(B, N, H * (2 * D + V))
         v, q, k = torch.split(proj, [H * V, H * D, H * D], dim=-1)
         q, k, v = q.reshape(B, N, H, D), k.reshape(B, N, H, D), v.reshape(B, N, H, V)

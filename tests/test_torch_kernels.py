@@ -1484,28 +1484,45 @@ def test_wide_forward_past_the_clusters(cuda, D, V, bf16):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("D,V", [(3968, 128), (2048, 2049)])
-def test_widest_backward_on_the_per_chunk_route(cuda, D, V, bf16):
+def test_widest_backward_on_the_per_chunk_route(cuda, D, V, bf16, monkeypatch):
     """Past 16 blocks of two chunks, K2, K3 + K4, K7 and K7-det take the
-    per-chunk bodies (route ``wide_chunks``): against their plain versions,
-    K3 + K4's and K7-det's outputs the same bits twice."""
+    per-pair backward (route ``wide_chunks``): against their plain versions
+    with targets and a contextual row, and with a window (``max_attn_len``
+    and ``min_full_attn_seq_len``); K2's and K3 + K4's outputs, K7's dq, dk
+    and dv and K7-det's the same bits twice (K7's tables are added with
+    atomics); and with the scratch's cap lowered so that each (batch row,
+    head) slab is a group of its own (4 groups), the same checks again."""
+    from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+
     dtype = torch.bfloat16 if bf16 else torch.float32
-    q, k, v, do, lengths, nt = _wide_views(50, 2, 100, 1, D, V, dtype, cuda)
-    kw = dict(alpha=D**-0.5, max_seq_len=110, num_targets=nt, contextual_seq_len=1)
-    counter = hstu_mha_bwd_cuda.launches["hstu_mha_bwd_fused" + ("_bf16" if bf16 else "")]
-    before = counter.routes.get("wide_chunks", 0)
-    fused = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
-    assert counter.routes.get("wide_chunks", 0) == before + 1
-    split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
-    want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
-    for kind, grads in (("K2", fused), ("K3 + K4", split)):
-        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
-            _held(f"{kind} {name}", g, w, bf16)
-    assert all(torch.equal(a, b) for a, b in zip(split, hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)))
-    rq, rk, rv, rl, ts, pos_w, ts_w, rnt = _relbias_inputs(51, 2, 100, 1, D, V, 100, 128, True, cuda)
+    q, k, v, do, lengths, nt = _wide_views(50, 2, 100, 2, D, V, dtype, cuda)
+    rq, rk, rv, rl, ts, pos_w, ts_w, rnt = _relbias_inputs(51, 2, 100, 2, D, V, 100, 128, True, cuda)
     rq, rk, rv = (x.to(dtype) for x in (rq, rk, rv))
-    rdo = torch.randn(100, 2, 1, V, device=cuda).to(dtype).transpose(0, 1)
-    rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=100, num_buckets=128, num_targets=rnt)
-    _relbias_all((rq, rk, rv, rl, ts, pos_w, ts_w), rdo, rkw, bf16)
+    rdo = torch.randn(100, 2, 2, V, device=cuda).to(dtype).transpose(0, 1)
+    masks = (dict(num_targets=nt, contextual_seq_len=1), dict(max_attn_len=20, min_full_attn_seq_len=10))
+    for groups in (1, 4):
+        if groups == 4:
+            monkeypatch.setattr(ha, "_PAIR_SCRATCH_CAP", 1)
+        assert ha._bwd_plan(D, V, 2, 2, 100, dtype)["groups"] == groups
+        for mask in masks:
+            kw = dict(alpha=D**-0.5, max_seq_len=110, **mask)
+            counter = hstu_mha_bwd_cuda.launches["hstu_mha_bwd_fused" + ("_bf16" if bf16 else "")]
+            before = counter.routes.get("wide_chunks", 0)
+            fused = hstu_mha_bwd_cuda(q, k, v, lengths, do, **kw)
+            assert counter.routes.get("wide_chunks", 0) == before + 1
+            split = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=True, **kw)
+            want = hstu_mha_bwd_plain(q, k, v, lengths, do, **kw)
+            for kind, grads in (("K2", fused), ("K3 + K4", split)):
+                for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+                    _held(f"{kind} {name} ({groups} groups, {sorted(mask)})", g, w, bf16)
+                again = hstu_mha_bwd_cuda(q, k, v, lengths, do, split=kind != "K2", **kw)
+                assert all(torch.equal(a, b) for a, b in zip(grads, again)), kind
+            rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=100, num_buckets=128,
+                       **(dict(num_targets=rnt) if "num_targets" in mask else mask))
+            args = (rq, rk, rv, rl, ts, pos_w, ts_w)
+            _relbias_all(args, rdo, rkw, bf16)
+            k7 = [hstu_mha_relbias_bwd_cuda(*args, rdo, **rkw) for _ in range(2)]
+            assert all(torch.equal(a, b) for a, b in zip(k7[0][:3], k7[1][:3])), "K7's dq, dk, dv"
 
 
 # (D, V) of the tile forward: D up to 256 with V of 129 to 256, D up to 128

@@ -7,11 +7,13 @@ query width, on the CPU.
   128 columns of D and of V, one each up to a portable cluster's 8 blocks,
   two each past it (up to 16 blocks, a non-portable cluster); each block's
   shared memory within a Hopper block's 232,448 bytes; past 16 blocks of two
-  chunks the per-chunk bodies (route ``wide_chunks``, one block per output
-  chunk), so that every width the wide forward takes, the backward takes;
-  grids past CUDA's limits refused with a ValueError that names the sizes.
-  The Python mirror of the cluster's shape and of the block's bytes against
-  the constants of the C header.
+  chunks the per-pair backward (route ``wide_chunks``: S and dP once per 64 x
+  64 tile pair into a float32 scratch, then a gradient pass a block per
+  output tile and chunk), its slabs in groups under the scratch's cap, so
+  that every width the wide forward takes, the backward takes; grids past
+  CUDA's limits refused with a ValueError that names the sizes. The Python
+  mirror of the cluster's shape, of the block's bytes and of the per-pair
+  tiling against the constants of the C header.
 * The DLRM ranker (`DlrmHSTU`) with hstu_attn_linear_dim unequal to
   hstu_attn_qk_dim (32 against 16, and 16 against 32; 2 heads, 2 layers, a
   small debug batch) against the JAX package's `DlrmTrainer` on the same
@@ -102,42 +104,99 @@ def test_shared_bytes_stay_within_a_block():
 
 @pytest.mark.parametrize("args,match", [
     ((512, 512, 2**16, 2**9, 2**10), r"clusters of 8 blocks.*exceeds"),
-    ((4096, 4096, 2**16, 2**9, 2**7), r"per-chunk wide d.* kernel's grid of \d+ blocks exceeds"),
+    ((4096, 4096, 1, 1, 2**22), r"per-pair wide d.* kernel's grid of \d+ blocks exceeds"),
 ])
 def test_plans_past_cuda_limits_raise_with_the_sizes(args, match):
-    """A grid past 2^31 - 1 blocks, on clusters or per chunk, raises a
-    ValueError that names the sizes; nothing falls back."""
+    """A grid past 2^31 - 1 blocks, on clusters or per tile pair, raises a
+    ValueError that names the sizes; nothing falls back. The per-pair route
+    runs its slabs in groups, so only one slab's grid can pass the limit (N
+    2^22: 2^32 tile pairs)."""
     for plan in (ha._bwd_plan, ha._dq_plan):
         with pytest.raises(ValueError, match=match):
             plan(*args)
+
+
+def _pairs_bytes(group, qt, splits):
+    """A group's scratch (as `hstu_wide::Pairs` lays it out): P and dS of
+    every pair, the pairs' flags padded to 4, the splits' partial S and dP."""
+    tiles = group * qt * qt
+    return 4 * (2 * tiles * 4096 + -(-tiles // 4) * 4 + (splits * tiles * 2 * 4096 if splits > 1 else 0))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bfloat16"])
 @pytest.mark.parametrize("D,V", [(2176, 2048), (128, 4096), (3968, 128), (2048, 2049)])
 def test_past_16_blocks_of_two_chunks_the_per_chunk_route(D, V, dtype):
     """Widths a cluster of 16 blocks of two chunks does not take (these raised
-    before; the wide forward takes them) go to the per-chunk bodies, route
-    ``wide_chunks``: the dq pass a block per (64-row tile, head, batch row,
-    dQ chunk), the dkv pass one per dK or dV chunk, the bytes of their tiles
-    (`dq_chunks_smem_bytes`, `dkv_chunks_smem_bytes`), no pre-scaling pass on
-    bfloat16; K7's and K7-det's the same with the table sums on the dkv
-    pass's blocks of chunk 0, one row of `partial` each."""
+    before; the wide forward takes them) go to the per-pair backward, route
+    ``wide_chunks``: the S / dP pass a block per (64 x 64 tile pair, split,
+    slab), 3 stages of two [64][72] tiles; the gradient pass a block per
+    (64-row tile, 128-column chunk, slab): dQ's chunks for K3, dK's and dV's
+    for K4, all three for K2 (``fused_grid``) and K7, two stages of a float32
+    [64][72] A tile and a [64][136] chunk; the float32 scratch of P, dS, the
+    flags and the splits' parts; one group here; the pre-scaling pass on
+    bfloat16; K7's and K7-det's table sums a block per key tile, one row of
+    `partial` per key tile, head and batch row."""
     B, H, N, Nm, NB = 4, 2, 300, 300, 128
     assert ha._wide_cluster(D, V) is None
-    tiles, nd, nv = -(-N // 64), _chunks(D), _chunks(V)
+    qt, nd, nv, elem = -(-N // 64), _chunks(D), _chunks(V), dtype.itemsize
+    steps = -(-D // 64) + -(-V // 64)
     dq = ha._dq_plan(D, V, H, B, N, dtype)
     dkv = ha._bwd_plan(D, V, H, B, N, dtype)
     assert dq["route"] == dkv["route"] == dkv["dq"]["route"] == "wide_chunks"
-    assert dq["grid"] == (tiles * H * B * nd,) and dkv["grid"] == (tiles * H * B * (nd + nv),)
-    assert dq["shared_bytes"] == 4 * (2 * 64 * 136 + 2 * 32 * 136 + 64 * 40 + 8) <= SHARED
-    assert dkv["shared_bytes"] == 4 * (2 * 32 * 136 + 2 * 64 * 136 + 2 * 32 * 72) <= SHARED
-    assert "do_scaled_shape" not in dq and "do_scaled_shape" not in dkv
+    group, pairs = B * H, B * H * qt * qt  # 200 pairs: split
+    splits = -(-steps // -(-steps // -(-264 // pairs)))
+    for plan in (dq, dkv):
+        assert (plan["groups"], plan["group_slabs"], plan["splits"]) == (1, group, splits) and splits == 2
+        assert plan["sdp_grid"] == (pairs * splits,) and plan["sums_grid"] == (pairs,)
+        assert plan["sdp_shared_bytes"] == 3 * 2 * 64 * 72 * elem <= SHARED
+        assert plan["shared_bytes"] == 2 * (4 * 64 * 72 + elem * 64 * 136) <= SHARED
+        assert plan["scratch_shape"] == (_pairs_bytes(group, qt, splits) // 4,)
+        assert ("do_scaled_shape" in plan) == (dtype == torch.bfloat16)
+    assert dq["grid"] == (group * qt * nd,) and dkv["grid"] == (group * qt * (nd + nv),)
+    assert dkv["fused_grid"] == (group * qt * (2 * nd + nv),)
     k7 = hr._relbias_bwd_plan(D, V, H, Nm, NB, dtype, B, N)
-    assert k7["route"] == "wide_chunks" and k7["grid"] == dkv["grid"]
-    assert k7["shared_bytes"] == dkv["shared_bytes"] + 4 * (32 * 72 + 95 + 1 + 8 * 296) <= SHARED
+    assert k7["route"] == "wide_chunks" and k7["grid"] == dkv["fused_grid"]
+    assert k7["tables_grid"] == (group * qt,) and k7["tables_shared_bytes"] == 4 * (64 * 65 + 128 + 8 * 296)
     det = hr._relbias_det_plan(D, V, H, B, N, Nm, NB, dtype=dtype)
-    assert det["route"] == "wide_chunks" and det["dq_grid"] == dq["grid"]
-    assert det["partial_shape"] == (tiles * H * B, 2 * Nm - 1 + NB + 1) and det["dq_partial_shape"] is None
+    assert det["route"] == "wide_chunks" and det["grid"] == k7["grid"] and det["scratch_shape"] == dq["scratch_shape"]
+    assert det["partial_shape"] == (qt * H * B, 2 * Nm - 1 + NB + 1) and det["dq_partial_shape"] is None
+
+
+@pytest.mark.parametrize("case", ["past the cap", "one slab past the cap", "the ranker's layer", "few pairs"])
+def test_per_pair_scratch_goes_in_groups_under_the_cap(case):
+    """The per-pair backward's (batch row, head) slabs run in groups whose
+    P, dS and flags stay under `_PAIR_SCRATCH_CAP` (256 MiB), each group in
+    turn on one scratch: B 8, H 8, N 4096 at D 3968 / V 128 in 64 groups; a
+    slab larger than the cap (N 8192) a group of its own; the widest-heads
+    ranker's layer (B 8, N 268, H 4) one group, unsplit; B 1, H 1, N 300 one
+    group of 25 pairs whose S / dP steps split 11 ways (264 blocks aimed
+    at). The plans of K2 / K4, K3, K7 and K7-det agree; every grid of a
+    group within CUDA's limit."""
+    cap = ha._PAIR_SCRATCH_CAP
+    assert cap == 256 * 2**20
+    B, N, H, groups, splits = {"past the cap": (8, 4096, 8, 64, 1), "one slab past the cap": (1, 8192, 2, 2, 1),
+                               "the ranker's layer": (8, 268, 4, 1, 1), "few pairs": (1, 300, 1, 1, 11)}[case]
+    D, V, qt = 3968, 128, -(-N // 64)
+    plans = [ha._bwd_plan(D, V, H, B, N), ha._dq_plan(D, V, H, B, N), hr._relbias_bwd_plan(D, V, H, N, 128, B=B, N=N),
+             hr._relbias_det_plan(D, V, H, B, N, N, 128)]
+    for plan in plans:
+        assert (plan["route"], plan["groups"], plan["splits"]) == ("wide_chunks", groups, splits)
+        group = plan["group_slabs"]
+        assert -(-(B * H) // group) == groups
+        own = _pairs_bytes(group, qt, 1)
+        assert own <= cap or group == 1  # under the cap, or a slab past it alone
+        assert group == B * H or _pairs_bytes(group + 1, qt, 1) > cap  # as many slabs as fit
+        assert plan["scratch_shape"] == (_pairs_bytes(group, qt, splits) // 4,)
+        assert max(plan["sdp_grid"][0], plan["grid"][0]) < 2**31
+    if case == "past the cap":
+        assert plans[0]["group_slabs"] == 1 and _pairs_bytes(1, qt, 1) < cap < _pairs_bytes(2, qt, 1)
+    if case == "one slab past the cap":
+        assert _pairs_bytes(1, qt, 1) > cap
+    if case == "the ranker's layer":
+        assert plans[0]["group_slabs"] == 32 and _pairs_bytes(32, qt, 1) < 50 * 10**6  # within the L2
+    # the grid that raised on the per-chunk route (2^9 batch rows, 2^16 heads, N 128) goes in groups
+    wide = ha._bwd_plan(4096, 4096, 2**16, 2**9, 2**7)
+    assert wide["groups"] > 1 and wide["fused_grid"][0] < 2**31
 
 
 def test_relative_bias_plans_take_the_clusters():
@@ -178,6 +237,10 @@ def test_python_mirrors_the_header():
     assert const("kSplitFrom") == ha._SPLIT_FROM
     assert const("kRecvSlots") * 256 <= 2 * ha._WIDE_BWD_ROWS * ha._WIDE_BWD_XP  # in the exchange buffers' space
     assert const("kBwdThreads") == 256  # eight warps' live flags and dts_w copies
+    # the per-pair backward's tiles, stages and split target
+    assert (const("kPT"), const("kPK"), const("kSdpStages"), const("kGradStages"), const("kSplitTarget")) == (
+        ha._PAIR_TILE, ha._PAIR_STEP, ha._SDP_STAGES, ha._GRAD_STAGES, ha._SPLIT_TARGET)
+    assert re.search(r"constexpr int kPA = kPK \+ 8;", text) and ha._PAIR_PITCH == ha._PAIR_STEP + 8
 
 
 @pytest.mark.parametrize("D", [1, 128, 129, 640, 1024, 2048, 2176])
