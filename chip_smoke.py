@@ -358,10 +358,13 @@ WIDE_PRESET, WIDE_HEAD, WIDE_STEPS = "ml-20m/hstu-sampled-softmax-n128", 128, 5
 WIDE_SHAPES = ((64, 136), (64, 192), (64, 256), (64, 320), (264, 64), (320, 64), (512, 64), (512, 512), (640, 512),
                (128, 256))
 # the widest-heads phases: (D, V) past 16 blocks of two chunks of the wide
-# backward's clusters, which take its per-chunk bodies (route wide_chunks);
+# backward's clusters, which take its per-pair bodies (route wide_chunks);
 # the forward takes its clusters at the first two and, past 3 tiles a block
-# of 16 (D's 34 chunks), its per-chunk body at the last
+# of 16 (D's 34 chunks), its per-pair forward at the last
 WIDEST = ((3968, 128), (2048, 2049), (4352, 64))
+# and the widths whose V the forward's clusters do not take (34 chunks of V):
+# the per-pair forward and backward, in the widest-heads kernel phase
+WIDE_V = (128, 4352)
 # the parity checks' small models: a ranker with 128-row tables, a research
 # model with 127 items (128 rows), global batches of 8
 PARITY_HASH, PARITY_ITEMS, PARITY_BATCH = 128, 127, 8
@@ -2518,8 +2521,8 @@ def main() -> None:
     # qk 2048 / linear 2049 (16 + 17) and qk 4352 / linear 64 (34 + 1); one
     # layer, batch 8, the training phase's uih and candidates, tables of
     # 100,000 rows: the forward on its plan's route (K1: clusters, route
-    # wide; at qk 4352 the per-chunk body, route wide_chunks), the backward
-    # on the per-chunk bodies (K2, route wide_chunks; K3 + K4 under
+    # wide; at qk 4352 the per-pair forward, route wide_chunks), the backward
+    # on the per-pair bodies (K2, route wide_chunks; K3 + K4 under
     # deterministic algorithms)
     WB_, WS_, WH_ = 8, 2, 100_000
     x_tables = get_embedding_table_config("debug", hash_size=WH_, dim=tcfg.hstu_embedding_table_dim)
@@ -2630,6 +2633,14 @@ def main() -> None:
     check(hr.ha._bwd_plan(XD, XV, H, WB_, N_tr)["route"] == "wide_chunks", "the widest layer's backward route")
     x_rows = layer_rows(WB_, N_tr, tr_len[:WB_], tr_nt[:WB_], XD, XV, ("K2", "K3", "K4"),
                         "the widest-heads ranker's layer", "", lambda k_: "wide_chunks")
+    # and K1 at the widest-heads ranker's forward layer (qk 4352 / linear 64,
+    # where the phase's forward takes the per-pair route): the row of its
+    # main-path launches on that route
+    FD, FV = WIDEST[-1]
+    check(hr.ha._fwd_plan(FD, FV, H, 0, 0, False, WB_, N_tr)["route"] == "wide_chunks",
+          "the widest forward layer's route")
+    x_rows.update(layer_rows(WB_, N_tr, tr_len[:WB_], tr_nt[:WB_], FD, FV, ("K1",),
+                             "the widest-heads ranker's forward layer", "", lambda k_: "wide_chunks"))
 
     def small_step_grads(cfg_, coins=()):
         """One training forward and backward of a small ranker from one seed
@@ -3673,20 +3684,22 @@ def main() -> None:
                       f"{label_} D={Dw} V={Vw}: two runs differ")
             del q_, k_, v_, got, bias_
         # the widest heads (`WIDEST`, past 16 blocks of two chunks of the wide
-        # backward's clusters), B 1, H 1, N 300, a full row: K1, K1-bias and K6
-        # on the forward's clusters (per chunk at D 4352 / V 64, past them),
-        # K2, K3 + K4, K7 and K7-det on the per-pair route (`wide_chunks`), both
-        # types, against their plain versions; K1, K1-bias, K2, K3 + K4, K7-det
-        # and K7's dq, dk and dv the same bits twice. Each route's float32 times at the first of these
-        # shapes it takes are the rows of the main paths' launches on it (the
-        # widest-heads phases).
+        # backward's clusters) and `WIDE_V`, B 1, H 1, N 300, a full row: K1,
+        # K1-bias and K6 on the forward's clusters (on the per-pair forward at
+        # D 4352 / V 64 and D 128 / V 4352, past them), K2, K3 + K4, K7 and
+        # K7-det on the per-pair route (`wide_chunks`), both types, against
+        # their plain versions; K1, K1-bias, K6, K2, K3 + K4, K7-det and K7's
+        # dq, dk and dv the same bits twice. Each route's float32 times at the
+        # first of these shapes it takes are the rows of the main paths'
+        # launches on it (the widest-heads phases; K1's on the per-pair route
+        # at the widest-heads ranker's forward layer instead).
         widest_rows = {}
         xB, xN, xH = 1, 300, 1
         x_len = torch.full((xB,), xN, device="cuda", dtype=torch.int32)
         x_live = xN * (xN + 1) // 2
-        print(f"widest-heads kernel phase: (D, V) in {list(WIDEST)}, B={xB} N={xN} H={xH}, full rows: K1, K1-bias, K6, "
+        print(f"widest-heads kernel phase: (D, V) in {list(WIDEST + (WIDE_V,))}, B={xB} N={xN} H={xH}, full rows: K1, K1-bias, K6, "
               f"K2, K3 + K4, K7 and K7-det (float32 and bfloat16) against their plain versions")
-        for Dw, Vw in WIDEST:
+        for Dw, Vw in WIDEST + (WIDE_V,):
             for dt in (torch.float32, torch.bfloat16):
                 bf = dt == torch.bfloat16
                 s_, sfx, peak = (2, "-bf16", PEAK_BF16_FLOPS) if bf else (4, "", PEAK_3XTF32_FLOPS)
@@ -3714,8 +3727,10 @@ def main() -> None:
                 pw_, tw_ = bias_tables(xN, 128)
                 rargs = (q_, k_, v_, x_len, random_ts(xB, xN, x_len), pw_, tw_)
                 rkw = dict(alpha=1.0 if bf else Dw**-0.5, max_seq_len=xN, num_buckets=128)
-                e6 = held("K6" + tag, hstu_mha_dense_relbias_cuda(*rargs, **rkw),
-                          hstu_mha_dense_relbias_plain(*rargs, **rkw), tol)
+                f6 = hstu_mha_dense_relbias_cuda(*rargs, **rkw)
+                e6 = held("K6" + tag, f6, hstu_mha_dense_relbias_plain(*rargs, **rkw), tol)
+                check(torch.equal(f6, hstu_mha_dense_relbias_cuda(*rargs, **rkw)), f"K6{tag}: two runs differ")
+                del f6
                 want7 = hstu_mha_relbias_bwd_plain(*rargs, do_, **rkw)
                 for kname, det in (("K7", False), ("K7-det", True)):
                     got = hstu_mha_relbias_bwd_cuda(*rargs, do_, deterministic=det, **rkw)
@@ -3796,6 +3811,32 @@ def main() -> None:
         for g, x_, w_ in zip(("dq", "dk", "dv", "dpos_w", "dts_w"), got, want7):
             held(f"K7-det in two groups {g}", x_, w_, TABLE_TOL if g.endswith("_w") else REL_TOL)
         del q_, k_, v_, do_, rargs, want7, got
+        torch.cuda.empty_cache()
+        # a shape whose per-pair forward scratch crosses groups: B 5, H 1, N
+        # 4096 at D 4352 / V 64, float32, a full row and shorter ones; each
+        # slab's P and flags take 67 MB, so three fit the 256 MiB cap and the
+        # slabs run in two groups on one scratch: K1 and K6 against their
+        # plain versions, the same bits twice
+        pB, pN, pD, pV = 5, 4096, 4352, 64
+        p_plan = hr.ha._fwd_plan(pD, pV, 1, pN, 128, True, pB, pN)
+        print(f"per-pair forward groups: D={pD} V={pV} B={pB} N={pN} H=1, {p_plan['groups']} groups of "
+              f"{p_plan['group_slabs']} slabs, scratch {p_plan['scratch_shape'][0] * 4} bytes")
+        check(p_plan["route"] == "wide_chunks" and p_plan["groups"] == 2 and
+              hr.ha._fwd_plan(pD, pV, 1, 0, 0, False, pB, pN) == p_plan, f"the forward's group-crossing plan: {p_plan}")
+        p_len = torch.tensor([pN, 3000, 4000, 1, 2049], device="cuda", dtype=torch.int32)
+        p_dead = torch.arange(pN, device="cuda")[None, :] >= p_len[:, None]
+        q_, k_, v_, _ = views(pB, pN, 1, pD, pV, torch.float32)
+        a_ = dict(alpha=pD**-0.5, max_seq_len=pN)
+        got = hstu_mha_dense_cuda(q_, k_, v_, p_len, **a_)
+        held("K1 in two groups", got, hstu_mha_dense_plain(q_, k_, v_, p_len, **a_), REL_TOL, p_dead)
+        check(torch.equal(got, hstu_mha_dense_cuda(q_, k_, v_, p_len, **a_)), "K1 in two groups: two runs differ")
+        pw_, tw_ = bias_tables(pN, 128)
+        rargs = (q_, k_, v_, p_len, random_ts(pB, pN, p_len), pw_, tw_)
+        rkw = dict(alpha=pD**-0.5, max_seq_len=pN, num_buckets=128)
+        got = hstu_mha_dense_relbias_cuda(*rargs, **rkw)
+        held("K6 in two groups", got, hstu_mha_dense_relbias_plain(*rargs, **rkw), REL_TOL, p_dead)
+        check(torch.equal(got, hstu_mha_dense_relbias_cuda(*rargs, **rkw)), "K6 in two groups: two runs differ")
+        del q_, k_, v_, rargs, got
         torch.cuda.empty_cache()
 
         # the wide instances' times at V 256 and at D 512, B 4, N 2048, H 2

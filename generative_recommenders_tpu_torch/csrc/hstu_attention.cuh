@@ -23,7 +23,7 @@ namespace hstu {
 // in ops/cuda/hstu_attention.py and hstu_attention_relbias.py): the narrow
 // body with its tables staged in shared memory, the narrow body with its
 // tables read from device memory (K6, K7 and K7-det), the wide bodies on
-// thread block clusters of hstu_attention_wide.cuh, its per-chunk bodies
+// thread block clusters of hstu_attention_wide.cuh, its per-pair bodies
 // (the widths no cluster takes), or its tile forward (float32 K1 and
 // K1-bias at V of 129 to 256, or to 384 at D up to 128). A launch takes the
 // route it is given and returns cudaErrorInvalidValue where that body cannot

@@ -113,7 +113,10 @@ struct Params {
   // the float32 [chunks, B, N, H, V] sums of a walk cut in chunks (null
   // where the plan cuts none)
   int chunk = 0;
+  // the scratch: those sums, or on route kWideChunks (either type) the
+  // per-pair forward's float32 scratch, its slabs a group and its splits
   float* scratch = nullptr;
+  int group_slabs = 0, splits = 0;
 };
 
 // The bias added to S: none (K1), the relative bias rebuilt from two tables
@@ -494,8 +497,8 @@ __host__ inline bool vec16(const void* ptr, long long sb, long long sn, long lon
 }
 
 // The wide bodies (hstu_attention_wide.cuh) on the same parameters, by
-// route: on clusters (kWide), per chunk (kWideChunks), or the tile forward
-// (kWideTile: float32, no relative bias)
+// route: on clusters (kWide), per tile pair (kWideChunks, on the scratch), or
+// the tile forward (kWideTile: float32, no relative bias)
 template <int BIAS, typename E>
 int launch_wide(const Params& p, int route, cudaStream_t stream) {
   hstu_wide::Params<E> w = hstu_wide::from<E>(p);
@@ -509,9 +512,12 @@ int launch_wide(const Params& p, int route, cudaStream_t stream) {
   w.bias_sb = p.bias_sb;
   w.bias_sn = p.bias_sn;
   w.bias_bf16 = p.bias_bf16;
+  w.scratch = p.scratch;
+  w.group_slabs = p.group_slabs;
+  w.splits = p.splits;
   constexpr int WB = BIAS == kNoBias ? hstu_wide::kNoBias
                                      : (BIAS == kDenseBias ? hstu_wide::kDenseBias : hstu_wide::kRelBias);
-  if (route == hstu::kWideChunks) return (int)hstu_wide::launch_fwd_chunks<WB, E>(w, stream);
+  if (route == hstu::kWideChunks) return (int)hstu_wide::launch_fwd_pairs<WB, E>(w, stream);
   if (route == hstu::kWideTile) {
     if constexpr (std::is_same<E, float>::value) return (int)hstu_wide::launch_tile<WB>(w, stream);
     return (int)cudaErrorInvalidValue;
@@ -541,7 +547,7 @@ int launch_bf16(Params p, int route, cudaStream_t s);
 // tables and the row's timestamps staged in shared memory; kRead: K6 on
 // that body with them read from device memory (kRelBiasGlobal); kWide: the
 // wide body on clusters (`hstu_wide::fwd_kernel`); kWideChunks: the
-// per-chunk wide body (`hstu_wide::fwd_chunks_kernel`); kWideTile: the tile
+// per-pair forward (`hstu_wide::launch_fwd_pairs`); kWideTile: the tile
 // forward (`hstu_wide::tile_fwd_kernel`, float32 without the relative bias).
 // kDenseBias needs a bias. E: float, or __nv_bfloat16.
 template <int BIAS, typename E = float>

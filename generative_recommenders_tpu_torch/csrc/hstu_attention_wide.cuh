@@ -27,19 +27,18 @@
 //   (Q resident, K streamed) and of V's for O (V streamed, O in registers);
 // * the backward (`bwd_kernel`): one cluster per 64-row tile, each block one
 //   or two 128-column chunks of D or of V.
-// Route kWideChunks, for the widths no cluster takes, any width:
-// * the forward past 16 blocks of 3 tiles of 128 columns: the per-chunk body
-//   (`fwd_chunks_kernel`), a block per V chunk, which recomputes S for each
-//   chunk, multiplies in TF32 on float32 tiles (3xTF32 in float32, one exact
-//   product on bfloat16 values) and whose loads wait;
-// * the backward past 16 blocks of two chunks: the per-pair backward
-//   (`sdp_kernel`, `grad_kernel`, `tables_kernel`), S and dP formed once per
-//   64 x 64 tile pair and kept as P and dS in a float32 scratch, then a block
-//   per output tile and chunk forms dQ, dK or dV over them; copies in a ring
-//   of `cp.async` stages, 3xTF32 in float32, m16n8k16 on bfloat16
-//   (`ops/cuda/variants.py --wide-chunks-bwd` times it, run as a file on
-//   the card from two checkouts in turns; `--wide-chunks-bwd-variants` its
-//   knock-outs).
+// Route kWideChunks, for the widths no cluster takes, any width: the
+// per-pair bodies, S (and dP) formed once per 64 x 64 tile pair and kept, as
+// P (and dS), in a float32 scratch that the wrapper allocates, then a block
+// per output tile and chunk forms O, or dQ, dK and dV, over them; copies in a
+// ring of `cp.async` stages, 3xTF32 in float32, m16n8k16 on bfloat16:
+// * the forward past 16 blocks of 3 tiles of 128 columns (`sdp_kernel` in
+//   its S-only mode, then `grad_kernel`'s O = P V), Q read once per tile
+//   pair (`ops/cuda/variants.py --wide-chunks-fwd` times it, run as a file
+//   on the card from two checkouts in turns; `--wide-chunks-fwd-variants`
+//   its knock-outs);
+// * the backward past 16 blocks of two chunks (`sdp_kernel`, `grad_kernel`,
+//   `tables_kernel`; `--wide-chunks-bwd`, `--wide-chunks-bwd-variants`).
 // Tables and timestamps of the relative bias are read through the L1 cache,
 // never staged: a table of any length fits.
 // Bound: the kernels' own (the same functions); PERF.md has the times.
@@ -61,8 +60,7 @@ using namespace hstu_tf32;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxShared = 232448;
-constexpr int kThreads = 128;     // the per-chunk forward: 4 warps
-constexpr int kBwdThreads = 256;  // the other bodies: 8 warps
+constexpr int kBwdThreads = 256;  // every body: 8 warps
 constexpr int kC = 128;        // columns of a chunk of D or V
 constexpr int kP = kC + 8;     // pitch of a chunk tile
 // A float32 time gap |dt| <= FLT_MAX has floor(ln(|dt|) / 0.301) <= 294, so
@@ -111,31 +109,13 @@ struct Params {
   // (where alpha != 1) and bfloat16(dO / norm)
   E* qs = nullptr;
   E* dos = nullptr;
-  // the per-pair backward (route kWideChunks): the wrapper's float32
-  // scratch, the slabs of a group and the S / dP pass's splits, as planned
+  // the per-pair bodies (route kWideChunks): the wrapper's float32
+  // scratch, the slabs of a group and the S (/ dP) pass's splits, as planned
   float* scratch = nullptr;
   int group_slabs = 0, splits = 0;
 };
 
 __host__ __device__ constexpr int chunks(int w) { return (w + kC - 1) / kC; }
-
-// The per-chunk forward: Q [64][kP], K [32][kP], V [32][kC + 4]
-constexpr int kFwdRows = 64, kFwdCols = 32;
-constexpr int fwd_chunks_smem_bytes() { return 4 * (kFwdRows * kP + kFwdCols * kP + kFwdCols * (kC + 4)); }
-static_assert(fwd_chunks_smem_bytes() <= kMaxShared, "the tiles fit a block's shared memory");
-
-// The per-chunk forward's loads: chunk c (columns c kC .. + kC) of one head's
-// rows [r0, r0 + ROWS) into a [ROWS][P] float32 tile: float32
-// asynchronously, bfloat16 converted (scaled and rounded where scale != 1);
-// zeros at rows >= lim and columns >= w.
-template <int P, int ROWS, int THREADS, typename E>
-__device__ __forceinline__ void load_chunk(float* dst, const E* src, long long sn, int r0, int lim,
-                                           int w, int c, bool vec, float scale) {
-  if constexpr (std::is_same<E, float>::value)
-    load_tile<kC, P, ROWS, THREADS>(dst, src + c * kC, sn, r0, lim, w - c * kC, vec);
-  else
-    load_tile<kC, P, ROWS, THREADS>(dst, src + c * kC, sn, r0, lim, w - c * kC, vec, scale);
-}
 
 template <typename E>
 __device__ __forceinline__ bool live(const Params<E>& p, int row, int col, int length, int nt) {
@@ -259,7 +239,7 @@ enum Pass : int { kDqPass = 0, kDkvPass = 1 };
 // ops/cuda/hstu_attention.py): M chunks a block, one while chunks(D) +
 // chunks(V) blocks fit a portable cluster, else two; nd D-blocks, nv
 // V-blocks, cs = nd + nv; split: the per-element work split across the
-// blocks. cs = 0: wider than 16 blocks of two chunks (the per-chunk bodies
+// blocks. cs = 0: wider than 16 blocks of two chunks (the per-pair bodies
 // take those widths, route kWideChunks).
 struct Cluster {
   int m, nd, nv, cs, split;
@@ -866,7 +846,7 @@ inline int fwd_smem_bytes(int elem, const FwdCluster& c) {
 // each step's fixed costs: at D 512 / V 64, 2 blocks of 256 columns took
 // 0.83 ms in float32 where 4 of 128 took 0.98); each block's columns of D and
 // of V the widths' shares rounded up to 32. cs = 0 where a block would hold
-// more than kFwdMaxTiles tiles (the per-chunk forward takes those widths,
+// more than kFwdMaxTiles tiles (the per-pair forward takes those widths,
 // route kWideChunks).
 inline FwdCluster fwd_cluster_of(int D, int V) {
   const int cs = min(kMaxCluster, max((chunks(D) + 1) / 2, chunks(V)));
@@ -1526,170 +1506,23 @@ __global__ void __launch_bounds__(kBwdThreads, 1) tile_fwd_kernel(Params<float> 
   }
 }
 
-// --------------------------------------------------- per-chunk forward
-// Route kWideChunks's forward: the widths no cluster takes, one block per
-// output chunk; S = alpha Q K^T is summed over D's chunks in registers
-// before the bias, silu and the mask, and recomputed by each V chunk's
-// block. Q stays resident where it is one chunk wide; a wider one is loaded
-// chunk by chunk per tile, and every load waits. The products are
-// `mma.sync.m16n8k8` TF32 on float32 tiles: 3xTF32 in float32, one exact
-// TF32 product on bfloat16 values (alpha q rounded on load, P rounded before
-// P V).
-// One block of 4 warps per (64-row query tile, head, batch row, V chunk):
-// each warp owns 16 query rows. Per 32-column key tile S is summed over D's
-// chunks, then P = silu(alpha S + bias) * mask stays in registers as the A
-// fragment of P V (`frag_a_c`) for the block's V chunk.
-template <int BIAS, typename E>
-__global__ void __launch_bounds__(kThreads) fwd_chunks_kernel(Params<E> p) {
-  constexpr bool kBf16 = !std::is_same<E, float>::value;
-  constexpr int kRows = kFwdRows, BK = kFwdCols, NT = BK / 8, NO = kC / 8, PV = kC + 4;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;             // [64][kP]
-  float* Ks = Qs + kRows * kP;  // [32][kP]
-  float* Vs = Ks + BK * kP;     // [32][PV]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_dc = chunks(p.D), n_vc = chunks(p.V);
-  const int n_qt = (p.N + kRows - 1) / kRows;
-  // the block's index counts the V chunk first and the query tile last, from
-  // the row's end: the longest walks start first
-  int blk = (int)blockIdx.x;
-  const int vc = blk % n_vc;
-  blk /= n_vc;
-  const int h = blk % p.H;
-  blk /= p.H;
-  const int b = blk % p.B;
-  const int q0 = (n_qt - 1 - blk / p.B) * kRows;
-  const int length = min(p.lengths[b], p.N);
-  const int nt = p.num_targets ? p.num_targets[b] : 0;
-  int kv_limit = length;
-  if (p.causal && q0 >= p.contextual_seq_len) kv_limit = min(kv_limit, q0 + kRows);
-  if (q0 >= length) kv_limit = 0;
-  const int n_kt = (kv_limit + BK - 1) / BK;
-  // bfloat16: alpha rides Q, rounded; S then takes none
-  const float q_scale = kBf16 && p.alpha != 1.f ? round_bf16(p.alpha) : 1.f;
-  const float s_alpha = kBf16 ? 1.f : p.alpha;
-  const int row_lo = q0 + warp * 16 + g;
-  const E* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const E* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const E* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const float* tsb = BIAS == kRelBias ? p.ts + (long long)b * p.N : nullptr;
-  float tq[2] = {0.f, 0.f};
-  if (BIAS == kRelBias) {
-    tq[0] = ts_row(tsb, row_lo, p.N);
-    tq[1] = ts_row(tsb, row_lo + 8, p.N);
-  }
-
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
-
-  // one chunk of D: Q stays for the whole walk
-  if (n_dc == 1 && n_kt > 0) load_chunk<kP, kRows, kThreads>(Qs, qb, p.q_sn, q0, length, p.D, 0, p.vec_q != 0, q_scale);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int c0 = kt * BK;
-    // element e = 4 j + c is row row_lo + 8 (c / 2), column c0 + 8 j + 2 t + c % 2
-    uint32_t ok_bits = 0;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const bool ok = live(p, row_lo + 8 * (c >> 1), c0 + 8 * j + 2 * t + (c & 1), length, nt);
-        ok_bits |= (ok ? 1u : 0u) << (4 * j + c);
-      }
-    const bool dead = __all_sync(kFull, ok_bits == 0);
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
-    for (int dc = 0; dc < n_dc; ++dc) {
-      __syncthreads();  // every warp is done with the tiles
-      if (n_dc > 1) load_chunk<kP, kRows, kThreads>(Qs, qb, p.q_sn, q0, length, p.D, dc, p.vec_q != 0, q_scale);
-      load_chunk<kP, BK, kThreads>(Ks, kb, p.k_sn, c0, length, p.D, dc, p.vec_k != 0, 1.f);
-      if (dc == 0) load_chunk<PV, BK, kThreads>(Vs, vb, p.v_sn, c0, length, p.V, vc, p.vec_v != 0, 1.f);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      if (!dead) {
-        // the chunk's share in fresh accumulators, added in float32: summed in
-        // place across D's chunks, O drifted past 2e-5 of its max at D 8192
-        float sc[NT][4] = {};
-#pragma unroll 4
-        for (int ks = 0; ks < kC / 8; ++ks) {
-          const FragA a = load_a(Qs, kP, warp * 16, ks * 8);
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma<kBf16>(sc[j], a, load_b_nk(Ks, kP, j * 8, ks * 8));
-        }
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) s[j][c] += sc[j][c];
-      }
-    }
-    if (dead) continue;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int e = 4 * j + c;
-        float x = 0.f;
-        if ((ok_bits >> e) & 1u) {
-          const int row = row_lo + 8 * (c >> 1), col = c0 + 8 * j + 2 * t + (c & 1);
-          float bias = 0.f;
-          if constexpr (BIAS == kRelBias) {
-            int bucket;
-            bias = rel_bias(p, row, col, tq[c >> 1], ts_col(tsb, col, p.N), bucket);
-          } else if constexpr (BIAS == kDenseBias) {
-            bias = dense_bias(p, b, row, col);
-          }
-          x = BIAS == kNoBias ? s[j][c] * s_alpha : fmaf(s[j][c], s_alpha, bias);
-          x = __fdividef(x, 1.f + __expf(-x));
-          if constexpr (kBf16) x = round_bf16(x);  // P V takes P in bfloat16
-        } else {
-          x = 0.f;
-        }
-        s[j][c] = x;
-      }
-    FragA pa[NT];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) pa[j] = frag_a_c(s[j]);
-    // O += P V: the tile's share in fresh accumulators, added in float32
-#pragma unroll
-    for (int n0 = 0; n0 < NO; n0 += 4) {
-      float part[4][4];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) part[n][c] = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int n = 0; n < 4; ++n) mma<kBf16>(part[n], pa[j], load_b_kn<true>(Vs, PV, j * 8, (n0 + n) * 8));
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[n0 + n][c] += part[n][c];
-    }
-  }
-
-  // every element of the chunk's columns in the tile's rows below N: zeros
-  // where the row is dead
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row_lo + 8 * i;
-    if (row >= p.N) continue;
-    E* o = static_cast<E*>(p.out) + (((long long)b * p.N + row) * p.H + h) * p.V;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      store2(o, vc * kC + 8 * n + 2 * t, p.V, acc[n][2 * i] * p.inv_norm, acc[n][2 * i + 1] * p.inv_norm);
-  }
-}
-
-// ------------------------------------------------------ per-pair backward
+// ---------------------------------------------------------- per-pair bodies
+// Route kWideChunks's forward: K1, K1-bias and K6 past 16 blocks of 3 tiles
+// of 128 columns (the TPU kernels `_fwd_kernel_rkv` / `_fwd_kernel` of
+// hstu_attention.py and `_fwd_kernel_relbias` of hstu_attention_relbias.py,
+// whose 3-D grids take any width). It is the backward's design below with
+// S alone: `sdp_kernel` in its FWD mode forms S = Q K^T once per tile pair
+// over D's 64-column steps (Q read once per pair, the steps split across
+// blocks where the pairs are few, the splits summed in order), then per
+// element alpha, the bias (none, dense, or relative), silu and the mask; P
+// goes to the scratch (rounded to bfloat16 values on bfloat16) with the
+// pair's live flag. `grad_kernel` in its FWD mode, a block per (64-row query
+// tile, 128-column V chunk, slab), forms O = P V over the tile's live pairs
+// ascending (dQ = dS K's path with P for dS and V for K), scales it by 1 /
+// norm and writes the tile whole: zeros on dead rows, no atomics, the same
+// bits on every run. bfloat16: alpha q is rounded to bfloat16 as its
+// fragments are read (the TPU kernel's rounding point), S and O's sums
+// float32. Products per live pair and head: S 2 D, O 2 V per element.
 // Route kWideChunks's backward: K2, K3, K4, K7 and K7-det past 16 blocks of
 // two chunks (the TPU kernels `_bwd_fused_kernel_rkv`, `_bwd_dq_kernel` and
 // `_bwd_dkv_kernel` of hstu_attention.py and `_bwd_kernel_relbias` of
@@ -1735,14 +1568,18 @@ constexpr int kPT = 64;                  // rows and columns of a tile pair
 constexpr int kPK = 64;                  // columns of D or V an S / dP step takes
 constexpr int kPA = kPK + 8;             // pitch of its tiles and of the A tile (P or dS)
 constexpr int kPairFloats = kPT * kPT;   // a pair's P (or dS) in the scratch, [64][64]
-constexpr int kSdpStages = 3;            // the S / dP pass's ring
+constexpr int kFwdMats = 1, kBwdMats = 2;  // the tiles a pair keeps: P (the forward), or P and dS
+constexpr int kSdpStages = 3;            // the S (/ dP) pass's ring
 constexpr int kGradStages = 2;           // the gradient pass's
 constexpr int kPairDiags = 2 * kPT - 1;  // diagonals of a pair
 // the S / dP pass's blocks aimed at where the pairs are few: two an SM of
 // the H100's 132 (the plan's splits mirror it)
 constexpr int kSplitTarget = 264;
 
-__host__ __device__ constexpr int sdp_steps(int D, int V) { return (D + kPK - 1) / kPK + (V + kPK - 1) / kPK; }
+// the S pass's steps (FWD), or the S / dP pass's
+__host__ __device__ constexpr int sdp_steps(int D, int V, bool fwd) {
+  return (D + kPK - 1) / kPK + (fwd ? 0 : (V + kPK - 1) / kPK);
+}
 // shared memory: the ring of (R, X) tiles of the element type; the A tile
 // (float32) and the B tile (a 128-column chunk of the element type) per
 // stage; the pair's dS [64][65], its diagonal sums, eight warps' copies of
@@ -1753,19 +1590,30 @@ constexpr int tables_smem_bytes() { return 4 * (kPT * (kPT + 1) + 2 * kPT + kBwd
 static_assert(2 * (sdp_smem_bytes(4) + 1024) <= 233472 && 2 * (grad_smem_bytes(4) + 1024) <= 233472,
               "two blocks an SM");
 
-// A launch's view of the scratch, per group: P [tiles][64][64] and dS
-// [tiles][64][64] float32, the pairs' live flags [tiles] (int, padded to 4),
-// then with splits the parts [splits][tiles][2][64][64] (S, dP): 2 tiles
-// 4096 + ceil(tiles / 4) 4 (+ splits tiles 8192) floats, the wrapper's
-// `scratch_shape`; tiles = group_slabs qt^2, pair (qt_, kt) of the group's
-// slab sl at (sl qt + qt_) qt + kt.
+// A launch's view of the scratch, per group: `mats` float32 tiles per pair,
+// P [tiles][64][64] (and the backward's dS [tiles][64][64]), the pairs' live
+// flags [tiles] (int, padded to 4), then with splits the parts
+// [splits][tiles][mats][64][64] (S, and dP): mats tiles 4096 + ceil(tiles /
+// 4) 4 (+ splits tiles mats 4096) floats, the wrapper's `scratch_shape`;
+// tiles = group_slabs qt^2, pair (qt_, kt) of the group's slab sl at (sl qt +
+// qt_) qt + kt.
 struct Pairs {
   float* scratch;
   long long tiles;
   int qt;            // 64-row tiles of N
   int slab0;         // the group's first slab (b H + h)
-  int splits, per;   // the S / dP steps split in `splits` runs of `per`
+  int splits, per;   // the S (/ dP) steps split in `splits` runs of `per`
+  int mats;          // kFwdMats or kBwdMats
 };
+
+__device__ __forceinline__ int* pair_flags(const Pairs& w) {
+  return reinterpret_cast<int*>(w.scratch + w.mats * w.tiles * kPairFloats);
+}
+// split sp's partial S (and dP) of a pair
+__device__ __forceinline__ float* pair_part(const Pairs& w, int sp, long long tile) {
+  return w.scratch + w.mats * w.tiles * kPairFloats + (w.tiles + 3) / 4 * 4 +
+         ((long long)sp * w.tiles + tile) * w.mats * kPairFloats;
+}
 
 // Whether every pass visits the pair: both tiles start below the length, and
 // no causal pair whose query tile holds no contextual row lies wholly above
@@ -1813,44 +1661,50 @@ __device__ __forceinline__ void pair_io(float* tile, float (&x)[2][2][4]) {
       }
 }
 
-// The per-element work of a live pair: P = silu(x) and dS = dP silu'(x)
-// with x = alpha S (+ the bias), zeros where the mask is 0; P, dS and the
-// flag to the scratch. bfloat16: alpha and 1 / norm are in alpha q and dO /
-// norm already.
-template <bool RELBIAS, typename E>
+// The per-element work of a live pair: P = silu(x) and (but FWD) dS = dP
+// silu'(x) with x = alpha S (+ the bias: relative, or dense), zeros where the
+// mask is 0; P (FWD on bfloat16: rounded to bfloat16 values, as P V takes
+// it), dS and the flag to the scratch. bfloat16: alpha (and 1 / norm) are in
+// alpha q (and dO / norm) already.
+template <int BIAS, bool FWD, typename E>
 __device__ __forceinline__ void pair_finish(const Params<E>& p, const Pairs& w, long long tile,
                                             float (&s)[2][2][4], float (&dp)[2][2][4], uint32_t ok_bits, int b,
                                             int r0, int c0) {
   constexpr bool kBf16 = !std::is_same<E, float>::value;
   const float s_alpha = kBf16 ? 1.f : p.alpha, dp_scale = kBf16 ? 1.f : p.inv_norm;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
-  const float* tsb = RELBIAS ? p.ts + (long long)b * p.N : nullptr;
+  const float* tsb = BIAS == kRelBias ? p.ts + (long long)b * p.N : nullptr;
 #pragma unroll
   for (int e = 0; e < 16; ++e) {
     const int m = e >> 3, j = (e >> 2) & 1, c = e & 3;
     float pv = 0.f, ds = 0.f;
     if ((ok_bits >> e) & 1u) {
+      const int row = r0 + (warp >> 2) * 32 + 16 * m + g + 8 * (c >> 1);
+      const int col = c0 + (warp & 3) * 16 + 8 * j + 2 * t + (c & 1);
       float x = s[m][j][c] * s_alpha;
-      if constexpr (RELBIAS) {
-        const int row = r0 + (warp >> 2) * 32 + 16 * m + g + 8 * (c >> 1);
-        const int col = c0 + (warp & 3) * 16 + 8 * j + 2 * t + (c & 1);
+      if constexpr (BIAS == kRelBias) {
         int bucket;
         x = fmaf(s[m][j][c], s_alpha, rel_bias(p, row, col, ts_row(tsb, row, p.N), ts_col(tsb, col, p.N), bucket));
+      } else if constexpr (BIAS == kDenseBias) {
+        x = fmaf(s[m][j][c], s_alpha, dense_bias(p, b, row, col));
       }
       const float sig = __fdividef(1.f, 1.f + __expf(-x));
       pv = x * sig;
-      ds = dp[m][j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
+      if constexpr (FWD && kBf16) pv = round_bf16(pv);
+      if constexpr (!FWD) ds = dp[m][j][c] * dp_scale * sig * (1.f + x * (1.f - sig));
     }
     s[m][j][c] = pv;
     dp[m][j][c] = ds;
   }
   pair_io<true>(w.scratch + tile * kPairFloats, s);
-  pair_io<true>(w.scratch + (w.tiles + tile) * kPairFloats, dp);
-  if (threadIdx.x == 0) reinterpret_cast<int*>(w.scratch + 2 * w.tiles * kPairFloats)[tile] = 1;
+  if constexpr (!FWD) pair_io<true>(w.scratch + (w.tiles + tile) * kPairFloats, dp);
+  if (threadIdx.x == 0) pair_flags(w)[tile] = 1;
 }
 
 // acc += R X^T over one 64-column step for the warp's 32 x 16 part
-__device__ __forceinline__ void sdp_product(float (&acc)[2][2][4], const float* R, const float* X, int wr, int wc) {
+template <bool SCALE = false>
+__device__ __forceinline__ void sdp_product(float (&acc)[2][2][4], const float* R, const float* X, int wr, int wc,
+                                            float = 1.f) {
 #pragma unroll
   for (int ks = 0; ks < kPK / 8; ++ks) {
     const FragA a0 = load_a(R, kPA, wr * 32, ks * 8), a1 = load_a(R, kPA, wr * 32 + 16, ks * 8);
@@ -1861,14 +1715,29 @@ __device__ __forceinline__ void sdp_product(float (&acc)[2][2][4], const float* 
     mma3(acc[1][1], a1, b1);
   }
 }
+// bfloat16: SCALE (the forward's alpha q where alpha != 1) rounds each
+// element of R's fragments times `scale` to bfloat16 as it is read, the
+// pre-scaling pass's value (a product of two bfloat16 values is exact in
+// float32, so one rounding)
+__device__ __forceinline__ uint32_t scaled_bf16x2(uint32_t x, float scale) {
+  return hstu_bf16::pack(__uint_as_float(x << 16) * scale, __uint_as_float(x & 0xffff0000u) * scale);
+}
+template <bool SCALE = false>
 __device__ __forceinline__ void sdp_product(float (&acc)[2][2][4], const __nv_bfloat16* R, const __nv_bfloat16* X,
-                                            int wr, int wc) {
+                                            int wr, int wc, float scale = 1.f) {
 #pragma unroll
   for (int ks = 0; ks < kPK / 16; ++ks) {
     uint32_t a0[4], a1[4], b[4];
     hstu_bf16::ldsm(a0, hstu_bf16::a_at(R, kPA, wr * 32, ks * 16));
     hstu_bf16::ldsm(a1, hstu_bf16::a_at(R, kPA, wr * 32 + 16, ks * 16));
     hstu_bf16::ldsm(b, hstu_bf16::b_nk_at(X, kPA, wc * 16, ks * 16));
+    if constexpr (SCALE) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a0[i] = scaled_bf16x2(a0[i], scale);
+        a1[i] = scaled_bf16x2(a1[i], scale);
+      }
+    }
     hstu_bf16::mma(acc[0][0], a0, b[0], b[1]);
     hstu_bf16::mma(acc[0][1], a0, b[2], b[3]);
     hstu_bf16::mma(acc[1][0], a1, b[0], b[1]);
@@ -1892,12 +1761,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The S / dP pass: a block per (pair, split, slab of the group), pairs
-// ordered (slab, split, query tile, key tile). PARTS: the block sums steps
-// [split per, + per) and stores its partial S and dP; else every step, then
-// the per-element work.
-template <bool RELBIAS, bool PARTS, typename E>
+// The S / dP pass, or with FWD the forward's S pass: a block per (pair,
+// split, slab of the group), pairs ordered (slab, split, query tile, key
+// tile). PARTS: the block sums steps [split per, + per) and stores its
+// partial S (and dP); else every step, then the per-element work. BIAS:
+// kNoBias, kRelBias, or (FWD) kDenseBias.
+template <int BIAS, bool FWD, bool PARTS, typename E>
 __global__ void __launch_bounds__(kBwdThreads, 2) sdp_kernel(Params<E> p, Pairs w) {
+  constexpr bool kBf16 = !std::is_same<E, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   E* ring = reinterpret_cast<E*>(smem_raw);  // [kSdpStages][2][64][kPA]: R (Q or dO), X (K or V)
   const int warp = threadIdx.x >> 5, wr = warp >> 2, wc = warp & 3;
@@ -1916,20 +1787,22 @@ __global__ void __launch_bounds__(kBwdThreads, 2) sdp_kernel(Params<E> p, Pairs 
   const long long tile = ((long long)sl * w.qt + qt) * w.qt + kt;
   const uint32_t ok_bits = pair_ok_bits(p, r0, c0, length, nt);
   if (!__syncthreads_or(ok_bits != 0)) {  // a dead pair: its flag 0 (the sums' kernel's with PARTS)
-    if (!PARTS && threadIdx.x == 0) reinterpret_cast<int*>(w.scratch + 2 * w.tiles * kPairFloats)[tile] = 0;
+    if (!PARTS && threadIdx.x == 0) pair_flags(w)[tile] = 0;
     return;
   }
   const bool dead = __all_sync(kFull, ok_bits == 0);  // the warp's part
+  // the forward on bfloat16: alpha q rounded to bfloat16 as Q's fragments are read
+  const float q_scale = FWD && kBf16 ? round_bf16(p.alpha) : 1.f;
   const E* qb = p.q + b * p.q_sb + h * p.q_sh;
   const E* kb = p.k + b * p.k_sb + h * p.k_sh;
   const E* vb = p.v + b * p.v_sb + h * p.v_sh;
   const E* ob = p.dout + b * p.do_sb + h * p.do_sh;
-  const int n_ds = (p.D + kPK - 1) / kPK, n_steps = n_ds + (p.V + kPK - 1) / kPK;
+  const int n_ds = (p.D + kPK - 1) / kPK, n_steps = sdp_steps(p.D, p.V, FWD);
   const int u0 = PARTS ? min(sp * w.per, n_steps) : 0, u1 = PARTS ? min(u0 + w.per, n_steps) : n_steps;
   auto issue = [&](int u, int stage) {
     E* R = ring + stage * 2 * kPT * kPA;
     E* X = R + kPT * kPA;
-    if (u < n_ds) {
+    if (FWD || u < n_ds) {
       load_step(R, qb, p.q_sn, r0, length, p.D, u * kPK, p.vec_q != 0);
       load_step(X, kb, p.k_sn, c0, length, p.D, u * kPK, p.vec_k != 0);
     } else {
@@ -1951,8 +1824,11 @@ __global__ void __launch_bounds__(kBwdThreads, 2) sdp_kernel(Params<E> p, Pairs 
     if (!dead) {
       const E* R = ring + ((u - u0) % kSdpStages) * 2 * kPT * kPA;
       float acc[2][2][4] = {};
-      sdp_product(acc, R, R + kPT * kPA, wr, wc);
-      if (u < n_ds) {
+      if (FWD && kBf16 && q_scale != 1.f)
+        sdp_product<true>(acc, R, R + kPT * kPA, wr, wc, q_scale);
+      else
+        sdp_product(acc, R, R + kPT * kPA, wr, wc);
+      if (FWD || u < n_ds) {
 #pragma unroll
         for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -1970,18 +1846,17 @@ __global__ void __launch_bounds__(kBwdThreads, 2) sdp_kernel(Params<E> p, Pairs 
     }
   }
   if constexpr (PARTS) {
-    float* part = w.scratch + 2 * w.tiles * kPairFloats + (w.tiles + 3) / 4 * 4 +
-                  ((long long)sp * w.tiles + tile) * 2 * kPairFloats;
+    float* part = pair_part(w, sp, tile);
     pair_io<true>(part, s);
-    pair_io<true>(part + kPairFloats, dp);
+    if constexpr (!FWD) pair_io<true>(part + kPairFloats, dp);
   } else {
-    pair_finish<RELBIAS>(p, w, tile, s, dp, ok_bits, b, r0, c0);
+    pair_finish<BIAS, FWD>(p, w, tile, s, dp, ok_bits, b, r0, c0);
   }
 }
 
-// The split S / dP pass's sums: a block per (pair, slab of the group) adds
+// The split S (/ dP) pass's sums: a block per (pair, slab of the group) adds
 // the splits' parts in split order, then the per-element work.
-template <bool RELBIAS, typename E>
+template <int BIAS, bool FWD, typename E>
 __global__ void __launch_bounds__(kBwdThreads) sdp_sums_kernel(Params<E> p, Pairs w) {
   long long blk = blockIdx.x;
   const int kt = (int)(blk % w.qt);
@@ -1996,17 +1871,16 @@ __global__ void __launch_bounds__(kBwdThreads) sdp_sums_kernel(Params<E> p, Pair
   const long long tile = ((long long)sl * w.qt + qt) * w.qt + kt;
   const uint32_t ok_bits = pair_ok_bits(p, r0, c0, length, nt);
   if (!__syncthreads_or(ok_bits != 0)) {
-    if (threadIdx.x == 0) reinterpret_cast<int*>(w.scratch + 2 * w.tiles * kPairFloats)[tile] = 0;
+    if (threadIdx.x == 0) pair_flags(w)[tile] = 0;
     return;
   }
   float s[2][2][4] = {}, dp[2][2][4] = {};
-  const float* parts = w.scratch + 2 * w.tiles * kPairFloats + (w.tiles + 3) / 4 * 4;
   for (int sp = 0; sp < w.splits; ++sp) {
-    float* part = const_cast<float*>(parts) + ((long long)sp * w.tiles + tile) * 2 * kPairFloats;
+    float* part = pair_part(w, sp, tile);
     pair_io<false>(part, s);
-    pair_io<false>(part + kPairFloats, dp);
+    if constexpr (!FWD) pair_io<false>(part + kPairFloats, dp);
   }
-  pair_finish<RELBIAS>(p, w, tile, s, dp, ok_bits, b, r0, c0);
+  pair_finish<BIAS, FWD>(p, w, tile, s, dp, ok_bits, b, r0, c0);
 }
 
 // The bfloat16 A fragment (m16n8k16) of a float32 [m][k] tile at (m0, k0),
@@ -2093,8 +1967,10 @@ __device__ __forceinline__ void grad_product(float (&acc)[2][4][4], const float*
 // block walks its tile's live pairs ascending, A (dS or P) and B (K's, Q's
 // or dO's chunk of the other tile's rows) in kGradStages stages, and writes
 // its tile whole: zeros past the length. DQT: dq's type (float for K2's and
-// K7's float32 buffer, else E).
-template <bool DQ, bool DKV, typename E, typename DQT>
+// K7's float32 buffer, else E). FWD (with DQ): the forward's P V pass, dQ's
+// path with P for dS, V's chunks for K's and 1 / norm for alpha, into out
+// (a block per query tile and V chunk).
+template <bool DQ, bool DKV, bool FWD, typename E, typename DQT>
 __global__ void __launch_bounds__(kBwdThreads, 2) grad_kernel(Params<E> p, Pairs w) {
   constexpr bool kBf16 = !std::is_same<E, float>::value;
   constexpr int kStage = 4 * kPT * kPA + (int)sizeof(E) * kPT * kP;
@@ -2102,7 +1978,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2) grad_kernel(Params<E> p, Pairs
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t = lane & 3;
   const int wr = warp >> 2, wc = warp & 3;
   const int n_dc = chunks(p.D), n_vc = chunks(p.V);
-  const int q_blocks = DQ ? w.qt * n_dc : 0;
+  const int q_blocks = DQ ? w.qt * (FWD ? n_vc : n_dc) : 0;
   const int per_slab = q_blocks + (DKV ? w.qt * (n_dc + n_vc) : 0);
   const int sl = (int)(blockIdx.x / (unsigned)per_slab);
   int r = (int)(blockIdx.x % (unsigned)per_slab);
@@ -2112,17 +1988,18 @@ __global__ void __launch_bounds__(kBwdThreads, 2) grad_kernel(Params<E> p, Pairs
     kind = r < w.qt * n_dc ? 1 : 2;
     if (kind == 2) r -= w.qt * n_dc;
   }
-  const int nch = kind == 2 ? n_vc : n_dc;
+  const int nch = kind == 2 || FWD ? n_vc : n_dc;
   const int ot = r / nch, oc = r % nch;
   const int slab = w.slab0 + sl, b = slab / p.H, h = slab % p.H;
   const int length = min(p.lengths[b], p.N);
-  const float* A_src = w.scratch + (kind == 2 ? 0 : w.tiles * kPairFloats);  // P or dS
-  const int* flags = reinterpret_cast<const int*>(w.scratch + 2 * w.tiles * kPairFloats);
-  const E* B_src = kind == 0 ? p.k + b * p.k_sb + h * p.k_sh
-                             : kind == 1 ? p.q + b * p.q_sb + h * p.q_sh : p.dout + b * p.do_sb + h * p.do_sh;
-  const long long b_sn = kind == 0 ? p.k_sn : kind == 1 ? p.q_sn : p.do_sn;
-  const bool b_vec = (kind == 0 ? p.vec_k : kind == 1 ? p.vec_q : p.vec_do) != 0;
-  const int width = kind == 2 ? p.V : p.D;
+  const float* A_src = w.scratch + (kind == 2 || FWD ? 0 : w.tiles * kPairFloats);  // P or dS
+  const int* flags = pair_flags(w);
+  const E* B_src = FWD ? p.v + b * p.v_sb + h * p.v_sh
+                   : kind == 0 ? p.k + b * p.k_sb + h * p.k_sh
+                   : kind == 1 ? p.q + b * p.q_sb + h * p.q_sh : p.dout + b * p.do_sb + h * p.do_sh;
+  const long long b_sn = FWD ? p.v_sn : kind == 0 ? p.k_sn : kind == 1 ? p.q_sn : p.do_sn;
+  const bool b_vec = (FWD ? p.vec_v : kind == 0 ? p.vec_k : kind == 1 ? p.vec_q : p.vec_do) != 0;
+  const int width = kind == 2 || FWD ? p.V : p.D;
   const long long tile0 = (long long)sl * w.qt * w.qt;
   // the walk's pair with other tile o: (ot, o) for dQ, (o, ot) for dK and dV
   auto pair_of = [&](int o) { return kind == 0 ? tile0 + (long long)ot * w.qt + o : tile0 + (long long)o * w.qt + ot; };
@@ -2169,12 +2046,15 @@ __global__ void __launch_bounds__(kBwdThreads, 2) grad_kernel(Params<E> p, Pairs
       const int row = ot * kPT + wr * 32 + 16 * m + g + 8 * i;
       if (row >= p.N) continue;
       const long long at = (((long long)b * p.N + row) * p.H + h) * width;
-      const float scale = kind == 0 ? (row < length ? p.alpha : 0.f) : kind == 1 ? s_alpha : dp_scale;
+      const float scale =
+          kind == 0 ? (row < length ? (FWD ? p.inv_norm : p.alpha) : 0.f) : kind == 1 ? s_alpha : dp_scale;
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int col = oc * kC + wc * 32 + 8 * n + 2 * t;
         const float x0 = scale * acc[m][n][2 * i], x1 = scale * acc[m][n][2 * i + 1];
-        if (kind == 0)
+        if (FWD)
+          store2(static_cast<E*>(p.out) + at, col, width, x0, x1);
+        else if (kind == 0)
           store2(static_cast<DQT*>(p.dq) + at, col, width, x0, x1);
         else
           store2((kind == 1 ? p.dk : p.dv) + at, col, width, x0, x1);
@@ -2214,7 +2094,7 @@ __global__ void __launch_bounds__(kBwdThreads) tables_kernel(Params<E> p, Pairs 
   if (DET)
     for (int idx = threadIdx.x; idx < n_pos; idx += kBwdThreads) prow[idx] = 0.f;
   const float* dS = w.scratch + w.tiles * kPairFloats;
-  const int* flags = reinterpret_cast<const int*>(w.scratch + 2 * w.tiles * kPairFloats);
+  const int* flags = pair_flags(w);
   const long long tile0 = (long long)sl * w.qt * w.qt;
   const float* tsb = p.ts + (long long)b * p.N;
   const float tk[2] = {ts_col(tsb, c0 + lane, p.N), ts_col(tsb, c0 + 32 + lane, p.N)};
@@ -2371,20 +2251,6 @@ cudaError_t launch_fwd(Params<E> p, cudaStream_t stream) {
   return launch_fwd_m<BIAS, 2, true, E>(p, cl, stream);
 }
 
-// The per-chunk forward: a block per (64-row query tile, head, batch row, V
-// chunk)
-template <int BIAS, typename E>
-cudaError_t launch_fwd_chunks(const Params<E>& p, cudaStream_t stream) {
-  constexpr int smem = fwd_chunks_smem_bytes();
-  auto kernel = fwd_chunks_kernel<BIAS, E>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((p.N + kFwdRows - 1) / kFwdRows) * p.H * p.B * chunks(p.V);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
 // The tile forward: a block per (64-row query tile, head, batch row); float32
 // K1 and K1-bias where `tile_takes` the widths
 template <int BIAS>
@@ -2466,11 +2332,13 @@ cudaError_t launch_pairs(Params<E> p, cudaStream_t stream) {
   w.qt = (p.N + kPT - 1) / kPT;
   w.tiles = (long long)p.group_slabs * w.qt * w.qt;
   w.splits = p.splits;
-  w.per = (sdp_steps(p.D, p.V) + p.splits - 1) / p.splits;
+  w.mats = kBwdMats;
+  w.per = (sdp_steps(p.D, p.V, false) + p.splits - 1) / p.splits;
   const int per_slab = (DQ ? w.qt * chunks(p.D) : 0) + (DKV ? w.qt * (chunks(p.D) + chunks(p.V)) : 0);
-  void (*sdp)(Params<E>, Pairs) = w.splits > 1 ? sdp_kernel<RELBIAS, true, E> : sdp_kernel<RELBIAS, false, E>;
-  void (*sums)(Params<E>, Pairs) = sdp_sums_kernel<RELBIAS, E>;
-  void (*grad)(Params<E>, Pairs) = grad_kernel<DQ, DKV, E, DQT>;
+  constexpr int kB = RELBIAS ? kRelBias : kNoBias;
+  void (*sdp)(Params<E>, Pairs) = w.splits > 1 ? sdp_kernel<kB, false, true, E> : sdp_kernel<kB, false, false, E>;
+  void (*sums)(Params<E>, Pairs) = sdp_sums_kernel<kB, false, E>;
+  void (*grad)(Params<E>, Pairs) = grad_kernel<DQ, DKV, false, E, DQT>;
   err = cudaFuncSetAttribute(sdp, cudaFuncAttributeMaxDynamicSharedMemorySize, sdp_smem_bytes(elem));
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(grad, cudaFuncAttributeMaxDynamicSharedMemorySize, grad_smem_bytes(elem));
@@ -2487,6 +2355,53 @@ cudaError_t launch_pairs(Params<E> p, cudaStream_t stream) {
     if (w.splits > 1) sums<<<(unsigned)grid[1], kBwdThreads, 0, stream>>>(p, w);
     grad<<<(unsigned)grid[2], kBwdThreads, grad_smem_bytes(elem), stream>>>(p, w);
     if constexpr (RELBIAS) tables_kernel<DET, E><<<(unsigned)grid[3], kBwdThreads, tables_smem_bytes(), stream>>>(p, w);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// The per-pair forward (route kWideChunks) on the plan's scratch: for each
+// group of p.group_slabs (batch row, head) slabs in turn, the S pass (split
+// in p.splits, then the splits' sums, where the plan splits it) and the P V
+// pass, a block per (query tile, V chunk, slab). bfloat16 reads rows in
+// 16-byte pieces of 8 where the pointer, the strides and the width allow
+// (float32: the caller's `vec_*`, pieces of 4). The scratch: as `Pairs`
+// lays it out, with kFwdMats tiles a pair.
+template <int BIAS, typename E>
+cudaError_t launch_fwd_pairs(Params<E> p, cudaStream_t stream) {
+  if (p.scratch == nullptr || p.group_slabs < 1 || p.splits < 1) return cudaErrorInvalidValue;
+  if constexpr (!std::is_same<E, float>::value) {
+    p.vec_q = vec8(p.q, p.q_sb, p.q_sn, p.q_sh, p.D);
+    p.vec_k = vec8(p.k, p.k_sb, p.k_sn, p.k_sh, p.D);
+    p.vec_v = vec8(p.v, p.v_sb, p.v_sn, p.v_sh, p.V);
+  }
+  const int elem = (int)sizeof(E);
+  Pairs w;
+  w.scratch = p.scratch;
+  w.qt = (p.N + kPT - 1) / kPT;
+  w.tiles = (long long)p.group_slabs * w.qt * w.qt;
+  w.splits = p.splits;
+  w.mats = kFwdMats;
+  w.per = (sdp_steps(p.D, p.V, true) + p.splits - 1) / p.splits;
+  void (*sdp)(Params<E>, Pairs) = w.splits > 1 ? sdp_kernel<BIAS, true, true, E> : sdp_kernel<BIAS, true, false, E>;
+  void (*sums)(Params<E>, Pairs) = sdp_sums_kernel<BIAS, true, E>;
+  void (*pv)(Params<E>, Pairs) = grad_kernel<true, false, true, E, E>;
+  cudaError_t err = cudaFuncSetAttribute(sdp, cudaFuncAttributeMaxDynamicSharedMemorySize, sdp_smem_bytes(elem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(pv, cudaFuncAttributeMaxDynamicSharedMemorySize, grad_smem_bytes(elem));
+  if (err != cudaSuccess) return err;
+  const int slabs_all = p.B * p.H;
+  for (int slab0 = 0; slab0 < slabs_all; slab0 += p.group_slabs) {
+    w.slab0 = slab0;
+    const int slabs = min(p.group_slabs, slabs_all - slab0);
+    const long long pairs = (long long)slabs * w.qt * w.qt;
+    const long long grid[3] = {pairs * w.splits, pairs, (long long)slabs * w.qt * chunks(p.V)};
+    for (long long g : grid)
+      if (g > 0x7fffffffLL) return cudaErrorInvalidValue;
+    sdp<<<(unsigned)grid[0], kBwdThreads, sdp_smem_bytes(elem), stream>>>(p, w);
+    if (w.splits > 1) sums<<<(unsigned)grid[1], kBwdThreads, 0, stream>>>(p, w);
+    pv<<<(unsigned)grid[2], kBwdThreads, grad_smem_bytes(elem), stream>>>(p, w);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }

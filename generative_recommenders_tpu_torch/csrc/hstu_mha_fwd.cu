@@ -35,6 +35,11 @@
 // the block's group of heads. Bound: K1's bytes and operations plus the
 // bias's bytes over the live elements, 4 (float32) or 2 (bfloat16) a (row,
 // column) pair; at the serving shape the bias's bytes dominate.
+//
+// scratch (float32 entry points: after the mask ints; bfloat16: after out,
+// where it also holds the chunks' sums), group_slabs, splits (after the mask
+// ints): route kWideChunks's float32 scratch and its plan (`_pairs_plan` in
+// ops/cuda/hstu_attention.py); null and 0 where the route takes none.
 #include "hstu_attention_fwd.cuh"
 
 extern "C" int hstu_mha_fwd(
@@ -45,11 +50,15 @@ extern "C" int hstu_mha_fwd(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, int route, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, float* scratch, int group_slabs, int splits,
+    int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_fwd::launch<hstu_fwd::kNoBias>(p, route, stream);
 }
 
@@ -61,13 +70,16 @@ extern "C" int hstu_mha_fwd_bf16(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, int chunk, int route, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, int group_slabs, int splits, int chunk, int route,
+    void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len};
   p.chunk = chunk;
   p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_fwd::launch<hstu_fwd::kNoBias, __nv_bfloat16>(p, route, stream);
 }
 
@@ -83,11 +95,15 @@ extern "C" int hstu_mha_fwd_bias(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long bias_sb, long long bias_sn,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, int route, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, float* scratch, int group_slabs, int splits,
+    int bias_bf16, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   p.bias = bias;
   p.bias_sb = bias_sb;
   p.bias_sn = bias_sn;
@@ -103,7 +119,8 @@ extern "C" int hstu_mha_fwd_bias_bf16(
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh, long long bias_sb, long long bias_sn,
     float alpha, float inv_norm, int causal, int max_attn_len,
-    int contextual_seq_len, int min_full_attn_seq_len, int bias_bf16, int chunk, int route, void* stream) {
+    int contextual_seq_len, int min_full_attn_seq_len, int group_slabs, int splits, int bias_bf16, int chunk,
+    int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
@@ -114,5 +131,7 @@ extern "C" int hstu_mha_fwd_bias_bf16(
   p.bias_bf16 = bias_bf16;
   p.chunk = chunk;
   p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_fwd::launch<hstu_fwd::kDenseBias, __nv_bfloat16>(p, route, stream);
 }

@@ -16,7 +16,9 @@
 // plan's `chunk` key columns, their float32 sums in `scratch`): at 2 (2 D +
 // V) bytes per live row and head its bound halves, and its operations are
 // held to the card's bfloat16 rate, 989 TFLOP/s. Where alpha != 1 it forms
-// alpha q in bfloat16 as it stages Q, as the TPU kernel does.
+// alpha q in bfloat16 as it stages Q, as the TPU kernel does. scratch,
+// group_slabs, splits: route kWideChunks's float32 scratch and its plan, as
+// K1's (hstu_mha_fwd.cu; the bfloat16 entry point's scratch after out).
 #include "hstu_attention_fwd.cuh"
 
 extern "C" int hstu_mha_relbias_fwd(
@@ -29,11 +31,14 @@ extern "C" int hstu_mha_relbias_fwd(
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int route, void* stream) {
+    float* scratch, int group_slabs, int splits, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
+  p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_fwd::launch<hstu_fwd::kRelBias>(p, route, stream);
 }
 
@@ -47,12 +52,14 @@ extern "C" int hstu_mha_relbias_fwd_bf16(
     long long v_sb, long long v_sn, long long v_sh,
     float alpha, float inv_norm, int causal, int max_attn_len,
     int contextual_seq_len, int min_full_attn_seq_len, int Nm, int NB,
-    int chunk, int route, void* stream) {
+    int group_slabs, int splits, int chunk, int route, void* stream) {
   hstu_fwd::Params p{q, k, v, out, lengths, num_targets, B, N, H, D, V,
                      q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,
                      alpha, inv_norm, causal, max_attn_len, contextual_seq_len,
                      min_full_attn_seq_len, ts, pos_w, ts_w, Nm, NB};
   p.chunk = chunk;
   p.scratch = scratch;
+  p.group_slabs = group_slabs;
+  p.splits = splits;
   return hstu_fwd::launch<hstu_fwd::kRelBias, __nv_bfloat16>(p, route, stream);
 }

@@ -5,16 +5,9 @@
 // (hstu_attention_fwd.cuh) and the backward bodies of K2 and K4
 // (hstu_attention_bwd_dkv.cuh) and of K3 (hstu_attention_bwd_dq.cuh).
 //
-// The wide forward's bfloat16 instances (hstu_attention_wide.cuh, on bfloat16
-// q, k, v) read their tiles through `load_tile`'s bfloat16 overload, which
-// converts to float32 on the way into shared memory, and multiply with
-// `mma<true>`: one TF32 product, exact, because every operand they multiply
-// is a bfloat16 value (the inputs, alpha q, dO / norm, and P and dS rounded
-// to bfloat16 as the TPU kernels round them), and a bfloat16 value is exact
-// in TF32 (its split leaves small = 0). The bfloat16 bodies of the narrow
-// kernels take the bfloat16 tensor cores instead (bf16_mma.cuh); those that
-// sum dq with atomics (K2-bf16, K7-bf16) sum it in a float32 buffer that
-// `to_bf16` writes as bfloat16.
+// The bfloat16 bodies take the bfloat16 tensor cores instead (bf16_mma.cuh);
+// those that sum dq with atomics (K2-bf16, K7-bf16) sum it in a float32
+// buffer that `to_bf16` writes as bfloat16.
 #pragma once
 
 #include <cstdint>
@@ -70,44 +63,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src, long lon
 // x rounded to the nearest bfloat16 (ties to even), as a float32
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Rows [r0, r0 + ROWS) of one head of a strided bfloat16 [.., N, H, w]
-// tensor into a [ROWS][P] float32 shared tile, converted on the way, with
-// the same zeros as the float32 load; where scale != 1 each element is
-// multiplied by it and rounded to bfloat16 again (the TPU kernels' bfloat16
-// products alpha q and dO / norm). Synchronous: the tile is in place after
-// the barrier that follows, as an asynchronous one is after its wait and that
-// barrier. vec: rows readable in 8-byte pieces of 4 elements. The float32
-// overload has no scale: a float32 kernel applies alpha and 1 / norm in
-// float32 after its products, so a kernel templated on the element type
-// passes a scale under `if constexpr` only.
-template <int W, int P, int ROWS, int THREADS>
-__device__ __forceinline__ void load_tile(float* dst, const __nv_bfloat16* src, long long sn,
-                                          int r0, int lim, int w, bool vec, float scale = 1.f) {
-  if (vec) {
-    constexpr int C4 = W / 4;
-    for (int idx = threadIdx.x; idx < ROWS * C4; idx += THREADS) {
-      const int r = idx / C4, c = (idx % C4) * 4;
-      uint2 raw = make_uint2(0u, 0u);
-      if (r0 + r < lim && c < w)
-        raw = *reinterpret_cast<const uint2*>(src + (long long)(r0 + r) * sn + c);
-      // a bfloat16 is the top half of the float32 of the same value
-      float4 x = make_float4(__uint_as_float(raw.x << 16), __uint_as_float(raw.x & 0xffff0000u),
-                             __uint_as_float(raw.y << 16), __uint_as_float(raw.y & 0xffff0000u));
-      if (scale != 1.f)
-        x = make_float4(round_bf16(x.x * scale), round_bf16(x.y * scale), round_bf16(x.z * scale),
-                        round_bf16(x.w * scale));
-      *reinterpret_cast<float4*>(dst + r * P + c) = x;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < ROWS * W; idx += THREADS) {
-      const int r = idx / W, c = idx % W;
-      const bool ok = r0 + r < lim && c < w;
-      const float x = ok ? __bfloat162float(src[(long long)(r0 + r) * sn + c]) : 0.f;
-      dst[r * P + c] = scale != 1.f ? round_bf16(x * scale) : x;
-    }
-  }
 }
 
 // A bfloat16 kernel's dq, summed in a float32 buffer, written as bfloat16
@@ -212,17 +167,6 @@ __device__ __forceinline__ void mma3(float (&c)[4], const FragA& a, const FragB&
   mma_tf32(c, a.small, b.big);
   mma_tf32(c, a.big, b.small);
   mma_tf32(c, a.big, b.big);
-}
-
-// c += a b: EXACT (both operands bfloat16 values, exact in TF32) one TF32
-// product, else 3xTF32
-template <bool EXACT>
-__device__ __forceinline__ void mma(float (&c)[4], const FragA& a, const FragB& b) {
-  if constexpr (EXACT) {
-    mma_tf32(c, a.big, b.big);
-  } else {
-    mma3(c, a, b);
-  }
 }
 
 }  // namespace hstu_tf32

@@ -95,12 +95,17 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # one, which ends with the `vec_*` flags of q, k, v and dO; every one but
 # K5's ends with the route of its plan (`_ROUTES`) and the stream
 _ARGTYPES = {
-    "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_I, _P],
-    # the bfloat16 body's scratch after out and its chunk before the route
-    "hstu_mha_fwd_bf16": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_I] + [_I, _P],
+    # after the mask ints the per-pair route's scratch, its slabs a group and
+    # its splits (`_fwd_pairs_args`)
+    "hstu_mha_fwd": [_P] * 6 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_P, _I, _I] + [_I, _P],
+    # the bfloat16 body's scratch after out (the chunks' sums, or the per-pair
+    # route's), its slabs a group and splits after the mask ints and its chunk
+    # before the route
+    "hstu_mha_fwd_bf16": [_P] * 7 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 4 + [_I, _I] + [_I] + [_I, _P],
     # the bias pointer, its two strides and its type flag
-    "hstu_mha_fwd_bias": [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_I, _P],
-    "hstu_mha_fwd_bias_bf16": [_P] * 8 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 5 + [_I] + [_I, _P],
+    "hstu_mha_fwd_bias": [_P] * 7 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 4 + [_P, _I, _I] + [_I] + [_I, _P],
+    "hstu_mha_fwd_bias_bf16": [_P] * 8 + [_I] * 5 + [_L] * 11 + [_F, _F] + [_I] * 4 + [_I, _I] + [_I] + [_I]
+    + [_I, _P],
     **{
         name: [_P] * 8 + [_I] * 6 + [_L] * 9 + [_F, _F] + [_I] * 5 + [_P]
         for name in ("delta_hstu_mha_fwd", "delta_hstu_mha_fwd_bf16")
@@ -473,7 +478,7 @@ _MAX_GRID_X = 2**31 - 1
 # as they are told (`hstu::Route`, csrc/hstu_attention.cuh): the narrow body
 # (its tables staged in shared memory), the narrow body with the relative
 # bias's tables read from device memory, the wide bodies on thread block
-# clusters, the per-chunk wide bodies (the widths no cluster takes), the
+# clusters, the per-pair wide bodies (the widths no cluster takes), the
 # tile forward (float32 K1 and K1-bias where `_fwd_tile` takes the widths)
 _ROUTES = {"narrow": 0, "read": 1, "wide": 2, "wide_chunks": 3, "wide_tile": 4}
 # The wide bodies (csrc/hstu_attention_wide.cuh): D and V in chunks (or
@@ -495,21 +500,28 @@ _PORTABLE_CLUSTER, _MAX_CLUSTER, _MAX_OWN, _SPLIT_FROM = 8, 16, 2, 5
 _WIDE_FWD_ROUND, _WIDE_FWD_MAX_TILES, _WIDE_FWD_SPLIT_FROM = 32, 3, 4
 # the buckets a float32 time gap reaches (`hstu_wide::kTsSlots`)
 _WIDE_TS_SLOTS = 296
-# The per-chunk wide forward (route ``wide_chunks``): 64 query rows and
-# 32-column key tiles, a block of 4 warps per V chunk, its float32 Q, K and V
-# tiles
-_CHUNKS_FWD = dict(query_rows=64, key_tile=32, shared_bytes=4 * (64 * 136 + 32 * 136 + 32 * 132))
-# The per-pair wide backward (route ``wide_chunks`` of the backward,
-# `hstu_wide::sdp_kernel`, `grad_kernel`, `tables_kernel`): 64 x 64 tile
-# pairs; the S / dP pass 64 columns of D or V a step, its tiles at a pitch of
-# 72, in a ring of 3 stages, split across blocks where the pairs of a group
-# give fewer than 264 blocks (two an SM of the H100's 132); the gradient pass
-# a block per 64-row output tile and 128-column chunk, the float32 A tile (P
-# or dS) at a pitch of 72 and the chunk at 136, in 2 stages; the table sums a
-# block per key tile, the pair's dS at a pitch of 65, its 128 diagonal sums
-# and 8 warps' copies of the reachable buckets.
+# The per-pair wide bodies (route ``wide_chunks``, `hstu_wide::sdp_kernel`,
+# `grad_kernel`, `tables_kernel`): 64 x 64 tile pairs; the S / dP pass (the
+# forward's S pass) 64 columns of D or V a step, its tiles at a pitch of 72,
+# in a ring of 3 stages, split across blocks where the pairs of a group give
+# fewer than 264 blocks (two an SM of the H100's 132) and each run keeps at
+# least 4 steps; the gradient pass (the
+# forward's P V pass) a block per 64-row output tile and 128-column chunk,
+# the float32 A tile (P or dS) at a pitch of 72 and the chunk at 136, in 2
+# stages; the table sums a block per key tile, the pair's dS at a pitch of
+# 65, its 128 diagonal sums and 8 warps' copies of the reachable buckets.
+# The [64][64] float32 tiles a pair keeps in the scratch: the forward's P, the
+# backward's P and dS (`hstu_wide::kFwdMats`, `kBwdMats`).
 _PAIR_TILE, _PAIR_STEP, _PAIR_PITCH, _SDP_STAGES, _GRAD_STAGES, _SPLIT_TARGET = 64, 64, 72, 3, 2, 264
-# The cap on a group's scratch for P, dS and the pairs' flags: 256 MiB, the
+_FWD_MATS, _BWD_MATS = 1, 2
+# A split run's least steps: a split adds the sums pass (a launch and the
+# parts' reads, about 5 us at B 1), which runs of one step did not repay
+# (D 128 / V 4352, 2 steps: 0.0418 ms split 2 ways, 0.0381 unsplit) and
+# runs of 7 repaid 3x (D 4352 / V 64: 0.0554 against 0.1620; NVIDIA H100,
+# `variants.py --wide-chunks-fwd-variants`); at about 2 us a step a split
+# saves steps (1 - 1 / splits) of them, 4 steps or more from runs of 4
+_SPLIT_MIN_STEPS = 4
+# The cap on a group's scratch for P (and dS) and the pairs' flags: 256 MiB, the
 # size of the widest-heads ranker layer's q and k together (B 8, N 268, H 4,
 # D 3968: 272 MB), so that the scratch never outgrows what the layer's own
 # tensors take, and 0.3% of the H100's 80 GB; a group under it whose P and
@@ -626,8 +638,9 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
     ``v_tiles``, the per-element work split across the blocks
     (``split_work``, from 4 blocks) or repeated in each; ``shared_bytes`` the
     block's on q's type. Past 3 tiles a block of 16 blocks, route
-    ``wide_chunks``: the per-chunk forward, 64 query rows and 32-column key
-    tiles, a block per (query tile, head, batch row, V chunk). The wide
+    ``wide_chunks``: the per-pair forward (`_pairs_plan` with ``forward``),
+    S formed once per 64 x 64 tile pair, then O = P V a block per (query
+    tile, V chunk, slab) on ``grid``. The wide
     bodies read the bias, dense or relative, into registers: K1-bias plans as
     K1. Raises on a width of 0 and on a grid beyond CUDA's."""
     _check_widths(D, V)
@@ -641,10 +654,7 @@ def _fwd_plan(D: int, V: int, H: int, Nm: int, NB: int, relbias: bool, B: int = 
                         d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1, head_groups=H,
                         d_cols=_tile_width(D), v_cols=_tile_width(V), shared_bytes=_tile_bytes(D, V), grid=(blocks,))
         if cluster is None:
-            blocks = tiles * H * B * _chunks(V)
-            _check_grid(blocks, "the per-chunk wide forward kernel")
-            return dict(_CHUNKS_FWD, route="wide_chunks", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V),
-                        head_group=1, head_groups=H, grid=(blocks,))
+            return _pairs_plan("the wide forward kernel", D, V, H, B, N, _chunks(V), False, dtype, forward=True)
         cs, dw, vw, md, mv = cluster
         blocks = tiles * H * B * cs
         split = cs >= _WIDE_FWD_SPLIT_FROM
@@ -691,7 +701,7 @@ _BWD_TILING_BF16 = {32: (64, 64, 8), 64: (128, 64, 16), 128: (32, 64, 8), 256: (
 def _wide_cluster(D: int, V: int) -> Optional[Tuple[int, int, int]]:
     """The wide backward's cluster at widths D and V (`hstu_wide::cluster_of`):
     (chunks a block owns, D-blocks, V-blocks), or None past 16 blocks of two
-    chunks (the per-chunk bodies take those widths)."""
+    chunks (the per-pair bodies take those widths)."""
     n_dc, n_vc = _chunks(D), _chunks(V)
     for m in range(1, _MAX_OWN + 1):
         nd, nv = -(-n_dc // m), -(-n_vc // m)
@@ -715,37 +725,45 @@ def _wide_bwd_bytes(m: int, elem: int, tables: bool) -> int:
 
 
 def _pairs_plan(what: str, D: int, V: int, H: int, B: int, N: int, outputs: int, tables: bool,
-                dtype: torch.dtype) -> dict:
-    """The per-pair wide backward (route ``wide_chunks``): the (batch row,
-    head) slabs in ``groups`` of ``group_slabs`` whose P, dS and pair flags
-    stay under `_PAIR_SCRATCH_CAP` (a slab past it alone), each group in
-    turn on one float32 scratch of ``scratch_shape``: the S / dP pass a block
-    per (64 x 64 pair, split, slab) on ``sdp_grid``, its 64-column steps of D
-    then V in ``splits`` runs where the group's pairs give fewer than 264
-    blocks, the runs' sums on ``sums_grid`` (else None); the gradient pass a
-    block per (64-row tile, 128-column chunk, slab), ``output_chunks`` a tile,
-    on ``grid`` (``shared_bytes``); ``tables``: the table sums a block per
-    (key tile, slab) on ``tables_grid``; K7-det's ``table_rows``, one per
-    key tile, head and batch row. Grids of the largest group; on bfloat16 after
-    the pre-scaling pass. Raises on a grid beyond CUDA's."""
+                dtype: torch.dtype, forward: bool = False) -> dict:
+    """The per-pair wide bodies (route ``wide_chunks``): the (batch row,
+    head) slabs in ``groups`` of ``group_slabs`` whose P, dS (the forward: P
+    alone) and pair flags stay under `_PAIR_SCRATCH_CAP` (a slab past it
+    alone), each group in turn on one float32 scratch of ``scratch_shape``:
+    the S / dP pass (the forward's S pass) a block per (64 x 64 pair, split,
+    slab) on ``sdp_grid``, its 64-column steps of D then V (the forward: of D)
+    in ``splits`` runs (of 4 steps or more, but the last) where the group's
+    pairs give fewer than 264 blocks, the runs' sums on ``sums_grid`` (else
+    None); the gradient pass (the forward's
+    P V pass) a block per (64-row tile, 128-column chunk, slab),
+    ``output_chunks`` a tile, on ``grid`` (``shared_bytes``); ``tables``: the
+    table sums a block per (key tile, slab) on ``tables_grid``; the
+    backward's ``table_rows`` (K7-det's), one per key tile, head and batch
+    row. Grids of the largest group; the bfloat16 backward after the
+    pre-scaling pass. Raises on a grid beyond CUDA's."""
     tile, step, pitch = _PAIR_TILE, _PAIR_STEP, _PAIR_PITCH
+    mats = _FWD_MATS if forward else _BWD_MATS
     qt = -(-N // tile)
-    slab_bytes = 4 * (2 * qt * qt * tile * tile + qt * qt)
+    slab_bytes = 4 * (mats * qt * qt * tile * tile + qt * qt)
     group = max(1, min(B * H, _PAIR_SCRATCH_CAP // slab_bytes))
     pairs = group * qt * qt
-    steps = -(-D // step) + -(-V // step)
-    want = min(-(-_SPLIT_TARGET // pairs), steps)
+    steps = -(-D // step) + (0 if forward else -(-V // step))
+    want = min(-(-_SPLIT_TARGET // pairs), steps // _SPLIT_MIN_STEPS)
     splits = 1 if want <= 1 else -(-steps // -(-steps // want))
-    floats = 2 * pairs * tile * tile + -(-pairs // 4) * 4 + (splits * pairs * 2 * tile * tile if splits > 1 else 0)
+    floats = (mats * pairs * tile * tile + -(-pairs // 4) * 4
+              + (splits * pairs * mats * tile * tile if splits > 1 else 0))
     elem = dtype.itemsize
     plan = dict(route="wide_chunks", width=_WIDE_CHUNK, d_chunks=_chunks(D), v_chunks=_chunks(V), head_group=1,
                 tile=tile, groups=-(-(B * H) // group), group_slabs=group, splits=splits, scratch_shape=(floats,),
                 sdp_grid=(pairs * splits,), sdp_shared_bytes=_SDP_STAGES * 2 * tile * pitch * elem,
                 sums_grid=(pairs,) if splits > 1 else None, output_chunks=outputs,
                 shared_bytes=_GRAD_STAGES * (4 * tile * pitch + elem * tile * (_WIDE_CHUNK + 8)),
-                grid=(group * qt * outputs,), table_rows=qt * H * B)
+                grid=(group * qt * outputs,))
     for name in ("sdp_grid", "grid"):
         _check_grid(plan[name][0], f"the per-pair {what.removeprefix('the ')}")
+    if forward:
+        return plan
+    plan["table_rows"] = qt * H * B
     if tables:
         plan.update(tables_grid=(group * qt,),
                     tables_shared_bytes=4 * (tile * (tile + 1) + 2 * tile + 8 * _WIDE_TS_SLOTS))
@@ -905,8 +923,9 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
     plan = _fwd_plan(D, V, H, 0, 0, False, B, N, q.dtype)
     route = plan["route"]
     name = "hstu_mha_fwd" + ("" if bias is None else "_bias") + ("_bf16" if bf16 else "")
-    # the bfloat16 entry points' scratch after out and chunk before the route
-    scratch = _fwd_scratch(plan, q.device) if bf16 else None
+    # the scratch of the plan (the bfloat16 entry points' after out, their
+    # chunk before the route), the per-pair route's after the mask ints
+    scratch = _fwd_scratch(plan, q.device)
     extra_ptr, extra_int = (((_ptr(scratch),), (plan.get("key_chunk", 0),)) if bf16 else ((), ()))
     # the bias's pointer, its batch stride (0: one bias for every row), its
     # row stride and its type
@@ -920,7 +939,8 @@ def _dense_fwd(q, k, v, lens, nt, kw: dict, bias: Optional[torch.Tensor] = None)
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *extra_ptr,
         lens.data_ptr(), None if nt is None else nt.data_ptr(), *bias_ptr,
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *bias_strides,
-        *_mask_args(kw, N), *bias_type, *extra_int, _ROUTES[route], _stream(q.device),
+        *_mask_args(kw, N), *_fwd_pairs_args(plan, scratch, bf16), *bias_type, *extra_int, _ROUTES[route],
+        _stream(q.device),
     )
     hstu_mha_dense_cuda.launches[name].add(route)
     return out
@@ -931,11 +951,20 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _fwd_scratch(plan: dict, device: torch.device) -> Optional[torch.Tensor]:
-    """The bfloat16 forward's float32 scratch for the chunks' sums (None
-    where its plan cuts no walk in chunks, or takes the wide body, whose
-    chunk is 0)."""
+    """The forward's float32 scratch, allocated here (the C code allocates
+    nothing): the bfloat16 body's for the chunks' sums, or the per-pair
+    route's (``wide_chunks``, either type); None where the plan takes none."""
     shape = plan.get("scratch_shape")
     return None if shape is None else torch.empty(shape, dtype=torch.float32, device=device)
+
+
+def _fwd_pairs_args(plan: dict, scratch: Optional[torch.Tensor], bf16: bool) -> tuple:
+    """The forward entry points' arguments after the mask ints (K6's after Nm
+    and NB): the per-pair route's scratch (the float32 entry points' only:
+    the bfloat16 ones take theirs after out), its slabs a group and its
+    splits; elsewhere None and 0, 0."""
+    pairs = (plan["group_slabs"], plan["splits"]) if plan["route"] == "wide_chunks" else (0, 0)
+    return pairs if bf16 else (_ptr(scratch), *pairs)
 
 
 def _dense_fwd_chunks_bf16(q, k, v, lengths, kw, plan: dict) -> torch.Tensor:

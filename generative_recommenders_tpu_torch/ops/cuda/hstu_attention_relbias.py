@@ -88,9 +88,12 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 # C signatures of the entry points (csrc/hstu_mha_relbias_*.cu), each ending
 # with its plan's route and the stream
 ha._ARGTYPES.update({
-    "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _P],
-    # the bfloat16 body's scratch after out and its chunk before the route
-    "hstu_mha_relbias_fwd_bf16": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I] + [_I, _P],
+    # after Nm and NB the per-pair route's scratch, its slabs a group and its
+    # splits (`ha._fwd_pairs_args`)
+    "hstu_mha_relbias_fwd": [_P] * 9 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_P, _I, _I] + [_I, _P],
+    # the bfloat16 body's scratch after out, the per-pair route's slabs a
+    # group and splits after Nm and NB, its chunk before the route
+    "hstu_mha_relbias_fwd_bf16": [_P] * 10 + [_I] * 5 + [_L] * 9 + [_F, _F] + [_I] * 6 + [_I, _I] + [_I] + [_I, _P],
     # the mask ints, Nm and NB, then the per-pair route's scratch, its slabs
     # a group and its splits (`ha._pairs_args`), then the flags
     "hstu_mha_relbias_bwd": [_P] * 14 + [_I] * 5 + [_L] * 12 + [_F, _F] + [_I] * 6 + [_P, _I, _I] + [_I] * 4
@@ -322,8 +325,9 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
     # raises on what the kernel does not take
     plan = ha._fwd_plan(D, V, H, (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, True, B, N, q.dtype)
     route = plan["route"]
-    # the bfloat16 entry point's scratch after out and chunk before the route
-    scratch = ha._fwd_scratch(plan, q.device) if bf16 else None
+    # the scratch of the plan (the bfloat16 entry point's after out, its
+    # chunk before the route), the per-pair route's after Nm and NB
+    scratch = ha._fwd_scratch(plan, q.device)
     extra_ptr, extra_int = (((ha._ptr(scratch),), (plan.get("key_chunk", 0),)) if bf16 else ((), ()))
     ha._launch(
         "hstu_mha_relbias_fwd_bf16" if bf16 else "hstu_mha_relbias_fwd",
@@ -331,8 +335,8 @@ def _relbias_fwd(q, k, v, lens, nt, ts, pos_w, ts_w, kw: dict) -> torch.Tensor:
         lens.data_ptr(), None if nt is None else nt.data_ptr(),
         ts.data_ptr(), pos_w.data_ptr(), ts_w.data_ptr(),
         B, N, H, D, V, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *ha._mask_args(kw, N), (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1, *extra_int,
-        ha._ROUTES[route], ha._stream(q.device),
+        *ha._mask_args(kw, N), (pos_w.shape[0] + 1) // 2, ts_w.shape[0] - 1,
+        *ha._fwd_pairs_args(plan, scratch, bf16), *extra_int, ha._ROUTES[route], ha._stream(q.device),
     )
     counters = hstu_mha_dense_relbias_cuda
     (counters.launches_bf16 if bf16 else counters.launches).add(route)

@@ -131,7 +131,7 @@ checkout and this one in turns (parent, new, new, parent) in one call.
 
 times the wide forward's routes on the same inputs, float32 and bfloat16,
 each the mean of 10 launches: on the clusters (route ``wide``), on the
-per-chunk body (``wide_chunks``) and, float32 where it takes the widths,
+per-pair forward (``wide_chunks``) and, float32 where it takes the widths,
 on the tile forward (``wide_tile``), K1 and K1-bias (K6 at its shape) at
 `--wide-fwd`'s shapes but K6-long, at D 128, 192, 256 and 320 against V
 256 and D 128 and 256 against V 384 (B 4, N 2048, H 2), and at D 128 and
@@ -149,8 +149,8 @@ every key step, Q in registers at D past 128, K and V split once into
 tiles of their big and small parts as they land (D up to 128), and
 without S's products, P V's, the per-element work, the exchange's barrier
 or the K and V copies.
-The clusters': S recomputed per V chunk (the per-chunk body, its route
-forced: no build), the copies synchronous in place of `cp.async` a step
+The clusters': the per-pair forward in their place (its route forced: no
+build), the copies synchronous in place of `cp.async` a step
 ahead, bfloat16 through two TF32 m16n8k8 in place of one m16n8k16, the
 per-element work repeated in every block at every cluster size or split by
 fragment at every size (shipped: split from 4 blocks), without distributed
@@ -181,6 +181,29 @@ waited for before its products, in both passes, in place of the ring), no
 split of the S / dP steps across blocks (the plan patched: one block a
 pair whatever the grid), and the bfloat16 products as two TF32 m16n8k8 in
 place of one m16n8k16.
+
+    python PATH/TO/variants.py --wide-chunks-fwd
+
+(run as a file, with ``PYTHONPATH`` naming the checkout whose package to
+time, as ``--wide-chunks-bwd``) times the forward past the clusters (route
+``wide_chunks``: the per-pair forward) through the public wrappers, float32
+and bfloat16, each the mean of 10 launches: K1 and K1-bias, then K6 (128
+buckets), at D 4352 / V 64 and D 128 / V 4352 (B 1, N 300, H 1, a full
+row), and K1 and K1-bias at the widest-heads ranker's forward layer (B 8, N
+268, H 4, D 4352 / V 64, lengths N / 2 .. N with one full row); beside each
+shape the plain forward (the mean of 2). Run it from the parent's checkout
+and this one in turns (parent, new, new, parent) in one call.
+
+    python -m generative_recommenders_tpu_torch.ops.cuda.variants --wide-chunks-fwd-variants [KERNEL ...]
+
+builds and times the per-pair forward's knock-outs (labels "wcf: ..."; of
+the named kernels' libraries, K1's and K6's, at ``--wide-chunks-fwd``'s
+shapes): the copies synchronous (each step's tiles waited for before its
+products, in both passes, in place of the ring), no split of the S steps
+across blocks (the plan patched: one block a pair whatever the grid), the
+bfloat16 products as two TF32 m16n8k8 in place of one m16n8k16, and
+without the S pass's products, or its reads of Q and K (wrong sums: their
+times alone are read).
 
     python PATH/TO/variants.py --det
 
@@ -474,6 +497,22 @@ _WIDE_CHUNKS_BWD_EDITS: Dict[str, Edit] = {
              "    cp_async_wait<0>();\n    __syncthreads();  // this step's tiles are in place", "hstu_attention_wide.cuh")),
     "wcb: the bfloat16 products as two TF32 m16n8k8": _BF16_EDITS["bf16: m16n8k16 (two TF32 m16n8k8 instead)"],
 }
+# The per-pair forward (the same kernels in their FWD mode): the same
+# knock-outs
+_WCF_NO_SPLIT = "wcf: no split of the S steps across blocks"
+_WIDE_CHUNKS_FWD_EDITS: Dict[str, Edit] = {
+    "wcf: synchronous copies": _WIDE_CHUNKS_BWD_EDITS["wcb: synchronous copies"],
+    "wcf: the bfloat16 products as two TF32 m16n8k8": _BF16_EDITS["bf16: m16n8k16 (two TF32 m16n8k8 instead)"],
+    # what is left of the S pass without its products, or without its reads
+    # of Q and K (the copies fill zeros: no global reads)
+    "wcf: without the S products": _sub("    cp_async_commit();\n    if (!dead) {", "    cp_async_commit();\n    if (false) {",
+                                        "hstu_attention_wide.cuh"),
+    "wcf: without the Q and K reads": _sub(
+        "      load_step(R, qb, p.q_sn, r0, length, p.D, u * kPK, p.vec_q != 0);\n"
+        "      load_step(X, kb, p.k_sn, c0, length, p.D, u * kPK, p.vec_k != 0);",
+        "      load_step(R, qb, p.q_sn, r0, 0, p.D, u * kPK, p.vec_q != 0);\n"
+        "      load_step(X, kb, p.k_sn, c0, 0, p.D, u * kPK, p.vec_k != 0);", "hstu_attention_wide.cuh"),
+}
 # The wide backward (`bwd_kernel` in hstu_attention_wide.cuh): the copies
 # synchronous, the bfloat16 products as two TF32 ones (both as the width-128
 # knock-outs edit them), the per-element work taken out, K7's table sums on
@@ -691,8 +730,8 @@ _WIDE_TILE_EDITS: Dict[str, Edit] = {
              "const FragB f = QK > 0 ? tile_b_kn(vw, Vl + wn * vh, vpp, 8 * j, (n0 + n) * 8)\n"
              "                                 : load_b_kn<true>(vw, vpp, 8 * j, (n0 + n) * 8);", _WIDE)),
 }
-# the knock-out that needs no build: the per-chunk body's route forced
-_WFWD_CHUNKS = "wfwd: S recomputed per V chunk (the per-chunk body)"
+# the knock-out that needs no build: the per-pair forward's route forced
+_WFWD_CHUNKS = "wfwd: the per-pair forward (its route forced)"
 # K1 and K6: edits of their shared body
 _FWD = "hstu_attention_fwd.cuh"
 _BIAS = "the bias (its logf, its table reads)"
@@ -827,12 +866,17 @@ VARIANTS: List[Tuple[str, str, Tuple[str, ...]]] = (
        for kernel in ("hstu_mha_bwd_fused", "hstu_mha_bwd_dq", "hstu_mha_bwd_dkv", "hstu_mha_relbias_bwd")
        for label, phases in [("wcb: as shipped", ()), (_WCB_NO_SPLIT, ())]
        + [(name, (name,)) for name in _WIDE_CHUNKS_BWD_EDITS]]
+    + [(kernel, label, phases)
+       for kernel in ("hstu_mha_fwd", "hstu_mha_relbias_fwd")
+       for label, phases in [("wcf: as shipped", ()), (_WCF_NO_SPLIT, ())]
+       + [(name, (name,)) for name in _WIDE_CHUNKS_FWD_EDITS]]
 )
 _EDITS = {"hstu_mha_relbias_bwd": {**_K7, **_K7_DESIGNS, **_BF16_EDITS, **_R16_EDITS, **_W128_EDITS, **_WIDE_BWD_EDITS,
                                    **_WIDE_CHUNKS_BWD_EDITS},
           "delta_hstu_mha_fwd": _K5,
-          "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS, **_WIDE_FWD_EDITS, **_WIDE_TILE_EDITS},
-          "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS, **_WIDE_FWD_EDITS},
+          "hstu_mha_fwd": {**_K16, **_BF16_EDITS, **_FWD16_EDITS, **_WIDE_FWD_EDITS, **_WIDE_TILE_EDITS,
+                           **_WIDE_CHUNKS_FWD_EDITS},
+          "hstu_mha_relbias_fwd": {**_K16, **_FWD16_EDITS, **_WIDE_FWD_EDITS, **_WIDE_CHUNKS_FWD_EDITS},
           "hstu_mha_bwd_fused": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_BWD_EDITS, **_WIDE_CHUNKS_BWD_EDITS},
           "hstu_mha_bwd_dkv": {**_K24, **_BF16_EDITS, **_BWD16_EDITS, **_WIDE_CHUNKS_BWD_EDITS},
           "hstu_mha_bwd_dq": {**_K3, **_BF16_EDITS, **_Q16_EDITS, **_WIDE_BWD_EDITS, **_WIDE_CHUNKS_BWD_EDITS}}
@@ -1051,6 +1095,29 @@ def main(argv: Optional[List[str]] = None) -> None:
         finally:
             build._libs.clear()
         return
+    if args == ["--wide-chunks-fwd"]:
+        wide_fwd_times(device_ms, wide_fwd_inputs(rand, gen, _WIDE_CHUNKS_FWD_SHAPES))
+        return
+    if args[:1] == ["--wide-chunks-fwd-variants"]:
+        inputs = wide_fwd_inputs(rand, gen, _WIDE_CHUNKS_FWD_SHAPES)
+        # naming kernels keeps their libraries' variants
+        chosen = [i for i, (kernel, label, _) in enumerate(VARIANTS)
+                  if label.startswith("wcf") and (len(args) == 1 or kernel in args[1:])]
+        root = os.path.join(build.BUILD_DIR, "variants")
+        try:
+            _build_all(root, chosen)
+            for i in chosen:
+                kernel, label, _ = VARIANTS[i]
+                build._libs.clear()
+                _preload(kernel, os.path.join(root, f"v{i}"))
+                relbias = kernel == "hstu_mha_relbias_fwd"
+                with _wcb_plan(label):
+                    wide_fwd_times(device_ms, {k_: v_ for k_, v_ in inputs.items()
+                                               if (v_["tables"] is not None) == relbias},
+                                   label=f"{label} ({kernel})", plain=False)
+        finally:
+            build._libs.clear()
+        return
     if args == ["--wide-fwd-routes"]:
         wide_fwd_route_times(device_ms, rand, gen)
         return
@@ -1070,7 +1137,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 build._libs.clear()
                 _preload(kernel, os.path.join(root, f"v{i}"))
                 relbias = kernel == "hstu_mha_relbias_fwd"
-                with (_fwd_chunks_forced() if label == _WFWD_CHUNKS else contextlib.nullcontext()):
+                with (_fwd_pairs_forced() if label == _WFWD_CHUNKS else contextlib.nullcontext()):
                     wide_fwd_times(device_ms, {k_: v_ for k_, v_ in inputs.items()
                                                if (v_["tables"] is not None) == relbias and "long" not in k_},
                                    label=f"{label} ({kernel})", plain=False)
@@ -1420,14 +1487,23 @@ _WIDE_CHUNKS_BWD_SHAPES = tuple((f"D {D} / V {V}{' with the bias' if rel else ''
     ("the widest-heads ranker's layer", 8, 268, 4, 3968, 128, False),)
 
 
+# past the forward's clusters (route ``wide_chunks``): the widest-heads
+# forward at chip_smoke's kernel phase (B 1, N 300, H 1), K1 and K1-bias and
+# K6 (Nm = N), the wide-V shape, and K1 and K1-bias at the widest-heads
+# ranker's forward layer
+_WIDE_CHUNKS_FWD_SHAPES = tuple((f"D {D} / V {V}{' with the bias' if Nm else ''}", 1, 300, 1, D, V, Nm, False)
+                                for D, V in ((4352, 64), (128, 4352)) for Nm in (0, 300)) + (
+    ("the widest-heads ranker's forward layer", 8, 268, 4, 4352, 64, 0, False),)
+
+
 @contextlib.contextmanager
 def _wcb_plan(label: str):
-    """The per-pair backward's plan matched to a knock-out that changes what
-    the plan decides: no split of the S / dP steps."""
+    """The per-pair bodies' plans matched to a knock-out that changes what
+    the plan decides: no split of the S / dP (or the forward's S) steps."""
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 
     shipped = ha._SPLIT_TARGET
-    if label == _WCB_NO_SPLIT:
+    if label in (_WCB_NO_SPLIT, _WCF_NO_SPLIT):
         ha._SPLIT_TARGET = 1
     try:
         yield
@@ -1553,14 +1629,22 @@ def wide_fwd_inputs(rand, gen, table=_WIDE_FWD_SHAPES) -> Dict[str, dict]:
 
 
 @contextlib.contextmanager
-def _fwd_chunks_forced():
-    """The wide forward's plans with the per-chunk body's route (a checkout
-    that has one)."""
+def _fwd_pairs_forced():
+    """The wide forward's plans with the per-pair forward's route
+    (``wide_chunks``) wherever they take another wide one."""
+    import torch
+
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 
     fwd = ha._fwd_plan
-    ha._fwd_plan = lambda *a, **k: (lambda p: dict(p, route="wide_chunks") if p["route"] in ("wide", "wide_tile")
-                                    else p)(fwd(*a, **k))
+
+    def plan(D, V, H, Nm, NB, relbias, B=1, N=1, dtype=torch.float32):
+        p = fwd(D, V, H, Nm, NB, relbias, B, N, dtype)
+        if p["route"] not in ("wide", "wide_tile"):
+            return p
+        return ha._pairs_plan("the wide forward kernel", D, V, H, B, N, ha._chunks(V), False, dtype, forward=True)
+
+    ha._fwd_plan = plan
     try:
         yield
     finally:
@@ -1604,14 +1688,14 @@ def _fwd_tile_forced():
 
 def wide_fwd_route_times(device_ms, rand, gen) -> None:
     """Prints the wide forward at `--wide-fwd`'s shapes but K6-long and at
-    `_WIDE_FWD_ROUTE_SHAPES`, on the clusters, on the per-chunk body and on
+    `_WIDE_FWD_ROUTE_SHAPES`, on the clusters, on the per-pair forward and on
     the tile forward (float32 where it takes the widths), on the same inputs:
     the measurements the plan's routes follow."""
     import torch
 
     for shape in _WIDE_FWD_SHAPES[:-1] + _WIDE_FWD_ROUTE_SHAPES:
         inputs = wide_fwd_inputs(rand, gen, (shape,))
-        for label, forced in (("clusters", _fwd_clusters_forced), ("per chunk", _fwd_chunks_forced),
+        for label, forced in (("clusters", _fwd_clusters_forced), ("per pair", _fwd_pairs_forced),
                               ("tile", _fwd_tile_forced)):
             with forced():
                 wide_fwd_times(device_ms, inputs, label=label, plain=False)

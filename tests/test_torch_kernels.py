@@ -1449,36 +1449,44 @@ def test_wide_forward_on_clusters(cuda, D, V, bf16):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("D,V", [(4352, 64), (8192, 64)])
-def test_wide_forward_past_the_clusters(cuda, D, V, bf16):
+@pytest.mark.parametrize("D,V", [(4352, 64), (8192, 64), (128, 4352)])
+def test_wide_forward_past_the_clusters(cuda, D, V, bf16, monkeypatch):
     """Past 3 tiles a block of 16 blocks, K1, K1-bias and K6 (float32 or
-    bfloat16) take the per-chunk forward (route ``wide_chunks``), with
+    bfloat16) take the per-pair forward (route ``wide_chunks``), with
     targets and a contextual row on views of one projection: within
     `WIDE_TOL` (bfloat16 `BF16_TOL`) of their plain versions, zeros past the
-    lengths, K1's and K1-bias's outputs the same bits twice."""
+    lengths, K1's, K1-bias's and K6's outputs the same bits twice; and with
+    the scratch's cap lowered so that each (batch row, head) slab is a group
+    of its own (4 groups), the same checks again."""
     from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
 
     dtype = torch.bfloat16 if bf16 else torch.float32
     q, k, v, _, lengths, nt = _wide_views(54, 2, 150, 2, D, V, dtype, cuda)
     kw = dict(alpha=D**-0.5, max_seq_len=160, num_targets=nt, contextual_seq_len=1)
-    assert ha._fwd_plan(D, V, 2, 0, 0, False, 2, 150, dtype)["route"] == "wide_chunks"
-    counter = hstu_mha_dense_cuda.launches["hstu_mha_fwd" + ("_bf16" if bf16 else "")]
-    before = counter.routes.get("wide_chunks", 0)
-    out = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
-    assert counter.routes.get("wide_chunks", 0) == before + 1
-    _held("out", out, hstu_mha_dense_plain(q, k, v, lengths, **kw), bf16)
-    dead = torch.arange(150, device=cuda)[None, :] >= lengths[:, None]
-    assert (out[dead] == 0).all()
-    assert torch.equal(out, hstu_mha_dense_cuda(q, k, v, lengths, **kw))
     bias = torch.randn(2, 150, 150, device=cuda, generator=torch.Generator(cuda).manual_seed(55)) * 0.3
-    biased = hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw)
-    _held("biased out", biased, hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw), bf16)
-    assert torch.equal(biased, hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw))
     rq, rk, rv, rl, ts, pos_w, ts_w, rnt = _relbias_inputs(56, 2, 150, 2, D, V, 150, 128, True, cuda)
     rq, rk, rv = (x.to(dtype) for x in (rq, rk, rv))
     rkw = dict(alpha=1.0 if bf16 else D**-0.5, max_seq_len=150, num_buckets=128, num_targets=rnt)
-    _held("K6 out", hstu_mha_dense_relbias_cuda(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw),
-          hstu_mha_dense_relbias_plain(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw), bf16)
+    dead = torch.arange(150, device=cuda)[None, :] >= lengths[:, None]
+    for groups in (1, 4):
+        if groups == 4:
+            monkeypatch.setattr(ha, "_PAIR_SCRATCH_CAP", 1)
+        plan = ha._fwd_plan(D, V, 2, 0, 0, False, 2, 150, dtype)
+        assert plan["route"] == "wide_chunks" and plan["groups"] == groups
+        counter = hstu_mha_dense_cuda.launches["hstu_mha_fwd" + ("_bf16" if bf16 else "")]
+        before = counter.routes.get("wide_chunks", 0)
+        out = hstu_mha_dense_cuda(q, k, v, lengths, **kw)
+        assert counter.routes.get("wide_chunks", 0) == before + 1
+        _held(f"out ({groups} groups)", out, hstu_mha_dense_plain(q, k, v, lengths, **kw), bf16)
+        assert (out[dead] == 0).all()
+        assert torch.equal(out, hstu_mha_dense_cuda(q, k, v, lengths, **kw))
+        biased = hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw)
+        _held(f"biased out ({groups} groups)", biased, hstu_mha_dense_plain(q, k, v, lengths, bias=bias, **kw), bf16)
+        assert torch.equal(biased, hstu_mha_dense_cuda(q, k, v, lengths, bias=bias, **kw))
+        k6 = hstu_mha_dense_relbias_cuda(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw)
+        _held(f"K6 out ({groups} groups)", k6, hstu_mha_dense_relbias_plain(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw),
+              bf16)
+        assert torch.equal(k6, hstu_mha_dense_relbias_cuda(rq, rk, rv, rl, ts, pos_w, ts_w, **rkw))
 
 
 @pytest.mark.gpu

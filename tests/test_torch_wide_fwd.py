@@ -14,16 +14,24 @@ of two chunks, on the CPU.
   + 1) d_cols) and V's [r v_cols, (r + 1) v_cols), each share rounded up to
   32, in tiles of up to 128 (3 tiles a block at most); each block's shared
   memory within 232,448 bytes on both types, with and without a bias (the
-  bias is read into registers); past 3 tiles a block, the per-chunk forward
-  (route ``wide_chunks``); a grid past CUDA's limit raises with its sizes.
-  The Python mirror of the clusters' and the tile forward's rules, of their
-  constants and of their blocks' bytes against the C header.
+  bias is read into registers); past 3 tiles a block, the per-pair forward
+  (route ``wide_chunks``: S once per 64 x 64 tile pair into a float32
+  scratch, then O = P V a block per query tile and V chunk), its (batch row,
+  head) slabs in groups under the scratch's cap; a grid past CUDA's limit
+  raises with its sizes. The Python mirror of the clusters', the tile
+  forward's and the per-pair forward's rules, of their constants and of
+  their blocks' bytes and scratch against the C header.
 * The port's plain backward (the function the card holds the wide
-  backward's per-chunk route to) against the JAX package's
+  backward's per-pair route to) against the JAX package's
   `hstu_mha_dense_pallas` in interpret mode and its VJP at D 3968 / V 128,
   31 + 1 chunks (B 1, H 1, N 40, float32): the output within rtol = atol =
   2e-5, each gradient within 2e-5 of its largest entry (float32 sums in
   other orders), `tests/test_torch_shapes.py`'s tolerances.
+* The port's plain forward (the function the card holds the per-pair
+  forward to), K1 and K6, against the JAX package's `hstu_mha_dense_pallas`
+  and `hstu_mha_dense_pallas_relbias` in interpret mode at the per-pair
+  forward's widths D 4352 / V 64 and D 128 / V 4352 (B 2, H 1, N 40,
+  float32, targets and a contextual row): within rtol = atol = 2e-5.
 """
 
 import os
@@ -37,8 +45,10 @@ import jax
 import jax.numpy as jnp
 
 from generative_recommenders_tpu.ops.pallas import hstu_attention as pallas_attn
+from generative_recommenders_tpu.ops.pallas.hstu_attention_relbias import hstu_mha_dense_pallas_relbias
 from generative_recommenders_tpu_torch.ops.cuda import build
 from generative_recommenders_tpu_torch.ops.cuda import hstu_attention as ha
+from generative_recommenders_tpu_torch.ops.cuda import hstu_attention_relbias as hr
 
 SHARED = 232448  # a Hopper block's shared memory
 FWD_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -114,17 +124,128 @@ def test_fwd_plan_is_one_cluster_per_tile(D, V, dtype):
         assert cs * dw >= D and cs * vw >= V  # every column of D and of V has its block
 
 
+def _fwd_pairs_bytes(group, qt, splits):
+    """A group's forward scratch (as `hstu_wide::Pairs` lays it out with
+    kFwdMats tiles a pair): P of every pair, the pairs' flags padded to 4,
+    the splits' partial S."""
+    tiles = group * qt * qt
+    return 4 * (tiles * 4096 + -(-tiles // 4) * 4 + (splits * tiles * 4096 if splits > 1 else 0))
+
+
 @pytest.mark.parametrize("D,V", [(8192, 64), (64, 8192), (4096, 4096), (3000, 3000), (4352, 64)])
 def test_fwd_past_the_clusters_takes_the_per_chunk_body(D, V):
     """Where a block would hold more than 3 tiles of 128 columns, the
-    per-chunk forward: a block of 4 warps per (64-row query tile, head,
-    batch row, V chunk), float32 tiles on either type."""
+    per-pair forward (route ``wide_chunks``), both types, with and without
+    the relative bias: the S pass a block per (64 x 64 tile pair, split,
+    slab), 3 stages of two [64][72] tiles of q's type, its 64-column steps of
+    D split 2 ways where the group's 200 pairs give fewer than 264 blocks;
+    the P V pass a block per (64-row query tile, 128-column V chunk, slab),
+    two stages of a float32 [64][72] P tile and a [64][136] V chunk; the
+    float32 scratch of P, the flags and the splits' partial S; one group;
+    no pre-scaling pass (alpha q is rounded as Q's fragments are read)."""
     assert ha._wide_fwd_cluster(D, V) is None
+    B, H, N, qt = 4, 2, 300, 5
+    steps = -(-D // 64)
+    group, pairs = B * H, B * H * qt * qt
+    want = min(-(-264 // pairs), steps // 4)
+    splits = 1 if want <= 1 else -(-steps // -(-steps // want))
     for dtype in TYPES:
-        plan = ha._fwd_plan(D, V, 2, 0, 0, False, 4, 300, dtype)
-        assert plan["route"] == "wide_chunks"
-        assert plan["grid"] == (5 * 2 * 4 * _chunks(V),)
-        assert plan["shared_bytes"] == 4 * (64 * 136 + 32 * 136 + 32 * 132) <= SHARED
+        elem = dtype.itemsize
+        for relbias, Nm, NB in ((False, 0, 0), (True, 4096, 128)):
+            plan = ha._fwd_plan(D, V, H, Nm, NB, relbias, B, N, dtype)
+            assert plan["route"] == "wide_chunks"
+            assert (plan["groups"], plan["group_slabs"], plan["splits"]) == (1, group, splits)
+            assert splits == (1 if D == 64 else 2)
+            assert plan["sdp_grid"] == (pairs * splits,)
+            assert plan["sums_grid"] == ((pairs,) if splits > 1 else None)
+            assert plan["grid"] == (group * qt * _chunks(V),) and plan["output_chunks"] == _chunks(V)
+            assert plan["sdp_shared_bytes"] == 3 * 2 * 64 * 72 * elem <= SHARED
+            assert plan["shared_bytes"] == 2 * (4 * 64 * 72 + elem * 64 * 136) <= SHARED
+            assert plan["scratch_shape"] == (_fwd_pairs_bytes(group, qt, splits) // 4,)
+            assert not any(k.startswith(("prescale", "q_scaled", "do_scaled", "table")) for k in plan)
+
+
+@pytest.mark.parametrize("case", ["past the cap", "one slab past the cap", "the ranker's forward layer", "few pairs"])
+def test_fwd_per_pair_scratch_goes_in_groups_under_the_cap(case):
+    """The per-pair forward's (batch row, head) slabs run in groups whose P
+    and flags stay under `_PAIR_SCRATCH_CAP` (256 MiB), each group in turn on
+    one scratch: B 8, H 8, N 4096 at D 4352 / V 64 in 22 groups of 3 slabs
+    (67 MB of P a slab, where the backward's P and dS take one a group); a
+    slab larger than the cap (N 8192) a group of its own; the widest-heads
+    ranker's forward layer (B 8, N 268, H 4) one group of 800 pairs,
+    unsplit; B 1, H 1, N 300 one group of 25 pairs whose 68 steps split 10
+    ways (264 blocks aimed at). K1's and K6's plans agree on both types;
+    every grid of a group within CUDA's limit."""
+    cap = ha._PAIR_SCRATCH_CAP
+    assert cap == 256 * 2**20
+    B, N, H, groups, splits = {"past the cap": (8, 4096, 8, 22, 1), "one slab past the cap": (1, 8192, 2, 2, 1),
+                               "the ranker's forward layer": (8, 268, 4, 1, 1), "few pairs": (1, 300, 1, 1, 10)}[case]
+    D, V, qt = 4352, 64, -(-N // 64)
+    plans = [ha._fwd_plan(D, V, H, Nm, 128, rel, B, N, dtype)
+             for rel, Nm in ((False, 0), (True, N)) for dtype in TYPES]
+    for plan in plans:
+        assert (plan["route"], plan["groups"], plan["splits"]) == ("wide_chunks", groups, splits)
+        group = plan["group_slabs"]
+        assert -(-(B * H) // group) == groups
+        own = _fwd_pairs_bytes(group, qt, 1)
+        assert own <= cap or group == 1  # under the cap, or a slab past it alone
+        assert group == B * H or _fwd_pairs_bytes(group + 1, qt, 1) > cap  # as many slabs as fit
+        assert plan["scratch_shape"] == (_fwd_pairs_bytes(group, qt, splits) // 4,)
+        assert max(plan["sdp_grid"][0], plan["grid"][0]) < 2**31
+    if case == "past the cap":
+        assert plans[0]["group_slabs"] == 3 and _fwd_pairs_bytes(3, qt, 1) < cap < _fwd_pairs_bytes(4, qt, 1)
+    if case == "one slab past the cap":
+        assert _fwd_pairs_bytes(1, qt, 1) > cap
+    if case == "the ranker's forward layer":
+        assert plans[0]["group_slabs"] == 32 and plans[0]["sdp_grid"] == (800,)
+        assert _fwd_pairs_bytes(32, qt, 1) < 50 * 10**6  # within the L2
+    if case == "few pairs":
+        assert plans[0]["sdp_grid"] == (250,) and plans[0]["sums_grid"] == (25,)
+
+
+@pytest.mark.parametrize("D", [64, 128, 192, 256, 320, 512, 1000, 4352])
+def test_fwd_split_runs_take_four_steps(D):
+    """The S pass's 64-column steps of D split across blocks only where a run
+    keeps 4 steps or more (`_SPLIT_MIN_STEPS`; every run but the last), at
+    B 1, H 1, N 300 (25 pairs, 264 blocks aimed at) and V 4352: D 128 (2
+    steps) unsplit, D 4352 (68 steps) in 10 runs of 7; the backward's
+    splits, with V's steps too, unchanged by the rule at these widths."""
+    assert ha._SPLIT_MIN_STEPS == 4
+    steps = -(-D // 64)
+    plan = ha._fwd_plan(D, 4352, 1, 0, 0, False, 1, 300)
+    assert plan["route"] == "wide_chunks"
+    splits = plan["splits"]
+    per = -(-steps // splits)
+    assert splits == 1 or (per >= 4 and (splits - 1) * per < steps)
+    assert (splits == 1) == (steps < 8)
+    assert splits == {128: 1, 4352: 10}.get(D, splits)
+    assert plan["sums_grid"] == ((25,) if splits > 1 else None) and plan["sdp_grid"] == (25 * splits,)
+    both = steps + 68  # the backward's steps of D and V: 11 runs, as before the rule
+    assert ha._bwd_plan(D, 4352, 1, 1, 300)["splits"] == -(-both // -(-both // 11))
+
+
+def test_fwd_pairs_mirror_the_header():
+    """The per-pair forward's scratch layout, its steps and its launch are the
+    C header's: one [64][64] float32 tile a pair (the backward's two), the
+    flags after the tiles and the splits' parts after the flags, D's steps
+    alone, a grid per group of (pair, split), pairs and (query tile, V
+    chunk) blocks; the entry points pass the scratch and the plan's ints."""
+    text = _header()
+    assert re.search(r"constexpr int kFwdMats = (\d+), kBwdMats = (\d+);", text).groups() == (
+        str(ha._FWD_MATS), str(ha._BWD_MATS)) == ("1", "2")
+    assert "return reinterpret_cast<int*>(w.scratch + w.mats * w.tiles * kPairFloats);" in text  # pair_flags
+    assert ("return w.scratch + w.mats * w.tiles * kPairFloats + (w.tiles + 3) / 4 * 4 +\n"
+            "         ((long long)sp * w.tiles + tile) * w.mats * kPairFloats;") in text  # pair_part
+    assert "return (D + kPK - 1) / kPK + (fwd ? 0 : (V + kPK - 1) / kPK);" in text  # sdp_steps
+    body = re.search(r"cudaError_t launch_fwd_pairs\(Params<E> p, cudaStream_t stream\) \{(.*?)\n\}", text,
+                     re.S).group(1)
+    assert "w.mats = kFwdMats;" in body and "w.per = (sdp_steps(p.D, p.V, true) + p.splits - 1) / p.splits;" in body
+    assert "{pairs * w.splits, pairs, (long long)slabs * w.qt * chunks(p.V)}" in body
+    assert "grad_kernel<true, false, true, E, E>" in body
+    with open(os.path.join(build.CSRC_DIR, "hstu_attention_fwd.cuh")) as f:
+        fwd = f.read()
+    assert "if (route == hstu::kWideChunks) return (int)hstu_wide::launch_fwd_pairs<WB, E>(w, stream);" in fwd
+    assert "fwd_chunks" not in text + fwd
 
 
 # (D, V, B, N, H, bias): whether float32 takes the tile forward (the
@@ -230,8 +351,12 @@ def test_fwd_plan_bytes_stay_within_a_block():
 def test_fwd_grid_past_cuda_raises_with_its_sizes():
     with pytest.raises(ValueError, match=r"wide forward kernel \(clusters of 2 blocks\)'s grid of \d+ blocks exceeds"):
         ha._fwd_plan(512, 64, 2**16, 0, 0, False, 2**9, 2**11)
-    with pytest.raises(ValueError, match=r"per-chunk wide forward kernel's grid"):
-        ha._fwd_plan(8192, 8192, 2**16, 0, 0, False, 2**9, 2**10)
+    # past the clusters the slabs go in groups: the grid that raised on the
+    # per-chunk body (2^9 batch rows, 2^16 heads, N 1024) fits; one slab of
+    # 2^22 rows has more pairs than a grid takes
+    assert ha._fwd_plan(8192, 8192, 2**16, 0, 0, False, 2**9, 2**10)["groups"] > 1
+    with pytest.raises(ValueError, match=r"per-pair wide forward kernel's grid of \d+ blocks exceeds"):
+        ha._fwd_plan(8192, 64, 1, 0, 0, False, 1, 2**22)
 
 
 @pytest.mark.parametrize("D", [1, 64, 129, 640, 1100, 2048, 3968, 4096, 5000])
@@ -302,3 +427,41 @@ def test_plain_backward_matches_pallas_at_d3968():
         got = ha.hstu_mha_bwd_cuda(t(q), t(k), t(v), t(lengths), t(do), split=split, **kw)
         for name, g, w in zip(("dq", "dk", "dv"), got, want, strict=True):
             _close_to_max(g, w, GRAD_TOL, name)
+
+
+FWD_CASES = {"D 4352 / V 64": (4352, 64), "D 128 / V 4352": (128, 4352)}
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K6"])
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_plain_forward_matches_pallas_past_the_clusters(case, kernel):
+    """The port's plain forward (what the wrappers compute on CPU tensors, and
+    what the card holds the per-pair forward to) against the JAX package's
+    Pallas forward in interpret mode at the per-pair route's widths, with
+    targets and a contextual row: K1 (`hstu_mha_dense_pallas`) and K6
+    (`hstu_mha_dense_pallas_relbias`, 128 buckets), float32, rtol = atol =
+    2e-5; the port's plan takes the per-pair route there."""
+    D, V = FWD_CASES[case]
+    rng = np.random.default_rng(24)
+    B, N, H = 2, 40, 1
+    q, k = ((rng.standard_normal((B, N, H, D)) * 0.1).astype(np.float32) for _ in range(2))
+    v = (rng.standard_normal((B, N, H, V)) * 0.5).astype(np.float32)
+    lengths, nt = np.array([N, 29], np.int32), np.array([3, 2], np.int32)
+    kw = dict(alpha=D**-0.5, max_seq_len=N, causal=True, contextual_seq_len=2)
+    t = torch.as_tensor
+    if kernel == "K1":
+        assert ha._fwd_plan(D, V, H, 0, 0, False, B, N)["route"] == "wide_chunks"
+        want = pallas_attn.hstu_mha_dense_pallas(*map(jnp.asarray, (q, k, v, lengths)), num_targets=jnp.asarray(nt),
+                                                 block_q=128, block_k=128, interpret=True, **kw)
+        got = ha.hstu_mha_dense_cuda(t(q), t(k), t(v), t(lengths), num_targets=t(nt), **kw)
+    else:
+        assert ha._fwd_plan(D, V, H, N, 128, True, B, N)["route"] == "wide_chunks"
+        ts = np.cumsum(rng.integers(1, 86400, (B, N)), axis=1).astype(np.int64) + 1_500_000_000
+        pos_w = (rng.standard_normal(2 * N - 1) * 0.1).astype(np.float32)
+        ts_w = (rng.standard_normal(129) * 0.1).astype(np.float32)
+        want = hstu_mha_dense_pallas_relbias(*map(jnp.asarray, (q, k, v, lengths, ts, pos_w, ts_w)),
+                                             num_targets=jnp.asarray(nt), num_buckets=128, block_q=128,
+                                             block_k=128, interpret=True, **kw)
+        got = hr.hstu_mha_dense_relbias_cuda(t(q), t(k), t(v), t(lengths), t(ts), t(pos_w), t(ts_w),
+                                             num_targets=t(nt), num_buckets=128, **kw)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **FWD_TOL)
