@@ -1,0 +1,13 @@
+"""Share of the profiled serving sub-window in which no kernel, copy or
+fill ran on the card: 1 - (union of the device intervals) / window."""
+
+SOURCE = "device_trace"
+LAYER = "device"
+MOVES = "serve_candidates_per_s"
+
+
+def read(run):
+    t = run.trace
+    if t is None or t.busy_s <= 0:
+        return None
+    return 100.0 * t.idle_share
