@@ -28,6 +28,7 @@ from generative_recommenders_tpu_torch.modules.dlrm_hstu import (
 from generative_recommenders_tpu_torch.parallel.distributed import all_gather_tensor
 from generative_recommenders_tpu_torch.parallel.mesh import Mesh
 from generative_recommenders_tpu_torch.parallel.sharding import rank_rows
+from generative_recommenders_tpu_torch.utils.profiling import span
 
 Table = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -82,13 +83,14 @@ class HSTUModelFamily:
     ) -> torch.Tensor:
         """sparse -> dense; predictions [T, B, M] (under a mesh, of the
         request batch whose rows `shard_inputs` gave this rank)."""
-        seq_embeddings, payloads = lookup_and_merge_features(
-            self.cfg, self.model.feature_to_table, self._lookup,
-            uih_features, uih_lengths, candidates_features,
-        )
-        return self._gathered(self.model.main_forward(
-            seq_embeddings, payloads, uih_lengths, num_candidates, compute_losses=False
-        )[3])
+        with span("serve.predict"):
+            seq_embeddings, payloads = lookup_and_merge_features(
+                self.cfg, self.model.feature_to_table, self._lookup,
+                uih_features, uih_lengths, candidates_features,
+            )
+            return self._gathered(self.model.main_forward(
+                seq_embeddings, payloads, uih_lengths, num_candidates, compute_losses=False
+            )[3])
 
     @torch.inference_mode()
     def predict_mfalcon(

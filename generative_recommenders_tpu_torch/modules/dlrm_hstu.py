@@ -39,6 +39,7 @@ from generative_recommenders_tpu_torch.modules.postprocessors import (
 from generative_recommenders_tpu_torch.modules.preprocessors import ContextualPreprocessor
 from generative_recommenders_tpu_torch.modules.stu import KVCache, STULayerConfig, STUStack
 from generative_recommenders_tpu_torch.ops.padded import concat_tail, valid_mask
+from generative_recommenders_tpu_torch.utils.profiling import span
 
 Lookup = Callable[[str, torch.Tensor], torch.Tensor]
 
@@ -303,14 +304,15 @@ def lookup_and_merge_features(
     (seq_embeddings, payload_features)."""
     seq_embeddings: Dict[str, torch.Tensor] = {}
     payload_features: Dict[str, torch.Tensor] = {}
-    for f, ids in list(uih_features.items()) + list(candidates_features.items()):
-        if f in feature_to_table:
-            seq_embeddings[f] = lookup_fn(f, ids)
-        else:
-            payload_features[f] = ids
-    for uih_name, cand_name in cfg.merge_uih_candidate_feature_mapping:
-        for d in (seq_embeddings, payload_features):
-            if uih_name in d:
-                d[uih_name] = concat_tail(d[uih_name], uih_lengths, d[cand_name])
-                break
+    with span("dlrm.lookup"):
+        for f, ids in list(uih_features.items()) + list(candidates_features.items()):
+            if f in feature_to_table:
+                seq_embeddings[f] = lookup_fn(f, ids)
+            else:
+                payload_features[f] = ids
+        for uih_name, cand_name in cfg.merge_uih_candidate_feature_mapping:
+            for d in (seq_embeddings, payload_features):
+                if uih_name in d:
+                    d[uih_name] = concat_tail(d[uih_name], uih_lengths, d[cand_name])
+                    break
     return seq_embeddings, payload_features

@@ -23,6 +23,7 @@ from generative_recommenders_tpu_torch.modules.preprocessors import ContextualPr
 from generative_recommenders_tpu_torch.modules.stu import KVCache, STUStack
 from generative_recommenders_tpu_torch.ops.hstu_compute import dropout
 from generative_recommenders_tpu_torch.ops.padded import gather_tail
+from generative_recommenders_tpu_torch.utils.profiling import span
 
 
 class HSTUTransducer(nn.Module):
@@ -65,7 +66,8 @@ class HSTUTransducer(nn.Module):
         x = self.positional_encoder(pre.seq_embeddings, pre.seq_lengths, pre.seq_timestamps, nt)
         if not deterministic:
             x = dropout(x, self.input_dropout_ratio, gen)
-        encoded = self.stu_module(x, pre.seq_lengths, nt, deterministic, gen, sd_gen)
+        with span("dlrm.stu"):
+            encoded = self.stu_module(x, pre.seq_lengths, nt, deterministic, gen, sd_gen)
         cand = gather_tail(encoded, pre.uih_lengths, max_targets)
         cand_ts = gather_tail(pre.seq_timestamps, pre.uih_lengths, max_targets)
         return self.output_postprocessor(cand, cand_ts)

@@ -82,7 +82,7 @@ from generative_recommenders_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
 )
-from generative_recommenders_tpu_torch.utils.profiling import Profiler
+from generative_recommenders_tpu_torch.utils.profiling import Profiler, span
 from generative_recommenders_tpu_torch.utils.tb import SummaryLogger
 
 logger = logging.getLogger(__name__)
@@ -197,7 +197,8 @@ class DlrmTrainer:
         self.sparse_opt.zero_grad(set_to_none=True)
         self.dense_opt.zero_grad(set_to_none=True)
         loss, preds, labels, weights = self.loss(batch)
-        loss.backward()
+        with span("train.backward"):
+            loss.backward()
         for p in self.model.parameters():
             if p.grad is None:  # a layer stochastic depth skipped: optax sees zeros
                 p.grad = torch.zeros_like(p)
@@ -257,9 +258,13 @@ class DlrmTrainer:
 def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]:
     """Trains on every batch of ``batches`` (numpy, made on a background
     thread), from the latest checkpoint under ``cfg.ckpt_dir`` if there is
-    one. Returns the metrics, ``examples_per_s`` over the whole loop, and
-    each step's loss and wall time (``losses``, ``step_s``; a step ends when
-    its predictions reach the host for the metrics)."""
+    one. Returns the metrics, ``examples_per_s``, and each step's loss and
+    wall time (``losses``, ``step_s``; a step ends when its predictions
+    reach the host for the metrics). ``examples_per_s`` counts the examples
+    of the steps after the first over the time from the first step's end to
+    the last's, so that the prefetch thread's start and the first step's
+    warm-up stay out; a loop of one step counts its examples over the whole
+    loop."""
     cfg = trainer.cfg
     # a resumed run numbers its steps and checkpoints on from the one it restored
     if cfg.ckpt_dir and latest_step(cfg.ckpt_dir) is not None:
@@ -270,21 +275,25 @@ def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]
     profiler = Profiler() if cfg.output_trace else None
     losses, step_s = [], []
     saved = None  # the step of the last checkpoint this run wrote
-    n_examples = 0
-    t0 = time.time()
+    n_examples = n_first = 0  # the examples of every step, of the first
+    t0 = time.perf_counter()
+    t_first = t_last = t0  # the ends of the first and the last step
     for step, raw in enumerate(background_prefetch(batches, size=8)):
         t_step = time.perf_counter()
         loss, preds, labels, weights = trainer.train_step(to_device(raw, trainer.device))
         metrics.update(preds, labels, weights)
         losses.append(float(loss))
-        step_s.append(time.perf_counter() - t_step)
+        t_last = time.perf_counter()
+        step_s.append(t_last - t_step)
         n_examples += int(raw[1].shape[0]) * (1 if trainer.mesh is None else trainer.mesh.size)
+        if step == 0:
+            t_first, n_first = t_last, n_examples
         if profiler is not None:
             profiler.step()
         if step % cfg.log_every == 0:
             logger.info(
                 "step %d: loss %.5f (%.1f ex/s)",
-                step, losses[-1], n_examples / (time.time() - t0),
+                step, losses[-1], n_examples / (time.perf_counter() - t0),
             )
             tb.scalar("losses/total", losses[-1], step)
             tb.scalars(metrics.compute_and_log(step), step, prefix="train/")
@@ -296,9 +305,13 @@ def train_loop(trainer: DlrmTrainer, batches: Iterator[Tuple]) -> Dict[str, Any]
     if cfg.ckpt_dir and saved != trainer.step:
         trainer.save(cfg.ckpt_dir)
     tb.close()
+    if len(losses) > 1:
+        examples_per_s = (n_examples - n_first) / (t_last - t_first)
+    else:
+        examples_per_s = n_examples / (time.perf_counter() - t0)
     return {
         "metrics": metrics.compute(),
-        "examples_per_s": n_examples / (time.time() - t0),
+        "examples_per_s": examples_per_s,
         "losses": losses,
         "step_s": step_s,
         "trace_paths": [] if profiler is None else profiler.paths,

@@ -82,6 +82,7 @@ from generative_recommenders_tpu_torch.utils.bucketing import (
     truncate_to_stochastic_length,
 )
 from generative_recommenders_tpu_torch.utils.checkpoint import save_checkpoint
+from generative_recommenders_tpu_torch.utils.profiling import span
 from generative_recommenders_tpu_torch.utils.tb import SummaryLogger
 
 logger = logging.getLogger(__name__)
@@ -241,9 +242,10 @@ class ResearchTrainer:
             sup_ratings = torch.cat(
                 [ratings, ratings.new_zeros(ratings.shape[0], cfg.model.gr_output_length + 1)], dim=1
             )[:, 1 : output.shape[1] + 1]
-            loss, aux = bce_loss_with_ratings(
-                output, pos_emb, (sup_ratings > 3).float(), ar_mask, temperature=cfg.temperature
-            )
+            with span("research.loss"):
+                loss, aux = bce_loss_with_ratings(
+                    output, pos_emb, (sup_ratings > 3).float(), ar_mask, temperature=cfg.temperature
+                )
             return self._weighted(loss, aux)
         num_to_sample = 1 if cfg.loss_module == "BCELoss" else cfg.num_negatives
         if cfg.sampling_strategy == "in-batch":
@@ -254,25 +256,28 @@ class ResearchTrainer:
                 ids=flat_ids, presences=flat_ids != 0,
                 embeddings=batch_rows(input_embeddings.reshape(-1, input_embeddings.shape[-1])),
             )
-            neg_ids, neg_emb = self.sampler(self.negatives_gen, state, sup_ids, num_to_sample)
+            with span("research.negatives"):
+                neg_ids, neg_emb = self.sampler(self.negatives_gen, state, sup_ids, num_to_sample)
         else:
-            neg_ids, neg_emb = self.sampler(
-                self.negatives_gen, sup_ids, num_to_sample, self._negatives_embedding_fn()
-            )
-        if cfg.loss_module == "SampledSoftmaxLoss" and cfg.model.interaction_module_type == "MoL":
-            loss, aux = self._mol_loss(batch, output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb)
-        elif cfg.loss_module == "SampledSoftmaxLoss":
-            args = (output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb, cfg.temperature)
-            if cfg.loss_activation_checkpoint:
-                loss, aux = torch.utils.checkpoint.checkpoint(
-                    sampled_softmax_loss, *args, use_reentrant=False, preserve_rng_state=False
+            with span("research.negatives"):
+                neg_ids, neg_emb = self.sampler(
+                    self.negatives_gen, sup_ids, num_to_sample, self._negatives_embedding_fn()
                 )
+        with span("research.loss"):
+            if cfg.loss_module == "SampledSoftmaxLoss" and cfg.model.interaction_module_type == "MoL":
+                loss, aux = self._mol_loss(batch, output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb)
+            elif cfg.loss_module == "SampledSoftmaxLoss":
+                args = (output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb, cfg.temperature)
+                if cfg.loss_activation_checkpoint:
+                    loss, aux = torch.utils.checkpoint.checkpoint(
+                        sampled_softmax_loss, *args, use_reentrant=False, preserve_rng_state=False
+                    )
+                else:
+                    loss, aux = sampled_softmax_loss(*args)
             else:
-                loss, aux = sampled_softmax_loss(*args)
-        else:
-            loss, aux = bce_loss(
-                output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb, temperature=cfg.temperature
-            )
+                loss, aux = bce_loss(
+                    output, pos_emb, sup_ids, ar_mask, neg_ids, neg_emb, temperature=cfg.temperature
+                )
         return self._weighted(loss, aux)
 
     def _negatives_embedding_fn(self):
@@ -328,7 +333,8 @@ class ResearchTrainer:
         # the backward too: the loss checkpoint recomputes the loss in it
         with self._batch_scope():
             loss, _ = self.loss(to_device(batch, self.device))
-            loss.backward()
+            with span("train.backward"):
+                loss.backward()
         loss = self._sum_gradients(loss.detach())
         self.optimizer.step()
         if self.schedule is not None:
